@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (mirrors gaussian_ray_tracing_tpu/ops)."""

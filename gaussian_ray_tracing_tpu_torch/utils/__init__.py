@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (mirrors gaussian_ray_tracing_tpu/utils)."""
