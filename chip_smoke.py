@@ -2,8 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (gaussian_ray_tracing_tpu_torch) on
 one NVIDIA GPU: builds the hand-written kernels from the checkout, holds
 each against its plain torch version, renders the exact-oracle goldens
-through the kernel path, drives the main path (GaussianRayTracer, 1280x720,
-100k gaussians, bench config) and times it against the plain path.
+through the kernel path, drives the render main path (GaussianRayTracer,
+1280x720, 100k gaussians, bench config) and the training main path
+(Trainer.fit, 512x512, 50k gaussians, key order), times both against the
+plain path, and runs `cli render` and `cli fit`.
 
     python3 chip_smoke.py
 
@@ -29,6 +31,13 @@ BENCH_KW = dict(hit_multiplicity=1, order="window", march_chunk=128)
 GOLDEN_EYE = (0.0, 0.3, 2.8)
 PSNR_KERNEL, MAXABS_KERNEL = 70.0, 1e-2  # the JAX suite's quad-path bars
 PSNR_GOLDEN = 40.0  # the exact-oracle parity bar
+TIN_ABS = 1e-4  # saved carries, kernel vs plain
+# K3 vs plain, per written column max|a-b| / max|b|: the JAX suite's
+# hand-written-backward bar, and twice it on the 9 M columns, whose
+# reference algebra cancels in float32 (PERF.md, "K3 per column"); on every
+# written column K3 stays as close to the float64 witness as the plain does
+BWD_REL, BWD_REL_M, WITNESS_RATIO = 1e-3, 2e-3, 1.25
+TRAIN_KW = dict(hit_multiplicity=1, order="key", march_chunk=256)  # cli fit's default
 
 
 def log(phase: str, msg: str) -> None:
@@ -84,12 +93,18 @@ def main() -> None:
 
     from gaussian_ray_tracing_tpu_torch import cameras
     from gaussian_ray_tracing_tpu_torch.config import RenderConfig
-    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_pair_stream
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        prepare_pair_stream, prepare_train_stream,
+    )
     from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
     from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
     from gaussian_ray_tracing_tpu_torch.ops import cuda_build
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
     from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.train.losses import dssim_l1_loss
     from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
     from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
     from gaussian_ray_tracing_tpu_torch.utils.image import psnr
@@ -147,6 +162,77 @@ def main() -> None:
                               f"PSNR {p:.2f} dB max abs {m:.3g}")
                     check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL,
                           f"K1 vs plain {name} c={chunk} skip={skip} {what}")
+
+    # --- phase 3b: K1 key + saved carries and K3 vs plain ---------------
+    def train_stream(scene, cam, cfg):
+        stream, rows, n_pairs = prepare_train_stream(scene, cam, cfg)
+        dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
+        return stream.starts, rows.detach().contiguous(), dirs_t, n_pairs
+
+    written = [i for i, c in enumerate(kmarch.TRAIN_COLUMNS) if c in kmarch.DIFF_COLUMNS]
+    m_cols = range(kmarch.T_M0, kmarch.T_M0 + 9)
+
+    def k1key_check(what, got, want):
+        """K1 key + save_tin against march_plain on one stream."""
+        check(torch.equal(got[3], want[3]), f"K1 key {what}: chunk_base differs")
+        err = 0.0
+        for part, a, b in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            p, m = psnr(a, b), float(np.abs(a - b).max())
+            err = max(err, m)
+            log("K1key", f"{what} {part}: PSNR {p:.2f} dB max abs {m:.3g}")
+            check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 key vs plain {what} {part}")
+        m = float((got[2] - want[2]).abs().max())
+        log("K1key", f"{what} tin ({got[2].shape[0]} chunks): max abs {m:.3g}")
+        check(m <= TIN_ABS, f"K1 saved carries vs plain {what}: {m:.3g}")
+        return max(err, m)
+
+    def k3_check(what, args):
+        """K3 against march_bwd_plain and its float64 witness, per written
+        column; two launches bit-identical. Returns the max abs difference."""
+        g1, g2 = kbwd.march_bwd(*args), kbwd.march_bwd(*args)
+        torch.cuda.synchronize()
+        gp = kbwd.march_bwd_plain(*args)
+        g64 = kbwd.march_bwd_plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                                     else a for a in args))
+        check(torch.equal(g1, g2), f"K3 {what} is not deterministic")
+        check(not g1[:, [i for i in range(g1.shape[1]) if i not in written]].any(),
+              f"K3 {what}: a quad, radius or pad column is not zero")
+        rel, wit = {}, {}
+        for i in written:
+            rel[i] = float((g1[:, i] - gp[:, i]).abs().max() / gp[:, i].abs().max())
+            w = g64[:, i].abs().max()
+            wit[i] = (float((g1[:, i] - g64[:, i]).abs().max() / w),
+                      float((gp[:, i] - g64[:, i]).abs().max() / w))
+        iw = max(written, key=lambda i: wit[i][0])
+        log("K3", f"{what}: max|a-b|/max|b| per column "
+                  + " ".join(f"{i}:{rel[i]:.3g}" for i in written)
+                  + f"; worst vs float64 witness K3 {wit[iw][0]:.3g} plain {wit[iw][1]:.3g} "
+                    f"(col {iw}); two launches bit-identical")
+        for i in written:
+            bar = BWD_REL_M if i in m_cols else BWD_REL
+            check(rel[i] <= bar, f"K3 vs plain {what} column {i}: {rel[i]:.3g} > {bar}")
+            check(wit[i][0] <= WITNESS_RATIO * wit[i][1],
+                  f"K3 {what} column {i}: {wit[i][0]:.3g} from the float64 witness, plain "
+                  f"{wit[i][1]:.3g}")
+        return float((g1 - gp).abs().max())
+
+    key_err, bwd_err = 0.0, 0.0
+    for name in ("small_pinhole_256", "pinhole_720p"):
+        _, scene, cam, _ = golden(name)
+        for chunk in (128, 256):
+            cfg = RenderConfig(**{**TRAIN_KW, "march_chunk": chunk})
+            starts, rows, dirs_t, _ = train_stream(scene, cam, cfg)
+            got = kmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True)
+            torch.cuda.synchronize()
+            want = kmarch.march_plain(starts, rows, dirs_t, cfg, chunk, save_tin=True)
+            key_err = max(key_err, k1key_check(f"{name} c={chunk}", got, want))
+
+            gen = torch.Generator(device=dev).manual_seed(chunk)
+            d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+            d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+            args = (starts, rows, dirs_t, cam.eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
+            bwd_err = max(bwd_err, k3_check(f"{name} c={chunk}", args))
 
     # --- phase 4: goldens through the full GPU path ---------------------
     for name in ("pinhole_720p", "hm2_720p", "small_pinhole_256", "small_hm2_256"):
@@ -230,6 +316,88 @@ def main() -> None:
                   f"{k1_plain:.3f} ms; K2 scan (2, {cap}): {k2_ms:.4f} ms, plain "
                   f"{k2_plain:.4f} ms ({card})")
 
+    # --- phase 6: the training main path at full size --------------------
+    # cli fit's defaults at the bench's training size (bench.py:109-160):
+    # 8 orbit targets of random_scene(50k, seed 0) at 512x512, rendered by
+    # the port in key order, fitted from random_scene(50k, seed 1)
+    tcfg = RenderConfig(**TRAIN_KW)
+    target_scene = random_scene(50_000, seed=0, device=dev)
+    center = target_scene.center().cpu().numpy()
+    views = []
+    with torch.no_grad():
+        for i in range(8):
+            cam = cameras.orbit_camera(center, 2.8, 360.0 * i / 8, 15.0, width=512,
+                                       height=512, device=dev)
+            views.append((cam, render(target_scene, cam, tcfg, method="gpu")["rgb"]))
+    init = random_scene(50_000, seed=1, device=dev)
+    trainer = ktrain.Trainer(GaussianModel.from_scene(init), config=tcfg, lr=2e-3)
+    kmarch.march.launches = kmarch.march.save_tin_launches = 0
+    kbwd.march_bwd.launches = kscan.multi_cumsum_i32.launches = 0
+    losses = []
+    for step in range(1, 21):  # steps is the total schedule: one more each call
+        k1, k3 = kmarch.march.save_tin_launches, kbwd.march_bwd.launches
+        losses += trainer.fit(views, steps=step)
+        check(kmarch.march.save_tin_launches > k1 and kbwd.march_bwd.launches > k3,
+              f"train step {step}: K1 save_tin or K3 was not launched")
+    torch.cuda.synchronize()
+    train_launches = {"march_key_save_tin": kmarch.march.save_tin_launches,
+                      "march_bwd": kbwd.march_bwd.launches,
+                      "scan": kscan.multi_cumsum_i32.launches}
+    check(train_launches["scan"] > 0, "training did not launch K2")
+    check(len(losses) == 20 and all(np.isfinite(losses)), f"bad losses {losses}")
+    log("train", f"20 steps 512x512 50k: loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+                 f"same view (0) {losses[0]:.6f} -> {losses[16]:.6f}, launches {train_launches}")
+    check(losses[16] < losses[0], f"loss on view 0 did not fall: {losses[0]} -> {losses[16]}")
+
+    step_ms = {"gpu": [], "plain": []}
+    model = trainer.model
+    steppers = {m: ktrain.make_train_step(tcfg, trainer.optimizer, method=m,
+                                          pair_capacity=trainer._pair_capacity)
+                for m in step_ms}
+    for _ in range(2):  # kernel, plain, kernel, plain: 12 + 10 timed steps
+        for method, n in (("gpu", 6), ("plain", 5)):
+            for i in range(n):
+                cam, target = views[i % 8]
+                step_ms[method] += cuda_ms(lambda: steppers[method](model, cam, target), 1)
+    step_med = {m: statistics.median(v) for m, v in step_ms.items()}
+    log("train", f"train step 512x512 50k key order, median of {len(step_ms['gpu'])}/"
+                 f"{len(step_ms['plain'])}: gpu {step_med['gpu']:.3f} ms, plain "
+                 f"{step_med['plain']:.3f} ms ({card})")
+
+    # kernels alone at the training path's shapes (first view, c=256),
+    # held against their plain versions there too
+    cam0 = views[0][0]
+    starts, rows, dirs_t, n_pairs_t = train_stream(model.activate(), cam0, tcfg)
+    fwd = lambda f: f(starts, rows, dirs_t, tcfg, 256, save_tin=True)
+    got = fwd(kmarch.march)
+    torch.cuda.synchronize()
+    key_err = max(key_err, k1key_check("train 512x512 50k c=256", got, fwd(kmarch.march_plain)))
+    tin, base = got[2], got[3]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+    d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+    bargs = (starts, rows, dirs_t, cam0.eye, tin, base, d_rgb, d_t, tcfg, 256)
+    bwd_err = max(bwd_err, k3_check("train 512x512 50k c=256", bargs))
+    k1key_ms = statistics.median(cuda_ms(lambda: fwd(kmarch.march), 20))
+    k1key_plain = statistics.median(cuda_ms(lambda: fwd(kmarch.march_plain), 5))
+    k3_ms = statistics.median(cuda_ms(lambda: kbwd.march_bwd(*bargs), 20))
+    k3_plain = statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 5))
+    log("kernel", f"K1 key+save_tin {n_pairs_t} pairs c=256: {k1key_ms:.3f} ms, plain "
+                  f"{k1key_plain:.3f} ms; K3 {k3_ms:.3f} ms, plain {k3_plain:.3f} ms ({card})")
+
+    # one dssim_l1 step on the card against the same step on the CPU
+    small = random_scene(5000, seed=2)
+    dl = {}
+    for where in ("cuda", "cpu"):
+        cam = cameras.Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0),
+                                    width=128, height=128, device=where)
+        target = render(random_scene(5000, seed=3, device=where), cam, tcfg)["rgb"]
+        m = GaussianModel.from_scene(small.to(where)).requires_grad_(True)
+        step = ktrain.make_train_step(tcfg, ktrain.default_optimizer(m), dssim_l1_loss)
+        dl[where] = float(step(m, cam, target)["loss"])
+    log("dssim", f"dssim_l1 step 128x128 5k: card {dl['cuda']:.8f}, cpu {dl['cpu']:.8f}")
+    check(abs(dl["cuda"] - dl["cpu"]) <= 1e-4 * abs(dl["cpu"]), "dssim_l1 card vs cpu")
+
     # --- CLI, one frame through a user's entry point ---------------------
     os.makedirs(ROOT / "build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -245,16 +413,37 @@ def main() -> None:
         check(img.max() > 0, "cli PNG is all black")
         log("cli", f"{res.stdout.strip()} (max pixel {int(img.max())})")
 
+        fit_ply = Path(tmp) / "fit.ply"
+        res = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.cli", "fit", "--ply", "data/fitted_20k.ply",
+             "--fit-gaussians", "20000", "--width", "512", "--height", "512",
+             "--steps", "10", "-o", str(fit_ply)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        check(res.returncode == 0, f"cli fit failed:\n{res.stderr[-4000:]}")
+        fitted = load_ply(str(fit_ply), device=dev)
+        check(fitted.num_active == 20_000 and bool(torch.isfinite(fitted.means).all()),
+              "cli fit wrote a bad PLY")
+        log("cli", f"fit: {res.stdout.strip().splitlines()[-1]} ({fitted.num_active} read back)")
+
     src = f"{PKG}/csrc"
     print(json.dumps({"kernels": [
         {"name": "march", "route": "cuda", "source": f"{src}/march.cu",
          "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195",
          "launches": launches["march"], "max_abs_err": march_err,
          "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "march_key_save_tin", "route": "cuda", "source": f"{src}/march.cu",
+         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195",
+         "launches": train_launches["march_key_save_tin"], "max_abs_err": key_err,
+         "ms": k1key_ms, "plain_ms": k1key_plain},
         {"name": "multi_cumsum_i32", "route": "cuda", "source": f"{src}/scan.cu",
          "replaces": "gaussian_ray_tracing_tpu/ops/scan.py:81",
          "launches": launches["scan"], "max_abs_err": scan_err,
          "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "march_bwd", "route": "cuda", "source": f"{src}/march_bwd.cu",
+         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
+         "launches": train_launches["march_bwd"], "max_abs_err": bwd_err,
+         "ms": k3_ms, "plain_ms": k3_plain},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

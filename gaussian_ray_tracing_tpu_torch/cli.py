@@ -1,16 +1,25 @@
-"""Command-line interface of the port (the `render` subcommand of
-gaussian_ray_tracing_tpu/cli.py, pinhole only).
+"""Command-line interface of the port (the `render` and `fit` subcommands
+of gaussian_ray_tracing_tpu/cli.py; pinhole, key-order sh0 training).
 
     python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
         --width 1280 --height 720 -o out.png
+    python -m gaussian_ray_tracing_tpu_torch.cli fit --ply data/fitted_20k.ply \
+        --fit-gaussians 20000 --width 512 --height 512 --steps 200 -o fit.ply
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 import torch
+
+
+def _device(args) -> str:
+    if args.device == "auto":
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    return args.device
 
 
 def _build(args):
@@ -19,9 +28,7 @@ def _build(args):
     from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer
     from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
 
-    device = args.device
-    if device == "auto":
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = _device(args)
     if args.ply:
         from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
 
@@ -50,6 +57,65 @@ def cmd_render(args):
     print(f"wrote {args.output} ({frame.shape[1]}x{frame.shape[0]})")
 
 
+def cmd_fit(args):
+    """Fit a randomly initialized scene to target renders of a synthetic or
+    PLY scene from n orbit views (the JAX package's `cli fit` without a
+    dataset)."""
+    from gaussian_ray_tracing_tpu_torch.cameras import orbit_camera
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_trainable
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+    from gaussian_ray_tracing_tpu_torch.train.trainer import Trainer, gaussian_optimizer
+
+    for flag, on in (("--dataset", args.dataset), ("--densify", args.densify),
+                     ("--checkpoint-dir", args.checkpoint_dir)):
+        if on:
+            raise NotImplementedError(f"cli fit {flag} is not ported yet")
+    cfg = RenderConfig(hit_multiplicity=1, order=args.order,
+                       march_chunk=128 if args.order == "window" else 256,
+                       sh_degree=args.sh_degree)
+    check_trainable(cfg)
+    device = _device(args)
+    if args.ply:
+        from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+
+        target_scene = load_ply(args.ply, device=device)
+    else:
+        target_scene = random_scene(args.synthetic or 20_000, seed=args.seed, device=device)
+    center = target_scene.center().cpu().numpy()
+    n_views = args.views or 8
+    views = []
+    with torch.no_grad():
+        for i in range(n_views):
+            cam = orbit_camera(center, 2.8, 360.0 * i / n_views, 15.0, width=args.width,
+                               height=args.height, device=device)
+            views.append((cam, render(target_scene, cam, cfg, method=args.method)["rgb"]))
+
+    init = random_scene(args.fit_gaussians, seed=args.seed + 1, pad_to=args.capacity,
+                        device=device)
+    model = GaussianModel.from_scene(init)
+    loss_fn = None
+    if args.loss == "dssim_l1":
+        from gaussian_ray_tracing_tpu_torch.train.losses import dssim_l1_loss
+
+        loss_fn = dssim_l1_loss
+    optimizer = None
+    if args.optimizer == "3dgs":
+        ext = float(np.linalg.norm(init.means.cpu().numpy() - center[None], axis=-1).max())
+        optimizer = gaussian_optimizer(model, scene_extent=max(ext, 1e-3),
+                                       total_steps=args.steps, lr_scale=args.lr_scale)
+    trainer = Trainer(model, config=cfg, lr=args.lr, loss_fn=loss_fn, optimizer=optimizer,
+                      method=args.method)
+    losses = trainer.fit(views, steps=args.steps)
+    if args.output:
+        trainer.save(args.output)
+    print(json.dumps({
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "steps": args.steps, "out": args.output, "alive": None,
+    }))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="grt-torch", description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -73,6 +139,35 @@ def main(argv=None):
                    help="auto (cuda when available, else cpu), cuda, cpu, ...")
     p.add_argument("-o", "--output", type=str, default="render.png")
     p.set_defaults(func=cmd_render)
+
+    p = sub.add_parser("fit", help="fit a random scene to target renders")
+    p.add_argument("-p", "--ply", type=str, default=None, help="target 3DGS PLY")
+    p.add_argument("--synthetic", type=int, default=None, metavar="N",
+                   help="target: a seeded synthetic scene with N gaussians (default 20000)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--width", type=int, default=128)
+    p.add_argument("--height", type=int, default=128)
+    p.add_argument("--views", type=int, default=None, help="orbit views (default 8)")
+    p.add_argument("--order", choices=["key", "window"], default="key",
+                   help="training-forward hit ordering (window is not ported yet)")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--fit-gaussians", type=int, default=2000)
+    p.add_argument("--sh-degree", type=int, default=0)
+    p.add_argument("--lr", type=float, default=2e-3)
+    p.add_argument("--capacity", type=int, default=None,
+                   help="pad the fitted scene to this many slots")
+    p.add_argument("--loss", choices=["l2", "dssim_l1"], default="l2")
+    p.add_argument("--optimizer", choices=["adam", "3dgs"], default="adam")
+    p.add_argument("--lr-scale", type=float, default=1.0,
+                   help="multiplier on the 3dgs per-group rates")
+    p.add_argument("--densify", action="store_true", help="not ported yet: raises")
+    p.add_argument("--dataset", type=str, default=None, help="not ported yet: raises")
+    p.add_argument("--checkpoint-dir", type=str, default=None, help="not ported yet: raises")
+    p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
+    p.add_argument("--device", default="auto",
+                   help="auto (cuda when available, else cpu), cuda, cpu, ...")
+    p.add_argument("-o", "--output", type=str, default=None)
+    p.set_defaults(func=cmd_fit)
     args = ap.parse_args(argv)
     args.func(args)
 

@@ -4,7 +4,8 @@ Same fields and defaults as the JAX `RenderConfig`, so a config built for
 one package means the same render in the other. The field comments there
 carry the history of each default; they are not repeated here.
 `unsupported_fields` lists the values the ported render path does not
-implement yet, so it can refuse them instead of rendering something else.
+implement yet, so it can refuse them instead of rendering something else;
+`unsupported_train_fields` does the same for the training path.
 """
 
 from __future__ import annotations
@@ -104,12 +105,13 @@ DEFAULT_CONFIG = RenderConfig()
 
 def unsupported_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported primary render does not implement yet
-    (pinhole, window order on the event key, quad response, SH degree 0)."""
+    (pinhole, window order on the event key or key order, quad response,
+    SH degree 0)."""
     bad = []
     if config.camera_model != CameraModel.PINHOLE or config.distortion:
         bad.append(f"camera_model={config.camera_model.value}")
     checks = {
-        "order": config.order == "window",
+        "order": config.order in ("window", "key"),
         "window_key": config.window_key == "event",
         "pair_keys": config.pair_keys == "gaussian",
         "sh_degree": config.sh_degree == 0,
@@ -126,9 +128,26 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
     return bad
 
 
-def check_supported(config: RenderConfig) -> None:
+def unsupported_train_fields(config: RenderConfig) -> list[str]:
+    """Values of `config` the ported training path does not implement yet:
+    on top of the render's limits, it trains in key order only (the
+    window-order backward replays the forward's sort, which is not ported)."""
     bad = unsupported_fields(config)
+    if config.order == "window":
+        bad.append("order='window' (training)")
+    return bad
+
+
+def _raise_unsupported(bad: list[str]) -> None:
     if bad:
         raise NotImplementedError(
             "not yet ported to gaussian_ray_tracing_tpu_torch: " + ", ".join(bad)
         )
+
+
+def check_supported(config: RenderConfig) -> None:
+    _raise_unsupported(unsupported_fields(config))
+
+
+def check_trainable(config: RenderConfig) -> None:
+    _raise_unsupported(unsupported_train_fields(config))

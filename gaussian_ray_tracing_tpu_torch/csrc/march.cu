@@ -1,16 +1,19 @@
 // Kernel K1: fused forward march of the sorted pair stream.
 //
 // Replaces the Pallas kernel `_march_kernel` (wrapper `pallas_march_stream`)
-// of gaussian_ray_tracing_tpu/ops/pallas_march.py in the mode the primary
-// render uses: window order on the exact event t, quad response with a
-// shared ray origin, SH degree 0, full [t_min, t_max] rays. The semantics,
-// per-tile decisions included, are those of ops/march.py, whose plain torch
-// version `march_plain` is the reference this kernel is tested against.
+// of gaussian_ray_tracing_tpu/ops/pallas_march.py in the modes the primary
+// render and the training forward use: quad response with a shared ray
+// origin, SH degree 0, full [t_min, t_max] rays, in window order or in key
+// order. The semantics, per-tile decisions included, are those of
+// ops/march.py, whose plain torch version `march_plain` is the reference
+// this kernel is tested against. The two orders are two __global__
+// functions: `march_kernel` (window) and `march_key_kernel` (key, with the
+// optional saved carries of the training forward).
 //
-// Design: one block per 16x16 tile, one thread per ray (R = blockDim.x).
-// The tile's chunks of C candidates are staged in shared memory as compact
-// 16-float rows (64 B; coalesced, each row read by every ray of the tile).
-// Per chunk:
+// Window order. One block per 16x16 tile, one thread per ray (R =
+// blockDim.x). The tile's chunks of C candidates are staged in shared
+// memory as compact 16-float rows (64 B; coalesced, each row read by every
+// ray of the tile). Per chunk:
 //   1. tile-wide chunk skip: block max of T against the skip threshold;
 //   2. pass 1: each ray evaluates its C candidates (response, event t, gate)
 //      and records whether it sees an inversion among significant ones,
@@ -25,10 +28,24 @@
 //   unfired path free of local memory; only fired chunks touch the sorted
 //   list, which lives in local memory (C * 5 bytes per thread).
 //
+// Key order (pallas_march.py:552-569, 963-968). The same block layout and
+// staging; one evaluation per candidate with the sqrt-free full-range gate
+// alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0), composited in stream
+// order, no fire test and no sort. With saved carries (`tin` non-null, the
+// training forward) each chunk's carry-in T is stored BEFORE its skip
+// test at row chunk_base[tile] + j, so skipped chunks are saved too and
+// the backward (csrc/march_bwd.cu) can replay every chunk; the skip
+// threshold is then min_transmittance. The prefix of log1p(-a) is summed
+// sequentially per ray, in the order the backward sums it.
+//
+// Rows may be the 16-float compact rows or the 32-float training rows
+// (`stride` floats apart); the march reads the first 16 floats of each.
+//
 // What bounds it on an H100: not memory (each 64 B feature row is read
 // once per tile and reused by 256 rays) but per-(ray, candidate) float32
-// math, two evaluations per candidate with one exp, one sqrt and two
-// divides each, plus the local-memory insertion sort in fired chunks.
+// math: in window order two evaluations per candidate with one exp, one
+// sqrt and two divides each, plus the local-memory insertion sort in
+// fired chunks; in key order one evaluation with one exp and one divide.
 // The float math stays IEEE float32 with no FMA contraction (the wrapper
 // builds with -fmad=false): pp = oo - od^2/dd cancels by orders of
 // magnitude, and matching the plain version's per-operation rounding keeps
@@ -45,11 +62,14 @@ constexpr float kInvA = (float)(1.0 / 32767.0);
 constexpr float kInvCol = (float)(1.0 / 255.75);
 
 struct Params {
-  const int* starts;   // (T+1,) pair-segment starts
-  const float* feats;  // (P, kRow) compact rows in stream order
-  const float* dirs;   // (T, R, 3) ray directions
-  float* rgb;          // (T, R, 3)
-  float* t_final;      // (T, R)
+  const int* starts;      // (T+1,) pair-segment starts
+  const float* feats;     // (P, stride) rows in stream order; the first kRow used
+  const float* dirs;      // (T, R, 3) ray directions
+  float* rgb;             // (T, R, 3)
+  float* t_final;         // (T, R)
+  float* tin;             // (sum of chunks, R) saved carry-in T, or null
+  const int* chunk_base;  // (T+1,) first saved row of each tile, or null
+  int stride;
   float t_lo, t_hi, min_t, t_skip, alpha_min, alpha_clamp;
   int hm;
 };
@@ -81,6 +101,20 @@ struct Ray {
   bool live;
 };
 
+__device__ __forceinline__ float effective_alpha(float alpha, int hm) {
+  if (hm == 1) return alpha;
+  const float om = 1.f - alpha;
+  float pw = om;
+  for (int k = 1; k < hm; ++k) pw *= om;
+  return 1.f - pw;
+}
+
+// Stage chunk rows [0, m) of the segment at g into sf as kRow-float rows.
+__device__ __forceinline__ void stage(float* sf, const float* g, int m, int stride) {
+  for (int k = threadIdx.x; k < m * kRow; k += blockDim.x)
+    sf[k] = g[(size_t)(k / kRow) * stride + k % kRow];
+}
+
 // Event t and gated effective alpha of one (ray, candidate) pair.
 __device__ __forceinline__ void evaluate(const Params& p, const Ray& ray,
                                          const float* f, float& t_ev, float& a) {
@@ -100,14 +134,23 @@ __device__ __forceinline__ void evaluate(const Params& p, const Ray& ray,
   const float t_exit = (-od + sq) * inv_dd;
   t_ev = t_entry < p.t_lo ? t_exit : t_entry;
   const bool gate = ray.live && t_ev >= p.t_lo && t_ev <= p.t_hi && alpha > p.alpha_min;
-  float a_eff = alpha;
-  if (p.hm != 1) {
-    const float om = 1.f - alpha;
-    float pw = om;
-    for (int k = 1; k < p.hm; ++k) pw *= om;
-    a_eff = 1.f - pw;
-  }
-  a = gate ? a_eff : 0.f;
+  a = gate ? effective_alpha(alpha, p.hm) : 0.f;
+}
+
+// Key order: gated effective alpha with the sqrt-free full-range gate.
+__device__ __forceinline__ float evaluate_key(const Params& p, const Ray& ray, const float* f) {
+  const float dd = f[1] * ray.m0 + f[2] * ray.m1 + f[3] * ray.m2 + f[4] * ray.m3 +
+                   f[5] * ray.m4 + f[6] * ray.m5;
+  const float od = f[7] * ray.dx + f[8] * ray.dy + f[9] * ray.dz;
+  const float cq = f[10], oo = f[11];
+  const float rcp6 = 1.f / fmaxf(dd, 1e-6f);
+  const float t_star = -od * rcp6;
+  const float pp = oo + od * t_star;
+  const float resp = expf(-0.5f * fmaxf(pp, 0.f));
+  const float alpha = fminf(p.alpha_clamp, resp * f[0]);
+  const float q_lo = cq + p.t_lo * (2.f * od + p.t_lo * dd);
+  const bool gate = ray.live && alpha > p.alpha_min && (t_star >= p.t_lo || q_lo < 0.f);
+  return gate ? effective_alpha(alpha, p.hm) : 0.f;
 }
 
 // Front-to-back composite of one chunk's ordered candidates.
@@ -132,18 +175,9 @@ struct Composite {
   __device__ __forceinline__ float t_next() const { return below ? frozen : t0 * expf(s); }
 };
 
-template <int C>
-__global__ void __launch_bounds__(1024) march_kernel(Params p) {
-  __shared__ float sf[C * kRow];
-  __shared__ uint32_t scol[C];
-  __shared__ float red[32];
-
-  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
-  const int start = p.starts[tile];
-  const int n = p.starts[tile + 1] - start;
-
+__device__ __forceinline__ Ray load_ray(const float* dirs) {
   Ray ray;
-  const float* d = p.dirs + ((size_t)tile * R + tid) * 3;
+  const float* d = dirs + ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 3;
   ray.dx = d[0];
   ray.dy = d[1];
   ray.dz = d[2];
@@ -154,6 +188,27 @@ __global__ void __launch_bounds__(1024) march_kernel(Params p) {
   ray.m3 = 2.f * ray.dx * ray.dy;
   ray.m4 = 2.f * ray.dx * ray.dz;
   ray.m5 = 2.f * ray.dy * ray.dz;
+  return ray;
+}
+
+__device__ __forceinline__ void store_ray(const Params& p, float r, float g, float b, float T) {
+  const size_t ray_idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  p.rgb[ray_idx * 3 + 0] = r;
+  p.rgb[ray_idx * 3 + 1] = g;
+  p.rgb[ray_idx * 3 + 2] = b;
+  p.t_final[ray_idx] = T;
+}
+
+template <int C>
+__global__ void __launch_bounds__(1024) march_kernel(Params p) {
+  __shared__ float sf[C * kRow];
+  __shared__ uint32_t scol[C];
+  __shared__ float red[32];
+
+  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
+  const int start = p.starts[tile];
+  const int n = p.starts[tile + 1] - start;
+  const Ray ray = load_ray(p.dirs);
 
   float T = 1.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   uint32_t keys[C];
@@ -164,9 +219,9 @@ __global__ void __launch_bounds__(1024) march_kernel(Params p) {
     if (block_reduce(T, true, red) <= p.t_skip) break;
 
     const int m = min(C, n - j * C);
-    const float* g = p.feats + ((size_t)start + (size_t)j * C) * kRow;
+    const float* g = p.feats + ((size_t)start + (size_t)j * C) * p.stride;
     __syncthreads();  // the previous chunk is done with sf/scol
-    for (int k = tid; k < m * kRow; k += R) sf[k] = g[k];
+    stage(sf, g, m, p.stride);
     __syncthreads();
     for (int k = tid; k < m; k += R)
       scol[k] = pack_color(sf[k * kRow + 12], sf[k * kRow + 13], sf[k * kRow + 14]);
@@ -231,16 +286,56 @@ __global__ void __launch_bounds__(1024) march_kernel(Params p) {
     acc_b += comp.b;
   }
 
-  const size_t ray_idx = (size_t)tile * R + tid;
-  p.rgb[ray_idx * 3 + 0] = acc_r;
-  p.rgb[ray_idx * 3 + 1] = acc_g;
-  p.rgb[ray_idx * 3 + 2] = acc_b;
-  p.t_final[ray_idx] = T;
+  store_ray(p, acc_r, acc_g, acc_b, T);
 }
 
 template <int C>
-cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream) {
-  march_kernel<C><<<n_tiles, R, 0, stream>>>(p);
+__global__ void __launch_bounds__(1024) march_key_kernel(Params p) {
+  __shared__ float sf[C * kRow];
+  __shared__ float red[32];
+
+  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
+  const int start = p.starts[tile];
+  const int n = p.starts[tile + 1] - start;
+  const int n_chunks = (n + C - 1) / C;
+  const Ray ray = load_ray(p.dirs);
+  float* tin = p.tin ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
+
+  float T = 1.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  bool skipped = false;  // block-uniform; T never changes once skipped
+  for (int j = 0; j < n_chunks; ++j) {
+    if (tin) tin[(size_t)j * R] = T;
+    if (!skipped) skipped = block_reduce(T, true, red) <= p.t_skip;
+    if (skipped) {
+      if (!tin) break;
+      continue;  // the remaining chunks' carries are still saved
+    }
+    const int m = min(C, n - j * C);
+    __syncthreads();  // the previous chunk is done with sf
+    stage(sf, p.feats + ((size_t)start + (size_t)j * C) * p.stride, m, p.stride);
+    __syncthreads();
+
+    Composite comp(T);
+    for (int i = 0; i < m; ++i) {
+      const float* f = sf + i * kRow;
+      const float a = evaluate_key(p, ray, f);
+      if (a > 0.f) comp.add(a, f[12], f[13], f[14], p.min_t);
+    }
+    const float t_next = comp.t_next();
+    T = T > p.min_t ? t_next : T;
+    acc_r += comp.r;
+    acc_g += comp.g;
+    acc_b += comp.b;
+  }
+  store_ray(p, acc_r, acc_g, acc_b, T);
+}
+
+template <int C>
+cudaError_t launch(const Params& p, bool key_order, int n_tiles, int R, cudaStream_t stream) {
+  if (key_order)
+    march_key_kernel<C><<<n_tiles, R, 0, stream>>>(p);
+  else
+    march_kernel<C><<<n_tiles, R, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -250,22 +345,27 @@ extern "C" const char* grt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// key_order 0: window order (tin must be null); 1: key order, with saved
+// carries when tin and chunk_base are non-null. stride: floats per row (>= 16).
 extern "C" int grt_march(const void* starts, const void* feats, const void* dirs, void* rgb,
-                         void* t_final, int n_tiles, int rays_per_tile, int chunk, float t_lo,
+                         void* t_final, void* tin, const void* chunk_base, int n_tiles,
+                         int rays_per_tile, int chunk, int stride, int key_order, float t_lo,
                          float t_hi, float min_t, float t_skip, float alpha_min,
                          float alpha_clamp, int hit_multiplicity, void* stream) {
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0)
+  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
+      stride < kRow || (tin != nullptr) != (chunk_base != nullptr) || (tin && !key_order))
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
   Params p{(const int*)starts, (const float*)feats, (const float*)dirs, (float*)rgb,
-           (float*)t_final, t_lo, t_hi, min_t, t_skip, alpha_min, alpha_clamp,
-           hit_multiplicity};
+           (float*)t_final, (float*)tin, (const int*)chunk_base, stride, t_lo, t_hi, min_t,
+           t_skip, alpha_min, alpha_clamp, hit_multiplicity};
   cudaStream_t s = (cudaStream_t)stream;
+  const bool key = key_order != 0;
   switch (chunk) {
-    case 32: return (int)launch<32>(p, n_tiles, rays_per_tile, s);
-    case 64: return (int)launch<64>(p, n_tiles, rays_per_tile, s);
-    case 128: return (int)launch<128>(p, n_tiles, rays_per_tile, s);
-    case 256: return (int)launch<256>(p, n_tiles, rays_per_tile, s);
+    case 32: return (int)launch<32>(p, key, n_tiles, rays_per_tile, s);
+    case 64: return (int)launch<64>(p, key, n_tiles, rays_per_tile, s);
+    case 128: return (int)launch<128>(p, key, n_tiles, rays_per_tile, s);
+    case 256: return (int)launch<256>(p, key, n_tiles, rays_per_tile, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,15 @@
 """Full-frame primary render on the port's kernels (counterpart of
-gaussian_ray_tracing_tpu/models/pallas_renderer.py, forward only).
+gaussian_ray_tracing_tpu/models/pallas_renderer.py).
 
 Per frame: feature table with the quad columns -> exact conic footprints
 and the central-ray event depth key -> the sorted pair stream
 (ops/tiles.bin_pairs, whose head-fill scan is kernel K2) -> ONE gather of
-compact per-pair rows -> the fused march (kernel K1) -> untile, clip and
-blank. `use_kernels=False` runs the plain torch versions of both kernels
-on any device; otherwise the kernels run and every tensor must be on CUDA.
+per-pair rows -> the fused march (kernel K1) -> untile, clip and blank.
+`render_gpu` is the forward render (window or key order, compact 16-float
+rows); `render_gpu_diff` is the differentiable key-order render, whose
+backward is kernel K3 (ops/march_bwd.py). `use_kernels=False` runs the
+plain torch versions of the kernels on any device; otherwise the kernels
+run and every tensor must be on CUDA.
 """
 
 from __future__ import annotations
@@ -14,9 +17,12 @@ from __future__ import annotations
 import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_supported
+from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_supported, check_trainable
 from gaussian_ray_tracing_tpu_torch.models.tiled import feature_table, tile_rays, untile_image
-from gaussian_ray_tracing_tpu_torch.ops.march import chunk_for, compact_features, march, march_plain
+from gaussian_ray_tracing_tpu_torch.ops.march import (
+    chunk_for, compact_features, march, march_plain, train_features,
+)
+from gaussian_ray_tracing_tpu_torch.ops.march_bwd import march_stream_diff
 from gaussian_ray_tracing_tpu_torch.ops.response import ray_ellipsoid_span
 from gaussian_ray_tracing_tpu_torch.ops.tiles import bin_pairs, count_pairs, project_footprints_conic
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
@@ -30,15 +36,14 @@ def snug_pair_capacity(n_pairs: int) -> int:
     return max(_CAP_STEP, -(-int(n_pairs * 1.2) // _CAP_STEP) * _CAP_STEP)
 
 
-def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConfig,
-                        pair_capacity: int, use_kernels: bool = True):
-    """Feature table -> footprints -> sorted pair stream -> per-pair rows.
+def bin_frame(scene: GaussianScene, M, radius, camera: Camera, config: RenderConfig,
+              pair_capacity: int, use_kernels: bool = True):
+    """Footprints and the central-ray depth key -> sorted pair stream.
 
     pair_capacity is a floor: if the frame emits more pairs, the stream is
     rebuilt at a snug capacity, so no pair is ever dropped.
-    Returns (stream, pair_feats (n_pairs, 16) compact rows, n_pairs).
+    Returns (stream, per-pair gaussian ids (n_pairs,), n_pairs).
     """
-    table, M, radius = feature_table(scene, config, eye=camera.eye)
     bound_radius = radius * torch.amax(scene.scales, dim=-1)
     fp = project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
                                   bound_radius, camera, config)
@@ -59,8 +64,55 @@ def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConf
     if int(stream.n_dropped) != 0:
         raise RuntimeError(f"pair stream dropped {int(stream.n_dropped)} pairs")
     # gid is in depth-rank space; the valid slots are the first n_pairs
-    rows = compact_features(table)[stream.order]
-    return stream, rows[stream.gid[:n_pairs]], n_pairs
+    return stream, stream.order[stream.gid[:n_pairs].long()], n_pairs
+
+
+def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConfig,
+                        pair_capacity: int, use_kernels: bool = True):
+    """Feature table -> footprints -> sorted pair stream -> per-pair rows.
+    Returns (stream, pair_feats (n_pairs, 16) compact rows, n_pairs)."""
+    table, M, radius = feature_table(scene, config, eye=camera.eye)
+    stream, ids, n_pairs = bin_frame(scene, M, radius, camera, config, pair_capacity,
+                                     use_kernels)
+    return stream, compact_features(table)[ids], n_pairs
+
+
+def prepare_train_stream(scene: GaussianScene, camera: Camera, config: RenderConfig,
+                         pair_capacity: int | None = None, use_kernels: bool = True):
+    """The training counterpart of prepare_pair_stream: the feature table
+    with autograd, binning on detached tensors (it carries no gradient, as
+    in the reference), then one gather of (n_pairs, 32) training rows.
+    Returns (stream, rows, n_pairs)."""
+    table, M, radius = feature_table(scene, config, eye=camera.eye)
+    fixed = GaussianScene(*(getattr(scene, k).detach()
+                            for k in ("means", "scales", "quats", "opacities", "sh")),
+                          num_active=scene.num_active)
+    if pair_capacity is None:
+        pair_capacity = snug_pair_capacity(int(count_pairs(fixed, camera, config)))
+    stream, ids, n_pairs = bin_frame(fixed, M.detach(), radius.detach(), camera, config,
+                                     pair_capacity, use_kernels)
+    return stream, train_features(table)[ids], n_pairs
+
+
+def _check_devices(scene: GaussianScene, camera: Camera, use_kernels: bool):
+    if camera.device != scene.device:
+        raise ValueError(f"camera on {camera.device} but scene on {scene.device}")
+    if use_kernels and scene.device.type != "cuda":
+        raise RuntimeError(
+            f"the CUDA kernels need CUDA tensors; the scene is on {scene.device}"
+        )
+
+
+def _image(rgb_t, t_final_t, valid, camera: Camera, config: RenderConfig) -> dict:
+    """Untile, clip to [0, 1] and blank invalid pixels."""
+    H, W = camera.height, camera.width
+    tw, th = config.tile_w, config.tile_h
+    rgb = torch.clamp(untile_image(rgb_t, H, W, tw, th), 0.0, 1.0)
+    alpha = untile_image((1.0 - t_final_t)[..., None], H, W, tw, th)[..., 0]
+    return {
+        "rgb": torch.where(valid[..., None], rgb, 0.0),
+        "alpha": torch.where(valid, alpha, 0.0),
+    }
 
 
 def render_gpu(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderConfig(),
@@ -69,30 +121,37 @@ def render_gpu(scene: GaussianScene, camera: Camera, config: RenderConfig = Rend
     """Full-frame primary-ray render. Returns {rgb (H, W, 3) in [0, 1],
     alpha (H, W)} and, with return_aux, {"aux": {n_pairs, n_dropped}}."""
     check_supported(config)
-    if camera.device != scene.device:
-        raise ValueError(f"camera on {camera.device} but scene on {scene.device}")
-    if use_kernels and scene.device.type != "cuda":
-        raise RuntimeError(
-            f"the CUDA kernels need CUDA tensors; the scene is on {scene.device}"
-        )
+    _check_devices(scene, camera, use_kernels)
     if pair_capacity is None:
         pair_capacity = snug_pair_capacity(int(count_pairs(scene, camera, config)))
     stream, pair_feats, n_pairs = prepare_pair_stream(
         scene, camera, config, pair_capacity, use_kernels=use_kernels
     )
     _, dirs, valid = generate_rays(camera, config)
-    tw, th = config.tile_w, config.tile_h
-    dirs_t = tile_rays(dirs, tw, th)
+    dirs_t = tile_rays(dirs, config.tile_w, config.tile_h)
     march_fn = march if use_kernels else march_plain
     rgb_t, t_final_t = march_fn(stream.starts, pair_feats, dirs_t, config, chunk_for(config))
-
-    H, W = camera.height, camera.width
-    rgb = torch.clamp(untile_image(rgb_t, H, W, tw, th), 0.0, 1.0)
-    alpha = untile_image((1.0 - t_final_t)[..., None], H, W, tw, th)[..., 0]
-    out = {
-        "rgb": torch.where(valid[..., None], rgb, 0.0),
-        "alpha": torch.where(valid, alpha, 0.0),
-    }
+    out = _image(rgb_t, t_final_t, valid, camera, config)
     if return_aux:
         out["aux"] = {"n_pairs": n_pairs, "n_dropped": 0}
     return out
+
+
+def render_gpu_diff(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderConfig(),
+                    pair_capacity: int | None = None, use_kernels: bool = True):
+    """Differentiable full-frame render in key order (counterpart of
+    render_pallas_diff): the forward is K1 with saved carries, the backward
+    K3. Per-pair row gradients flow through the row gather (a scatter-add)
+    into the feature table and from there to the scene's means, M (scales
+    and rotations), opacities and sh0. Binning carries no gradient: the
+    footprints, depth key and pair stream are computed on detached tensors.
+    Returns {rgb (H, W, 3), alpha (H, W)}."""
+    check_trainable(config)
+    _check_devices(scene, camera, use_kernels)
+    stream, rows, _ = prepare_train_stream(scene, camera, config, pair_capacity, use_kernels)
+    _, dirs, valid = generate_rays(camera, config)
+    dirs_t = tile_rays(dirs, config.tile_w, config.tile_h)
+    rgb_t, t_final_t = march_stream_diff(rows, stream.starts, dirs_t,
+                                         camera.eye.to(torch.float32), config,
+                                         chunk_for(config), use_kernels)
+    return _image(rgb_t, t_final_t, valid, camera, config)

@@ -1,7 +1,8 @@
 """Top-level rendering API (counterpart of
 gaussian_ray_tracing_tpu/models/renderer.py).
 
-`render()` picks the kernel path or the plain torch path; the stateful
+`render()` picks the kernel path or the plain torch path, `render_diff()`
+the same for the differentiable key-order render; the stateful
 `GaussianRayTracer` holds the scene, frame size and camera. Mesh
 primitives and supersampling are not ported yet and raise.
 """
@@ -13,7 +14,7 @@ import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera
 from gaussian_ray_tracing_tpu_torch.config import RenderConfig
-from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import render_gpu
+from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import render_gpu, render_gpu_diff
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 
 METHODS = ("auto", "gpu", "plain")
@@ -32,18 +33,29 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
         raise NotImplementedError("mesh bounces are not ported yet")
     if supersample != 1:
         raise NotImplementedError("supersampling is not ported yet")
+    return render_gpu(scene, camera, config, pair_capacity=pair_capacity,
+                      return_aux=return_aux, use_kernels=_use_kernels(scene, method))
+
+
+def render_diff(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderConfig(),
+                method: str = "auto", pair_capacity: int | None = None):
+    """Differentiable render (key order; the training path): gradients reach
+    the scene's means, scales, quats, opacities and sh through the
+    hand-written backward K3. `method` as for render()."""
+    return render_gpu_diff(scene, camera, config, pair_capacity=pair_capacity,
+                           use_kernels=_use_kernels(scene, method))
+
+
+def _use_kernels(scene: GaussianScene, method: str) -> bool:
     if method == "auto":
         method = "gpu" if scene.device.type == "cuda" else "plain"
     if method == "gpu":
         if not torch.cuda.is_available():
             raise RuntimeError("method='gpu' needs CUDA, which is not available")
-        use_kernels = True
-    elif method == "plain":
-        use_kernels = False
-    else:
-        raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
-    return render_gpu(scene, camera, config, pair_capacity=pair_capacity,
-                      return_aux=return_aux, use_kernels=use_kernels)
+        return True
+    if method == "plain":
+        return False
+    raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
 
 
 class GaussianRayTracer:

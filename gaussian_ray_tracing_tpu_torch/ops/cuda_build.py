@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu) at first use.
 
 The kernels have a plain C interface: nvcc compiles every source in csrc/
-into one shared library for sm_90a under build/kernels/ of the checkout,
+for sm_90a, one process per source, all started together, then links the
+objects into one shared library under build/kernels/ of the checkout,
 named by a hash of the sources and flags so an edit rebuilds, and ctypes
 loads it. Nothing is built or loaded when this module is imported.
 """
@@ -17,13 +18,14 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("march.cu", "scan.cu")
+SOURCES = ("march.cu", "march_bwd.cu", "scan.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # -fmad=false: no FMA contraction, so the kernels round each float32
 # operation as the plain torch versions do (see csrc/march.cu)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _lib = None
@@ -55,12 +57,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(SOURCES, objs)
+    ]
+    logs, failed = [], []
+    for name, proc in zip(SOURCES, procs):
+        logs.append(f"# {name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(name)
+    tmp = out.with_name(f"{tag}.tmp.so")
+    if not failed:
+        res = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        logs.append(f"# link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
 
@@ -72,9 +92,12 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.grt_march.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+    lib.grt_march.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                               cf, cf, cf, cf, cf, cf, ci, vp]
     lib.grt_march.restype = ci
+    lib.grt_march_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                  cf, cf, cf, cf, cf, ci, vp]
+    lib.grt_march_bwd.restype = ci
     lib.grt_multi_cumsum_i32.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, vp]
     lib.grt_multi_cumsum_i32.restype = ci
     lib.grt_scan_block.argtypes = []

@@ -1,24 +1,34 @@
 """Fused forward march over the sorted pair stream -- kernel K1.
 
 Counterpart of `pallas_march_stream` / `_march_kernel` in
-gaussian_ray_tracing_tpu/ops/pallas_march.py (forward only), for the mode
-the primary render uses: window order on the exact event t, the quad
-response with a shared ray origin, SH degree 0, full [t_min, t_max] rays.
+gaussian_ray_tracing_tpu/ops/pallas_march.py (forward), in the modes the
+primary render and the training forward use: the quad response with a
+shared ray origin, SH degree 0, full [t_min, t_max] rays, and either
+
+  - window order (config.order == "window", the render): exact event-t gate
+    and the tile-wide window-sort fire, described below; or
+  - key order (config.order == "key", render and training): the sqrt-free
+    full-range gate alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0), with
+    q(t_lo) = cq + t_lo (2 od + t_lo dd), and a plain stream-order
+    composite (pallas_march.py:552-569, 963-968).
 
 Each tile (R = tile_w * tile_h rays) owns the contiguous pair segment
 [starts[t], starts[t+1]) and marches it front to back in chunks of c
 candidates, with these per-tile (not per-ray) decisions, as on the TPU:
 
   - chunk skip: the chunk is skipped once the max transmittance over ALL R
-    rays of the tile is <= max(chunk_skip_transmittance, min_transmittance)
-    (padded rays of a partial tile keep T = 1, so such tiles never skip);
-  - window-sort fire: if ANY ray of the tile sees a significant (a > 0)
-    candidate whose event t is below the running max of the significant
-    ones before it, every ray of the tile composites that chunk in sorted
-    order of the key tq16 << 15 | a15, where tq16 quantizes t over the
-    tile-wide [min, max] of significant event t, a15 = a*32767, alpha is
-    decoded from the key and colours ride as 3x10-bit packs over [0, 4);
-    otherwise the chunk composites in stream order with exact values.
+    rays of the tile is <= the skip threshold, max(chunk_skip_transmittance,
+    min_transmittance) for a render and min_transmittance for the training
+    forward (padded rays of a partial tile keep T = 1, so such tiles never
+    skip);
+  - window-sort fire (window order): if ANY ray of the tile sees a
+    significant (a > 0) candidate whose event t is below the running max
+    of the significant ones before it, every ray of the tile composites
+    that chunk in sorted order of the key tq16 << 15 | a15, where tq16
+    quantizes t over the tile-wide [min, max] of significant event t,
+    a15 = a*32767, alpha is decoded from the key and colours ride as
+    3x10-bit packs over [0, 4); otherwise the chunk composites in stream
+    order with exact values.
 
 Compositing per chunk: p_excl = T * exp(exclusive prefix of log1p(-a)),
 w = a * p_excl * (p_excl > minT); the next T is the max of the
@@ -28,13 +38,21 @@ while T > minT. All of it in float32: the response
 dd = q . m2(d), od = v . d, pp = oo - od^2/dd cancels by orders of
 magnitude and must not see TF32 or bf16 inputs.
 
+save_tin (key order; the training forward): every chunk's carry-in T is
+stored BEFORE its skip test, so skipped chunks are saved too, at row
+chunk_base[t] + j of a (sum of chunks, R) array, chunk_base = [0,
+cumsum(ceil(count_t / c))] (pallas_march.py:461-473, 1075-1081). The
+backward (ops/march_bwd.py, kernel K3) replays each chunk from it.
+
 `march_stream` takes per-pair rows in the JAX feature-table layout (the
-very array `pallas_march_stream` takes); it gathers the 15 columns this
-mode reads into compact 16-float rows (`compact_features`) and calls
+very array `pallas_march_stream` takes); it gathers the 15 columns the
+march reads into compact 16-float rows (`compact_features`) and calls
 `march`, the wrapper: CUDA tensors go to csrc/march.cu, CPU tensors to the
-plain torch version `march_plain`, anything else raises. The TPU's packed16
-int16 layout, 128-column padding, 8-row ray panels and bf16 hi/lo MXU
-splits are TPU layout work and are not ported.
+plain torch version `march_plain`, anything else raises. `march` also
+takes the 32-float training rows (`train_features`) and reads their first
+16 columns. The TPU's packed16 int16 layout, 128-column padding, 8-row
+ray panels and bf16 hi/lo MXU splits are TPU layout work and are not
+ported.
 """
 
 from __future__ import annotations
@@ -48,6 +66,17 @@ from gaussian_ray_tracing_tpu_torch.config import RenderConfig
 COMPACT_COLUMNS = (12, 64, 65, 66, 67, 68, 69, 72, 73, 74, 75, 76, 77, 78, 79)
 ROW = 16  # compact row width in floats (15 used + 1 pad = 64 bytes)
 _OP, _Q0, _V0, _CQ, _OO, _RGB0 = 0, 1, 7, 10, 11, 12
+# Training row (TRAIN_ROW = 32 floats = 128 bytes): the compact row K1
+# reads (0..15), then the scalar columns the backward K3 recomputes the
+# response from (16..31): mean 16..18, M = S^-1 R^T row-major 19..27, the
+# iso radius 28 and sh0 r, g, b 29..31. Opacity is column 0 for both.
+# JAX feature-table column of each training column (None: zero pad).
+TRAIN_COLUMNS = COMPACT_COLUMNS + (None,) + tuple(range(12)) + (13, 14, 15, 16)
+TRAIN_ROW = 32
+# JAX feature-table columns whose gradient the backward K3 writes (mean, M,
+# opacity, sh0); the quad and radius columns get exactly zero
+DIFF_COLUMNS = frozenset(range(13)) | {14, 15, 16}
+T_MX, T_M0, T_RAD, T_SH0 = 16, 19, 28, 29
 CHUNKS = (32, 64, 128, 256)
 _ZBASE = 65535 << 15  # sort key of non-significant candidates (sorts last)
 _F32 = torch.float32
@@ -59,30 +88,73 @@ def chunk_for(config: RenderConfig) -> int:
     return max(32, min(config.march_chunk, 256))
 
 
-def compact_features(feats: torch.Tensor) -> torch.Tensor:
-    """(N, F >= 80) JAX-layout rows -> (N, 16) compact rows."""
-    cols = torch.tensor(COMPACT_COLUMNS, device=feats.device)
-    out = feats.new_zeros((feats.shape[0], ROW))
-    out[:, : len(COMPACT_COLUMNS)] = feats.index_select(1, cols)
+def _gather_columns(feats: torch.Tensor, columns, width: int) -> torch.Tensor:
+    used = [(i, c) for i, c in enumerate(columns) if c is not None]
+    out = feats.new_zeros((feats.shape[0], width))
+    dst = torch.tensor([i for i, _ in used], device=feats.device)
+    src = torch.tensor([c for _, c in used], device=feats.device)
+    out[:, dst] = feats.index_select(1, src)
     return out
 
 
-def march_stream(starts, pair_feats, dirs_t, config: RenderConfig, chunk: int):
+def compact_features(feats: torch.Tensor) -> torch.Tensor:
+    """(N, F >= 80) JAX-layout rows -> (N, 16) compact rows."""
+    return _gather_columns(feats, COMPACT_COLUMNS, ROW)
+
+
+def train_features(feats: torch.Tensor) -> torch.Tensor:
+    """(N, F >= 80) JAX-layout rows (sh_degree 0) -> (N, 32) training rows.
+    Only the DIFF_COLUMNS keep autograd; the quad and radius columns are
+    detached, as K3 writes them no gradient, so a scene's parameters are
+    reached once, through mean, M, opacity and sh0."""
+    fixed = feats.detach()
+    zero = feats.new_zeros((feats.shape[0], 1))
+    return torch.cat([
+        zero if c is None else (feats if c in DIFF_COLUMNS else fixed)[:, c : c + 1]
+        for c in TRAIN_COLUMNS
+    ], dim=1)
+
+
+def chunk_bases(starts: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(T+1,) int32 [0, cumsum(ceil(count_t / chunk))]: the row of tile t's
+    first chunk in the saved-carry array."""
+    n = (starts[1:] - starts[:-1] + chunk - 1).div(chunk, rounding_mode="floor")
+    return torch.cat([n.new_zeros(1), torch.cumsum(n, 0)]).to(torch.int32)
+
+
+def _skip_threshold(config: RenderConfig, save_tin: bool) -> float:
+    """Chunk-skip threshold: min_transmittance for the training forward
+    (its backward replays the skips from the saved carries), else
+    max(chunk_skip_transmittance, min_transmittance)."""
+    if save_tin:
+        return config.min_transmittance
+    return max(config.chunk_skip_transmittance, config.min_transmittance)
+
+
+def march_stream(starts, pair_feats, dirs_t, config: RenderConfig, chunk: int,
+                 save_tin: bool = False):
     """March every tile over its pair segment (JAX feature layout).
 
     starts (T+1,) int32, pair_feats (P, F >= 80) float32, dirs_t (T, R, 3).
-    Returns (rgb (T, R, 3), t_final (T, R)).
+    Returns (rgb (T, R, 3), t_final (T, R)) and, with save_tin, also
+    (tin (sum of chunks, R), chunk_base (T+1,)).
     """
-    return march(starts, compact_features(pair_feats), dirs_t, config, chunk)
+    return march(starts, compact_features(pair_feats), dirs_t, config, chunk,
+                 save_tin=save_tin)
 
 
-def _check_args(starts, feats, dirs_t, chunk):
+def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin):
     if chunk not in CHUNKS:
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
+    if config.order not in ("window", "key"):
+        raise NotImplementedError(f"march order {config.order!r} is not ported")
+    if save_tin and config.order != "key":
+        raise NotImplementedError("save_tin (training) is ported for key order only")
     if starts.dtype != torch.int32 or starts.dim() != 1:
         raise ValueError("starts must be (T+1,) int32")
-    if feats.dtype != _F32 or feats.dim() != 2 or feats.shape[1] != ROW:
-        raise ValueError(f"feats must be (P, {ROW}) float32 compact rows")
+    if feats.dtype != _F32 or feats.dim() != 2 or feats.shape[1] not in (ROW, TRAIN_ROW):
+        raise ValueError(f"feats must be (P, {ROW}) compact or (P, {TRAIN_ROW}) "
+                         "training rows, float32")
     if dirs_t.dtype != _F32 or dirs_t.dim() != 3 or dirs_t.shape[2] != 3:
         raise ValueError("dirs_t must be (T, R, 3) float32")
     if starts.shape[0] != dirs_t.shape[0] + 1:
@@ -91,51 +163,58 @@ def _check_args(starts, feats, dirs_t, chunk):
         raise ValueError("starts, feats and dirs_t must share one device")
 
 
-def march(starts, feats, dirs_t, config: RenderConfig, chunk: int):
-    """Kernel K1 wrapper on compact rows (see module docstring).
+def march(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool = False):
+    """Kernel K1 wrapper on compact or training rows (see module docstring).
 
     CUDA tensors launch csrc/march.cu; CPU tensors run march_plain.
-    Returns (rgb (T, R, 3), t_final (T, R)).
+    Returns (rgb (T, R, 3), t_final (T, R)) and, with save_tin (key order
+    only), also (tin (sum of chunks, R), chunk_base (T+1,) int32).
     """
-    _check_args(starts, feats, dirs_t, chunk)
+    _check_args(starts, feats, dirs_t, config, chunk, save_tin)
     if dirs_t.device.type == "cpu":
-        return march_plain(starts, feats, dirs_t, config, chunk)
+        return march_plain(starts, feats, dirs_t, config, chunk, save_tin)
     if dirs_t.device.type != "cuda":
         raise ValueError(f"no march for device {dirs_t.device}")
     return _march_cuda(starts.contiguous(), feats.contiguous(),
-                       dirs_t.contiguous(), config, chunk)
+                       dirs_t.contiguous(), config, chunk, save_tin)
 
 
-def _skip_threshold(config: RenderConfig) -> float:
-    return max(config.chunk_skip_transmittance, config.min_transmittance)
-
-
-def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int):
+def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool):
     from gaussian_ray_tracing_tpu_torch.ops.cuda_build import check, load_library
 
     lib = load_library()
     T, R, _ = dirs_t.shape
     if R % 32 or not 32 <= R <= 1024:
         raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
-    rgb = torch.empty((T, R, 3), dtype=_F32, device=dirs_t.device)
-    t_final = torch.empty((T, R), dtype=_F32, device=dirs_t.device)
-    if T == 0:
-        return rgb, t_final
-    with torch.cuda.device(dirs_t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.grt_march(
-            starts.data_ptr(), feats.data_ptr(), dirs_t.data_ptr(),
-            rgb.data_ptr(), t_final.data_ptr(), T, R, chunk,
-            config.t_min, config.t_max, config.min_transmittance,
-            _skip_threshold(config), config.alpha_min, config.alpha_clamp,
-            config.hit_multiplicity, stream,
-        )
-    check(err, "grt_march")
-    march.launches += 1
-    return rgb, t_final
+    dev = dirs_t.device
+    rgb = torch.empty((T, R, 3), dtype=_F32, device=dev)
+    t_final = torch.empty((T, R), dtype=_F32, device=dev)
+    tin = chunk_base = None
+    if save_tin:
+        chunk_base = chunk_bases(starts, chunk)
+        tin = torch.empty((int(chunk_base[-1]), R), dtype=_F32, device=dev)
+    if T > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.grt_march(
+                starts.data_ptr(), feats.data_ptr(), dirs_t.data_ptr(),
+                rgb.data_ptr(), t_final.data_ptr(),
+                tin.data_ptr() if save_tin else None,
+                chunk_base.data_ptr() if save_tin else None,
+                T, R, chunk, feats.shape[1], int(config.order == "key"),
+                config.t_min, config.t_max, config.min_transmittance,
+                _skip_threshold(config, save_tin), config.alpha_min, config.alpha_clamp,
+                config.hit_multiplicity, stream,
+            )
+        check(err, "grt_march")
+        march.launches += 1
+        if save_tin:
+            march.save_tin_launches += 1
+    return (rgb, t_final, tin, chunk_base) if save_tin else (rgb, t_final)
 
 
-march.launches = 0
+march.launches = 0  # every K1 launch
+march.save_tin_launches = 0  # the K1 launches in key + save_tin mode
 
 
 # --- plain torch version ---------------------------------------------------
@@ -168,17 +247,12 @@ def _composite(t_carry, a, cols, min_t: float):
     return rgb_part, t_next
 
 
-def _chunk_plain(tb, j, starts, feats, dirs, live, trans, rgb, config, c):
-    """March chunk j of tiles `tb` (in place on trans/rgb)."""
-    dev = feats.device
-    base = starts[tb].long() + j * c
-    idx = base[:, None] + torch.arange(c, device=dev)[None, :]  # (B, c)
-    present = (idx < starts[tb + 1].long()[:, None])[..., None]  # (B, c, 1)
-    f = feats[torch.clamp(idx, max=feats.shape[0] - 1)]  # (B, c, ROW)
+def _quad_alpha(f, d, live_b, present, config: RenderConfig):
+    """Quad-form response of a (B, c, ROW) candidate block against (B, 1, R,
+    3) directions: the gated effective alpha (B, c, R) and, for window
+    order, the event t."""
     col = lambda k: f[:, :, k : k + 1]  # (B, c, 1)
-    d = dirs[tb][:, None]  # (B, 1, R, 3)
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]  # (B, 1, R)
-
     m2 = (dx * dx, dy * dy, dz * dz, 2.0 * dx * dy, 2.0 * dx * dz, 2.0 * dy * dz)
     q = [col(_Q0 + k) for k in range(6)]
     dd = q[0] * m2[0] + q[1] * m2[1] + q[2] * m2[2] + q[3] * m2[3] \
@@ -190,20 +264,54 @@ def _chunk_plain(tb, j, starts, feats, dirs, live, trans, rgb, config, c):
     pp = oo + od * t_star  # oo - od^2/dd
     resp = torch.exp(-0.5 * torch.clamp(pp, min=0.0))
     alpha = torch.clamp(resp * col(_OP), max=config.alpha_clamp)
-    disc = od * od - dd * cq
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    inv_dd = 1.0 / torch.clamp(dd, min=1e-12)
-    t_entry = (-od - sq) * inv_dd
-    t_exit = (-od + sq) * inv_dd
-    t_ev = torch.where(t_entry < config.t_min, t_exit, t_entry)
-    # disc >= 0 is implied by alpha > alpha_min (the adaptive radius is the
-    # alpha_min iso-surface), so the gate drops it, as on the TPU
-    gate = present & (t_ev >= config.t_min) & (t_ev <= config.t_max) \
-        & live[tb][:, None] & (alpha > config.alpha_min)
+    t_lo = config.t_min
+    if config.order == "key":
+        # sqrt-free full-range gate: the convex q(t) = |o_g + t d_g|^2 -
+        # rad^2 is negative somewhere in [t_lo, inf)
+        q_lo = cq + t_lo * (2.0 * od + t_lo * dd)
+        gate = present & live_b & (alpha > config.alpha_min) \
+            & ((t_star >= t_lo) | (q_lo < 0.0))
+        t_ev = None
+    else:
+        disc = od * od - dd * cq
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        inv_dd = 1.0 / torch.clamp(dd, min=1e-12)
+        t_entry = (-od - sq) * inv_dd
+        t_exit = (-od + sq) * inv_dd
+        t_ev = torch.where(t_entry < t_lo, t_exit, t_entry)
+        # disc >= 0 is implied by alpha > alpha_min (the adaptive radius is
+        # the alpha_min iso-surface), so the gate drops it, as on the TPU
+        gate = present & (t_ev >= t_lo) & (t_ev <= config.t_max) \
+            & live_b & (alpha > config.alpha_min)
     hm = config.hit_multiplicity
     a_eff = alpha if hm == 1 else 1.0 - (1.0 - alpha) ** hm
-    a = torch.where(gate, a_eff, 0.0)
+    return torch.where(gate, a_eff, 0.0), t_ev
 
+
+def _chunk_plain(tb, j, starts, feats, dirs, live, trans, rgb, config, c):
+    """March chunk j of tiles `tb` (in place on trans/rgb)."""
+    dev = feats.device
+    base = starts[tb].long() + j * c
+    idx = base[:, None] + torch.arange(c, device=dev)[None, :]  # (B, c)
+    present = (idx < starts[tb + 1].long()[:, None])[..., None]  # (B, c, 1)
+    f = feats[torch.clamp(idx, max=feats.shape[0] - 1)]  # (B, c, row)
+    a, t_ev = _quad_alpha(f, dirs[tb][:, None], live[tb][:, None], present, config)
+    min_t = config.min_transmittance
+    t_carry = trans[tb][:, None]  # (B, 1, R)
+    cols = [f[:, :, _RGB0 + ch : _RGB0 + ch + 1] for ch in range(3)]
+
+    if config.order == "key":
+        part, t_next = _composite(t_carry, a, cols, min_t)
+    else:
+        part, t_next = _window_composite(t_carry, a, t_ev, cols, min_t)
+    tc = trans[tb]
+    trans[tb] = torch.where(tc > min_t, t_next, tc)
+    rgb[tb] += part
+
+
+def _window_composite(t_carry, a, t_ev, cols, min_t: float):
+    """Window order: stream-order composite of unfired tiles, sorted
+    composite of the tiles whose chunk fired."""
     # tile-wide window-sort fire test: a significant candidate below the
     # exclusive running max of the significant event t before it
     sig = a > 0.0
@@ -211,16 +319,12 @@ def _chunk_plain(tb, j, starts, feats, dirs, live, trans, rgb, config, c):
     rmax = torch.cat([torch.full_like(run[:, :1], float("-inf")), run[:, :-1]], 1)
     fired = (sig & (t_ev < rmax)).flatten(1).any(dim=1)  # (B,)
 
-    min_t = config.min_transmittance
-    t_carry = trans[tb][:, None]  # (B, 1, R)
-    cols = [col(_RGB0 + ch) for ch in range(3)]
-    part = torch.empty((tb.shape[0],) + rgb.shape[1:], dtype=_F32, device=dev)
-    t_next = torch.empty_like(trans[tb])
-
+    B, _, R = a.shape
+    part = a.new_empty((B, R, 3))
+    t_next = a.new_empty((B, R))
     nf = (~fired).nonzero().squeeze(1)
     if nf.numel():
-        part[nf], t_next[nf] = _composite(t_carry[nf], a[nf],
-                                          [x[nf] for x in cols], min_t)
+        part[nf], t_next[nf] = _composite(t_carry[nf], a[nf], [x[nf] for x in cols], min_t)
     fb = fired.nonzero().squeeze(1)
     if fb.numel():
         a_f, t_f, sig_f = a[fb], t_ev[fb], sig[fb]
@@ -241,17 +345,15 @@ def _chunk_plain(tb, j, starts, feats, dirs, live, trans, rgb, config, c):
         a_s = torch.where(key_s >= _ZBASE, 0.0,
                           (key_s & 32767).to(_F32) * (1.0 / 32767.0))
         part[fb], t_next[fb] = _composite(t_carry[fb], a_s, _unpack_colors(cp_s), min_t)
-
-    tc = trans[tb]
-    trans[tb] = torch.where(tc > min_t, t_next, tc)
-    rgb[tb] += part
+    return part, t_next
 
 
-def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int):
+def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
+                save_tin: bool = False):
     """Plain torch march on any device: all tiles advance chunk by chunk,
     in batches of at most _PLAIN_BATCH (tile, candidate, ray) elements, with
-    a stable per-ray torch.sort in fired chunks."""
-    _check_args(starts, feats, dirs_t, chunk)
+    a stable per-ray torch.sort in fired chunks (window order)."""
+    _check_args(starts, feats, dirs_t, config, chunk, save_tin)
     T, R, _ = dirs_t.shape
     dev = dirs_t.device
     dirs = dirs_t.to(_F32)
@@ -260,10 +362,18 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int):
     trans = torch.ones((T, R), dtype=_F32, device=dev)
     rgb = torch.zeros((T, R, 3), dtype=_F32, device=dev)
     n_chunks = (starts[1:] - starts[:-1] + chunk - 1).div(chunk, rounding_mode="floor")
-    t_skip = _skip_threshold(config)
+    t_skip = _skip_threshold(config, save_tin)
+    if save_tin:
+        chunk_base = chunk_bases(starts, chunk)
+        tin = torch.empty((int(chunk_base[-1]), R), dtype=_F32, device=dev)
     batch = max(1, _PLAIN_BATCH // (chunk * R))
     for j in range(int(n_chunks.max()) if T else 0):
+        if save_tin:  # every chunk's carry-in, skipped chunks included
+            has = (n_chunks > j).nonzero().squeeze(1)
+            tin[chunk_base[has].long() + j] = trans[has]
         active = (n_chunks > j) & (trans.amax(dim=1) > t_skip)
         for tb in active.nonzero().squeeze(1).split(batch):
             _chunk_plain(tb, j, starts, feats, dirs, live, trans, rgb, config, chunk)
+    if save_tin:
+        return rgb, trans, tin, chunk_base
     return rgb, trans

@@ -1,0 +1,292 @@
+"""Hand-written backward of the key-order march -- kernel K3 -- and the
+autograd Function that pairs it with the forward K1.
+
+Counterpart of `_march_bwd_kernel` / `pallas_march_bwd` and of the
+`march_stream_diff` custom_vjp in gaussian_ray_tracing_tpu/ops/pallas_march.py
+(:1189-1709), in the mode training uses: key order, a shared ray origin
+(the camera eye), SH degree 0, full [t_min, t_max] rays, any
+hit_multiplicity.
+
+Each tile's chunks are replayed in REVERSE from the carry-in transmittance
+the forward saved (ops/march.py, save_tin), carrying dT per ray from
+d(t_final). Per chunk (pallas_march.py:1265-1535):
+
+  1. skip replay: if the tile's max saved t_in is <= min_transmittance the
+     chunk's gradient rows are zero and dT passes through unchanged;
+  2. recompute, from the SCALAR columns of the training rows (mean, M =
+     S^-1 R^T, opacity, iso radius, sh0), the scalar-form response and the
+     exact gate disc >= 0 & t_event in [t_lo, t_hi] & live &
+     alpha > alpha_min. The forward ran the quad form with the fast gate;
+     this asymmetry is the reference's own (pallas_renderer.py:234-238,
+     pallas_march.py:1647-1653) and is kept;
+  3. reverse sweep: P = t_in exp(exclusive prefix of log1p(-a)), gate_w =
+     P > minT, d_a, d_P, the new dT = dT prod + sum(d_P E), d_lp = dT_old
+     t_in prod + (strict suffix sum of d_P P), d_a -= d_lp / (1 - a). The
+     exclusive prefix is summed sequentially per ray, in the forward's
+     order; the strict suffix sum is taken as the last inclusive prefix
+     minus the inclusive prefix (the same form in the kernel and here);
+  4. per-candidate gradients summed over the tile's R rays: sh0 =
+     C0 sum(dR w) [colour > 0], opacity, the 9 M columns through the
+     shared-origin d_og / d_dg algebra, and the means as -d_o. The radius
+     column and every quad column get exactly zero.
+
+Early termination is a non-differentiable cutoff, as in the reference.
+Each row of the pair stream belongs to exactly one (tile, chunk), so rows
+are written, not accumulated; rows outside [starts[0], starts[T]) are zero.
+
+`march_bwd` is the wrapper: CUDA tensors launch csrc/march_bwd.cu, CPU
+tensors run the plain torch version `march_bwd_plain`, anything else raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+from gaussian_ray_tracing_tpu_torch.ops.march import (
+    CHUNKS, T_M0, T_MX, T_RAD, T_SH0, TRAIN_ROW, _OP, march, march_plain,
+)
+from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0
+
+_F32 = torch.float32
+_PLAIN_BATCH = 1 << 23  # (tile, candidate, ray) elements per plain batch
+
+
+def _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
+                config: RenderConfig, chunk: int, dtypes=(_F32,)):
+    if chunk not in CHUNKS:
+        raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
+    if config.order != "key" or config.sh_degree != 0:
+        raise NotImplementedError("the backward is ported for key order and sh 0 only")
+    if starts.dtype != torch.int32 or chunk_base.dtype != torch.int32:
+        raise ValueError("starts and chunk_base must be int32")
+    if rows.dtype not in dtypes or rows.dim() != 2 or rows.shape[1] != TRAIN_ROW:
+        raise ValueError(f"rows must be (P, {TRAIN_ROW}) training rows of {dtypes}")
+    T, R, _ = dirs_t.shape
+    if starts.shape != (T + 1,) or chunk_base.shape != (T + 1,):
+        raise ValueError("starts and chunk_base must be (T+1,)")
+    if tin.dim() != 2 or tin.shape[1] != R or eye.shape != (3,):
+        raise ValueError("tin must be (sum of chunks, R) and eye (3,)")
+    if d_rgb.shape != (T, R, 3) or d_tfinal.shape != (T, R):
+        raise ValueError("d_rgb must be (T, R, 3) and d_tfinal (T, R)")
+    tensors = (starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("march_bwd's tensors must share one device")
+    if any(t.dtype != rows.dtype for t in (dirs_t, eye, tin, d_rgb, d_tfinal)):
+        raise ValueError("dirs_t, eye, tin, d_rgb and d_tfinal must have the rows' dtype")
+
+
+def march_bwd(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
+              config: RenderConfig, chunk: int):
+    """Kernel K3 wrapper: d(rows) (P, 32) of the key-order march.
+
+    starts (T+1,) int32, rows (P, 32) training rows, dirs_t (T, R, 3),
+    eye (3,), tin / chunk_base as the forward saved them, d_rgb (T, R, 3),
+    d_tfinal (T, R). CUDA tensors launch csrc/march_bwd.cu; CPU tensors
+    run march_bwd_plain.
+    """
+    args = (starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal)
+    _check_args(*args, config, chunk)
+    if dirs_t.device.type == "cpu":
+        return march_bwd_plain(*args, config, chunk)
+    if dirs_t.device.type != "cuda":
+        raise ValueError(f"no march_bwd for device {dirs_t.device}")
+    return _march_bwd_cuda(*(t.contiguous() for t in args), config, chunk)
+
+
+def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
+                    config: RenderConfig, chunk: int):
+    from gaussian_ray_tracing_tpu_torch.ops.cuda_build import check, load_library
+
+    lib = load_library()
+    T, R, _ = dirs_t.shape
+    if R % 32 or not 32 <= R <= 1024:
+        raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
+    d_rows = torch.zeros_like(rows)  # rows no tile owns, and skipped chunks, stay 0
+    if T == 0:
+        return d_rows
+    with torch.cuda.device(dirs_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.grt_march_bwd(
+            starts.data_ptr(), chunk_base.data_ptr(), rows.data_ptr(), dirs_t.data_ptr(),
+            eye.data_ptr(), tin.data_ptr(), d_rgb.data_ptr(), d_tfinal.data_ptr(),
+            d_rows.data_ptr(), T, R, chunk, rows.shape[1],
+            config.t_min, config.t_max, config.min_transmittance, config.alpha_min,
+            config.alpha_clamp, config.hit_multiplicity, stream,
+        )
+    check(err, "grt_march_bwd")
+    march_bwd.launches += 1
+    return d_rows
+
+
+march_bwd.launches = 0
+
+
+# --- plain torch version ---------------------------------------------------
+
+def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, eye, tin, chunk_base, d_rgb,
+                     dT, d_rows, config: RenderConfig, c: int):
+    """Backward of chunk j of tiles `tb`: writes their rows of d_rows and
+    advances dT (in place)."""
+    dev = rows.device
+    base = starts[tb].long() + j * c
+    idx = base[:, None] + torch.arange(c, device=dev)[None, :]  # (B, c)
+    present = idx < starts[tb + 1].long()[:, None]  # (B, c)
+    f = rows[torch.clamp(idx, max=rows.shape[0] - 1)]  # (B, c, 32)
+    col = lambda k: f[:, :, k : k + 1]  # (B, c, 1)
+    d = dirs[tb][:, None]  # (B, 1, R, 3)
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]  # (B, 1, R)
+    t_in = tin[chunk_base[tb].long() + j][:, None]  # (B, 1, R)
+    dR = [d_rgb[tb][:, None, :, ch] for ch in range(3)]  # (B, 1, R)
+    dT_c = dT[tb][:, None]  # (B, 1, R)
+
+    # ---- forward recompute, scalar form (pallas_march.py:1301-1331) ----
+    m = [col(T_M0 + k) for k in range(9)]
+    op, rad = col(_OP), col(T_RAD)
+    ox, oy, oz = eye[0] - col(T_MX), eye[1] - col(T_MX + 1), eye[2] - col(T_MX + 2)
+    ogx = m[0] * ox + m[1] * oy + m[2] * oz  # (B, c, 1)
+    ogy = m[3] * ox + m[4] * oy + m[5] * oz
+    ogz = m[6] * ox + m[7] * oy + m[8] * oz
+    dgx = m[0] * dx + m[1] * dy + m[2] * dz  # (B, c, R)
+    dgy = m[3] * dx + m[4] * dy + m[5] * dz
+    dgz = m[6] * dx + m[7] * dy + m[8] * dz
+    dd = dgx * dgx + dgy * dgy + dgz * dgz
+    od = ogx * dgx + ogy * dgy + ogz * dgz
+    oo = ogx * ogx + ogy * ogy + ogz * ogz  # (B, c, 1)
+    dd_s = torch.clamp(dd, min=1e-6)
+    t_star = -od / dd_s
+    pp = oo + t_star * (2.0 * od + t_star * dd)
+    resp = torch.exp(-0.5 * torch.clamp(pp, min=0.0))
+    alpha = torch.clamp(resp * op, max=config.alpha_clamp)
+    cq = oo - rad * rad
+    disc = od * od - dd * cq
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv_dd = 1.0 / torch.clamp(dd, min=1e-12)
+    t_entry = (-od - sq) * inv_dd
+    t_exit = (-od + sq) * inv_dd
+    t_lo = config.t_min
+    t_event = torch.where(t_entry < t_lo, t_exit, t_entry)
+    in_window = (t_event >= t_lo) & (t_event <= config.t_max)
+    gate = present[..., None] & (disc >= 0.0) & in_window & live[tb][:, None] \
+        & (alpha > config.alpha_min)
+    hm = config.hit_multiplicity
+    a_eff = alpha if hm == 1 else 1.0 - (1.0 - alpha) ** hm
+    a = torch.where(gate, a_eff, 0.0)
+    colors = [0.5 + SH_C0 * col(T_SH0 + ch) for ch in range(3)]  # (B, c, 1)
+
+    # ---- reverse sweep, key order (pallas_march.py:1426-1446) ----
+    min_t = config.min_transmittance
+    lp = torch.log1p(-a)
+    s_incl = torch.cumsum(lp, dim=1)
+    S = torch.cat([torch.zeros_like(s_incl[:, :1]), s_incl[:, :-1]], dim=1)
+    E = torch.exp(S)
+    P = t_in * E
+    gate_w = (P > min_t).to(f.dtype)
+    w = a * P * gate_w
+    d_w = dR[0] * torch.clamp(colors[0], min=0.0) + dR[1] * torch.clamp(colors[1], min=0.0) \
+        + dR[2] * torch.clamp(colors[2], min=0.0)
+    d_a = d_w * P * gate_w
+    d_P = d_w * a * gate_w
+    prod = torch.exp(s_incl[:, -1:])  # (B, 1, R)
+    dT[tb] = (dT_c * prod + torch.sum(d_P * E, dim=1, keepdim=True))[:, 0]
+    dpp_incl = torch.cumsum(d_P * P, dim=1)
+    d_lp = dT_c * t_in * prod + (dpp_incl[:, -1:] - dpp_incl)  # strict suffix sum
+    d_a = d_a - d_lp / (1.0 - a)
+
+    # ---- per-candidate gradients (pallas_march.py:1448-1525) ----
+    red = lambda x: torch.sum(x, dim=2, keepdim=True)  # over the tile's rays
+    g = torch.zeros_like(f)  # (B, c, 32)
+    for ch in range(3):
+        mask = (colors[ch] > 0.0).to(f.dtype)
+        g[:, :, T_SH0 + ch : T_SH0 + ch + 1] = SH_C0 * red(dR[ch] * w * mask)
+    d_alpha = d_a if hm == 1 else d_a * hm * (1.0 - alpha) ** (hm - 1)
+    d_alpha = torch.where(gate, d_alpha, 0.0)
+    notclamp = (resp * op < config.alpha_clamp).to(f.dtype)
+    d_resp = d_alpha * op * notclamp
+    g[:, :, _OP : _OP + 1] = red(d_alpha * resp * notclamp)
+    d_pp = -0.5 * resp * d_resp * (pp > 0.0).to(f.dtype)
+    # pp = oo - od^2/dd (dd > eps branch)
+    d_od = d_pp * (-2.0 * od / dd_s)
+    d_dd = d_pp * (od * od / (dd_s * dd_s))
+    d_dgx = d_od * ogx + 2.0 * dgx * d_dd
+    d_dgy = d_od * ogy + 2.0 * dgy * d_dd
+    d_dgz = d_od * ogz + 2.0 * dgz * d_dd
+    d_oo = red(d_pp)  # (B, c, 1)
+    d_ogx = red(d_od * dgx) + 2.0 * ogx * d_oo
+    d_ogy = red(d_od * dgy) + 2.0 * ogy * d_oo
+    d_ogz = red(d_od * dgz) + 2.0 * ogz * d_oo
+    d_m = [
+        red(d_dgx * dx) + d_ogx * ox, red(d_dgx * dy) + d_ogx * oy,
+        red(d_dgx * dz) + d_ogx * oz, red(d_dgy * dx) + d_ogy * ox,
+        red(d_dgy * dy) + d_ogy * oy, red(d_dgy * dz) + d_ogy * oz,
+        red(d_dgz * dx) + d_ogz * ox, red(d_dgz * dy) + d_ogz * oy,
+        red(d_dgz * dz) + d_ogz * oz,
+    ]
+    for k in range(9):
+        g[:, :, T_M0 + k : T_M0 + k + 1] = d_m[k]
+    # means: ox = eye_x - mx
+    g[:, :, T_MX : T_MX + 1] = -(m[0] * d_ogx + m[3] * d_ogy + m[6] * d_ogz)
+    g[:, :, T_MX + 1 : T_MX + 2] = -(m[1] * d_ogx + m[4] * d_ogy + m[7] * d_ogz)
+    g[:, :, T_MX + 2 : T_MX + 3] = -(m[2] * d_ogx + m[5] * d_ogy + m[8] * d_ogz)
+    # rad only gates hits (discontinuous): zero gradient, as in 3DGRT
+    d_rows[idx[present]] = g[present]
+
+
+def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
+                    config: RenderConfig, chunk: int):
+    """Plain torch backward on any device, batched over tiles like
+    march_plain; chunks run last to first. Float32, as the kernel; float64
+    inputs give a witness of the float32 rounding (the reference's
+    response algebra cancels: see PERF.md, K3 per column)."""
+    _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
+                config, chunk, (_F32, torch.float64))
+    T, R, _ = dirs_t.shape
+    dev = dirs_t.device
+    dx, dy, dz = dirs_t[..., 0], dirs_t[..., 1], dirs_t[..., 2]
+    live = dx * dx + dy * dy + dz * dz > 0.01
+    dT = d_tfinal.clone()
+    d_rows = torch.zeros_like(rows)
+    n_chunks = (starts[1:] - starts[:-1] + chunk - 1).div(chunk, rounding_mode="floor")
+    batch = max(1, _PLAIN_BATCH // (chunk * R))
+    min_t = config.min_transmittance
+    for j in reversed(range(int(n_chunks.max()) if T else 0)):
+        has = (n_chunks > j).nonzero().squeeze(1)
+        t_max = tin[chunk_base[has].long() + j].amax(dim=1)
+        for tb in has[t_max > min_t].split(batch):
+            _chunk_bwd_plain(tb, j, starts, rows, dirs_t, live, eye, tin, chunk_base,
+                             d_rgb, dT, d_rows, config, chunk)
+    return d_rows
+
+
+# --- autograd ----------------------------------------------------------------
+
+class MarchStreamDiff(torch.autograd.Function):
+    """Differentiable key-order march: the forward is K1 with saved carries
+    (march_plain for use_kernels=False), the backward is K3
+    (march_bwd_plain). Gradients flow to the training rows only; starts,
+    directions and the eye get none, as in the reference
+    (pallas_march.py:1703-1706)."""
+
+    @staticmethod
+    def forward(ctx, rows, starts, dirs_t, eye, config: RenderConfig, chunk: int,
+                use_kernels: bool):
+        fwd = march if use_kernels else march_plain
+        rgb, t_final, tin, chunk_base = fwd(starts, rows, dirs_t, config, chunk, save_tin=True)
+        ctx.save_for_backward(rows, starts, dirs_t, eye, tin, chunk_base)
+        ctx.config, ctx.chunk, ctx.use_kernels = config, chunk, use_kernels
+        return rgb, t_final
+
+    @staticmethod
+    def backward(ctx, d_rgb, d_tfinal):
+        rows, starts, dirs_t, eye, tin, chunk_base = ctx.saved_tensors
+        bwd = march_bwd if ctx.use_kernels else march_bwd_plain
+        d_rows = bwd(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb.contiguous(),
+                     d_tfinal.contiguous(), ctx.config, ctx.chunk)
+        return d_rows, None, None, None, None, None, None
+
+
+def march_stream_diff(rows, starts, dirs_t, eye, config: RenderConfig, chunk: int,
+                      use_kernels: bool = True):
+    """(rgb (T, R, 3), t_final (T, R)) of the key-order march, differentiable
+    with respect to the (P, 32) training rows."""
+    return MarchStreamDiff.apply(rows, starts, dirs_t, eye, config, chunk, use_kernels)

@@ -1,9 +1,12 @@
-"""3DGS PLY reader (counterpart of gaussian_ray_tracing_tpu/scene/ply.py).
+"""3DGS PLY reader and writer (counterpart of
+gaussian_ray_tracing_tpu/scene/ply.py).
 
 Parses the trained-3DGS vertex layout: x/y/z, scale_0..2, rot_0..3 (wxyz),
 opacity, f_dc_0..2 and f_rest_0..44, with the f_rest channel interleave
 sh[k][rgb] = f_rest_{k-1 + n_rest*rgb}. binary_little_endian and ascii.
-Only the numpy reader is ported; the JAX package's C++ fast path is not.
+The writer stores raw (pre-activation) parameters, so a training run
+checkpoints back to a standard 3DGS PLY. Only the numpy reader is ported;
+the JAX package's C++ fast path is not.
 """
 
 from __future__ import annotations
@@ -98,3 +101,38 @@ def load_ply(path: str, max_sh_degree: int = 3, pad_to: int | None = None,
     degree = min(degree, max_sh_degree)
     means, s, q, o, sh = columns_to_raw_params(cols, max_sh_degree=degree)
     return GaussianScene.from_raw(means, s, q, o, sh, pad_to=pad_to, device=device)
+
+
+def save_ply(path: str, means, raw_scales, raw_quats, raw_opacities, sh) -> None:
+    """Write raw (pre-activation) params as binary_little_endian 3DGS PLY."""
+    means = np.asarray(means, np.float32)
+    raw_scales = np.asarray(raw_scales, np.float32)
+    raw_quats = np.asarray(raw_quats, np.float32)
+    raw_opacities = np.asarray(raw_opacities, np.float32).reshape(-1)
+    sh = np.asarray(sh, np.float32)
+    n, k = sh.shape[0], sh.shape[1]
+    n_rest = k - 1
+
+    names = ["x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2"]
+    names += [f"f_rest_{i}" for i in range(3 * n_rest)]
+    names += ["opacity"] + [f"scale_{i}" for i in range(3)] + [f"rot_{i}" for i in range(4)]
+
+    out = np.zeros(n, dtype=np.dtype([(nm, "<f4") for nm in names]))
+    out["x"], out["y"], out["z"] = means[:, 0], means[:, 1], means[:, 2]
+    for c in range(3):
+        out[f"f_dc_{c}"] = sh[:, 0, c]
+    for c in range(3):  # channel-major f_rest blocks
+        for i in range(n_rest):
+            out[f"f_rest_{i + n_rest * c}"] = sh[:, 1 + i, c]
+    out["opacity"] = raw_opacities
+    for i in range(3):
+        out[f"scale_{i}"] = raw_scales[:, i]
+    for i in range(4):
+        out[f"rot_{i}"] = raw_quats[:, i]
+
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header += [f"property float {nm}" for nm in names]
+    header += ["end_header", ""]
+    with open(path, "wb") as f:
+        f.write("\n".join(header).encode("ascii"))
+        f.write(out.tobytes())

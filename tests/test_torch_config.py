@@ -1,5 +1,5 @@
 """The port's RenderConfig against the JAX package's, and the values the
-ported render path refuses."""
+ported render and training paths refuse."""
 
 import dataclasses
 
@@ -43,7 +43,7 @@ def test_config_is_frozen_and_hashable():
 @pytest.mark.parametrize("change", [
     dict(camera_model=tcfg.CameraModel.FISHEYE),
     dict(camera_model=tcfg.CameraModel.OPENCV, distortion=(0.1, 0.0, 0.0, 0.0)),
-    dict(order="key"),
+    dict(compute_dtype="bfloat16"),
     dict(order="merge"),
     dict(sh_degree=1),
     dict(conic_cull=True),
@@ -63,5 +63,18 @@ def test_unimplemented_values_raise(change):
 def test_defaults_and_bench_config_are_supported():
     tcfg.check_supported(tcfg.RenderConfig())
     tcfg.check_supported(tcfg.RenderConfig(hit_multiplicity=1, march_chunk=128))
+    tcfg.check_supported(tcfg.RenderConfig(order="key"))
+
+
+@pytest.mark.parametrize("change", [
+    dict(order="window"), dict(order="merge"), dict(sh_degree=2), dict(hit_multiplicity=0),
+    dict(camera_model=tcfg.CameraModel.FISHEYE),
+])
+def test_training_config_check(change):
+    """Training runs key order, sh 0, hit multiplicity >= 1 and nothing else."""
+    tcfg.check_trainable(tcfg.RenderConfig(order="key", hit_multiplicity=1))
+    tcfg.check_trainable(tcfg.RenderConfig(order="key", hit_multiplicity=3))
+    with pytest.raises(NotImplementedError):
+        tcfg.check_trainable(tcfg.RenderConfig(**{"order": "key", **change}))
     # accepted with no effect on the output
     tcfg.check_supported(tcfg.RenderConfig(packed16=False, sort_repair=0))

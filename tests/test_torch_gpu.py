@@ -15,12 +15,17 @@ import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
 from gaussian_ray_tracing_tpu_torch.config import RenderConfig
-from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_pair_stream
-from gaussian_ray_tracing_tpu_torch.models.renderer import render
+from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+    prepare_pair_stream, prepare_train_stream,
+)
+from gaussian_ray_tracing_tpu_torch.models.renderer import render, render_diff
 from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
 from gaussian_ray_tracing_tpu_torch.ops import march as tmarch
+from gaussian_ray_tracing_tpu_torch.ops import march_bwd as tbwd
 from gaussian_ray_tracing_tpu_torch.ops import scan as tscan
 from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+from gaussian_ray_tracing_tpu_torch.train.losses import dssim_l1_loss
 from gaussian_ray_tracing_tpu_torch.utils.image import psnr
 
 pytestmark = pytest.mark.gpu
@@ -77,3 +82,87 @@ def test_gpu_render_matches_golden_and_plain(name):
     plain = render(scene, cam, cfg, method="plain")["rgb"].cpu().numpy()
     assert psnr(gpu, z["rgb"].astype(np.float32)) >= 40.0
     assert psnr(gpu, plain) >= 70.0
+
+
+def _train_stream(chunk):
+    """The training stream of a 5k scene at 256^2: starts, rows, dirs, eye."""
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256,
+                        height=256, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order="key")
+    stream, rows, _ = prepare_train_stream(scene, cam, cfg)
+    dirs_t = tile_rays(generate_rays(cam, cfg)[1], 16, 16)
+    return cfg, stream.starts, rows.detach().contiguous(), dirs_t, cam.eye
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_key_march_saved_carries_match_plain(chunk):
+    cfg, starts, rows, dirs_t, _ = _train_stream(chunk)
+    before = (tmarch.march.launches, tmarch.march.save_tin_launches)
+    got = tmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True)
+    torch.cuda.synchronize()
+    assert (tmarch.march.launches, tmarch.march.save_tin_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, chunk, save_tin=True)
+    for a, b in zip(got[:2], want[:2]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_backward_kernel_matches_plain_and_is_deterministic(chunk):
+    cfg, starts, rows, dirs_t, eye = _train_stream(chunk)
+    _, _, tin, base = tmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(dirs_t.shape[:2], generator=g, device="cuda")
+    before = tbwd.march_bwd.launches
+    a = tbwd.march_bwd(starts, rows, dirs_t, eye, tin, base, d_rgb, d_t, cfg, chunk)
+    b = tbwd.march_bwd(starts, rows, dirs_t, eye, tin, base, d_rgb, d_t, cfg, chunk)
+    torch.cuda.synchronize()
+    assert tbwd.march_bwd.launches == before + 2
+    assert torch.equal(a, b)  # fixed-order reductions: bit-identical
+    want = tbwd.march_bwd_plain(starts, rows, dirs_t, eye, tin, base, d_rgb, d_t, cfg, chunk)
+    witness = tbwd.march_bwd_plain(starts, rows.double(), dirs_t.double(), eye.double(),
+                                   tin.double(), base, d_rgb.double(), d_t.double(), cfg, chunk)
+    # per written column: 1e-3 (the JAX suite's bar), 2e-3 on the 9 M
+    # columns, whose reference algebra cancels in float32; and K3 as close
+    # to the float64 witness as the plain version is
+    for i, c in enumerate(tmarch.TRAIN_COLUMNS):
+        if c not in tmarch.DIFF_COLUMNS:  # quad, radius and pad columns
+            assert not a[:, i].any(), i
+            continue
+        bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+        assert float((a[:, i] - want[:, i]).abs().max() / want[:, i].abs().max()) <= bar, i
+        k64, p64 = ((x[:, i] - witness[:, i]).abs().max() for x in (a, want))
+        assert float(k64) <= 1.25 * float(p64), i
+
+
+def test_render_diff_backward_kernels_match_plain():
+    """256^2, 5k gaussians, L2 to a flat target: every raw field's gradient
+    through K1 + K3 against the plain path at 1e-3 relative."""
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256,
+                        height=256, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, order="key")
+    grads = []
+    for method in ("gpu", "plain"):
+        model = GaussianModel.from_scene(scene).requires_grad_(True)
+        out = render_diff(model.activate(), cam, cfg, method=method)
+        torch.mean((out["rgb"] - 0.3) ** 2).backward()
+        grads.append([p.grad for p in model.parameters()])
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-3
+
+
+def test_dssim_l1_on_card_matches_cpu():
+    rng = np.random.default_rng(0)
+    y, x = np.mgrid[0:128, 0:160].astype(np.float32) / 160.0
+    a = (0.4 + 0.2 * np.sin(3 * x + 2 * y))[..., None].repeat(3, -1).astype(np.float32)
+    b = (a + 0.01 * rng.normal(size=a.shape)).astype(np.float32)
+    cpu = float(dssim_l1_loss(torch.from_numpy(a), torch.from_numpy(b)))
+    card = float(dssim_l1_loss(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()))
+    assert abs(card - cpu) <= 1e-4 * abs(cpu)

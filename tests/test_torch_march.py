@@ -1,12 +1,25 @@
 """The port's plain march (the CPU side of kernel K1) against the JAX
 Pallas march, run as the JAX suite runs it on the CPU (interpret mode),
-on the identical (starts, pair_feats, dirs_t) of one JAX pair stream.
+on the identical (starts, pair_feats, dirs_t) of one JAX pair stream, in
+window order and in key order, with and without saved carries.
 
 Bars are the JAX suite's own for the quad path (tests/test_pallas.py):
 PSNR >= 70 dB and max abs <= 1e-2 on rgb and final transmittance. The
 residual comes from the TPU kernel's bf16 hi/lo prefix sums (~2^-16
 relative), exp/log ulps, and exact key ties in fired chunks, where the
-TPU's bitonic network may duplicate one colour pack."""
+TPU's bitonic network may duplicate one colour pack.
+
+Saved carries: atol 1e-4 on all but TIN_TAIL_FRAC of the entries, and
+TIN_TAIL_ABS on that tail, leaving out the boundary rays: rays on which
+some gaussian's peak alpha lies within ALPHA_EPS (relative) of alpha_min,
+computed in float64. Both come from XLA's CPU backend contracting a + b*c
+into FMAs where the port rounds each operation. The quad response pp = oo
++ od t* cancels from |oo| ~ 1e3..1e4, so alpha differs by up to ~3e-4
+relative and the carries behind it by up to ~2e-4 (measured, with 10 of
+6,144 rays left out: 34 of 18,631 entries above 1e-4 at c=64, the largest
+2.1e-4; 1 of 7,152 at c=256). On a boundary ray the
+candidate passes the gate on one side only and every later carry of the
+ray moves by about alpha_min * T (the largest 5.45e-4 = 0.01 x 0.0545)."""
 
 import jax
 import numpy as np
@@ -22,10 +35,29 @@ from gaussian_ray_tracing_tpu.ops.pallas_march import pallas_march_stream
 from gaussian_ray_tracing_tpu.scene.synthetic import random_scene as j_random_scene
 from gaussian_ray_tracing_tpu_torch.config import RenderConfig
 from gaussian_ray_tracing_tpu_torch.ops import march as tmarch
+from gaussian_ray_tracing_tpu_torch.ops.response import canonical_frames, max_response
 from gaussian_ray_tracing_tpu_torch.utils.image import psnr
 
 torch.set_num_threads(1)
 SWEEP = [(c, hm, skip) for c in (64, 128) for hm in (1, 2) for skip in (1e-3, 0.02)]
+KEY_SWEEP = [(c, hm, skip) for c in (64, 128, 256) for hm in (1, 2)
+             for skip in (1e-3, 0.02)]
+ALPHA_EPS = 1e-4  # boundary rays: |peak alpha / alpha_min - 1| below this
+TIN_TAIL_FRAC, TIN_TAIL_ABS = 0.005, 3e-4  # saved carries above 1e-4
+
+
+def _boundary_rays(scene, dirs, eye, alpha_min: float) -> np.ndarray:
+    """dirs (..., 3) -> bool (...): the rays on which some gaussian of the
+    (JAX) scene peaks within ALPHA_EPS of alpha_min, in float64."""
+    f64 = lambda x: torch.from_numpy(np.asarray(x, np.float64)[: scene.num_active])
+    means, ops = f64(scene.means), f64(scene.opacities)
+    M = canonical_frames(f64(scene.scales), f64(scene.quats))
+    d = torch.from_numpy(np.asarray(dirs, np.float64).reshape(-1, 1, 3))
+    near = []
+    for part in d.split(1024):
+        resp, _ = max_response(means, M, torch.tensor(eye, dtype=torch.float64), part)
+        near.append((torch.clamp(resp * ops, max=0.99) / alpha_min - 1.0).abs() < ALPHA_EPS)
+    return torch.cat(near).any(dim=1).reshape(np.shape(dirs)[:-1]).numpy()
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +71,7 @@ def stream_inputs():
     _, dirs, _ = generate_rays(cam, cfg)
     return dict(
         starts=np.array(stream.starts), eye=np.array(cam.eye),
-        pair_feats=np.array(pair_feats), dirs_t=np.array(tile_rays(dirs, 16, 16)),
+        pair_feats=np.array(pair_feats), dirs_t=np.array(tile_rays(dirs, 16, 16)), scene=scene,
     )
 
 
@@ -67,6 +99,59 @@ def test_plain_march_matches_pallas(stream_inputs, chunk, hm, skip):
     assert float(t_final.min()) < 0.5  # the stream really composites
 
 
+def _jax_march(inp, kw, chunk, **extra):
+    T, R = inp["dirs_t"].shape[:2]
+    out = pallas_march_stream(
+        inp["starts"], inp["eye"], inp["pair_feats"], inp["dirs_t"], JConfig(**kw),
+        n_tiles=T, rays_per_tile=R, chunk=chunk, interpret=True, quad=True, **extra,
+    )
+    return [np.asarray(x) for x in out]
+
+
+def _assert_march_bars(got, want):
+    for a, b in zip(got, want):
+        a = a.numpy()
+        assert a.shape == b.shape
+        assert psnr(a, b) >= 70.0
+        assert np.abs(a - b).max() <= 1e-2
+
+
+@pytest.mark.parametrize("chunk,hm,skip", KEY_SWEEP)
+def test_plain_key_march_matches_pallas(stream_inputs, chunk, hm, skip):
+    """Key order: the sqrt-free full-range gate and the stream-order
+    composite, against pallas_march_stream(order="key", quad=True)."""
+    kw = dict(hit_multiplicity=hm, march_chunk=chunk, chunk_skip_transmittance=skip,
+              order="key")
+    want = _jax_march(stream_inputs, kw, chunk, packed16=False)
+    rgb, t_final = tmarch.march_stream(*_torch_args(stream_inputs), RenderConfig(**kw), chunk)
+    _assert_march_bars((rgb, t_final), want)
+    assert float(t_final.min()) < 0.5
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_saved_carries_match_pallas(stream_inputs, chunk):
+    """save_tin: chunk_base equal, every chunk's carry-in T (skipped chunks
+    included) against row 3 of the TPU kernel's 8-row panels at atol 1e-4
+    but for a bounded tail, on every ray but the boundary rays (module
+    docstring)."""
+    kw = dict(hit_multiplicity=1, march_chunk=chunk, order="key")
+    j_rgb, j_t, j_tin, j_base = _jax_march(stream_inputs, kw, chunk, save_tin=True)
+    rgb, t_final, tin, base = tmarch.march_stream(
+        *_torch_args(stream_inputs), RenderConfig(**kw), chunk, save_tin=True)
+    _assert_march_bars((rgb, t_final), (j_rgb, j_t))
+    assert np.array_equal(base.numpy(), j_base)
+    n = int(j_base[-1])
+    assert tin.shape == (n, stream_inputs["dirs_t"].shape[1])
+    inp = stream_inputs
+    boundary = _boundary_rays(inp["scene"], inp["dirs_t"], inp["eye"],
+                              RenderConfig().alpha_min)  # (T, R)
+    assert boundary.sum() <= 0.005 * boundary.size  # a few rays, never a region
+    tile = np.repeat(np.arange(len(j_base) - 1), np.diff(j_base))  # tile of each tin row
+    err = np.abs(tin.numpy() - j_tin[:n, 3, :])[~boundary[tile]]
+    assert np.mean(err > 1e-4) <= TIN_TAIL_FRAC and err.max() <= TIN_TAIL_ABS
+    assert float(tin.min()) < 0.5  # later chunks really start from lower T
+
+
 def test_wrapper_uses_plain_version_on_cpu(stream_inputs):
     starts, feats, dirs_t = _torch_args(stream_inputs)
     compact = tmarch.compact_features(feats)
@@ -78,6 +163,15 @@ def test_wrapper_uses_plain_version_on_cpu(stream_inputs):
     b = tmarch.march_plain(starts, compact, dirs_t, RenderConfig(), 128)
     assert tmarch.march.launches == before  # no kernel launch on the CPU
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # training rows: the march reads their first 16 columns
+    rows = tmarch.train_features(feats)
+    assert rows.shape == (feats.shape[0], tmarch.TRAIN_ROW)
+    assert torch.equal(rows[:, : tmarch.ROW], compact)
+    key = RenderConfig(order="key")
+    c = tmarch.march(starts, rows, dirs_t, key, 128, save_tin=True)
+    d = tmarch.march_plain(starts, compact, dirs_t, key, 128, save_tin=True)
+    assert tmarch.march.launches == before and tmarch.march.save_tin_launches == 0
+    assert all(torch.equal(x, y) for x, y in zip(c, d))
 
 
 def test_march_rejects_unsupported_arguments(stream_inputs):
@@ -89,3 +183,7 @@ def test_march_rejects_unsupported_arguments(stream_inputs):
         tmarch.march(starts, feats, dirs_t, RenderConfig(), 128)  # not compact rows
     with pytest.raises(ValueError):
         tmarch.march(starts[:-1], compact, dirs_t, RenderConfig(), 128)
+    with pytest.raises(NotImplementedError):  # window-order training
+        tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, save_tin=True)
+    with pytest.raises(NotImplementedError):
+        tmarch.march(starts, compact, dirs_t, RenderConfig(order="merge"), 128)

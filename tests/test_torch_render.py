@@ -45,6 +45,23 @@ def test_slice_matches_jax_render_pallas():
     assert psnr(out["alpha"].numpy(), np.asarray(ref["alpha"])) >= 60.0
 
 
+def test_key_order_slice_matches_jax_render_pallas():
+    """The key-order forward render (the training forward without saved
+    carries): 96x64, 800 gaussians, the JAX suite's quad-path bar."""
+    js = j_random_scene(800, seed=5)
+    ts = GaussianScene.from_numpy({k: np.asarray(getattr(js, k)) for k in FIELDS},
+                                  js.num_active)
+    kw = dict(eye=(0.0, 0.2, 2.6), lookat=(0.0, 0.0, 0.0), width=96, height=64)
+    key = dict(hit_multiplicity=1, order="key", march_chunk=256)
+    ref = render_pallas(js, JCamera.create(**kw), JConfig(**key), pair_capacity=65_536,
+                        interpret=True)
+    out = render(ts, Camera.create(**kw), RenderConfig(**key), method="plain",
+                 pair_capacity=65_536)
+    a, b = out["rgb"].numpy(), np.asarray(ref["rgb"])
+    assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+    assert psnr(out["alpha"].numpy(), np.asarray(ref["alpha"])) >= 70.0
+
+
 @pytest.mark.parametrize("name", ["small_pinhole_256", "small_hm2_256"])
 def test_golden_256(name):
     """>= 40 dB against the exact per-ray-ordered oracle goldens, the bar
@@ -70,7 +87,7 @@ def test_gpu_method_never_falls_back_to_cpu():
     with pytest.raises(ValueError):
         render(scene, cam, RenderConfig(), method="pallas")
     with pytest.raises(NotImplementedError):
-        render(scene, cam, RenderConfig(order="key"), method="plain")
+        render(scene, cam, RenderConfig(order="merge"), method="plain")
 
 
 def test_tracer_render_and_capacity_bucket():
@@ -109,6 +126,8 @@ def test_package_imports_without_jax():
         "from gaussian_ray_tracing_tpu_torch.models.renderer import render\n"
         "from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene\n"
         "from gaussian_ray_tracing_tpu_torch import cli\n"
+        "from gaussian_ray_tracing_tpu_torch.train import losses, trainer\n"
+        "from gaussian_ray_tracing_tpu_torch.ops import march_bwd\n"
         "cam = Camera.create(eye=(0, 0.3, 2.8), lookat=(0, 0, 0), width=32, height=32)\n"
         "out = render(random_scene(500, seed=0), cam, RenderConfig())\n"
         "assert out['rgb'].shape == (32, 32, 3) and float(out['rgb'].max()) > 0\n"
