@@ -3,9 +3,11 @@
 one NVIDIA GPU: builds the hand-written kernels from the checkout, holds
 each against its plain torch version, renders the exact-oracle goldens
 through the kernel path, drives the render main path (GaussianRayTracer,
-1280x720, 100k gaussians, bench config) and the training main path
-(Trainer.fit, 512x512, 50k gaussians, key order), times both against the
-plain path, and runs `cli render` and `cli fit`.
+1280x720, 100k gaussians, bench config), the training main path
+(Trainer.fit, 512x512, 50k gaussians, key order) and the mesh-bounce path
+(GaussianRayTracer with a mirror plane and a 180x90 glass sphere, 1280x720,
+100k), times each against the plain path, and runs `cli render` (plain and
+with a glass sphere) and `cli fit`.
 
     python3 chip_smoke.py
 
@@ -38,6 +40,8 @@ TIN_ABS = 1e-4  # saved carries, kernel vs plain
 # written column K3 stays as close to the float64 witness as the plain does
 BWD_REL, BWD_REL_M, WITNESS_RATIO = 1e-3, 2e-3, 1.25
 TRAIN_KW = dict(hit_multiplicity=1, order="key", march_chunk=256)  # cli fit's default
+PSNR_MESH_FRAME = 60.0  # mesh frames, kernel path vs plain path
+K4_REL = 1e-6  # K4 t, u, v vs plain (face ids identical)
 
 
 def log(phase: str, msg: str) -> None:
@@ -398,6 +402,174 @@ def main() -> None:
     log("dssim", f"dssim_l1 step 128x128 5k: card {dl['cuda']:.8f}, cpu {dl['cpu']:.8f}")
     check(abs(dl["cuda"] - dl["cpu"]) <= 1e-4 * abs(dl["cpu"]), "dssim_l1 card vs cpu")
 
+
+    # --- phase 7: mesh bounces at full size ------------------------------
+    # scripts/mesh_probe.py's configuration: 1280x720, random_scene(100k,
+    # seed 0), bench config, eye (0, 0.3, 2.8) looking at the origin; a
+    # MIRROR plane (planar path: K1 segments) and a 180x90 GLASS sphere
+    # (fast path: K4 every bounce, K1 segments, then K1 block mode), both
+    # at (0, 0, 0.5). There the meshes sit inside the scene's shell of
+    # gaussians: every ray reaching them carries T < 0.02, so the bounced
+    # rays are retired and the block march gets no live ray. The same
+    # sphere at (0, 0, 1.6), in front of the shell ("glass_front"), gives
+    # bounce 1 live rays with per-ray origins, whose exits K4 misses: the
+    # 16-block budget keeps the faces nearest the entry point, as in the
+    # JAX package. cli render's 36x18 sphere there ("glass_cli", 5 face
+    # blocks) is hit on the way out too, so its bounces 1-3 run K4 with hits
+    # and the block march behind the sphere. The kernels are held against
+    # their plain versions on every bounce of all three frames.
+    from gaussian_ray_tracing_tpu_torch.config import MeshType
+    from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_sphere, merge_meshes
+
+    mcam = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=1280,
+                                 height=720, device=dev)
+    at_probe = np.eye(4, dtype=np.float32)
+    at_probe[:3, 3] = (0.0, 0.0, 0.5)
+    mcfg = RenderConfig(**BENCH_KW)
+    front = make_sphere((0.0, 0.0, 1.6), device=dev).with_type(MeshType.GLASS)
+    check(front.num_faces == 32_040, "the 180x90 sphere has 32,040 faces")
+    records = {}
+    for name, mesh in (("glass", make_sphere((0.0, 0.0, 0.5), device=dev)), ("glass_front", front),
+                       ("glass_cli", make_sphere((0.0, 0.0, 1.6), tess_u=36, tess_v=18,
+                                                 device=dev))):
+        records[name] = []
+        kmesh.render_with_mesh_fast(scene, mesh.with_type(MeshType.GLASS), mcam, mcfg,
+                                    record=records[name])
+        torch.cuda.synchronize()
+        check(len(records[name]) >= 2, f"{name} frame ran {len(records[name])} bounces")
+
+    k4_err, k4_hits = 0.0, {}
+    for name, record in records.items():
+        for b, rec in enumerate(record):
+            args, kw = rec["k4"]
+            got = ktri.closest_hit_blocks(*args, **kw)
+            torch.cuda.synchronize()
+            want = ktri.closest_hit_blocks_plain(*args, **kw)
+            check(torch.equal(got[1], want[1]), f"K4 {name} bounce {b}: face ids differ")
+            pairs = list(zip(got[0::2] + got[3:], want[0::2] + want[3:]))  # t, u, v
+            rel = max(float(((a - w).abs() / w.abs()).nan_to_num(0.0).max()) for a, w in pairs)
+            k4_err = max([k4_err] + [float((a - w).nan_to_num(0.0).abs().max()) for a, w in pairs])
+            live = int(((args[3] * args[3]).sum(-1) > 0.01).sum())
+            k4_hits[name, b] = int((want[1] >= 0).sum())
+            origin = "shared origin" if kw["origins_t"] is None else "per-ray origins"
+            log("K4", f"{name} bounce {b} ({origin}): {live} live rays, "
+                      f"{int(args[0][-1]) // 256} face blocks listed, {k4_hits[name, b]} hits, "
+                      f"face ids identical, t/u/v max rel {rel:.3g}")
+            check(rel <= K4_REL, f"K4 {name} bounce {b}: t/u/v differ from plain by {rel:.3g}")
+    check(k4_hits["glass_cli", 1] > 0, "glass_cli bounce 1: K4 found no exit hit")
+
+    block_err = 0.0
+    seg_args, seg_kw = records["glass"][0]["k1"]
+    blk_args, blk_kw = records["glass_front"][1]["k1"]
+    check(int(blk_args[0][-1]) > 0, "glass_front bounce 1: the block march listed no block")
+    cli_args, cli_kw = records["glass_cli"][2]["k1"]
+    modes = [("glass segment t_hi+t0 window", seg_args, seg_kw),
+             ("glass segment t_hi+t0 key",
+              (*seg_args[:3], mcfg.replace(order="key"), seg_args[4]), seg_kw),
+             ("glass block (bounce 1)", *records["glass"][1]["k1"]),
+             ("glass_front segment t_hi+t0 window", *records["glass_front"][0]["k1"]),
+             ("glass_front block block_sub=1", blk_args, blk_kw),
+             ("glass_front block block_sub=2", (*blk_args[:4], 2 * blk_args[4]),
+              {**blk_kw, "block_sub": 2}),
+             ("glass_front block key", (*blk_args[:3], mcfg.replace(order="key"), blk_args[4]),
+              blk_kw),
+             ("glass_cli block (bounce 2)", cli_args, cli_kw),
+             ("glass_cli block block_sub=2 (bounce 2)", (*cli_args[:4], 2 * cli_args[4]),
+              {**cli_kw, "block_sub": 2})]
+    for what, args, kw in modes:
+        got = kmarch.march(*args, **kw)
+        torch.cuda.synchronize()
+        want = kmarch.march_plain(*args, **kw)
+        for part, a, b in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            p, m = psnr(a, b), float(np.abs(a - b).max())
+            if "block" in what:
+                block_err = max(block_err, m)
+            log("K1mesh", f"{what} ({int(args[0][-1])} slots) {part}: PSNR {p:.2f} dB "
+                          f"max abs {m:.3g}")
+            check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 {what} vs plain {part}")
+
+    # the main path: GaussianRayTracer with one mirror plane, then one glass
+    # sphere, each moved to (0, 0, 0.5)
+    mtracer = GaussianRayTracer(scene=scene, config=mcfg)
+    mtracer.set_size(1280, 720)
+    mtracer.update_camera(mcam)
+    counters = {"march": (kmarch.march, "launches"),
+                "march_segment": (kmarch.march, "segment_launches"),
+                "march_block": (kmarch.march, "block_launches"),
+                "scan": (kscan.multi_cumsum_i32, "launches"),
+                "closest_hit": (ktri.closest_hit_blocks, "launches")}
+    count = lambda: {label: getattr(fn, attr) for label, (fn, attr) in counters.items()}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    mesh_frames, mesh_launches = {}, {}
+    for kind in ("mirror", "glass"):
+        before = count()
+        idx = (mtracer.create_plane(mesh_type=kind) if kind == "mirror"
+               else mtracer.create_sphere(mesh_type=kind))
+        mtracer.update_instance_transform(idx, at_probe)
+        rgb = mtracer.render()["rgb"]
+        torch.cuda.synchronize()
+        check(tuple(rgb.shape) == (720, 1280, 3) and bool(torch.isfinite(rgb).all()),
+              f"{kind} frame: bad output")
+        check(float(rgb.max()) > 0.1, f"{kind} frame is black")
+        mesh_launches[kind] = {k: v - before[k] for k, v in count().items()}
+        mesh_frames[kind] = merge_meshes(mtracer.primitives)
+        mtracer.remove_primitive(idx)
+    mesh_counts = count()
+    mesh_frames["glass_front"] = front
+    m, g = mesh_launches["mirror"], mesh_launches["glass"]
+    check(m["march_segment"] == 2 and m["march_block"] == 0 and m["closest_hit"] == 0,
+          f"mirror frame: the planar path runs two K1 segments, no K4, no block march ({m})")
+    check(g["march_segment"] >= 1 and g["march_block"] >= 1 and g["closest_hit"] >= 2,
+          f"glass frame: K4 and K1's segment and block modes must launch ({g})")
+    check(m["scan"] > 0 and g["scan"] > 0, "mesh frames: K2 did not launch")
+    log("mesh", f"mirror + glass frames through GaussianRayTracer, launches {mesh_launches}")
+
+    mesh_ms = {}
+    for kind, mesh in mesh_frames.items():
+        out = render(scene, mcam, mcfg, mesh=mesh, method="gpu", return_aux=True)
+        plain = render(scene, mcam, mcfg, mesh=mesh, method="plain", return_aux=True)
+        p = psnr(out["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy())
+        log("mesh", f"{kind} 1280x720 100k: aux gpu {out['aux']} plain {plain['aux']}, "
+                    f"gpu vs plain PSNR {p:.2f} dB")
+        check(out["aux"]["pair_dropped"] == 0, f"{kind}: pairs dropped")
+        check(out["aux"].get("block_dropped") == plain["aux"].get("block_dropped"),
+              f"{kind}: block_dropped differs between kernel and plain paths")
+        check(p >= PSNR_MESH_FRAME, f"{kind} gpu vs plain frame PSNR {p:.2f} < {PSNR_MESH_FRAME}")
+        run = lambda meth: render(scene, mcam, mcfg, mesh=mesh, method=meth)
+        run("gpu")  # warm-up
+        mesh_ms[kind] = (statistics.median(cuda_ms(lambda: run("gpu"), 10)),
+                         statistics.median(cuda_ms(lambda: run("plain"), 3)))
+        log("frame", f"{kind} 1280x720 100k, median of 10/3: gpu {mesh_ms[kind][0]:.3f} ms, "
+                     f"plain {mesh_ms[kind][1]:.3f} ms ({card})")
+
+    # kernels alone at the glass frames' shapes
+    k4_args, k4_kw = records["glass_cli"][1]["k4"]
+    k4_ms = statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks(*k4_args, **k4_kw), 20))
+    k4_plain = statistics.median(cuda_ms(
+        lambda: ktri.closest_hit_blocks_plain(*k4_args, **k4_kw), 5))
+    k4f, k4f_kw = records["glass_front"][1]["k4"]
+    k4f_ms = statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks(*k4f, **k4f_kw), 20))
+    k4f_plain = statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks_plain(*k4f, **k4f_kw),
+                                          5))
+    k4_0, k4_0kw = records["glass"][0]["k4"]
+    k40_ms = statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks(*k4_0, **k4_0kw), 20))
+    k40_plain = statistics.median(cuda_ms(
+        lambda: ktri.closest_hit_blocks_plain(*k4_0, **k4_0kw), 5))
+    blk_ms = statistics.median(cuda_ms(lambda: kmarch.march(*blk_args, **blk_kw), 20))
+    blk_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*blk_args, **blk_kw), 5))
+    seg_ms = statistics.median(cuda_ms(lambda: kmarch.march(*seg_args, **seg_kw), 20))
+    seg_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*seg_args, **seg_kw), 5))
+    log("kernel", f"K4 glass_cli bounce 1 (per-ray origins): {k4_ms:.3f} ms, plain "
+                  f"{k4_plain:.3f} ms; K4 glass_front bounce 1 (per-ray origins): {k4f_ms:.3f} "
+                  f"ms, plain {k4f_plain:.3f} ms; K4 glass bounce 0 (shared origin): {k40_ms:.3f} ms, plain "
+                  f"{k40_plain:.3f} ms; K1 block glass_front bounce 1: {blk_ms:.3f} ms, plain "
+                  f"{blk_plain:.3f} ms; K1 segment glass bounce 0: {seg_ms:.3f} ms, plain "
+                  f"{seg_plain:.3f} ms ({card})")
+
     # --- CLI, one frame through a user's entry point ---------------------
     os.makedirs(ROOT / "build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -412,6 +584,18 @@ def main() -> None:
         img = _png_pixels(png)
         check(img.max() > 0, "cli PNG is all black")
         log("cli", f"{res.stdout.strip()} (max pixel {int(img.max())})")
+
+        res = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.cli", "render", "--synthetic", "100000",
+             "--width", "1280", "--height", "720", "--add-sphere", "--mesh-type", "glass",
+             "-o", str(png)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        check(res.returncode == 0, f"cli render --add-sphere failed:\n{res.stderr[-4000:]}")
+        img = _png_pixels(png)
+        check(img.max() > 0, "cli glass-sphere PNG is all black")
+        log("cli", f"--add-sphere --mesh-type glass: {res.stdout.strip()} "
+                   f"(max pixel {int(img.max())})")
 
         fit_ply = Path(tmp) / "fit.ply"
         res = subprocess.run(
@@ -444,6 +628,14 @@ def main() -> None:
          "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
          "launches": train_launches["march_bwd"], "max_abs_err": bwd_err,
          "ms": k3_ms, "plain_ms": k3_plain},
+        {"name": "closest_hit", "route": "cuda", "source": f"{src}/tri.cu",
+         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
+         "launches": mesh_counts["closest_hit"], "max_abs_err": k4_err,
+         "ms": k40_ms, "plain_ms": k40_plain},
+        {"name": "march_block", "route": "cuda", "source": f"{src}/march.cu",
+         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195",
+         "launches": mesh_counts["march_block"], "max_abs_err": block_err,
+         "ms": blk_ms, "plain_ms": blk_plain},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

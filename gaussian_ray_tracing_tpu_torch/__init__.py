@@ -5,11 +5,13 @@ held against; module names mirror it so each counterpart is easy to find.
 This package imports torch only, never jax (importing anything under
 `gaussian_ray_tracing_tpu` runs `import jax`).
 
-Ported so far: the primary pinhole render in window order with the quad
-response, a shared ray origin and SH degree 0 (models/gpu_renderer.py),
-carried by two hand-written CUDA kernels built from csrc/ at first use:
-the fused march (ops/march.py, csrc/march.cu) and the multi-channel int32
-scan of the binning (ops/scan.py, csrc/scan.cu).
+Ported so far: the primary pinhole render (models/gpu_renderer.py),
+key-order training (train/) and mirror / glass / normal mesh bounces
+(models/mesh_tracer.py), at SH degree 0, carried by four hand-written CUDA
+kernels built from csrc/ at first use: the fused march (ops/march.py,
+csrc/march.cu), its backward (ops/march_bwd.py, csrc/march_bwd.cu), the
+multi-channel int32 scan of the binning (ops/scan.py, csrc/scan.cu) and
+the per-tile closest hit against mesh blocks (ops/tri.py, csrc/tri.cu).
 """
 
 import torch

@@ -1,8 +1,11 @@
 """Command-line interface of the port (the `render` and `fit` subcommands
-of gaussian_ray_tracing_tpu/cli.py; pinhole, key-order sh0 training).
+of gaussian_ray_tracing_tpu/cli.py; pinhole, mesh bounces, key-order sh0
+training).
 
     python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
         --width 1280 --height 720 -o out.png
+    python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
+        --width 1280 --height 720 --add-sphere --mesh-type glass -o glass.png
     python -m gaussian_ray_tracing_tpu_torch.cli fit --ply data/fitted_20k.ply \
         --fit-gaussians 20000 --width 512 --height 512 --steps 200 -o fit.ply
 """
@@ -46,6 +49,13 @@ def _build(args):
     tracer.update_camera(Camera.create(eye=eye, lookat=lookat, fov_y_deg=args.fov,
                                        width=args.width, height=args.height,
                                        device=scene.device))
+    if args.add_plane:
+        tracer.create_plane()
+    if args.add_sphere:
+        tracer.create_sphere(tess_u=36, tess_v=18)
+    if args.load_obj:
+        tracer.create_load_mesh(args.load_obj)
+    tracer.set_render_type(args.mesh_type)
     return tracer
 
 
@@ -134,6 +144,13 @@ def main(argv=None):
                         "1 = standard volume rendering")
     p.add_argument("--march-chunk", type=int, default=None,
                    help="march chunk / ordering window width")
+    p.add_argument("--mesh-type", choices=["mirror", "normal", "glass"], default="mirror",
+                   help="material of the inserted primitives")
+    p.add_argument("--add-plane", action="store_true",
+                   help="insert a 0.3 x 0.5 plane in front of the camera")
+    p.add_argument("--add-sphere", action="store_true",
+                   help="insert a 36 x 18 UV sphere of radius 0.3 in front of the camera")
+    p.add_argument("--load-obj", type=str, default=None, help="insert an OBJ mesh")
     p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
     p.add_argument("--device", default="auto",
                    help="auto (cuda when available, else cpu), cuda, cpu, ...")

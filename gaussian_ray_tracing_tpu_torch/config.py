@@ -5,7 +5,8 @@ one package means the same render in the other. The field comments there
 carry the history of each default; they are not repeated here.
 `unsupported_fields` lists the values the ported render path does not
 implement yet, so it can refuse them instead of rendering something else;
-`unsupported_train_fields` does the same for the training path.
+`unsupported_train_fields` and `unsupported_mesh_fields` do the same for the
+training path and the mesh tracer.
 """
 
 from __future__ import annotations
@@ -138,6 +139,16 @@ def unsupported_train_fields(config: RenderConfig) -> list[str]:
     return bad
 
 
+def unsupported_mesh_fields(config: RenderConfig) -> list[str]:
+    """Values of `config` the ported mesh tracer does not implement yet: on
+    top of the render's limits, bounced segments march in window or key
+    order only (`bounce_order="merge"` needs K1's merge mode)."""
+    bad = unsupported_fields(config)
+    if config.bounce_order not in ("window", "key"):
+        bad.append(f"bounce_order={config.bounce_order!r}")
+    return bad
+
+
 def _raise_unsupported(bad: list[str]) -> None:
     if bad:
         raise NotImplementedError(
@@ -151,3 +162,7 @@ def check_supported(config: RenderConfig) -> None:
 
 def check_trainable(config: RenderConfig) -> None:
     _raise_unsupported(unsupported_train_fields(config))
+
+
+def check_mesh_supported(config: RenderConfig) -> None:
+    _raise_unsupported(unsupported_mesh_fields(config))

@@ -68,13 +68,19 @@ def bin_frame(scene: GaussianScene, M, radius, camera: Camera, config: RenderCon
 
 
 def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConfig,
-                        pair_capacity: int, use_kernels: bool = True):
+                        pair_capacity: int, use_kernels: bool = True, with_table: bool = False):
     """Feature table -> footprints -> sorted pair stream -> per-pair rows.
-    Returns (stream, pair_feats (n_pairs, 16) compact rows, n_pairs)."""
+    Returns (stream, pair_feats (n_pairs, 16) compact rows, n_pairs) and,
+    with_table (the mesh tracer's bounced rays), also the whole table as
+    (N, 32) training rows in gaussian order and the per-gaussian bound
+    radius (N,) (radius * max scale) for the Morton block index."""
     table, M, radius = feature_table(scene, config, eye=camera.eye)
     stream, ids, n_pairs = bin_frame(scene, M, radius, camera, config, pair_capacity,
                                      use_kernels)
-    return stream, compact_features(table)[ids], n_pairs
+    out = (stream, compact_features(table)[ids], n_pairs)
+    if with_table:
+        out += (train_features(table), radius * torch.amax(scene.scales, dim=-1))
+    return out
 
 
 def prepare_train_stream(scene: GaussianScene, camera: Camera, config: RenderConfig,
@@ -103,12 +109,12 @@ def _check_devices(scene: GaussianScene, camera: Camera, use_kernels: bool):
         )
 
 
-def _image(rgb_t, t_final_t, valid, camera: Camera, config: RenderConfig) -> dict:
-    """Untile, clip to [0, 1] and blank invalid pixels."""
+def _image(rgb_t, alpha_t, valid, camera: Camera, config: RenderConfig) -> dict:
+    """Untile, clip rgb to [0, 1] and blank invalid pixels."""
     H, W = camera.height, camera.width
     tw, th = config.tile_w, config.tile_h
     rgb = torch.clamp(untile_image(rgb_t, H, W, tw, th), 0.0, 1.0)
-    alpha = untile_image((1.0 - t_final_t)[..., None], H, W, tw, th)[..., 0]
+    alpha = untile_image(alpha_t[..., None], H, W, tw, th)[..., 0]
     return {
         "rgb": torch.where(valid[..., None], rgb, 0.0),
         "alpha": torch.where(valid, alpha, 0.0),
@@ -131,7 +137,7 @@ def render_gpu(scene: GaussianScene, camera: Camera, config: RenderConfig = Rend
     dirs_t = tile_rays(dirs, config.tile_w, config.tile_h)
     march_fn = march if use_kernels else march_plain
     rgb_t, t_final_t = march_fn(stream.starts, pair_feats, dirs_t, config, chunk_for(config))
-    out = _image(rgb_t, t_final_t, valid, camera, config)
+    out = _image(rgb_t, 1.0 - t_final_t, valid, camera, config)
     if return_aux:
         out["aux"] = {"n_pairs": n_pairs, "n_dropped": 0}
     return out
@@ -154,4 +160,4 @@ def render_gpu_diff(scene: GaussianScene, camera: Camera, config: RenderConfig =
     rgb_t, t_final_t = march_stream_diff(rows, stream.starts, dirs_t,
                                          camera.eye.to(torch.float32), config,
                                          chunk_for(config), use_kernels)
-    return _image(rgb_t, t_final_t, valid, camera, config)
+    return _image(rgb_t, 1.0 - t_final_t, valid, camera, config)

@@ -1,10 +1,12 @@
 """Top-level rendering API (counterpart of
 gaussian_ray_tracing_tpu/models/renderer.py).
 
-`render()` picks the kernel path or the plain torch path, `render_diff()`
-the same for the differentiable key-order render; the stateful
-`GaussianRayTracer` holds the scene, frame size and camera. Mesh
-primitives and supersampling are not ported yet and raise.
+`render()` picks the kernel path or the plain torch path, and the mesh
+tracer when a mesh is given; `render_diff()` the same for the
+differentiable key-order render; the stateful `GaussianRayTracer` holds
+the scene, frame size, camera and mesh primitives (plane, sphere, OBJ),
+each with an optional material type. Supersampling is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -13,9 +15,13 @@ import numpy as np
 import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+from gaussian_ray_tracing_tpu_torch.config import MeshType, RenderConfig
 from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import render_gpu, render_gpu_diff
+from gaussian_ray_tracing_tpu_torch.models.mesh_tracer import render_with_mesh
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
+from gaussian_ray_tracing_tpu_torch.scene.mesh import (
+    TriangleMesh, load_obj, make_plane, make_sphere, merge_meshes,
+)
 
 METHODS = ("auto", "gpu", "plain")
 
@@ -28,11 +34,18 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
       "plain" -- the plain torch versions of the kernels, on any device;
       "auto"  -- "gpu" if the scene's tensors live on CUDA, else "plain"
                  (tensors are never moved between devices).
+    With a mesh, the frame goes through the mesh tracer
+    (models/mesh_tracer.render_with_mesh), whose aux holds block_dropped
+    (planar path: none) and pair_dropped.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh bounces are not ported yet")
     if supersample != 1:
         raise NotImplementedError("supersampling is not ported yet")
+    if mesh is not None:
+        out = render_with_mesh(scene, mesh, camera, config, pair_capacity=pair_capacity,
+                               use_kernels=_use_kernels(scene, method))
+        if not return_aux:
+            out.pop("aux")
+        return out
     return render_gpu(scene, camera, config, pair_capacity=pair_capacity,
                       return_aux=return_aux, use_kernels=_use_kernels(scene, method))
 
@@ -78,6 +91,7 @@ class GaussianRayTracer:
         self.scene = scene
         self.device = scene.device
         self.config = config
+        self.primitives: list[TriangleMesh] = []
         # pair-capacity bucket, refreshed from observed pair counts
         self._pair_capacity: int | None = None
         self.width = 1280
@@ -98,20 +112,53 @@ class GaussianRayTracer:
     def update_camera(self, camera: Camera):
         self.camera = camera
 
-    def create_plane(self, mesh_type=None) -> int:
-        raise NotImplementedError("mesh primitives are not ported yet")
+    # --- primitives (the reference's insert/remove/transform) ---
+    def _spawn_position(self):
+        """New primitives appear at 0.75 * eye + 0.25 * lookat."""
+        return 0.75 * self.camera.eye.cpu().numpy() + 0.25 * self.camera.lookat.cpu().numpy()
 
-    def create_sphere(self, tess_u: int = 180, tess_v: int = 90, mesh_type=None) -> int:
-        raise NotImplementedError("mesh primitives are not ported yet")
+    def _add(self, mesh: TriangleMesh, mesh_type) -> int:
+        if mesh_type is not None:  # else follow the global config.mesh_type
+            if isinstance(mesh_type, str):
+                mesh_type = MeshType[mesh_type.upper()]
+            mesh = mesh.with_type(mesh_type)
+        self.primitives.append(mesh)
+        return len(self.primitives) - 1
 
-    def create_load_mesh(self, path: str, mesh_type=None) -> int:
-        raise NotImplementedError("mesh primitives are not ported yet")
+    def create_plane(self, mesh_type: MeshType | str | None = None) -> int:
+        """Insert a plane; mesh_type pins this primitive's material
+        independently of the global render type."""
+        return self._add(make_plane(self._spawn_position(), device=self.device), mesh_type)
+
+    def create_sphere(self, tess_u: int = 180, tess_v: int = 90,
+                      mesh_type: MeshType | str | None = None) -> int:
+        return self._add(make_sphere(self._spawn_position(), tess_u=tess_u, tess_v=tess_v,
+                                     device=self.device), mesh_type)
+
+    def create_load_mesh(self, path: str, mesh_type: MeshType | str | None = None) -> int:
+        return self._add(load_obj(path, self._spawn_position(), device=self.device), mesh_type)
+
+    def update_instance_transform(self, index: int, transform):
+        self.primitives[index] = self.primitives[index].with_transform(transform)
+
+    def remove_primitive(self, index: int):
+        self.primitives.pop(index)
+
+    def set_render_type(self, mesh_type: MeshType | str):
+        if isinstance(mesh_type, str):
+            mesh_type = MeshType[mesh_type.upper()]
+        self.config = self.config.replace(mesh_type=mesh_type)
 
     def render(self, method: str = "auto", supersample: int = 1):
         """Render the current frame. The pair capacity is bucketed from the
         previous frame's pair count (the next power of two above 1.3x), so
         static scenes reuse one allocation size; a frame that outgrows the
-        bucket is rebuilt at a snug capacity rather than dropping pairs."""
+        bucket is rebuilt at a snug capacity rather than dropping pairs.
+        With primitives, their merged mesh goes through the mesh tracer."""
+        if self.primitives:
+            return render(self.scene, self.camera, self.config,
+                          mesh=merge_meshes(self.primitives), method=method,
+                          supersample=supersample)
         out = render(self.scene, self.camera, self.config, method=method,
                      pair_capacity=self._pair_capacity, return_aux=True,
                      supersample=supersample)

@@ -18,7 +18,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("march.cu", "march_bwd.cu", "scan.cu")
+SOURCES = ("march.cu", "march_bwd.cu", "scan.cu", "tri.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # -fmad=false: no FMA contraction, so the kernels round each float32
 # operation as the plain torch versions do (see csrc/march.cu)
@@ -92,14 +92,15 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.grt_march.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                              cf, cf, cf, cf, cf, cf, ci, vp]
+    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, vp]
     lib.grt_march.restype = ci
     lib.grt_march_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                   cf, cf, cf, cf, cf, ci, vp]
     lib.grt_march_bwd.restype = ci
     lib.grt_multi_cumsum_i32.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, vp]
     lib.grt_multi_cumsum_i32.restype = ci
+    lib.grt_closest_hit.argtypes = [vp] * 10 + [ci, ci, cf, cf, vp]
+    lib.grt_closest_hit.restype = ci
     lib.grt_scan_block.argtypes = []
     lib.grt_scan_block.restype = ci
     lib.grt_error_string.argtypes = [ci]

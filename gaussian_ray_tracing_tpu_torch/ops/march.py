@@ -2,8 +2,10 @@
 
 Counterpart of `pallas_march_stream` / `_march_kernel` in
 gaussian_ray_tracing_tpu/ops/pallas_march.py (forward), in the modes the
-primary render and the training forward use: the quad response with a
-shared ray origin, SH degree 0, full [t_min, t_max] rays, and either
+primary render, the training forward and the mesh tracer use: SH degree
+0; the quad response with a shared ray origin on full [t_min, t_max] rays
+(or on segments, below), or the scalar response with per-ray origins in
+block mode (below); and either
 
   - window order (config.order == "window", the render): exact event-t gate
     and the tile-wide window-sort fire, described below; or
@@ -44,6 +46,25 @@ chunk_base[t] + j of a (sum of chunks, R) array, chunk_base = [0,
 cumsum(ceil(count_t / c))] (pallas_march.py:461-473, 1075-1081). The
 backward (ops/march_bwd.py, kernel K3) replays each chunk from it.
 
+Segments and bounced rays (the mesh tracer; pallas_march.py:236-241,
+407-442, 586-633, 1046-1074, 1121-1124). Optional per-ray arguments, all
+None on the primary render:
+
+  - t_lo, t_hi (T, R): a per-ray window [t_lo, t_hi] of the event t, and
+    t0 (T, R): the carry-in transmittance (a segment chained on an earlier
+    one). Whenever a window, origin or block argument is given the ray is
+    not a full-range ray, so key order takes the exact entry/exit event gate
+    instead of the sqrt-free one.
+  - origins_t (T, R, 3): per-ray origins, with the SCALAR response on the
+    32-float training rows: o_g = M (o - mu), d_g = M d, t* = -od /
+    max(dd, 1e-6) as a true division, pp = oo + t* (2 od + t* dd), the gate
+    with disc >= 0, and the colour max(0.5 + C0 sh0, 0) from the row's sh0.
+    (The TPU kernel's per-ray-origin QUAD expansion is not ported.)
+  - blocks (cap_b,) int32 with block_sub: block mode over the Morton-sorted
+    table (ops/blocks.block_stream). With bs = chunk / block_sub, chunk j of
+    tile t reads rows [blocks[starts[t] / bs + j * block_sub + s] * bs, +bs)
+    for s < block_sub.
+
 `march_stream` takes per-pair rows in the JAX feature-table layout (the
 very array `pallas_march_stream` takes); it gathers the 15 columns the
 march reads into compact 16-float rows (`compact_features`) and calls
@@ -60,6 +81,7 @@ from __future__ import annotations
 import torch
 
 from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0
 
 # JAX feature-table columns read by the quad/sh0 march: op 12, q 64..69,
 # v 72..74, cq 75, oo 76, rgb 77..79
@@ -143,7 +165,8 @@ def march_stream(starts, pair_feats, dirs_t, config: RenderConfig, chunk: int,
                  save_tin=save_tin)
 
 
-def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin):
+def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, seg=None):
+    seg = seg or {}
     if chunk not in CHUNKS:
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
     if config.order not in ("window", "key"):
@@ -159,27 +182,60 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin):
         raise ValueError("dirs_t must be (T, R, 3) float32")
     if starts.shape[0] != dirs_t.shape[0] + 1:
         raise ValueError("starts must have one entry more than dirs_t has tiles")
-    if len({starts.device, feats.device, dirs_t.device}) != 1:
-        raise ValueError("starts, feats and dirs_t must share one device")
+    if save_tin and any(seg.get(k) is not None for k in ("origins_t", "t_lo", "t_hi", "t0",
+                                                         "blocks")):
+        raise NotImplementedError("save_tin (training) takes no per-ray window, origin or blocks")
+    T, R = dirs_t.shape[:2]
+    for name in ("t_lo", "t_hi", "t0"):
+        x = seg.get(name)
+        if x is not None and (x.dtype != _F32 or tuple(x.shape) != (T, R)):
+            raise ValueError(f"{name} must be (T, R) float32")
+    origins = seg.get("origins_t")
+    if origins is not None:
+        if origins.dtype != _F32 or origins.shape != dirs_t.shape:
+            raise ValueError("origins_t must be (T, R, 3) float32")
+        if feats.shape[1] != TRAIN_ROW:
+            raise ValueError(f"per-ray origins need the ({TRAIN_ROW},) training rows")
+    blocks, block_sub = seg.get("blocks"), seg.get("block_sub", 1)
+    if blocks is not None and (blocks.dtype != torch.int32 or blocks.dim() != 1):
+        raise ValueError("blocks must be (cap_b,) int32")
+    if block_sub < 1 or chunk % block_sub or (block_sub > 1 and blocks is None):
+        raise ValueError("block_sub > 1 is block mode's multi-block chunk "
+                         "(chunk % block_sub == 0)")
+    devices = {starts.device, feats.device, dirs_t.device}
+    devices |= {x.device for k, x in seg.items() if torch.is_tensor(x)}
+    if len(devices) != 1:
+        raise ValueError("all tensors must share one device")
 
 
-def march(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool = False):
+def march(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool = False, *,
+          origins_t=None, t_lo=None, t_hi=None, t0=None, blocks=None, block_sub: int = 1):
     """Kernel K1 wrapper on compact or training rows (see module docstring).
 
     CUDA tensors launch csrc/march.cu; CPU tensors run march_plain.
     Returns (rgb (T, R, 3), t_final (T, R)) and, with save_tin (key order
     only), also (tin (sum of chunks, R), chunk_base (T+1,) int32).
     """
-    _check_args(starts, feats, dirs_t, config, chunk, save_tin)
+    seg = dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
+               block_sub=block_sub)
+    _check_args(starts, feats, dirs_t, config, chunk, save_tin, seg)
     if dirs_t.device.type == "cpu":
-        return march_plain(starts, feats, dirs_t, config, chunk, save_tin)
+        return march_plain(starts, feats, dirs_t, config, chunk, save_tin, **seg)
     if dirs_t.device.type != "cuda":
         raise ValueError(f"no march for device {dirs_t.device}")
-    return _march_cuda(starts.contiguous(), feats.contiguous(),
-                       dirs_t.contiguous(), config, chunk, save_tin)
+    seg = {k: v.contiguous() if torch.is_tensor(v) else v for k, v in seg.items()}
+    return _march_cuda(starts.contiguous(), feats.contiguous(), dirs_t.contiguous(), config,
+                       chunk, save_tin, **seg)
 
 
-def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool):
+def _full_range(origins_t, t_lo, t_hi, blocks) -> bool:
+    """Whole-ray march: no window, per-ray origin or block list
+    (pallas_march.py:1121-1124); key order may then use the sqrt-free gate."""
+    return origins_t is None and t_lo is None and t_hi is None and blocks is None
+
+
+def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool,
+                origins_t, t_lo, t_hi, t0, blocks, block_sub):
     from gaussian_ray_tracing_tpu_torch.ops.cuda_build import check, load_library
 
     lib = load_library()
@@ -193,15 +249,16 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
     if save_tin:
         chunk_base = chunk_bases(starts, chunk)
         tin = torch.empty((int(chunk_base[-1]), R), dtype=_F32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
     if T > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.grt_march(
                 starts.data_ptr(), feats.data_ptr(), dirs_t.data_ptr(),
-                rgb.data_ptr(), t_final.data_ptr(),
-                tin.data_ptr() if save_tin else None,
-                chunk_base.data_ptr() if save_tin else None,
+                rgb.data_ptr(), t_final.data_ptr(), ptr(tin), ptr(chunk_base),
+                ptr(origins_t), ptr(t_lo), ptr(t_hi), ptr(t0), ptr(blocks), block_sub,
                 T, R, chunk, feats.shape[1], int(config.order == "key"),
+                int(_full_range(origins_t, t_lo, t_hi, blocks)),
                 config.t_min, config.t_max, config.min_transmittance,
                 _skip_threshold(config, save_tin), config.alpha_min, config.alpha_clamp,
                 config.hit_multiplicity, stream,
@@ -210,11 +267,17 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
         march.launches += 1
         if save_tin:
             march.save_tin_launches += 1
+        if blocks is not None:
+            march.block_launches += 1
+        elif t_lo is not None or t_hi is not None or t0 is not None:
+            march.segment_launches += 1
     return (rgb, t_final, tin, chunk_base) if save_tin else (rgb, t_final)
 
 
 march.launches = 0  # every K1 launch
 march.save_tin_launches = 0  # the K1 launches in key + save_tin mode
+march.segment_launches = 0  # windowed or chained segments on the pair stream
+march.block_launches = 0  # block mode (bounced rays over the Morton table)
 
 
 # --- plain torch version ---------------------------------------------------
@@ -247,12 +310,30 @@ def _composite(t_carry, a, cols, min_t: float):
     return rgb_part, t_next
 
 
-def _quad_alpha(f, d, live_b, present, config: RenderConfig):
-    """Quad-form response of a (B, c, ROW) candidate block against (B, 1, R,
-    3) directions: the gated effective alpha (B, c, R) and, for window
-    order, the event t."""
+def _event_gate(od, dd, cq, t_lo, t_hi):
+    """Exact iso-ellipsoid event t (entry, or exit from inside) and its
+    window test t_lo <= t_event <= t_hi."""
+    disc = od * od - dd * cq
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv_dd = 1.0 / torch.clamp(dd, min=1e-12)
+    t_entry = (-od - sq) * inv_dd
+    t_exit = (-od + sq) * inv_dd
+    t_ev = torch.where(t_entry < t_lo, t_exit, t_entry)
+    return t_ev, (t_ev >= t_lo) & (t_ev <= t_hi), disc
+
+
+def _effective(alpha, gate, config: RenderConfig):
+    hm = config.hit_multiplicity
+    a_eff = alpha if hm == 1 else 1.0 - (1.0 - alpha) ** hm
+    return torch.where(gate, a_eff, 0.0)
+
+
+def _quad_alpha(f, rays, present, config: RenderConfig):
+    """Quad-form response of a (B, c, ROW+) candidate block against the
+    rays of `rays` (each (B, 1, R)): the gated effective alpha (B, c, R),
+    the event t (None under the full-range key gate) and the colours."""
     col = lambda k: f[:, :, k : k + 1]  # (B, c, 1)
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]  # (B, 1, R)
+    dx, dy, dz = rays["d"]
     m2 = (dx * dx, dy * dy, dz * dz, 2.0 * dx * dy, 2.0 * dx * dz, 2.0 * dy * dz)
     q = [col(_Q0 + k) for k in range(6)]
     dd = q[0] * m2[0] + q[1] * m2[1] + q[2] * m2[2] + q[3] * m2[3] \
@@ -264,42 +345,72 @@ def _quad_alpha(f, d, live_b, present, config: RenderConfig):
     pp = oo + od * t_star  # oo - od^2/dd
     resp = torch.exp(-0.5 * torch.clamp(pp, min=0.0))
     alpha = torch.clamp(resp * col(_OP), max=config.alpha_clamp)
-    t_lo = config.t_min
-    if config.order == "key":
+    t_lo, live = rays["t_lo"], rays["live"]
+    if config.order == "key" and rays["full_range"]:
         # sqrt-free full-range gate: the convex q(t) = |o_g + t d_g|^2 -
         # rad^2 is negative somewhere in [t_lo, inf)
         q_lo = cq + t_lo * (2.0 * od + t_lo * dd)
-        gate = present & live_b & (alpha > config.alpha_min) \
+        gate = present & live & (alpha > config.alpha_min) \
             & ((t_star >= t_lo) | (q_lo < 0.0))
         t_ev = None
     else:
-        disc = od * od - dd * cq
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        inv_dd = 1.0 / torch.clamp(dd, min=1e-12)
-        t_entry = (-od - sq) * inv_dd
-        t_exit = (-od + sq) * inv_dd
-        t_ev = torch.where(t_entry < t_lo, t_exit, t_entry)
+        t_ev, in_window, _ = _event_gate(od, dd, cq, t_lo, rays["t_hi"])
         # disc >= 0 is implied by alpha > alpha_min (the adaptive radius is
         # the alpha_min iso-surface), so the gate drops it, as on the TPU
-        gate = present & (t_ev >= t_lo) & (t_ev <= config.t_max) \
-            & live_b & (alpha > config.alpha_min)
-    hm = config.hit_multiplicity
-    a_eff = alpha if hm == 1 else 1.0 - (1.0 - alpha) ** hm
-    return torch.where(gate, a_eff, 0.0), t_ev
+        gate = present & in_window & live & (alpha > config.alpha_min)
+    cols = [col(_RGB0 + ch) for ch in range(3)]
+    return _effective(alpha, gate, config), t_ev, cols
 
 
-def _chunk_plain(tb, j, starts, feats, dirs, live, trans, rgb, config, c):
+def _scalar_alpha(f, rays, present, config: RenderConfig):
+    """Scalar (canonical-frame) response of (B, c, TRAIN_ROW) training rows
+    against per-ray origins: gated effective alpha, event t and colours."""
+    col = lambda k: f[:, :, k : k + 1]  # (B, c, 1)
+    dx, dy, dz = rays["d"]
+    ox, oy, oz = (o - col(T_MX + k) for k, o in enumerate(rays["o"]))  # (B, c, R)
+    m = [col(T_M0 + k) for k in range(9)]
+    og = [m[3 * i] * ox + m[3 * i + 1] * oy + m[3 * i + 2] * oz for i in range(3)]
+    dg = [m[3 * i] * dx + m[3 * i + 1] * dy + m[3 * i + 2] * dz for i in range(3)]
+    dd = dg[0] * dg[0] + dg[1] * dg[1] + dg[2] * dg[2]
+    od = og[0] * dg[0] + og[1] * dg[1] + og[2] * dg[2]
+    oo = og[0] * og[0] + og[1] * og[1] + og[2] * og[2]
+    t_star = -od / torch.clamp(dd, min=1e-6)  # a true division, as on the TPU
+    pp = oo + t_star * (2.0 * od + t_star * dd)
+    resp = torch.exp(-0.5 * torch.clamp(pp, min=0.0))
+    alpha = torch.clamp(resp * col(0), max=config.alpha_clamp)
+    rad = col(T_RAD)
+    t_ev, in_window, disc = _event_gate(od, dd, oo - rad * rad, rays["t_lo"], rays["t_hi"])
+    gate = present & (disc >= 0.0) & in_window & rays["live"] & (alpha > config.alpha_min)
+    cols = [torch.clamp(0.5 + SH_C0 * col(T_SH0 + ch), min=0.0) for ch in range(3)]
+    return _effective(alpha, gate, config), t_ev, cols
+
+
+def _chunk_rows(tb, j, starts, c, n_rows, blocks, block_sub):
+    """(B, c) row indices of chunk j of tiles tb and the (B, c, 1) tail mask."""
+    dev = starts.device
+    base = starts[tb].long()
+    k = torch.arange(c, device=dev)
+    present = (j * c + k)[None, :] < (starts[tb + 1].long() - base)[:, None]
+    if blocks is None:
+        idx = base[:, None] + j * c + k[None, :]
+    else:
+        bs = c // block_sub
+        slot = base[:, None] // bs + j * block_sub + (k // bs)[None, :]
+        slot = torch.clamp(slot, max=blocks.shape[0] - 1)  # tail lookups are masked
+        idx = blocks[slot].long() * bs + (k % bs)[None, :]
+    return torch.clamp(idx, max=n_rows - 1), present[..., None]
+
+
+def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, block_sub):
     """March chunk j of tiles `tb` (in place on trans/rgb)."""
-    dev = feats.device
-    base = starts[tb].long() + j * c
-    idx = base[:, None] + torch.arange(c, device=dev)[None, :]  # (B, c)
-    present = (idx < starts[tb + 1].long()[:, None])[..., None]  # (B, c, 1)
-    f = feats[torch.clamp(idx, max=feats.shape[0] - 1)]  # (B, c, row)
-    a, t_ev = _quad_alpha(f, dirs[tb][:, None], live[tb][:, None], present, config)
+    idx, present = _chunk_rows(tb, j, starts, c, feats.shape[0], blocks, block_sub)
+    f = feats[idx]  # (B, c, row)
+    sub = {k: ([x[tb][:, None] for x in v] if isinstance(v, list)
+               else v[tb][:, None] if torch.is_tensor(v) else v) for k, v in rays.items()}
+    alpha_fn = _quad_alpha if rays["o"] is None else _scalar_alpha
+    a, t_ev, cols = alpha_fn(f, sub, present, config)
     min_t = config.min_transmittance
     t_carry = trans[tb][:, None]  # (B, 1, R)
-    cols = [f[:, :, _RGB0 + ch : _RGB0 + ch + 1] for ch in range(3)]
-
     if config.order == "key":
         part, t_next = _composite(t_carry, a, cols, min_t)
     else:
@@ -349,17 +460,26 @@ def _window_composite(t_carry, a, t_ev, cols, min_t: float):
 
 
 def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
-                save_tin: bool = False):
+                save_tin: bool = False, *, origins_t=None, t_lo=None, t_hi=None, t0=None,
+                blocks=None, block_sub: int = 1):
     """Plain torch march on any device: all tiles advance chunk by chunk,
     in batches of at most _PLAIN_BATCH (tile, candidate, ray) elements, with
     a stable per-ray torch.sort in fired chunks (window order)."""
-    _check_args(starts, feats, dirs_t, config, chunk, save_tin)
+    _check_args(starts, feats, dirs_t, config, chunk, save_tin,
+                dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
+                     block_sub=block_sub))
     T, R, _ = dirs_t.shape
     dev = dirs_t.device
     dirs = dirs_t.to(_F32)
-    dx, dy, dz = dirs[..., 0], dirs[..., 1], dirs[..., 2]
-    live = dx * dx + dy * dy + dz * dz > 0.01  # |dir| > 0.1
-    trans = torch.ones((T, R), dtype=_F32, device=dev)
+    dx, dy, dz = dirs.unbind(-1)
+    rays = dict(
+        d=[dx, dy, dz], o=None if origins_t is None else list(origins_t.unbind(-1)),
+        live=dx * dx + dy * dy + dz * dz > 0.01,  # |dir| > 0.1
+        t_lo=config.t_min if t_lo is None else t_lo,
+        t_hi=config.t_max if t_hi is None else t_hi,
+        full_range=_full_range(origins_t, t_lo, t_hi, blocks),
+    )
+    trans = torch.ones((T, R), dtype=_F32, device=dev) if t0 is None else t0.clone()
     rgb = torch.zeros((T, R, 3), dtype=_F32, device=dev)
     n_chunks = (starts[1:] - starts[:-1] + chunk - 1).div(chunk, rounding_mode="floor")
     t_skip = _skip_threshold(config, save_tin)
@@ -373,7 +493,8 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
             tin[chunk_base[has].long() + j] = trans[has]
         active = (n_chunks > j) & (trans.amax(dim=1) > t_skip)
         for tb in active.nonzero().squeeze(1).split(batch):
-            _chunk_plain(tb, j, starts, feats, dirs, live, trans, rgb, config, chunk)
+            _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, chunk, blocks,
+                         block_sub)
     if save_tin:
         return rgb, trans, tin, chunk_base
     return rgb, trans

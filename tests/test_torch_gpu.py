@@ -166,3 +166,94 @@ def test_dssim_l1_on_card_matches_cpu():
     cpu = float(dssim_l1_loss(torch.from_numpy(a), torch.from_numpy(b)))
     card = float(dssim_l1_loss(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()))
     assert abs(card - cpu) <= 1e-4 * abs(cpu)
+
+
+# --- mesh bounces: K4 and K1's segment and block modes ----------------------
+
+def _mesh_case(size=256):
+    """A 5k scene, a 36x18 glass sphere in front of it (5 face blocks, so
+    the rays leaving it hit its far side) and a camera on the card."""
+    from gaussian_ray_tracing_tpu_torch.config import MeshType
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_sphere
+
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=size, height=size,
+                        device="cuda")
+    mesh = make_sphere((0.0, 0.0, 1.6), tess_u=36, tess_v=18, device="cuda")
+    return scene, cam, mesh.with_type(MeshType.GLASS)
+
+
+def _bounce_record(cfg):
+    """The K4 and K1 inputs of every bounce of a glass-sphere frame."""
+    from gaussian_ray_tracing_tpu_torch.models.mesh_tracer import render_with_mesh_fast
+
+    scene, cam, mesh = _mesh_case()
+    record = []
+    render_with_mesh_fast(scene, mesh, cam, cfg, record=record)
+    assert len(record) >= 2
+    return record
+
+
+def test_closest_hit_kernel_matches_plain():
+    """K4 on the glass sphere's bounce-0 (shared origin) and bounce-1 and 2
+    (per-ray origins) streams: identical face ids, t, u, v to 1e-6."""
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ttri
+
+    hits = []
+    for rec in _bounce_record(RenderConfig(hit_multiplicity=1, march_chunk=128))[:3]:
+        args, kw = rec["k4"]
+        before = ttri.closest_hit_blocks.launches
+        got = ttri.closest_hit_blocks(*args, **kw)
+        torch.cuda.synchronize()
+        assert ttri.closest_hit_blocks.launches == before + 1
+        want = ttri.closest_hit_blocks_plain(*args, **kw)
+        assert torch.equal(got[1], want[1])
+        hits.append(int((want[1] >= 0).sum()))
+        for a, b in zip(got[0::2] + got[3:], want[0::2] + want[3:]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0)
+    assert min(hits[:2]) > 1000  # entering and leaving the sphere
+
+
+@pytest.mark.parametrize("order,bsub", [("window", 1), ("window", 2), ("key", 1)])
+def test_mesh_march_modes_match_plain(order, bsub):
+    """K1 in segment mode (bounce 0: per-ray t_hi and carry-in on the pair
+    stream) and in block mode (bounce 1: per-ray origins over the Morton
+    table, block_sub 1 or 2), at the chip_smoke bars."""
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, order=order, bounce_order=order)
+    record = _bounce_record(cfg)
+    for rec, counter in ((record[0], "segment_launches"), (record[1], "block_launches"),
+                         (record[2], "block_launches")):
+        args, kw = rec["k1"]
+        if "blocks" in kw and bsub > 1:  # the same listed blocks, two per chunk
+            args = (*args[:4], args[4] * bsub)
+            kw = {**kw, "block_sub": bsub}
+        before = getattr(tmarch.march, counter)
+        got = tmarch.march(*args, **kw)
+        torch.cuda.synchronize()
+        assert getattr(tmarch.march, counter) == before + 1
+        want = tmarch.march_plain(*args, **kw)
+        for a, b in zip(got, want):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+
+
+def test_mesh_render_kernels_match_plain():
+    """Glass sphere and mirror plane frames: kernel path vs plain path at
+    >= 60 dB, equal block_dropped, and K4 / K1 block mode launched."""
+    from gaussian_ray_tracing_tpu_torch.config import MeshType
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ttri
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_plane
+
+    scene, cam, sphere = _mesh_case(size=192)
+    plane = make_plane((0.0, 0.0, 0.5), device="cuda").with_type(MeshType.MIRROR)
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128)
+    for mesh in (sphere, plane):
+        k4, blk = ttri.closest_hit_blocks.launches, tmarch.march.block_launches
+        gpu = render(scene, cam, cfg, mesh=mesh, method="gpu", return_aux=True)
+        torch.cuda.synchronize()
+        if mesh is sphere:
+            assert ttri.closest_hit_blocks.launches > k4 and tmarch.march.block_launches > blk
+        plain = render(scene, cam, cfg, mesh=mesh, method="plain", return_aux=True)
+        assert gpu["aux"] == plain["aux"] and gpu["aux"]["pair_dropped"] == 0
+        assert float(gpu["rgb"].max()) > 0.1
+        assert psnr(gpu["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy()) >= 60.0

@@ -3,6 +3,12 @@ Pallas march, run as the JAX suite runs it on the CPU (interpret mode),
 on the identical (starts, pair_feats, dirs_t) of one JAX pair stream, in
 window order and in key order, with and without saved carries.
 
+The mesh tracer's modes are held the same way: segments (per-ray t_lo or
+t_hi and a carry-in t0, window and key order) on the pair stream, and
+block mode (per-ray origins, the scalar response on the 32-float training
+rows, the Morton-sorted table, block_sub 1 and 2) on bounced rays built
+with the JAX package's block index and block stream.
+
 Bars are the JAX suite's own for the quad path (tests/test_pallas.py):
 PSNR >= 70 dB and max abs <= 1e-2 on rgb and final transmittance. The
 residual comes from the TPU kernel's bf16 hi/lo prefix sums (~2^-16
@@ -22,6 +28,7 @@ candidate passes the gate on one side only and every later carry of the
 ray moves by about alpha_min * T (the largest 5.45e-4 = 0.01 x 0.0545)."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -31,6 +38,7 @@ from gaussian_ray_tracing_tpu.cameras import generate_rays
 from gaussian_ray_tracing_tpu.config import RenderConfig as JConfig
 from gaussian_ray_tracing_tpu.models.pallas_renderer import prepare_pair_stream
 from gaussian_ray_tracing_tpu.models.tiled import tile_rays
+from gaussian_ray_tracing_tpu.ops import blocks as jblocks
 from gaussian_ray_tracing_tpu.ops.pallas_march import pallas_march_stream
 from gaussian_ray_tracing_tpu.scene.synthetic import random_scene as j_random_scene
 from gaussian_ray_tracing_tpu_torch.config import RenderConfig
@@ -67,11 +75,12 @@ def stream_inputs():
     cam = JCamera.create(eye=(0.0, 0.2, 2.6), lookat=(0.0, 0.0, 0.0), width=96, height=64)
     cfg = JConfig(hit_multiplicity=1)
     prepare = jax.jit(prepare_pair_stream, static_argnums=(2, 3, 4, 5))
-    stream, pair_feats, _, _ = prepare(scene, cam, cfg, 65_536, 128, False)
+    stream, pair_feats, table, bound = prepare(scene, cam, cfg, 65_536, 128, False)
     _, dirs, _ = generate_rays(cam, cfg)
     return dict(
         starts=np.array(stream.starts), eye=np.array(cam.eye),
         pair_feats=np.array(pair_feats), dirs_t=np.array(tile_rays(dirs, 16, 16)), scene=scene,
+        table=np.array(table), bound=np.array(bound),
     )
 
 
@@ -187,3 +196,92 @@ def test_march_rejects_unsupported_arguments(stream_inputs):
         tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, save_tin=True)
     with pytest.raises(NotImplementedError):
         tmarch.march(starts, compact, dirs_t, RenderConfig(order="merge"), 128)
+
+
+def _segments(inp, seed):
+    """Per-ray windows and carry-ins for the stream's rays: (t_lo, t_hi, t0)."""
+    rng = np.random.default_rng(seed)
+    shape = inp["dirs_t"].shape[:2]
+    u = lambda lo, hi: rng.uniform(lo, hi, size=shape).astype(np.float32)
+    return u(1.5, 3.0), u(1.8, 3.6), u(0.2, 1.0)
+
+
+@pytest.mark.parametrize("order,window", [("window", "t_hi"), ("window", "t_lo"),
+                                          ("key", "t_hi"), ("key", "t_lo")])
+def test_plain_segment_march_matches_pallas(stream_inputs, order, window):
+    """The pair stream with a per-ray window and a carry-in: bounce 0 of the
+    mesh tracer (t_hi at the mesh hit) and the planar mirror's reflected
+    frame (t_lo past the mirror); key order then takes the exact gate."""
+    inp = stream_inputs
+    t_lo, t_hi, t0 = _segments(inp, seed=3)
+    seg = {window: t_lo if window == "t_lo" else t_hi, "t0": t0}
+    kw = dict(hit_multiplicity=1, march_chunk=128, order=order)
+    want = _jax_march(inp, kw, 128, packed16=False, **seg)
+    starts, feats, dirs_t = _torch_args(inp)
+    got = tmarch.march(starts, tmarch.compact_features(feats), dirs_t, RenderConfig(**kw), 128,
+                       **{k: torch.from_numpy(v) for k, v in seg.items()})
+    _assert_march_bars(got, want)
+    assert float(got[1].min()) < 0.2  # the segments really composite
+
+
+@pytest.fixture(scope="module")
+def bounce_rays(stream_inputs):
+    """Rays reflected off a mirror plane at z = 0.3: per-ray origins on the
+    plane, mirrored directions, a tenth of them dead, with per-ray t_hi and
+    a carry-in."""
+    inp = stream_inputs
+    d = inp["dirs_t"].astype(np.float64)
+    t_plane = (0.3 - inp["eye"][2]) / d[..., 2]
+    o = (inp["eye"] + t_plane[..., None] * d).astype(np.float32)
+    d_r = d * np.array([1.0, 1.0, -1.0])
+    rng = np.random.default_rng(5)
+    d_r[rng.uniform(size=d.shape[:2]) < 0.1] = 0.0
+    _, t_hi, t0 = _segments(inp, seed=4)
+    return o, d_r.astype(np.float32), t_hi + 1.0, t0
+
+
+@pytest.mark.parametrize("order,chunk,bsub,hm", [("window", 128, 1, 1), ("window", 64, 2, 1),
+                                                 ("window", 128, 2, 2), ("key", 128, 1, 1),
+                                                 ("key", 64, 2, 2)])
+def test_plain_block_march_matches_pallas(stream_inputs, bounce_rays, order, chunk, bsub, hm):
+    """Block mode: per-ray origins, the scalar response (quad=False), the
+    Morton-sorted table padded by one block of zero rows, block_sub blocks
+    per kernel chunk, against pallas_march_stream(block_offsets=...)."""
+    inp = stream_inputs
+    o, d, t_hi, t0 = bounce_rays
+    T, R = d.shape[:2]
+    index = jblocks.build_block_index(inp["scene"].means, inp["bound"], block_size=chunk)
+    table = np.pad(inp["table"][np.asarray(index.perm)], ((0, chunk), (0, 0)))
+    bundles = jblocks.bundle_rays(o, d)
+    visible = jblocks.cull_blocks(index, bundles, jnp.max(jnp.where(d[..., 0] != 0, t_hi, 0), -1))
+    bs = jblocks.block_stream(visible, index, bundles, T * chunk * 16, max_per_tile=16)
+    kw = dict(hit_multiplicity=hm, march_chunk=chunk, order=order)
+    T, R = d.shape[:2]
+    want = pallas_march_stream(bs.starts, inp["eye"], table, d, JConfig(**kw), n_tiles=T,
+                               rays_per_tile=R, chunk=chunk * bsub, interpret=True,
+                               origins_t=o, t_hi=t_hi, t0=t0, block_offsets=bs.blk,
+                               block_sub=bsub)
+    want = [np.asarray(x) for x in want]
+    rows = tmarch.train_features(torch.from_numpy(table))
+    before = (tmarch.march.launches, tmarch.march.block_launches)
+    got = tmarch.march(torch.from_numpy(np.array(bs.starts)), rows, torch.from_numpy(d),
+                       RenderConfig(**kw), chunk * bsub, origins_t=torch.from_numpy(o),
+                       t_hi=torch.from_numpy(t_hi), t0=torch.from_numpy(t0),
+                       blocks=torch.from_numpy(np.array(bs.blk)), block_sub=bsub)
+    assert (tmarch.march.launches, tmarch.march.block_launches) == before  # plain on the CPU
+    _assert_march_bars(got, want)
+    assert float(got[1][d[..., 0] != 0].min()) < 0.5  # bounced rays really composite
+    assert np.array_equal(got[1].numpy()[d[..., 0] == 0], t0[d[..., 0] == 0])  # dead rays
+
+
+def test_block_mode_rejects_what_it_does_not_take(stream_inputs, bounce_rays):
+    starts, feats, dirs_t = _torch_args(stream_inputs)
+    o = torch.from_numpy(bounce_rays[0])
+    compact = tmarch.compact_features(feats)
+    with pytest.raises(ValueError):  # per-ray origins need the training rows
+        tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, origins_t=o)
+    with pytest.raises(ValueError):  # block_sub without blocks
+        tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, block_sub=2)
+    with pytest.raises(NotImplementedError):  # saved carries take no segments
+        tmarch.march(starts, compact, dirs_t, RenderConfig(order="key"), 128, save_tin=True,
+                     t0=torch.ones(dirs_t.shape[:2]))

@@ -103,8 +103,12 @@ def test_tracer_render_and_capacity_bucket():
     tracer._pair_capacity = 1  # a too-small bucket is outgrown, never dropped
     again = tracer.render_rgb8(method="plain")
     assert np.array_equal(frame, again)
-    with pytest.raises(NotImplementedError):
-        tracer.create_plane()
+    # with a primitive the frame goes through the mesh tracer; removing it
+    # brings the plain frame back
+    assert tracer.create_plane(mesh_type="normal") == 0
+    assert not np.array_equal(tracer.render_rgb8(), frame)
+    tracer.remove_primitive(0)
+    assert np.array_equal(tracer.render_rgb8(), frame)
 
 
 def test_cli_render_writes_png(tmp_path):
