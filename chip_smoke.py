@@ -2,18 +2,26 @@
 """Smoke test of the PyTorch/CUDA port (gaussian_ray_tracing_tpu_torch) on
 one NVIDIA GPU: builds the hand-written kernels from the checkout, holds
 each against its plain torch version, renders the exact-oracle goldens
-through the kernel path, drives the render main path (GaussianRayTracer,
-1280x720, 100k gaussians, bench config), the training main path
-(Trainer.fit, 512x512, 50k gaussians, key order) and the mesh-bounce path
-(GaussianRayTracer with a mirror plane and a 180x90 glass sphere, 1280x720,
-100k), times each against the plain path, and runs `cli render` (plain and
-with a glass sphere) and `cli fit`.
+(pinhole and fisheye) through the kernel path, drives the render main path
+(GaussianRayTracer, 1280x720, 100k gaussians, bench config), the training
+main path (Trainer.fit, 512x512, 50k gaussians, key order), the
+mesh-bounce path (GaussianRayTracer with a mirror plane and a 180x90 glass
+sphere, 1280x720, 100k) and the camera path (fisheye 768x768 on 100k,
+fitted_20k.ply at SH 0 and 3, OpenCV distortion and a rolling shutter at
+1280x720), times each against the plain path, profiles the fisheye and
+SH 3 frames, and runs `cli render` (plain, with a glass sphere, and
+fisheye at SH 3) and `cli fit`.
 
     python3 chip_smoke.py
 
 Run from (a copy of) the repository. Exits non-zero, printing no result,
 without CUDA or without the package beside this file. On success the last
-two lines are the kernel table and {"ok": true, "device": {...}}.
+two lines are the kernel table and {"ok": true, "device": {...}}. Each
+kernel's bound_ms is the larger of the bytes it must move (inputs read
+once, outputs written once) over 3.35 TB/s and the float operations this
+run's data needs (the (ray, candidate) pairs of the chunks its plain
+version did not skip, times a lower count of operations per pair) over
+67 TFLOP/s, the published H100 SXM peaks at 700 W.
 """
 
 from __future__ import annotations
@@ -42,6 +50,12 @@ BWD_REL, BWD_REL_M, WITNESS_RATIO = 1e-3, 2e-3, 1.25
 TRAIN_KW = dict(hit_multiplicity=1, order="key", march_chunk=256)  # cli fit's default
 PSNR_MESH_FRAME = 60.0  # mesh frames, kernel path vs plain path
 K4_REL = 1e-6  # K4 t, u, v vs plain (face ids identical)
+PSNR_FRAME = 60.0  # whole frames, kernel path vs plain path
+# H100 SXM published peaks: HBM3 bandwidth and dense FP32 rate
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# float operations per (ray, candidate) pair, counted low from the plain
+# versions' arithmetic (response and gate only; no colour, no composite)
+OPS_QUAD, OPS_SCALAR, OPS_BWD, OPS_TRI = 30, 60, 100, 40
 
 
 def log(phase: str, msg: str) -> None:
@@ -74,6 +88,89 @@ def cuda_ms(fn, reps: int) -> list[float]:
     return out
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms, what bounds it) for moving nbytes and doing ops."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def march_bound(args, kw, candidates: int, tin=None) -> tuple[float, str]:
+    """Bound of one K1 call march(*args, **kw) whose plain version evaluated
+    `candidates` (tile, candidate) slots: each pair row (block mode: each
+    listed block's rows) read once, the per-ray inputs and outputs once."""
+    import torch
+
+    starts, feats, dirs_t, _, chunk = args[:5]
+    T, R = dirs_t.shape[:2]
+    if kw.get("blocks") is not None:
+        bs = chunk // kw.get("block_sub", 1)
+        listed = kw["blocks"][: int(starts[-1]) // bs]
+        rows = int(torch.unique(listed).numel()) * bs
+    else:
+        rows = int(starts[-1] - starts[0])
+    per_ray = 3 + 4  # direction in; rgb, T out
+    per_ray += sum({"origins_t": 3}.get(k, 1) for k in ("origins_t", "t_lo", "t_hi", "t0")
+                   if kw.get(k) is not None)
+    nbytes = 4 * (rows * feats.shape[1] + T * R * per_ray + T + 1)
+    if tin is not None:
+        nbytes += 4 * tin.numel()
+    ops = candidates * R * (OPS_SCALAR if kw.get("origins_t") is not None else OPS_QUAD)
+    return bound(nbytes, ops)
+
+
+def tri_bound(args, kw) -> tuple[float, str]:
+    """Bound of one K4 call: each listed face block read once, the rays in,
+    (t, face, u, v) out; ray-face tests of the live rays of each tile."""
+    import torch
+
+    starts, blocks, face_rows, dirs_t = args[:4]
+    T, R = dirs_t.shape[:2]
+    faces = (starts[1:] - starts[:-1]).long()  # listed face slots per tile
+    live = ((dirs_t * dirs_t).sum(-1) > 0.01).sum(-1).long()
+    n_blocks = int(torch.unique(blocks[: int(starts[-1]) // 256]).numel())
+    per_ray = 3 + 4 + (3 if kw.get("origins_t") is not None else 0)
+    nbytes = 4 * (n_blocks * 256 * face_rows.shape[1] + T * R * per_ray + T + 1)
+    return bound(nbytes, int((faces * live).sum()) * OPS_TRI)
+
+
+def live_chunks(starts, chunk_base, tin, chunk: int, t_skip: float) -> int:
+    """(tile, candidate) slots of the chunks whose saved carry-in max is
+    above t_skip: the chunks a key-order march or its backward evaluates."""
+    import torch
+
+    counts = (starts[1:] - starts[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(len(counts), device=starts.device),
+                                   (chunk_base[1:] - chunk_base[:-1]).long())
+    j = torch.arange(tin.shape[0], device=tin.device) - chunk_base[tile].long()
+    m = torch.clamp(counts[tile] - j * chunk, max=chunk)
+    return int(torch.where(tin.amax(dim=1) > t_skip, m, 0).sum())
+
+
+def profile_frames(fn, frames: int = 5) -> dict:
+    """torch.profiler over `frames` calls of fn() after one warm-up: device
+    time per frame, device ops (kernels, copies) per frame, and the top five
+    by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies, sets): a CPU op's device
+    # time is its kernels', which are listed themselves
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0.0)
+    ops = [(e.key, dev_us(e) / 1e3 / frames, e.count / frames) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    ops.sort(key=lambda x: -x[1])
+    return {"device_ms": sum(o[1] for o in ops), "device_ops": sum(o[2] for o in ops),
+            "top": [(k[:48], round(ms, 4)) for k, ms, _ in ops[:5]]}
+
+
 def main() -> None:
     if not (ROOT / PKG / "__init__.py").is_file():
         fail(f"{PKG}/ not found beside {Path(__file__).name}: run from a checkout")
@@ -96,7 +193,7 @@ def main() -> None:
                f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
         prepare_pair_stream, prepare_train_stream,
@@ -140,15 +237,15 @@ def main() -> None:
     def golden(name):
         z = np.load(ROOT / "data" / "golden" / f"{name}.npz")
         n, seed, width, height, hm, fisheye = (int(v) for v in z["meta"])
-        check(not fisheye, f"{name}: fisheye goldens are not ported yet")
         scene = random_scene(n, seed=seed, device=dev)
         cam = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0),
                                     width=width, height=height, device=dev)
-        return z["rgb"].astype(np.float32), scene, cam, hm
+        model = CameraModel.FISHEYE if fisheye else CameraModel.PINHOLE
+        return z["rgb"].astype(np.float32), scene, cam, hm, model
 
     march_err = 0.0
     for name in ("small_pinhole_256", "pinhole_720p"):
-        _, scene, cam, hm = golden(name)
+        _, scene, cam, hm, _ = golden(name)
         for chunk in (128, 256):
             for skip in (0.02, 1e-3):
                 cfg = RenderConfig(hit_multiplicity=hm, march_chunk=chunk,
@@ -223,7 +320,7 @@ def main() -> None:
 
     key_err, bwd_err = 0.0, 0.0
     for name in ("small_pinhole_256", "pinhole_720p"):
-        _, scene, cam, _ = golden(name)
+        _, scene, cam, _, _ = golden(name)
         for chunk in (128, 256):
             cfg = RenderConfig(**{**TRAIN_KW, "march_chunk": chunk})
             starts, rows, dirs_t, _ = train_stream(scene, cam, cfg)
@@ -239,9 +336,11 @@ def main() -> None:
             bwd_err = max(bwd_err, k3_check(f"{name} c={chunk}", args))
 
     # --- phase 4: goldens through the full GPU path ---------------------
-    for name in ("pinhole_720p", "hm2_720p", "small_pinhole_256", "small_hm2_256"):
-        ref, scene, cam, hm = golden(name)
-        cfg = RenderConfig(hit_multiplicity=hm, order="window", march_chunk=128)
+    for name in ("pinhole_720p", "hm2_720p", "small_pinhole_256", "small_hm2_256",
+                 "small_fisheye_256", "fisheye_720"):
+        ref, scene, cam, hm, model = golden(name)
+        cfg = RenderConfig(hit_multiplicity=hm, order="window", march_chunk=128,
+                           camera_model=model)
         out = render(scene, cam, cfg, method="gpu", return_aux=True)
         p = psnr(out["rgb"].cpu().numpy(), ref)
         log("golden", f"{name}: PSNR {p:.2f} dB vs exact oracle, "
@@ -313,12 +412,17 @@ def main() -> None:
         lambda: kmarch.march(stream.starts, feats, dirs_t, cfg, chunk), 20))
     k1_plain = statistics.median(cuda_ms(
         lambda: kmarch.march_plain(stream.starts, feats, dirs_t, cfg, chunk), 5))
+    k1_bound = march_bound((stream.starts, feats, dirs_t, cfg, chunk), {},
+                           kmarch.march_plain.candidates)
     x = torch.randint(-1000, 1000, (2, cap), dtype=torch.int32, device=dev, generator=g)
     k2_ms = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32(x), 50))
     k2_plain = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32_plain(x), 50))
+    k2_lib = statistics.median(cuda_ms(lambda: torch.cumsum(x, dim=1), 50))
+    k2_bound = bound(2 * x.numel() * 4, x.numel())
     log("kernel", f"K1 march {n_pairs} pairs c={chunk}: {k1_ms:.3f} ms, plain "
-                  f"{k1_plain:.3f} ms; K2 scan (2, {cap}): {k2_ms:.4f} ms, plain "
-                  f"{k2_plain:.4f} ms ({card})")
+                  f"{k1_plain:.3f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 scan "
+                  f"(2, {cap}): {k2_ms:.4f} ms, plain {k2_plain:.4f} ms, torch.cumsum "
+                  f"{k2_lib:.4f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}) ({card})")
 
     # --- phase 6: the training main path at full size --------------------
     # cli fit's defaults at the bench's training size (bench.py:109-160):
@@ -386,8 +490,15 @@ def main() -> None:
     k1key_plain = statistics.median(cuda_ms(lambda: fwd(kmarch.march_plain), 5))
     k3_ms = statistics.median(cuda_ms(lambda: kbwd.march_bwd(*bargs), 20))
     k3_plain = statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 5))
+    live = live_chunks(starts, base, tin, 256, tcfg.min_transmittance)
+    k1key_bound = march_bound((starts, rows, dirs_t, tcfg, 256), {}, live, tin=tin)
+    k3_bound = bound(4 * (2 * rows.numel() + 7 * dirs_t.shape[0] * dirs_t.shape[1]
+                          + tin.numel() + 2 * starts.numel()),
+                     live * dirs_t.shape[1] * OPS_BWD)
     log("kernel", f"K1 key+save_tin {n_pairs_t} pairs c=256: {k1key_ms:.3f} ms, plain "
-                  f"{k1key_plain:.3f} ms; K3 {k3_ms:.3f} ms, plain {k3_plain:.3f} ms ({card})")
+                  f"{k1key_plain:.3f} ms, bound {k1key_bound[0]:.4f} ms ({k1key_bound[1]}); K3 "
+                  f"{k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound {k3_bound[0]:.4f} ms "
+                  f"({k3_bound[1]}) ({card})")
 
     # one dssim_l1 step on the card against the same step on the CPU
     small = random_scene(5000, seed=2)
@@ -460,7 +571,7 @@ def main() -> None:
             check(rel <= K4_REL, f"K4 {name} bounce {b}: t/u/v differ from plain by {rel:.3g}")
     check(k4_hits["glass_cli", 1] > 0, "glass_cli bounce 1: K4 found no exit hit")
 
-    block_err = 0.0
+    block_err = seg_err = 0.0
     seg_args, seg_kw = records["glass"][0]["k1"]
     blk_args, blk_kw = records["glass_front"][1]["k1"]
     check(int(blk_args[0][-1]) > 0, "glass_front bounce 1: the block march listed no block")
@@ -487,6 +598,8 @@ def main() -> None:
             p, m = psnr(a, b), float(np.abs(a - b).max())
             if "block" in what:
                 block_err = max(block_err, m)
+            else:
+                seg_err = max(seg_err, m)
             log("K1mesh", f"{what} ({int(args[0][-1])} slots) {part}: PSNR {p:.2f} dB "
                           f"max abs {m:.3g}")
             check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 {what} vs plain {part}")
@@ -555,20 +668,29 @@ def main() -> None:
     k4f_ms = statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks(*k4f, **k4f_kw), 20))
     k4f_plain = statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks_plain(*k4f, **k4f_kw),
                                           5))
+    k4f_bound = tri_bound(k4f, k4f_kw)
     k4_0, k4_0kw = records["glass"][0]["k4"]
     k40_ms = statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks(*k4_0, **k4_0kw), 20))
     k40_plain = statistics.median(cuda_ms(
         lambda: ktri.closest_hit_blocks_plain(*k4_0, **k4_0kw), 5))
+    k40_bound = tri_bound(k4_0, k4_0kw)
     blk_ms = statistics.median(cuda_ms(lambda: kmarch.march(*blk_args, **blk_kw), 20))
     blk_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*blk_args, **blk_kw), 5))
+    blk_bound = march_bound(blk_args, blk_kw, kmarch.march_plain.candidates)
     seg_ms = statistics.median(cuda_ms(lambda: kmarch.march(*seg_args, **seg_kw), 20))
     seg_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*seg_args, **seg_kw), 5))
+    seg_bound = march_bound(seg_args, seg_kw, kmarch.march_plain.candidates)
     log("kernel", f"K4 glass_cli bounce 1 (per-ray origins): {k4_ms:.3f} ms, plain "
                   f"{k4_plain:.3f} ms; K4 glass_front bounce 1 (per-ray origins): {k4f_ms:.3f} "
                   f"ms, plain {k4f_plain:.3f} ms; K4 glass bounce 0 (shared origin): {k40_ms:.3f} ms, plain "
                   f"{k40_plain:.3f} ms; K1 block glass_front bounce 1: {blk_ms:.3f} ms, plain "
                   f"{blk_plain:.3f} ms; K1 segment glass bounce 0: {seg_ms:.3f} ms, plain "
-                  f"{seg_plain:.3f} ms ({card})")
+                  f"{seg_plain:.3f} ms; bounds K4 bounce 0 {k40_bound[0]:.4f} ms ({k40_bound[1]}), "
+                  f"K4 glass_front bounce 1 {k4f_bound[0]:.4f} ms ({k4f_bound[1]}), K1 block "
+                  f"{blk_bound[0]:.4f} ms ({blk_bound[1]}), K1 segment {seg_bound[0]:.4f} ms "
+                  f"({seg_bound[1]}) ({card})")
+
+    cam_rows = camera_phase(dev, card, scene)
 
     # --- CLI, one frame through a user's entry point ---------------------
     os.makedirs(ROOT / "build", exist_ok=True)
@@ -597,6 +719,19 @@ def main() -> None:
         log("cli", f"--add-sphere --mesh-type glass: {res.stdout.strip()} "
                    f"(max pixel {int(img.max())})")
 
+        res = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.cli", "render", "--ply", "data/fitted_20k.ply",
+             "--width", "768", "--height", "768", "--eye", *map(str, GOLDEN_EYE),
+             "--lookat", "0", "0", "0", "--fisheye", "--sh-degree", "3",
+             "--hit-multiplicity", "1", "-o", str(png)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        check(res.returncode == 0, f"cli render --fisheye --sh-degree 3 failed:\n"
+                                   f"{res.stderr[-4000:]}")
+        img = _png_pixels(png)
+        check(img.max() > 0 and not img[0, :3].any(), "cli fisheye PNG: black, or corner not blank")
+        log("cli", f"--fisheye --sh-degree 3: {res.stdout.strip()} (max pixel {int(img.max())})")
+
         fit_ply = Path(tmp) / "fit.ply"
         res = subprocess.run(
             [sys.executable, "-m", f"{PKG}.cli", "fit", "--ply", "data/fitted_20k.ply",
@@ -611,35 +746,218 @@ def main() -> None:
         log("cli", f"fit: {res.stdout.strip().splitlines()[-1]} ({fitted.num_active} read back)")
 
     src = f"{PKG}/csrc"
+    k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    row = lambda name, source, replaces, launches, err, ms, plain_ms, b, lib=None: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
     print(json.dumps({"kernels": [
-        {"name": "march", "route": "cuda", "source": f"{src}/march.cu",
-         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195",
-         "launches": launches["march"], "max_abs_err": march_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "march_key_save_tin", "route": "cuda", "source": f"{src}/march.cu",
-         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195",
-         "launches": train_launches["march_key_save_tin"], "max_abs_err": key_err,
-         "ms": k1key_ms, "plain_ms": k1key_plain},
-        {"name": "multi_cumsum_i32", "route": "cuda", "source": f"{src}/scan.cu",
-         "replaces": "gaussian_ray_tracing_tpu/ops/scan.py:81",
-         "launches": launches["scan"], "max_abs_err": scan_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "march_bwd", "route": "cuda", "source": f"{src}/march_bwd.cu",
-         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
-         "launches": train_launches["march_bwd"], "max_abs_err": bwd_err,
-         "ms": k3_ms, "plain_ms": k3_plain},
-        {"name": "closest_hit", "route": "cuda", "source": f"{src}/tri.cu",
-         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
-         "launches": mesh_counts["closest_hit"], "max_abs_err": k4_err,
-         "ms": k40_ms, "plain_ms": k40_plain},
-        {"name": "march_block", "route": "cuda", "source": f"{src}/march.cu",
-         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195",
-         "launches": mesh_counts["march_block"], "max_abs_err": block_err,
-         "ms": blk_ms, "plain_ms": blk_plain},
+        row("march", "march.cuh", k1, launches["march"], march_err, k1_ms, k1_plain, k1_bound),
+        row("march_key_save_tin", "march.cuh", k1, train_launches["march_key_save_tin"], key_err,
+            k1key_ms, k1key_plain, k1key_bound),
+        row("multi_cumsum_i32", "scan.cu", "gaussian_ray_tracing_tpu/ops/scan.py:81",
+            launches["scan"], scan_err, k2_ms, k2_plain, k2_bound, k2_lib),
+        row("march_bwd", "march_bwd.cu", "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
+            train_launches["march_bwd"], bwd_err, k3_ms, k3_plain, k3_bound),
+        row("closest_hit", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
+            mesh_counts["closest_hit"], k4_err, k40_ms, k40_plain, k40_bound),
+        row("march_segment", "march.cuh", k1, mesh_counts["march_segment"], seg_err, seg_ms,
+            seg_plain, seg_bound),
+        row("march_block", "march.cuh", k1, mesh_counts["march_block"], block_err, blk_ms,
+            blk_plain, blk_bound),
+        *cam_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def camera_phase(dev, card: str, scene) -> list:
+    """The camera slice at full size (bench.py:178-245): fisheye 768x768 on
+    `scene` (random_scene(100k, seed 0)); data/fitted_20k.ply at 1280x720 at
+    SH 0 and 3 (window order, and SH 3 in key order); OpenCV distortion
+    (-0.25, 0.05, 0, 0) on `scene` at 1280x720; a rolling-shutter 1280x720
+    frame of `scene` whose eye moves +0.05 in x during readout. All from
+    the bench's eye (0, 0.3, 2.8), bench config. Drives each frame once
+    through GaussianRayTracer (render_rolling for the rolling shutter) with
+    the launch counts zeroed just before, checks K1's SH and per-ray-origin
+    modes against their plain versions (SH 1-3 x window/key x c=128/256 on
+    the trained scene), times every frame against the plain path, and
+    profiles the fisheye and SH 3 frames. Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_pair_stream
+    from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
+    from gaussian_ray_tracing_tpu_torch.models.rolling import (
+        prepare_rolling_stream, render_rolling,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
+    cam = lambda w, h, eye=GOLDEN_EYE: cameras.Camera.create(
+        eye=eye, lookat=(0.0, 0.0, 0.0), width=w, height=h, device=dev)
+    cam720, cam768 = cam(1280, 720), cam(768, 768)
+    cam720_moved = cam(1280, 720, eye=(GOLDEN_EYE[0] + 0.05, GOLDEN_EYE[1], GOLDEN_EYE[2]))
+    bench = RenderConfig(**BENCH_KW)
+    sh3_key = RenderConfig(hit_multiplicity=1, order="key", march_chunk=256, sh_degree=3)
+    # name: (scene, camera, config, the rolling shutter's second camera)
+    frames = {
+        "fisheye_768": (scene, cam768, bench.replace(camera_model=CameraModel.FISHEYE), None),
+        "trained_720p": (ply, cam720, bench, None),
+        "trained_720p_sh3": (ply, cam720, bench.replace(sh_degree=3), None),
+        "trained_720p_sh3_key": (ply, cam720, sh3_key, None),
+        "opencv_720p": (scene, cam720, bench.replace(camera_model=CameraModel.OPENCV,
+                                                     distortion=(-0.25, 0.05, 0.0, 0.0)), None),
+        "rolling_720p": (scene, cam720, bench, cam720_moved),
+    }
+    tracers = {}
+    for name, (sc, c0, cfg, c1) in frames.items():
+        if c1 is None:
+            tr = GaussianRayTracer(scene=sc, config=cfg.replace(camera_model=CameraModel.PINHOLE))
+            tr.set_camera_model(cfg.camera_model.value)
+            tr.set_size(c0.width, c0.height)
+            tr.update_camera(c0)
+            tracers[name] = tr
+
+    def run(name, method="gpu"):
+        sc, c0, cfg, c1 = frames[name]
+        if c1 is not None:
+            return render_rolling(sc, c0, c1, cfg, use_kernels=method == "gpu")
+        return tracers[name].render(method=method)
+
+    def run_aux(name, method):
+        sc, c0, cfg, c1 = frames[name]
+        if c1 is not None:
+            return render_rolling(sc, c0, c1, cfg, return_aux=True, use_kernels=method == "gpu")
+        return render(sc, c0, cfg, method=method, return_aux=True)
+
+    # the main path: every frame once, counts zeroed just before
+    counters = ("launches", "sh_launches", "sh_key_launches", "origin_launches")
+    for attr in counters:
+        setattr(kmarch.march, attr, 0)
+    kscan.multi_cumsum_i32.launches = 0
+    for name, (_, c0, _, _) in frames.items():
+        k1, k2 = kmarch.march.launches, kscan.multi_cumsum_i32.launches
+        rgb = run(name)["rgb"]
+        torch.cuda.synchronize()
+        check(kmarch.march.launches > k1 and kscan.multi_cumsum_i32.launches > k2,
+              f"{name}: a kernel was not launched")
+        check(tuple(rgb.shape) == (c0.height, c0.width, 3) and bool(torch.isfinite(rgb).all()),
+              f"{name}: bad output {tuple(rgb.shape)}")
+        check(float(rgb.max()) > 0.1, f"{name} is black")
+    main = {attr: getattr(kmarch.march, attr) for attr in counters}
+    main["scan"] = kscan.multi_cumsum_i32.launches
+    log("camera", f"{len(frames)} frames through GaussianRayTracer / render_rolling, "
+                  f"launches {main}")
+    check(main["sh_launches"] > 0 and main["sh_key_launches"] > 0
+          and main["origin_launches"] > 0, f"an SH or per-ray-origin mode did not launch: {main}")
+    fish = frames["fisheye_768"]
+    check(not bool(run("fisheye_768")["rgb"][0, 0].any()), "fisheye corner not blanked")
+
+    # every frame: drop-free, kernel path vs plain path, frame times
+    frame_ms = {}
+    for name, (_, c0, _, _) in frames.items():
+        gpu, plain = run_aux(name, "gpu"), run_aux(name, "plain")
+        p = psnr(gpu["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy())
+        check(gpu["aux"]["n_dropped"] == 0, f"{name}: pairs dropped")
+        check(gpu["aux"]["n_pairs"] == plain["aux"]["n_pairs"], f"{name}: pair counts differ")
+        check(p >= PSNR_FRAME, f"{name} gpu vs plain PSNR {p:.2f} < {PSNR_FRAME}")
+        run(name)  # warm-up
+        t_gpu = statistics.median(cuda_ms(lambda: run(name), 10))
+        t_plain = statistics.median(cuda_ms(lambda: run(name, "plain"), 3))
+        frame_ms[name] = t_gpu
+        log("frame", f"{name} {c0.width}x{c0.height}, median of 10/3: gpu {t_gpu:.3f} ms, "
+                     f"plain {t_plain:.3f} ms; gpu vs plain {p:.2f} dB; "
+                     f"{gpu['aux']['n_pairs']} pairs, n_dropped 0 ({card})")
+
+    # K1's SH modes vs plain on the trained scene's 720p streams
+    def k1_check(what, args, kw=None):
+        kw = kw or {}
+        got = kmarch.march(*args, **kw)
+        torch.cuda.synchronize()
+        want = kmarch.march_plain(*args, **kw)
+        err = 0.0
+        for part, a, b in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            p, m = psnr(a, b), float(np.abs(a - b).max())
+            err = max(err, m)
+            log("K1cam", f"{what} {part}: PSNR {p:.2f} dB max abs {m:.3g}")
+            check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 {what} vs plain {part}")
+        return err
+
+    def stream_args(sc, c0, cfg):
+        stream, feats, _ = prepare_pair_stream(sc, c0, cfg, 1 << 16)
+        dirs_t = tile_rays(cameras.generate_rays(c0, cfg)[1], cfg.tile_w, cfg.tile_h)
+        return stream.starts, feats, dirs_t, cfg, kmarch.chunk_for(cfg)
+
+    sh_err = {"window": 0.0, "key": 0.0}
+    for degree in (1, 2, 3):
+        for order in ("window", "key"):
+            for chunk in (128, 256):
+                cfg = RenderConfig(hit_multiplicity=1, order=order, march_chunk=chunk,
+                                   sh_degree=degree)
+                sh_err[order] = max(sh_err[order], k1_check(
+                    f"fitted_20k 720p sh{degree} {order} c={chunk}", stream_args(ply, cam720, cfg)))
+    origin_err = 0.0
+    for what, sc, cfg in (("100k", scene, bench), ("fitted_20k sh3", ply, bench.replace(sh_degree=3)),
+                          ("100k key", scene, bench.replace(order="key"))):
+        starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(sc, cam720, cam720_moved, cfg)
+        origin_err = max(origin_err, k1_check(f"rolling {what} (per-ray origins)",
+                                              (starts, rows, dirs_t, cfg, 128),
+                                              {"origins_t": origins_t}))
+
+    # the kernels alone at the main path's shapes
+    def k1_time(args, kw=None):
+        kw = kw or {}
+        ms = statistics.median(cuda_ms(lambda: kmarch.march(*args, **kw), 20))
+        plain_ms = statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 3))
+        return ms, plain_ms, march_bound(args, kw, kmarch.march_plain.candidates)
+
+    sh_args = stream_args(ply, cam720, frames["trained_720p_sh3"][2])
+    shkey_args = stream_args(ply, cam720, sh3_key)
+    fish_args = stream_args(fish[0], fish[1], fish[2])
+    starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(scene, cam720, cam720_moved,
+                                                                   bench)
+    roll_args, roll_kw = (starts, rows, dirs_t, bench, 128), {"origins_t": origins_t}
+    # SH 0 on the same stream, to read the SH 3 colour's cost against
+    sh0_args = stream_args(ply, cam720, bench)
+    sh0key_args = stream_args(ply, cam720, sh3_key.replace(sh_degree=0))
+    times = {"sh": k1_time(sh_args), "sh_key": k1_time(shkey_args),
+             "sh0": k1_time(sh0_args), "sh0_key": k1_time(sh0key_args),
+             "fisheye": k1_time(fish_args), "origin": k1_time(roll_args, roll_kw)}
+    for what, args in (("sh", sh_args), ("sh0", sh0_args), ("sh_key", shkey_args),
+                       ("sh0_key", sh0key_args), ("fisheye", fish_args), ("origin", roll_args)):
+        ms, plain_ms, (b_ms, b_by) = times[what]
+        log("kernel", f"K1 {what} ({int(args[0][-1])} pairs, row {args[1].shape[1]} floats, "
+                      f"c={args[4]}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}) ({card})")
+
+    # where the time goes in the fisheye and SH 3 frames
+    for name in ("fisheye_768", "trained_720p_sh3"):
+        prof = profile_frames(lambda: run(name))
+        idle = 1.0 - prof["device_ms"] / frame_ms[name]
+        log("profile", f"{name}: device busy {prof['device_ms']:.3f} ms of a "
+                       f"{frame_ms[name]:.3f} ms frame (idle share {idle:.3f}), "
+                       f"{prof['device_ops']:.0f} device ops per frame, top {prof['top']} ({card})")
+
+    src = f"{PKG}/csrc"
+    row = lambda name, source, launches, err, t: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}",
+        "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195", "launches": launches,
+        "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
+        "bound_by": t[2][1], "library_ms": None}
+    return [row("march_sh", "march_sh3.cu", main["sh_launches"], sh_err["window"], times["sh"]),
+            row("march_sh_key", "march_sh3.cu", main["sh_key_launches"], sh_err["key"],
+                times["sh_key"]),
+            row("march_origin", "march.cuh", main["origin_launches"], origin_err,
+                times["origin"])]
 
 
 def _png_pixels(path: Path):

@@ -1,9 +1,12 @@
 """Command-line interface of the port (the `render` and `fit` subcommands
-of gaussian_ray_tracing_tpu/cli.py; pinhole, mesh bounces, key-order sh0
-training).
+of gaussian_ray_tracing_tpu/cli.py; pinhole, fisheye and OpenCV cameras,
+SH degrees 0-3, supersampling, mesh bounces, key-order sh0 training).
+Everything runs on CUDA unless `--device cpu` is given.
 
     python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
         --width 1280 --height 720 -o out.png
+    python -m gaussian_ray_tracing_tpu_torch.cli render --ply data/fitted_20k.ply \
+        --fisheye --sh-degree 3 --width 768 --height 768 -o fisheye.png
     python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
         --width 1280 --height 720 --add-sphere --mesh-type glass -o glass.png
     python -m gaussian_ray_tracing_tpu_torch.cli fit --ply data/fitted_20k.ply \
@@ -20,14 +23,15 @@ import torch
 
 
 def _device(args) -> str:
-    if args.device == "auto":
-        return "cuda" if torch.cuda.is_available() else "cpu"
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device} needs CUDA, which is not available; "
+                           "pass --device cpu to run on the CPU")
     return args.device
 
 
 def _build(args):
     from gaussian_ray_tracing_tpu_torch.cameras import Camera
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
     from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer
     from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
 
@@ -38,7 +42,17 @@ def _build(args):
         scene = load_ply(args.ply, device=device)
     else:
         scene = random_scene(args.synthetic or 100_000, seed=args.seed, device=device)
-    cfg = RenderConfig(hit_multiplicity=args.hit_multiplicity)
+    distortion = tuple(args.distortion or ())
+    if args.fisheye:
+        model = CameraModel.FISHEYE
+    elif distortion:
+        model = CameraModel.OPENCV
+    else:
+        model = CameraModel.PINHOLE
+    cfg = RenderConfig(hit_multiplicity=args.hit_multiplicity, sh_degree=args.sh_degree,
+                       camera_model=model, distortion=distortion)
+    if args.order:
+        cfg = cfg.replace(order=args.order)
     if args.march_chunk:
         cfg = cfg.replace(march_chunk=args.march_chunk)
     tracer = GaussianRayTracer(scene=scene, config=cfg)
@@ -62,7 +76,7 @@ def _build(args):
 def cmd_render(args):
     from gaussian_ray_tracing_tpu_torch.utils.image import write_png
 
-    frame = _build(args).render_rgb8(method=args.method)
+    frame = _build(args).render_rgb8(method=args.method, supersample=args.supersample)
     write_png(args.output, frame)
     print(f"wrote {args.output} ({frame.shape[1]}x{frame.shape[0]})")
 
@@ -129,7 +143,7 @@ def cmd_fit(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="grt-torch", description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("render", help="render one pinhole frame to PNG")
+    p = sub.add_parser("render", help="render one frame to PNG")
     p.add_argument("-p", "--ply", type=str, default=None, help="trained 3DGS PLY")
     p.add_argument("--synthetic", type=int, default=None, metavar="N",
                    help="use a seeded synthetic scene with N gaussians")
@@ -139,6 +153,16 @@ def main(argv=None):
     p.add_argument("--eye", type=float, nargs=3, default=None)
     p.add_argument("--lookat", type=float, nargs=3, default=None)
     p.add_argument("--fov", type=float, default=60.0)
+    p.add_argument("--fisheye", action="store_true", help="equisolid fisheye camera")
+    p.add_argument("--distortion", type=float, nargs="+", default=None, metavar="K",
+                   help="OpenCV distortion k1 k2 p1 p2 [k3 [k4 k5 k6]] "
+                        "(switches to the OPENCV camera model)")
+    p.add_argument("--sh-degree", type=int, default=0, help="SH degree 0-3 of the colour")
+    p.add_argument("--supersample", type=int, default=1,
+                   help="N: trace N x N rays per pixel and box-filter (anti-aliasing)")
+    p.add_argument("--order", choices=["window", "key"], default=None,
+                   help="per-ray compositing order: window = in-chunk sort (default), "
+                        "key = stream order")
     p.add_argument("--hit-multiplicity", type=int, default=2,
                    help="2 = reference proxy-hull double-hit compositing; "
                         "1 = standard volume rendering")
@@ -152,8 +176,9 @@ def main(argv=None):
                    help="insert a 36 x 18 UV sphere of radius 0.3 in front of the camera")
     p.add_argument("--load-obj", type=str, default=None, help="insert an OBJ mesh")
     p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
-    p.add_argument("--device", default="auto",
-                   help="auto (cuda when available, else cpu), cuda, cpu, ...")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda (the default) raises without CUDA, "
+                        "cpu runs the plain torch versions of the kernels")
     p.add_argument("-o", "--output", type=str, default="render.png")
     p.set_defaults(func=cmd_render)
 
@@ -181,8 +206,9 @@ def main(argv=None):
     p.add_argument("--dataset", type=str, default=None, help="not ported yet: raises")
     p.add_argument("--checkpoint-dir", type=str, default=None, help="not ported yet: raises")
     p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
-    p.add_argument("--device", default="auto",
-                   help="auto (cuda when available, else cpu), cuda, cpu, ...")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda (the default) raises without CUDA, "
+                        "cpu runs the plain torch versions of the kernels")
     p.add_argument("-o", "--output", type=str, default=None)
     p.set_defaults(func=cmd_fit)
     args = ap.parse_args(argv)

@@ -106,16 +106,13 @@ DEFAULT_CONFIG = RenderConfig()
 
 def unsupported_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported primary render does not implement yet
-    (pinhole, window order on the event key or key order, quad response,
-    SH degree 0)."""
-    bad = []
-    if config.camera_model != CameraModel.PINHOLE or config.distortion:
-        bad.append(f"camera_model={config.camera_model.value}")
+    (it renders pinhole, fisheye and OpenCV cameras, window order on the
+    event key or key order, SH degrees 0-3)."""
     checks = {
         "order": config.order in ("window", "key"),
         "window_key": config.window_key == "event",
         "pair_keys": config.pair_keys == "gaussian",
-        "sh_degree": config.sh_degree == 0,
+        "sh_degree": 0 <= config.sh_degree <= 3,
         "conic_cull": not config.conic_cull,
         "row_span": not config.row_span,
         "fisheye_cull": not config.fisheye_cull,
@@ -125,15 +122,27 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
         "compute_dtype": config.compute_dtype == "float32",
         "hit_multiplicity": config.hit_multiplicity >= 1,
     }
-    bad += [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
+    return [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
+
+
+def _pinhole_sh0(config: RenderConfig, what: str) -> list[str]:
+    """The training path and the mesh tracer run pinhole frames with SH
+    degree 0 only (K3's SH and per-ray-origin modes and the mesh tracer's
+    SH rows are not ported)."""
+    bad = []
+    if config.camera_model != CameraModel.PINHOLE:
+        bad.append(f"camera_model={config.camera_model.value} ({what})")
+    if config.sh_degree != 0:
+        bad.append(f"sh_degree={config.sh_degree} ({what})")
     return bad
 
 
 def unsupported_train_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported training path does not implement yet:
-    on top of the render's limits, it trains in key order only (the
-    window-order backward replays the forward's sort, which is not ported)."""
-    bad = unsupported_fields(config)
+    on top of the render's limits, it trains pinhole frames at SH degree 0
+    in key order only (the window-order backward replays the forward's
+    sort, which is not ported)."""
+    bad = unsupported_fields(config) + _pinhole_sh0(config, "training")
     if config.order == "window":
         bad.append("order='window' (training)")
     return bad
@@ -141,9 +150,10 @@ def unsupported_train_fields(config: RenderConfig) -> list[str]:
 
 def unsupported_mesh_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported mesh tracer does not implement yet: on
-    top of the render's limits, bounced segments march in window or key
-    order only (`bounce_order="merge"` needs K1's merge mode)."""
-    bad = unsupported_fields(config)
+    top of the render's limits, it traces pinhole frames at SH degree 0,
+    and bounced segments march in window or key order only
+    (`bounce_order="merge"` needs K1's merge mode)."""
+    bad = unsupported_fields(config) + _pinhole_sh0(config, "mesh bounces")
     if config.bounce_order not in ("window", "key"):
         bad.append(f"bounce_order={config.bounce_order!r}")
     return bad

@@ -1,0 +1,586 @@
+// Kernel K1: fused forward march of the sorted pair stream (device code,
+// shared by march.cu, the SH degree 0 entry point, and march_sh{1,2,3}.cu,
+// the SH degree 1-3 instantiations, so that nvcc builds them in parallel).
+//
+// Replaces the Pallas kernel `_march_kernel` (wrapper `pallas_march_stream`)
+// of gaussian_ray_tracing_tpu/ops/pallas_march.py in the modes the primary
+// render, the training forward, the mesh tracer and the rolling shutter
+// use: SH degree 0 to 3, in window order or in key order, with either the
+// quad response and a shared ray origin (full [t_min, t_max] rays, or
+// segments with per-ray windows and a carry-in) or the scalar response with
+// per-ray origins (rolling shutter on the pair stream; bounced rays over
+// the Morton-block table; see "Segments" below). The semantics, per-tile
+// decisions included, are those of ops/march.py, whose plain torch version
+// `march_plain` is the reference this kernel is tested against. The two
+// orders are two __global__ functions: `march_kernel` (window) and
+// `march_key_kernel` (key, with the optional saved carries of the training
+// forward), each instantiated per chunk C, response (quad or scalar) and
+// SH coefficient count K = (degree + 1)^2 in {1, 4, 9, 16}.
+//
+// Window order. One block per 16x16 tile, one thread per ray (R =
+// blockDim.x). The tile's chunks of C candidates are staged in dynamic
+// shared memory as rows of W floats (coalesced, each row read by every ray
+// of the tile). Per chunk:
+//   1. tile-wide chunk skip: block max of T against the skip threshold;
+//   2. pass 1: each ray evaluates its C candidates (response, event t, gate;
+//      no colour) and records whether it sees an inversion among significant
+//      ones, plus its significant event-t range; __syncthreads_or decides
+//      the window-sort fire for the whole tile, block min/max the t range;
+//   3. pass 2: each ray re-evaluates its candidates and composites them in
+//      stream order with float32 colours (no fire) or inserts the
+//      significant ones, keyed tq16 << 15 | a15, into a per-thread
+//      insertion-sorted list of (key, source index) (fire; the
+//      depth-presorted stream is nearly ordered, so few shifts) and
+//      composites that list with decoded alphas, recomputing each listed
+//      candidate's colour for this ray and passing it through the 3x10-bit
+//      pack, as the TPU kernel's sorted payload does (pallas_march.py:832).
+//   Recomputing in pass 2 instead of storing per-candidate state keeps the
+//   unfired path free of local memory; only fired chunks touch the sorted
+//   list, which lives in local memory (C * 5 bytes per thread).
+//
+// Colour (pallas_march.py:640-669). SH degree 0 reads the colour
+// max(0.5 + C0 sh0, 0) precomputed per gaussian (quad rows) or computed
+// while staging (scalar rows). Degrees 1-3 evaluate, per (ray, candidate),
+// max(0.5 + sum_k basis_k(d) sh_k, 0) per channel, k = 0..K-1 added in turn,
+// from the K-term basis of the ray's direction computed once per ray in
+// registers (ops/sh.sh_basis_list, term for term) and the row's raw
+// coefficients sh_r[K], sh_g[K], sh_b[K]. The TPU kernel's `sh_mxu` bf16
+// hi/lo MXU split of the same sum is TPU layout and not ported.
+//
+// Key order (pallas_march.py:552-569, 963-968). The same block layout and
+// staging; one evaluation per candidate with, on full-range rays, the
+// sqrt-free gate alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0),
+// composited in stream order with float32 colours, no fire test and no
+// sort. With saved carries (`tin` non-null, the training forward, SH 0)
+// each chunk's carry-in T is stored BEFORE its skip test at row
+// chunk_base[tile] + j, so skipped chunks are saved too and the backward
+// (csrc/march_bwd.cu) can replay every chunk; the skip threshold is then
+// min_transmittance. The prefix of log1p(-a) is summed sequentially per
+// ray, in the order the backward sums it.
+//
+// Rows (`stride` floats apart). Quad: at SH 0 the 16-float compact rows
+// [op, q00 q11 q22 q01 q02 q12, vx vy vz, cq, oo, r g b, pad] or the
+// 32-float training rows, whose first 16 floats are those; at SH 1-3
+// [op, q (6), v (3), cq, oo, sh_r[K], sh_g[K], sh_b[K]] (W = 12 + 3K).
+// Scalar: [op, 15 unused, mean (3), M (9), radius, sh_r[K], sh_g[K],
+// sh_b[K]], staged as [op, mean, M, radius, colour or coefficients]
+// (W = 17 at SH 0, 14 + 3K above).
+//
+// Segments and per-ray origins (the mesh tracer and the rolling shutter,
+// pallas_march.py:236-241, 407-442, 586-633). Optional per-ray arrays,
+// each null for the primary render: a window [t_lo, t_hi] and a carry-in
+// transmittance t0 (T, R), per-ray origins (T, R, 3), and a block list.
+// With per-ray origins the kernel evaluates the scalar (non-quad)
+// response: o_g = M (o - mu), d_g = M d, t* = -od / max(dd, 1e-6) as a
+// true division, pp = oo + t* (2 od + t* dd) and the gate with disc >= 0.
+// Whenever a window, origin or block array is given the ray is not a
+// full-range ray, and key order uses the exact entry/exit event gate
+// instead of the sqrt-free one. Block mode (bounced rays over the
+// Morton-sorted table): with bs = C / block_sub, chunk j of tile t stages
+// rows [blocks[start/bs + j*block_sub + s] * bs, + bs) for s < block_sub,
+// so a chunk reads block_sub whole blocks.
+//
+// What bounds it on an H100: not memory (each row is read once per tile
+// and reused by 256 rays) but per-(ray, candidate) float32 math: in window
+// order two evaluations per candidate with one exp, one sqrt and two
+// divides each, plus the local-memory insertion sort in fired chunks, and
+// at SH 1-3 a 3K-term colour per significant candidate (recomputed for the
+// listed ones of fired chunks); in key order one evaluation with one exp
+// and one divide, plus the colour. The float math stays IEEE float32 with
+// no FMA contraction (the wrapper builds with -fmad=false): pp = oo -
+// od^2/dd cancels by orders of magnitude, and matching the plain version's
+// per-operation rounding keeps kernel and reference comparable. No tensor
+// cores and no TF32 anywhere.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace k1 {
+
+constexpr float kInvA = (float)(1.0 / 32767.0);
+constexpr float kInvCol = (float)(1.0 / 255.75);
+
+// SH band constants (ops/sh.py), each the float nearest its double
+constexpr float kC0 = (float)0.28209479177387814;
+constexpr float kC1 = (float)0.4886025119029199;
+constexpr float kC2_0 = (float)1.0925484305920792;
+constexpr float kC2_1 = (float)-1.0925484305920792;
+constexpr float kC2_2 = (float)0.31539156525252005;
+constexpr float kC2_3 = (float)-1.0925484305920792;
+constexpr float kC2_4 = (float)0.5462742152960396;
+constexpr float kC3_0 = (float)-0.5900435899266435;
+constexpr float kC3_1 = (float)2.890611442640554;
+constexpr float kC3_2 = (float)-0.4570457994644658;
+constexpr float kC3_3 = (float)0.3731763325901154;
+constexpr float kC3_4 = (float)-0.4570457994644658;
+constexpr float kC3_5 = (float)1.445305721320277;
+constexpr float kC3_6 = (float)-0.5900435899266435;
+
+// staged row width and first colour (or coefficient) column
+template <bool kScalar, int K>
+__host__ __device__ constexpr int staged_width() {
+  return kScalar ? (K == 1 ? 17 : 14 + 3 * K) : (K == 1 ? 16 : 12 + 3 * K);
+}
+template <bool kScalar>
+__host__ __device__ constexpr int color_column() {
+  return kScalar ? 14 : 12;
+}
+
+// least row stride (floats) the kernel reads: the staged quad columns, or
+// the scalar rows' 29 + 3K (the 32-float training rows at SH 0)
+inline int min_stride(bool scalar, int K) {
+  return scalar ? 29 + 3 * K : (K == 1 ? 16 : 12 + 3 * K);
+}
+
+struct Params {
+  const int* starts;      // (T+1,) pair-segment starts
+  const float* feats;     // (P, stride) rows (stream order, or Morton order in block mode)
+  const float* dirs;      // (T, R, 3) ray directions
+  float* rgb;             // (T, R, 3)
+  float* t_final;         // (T, R)
+  float* tin;             // (sum of chunks, R) saved carry-in T, or null
+  const int* chunk_base;  // (T+1,) first saved row of each tile, or null
+  const float* origins;   // (T, R, 3) per-ray origins (scalar response), or null
+  const float* t_lo_arr;  // (T, R) per-ray window start, or null: t_lo
+  const float* t_hi_arr;  // (T, R) per-ray window end, or null: t_hi
+  const float* t0;        // (T, R) carry-in transmittance, or null: 1
+  const int* blocks;      // block mode: block id of each listed slot group, or null
+  int block_sub;          // blocks per chunk in block mode
+  int stride;
+  int full_range;         // no window, origin or block array: key order's fast gate
+  float t_lo, t_hi, min_t, t_skip, alpha_min, alpha_clamp;
+  int hm;
+};
+
+__device__ __forceinline__ float block_reduce(float v, bool take_max, float* red) {
+  // All threads of the block must call this; returns the reduction to all.
+  for (int o = 16; o > 0; o >>= 1) {
+    float u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = take_max ? fmaxf(v, u) : fminf(v, u);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  __syncthreads();  // red[] may still be read by a previous reduction
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+  for (int w = 1; w < n_warps; ++w) v = take_max ? fmaxf(v, red[w]) : fminf(v, red[w]);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_color(float r, float g, float b) {
+  auto q = [](float x) { return (uint32_t)fminf(fmaxf(x * 255.75f, 0.f), 1023.f); };
+  return (q(r) << 20) | (q(g) << 10) | q(b);
+}
+
+// The K-term SH basis of direction (x, y, z) with the band constants and
+// signs, in ops/sh.sh_basis_list's order and association.
+template <int K>
+__device__ __forceinline__ void sh_basis(float x, float y, float z, float* b) {
+  b[0] = kC0;
+  if (K >= 4) {
+    b[1] = -kC1 * y;
+    b[2] = kC1 * z;
+    b[3] = -kC1 * x;
+  }
+  if (K >= 9) {
+    const float xx = x * x, yy = y * y, zz = z * z;
+    const float xy = x * y, xz = x * z, yz = y * z;
+    b[4] = kC2_0 * xy;
+    b[5] = kC2_1 * yz;
+    b[6] = kC2_2 * (2.f * zz - xx - yy);
+    b[7] = kC2_3 * xz;
+    b[8] = kC2_4 * (xx - yy);
+    if (K >= 16) {
+      b[9] = kC3_0 * y * (3.f * xx - yy);
+      b[10] = kC3_1 * xy * z;
+      b[11] = kC3_2 * y * (4.f * zz - xx - yy);
+      b[12] = kC3_3 * z * (2.f * zz - 3.f * xx - 3.f * yy);
+      b[13] = kC3_4 * x * (4.f * zz - xx - yy);
+      b[14] = kC3_5 * z * (xx - yy);
+      b[15] = kC3_6 * x * (xx - 3.f * yy);
+    }
+  }
+}
+
+// max(0.5 + sum_k b_k c_k, 0), k added in turn
+template <int K>
+__device__ __forceinline__ float sh_channel(const float* c, const float* b) {
+  float acc = 0.5f + b[0] * c[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) acc = acc + b[k] * c[k];
+  return fmaxf(acc, 0.f);
+}
+
+// Colour of the staged row whose colour columns start at f, for the ray
+// whose basis is `basis` (unused at SH 0, where the row holds the colour).
+template <int K>
+__device__ __forceinline__ void row_color(const float* f, const float* basis, float& r, float& g,
+                                          float& b) {
+  if (K == 1) {
+    r = f[0];
+    g = f[1];
+    b = f[2];
+  } else {
+    r = sh_channel<K>(f, basis);
+    g = sh_channel<K>(f + K, basis);
+    b = sh_channel<K>(f + 2 * K, basis);
+  }
+}
+
+struct Ray {
+  float dx, dy, dz;
+  float m0, m1, m2, m3, m4, m5;  // dx^2, dy^2, dz^2, 2dxdy, 2dxdz, 2dydz
+  float ox, oy, oz;              // per-ray origin (scalar response)
+  float t_lo, t_hi;              // segment window
+  bool live;
+};
+
+__device__ __forceinline__ float effective_alpha(float alpha, int hm) {
+  if (hm == 1) return alpha;
+  const float om = 1.f - alpha;
+  float pw = om;
+  for (int k = 1; k < hm; ++k) pw *= om;
+  return 1.f - pw;
+}
+
+// Global row of candidate r of chunk j of the tile whose segment starts at
+// `start`: the stream slot, or in block mode the row of the listed block.
+template <int C>
+__device__ __forceinline__ size_t row_index(const Params& p, int start, int j, int r) {
+  if (!p.blocks) return (size_t)start + (size_t)j * C + r;
+  const int bs = C / p.block_sub;
+  return (size_t)p.blocks[start / bs + j * p.block_sub + r / bs] * bs + r % bs;
+}
+
+// Stage the chunk's rows [0, m) in sf: the first W floats of each row
+// (quad), or the scalar columns, sh0 turned into the colour at SH 0.
+template <int C, bool kScalar, int K>
+__device__ __forceinline__ void stage(float* sf, const Params& p, int start, int j, int m) {
+  constexpr int W = staged_width<kScalar, K>();
+  for (int k = threadIdx.x; k < m * W; k += blockDim.x) {
+    const int r = k / W, c = k % W;
+    const float* g = p.feats + row_index<C>(p, start, j, r) * p.stride;
+    if (!kScalar) {
+      sf[k] = g[c];
+    } else {
+      const float x = g[c == 0 ? 0 : 15 + c];
+      sf[k] = (K == 1 && c >= 14) ? fmaxf(0.5f + kC0 * x, 0.f) : x;
+    }
+  }
+}
+
+// Quad response (shared origin): event t and gated effective alpha.
+// fast_gate: key order on a full-range ray, the sqrt-free gate
+// alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0); else the exact
+// entry/exit event gate t_lo <= t_event <= t_hi.
+__device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const float* f,
+                                          bool fast_gate, float& t_ev, float& a) {
+  const float dd = f[1] * ray.m0 + f[2] * ray.m1 + f[3] * ray.m2 + f[4] * ray.m3 +
+                   f[5] * ray.m4 + f[6] * ray.m5;
+  const float od = f[7] * ray.dx + f[8] * ray.dy + f[9] * ray.dz;
+  const float cq = f[10], oo = f[11];
+  const float rcp6 = 1.f / fmaxf(dd, 1e-6f);
+  const float t_star = -od * rcp6;
+  const float pp = oo + od * t_star;
+  const float resp = expf(-0.5f * fmaxf(pp, 0.f));
+  const float alpha = fminf(p.alpha_clamp, resp * f[0]);
+  bool gate;
+  if (fast_gate) {
+    const float q_lo = cq + ray.t_lo * (2.f * od + ray.t_lo * dd);
+    gate = ray.live && alpha > p.alpha_min && (t_star >= ray.t_lo || q_lo < 0.f);
+    t_ev = t_star;
+  } else {
+    const float disc = od * od - dd * cq;
+    const float sq = sqrtf(fmaxf(disc, 0.f));
+    const float inv_dd = 1.f / fmaxf(dd, 1e-12f);
+    const float t_entry = (-od - sq) * inv_dd;
+    const float t_exit = (-od + sq) * inv_dd;
+    t_ev = t_entry < ray.t_lo ? t_exit : t_entry;
+    // disc >= 0 is implied by alpha > alpha_min (the radius is the
+    // alpha_min iso-surface), so this gate drops it, as on the TPU
+    gate = ray.live && t_ev >= ray.t_lo && t_ev <= ray.t_hi && alpha > p.alpha_min;
+  }
+  a = gate ? effective_alpha(alpha, p.hm) : 0.f;
+}
+
+// Scalar response in the canonical frame from a staged scalar row, per ray
+// origin; always the exact event gate, with disc >= 0.
+__device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, const float* f,
+                                            float& t_ev, float& a) {
+  const float* m = f + 4;
+  const float ox = ray.ox - f[1], oy = ray.oy - f[2], oz = ray.oz - f[3];
+  const float ogx = m[0] * ox + m[1] * oy + m[2] * oz;
+  const float ogy = m[3] * ox + m[4] * oy + m[5] * oz;
+  const float ogz = m[6] * ox + m[7] * oy + m[8] * oz;
+  const float dgx = m[0] * ray.dx + m[1] * ray.dy + m[2] * ray.dz;
+  const float dgy = m[3] * ray.dx + m[4] * ray.dy + m[5] * ray.dz;
+  const float dgz = m[6] * ray.dx + m[7] * ray.dy + m[8] * ray.dz;
+  const float dd = dgx * dgx + dgy * dgy + dgz * dgz;
+  const float od = ogx * dgx + ogy * dgy + ogz * dgz;
+  const float oo = ogx * ogx + ogy * ogy + ogz * ogz;
+  const float t_star = -od / fmaxf(dd, 1e-6f);
+  const float pp = oo + t_star * (2.f * od + t_star * dd);
+  const float resp = expf(-0.5f * fmaxf(pp, 0.f));
+  const float alpha = fminf(p.alpha_clamp, resp * f[0]);
+  const float cq = oo - f[13] * f[13];
+  const float disc = od * od - dd * cq;
+  const float sq = sqrtf(fmaxf(disc, 0.f));
+  const float inv_dd = 1.f / fmaxf(dd, 1e-12f);
+  const float t_entry = (-od - sq) * inv_dd;
+  const float t_exit = (-od + sq) * inv_dd;
+  t_ev = t_entry < ray.t_lo ? t_exit : t_entry;
+  const bool gate = disc >= 0.f && t_ev >= ray.t_lo && t_ev <= ray.t_hi && ray.live &&
+                    alpha > p.alpha_min;
+  a = gate ? effective_alpha(alpha, p.hm) : 0.f;
+}
+
+template <bool kScalar>
+__device__ __forceinline__ void evaluate(const Params& p, const Ray& ray, const float* f,
+                                         bool fast_gate, float& t_ev, float& a) {
+  if (kScalar)
+    eval_scalar(p, ray, f, t_ev, a);
+  else
+    eval_quad(p, ray, f, fast_gate, t_ev, a);
+}
+
+// Front-to-back composite of one chunk's ordered candidates.
+struct Composite {
+  float t0, s, frozen, r, g, b;
+  bool below;
+  __device__ explicit Composite(float t_carry)
+      : t0(t_carry), s(0.f), frozen(0.f), r(0.f), g(0.f), b(0.f), below(false) {}
+  __device__ __forceinline__ void add(float a, float cr, float cg, float cb, float min_t) {
+    const float p_excl = t0 * expf(s);
+    const float w = p_excl > min_t ? a * p_excl : 0.f;
+    r += w * cr;
+    g += w * cg;
+    b += w * cb;
+    const float p_incl = p_excl * (1.f - a);
+    if (p_incl <= min_t) {  // first crossing freezes T: max of the below set
+      frozen = below ? fmaxf(frozen, p_incl) : p_incl;
+      below = true;
+    }
+    s += log1pf(-a);
+  }
+  __device__ __forceinline__ float t_next() const { return below ? frozen : t0 * expf(s); }
+};
+
+__device__ __forceinline__ Ray load_ray(const Params& p) {
+  Ray ray;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const float* d = p.dirs + idx * 3;
+  ray.dx = d[0];
+  ray.dy = d[1];
+  ray.dz = d[2];
+  ray.live = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz > 0.01f;
+  ray.m0 = ray.dx * ray.dx;
+  ray.m1 = ray.dy * ray.dy;
+  ray.m2 = ray.dz * ray.dz;
+  ray.m3 = 2.f * ray.dx * ray.dy;
+  ray.m4 = 2.f * ray.dx * ray.dz;
+  ray.m5 = 2.f * ray.dy * ray.dz;
+  const float* o = p.origins ? p.origins + idx * 3 : nullptr;
+  ray.ox = o ? o[0] : 0.f;
+  ray.oy = o ? o[1] : 0.f;
+  ray.oz = o ? o[2] : 0.f;
+  ray.t_lo = p.t_lo_arr ? p.t_lo_arr[idx] : p.t_lo;
+  ray.t_hi = p.t_hi_arr ? p.t_hi_arr[idx] : p.t_hi;
+  return ray;
+}
+
+__device__ __forceinline__ float carry_in(const Params& p) {
+  return p.t0 ? p.t0[(size_t)blockIdx.x * blockDim.x + threadIdx.x] : 1.f;
+}
+
+__device__ __forceinline__ void store_ray(const Params& p, float r, float g, float b, float T) {
+  const size_t ray_idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  p.rgb[ray_idx * 3 + 0] = r;
+  p.rgb[ray_idx * 3 + 1] = g;
+  p.rgb[ray_idx * 3 + 2] = b;
+  p.t_final[ray_idx] = T;
+}
+
+template <int C, bool kScalar, int K>
+__global__ void __launch_bounds__(1024) march_kernel(Params p) {
+  constexpr int W = staged_width<kScalar, K>();
+  constexpr int kCol = color_column<kScalar>();
+  extern __shared__ float sf[];  // C * W staged floats
+  __shared__ float red[32];
+
+  const int tile = blockIdx.x;
+  const int start = p.starts[tile];
+  const int n = p.starts[tile + 1] - start;
+  const Ray ray = load_ray(p);
+  float basis[K];
+  if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+
+  float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  uint32_t keys[C];
+  uint8_t src[C];
+
+  for (int j = 0; j * C < n; ++j) {
+    // tile-wide chunk skip (T never changes once every ray is below it)
+    if (block_reduce(T, true, red) <= p.t_skip) break;
+
+    const int m = min(C, n - j * C);
+    __syncthreads();  // the previous chunk is done with sf
+    stage<C, kScalar, K>(sf, p, start, j, m);
+    __syncthreads();
+
+    // pass 1: inversion test and significant event-t range of this ray
+    bool inv = false;
+    float rmax = -INFINITY, lo = INFINITY, hi = -INFINITY;
+    for (int i = 0; i < m; ++i) {
+      float t_ev, a;
+      evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
+      if (a > 0.f) {
+        inv |= t_ev < rmax;
+        rmax = fmaxf(rmax, t_ev);
+        lo = fminf(lo, t_ev);
+        hi = fmaxf(hi, t_ev);
+      }
+    }
+    const bool fired = __syncthreads_or(inv);
+
+    Composite comp(T);
+    float cr, cg, cb;
+    if (!fired) {
+      for (int i = 0; i < m; ++i) {
+        float t_ev, a;
+        const float* f = sf + i * W;
+        evaluate<kScalar>(p, ray, f, false, t_ev, a);
+        if (!(a > 0.f)) continue;
+        row_color<K>(f + kCol, basis, cr, cg, cb);
+        comp.add(a, cr, cg, cb, p.min_t);
+      }
+    } else {
+      lo = block_reduce(lo, false, red);
+      hi = block_reduce(hi, true, red);
+      const float scale = 65534.f / fmaxf(hi - lo, 1e-20f);
+      int ns = 0;
+      for (int i = 0; i < m; ++i) {
+        float t_ev, a;
+        evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
+        if (!(a > 0.f)) continue;
+        const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - lo) * scale, 0.f), 65534.f);
+        const uint32_t aq = (uint32_t)fminf(fmaxf(a * 32767.f, 0.f), 32767.f);
+        const uint32_t key = (tq << 15) | aq;
+        int pos = ns++;
+        while (pos > 0 && keys[pos - 1] > key) {  // stable: ties keep stream order
+          keys[pos] = keys[pos - 1];
+          src[pos] = src[pos - 1];
+          --pos;
+        }
+        keys[pos] = key;
+        src[pos] = (uint8_t)i;
+      }
+      for (int k = 0; k < ns; ++k) {
+        row_color<K>(sf + src[k] * W + kCol, basis, cr, cg, cb);
+        const uint32_t cp = pack_color(cr, cg, cb);
+        comp.add((float)(keys[k] & 32767u) * kInvA, (float)((cp >> 20) & 1023u) * kInvCol,
+                 (float)((cp >> 10) & 1023u) * kInvCol, (float)(cp & 1023u) * kInvCol,
+                 p.min_t);
+      }
+    }
+    const float t_next = comp.t_next();
+    T = T > p.min_t ? t_next : T;
+    acc_r += comp.r;
+    acc_g += comp.g;
+    acc_b += comp.b;
+  }
+
+  store_ray(p, acc_r, acc_g, acc_b, T);
+}
+
+template <int C, bool kScalar, int K>
+__global__ void __launch_bounds__(1024) march_key_kernel(Params p) {
+  constexpr int W = staged_width<kScalar, K>();
+  constexpr int kCol = color_column<kScalar>();
+  extern __shared__ float sf[];  // C * W staged floats
+  __shared__ float red[32];
+
+  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
+  const int start = p.starts[tile];
+  const int n = p.starts[tile + 1] - start;
+  const int n_chunks = (n + C - 1) / C;
+  const Ray ray = load_ray(p);
+  float basis[K];
+  if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+  const bool fast_gate = p.full_range != 0;
+  float* tin = p.tin ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
+
+  float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  bool skipped = false;  // block-uniform; T never changes once skipped
+  for (int j = 0; j < n_chunks; ++j) {
+    if (tin) tin[(size_t)j * R] = T;
+    if (!skipped) skipped = block_reduce(T, true, red) <= p.t_skip;
+    if (skipped) {
+      if (!tin) break;
+      continue;  // the remaining chunks' carries are still saved
+    }
+    const int m = min(C, n - j * C);
+    __syncthreads();  // the previous chunk is done with sf
+    stage<C, kScalar, K>(sf, p, start, j, m);
+    __syncthreads();
+
+    Composite comp(T);
+    for (int i = 0; i < m; ++i) {
+      const float* f = sf + i * W;
+      float t_ev, a, cr, cg, cb;
+      evaluate<kScalar>(p, ray, f, fast_gate, t_ev, a);
+      if (!(a > 0.f)) continue;
+      row_color<K>(f + kCol, basis, cr, cg, cb);
+      comp.add(a, cr, cg, cb, p.min_t);
+    }
+    const float t_next = comp.t_next();
+    T = T > p.min_t ? t_next : T;
+    acc_r += comp.r;
+    acc_g += comp.g;
+    acc_b += comp.b;
+  }
+  store_ray(p, acc_r, acc_g, acc_b, T);
+}
+
+// One launch of the order's kernel; the staged rows take C * W floats of
+// dynamic shared memory, above 48 KB (SH 3 at C = 256: 61,440 B) only
+// after opting in.
+template <int C, bool kScalar, int K>
+cudaError_t launch_mode(const Params& p, bool key_order, int n_tiles, int R, cudaStream_t stream) {
+  void (*kernel)(Params) =
+      key_order ? march_key_kernel<C, kScalar, K> : march_kernel<C, kScalar, K>;
+  const int smem = (int)sizeof(float) * C * staged_width<kScalar, K>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<n_tiles, R, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int C, int K>
+cudaError_t launch(const Params& p, bool key_order, int n_tiles, int R, cudaStream_t stream) {
+  return p.origins ? launch_mode<C, true, K>(p, key_order, n_tiles, R, stream)
+                   : launch_mode<C, false, K>(p, key_order, n_tiles, R, stream);
+}
+
+// Every chunk of SH coefficient count K; explicitly instantiated for K = 1
+// in march.cu and for K = 4, 9, 16 in march_sh1.cu, march_sh2.cu and
+// march_sh3.cu.
+template <int K>
+cudaError_t launch_k(const Params& p, int chunk, bool key_order, int n_tiles, int R,
+                     cudaStream_t stream) {
+  switch (chunk) {
+    case 32: return launch<32, K>(p, key_order, n_tiles, R, stream);
+    case 64: return launch<64, K>(p, key_order, n_tiles, R, stream);
+    case 128: return launch<128, K>(p, key_order, n_tiles, R, stream);
+    case 256: return launch<256, K>(p, key_order, n_tiles, R, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace k1

@@ -1,13 +1,16 @@
 """Full-frame primary render on the port's kernels (counterpart of
 gaussian_ray_tracing_tpu/models/pallas_renderer.py).
 
-Per frame: feature table with the quad columns -> exact conic footprints
-and the central-ray event depth key -> the sorted pair stream
-(ops/tiles.bin_pairs, whose head-fill scan is kernel K2) -> ONE gather of
-per-pair rows -> the fused march (kernel K1) -> untile, clip and blank.
-`render_gpu` is the forward render (window or key order, compact 16-float
-rows); `render_gpu_diff` is the differentiable key-order render, whose
-backward is kernel K3 (ops/march_bwd.py). `use_kernels=False` runs the
+Per frame: feature table with the quad columns -> exact footprints (the
+projected conic's bbox; fisheye: the hit-cone caps' polar rectangle;
+OpenCV: through the forward distortion) and the central-ray event depth
+key -> the sorted pair stream (ops/tiles.bin_pairs, whose head-fill scan
+is kernel K2) -> ONE gather of per-pair rows -> the fused march (kernel
+K1) -> untile, clip and blank (fisheye pixels outside r <= 1).
+`render_gpu` is the forward render (pinhole, fisheye or OpenCV; window or
+key order; SH degree 0 to 3 on the quad rows of ops/march.compact_features);
+`render_gpu_diff` is the differentiable key-order render, whose backward
+is kernel K3 (ops/march_bwd.py). `use_kernels=False` runs the
 plain torch versions of the kernels on any device; otherwise the kernels
 run and every tensor must be on CUDA.
 """
@@ -36,26 +39,24 @@ def snug_pair_capacity(n_pairs: int) -> int:
     return max(_CAP_STEP, -(-int(n_pairs * 1.2) // _CAP_STEP) * _CAP_STEP)
 
 
-def bin_frame(scene: GaussianScene, M, radius, camera: Camera, config: RenderConfig,
-              pair_capacity: int, use_kernels: bool = True):
-    """Footprints and the central-ray depth key -> sorted pair stream.
+def depth_key(scene: GaussianScene, M, radius, eye, config: RenderConfig) -> torch.Tensor:
+    """Front-to-back key: the event t (entry, or exit from inside) along the
+    central ray from `eye` through each gaussian, else its distance."""
+    rel = scene.means - eye
+    rho = torch.clamp(torch.sqrt(torch.sum(rel * rel, dim=-1)), min=1e-9)
+    hit, t_in, t_out = ray_ellipsoid_span(scene.means, M, radius, eye, rel / rho[:, None])
+    key = torch.where(t_in >= config.t_min, t_in, t_out)
+    return torch.where(hit, key, rho)
+
+
+def bin_footprints(fp, camera: Camera, config: RenderConfig, pair_capacity: int,
+                   use_kernels: bool = True):
+    """Footprints (depth = the sort key) -> sorted pair stream.
 
     pair_capacity is a floor: if the frame emits more pairs, the stream is
     rebuilt at a snug capacity, so no pair is ever dropped.
     Returns (stream, per-pair gaussian ids (n_pairs,), n_pairs).
     """
-    bound_radius = radius * torch.amax(scene.scales, dim=-1)
-    fp = project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
-                                  bound_radius, camera, config)
-    # front-to-back key: the event t (entry, or exit from inside) along the
-    # central ray through each gaussian
-    rel = scene.means - camera.eye
-    rho = torch.clamp(torch.sqrt(torch.sum(rel * rel, dim=-1)), min=1e-9)
-    hit, t_in, t_out = ray_ellipsoid_span(scene.means, M, radius, camera.eye,
-                                          rel / rho[:, None])
-    key = torch.where(t_in >= config.t_min, t_in, t_out)
-    fp = fp._replace(depth=torch.where(hit, key, rho))
-
     stream = bin_pairs(fp, camera, config, pair_capacity, use_kernel=use_kernels)
     n_pairs = int(stream.n_pairs)
     if n_pairs > pair_capacity:
@@ -67,17 +68,28 @@ def bin_frame(scene: GaussianScene, M, radius, camera: Camera, config: RenderCon
     return stream, stream.order[stream.gid[:n_pairs].long()], n_pairs
 
 
+def bin_frame(scene: GaussianScene, M, radius, camera: Camera, config: RenderConfig,
+              pair_capacity: int, use_kernels: bool = True):
+    """Footprints and the central-ray depth key -> sorted pair stream
+    (bin_footprints). Returns (stream, per-pair gaussian ids, n_pairs)."""
+    bound_radius = radius * torch.amax(scene.scales, dim=-1)
+    fp = project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
+                                  bound_radius, camera, config)
+    fp = fp._replace(depth=depth_key(scene, M, radius, camera.eye, config))
+    return bin_footprints(fp, camera, config, pair_capacity, use_kernels)
+
+
 def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConfig,
                         pair_capacity: int, use_kernels: bool = True, with_table: bool = False):
     """Feature table -> footprints -> sorted pair stream -> per-pair rows.
-    Returns (stream, pair_feats (n_pairs, 16) compact rows, n_pairs) and,
+    Returns (stream, pair_feats (n_pairs, quad_row) rows, n_pairs) and,
     with_table (the mesh tracer's bounced rays), also the whole table as
     (N, 32) training rows in gaussian order and the per-gaussian bound
     radius (N,) (radius * max scale) for the Morton block index."""
     table, M, radius = feature_table(scene, config, eye=camera.eye)
     stream, ids, n_pairs = bin_frame(scene, M, radius, camera, config, pair_capacity,
                                      use_kernels)
-    out = (stream, compact_features(table)[ids], n_pairs)
+    out = (stream, compact_features(table, config.sh_degree)[ids], n_pairs)
     if with_table:
         out += (train_features(table), radius * torch.amax(scene.scales, dim=-1))
     return out
@@ -100,7 +112,7 @@ def prepare_train_stream(scene: GaussianScene, camera: Camera, config: RenderCon
     return stream, train_features(table)[ids], n_pairs
 
 
-def _check_devices(scene: GaussianScene, camera: Camera, use_kernels: bool):
+def check_devices(scene: GaussianScene, camera: Camera, use_kernels: bool):
     if camera.device != scene.device:
         raise ValueError(f"camera on {camera.device} but scene on {scene.device}")
     if use_kernels and scene.device.type != "cuda":
@@ -109,7 +121,7 @@ def _check_devices(scene: GaussianScene, camera: Camera, use_kernels: bool):
         )
 
 
-def _image(rgb_t, alpha_t, valid, camera: Camera, config: RenderConfig) -> dict:
+def frame_image(rgb_t, alpha_t, valid, camera: Camera, config: RenderConfig) -> dict:
     """Untile, clip rgb to [0, 1] and blank invalid pixels."""
     H, W = camera.height, camera.width
     tw, th = config.tile_w, config.tile_h
@@ -127,7 +139,7 @@ def render_gpu(scene: GaussianScene, camera: Camera, config: RenderConfig = Rend
     """Full-frame primary-ray render. Returns {rgb (H, W, 3) in [0, 1],
     alpha (H, W)} and, with return_aux, {"aux": {n_pairs, n_dropped}}."""
     check_supported(config)
-    _check_devices(scene, camera, use_kernels)
+    check_devices(scene, camera, use_kernels)
     if pair_capacity is None:
         pair_capacity = snug_pair_capacity(int(count_pairs(scene, camera, config)))
     stream, pair_feats, n_pairs = prepare_pair_stream(
@@ -137,7 +149,7 @@ def render_gpu(scene: GaussianScene, camera: Camera, config: RenderConfig = Rend
     dirs_t = tile_rays(dirs, config.tile_w, config.tile_h)
     march_fn = march if use_kernels else march_plain
     rgb_t, t_final_t = march_fn(stream.starts, pair_feats, dirs_t, config, chunk_for(config))
-    out = _image(rgb_t, 1.0 - t_final_t, valid, camera, config)
+    out = frame_image(rgb_t, 1.0 - t_final_t, valid, camera, config)
     if return_aux:
         out["aux"] = {"n_pairs": n_pairs, "n_dropped": 0}
     return out
@@ -153,11 +165,11 @@ def render_gpu_diff(scene: GaussianScene, camera: Camera, config: RenderConfig =
     footprints, depth key and pair stream are computed on detached tensors.
     Returns {rgb (H, W, 3), alpha (H, W)}."""
     check_trainable(config)
-    _check_devices(scene, camera, use_kernels)
+    check_devices(scene, camera, use_kernels)
     stream, rows, _ = prepare_train_stream(scene, camera, config, pair_capacity, use_kernels)
     _, dirs, valid = generate_rays(camera, config)
     dirs_t = tile_rays(dirs, config.tile_w, config.tile_h)
     rgb_t, t_final_t = march_stream_diff(rows, stream.starts, dirs_t,
                                          camera.eye.to(torch.float32), config,
                                          chunk_for(config), use_kernels)
-    return _image(rgb_t, 1.0 - t_final_t, valid, camera, config)
+    return frame_image(rgb_t, 1.0 - t_final_t, valid, camera, config)

@@ -41,7 +41,7 @@ import torch
 from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
 from gaussian_ray_tracing_tpu_torch.config import MeshType, RenderConfig, check_mesh_supported
 from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
-    _check_devices, _image, prepare_pair_stream, snug_pair_capacity,
+    check_devices, frame_image, prepare_pair_stream, snug_pair_capacity,
 )
 from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays, untile_image
 from gaussian_ray_tracing_tpu_torch.ops.blocks import (
@@ -118,7 +118,7 @@ def render_with_mesh_fast(scene: GaussianScene, mesh: TriangleMesh, camera: Came
     two kernel calls, so a check can hold the kernels against their plain
     versions at this path's own shapes."""
     check_mesh_supported(config)
-    _check_devices(scene, camera, use_kernels)
+    check_devices(scene, camera, use_kernels)
     mesh = mesh.to(scene.device)
     k1 = march if use_kernels else march_plain
     k4 = closest_hit_blocks if use_kernels else closest_hit_blocks_plain
@@ -233,7 +233,7 @@ def render_with_mesh_fast(scene: GaussianScene, mesh: TriangleMesh, camera: Came
         trans = t_next
         done = done | miss | terminate_hit | ~live
 
-    out = _image(accum_color, accum_alpha, valid, camera, config)
+    out = frame_image(accum_color, accum_alpha, valid, camera, config)
     out["aux"] = {"block_dropped": int(drops), "pair_dropped": int(stream.n_dropped)}
     return out
 
@@ -294,7 +294,7 @@ def render_with_mesh_planar_mirror(scene: GaussianScene, camera: Camera, config:
     again, so bounce 1 is every hit ray's final pass.
     Returns {rgb, alpha, aux: {pair_dropped}}."""
     check_mesh_supported(config)
-    _check_devices(scene, camera, use_kernels)
+    check_devices(scene, camera, use_kernels)
     k1 = march if use_kernels else march_plain
     if chunk is None:
         chunk = chunk_for(config)

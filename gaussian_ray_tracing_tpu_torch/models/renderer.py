@@ -2,11 +2,12 @@
 gaussian_ray_tracing_tpu/models/renderer.py).
 
 `render()` picks the kernel path or the plain torch path, and the mesh
-tracer when a mesh is given; `render_diff()` the same for the
-differentiable key-order render; the stateful `GaussianRayTracer` holds
-the scene, frame size, camera and mesh primitives (plane, sphere, OBJ),
-each with an optional material type. Supersampling is not ported yet and
-raises.
+tracer when a mesh is given, optionally supersampled; `render_diff()` the
+same for the differentiable key-order render; the stateful
+`GaussianRayTracer` holds the scene (on CUDA unless told otherwise), frame
+size, camera, camera model and mesh primitives (plane, sphere, OBJ), each
+with an optional material type. Rolling-shutter frames are
+models/rolling.render_rolling.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera
-from gaussian_ray_tracing_tpu_torch.config import MeshType, RenderConfig
+from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
 from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import render_gpu, render_gpu_diff
 from gaussian_ray_tracing_tpu_torch.models.mesh_tracer import render_with_mesh
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
@@ -37,9 +38,22 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
     With a mesh, the frame goes through the mesh tracer
     (models/mesh_tracer.render_with_mesh), whose aux holds block_dropped
     (planar path: none) and pair_dropped.
+
+    supersample=N renders N x N rays per pixel (an (N W) x (N H) frame of
+    the same camera) and box-filters them down: anti-aliasing for any
+    camera model. The aux, if asked for, is the large frame's.
     """
-    if supersample != 1:
-        raise NotImplementedError("supersampling is not ported yet")
+    if supersample > 1:
+        s = int(supersample)
+        hi = Camera(eye=camera.eye, lookat=camera.lookat, up=camera.up,
+                    fov_y_deg=camera.fov_y_deg, width=camera.width * s,
+                    height=camera.height * s)
+        out = render(scene, hi, config, mesh=mesh, method=method, pair_capacity=pair_capacity,
+                     return_aux=return_aux)
+        H, W = camera.height, camera.width
+        out["rgb"] = out["rgb"].reshape(H, s, W, s, 3).mean(dim=(1, 3))
+        out["alpha"] = out["alpha"].reshape(H, s, W, s).mean(dim=(1, 3))
+        return out
     if mesh is not None:
         out = render_with_mesh(scene, mesh, camera, config, pair_capacity=pair_capacity,
                                use_kernels=_use_kernels(scene, method))
@@ -74,8 +88,9 @@ def _use_kernels(scene: GaussianScene, method: str) -> bool:
 class GaussianRayTracer:
     """Stateful runtime: scene, frame size, camera, render.
 
-    The scene lives on `device` (default: where `scene` already is, or the
-    CPU for a PLY path); every camera is created there.
+    The scene lives on `device`: by default where `scene` already is, and
+    on CUDA for a PLY path (device="cpu" loads it on the CPU); every camera
+    is created there.
     """
 
     def __init__(self, ply_path: str | None = None, scene: GaussianScene | None = None,
@@ -85,7 +100,7 @@ class GaussianRayTracer:
                 raise ValueError("need ply_path or scene")
             from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
 
-            scene = load_ply(ply_path, device=device or "cpu")
+            scene = load_ply(ply_path, device=device or "cuda")
         elif device is not None:
             scene = scene.to(device)
         self.scene = scene
@@ -111,6 +126,12 @@ class GaussianRayTracer:
 
     def update_camera(self, camera: Camera):
         self.camera = camera
+
+    def set_camera_model(self, model: CameraModel | str):
+        """Pinhole, fisheye or OpenCV (the distortion is config.distortion)."""
+        if isinstance(model, str):
+            model = CameraModel(model)
+        self.config = self.config.replace(camera_model=model)
 
     # --- primitives (the reference's insert/remove/transform) ---
     def _spawn_position(self):

@@ -3,8 +3,8 @@
 The kernels have a plain C interface: nvcc compiles every source in csrc/
 for sm_90a, one process per source, all started together, then links the
 objects into one shared library under build/kernels/ of the checkout,
-named by a hash of the sources and flags so an edit rebuilds, and ctypes
-loads it. Nothing is built or loaded when this module is imported.
+named by a hash of the sources, headers and flags so an edit rebuilds, and
+ctypes loads it. Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("march.cu", "march_bwd.cu", "scan.cu", "tri.cu")
+SOURCES = ("march.cu", "march_sh1.cu", "march_sh2.cu", "march_sh3.cu", "march_bwd.cu",
+           "scan.cu", "tri.cu")
+HEADERS = ("march.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # -fmad=false: no FMA contraction, so the kernels round each float32
 # operation as the plain torch versions do (see csrc/march.cu)
@@ -45,7 +47,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libgrt_kernels_{h.hexdigest()[:16]}.so"
 
@@ -92,7 +94,7 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, vp]
+    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, vp]
     lib.grt_march.restype = ci
     lib.grt_march_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                   cf, cf, cf, cf, cf, ci, vp]

@@ -2,10 +2,11 @@
 
 Counterpart of `pallas_march_stream` / `_march_kernel` in
 gaussian_ray_tracing_tpu/ops/pallas_march.py (forward), in the modes the
-primary render, the training forward and the mesh tracer use: SH degree
-0; the quad response with a shared ray origin on full [t_min, t_max] rays
-(or on segments, below), or the scalar response with per-ray origins in
-block mode (below); and either
+primary render, the training forward, the mesh tracer and the rolling
+shutter use: SH degree 0 to 3; the quad response with a shared ray origin
+on full [t_min, t_max] rays (or on segments, below), or the scalar
+response with per-ray origins (rolling shutter, and block mode below); and
+either
 
   - window order (config.order == "window", the render): exact event-t gate
     and the tile-wide window-sort fire, described below; or
@@ -29,8 +30,15 @@ candidates, with these per-tile (not per-ray) decisions, as on the TPU:
     that chunk in sorted order of the key tq16 << 15 | a15, where tq16
     quantizes t over the tile-wide [min, max] of significant event t,
     a15 = a*32767, alpha is decoded from the key and colours ride as
-    3x10-bit packs over [0, 4); otherwise the chunk composites in stream
-    order with exact values.
+    3x10-bit packs over [0, 4), one per (ray, candidate); otherwise the
+    chunk composites in stream order with exact values.
+
+Colour (pallas_march.py:640-669): SH degree 0 reads max(0.5 + C0 sh0, 0),
+precomputed per gaussian; degrees 1-3 evaluate max(0.5 + sum_k
+basis_k(d) sh_k, 0) per (ray, candidate) in float32, k = 0..K-1 added in
+turn onto 0.5 (K = (deg+1)^2), with the basis of ops/sh.sh_basis_list at
+the ray's direction. The TPU kernel's default `sh_mxu` path (bf16 hi/lo
+MXU splits of the same sum, ~4e-6 relative) is TPU layout and not ported.
 
 Compositing per chunk: p_excl = T * exp(exclusive prefix of log1p(-a)),
 w = a * p_excl * (p_excl > minT); the next T is the max of the
@@ -56,23 +64,32 @@ None on the primary render:
     not a full-range ray, so key order takes the exact entry/exit event gate
     instead of the sqrt-free one.
   - origins_t (T, R, 3): per-ray origins, with the SCALAR response on the
-    32-float training rows: o_g = M (o - mu), d_g = M d, t* = -od /
-    max(dd, 1e-6) as a true division, pp = oo + t* (2 od + t* dd), the gate
-    with disc >= 0, and the colour max(0.5 + C0 sh0, 0) from the row's sh0.
-    (The TPU kernel's per-ray-origin QUAD expansion is not ported.)
+    scalar rows (`scalar_features`; at SH 0 the 32-float training rows):
+    o_g = M (o - mu), d_g = M d, t* = -od / max(dd, 1e-6) as a true
+    division, pp = oo + t* (2 od + t* dd), the gate with disc >= 0, and the
+    colour from the row's SH coefficients. Rolling shutter uses this mode on
+    the pair stream. (The TPU kernel's per-ray-origin QUAD expansion is on
+    no JAX path and is not ported.)
   - blocks (cap_b,) int32 with block_sub: block mode over the Morton-sorted
     table (ops/blocks.block_stream). With bs = chunk / block_sub, chunk j of
     tile t reads rows [blocks[starts[t] / bs + j * block_sub + s] * bs, +bs)
     for s < block_sub.
 
-`march_stream` takes per-pair rows in the JAX feature-table layout (the
-very array `pallas_march_stream` takes); it gathers the 15 columns the
-march reads into compact 16-float rows (`compact_features`) and calls
-`march`, the wrapper: CUDA tensors go to csrc/march.cu, CPU tensors to the
-plain torch version `march_plain`, anything else raises. `march` also
-takes the 32-float training rows (`train_features`) and reads their first
-16 columns. The TPU's packed16 int16 layout, 128-column padding, 8-row
-ray panels and bf16 hi/lo MXU splits are TPU layout work and are not
+Row layouts. `march_stream` takes per-pair rows in the JAX feature-table
+layout (the very array `pallas_march_stream` takes) and gathers the
+columns the march reads (`compact_features`): at SH 0 the compact 16-float
+row [op, q00 q11 q22 q01 q02 q12, v, cq, oo, r g b, pad]; at SH 1-3 the
+quad SH row [op, q (6), v (3), cq, oo, sh_r[K], sh_g[K], sh_b[K]], 12 + 3K
+floats padded to a multiple of 4 (`quad_row`). The scalar rows
+(`scalar_features`) are [op, 15 unused, mean (3), M (9), radius, sh_r[K],
+sh_g[K], sh_b[K]], 29 + 3K floats padded to a multiple of 4, which at SH 0
+is the 32-float training row's layout. `march` is the wrapper: CUDA
+tensors go to the kernel (csrc/march.cuh, built as csrc/march.cu and, for
+SH 1-3, csrc/march_sh{1,2,3}.cu), CPU tensors to the plain torch version
+`march_plain`, anything else raises. At SH 0 `march`
+also takes the 32-float training rows (`train_features`) and reads their
+first 16 columns. The TPU's packed16 int16 layout, 128-column padding,
+8-row ray panels and bf16 hi/lo MXU splits are TPU layout work and are not
 ported.
 """
 
@@ -81,7 +98,7 @@ from __future__ import annotations
 import torch
 
 from gaussian_ray_tracing_tpu_torch.config import RenderConfig
-from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0
+from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0, num_coeffs, sh_basis_list
 
 # JAX feature-table columns read by the quad/sh0 march: op 12, q 64..69,
 # v 72..74, cq 75, oo 76, rgb 77..79
@@ -99,6 +116,7 @@ TRAIN_ROW = 32
 # opacity, sh0); the quad and radius columns get exactly zero
 DIFF_COLUMNS = frozenset(range(13)) | {14, 15, 16}
 T_MX, T_M0, T_RAD, T_SH0 = 16, 19, 28, 29
+_SH0 = 12  # first SH column of the quad SH rows (the JAX table's 14)
 CHUNKS = (32, 64, 128, 256)
 _ZBASE = 65535 << 15  # sort key of non-significant candidates (sorts last)
 _F32 = torch.float32
@@ -119,9 +137,39 @@ def _gather_columns(feats: torch.Tensor, columns, width: int) -> torch.Tensor:
     return out
 
 
-def compact_features(feats: torch.Tensor) -> torch.Tensor:
-    """(N, F >= 80) JAX-layout rows -> (N, 16) compact rows."""
-    return _gather_columns(feats, COMPACT_COLUMNS, ROW)
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def quad_row(sh_degree: int) -> int:
+    """Width of the shared-origin rows: 16 at SH 0, else 12 + 3K padded."""
+    return ROW if sh_degree == 0 else _pad4(12 + 3 * num_coeffs(sh_degree))
+
+
+def scalar_row(sh_degree: int) -> int:
+    """Width of the per-ray-origin scalar rows: 29 + 3K padded (32 at SH 0)."""
+    return _pad4(T_SH0 + 3 * num_coeffs(sh_degree))
+
+
+def _sh_columns(sh_degree: int) -> tuple:
+    """JAX feature-table columns of sh_r[0..K-1], sh_g[...], sh_b[...]."""
+    return tuple(range(14, 14 + 3 * num_coeffs(sh_degree)))
+
+
+def compact_features(feats: torch.Tensor, sh_degree: int = 0) -> torch.Tensor:
+    """(N, F) JAX-layout rows with the quad block -> (N, quad_row) rows:
+    the compact 16-float rows at SH 0, the quad SH rows above."""
+    if sh_degree == 0:
+        return _gather_columns(feats, COMPACT_COLUMNS, ROW)
+    return _gather_columns(feats, COMPACT_COLUMNS[:12] + _sh_columns(sh_degree),
+                           quad_row(sh_degree))
+
+
+def scalar_features(feats: torch.Tensor, sh_degree: int = 0) -> torch.Tensor:
+    """(N, F >= 14 + 3K) JAX-layout rows (no quad block needed) -> (N,
+    scalar_row) rows for the per-ray-origin scalar response."""
+    columns = (12,) + (None,) * 15 + tuple(range(12)) + (13,) + _sh_columns(sh_degree)
+    return _gather_columns(feats, columns, scalar_row(sh_degree))
 
 
 def train_features(feats: torch.Tensor) -> torch.Tensor:
@@ -157,12 +205,12 @@ def march_stream(starts, pair_feats, dirs_t, config: RenderConfig, chunk: int,
                  save_tin: bool = False):
     """March every tile over its pair segment (JAX feature layout).
 
-    starts (T+1,) int32, pair_feats (P, F >= 80) float32, dirs_t (T, R, 3).
-    Returns (rgb (T, R, 3), t_final (T, R)) and, with save_tin, also
-    (tin (sum of chunks, R), chunk_base (T+1,)).
+    starts (T+1,) int32, pair_feats (P, F >= 77) float32 with the quad
+    block, dirs_t (T, R, 3). Returns (rgb (T, R, 3), t_final (T, R)) and,
+    with save_tin, also (tin (sum of chunks, R), chunk_base (T+1,)).
     """
-    return march(starts, compact_features(pair_feats), dirs_t, config, chunk,
-                 save_tin=save_tin)
+    return march(starts, compact_features(pair_feats, config.sh_degree), dirs_t, config,
+                 chunk, save_tin=save_tin)
 
 
 def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, seg=None):
@@ -175,9 +223,18 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
         raise NotImplementedError("save_tin (training) is ported for key order only")
     if starts.dtype != torch.int32 or starts.dim() != 1:
         raise ValueError("starts must be (T+1,) int32")
-    if feats.dtype != _F32 or feats.dim() != 2 or feats.shape[1] not in (ROW, TRAIN_ROW):
-        raise ValueError(f"feats must be (P, {ROW}) compact or (P, {TRAIN_ROW}) "
-                         "training rows, float32")
+    if not 0 <= config.sh_degree <= 3:
+        raise NotImplementedError(f"sh_degree {config.sh_degree} not in 0..3")
+    if save_tin and config.sh_degree != 0:
+        raise NotImplementedError("save_tin (training) is ported for SH degree 0 only")
+    origins = seg.get("origins_t")
+    widths = ((scalar_row(config.sh_degree),) if origins is not None
+              else (quad_row(config.sh_degree),) + ((TRAIN_ROW,) if config.sh_degree == 0
+                                                    else ()))
+    if feats.dtype != _F32 or feats.dim() != 2 or feats.shape[1] not in widths:
+        raise ValueError(f"feats must be float32 rows of width {widths} at SH degree "
+                         f"{config.sh_degree} {'with' if origins is not None else 'without'} "
+                         "per-ray origins")
     if dirs_t.dtype != _F32 or dirs_t.dim() != 3 or dirs_t.shape[2] != 3:
         raise ValueError("dirs_t must be (T, R, 3) float32")
     if starts.shape[0] != dirs_t.shape[0] + 1:
@@ -190,12 +247,8 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
         x = seg.get(name)
         if x is not None and (x.dtype != _F32 or tuple(x.shape) != (T, R)):
             raise ValueError(f"{name} must be (T, R) float32")
-    origins = seg.get("origins_t")
-    if origins is not None:
-        if origins.dtype != _F32 or origins.shape != dirs_t.shape:
-            raise ValueError("origins_t must be (T, R, 3) float32")
-        if feats.shape[1] != TRAIN_ROW:
-            raise ValueError(f"per-ray origins need the ({TRAIN_ROW},) training rows")
+    if origins is not None and (origins.dtype != _F32 or origins.shape != dirs_t.shape):
+        raise ValueError("origins_t must be (T, R, 3) float32")
     blocks, block_sub = seg.get("blocks"), seg.get("block_sub", 1)
     if blocks is not None and (blocks.dtype != torch.int32 or blocks.dim() != 1):
         raise ValueError("blocks must be (cap_b,) int32")
@@ -261,7 +314,7 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
                 int(_full_range(origins_t, t_lo, t_hi, blocks)),
                 config.t_min, config.t_max, config.min_transmittance,
                 _skip_threshold(config, save_tin), config.alpha_min, config.alpha_clamp,
-                config.hit_multiplicity, stream,
+                config.hit_multiplicity, num_coeffs(config.sh_degree), stream,
             )
         check(err, "grt_march")
         march.launches += 1
@@ -271,6 +324,13 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
             march.block_launches += 1
         elif t_lo is not None or t_hi is not None or t0 is not None:
             march.segment_launches += 1
+        elif origins_t is not None:
+            march.origin_launches += 1
+        if config.sh_degree > 0:
+            if config.order == "key":
+                march.sh_key_launches += 1
+            else:
+                march.sh_launches += 1
     return (rgb, t_final, tin, chunk_base) if save_tin else (rgb, t_final)
 
 
@@ -278,6 +338,9 @@ march.launches = 0  # every K1 launch
 march.save_tin_launches = 0  # the K1 launches in key + save_tin mode
 march.segment_launches = 0  # windowed or chained segments on the pair stream
 march.block_launches = 0  # block mode (bounced rays over the Morton table)
+march.origin_launches = 0  # per-ray origins on the pair stream (rolling shutter)
+march.sh_launches = 0  # SH degree 1-3, window order
+march.sh_key_launches = 0  # SH degree 1-3, key order
 
 
 # --- plain torch version ---------------------------------------------------
@@ -358,7 +421,10 @@ def _quad_alpha(f, rays, present, config: RenderConfig):
         # disc >= 0 is implied by alpha > alpha_min (the adaptive radius is
         # the alpha_min iso-surface), so the gate drops it, as on the TPU
         gate = present & in_window & live & (alpha > config.alpha_min)
-    cols = [col(_RGB0 + ch) for ch in range(3)]
+    if rays["basis"] is None:
+        cols = [col(_RGB0 + ch) for ch in range(3)]
+    else:
+        cols = _sh_colors(f, _SH0, rays["basis"])
     return _effective(alpha, gate, config), t_ev, cols
 
 
@@ -381,8 +447,26 @@ def _scalar_alpha(f, rays, present, config: RenderConfig):
     rad = col(T_RAD)
     t_ev, in_window, disc = _event_gate(od, dd, oo - rad * rad, rays["t_lo"], rays["t_hi"])
     gate = present & (disc >= 0.0) & in_window & rays["live"] & (alpha > config.alpha_min)
-    cols = [torch.clamp(0.5 + SH_C0 * col(T_SH0 + ch), min=0.0) for ch in range(3)]
+    if rays["basis"] is None:
+        cols = [torch.clamp(0.5 + SH_C0 * col(T_SH0 + ch), min=0.0) for ch in range(3)]
+    else:
+        cols = _sh_colors(f, T_SH0, rays["basis"])
     return _effective(alpha, gate, config), t_ev, cols
+
+
+def _sh_colors(f, base: int, basis):
+    """Per-(ray, candidate) SH colours (B, c, R) of rows f (B, c, row) whose
+    coefficients sh_r[K], sh_g[K], sh_b[K] start at column `base`: 0.5 plus
+    basis_k * sh_k for k = 0..K-1 in turn, clamped at 0 (pallas_march.py
+    :666-669)."""
+    K = len(basis)
+    cols = []
+    for ch in range(3):
+        acc = 0.5 + basis[0] * f[:, :, base + ch * K : base + ch * K + 1]
+        for k in range(1, K):
+            acc = acc + basis[k] * f[:, :, base + ch * K + k : base + ch * K + k + 1]
+        cols.append(torch.clamp(acc, min=0.0))
+    return cols
 
 
 def _chunk_rows(tb, j, starts, c, n_rows, blocks, block_sub):
@@ -474,6 +558,7 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     dx, dy, dz = dirs.unbind(-1)
     rays = dict(
         d=[dx, dy, dz], o=None if origins_t is None else list(origins_t.unbind(-1)),
+        basis=sh_basis_list(dx, dy, dz, config.sh_degree) if config.sh_degree > 0 else None,
         live=dx * dx + dy * dy + dz * dz > 0.01,  # |dir| > 0.1
         t_lo=config.t_min if t_lo is None else t_lo,
         t_hi=config.t_max if t_hi is None else t_hi,
@@ -487,14 +572,21 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         chunk_base = chunk_bases(starts, chunk)
         tin = torch.empty((int(chunk_base[-1]), R), dtype=_F32, device=dev)
     batch = max(1, _PLAIN_BATCH // (chunk * R))
+    counts = (starts[1:] - starts[:-1]).long()
+    evaluated = torch.zeros((), dtype=torch.int64, device=dev)
     for j in range(int(n_chunks.max()) if T else 0):
         if save_tin:  # every chunk's carry-in, skipped chunks included
             has = (n_chunks > j).nonzero().squeeze(1)
             tin[chunk_base[has].long() + j] = trans[has]
         active = (n_chunks > j) & (trans.amax(dim=1) > t_skip)
+        evaluated += torch.where(active, torch.clamp(counts - j * chunk, max=chunk), 0).sum()
         for tb in active.nonzero().squeeze(1).split(batch):
             _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, chunk, blocks,
                          block_sub)
+    march_plain.candidates = int(evaluated)
     if save_tin:
         return rgb, trans, tin, chunk_base
     return rgb, trans
+
+
+march_plain.candidates = 0  # (tile, candidate) slots of the chunks the last call did not skip

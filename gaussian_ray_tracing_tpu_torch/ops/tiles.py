@@ -1,7 +1,9 @@
-"""Tile binning for pinhole frames (the default-path parts of
-gaussian_ray_tracing_tpu/ops/tiles.py).
+"""Footprints and tile binning (the default-path parts of
+gaussian_ray_tracing_tpu/ops/tiles.py) for pinhole, OpenCV and fisheye
+cameras.
 
-Every gaussian's exact projected-conic footprint is expanded into (tile,
+Every gaussian's exact footprint (the projected conic's bbox; for
+fisheye the polar rectangle of its hit-cone cap) is expanded into (tile,
 gaussian) pairs over its clipped tile rect; the gaussians are argsorted by
 depth key first, so pairs are emitted in global front-to-back order and a
 tile-only sort leaves each tile owning a contiguous depth-ordered segment
@@ -15,11 +17,12 @@ same footprints.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from gaussian_ray_tracing_tpu_torch.cameras import Camera
+from gaussian_ray_tracing_tpu_torch.cameras import Camera, distort_opencv
 from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
 from gaussian_ray_tracing_tpu_torch.ops.quaternion import quat_to_rotmat
 from gaussian_ray_tracing_tpu_torch.ops.response import adaptive_radius, dot3
@@ -89,14 +92,369 @@ def camera_axis_extents(scales, quats, radius, camera: Camera):
     return ext(_unit(U)), ext(_unit(V)), ext(_unit(W))
 
 
+def _distort_rect_px(xc, yc, hx, hy, camera: Camera, config: RenderConfig):
+    """Map an ideal-NDC rect (centre (xc, yc), half-extent (hx, hy), all
+    (N,)) through the forward OPENCV distortion to a conservative pixel
+    rect: the 8 boundary samples and the centre are distorted and boxed,
+    with a multiplicative and an additive margin for the boundary's
+    curvature between samples."""
+    U, V, W = camera.uvw_frame()
+    wlen = _len(W)
+    cu, cv = _len(U) / wlen, _len(V) / wlen
+    Wpx, Hpx = camera.width, camera.height
+    px_lo = px_hi = py_lo = py_hi = None
+    for sx in (xc - hx, xc, xc + hx):
+        for sy in (yc - hy, yc, yc + hy):
+            xd, yd = distort_opencv(sx * cu, sy * cv, config.distortion)
+            pxs = (xd / cu + 1.0) * 0.5 * Wpx
+            pys = (yd / cv + 1.0) * 0.5 * Hpx
+            px_lo = pxs if px_lo is None else torch.minimum(px_lo, pxs)
+            px_hi = pxs if px_hi is None else torch.maximum(px_hi, pxs)
+            py_lo = pys if py_lo is None else torch.minimum(py_lo, pys)
+            py_hi = pys if py_hi is None else torch.maximum(py_hi, pys)
+    px = 0.5 * (px_lo + px_hi)
+    py = 0.5 * (py_lo + py_hi)
+    rx = 0.5 * (px_hi - px_lo) * 1.15 + 2.0
+    ry = 0.5 * (py_hi - py_lo) * 1.15 + 2.0
+    return px, py, rx, ry
+
+
+def _cone_azimuth_interval(gf, q0x, q0y):
+    """Exact azimuth interval of the quadratic cone d^T G_f d <= 0 in the
+    frame basis (z = optical axis): the meridian half-plane at azimuth p
+    holds cone directions iff q^T H q <= 0 for q = (cos p, sin p), with
+    H = g33 [[g11, g12], [g12, g22]] - [g13, g23][g13, g23]^T. H indefinite:
+    the sector pair bounded by H's null directions, the forward nappe's
+    being the one holding the cap-axis azimuth q0; H semidefinite or
+    degenerate: all azimuths. Returns (e1x, e1y, e2x, e2y, az_wrap)."""
+    g11, g12, g13, g22, g23, g33 = gf
+    alpha = g33 * g11 - g13 * g13
+    beta = g33 * g12 - g13 * g23
+    gamma = g33 * g22 - g23 * g23
+    detH = alpha * gamma - beta * beta
+    az_wrap = detH >= -1e-12 * torch.clamp(alpha * alpha + gamma * gamma, min=1e-30)
+    sq = torch.sqrt(torch.clamp(beta * beta - alpha * gamma, min=0.0))
+    # both roots from the stable pairing: s/c = (-beta +- sq)/gamma or
+    # c/s = (-beta -+ sq)/alpha, whichever denominator is larger
+    big_g = torch.abs(gamma) >= torch.abs(alpha)
+    e1x = torch.where(big_g, gamma, -beta - sq)
+    e1y = torch.where(big_g, -beta + sq, alpha)
+    e2x = torch.where(big_g, gamma, -beta + sq)
+    e2y = torch.where(big_g, -beta - sq, alpha)
+
+    def unit(x, y):
+        n = torch.sqrt(torch.clamp(x * x + y * y, min=1e-30))
+        return x / n, y / n
+
+    e1x, e1y = unit(e1x, e1y)
+    e2x, e2y = unit(e2x, e2y)
+    # orient the endpoints so the axis azimuth lies inside the sector
+    # (q0 = a e1 + b e2, flip each by its coefficient's sign); near-parallel
+    # endpoints fall back to all azimuths
+    det = e1x * e2y - e1y * e2x
+    a_c = q0x * e2y - q0y * e2x
+    b_c = e1x * q0y - e1y * q0x
+    s1 = torch.sign(a_c * det)
+    s2 = torch.sign(b_c * det)
+    s1 = torch.where(s1 == 0.0, 1.0, s1)
+    s2 = torch.where(s2 == 0.0, 1.0, s2)
+    az_wrap = az_wrap | (torch.abs(det) < 1e-6)
+    e1x, e1y = e1x * s1, e1y * s1
+    e2x, e2y = e2x * s2, e2y * s2
+    # widen each endpoint ~2e-3 rad away from the axis azimuth (f32 margin)
+    eps = 2e-3
+    r1 = -torch.sign(e1x * q0y - e1y * q0x) * eps
+    r2 = -torch.sign(e2x * q0y - e2y * q0x) * eps
+    e1x, e1y = e1x - r1 * e1y, e1y + r1 * e1x
+    e2x, e2y = e2x - r2 * e2y, e2y + r2 * e2x
+    return e1x, e1y, e2x, e2y, az_wrap
+
+
+def _cross3(u, v):
+    return (u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2], u[0] * v[1] - u[1] * v[0])
+
+
+def _eigvec(g, lam):
+    """Eigenvector of the symmetric 3x3 g = (g00, g01, g02, g11, g12, g22)
+    for eigenvalue lam: the largest cross product of two rows of g - lam I
+    (unnormalized)."""
+    g00, g01, g02, g11, g12, g22 = g
+    r0 = (g00 - lam, g01, g02)
+    r1 = (g01, g11 - lam, g12)
+    r2 = (g02, g12, g22 - lam)
+    cands = [_cross3(r0, r1), _cross3(r0, r2), _cross3(r1, r2)]
+    n2 = [cx * cx + cy * cy + cz * cz for cx, cy, cz in cands]
+    best = torch.argmax(torch.stack(n2, dim=-1), dim=-1)
+    pick = lambda k: torch.where(best == 0, cands[0][k],
+                                 torch.where(best == 1, cands[1][k], cands[2][k]))
+    return pick(0), pick(1), pick(2)
+
+
+def fisheye_cone_caps(means, scales, quats, radius, camera: Camera):
+    """Exact hit-cone caps: per gaussian, the tightest (axis, half-angle)
+    spherical cap holding every direction d whose forward ray eye + t d
+    meets the iso-ellipsoid. Those directions are one nappe of the cone
+    d^T G d <= 0, G = cq Q - (Q o)(Q o)^T (Q = R S^-2 R^T, o = eye - mu,
+    cq = o^T Q o - radius^2); the axis is G's negative-eigenvalue direction
+    and tan(half-angle) = sqrt(-l0 / min(l1, l2)).
+
+    Returns (ax, ay, az, delta, inside, az1x, az1y, az2x, az2y, az_wrap,
+    pol_sup): the unit cap axis toward the gaussian, the half-angle with a
+    2e-3 rad margin, the eye-inside mask, the cone's exact frame-basis
+    azimuth interval and the support of its elliptical polar extent."""
+    R = quat_to_rotmat(quats)
+    inv_s2 = 1.0 / torch.clamp(scales * scales, min=1e-20)
+    ox = camera.eye[0] - means[:, 0]
+    oy = camera.eye[1] - means[:, 1]
+    oz = camera.eye[2] - means[:, 2]
+
+    def q_comp(i, j):  # Q = R diag(1/s^2) R^T
+        return torch.sum(R[:, i, :] * R[:, j, :] * inv_s2, dim=-1)
+
+    q00, q01, q02 = q_comp(0, 0), q_comp(0, 1), q_comp(0, 2)
+    q11, q12, q22 = q_comp(1, 1), q_comp(1, 2), q_comp(2, 2)
+    wx = q00 * ox + q01 * oy + q02 * oz  # Q o
+    wy = q01 * ox + q11 * oy + q12 * oz
+    wz = q02 * ox + q12 * oy + q22 * oz
+    cq = ox * wx + oy * wy + oz * wz - radius * radius
+    inside = cq <= 0.0
+
+    # G = cq Q - w w^T, normalized for f32-stable eigenvalues
+    g00 = cq * q00 - wx * wx
+    g01 = cq * q01 - wx * wy
+    g02 = cq * q02 - wx * wz
+    g11 = cq * q11 - wy * wy
+    g12 = cq * q12 - wy * wz
+    g22 = cq * q22 - wz * wz
+    gmax = torch.maximum(
+        torch.maximum(torch.maximum(torch.abs(g00), torch.abs(g11)), torch.abs(g22)),
+        torch.maximum(torch.maximum(torch.abs(g01), torch.abs(g02)), torch.abs(g12)),
+    )
+    gn = 1.0 / torch.clamp(gmax, min=1e-30)
+    g00, g01, g02 = g00 * gn, g01 * gn, g02 * gn
+    g11, g12, g22 = g11 * gn, g12 * gn, g22 * gn
+
+    # symmetric 3x3 eigenvalues, trigonometric (Cardano) form
+    q = (g00 + g11 + g22) * (1.0 / 3.0)
+    p1 = g01 * g01 + g02 * g02 + g12 * g12
+    d0, d1, d2 = g00 - q, g11 - q, g22 - q
+    p2 = d0 * d0 + d1 * d1 + d2 * d2 + 2.0 * p1
+    p = torch.sqrt(torch.clamp(p2 * (1.0 / 6.0), min=1e-30))
+    ip = 1.0 / p
+    b00, b11, b22 = d0 * ip, d1 * ip, d2 * ip
+    b01, b02, b12 = g01 * ip, g02 * ip, g12 * ip
+    detb = (b00 * (b11 * b22 - b12 * b12)
+            - b01 * (b01 * b22 - b12 * b02)
+            + b02 * (b01 * b12 - b11 * b02))
+    phi = torch.acos(torch.clamp(detb * 0.5, -1.0, 1.0)) * (1.0 / 3.0)
+    lam2 = q + 2.0 * p * torch.cos(phi)  # largest
+    lam0 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)  # smallest
+    lam1 = 3.0 * q - lam0 - lam2
+    delta = torch.atan2(torch.sqrt(torch.clamp(-lam0, min=0.0)),
+                        torch.sqrt(torch.clamp(torch.minimum(lam1, lam2), min=1e-30)))
+    delta = torch.clamp(delta + 2e-3, max=0.5 * math.pi)
+    # near-grazing (lam0 ~ lam1 ~ 0): the axis is ill-conditioned where the
+    # cap nears a hemisphere, so treat the gaussian as covering everything
+    inside = inside | (torch.minimum(lam1, lam2) < 1e-6)
+
+    g = (g00, g01, g02, g11, g12, g22)
+    vx, vy, vz = _eigvec(g, lam0)
+    vn = torch.sqrt(torch.clamp(vx * vx + vy * vy + vz * vz, min=1e-30))
+    sgn = torch.where(vx * ox + vy * oy + vz * oz > 0.0, -1.0, 1.0) / vn  # toward mu
+    vx, vy, vz = vx * sgn, vy * sgn, vz * sgn
+
+    # the cone's exact azimuth interval in the frame basis
+    U, V, W = camera.uvw_frame()
+    e1 = -U / _len(U)
+    e2 = -V / _len(V)
+    e3 = W / _len(W)
+
+    def gdot(u, w):  # u^T G w
+        return (u[0] * (g00 * w[0] + g01 * w[1] + g02 * w[2])
+                + u[1] * (g01 * w[0] + g11 * w[1] + g12 * w[2])
+                + u[2] * (g02 * w[0] + g12 * w[1] + g22 * w[2]))
+
+    gf = (gdot(e1, e1), gdot(e1, e2), gdot(e1, e3), gdot(e2, e2), gdot(e2, e3), gdot(e3, e3))
+    q0x = vx * e1[0] + vy * e1[1] + vz * e1[2]
+    q0y = vx * e2[0] + vy * e2[1] + vz * e2[2]
+    az1x, az1y, az2x, az2y, az_wrap = _cone_azimuth_interval(gf, q0x, q0y)
+
+    # elliptical polar support: the cone boundary is axis + tan(d_a) cos(psi)
+    # v_a + tan(d_b) sin(psi) v_b, so cos theta over it has the linear part
+    # +-A, A = |(tan(d_a) v_a.e3, tan(d_b) v_b.e3)|; v_a is the lam1
+    # eigenvector, v_b = axis x v_a; clamped by the circular tan(delta)
+    vax, vay, vaz = _eigvec(g, lam1)
+    van = torch.sqrt(torch.clamp(vax * vax + vay * vay + vaz * vaz, min=1e-30))
+    vax, vay, vaz = vax / van, vay / van, vaz / van
+    vbx = vy * vaz - vz * vay
+    vby = vz * vax - vx * vaz
+    vbz = vx * vay - vy * vax
+    ta = torch.sqrt(torch.clamp(-lam0, min=0.0) / torch.clamp(lam1, min=1e-30))
+    tb = torch.sqrt(torch.clamp(-lam0, min=0.0) / torch.clamp(lam2, min=1e-30))
+    va_e3 = vax * e3[0] + vay * e3[1] + vaz * e3[2]
+    vb_e3 = vbx * e3[0] + vby * e3[1] + vbz * e3[2]
+    tan_delta = torch.tan(torch.clamp(delta, max=0.5 * math.pi - 1e-3))
+    pol_sup = torch.minimum(torch.sqrt((ta * va_e3) ** 2 + (tb * vb_e3) ** 2) + 2e-3, tan_delta)
+    return (vx, vy, vz, delta, inside, az1x, az1y, az2x, az2y, az_wrap, pol_sup)
+
+
+def _fisheye_rect(a, b, c, rho, bound_radius, camera: Camera, config: RenderConfig,
+                  cone_caps):
+    """Fisheye footprint (before the margin): the bbox of the local polar
+    rectangle of the gaussian's cap under the equisolid map. The raygen maps
+    the local unit vector through the non-orthonormal frame (-U, -V, W), so
+    all of it runs on the local sphere l = normalize(a/|U|, b/|V|, c/|W|):
+    azimuth maps monotonically (exactly when |U| = |V|), and the polar angle
+    warps as tan(theta') = k(p) tan(theta), k(p) = |W| |(cos p/|U|,
+    sin p/|V|)|, bounded by its values at the azimuth interval's extremes.
+    Returns (px, py, rx, ry, visible)."""
+    U, V, W = camera.uvw_frame()
+    ulen, vlen, wlen = _len(U), _len(V), _len(W)
+    u_hat, v_hat, w_hat = U / ulen, V / vlen, W / wlen
+    Wpx, Hpx = camera.width, camera.height
+    rho_safe = torch.clamp(rho, min=_EPS)
+    lx, ly = a / ulen, b / vlen
+    planar = torch.sqrt(torch.clamp(lx * lx + ly * ly, min=_EPS * _EPS))
+    f = config.fisheye_focal
+    if cone_caps is not None:
+        (cax, cay, caz, delta_w, inside,
+         az1x, az1y, az2x, az2y, az_wrap, pol_sup) = cone_caps
+        ca = cax * (-u_hat[0]) + cay * (-u_hat[1]) + caz * (-u_hat[2])
+        cb = cax * (-v_hat[0]) + cay * (-v_hat[1]) + caz * (-v_hat[2])
+        cc_ax = cax * w_hat[0] + cay * w_hat[1] + caz * w_hat[2]
+    else:  # the bounding sphere's cap
+        az_wrap = pol_sup = None
+        delta_w = torch.asin(torch.clamp(bound_radius / rho_safe, 0.0, 1.0))
+        inside = rho <= bound_radius
+        ca, cb, cc_ax = a / rho_safe, b / rho_safe, c / rho_safe
+
+    # world polar coordinates of the cap centre (frame basis)
+    cos_t0w = torch.clamp(cc_ax, -1.0, 1.0)
+    sin_t0w = torch.sqrt(torch.clamp(1.0 - cos_t0w * cos_t0w, min=0.0))
+    t0w = torch.acos(cos_t0w)
+    sin_dw = torch.sin(torch.clamp(delta_w, max=0.5 * math.pi))
+    wrap = (delta_w >= t0w) | (sin_t0w <= sin_dw)
+    t_lo_w = torch.where(wrap, 0.0, torch.clamp(t0w - delta_w, min=0.0))
+    t_hi_w = torch.clamp(t0w + delta_w, max=math.pi)
+    if pol_sup is not None:
+        # elliptical polar extents: cos theta over the cone lies in
+        # [num_min, num_max] / denom, num = cc_ax -+ pol_sup, denom in
+        # [1, 1/cos delta]; intersected with the circular rectangle
+        cos_dw_c = torch.cos(torch.clamp(delta_w, max=0.5 * math.pi))
+        num_min = cc_ax - pol_sup
+        num_max = cc_ax + pol_sup
+        cos_min = torch.clamp(torch.where(num_min >= 0.0, num_min * cos_dw_c, num_min),
+                              -1.0, 1.0)
+        cos_max = torch.clamp(torch.where(num_max >= 0.0, num_max, num_max * cos_dw_c),
+                              -1.0, 1.0)
+        t_lo_w = torch.where(wrap, t_lo_w, torch.maximum(t_lo_w, torch.acos(cos_max)))
+        t_hi_w = torch.where(wrap, t_hi_w, torch.minimum(t_hi_w, torch.acos(cos_min)))
+
+    # azimuth interval endpoints (world, frame basis)
+    su, sv, sw = 1.0 / ulen, 1.0 / vlen, 1.0 / wlen
+    if az_wrap is not None:
+        c1w, s1w, c2w, s2w = az1x, az1y, az2x, az2y
+        awrap = az_wrap
+    else:
+        cos_dphi_w = torch.where(
+            wrap, -1.0,
+            torch.sqrt(torch.clamp(1.0 - (sin_dw / torch.clamp(sin_t0w, min=_EPS)) ** 2,
+                                   0.0, 1.0)))
+        sin_dphi_w = torch.sqrt(torch.clamp(1.0 - cos_dphi_w * cos_dphi_w, min=0.0))
+        planar_w = torch.sqrt(torch.clamp(ca * ca + cb * cb, min=_EPS * _EPS))
+        cphi0 = ca / planar_w
+        sphi0 = cb / planar_w
+        c1w = cphi0 * cos_dphi_w + sphi0 * sin_dphi_w  # cos(p0 - dphi)
+        s1w = sphi0 * cos_dphi_w - cphi0 * sin_dphi_w
+        c2w = cphi0 * cos_dphi_w - sphi0 * sin_dphi_w  # cos(p0 + dphi)
+        s2w = sphi0 * cos_dphi_w + cphi0 * sin_dphi_w
+        awrap = wrap
+
+    # polar warp factor k(p) over the azimuth interval: cos^2 p ranges over
+    # the endpoints', widened to 1 (0) when the interval holds azimuth 0 or
+    # pi (+-pi/2); wrap -> the full range
+    mxw = c1w + c2w
+    myw = s1w + s2w
+    mnw = torch.sqrt(torch.clamp(mxw * mxw + myw * myw, min=_EPS * _EPS))
+    degen_w = (mxw * mxw + myw * myw) < 1e-8
+    cphi_w = mxw / mnw
+    sphi_w = myw / mnw
+    coshw = torch.clamp(cphi_w * c1w + sphi_w * s1w, -1.0, 1.0)
+    full_k = awrap | degen_w
+    c2_1 = c1w * c1w
+    c2_2 = c2w * c2w
+    c2_min = torch.minimum(c2_1, c2_2)
+    c2_max = torch.maximum(c2_1, c2_2)
+    c2_max = torch.where(full_k | (cphi_w >= coshw) | (-cphi_w >= coshw), 1.0, c2_max)
+    c2_min = torch.where(full_k | (sphi_w >= coshw) | (-sphi_w >= coshw), 0.0, c2_min)
+    k_of = lambda c2: torch.sqrt(sv * sv + (su * su - sv * sv) * c2) / sw
+    ka, kb = k_of(c2_min), k_of(c2_max)
+    k_lo = torch.minimum(ka, kb)
+    k_hi = torch.maximum(ka, kb)
+    warp_t = lambda t, k: torch.atan2(k * torch.sin(t), torch.cos(t))
+    theta_lo = torch.minimum(warp_t(t_lo_w, k_lo), warp_t(t_lo_w, k_hi))
+    theta_lo = torch.where(wrap, 0.0, torch.clamp(theta_lo, min=0.0))
+    # rays exist for theta' <= pi/2 only (r <= 1): clip to the hemisphere
+    theta_hi = torch.maximum(warp_t(t_hi_w, k_lo), warp_t(t_hi_w, k_hi))
+    theta_hi = torch.clamp(theta_hi, 0.0, 0.5 * math.pi + 0.02)
+    r_hi = 2.0 * f * torch.sin(0.5 * theta_hi)
+    r_lo = 2.0 * f * torch.sin(0.5 * theta_lo)
+
+    def img_az(cw, sw_):
+        x, y = su * cw, sv * sw_
+        nrm = torch.sqrt(torch.clamp(x * x + y * y, min=_EPS * _EPS))
+        return x / nrm, y / nrm
+
+    c1, s1 = img_az(c1w, s1w)
+    c2, s2 = img_az(c2w, s2w)
+    # image azimuth centre and half-width (midpoint of the endpoint images;
+    # a degenerate midpoint falls back to all azimuths)
+    mx, my = c1 + c2, s1 + s2
+    mn = torch.sqrt(torch.clamp(mx * mx + my * my, min=_EPS * _EPS))
+    degen = (mx * mx + my * my) < 1e-8
+    cphi = torch.where(degen, lx / planar, mx / mn)
+    sphi = torch.where(degen, ly / planar, my / mn)
+    cos_dphi = torch.where(awrap | degen, -1.0,
+                           torch.clamp(cphi * c1 + sphi * s1, -1.0, 1.0))
+    # the interval holds angle x iff cos(phi0 - x) >= cos(dphi)
+    has_xp = cphi >= cos_dphi
+    has_xm = -cphi >= cos_dphi
+    has_yp = sphi >= cos_dphi
+    has_ym = -sphi >= cos_dphi
+    big = 4.0
+
+    def extent(cc1, cc2, has_p, has_m):
+        hi = torch.maximum(torch.maximum(r_lo * cc1, r_hi * cc1),
+                           torch.maximum(r_lo * cc2, r_hi * cc2))
+        hi = torch.where(has_p, torch.maximum(hi, r_hi), hi)
+        lo = torch.minimum(torch.minimum(r_lo * cc1, r_hi * cc1),
+                           torch.minimum(r_lo * cc2, r_hi * cc2))
+        lo = torch.where(has_m, torch.minimum(lo, -r_hi), lo)
+        return lo, hi
+
+    x_min, x_max = extent(c1, c2, has_xp, has_xm)
+    y_min, y_max = extent(s1, s2, has_yp, has_ym)
+    x_min = torch.where(inside, -big, x_min)
+    x_max = torch.where(inside, big, x_max)
+    y_min = torch.where(inside, -big, y_min)
+    y_max = torch.where(inside, big, y_max)
+    px = (0.5 * (x_min + x_max) + 1.0) * 0.5 * Wpx
+    py = (0.5 * (y_min + y_max) + 1.0) * 0.5 * Hpx
+    rx = 0.5 * (x_max - x_min) * 0.5 * Wpx
+    ry = 0.5 * (y_max - y_min) * 0.5 * Hpx
+    # visible hemisphere: theta' <= pi/2 (+ slack); inside-gaussians always
+    visible = (theta_lo <= (0.5 * math.pi + 0.05)) | inside
+    return px, py, rx, ry, visible
+
+
 def project_footprints(means, bound_radius, camera: Camera, config: RenderConfig,
-                       extents: tuple) -> Footprint:
-    """Conservative pinhole footprints: the extent/z_near rect of the
-    camera-axis half-extents `extents` (camera_axis_extents)."""
-    if config.camera_model != CameraModel.PINHOLE or config.distortion:
-        raise NotImplementedError(
-            f"camera model {config.camera_model.value} is not ported yet"
-        )
+                       extents: tuple | None = None, cone_caps: tuple | None = None
+                       ) -> Footprint:
+    """Conservative footprints. Pinhole and OpenCV: the extent/z_near rect
+    of the camera-axis half-extents `extents` (camera_axis_extents; the
+    bounding sphere when None), OpenCV's through the forward distortion.
+    Fisheye: the polar rectangle of the hit-cone caps `cone_caps`
+    (fisheye_cone_caps), or of the bounding sphere's cap when None."""
     U, V, W = camera.uvw_frame()
     ulen, vlen, wlen = _len(U), _len(V), _len(W)
     rel = means - camera.eye
@@ -104,24 +462,39 @@ def project_footprints(means, bound_radius, camera: Camera, config: RenderConfig
     b = _dot3(rel, -(V / vlen))
     c = _dot3(rel, W / wlen)
     Wpx, Hpx = camera.width, camera.height
-    z = torch.clamp(c, min=_EPS)
-    px = (a / z * (wlen / ulen) + 1.0) * 0.5 * Wpx
-    py = (b / z * (wlen / vlen) + 1.0) * 0.5 * Hpx
-    ru, rv, rw = extents
-    z_near = torch.clamp(c - rw, min=_EPS)
-    rx = ru / z_near * (wlen / ulen) * 0.5 * Wpx
-    ry = rv / z_near * (wlen / vlen) * 0.5 * Hpx
-    return Footprint(
-        px=px, py=py, rx=rx * _MARGIN + 1.0, ry=ry * _MARGIN + 1.0, depth=c,
-        visible=((c + rw) > _EPS) & (bound_radius > 0.0),
-    )
+    if config.camera_model in (CameraModel.PINHOLE, CameraModel.OPENCV):
+        z = torch.clamp(c, min=_EPS)
+        ndc_x = a / z * (wlen / ulen)
+        ndc_y = b / z * (wlen / vlen)
+        px = (ndc_x + 1.0) * 0.5 * Wpx
+        py = (ndc_y + 1.0) * 0.5 * Hpx
+        ru, rv, rw = extents if extents is not None else (bound_radius,) * 3
+        z_near = torch.clamp(c - rw, min=_EPS)
+        rx = ru / z_near * (wlen / ulen) * 0.5 * Wpx
+        ry = rv / z_near * (wlen / vlen) * 0.5 * Hpx
+        visible = (c + rw) > _EPS
+        depth = c
+        if config.camera_model == CameraModel.OPENCV:
+            px, py, rx, ry = _distort_rect_px(ndc_x, ndc_y, rx / (0.5 * Wpx), ry / (0.5 * Hpx),
+                                              camera, config)
+    elif config.camera_model == CameraModel.FISHEYE:
+        rho = torch.sqrt(torch.sum(rel * rel, dim=-1))
+        px, py, rx, ry, visible = _fisheye_rect(a, b, c, rho, bound_radius, camera, config,
+                                                cone_caps)
+        depth = rho
+    else:
+        raise ValueError(config.camera_model)
+    return Footprint(px=px, py=py, rx=rx * _MARGIN + 1.0, ry=ry * _MARGIN + 1.0, depth=depth,
+                     visible=visible & (bound_radius > 0.0))
 
 
 def project_footprints_conic(means, scales, quats, radius, bound_radius,
                              camera: Camera, config: RenderConfig) -> Footprint:
-    """Exact pinhole footprints: the tight bounding box of each iso
-    ellipsoid's projected conic, falling back to the conservative rect
-    where the ellipsoid is not strictly in front of the eye plane.
+    """Exact footprints: for pinhole and OpenCV the tight bounding box of
+    each iso ellipsoid's projected conic (OpenCV's through the forward
+    distortion), falling back to the conservative rect where the ellipsoid
+    is not strictly in front of the eye plane; for fisheye the exact
+    hit-cone caps through the polar rectangle.
 
     The supporting planes n(k) = cc*u' - k*w_hat of {ndc_x >= k} touch the
     ellipsoid where n.(mu - eye) = -radius |S R^T n|, which squares to
@@ -132,9 +505,12 @@ def project_footprints_conic(means, scales, quats, radius, bound_radius,
     r^2 (|B P - X Q|^2 - r^2 |P x Q|^2). Lossless: rays outside the conic
     never clear alpha_min in the march.
     """
+    if config.camera_model == CameraModel.FISHEYE and config.exact_bbox:
+        caps = fisheye_cone_caps(means, scales, quats, radius, camera)
+        return project_footprints(means, bound_radius, camera, config, cone_caps=caps)
     extents = camera_axis_extents(scales, quats, radius, camera)
     fp = project_footprints(means, bound_radius, camera, config, extents)
-    if not config.exact_bbox:
+    if config.camera_model == CameraModel.FISHEYE or not config.exact_bbox:
         return fp
 
     U, V, W = camera.uvw_frame()
@@ -169,11 +545,18 @@ def project_footprints_conic(means, scales, quats, radius, bound_radius,
     kcv, khv = interval(Xv, Pv)
     exact = (a > 0.0) & (B > 0.0)
     Wpx, Hpx = camera.width, camera.height
+    if config.camera_model == CameraModel.OPENCV:
+        px, py, rx, ry = _distort_rect_px(kcu, kcv, khu, khv, camera, config)
+    else:
+        px = (kcu + 1.0) * 0.5 * Wpx
+        py = (kcv + 1.0) * 0.5 * Hpx
+        rx = khu * 0.5 * Wpx + 1.0
+        ry = khv * 0.5 * Hpx + 1.0
     return Footprint(
-        px=torch.where(exact, (kcu + 1.0) * 0.5 * Wpx, fp.px),
-        py=torch.where(exact, (kcv + 1.0) * 0.5 * Hpx, fp.py),
-        rx=torch.where(exact, khu * 0.5 * Wpx + 1.0, fp.rx),
-        ry=torch.where(exact, khv * 0.5 * Hpx + 1.0, fp.ry),
+        px=torch.where(exact, px, fp.px),
+        py=torch.where(exact, py, fp.py),
+        rx=torch.where(exact, rx, fp.rx),
+        ry=torch.where(exact, ry, fp.ry),
         depth=fp.depth,
         visible=fp.visible,
     )

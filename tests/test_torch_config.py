@@ -41,11 +41,11 @@ def test_config_is_frozen_and_hashable():
 
 
 @pytest.mark.parametrize("change", [
-    dict(camera_model=tcfg.CameraModel.FISHEYE),
-    dict(camera_model=tcfg.CameraModel.OPENCV, distortion=(0.1, 0.0, 0.0, 0.0)),
+    dict(camera_model=tcfg.CameraModel.FISHEYE, fisheye_cull=True),
+    dict(order="oddeven"),
     dict(compute_dtype="bfloat16"),
     dict(order="merge"),
-    dict(sh_degree=1),
+    dict(sh_degree=4),
     dict(conic_cull=True),
     dict(row_span=True),
     dict(fisheye_cull=True),
@@ -64,6 +64,24 @@ def test_defaults_and_bench_config_are_supported():
     tcfg.check_supported(tcfg.RenderConfig())
     tcfg.check_supported(tcfg.RenderConfig(hit_multiplicity=1, march_chunk=128))
     tcfg.check_supported(tcfg.RenderConfig(order="key"))
+    tcfg.check_supported(tcfg.RenderConfig(camera_model=tcfg.CameraModel.FISHEYE, sh_degree=3))
+    tcfg.check_supported(tcfg.RenderConfig(camera_model=tcfg.CameraModel.OPENCV,
+                                           distortion=(0.1, 0.0, 0.0, 0.0), sh_degree=1))
+
+
+@pytest.mark.parametrize("change", [
+    dict(camera_model=tcfg.CameraModel.FISHEYE),
+    dict(camera_model=tcfg.CameraModel.OPENCV, distortion=(-0.2, 0.0, 0.0, 0.0)),
+    dict(sh_degree=1), dict(sh_degree=3),
+])
+def test_training_and_mesh_refuse_cameras_and_sh(change):
+    """The render takes fisheye, OpenCV and SH 1-3; training (K3) and the
+    mesh tracer do not yet, and refuse them explicitly."""
+    tcfg.check_supported(tcfg.RenderConfig(**change))
+    with pytest.raises(NotImplementedError):
+        tcfg.check_trainable(tcfg.RenderConfig(order="key", **change))
+    with pytest.raises(NotImplementedError):
+        tcfg.check_mesh_supported(tcfg.RenderConfig(**change))
 
 
 @pytest.mark.parametrize("change", [

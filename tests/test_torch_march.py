@@ -285,3 +285,80 @@ def test_block_mode_rejects_what_it_does_not_take(stream_inputs, bounce_rays):
     with pytest.raises(NotImplementedError):  # saved carries take no segments
         tmarch.march(starts, compact, dirs_t, RenderConfig(order="key"), 128, save_tin=True,
                      t0=torch.ones(dirs_t.shape[:2]))
+
+
+# --- SH degrees 1-3 -----------------------------------------------------------
+
+def _sh_feats(pair_feats: np.ndarray, degree: int) -> np.ndarray:
+    """The JAX feature layout at SH `degree` from the SH 3 stream's rows:
+    [mean, M, op, radius, sh_r[K], sh_g[K], sh_b[K], zero pad, quad block].
+    The footprints and the pair stream do not depend on the SH degree."""
+    K = (degree + 1) ** 2
+    sh = [pair_feats[:, 14 + 16 * ch : 14 + 16 * ch + K] for ch in range(3)]
+    head = np.concatenate([pair_feats[:, :14], *sh], axis=1)
+    pad = np.zeros((pair_feats.shape[0], 64 - head.shape[1]), np.float32)
+    return np.concatenate([head, pad, pair_feats[:, 64:]], axis=1)
+
+
+@pytest.fixture(scope="module")
+def sh_stream_inputs():
+    """The 96x64 / 800-gaussian pair stream with all 16 SH coefficients."""
+    scene = j_random_scene(800, seed=5)
+    cam = JCamera.create(eye=(0.0, 0.2, 2.6), lookat=(0.0, 0.0, 0.0), width=96, height=64)
+    cfg = JConfig(hit_multiplicity=1, sh_degree=3)
+    prepare = jax.jit(prepare_pair_stream, static_argnums=(2, 3, 4, 5))
+    stream, pair_feats, _, _ = prepare(scene, cam, cfg, 65_536, 128, False)
+    _, dirs, _ = generate_rays(cam, cfg)
+    return dict(starts=np.array(stream.starts), eye=np.array(cam.eye),
+                pair_feats=np.array(pair_feats), dirs_t=np.array(tile_rays(dirs, 16, 16)))
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3])
+@pytest.mark.parametrize("order,chunk,sh_mxu", [("window", 32, False), ("key", 128, False)])
+def test_plain_sh_march_matches_pallas(sh_stream_inputs, degree, order, chunk, sh_mxu):
+    """View-dependent colour per (ray, candidate): march_plain against
+    pallas_march_stream(quad=True) with the JAX f32 colour loop (sh_mxu off)
+    at the quad-path bar, >= 70 dB and max abs <= 1e-2; window order packs
+    the per-(ray, candidate) colour through the 3x10-bit sorted payload."""
+    inp = {**sh_stream_inputs, "pair_feats": _sh_feats(sh_stream_inputs["pair_feats"], degree)}
+    kw = dict(hit_multiplicity=1, march_chunk=chunk, order=order, sh_degree=degree)
+    want = _jax_march(inp, {**kw, "sh_mxu": sh_mxu}, chunk, packed16=False)
+    starts, feats, dirs_t = _torch_args(inp)
+    rows = tmarch.compact_features(feats, degree)
+    assert rows.shape[1] == tmarch.quad_row(degree) == {1: 24, 2: 40, 3: 60}[degree]
+    got = tmarch.march(starts, rows, dirs_t, RenderConfig(**kw), chunk)
+    _assert_march_bars(got, want)
+    assert float(got[1].min()) < 0.5
+    sh0 = tmarch.march(starts, tmarch.compact_features(feats), dirs_t,
+                       RenderConfig(**{**kw, "sh_degree": 0}), chunk)
+    assert psnr(got[0].numpy(), sh0[0].numpy()) < 60.0  # the colour really depends on d
+
+
+def test_plain_sh_march_matches_pallas_default_mxu(sh_stream_inputs):
+    """SH 3 in window order against the TPU kernel's default `sh_mxu` path
+    (bf16 hi/lo MXU splits, ~4e-6 relative of the f32 loop): the same bar."""
+    inp = {**sh_stream_inputs, "pair_feats": _sh_feats(sh_stream_inputs["pair_feats"], 3)}
+    kw = dict(hit_multiplicity=1, march_chunk=64, order="window", sh_degree=3)
+    assert JConfig().sh_mxu
+    want = _jax_march(inp, kw, 64, packed16=False)
+    starts, feats, dirs_t = _torch_args(inp)
+    got = tmarch.march(starts, tmarch.compact_features(feats, 3), dirs_t, RenderConfig(**kw), 64)
+    _assert_march_bars(got, want)
+
+
+def test_sh_rows_and_what_the_march_refuses(sh_stream_inputs):
+    starts, feats, dirs_t = _torch_args(sh_stream_inputs)
+    rows = tmarch.compact_features(feats, 3)
+    assert torch.equal(rows[:, :12], tmarch.compact_features(feats)[:, :12])
+    assert torch.equal(rows[:, 12:60], feats[:, 14:62])
+    scalar = tmarch.scalar_features(feats, 3)
+    assert scalar.shape[1] == tmarch.scalar_row(3) == 80
+    assert torch.equal(scalar[:, tmarch.T_SH0:tmarch.T_SH0 + 48], feats[:, 14:62])
+    assert torch.equal(tmarch.scalar_features(feats)[:, 16:], tmarch.train_features(feats)[:, 16:])
+    sh3 = RenderConfig(sh_degree=3)
+    with pytest.raises(ValueError):  # sh0 rows at SH 3
+        tmarch.march(starts, tmarch.compact_features(feats), dirs_t, sh3, 128)
+    with pytest.raises(ValueError):  # quad rows with per-ray origins
+        tmarch.march(starts, rows, dirs_t, sh3, 128, origins_t=torch.zeros_like(dirs_t))
+    with pytest.raises(NotImplementedError):  # training is SH 0 only
+        tmarch.march(starts, rows, dirs_t, sh3.replace(order="key"), 128, save_tin=True)

@@ -1,6 +1,7 @@
 """The whole ported slice: render(method="plain") against the JAX package's
 render_pallas (interpret mode) and against the exact-oracle 256^2 goldens,
-plus the package's entry points and its independence from jax."""
+for pinhole, fisheye and OpenCV cameras and SH degrees 0 and 3, plus
+supersampling, the package's entry points and its independence from jax."""
 
 import os
 import subprocess
@@ -11,11 +12,13 @@ import pytest
 import torch
 
 from gaussian_ray_tracing_tpu.cameras import Camera as JCamera
+from gaussian_ray_tracing_tpu.config import CameraModel as JModel
 from gaussian_ray_tracing_tpu.config import RenderConfig as JConfig
 from gaussian_ray_tracing_tpu.models.pallas_renderer import render_pallas
+from gaussian_ray_tracing_tpu.models.renderer import render as j_render
 from gaussian_ray_tracing_tpu.scene.synthetic import random_scene as j_random_scene
 from gaussian_ray_tracing_tpu_torch.cameras import Camera
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
 from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
@@ -62,18 +65,57 @@ def test_key_order_slice_matches_jax_render_pallas():
     assert psnr(out["alpha"].numpy(), np.asarray(ref["alpha"])) >= 70.0
 
 
-@pytest.mark.parametrize("name", ["small_pinhole_256", "small_hm2_256"])
+@pytest.mark.parametrize("model,dist,sh", [("fisheye", (), 0), ("fisheye", (), 3),
+                                          ("opencv", (-0.25, 0.05, 0.0, 0.0), 0),
+                                          ("opencv", (-0.25, 0.05, 0.0, 0.0), 3)])
+def test_camera_slice_matches_jax_render_pallas(model, dist, sh):
+    """Fisheye and OpenCV frames at SH 0 and 3, 96x64, 800 gaussians, bench
+    config, against render_pallas: >= 60 dB and an equal pair count, the
+    bar of test_slice_matches_jax_render_pallas."""
+    js = j_random_scene(800, seed=5)
+    ts = GaussianScene.from_numpy({k: np.asarray(getattr(js, k)) for k in FIELDS},
+                                  js.num_active)
+    kw = dict(eye=(0.0, 0.2, 2.6), lookat=(0.0, 0.0, 0.0), width=96, height=64)
+    cfg = dict(BENCH, sh_degree=sh, distortion=dist)
+    ref = render_pallas(js, JCamera.create(**kw), JConfig(**cfg, camera_model=JModel(model)),
+                        pair_capacity=65_536, interpret=True, return_aux=True)
+    out = render(ts, Camera.create(**kw), RenderConfig(**cfg, camera_model=CameraModel(model)),
+                 method="plain", pair_capacity=65_536, return_aux=True)
+    assert out["aux"]["n_pairs"] == int(ref["aux"]["n_pairs"])
+    assert out["aux"]["n_dropped"] == int(ref["aux"]["n_dropped"]) == 0
+    assert psnr(out["rgb"].numpy(), np.asarray(ref["rgb"])) >= 60.0
+    assert psnr(out["alpha"].numpy(), np.asarray(ref["alpha"])) >= 60.0
+    if model == "fisheye":  # the r > 1 ring is blanked
+        assert not out["rgb"][0, 0].any() and float(out["rgb"][32, 48].max()) > 0.0
+
+
+def test_supersample_matches_jax():
+    """supersample=2 (a 64x48 frame box-filtered to 32x24) against the JAX
+    package's render(..., supersample=2, method="pallas") (key order)."""
+    js = j_random_scene(800, seed=5)
+    ts = GaussianScene.from_numpy({k: np.asarray(getattr(js, k)) for k in FIELDS},
+                                  js.num_active)
+    kw = dict(eye=(0.0, 0.2, 2.6), lookat=(0.0, 0.0, 0.0), width=32, height=24)
+    key = dict(hit_multiplicity=1, order="key", march_chunk=128)
+    ref = j_render(js, JCamera.create(**kw), JConfig(**key), method="pallas", supersample=2)
+    out = render(ts, Camera.create(**kw), RenderConfig(**key), method="plain", supersample=2)
+    assert out["rgb"].shape == (24, 32, 3) and out["alpha"].shape == (24, 32)
+    assert psnr(out["rgb"].numpy(), np.asarray(ref["rgb"])) >= 60.0
+    assert psnr(out["alpha"].numpy(), np.asarray(ref["alpha"])) >= 60.0
+
+
+@pytest.mark.parametrize("name", ["small_pinhole_256", "small_hm2_256", "small_fisheye_256"])
 def test_golden_256(name):
     """>= 40 dB against the exact per-ray-ordered oracle goldens, the bar
     of tests/test_golden_small.py, through the port's plain path."""
     z = np.load(os.path.join(ROOT, "data", "golden", f"{name}.npz"))
     n, seed, width, height, hm, fisheye = (int(v) for v in z["meta"])
-    assert not fisheye
     scene = random_scene(n, seed=seed)
     cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0),
                         width=width, height=height)
     cfg = RenderConfig(hit_multiplicity=hm, order="window", march_chunk=128,
-                       max_per_tile=4096)
+                       max_per_tile=4096,
+                       camera_model=CameraModel.FISHEYE if fisheye else CameraModel.PINHOLE)
     out = render(scene, cam, cfg, method="plain", return_aux=True)
     assert out["aux"]["n_dropped"] == 0
     assert psnr(out["rgb"].numpy(), z["rgb"].astype(np.float32)) >= 40.0
@@ -88,6 +130,42 @@ def test_gpu_method_never_falls_back_to_cpu():
         render(scene, cam, RenderConfig(), method="pallas")
     with pytest.raises(NotImplementedError):
         render(scene, cam, RenderConfig(order="merge"), method="plain")
+
+
+def test_tracer_loads_ply_on_cuda_unless_told_otherwise():
+    """GaussianRayTracer(ply_path=...) puts the scene on CUDA by default, so
+    without a card it raises; device="cpu" is the explicit way to the CPU."""
+    ply = os.path.join(ROOT, "data", "fitted_20k.ply")
+    if torch.cuda.is_available():
+        assert GaussianRayTracer(ply_path=ply).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            GaussianRayTracer(ply_path=ply)
+    tracer = GaussianRayTracer(ply_path=ply, device="cpu")
+    assert tracer.device.type == "cpu" and tracer.scene.num_active == 20_000
+    tracer.set_size(32, 32)
+    tracer.set_camera_model("fisheye")
+    assert tracer.config.camera_model == CameraModel.FISHEYE
+    frame = tracer.render_rgb8()
+    assert frame.shape == (32, 32, 3) and not frame[0, 0].any() and frame.max() > 0
+    assert tracer.render_rgb8(supersample=2).shape == (32, 32, 3)
+
+
+def test_training_and_mesh_refuse_fisheye_and_sh():
+    """Fisheye and SH > 0 are render-only: the training forward and the mesh
+    tracer raise NotImplementedError instead of rendering something else."""
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render_diff
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_plane
+
+    scene = random_scene(300, seed=1)
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=32, height=32)
+    plane = make_plane((0.0, 0.0, 0.5))
+    for change in (dict(camera_model=CameraModel.FISHEYE), dict(sh_degree=1),
+                   dict(camera_model=CameraModel.OPENCV, distortion=(-0.2, 0.0, 0.0, 0.0))):
+        with pytest.raises(NotImplementedError):
+            render_diff(scene, cam, RenderConfig(order="key", **change))
+        with pytest.raises(NotImplementedError):
+            render(scene, cam, RenderConfig(**change), mesh=plane)
 
 
 def test_tracer_render_and_capacity_bucket():
@@ -111,13 +189,28 @@ def test_tracer_render_and_capacity_bucket():
     assert np.array_equal(tracer.render_rgb8(), frame)
 
 
-def test_cli_render_writes_png(tmp_path):
+@pytest.mark.parametrize("flags", [[], ["--fisheye"], ["--distortion", "-0.25", "0.05", "0", "0"],
+                                   ["--sh-degree", "3", "--order", "key"], ["--supersample", "2"]])
+def test_cli_render_writes_png(tmp_path, flags):
     from gaussian_ray_tracing_tpu_torch import cli
 
     out = tmp_path / "frame.png"
     cli.main(["render", "--synthetic", "1500", "--width", "40", "--height", "24",
-              "--device", "cpu", "-o", str(out)])
+              "--device", "cpu", "-o", str(out), *flags])
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_cli_needs_cuda_unless_told_cpu(tmp_path):
+    """--device defaults to cuda: without a card the CLI raises rather than
+    falling back to the CPU."""
+    from gaussian_ray_tracing_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for cmd in ("render", "fit"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            cli.main([cmd, "--synthetic", "300", "--width", "16", "--height", "16",
+                      "-o", str(tmp_path / "x")])
 
 
 def test_package_imports_without_jax():
@@ -126,7 +219,7 @@ def test_package_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import torch; torch.set_num_threads(1)\n"
         "from gaussian_ray_tracing_tpu_torch.cameras import Camera\n"
-        "from gaussian_ray_tracing_tpu_torch.config import RenderConfig\n"
+        "from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig\n"
         "from gaussian_ray_tracing_tpu_torch.models.renderer import render\n"
         "from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene\n"
         "from gaussian_ray_tracing_tpu_torch import cli\n"
@@ -135,6 +228,15 @@ def test_package_imports_without_jax():
         "cam = Camera.create(eye=(0, 0.3, 2.8), lookat=(0, 0, 0), width=32, height=32)\n"
         "out = render(random_scene(500, seed=0), cam, RenderConfig())\n"
         "assert out['rgb'].shape == (32, 32, 3) and float(out['rgb'].max()) > 0\n"
+        "from gaussian_ray_tracing_tpu_torch.config import CameraModel\n"
+        "from gaussian_ray_tracing_tpu_torch.models.rolling import render_rolling\n"
+        "fish = RenderConfig(camera_model=CameraModel.FISHEYE, sh_degree=3)\n"
+        "out = render(random_scene(500, seed=0), cam, fish)\n"
+        "assert float(out['rgb'].max()) > 0 and not out['rgb'][0, 0].any()\n"
+        "cam1 = Camera.create(eye=(0.05, 0.3, 2.8), lookat=(0, 0, 0), width=32, height=32)\n"
+        "out = render_rolling(random_scene(500, seed=0), cam, cam1, RenderConfig(),\n"
+        "                     use_kernels=False)\n"
+        "assert float(out['rgb'].max()) > 0\n"
         "assert not any(m == 'gaussian_ray_tracing_tpu' or m.startswith(\n"
         "    'gaussian_ray_tracing_tpu.') for m in sys.modules)\n"
         "print('ok')\n"

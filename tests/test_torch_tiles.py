@@ -1,4 +1,5 @@
-"""Footprints, binning and the K2 scan of the port against the JAX package.
+"""Footprints (pinhole, fisheye, OpenCV), binning and the K2 scan of the
+port against the JAX package.
 
 Binning is integer work after the footprints, so fed the JAX package's own
 footprints it must reproduce the JAX pair stream bit for bit. Footprints
@@ -12,16 +13,19 @@ import torch
 import jax.numpy as jnp
 
 from gaussian_ray_tracing_tpu.cameras import Camera as JCamera
+from gaussian_ray_tracing_tpu.config import CameraModel as JModel
 from gaussian_ray_tracing_tpu.config import RenderConfig as JConfig
 from gaussian_ray_tracing_tpu.ops import scan as jscan
 from gaussian_ray_tracing_tpu.ops import tiles as jtiles
 from gaussian_ray_tracing_tpu.ops.response import adaptive_radius as j_adaptive_radius
 from gaussian_ray_tracing_tpu.scene.synthetic import random_scene as j_random_scene
-from gaussian_ray_tracing_tpu_torch.cameras import Camera
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
+from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
 from gaussian_ray_tracing_tpu_torch.ops import scan as tscan
 from gaussian_ray_tracing_tpu_torch.ops import tiles as ttiles
-from gaussian_ray_tracing_tpu_torch.ops.response import adaptive_radius
+from gaussian_ray_tracing_tpu_torch.ops.response import (
+    adaptive_radius, canonical_frames, ray_ellipsoid_span,
+)
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 
 torch.set_num_threads(1)
@@ -131,3 +135,83 @@ def test_scan_wrapper_rejects_bad_input():
         tscan.multi_cumsum_i32(torch.zeros((17, 8), dtype=torch.int32))
     with pytest.raises(ValueError):
         tscan.multi_cumsum_i32(torch.zeros((2, 8), dtype=torch.int64))
+
+
+# --- fisheye and OpenCV footprints ----------------------------------------
+
+CAMERAS = [("fisheye", ()), ("opencv", (-0.25, 0.05, 0.0, 0.0)),
+           ("opencv", (-0.18, 0.03, 1e-3, -5e-4, 0.004))]
+# fisheye rx, ry: the cone caps' float32 Cardano eigen-solve (acos and cos
+# near the ends of their range, then lam0 = q + 2p cos(..) cancelling)
+# leaves both packages ~1e-6..4e-5 rad from a float64 evaluation of the cap
+# half-angle, a different few ulps on each side since XLA and torch
+# approximate acos and cos differently; the reference's 2e-3 rad cap margin
+# absorbs it. A footprint's extent then moves by up to ~2e-4 relative
+# (measured here: ry on 11 of 1,024 gaussians above 1e-5).
+FISHEYE_EXTENT_RTOL, FISHEYE_EXTENT_TAIL = 2e-4, 0.02
+
+
+def _configs(model, dist):
+    return (JConfig(camera_model=JModel(model), distortion=dist),
+            RenderConfig(camera_model=CameraModel(model), distortion=dist))
+
+
+@pytest.mark.parametrize("model,dist", CAMERAS)
+def test_camera_footprints_match_jax(model, dist):
+    """px, py (and OpenCV's rx, ry) at rtol 1e-5; fisheye rx, ry at rtol
+    1e-5 on all but 2% of the gaussians and 2e-4 on those (see above);
+    visibility and the frame's pair count identical."""
+    js, ts, jc, tc = _setup(1000, 5, 96, 64)
+    jcfg, tcfg = _configs(model, dist)
+    jr = j_adaptive_radius(js.opacities, 0.01)
+    jfp = jtiles.project_footprints_conic(js.means, js.scales, js.quats, jr,
+                                         jr * jnp.max(js.scales, axis=-1), jc, jcfg)
+    tr = adaptive_radius(ts.opacities, 0.01)
+    tfp = ttiles.project_footprints_conic(ts.means, ts.scales, ts.quats, tr,
+                                          tr * ts.scales.amax(dim=-1), tc, tcfg)
+    for k in ("px", "py", "rx", "ry", "depth"):
+        got, want = getattr(tfp, k).numpy(), np.asarray(getattr(jfp, k))
+        if model == "fisheye" and k in ("rx", "ry"):
+            rel = np.abs(got - want) / np.abs(want)
+            assert np.mean(rel > 1e-5) <= FISHEYE_EXTENT_TAIL, k
+            assert rel.max() <= FISHEYE_EXTENT_RTOL, k
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=k)
+    assert np.array_equal(tfp.visible.numpy(), np.asarray(jfp.visible))
+    assert int(ttiles.count_pairs(ts, tc, tcfg)) == int(jtiles.count_pairs(js, jc, jcfg))
+
+
+@pytest.mark.parametrize("model,dist,n,seed,size", [
+    ("fisheye", (), 400, 3, (128, 128)),
+    ("opencv", (-0.18, 0.03, 1e-3, -5e-4, 0.004), 300, 5, (96, 64)),
+])
+def test_footprints_contain_every_hit_pixel(model, dist, n, seed, size):
+    """Brute force (tests/test_footprints.py TestFisheyeConeCaps,
+    tests/test_distortion.py test_footprint_containment): no pixel whose
+    ray meets a gaussian's iso-ellipsoid ahead of the eye (alpha >
+    alpha_min along it) lies outside that gaussian's rect."""
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+
+    scene = random_scene(n, seed=seed)
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=size[0],
+                        height=size[1])
+    cfg = RenderConfig(camera_model=CameraModel(model), distortion=dist)
+    radius = adaptive_radius(scene.opacities, cfg.alpha_min)
+    fp = ttiles.project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
+                                         radius * scene.scales.amax(dim=-1), cam, cfg)
+    M = canonical_frames(scene.scales, scene.quats)
+    _, dirs, valid = generate_rays(cam, cfg)
+    d = dirs.reshape(1, -1, 3)
+    ys, xs = torch.meshgrid(torch.arange(size[1]) + 0.5, torch.arange(size[0]) + 0.5,
+                            indexing="ij")
+    xs, ys = xs.reshape(1, -1), ys.reshape(1, -1)
+    bad = hits = 0
+    for g in torch.arange(scene.num_gaussians).split(64):
+        hit, _, t_out = ray_ellipsoid_span(scene.means[g, None], M[g, None], radius[g, None],
+                                           cam.eye, d)
+        mask = hit & (t_out > 0) & valid.reshape(1, -1)
+        inside = ((xs - fp.px[g, None]).abs() <= fp.rx[g, None]) \
+            & ((ys - fp.py[g, None]).abs() <= fp.ry[g, None])
+        hits += int(mask.sum())
+        bad += int((mask & ~inside).sum())
+    assert hits > 10_000 and bad == 0
