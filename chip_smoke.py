@@ -4,24 +4,32 @@ one NVIDIA GPU: builds the hand-written kernels from the checkout, holds
 each against its plain torch version, renders the exact-oracle goldens
 (pinhole and fisheye) through the kernel path, drives the render main path
 (GaussianRayTracer, 1280x720, 100k gaussians, bench config), the training
-main path (Trainer.fit, 512x512, 50k gaussians, key order), the
-mesh-bounce path (GaussianRayTracer with a mirror plane and a 180x90 glass
-sphere, 1280x720, 100k) and the camera path (fisheye 768x768 on 100k,
-fitted_20k.ply at SH 0 and 3, OpenCV distortion and a rolling shutter at
-1280x720), times each against the plain path, profiles the fisheye and
-SH 3 frames, and runs `cli render` (plain, with a glass sphere, and
-fisheye at SH 3) and `cli fit`.
+main path (Trainer.fit, 512x512, 50k gaussians, key order; then window
+order at SH 0, and window and key order at SH 3 on fitted_20k.ply, with
+K1's saved-carry modes and K3's window replay and SH 3 modes held against
+their plain versions), the mesh-bounce path (GaussianRayTracer with a
+mirror plane and a 180x90 glass sphere, 1280x720, 100k) and the camera
+path (fisheye 768x768 on 100k, fitted_20k.ply at SH 0 and 3, OpenCV
+distortion and a rolling shutter at 1280x720), times each against the
+plain path, profiles the fisheye and SH 3 frames and the window SH 3 train
+step, runs `cli render` (plain, with a glass sphere, and fisheye at SH 3)
+and `cli fit`, and finally writes the NeRF-synthetic dataset of
+data/nerf_fitted/ to build/nerf_fitted/ (400x400 renders of
+fitted_20k.ply) and runs `cli fit --dataset` (window order, SH 3, density
+control, resumed from its checkpoint) and `cli eval` on its test split.
 
     python3 chip_smoke.py
 
 Run from (a copy of) the repository. Exits non-zero, printing no result,
 without CUDA or without the package beside this file. On success the last
 two lines are the kernel table and {"ok": true, "device": {...}}. Each
-kernel's bound_ms is the larger of the bytes it must move (inputs read
-once, outputs written once) over 3.35 TB/s and the float operations this
-run's data needs (the (ray, candidate) pairs of the chunks its plain
-version did not skip, times a lower count of operations per pair) over
-67 TFLOP/s, the published H100 SXM peaks at 700 W.
+kernel's bound_ms is the larger of the bytes it must move (the columns it
+reads of its inputs read once, its outputs written once) over 3.35 TB/s
+and the float operations this run's data needs (the (ray, candidate)
+pairs of the chunks its plain version did not skip, times a lower count
+of operations per pair, plus the SH 1-3 colour of the pairs that pass the
+gate) over 67 TFLOP/s, the published H100 SXM peaks at 700 W. Each log
+line carries the seconds since the start.
 """
 
 from __future__ import annotations
@@ -54,12 +62,14 @@ PSNR_FRAME = 60.0  # whole frames, kernel path vs plain path
 # H100 SXM published peaks: HBM3 bandwidth and dense FP32 rate
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # float operations per (ray, candidate) pair, counted low from the plain
-# versions' arithmetic (response and gate only; no colour, no composite)
+# versions' arithmetic (response and gate only; no colour, no composite);
+# the SH 1-3 colour (sh_ops) counts only where the gate passes
 OPS_QUAD, OPS_SCALAR, OPS_BWD, OPS_TRI = 30, 60, 100, 40
+T_START = time.perf_counter()
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} {time.perf_counter() - T_START:.0f}s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -94,13 +104,18 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def march_bound(args, kw, candidates: int, tin=None) -> tuple[float, str]:
-    """Bound of one K1 call march(*args, **kw) whose plain version evaluated
-    `candidates` (tile, candidate) slots: each pair row (block mode: each
-    listed block's rows) read once, the per-ray inputs and outputs once."""
+def march_bound(args, kw, plain, tin=None) -> tuple[float, str]:
+    """Bound of one K1 call march(*args, **kw) whose plain version, run last
+    on the same inputs, counted `plain.candidates` (tile, candidate) slots in
+    the chunks it did not skip and `plain.significant` (ray, candidate)
+    pairs through the gate: the columns K1 reads of each pair row (block
+    mode: of each listed block's rows; 12 + 3K quad, 14 + 3K scalar) read
+    once, the per-ray inputs and outputs once, the saved carries written
+    once; OPS_QUAD or OPS_SCALAR per (ray, candidate) pair of those slots
+    and the SH 1-3 colour per pair through the gate."""
     import torch
 
-    starts, feats, dirs_t, _, chunk = args[:5]
+    starts, feats, dirs_t, cfg, chunk = args[:5]
     T, R = dirs_t.shape[:2]
     if kw.get("blocks") is not None:
         bs = chunk // kw.get("block_sub", 1)
@@ -108,14 +123,41 @@ def march_bound(args, kw, candidates: int, tin=None) -> tuple[float, str]:
         rows = int(torch.unique(listed).numel()) * bs
     else:
         rows = int(starts[-1] - starts[0])
+    scalar = kw.get("origins_t") is not None
+    columns = (14 if scalar else 12) + 3 * (cfg.sh_degree + 1) ** 2
     per_ray = 3 + 4  # direction in; rgb, T out
     per_ray += sum({"origins_t": 3}.get(k, 1) for k in ("origins_t", "t_lo", "t_hi", "t0")
                    if kw.get(k) is not None)
-    nbytes = 4 * (rows * feats.shape[1] + T * R * per_ray + T + 1)
+    nbytes = 4 * (rows * columns + T * R * per_ray + T + 1)
     if tin is not None:
-        nbytes += 4 * tin.numel()
-    ops = candidates * R * (OPS_SCALAR if kw.get("origins_t") is not None else OPS_QUAD)
+        nbytes += 4 * (tin.numel() + T + 1)  # the carries and chunk_base
+    ops = plain.candidates * R * (OPS_SCALAR if scalar else OPS_QUAD) \
+        + plain.significant * sh_ops(cfg.sh_degree)
     return bound(nbytes, ops)
+
+
+def sh_ops(degree: int) -> int:
+    """Colour operations per (ray, candidate) pair at SH 1-3: a multiply and
+    an add per coefficient and channel (SH 0 reads a precomputed colour)."""
+    return 0 if degree == 0 else 6 * (degree + 1) ** 2
+
+
+def bwd_bound(args, plain) -> tuple[float, str]:
+    """Bound of one K3 call march_bwd(*args) whose plain version, run last on
+    the same inputs, counted `plain.candidates` replayed (tile, candidate)
+    slots and `plain.significant` (ray, candidate) pairs through the gate:
+    of each row the 14 + 3K columns K3 reads, once, and the 13 + 3K it
+    writes (mean, M, opacity, SH), once; the per-ray inputs (direction,
+    d_rgb, d_tfinal), the carries and the eye read once; OPS_BWD per (ray,
+    candidate) pair of the replayed slots and twice the SH 1-3 colour (the
+    colour and its gradient) per pair through the gate."""
+    starts, rows, dirs_t, tin, cfg = args[0], args[1], args[2], args[4], args[8]
+    T, R = dirs_t.shape[:2]
+    K = (cfg.sh_degree + 1) ** 2
+    nbytes = 4 * (rows.shape[0] * ((14 + 3 * K) + (13 + 3 * K)) + 7 * T * R + tin.numel()
+                  + 2 * starts.numel() + 3)
+    return bound(nbytes, plain.candidates * R * OPS_BWD
+                 + plain.significant * 2 * sh_ops(cfg.sh_degree))
 
 
 def tri_bound(args, kw) -> tuple[float, str]:
@@ -133,17 +175,69 @@ def tri_bound(args, kw) -> tuple[float, str]:
     return bound(nbytes, int((faces * live).sum()) * OPS_TRI)
 
 
-def live_chunks(starts, chunk_base, tin, chunk: int, t_skip: float) -> int:
-    """(tile, candidate) slots of the chunks whose saved carry-in max is
-    above t_skip: the chunks a key-order march or its backward evaluates."""
+def k1_train_check(what: str, got, want) -> float:
+    """K1 with saved carries against march_plain on one stream: rgb and T
+    at the quad-path bars, the carries to TIN_ABS, chunk_base equal.
+    Returns the max abs difference."""
+    import numpy as np
     import torch
 
-    counts = (starts[1:] - starts[:-1]).long()
-    tile = torch.repeat_interleave(torch.arange(len(counts), device=starts.device),
-                                   (chunk_base[1:] - chunk_base[:-1]).long())
-    j = torch.arange(tin.shape[0], device=tin.device) - chunk_base[tile].long()
-    m = torch.clamp(counts[tile] - j * chunk, max=chunk)
-    return int(torch.where(tin.amax(dim=1) > t_skip, m, 0).sum())
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    check(torch.equal(got[3], want[3]), f"K1 {what}: chunk_base differs")
+    err = 0.0
+    for part, a, b in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        p, m = psnr(a, b), float(np.abs(a - b).max())
+        err = max(err, m)
+        log("K1train", f"{what} {part}: PSNR {p:.2f} dB max abs {m:.3g}")
+        check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 {what} vs plain {part}")
+    m = float((got[2] - want[2]).abs().max())
+    log("K1train", f"{what} tin ({got[2].shape[0]} chunks): max abs {m:.3g}")
+    check(m <= TIN_ABS, f"K1 saved carries vs plain {what}: {m:.3g}")
+    return max(err, m)
+
+
+def k3_check(what: str, args) -> float:
+    """K3 against march_bwd_plain and its float64 witness, per written
+    column (mean, M, opacity, SH coefficients); two launches bit-identical.
+    Returns the max abs difference."""
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+
+    degree = args[8].sh_degree
+    diff = kmarch.diff_columns(degree)
+    written = [i for i, c in enumerate(kmarch.train_columns(degree)) if c in diff]
+    m_cols = range(kmarch.T_M0, kmarch.T_M0 + 9)
+    g1, g2 = kbwd.march_bwd(*args), kbwd.march_bwd(*args)
+    torch.cuda.synchronize()
+    gp = kbwd.march_bwd_plain(*args)
+    g64 = kbwd.march_bwd_plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                                 else a for a in args))
+    check(torch.equal(g1, g2), f"K3 {what} is not deterministic")
+    check(not g1[:, [i for i in range(g1.shape[1]) if i not in written]].any(),
+          f"K3 {what}: a quad, radius or pad column is not zero")
+    rel, wit = {}, {}
+    for i in written:
+        rel[i] = float((g1[:, i] - gp[:, i]).abs().max() / gp[:, i].abs().max())
+        w = g64[:, i].abs().max()
+        wit[i] = (float((g1[:, i] - g64[:, i]).abs().max() / w),
+                  float((gp[:, i] - g64[:, i]).abs().max() / w))
+    iw = max(written, key=lambda i: wit[i][0])
+    ir = max(written, key=lambda i: rel[i])
+    log("K3", f"{what}: {len(written)} written columns, worst max|a-b|/max|b| {rel[ir]:.3g} "
+              f"(col {ir}), M columns " + " ".join(f"{rel[i]:.3g}" for i in m_cols)
+              + f"; worst vs float64 witness K3 {wit[iw][0]:.3g} plain {wit[iw][1]:.3g} "
+                f"(col {iw}); two launches bit-identical")
+    for i in written:
+        bar = BWD_REL_M if i in m_cols else BWD_REL
+        check(rel[i] <= bar, f"K3 vs plain {what} column {i}: {rel[i]:.3g} > {bar}")
+        check(wit[i][0] <= WITNESS_RATIO * wit[i][1],
+              f"K3 {what} column {i}: {wit[i][0]:.3g} from the float64 witness, plain "
+              f"{wit[i][1]:.3g}")
+    return float((g1 - gp).abs().max())
 
 
 def profile_frames(fn, frames: int = 5) -> dict:
@@ -270,54 +364,6 @@ def main() -> None:
         dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
         return stream.starts, rows.detach().contiguous(), dirs_t, n_pairs
 
-    written = [i for i, c in enumerate(kmarch.TRAIN_COLUMNS) if c in kmarch.DIFF_COLUMNS]
-    m_cols = range(kmarch.T_M0, kmarch.T_M0 + 9)
-
-    def k1key_check(what, got, want):
-        """K1 key + save_tin against march_plain on one stream."""
-        check(torch.equal(got[3], want[3]), f"K1 key {what}: chunk_base differs")
-        err = 0.0
-        for part, a, b in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
-            a, b = a.cpu().numpy(), b.cpu().numpy()
-            p, m = psnr(a, b), float(np.abs(a - b).max())
-            err = max(err, m)
-            log("K1key", f"{what} {part}: PSNR {p:.2f} dB max abs {m:.3g}")
-            check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 key vs plain {what} {part}")
-        m = float((got[2] - want[2]).abs().max())
-        log("K1key", f"{what} tin ({got[2].shape[0]} chunks): max abs {m:.3g}")
-        check(m <= TIN_ABS, f"K1 saved carries vs plain {what}: {m:.3g}")
-        return max(err, m)
-
-    def k3_check(what, args):
-        """K3 against march_bwd_plain and its float64 witness, per written
-        column; two launches bit-identical. Returns the max abs difference."""
-        g1, g2 = kbwd.march_bwd(*args), kbwd.march_bwd(*args)
-        torch.cuda.synchronize()
-        gp = kbwd.march_bwd_plain(*args)
-        g64 = kbwd.march_bwd_plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point()
-                                     else a for a in args))
-        check(torch.equal(g1, g2), f"K3 {what} is not deterministic")
-        check(not g1[:, [i for i in range(g1.shape[1]) if i not in written]].any(),
-              f"K3 {what}: a quad, radius or pad column is not zero")
-        rel, wit = {}, {}
-        for i in written:
-            rel[i] = float((g1[:, i] - gp[:, i]).abs().max() / gp[:, i].abs().max())
-            w = g64[:, i].abs().max()
-            wit[i] = (float((g1[:, i] - g64[:, i]).abs().max() / w),
-                      float((gp[:, i] - g64[:, i]).abs().max() / w))
-        iw = max(written, key=lambda i: wit[i][0])
-        log("K3", f"{what}: max|a-b|/max|b| per column "
-                  + " ".join(f"{i}:{rel[i]:.3g}" for i in written)
-                  + f"; worst vs float64 witness K3 {wit[iw][0]:.3g} plain {wit[iw][1]:.3g} "
-                    f"(col {iw}); two launches bit-identical")
-        for i in written:
-            bar = BWD_REL_M if i in m_cols else BWD_REL
-            check(rel[i] <= bar, f"K3 vs plain {what} column {i}: {rel[i]:.3g} > {bar}")
-            check(wit[i][0] <= WITNESS_RATIO * wit[i][1],
-                  f"K3 {what} column {i}: {wit[i][0]:.3g} from the float64 witness, plain "
-                  f"{wit[i][1]:.3g}")
-        return float((g1 - gp).abs().max())
-
     key_err, bwd_err = 0.0, 0.0
     for name in ("small_pinhole_256", "pinhole_720p"):
         _, scene, cam, _, _ = golden(name)
@@ -327,7 +373,7 @@ def main() -> None:
             got = kmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True)
             torch.cuda.synchronize()
             want = kmarch.march_plain(starts, rows, dirs_t, cfg, chunk, save_tin=True)
-            key_err = max(key_err, k1key_check(f"{name} c={chunk}", got, want))
+            key_err = max(key_err, k1_train_check(f"key {name} c={chunk}", got, want))
 
             gen = torch.Generator(device=dev).manual_seed(chunk)
             d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
@@ -412,8 +458,7 @@ def main() -> None:
         lambda: kmarch.march(stream.starts, feats, dirs_t, cfg, chunk), 20))
     k1_plain = statistics.median(cuda_ms(
         lambda: kmarch.march_plain(stream.starts, feats, dirs_t, cfg, chunk), 5))
-    k1_bound = march_bound((stream.starts, feats, dirs_t, cfg, chunk), {},
-                           kmarch.march_plain.candidates)
+    k1_bound = march_bound((stream.starts, feats, dirs_t, cfg, chunk), {}, kmarch.march_plain)
     x = torch.randint(-1000, 1000, (2, cap), dtype=torch.int32, device=dev, generator=g)
     k2_ms = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32(x), 50))
     k2_plain = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32_plain(x), 50))
@@ -479,7 +524,8 @@ def main() -> None:
     fwd = lambda f: f(starts, rows, dirs_t, tcfg, 256, save_tin=True)
     got = fwd(kmarch.march)
     torch.cuda.synchronize()
-    key_err = max(key_err, k1key_check("train 512x512 50k c=256", got, fwd(kmarch.march_plain)))
+    key_err = max(key_err, k1_train_check("key train 512x512 50k c=256", got,
+                                          fwd(kmarch.march_plain)))
     tin, base = got[2], got[3]
     gen = torch.Generator(device=dev).manual_seed(0)
     d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
@@ -490,11 +536,8 @@ def main() -> None:
     k1key_plain = statistics.median(cuda_ms(lambda: fwd(kmarch.march_plain), 5))
     k3_ms = statistics.median(cuda_ms(lambda: kbwd.march_bwd(*bargs), 20))
     k3_plain = statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 5))
-    live = live_chunks(starts, base, tin, 256, tcfg.min_transmittance)
-    k1key_bound = march_bound((starts, rows, dirs_t, tcfg, 256), {}, live, tin=tin)
-    k3_bound = bound(4 * (2 * rows.numel() + 7 * dirs_t.shape[0] * dirs_t.shape[1]
-                          + tin.numel() + 2 * starts.numel()),
-                     live * dirs_t.shape[1] * OPS_BWD)
+    k1key_bound = march_bound((starts, rows, dirs_t, tcfg, 256), {}, kmarch.march_plain, tin=tin)
+    k3_bound = bwd_bound(bargs, kbwd.march_bwd_plain)
     log("kernel", f"K1 key+save_tin {n_pairs_t} pairs c=256: {k1key_ms:.3f} ms, plain "
                   f"{k1key_plain:.3f} ms, bound {k1key_bound[0]:.4f} ms ({k1key_bound[1]}); K3 "
                   f"{k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound {k3_bound[0]:.4f} ms "
@@ -512,6 +555,8 @@ def main() -> None:
         dl[where] = float(step(m, cam, target)["loss"])
     log("dssim", f"dssim_l1 step 128x128 5k: card {dl['cuda']:.8f}, cpu {dl['cpu']:.8f}")
     check(abs(dl["cuda"] - dl["cpu"]) <= 1e-4 * abs(dl["cpu"]), "dssim_l1 card vs cpu")
+
+    train_rows = training_phase(dev, card, views, init)
 
 
     # --- phase 7: mesh bounces at full size ------------------------------
@@ -655,8 +700,8 @@ def main() -> None:
         run = lambda meth: render(scene, mcam, mcfg, mesh=mesh, method=meth)
         run("gpu")  # warm-up
         mesh_ms[kind] = (statistics.median(cuda_ms(lambda: run("gpu"), 10)),
-                         statistics.median(cuda_ms(lambda: run("plain"), 3)))
-        log("frame", f"{kind} 1280x720 100k, median of 10/3: gpu {mesh_ms[kind][0]:.3f} ms, "
+                         statistics.median(cuda_ms(lambda: run("plain"), 2)))
+        log("frame", f"{kind} 1280x720 100k, median of 10/2: gpu {mesh_ms[kind][0]:.3f} ms, "
                      f"plain {mesh_ms[kind][1]:.3f} ms ({card})")
 
     # kernels alone at the glass frames' shapes
@@ -676,10 +721,10 @@ def main() -> None:
     k40_bound = tri_bound(k4_0, k4_0kw)
     blk_ms = statistics.median(cuda_ms(lambda: kmarch.march(*blk_args, **blk_kw), 20))
     blk_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*blk_args, **blk_kw), 5))
-    blk_bound = march_bound(blk_args, blk_kw, kmarch.march_plain.candidates)
+    blk_bound = march_bound(blk_args, blk_kw, kmarch.march_plain)
     seg_ms = statistics.median(cuda_ms(lambda: kmarch.march(*seg_args, **seg_kw), 20))
     seg_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*seg_args, **seg_kw), 5))
-    seg_bound = march_bound(seg_args, seg_kw, kmarch.march_plain.candidates)
+    seg_bound = march_bound(seg_args, seg_kw, kmarch.march_plain)
     log("kernel", f"K4 glass_cli bounce 1 (per-ray origins): {k4_ms:.3f} ms, plain "
                   f"{k4_plain:.3f} ms; K4 glass_front bounce 1 (per-ray origins): {k4f_ms:.3f} "
                   f"ms, plain {k4f_plain:.3f} ms; K4 glass bounce 0 (shared origin): {k40_ms:.3f} ms, plain "
@@ -745,6 +790,8 @@ def main() -> None:
               "cli fit wrote a bad PLY")
         log("cli", f"fit: {res.stdout.strip().splitlines()[-1]} ({fitted.num_active} read back)")
 
+    dataset_phase(dev, card)
+
     src = f"{PKG}/csrc"
     k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
     row = lambda name, source, replaces, launches, err, ms, plain_ms, b, lib=None: {
@@ -766,6 +813,7 @@ def main() -> None:
         row("march_block", "march.cuh", k1, mesh_counts["march_block"], block_err, blk_ms,
             blk_plain, blk_bound),
         *cam_rows,
+        *train_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -918,7 +966,7 @@ def camera_phase(dev, card: str, scene) -> list:
         kw = kw or {}
         ms = statistics.median(cuda_ms(lambda: kmarch.march(*args, **kw), 20))
         plain_ms = statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 3))
-        return ms, plain_ms, march_bound(args, kw, kmarch.march_plain.candidates)
+        return ms, plain_ms, march_bound(args, kw, kmarch.march_plain)
 
     sh_args = stream_args(ply, cam720, frames["trained_720p_sh3"][2])
     shkey_args = stream_args(ply, cam720, sh3_key)
@@ -958,6 +1006,272 @@ def camera_phase(dev, card: str, scene) -> list:
                 times["sh_key"]),
             row("march_origin", "march.cuh", main["origin_launches"], origin_err,
                 times["origin"])]
+
+
+def training_phase(dev, card: str, views, init) -> list:
+    """The window-order and SH 1-3 training slice at full size. The main
+    path: Trainer.fit, 20 steps each, with the launch counts zeroed just
+    before and read just after, in window order at SH 0 on the 512x512 /
+    50k views of phase 6 from `init`, and in window and key order at SH 3
+    from data/fitted_20k.ply with its higher SH bands zeroed, to the PLY's
+    own 512x512 SH 3 renders from 8 orbit views (radius 2.8, elevation 15).
+    Then the step times kernel vs plain, a profile of the window SH 3 step,
+    K1's window and SH 3 save_tin modes and K3's window and SH 3 modes
+    against their plain versions at those shapes, with their times, the SH
+    3 modes also on the PLY's own coefficients, and the row gather at SH 3
+    (320 B rows) against SH 0. Returns the kernel rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_train_stream
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
+    from gaussian_ray_tracing_tpu_torch.models.tiled import feature_table, tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+
+    win0 = RenderConfig(hit_multiplicity=1, order="window", march_chunk=128)
+    win3 = win0.replace(sh_degree=3)
+    key3 = RenderConfig(hit_multiplicity=1, order="key", march_chunk=256, sh_degree=3)
+    ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
+    center = ply.center().cpu().numpy()
+    with torch.no_grad():
+        sh3_views = []
+        for i in range(8):
+            cam = cameras.orbit_camera(center, 2.8, 360.0 * i / 8, 15.0, width=512, height=512,
+                                       device=dev)
+            sh3_views.append((cam, render(ply, cam, win3, method="gpu")["rgb"]))
+    flat = dataclasses.replace(ply, sh=torch.cat([ply.sh[:, :1], 0.0 * ply.sh[:, 1:]], 1))
+    runs = {"window_sh0": (win0, views, init), "window_sh3": (win3, sh3_views, flat),
+            "key_sh3": (key3, sh3_views, flat)}
+    k1_modes = ("window_save_tin_launches", "sh_save_tin_launches", "sh_key_save_tin_launches")
+    k3_modes = ("window_launches", "sh_launches", "sh_key_launches")
+    expect = {"window_sh0": ("window_save_tin_launches", "window_launches"),
+              "window_sh3": ("sh_save_tin_launches", "sh_launches"),
+              "key_sh3": ("sh_key_save_tin_launches", "sh_key_launches")}
+    launches, trainers, step_ms, prof = {}, {}, {}, None
+    for name, (cfg, vs, scene0) in runs.items():
+        trainer = ktrain.Trainer(GaussianModel.from_scene(scene0), config=cfg, lr=2e-3)
+        for attr in k1_modes:
+            setattr(kmarch.march, attr, 0)
+        for attr in k3_modes:
+            setattr(kbwd.march_bwd, attr, 0)
+        losses = trainer.fit(vs, steps=20)
+        torch.cuda.synchronize()
+        counts = {a: getattr(kmarch.march, a) for a in k1_modes}
+        counts.update({f"march_bwd.{a}": getattr(kbwd.march_bwd, a) for a in k3_modes})
+        k1_attr, k3_attr = expect[name]
+        check(counts[k1_attr] == 20 and counts[f"march_bwd.{k3_attr}"] == 20,
+              f"train {name}: K1 {k1_attr} or K3 {k3_attr} did not launch once a step: {counts}")
+        check(len(losses) == 20 and all(np.isfinite(losses)), f"train {name}: bad losses {losses}")
+        check(losses[16] < losses[0], f"train {name}: loss on view 0 did not fall: "
+                                      f"{losses[0]} -> {losses[16]}")
+        launches[name] = counts
+        trainers[name] = trainer
+        log("train", f"{name} 20 steps 512x512: loss {losses[0]:.6f} -> {losses[-1]:.6f}, same "
+                     f"view (0) {losses[0]:.6f} -> {losses[16]:.6f}, launches {counts}")
+
+        # step times, kernel vs plain (kernel, plain, kernel, plain)
+        model = trainer.model
+        steppers = {m: ktrain.make_train_step(cfg, trainer.optimizer, method=m,
+                                              pair_capacity=trainer._pair_capacity)
+                    for m in ("gpu", "plain")}
+        times = {"gpu": [], "plain": []}
+        for _ in range(2):
+            for method, n in (("gpu", 6), ("plain", 3)):
+                for i in range(n):
+                    cam, target = vs[i % 8]
+                    times[method] += cuda_ms(lambda: steppers[method](model, cam, target), 1)
+        step_ms[name] = {m: statistics.median(v) for m, v in times.items()}
+        log("train", f"train step {name} 512x512, median of 12/6: gpu "
+                     f"{step_ms[name]['gpu']:.3f} ms, plain {step_ms[name]['plain']:.3f} ms "
+                     f"({card})")
+        if name == "window_sh3":
+            cam, target = vs[0]
+            prof = profile_frames(lambda: steppers["gpu"](model, cam, target))
+            idle = 1.0 - prof["device_ms"] / step_ms[name]["gpu"]
+            log("profile", f"train step window_sh3: device busy {prof['device_ms']:.3f} ms of a "
+                           f"{step_ms[name]['gpu']:.3f} ms step (idle share {idle:.3f}), "
+                           f"{prof['device_ops']:.0f} device ops per step, top {prof['top']} "
+                           f"({card})")
+
+    # the kernels alone at the trained models' first-view streams, timed;
+    # the SH 3 modes also on fitted_20k.ply's own coefficients (the trained
+    # models start from its bands 1-3 zeroed), held against plain only
+    errs, times = {}, {}
+    cases = [(name, name, trainers[name].model.activate(), vs[0][0])
+             for name, (_, vs, _) in runs.items()]
+    cases += [(name, f"{name} fitted_20k.ply", ply, sh3_views[0][0])
+              for name in ("window_sh3", "key_sh3")]
+    for name, what, scene, cam0 in cases:
+        cfg = runs[name][0]
+        with torch.no_grad():
+            stream, trows, n_pairs = prepare_train_stream(scene, cam0, cfg)
+        starts, trows = stream.starts, trows.detach().contiguous()
+        dirs_t = tile_rays(cameras.generate_rays(cam0, cfg)[1], 16, 16)
+        chunk = kmarch.chunk_for(cfg)
+        # window order: the scalar response from per-ray origins, each the eye
+        kw = ({"origins_t": cam0.eye.expand(dirs_t.shape).contiguous()}
+              if cfg.order == "window" else {})
+        fwd = lambda f: f(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
+        got = fwd(kmarch.march)
+        torch.cuda.synchronize()
+        k1_err = k1_train_check(f"{what} 512x512 c={chunk} ({n_pairs} pairs)", got,
+                                fwd(kmarch.march_plain))
+        tin, base = got[2], got[3]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+        d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+        bargs = (starts, trows, dirs_t, cam0.eye, tin, base, d_rgb, d_t, cfg, chunk)
+        k3_err = k3_check(f"{what} 512x512 c={chunk}", bargs)
+        prev = errs.get(name, (0.0, 0.0))
+        errs[name] = (max(prev[0], k1_err), max(prev[1], k3_err))
+        if name in times:
+            continue
+        k1_t = (statistics.median(cuda_ms(lambda: fwd(kmarch.march), 20)),
+                statistics.median(cuda_ms(lambda: fwd(kmarch.march_plain), 3)),
+                march_bound((starts, trows, dirs_t, cfg, chunk), kw, kmarch.march_plain,
+                            tin=tin))
+        k3_t = (statistics.median(cuda_ms(lambda: kbwd.march_bwd(*bargs), 20)),
+                statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 3)),
+                bwd_bound(bargs, kbwd.march_bwd_plain))
+        times[name] = (k1_t, k3_t)
+        log("kernel", f"{name} {n_pairs} pairs, rows {trows.shape[1]} floats, c={chunk}: K1 "
+                      f"save_tin {k1_t[0]:.3f} ms, plain {k1_t[1]:.3f} ms, bound "
+                      f"{k1_t[2][0]:.4f} ms ({k1_t[2][1]}); K3 {k3_t[0]:.3f} ms, plain "
+                      f"{k3_t[1]:.3f} ms, bound {k3_t[2][0]:.4f} ms ({k3_t[2][1]}); "
+                      f"{kmarch.march_plain.significant} / {kbwd.march_bwd_plain.significant} "
+                      f"pairs through the gate ({card})")
+
+    # the training row gather at SH 3 (80-float rows) against SH 0 (32 floats)
+    cam0 = sh3_views[0][0]
+    scene = trainers["window_sh3"].model.activate()
+    with torch.no_grad():
+        stream, _, n_pairs = prepare_train_stream(scene, cam0, win3)
+        ids = stream.order[stream.gid[:n_pairs].long()]
+        gather = {}
+        for degree in (0, 3):
+            table, _, _ = feature_table(scene, win3.replace(sh_degree=degree), eye=cam0.eye)
+            gather[degree] = statistics.median(cuda_ms(
+                lambda: kmarch.train_features(table, degree)[ids], 20))
+    log("gather", f"training rows for {n_pairs} pairs: SH 3 (320 B) {gather[3]:.3f} ms, SH 0 "
+                  f"(128 B) {gather[0]:.3f} ms ({card})")
+
+    src = f"{PKG}/csrc"
+    k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    k3 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189"
+    row = lambda name, source, replaces, launches_, err, t: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches_, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+        "bound_ms": t[2][0], "bound_by": t[2][1], "library_ms": None}
+    out = []
+    for name, k1_name, k3_name, k1_src, k3_src in (
+            ("window_sh0", "march_window_save_tin", "march_bwd_window", "march.cuh",
+             "march_bwd.cuh"),
+            ("window_sh3", "march_sh_save_tin", "march_bwd_sh", "march_sh3.cu", "march_bwd_sh3.cu"),
+            ("key_sh3", "march_sh_key_save_tin", "march_bwd_sh_key", "march_sh3.cu",
+             "march_bwd_sh3.cu")):
+        k1_attr, k3_attr = expect[name]
+        out.append(row(k1_name, k1_src, k1, launches[name][k1_attr], errs[name][0],
+                       times[name][0]))
+        out.append(row(k3_name, k3_src, k3, launches[name][f"march_bwd.{k3_attr}"],
+                       errs[name][1], times[name][1]))
+    return out
+
+
+def dataset_phase(dev, card: str) -> None:
+    """The slice at full width through the CLI: writes build/nerf_fitted/
+    from the committed data/nerf_fitted/transforms_*.json (every pose of
+    data/fitted_20k.ply rendered at 400x400, fov 45 degrees, by the port's
+    kernels, as scripts/make_dataset.py renders them), then `cli fit
+    --dataset` in window order at SH 3 with density control, the 3DGS
+    optimizer and dssim_l1 to 200 steps, resumed from its checkpoint to
+    300, and `cli eval` of the fit and of the initial scene (cli's own
+    dataset_init, written here) on the held-out test split."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.cli import dataset_init
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
+    from gaussian_ray_tracing_tpu_torch.scene.dataset import load_nerf_synthetic
+    from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    from gaussian_ray_tracing_tpu_torch.utils.image import quantize_rgb8, write_png
+
+    build = ROOT / "build"
+    data = build / "nerf_fitted"
+    for d in (data, build / "ck"):
+        shutil.rmtree(d, ignore_errors=True)
+    ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
+    cfg = RenderConfig(hit_multiplicity=1)
+    t0 = time.perf_counter()
+    n_frames = 0
+    for split in ("train", "test", "val"):
+        src = ROOT / "data" / "nerf_fitted" / f"transforms_{split}.json"
+        (data / split).mkdir(parents=True)
+        shutil.copy(src, data / src.name)
+        for frame in json.loads(src.read_text())["frames"]:
+            c2w = np.asarray(frame["transform_matrix"], np.float32)
+            eye = c2w[:3, 3]
+            cam = cameras.Camera.create(eye=eye, lookat=eye - c2w[:3, 2], fov_y_deg=45.0,
+                                        width=400, height=400, device=dev)
+            with torch.no_grad():
+                rgb = render(ply, cam, cfg, method="gpu")["rgb"].cpu().numpy()
+            write_png(str(data / f"{frame['file_path']}.png"), quantize_rgb8(rgb))
+            n_frames += 1
+    log("dataset", f"{n_frames} frames 400x400 of fitted_20k.ply written to {data} in "
+                   f"{time.perf_counter() - t0:.1f} s")
+
+    def cli(*argv):
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"{PKG}.cli", *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=900)
+        check(res.returncode == 0, f"cli {argv[0]} failed:\n{res.stderr[-4000:]}")
+        return json.loads(res.stdout.strip().splitlines()[-1]), res.stderr, \
+            time.perf_counter() - t
+
+    fit = ["fit", "--dataset", str(data), "--order", "window", "--sh-degree", "3", "--densify",
+           "--optimizer", "3dgs", "--loss", "dssim_l1", "--fit-gaussians", "20000",
+           "--capacity", "60000"]  # --seed 0
+    # the fits' initial scene, as cli fit builds it from the train split
+    _, meta = load_nerf_synthetic(str(data), "train", device=dev)
+    GaussianModel.from_scene(dataset_init(meta, 20_000, 0, 60_000, dev)).to_ply(
+        str(build / "init.ply"))
+    first, _, s1 = cli(*fit, "--steps", "200", "--checkpoint-dir", str(build / "ck"),
+                       "-o", str(build / "fit.ply"))
+    second, err, s2 = cli(*fit, "--steps", "300", "--checkpoint-dir", str(build / "ck"),
+                          "-o", str(build / "fit.ply"))
+    for what, res in (("200 steps", first), ("200 -> 300", second)):
+        log("dataset", f"cli fit {what}: {json.dumps(res)}")
+    check(first["steps_run"] == 200 and first["loss_last"] < first["loss_first"],
+          f"cli fit: loss did not fall over 200 steps: {first}")
+    check(first["alive"] > 20_000, f"cli fit: density control did not grow the scene: {first}")
+    check(first["kernel_launches"]["march"] > 0 and first["kernel_launches"]["march_bwd"] > 0,
+          f"cli fit did not launch K1 and K3: {first}")
+    check("resumed from" in err and "at step 200" in err and second["steps_run"] == 100,
+          f"cli fit did not resume at step 200: {err[-2000:]}")
+    for what, res, s in (("200 steps", first, s1), ("100 resumed steps", second, s2)):
+        log("dataset", f"cli fit {what}: {res['fit_seconds'] / res['steps_run'] * 1e3:.3f} ms "
+                       f"per step over Trainer.fit (density rounds and checkpoints included), "
+                       f"{s:.1f} s for the whole command ({card})")
+    ev = {}
+    for what, ply_path in (("fit", build / "fit.ply"), ("init", build / "init.ply")):
+        ev[what], _, s = cli("eval", "--dataset", str(data), "--split", "test", "--sh-degree",
+                             "3", "--against", str(ply_path))
+        log("dataset", f"cli eval {what}: {json.dumps(ev[what])} ({s:.1f} s)")
+    check(ev["fit"]["psnr_mean"] > ev["init"]["psnr_mean"],
+          f"cli eval: the fit ({ev['fit']['psnr_mean']} dB) does not beat the initial scene "
+          f"({ev['init']['psnr_mean']} dB)")
 
 
 def _png_pixels(path: Path):

@@ -1,7 +1,9 @@
-"""Command-line interface of the port (the `render` and `fit` subcommands
-of gaussian_ray_tracing_tpu/cli.py; pinhole, fisheye and OpenCV cameras,
-SH degrees 0-3, supersampling, mesh bounces, key-order sh0 training).
-Everything runs on CUDA unless `--device cpu` is given.
+"""Command-line interface of the port (the `render`, `fit` and `eval`
+subcommands of gaussian_ray_tracing_tpu/cli.py; pinhole, fisheye and
+OpenCV cameras, SH degrees 0-3, supersampling, mesh bounces; training in
+window or key order at SH 0-3 on orbit renders or a NeRF-synthetic
+dataset, with density control and resumable checkpoints). Everything runs
+on CUDA unless `--device cpu` is given.
 
     python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
         --width 1280 --height 720 -o out.png
@@ -11,12 +13,20 @@ Everything runs on CUDA unless `--device cpu` is given.
         --width 1280 --height 720 --add-sphere --mesh-type glass -o glass.png
     python -m gaussian_ray_tracing_tpu_torch.cli fit --ply data/fitted_20k.ply \
         --fit-gaussians 20000 --width 512 --height 512 --steps 200 -o fit.ply
+    python -m gaussian_ray_tracing_tpu_torch.cli fit --dataset <root> --order window \
+        --sh-degree 3 --densify --optimizer 3dgs --loss dssim_l1 --capacity 60000 \
+        --steps 300 --checkpoint-dir ck -o fit.ply
+    python -m gaussian_ray_tracing_tpu_torch.cli eval --dataset <root> --split test \
+        --sh-degree 3 --against fit.ply
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import sys
+import time
 
 import numpy as np
 import torch
@@ -81,10 +91,48 @@ def cmd_render(args):
     print(f"wrote {args.output} ({frame.shape[1]}x{frame.shape[0]})")
 
 
+def _density_config(args):
+    """cli fit's --densify schedule, with the JAX CLI's defaults."""
+    from gaussian_ray_tracing_tpu_torch.train.density import DensityConfig
+
+    if not args.densify:
+        return None
+    pick = lambda v, default: default if v is None else v
+    return DensityConfig(
+        densify_from_step=pick(args.densify_from, max(args.steps // 20, 10)),
+        densify_until_step=pick(args.densify_until, args.steps // 2),
+        densify_every=pick(args.densify_every, max(args.steps // 30, 10)),
+        opacity_reset_every=pick(args.opacity_reset_every, 0),
+        grad_threshold=args.densify_grad_threshold,
+    )
+
+
+def _maybe_resume(trainer, args):
+    """Restore the newest checkpoint under --checkpoint-dir, if it holds one."""
+    from gaussian_ray_tracing_tpu_torch.train.trainer import checkpoint_steps
+
+    if args.checkpoint_dir and checkpoint_steps(args.checkpoint_dir):
+        trainer.restore_checkpoint(args.checkpoint_dir)
+        print(f"# resumed from {args.checkpoint_dir} at step {trainer.steps_done}",
+              file=sys.stderr)
+
+
+def dataset_init(meta: dict, n: int, seed: int, capacity: int | None, device):
+    """The initial scene of `fit --dataset`: random_scene(n, seed + 1) in a
+    ball of half the cameras' extent, centred on the cameras' centre, padded
+    to `capacity` slots."""
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+
+    init = random_scene(n, seed=seed + 1, extent=meta["extent"] * 0.5, pad_to=capacity,
+                        device=device)
+    return dataclasses.replace(
+        init, means=init.means + torch.as_tensor(meta["center"], device=device))
+
+
 def cmd_fit(args):
-    """Fit a randomly initialized scene to target renders of a synthetic or
-    PLY scene from n orbit views (the JAX package's `cli fit` without a
-    dataset)."""
+    """Fit a randomly initialized scene to target images: renders of a
+    synthetic or PLY scene from n orbit views, or a NeRF-synthetic dataset
+    (--dataset); optional density control and resumable checkpoints."""
     from gaussian_ray_tracing_tpu_torch.cameras import orbit_camera
     from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_trainable
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
@@ -92,32 +140,41 @@ def cmd_fit(args):
     from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
     from gaussian_ray_tracing_tpu_torch.train.trainer import Trainer, gaussian_optimizer
 
-    for flag, on in (("--dataset", args.dataset), ("--densify", args.densify),
-                     ("--checkpoint-dir", args.checkpoint_dir)):
-        if on:
-            raise NotImplementedError(f"cli fit {flag} is not ported yet")
+    # training forward ordering: key leaves a ~30 dB tile-seam floor that the
+    # gradients bake into the scene; window is the parity-grade order
     cfg = RenderConfig(hit_multiplicity=1, order=args.order,
                        march_chunk=128 if args.order == "window" else 256,
                        sh_degree=args.sh_degree)
     check_trainable(cfg)
     device = _device(args)
-    if args.ply:
-        from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    checkpoint_dir = None
+    if args.dataset:
+        from gaussian_ray_tracing_tpu_torch.scene.dataset import load_nerf_synthetic
 
-        target_scene = load_ply(args.ply, device=device)
+        views, meta = load_nerf_synthetic(args.dataset, split=args.split,
+                                          downscale=args.downscale,
+                                          max_views=args.views or None, device=device)
+        init = dataset_init(meta, args.fit_gaussians, args.seed, args.capacity, device)
+        extent = meta["extent"]
+        checkpoint_dir = args.checkpoint_dir
     else:
-        target_scene = random_scene(args.synthetic or 20_000, seed=args.seed, device=device)
-    center = target_scene.center().cpu().numpy()
-    n_views = args.views or 8
-    views = []
-    with torch.no_grad():
-        for i in range(n_views):
-            cam = orbit_camera(center, 2.8, 360.0 * i / n_views, 15.0, width=args.width,
-                               height=args.height, device=device)
-            views.append((cam, render(target_scene, cam, cfg, method=args.method)["rgb"]))
+        if args.ply:
+            from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
 
-    init = random_scene(args.fit_gaussians, seed=args.seed + 1, pad_to=args.capacity,
-                        device=device)
+            target_scene = load_ply(args.ply, device=device)
+        else:
+            target_scene = random_scene(args.synthetic or 20_000, seed=args.seed, device=device)
+        center = target_scene.center().cpu().numpy()
+        n_views = args.views or 8
+        views = []
+        with torch.no_grad():
+            for i in range(n_views):
+                cam = orbit_camera(center, 2.8, 360.0 * i / n_views, 15.0, width=args.width,
+                                   height=args.height, device=device)
+                views.append((cam, render(target_scene, cam, cfg, method=args.method)["rgb"]))
+        init = random_scene(args.fit_gaussians, seed=args.seed + 1, pad_to=args.capacity,
+                            device=device)
+        extent = float(np.linalg.norm(init.means.cpu().numpy() - center[None], axis=-1).max())
     model = GaussianModel.from_scene(init)
     loss_fn = None
     if args.loss == "dssim_l1":
@@ -126,17 +183,76 @@ def cmd_fit(args):
         loss_fn = dssim_l1_loss
     optimizer = None
     if args.optimizer == "3dgs":
-        ext = float(np.linalg.norm(init.means.cpu().numpy() - center[None], axis=-1).max())
-        optimizer = gaussian_optimizer(model, scene_extent=max(ext, 1e-3),
+        optimizer = gaussian_optimizer(model, scene_extent=max(extent, 1e-3),
                                        total_steps=args.steps, lr_scale=args.lr_scale)
     trainer = Trainer(model, config=cfg, lr=args.lr, loss_fn=loss_fn, optimizer=optimizer,
-                      method=args.method)
-    losses = trainer.fit(views, steps=args.steps)
+                      density=_density_config(args), seed=args.seed, method=args.method)
+    _maybe_resume(trainer, args)
+    t0 = time.perf_counter()
+    losses = trainer.fit(views, steps=args.steps, checkpoint_dir=checkpoint_dir)
+    seconds = time.perf_counter() - t0
+    if args.checkpoint_dir:
+        trainer.save_checkpoint(args.checkpoint_dir)
     if args.output:
         trainer.save(args.output)
+    from gaussian_ray_tracing_tpu_torch.ops import march, march_bwd
+
+    out = {"dataset": args.dataset, "views": len(views)} if args.dataset else {}
     print(json.dumps({
-        "loss_first": losses[0], "loss_last": losses[-1],
-        "steps": args.steps, "out": args.output, "alive": None,
+        **out, "loss_first": losses[0] if losses else None,
+        "loss_last": losses[-1] if losses else None, "steps": args.steps,
+        "steps_run": len(losses), "fit_seconds": seconds, "out": args.output,
+        "alive": trainer.alive() if args.densify else None,
+        "kernel_launches": {"march": march.march.launches,
+                            "march_bwd": march_bwd.march_bwd.launches},
+    }))
+
+
+def cmd_eval(args):
+    """PSNR of scene B (--against, e.g. a fit) against scene A (--ply) over
+    orbit poses, or with --dataset against a NeRF-synthetic dataset's
+    held-out split, rendered in window order at chunk 128."""
+    from gaussian_ray_tracing_tpu_torch.cameras import orbit_camera
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
+    from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    # parity-grade ordering: key order's ~30 dB ordering noise would cap the
+    # measurable fit quality below the scores being evaluated
+    cfg = RenderConfig(hit_multiplicity=1, order="window", march_chunk=128,
+                       sh_degree=args.sh_degree)
+    device = _device(args)
+    b = load_ply(args.against, device=device)
+    rgb = lambda scene, cam: render(scene, cam, cfg, method=args.method)["rgb"].cpu().numpy()
+    if args.dataset:
+        from gaussian_ray_tracing_tpu_torch.scene.dataset import load_nerf_synthetic
+
+        views, _ = load_nerf_synthetic(args.dataset, split=args.split, downscale=args.downscale,
+                                       device=device)
+        with torch.no_grad():
+            scores = [psnr(img.cpu().numpy(), rgb(b, cam)) for cam, img in views]
+        print(json.dumps({
+            "psnr_mean": round(float(np.mean(scores)), 2),
+            "psnr_min": round(float(np.min(scores)), 2), "views": len(scores),
+            "split": args.split, "dataset": args.dataset, "against": args.against,
+        }))
+        return
+    if not args.ply:
+        raise ValueError("cli eval needs --ply (the reference scene) or --dataset")
+    a = load_ply(args.ply, device=device)
+    c = a.center().cpu().numpy()
+    scores = []
+    with torch.no_grad():
+        for i in range(args.poses):
+            az = 360.0 * (i + 0.37) / args.poses  # offset: unlikely train poses
+            cam = orbit_camera(c, args.radius, az, 15.0, width=args.width, height=args.height,
+                               device=device)
+            scores.append(psnr(rgb(a, cam), rgb(b, cam)))
+    print(json.dumps({
+        "psnr_mean": round(float(np.mean(scores)), 2),
+        "psnr_min": round(float(np.min(scores)), 2), "poses": args.poses,
+        "scenes": [args.ply, args.against],
     }))
 
 
@@ -189,28 +305,65 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--width", type=int, default=128)
     p.add_argument("--height", type=int, default=128)
-    p.add_argument("--views", type=int, default=None, help="orbit views (default 8)")
+    p.add_argument("--views", type=int, default=None,
+                   help="number of views (orbit default 8; --dataset default: the whole split)")
     p.add_argument("--order", choices=["key", "window"], default="key",
-                   help="training-forward hit ordering (window is not ported yet)")
+                   help="training-forward hit ordering: key = stream order (tile-seam "
+                        "noise floor), window = per-ray ordered (parity-grade)")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--fit-gaussians", type=int, default=2000)
     p.add_argument("--sh-degree", type=int, default=0)
     p.add_argument("--lr", type=float, default=2e-3)
     p.add_argument("--capacity", type=int, default=None,
-                   help="pad the fitted scene to this many slots")
+                   help="pad the fitted scene to this many slots (densification headroom)")
+    p.add_argument("--densify", action="store_true",
+                   help="3DGS adaptive density control (clone/split/prune)")
+    p.add_argument("--densify-from", type=int, default=None,
+                   help="densify window start step (default steps//20, at least 10)")
+    p.add_argument("--densify-until", type=int, default=None,
+                   help="densify window end step (default steps//2)")
+    p.add_argument("--densify-every", type=int, default=None,
+                   help="steps between densify rounds (default steps//30, at least 10)")
+    p.add_argument("--opacity-reset-every", type=int, default=None,
+                   help="steps between opacity resets inside the window (default 0 = never)")
+    p.add_argument("--densify-grad-threshold", type=float, default=2e-4,
+                   help="NDC-units mean-grad threshold for clone/split (the 3DGS default)")
     p.add_argument("--loss", choices=["l2", "dssim_l1"], default="l2")
     p.add_argument("--optimizer", choices=["adam", "3dgs"], default="adam")
     p.add_argument("--lr-scale", type=float, default=1.0,
                    help="multiplier on the 3dgs per-group rates")
-    p.add_argument("--densify", action="store_true", help="not ported yet: raises")
-    p.add_argument("--dataset", type=str, default=None, help="not ported yet: raises")
-    p.add_argument("--checkpoint-dir", type=str, default=None, help="not ported yet: raises")
+    p.add_argument("--dataset", type=str, default=None,
+                   help="NeRF-synthetic dataset root (transforms_*.json and PNG frames)")
+    p.add_argument("--split", type=str, default="train")
+    p.add_argument("--downscale", type=int, default=1)
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="checkpoint dir: restored first when it holds a step, saved "
+                        "during a --dataset fit and after fitting (resumable training)")
     p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (the default) raises without CUDA, "
                         "cpu runs the plain torch versions of the kernels")
     p.add_argument("-o", "--output", type=str, default=None)
     p.set_defaults(func=cmd_fit)
+
+    p = sub.add_parser("eval", help="PSNR of a PLY vs a reference PLY over orbit poses, "
+                                    "or vs a dataset's held-out split (--dataset)")
+    p.add_argument("-p", "--ply", type=str, default=None, help="reference PLY")
+    p.add_argument("--against", type=str, required=True, help="candidate PLY")
+    p.add_argument("--dataset", type=str, default=None,
+                   help="NeRF-synthetic root: evaluate against its images")
+    p.add_argument("--split", type=str, default="test")
+    p.add_argument("--downscale", type=int, default=1)
+    p.add_argument("--poses", type=int, default=6)
+    p.add_argument("--radius", type=float, default=2.8)
+    p.add_argument("--width", type=int, default=256)
+    p.add_argument("--height", type=int, default=256)
+    p.add_argument("--sh-degree", type=int, default=0)
+    p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; cuda (the default) raises without CUDA, "
+                        "cpu runs the plain torch versions of the kernels")
+    p.set_defaults(func=cmd_eval)
     args = ap.parse_args(argv)
     args.func(args)
 

@@ -125,27 +125,19 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
     return [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
 
 
-def _pinhole_sh0(config: RenderConfig, what: str) -> list[str]:
-    """The training path and the mesh tracer run pinhole frames with SH
-    degree 0 only (K3's SH and per-ray-origin modes and the mesh tracer's
-    SH rows are not ported)."""
-    bad = []
-    if config.camera_model != CameraModel.PINHOLE:
-        bad.append(f"camera_model={config.camera_model.value} ({what})")
-    if config.sh_degree != 0:
-        bad.append(f"sh_degree={config.sh_degree} ({what})")
-    return bad
+def train_config(config: RenderConfig) -> RenderConfig:
+    """The config the training path runs: every order other than window and
+    key trains in key order, as JAX's render_pallas_diff maps it
+    (pallas_renderer.py:208-209)."""
+    return config if config.order in ("window", "key") else config.replace(order="key")
 
 
 def unsupported_train_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported training path does not implement yet:
-    on top of the render's limits, it trains pinhole frames at SH degree 0
-    in key order only (the window-order backward replays the forward's
-    sort, which is not ported)."""
-    bad = unsupported_fields(config) + _pinhole_sh0(config, "training")
-    if config.order == "window":
-        bad.append("order='window' (training)")
-    return bad
+    those of the render, after train_config's order mapping. It trains every
+    camera model at SH degree 0-3 in window or key order (per-ray origins,
+    which no config field selects, are refused by the march itself)."""
+    return unsupported_fields(train_config(config))
 
 
 def unsupported_mesh_fields(config: RenderConfig) -> list[str]:
@@ -153,7 +145,11 @@ def unsupported_mesh_fields(config: RenderConfig) -> list[str]:
     top of the render's limits, it traces pinhole frames at SH degree 0,
     and bounced segments march in window or key order only
     (`bounce_order="merge"` needs K1's merge mode)."""
-    bad = unsupported_fields(config) + _pinhole_sh0(config, "mesh bounces")
+    bad = unsupported_fields(config)
+    if config.camera_model != CameraModel.PINHOLE:
+        bad.append(f"camera_model={config.camera_model.value} (mesh bounces)")
+    if config.sh_degree != 0:
+        bad.append(f"sh_degree={config.sh_degree} (mesh bounces)")
     if config.bounce_order not in ("window", "key"):
         bad.append(f"bounce_order={config.bounce_order!r}")
     return bad

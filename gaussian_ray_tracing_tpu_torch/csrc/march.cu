@@ -16,12 +16,14 @@ extern "C" const char* grt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// key_order 0: window order (tin must be null); 1: key order, with saved
-// carries when tin and chunk_base are non-null (SH 0 only). stride: floats
-// per row, at least the staged quad columns, or 29 + 3K with origins,
-// whose scalar response reads the scalar rows. origins, t_lo_arr,
-// t_hi_arr, t0 and blocks may each be null (see Params); saved carries
-// take none of them. full_range: no window, origin or block array is
+// key_order 0: window order; 1: key order. tin and chunk_base non-null:
+// saved carries (the training forward, on the training rows; at most 256
+// rays per tile, no window, carry-in or block array), in key order on the
+// quad response and in window order on the scalar response from per-ray
+// `origins`. stride: floats per row, at least the staged quad columns, or
+// 29 + 3K with origins or saved carries, whose rows are the scalar (or
+// training) rows. origins, t_lo_arr, t_hi_arr, t0 and blocks may each be
+// null (see Params). full_range: no window, origin or block array is
 // given. sh_k: SH coefficients per channel, K = 1, 4, 9 or 16.
 extern "C" int grt_march(const void* starts, const void* feats, const void* dirs, void* rgb,
                          void* t_final, void* tin, const void* chunk_base, const void* origins,
@@ -31,13 +33,13 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
                          float t_hi, float min_t, float t_skip, float alpha_min,
                          float alpha_clamp, int hit_multiplicity, int sh_k, void* stream) {
   using namespace k1;
-  const bool segment = origins || t_lo_arr || t_hi_arr || t0 || blocks;
   const bool sh_ok = sh_k == 1 || sh_k == 4 || sh_k == 9 || sh_k == 16;
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
-      !sh_ok || stride < min_stride(origins != nullptr, sh_k) ||
+      !sh_ok || stride < min_stride(origins || tin, sh_k) ||
       (tin != nullptr) != (chunk_base != nullptr) ||
-      (tin && (!key_order || segment || sh_k != 1)) || block_sub < 1 ||
-      chunk % block_sub != 0 || (block_sub > 1 && !blocks) ||
+      (tin && (t_lo_arr || t_hi_arr || t0 || blocks || rays_per_tile > 256 ||
+               (key_order != 0) == (origins != nullptr))) ||
+      block_sub < 1 || chunk % block_sub != 0 || (block_sub > 1 && !blocks) ||
       (full_range != 0) != !(origins || t_lo_arr || t_hi_arr || blocks))
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;

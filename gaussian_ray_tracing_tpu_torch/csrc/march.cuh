@@ -4,18 +4,21 @@
 //
 // Replaces the Pallas kernel `_march_kernel` (wrapper `pallas_march_stream`)
 // of gaussian_ray_tracing_tpu/ops/pallas_march.py in the modes the primary
-// render, the training forward, the mesh tracer and the rolling shutter
+// render, the training forwards, the mesh tracer and the rolling shutter
 // use: SH degree 0 to 3, in window order or in key order, with either the
 // quad response and a shared ray origin (full [t_min, t_max] rays, or
 // segments with per-ray windows and a carry-in) or the scalar response with
 // per-ray origins (rolling shutter on the pair stream; bounced rays over
-// the Morton-block table; see "Segments" below). The semantics, per-tile
-// decisions included, are those of ops/march.py, whose plain torch version
-// `march_plain` is the reference this kernel is tested against. The two
-// orders are two __global__ functions: `march_kernel` (window) and
-// `march_key_kernel` (key, with the optional saved carries of the training
-// forward), each instantiated per chunk C, response (quad or scalar) and
-// SH coefficient count K = (degree + 1)^2 in {1, 4, 9, 16}.
+// the Morton-block table; see "Segments" below; window-order training,
+// every ray's origin the eye). The semantics, per-tile decisions included, are
+// those of ops/march.py, whose plain torch version `march_plain` is the
+// reference this kernel is tested against. The two orders are two
+// __global__ functions: `march_kernel` (window) and `march_key_kernel`
+// (key), each instantiated per chunk C, response (quad or scalar), SH
+// coefficient count K = (degree + 1)^2 in {1, 4, 9, 16} and kTrain, the
+// saved carries of the training forward on the training rows (built for
+// the key kernel on the quad response and the window kernel on the scalar
+// one, at __launch_bounds__(256), the 256 rays of a training tile).
 //
 // Window order. One block per 16x16 tile, one thread per ray (R =
 // blockDim.x). The tile's chunks of C candidates are staged in dynamic
@@ -37,6 +40,13 @@
 //   Recomputing in pass 2 instead of storing per-candidate state keeps the
 //   unfired path free of local memory; only fired chunks touch the sorted
 //   list, which lives in local memory (C * 5 bytes per thread).
+// Window order with saved carries (the training forward, pallas_march.py:
+// 803-842): the carry-in is saved before the skip test, the skip threshold
+// is min_transmittance, and a fired chunk lists its significant candidates
+// by the unique key (tq16 << 8) | src (C * 4 bytes per thread), recomputes
+// each listed candidate's EXACT alpha and composites it with the 10-bit
+// colour pack; no span repair. The backward (csrc/march_bwd.cuh) replays
+// the same list from the same arithmetic.
 //
 // Colour (pallas_march.py:640-669). SH degree 0 reads the colour
 // max(0.5 + C0 sh0, 0) precomputed per gaussian (quad rows) or computed
@@ -51,10 +61,10 @@
 // staging; one evaluation per candidate with, on full-range rays, the
 // sqrt-free gate alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0),
 // composited in stream order with float32 colours, no fire test and no
-// sort. With saved carries (`tin` non-null, the training forward, SH 0)
+// sort. With saved carries (`tin` non-null, the training forward)
 // each chunk's carry-in T is stored BEFORE its skip test at row
 // chunk_base[tile] + j, so skipped chunks are saved too and the backward
-// (csrc/march_bwd.cu) can replay every chunk; the skip threshold is then
+// (csrc/march_bwd.cuh) can replay every chunk; the skip threshold is then
 // min_transmittance. The prefix of log1p(-a) is summed sequentially per
 // ray, in the order the backward sums it.
 //
@@ -63,8 +73,11 @@
 // 32-float training rows, whose first 16 floats are those; at SH 1-3
 // [op, q (6), v (3), cq, oo, sh_r[K], sh_g[K], sh_b[K]] (W = 12 + 3K).
 // Scalar: [op, 15 unused, mean (3), M (9), radius, sh_r[K], sh_g[K],
-// sh_b[K]], staged as [op, mean, M, radius, colour or coefficients]
-// (W = 17 at SH 0, 14 + 3K above).
+// sh_b[K]], staged as [op, mean, M, radius, colour or coefficients] (W =
+// 17 at SH 0, 14 + 3K above). The training rows, which the saved-carry
+// kernels read (and only they), are the scalar rows with the quad columns
+// in 1..11 (and at SH 0 the colour in 12..14), so the quad training kernel
+// reads the SH 1-3 coefficients from column 29 (kTrainSh).
 //
 // Segments and per-ray origins (the mesh tracer and the rolling shutter,
 // pallas_march.py:236-241, 407-442, 586-633). Optional per-ray arrays,
@@ -129,10 +142,13 @@ __host__ __device__ constexpr int color_column() {
   return kScalar ? 14 : 12;
 }
 
+// first SH coefficient column of the training rows (ops/march.T_SH0)
+constexpr int kTrainSh = 29;
+
 // least row stride (floats) the kernel reads: the staged quad columns, or
-// the scalar rows' 29 + 3K (the 32-float training rows at SH 0)
-inline int min_stride(bool scalar, int K) {
-  return scalar ? 29 + 3 * K : (K == 1 ? 16 : 12 + 3 * K);
+// the scalar (or training) rows' 29 + 3K (the 32-float training rows at SH 0)
+inline int min_stride(bool scalar_or_train, int K) {
+  return scalar_or_train ? kTrainSh + 3 * K : (K == 1 ? 16 : 12 + 3 * K);
 }
 
 struct Params {
@@ -256,16 +272,18 @@ __device__ __forceinline__ size_t row_index(const Params& p, int start, int j, i
   return (size_t)p.blocks[start / bs + j * p.block_sub + r / bs] * bs + r % bs;
 }
 
-// Stage the chunk's rows [0, m) in sf: the first W floats of each row
-// (quad), or the scalar columns, sh0 turned into the colour at SH 0.
-template <int C, bool kScalar, int K>
+// Stage the chunk's rows [0, m) in sf: the quad columns and the colour
+// or coefficients (from column 12, or kTrainSh on the training rows), or
+// the scalar columns, sh0 turned into the colour at SH 0.
+template <int C, bool kScalar, int K, bool kTrain>
 __device__ __forceinline__ void stage(float* sf, const Params& p, int start, int j, int m) {
   constexpr int W = staged_width<kScalar, K>();
+  constexpr int kShCol = kTrain ? kTrainSh : 12;
   for (int k = threadIdx.x; k < m * W; k += blockDim.x) {
     const int r = k / W, c = k % W;
     const float* g = p.feats + row_index<C>(p, start, j, r) * p.stride;
     if (!kScalar) {
-      sf[k] = g[c];
+      sf[k] = g[(K == 1 || c < 12) ? c : kShCol + c - 12];
     } else {
       const float x = g[c == 0 ? 0 : 15 + c];
       sf[k] = (K == 1 && c >= 14) ? fmaxf(0.5f + kC0 * x, 0.f) : x;
@@ -404,31 +422,38 @@ __device__ __forceinline__ void store_ray(const Params& p, float r, float g, flo
   p.t_final[ray_idx] = T;
 }
 
-template <int C, bool kScalar, int K>
-__global__ void __launch_bounds__(1024) march_kernel(Params p) {
+template <int C, bool kScalar, int K, bool kTrain>
+__global__ void __launch_bounds__(kTrain ? 256 : 1024) march_kernel(Params p) {
   constexpr int W = staged_width<kScalar, K>();
   constexpr int kCol = color_column<kScalar>();
   extern __shared__ float sf[];  // C * W staged floats
   __shared__ float red[32];
 
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const Ray ray = load_ray(p);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
 
   float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   uint32_t keys[C];
-  uint8_t src[C];
+  uint8_t src[kTrain ? 1 : C];  // training keys carry the source index themselves
 
+  bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j * C < n; ++j) {
+    if (kTrain) tin[(size_t)j * R] = T;
     // tile-wide chunk skip (T never changes once every ray is below it)
-    if (block_reduce(T, true, red) <= p.t_skip) break;
+    if (!skipped) skipped = block_reduce(T, true, red) <= p.t_skip;
+    if (skipped) {
+      if (!kTrain) break;
+      continue;  // the remaining chunks' carries are still saved
+    }
 
     const int m = min(C, n - j * C);
     __syncthreads();  // the previous chunk is done with sf
-    stage<C, kScalar, K>(sf, p, start, j, m);
+    stage<C, kScalar, K, kTrain>(sf, p, start, j, m);
     __syncthreads();
 
     // pass 1: inversion test and significant event-t range of this ray
@@ -467,23 +492,33 @@ __global__ void __launch_bounds__(1024) march_kernel(Params p) {
         evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
         if (!(a > 0.f)) continue;
         const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - lo) * scale, 0.f), 65534.f);
-        const uint32_t aq = (uint32_t)fminf(fmaxf(a * 32767.f, 0.f), 32767.f);
-        const uint32_t key = (tq << 15) | aq;
+        // training: the unique key tq16 << 8 | src (pallas_march.py:833-842);
+        // render: tq16 << 15 | a15, alpha decoded from the key
+        const uint32_t key =
+            kTrain ? (tq << 8) | (uint32_t)i
+                   : (tq << 15) | (uint32_t)fminf(fmaxf(a * 32767.f, 0.f), 32767.f);
         int pos = ns++;
         while (pos > 0 && keys[pos - 1] > key) {  // stable: ties keep stream order
           keys[pos] = keys[pos - 1];
-          src[pos] = src[pos - 1];
+          if (!kTrain) src[pos] = src[pos - 1];
           --pos;
         }
         keys[pos] = key;
-        src[pos] = (uint8_t)i;
+        if (!kTrain) src[pos] = (uint8_t)i;
       }
       for (int k = 0; k < ns; ++k) {
-        row_color<K>(sf + src[k] * W + kCol, basis, cr, cg, cb);
+        const int i = kTrain ? (int)(keys[k] & 255u) : src[k];
+        float a;
+        if (kTrain) {  // alpha rides the sort exactly: recompute it
+          float t_ev;
+          evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
+        } else {
+          a = (float)(keys[k] & 32767u) * kInvA;
+        }
+        row_color<K>(sf + i * W + kCol, basis, cr, cg, cb);
         const uint32_t cp = pack_color(cr, cg, cb);
-        comp.add((float)(keys[k] & 32767u) * kInvA, (float)((cp >> 20) & 1023u) * kInvCol,
-                 (float)((cp >> 10) & 1023u) * kInvCol, (float)(cp & 1023u) * kInvCol,
-                 p.min_t);
+        comp.add(a, (float)((cp >> 20) & 1023u) * kInvCol, (float)((cp >> 10) & 1023u) * kInvCol,
+                 (float)(cp & 1023u) * kInvCol, p.min_t);
       }
     }
     const float t_next = comp.t_next();
@@ -496,8 +531,8 @@ __global__ void __launch_bounds__(1024) march_kernel(Params p) {
   store_ray(p, acc_r, acc_g, acc_b, T);
 }
 
-template <int C, bool kScalar, int K>
-__global__ void __launch_bounds__(1024) march_key_kernel(Params p) {
+template <int C, bool kScalar, int K, bool kTrain>
+__global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p) {
   constexpr int W = staged_width<kScalar, K>();
   constexpr int kCol = color_column<kScalar>();
   extern __shared__ float sf[];  // C * W staged floats
@@ -511,20 +546,20 @@ __global__ void __launch_bounds__(1024) march_key_kernel(Params p) {
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
   const bool fast_gate = p.full_range != 0;
-  float* tin = p.tin ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
+  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
 
   float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
-    if (tin) tin[(size_t)j * R] = T;
+    if (kTrain) tin[(size_t)j * R] = T;
     if (!skipped) skipped = block_reduce(T, true, red) <= p.t_skip;
     if (skipped) {
-      if (!tin) break;
+      if (!kTrain) break;
       continue;  // the remaining chunks' carries are still saved
     }
     const int m = min(C, n - j * C);
     __syncthreads();  // the previous chunk is done with sf
-    stage<C, kScalar, K>(sf, p, start, j, m);
+    stage<C, kScalar, K, kTrain>(sf, p, start, j, m);
     __syncthreads();
 
     Composite comp(T);
@@ -547,11 +582,22 @@ __global__ void __launch_bounds__(1024) march_key_kernel(Params p) {
 
 // One launch of the order's kernel; the staged rows take C * W floats of
 // dynamic shared memory, above 48 KB (SH 3 at C = 256: 61,440 B) only
-// after opting in.
+// after opting in. Saved carries (the training forward, at most 256 rays
+// per tile) run the key kernel on the quad response and the window kernel
+// on the scalar one (per-ray origins, each the eye), as JAX's training
+// forwards do (pallas_renderer.py:234-238); no other training variant is
+// built.
 template <int C, bool kScalar, int K>
 cudaError_t launch_mode(const Params& p, bool key_order, int n_tiles, int R, cudaStream_t stream) {
   void (*kernel)(Params) =
-      key_order ? march_key_kernel<C, kScalar, K> : march_kernel<C, kScalar, K>;
+      key_order ? march_key_kernel<C, kScalar, K, false> : march_kernel<C, kScalar, K, false>;
+  if (p.tin) {
+    if constexpr (kScalar)
+      kernel = march_kernel<C, true, K, true>;
+    else
+      kernel = march_key_kernel<C, false, K, true>;
+    if (key_order == kScalar || R > 256) return cudaErrorInvalidValue;
+  }
   const int smem = (int)sizeof(float) * C * staged_width<kScalar, K>();
   if (smem > 48 * 1024) {
     const cudaError_t err =

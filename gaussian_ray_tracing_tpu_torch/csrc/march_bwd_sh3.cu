@@ -1,0 +1,8 @@
+// Kernel K3 at SH degree 3 (K = 16 coefficients per channel): the
+// instantiations grt_march_bwd (march_bwd.cu) dispatches to. See march_bwd.cuh.
+
+#include "march_bwd.cuh"
+
+namespace k3 {
+template cudaError_t launch_k<16>(const Params&, bool, int, int, int, cudaStream_t);
+}  // namespace k3

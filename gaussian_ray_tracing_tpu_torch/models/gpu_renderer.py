@@ -9,8 +9,10 @@ is kernel K2) -> ONE gather of per-pair rows -> the fused march (kernel
 K1) -> untile, clip and blank (fisheye pixels outside r <= 1).
 `render_gpu` is the forward render (pinhole, fisheye or OpenCV; window or
 key order; SH degree 0 to 3 on the quad rows of ops/march.compact_features);
-`render_gpu_diff` is the differentiable key-order render, whose backward
-is kernel K3 (ops/march_bwd.py). `use_kernels=False` runs the
+`render_gpu_diff` is the differentiable render on any of those cameras
+(window order on the scalar response, key order on the quad response, SH
+degree 0 to 3), whose backward is kernel K3 (ops/march_bwd.py).
+`use_kernels=False` runs the
 plain torch versions of the kernels on any device; otherwise the kernels
 run and every tensor must be on CUDA.
 """
@@ -20,7 +22,9 @@ from __future__ import annotations
 import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_supported, check_trainable
+from gaussian_ray_tracing_tpu_torch.config import (
+    RenderConfig, check_supported, check_trainable, train_config,
+)
 from gaussian_ray_tracing_tpu_torch.models.tiled import feature_table, tile_rays, untile_image
 from gaussian_ray_tracing_tpu_torch.ops.march import (
     chunk_for, compact_features, march, march_plain, train_features,
@@ -99,7 +103,8 @@ def prepare_train_stream(scene: GaussianScene, camera: Camera, config: RenderCon
                          pair_capacity: int | None = None, use_kernels: bool = True):
     """The training counterpart of prepare_pair_stream: the feature table
     with autograd, binning on detached tensors (it carries no gradient, as
-    in the reference), then one gather of (n_pairs, 32) training rows.
+    in the reference), then one gather of (n_pairs, train_row) training
+    rows (ops/march.train_features: 32 floats at SH 0, 80 at SH 3).
     Returns (stream, rows, n_pairs)."""
     table, M, radius = feature_table(scene, config, eye=camera.eye)
     fixed = GaussianScene(*(getattr(scene, k).detach()
@@ -109,7 +114,7 @@ def prepare_train_stream(scene: GaussianScene, camera: Camera, config: RenderCon
         pair_capacity = snug_pair_capacity(int(count_pairs(fixed, camera, config)))
     stream, ids, n_pairs = bin_frame(fixed, M.detach(), radius.detach(), camera, config,
                                      pair_capacity, use_kernels)
-    return stream, train_features(table)[ids], n_pairs
+    return stream, train_features(table, config.sh_degree)[ids], n_pairs
 
 
 def check_devices(scene: GaussianScene, camera: Camera, use_kernels: bool):
@@ -157,13 +162,16 @@ def render_gpu(scene: GaussianScene, camera: Camera, config: RenderConfig = Rend
 
 def render_gpu_diff(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderConfig(),
                     pair_capacity: int | None = None, use_kernels: bool = True):
-    """Differentiable full-frame render in key order (counterpart of
-    render_pallas_diff): the forward is K1 with saved carries, the backward
-    K3. Per-pair row gradients flow through the row gather (a scatter-add)
-    into the feature table and from there to the scene's means, M (scales
-    and rotations), opacities and sh0. Binning carries no gradient: the
-    footprints, depth key and pair stream are computed on detached tensors.
+    """Differentiable full-frame render (counterpart of render_pallas_diff):
+    the forward is K1 with saved carries, the backward K3. Orders other
+    than window and key train in key order, as in the reference
+    (config.train_config). Per-pair row gradients flow through the row
+    gather (a scatter-add) into the feature table and from there to the
+    scene's means, M (scales and rotations), opacities and SH coefficients.
+    Binning carries no gradient: the footprints (any camera model), depth
+    key and pair stream are computed on detached tensors.
     Returns {rgb (H, W, 3), alpha (H, W)}."""
+    config = train_config(config)
     check_trainable(config)
     check_devices(scene, camera, use_kernels)
     stream, rows, _ = prepare_train_stream(scene, camera, config, pair_capacity, use_kernels)

@@ -3,7 +3,7 @@ gaussian_ray_tracing_tpu/models/renderer.py).
 
 `render()` picks the kernel path or the plain torch path, and the mesh
 tracer when a mesh is given, optionally supersampled; `render_diff()` the
-same for the differentiable key-order render; the stateful
+same for the differentiable training render; the stateful
 `GaussianRayTracer` holds the scene (on CUDA unless told otherwise), frame
 size, camera, camera model and mesh primitives (plane, sphere, OBJ), each
 with an optional material type. Rolling-shutter frames are
@@ -66,7 +66,8 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
 
 def render_diff(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderConfig(),
                 method: str = "auto", pair_capacity: int | None = None):
-    """Differentiable render (key order; the training path): gradients reach
+    """Differentiable render (the training path; window or key order, other
+    orders train as key, any camera model, SH degree 0-3): gradients reach
     the scene's means, scales, quats, opacities and sh through the
     hand-written backward K3. `method` as for render()."""
     return render_gpu_diff(scene, camera, config, pair_capacity=pair_capacity,

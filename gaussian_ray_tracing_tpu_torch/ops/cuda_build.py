@@ -14,13 +14,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("march.cu", "march_sh1.cu", "march_sh2.cu", "march_sh3.cu", "march_bwd.cu",
-           "scan.cu", "tri.cu")
-HEADERS = ("march.cuh",)
+           "march_bwd_sh1.cu", "march_bwd_sh2.cu", "march_bwd_sh3.cu", "scan.cu", "tri.cu")
+HEADERS = ("march.cuh", "march_bwd.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 # -fmad=false: no FMA contraction, so the kernels round each float32
 # operation as the plain torch versions do (see csrc/march.cu)
@@ -67,8 +68,10 @@ def build() -> Path:
         for name, obj in zip(SOURCES, objs)
     ]
     logs, failed = [], []
+    t0 = time.perf_counter()
     for name, proc in zip(SOURCES, procs):
-        logs.append(f"# {name}\n{proc.communicate()[0]}")
+        text = proc.communicate()[0]
+        logs.append(f"# {name} (done by {time.perf_counter() - t0:.1f} s)\n{text}")
         if proc.returncode != 0:
             failed.append(name)
     tmp = out.with_name(f"{tag}.tmp.so")
@@ -96,8 +99,7 @@ def load_library() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, vp]
     lib.grt_march.restype = ci
-    lib.grt_march_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                  cf, cf, cf, cf, cf, ci, vp]
+    lib.grt_march_bwd.argtypes = [vp] * 9 + [ci] * 6 + [cf] * 5 + [ci, vp]
     lib.grt_march_bwd.restype = ci
     lib.grt_multi_cumsum_i32.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, vp]
     lib.grt_multi_cumsum_i32.restype = ci

@@ -48,11 +48,18 @@ while T > minT. All of it in float32: the response
 dd = q . m2(d), od = v . d, pp = oo - od^2/dd cancels by orders of
 magnitude and must not see TF32 or bf16 inputs.
 
-save_tin (key order; the training forward): every chunk's carry-in T is
-stored BEFORE its skip test, so skipped chunks are saved too, at row
-chunk_base[t] + j of a (sum of chunks, R) array, chunk_base = [0,
-cumsum(ceil(count_t / c))] (pallas_march.py:461-473, 1075-1081). The
-backward (ops/march_bwd.py, kernel K3) replays each chunk from it.
+save_tin (the training forward, at most 256 rays per tile): every chunk's
+carry-in T is stored BEFORE its skip test, so skipped chunks are saved
+too, at row chunk_base[t] + j of a (sum of chunks, R) array, chunk_base =
+[0, cumsum(ceil(count_t / c))] (pallas_march.py:461-473, 1075-1081); the
+skip threshold is min_transmittance. The backward (ops/march_bwd.py,
+kernel K3) replays each chunk from it. The training forward reads the
+training rows (`train_features`). Key order runs the quad response;
+window order the scalar response from per-ray origins (`origins_t`, each
+the eye; JAX's quad=False, pallas_renderer.py:234-238) with the training
+key: a fired chunk sorts its significant candidates by the unique key
+(tq16 << 8) | src and composites them with the EXACT alpha and the
+3x10-bit colours (pallas_march.py:833-842); no span repair.
 
 Segments and bounced rays (the mesh tracer; pallas_march.py:236-241,
 407-442, 586-633, 1046-1074, 1121-1124). Optional per-ray arguments, all
@@ -64,12 +71,13 @@ None on the primary render:
     not a full-range ray, so key order takes the exact entry/exit event gate
     instead of the sqrt-free one.
   - origins_t (T, R, 3): per-ray origins, with the SCALAR response on the
-    scalar rows (`scalar_features`; at SH 0 the 32-float training rows):
+    scalar rows (`scalar_features`, or the training rows with save_tin):
     o_g = M (o - mu), d_g = M d, t* = -od / max(dd, 1e-6) as a true
     division, pp = oo + t* (2 od + t* dd), the gate with disc >= 0, and the
-    colour from the row's SH coefficients. Rolling shutter uses this mode on
-    the pair stream. (The TPU kernel's per-ray-origin QUAD expansion is on
-    no JAX path and is not ported.)
+    colour from the row's SH coefficients. The rolling shutter uses this
+    mode on the pair stream, window-order training with every origin the
+    eye. (The TPU kernel's per-ray-origin QUAD expansion is on no JAX path
+    and is not ported.)
   - blocks (cap_b,) int32 with block_sub: block mode over the Morton-sorted
     table (ops/blocks.block_stream). With bs = chunk / block_sub, chunk j of
     tile t reads rows [blocks[starts[t] / bs + j * block_sub + s] * bs, +bs)
@@ -82,15 +90,19 @@ row [op, q00 q11 q22 q01 q02 q12, v, cq, oo, r g b, pad]; at SH 1-3 the
 quad SH row [op, q (6), v (3), cq, oo, sh_r[K], sh_g[K], sh_b[K]], 12 + 3K
 floats padded to a multiple of 4 (`quad_row`). The scalar rows
 (`scalar_features`) are [op, 15 unused, mean (3), M (9), radius, sh_r[K],
-sh_g[K], sh_b[K]], 29 + 3K floats padded to a multiple of 4, which at SH 0
-is the 32-float training row's layout. `march` is the wrapper: CUDA
-tensors go to the kernel (csrc/march.cuh, built as csrc/march.cu and, for
-SH 1-3, csrc/march_sh{1,2,3}.cu), CPU tensors to the plain torch version
-`march_plain`, anything else raises. At SH 0 `march`
-also takes the 32-float training rows (`train_features`) and reads their
-first 16 columns. The TPU's packed16 int16 layout, 128-column padding,
-8-row ray panels and bf16 hi/lo MXU splits are TPU layout work and are not
-ported.
+sh_g[K], sh_b[K]], 29 + 3K floats padded to a multiple of 4. The training
+rows (`train_features`, width `train_row`) are the scalar rows with the
+quad columns in front: at SH 0 the 32-float row [compact row (16), mean,
+M, radius, sh0], at SH 1-3 [op, q (6), v (3), cq, oo, 4 pad, mean, M,
+radius, sh_r[K], sh_g[K], sh_b[K]] (80 floats at SH 3), so one gather
+feeds both responses and the backward; saved carries (save_tin) take these
+rows and only these, so the quad response then reads the coefficients
+from column T_SH0. `march` is the wrapper: CUDA tensors go to the kernel
+(csrc/march.cuh, built as csrc/march.cu and, for SH 1-3,
+csrc/march_sh{1,2,3}.cu), CPU tensors to the plain torch version
+`march_plain`, anything else raises. The TPU's packed16 int16 layout,
+128-column padding, 8-row ray panels and bf16 hi/lo MXU splits are TPU
+layout work and are not ported.
 """
 
 from __future__ import annotations
@@ -112,9 +124,6 @@ _OP, _Q0, _V0, _CQ, _OO, _RGB0 = 0, 1, 7, 10, 11, 12
 # JAX feature-table column of each training column (None: zero pad).
 TRAIN_COLUMNS = COMPACT_COLUMNS + (None,) + tuple(range(12)) + (13, 14, 15, 16)
 TRAIN_ROW = 32
-# JAX feature-table columns whose gradient the backward K3 writes (mean, M,
-# opacity, sh0); the quad and radius columns get exactly zero
-DIFF_COLUMNS = frozenset(range(13)) | {14, 15, 16}
 T_MX, T_M0, T_RAD, T_SH0 = 16, 19, 28, 29
 _SH0 = 12  # first SH column of the quad SH rows (the JAX table's 14)
 CHUNKS = (32, 64, 128, 256)
@@ -172,16 +181,37 @@ def scalar_features(feats: torch.Tensor, sh_degree: int = 0) -> torch.Tensor:
     return _gather_columns(feats, columns, scalar_row(sh_degree))
 
 
-def train_features(feats: torch.Tensor) -> torch.Tensor:
-    """(N, F >= 80) JAX-layout rows (sh_degree 0) -> (N, 32) training rows.
-    Only the DIFF_COLUMNS keep autograd; the quad and radius columns are
-    detached, as K3 writes them no gradient, so a scene's parameters are
-    reached once, through mean, M, opacity and sh0."""
+def train_row(sh_degree: int) -> int:
+    """Width of the training rows: 32 at SH 0, scalar_row above (80 at SH 3)."""
+    return TRAIN_ROW if sh_degree == 0 else scalar_row(sh_degree)
+
+
+def train_columns(sh_degree: int) -> tuple:
+    """JAX feature-table column of each training-row column (None: zero)."""
+    if sh_degree == 0:
+        return TRAIN_COLUMNS
+    cols = COMPACT_COLUMNS[:12] + (None,) * 4 + tuple(range(12)) + (13,) + _sh_columns(sh_degree)
+    return cols + (None,) * (train_row(sh_degree) - len(cols))
+
+
+def diff_columns(sh_degree: int) -> frozenset:
+    """JAX feature-table columns whose gradient K3 writes: mean, M, opacity
+    and the 3K SH coefficients (the quad and radius columns get exactly
+    zero)."""
+    return frozenset(range(13)) | frozenset(_sh_columns(sh_degree))
+
+
+def train_features(feats: torch.Tensor, sh_degree: int = 0) -> torch.Tensor:
+    """(N, F) JAX-layout rows with the quad block -> (N, train_row) training
+    rows. Only the diff_columns keep autograd; the quad and radius columns
+    are detached, as K3 writes them no gradient, so a scene's parameters
+    are reached once, through mean, M, opacity and the SH coefficients."""
     fixed = feats.detach()
+    diff = diff_columns(sh_degree)
     zero = feats.new_zeros((feats.shape[0], 1))
     return torch.cat([
-        zero if c is None else (feats if c in DIFF_COLUMNS else fixed)[:, c : c + 1]
-        for c in TRAIN_COLUMNS
+        zero if c is None else (feats if c in diff else fixed)[:, c : c + 1]
+        for c in train_columns(sh_degree)
     ], dim=1)
 
 
@@ -207,10 +237,11 @@ def march_stream(starts, pair_feats, dirs_t, config: RenderConfig, chunk: int,
 
     starts (T+1,) int32, pair_feats (P, F >= 77) float32 with the quad
     block, dirs_t (T, R, 3). Returns (rgb (T, R, 3), t_final (T, R)) and,
-    with save_tin, also (tin (sum of chunks, R), chunk_base (T+1,)).
+    with save_tin (key order, on the training rows), also (tin (sum of
+    chunks, R), chunk_base (T+1,)).
     """
-    return march(starts, compact_features(pair_feats, config.sh_degree), dirs_t, config,
-                 chunk, save_tin=save_tin)
+    rows = (train_features if save_tin else compact_features)(pair_feats, config.sh_degree)
+    return march(starts, rows, dirs_t, config, chunk, save_tin=save_tin)
 
 
 def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, seg=None):
@@ -219,30 +250,30 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
     if config.order not in ("window", "key"):
         raise NotImplementedError(f"march order {config.order!r} is not ported")
-    if save_tin and config.order != "key":
-        raise NotImplementedError("save_tin (training) is ported for key order only")
     if starts.dtype != torch.int32 or starts.dim() != 1:
         raise ValueError("starts must be (T+1,) int32")
     if not 0 <= config.sh_degree <= 3:
         raise NotImplementedError(f"sh_degree {config.sh_degree} not in 0..3")
-    if save_tin and config.sh_degree != 0:
-        raise NotImplementedError("save_tin (training) is ported for SH degree 0 only")
     origins = seg.get("origins_t")
-    widths = ((scalar_row(config.sh_degree),) if origins is not None
-              else (quad_row(config.sh_degree),) + ((TRAIN_ROW,) if config.sh_degree == 0
-                                                    else ()))
-    if feats.dtype != _F32 or feats.dim() != 2 or feats.shape[1] not in widths:
-        raise ValueError(f"feats must be float32 rows of width {widths} at SH degree "
-                         f"{config.sh_degree} {'with' if origins is not None else 'without'} "
-                         "per-ray origins")
+    if save_tin and (config.order == "key") != (origins is None):
+        raise NotImplementedError("saved carries run key order on the quad response and "
+                                  "window order on the scalar response from per-ray origins")
+    if save_tin and any(seg.get(k) is not None for k in ("t_lo", "t_hi", "t0", "blocks")):
+        raise NotImplementedError("save_tin (training) takes no per-ray window, carry-in or "
+                                  "blocks")
+    deg = config.sh_degree
+    width, rows = ((train_row(deg), "training") if save_tin
+                   else (scalar_row(deg), "scalar") if origins is not None
+                   else (quad_row(deg), "quad"))
+    if feats.dtype != _F32 or feats.dim() != 2 or feats.shape[1] != width:
+        raise ValueError(f"feats must be float32 {rows} rows of width {width} at SH degree {deg}")
     if dirs_t.dtype != _F32 or dirs_t.dim() != 3 or dirs_t.shape[2] != 3:
         raise ValueError("dirs_t must be (T, R, 3) float32")
     if starts.shape[0] != dirs_t.shape[0] + 1:
         raise ValueError("starts must have one entry more than dirs_t has tiles")
-    if save_tin and any(seg.get(k) is not None for k in ("origins_t", "t_lo", "t_hi", "t0",
-                                                         "blocks")):
-        raise NotImplementedError("save_tin (training) takes no per-ray window, origin or blocks")
     T, R = dirs_t.shape[:2]
+    if save_tin and R > 256:
+        raise ValueError(f"saved carries take at most 256 rays per tile, not {R}")
     for name in ("t_lo", "t_hi", "t0"):
         x = seg.get(name)
         if x is not None and (x.dtype != _F32 or tuple(x.shape) != (T, R)):
@@ -263,11 +294,12 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
 
 def march(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool = False, *,
           origins_t=None, t_lo=None, t_hi=None, t0=None, blocks=None, block_sub: int = 1):
-    """Kernel K1 wrapper on compact or training rows (see module docstring).
+    """Kernel K1 wrapper on quad, scalar or (save_tin) training rows (see
+    module docstring).
 
     CUDA tensors launch csrc/march.cu; CPU tensors run march_plain.
-    Returns (rgb (T, R, 3), t_final (T, R)) and, with save_tin (key order
-    only), also (tin (sum of chunks, R), chunk_base (T+1,) int32).
+    Returns (rgb (T, R, 3), t_final (T, R)) and, with save_tin, also (tin
+    (sum of chunks, R), chunk_base (T+1,) int32).
     """
     seg = dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
                block_sub=block_sub)
@@ -309,8 +341,8 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
             err = lib.grt_march(
                 starts.data_ptr(), feats.data_ptr(), dirs_t.data_ptr(),
                 rgb.data_ptr(), t_final.data_ptr(), ptr(tin), ptr(chunk_base),
-                ptr(origins_t), ptr(t_lo), ptr(t_hi), ptr(t0), ptr(blocks), block_sub,
-                T, R, chunk, feats.shape[1], int(config.order == "key"),
+                ptr(origins_t), ptr(t_lo), ptr(t_hi), ptr(t0), ptr(blocks),
+                block_sub, T, R, chunk, feats.shape[1], int(config.order == "key"),
                 int(_full_range(origins_t, t_lo, t_hi, blocks)),
                 config.t_min, config.t_max, config.min_transmittance,
                 _skip_threshold(config, save_tin), config.alpha_min, config.alpha_clamp,
@@ -318,16 +350,20 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
             )
         check(err, "grt_march")
         march.launches += 1
+        key, sh = config.order == "key", config.sh_degree > 0
         if save_tin:
-            march.save_tin_launches += 1
-        if blocks is not None:
+            attr = {(True, False): "save_tin_launches", (False, False): "window_save_tin_launches",
+                    (True, True): "sh_key_save_tin_launches",
+                    (False, True): "sh_save_tin_launches"}[key, sh]
+            setattr(march, attr, getattr(march, attr) + 1)
+        elif blocks is not None:
             march.block_launches += 1
         elif t_lo is not None or t_hi is not None or t0 is not None:
             march.segment_launches += 1
         elif origins_t is not None:
             march.origin_launches += 1
-        if config.sh_degree > 0:
-            if config.order == "key":
+        if sh and not save_tin:
+            if key:
                 march.sh_key_launches += 1
             else:
                 march.sh_launches += 1
@@ -335,12 +371,16 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
 
 
 march.launches = 0  # every K1 launch
-march.save_tin_launches = 0  # the K1 launches in key + save_tin mode
+# saved carries (training forwards), by order and SH degree
+march.save_tin_launches = 0  # key order, SH 0
+march.window_save_tin_launches = 0  # window order (scalar response from the eye), SH 0
+march.sh_key_save_tin_launches = 0  # key order, SH 1-3
+march.sh_save_tin_launches = 0  # window order, SH 1-3
 march.segment_launches = 0  # windowed or chained segments on the pair stream
 march.block_launches = 0  # block mode (bounced rays over the Morton table)
 march.origin_launches = 0  # per-ray origins on the pair stream (rolling shutter)
-march.sh_launches = 0  # SH degree 1-3, window order
-march.sh_key_launches = 0  # SH degree 1-3, key order
+march.sh_launches = 0  # SH degree 1-3, window order (no saved carries)
+march.sh_key_launches = 0  # SH degree 1-3, key order (no saved carries)
 
 
 # --- plain torch version ---------------------------------------------------
@@ -424,13 +464,13 @@ def _quad_alpha(f, rays, present, config: RenderConfig):
     if rays["basis"] is None:
         cols = [col(_RGB0 + ch) for ch in range(3)]
     else:
-        cols = _sh_colors(f, _SH0, rays["basis"])
+        cols = _sh_colors(f, rays["sh_col"], rays["basis"])
     return _effective(alpha, gate, config), t_ev, cols
 
 
 def _scalar_alpha(f, rays, present, config: RenderConfig):
-    """Scalar (canonical-frame) response of (B, c, TRAIN_ROW) training rows
-    against per-ray origins: gated effective alpha, event t and colours."""
+    """Scalar (canonical-frame) response of (B, c, scalar_row) rows against
+    per-ray origins: gated effective alpha, event t and colours."""
     col = lambda k: f[:, :, k : k + 1]  # (B, c, 1)
     dx, dy, dz = rays["d"]
     ox, oy, oz = (o - col(T_MX + k) for k, o in enumerate(rays["o"]))  # (B, c, R)
@@ -485,10 +525,14 @@ def _chunk_rows(tb, j, starts, c, n_rows, blocks, block_sub):
     return torch.clamp(idx, max=n_rows - 1), present[..., None]
 
 
-def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, block_sub):
-    """March chunk j of tiles `tb` (in place on trans/rgb)."""
+def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, block_sub,
+                 train: bool):
+    """March chunk j of tiles `tb` (in place on trans/rgb). Returns the
+    number of significant (a > 0) (ray, candidate) pairs, whose colour the
+    march evaluates."""
     idx, present = _chunk_rows(tb, j, starts, c, feats.shape[0], blocks, block_sub)
     f = feats[idx]  # (B, c, row)
+    # per-ray lists and tensors are cut to the batch
     sub = {k: ([x[tb][:, None] for x in v] if isinstance(v, list)
                else v[tb][:, None] if torch.is_tensor(v) else v) for k, v in rays.items()}
     alpha_fn = _quad_alpha if rays["o"] is None else _scalar_alpha
@@ -498,21 +542,51 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
     if config.order == "key":
         part, t_next = _composite(t_carry, a, cols, min_t)
     else:
-        part, t_next = _window_composite(t_carry, a, t_ev, cols, min_t)
+        part, t_next = _window_composite(t_carry, a, t_ev, cols, min_t, train)
     tc = trans[tb]
     trans[tb] = torch.where(tc > min_t, t_next, tc)
     rgb[tb] += part
+    return (a > 0.0).sum()
 
 
-def _window_composite(t_carry, a, t_ev, cols, min_t: float):
-    """Window order: stream-order composite of unfired tiles, sorted
-    composite of the tiles whose chunk fired."""
-    # tile-wide window-sort fire test: a significant candidate below the
-    # exclusive running max of the significant event t before it
+def window_fire(a, t_ev):
+    """(B,) bool: the tile-wide window-sort fire test of (B, c, R) alphas
+    and event t: a significant candidate below the exclusive running max of
+    the significant event t before it."""
     sig = a > 0.0
     run = torch.cummax(torch.where(sig, t_ev, float("-inf")), dim=1).values
     rmax = torch.cat([torch.full_like(run[:, :1], float("-inf")), run[:, :-1]], 1)
-    fired = (sig & (t_ev < rmax)).flatten(1).any(dim=1)  # (B,)
+    return (sig & (t_ev < rmax)).flatten(1).any(dim=1)
+
+
+def window_tq(a, t_ev):
+    """(B, c, R) int32 tq16: event t quantized over each tile's [min, max]
+    of significant event t (B, 1, 1)."""
+    sig = a > 0.0
+    inf = float("inf")
+    t_lo = torch.where(sig, t_ev, inf).amin(dim=(1, 2), keepdim=True)
+    t_hi = torch.where(sig, t_ev, -inf).amax(dim=(1, 2), keepdim=True)
+    t_rng = torch.clamp(t_hi - t_lo, min=1e-20)
+    # a true division: torch computes `65534.0 / t_rng` as
+    # reciprocal(t_rng) * 65534, which rounds twice and moves the
+    # quantization bucket edges away from the kernel's and the TPU's
+    scale = torch.full_like(t_rng, 65534.0) / t_rng
+    return torch.clamp((t_ev - t_lo) * scale, 0.0, 65534.0).to(torch.int32)
+
+
+def train_sort_key(a, t_ev):
+    """(B, c, R) int32 training sort key: (tq16 << 8) | src for significant
+    candidates, (65535 << 8) | src for the rest, unique per ray
+    (pallas_march.py:833-838)."""
+    src = torch.arange(a.shape[1], dtype=torch.int32, device=a.device)[None, :, None]
+    return torch.where(a > 0.0, window_tq(a, t_ev) << 8, 65535 << 8) | src
+
+
+def _window_composite(t_carry, a, t_ev, cols, min_t: float, train: bool = False):
+    """Window order: stream-order composite of unfired tiles, sorted
+    composite of the tiles whose chunk fired (train: the unique training
+    key with exact alphas)."""
+    fired = window_fire(a, t_ev)  # (B,)
 
     B, _, R = a.shape
     part = a.new_empty((B, R, 3))
@@ -522,23 +596,19 @@ def _window_composite(t_carry, a, t_ev, cols, min_t: float):
         part[nf], t_next[nf] = _composite(t_carry[nf], a[nf], [x[nf] for x in cols], min_t)
     fb = fired.nonzero().squeeze(1)
     if fb.numel():
-        a_f, t_f, sig_f = a[fb], t_ev[fb], sig[fb]
-        inf = float("inf")
-        t_lo = torch.where(sig_f, t_f, inf).amin(dim=(1, 2), keepdim=True)
-        t_hi = torch.where(sig_f, t_f, -inf).amax(dim=(1, 2), keepdim=True)
-        t_rng = torch.clamp(t_hi - t_lo, min=1e-20)
-        # a true division: torch computes `65534.0 / t_rng` as
-        # reciprocal(t_rng) * 65534, which rounds twice and moves the
-        # quantization bucket edges away from the kernel's and the TPU's
-        scale = torch.full_like(t_rng, 65534.0) / t_rng
-        tq = torch.clamp((t_f - t_lo) * scale, 0.0, 65534.0).to(torch.int32)
-        aq = torch.clamp(a_f * 32767.0, 0.0, 32767.0).to(torch.int32)
-        key = torch.where(sig_f, (tq << 15) | aq, _ZBASE)
-        key_s, perm = torch.sort(key, dim=1, stable=True)
-        cp = _pack_colors([x[fb] for x in cols]).expand(-1, -1, key.shape[2])
+        a_f, t_f = a[fb], t_ev[fb]
+        if train:
+            a_f = a_f.expand(-1, -1, t_f.shape[2])
+            key_s, perm = torch.sort(train_sort_key(a_f, t_f), dim=1)  # unique keys
+            a_s = torch.gather(a_f, 1, perm)
+        else:
+            aq = torch.clamp(a_f * 32767.0, 0.0, 32767.0).to(torch.int32)
+            key = torch.where(a_f > 0.0, (window_tq(a_f, t_f) << 15) | aq, _ZBASE)
+            key_s, perm = torch.sort(key, dim=1, stable=True)
+            a_s = torch.where(key_s >= _ZBASE, 0.0,
+                              (key_s & 32767).to(_F32) * (1.0 / 32767.0))
+        cp = _pack_colors([x[fb] for x in cols]).expand(-1, -1, perm.shape[2])
         cp_s = torch.gather(cp, 1, perm)
-        a_s = torch.where(key_s >= _ZBASE, 0.0,
-                          (key_s & 32767).to(_F32) * (1.0 / 32767.0))
         part[fb], t_next[fb] = _composite(t_carry[fb], a_s, _unpack_colors(cp_s), min_t)
     return part, t_next
 
@@ -548,7 +618,10 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
                 blocks=None, block_sub: int = 1):
     """Plain torch march on any device: all tiles advance chunk by chunk,
     in batches of at most _PLAIN_BATCH (tile, candidate, ray) elements, with
-    a stable per-ray torch.sort in fired chunks (window order)."""
+    a stable per-ray torch.sort in fired chunks (window order). Records in
+    march_plain.candidates the (tile, candidate) slots of the chunks it did
+    not skip and in march_plain.significant the (ray, candidate) pairs that
+    passed the gate."""
     _check_args(starts, feats, dirs_t, config, chunk, save_tin,
                 dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
                      block_sub=block_sub))
@@ -559,6 +632,7 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     rays = dict(
         d=[dx, dy, dz], o=None if origins_t is None else list(origins_t.unbind(-1)),
         basis=sh_basis_list(dx, dy, dz, config.sh_degree) if config.sh_degree > 0 else None,
+        sh_col=T_SH0 if save_tin else _SH0,  # the training rows' coefficients
         live=dx * dx + dy * dy + dz * dz > 0.01,  # |dir| > 0.1
         t_lo=config.t_min if t_lo is None else t_lo,
         t_hi=config.t_max if t_hi is None else t_hi,
@@ -574,6 +648,7 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     batch = max(1, _PLAIN_BATCH // (chunk * R))
     counts = (starts[1:] - starts[:-1]).long()
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
+    significant = torch.zeros((), dtype=torch.int64, device=dev)
     for j in range(int(n_chunks.max()) if T else 0):
         if save_tin:  # every chunk's carry-in, skipped chunks included
             has = (n_chunks > j).nonzero().squeeze(1)
@@ -581,12 +656,13 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         active = (n_chunks > j) & (trans.amax(dim=1) > t_skip)
         evaluated += torch.where(active, torch.clamp(counts - j * chunk, max=chunk), 0).sum()
         for tb in active.nonzero().squeeze(1).split(batch):
-            _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, chunk, blocks,
-                         block_sub)
-    march_plain.candidates = int(evaluated)
+            significant += _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, chunk,
+                                        blocks, block_sub, save_tin)
+    march_plain.candidates, march_plain.significant = int(evaluated), int(significant)
     if save_tin:
         return rgb, trans, tin, chunk_base
     return rgb, trans
 
 
 march_plain.candidates = 0  # (tile, candidate) slots of the chunks the last call did not skip
+march_plain.significant = 0  # (ray, candidate) pairs of the last call that passed the gate

@@ -1,11 +1,12 @@
-"""Hand-written backward of the key-order march -- kernel K3 -- and the
+"""Hand-written backward of the training march -- kernel K3 -- and the
 autograd Function that pairs it with the forward K1.
 
 Counterpart of `_march_bwd_kernel` / `pallas_march_bwd` and of the
 `march_stream_diff` custom_vjp in gaussian_ray_tracing_tpu/ops/pallas_march.py
-(:1189-1709), in the mode training uses: key order, a shared ray origin
-(the camera eye), SH degree 0, full [t_min, t_max] rays, any
-hit_multiplicity.
+(:1189-1709), in the modes training uses: key order and window order, a
+shared ray origin (the camera eye), SH degree 0 to 3, full [t_min, t_max]
+rays, any hit_multiplicity. (The per-ray-origin variant, :1481-1501, is on
+no training path and is not ported.)
 
 Each tile's chunks are replayed in REVERSE from the carry-in transmittance
 the forward saved (ops/march.py, save_tin), carrying dT per ray from
@@ -14,21 +15,31 @@ d(t_final). Per chunk (pallas_march.py:1265-1535):
   1. skip replay: if the tile's max saved t_in is <= min_transmittance the
      chunk's gradient rows are zero and dT passes through unchanged;
   2. recompute, from the SCALAR columns of the training rows (mean, M =
-     S^-1 R^T, opacity, iso radius, sh0), the scalar-form response and the
-     exact gate disc >= 0 & t_event in [t_lo, t_hi] & live &
-     alpha > alpha_min. The forward ran the quad form with the fast gate;
-     this asymmetry is the reference's own (pallas_renderer.py:234-238,
-     pallas_march.py:1647-1653) and is kept;
-  3. reverse sweep: P = t_in exp(exclusive prefix of log1p(-a)), gate_w =
+     S^-1 R^T, opacity, iso radius, SH coefficients), the scalar-form
+     response and the exact gate disc >= 0 & t_event in [t_lo, t_hi] &
+     live & alpha > alpha_min. In key order the forward ran the quad form
+     with the fast gate; this asymmetry is the reference's own
+     (pallas_renderer.py:234-238, pallas_march.py:1647-1653) and is kept.
+     Window order's forward ran this very scalar form;
+  3. window order only (pallas_march.py:1343-1425): replay the forward's
+     tile-wide fire test on the same event t and alphas; in a fired chunk
+     order the candidates by the unique training key (tq16 << 8) | src
+     (ops/march.train_sort_key), else keep stream order. The sweep below
+     runs in that order with the 3x10-bit colours in d_w (straight-through,
+     in unfired chunks too, as the reference does), and d_a and w go back
+     to their source candidates through the inverse permutation;
+  4. reverse sweep: P = t_in exp(exclusive prefix of log1p(-a)), gate_w =
      P > minT, d_a, d_P, the new dT = dT prod + sum(d_P E), d_lp = dT_old
      t_in prod + (strict suffix sum of d_P P), d_a -= d_lp / (1 - a). The
      exclusive prefix is summed sequentially per ray, in the forward's
      order; the strict suffix sum is taken as the last inclusive prefix
      minus the inclusive prefix (the same form in the kernel and here);
-  4. per-candidate gradients summed over the tile's R rays: sh0 =
-     C0 sum(dR w) [colour > 0], opacity, the 9 M columns through the
-     shared-origin d_og / d_dg algebra, and the means as -d_o. The radius
-     column and every quad column get exactly zero.
+  5. per-candidate gradients summed over the tile's R rays: the colour
+     (SH 0: sh0 = C0 sum(dR w) [colour > 0]; SH 1-3: sh_k = sum(dR w
+     [colour > 0] basis_k), the mask from the exact colours), opacity, the
+     9 M columns through the shared-origin d_og / d_dg algebra, and the
+     means as -d_o. The radius column and every quad column get exactly
+     zero.
 
 Early termination is a non-differentiable cutoff, as in the reference.
 Each row of the pair stream belongs to exactly one (tile, chunk), so rows
@@ -44,9 +55,10 @@ import torch
 
 from gaussian_ray_tracing_tpu_torch.config import RenderConfig
 from gaussian_ray_tracing_tpu_torch.ops.march import (
-    CHUNKS, T_M0, T_MX, T_RAD, T_SH0, TRAIN_ROW, _OP, march, march_plain,
+    CHUNKS, T_M0, T_MX, T_RAD, T_SH0, _OP, _pack_colors, _unpack_colors, march, march_plain,
+    train_row, train_sort_key, window_fire,
 )
-from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0
+from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0, num_coeffs, sh_basis_list
 
 _F32 = torch.float32
 _PLAIN_BATCH = 1 << 23  # (tile, candidate, ray) elements per plain batch
@@ -56,12 +68,13 @@ def _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
                 config: RenderConfig, chunk: int, dtypes=(_F32,)):
     if chunk not in CHUNKS:
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
-    if config.order != "key" or config.sh_degree != 0:
-        raise NotImplementedError("the backward is ported for key order and sh 0 only")
+    if config.order not in ("window", "key") or not 0 <= config.sh_degree <= 3:
+        raise NotImplementedError("the backward is ported for window and key order at SH 0-3")
     if starts.dtype != torch.int32 or chunk_base.dtype != torch.int32:
         raise ValueError("starts and chunk_base must be int32")
-    if rows.dtype not in dtypes or rows.dim() != 2 or rows.shape[1] != TRAIN_ROW:
-        raise ValueError(f"rows must be (P, {TRAIN_ROW}) training rows of {dtypes}")
+    width = train_row(config.sh_degree)
+    if rows.dtype not in dtypes or rows.dim() != 2 or rows.shape[1] != width:
+        raise ValueError(f"rows must be (P, {width}) training rows of {dtypes}")
     T, R, _ = dirs_t.shape
     if starts.shape != (T + 1,) or chunk_base.shape != (T + 1,):
         raise ValueError("starts and chunk_base must be (T+1,)")
@@ -78,9 +91,9 @@ def _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
 
 def march_bwd(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
               config: RenderConfig, chunk: int):
-    """Kernel K3 wrapper: d(rows) (P, 32) of the key-order march.
+    """Kernel K3 wrapper: d(rows) (P, train_row) of the training march.
 
-    starts (T+1,) int32, rows (P, 32) training rows, dirs_t (T, R, 3),
+    starts (T+1,) int32, rows (P, train_row) training rows, dirs_t (T, R, 3),
     eye (3,), tin / chunk_base as the forward saved them, d_rgb (T, R, 3),
     d_tfinal (T, R). CUDA tensors launch csrc/march_bwd.cu; CPU tensors
     run march_bwd_plain.
@@ -100,8 +113,8 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
 
     lib = load_library()
     T, R, _ = dirs_t.shape
-    if R % 32 or not 32 <= R <= 1024:
-        raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
+    if R % 32 or not 32 <= R <= 256:
+        raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 256]")
     d_rows = torch.zeros_like(rows)  # rows no tile owns, and skipped chunks, stay 0
     if T == 0:
         return d_rows
@@ -110,29 +123,39 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
         err = lib.grt_march_bwd(
             starts.data_ptr(), chunk_base.data_ptr(), rows.data_ptr(), dirs_t.data_ptr(),
             eye.data_ptr(), tin.data_ptr(), d_rgb.data_ptr(), d_tfinal.data_ptr(),
-            d_rows.data_ptr(), T, R, chunk, rows.shape[1],
-            config.t_min, config.t_max, config.min_transmittance, config.alpha_min,
-            config.alpha_clamp, config.hit_multiplicity, stream,
+            d_rows.data_ptr(), T, R, chunk, rows.shape[1], int(config.order == "window"),
+            num_coeffs(config.sh_degree), config.t_min, config.t_max, config.min_transmittance,
+            config.alpha_min, config.alpha_clamp, config.hit_multiplicity, stream,
         )
     check(err, "grt_march_bwd")
     march_bwd.launches += 1
+    attr = {(False, False): "key_launches", (True, False): "window_launches",
+            (False, True): "sh_key_launches",
+            (True, True): "sh_launches"}[config.order == "window", config.sh_degree > 0]
+    setattr(march_bwd, attr, getattr(march_bwd, attr) + 1)
     return d_rows
 
 
-march_bwd.launches = 0
+march_bwd.launches = 0  # every K3 launch, and by mode:
+march_bwd.key_launches = 0  # key order, SH 0
+march_bwd.window_launches = 0  # window order (the sort replay), SH 0
+march_bwd.sh_key_launches = 0  # key order, SH 1-3
+march_bwd.sh_launches = 0  # window order, SH 1-3
 
 
 # --- plain torch version ---------------------------------------------------
 
-def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, eye, tin, chunk_base, d_rgb,
+def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_base, d_rgb,
                      dT, d_rows, config: RenderConfig, c: int):
     """Backward of chunk j of tiles `tb`: writes their rows of d_rows and
-    advances dT (in place)."""
+    advances dT (in place). Returns the number of (ray, candidate) pairs
+    that pass the gate, whose colour and colour gradients are needed."""
     dev = rows.device
+    K = num_coeffs(config.sh_degree)
     base = starts[tb].long() + j * c
     idx = base[:, None] + torch.arange(c, device=dev)[None, :]  # (B, c)
     present = idx < starts[tb + 1].long()[:, None]  # (B, c)
-    f = rows[torch.clamp(idx, max=rows.shape[0] - 1)]  # (B, c, 32)
+    f = rows[torch.clamp(idx, max=rows.shape[0] - 1)]  # (B, c, row)
     col = lambda k: f[:, :, k : k + 1]  # (B, c, 1)
     d = dirs[tb][:, None]  # (B, 1, R, 3)
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]  # (B, 1, R)
@@ -172,33 +195,59 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, eye, tin, chunk_base, d_rg
     hm = config.hit_multiplicity
     a_eff = alpha if hm == 1 else 1.0 - (1.0 - alpha) ** hm
     a = torch.where(gate, a_eff, 0.0)
-    colors = [0.5 + SH_C0 * col(T_SH0 + ch) for ch in range(3)]  # (B, c, 1)
+    # unclamped colours: (B, c, 1) at SH 0, (B, c, R) above
+    sub_basis = [b[tb][:, None] for b in basis]  # (B, 1, R) each
+    colors = []
+    for ch in range(3):
+        raw = 0.5 + (SH_C0 if K == 1 else sub_basis[0]) * col(T_SH0 + ch * K)
+        for k in range(1, K):
+            raw = raw + sub_basis[k] * col(T_SH0 + ch * K + k)
+        colors.append(raw)
+    clamped = [torch.clamp(x, min=0.0) for x in colors]
 
-    # ---- reverse sweep, key order (pallas_march.py:1426-1446) ----
+    # ---- the sweep's order: stream order, or the replayed training sort ----
+    if config.order == "window":
+        a_full = a.expand(-1, -1, dx.shape[2])
+        src = torch.arange(c, dtype=torch.int32, device=dev)[None, :, None]
+        fired = window_fire(a_full, t_event)[:, None, None]
+        _, perm = torch.sort(torch.where(fired, train_sort_key(a_full, t_event), src), dim=1)
+        a_s = torch.gather(a_full, 1, perm)
+        cp = _pack_colors(clamped).expand(-1, -1, dx.shape[2])
+        cols_s = _unpack_colors(torch.gather(cp, 1, perm))  # straight-through 10-bit
+    else:
+        a_s, cols_s = a, clamped
+
+    # ---- reverse sweep (pallas_march.py:1397-1446) ----
     min_t = config.min_transmittance
-    lp = torch.log1p(-a)
+    lp = torch.log1p(-a_s)
     s_incl = torch.cumsum(lp, dim=1)
     S = torch.cat([torch.zeros_like(s_incl[:, :1]), s_incl[:, :-1]], dim=1)
     E = torch.exp(S)
     P = t_in * E
     gate_w = (P > min_t).to(f.dtype)
-    w = a * P * gate_w
-    d_w = dR[0] * torch.clamp(colors[0], min=0.0) + dR[1] * torch.clamp(colors[1], min=0.0) \
-        + dR[2] * torch.clamp(colors[2], min=0.0)
+    w = a_s * P * gate_w
+    d_w = dR[0] * cols_s[0] + dR[1] * cols_s[1] + dR[2] * cols_s[2]
     d_a = d_w * P * gate_w
-    d_P = d_w * a * gate_w
+    d_P = d_w * a_s * gate_w
     prod = torch.exp(s_incl[:, -1:])  # (B, 1, R)
     dT[tb] = (dT_c * prod + torch.sum(d_P * E, dim=1, keepdim=True))[:, 0]
     dpp_incl = torch.cumsum(d_P * P, dim=1)
     d_lp = dT_c * t_in * prod + (dpp_incl[:, -1:] - dpp_incl)  # strict suffix sum
-    d_a = d_a - d_lp / (1.0 - a)
+    d_a = d_a - d_lp / (1.0 - a_s)
+    if config.order == "window":  # the inverse permutation
+        d_a = torch.empty_like(d_a).scatter_(1, perm, d_a)
+        w = torch.empty_like(w).scatter_(1, perm, w)
 
     # ---- per-candidate gradients (pallas_march.py:1448-1525) ----
     red = lambda x: torch.sum(x, dim=2, keepdim=True)  # over the tile's rays
-    g = torch.zeros_like(f)  # (B, c, 32)
+    g = torch.zeros_like(f)  # (B, c, row)
     for ch in range(3):
-        mask = (colors[ch] > 0.0).to(f.dtype)
-        g[:, :, T_SH0 + ch : T_SH0 + ch + 1] = SH_C0 * red(dR[ch] * w * mask)
+        dcm = dR[ch] * w * (colors[ch] > 0.0).to(f.dtype)
+        if K == 1:
+            g[:, :, T_SH0 + ch : T_SH0 + ch + 1] = SH_C0 * red(dcm)
+        else:
+            for k in range(K):
+                g[:, :, T_SH0 + ch * K + k : T_SH0 + ch * K + k + 1] = red(dcm * sub_basis[k])
     d_alpha = d_a if hm == 1 else d_a * hm * (1.0 - alpha) ** (hm - 1)
     d_alpha = torch.where(gate, d_alpha, 0.0)
     notclamp = (resp * op < config.alpha_clamp).to(f.dtype)
@@ -230,6 +279,7 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, eye, tin, chunk_base, d_rg
     g[:, :, T_MX + 2 : T_MX + 3] = -(m[2] * d_ogx + m[5] * d_ogy + m[8] * d_ogz)
     # rad only gates hits (discontinuous): zero gradient, as in 3DGRT
     d_rows[idx[present]] = g[present]
+    return (a > 0.0).sum()
 
 
 def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
@@ -237,41 +287,59 @@ def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
     """Plain torch backward on any device, batched over tiles like
     march_plain; chunks run last to first. Float32, as the kernel; float64
     inputs give a witness of the float32 rounding (the reference's
-    response algebra cancels: see PERF.md, K3 per column)."""
+    response algebra cancels: see PERF.md, K3 per column). Records in
+    march_bwd_plain.candidates the (tile, candidate) slots of the chunks it
+    replayed and in march_bwd_plain.significant the (ray, candidate) pairs
+    that passed the gate."""
     _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
                 config, chunk, (_F32, torch.float64))
     T, R, _ = dirs_t.shape
     dev = dirs_t.device
     dx, dy, dz = dirs_t[..., 0], dirs_t[..., 1], dirs_t[..., 2]
     live = dx * dx + dy * dy + dz * dz > 0.01
+    basis = sh_basis_list(dx, dy, dz, config.sh_degree) if config.sh_degree > 0 else []
     dT = d_tfinal.clone()
     d_rows = torch.zeros_like(rows)
     n_chunks = (starts[1:] - starts[:-1] + chunk - 1).div(chunk, rounding_mode="floor")
     batch = max(1, _PLAIN_BATCH // (chunk * R))
     min_t = config.min_transmittance
+    counts = (starts[1:] - starts[:-1]).long()
+    replayed = significant = 0
     for j in reversed(range(int(n_chunks.max()) if T else 0)):
         has = (n_chunks > j).nonzero().squeeze(1)
         t_max = tin[chunk_base[has].long() + j].amax(dim=1)
-        for tb in has[t_max > min_t].split(batch):
-            _chunk_bwd_plain(tb, j, starts, rows, dirs_t, live, eye, tin, chunk_base,
-                             d_rgb, dT, d_rows, config, chunk)
+        live_tiles = has[t_max > min_t]
+        replayed += torch.clamp(counts[live_tiles] - j * chunk, max=chunk).sum()
+        for tb in live_tiles.split(batch):
+            significant += _chunk_bwd_plain(tb, j, starts, rows, dirs_t, live, basis, eye, tin,
+                                            chunk_base, d_rgb, dT, d_rows, config, chunk)
+    march_bwd_plain.candidates, march_bwd_plain.significant = int(replayed), int(significant)
     return d_rows
+
+
+march_bwd_plain.candidates = 0  # (tile, candidate) slots the last call replayed
+march_bwd_plain.significant = 0  # (ray, candidate) pairs of the last call that passed the gate
 
 
 # --- autograd ----------------------------------------------------------------
 
 class MarchStreamDiff(torch.autograd.Function):
-    """Differentiable key-order march: the forward is K1 with saved carries
-    (march_plain for use_kernels=False), the backward is K3
-    (march_bwd_plain). Gradients flow to the training rows only; starts,
-    directions and the eye get none, as in the reference
+    """Differentiable training march: the forward is K1 with saved carries
+    (march_plain for use_kernels=False), in key order on the quad response
+    and in window order on the scalar response from per-ray origins, each
+    the eye, as the reference's training forwards run
+    (pallas_renderer.py:234-238); the
+    backward is K3 (march_bwd_plain). Gradients flow to the training rows
+    only; starts, directions and the eye get none, as in the reference
     (pallas_march.py:1703-1706)."""
 
     @staticmethod
     def forward(ctx, rows, starts, dirs_t, eye, config: RenderConfig, chunk: int,
                 use_kernels: bool):
         fwd = march if use_kernels else march_plain
-        rgb, t_final, tin, chunk_base = fwd(starts, rows, dirs_t, config, chunk, save_tin=True)
+        origins_t = eye.expand(dirs_t.shape).contiguous() if config.order == "window" else None
+        rgb, t_final, tin, chunk_base = fwd(starts, rows, dirs_t, config, chunk, save_tin=True,
+                                            origins_t=origins_t)
         ctx.save_for_backward(rows, starts, dirs_t, eye, tin, chunk_base)
         ctx.config, ctx.chunk, ctx.use_kernels = config, chunk, use_kernels
         return rgb, t_final
@@ -287,6 +355,7 @@ class MarchStreamDiff(torch.autograd.Function):
 
 def march_stream_diff(rows, starts, dirs_t, eye, config: RenderConfig, chunk: int,
                       use_kernels: bool = True):
-    """(rgb (T, R, 3), t_final (T, R)) of the key-order march, differentiable
-    with respect to the (P, 32) training rows."""
+    """(rgb (T, R, 3), t_final (T, R)) of the training march (window or key
+    order), differentiable with respect to the (P, train_row) training
+    rows."""
     return MarchStreamDiff.apply(rows, starts, dirs_t, eye, config, chunk, use_kernels)

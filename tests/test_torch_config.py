@@ -75,24 +75,32 @@ def test_defaults_and_bench_config_are_supported():
     dict(sh_degree=1), dict(sh_degree=3),
 ])
 def test_training_and_mesh_refuse_cameras_and_sh(change):
-    """The render takes fisheye, OpenCV and SH 1-3; training (K3) and the
-    mesh tracer do not yet, and refuse them explicitly."""
+    """The render and training (K1 with saved carries, K3) take fisheye,
+    OpenCV and SH 1-3 in both orders; the mesh tracer does not yet, and
+    refuses them explicitly."""
     tcfg.check_supported(tcfg.RenderConfig(**change))
-    with pytest.raises(NotImplementedError):
-        tcfg.check_trainable(tcfg.RenderConfig(order="key", **change))
+    for order in ("key", "window"):
+        tcfg.check_trainable(tcfg.RenderConfig(order=order, **change))
     with pytest.raises(NotImplementedError):
         tcfg.check_mesh_supported(tcfg.RenderConfig(**change))
 
 
-@pytest.mark.parametrize("change", [
-    dict(order="window"), dict(order="merge"), dict(sh_degree=2), dict(hit_multiplicity=0),
-    dict(camera_model=tcfg.CameraModel.FISHEYE),
+@pytest.mark.parametrize("change,trains", [
+    (dict(order="window"), True), (dict(order="merge"), True), (dict(sh_degree=2), True),
+    (dict(hit_multiplicity=0), False), (dict(camera_model=tcfg.CameraModel.FISHEYE), True),
 ])
-def test_training_config_check(change):
-    """Training runs key order, sh 0, hit multiplicity >= 1 and nothing else."""
+def test_training_config_check(change, trains):
+    """Training runs window and key order (any other order as key, as JAX's
+    render_pallas_diff maps it), SH 0-3, every camera model and hit
+    multiplicity >= 1."""
     tcfg.check_trainable(tcfg.RenderConfig(order="key", hit_multiplicity=1))
     tcfg.check_trainable(tcfg.RenderConfig(order="key", hit_multiplicity=3))
-    with pytest.raises(NotImplementedError):
-        tcfg.check_trainable(tcfg.RenderConfig(**{"order": "key", **change}))
+    cfg = tcfg.RenderConfig(**{"order": "key", **change})
+    if trains:
+        tcfg.check_trainable(cfg)
+        assert tcfg.train_config(cfg).order == ("window" if cfg.order == "window" else "key")
+    else:
+        with pytest.raises(NotImplementedError):
+            tcfg.check_trainable(cfg)
     # accepted with no effect on the output
     tcfg.check_supported(tcfg.RenderConfig(packed16=False, sort_repair=0))

@@ -84,12 +84,12 @@ def test_gpu_render_matches_golden_and_plain(name):
     assert psnr(gpu, plain) >= 70.0
 
 
-def _train_stream(chunk):
+def _train_stream(chunk, order="key", degree=0):
     """The training stream of a 5k scene at 256^2: starts, rows, dirs, eye."""
     scene = random_scene(5000, seed=3, device="cuda")
     cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256,
                         height=256, device="cuda")
-    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order="key")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order, sh_degree=degree)
     stream, rows, _ = prepare_train_stream(scene, cam, cfg)
     dirs_t = tile_rays(generate_rays(cam, cfg)[1], 16, 16)
     return cfg, stream.starts, rows.detach().contiguous(), dirs_t, cam.eye
@@ -131,13 +131,93 @@ def test_backward_kernel_matches_plain_and_is_deterministic(chunk):
     # columns, whose reference algebra cancels in float32; and K3 as close
     # to the float64 witness as the plain version is
     for i, c in enumerate(tmarch.TRAIN_COLUMNS):
-        if c not in tmarch.DIFF_COLUMNS:  # quad, radius and pad columns
+        if c not in tmarch.diff_columns(0):  # quad, radius and pad columns
             assert not a[:, i].any(), i
             continue
         bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
         assert float((a[:, i] - want[:, i]).abs().max() / want[:, i].abs().max()) <= bar, i
         k64, p64 = ((x[:, i] - witness[:, i]).abs().max() for x in (a, want))
         assert float(k64) <= 1.25 * float(p64), i
+
+
+TRAIN_MODES = [("window", 0, 32), ("window", 0, 128), ("window", 0, 256), ("window", 1, 128),
+               ("window", 3, 64), ("window", 3, 128), ("key", 2, 256), ("key", 3, 128),
+               ("key", 3, 256)]
+
+
+@pytest.mark.parametrize("order,degree,chunk", TRAIN_MODES)
+def test_training_march_modes_match_plain(order, degree, chunk):
+    """K1 with saved carries in window order (scalar response from the eye,
+    training sort key) and at SH 1-3 in both orders, against march_plain:
+    rgb and T at the quad-path bars, the carries to 1e-4."""
+    cfg, starts, rows, dirs_t, eye = _train_stream(chunk, order, degree)
+    assert rows.shape[1] == tmarch.train_row(degree)
+    kw = {"origins_t": eye.expand(dirs_t.shape).contiguous()} if order == "window" else {}
+    before = tmarch.march.launches
+    got = tmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True, **kw)
+    torch.cuda.synchronize()
+    assert tmarch.march.launches == before + 1
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, chunk, save_tin=True, **kw)
+    for a, b in zip(got[:2], want[:2]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("order,degree,chunk", TRAIN_MODES)
+def test_training_backward_modes_match_plain(order, degree, chunk):
+    """K3's window replay and SH 1-3 modes against march_bwd_plain, per
+    written column at 1e-3 (2e-3 on the 9 M columns), as close to the
+    float64 witness as the plain version (1.25x), and bit-identical across
+    two launches."""
+    cfg, starts, rows, dirs_t, eye = _train_stream(chunk, order, degree)
+    kw = {"origins_t": eye.expand(dirs_t.shape).contiguous()} if order == "window" else {}
+    _, _, tin, base = tmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True, **kw)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(dirs_t.shape[:2], generator=g, device="cuda")
+    args = (starts, rows, dirs_t, eye, tin, base, d_rgb, d_t, cfg, chunk)
+    a, b = tbwd.march_bwd(*args), tbwd.march_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    want = tbwd.march_bwd_plain(*args)
+    witness = tbwd.march_bwd_plain(*(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                                     else x for x in args))
+    diff = tmarch.diff_columns(degree)
+    for i, c in enumerate(tmarch.train_columns(degree)):
+        if c not in diff:
+            assert not a[:, i].any(), i
+            continue
+        bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+        assert float((a[:, i] - want[:, i]).abs().max() / want[:, i].abs().max()) <= bar, i
+        k64, p64 = ((x[:, i] - witness[:, i]).abs().max() for x in (a, want))
+        assert float(k64) <= 1.25 * float(p64), i
+
+
+@pytest.mark.parametrize("order,degree,model", [("window", 0, "pinhole"), ("window", 3, "fisheye"),
+                                                ("key", 3, "opencv")])
+def test_render_diff_training_modes_match_plain(order, degree, model):
+    """256^2, 5k gaussians: every raw field's gradient through K1 + K3 in
+    window order and at SH 3, on the fisheye and OpenCV cameras, against
+    the plain path at 1e-3 relative."""
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel
+
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256,
+                        height=256, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, order=order, march_chunk=128, sh_degree=degree,
+                       camera_model=CameraModel(model),
+                       distortion=(-0.2, 0.05, 0.0, 0.0) if model == "opencv" else ())
+    grads = []
+    for method in ("gpu", "plain"):
+        model_ = GaussianModel.from_scene(scene).requires_grad_(True)
+        out = render_diff(model_.activate(), cam, cfg, method=method)
+        torch.mean((out["rgb"] - 0.3) ** 2).backward()
+        grads.append([p.grad for p in model_.parameters()])
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-3
 
 
 def test_render_diff_backward_kernels_match_plain():

@@ -172,15 +172,20 @@ def test_wrapper_uses_plain_version_on_cpu(stream_inputs):
     b = tmarch.march_plain(starts, compact, dirs_t, RenderConfig(), 128)
     assert tmarch.march.launches == before  # no kernel launch on the CPU
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    # training rows: the march reads their first 16 columns
+    # training rows: the key-order training march reads their first 16
+    # columns, the compact row, so it composites what the render march does
+    # at the training skip threshold
     rows = tmarch.train_features(feats)
     assert rows.shape == (feats.shape[0], tmarch.TRAIN_ROW)
     assert torch.equal(rows[:, : tmarch.ROW], compact)
     key = RenderConfig(order="key")
     c = tmarch.march(starts, rows, dirs_t, key, 128, save_tin=True)
-    d = tmarch.march_plain(starts, compact, dirs_t, key, 128, save_tin=True)
+    d = tmarch.march_plain(starts, rows, dirs_t, key, 128, save_tin=True)
     assert tmarch.march.launches == before and tmarch.march.save_tin_launches == 0
     assert all(torch.equal(x, y) for x, y in zip(c, d))
+    e = tmarch.march_plain(starts, compact, dirs_t,
+                           key.replace(chunk_skip_transmittance=key.min_transmittance), 128)
+    assert torch.equal(c[0], e[0]) and torch.equal(c[1], e[1])
 
 
 def test_march_rejects_unsupported_arguments(stream_inputs):
@@ -192,8 +197,10 @@ def test_march_rejects_unsupported_arguments(stream_inputs):
         tmarch.march(starts, feats, dirs_t, RenderConfig(), 128)  # not compact rows
     with pytest.raises(ValueError):
         tmarch.march(starts[:-1], compact, dirs_t, RenderConfig(), 128)
-    with pytest.raises(NotImplementedError):  # window-order training
+    with pytest.raises(NotImplementedError):  # window-order training needs per-ray origins
         tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, save_tin=True)
+    with pytest.raises(ValueError):  # saved carries take the training rows only
+        tmarch.march(starts, compact, dirs_t, RenderConfig(order="key"), 128, save_tin=True)
     with pytest.raises(NotImplementedError):
         tmarch.march(starts, compact, dirs_t, RenderConfig(order="merge"), 128)
 
@@ -360,5 +367,19 @@ def test_sh_rows_and_what_the_march_refuses(sh_stream_inputs):
         tmarch.march(starts, tmarch.compact_features(feats), dirs_t, sh3, 128)
     with pytest.raises(ValueError):  # quad rows with per-ray origins
         tmarch.march(starts, rows, dirs_t, sh3, 128, origins_t=torch.zeros_like(dirs_t))
-    with pytest.raises(NotImplementedError):  # training is SH 0 only
-        tmarch.march(starts, rows, dirs_t, sh3.replace(order="key"), 128, save_tin=True)
+    # the SH 3 training rows: the scalar rows with the quad columns in 1..11
+    train = tmarch.train_features(feats, 3)
+    assert train.shape[1] == tmarch.train_row(3) == 80
+    assert torch.equal(train[:, :12], rows[:, :12]) and torch.equal(train[:, 16:], scalar[:, 16:])
+    # the key-order training march reads the coefficients from column T_SH0
+    # of the training rows and composites what the render march does on the
+    # quad rows at the training skip threshold
+    key3 = sh3.replace(order="key")
+    key = tmarch.march(starts, train, dirs_t, key3, 128, save_tin=True)
+    render = tmarch.march(starts, rows, dirs_t,
+                          key3.replace(chunk_skip_transmittance=key3.min_transmittance), 128)
+    assert torch.equal(key[0], render[0]) and torch.equal(key[1], render[1])
+    with pytest.raises(ValueError):  # saved carries take the training rows only
+        tmarch.march(starts, rows, dirs_t, key3, 128, save_tin=True)
+    with pytest.raises(NotImplementedError):  # window training: the scalar response
+        tmarch.march(starts, train, dirs_t, sh3, 128, save_tin=True)

@@ -99,6 +99,6 @@ def test_autograd_function_pairs_k1_and_k3(stream_inputs):
     ref = tbwd.march_bwd_plain(starts, rows.detach(), dirs_t, eye, tin, base,
                                t(inp["d_rgb"]), t(inp["d_tfinal"]), cfg, 64)
     assert torch.equal(rows.grad, ref)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # merge trains as key upstream, never here
         tbwd.march_bwd(starts, rows.detach(), dirs_t, eye, tin, base, t(inp["d_rgb"]),
-                       t(inp["d_tfinal"]), RenderConfig(march_chunk=64), 64)
+                       t(inp["d_tfinal"]), RenderConfig(march_chunk=64, order="merge"), 64)

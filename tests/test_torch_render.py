@@ -152,8 +152,11 @@ def test_tracer_loads_ply_on_cuda_unless_told_otherwise():
 
 
 def test_training_and_mesh_refuse_fisheye_and_sh():
-    """Fisheye and SH > 0 are render-only: the training forward and the mesh
-    tracer raise NotImplementedError instead of rendering something else."""
+    """Fisheye, OpenCV and SH > 0 train (the differentiable render returns
+    the forward render's frame, here at 32x32 to 1e-5, the fisheye corner
+    blank); the mesh tracer still raises NotImplementedError for them
+    instead of rendering something else."""
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.renderer import render_diff
     from gaussian_ray_tracing_tpu_torch.scene.mesh import make_plane
 
@@ -162,8 +165,18 @@ def test_training_and_mesh_refuse_fisheye_and_sh():
     plane = make_plane((0.0, 0.0, 0.5))
     for change in (dict(camera_model=CameraModel.FISHEYE), dict(sh_degree=1),
                    dict(camera_model=CameraModel.OPENCV, distortion=(-0.2, 0.0, 0.0, 0.0))):
-        with pytest.raises(NotImplementedError):
-            render_diff(scene, cam, RenderConfig(order="key", **change))
+        cfg = RenderConfig(order="key", chunk_skip_transmittance=1e-3, **change)
+        model = GaussianModel.from_scene(scene).requires_grad_(True)
+        out = render_diff(model.activate(), cam, cfg)
+        with torch.no_grad():
+            ref = render(model.activate(), cam, cfg)["rgb"]
+        assert float((out["rgb"] - ref).abs().max()) <= 1e-5
+        out["rgb"].sum().backward()
+        assert bool(torch.isfinite(model.means.grad).all()) and model.means.grad.any()
+        if "sh_degree" in change:
+            assert model.sh.grad[:, 1:4].any() and not model.sh.grad[:, 4:].any()
+        if change.get("camera_model") == CameraModel.FISHEYE:
+            assert not out["rgb"][0, 0].any()
         with pytest.raises(NotImplementedError):
             render(scene, cam, RenderConfig(**change), mesh=plane)
 

@@ -108,6 +108,48 @@ def test_render_diff_gradients_match_render_pallas_diff(seed):
     assert np.abs(model.sh.grad[:, 1:].numpy()).max() == 0.0  # sh 0 only
 
 
+@pytest.mark.parametrize("order,degree,model", [("window", 0, "pinhole"), ("key", 3, "pinhole"),
+                                                ("window", 3, "fisheye")])
+def test_render_diff_training_modes_match_render_pallas_diff(order, degree, model):
+    """Window order (c=32), SH 3 and the fisheye camera: 64x32, 500
+    gaussians of seed 1 with all 16 SH coefficients, L2 to a flat target
+    over every ray but the boundary rays; per raw field at the 1e-3 bar,
+    the higher SH bands included."""
+    from gaussian_ray_tracing_tpu.config import CameraModel as JModelEnum
+
+    kw = {**KW, "order": order, "march_chunk": 32, "sh_degree": degree}
+    jmodel = JModel.from_scene(j_random_scene(500, seed=1))
+    target = np.full((32, 64, 3), 0.3, np.float32)
+    cam = Camera.create(width=64, height=32, **EYE)
+    cfg = RenderConfig(**kw, camera_model=__import__(
+        "gaussian_ray_tracing_tpu_torch.config", fromlist=["CameraModel"]).CameraModel(model))
+    _, dirs, valid = generate_rays(cam, cfg)
+    boundary = _boundary_rays(jmodel.activate(), dirs.numpy(), EYE["eye"], cfg.alpha_min)
+    assert boundary.sum() <= 0.005 * boundary.size
+    keep = ((~boundary) & valid.numpy())[..., None].astype(np.float32)
+    norm = 3.0 * keep.sum()
+
+    def loss_pallas(m):
+        out = render_pallas_diff(m.activate(), JCamera.create(width=64, height=32, **EYE),
+                                 JConfig(**kw, camera_model=JModelEnum(model)),
+                                 pair_capacity=100_000)
+        return jnp.sum(keep * (out["rgb"] - target) ** 2) / norm
+
+    j_loss, j_grads = jax.value_and_grad(loss_pallas)(jmodel)
+    port = _port_model(jmodel)
+    out = render_diff(port.activate(), cam, cfg, method="plain", pair_capacity=100_000)
+    loss = torch.sum(torch.from_numpy(keep) * (out["rgb"] - torch.from_numpy(target)) ** 2) / norm
+    loss.backward()
+    assert abs(loss.item() - float(j_loss)) <= 1e-4 * abs(float(j_loss))
+    for f in FIELDS:
+        a = getattr(port, f).grad.numpy()
+        b = np.asarray(getattr(j_grads, f))
+        assert np.isfinite(a).all() and np.isfinite(b).all(), f
+        assert np.abs(a - b).max() / (np.abs(b).max() + 1e-12) <= 1e-3, f
+    higher = np.abs(port.sh.grad[:, 1:].numpy())
+    assert (higher.max() > 0) == (degree > 0) and not higher[:, (degree + 1) ** 2 - 1:].any()
+
+
 def test_train_steps_match_jax():
     """3 steps of make_train_step (Adam 5e-3, L2) from the same weights as
     JAX's make_train_step(use_pallas=True) (tests/test_pallas.py:466-488)."""
@@ -164,23 +206,88 @@ def test_trainer_fit_is_resume_aware_and_saves(tmp_path):
                                  fromlist=["CameraModel"]).CameraModel.FISHEYE),
 ])
 def test_training_refuses_unported_configs(change):
+    """The configs training once refused now train: two steps of
+    make_train_step (and one of Trainer.fit) on a 32x32 frame give finite
+    losses, move the weights and, at SH 1, reach sh[:, 1:4]; merge trains
+    exactly as key does (the reference maps it to key)."""
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+
     cfg = RenderConfig(**{**KW, **change})
-    model = GaussianModel.from_numpy(
-        {k: np.zeros(s, np.float32) for k, s in zip(FIELDS, ((4, 3), (4, 3), (4, 4), (4,),
-                                                             (4, 1, 3)))}, 4)
-    with pytest.raises(NotImplementedError):
-        ttrainer.make_train_step(cfg, ttrainer.default_optimizer(model))
-    with pytest.raises(NotImplementedError):
-        ttrainer.Trainer(model, config=cfg)
+    cam = Camera.create(width=32, height=32, **EYE)
+    target = torch.full((32, 32, 3), 0.3)
+
+    def steps(c):
+        model = GaussianModel.from_scene(random_scene(200, seed=9)).requires_grad_(True)
+        step = ttrainer.make_train_step(c, ttrainer.default_optimizer(model, 5e-3),
+                                        method="plain")
+        metrics = [step(model, cam, target) for _ in range(2)]
+        return model, [float(m["loss"]) for m in metrics], metrics[-1]["mean_grads"]
+
+    model, losses, mean_grads = steps(cfg)
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
+    assert bool(torch.isfinite(mean_grads).all()) and mean_grads.any()
+    assert bool(model.sh.grad[:, 1:4].any()) == (cfg.sh_degree == 1)
+    if cfg.order == "merge":
+        key_model, key_losses, _ = steps(cfg.replace(order="key"))
+        assert losses == key_losses
+        assert all(torch.equal(a, b) for a, b in zip(model.parameters(), key_model.parameters()))
+    trainer = ttrainer.Trainer(GaussianModel.from_scene(random_scene(200, seed=9)), config=cfg,
+                               lr=5e-3)
+    assert np.isfinite(trainer.fit([(cam, target)], steps=1)).all()
+
+
+def _tiny_dataset(root, n_views: int = 2, size: int = 16, split: str = "train"):
+    """A NeRF-synthetic layout: transforms_<split>.json and RGB PNG frames
+    of a constant colour ramp, cameras on a ring at radius 2.8."""
+    import os
+
+    from gaussian_ray_tracing_tpu_torch.utils.image import write_png
+
+    os.makedirs(os.path.join(root, split), exist_ok=True)
+    frames = []
+    for i in range(n_views):
+        a = 2.0 * np.pi * i / n_views
+        eye = np.array([2.8 * np.sin(a), 0.3, 2.8 * np.cos(a)])
+        z = eye / np.linalg.norm(eye)  # the camera looks down -z
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, np.cross(z, x), z, eye
+        img = np.full((size, size, 3), 0.2 + 0.3 * i / n_views, np.float32)
+        write_png(os.path.join(root, split, f"r_{i}.png"), img)
+        frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": c2w.tolist()})
+    with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.7854, "frames": frames}, f)
+    return str(root)
 
 
 @pytest.mark.parametrize("flags", [["--densify"], ["--dataset", "nowhere"],
                                    ["--checkpoint-dir", "nowhere"], ["--order", "window"],
                                    ["--sh-degree", "1"]])
-def test_cli_fit_refuses_unported_flags(flags):
-    with pytest.raises(NotImplementedError):
-        cli.main(["fit", "--synthetic", "300", "--fit-gaussians", "100", "--width", "16",
-                  "--height", "16", "--steps", "1", "--device", "cpu", *flags])
+def test_cli_fit_refuses_unported_flags(flags, tmp_path, capsys):
+    """The flags cli fit once refused now run: --densify (every step from
+    step 1, zero threshold) grows the population, --dataset fits a tiny
+    NeRF-synthetic layout, --checkpoint-dir leaves the final step's
+    checkpoint, and window order and SH 1 train."""
+    flags = list(flags)
+    if "--dataset" in flags:
+        flags[1] = _tiny_dataset(tmp_path / "data")
+    if "--checkpoint-dir" in flags:
+        flags[1] = str(tmp_path / "ck")
+    if "--densify" in flags:
+        flags += ["--densify-from", "1", "--densify-every", "1", "--densify-until", "3",
+                  "--densify-grad-threshold", "0", "--capacity", "200"]
+    cli.main(["fit", "--synthetic", "300", "--fit-gaussians", "100", "--width", "16",
+              "--height", "16", "--steps", "3", "--device", "cpu", *flags])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(res["loss_first"]) and np.isfinite(res["loss_last"])
+    assert res["steps_run"] == 3
+    if "--densify" in flags:
+        assert res["alive"] > 100
+    if "--dataset" in flags:
+        assert res["views"] == 2 and res["dataset"] == flags[1]
+    if "--checkpoint-dir" in flags:
+        assert ttrainer.checkpoint_steps(flags[1]) == [3]
 
 
 def test_cli_fit_writes_ply(tmp_path, capsys):
