@@ -10,10 +10,15 @@ K1's saved-carry modes and K3's window replay and SH 3 modes held against
 their plain versions), the mesh-bounce path (GaussianRayTracer with a
 mirror plane and a 180x90 glass sphere, 1280x720, 100k) and the camera
 path (fisheye 768x768 on 100k, fitted_20k.ply at SH 0 and 3, OpenCV
-distortion and a rolling shutter at 1280x720), times each against the
-plain path, profiles the fisheye and SH 3 frames and the window SH 3 train
-step, runs `cli render` (plain, with a glass sphere, and fisheye at SH 3)
-and `cli fit`, and finally writes the NeRF-synthetic dataset of
+distortion and a rolling shutter at 1280x720), the merge-order path (K1's
+merge mode against its plain version on the golden and camera streams and
+in block mode, the exact torch oracle against the goldens, merge renders
+against all six goldens, a 1280x720 / 100k merge frame, and mirror and
+glass frames with order and bounce_order "merge"), times each against the
+plain path, profiles the fisheye and SH 3 frames and the window and key SH
+3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
+SH 3, and --order merge) and `cli fit`, and finally writes the
+NeRF-synthetic dataset of
 data/nerf_fitted/ to build/nerf_fitted/ (400x400 renders of
 fitted_20k.ply) and runs `cli fit --dataset` (window order, SH 3, density
 control, resumed from its checkpoint) and `cli eval` on its test split.
@@ -49,6 +54,8 @@ BENCH_KW = dict(hit_multiplicity=1, order="window", march_chunk=128)
 GOLDEN_EYE = (0.0, 0.3, 2.8)
 PSNR_KERNEL, MAXABS_KERNEL = 70.0, 1e-2  # the JAX suite's quad-path bars
 PSNR_GOLDEN = 40.0  # the exact-oracle parity bar
+PSNR_ORACLE = 60.0  # the torch oracle vs the float16 goldens of the same oracle
+ORACLE_720P_S = 30.0  # the 720p oracle frame runs only if estimated below this
 TIN_ABS = 1e-4  # saved carries, kernel vs plain
 # K3 vs plain, per written column max|a-b| / max|b|: the JAX suite's
 # hand-written-backward bar, and twice it on the 9 M columns, whose
@@ -175,6 +182,29 @@ def tri_bound(args, kw) -> tuple[float, str]:
     return bound(nbytes, int((faces * live).sum()) * OPS_TRI)
 
 
+def k1_check(phase: str, what: str, args, kw=None) -> float:
+    """K1 against march_plain on one call's inputs: rgb and T_final at the
+    K1 bars. Returns the max abs difference."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    kw = kw or {}
+    got = kmarch.march(*args, **kw)
+    torch.cuda.synchronize()
+    want = kmarch.march_plain(*args, **kw)
+    err = 0.0
+    for part, a, b in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        p, m = psnr(a, b), float(np.abs(a - b).max())
+        err = max(err, m)
+        log(phase, f"{what} {part}: PSNR {p:.2f} dB max abs {m:.3g}")
+        check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 {what} vs plain {part}")
+    return err
+
+
 def k1_train_check(what: str, got, want) -> float:
     """K1 with saved carries against march_plain on one stream: rgb and T
     at the quad-path bars, the carries to TIN_ABS, chunk_base equal.
@@ -240,10 +270,11 @@ def k3_check(what: str, args) -> float:
     return float((g1 - gp).abs().max())
 
 
-def profile_frames(fn, frames: int = 5) -> dict:
+def profile_frames(fn, frames: int = 5, top: int = 5) -> dict:
     """torch.profiler over `frames` calls of fn() after one warm-up: device
-    time per frame, device ops (kernels, copies) per frame, and the top five
-    by device time."""
+    time per frame, device ops (kernels, copies) per frame, the `top` ops by
+    device time, and the host ops by host time (self CPU time per call of
+    fn: where a host-bound call spends its time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -261,8 +292,13 @@ def profile_frames(fn, frames: int = 5) -> dict:
     ops = [(e.key, dev_us(e) / 1e3 / frames, e.count / frames) for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     ops.sort(key=lambda x: -x[1])
+    host = [(e.key, e.self_cpu_time_total / 1e3 / frames, e.count / frames)
+            for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    host.sort(key=lambda x: -x[1])
     return {"device_ms": sum(o[1] for o in ops), "device_ops": sum(o[2] for o in ops),
-            "top": [(k[:48], round(ms, 4)) for k, ms, _ in ops[:5]]}
+            "top": [(k[:48], round(ms, 4)) for k, ms, _ in ops[:top]],
+            "host_ms": sum(h[1] for h in host),
+            "host_top": [(k[:40], round(ms, 3), round(n, 1)) for k, ms, n in host[:top]]}
 
 
 def main() -> None:
@@ -346,17 +382,23 @@ def main() -> None:
                                    chunk_skip_transmittance=skip)
                 stream, feats, _ = prepare_pair_stream(scene, cam, cfg, 1 << 16)
                 dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
-                rgb, tf = kmarch.march(stream.starts, feats, dirs_t, cfg, chunk)
-                torch.cuda.synchronize()
-                rgb_p, tf_p = kmarch.march_plain(stream.starts, feats, dirs_t, cfg, chunk)
-                for what, a, b in (("rgb", rgb, rgb_p), ("T_final", tf, tf_p)):
-                    a, b = a.cpu().numpy(), b.cpu().numpy()
-                    p, m = psnr(a, b), float(np.abs(a - b).max())
-                    march_err = max(march_err, m)
-                    log("K1", f"{name} c={chunk} skip={skip} {what}: "
-                              f"PSNR {p:.2f} dB max abs {m:.3g}")
-                    check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL,
-                          f"K1 vs plain {name} c={chunk} skip={skip} {what}")
+                march_err = max(march_err, k1_check(
+                    "K1", f"{name} c={chunk} skip={skip}",
+                    (stream.starts, feats, dirs_t, cfg, chunk)))
+
+    # K1 merge order on the same streams (binning does not depend on the order)
+    merge_err = 0.0
+    for name in ("small_pinhole_256", "pinhole_720p"):
+        _, scene, cam, hm, _ = golden(name)
+        for chunk in (64, 128, 256):
+            for skip in (0.02, 1e-3):
+                cfg = RenderConfig(hit_multiplicity=hm, march_chunk=chunk, order="merge",
+                                   chunk_skip_transmittance=skip)
+                stream, feats, _ = prepare_pair_stream(scene, cam, cfg, 1 << 16)
+                dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
+                merge_err = max(merge_err, k1_check(
+                    "K1merge", f"{name} c={chunk} skip={skip}",
+                    (stream.starts, feats, dirs_t, cfg, chunk)))
 
     # --- phase 3b: K1 key + saved carries and K3 vs plain ---------------
     def train_stream(scene, cam, cfg):
@@ -392,6 +434,20 @@ def main() -> None:
         log("golden", f"{name}: PSNR {p:.2f} dB vs exact oracle, "
                       f"{out['aux']['n_pairs']} pairs")
         check(p >= PSNR_GOLDEN, f"golden {name} PSNR {p:.2f} < {PSNR_GOLDEN}")
+    oracle_goldens(golden, card)
+    for name in ("pinhole_720p", "hm2_720p", "small_pinhole_256", "small_hm2_256",
+                 "small_fisheye_256", "fisheye_720"):
+        ref, scene, cam, hm, model = golden(name)
+        for chunk in (64, 128):
+            p = {}
+            for order in ("merge", "window"):
+                cfg = RenderConfig(hit_multiplicity=hm, order=order, march_chunk=chunk,
+                                   camera_model=model)
+                p[order] = psnr(render(scene, cam, cfg, method="gpu")["rgb"].cpu().numpy(), ref)
+            log("golden", f"{name} c={chunk}: merge PSNR {p['merge']:.2f} dB, window "
+                          f"{p['window']:.2f} dB vs exact oracle")
+            check(p["merge"] >= PSNR_GOLDEN,
+                  f"golden {name} merge c={chunk} PSNR {p['merge']:.2f} < {PSNR_GOLDEN}")
 
     # --- phase 5: the main path at full size ----------------------------
     cfg = RenderConfig(**BENCH_KW)
@@ -635,19 +691,11 @@ def main() -> None:
              ("glass_cli block block_sub=2 (bounce 2)", (*cli_args[:4], 2 * cli_args[4]),
               {**cli_kw, "block_sub": 2})]
     for what, args, kw in modes:
-        got = kmarch.march(*args, **kw)
-        torch.cuda.synchronize()
-        want = kmarch.march_plain(*args, **kw)
-        for part, a, b in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
-            a, b = a.cpu().numpy(), b.cpu().numpy()
-            p, m = psnr(a, b), float(np.abs(a - b).max())
-            if "block" in what:
-                block_err = max(block_err, m)
-            else:
-                seg_err = max(seg_err, m)
-            log("K1mesh", f"{what} ({int(args[0][-1])} slots) {part}: PSNR {p:.2f} dB "
-                          f"max abs {m:.3g}")
-            check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 {what} vs plain {part}")
+        err = k1_check("K1mesh", f"{what} ({int(args[0][-1])} slots)", args, kw)
+        if "block" in what:
+            block_err = max(block_err, err)
+        else:
+            seg_err = max(seg_err, err)
 
     # the main path: GaussianRayTracer with one mirror plane, then one glass
     # sphere, each moved to (0, 0, 0.5)
@@ -736,6 +784,7 @@ def main() -> None:
                   f"({seg_bound[1]}) ({card})")
 
     cam_rows = camera_phase(dev, card, scene)
+    merge_rows = merge_phase(dev, card, scene, poses[0], mcam, at_probe, front, merge_err)
 
     # --- CLI, one frame through a user's entry point ---------------------
     os.makedirs(ROOT / "build", exist_ok=True)
@@ -777,6 +826,17 @@ def main() -> None:
         check(img.max() > 0 and not img[0, :3].any(), "cli fisheye PNG: black, or corner not blank")
         log("cli", f"--fisheye --sh-degree 3: {res.stdout.strip()} (max pixel {int(img.max())})")
 
+        res = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.cli", "render", "--synthetic", "100000",
+             "--width", "1280", "--height", "720", "--order", "merge", "--march-chunk", "128",
+             "--hit-multiplicity", "1", "-o", str(png)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        check(res.returncode == 0, f"cli render --order merge failed:\n{res.stderr[-4000:]}")
+        img = _png_pixels(png)
+        check(img.max() > 0, "cli merge PNG is all black")
+        log("cli", f"--order merge: {res.stdout.strip()} (max pixel {int(img.max())})")
+
         fit_ply = Path(tmp) / "fit.ply"
         res = subprocess.run(
             [sys.executable, "-m", f"{PKG}.cli", "fit", "--ply", "data/fitted_20k.ply",
@@ -814,10 +874,216 @@ def main() -> None:
             blk_plain, blk_bound),
         *cam_rows,
         *train_rows,
+        *merge_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def oracle_goldens(golden, card: str) -> dict:
+    """The exact torch oracle on the card against the small goldens (float16
+    frames of the same oracle) at PSNR_ORACLE, and against pinhole_720p if
+    one frame there is estimated (from its first 4096 rays, timed) below
+    ORACLE_720P_S. Returns {name: frame ms}."""
+    import statistics as st
+
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.oracle import render_oracle, render_rays_oracle
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    times = {}
+    for name in ("small_pinhole_256", "small_hm2_256", "small_fisheye_256", "pinhole_720p"):
+        ref, scene, cam, hm, model = golden(name)
+        cfg = RenderConfig(hit_multiplicity=hm, camera_model=model)
+        out = {}
+        run = lambda: out.update(render_oracle(scene, cam, cfg))
+        with torch.no_grad():
+            if name == "pinhole_720p":
+                _, dirs, _ = cameras.generate_rays(cam, cfg)
+                d = dirs.reshape(-1, 3)[:4096].contiguous()
+                o = cam.eye.expand(d.shape).contiguous()
+                part = lambda: render_rays_oracle(scene, o, d, cfg)
+                part()  # warm-up
+                ms = st.median(cuda_ms(part, 3))
+                est = ms * cam.width * cam.height / 4096 / 1e3
+                log("oracle", f"{name}: 4096 rays in {ms:.2f} ms, a frame estimated at "
+                              f"{est:.1f} s ({card})")
+                if est >= ORACLE_720P_S:
+                    continue
+            else:
+                run()  # warm-up
+            times[name] = cuda_ms(run, 1)[0]
+        p = psnr(out["rgb"].cpu().numpy(), ref)
+        log("oracle", f"{name}: torch oracle PSNR {p:.2f} dB vs the golden, "
+                      f"{times[name]:.1f} ms per frame ({card})")
+        check(p >= PSNR_ORACLE, f"oracle {name} PSNR {p:.2f} < {PSNR_ORACLE}")
+    return times
+
+
+def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: float) -> list:
+    """Merge order at full size. K1's merge mode against its plain version
+    at SH 3 on data/fitted_20k.ply's 1280x720 stream (the camera phase's).
+    The main path: 1280x720 frames of `scene` (random_scene(100k, seed 0))
+    from `pose`, hm 1, order="merge", c=128, through GaussianRayTracer with
+    the launch counts zeroed just before; drop-free, kernel vs plain, frame
+    and kernel times (window order on the same stream beside them). Then
+    phase 7's mirror, glass and glass_front frames with order and
+    bounce_order "merge" through GaussianRayTracer (counts zeroed before
+    each), kernel path vs plain path, and K1 against its plain version on
+    every bounce of the glass_front frame (segment and block mode).
+    `merge_err` is phase 3's. Returns the kernel rows."""
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_pair_stream
+    from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+    from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    def stream_args(sc, cam, cfg, cap=1 << 16):
+        stream, feats, n_pairs = prepare_pair_stream(sc, cam, cfg, cap)
+        dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], cfg.tile_w, cfg.tile_h)
+        return (stream.starts, feats, dirs_t, cfg, kmarch.chunk_for(cfg)), n_pairs
+
+    ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
+    cam720 = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=1280,
+                                   height=720, device=dev)
+    sh3 = RenderConfig(hit_multiplicity=1, order="merge", march_chunk=128, sh_degree=3)
+    merge_err = max(merge_err, k1_check("K1merge", "fitted_20k 720p sh3 c=128",
+                                        stream_args(ply, cam720, sh3)[0]))
+
+    # the main path: merge frames through GaussianRayTracer
+    cfg = RenderConfig(hit_multiplicity=1, order="merge", march_chunk=128)
+    tracer = GaussianRayTracer(scene=scene, config=cfg)
+    tracer.set_size(1280, 720)
+    tracer.update_camera(pose)
+    frames = 3
+    kmarch.march.launches = kmarch.march.merge_launches = kscan.multi_cumsum_i32.launches = 0
+    for i in range(frames):
+        rgb = tracer.render()["rgb"]
+        torch.cuda.synchronize()
+        check(tuple(rgb.shape) == (720, 1280, 3) and bool(torch.isfinite(rgb).all())
+              and float(rgb.max()) > 0.1, f"merge frame {i}: bad or black output")
+    main = {"march_merge": kmarch.march.merge_launches, "march": kmarch.march.launches,
+            "scan": kscan.multi_cumsum_i32.launches}
+    check(main["march_merge"] == frames and main["march"] == frames and main["scan"] > 0,
+          f"merge frames: K1 merge must launch once a frame, K2 at all: {main}")
+    gpu = render(scene, pose, cfg, method="gpu", return_aux=True)
+    plain = render(scene, pose, cfg, method="plain", return_aux=True)
+    p = psnr(gpu["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy())
+    check(gpu["aux"]["n_dropped"] == 0, "merge frame: pairs dropped")
+    check(p >= PSNR_FRAME, f"merge frame gpu vs plain PSNR {p:.2f} < {PSNR_FRAME}")
+    tracer.render()  # warm-up
+    frame_ms = statistics.median(cuda_ms(tracer.render, 10))
+    frame_plain = statistics.median(cuda_ms(lambda: tracer.render(method="plain"), 2))
+    log("merge", f"1280x720 100k order=merge c=128: {frames} frames through "
+                 f"GaussianRayTracer, launches {main} ({main['march_merge'] / frames:.0f} K1 "
+                 f"merge per frame), {gpu['aux']['n_pairs']} pairs, n_dropped 0, gpu vs plain "
+                 f"{p:.2f} dB; frame median of 10/2: gpu {frame_ms:.3f} ms, plain "
+                 f"{frame_plain:.3f} ms ({card})")
+    args, n_pairs = stream_args(scene, pose, cfg, tracer._pair_capacity)
+    merge_err = max(merge_err, k1_check("K1merge", "100k 720p c=128", args))
+    t_merge = (statistics.median(cuda_ms(lambda: kmarch.march(*args), 20)),
+               statistics.median(cuda_ms(lambda: kmarch.march_plain(*args), 3)),
+               march_bound(args, {}, kmarch.march_plain))
+    win = (*args[:3], cfg.replace(order="window"), 128)
+    win_ms = statistics.median(cuda_ms(lambda: kmarch.march(*win), 20))
+    log("kernel", f"K1 merge 100k 720p ({n_pairs} pairs, c=128): {t_merge[0]:.3f} ms, plain "
+                  f"{t_merge[1]:.3f} ms, bound {t_merge[2][0]:.4f} ms ({t_merge[2][1]}); K1 "
+                  f"window on the same stream {win_ms:.3f} ms ({card})")
+
+    # mesh frames with order and bounce_order "merge"
+    mcfg = cfg.replace(bounce_order="merge")
+    mtracer = GaussianRayTracer(scene=scene, config=mcfg)
+    mtracer.set_size(1280, 720)
+    mtracer.update_camera(mcam)
+    counters = {"march_merge": (kmarch.march, "merge_launches"),
+                "march_merge_block": (kmarch.march, "merge_block_launches"),
+                "march_segment": (kmarch.march, "segment_launches"),
+                "closest_hit": (ktri.closest_hit_blocks, "launches")}
+    count = lambda: {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    # the mirror and glass at phase 7's probe, and the glass sphere in front
+    # of the shell (glass_front), whose bounced rays live: there the block
+    # march has work (at the probe every bounced ray is transmittance-dead
+    # and the loop may stop after bounce 0)
+    at_front = at_probe.copy()
+    at_front[:3, 3] = (0.0, 0.0, 1.6)
+    mesh_launches, meshes = {}, {}
+    for kind, place in (("mirror", at_probe), ("glass", at_probe), ("glass_front", at_front)):
+        before = count()
+        idx = (mtracer.create_plane(mesh_type=kind) if kind == "mirror"
+               else mtracer.create_sphere(mesh_type="glass"))
+        mtracer.update_instance_transform(idx, place)
+        rgb = mtracer.render()["rgb"]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(rgb).all()) and float(rgb.max()) > 0.1,
+              f"merge {kind} frame: bad or black output")
+        mesh_launches[kind] = {k: v - before[k] for k, v in count().items()}
+        meshes[kind] = mtracer.primitives[idx]
+        mtracer.remove_primitive(idx)
+    mesh_counts = count()
+    m, g, f = (mesh_launches[k] for k in ("mirror", "glass", "glass_front"))
+    check(m["march_merge"] == 2 and m["march_segment"] == 2,
+          f"merge mirror frame: the planar path runs two K1 merge segments ({m})")
+    check(g["march_merge"] >= 1 and g["closest_hit"] >= 1,
+          f"merge glass frame: K4 and K1 merge must launch ({g})")
+    check(f["march_merge_block"] >= 1 and f["closest_hit"] >= 2,
+          f"merge glass_front frame: K4 and K1's merge block mode must launch ({f})")
+    log("merge", f"mirror, glass and glass_front frames, order/bounce_order merge, launches "
+                 f"{mesh_launches}")
+    for kind, mesh in meshes.items():
+        gpu = render(scene, mcam, mcfg, mesh=mesh, method="gpu", return_aux=True)
+        plain = render(scene, mcam, mcfg, mesh=mesh, method="plain", return_aux=True)
+        p = psnr(gpu["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy())
+        check(gpu["aux"] == plain["aux"] and gpu["aux"]["pair_dropped"] == 0,
+              f"merge {kind}: aux {gpu['aux']} vs plain {plain['aux']}")
+        check(p >= PSNR_MESH_FRAME, f"merge {kind} gpu vs plain PSNR {p:.2f}")
+        run = lambda: render(scene, mcam, mcfg, mesh=mesh, method="gpu")
+        run()  # warm-up
+        log("frame", f"merge {kind} 1280x720 100k: gpu {statistics.median(cuda_ms(run, 5)):.3f} "
+                     f"ms (median of 5), gpu vs plain {p:.2f} dB, aux {gpu['aux']} ({card})")
+    record = []
+    kmesh.render_with_mesh_fast(scene, front, mcam, mcfg, record=record)
+    torch.cuda.synchronize()
+    check(len(record) >= 2, f"merge glass_front ran {len(record)} bounces")
+    block_err = 0.0
+    for b, rec in enumerate(record):
+        a, kw = rec["k1"]
+        mode = "block" if kw.get("blocks") is not None else "segment"
+        err = k1_check("K1merge", f"glass_front bounce {b} ({mode}, {int(a[0][-1])} slots)",
+                       a, kw)
+        if mode == "block":
+            block_err = max(block_err, err)
+        else:
+            merge_err = max(merge_err, err)
+    blk_args, blk_kw = record[1]["k1"]
+    t_block = (statistics.median(cuda_ms(lambda: kmarch.march(*blk_args, **blk_kw), 20)),
+               statistics.median(cuda_ms(lambda: kmarch.march_plain(*blk_args, **blk_kw), 3)),
+               march_bound(blk_args, blk_kw, kmarch.march_plain))
+    log("kernel", f"K1 merge block glass_front bounce 1: {t_block[0]:.3f} ms, plain "
+                  f"{t_block[1]:.3f} ms, bound {t_block[2][0]:.4f} ms ({t_block[2][1]}) "
+                  f"({card})")
+
+    src = f"{PKG}/csrc/march.cuh"
+    row = lambda name, launches, err, t: {
+        "name": name, "route": "cuda", "source": src,
+        "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195", "launches": launches,
+        "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
+        "bound_by": t[2][1], "library_ms": None}
+    return [row("march_merge", main["march_merge"], merge_err, t_merge),
+            row("march_merge_block", mesh_counts["march_merge_block"], block_err, t_block)]
 
 
 def camera_phase(dev, card: str, scene) -> list:
@@ -832,7 +1098,6 @@ def camera_phase(dev, card: str, scene) -> list:
     modes against their plain versions (SH 1-3 x window/key x c=128/256 on
     the trained scene), times every frame against the plain path, and
     profiles the fisheye and SH 3 frames. Returns the kernel rows."""
-    import numpy as np
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
@@ -926,20 +1191,6 @@ def camera_phase(dev, card: str, scene) -> list:
                      f"{gpu['aux']['n_pairs']} pairs, n_dropped 0 ({card})")
 
     # K1's SH modes vs plain on the trained scene's 720p streams
-    def k1_check(what, args, kw=None):
-        kw = kw or {}
-        got = kmarch.march(*args, **kw)
-        torch.cuda.synchronize()
-        want = kmarch.march_plain(*args, **kw)
-        err = 0.0
-        for part, a, b in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
-            a, b = a.cpu().numpy(), b.cpu().numpy()
-            p, m = psnr(a, b), float(np.abs(a - b).max())
-            err = max(err, m)
-            log("K1cam", f"{what} {part}: PSNR {p:.2f} dB max abs {m:.3g}")
-            check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL, f"K1 {what} vs plain {part}")
-        return err
-
     def stream_args(sc, c0, cfg):
         stream, feats, _ = prepare_pair_stream(sc, c0, cfg, 1 << 16)
         dirs_t = tile_rays(cameras.generate_rays(c0, cfg)[1], cfg.tile_w, cfg.tile_h)
@@ -952,12 +1203,13 @@ def camera_phase(dev, card: str, scene) -> list:
                 cfg = RenderConfig(hit_multiplicity=1, order=order, march_chunk=chunk,
                                    sh_degree=degree)
                 sh_err[order] = max(sh_err[order], k1_check(
-                    f"fitted_20k 720p sh{degree} {order} c={chunk}", stream_args(ply, cam720, cfg)))
+                    "K1cam", f"fitted_20k 720p sh{degree} {order} c={chunk}",
+                    stream_args(ply, cam720, cfg)))
     origin_err = 0.0
     for what, sc, cfg in (("100k", scene, bench), ("fitted_20k sh3", ply, bench.replace(sh_degree=3)),
                           ("100k key", scene, bench.replace(order="key"))):
         starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(sc, cam720, cam720_moved, cfg)
-        origin_err = max(origin_err, k1_check(f"rolling {what} (per-ray origins)",
+        origin_err = max(origin_err, k1_check("K1cam", f"rolling {what} (per-ray origins)",
                                               (starts, rows, dirs_t, cfg, 128),
                                               {"origins_t": origins_t}))
 
@@ -1015,7 +1267,8 @@ def training_phase(dev, card: str, views, init) -> list:
     50k views of phase 6 from `init`, and in window and key order at SH 3
     from data/fitted_20k.ply with its higher SH bands zeroed, to the PLY's
     own 512x512 SH 3 renders from 8 orbit views (radius 2.8, elevation 15).
-    Then the step times kernel vs plain, a profile of the window SH 3 step,
+    Then the step times kernel vs plain, profiles of the window and key SH
+    3 steps and the two timed in turns,
     K1's window and SH 3 save_tin modes and K3's window and SH 3 modes
     against their plain versions at those shapes, with their times, the SH
     3 modes also on the PLY's own coefficients, and the row gather at SH 3
@@ -1055,7 +1308,7 @@ def training_phase(dev, card: str, views, init) -> list:
     expect = {"window_sh0": ("window_save_tin_launches", "window_launches"),
               "window_sh3": ("sh_save_tin_launches", "sh_launches"),
               "key_sh3": ("sh_key_save_tin_launches", "sh_key_launches")}
-    launches, trainers, step_ms, prof = {}, {}, {}, None
+    launches, trainers, step_ms, prof, sh3_steps = {}, {}, {}, None, {}
     for name, (cfg, vs, scene0) in runs.items():
         trainer = ktrain.Trainer(GaussianModel.from_scene(scene0), config=cfg, lr=2e-3)
         for attr in k1_modes:
@@ -1092,14 +1345,23 @@ def training_phase(dev, card: str, views, init) -> list:
         log("train", f"train step {name} 512x512, median of 12/6: gpu "
                      f"{step_ms[name]['gpu']:.3f} ms, plain {step_ms[name]['plain']:.3f} ms "
                      f"({card})")
-        if name == "window_sh3":
+        if name in ("window_sh3", "key_sh3"):
             cam, target = vs[0]
-            prof = profile_frames(lambda: steppers["gpu"](model, cam, target))
+            sh3_steps[name] = lambda st=steppers["gpu"], m=model, c=cam, t=target: st(m, c, t)
+            prof = profile_frames(sh3_steps[name], top=12)
             idle = 1.0 - prof["device_ms"] / step_ms[name]["gpu"]
-            log("profile", f"train step window_sh3: device busy {prof['device_ms']:.3f} ms of a "
+            log("profile", f"train step {name}: device busy {prof['device_ms']:.3f} ms of a "
                            f"{step_ms[name]['gpu']:.3f} ms step (idle share {idle:.3f}), "
-                           f"{prof['device_ops']:.0f} device ops per step, top {prof['top']} "
-                           f"({card})")
+                           f"{prof['device_ops']:.0f} device ops per step, top {prof['top']}; "
+                           f"host self {prof['host_ms']:.3f} ms per step, top (ms, calls) "
+                           f"{prof['host_top']} ({card})")
+    # the two SH 3 steps in turns on one view, so the host's state is shared
+    turns = {name: [] for name in sh3_steps}
+    for _ in range(3):
+        for name, step in sh3_steps.items():
+            turns[name] += cuda_ms(step, 4)
+    log("train", "SH 3 steps in turns (3 x 4 each, view 0): " + ", ".join(
+        f"{name} {statistics.median(v):.3f} ms" for name, v in turns.items()) + f" ({card})")
 
     # the kernels alone at the trained models' first-view streams, timed;
     # the SH 3 modes also on fitted_20k.ply's own coefficients (the trained

@@ -1,12 +1,15 @@
 """Command-line interface of the port (the `render`, `fit` and `eval`
 subcommands of gaussian_ray_tracing_tpu/cli.py; pinhole, fisheye and
-OpenCV cameras, SH degrees 0-3, supersampling, mesh bounces; training in
+OpenCV cameras, SH degrees 0-3, window, merge or key order, the exact
+oracle, supersampling, mesh bounces; training in
 window or key order at SH 0-3 on orbit renders or a NeRF-synthetic
 dataset, with density control and resumable checkpoints). Everything runs
 on CUDA unless `--device cpu` is given.
 
     python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
         --width 1280 --height 720 -o out.png
+    python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
+        --width 1280 --height 720 --order merge --march-chunk 128 -o merge.png
     python -m gaussian_ray_tracing_tpu_torch.cli render --ply data/fitted_20k.ply \
         --fisheye --sh-degree 3 --width 768 --height 768 -o fisheye.png
     python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 \
@@ -276,9 +279,10 @@ def main(argv=None):
     p.add_argument("--sh-degree", type=int, default=0, help="SH degree 0-3 of the colour")
     p.add_argument("--supersample", type=int, default=1,
                    help="N: trace N x N rays per pixel and box-filter (anti-aliasing)")
-    p.add_argument("--order", choices=["window", "key"], default=None,
+    p.add_argument("--order", choices=["window", "merge", "key"], default=None,
                    help="per-ray compositing order: window = in-chunk sort (default), "
-                        "key = stream order")
+                        "merge = cross-chunk streaming merge (higher quality per chunk "
+                        "width), key = raw stream order (fastest, sorted-splatting grade)")
     p.add_argument("--hit-multiplicity", type=int, default=2,
                    help="2 = reference proxy-hull double-hit compositing; "
                         "1 = standard volume rendering")
@@ -291,7 +295,8 @@ def main(argv=None):
     p.add_argument("--add-sphere", action="store_true",
                    help="insert a 36 x 18 UV sphere of radius 0.3 in front of the camera")
     p.add_argument("--load-obj", type=str, default=None, help="insert an OBJ mesh")
-    p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
+    p.add_argument("--method", choices=["auto", "gpu", "plain", "oracle"], default="auto",
+                   help="oracle = the exact per-ray-sorted reference (plain torch)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (the default) raises without CUDA, "
                         "cpu runs the plain torch versions of the kernels")

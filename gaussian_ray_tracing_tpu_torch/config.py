@@ -106,10 +106,10 @@ DEFAULT_CONFIG = RenderConfig()
 
 def unsupported_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported primary render does not implement yet
-    (it renders pinhole, fisheye and OpenCV cameras, window order on the
-    event key or key order, SH degrees 0-3)."""
+    (it renders pinhole, fisheye and OpenCV cameras, window or merge order
+    on the event key or key order, SH degrees 0-3)."""
     checks = {
-        "order": config.order in ("window", "key"),
+        "order": config.order in ("window", "key", "merge"),
         "window_key": config.window_key == "event",
         "pair_keys": config.pair_keys == "gaussian",
         "sh_degree": 0 <= config.sh_degree <= 3,
@@ -127,8 +127,8 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
 
 def train_config(config: RenderConfig) -> RenderConfig:
     """The config the training path runs: every order other than window and
-    key trains in key order, as JAX's render_pallas_diff maps it
-    (pallas_renderer.py:208-209)."""
+    key (merge among them) trains in key order, as JAX's render_pallas_diff
+    maps it (pallas_renderer.py:208-209)."""
     return config if config.order in ("window", "key") else config.replace(order="key")
 
 
@@ -142,15 +142,14 @@ def unsupported_train_fields(config: RenderConfig) -> list[str]:
 
 def unsupported_mesh_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported mesh tracer does not implement yet: on
-    top of the render's limits, it traces pinhole frames at SH degree 0,
-    and bounced segments march in window or key order only
-    (`bounce_order="merge"` needs K1's merge mode)."""
+    top of the render's limits, it traces pinhole frames at SH degree 0;
+    bounced segments march in window, key or merge order."""
     bad = unsupported_fields(config)
     if config.camera_model != CameraModel.PINHOLE:
         bad.append(f"camera_model={config.camera_model.value} (mesh bounces)")
     if config.sh_degree != 0:
         bad.append(f"sh_degree={config.sh_degree} (mesh bounces)")
-    if config.bounce_order not in ("window", "key"):
+    if config.bounce_order not in ("window", "key", "merge"):
         bad.append(f"bounce_order={config.bounce_order!r}")
     return bad
 

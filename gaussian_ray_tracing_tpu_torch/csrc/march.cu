@@ -6,39 +6,39 @@
 #include "march.cuh"
 
 namespace k1 {
-template cudaError_t launch_k<1>(const Params&, int, bool, int, int, cudaStream_t);
-extern template cudaError_t launch_k<4>(const Params&, int, bool, int, int, cudaStream_t);
-extern template cudaError_t launch_k<9>(const Params&, int, bool, int, int, cudaStream_t);
-extern template cudaError_t launch_k<16>(const Params&, int, bool, int, int, cudaStream_t);
+template cudaError_t launch_k<1>(const Params&, int, int, int, int, cudaStream_t);
+extern template cudaError_t launch_k<4>(const Params&, int, int, int, int, cudaStream_t);
+extern template cudaError_t launch_k<9>(const Params&, int, int, int, int, cudaStream_t);
+extern template cudaError_t launch_k<16>(const Params&, int, int, int, int, cudaStream_t);
 }  // namespace k1
 
 extern "C" const char* grt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// key_order 0: window order; 1: key order. tin and chunk_base non-null:
-// saved carries (the training forward, on the training rows; at most 256
-// rays per tile, no window, carry-in or block array), in key order on the
-// quad response and in window order on the scalar response from per-ray
-// `origins`. stride: floats per row, at least the staged quad columns, or
-// 29 + 3K with origins or saved carries, whose rows are the scalar (or
-// training) rows. origins, t_lo_arr, t_hi_arr, t0 and blocks may each be
+// order 0: window order; 1: key order; 2: merge order. tin and chunk_base
+// non-null: saved carries (the training forward, on the training rows; at
+// most 256 rays per tile, no window, carry-in or block array), in key order
+// on the quad response and in window order on the scalar response from
+// per-ray `origins`; never in merge order. stride: floats per row, at
+// least the staged quad columns, or 29 + 3K with origins or saved carries,
+// whose rows are the scalar (or training) rows. origins, t_lo_arr, t_hi_arr, t0 and blocks may each be
 // null (see Params). full_range: no window, origin or block array is
 // given. sh_k: SH coefficients per channel, K = 1, 4, 9 or 16.
 extern "C" int grt_march(const void* starts, const void* feats, const void* dirs, void* rgb,
                          void* t_final, void* tin, const void* chunk_base, const void* origins,
                          const void* t_lo_arr, const void* t_hi_arr, const void* t0,
                          const void* blocks, int block_sub, int n_tiles, int rays_per_tile,
-                         int chunk, int stride, int key_order, int full_range, float t_lo,
+                         int chunk, int stride, int order, int full_range, float t_lo,
                          float t_hi, float min_t, float t_skip, float alpha_min,
                          float alpha_clamp, int hit_multiplicity, int sh_k, void* stream) {
   using namespace k1;
   const bool sh_ok = sh_k == 1 || sh_k == 4 || sh_k == 9 || sh_k == 16;
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
-      !sh_ok || stride < min_stride(origins || tin, sh_k) ||
+      !sh_ok || order < 0 || order > 2 || stride < min_stride(origins || tin, sh_k) ||
       (tin != nullptr) != (chunk_base != nullptr) ||
-      (tin && (t_lo_arr || t_hi_arr || t0 || blocks || rays_per_tile > 256 ||
-               (key_order != 0) == (origins != nullptr))) ||
+      (tin && (t_lo_arr || t_hi_arr || t0 || blocks || rays_per_tile > 256 || order == 2 ||
+               (order == 1) == (origins != nullptr))) ||
       block_sub < 1 || chunk % block_sub != 0 || (block_sub > 1 && !blocks) ||
       (full_range != 0) != !(origins || t_lo_arr || t_hi_arr || blocks))
     return (int)cudaErrorInvalidValue;
@@ -49,11 +49,10 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
            (const int*)blocks, block_sub, stride, full_range, t_lo, t_hi, min_t, t_skip,
            alpha_min, alpha_clamp, hit_multiplicity};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool key = key_order != 0;
   switch (sh_k) {
-    case 1: return (int)launch_k<1>(p, chunk, key, n_tiles, rays_per_tile, s);
-    case 4: return (int)launch_k<4>(p, chunk, key, n_tiles, rays_per_tile, s);
-    case 9: return (int)launch_k<9>(p, chunk, key, n_tiles, rays_per_tile, s);
-    default: return (int)launch_k<16>(p, chunk, key, n_tiles, rays_per_tile, s);
+    case 1: return (int)launch_k<1>(p, chunk, order, n_tiles, rays_per_tile, s);
+    case 4: return (int)launch_k<4>(p, chunk, order, n_tiles, rays_per_tile, s);
+    case 9: return (int)launch_k<9>(p, chunk, order, n_tiles, rays_per_tile, s);
+    default: return (int)launch_k<16>(p, chunk, order, n_tiles, rays_per_tile, s);
   }
 }

@@ -5,16 +5,17 @@
 // Replaces the Pallas kernel `_march_kernel` (wrapper `pallas_march_stream`)
 // of gaussian_ray_tracing_tpu/ops/pallas_march.py in the modes the primary
 // render, the training forwards, the mesh tracer and the rolling shutter
-// use: SH degree 0 to 3, in window order or in key order, with either the
+// use: SH degree 0 to 3, in window, key or merge order, with either the
 // quad response and a shared ray origin (full [t_min, t_max] rays, or
 // segments with per-ray windows and a carry-in) or the scalar response with
 // per-ray origins (rolling shutter on the pair stream; bounced rays over
 // the Morton-block table; see "Segments" below; window-order training,
 // every ray's origin the eye). The semantics, per-tile decisions included, are
 // those of ops/march.py, whose plain torch version `march_plain` is the
-// reference this kernel is tested against. The two orders are two
-// __global__ functions: `march_kernel` (window) and `march_key_kernel`
-// (key), each instantiated per chunk C, response (quad or scalar), SH
+// reference this kernel is tested against. The three orders are three
+// __global__ functions: `march_kernel` (window), `march_key_kernel` (key)
+// and `march_merge_kernel` (merge, render only; see "Merge order" below),
+// each instantiated per chunk C, response (quad or scalar), SH
 // coefficient count K = (degree + 1)^2 in {1, 4, 9, 16} and kTrain, the
 // saved carries of the training forward on the training rows (built for
 // the key kernel on the quad response and the window kernel on the scalar
@@ -68,6 +69,37 @@
 // min_transmittance. The prefix of log1p(-a) is summed sequentially per
 // ray, in the order the backward sums it.
 //
+// Merge order (pallas_march.py:352-363, 677-742, 974-982), the same block
+// layout, staging, response, gate and colour code, but the TPU kernel's
+// bitonic sort and merge networks replaced by per-thread lists. Each ray
+// keeps a pending buffer of C (key, alpha, 3x10-bit colour pack) slots in
+// local memory, ascending by key, empty slots INT32_MIN with alpha 0 (12 C
+// bytes), and a list of the chunk's C keys (4 C bytes; the source index
+// rides in the key's low 8 bits, so alpha and colour are recomputed from
+// the staged rows when needed, as the window kernel's pass 2 does). Per
+// chunk, after the tile-wide skip:
+//   1. keys: kb = bits(max(t_event, 0)) & ~0xFF for a significant (a > 0)
+//      candidate, else the running max of the significant kb before it
+//      (INT32_MIN before the first; tail slots past the segment too), OR
+//      the source index;
+//   2. the fast test, TILE-WIDE (__syncthreads_and): no ray sees a
+//      significant kb below the running max, and every ray's least
+//      significant kb is at or above the largest key of its pending slots
+//      with a > 0. It decides what composites before the next chunk's skip
+//      test, so a per-ray choice would change skips, not only rounding;
+//   3. fast: composite the pending buffer as it stands; the chunk in stream
+//      order (keys, exact alphas, packed colours) becomes the pending buffer;
+//   4. slow: insertion-sort the chunk's keys (the depth-presorted stream is
+//      nearly ordered, so few shifts) and merge them with the pending
+//      buffer by two pointers (pending first on equal keys): the C smallest
+//      of the union composite, the C largest become the pending buffer
+//      (written in place into slots the merge has consumed).
+// Every composited colour goes through the pack; alphas are exact. After
+// the last chunk the pending buffer composites (T only moves while T >
+// min_t). The TPU's bitonic merge duplicates one payload on equal keys
+// between pending and chunk (the same kb and source index in two chunks);
+// this kernel and march_plain keep both, pending first.
+//
 // Rows (`stride` floats apart). Quad: at SH 0 the 16-float compact rows
 // [op, q00 q11 q22 q01 q02 q12, vx vy vz, cq, oo, r g b, pad] or the
 // 32-float training rows, whose first 16 floats are those; at SH 1-3
@@ -99,7 +131,11 @@
 // divides each, plus the local-memory insertion sort in fired chunks, and
 // at SH 1-3 a 3K-term colour per significant candidate (recomputed for the
 // listed ones of fired chunks); in key order one evaluation with one exp
-// and one divide, plus the colour. The float math stays IEEE float32 with
+// and one divide, plus the colour; in merge order two evaluations (keys,
+// then the candidates that move into the pending buffer or composite) and
+// 16 C bytes of local memory per ray, which the pending buffer and the
+// per-chunk merge walk in full (a simple first kernel: its registers,
+// spills and time are in PERF.md). The float math stays IEEE float32 with
 // no FMA contraction (the wrapper builds with -fmad=false): pp = oo -
 // od^2/dd cancels by orders of magnitude, and matching the plain version's
 // per-operation rounding keeps kernel and reference comparable. No tensor
@@ -387,6 +423,12 @@ struct Composite {
   __device__ __forceinline__ float t_next() const { return below ? frozen : t0 * expf(s); }
 };
 
+// Composite one candidate whose colour rides the 3x10-bit pack.
+__device__ __forceinline__ void add_packed(Composite& comp, float a, uint32_t cp, float min_t) {
+  comp.add(a, (float)((cp >> 20) & 1023u) * kInvCol, (float)((cp >> 10) & 1023u) * kInvCol,
+           (float)(cp & 1023u) * kInvCol, min_t);
+}
+
 __device__ __forceinline__ Ray load_ray(const Params& p) {
   Ray ray;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -516,9 +558,7 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_kernel(Params p) {
           a = (float)(keys[k] & 32767u) * kInvA;
         }
         row_color<K>(sf + i * W + kCol, basis, cr, cg, cb);
-        const uint32_t cp = pack_color(cr, cg, cb);
-        comp.add(a, (float)((cp >> 20) & 1023u) * kInvCol, (float)((cp >> 10) & 1023u) * kInvCol,
-                 (float)(cp & 1023u) * kInvCol, p.min_t);
+        add_packed(comp, a, pack_color(cr, cg, cb), p.min_t);
       }
     }
     const float t_next = comp.t_next();
@@ -580,23 +620,141 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p
   store_ray(p, acc_r, acc_g, acc_b, T);
 }
 
-// One launch of the order's kernel; the staged rows take C * W floats of
-// dynamic shared memory, above 48 KB (SH 3 at C = 256: 61,440 B) only
-// after opting in. Saved carries (the training forward, at most 256 rays
-// per tile) run the key kernel on the quad response and the window kernel
-// on the scalar one (per-ray origins, each the eye), as JAX's training
-// forwards do (pallas_renderer.py:234-238); no other training variant is
-// built.
 template <int C, bool kScalar, int K>
-cudaError_t launch_mode(const Params& p, bool key_order, int n_tiles, int R, cudaStream_t stream) {
-  void (*kernel)(Params) =
-      key_order ? march_key_kernel<C, kScalar, K, false> : march_kernel<C, kScalar, K, false>;
+__global__ void __launch_bounds__(1024) march_merge_kernel(Params p) {
+  constexpr int W = staged_width<kScalar, K>();
+  constexpr int kCol = color_column<kScalar>();
+  extern __shared__ float sf[];  // C * W staged floats
+  __shared__ float red[32];
+
+  const int tile = blockIdx.x;
+  const int start = p.starts[tile];
+  const int n = p.starts[tile + 1] - start;
+  const Ray ray = load_ray(p);
+  float basis[K];
+  if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+
+  // the pending buffer, ascending by key, and the chunk's keys
+  int32_t pk[C], ck[C];
+  float pa[C];
+  uint32_t pc[C];
+  for (int i = 0; i < C; ++i) {
+    pk[i] = INT32_MIN;
+    pa[i] = 0.f;
+    pc[i] = 0u;
+  }
+  // alpha and colour pack of staged candidate i (0 past the segment)
+  auto candidate = [&](int i, int m, float& a, uint32_t& cp) {
+    float t_ev, cr, cg, cb;
+    a = 0.f;
+    cp = 0u;
+    if (i < m) evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
+    if (a > 0.f) {
+      row_color<K>(sf + i * W + kCol, basis, cr, cg, cb);
+      cp = pack_color(cr, cg, cb);
+    }
+  };
+
+  float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  for (int j = 0; j * C < n; ++j) {
+    // tile-wide chunk skip (T never changes once every ray is below it)
+    if (block_reduce(T, true, red) <= p.t_skip) break;
+    const int m = min(C, n - j * C);
+    __syncthreads();  // the previous chunk is done with sf
+    stage<C, kScalar, K, false>(sf, p, start, j, m);
+    __syncthreads();
+
+    int32_t rmax = INT32_MIN, new_min = INT32_MAX;
+    bool inv = false;
+    for (int i = 0; i < C; ++i) {
+      float t_ev, a = 0.f;
+      if (i < m) evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
+      if (a > 0.f) {
+        const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
+        inv |= kb < rmax;
+        rmax = max(rmax, kb);
+        new_min = min(new_min, kb);
+        ck[i] = kb | i;
+      } else {
+        ck[i] = rmax | i;
+      }
+    }
+    int32_t pend_max = INT32_MIN;
+    for (int i = 0; i < C; ++i)
+      if (pa[i] > 0.f) pend_max = max(pend_max, pk[i]);
+    const bool fast = __syncthreads_and(!inv && new_min >= pend_max);
+
+    Composite comp(T);
+    if (fast) {
+      for (int i = 0; i < C; ++i)
+        if (pa[i] > 0.f) add_packed(comp, pa[i], pc[i], p.min_t);
+      for (int i = 0; i < C; ++i) {
+        pk[i] = ck[i];
+        candidate(i, m, pa[i], pc[i]);
+      }
+    } else {
+      for (int i = 1; i < C; ++i) {  // keys are unique within the chunk
+        const int32_t key = ck[i];
+        int pos = i;
+        for (; pos > 0 && ck[pos - 1] > key; --pos) ck[pos] = ck[pos - 1];
+        ck[pos] = key;
+      }
+      int ip = 0, ic = 0;
+      for (int k = 0; k < 2 * C; ++k) {
+        int32_t key;
+        float a;
+        uint32_t cp;
+        if (ic == C || (ip < C && pk[ip] <= ck[ic])) {
+          key = pk[ip];
+          a = pa[ip];
+          cp = pc[ip];
+          ++ip;
+        } else {
+          key = ck[ic++];
+          candidate(key & 255, m, a, cp);
+        }
+        if (k < C) {
+          if (a > 0.f) add_packed(comp, a, cp, p.min_t);
+        } else {  // slot k - C <= ip - 1 was already read
+          pk[k - C] = key;
+          pa[k - C] = a;
+          pc[k - C] = cp;
+        }
+      }
+    }
+    const float t_next = comp.t_next();
+    T = T > p.min_t ? t_next : T;
+    acc_r += comp.r;
+    acc_g += comp.g;
+    acc_b += comp.b;
+  }
+
+  Composite comp(T);  // flush the pending buffer
+  for (int i = 0; i < C; ++i)
+    if (pa[i] > 0.f) add_packed(comp, pa[i], pc[i], p.min_t);
+  const float t_next = comp.t_next();
+  T = T > p.min_t ? t_next : T;
+  store_ray(p, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
+}
+
+// One launch of the order's kernel (order 0 window, 1 key, 2 merge); the
+// staged rows take C * W floats of dynamic shared memory, above 48 KB (SH 3
+// at C = 256: 61,440 B) only after opting in. Saved carries (the training
+// forward, at most 256 rays per tile) run the key kernel on the quad
+// response and the window kernel on the scalar one (per-ray origins, each
+// the eye), as JAX's training forwards do (pallas_renderer.py:234-238); no
+// other training variant is built, and merge order never trains.
+template <int C, bool kScalar, int K>
+cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStream_t stream) {
+  void (*kernel)(Params) = order == 2   ? march_merge_kernel<C, kScalar, K>
+                           : order == 1 ? march_key_kernel<C, kScalar, K, false>
+                                        : march_kernel<C, kScalar, K, false>;
   if (p.tin) {
     if constexpr (kScalar)
       kernel = march_kernel<C, true, K, true>;
     else
       kernel = march_key_kernel<C, false, K, true>;
-    if (key_order == kScalar || R > 256) return cudaErrorInvalidValue;
+    if ((order == 1) == kScalar || order == 2 || R > 256) return cudaErrorInvalidValue;
   }
   const int smem = (int)sizeof(float) * C * staged_width<kScalar, K>();
   if (smem > 48 * 1024) {
@@ -609,22 +767,22 @@ cudaError_t launch_mode(const Params& p, bool key_order, int n_tiles, int R, cud
 }
 
 template <int C, int K>
-cudaError_t launch(const Params& p, bool key_order, int n_tiles, int R, cudaStream_t stream) {
-  return p.origins ? launch_mode<C, true, K>(p, key_order, n_tiles, R, stream)
-                   : launch_mode<C, false, K>(p, key_order, n_tiles, R, stream);
+cudaError_t launch(const Params& p, int order, int n_tiles, int R, cudaStream_t stream) {
+  return p.origins ? launch_mode<C, true, K>(p, order, n_tiles, R, stream)
+                   : launch_mode<C, false, K>(p, order, n_tiles, R, stream);
 }
 
 // Every chunk of SH coefficient count K; explicitly instantiated for K = 1
 // in march.cu and for K = 4, 9, 16 in march_sh1.cu, march_sh2.cu and
 // march_sh3.cu.
 template <int K>
-cudaError_t launch_k(const Params& p, int chunk, bool key_order, int n_tiles, int R,
+cudaError_t launch_k(const Params& p, int chunk, int order, int n_tiles, int R,
                      cudaStream_t stream) {
   switch (chunk) {
-    case 32: return launch<32, K>(p, key_order, n_tiles, R, stream);
-    case 64: return launch<64, K>(p, key_order, n_tiles, R, stream);
-    case 128: return launch<128, K>(p, key_order, n_tiles, R, stream);
-    case 256: return launch<256, K>(p, key_order, n_tiles, R, stream);
+    case 32: return launch<32, K>(p, order, n_tiles, R, stream);
+    case 64: return launch<64, K>(p, order, n_tiles, R, stream);
+    case 128: return launch<128, K>(p, order, n_tiles, R, stream);
+    case 256: return launch<256, K>(p, order, n_tiles, R, stream);
     default: return cudaErrorInvalidValue;
   }
 }

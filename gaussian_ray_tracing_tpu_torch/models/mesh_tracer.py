@@ -1,5 +1,5 @@
 """Secondary-ray tracer: gaussians plus inserted triangle meshes with mirror,
-glass and normal bounces (counterpart of the fast paths of
+glass and normal bounces (counterpart of
 gaussian_ray_tracing_tpu/models/mesh_tracer.py).
 
 A bounded bounce loop over the whole tiled ray batch carries the
@@ -23,9 +23,13 @@ carry-in T); later bounces march the Morton-sorted gaussian table with K1
 in block mode (per-ray origins, scalar response). `render_with_mesh_planar_
 mirror`: one planar MIRROR rectangle; bounce 1 is the pinhole frame of the
 reflected camera, so it runs K1 twice in segment mode and no K4.
-`render_with_mesh` picks between them. The exact oracle is not ported yet,
-so there is no oracle dispatch. `use_kernels=False` runs the plain torch
-versions of the kernels on any device.
+`render_with_mesh_oracle`: the exact reference on flat ray batches
+(`render_rays_with_mesh`), every bounce a brute-force closest hit
+(ops/intersect.closest_hit) and an exact per-ray-sorted gaussian segment
+(models/oracle.render_rays_oracle), plain torch on the scene's device, any
+camera model and SH degree. `render_with_mesh` picks the oracle when told
+to, else the planar-mirror or the fast path. `use_kernels=False` runs the
+plain torch versions of the kernels on any device.
 
 The JAX package's `lax.cond(any live)` between bounces is one host-read
 bool per bounce here. Liveness inside a bounce uses max(min_transmittance,
@@ -47,7 +51,8 @@ from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays, untile_image
 from gaussian_ray_tracing_tpu_torch.ops.blocks import (
     block_stream, build_block_index, bundle_rays, cull_blocks,
 )
-from gaussian_ray_tracing_tpu_torch.ops.intersect import reflect, refract_or_tir
+from gaussian_ray_tracing_tpu_torch.models.oracle import frame_from_rays, render_rays_oracle
+from gaussian_ray_tracing_tpu_torch.ops.intersect import closest_hit, reflect, refract_or_tir
 from gaussian_ray_tracing_tpu_torch.ops.march import chunk_for, march, march_plain
 from gaussian_ray_tracing_tpu_torch.ops.response import adaptive_radius, dot3
 from gaussian_ray_tracing_tpu_torch.ops.tiles import count_pairs, num_tiles
@@ -105,6 +110,98 @@ def _interp_normal(mesh_n, faces, face, u, v):
     return n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-12)
 
 
+def _new_payload(o: torch.Tensor, d: torch.Tensor) -> dict:
+    """The reference's per-ray payload before the first bounce (`...` is the
+    ray batch): origin, direction, accumulated colour and alpha, direct
+    light, blocking radiance, bounce count, gaussian transmittance, done."""
+    z = lambda dtype=torch.float32: torch.zeros(d.shape[:-1], dtype=dtype, device=d.device)
+    return dict(o=o, d=d, accum_color=torch.zeros_like(d), direct_light=torch.zeros_like(d),
+                accum_alpha=z(), blocking=z(), bounces=z(_I32), trans=z() + 1.0,
+                done=z(torch.bool))
+
+
+def _bounce(p: dict, live, has_hit, t_hit, face, normal, rgb_seg, t_next, face_types,
+            config: RenderConfig, glass_ratio: float) -> dict:
+    """The payload after one bounce's gaussian segment (tracer.cu:59-106):
+    a miss is the final gaussian pass (direct light), a hit adds the
+    segment and the blocking radiance, then the surface interaction; both
+    add the direct light through (1 - blocking)."""
+    e = lambda x: x[..., None]
+    clamp01 = lambda x: torch.clamp(x, 0.0, 1.0)
+    density_total = 1.0 - t_next
+    miss = live & ~has_hit
+    direct_light = torch.where(e(miss), rgb_seg * e(density_total), p["direct_light"])
+    accum_alpha = torch.where(miss, clamp01(p["accum_alpha"] + density_total), p["accum_alpha"])
+    accum_color = torch.where(e(has_hit), p["accum_color"] + e(1.0 - accum_alpha) * rgb_seg,
+                              p["accum_color"])
+    accum_alpha = torch.where(has_hit, clamp01(accum_alpha + density_total), accum_alpha)
+    blocking = torch.where(has_hit, clamp01(p["blocking"] + density_total), p["blocking"])
+    new_d, new_bounces, t_shift, terminate_hit, accum_color, accum_alpha = _surface_interaction(
+        p["d"], normal, t_hit, has_hit, face, face_types, rgb_seg, density_total, accum_color,
+        accum_alpha, p["bounces"], config, glass_ratio)
+    # on the final miss blocking holds its pre-miss value
+    accum_color = torch.where(e(live), accum_color + direct_light * e(1.0 - blocking), accum_color)
+    return dict(o=torch.where(e(has_hit), p["o"] + e(t_shift) * p["d"], p["o"]),
+                d=torch.where(e(has_hit & ~terminate_hit), new_d, 0.0),
+                accum_color=accum_color, direct_light=direct_light, accum_alpha=accum_alpha,
+                blocking=blocking, bounces=torch.where(has_hit, new_bounces, p["bounces"]),
+                trans=t_next, done=p["done"] | miss | terminate_hit | ~live)
+
+
+def render_rays_with_mesh(scene: GaussianScene, mesh: TriangleMesh, origins: torch.Tensor,
+                          dirs: torch.Tensor, config: RenderConfig, loop_bound: int = 8,
+                          ray_chunk: int = 4096):
+    """Trace a flat ray batch (R, 3) through mesh bounces and exact gaussian
+    segments (module docstring; the reference's per-ray payload). The whole
+    bounce loop runs per chunk of `ray_chunk` rays; loop_bound caps the
+    bounces (the reference's per-ray loop runs to 32). A bounce marches only
+    its live rays: a dead ray's segment adds nothing and keeps its T, and
+    once no ray is live no later bounce changes anything. Returns
+    (accum_color (R, 3), accum_alpha (R,))."""
+    R = origins.shape[0]
+    if R > ray_chunk:
+        parts = [render_rays_with_mesh(scene, mesh, origins[s:s + ray_chunk],
+                                       dirs[s:s + ray_chunk], config, loop_bound, ray_chunk)
+                 for s in range(0, R, ray_chunk)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    mesh = mesh.to(origins.device)
+    wv, wn = mesh.world_vertices(), mesh.world_normals()
+    faces = mesh.faces.long()
+    v0, v1, v2 = wv[faces[:, 0]], wv[faces[:, 1]], wv[faces[:, 2]]
+    glass_ratio = config.glass_ior / config.air_ior
+    p = _new_payload(origins, dirs)
+    for _ in range(loop_bound):
+        o, d, trans = p["o"], p["d"], p["trans"]
+        live = ((~p["done"]) & (torch.sum(d * d, dim=-1) > 0.01)
+                & (p["bounces"] < config.max_bounces) & (trans > config.min_transmittance))
+        if not bool(live.any()):
+            break
+        hit = closest_hit(o, d, v0, v1, v2, config.mesh_t_min, config.mesh_t_max)
+        has_hit = hit.hit & live
+        seg_hi = torch.where(has_hit, hit.t, config.t_max)
+        idx = live.nonzero().squeeze(1)
+        rgb_seg, t_next = torch.zeros_like(d), trans.clone()
+        rgb_seg[idx], _, t_next[idx] = render_rays_oracle(
+            scene, o[idx], d[idx], config, t_lo=config.t_min, t_hi=seg_hi[idx], t0=trans[idx],
+            ray_chunk=ray_chunk)
+        p = _bounce(p, live, has_hit, hit.t, hit.face,
+                    _interp_normal(wn, faces, hit.face, hit.u, hit.v), rgb_seg, t_next,
+                    mesh.face_types, config, glass_ratio)
+    return p["accum_color"], p["accum_alpha"]
+
+
+def render_with_mesh_oracle(scene: GaussianScene, mesh: TriangleMesh, camera: Camera,
+                            config: RenderConfig = RenderConfig(), loop_bound: int = 8,
+                            ray_chunk: int = 4096) -> dict:
+    """Full-frame mesh render on the exact oracle (the reference's
+    semantics, O(rays x gaussians) per bounce): {rgb (H, W, 3) in [0, 1],
+    alpha (H, W)}, on the scene's device."""
+    origins, dirs, valid = generate_rays(camera, config)
+    rgb, alpha = render_rays_with_mesh(scene, mesh, origins.reshape(-1, 3), dirs.reshape(-1, 3),
+                                       config, loop_bound=loop_bound, ray_chunk=ray_chunk)
+    return frame_from_rays(rgb, alpha, valid)
+
+
 def render_with_mesh_fast(scene: GaussianScene, mesh: TriangleMesh, camera: Camera,
                           config: RenderConfig = RenderConfig(), loop_bound: int = 4,
                           pair_capacity: int | None = None, block_capacity: int | None = None,
@@ -157,17 +254,13 @@ def render_with_mesh_fast(scene: GaussianScene, mesh: TriangleMesh, camera: Came
     bsub = max(1, config.bounce_blocks_per_chunk)
     skip_live = max(config.min_transmittance, config.chunk_skip_transmittance)
 
-    shape = d_t.shape[:2]
-    f32 = dict(dtype=torch.float32, device=d_t.device)
-    accum_color, direct_light = torch.zeros(d_t.shape, **f32), torch.zeros(d_t.shape, **f32)
-    accum_alpha, blocking = torch.zeros(shape, **f32), torch.zeros(shape, **f32)
-    bounces = torch.zeros(shape, dtype=_I32, device=d_t.device)
-    trans = torch.ones(shape, **f32)
-    done = torch.zeros(shape, dtype=torch.bool, device=d_t.device)
+    p = _new_payload(o_t, d_t)
     drops = torch.zeros((), dtype=_I32, device=d_t.device)
 
     for bounce in range(loop_bound):
-        moving = (~done) & (torch.sum(d_t * d_t, dim=-1) > 0.01) & (bounces < config.max_bounces)
+        o_t, d_t, trans = p["o"], p["d"], p["trans"]
+        moving = ((~p["done"]) & (torch.sum(d_t * d_t, dim=-1) > 0.01)
+                  & (p["bounces"] < config.max_bounces))
         if bounce and not bool((moving & (trans > config.min_transmittance)).any()):
             break  # every later bounce would leave the state as it is
         live = moving & (trans > skip_live)
@@ -203,37 +296,12 @@ def render_with_mesh_fast(scene: GaussianScene, mesh: TriangleMesh, camera: Came
         if record is not None:
             record.append({"k4": k4_call, "k1": k1_call})
         rgb_seg, t_next = k1(*k1_call[0], **k1_call[1])
-        density_total = 1.0 - t_next
-
-        miss = live & ~has_hit  # the final gaussian pass
-        direct_light = torch.where(miss[..., None], rgb_seg * density_total[..., None],
-                                   direct_light)
-        accum_alpha = torch.where(miss, torch.clamp(accum_alpha + density_total, 0.0, 1.0),
-                                  accum_alpha)
-        accum_color = torch.where(has_hit[..., None],
-                                  accum_color + (1.0 - accum_alpha)[..., None] * rgb_seg,
-                                  accum_color)
-        accum_alpha = torch.where(has_hit, torch.clamp(accum_alpha + density_total, 0.0, 1.0),
-                                  accum_alpha)
-        blocking = torch.where(has_hit, torch.clamp(blocking + density_total, 0.0, 1.0),
-                               blocking)
-
         normal = _interp_normal(wn, faces, face.reshape(-1), hu.reshape(-1),
                                 hv.reshape(-1)).reshape(d_t.shape)
-        new_d, new_bounces, t_shift, terminate_hit, accum_color, accum_alpha = \
-            _surface_interaction(d_t, normal, t_hit, has_hit, face, mesh.face_types, rgb_seg,
-                                 density_total, accum_color, accum_alpha, bounces, config,
-                                 glass_ratio)
-        accum_color = torch.where(live[..., None],
-                                  accum_color + direct_light * (1.0 - blocking)[..., None],
-                                  accum_color)
-        o_t = torch.where(has_hit[..., None], o_t + t_shift[..., None] * d_t, o_t)
-        d_t = torch.where(has_hit[..., None] & ~terminate_hit[..., None], new_d, 0.0)
-        bounces = torch.where(has_hit, new_bounces, bounces)
-        trans = t_next
-        done = done | miss | terminate_hit | ~live
+        p = _bounce(p, live, has_hit, t_hit, face, normal, rgb_seg, t_next, mesh.face_types,
+                    config, glass_ratio)
 
-    out = frame_image(accum_color, accum_alpha, valid, camera, config)
+    out = frame_image(p["accum_color"], p["accum_alpha"], valid, camera, config)
     out["aux"] = {"block_dropped": int(drops), "pair_dropped": int(stream.n_dropped)}
     return out
 
@@ -368,10 +436,16 @@ def render_with_mesh_planar_mirror(scene: GaussianScene, camera: Camera, config:
 
 
 def render_with_mesh(scene: GaussianScene, mesh: TriangleMesh, camera: Camera,
-                     config: RenderConfig = RenderConfig(), use_kernels: bool = True, **kw):
-    """Full-frame render with mesh bounces: the planar-mirror path when the
-    mesh is one planar MIRROR rectangle and no loop_bound is given, else the
-    fast path. kw: loop_bound, pair_capacity, block_capacity, chunk."""
+                     config: RenderConfig = RenderConfig(), use_kernels: bool = True,
+                     oracle: bool = False, **kw):
+    """Full-frame render with mesh bounces: with `oracle`, the exact oracle
+    (kw: loop_bound, ray_chunk; it drops nothing); else the planar-mirror
+    path when the mesh is one planar MIRROR rectangle and no loop_bound is
+    given, else the fast path (kw: loop_bound, pair_capacity,
+    block_capacity, chunk)."""
+    if oracle:
+        out = render_with_mesh_oracle(scene, mesh, camera, config, **kw)
+        return {**out, "aux": {"block_dropped": 0, "pair_dropped": 0}}
     plane = planar_mirror_plane(mesh, config)
     if plane is not None and "loop_bound" not in kw:
         return render_with_mesh_planar_mirror(scene, camera, config, plane,

@@ -1,13 +1,14 @@
 """Top-level rendering API (counterpart of
 gaussian_ray_tracing_tpu/models/renderer.py).
 
-`render()` picks the kernel path or the plain torch path, and the mesh
-tracer when a mesh is given, optionally supersampled; `render_diff()` the
-same for the differentiable training render; the stateful
-`GaussianRayTracer` holds the scene (on CUDA unless told otherwise), frame
-size, camera, camera model and mesh primitives (plane, sphere, OBJ), each
-with an optional material type. Rolling-shutter frames are
-models/rolling.render_rolling.
+`render()` picks the kernel path, the plain torch path or the exact
+oracle, and the mesh tracer when a mesh is given, optionally
+supersampled; `render_diff()` the same for the differentiable training
+render; the stateful `GaussianRayTracer` holds the scene (on CUDA unless
+told otherwise), frame size, camera, camera model and mesh primitives
+(plane, sphere, OBJ), each with an optional material type.
+Rolling-shutter frames are models/rolling.render_rolling (and
+render_rolling_oracle).
 """
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ from gaussian_ray_tracing_tpu_torch.cameras import Camera
 from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
 from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import render_gpu, render_gpu_diff
 from gaussian_ray_tracing_tpu_torch.models.mesh_tracer import render_with_mesh
+from gaussian_ray_tracing_tpu_torch.models.oracle import render_oracle
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 from gaussian_ray_tracing_tpu_torch.scene.mesh import (
     TriangleMesh, load_obj, make_plane, make_sphere, merge_meshes,
 )
 
-METHODS = ("auto", "gpu", "plain")
+METHODS = ("auto", "gpu", "plain", "oracle")
 
 
 def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderConfig(),
@@ -34,10 +36,13 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
       "gpu"   -- the CUDA kernels; needs CUDA and CUDA tensors;
       "plain" -- the plain torch versions of the kernels, on any device;
       "auto"  -- "gpu" if the scene's tensors live on CUDA, else "plain"
-                 (tensors are never moved between devices).
+                 (tensors are never moved between devices);
+      "oracle" -- the exact per-ray-sorted oracle (models/oracle.py), plain
+                 torch on the scene's device; it bins no pairs, so its aux
+                 is empty.
     With a mesh, the frame goes through the mesh tracer
-    (models/mesh_tracer.render_with_mesh), whose aux holds block_dropped
-    (planar path: none) and pair_dropped.
+    (models/mesh_tracer.render_with_mesh; "oracle": its exact oracle),
+    whose aux holds block_dropped (planar path: none) and pair_dropped.
 
     supersample=N renders N x N rays per pixel (an (N W) x (N H) frame of
     the same camera) and box-filters them down: anti-aliasing for any
@@ -55,11 +60,17 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
         out["alpha"] = out["alpha"].reshape(H, s, W, s).mean(dim=(1, 3))
         return out
     if mesh is not None:
-        out = render_with_mesh(scene, mesh, camera, config, pair_capacity=pair_capacity,
-                               use_kernels=_use_kernels(scene, method))
+        if method == "oracle":
+            out = render_with_mesh(scene, mesh, camera, config, oracle=True)
+        else:
+            out = render_with_mesh(scene, mesh, camera, config, pair_capacity=pair_capacity,
+                                   use_kernels=_use_kernels(scene, method))
         if not return_aux:
             out.pop("aux")
         return out
+    if method == "oracle":
+        out = render_oracle(scene, camera, config)
+        return {**out, "aux": {}} if return_aux else out
     return render_gpu(scene, camera, config, pair_capacity=pair_capacity,
                       return_aux=return_aux, use_kernels=_use_kernels(scene, method))
 
@@ -176,10 +187,11 @@ class GaussianRayTracer:
         previous frame's pair count (the next power of two above 1.3x), so
         static scenes reuse one allocation size; a frame that outgrows the
         bucket is rebuilt at a snug capacity rather than dropping pairs.
-        With primitives, their merged mesh goes through the mesh tracer."""
-        if self.primitives:
-            return render(self.scene, self.camera, self.config,
-                          mesh=merge_meshes(self.primitives), method=method,
+        With primitives, their merged mesh goes through the mesh tracer.
+        The oracle bins no pairs and leaves the bucket as it is."""
+        if self.primitives or method == "oracle":
+            mesh = merge_meshes(self.primitives) if self.primitives else None
+            return render(self.scene, self.camera, self.config, mesh=mesh, method=method,
                           supersample=supersample)
         out = render(self.scene, self.camera, self.config, method=method,
                      pair_capacity=self._pair_capacity, return_aux=True,

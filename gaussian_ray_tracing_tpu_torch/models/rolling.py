@@ -8,7 +8,8 @@ of its exact footprints at cam0, the midpoint and cam1, binned on the
 midpoint camera with the midpoint pose's central-ray depth key. The march
 is kernel K1 in its per-ray-origin scalar mode over the pair stream (no
 block list), on the scalar rows of ops/march.scalar_features, at any SH
-degree 0 to 3. The exact per-ray rolling oracle waits for the torch oracle.
+degree 0 to 3. `render_rolling_oracle` is the exact per-ray oracle of the
+same rays (models/oracle.py), plain torch on the scene's device.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_supported
 from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
     bin_footprints, check_devices, depth_key, frame_image, snug_pair_capacity,
 )
+from gaussian_ray_tracing_tpu_torch.models.oracle import frame_from_rays, render_rays_oracle
 from gaussian_ray_tracing_tpu_torch.models.tiled import feature_table, tile_rays
 from gaussian_ray_tracing_tpu_torch.ops.march import (
     chunk_for, march, march_plain, scalar_features,
@@ -86,3 +88,13 @@ def render_rolling(scene: GaussianScene, cam0: Camera, cam1: Camera,
     if return_aux:
         out["aux"] = {"n_pairs": n_pairs, "n_dropped": 0}
     return out
+
+
+def render_rolling_oracle(scene: GaussianScene, cam0: Camera, cam1: Camera,
+                          config: RenderConfig = RenderConfig(), ray_chunk: int = 4096) -> dict:
+    """Exact rolling-shutter frame (every ray against every gaussian):
+    {rgb (H, W, 3) in [0, 1], alpha (H, W)}, on the scene's device."""
+    origins, dirs, valid = generate_rays_rolling(cam0, cam1, config)
+    rgb, density, _ = render_rays_oracle(scene, origins.reshape(-1, 3), dirs.reshape(-1, 3),
+                                         config, ray_chunk=ray_chunk)
+    return frame_from_rays(rgb, density, valid)

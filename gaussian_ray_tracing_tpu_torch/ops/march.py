@@ -13,7 +13,9 @@ either
   - key order (config.order == "key", render and training): the sqrt-free
     full-range gate alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0), with
     q(t_lo) = cq + t_lo (2 od + t_lo dd), and a plain stream-order
-    composite (pallas_march.py:552-569, 963-968).
+    composite (pallas_march.py:552-569, 963-968); or
+  - merge order (config.order == "merge", render only): the exact event-t
+    gate and the cross-chunk streaming merge described below.
 
 Each tile (R = tile_w * tile_h rays) owns the contiguous pair segment
 [starts[t], starts[t+1]) and marches it front to back in chunks of c
@@ -31,7 +33,23 @@ candidates, with these per-tile (not per-ray) decisions, as on the TPU:
     quantizes t over the tile-wide [min, max] of significant event t,
     a15 = a*32767, alpha is decoded from the key and colours ride as
     3x10-bit packs over [0, 4), one per (ray, candidate); otherwise the
-    chunk composites in stream order with exact values.
+    chunk composites in stream order with exact values;
+  - merge step (merge order, pallas_march.py:352-363, 677-742, 974-982):
+    each tile keeps a pending buffer of c (key, alpha, colour pack) slots
+    per ray, empty slots INT32_MIN with alpha 0. A candidate's key is kb =
+    bits(max(t_event, 0)) & ~0xFF for a significant one (a > 0), else the
+    exclusive running max of the significant kb before it (INT32_MIN
+    before the first), OR the source index in the low 8 bits. If no ray of
+    the tile sees an inversion among its significant kb and every ray's
+    least significant kb is at or above the largest key of its pending
+    slots with a > 0 (the tile-wide fast test), the pending buffer
+    composites as it stands and the chunk, in stream order, becomes the
+    pending buffer; else each ray composites the c smallest of the
+    ascending union of pending and chunk and keeps the c largest pending.
+    The test is tile-wide because it decides what composites before the
+    next chunk's skip test. Every composited colour rides the 3x10-bit
+    pack; alphas are exact. After the last chunk the pending buffer
+    composites where T > min_transmittance.
 
 Colour (pallas_march.py:640-669): SH degree 0 reads max(0.5 + C0 sh0, 0),
 precomputed per gaussian; degrees 1-3 evaluate max(0.5 + sum_k
@@ -127,6 +145,8 @@ TRAIN_ROW = 32
 T_MX, T_M0, T_RAD, T_SH0 = 16, 19, 28, 29
 _SH0 = 12  # first SH column of the quad SH rows (the JAX table's 14)
 CHUNKS = (32, 64, 128, 256)
+ORDERS = ("window", "key", "merge")  # grt_march's order codes 0, 1, 2
+_IMIN, _IMAX = -(2**31), 2**31 - 1
 _ZBASE = 65535 << 15  # sort key of non-significant candidates (sorts last)
 _F32 = torch.float32
 _PLAIN_BATCH = 1 << 24  # (tile, candidate, ray) elements per plain-march batch
@@ -248,8 +268,11 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
     seg = seg or {}
     if chunk not in CHUNKS:
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
-    if config.order not in ("window", "key"):
+    if config.order not in ORDERS:
         raise NotImplementedError(f"march order {config.order!r} is not ported")
+    if save_tin and config.order == "merge":
+        raise ValueError("order='merge' is a forward-render ordering; training runs window "
+                         "or key order (pallas_march.py:1659-1663)")
     if starts.dtype != torch.int32 or starts.dim() != 1:
         raise ValueError("starts must be (T+1,) int32")
     if not 0 <= config.sh_degree <= 3:
@@ -342,7 +365,7 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
                 starts.data_ptr(), feats.data_ptr(), dirs_t.data_ptr(),
                 rgb.data_ptr(), t_final.data_ptr(), ptr(tin), ptr(chunk_base),
                 ptr(origins_t), ptr(t_lo), ptr(t_hi), ptr(t0), ptr(blocks),
-                block_sub, T, R, chunk, feats.shape[1], int(config.order == "key"),
+                block_sub, T, R, chunk, feats.shape[1], ORDERS.index(config.order),
                 int(_full_range(origins_t, t_lo, t_hi, blocks)),
                 config.t_min, config.t_max, config.min_transmittance,
                 _skip_threshold(config, save_tin), config.alpha_min, config.alpha_clamp,
@@ -351,6 +374,10 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
         check(err, "grt_march")
         march.launches += 1
         key, sh = config.order == "key", config.sh_degree > 0
+        if config.order == "merge":
+            march.merge_launches += 1
+            if blocks is not None:
+                march.merge_block_launches += 1
         if save_tin:
             attr = {(True, False): "save_tin_launches", (False, False): "window_save_tin_launches",
                     (True, True): "sh_key_save_tin_launches",
@@ -365,7 +392,7 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
         if sh and not save_tin:
             if key:
                 march.sh_key_launches += 1
-            else:
+            elif config.order == "window":
                 march.sh_launches += 1
     return (rgb, t_final, tin, chunk_base) if save_tin else (rgb, t_final)
 
@@ -381,6 +408,8 @@ march.block_launches = 0  # block mode (bounced rays over the Morton table)
 march.origin_launches = 0  # per-ray origins on the pair stream (rolling shutter)
 march.sh_launches = 0  # SH degree 1-3, window order (no saved carries)
 march.sh_key_launches = 0  # SH degree 1-3, key order (no saved carries)
+march.merge_launches = 0  # merge order, every mode and SH degree
+march.merge_block_launches = 0  # merge order in block mode (bounced rays)
 
 
 # --- plain torch version ---------------------------------------------------
@@ -526,10 +555,10 @@ def _chunk_rows(tb, j, starts, c, n_rows, blocks, block_sub):
 
 
 def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, block_sub,
-                 train: bool):
-    """March chunk j of tiles `tb` (in place on trans/rgb). Returns the
-    number of significant (a > 0) (ray, candidate) pairs, whose colour the
-    march evaluates."""
+                 train: bool, pend):
+    """March chunk j of tiles `tb` (in place on trans/rgb, and in merge
+    order on the pending buffers `pend`). Returns the number of significant
+    (a > 0) (ray, candidate) pairs, whose colour the march evaluates."""
     idx, present = _chunk_rows(tb, j, starts, c, feats.shape[0], blocks, block_sub)
     f = feats[idx]  # (B, c, row)
     # per-ray lists and tensors are cut to the batch
@@ -541,6 +570,11 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
     t_carry = trans[tb][:, None]  # (B, 1, R)
     if config.order == "key":
         part, t_next = _composite(t_carry, a, cols, min_t)
+    elif config.order == "merge":
+        part, t_next, new = _merge_composite(t_carry, a, t_ev, cols, [x[tb] for x in pend],
+                                             min_t)
+        for x, y in zip(pend, new):
+            x[tb] = y
     else:
         part, t_next = _window_composite(t_carry, a, t_ev, cols, min_t, train)
     tc = trans[tb]
@@ -613,6 +647,44 @@ def _window_composite(t_carry, a, t_ev, cols, min_t: float, train: bool = False)
     return part, t_next
 
 
+def merge_keys(a, t_ev):
+    """(B, c, R) merge keys of a chunk's alphas and event t, and (B,) the
+    tile-wide inversion test: kb = bits(max(t_ev, 0)) & ~0xFF for the
+    significant candidates, else the exclusive running max of the
+    significant kb (INT32_MIN before the first), OR the source index.
+    Returns (keys, kb, has_inv)."""
+    sig = a > 0.0
+    kb = torch.clamp(t_ev, min=0.0).contiguous().view(torch.int32) & ~0xFF
+    run = torch.cummax(torch.where(sig, kb, _IMIN), dim=1).values
+    rmax = torch.cat([torch.full_like(run[:, :1], _IMIN), run[:, :-1]], dim=1)
+    src = torch.arange(a.shape[1], dtype=torch.int32, device=a.device)[None, :, None]
+    keys = torch.where(sig, kb, rmax) | src
+    return keys, kb, (sig & (kb < rmax)).flatten(1).any(dim=1)
+
+
+def _merge_composite(t_carry, a, t_ev, cols, pend, min_t: float):
+    """Merge order, one chunk of (B, c, R) candidates against the tiles'
+    pending buffers pend = [keys, alphas, colour packs] (B, c, R): the
+    tile-wide fast test, then either the pending buffer as it stands or
+    the c smallest of the stably sorted union (pending first on equal
+    keys) composite. Returns (rgb_part (B, R, 3), t_next (B, R), the new
+    pending buffers)."""
+    B, c, R = a.shape
+    pk, pa, pc = pend
+    keys, kb, has_inv = merge_keys(a, t_ev)
+    new_min = torch.where(a > 0.0, kb, _IMAX).amin(dim=1)  # (B, R)
+    pend_max = torch.where(pa > 0.0, pk, _IMIN).amax(dim=1)
+    fast = (~has_inv & (new_min >= pend_max).all(dim=1))[:, None, None]
+    chunk = (keys, a, _pack_colors(cols).expand(B, c, R))
+    mk, perm = torch.sort(torch.cat([pk, keys], dim=1), dim=1, stable=True)
+    union = (mk, torch.gather(torch.cat([pa, a], 1), 1, perm),
+             torch.gather(torch.cat([pc, chunk[2]], 1), 1, perm))
+    ready = [torch.where(fast, p, u[:, :c]) for p, u in zip(pend, union)]
+    new = [torch.where(fast, x, u[:, c:]) for x, u in zip(chunk, union)]
+    part, t_next = _composite(t_carry, ready[1], _unpack_colors(ready[2]), min_t)
+    return part, t_next, new
+
+
 def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
                 save_tin: bool = False, *, origins_t=None, t_lo=None, t_hi=None, t0=None,
                 blocks=None, block_sub: int = 1):
@@ -646,6 +718,12 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         chunk_base = chunk_bases(starts, chunk)
         tin = torch.empty((int(chunk_base[-1]), R), dtype=_F32, device=dev)
     batch = max(1, _PLAIN_BATCH // (chunk * R))
+    pend = None
+    if config.order == "merge":  # empty slots: INT32_MIN keys, alpha 0
+        shape = (T, chunk, R)
+        pend = [torch.full(shape, _IMIN, dtype=torch.int32, device=dev),
+                torch.zeros(shape, dtype=_F32, device=dev),
+                torch.zeros(shape, dtype=torch.int32, device=dev)]
     counts = (starts[1:] - starts[:-1]).long()
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
     significant = torch.zeros((), dtype=torch.int64, device=dev)
@@ -657,7 +735,15 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         evaluated += torch.where(active, torch.clamp(counts - j * chunk, max=chunk), 0).sum()
         for tb in active.nonzero().squeeze(1).split(batch):
             significant += _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, chunk,
-                                        blocks, block_sub, save_tin)
+                                        blocks, block_sub, save_tin, pend)
+    if pend is not None:  # flush the pending buffers
+        min_t = config.min_transmittance
+        for tb in torch.arange(T, device=dev).split(batch):
+            part, t_next = _composite(trans[tb][:, None], pend[1][tb],
+                                      _unpack_colors(pend[2][tb]), min_t)
+            tc = trans[tb]
+            trans[tb] = torch.where(tc > min_t, t_next, tc)
+            rgb[tb] += part
     march_plain.candidates, march_plain.significant = int(evaluated), int(significant)
     if save_tin:
         return rgb, trans, tin, chunk_base

@@ -44,7 +44,7 @@ def test_config_is_frozen_and_hashable():
     dict(camera_model=tcfg.CameraModel.FISHEYE, fisheye_cull=True),
     dict(order="oddeven"),
     dict(compute_dtype="bfloat16"),
-    dict(order="merge"),
+    dict(order="merge", window_key="peak"),
     dict(sh_degree=4),
     dict(conic_cull=True),
     dict(row_span=True),
@@ -64,6 +64,8 @@ def test_defaults_and_bench_config_are_supported():
     tcfg.check_supported(tcfg.RenderConfig())
     tcfg.check_supported(tcfg.RenderConfig(hit_multiplicity=1, march_chunk=128))
     tcfg.check_supported(tcfg.RenderConfig(order="key"))
+    tcfg.check_supported(tcfg.RenderConfig(order="merge", march_chunk=64))
+    tcfg.check_mesh_supported(tcfg.RenderConfig(order="merge", bounce_order="merge"))
     tcfg.check_supported(tcfg.RenderConfig(camera_model=tcfg.CameraModel.FISHEYE, sh_degree=3))
     tcfg.check_supported(tcfg.RenderConfig(camera_model=tcfg.CameraModel.OPENCV,
                                            distortion=(0.1, 0.0, 0.0, 0.0), sh_degree=1))

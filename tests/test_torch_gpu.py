@@ -419,3 +419,78 @@ def test_gpu_fisheye_and_opencv_frames(sh):
         plain = render(scene, _camera(), cfg, method="plain", return_aux=True)
         assert gpu["aux"] == plain["aux"]
         assert psnr(gpu["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy()) >= 60.0
+
+
+# --- merge order: K1's cross-chunk streaming merge; the exact oracle --------
+
+def _merge_case(chunk, degree=0, hm=1, skip=0.02):
+    scene = random_scene(5000, seed=3, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=hm, march_chunk=chunk, order="merge", sh_degree=degree,
+                       chunk_skip_transmittance=skip)
+    stream, feats, _ = prepare_pair_stream(scene, _camera(), cfg, 1 << 18)
+    return cfg, (stream.starts, feats, tile_rays(generate_rays(_camera(), cfg)[1], 16, 16))
+
+
+def _merge_check(args, kw, cfg, chunk, counters=("merge_launches",)):
+    before = [getattr(tmarch.march, c) for c in counters]
+    got = tmarch.march(*args, cfg, chunk, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(tmarch.march, c) for c in counters] == [b + 1 for b in before]
+    want = tmarch.march_plain(*args, cfg, chunk, **kw)
+    for a, b in zip(got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+@pytest.mark.parametrize("hm,skip", [(1, 0.02), (2, 1e-3)])
+def test_merge_kernel_matches_plain(chunk, hm, skip):
+    """K1 merge order on a 5k scene's 256^2 pair stream (quad, shared
+    origin, full range) at the K1 bars."""
+    cfg, args = _merge_case(chunk, hm=hm, skip=skip)
+    _merge_check(args, {}, cfg, chunk)
+
+
+def test_merge_sh3_kernel_matches_plain():
+    cfg, args = _merge_case(128, degree=3)
+    _merge_check(args, {}, cfg, 128)
+
+
+@pytest.mark.parametrize("bsub", [1, 2])
+def test_merge_mesh_modes_match_plain(bsub):
+    """Merge order in segment mode (bounce 0, order="merge") and block mode
+    (bounces 1-2, bounce_order="merge"), as in test_mesh_march_modes."""
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, order="merge", bounce_order="merge")
+    record = _bounce_record(cfg)
+    for rec, counter in ((record[0], "segment_launches"), (record[1], "merge_block_launches"),
+                         (record[2], "merge_block_launches")):
+        args, kw = rec["k1"]
+        if "blocks" in kw and bsub > 1:
+            args = (*args[:4], args[4] * bsub)
+            kw = {**kw, "block_sub": bsub}
+        _merge_check(args[:3], kw, args[3], args[4], ("merge_launches", counter))
+
+
+@pytest.mark.parametrize("name", ["small_pinhole_256", "small_hm2_256", "small_fisheye_256"])
+def test_oracle_and_merge_render_match_goldens(name):
+    """The goldens are float16 frames of the exact oracle: the torch oracle
+    on the card >= 60 dB; the merge render (c=64) >= 40 dB and kernel vs
+    plain >= 60 dB."""
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel
+
+    z = np.load(os.path.join(ROOT, "data", "golden", f"{name}.npz"))
+    n, seed, width, height, hm, fisheye = (int(v) for v in z["meta"])
+    scene = random_scene(n, seed=seed, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=width,
+                        height=height, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=hm, march_chunk=64, order="merge",
+                       camera_model=CameraModel.FISHEYE if fisheye else CameraModel.PINHOLE)
+    ref = z["rgb"].astype(np.float32)
+    with torch.no_grad():
+        oracle = render(scene, cam, cfg, method="oracle")["rgb"].cpu().numpy()
+    assert psnr(oracle, ref) >= 60.0
+    before = tmarch.march.merge_launches
+    gpu = render(scene, cam, cfg, method="gpu")["rgb"].cpu().numpy()
+    assert tmarch.march.merge_launches == before + 1
+    plain = render(scene, cam, cfg, method="plain")["rgb"].cpu().numpy()
+    assert psnr(gpu, ref) >= 40.0 and psnr(gpu, plain) >= 60.0

@@ -202,7 +202,13 @@ def test_march_rejects_unsupported_arguments(stream_inputs):
     with pytest.raises(ValueError):  # saved carries take the training rows only
         tmarch.march(starts, compact, dirs_t, RenderConfig(order="key"), 128, save_tin=True)
     with pytest.raises(NotImplementedError):
-        tmarch.march(starts, compact, dirs_t, RenderConfig(order="merge"), 128)
+        tmarch.march(starts, compact, dirs_t, RenderConfig(order="oddeven"), 128)
+    # merge order is ported (tests/test_torch_merge.py); it never trains
+    rgb, t_final = tmarch.march(starts, compact, dirs_t, RenderConfig(order="merge"), 128)
+    assert rgb.shape == dirs_t.shape and float(t_final.min()) < 0.5
+    with pytest.raises(ValueError, match="merge"):
+        tmarch.march(starts, tmarch.train_features(feats), dirs_t,
+                     RenderConfig(order="merge"), 128, save_tin=True)
 
 
 def _segments(inp, seed):

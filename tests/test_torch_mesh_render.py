@@ -277,9 +277,15 @@ def test_key_bounce_order_and_refusals():
     win = ttracer.render_with_mesh_fast(scene, mesh, cam, cfg.replace(bounce_order="window"),
                                         use_kernels=False)
     assert psnr(out["rgb"].numpy(), win["rgb"].numpy()) >= 40.0  # one gaussian: same order
-    for bad in (dict(bounce_order="merge"), dict(sh_degree=1), dict(order="merge")):
+    for bad in (dict(bounce_order="oddeven"), dict(sh_degree=1), dict(order="oddeven")):
         with pytest.raises(NotImplementedError):
             render(scene, cam, CFG1.replace(**bad), mesh=mesh)
+    # merge order on bounce 0 and on the bounced segments (one gaussian: the
+    # same image as window order)
+    merge = ttracer.render_with_mesh_fast(scene, mesh, cam,
+                                          cfg.replace(order="merge", bounce_order="merge"),
+                                          use_kernels=False)
+    assert psnr(merge["rgb"].numpy(), win["rgb"].numpy()) >= 40.0
     from gaussian_ray_tracing_tpu_torch.config import CameraModel
 
     with pytest.raises(NotImplementedError):

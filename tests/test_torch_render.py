@@ -128,8 +128,12 @@ def test_gpu_method_never_falls_back_to_cpu():
         render(scene, cam, RenderConfig(), method="gpu")
     with pytest.raises(ValueError):
         render(scene, cam, RenderConfig(), method="pallas")
+    with pytest.raises(RuntimeError):  # merge order needs the card for its kernel too
+        render(scene, cam, RenderConfig(order="merge"), method="gpu")
     with pytest.raises(NotImplementedError):
-        render(scene, cam, RenderConfig(order="merge"), method="plain")
+        render(scene, cam, RenderConfig(order="oddeven"), method="plain")
+    merge = render(scene, cam, RenderConfig(order="merge"), method="plain")["rgb"]
+    assert merge.shape == (32, 32, 3) and bool(torch.isfinite(merge).all())
 
 
 def test_tracer_loads_ply_on_cuda_unless_told_otherwise():

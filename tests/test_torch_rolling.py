@@ -70,5 +70,9 @@ def test_rolling_needs_cuda_tensors_for_the_kernels():
     cam = Camera.create(**POSE0)
     with pytest.raises(RuntimeError):
         render_rolling(scene, cam, cam, RenderConfig())
+    with pytest.raises(RuntimeError):  # merge order needs CUDA tensors for K1 too
+        render_rolling(scene, cam, cam, RenderConfig(order="merge"))
     with pytest.raises(NotImplementedError):
-        render_rolling(scene, cam, cam, RenderConfig(order="merge"), use_kernels=False)
+        render_rolling(scene, cam, cam, RenderConfig(order="oddeven"), use_kernels=False)
+    merge = render_rolling(scene, cam, cam, RenderConfig(order="merge"), use_kernels=False)
+    assert bool(torch.isfinite(merge["rgb"]).all())
