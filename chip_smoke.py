@@ -15,8 +15,8 @@ merge mode against its plain version on the golden and camera streams and
 in block mode, the exact torch oracle against the goldens, merge renders
 against all six goldens, a 1280x720 / 100k merge frame, and mirror and
 glass frames with order and bounce_order "merge"), times each against the
-plain path, profiles the fisheye and SH 3 frames and the window and key SH
-3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
+plain path, profiles the 720p/100k, fisheye and SH 3 frames and the window
+and key SH 3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
 SH 3, and --order merge) and `cli fit`, and finally writes the
 NeRF-synthetic dataset of
 data/nerf_fitted/ to build/nerf_fitted/ (400x400 renders of
@@ -33,8 +33,12 @@ reads of its inputs read once, its outputs written once) over 3.35 TB/s
 and the float operations this run's data needs (the (ray, candidate)
 pairs of the chunks its plain version did not skip, times a lower count
 of operations per pair, plus the SH 1-3 colour of the pairs that pass the
-gate) over 67 TFLOP/s, the published H100 SXM peaks at 700 W. Each log
-line carries the seconds since the start.
+gate) over 67 TFLOP/s, the published H100 SXM peaks at 700 W. The K1 and
+K3 rows also carry what explains their time (`design`): the significant
+and fire shares of their stream, the launch's resident blocks per SM and
+shared memory, and the registers, stack frame and spills that ptxas
+reports; the smoke fails if K3 at SH 3 has fewer than two resident blocks
+per SM. Each log line carries the seconds since the start.
 """
 
 from __future__ import annotations
@@ -180,6 +184,49 @@ def tri_bound(args, kw) -> tuple[float, str]:
     per_ray = 3 + 4 + (3 if kw.get("origins_t") is not None else 0)
     nbytes = 4 * (n_blocks * 256 * face_rows.shape[1] + T * R * per_ray + T + 1)
     return bound(nbytes, int((faces * live).sum()) * OPS_TRI)
+
+
+PTXAS = {}  # mangled kernel name: (registers, stack, spill stores, spill loads), from the build
+
+
+def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = False) -> dict:
+    """What explains a K1 ("march") or K3 ("march_bwd") row: the (tile,
+    candidate) slots of the chunks not skipped, the significant share (pairs
+    through the gate over the (ray, candidate) pairs of those chunks) and
+    the fire share (fired chunks over the chunks not skipped; None outside
+    window order) of the plain version's last call, and the launch's
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
+    256 rays), dynamic shared memory, registers, stack frame and spills
+    (-Xptxas -v of the build)."""
+    from gaussian_ray_tracing_tpu_torch.ops import cuda_build
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+
+    plain = kmarch.march_plain if kernel == "march" else kbwd.march_bwd_plain
+    R, K, order = 256, (cfg.sh_degree + 1) ** 2, cfg.order
+    info = cuda_build.launch_info(kernel, chunk, cfg.sh_degree, R, order=order, scalar=scalar,
+                                  train=train)
+    b = lambda x: f"Lb{int(x)}E"
+    if kernel == "march_bwd":
+        name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}"
+    elif order == "window":  # the 256-ray build
+        name = f"12march_kernelILi{chunk}E{b(scalar)}Li{K}E{b(train)}Li256E"
+    elif order == "key":
+        name = f"16march_key_kernelILi{chunk}E{b(scalar)}Li{K}E{b(train)}E"
+    else:
+        name = f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{K}E"
+    regs, stack, st, ld = next((v for k, v in PTXAS.items() if name in k), (None,) * 4)
+    check(regs == info["registers"], f"{kernel} {name}: ptxas says {regs} registers, the "
+                                     f"runtime {info['registers']}")
+    out = {"marched_slots": plain.candidates,
+           "significant_share": plain.significant / max(1, plain.candidates * R),
+           "fire_share": plain.fired / max(1, plain.chunks) if order == "window" else None,
+           "blocks_per_sm": info["blocks_per_sm"], "smem_bytes": info["smem_bytes"],
+           "registers": regs, "stack_bytes": stack, "spill_store_bytes": st,
+           "spill_load_bytes": ld}
+    log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk}" + " scalar" * scalar
+        + " save_tin" * train + f": {json.dumps(out)}")
+    return out
 
 
 def k1_check(phase: str, what: str, args, kw=None) -> float:
@@ -345,9 +392,13 @@ def main() -> None:
     lib_path = cuda_build.build()
     cuda_build.load_library()
     log("build", f"{lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    PTXAS.update(cuda_build.ptxas_table(cuda_build.build_log))
     for line in cuda_build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if "error" in line.lower():
             log("ptxas", line.strip())
+    for name, (regs, stack, st, ld) in sorted(PTXAS.items()):
+        log("ptxas", f"{name}: {regs} registers, {stack} B stack, {st} B spill stores, "
+                     f"{ld} B spill loads")
 
     # --- phase 2: K2 scan vs plain (exact) ------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -505,6 +556,12 @@ def main() -> None:
                  f"plain {ms['plain']:.3f} ms ({card})")
     log("frame", f"1280x720 fitted_20k.ply, median of {reps}: gpu {ms['ply_gpu']:.3f} ms, "
                  f"plain {ms['ply_plain']:.3f} ms ({card})")
+    tracer.update_camera(poses[0])
+    prof = profile_frames(tracer.render, top=8)
+    idle = 1.0 - prof["device_ms"] / ms["gpu"]
+    log("profile", f"1280x720 100k bench config: device busy {prof['device_ms']:.3f} ms of a "
+                   f"{ms['gpu']:.3f} ms frame (idle share {idle:.3f}), "
+                   f"{prof['device_ops']:.0f} device ops per frame, top {prof['top']} ({card})")
 
     # kernels alone at the main path's shapes (100k, 720p, first pose)
     stream, feats, n_pairs = prepare_pair_stream(scene, poses[0], cfg, cap)
@@ -515,6 +572,7 @@ def main() -> None:
     k1_plain = statistics.median(cuda_ms(
         lambda: kmarch.march_plain(stream.starts, feats, dirs_t, cfg, chunk), 5))
     k1_bound = march_bound((stream.starts, feats, dirs_t, cfg, chunk), {}, kmarch.march_plain)
+    k1_design = design("march", cfg, chunk)
     x = torch.randint(-1000, 1000, (2, cap), dtype=torch.int32, device=dev, generator=g)
     k2_ms = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32(x), 50))
     k2_plain = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32_plain(x), 50))
@@ -593,7 +651,9 @@ def main() -> None:
     k3_ms = statistics.median(cuda_ms(lambda: kbwd.march_bwd(*bargs), 20))
     k3_plain = statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 5))
     k1key_bound = march_bound((starts, rows, dirs_t, tcfg, 256), {}, kmarch.march_plain, tin=tin)
+    k1key_design = design("march", tcfg, 256, train=True)
     k3_bound = bwd_bound(bargs, kbwd.march_bwd_plain)
+    k3_design = design("march_bwd", tcfg, 256)
     log("kernel", f"K1 key+save_tin {n_pairs_t} pairs c=256: {k1key_ms:.3f} ms, plain "
                   f"{k1key_plain:.3f} ms, bound {k1key_bound[0]:.4f} ms ({k1key_bound[1]}); K3 "
                   f"{k3_ms:.3f} ms, plain {k3_plain:.3f} ms, bound {k3_bound[0]:.4f} ms "
@@ -770,9 +830,11 @@ def main() -> None:
     blk_ms = statistics.median(cuda_ms(lambda: kmarch.march(*blk_args, **blk_kw), 20))
     blk_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*blk_args, **blk_kw), 5))
     blk_bound = march_bound(blk_args, blk_kw, kmarch.march_plain)
+    blk_design = design("march", blk_args[3], blk_args[4], scalar=True)
     seg_ms = statistics.median(cuda_ms(lambda: kmarch.march(*seg_args, **seg_kw), 20))
     seg_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*seg_args, **seg_kw), 5))
     seg_bound = march_bound(seg_args, seg_kw, kmarch.march_plain)
+    seg_design = design("march", seg_args[3], seg_args[4])
     log("kernel", f"K4 glass_cli bounce 1 (per-ray origins): {k4_ms:.3f} ms, plain "
                   f"{k4_plain:.3f} ms; K4 glass_front bounce 1 (per-ray origins): {k4f_ms:.3f} "
                   f"ms, plain {k4f_plain:.3f} ms; K4 glass bounce 0 (shared origin): {k40_ms:.3f} ms, plain "
@@ -854,24 +916,25 @@ def main() -> None:
 
     src = f"{PKG}/csrc"
     k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
-    row = lambda name, source, replaces, launches, err, ms, plain_ms, b, lib=None: {
+    row = lambda name, source, replaces, launches, err, ms, plain_ms, b, lib=None, more=None: {
         "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": lib, **(more or {})}
     print(json.dumps({"kernels": [
-        row("march", "march.cuh", k1, launches["march"], march_err, k1_ms, k1_plain, k1_bound),
+        row("march", "march.cuh", k1, launches["march"], march_err, k1_ms, k1_plain, k1_bound,
+            more=k1_design),
         row("march_key_save_tin", "march.cuh", k1, train_launches["march_key_save_tin"], key_err,
-            k1key_ms, k1key_plain, k1key_bound),
+            k1key_ms, k1key_plain, k1key_bound, more=k1key_design),
         row("multi_cumsum_i32", "scan.cu", "gaussian_ray_tracing_tpu/ops/scan.py:81",
             launches["scan"], scan_err, k2_ms, k2_plain, k2_bound, k2_lib),
-        row("march_bwd", "march_bwd.cu", "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
-            train_launches["march_bwd"], bwd_err, k3_ms, k3_plain, k3_bound),
+        row("march_bwd", "march_bwd.cuh", "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
+            train_launches["march_bwd"], bwd_err, k3_ms, k3_plain, k3_bound, more=k3_design),
         row("closest_hit", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
             mesh_counts["closest_hit"], k4_err, k40_ms, k40_plain, k40_bound),
         row("march_segment", "march.cuh", k1, mesh_counts["march_segment"], seg_err, seg_ms,
-            seg_plain, seg_bound),
+            seg_plain, seg_bound, more=seg_design),
         row("march_block", "march.cuh", k1, mesh_counts["march_block"], block_err, blk_ms,
-            blk_plain, blk_bound),
+            blk_plain, blk_bound, more=blk_design),
         *cam_rows,
         *train_rows,
         *merge_rows,
@@ -995,7 +1058,7 @@ def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: f
     merge_err = max(merge_err, k1_check("K1merge", "100k 720p c=128", args))
     t_merge = (statistics.median(cuda_ms(lambda: kmarch.march(*args), 20)),
                statistics.median(cuda_ms(lambda: kmarch.march_plain(*args), 3)),
-               march_bound(args, {}, kmarch.march_plain))
+               march_bound(args, {}, kmarch.march_plain), design("march", cfg, 128))
     win = (*args[:3], cfg.replace(order="window"), 128)
     win_ms = statistics.median(cuda_ms(lambda: kmarch.march(*win), 20))
     log("kernel", f"K1 merge 100k 720p ({n_pairs} pairs, c=128): {t_merge[0]:.3f} ms, plain "
@@ -1071,7 +1134,8 @@ def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: f
     blk_args, blk_kw = record[1]["k1"]
     t_block = (statistics.median(cuda_ms(lambda: kmarch.march(*blk_args, **blk_kw), 20)),
                statistics.median(cuda_ms(lambda: kmarch.march_plain(*blk_args, **blk_kw), 3)),
-               march_bound(blk_args, blk_kw, kmarch.march_plain))
+               march_bound(blk_args, blk_kw, kmarch.march_plain),
+               design("march", blk_args[3], blk_args[4], scalar=True))
     log("kernel", f"K1 merge block glass_front bounce 1: {t_block[0]:.3f} ms, plain "
                   f"{t_block[1]:.3f} ms, bound {t_block[2][0]:.4f} ms ({t_block[2][1]}) "
                   f"({card})")
@@ -1081,7 +1145,7 @@ def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: f
         "name": name, "route": "cuda", "source": src,
         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195", "launches": launches,
         "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
-        "bound_by": t[2][1], "library_ms": None}
+        "bound_by": t[2][1], "library_ms": None, **t[3]}
     return [row("march_merge", main["march_merge"], merge_err, t_merge),
             row("march_merge_block", mesh_counts["march_merge_block"], block_err, t_block)]
 
@@ -1218,7 +1282,8 @@ def camera_phase(dev, card: str, scene) -> list:
         kw = kw or {}
         ms = statistics.median(cuda_ms(lambda: kmarch.march(*args, **kw), 20))
         plain_ms = statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 3))
-        return ms, plain_ms, march_bound(args, kw, kmarch.march_plain)
+        return ms, plain_ms, march_bound(args, kw, kmarch.march_plain), \
+            design("march", args[3], args[4], scalar="origins_t" in kw)
 
     sh_args = stream_args(ply, cam720, frames["trained_720p_sh3"][2])
     shkey_args = stream_args(ply, cam720, sh3_key)
@@ -1234,7 +1299,7 @@ def camera_phase(dev, card: str, scene) -> list:
              "fisheye": k1_time(fish_args), "origin": k1_time(roll_args, roll_kw)}
     for what, args in (("sh", sh_args), ("sh0", sh0_args), ("sh_key", shkey_args),
                        ("sh0_key", sh0key_args), ("fisheye", fish_args), ("origin", roll_args)):
-        ms, plain_ms, (b_ms, b_by) = times[what]
+        ms, plain_ms, (b_ms, b_by), _ = times[what]
         log("kernel", f"K1 {what} ({int(args[0][-1])} pairs, row {args[1].shape[1]} floats, "
                       f"c={args[4]}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
                       f"({b_by}) ({card})")
@@ -1252,7 +1317,7 @@ def camera_phase(dev, card: str, scene) -> list:
         "name": name, "route": "cuda", "source": f"{src}/{source}",
         "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195", "launches": launches,
         "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
-        "bound_by": t[2][1], "library_ms": None}
+        "bound_by": t[2][1], "library_ms": None, **t[3]}
     return [row("march_sh", "march_sh3.cu", main["sh_launches"], sh_err["window"], times["sh"]),
             row("march_sh_key", "march_sh3.cu", main["sh_key_launches"], sh_err["key"],
                 times["sh_key"]),
@@ -1399,10 +1464,14 @@ def training_phase(dev, card: str, views, init) -> list:
         k1_t = (statistics.median(cuda_ms(lambda: fwd(kmarch.march), 20)),
                 statistics.median(cuda_ms(lambda: fwd(kmarch.march_plain), 3)),
                 march_bound((starts, trows, dirs_t, cfg, chunk), kw, kmarch.march_plain,
-                            tin=tin))
+                            tin=tin),
+                design("march", cfg, chunk, scalar=bool(kw), train=True))
         k3_t = (statistics.median(cuda_ms(lambda: kbwd.march_bwd(*bargs), 20)),
                 statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 3)),
-                bwd_bound(bargs, kbwd.march_bwd_plain))
+                bwd_bound(bargs, kbwd.march_bwd_plain), design("march_bwd", cfg, chunk))
+        if cfg.sh_degree == 3:
+            check(k3_t[3]["blocks_per_sm"] >= 2,
+                  f"K3 {name}: {k3_t[3]['blocks_per_sm']} resident blocks per SM, not 2")
         times[name] = (k1_t, k3_t)
         log("kernel", f"{name} {n_pairs} pairs, rows {trows.shape[1]} floats, c={chunk}: K1 "
                       f"save_tin {k1_t[0]:.3f} ms, plain {k1_t[1]:.3f} ms, bound "
@@ -1431,7 +1500,7 @@ def training_phase(dev, card: str, views, init) -> list:
     row = lambda name, source, replaces, launches_, err, t: {
         "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
         "launches": launches_, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
-        "bound_ms": t[2][0], "bound_by": t[2][1], "library_ms": None}
+        "bound_ms": t[2][0], "bound_by": t[2][1], "library_ms": None, **t[3]}
     out = []
     for name, k1_name, k3_name, k1_src, k3_src in (
             ("window_sh0", "march_window_save_tin", "march_bwd_window", "march.cuh",

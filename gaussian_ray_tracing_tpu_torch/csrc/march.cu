@@ -6,11 +6,23 @@
 #include "march.cuh"
 
 namespace k1 {
-template cudaError_t launch_k<1>(const Params&, int, int, int, int, cudaStream_t);
-extern template cudaError_t launch_k<4>(const Params&, int, int, int, int, cudaStream_t);
-extern template cudaError_t launch_k<9>(const Params&, int, int, int, int, cudaStream_t);
-extern template cudaError_t launch_k<16>(const Params&, int, int, int, int, cudaStream_t);
+template cudaError_t launch_k<1>(const Params&, int, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<4>(const Params&, int, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<9>(const Params&, int, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<16>(const Params&, int, int, int, int, cudaStream_t, int*);
 }  // namespace k1
+
+static cudaError_t dispatch(const k1::Params& p, int sh_k, int chunk, int order, int n_tiles,
+                            int R, cudaStream_t s, int* info) {
+  using namespace k1;
+  switch (sh_k) {
+    case 1: return launch_k<1>(p, chunk, order, n_tiles, R, s, info);
+    case 4: return launch_k<4>(p, chunk, order, n_tiles, R, s, info);
+    case 9: return launch_k<9>(p, chunk, order, n_tiles, R, s, info);
+    case 16: return launch_k<16>(p, chunk, order, n_tiles, R, s, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 extern "C" const char* grt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -40,7 +52,8 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
       (tin && (t_lo_arr || t_hi_arr || t0 || blocks || rays_per_tile > 256 || order == 2 ||
                (order == 1) == (origins != nullptr))) ||
       block_sub < 1 || chunk % block_sub != 0 || (block_sub > 1 && !blocks) ||
-      (full_range != 0) != !(origins || t_lo_arr || t_hi_arr || blocks))
+      (full_range != 0) != !(origins || t_lo_arr || t_hi_arr || blocks) ||
+      stride % 4 != 0 || ((uintptr_t)feats & 15) != 0)  // rows are staged in 16-byte copies
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
   Params p{(const int*)starts, (const float*)feats, (const float*)dirs, (float*)rgb,
@@ -49,10 +62,22 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
            (const int*)blocks, block_sub, stride, full_range, t_lo, t_hi, min_t, t_skip,
            alpha_min, alpha_clamp, hit_multiplicity};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (sh_k) {
-    case 1: return (int)launch_k<1>(p, chunk, order, n_tiles, rays_per_tile, s);
-    case 4: return (int)launch_k<4>(p, chunk, order, n_tiles, rays_per_tile, s);
-    case 9: return (int)launch_k<9>(p, chunk, order, n_tiles, rays_per_tile, s);
-    default: return (int)launch_k<16>(p, chunk, order, n_tiles, rays_per_tile, s);
-  }
+  return (int)dispatch(p, sh_k, chunk, order, n_tiles, rays_per_tile, s, nullptr);
+}
+
+// What a launch of grt_march with these settings would run, without
+// launching: out[0] resident blocks per SM at rays_per_tile rays, out[1]
+// dynamic shared memory bytes, out[2] registers per thread, out[3] local
+// memory bytes per thread (stack frame and spills). scalar: per-ray
+// origins; train: saved carries.
+extern "C" int grt_march_info(int chunk, int order, int sh_k, int scalar, int train,
+                              int rays_per_tile, int* out) {
+  using namespace k1;
+  static float dummy[4];
+  Params p{};
+  p.origins = scalar ? dummy : nullptr;
+  p.tin = train ? dummy : nullptr;
+  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch(p, sh_k, chunk, order, 0, rays_per_tile, nullptr, out);
 }

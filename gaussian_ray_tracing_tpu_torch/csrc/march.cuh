@@ -22,36 +22,43 @@
 // one, at __launch_bounds__(256), the 256 rays of a training tile).
 //
 // Window order. One block per 16x16 tile, one thread per ray (R =
-// blockDim.x). The tile's chunks of C candidates are staged in dynamic
-// shared memory as rows of W floats (coalesced, each row read by every ray
-// of the tile). Per chunk:
+// blockDim.x; a 256-ray build, __launch_bounds__(256, 4), for the main
+// path's tiles and a 1024-ray one). The tile's chunks of C candidates are
+// staged in dynamic shared memory as rows of W floats (k1::Layout) by
+// 16-byte cp.async copies (coalesced, each row read by every ray of the
+// tile); where two buffers fit in 48 KB, chunk j+1's rows are copied while
+// chunk j is marched (a tile that skips chunk j+1 never reads them). Per
+// chunk:
 //   1. tile-wide chunk skip: block max of T against the skip threshold;
-//   2. pass 1: each ray evaluates its C candidates (response, event t, gate;
-//      no colour) and records whether it sees an inversion among significant
-//      ones, plus its significant event-t range; __syncthreads_or decides
-//      the window-sort fire for the whole tile, block min/max the t range;
-//   3. pass 2: each ray re-evaluates its candidates and composites them in
-//      stream order with float32 colours (no fire) or inserts the
-//      significant ones, keyed tq16 << 15 | a15, into a per-thread
-//      insertion-sorted list of (key, source index) (fire; the
-//      depth-presorted stream is nearly ordered, so few shifts) and
-//      composites that list with decoded alphas, recomputing each listed
-//      candidate's colour for this ray and passing it through the 3x10-bit
-//      pack, as the TPU kernel's sorted payload does (pallas_march.py:832).
-//   Recomputing in pass 2 instead of storing per-candidate state keeps the
-//   unfired path free of local memory; only fired chunks touch the sorted
-//   list, which lives in local memory (C * 5 bytes per thread).
+//   2. pass 1: each ray evaluates its C candidates once: a sure miss
+//      (sure_miss, against a per-row threshold computed once per chunk)
+//      stops before the division and the exp, any other miss at alpha,
+//      before the sqrt and the second division of the event t. It keeps the
+//      significant (a > 0) ones, in stream order, in local memory: event t,
+//      alpha, source index (9 bytes each, none for a miss), and records
+//      whether it sees an inversion among them, plus its significant
+//      event-t range; __syncthreads_or decides the window-sort fire for the
+//      whole tile, block min/max the t range;
+//   3. pass 2 reads the significant candidates only: an unfired chunk
+//      composites them in stream order with float32 colours; a fired chunk
+//      insertion-sorts (key tq16 << 15 | a15, source index) in place of the
+//      event times (the depth-presorted stream is nearly ordered, so few
+//      shifts) and composites that list with decoded alphas and each
+//      colour through the 3x10-bit pack, as the TPU kernel's sorted payload
+//      does (pallas_march.py:832).
+//   The 256-ray build runs two blocks per SM (two_blocks_per_sm), so that
+//   the stored candidates of their rays stay in L1.
 // Window order with saved carries (the training forward, pallas_march.py:
 // 803-842): the carry-in is saved before the skip test, the skip threshold
 // is min_transmittance, and a fired chunk lists its significant candidates
-// by the unique key (tq16 << 8) | src (C * 4 bytes per thread), recomputes
-// each listed candidate's EXACT alpha and composites it with the 10-bit
-// colour pack; no span repair. The backward (csrc/march_bwd.cuh) replays
-// the same list from the same arithmetic.
+// by the unique key (tq16 << 8) | src (with the compact index for src: the
+// same order), with each candidate's EXACT alpha and the 10-bit colour
+// pack; no span repair. The backward
+// (csrc/march_bwd.cuh) replays the same order from the same arithmetic.
 //
 // Colour (pallas_march.py:640-669). SH degree 0 reads the colour
 // max(0.5 + C0 sh0, 0) precomputed per gaussian (quad rows) or computed
-// while staging (scalar rows). Degrees 1-3 evaluate, per (ray, candidate),
+// where it is read (scalar rows). Degrees 1-3 evaluate, per (ray, candidate),
 // max(0.5 + sum_k basis_k(d) sh_k, 0) per channel, k = 0..K-1 added in turn,
 // from the K-term basis of the ray's direction computed once per ray in
 // registers (ops/sh.sh_basis_list, term for term) and the row's raw
@@ -105,8 +112,8 @@
 // 32-float training rows, whose first 16 floats are those; at SH 1-3
 // [op, q (6), v (3), cq, oo, sh_r[K], sh_g[K], sh_b[K]] (W = 12 + 3K).
 // Scalar: [op, 15 unused, mean (3), M (9), radius, sh_r[K], sh_g[K],
-// sh_b[K]], staged as [op, mean, M, radius, colour or coefficients] (W =
-// 17 at SH 0, 14 + 3K above). The training rows, which the saved-carry
+// sh_b[K]], staged as [op, 3 unused, mean, M, radius, sh0 or coefficients]
+// (W = 20 at SH 0, 4 + 13 + 3K padded to 4 above; Layout). The training rows, which the saved-carry
 // kernels read (and only they), are the scalar rows with the quad columns
 // in 1..11 (and at SH 0 the colour in 12..14), so the quad training kernel
 // reads the SH 1-3 coefficients from column 29 (kTrainSh).
@@ -126,20 +133,23 @@
 // so a chunk reads block_sub whole blocks.
 //
 // What bounds it on an H100: not memory (each row is read once per tile
-// and reused by 256 rays) but per-(ray, candidate) float32 math: in window
-// order two evaluations per candidate with one exp, one sqrt and two
-// divides each, plus the local-memory insertion sort in fired chunks, and
-// at SH 1-3 a 3K-term colour per significant candidate (recomputed for the
-// listed ones of fired chunks); in key order one evaluation with one exp
-// and one divide, plus the colour; in merge order two evaluations (keys,
-// then the candidates that move into the pending buffer or composite) and
-// 16 C bytes of local memory per ray, which the pending buffer and the
-// per-chunk merge walk in full (a simple first kernel: its registers,
-// spills and time are in PERF.md). The float math stays IEEE float32 with
-// no FMA contraction (the wrapper builds with -fmad=false): pp = oo -
-// od^2/dd cancels by orders of magnitude, and matching the plain version's
-// per-operation rounding keeps kernel and reference comparable. No tensor
-// cores and no TF32 anywhere.
+// and reused by 256 rays) but per-(ray, candidate) work. In window order:
+// one evaluation of every candidate (a sure miss costs neither the divide
+// nor the exp, another miss one of each, a candidate past alpha_min a sqrt
+// and a second divide besides); for each significant candidate
+// (30-47% of the pairs on the main path's streams, PERF.md) the composite's
+// exp and log1p, in the fired chunks (83-99% of them) the 3x10-bit pack,
+// and the local-memory traffic of the stored candidates and of the lists
+// (kept in L1 by running two blocks per SM); at SH 1-3 a 3K-term colour
+// per significant candidate. In key order one evaluation with one exp and
+// one divide, plus the colour; in merge order two evaluations (keys, then
+// the candidates that move into the pending buffer or composite) and 16 C
+// bytes of local memory per ray, which the pending buffer and the
+// per-chunk merge walk in full (its registers, spills and time are in
+// PERF.md). The float math stays IEEE float32 with no FMA contraction (the
+// wrapper builds with -fmad=false): pp = oo - od^2/dd cancels by orders of
+// magnitude, and matching the plain version's per-operation rounding keeps
+// kernel and reference comparable. No tensor cores and no TF32 anywhere.
 
 #pragma once
 
@@ -168,23 +178,49 @@ constexpr float kC3_4 = (float)-0.4570457994644658;
 constexpr float kC3_5 = (float)1.445305721320277;
 constexpr float kC3_6 = (float)-0.5900435899266435;
 
-// staged row width and first colour (or coefficient) column
-template <bool kScalar, int K>
-__host__ __device__ constexpr int staged_width() {
-  return kScalar ? (K == 1 ? 17 : 14 + 3 * K) : (K == 1 ? 16 : 12 + 3 * K);
-}
-template <bool kScalar>
-__host__ __device__ constexpr int color_column() {
-  return kScalar ? 14 : 12;
-}
-
 // first SH coefficient column of the training rows (ops/march.T_SH0)
 constexpr int kTrainSh = 29;
 
-// least row stride (floats) the kernel reads: the staged quad columns, or
-// the scalar (or training) rows' 29 + 3K (the 32-float training rows at SH 0)
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
+
+// Staged row layout: each staged row is two runs of a source row's
+// columns, [0, a) and then [b, b + w - a), each a whole number of 16-byte
+// groups, so that a chunk is staged by 16-byte cp.async copies. Quad rows:
+// their first a columns (12 + 3K padded, or the 16 compact columns); the
+// quad training rows at SH 1-3 add the radius and coefficients from column
+// 28 (the coefficients at staged column 13). Scalar (and training) rows:
+// [op, 3 unused, mean (3), M (9), radius, sh0 or coefficients] from columns
+// 0..3 and 16..; at SH 0 the colour max(0.5 + C0 sh0, 0) is taken where it
+// is read (row_color), so the copy moves the raw floats.
+template <bool kScalar, int K, bool kTrain>
+struct Layout {
+  static constexpr int a = kScalar ? 4 : (K == 1 ? 16 : (kTrain ? 12 : pad4(12 + 3 * K)));
+  static constexpr int b = kScalar ? 16 : 28;
+  static constexpr int w = kScalar ? 4 + pad4(13 + 3 * K)
+                                   : (K == 1 || !kTrain ? a : 12 + pad4(1 + 3 * K));
+  static constexpr int col = kScalar ? 17 : (K > 1 && kTrain ? 13 : 12);  // colour column
+};
+// staged scalar columns: mean, M, radius
+constexpr int kMean = 4, kMat = 7, kRad = 16;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// least row stride (floats) the kernel reads, in whole 16-byte groups: the
+// staged quad columns, or the scalar (or training) rows' 29 + 3K (the
+// 32-float training rows at SH 0)
 inline int min_stride(bool scalar_or_train, int K) {
-  return scalar_or_train ? kTrainSh + 3 * K : (K == 1 ? 16 : 12 + 3 * K);
+  return scalar_or_train ? pad4(kTrainSh + 3 * K) : (K == 1 ? 16 : pad4(12 + 3 * K));
 }
 
 struct Params {
@@ -268,11 +304,16 @@ __device__ __forceinline__ float sh_channel(const float* c, const float* b) {
 }
 
 // Colour of the staged row whose colour columns start at f, for the ray
-// whose basis is `basis` (unused at SH 0, where the row holds the colour).
-template <int K>
+// whose basis is `basis` (unused at SH 0, where a quad row holds the colour
+// and a scalar row sh0).
+template <bool kScalar, int K>
 __device__ __forceinline__ void row_color(const float* f, const float* basis, float& r, float& g,
                                           float& b) {
-  if (K == 1) {
+  if (K == 1 && kScalar) {
+    r = fmaxf(0.5f + kC0 * f[0], 0.f);
+    g = fmaxf(0.5f + kC0 * f[1], 0.f);
+    b = fmaxf(0.5f + kC0 * f[2], 0.f);
+  } else if (K == 1) {
     r = f[0];
     g = f[1];
     b = f[2];
@@ -308,44 +349,78 @@ __device__ __forceinline__ size_t row_index(const Params& p, int start, int j, i
   return (size_t)p.blocks[start / bs + j * p.block_sub + r / bs] * bs + r % bs;
 }
 
-// Stage the chunk's rows [0, m) in sf: the quad columns and the colour
-// or coefficients (from column 12, or kTrainSh on the training rows), or
-// the scalar columns, sh0 turned into the colour at SH 0.
+// Start the copy of the chunk's rows [0, m) into sf (Layout's runs, one
+// 16-byte cp.async per group, the row's global index computed per group of
+// 4 floats) and commit it as one group; cp_async_wait and a __syncthreads
+// make it visible.
+template <int C, bool kScalar, int K, bool kTrain>
+__device__ __forceinline__ void stage_async(float* sf, const Params& p, int start, int j, int m) {
+  using L = Layout<kScalar, K, kTrain>;
+  constexpr int G = L::w / 4, GA = L::a / 4;  // 16-byte groups per staged row, in run 1
+  for (int k = threadIdx.x; k < m * G; k += blockDim.x) {
+    const int r = k / G, q = k - r * G;
+    const float* g = p.feats + row_index<C>(p, start, j, r) * p.stride;
+    cp_async16(sf + r * L::w + 4 * q, g + (q < GA ? 4 * q : L::b + 4 * (q - GA)));
+  }
+  cp_async_commit();
+}
+
+// Stage the chunk's rows and wait for them (every thread of the block).
 template <int C, bool kScalar, int K, bool kTrain>
 __device__ __forceinline__ void stage(float* sf, const Params& p, int start, int j, int m) {
-  constexpr int W = staged_width<kScalar, K>();
-  constexpr int kShCol = kTrain ? kTrainSh : 12;
-  for (int k = threadIdx.x; k < m * W; k += blockDim.x) {
-    const int r = k / W, c = k % W;
-    const float* g = p.feats + row_index<C>(p, start, j, r) * p.stride;
-    if (!kScalar) {
-      sf[k] = g[(K == 1 || c < 12) ? c : kShCol + c - 12];
-    } else {
-      const float x = g[c == 0 ? 0 : 15 + c];
-      sf[k] = (K == 1 && c >= 14) ? fmaxf(0.5f + kC0 * x, 0.f) : x;
-    }
-  }
+  __syncthreads();  // the previous chunk is done with sf
+  stage_async<C, kScalar, K, kTrain>(sf, p, start, j, m);
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// A sure miss, before the division and the exp. With D = max(dd, 1e-6),
+// the kernel's pp is oo - od^2 / D to within 6 ulp of |oo| (pp = oo - od^2
+// / dd cancels; the scalar form only for dd >= 1e-6, where its pp is the
+// same quotient), and a candidate whose pp reaches L = 2 ln(op /
+// alpha_min) has alpha <= alpha_min (expf within 2 ulp). So oo D - od^2 >
+// (thr + 2e-6 |oo|) D, with thr = L + 1e-4 (miss_threshold; the 2e-6 |oo|
+// and the 1e-4 cover every rounding of both sides, of logf and expf, with
+// room), proves a miss: a = 0 and t_ev 0 exactly as the full evaluation
+// would give, so no result changes. NaNs fail the test.
+__device__ __forceinline__ bool sure_miss(float oo, float od, float D, float thr) {
+  return oo * D - od * od > (thr + 2e-6f * fabsf(oo)) * D;
+}
+
+// thr of a row of opacity op for sure_miss.
+__device__ __forceinline__ float miss_threshold(float op, float alpha_min) {
+  return 2.f * logf(op / alpha_min) + 1e-4f;
 }
 
 // Quad response (shared origin): event t and gated effective alpha.
 // fast_gate: key order on a full-range ray, the sqrt-free gate
 // alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0); else the exact
-// entry/exit event gate t_lo <= t_event <= t_hi.
+// entry/exit event gate t_lo <= t_event <= t_hi. kMiss: first the sure-miss
+// test against the row's threshold thr. Then alpha: a candidate at or
+// below alpha_min (most of them) or a dead ray stops there, with t_ev 0,
+// unread; the others take the sqrt and the second division, the same
+// operations as ever, so every value that is used is unchanged.
+template <bool kMiss>
 __device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const float* f,
-                                          bool fast_gate, float& t_ev, float& a) {
+                                          bool fast_gate, float thr, float& t_ev, float& a) {
   const float dd = f[1] * ray.m0 + f[2] * ray.m1 + f[3] * ray.m2 + f[4] * ray.m3 +
                    f[5] * ray.m4 + f[6] * ray.m5;
   const float od = f[7] * ray.dx + f[8] * ray.dy + f[9] * ray.dz;
   const float cq = f[10], oo = f[11];
-  const float rcp6 = 1.f / fmaxf(dd, 1e-6f);
+  const float D = fmaxf(dd, 1e-6f);
+  t_ev = 0.f;
+  a = 0.f;
+  if (kMiss && sure_miss(oo, od, D, thr)) return;
+  const float rcp6 = 1.f / D;
   const float t_star = -od * rcp6;
   const float pp = oo + od * t_star;
   const float resp = expf(-0.5f * fmaxf(pp, 0.f));
   const float alpha = fminf(p.alpha_clamp, resp * f[0]);
+  if (!(ray.live && alpha > p.alpha_min)) return;
   bool gate;
   if (fast_gate) {
     const float q_lo = cq + ray.t_lo * (2.f * od + ray.t_lo * dd);
-    gate = ray.live && alpha > p.alpha_min && (t_star >= ray.t_lo || q_lo < 0.f);
+    gate = t_star >= ray.t_lo || q_lo < 0.f;
     t_ev = t_star;
   } else {
     const float disc = od * od - dd * cq;
@@ -356,17 +431,19 @@ __device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const
     t_ev = t_entry < ray.t_lo ? t_exit : t_entry;
     // disc >= 0 is implied by alpha > alpha_min (the radius is the
     // alpha_min iso-surface), so this gate drops it, as on the TPU
-    gate = ray.live && t_ev >= ray.t_lo && t_ev <= ray.t_hi && alpha > p.alpha_min;
+    gate = t_ev >= ray.t_lo && t_ev <= ray.t_hi;
   }
-  a = gate ? effective_alpha(alpha, p.hm) : 0.f;
+  if (gate) a = effective_alpha(alpha, p.hm);
 }
 
 // Scalar response in the canonical frame from a staged scalar row, per ray
-// origin; always the exact event gate, with disc >= 0.
+// origin; always the exact event gate, with disc >= 0; the sure-miss test
+// (kMiss, where dd >= 1e-6) and alpha first, as in eval_quad.
+template <bool kMiss>
 __device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, const float* f,
-                                            float& t_ev, float& a) {
-  const float* m = f + 4;
-  const float ox = ray.ox - f[1], oy = ray.oy - f[2], oz = ray.oz - f[3];
+                                            float thr, float& t_ev, float& a) {
+  const float* m = f + kMat;
+  const float ox = ray.ox - f[kMean], oy = ray.oy - f[kMean + 1], oz = ray.oz - f[kMean + 2];
   const float ogx = m[0] * ox + m[1] * oy + m[2] * oz;
   const float ogy = m[3] * ox + m[4] * oy + m[5] * oz;
   const float ogz = m[6] * ox + m[7] * oy + m[8] * oz;
@@ -376,29 +453,33 @@ __device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, con
   const float dd = dgx * dgx + dgy * dgy + dgz * dgz;
   const float od = ogx * dgx + ogy * dgy + ogz * dgz;
   const float oo = ogx * ogx + ogy * ogy + ogz * ogz;
-  const float t_star = -od / fmaxf(dd, 1e-6f);
+  const float D = fmaxf(dd, 1e-6f);
+  t_ev = 0.f;
+  a = 0.f;
+  if (kMiss && dd >= 1e-6f && sure_miss(oo, od, D, thr)) return;
+  const float t_star = -od / D;
   const float pp = oo + t_star * (2.f * od + t_star * dd);
   const float resp = expf(-0.5f * fmaxf(pp, 0.f));
   const float alpha = fminf(p.alpha_clamp, resp * f[0]);
-  const float cq = oo - f[13] * f[13];
+  if (!(ray.live && alpha > p.alpha_min)) return;
+  const float cq = oo - f[kRad] * f[kRad];
   const float disc = od * od - dd * cq;
   const float sq = sqrtf(fmaxf(disc, 0.f));
   const float inv_dd = 1.f / fmaxf(dd, 1e-12f);
   const float t_entry = (-od - sq) * inv_dd;
   const float t_exit = (-od + sq) * inv_dd;
   t_ev = t_entry < ray.t_lo ? t_exit : t_entry;
-  const bool gate = disc >= 0.f && t_ev >= ray.t_lo && t_ev <= ray.t_hi && ray.live &&
-                    alpha > p.alpha_min;
-  a = gate ? effective_alpha(alpha, p.hm) : 0.f;
+  if (disc >= 0.f && t_ev >= ray.t_lo && t_ev <= ray.t_hi) a = effective_alpha(alpha, p.hm);
 }
 
-template <bool kScalar>
+template <bool kScalar, bool kMiss = false>
 __device__ __forceinline__ void evaluate(const Params& p, const Ray& ray, const float* f,
-                                         bool fast_gate, float& t_ev, float& a) {
+                                         bool fast_gate, float& t_ev, float& a,
+                                         float thr = 0.f) {
   if (kScalar)
-    eval_scalar(p, ray, f, t_ev, a);
+    eval_scalar<kMiss>(p, ray, f, thr, t_ev, a);
   else
-    eval_quad(p, ray, f, fast_gate, t_ev, a);
+    eval_quad<kMiss>(p, ray, f, fast_gate, thr, t_ev, a);
 }
 
 // Front-to-back composite of one chunk's ordered candidates.
@@ -464,27 +545,44 @@ __device__ __forceinline__ void store_ray(const Params& p, float r, float g, flo
   p.t_final[ray_idx] = T;
 }
 
-template <int C, bool kScalar, int K, bool kTrain>
-__global__ void __launch_bounds__(kTrain ? 256 : 1024) march_kernel(Params p) {
-  constexpr int W = staged_width<kScalar, K>();
-  constexpr int kCol = color_column<kScalar>();
-  extern __shared__ float sf[];  // C * W staged floats
+// Staging buffers of the window kernel: two where they fit in 48 KB (chunk
+// j+1's rows are copied while chunk j is marched), else one.
+template <int C, int W>
+__host__ __device__ constexpr int window_stages() {
+  return 2 * C * W * 4 <= 48 * 1024 ? 2 : 1;
+}
+// Blocks per SM the 256-ray window kernel is built for (its register cap).
+constexpr int kWindowMinBlocks = 4;
+
+template <int C, bool kScalar, int K, bool kTrain, int kMaxR>
+__global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
+    march_kernel(Params p) {
+  using L = Layout<kScalar, K, kTrain>;
+  constexpr int W = L::w, kCol = L::col;
+  constexpr int kStages = window_stages<C, W>();
+  extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
+  float* thr = sf + kStages * C * W;             // C sure-miss thresholds
   __shared__ float red[32];
 
   const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
+  const int n_chunks = (n + C - 1) / C;
   const Ray ray = load_ray(p);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
   float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
 
   float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  // the chunk's significant candidates in stream order, and a fired
+  // chunk's sorted list (local memory, 9 C bytes)
   uint32_t keys[C];
-  uint8_t src[kTrain ? 1 : C];  // training keys carry the source index themselves
+  float sa[C];
+  uint8_t si[C];
 
+  if (kStages == 2 && n_chunks > 0) stage_async<C, kScalar, K, kTrain>(sf, p, start, 0, min(C, n));
   bool skipped = false;  // block-uniform; T never changes once skipped
-  for (int j = 0; j * C < n; ++j) {
+  for (int j = 0; j < n_chunks; ++j) {
     if (kTrain) tin[(size_t)j * R] = T;
     // tile-wide chunk skip (T never changes once every ray is below it)
     if (!skipped) skipped = block_reduce(T, true, red) <= p.t_skip;
@@ -494,70 +592,86 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_kernel(Params p) {
     }
 
     const int m = min(C, n - j * C);
-    __syncthreads();  // the previous chunk is done with sf
-    stage<C, kScalar, K, kTrain>(sf, p, start, j, m);
+    const float* buf = sf + (kStages == 2 ? (j & 1) * C * W : 0);
+    if (kStages == 1) {
+      stage<C, kScalar, K, kTrain>(sf, p, start, j, m);
+    } else {
+      // chunk j+1 goes to the buffer chunk j-1 used, which every thread
+      // left before block_reduce's barrier; a tile that skips chunk j+1
+      // never reads it
+      if (j + 1 < n_chunks) {
+        stage_async<C, kScalar, K, kTrain>(sf + ((j + 1) & 1) * C * W, p, start, j + 1,
+                                           min(C, n - (j + 1) * C));
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < m; i += R) thr[i] = miss_threshold(buf[i * W], p.alpha_min);
     __syncthreads();
 
-    // pass 1: inversion test and significant event-t range of this ray
+    // pass 1: every candidate once (a miss stops at alpha); the significant
+    // ones (a > 0) are kept in stream order in local memory: event t (in
+    // keys[], which the sorted list later overwrites from the front), alpha
+    // and source index; the inversion test and the significant t range
     bool inv = false;
     float rmax = -INFINITY, lo = INFINITY, hi = -INFINITY;
+    int ns = 0;
     for (int i = 0; i < m; ++i) {
       float t_ev, a;
-      evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
+      evaluate<kScalar, true>(p, ray, buf + i * W, false, t_ev, a, thr[i]);
       if (a > 0.f) {
         inv |= t_ev < rmax;
         rmax = fmaxf(rmax, t_ev);
         lo = fminf(lo, t_ev);
         hi = fmaxf(hi, t_ev);
+        keys[ns] = __float_as_uint(t_ev);
+        sa[ns] = a;
+        si[ns++] = (uint8_t)i;
       }
     }
     const bool fired = __syncthreads_or(inv);
 
+    // pass 2, over the significant candidates only: composited in stream
+    // order with float32 colours (no fire), or listed in sorted order
     Composite comp(T);
     float cr, cg, cb;
     if (!fired) {
-      for (int i = 0; i < m; ++i) {
-        float t_ev, a;
-        const float* f = sf + i * W;
-        evaluate<kScalar>(p, ray, f, false, t_ev, a);
-        if (!(a > 0.f)) continue;
-        row_color<K>(f + kCol, basis, cr, cg, cb);
-        comp.add(a, cr, cg, cb, p.min_t);
+      for (int k = 0; k < ns; ++k) {
+        row_color<kScalar, K>(buf + si[k] * W + kCol, basis, cr, cg, cb);
+        comp.add(sa[k], cr, cg, cb, p.min_t);
       }
     } else {
       lo = block_reduce(lo, false, red);
       hi = block_reduce(hi, true, red);
       const float scale = 65534.f / fmaxf(hi - lo, 1e-20f);
-      int ns = 0;
-      for (int i = 0; i < m; ++i) {
-        float t_ev, a;
-        evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
-        if (!(a > 0.f)) continue;
+      for (int k = 0; k < ns; ++k) {
+        // entry k's event t, read before the list grows to k entries
+        const float t_ev = __uint_as_float(keys[k]);
+        const uint8_t i = si[k];
         const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - lo) * scale, 0.f), 65534.f);
-        // training: the unique key tq16 << 8 | src (pallas_march.py:833-842);
-        // render: tq16 << 15 | a15, alpha decoded from the key
+        // training: the unique key tq16 << 8 | src (pallas_march.py:833-842),
+        // here with the compact index k for src (the same order: both ascend
+        // with the stream; alpha and source stay at k); render: tq16 << 15
+        // | a15, alpha decoded from the key, the source moving with the key
         const uint32_t key =
-            kTrain ? (tq << 8) | (uint32_t)i
-                   : (tq << 15) | (uint32_t)fminf(fmaxf(a * 32767.f, 0.f), 32767.f);
-        int pos = ns++;
+            kTrain ? (tq << 8) | (uint32_t)k
+                   : (tq << 15) | (uint32_t)fminf(fmaxf(sa[k] * 32767.f, 0.f), 32767.f);
+        int pos = k;
         while (pos > 0 && keys[pos - 1] > key) {  // stable: ties keep stream order
           keys[pos] = keys[pos - 1];
-          if (!kTrain) src[pos] = src[pos - 1];
+          if (!kTrain) si[pos] = si[pos - 1];
           --pos;
         }
         keys[pos] = key;
-        if (!kTrain) src[pos] = (uint8_t)i;
+        if (!kTrain) si[pos] = i;
       }
       for (int k = 0; k < ns; ++k) {
-        const int i = kTrain ? (int)(keys[k] & 255u) : src[k];
-        float a;
-        if (kTrain) {  // alpha rides the sort exactly: recompute it
-          float t_ev;
-          evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
-        } else {
-          a = (float)(keys[k] & 32767u) * kInvA;
-        }
-        row_color<K>(sf + i * W + kCol, basis, cr, cg, cb);
+        const int e = kTrain ? (int)(keys[k] & 255u) : k;
+        // training: the exact alpha; render: alpha decoded from the key
+        const float a = kTrain ? sa[e] : (float)(keys[k] & 32767u) * kInvA;
+        row_color<kScalar, K>(buf + si[e] * W + kCol, basis, cr, cg, cb);
         add_packed(comp, a, pack_color(cr, cg, cb), p.min_t);
       }
     }
@@ -567,15 +681,16 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_kernel(Params p) {
     acc_g += comp.g;
     acc_b += comp.b;
   }
+  cp_async_wait<0>();  // a skipped tile's prefetch
 
   store_ray(p, acc_r, acc_g, acc_b, T);
 }
 
 template <int C, bool kScalar, int K, bool kTrain>
 __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p) {
-  constexpr int W = staged_width<kScalar, K>();
-  constexpr int kCol = color_column<kScalar>();
-  extern __shared__ float sf[];  // C * W staged floats
+  using L = Layout<kScalar, K, kTrain>;
+  constexpr int W = L::w, kCol = L::col;
+  extern __shared__ __align__(16) float sf[];  // C * W staged floats
   __shared__ float red[32];
 
   const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
@@ -598,9 +713,7 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p
       continue;  // the remaining chunks' carries are still saved
     }
     const int m = min(C, n - j * C);
-    __syncthreads();  // the previous chunk is done with sf
     stage<C, kScalar, K, kTrain>(sf, p, start, j, m);
-    __syncthreads();
 
     Composite comp(T);
     for (int i = 0; i < m; ++i) {
@@ -608,7 +721,7 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p
       float t_ev, a, cr, cg, cb;
       evaluate<kScalar>(p, ray, f, fast_gate, t_ev, a);
       if (!(a > 0.f)) continue;
-      row_color<K>(f + kCol, basis, cr, cg, cb);
+      row_color<kScalar, K>(f + kCol, basis, cr, cg, cb);
       comp.add(a, cr, cg, cb, p.min_t);
     }
     const float t_next = comp.t_next();
@@ -622,9 +735,9 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p
 
 template <int C, bool kScalar, int K>
 __global__ void __launch_bounds__(1024) march_merge_kernel(Params p) {
-  constexpr int W = staged_width<kScalar, K>();
-  constexpr int kCol = color_column<kScalar>();
-  extern __shared__ float sf[];  // C * W staged floats
+  using L = Layout<kScalar, K, false>;
+  constexpr int W = L::w, kCol = L::col;
+  extern __shared__ __align__(16) float sf[];  // C * W staged floats
   __shared__ float red[32];
 
   const int tile = blockIdx.x;
@@ -650,7 +763,7 @@ __global__ void __launch_bounds__(1024) march_merge_kernel(Params p) {
     cp = 0u;
     if (i < m) evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
     if (a > 0.f) {
-      row_color<K>(sf + i * W + kCol, basis, cr, cg, cb);
+      row_color<kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
       cp = pack_color(cr, cg, cb);
     }
   };
@@ -660,9 +773,7 @@ __global__ void __launch_bounds__(1024) march_merge_kernel(Params p) {
     // tile-wide chunk skip (T never changes once every ray is below it)
     if (block_reduce(T, true, red) <= p.t_skip) break;
     const int m = min(C, n - j * C);
-    __syncthreads();  // the previous chunk is done with sf
     stage<C, kScalar, K, false>(sf, p, start, j, m);
-    __syncthreads();
 
     int32_t rmax = INT32_MIN, new_min = INT32_MAX;
     bool inv = false;
@@ -737,39 +848,87 @@ __global__ void __launch_bounds__(1024) march_merge_kernel(Params p) {
   store_ray(p, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
 }
 
+// The window kernel keeps each ray's significant candidates of a chunk in
+// local memory (up to 9 C bytes a ray). Two resident 256-ray blocks per SM
+// keep that in L1, where four spill it to L2 (measured faster, PERF.md):
+// ask for the smallest shared-memory carveout that holds two blocks
+// (percent of the 228 KB, which the CUDA runtime rounds up to a carveout
+// the SM has) and pad the dynamic shared memory so that a third does not fit.
+template <typename Kernel>
+cudaError_t two_blocks_per_sm(Kernel kernel, int& smem) {
+  static const int kCarveoutsKB[] = {64, 100, 132, 164, 196, 228};  // the SM's
+  for (const int kb : kCarveoutsKB) {
+    // per block: 1 KB the runtime's, 128 B the static red[32]
+    if (2 * (smem + 1024 + 128) > kb * 1024) continue;
+    const int third = kb * 1024 / 3 - 1024 + 16;  // a third block does not fit
+    smem = smem > third ? smem : third;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                kb * 100 / 228);
+  }
+  return cudaSuccess;
+}
+
 // One launch of the order's kernel (order 0 window, 1 key, 2 merge); the
-// staged rows take C * W floats of dynamic shared memory, above 48 KB (SH 3
-// at C = 256: 61,440 B) only after opting in. Saved carries (the training
-// forward, at most 256 rays per tile) run the key kernel on the quad
-// response and the window kernel on the scalar one (per-ray origins, each
-// the eye), as JAX's training forwards do (pallas_renderer.py:234-238); no
-// other training variant is built, and merge order never trains.
+// staged rows take C * W floats of dynamic shared memory (twice that where
+// the window kernel double-buffers), above 48 KB only after opting in. The
+// window kernel of a render has a 256-ray build (the main path's 16x16
+// tiles, __launch_bounds__(256, kWindowMinBlocks)) and a 1024-ray one.
+// Saved carries (the training forward, at most 256 rays per tile) run the
+// key kernel on the quad response and the window kernel on the scalar one
+// (per-ray origins, each the eye), as JAX's training forwards do
+// (pallas_renderer.py:234-238); no other training variant is built, and
+// merge order never trains. With `info` non-null nothing is launched: info
+// receives the kernel's resident blocks per SM at R rays, its dynamic
+// shared memory, registers per thread and local memory per thread.
 template <int C, bool kScalar, int K>
-cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStream_t stream) {
+cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStream_t stream,
+                        int* info) {
+  constexpr int W = Layout<kScalar, K, false>::w;
   void (*kernel)(Params) = order == 2   ? march_merge_kernel<C, kScalar, K>
                            : order == 1 ? march_key_kernel<C, kScalar, K, false>
-                                        : march_kernel<C, kScalar, K, false>;
+                           : R <= 256   ? march_kernel<C, kScalar, K, false, 256>
+                                        : march_kernel<C, kScalar, K, false, 1024>;
+  // the window kernel: its staged rows and C sure-miss thresholds
+  int smem = (int)sizeof(float) * (order == 0 ? window_stages<C, W>() * C * W + C : C * W);
   if (p.tin) {
-    if constexpr (kScalar)
-      kernel = march_kernel<C, true, K, true>;
-    else
-      kernel = march_key_kernel<C, false, K, true>;
     if ((order == 1) == kScalar || order == 2 || R > 256) return cudaErrorInvalidValue;
+    if constexpr (kScalar) {
+      kernel = march_kernel<C, true, K, true, 256>;
+      smem = (int)sizeof(float) * (window_stages<C, W>() * C * W + C);
+    } else {
+      kernel = march_key_kernel<C, false, K, true>;
+      smem = (int)sizeof(float) * C * Layout<false, K, true>::w;
+    }
   }
-  const int smem = (int)sizeof(float) * C * staged_width<kScalar, K>();
-  if (smem > 48 * 1024) {
+  // the static red[32] counts against the 48 KB that needs no opt-in
+  if (order == 0 && R <= 256) {
+    const cudaError_t err = two_blocks_per_sm(kernel, smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (smem + 1024 > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+  }
+  if (info) {
+    cudaFuncAttributes attr{};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, R, smem);
+    info[1] = smem;
+    info[2] = attr.numRegs;
+    info[3] = (int)attr.localSizeBytes;
+    return err;
   }
   kernel<<<n_tiles, R, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int C, int K>
-cudaError_t launch(const Params& p, int order, int n_tiles, int R, cudaStream_t stream) {
-  return p.origins ? launch_mode<C, true, K>(p, order, n_tiles, R, stream)
-                   : launch_mode<C, false, K>(p, order, n_tiles, R, stream);
+cudaError_t launch(const Params& p, int order, int n_tiles, int R, cudaStream_t stream,
+                   int* info) {
+  return p.origins ? launch_mode<C, true, K>(p, order, n_tiles, R, stream, info)
+                   : launch_mode<C, false, K>(p, order, n_tiles, R, stream, info);
 }
 
 // Every chunk of SH coefficient count K; explicitly instantiated for K = 1
@@ -777,12 +936,12 @@ cudaError_t launch(const Params& p, int order, int n_tiles, int R, cudaStream_t 
 // march_sh3.cu.
 template <int K>
 cudaError_t launch_k(const Params& p, int chunk, int order, int n_tiles, int R,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, int* info) {
   switch (chunk) {
-    case 32: return launch<32, K>(p, order, n_tiles, R, stream);
-    case 64: return launch<64, K>(p, order, n_tiles, R, stream);
-    case 128: return launch<128, K>(p, order, n_tiles, R, stream);
-    case 256: return launch<256, K>(p, order, n_tiles, R, stream);
+    case 32: return launch<32, K>(p, order, n_tiles, R, stream, info);
+    case 64: return launch<64, K>(p, order, n_tiles, R, stream, info);
+    case 128: return launch<128, K>(p, order, n_tiles, R, stream, info);
+    case 256: return launch<256, K>(p, order, n_tiles, R, stream, info);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,11 +6,23 @@
 #include "march_bwd.cuh"
 
 namespace k3 {
-template cudaError_t launch_k<1>(const Params&, bool, int, int, int, cudaStream_t);
-extern template cudaError_t launch_k<4>(const Params&, bool, int, int, int, cudaStream_t);
-extern template cudaError_t launch_k<9>(const Params&, bool, int, int, int, cudaStream_t);
-extern template cudaError_t launch_k<16>(const Params&, bool, int, int, int, cudaStream_t);
+template cudaError_t launch_k<1>(const Params&, bool, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<4>(const Params&, bool, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<9>(const Params&, bool, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<16>(const Params&, bool, int, int, int, cudaStream_t, int*);
 }  // namespace k3
+
+static cudaError_t dispatch(const k3::Params& p, int sh_k, bool window, int chunk, int n_tiles,
+                            int R, cudaStream_t s, int* info) {
+  using namespace k3;
+  switch (sh_k) {
+    case 1: return launch_k<1>(p, window, chunk, n_tiles, R, s, info);
+    case 4: return launch_k<4>(p, window, chunk, n_tiles, R, s, info);
+    case 9: return launch_k<9>(p, window, chunk, n_tiles, R, s, info);
+    case 16: return launch_k<16>(p, window, chunk, n_tiles, R, s, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // window: 0 key order, 1 window order (the training sort replay). sh_k:
 // SH coefficients per channel, K = 1, 4, 9 or 16. stride: floats per
@@ -22,7 +34,8 @@ extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const v
                              float t_lo, float t_hi, float min_t, float alpha_min,
                              float alpha_clamp, int hit_multiplicity, void* stream) {
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 256 || n_tiles < 0 ||
-      stride < (sh_k == 1 ? 32 : 29 + 3 * sh_k) || hit_multiplicity < 1)
+      stride < (sh_k == 1 ? 32 : 29 + 3 * sh_k) || hit_multiplicity < 1 ||
+      stride % 4 != 0 || ((uintptr_t)rows & 15) != 0)  // rows are staged in 16-byte copies
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
   using namespace k3;
@@ -31,11 +44,15 @@ extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const v
            (float*)d_rows, stride, t_lo, t_hi, min_t, alpha_min, alpha_clamp, hit_multiplicity};
   cudaStream_t s = (cudaStream_t)stream;
   const bool w = window != 0;
-  switch (sh_k) {
-    case 1: return (int)launch_k<1>(p, w, chunk, n_tiles, rays_per_tile, s);
-    case 4: return (int)launch_k<4>(p, w, chunk, n_tiles, rays_per_tile, s);
-    case 9: return (int)launch_k<9>(p, w, chunk, n_tiles, rays_per_tile, s);
-    case 16: return (int)launch_k<16>(p, w, chunk, n_tiles, rays_per_tile, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch(p, sh_k, w, chunk, n_tiles, rays_per_tile, s, nullptr);
+}
+
+// What grt_march_bwd would launch, without launching: out[0] resident
+// blocks per SM at rays_per_tile rays, out[1] dynamic shared memory bytes,
+// out[2] registers per thread, out[3] local memory bytes per thread.
+extern "C" int grt_march_bwd_info(int chunk, int window, int sh_k, int rays_per_tile, int* out) {
+  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 256)
+    return (int)cudaErrorInvalidValue;
+  k3::Params p{};
+  return (int)dispatch(p, sh_k, window != 0, chunk, 0, rays_per_tile, nullptr, out);
 }

@@ -17,43 +17,53 @@
 // (initially d t_final). Per chunk:
 //   1. skip replay: the block max of the saved carry-in t_in; at or below
 //      min_transmittance the chunk's rows stay zero and dT is unchanged;
-//   2. the chunk's scalar columns (mean, M, opacity, radius and the 3K SH
-//      coefficients: 14 + 3K floats of each training row) are staged in
-//      shared memory;
-//   3. key order, pass A: each ray recomputes, candidate by candidate, the
-//      scalar-form response with the exact gate, the exclusive prefix of
-//      log1p(-a) (summed sequentially, in the order the forward K1 summed
-//      it), P = t_in exp(prefix), d_w, d_P, and accumulates sum(d_P E) and
-//      the total D = sum(d_P P); the chunk's new dT follows. Pass B repeats
-//      the recompute (bit-identical: same operations in the same order),
-//      now with the strict suffix sum of d_P P taken as D minus the running
-//      inclusive prefix, giving d_a;
-//   3'. window order (the replay, pallas_march.py:1343-1425): pass 1
-//      evaluates every candidate with the operations K1 used (event t,
-//      alpha, gate), keeps a and the 3x10-bit colour pack per candidate in
-//      local memory, and repeats K1's tile-wide fire test; a fired chunk
-//      lists its significant candidates by the unique key (tq16 << 8) | src,
-//      tq16 from the same true division, in a per-thread insertion list
-//      (the TPU's bitonic network is layout and is not ported: a unique key
-//      makes any correct sort the same permutation), an unfired one in
-//      stream order. Passes A and B then sweep that list as in key order,
-//      with the 10-bit colours in d_w (straight-through, as the reference
-//      does even in unfired chunks), and the inverse permutation is a
-//      scatter: entry k's d_a and w go to local slot src[k] (replacing the
-//      reference's second sort, :1419-1425). Only significant candidates
-//      are listed; the rest have a = w = 0 and a closed gate;
+//   2. the chunk's rows are staged in shared memory as K1's scalar rows
+//      (k1::Layout: op, mean, M, radius, the 3K SH coefficients), by
+//      16-byte cp.async copies; where two buffers still leave room for two
+//      blocks per SM (stages()), chunk j-1's rows are copied while chunk j
+//      replays (the skips are known from the saved carries);
+//   3. key order, pass A: each ray evaluates every candidate once with the
+//      operations of K1's eval_scalar; a miss (alpha at or below alpha_min)
+//      stops at alpha. Its gate sets a bit of a register mask (C / 32
+//      words); for a gated candidate the exclusive prefix of log1p(-a)
+//      (summed sequentially, in the order the forward K1 summed it), P =
+//      t_in exp(prefix), d_w, d_P, sum(d_P E) and the total D = sum(d_P P)
+//      advance; the chunk's new dT follows;
+//   3'. window order (the replay, pallas_march.py:1343-1425): pass A
+//      evaluates every candidate once, with the operations K1 used (event
+//      t, alpha, gate), sets the mask bit of a significant (a > 0) one and
+//      keeps its a, colour pack and event t in compact local lists, in
+//      stream order (12 bytes per significant candidate, none for a miss),
+//      and repeats K1's tile-wide fire test; a fired chunk sorts its
+//      significant candidates by the unique key (tq16 << 8) | k, the compact
+//      index k in place of src (the same order: both ascend with the
+//      stream), tq16 from the same true division, in a per-thread insertion
+//      list (the TPU's bitonic network is layout and is not ported: a
+//      unique key makes any correct sort the same permutation), an unfired
+//      one keeps stream order. Two sweeps over that list, with the 10-bit
+//      colours in d_w (straight-through, as the reference does even in
+//      unfired chunks), give the chunk's dT and then each entry's d_a and w,
+//      written back to its compact slot (the reference's inverse
+//      permutation, :1419-1425);
 //   4. per-candidate sums over the tile's rays of 14 + 3K terms per (ray,
 //      candidate): opacity, d_oo, 3 d_od d_g, 9 d_dg d and the colour terms
 //      (SH 0: 3 dR w, times C0 and the colour mask after the sum; SH 1-3:
 //      3K dR w [colour > 0] basis_k, the mask from the exact colours,
-//      pallas_march.py:1448-1461). The sums run in a fixed order, so two
-//      launches give bit-identical gradients: a warp shuffle tree (lane 0
-//      keeps the warp's sum; a warp where no ray passes the gate has every
-//      term zero and skips the tree), per-warp partials in shared memory,
-//      then one thread per candidate adds the warps in order and finishes
-//      the shared-origin d_og / d_m / d_mean algebra. Candidates go through
-//      in groups of kGroup = 32: with R <= 256 the partials take at most
-//      8 x 32 x 62 floats (63.5 KB at SH 3) beside the staged rows.
+//      pallas_march.py:1448-1461), kGroup = 16 candidates at a time. A warp
+//      in which no lane's mask bit is set writes zero partials without
+//      evaluating; otherwise the lanes with the bit evaluate the candidate a
+//      second time (key order: with pass B's running prefix and d_a; window
+//      order: d_a and w from the compact slot) and the warp's 32 x
+//      ceil((14 + 3K) / 32) terms go through a transposed ray reduction, a
+//      reduce-scatter butterfly (31 shuffles per 32 terms; lane l ends with
+//      term l), stored by all lanes at once. All threads of the block then
+//      add the warps in order, one (candidate, term) each, and one thread
+//      per candidate finishes the shared-origin d_og / d_m / d_mean algebra.
+//      Every sum runs in a fixed order (the butterfly's pairs are a
+//      shuffle-down tree's), so two launches give bit-identical gradients.
+//      The partials take 8 warps x 16 x 64 floats (32 KB at SH 3) beside
+//      the staged rows: at SH 3 key order (c = 256) takes 100 KB and window
+//      order (c = 128, two buffers) 100 KB, two blocks per SM.
 // Each stream row belongs to one (tile, chunk): a block writes only rows
 // [starts[t], starts[t+1]) of its own tile (the TPU kernel's write-then-
 // overwrite of a tail chunk's overshoot rows relies on sequential grid
@@ -61,13 +71,17 @@
 // the output, so skipped chunks, the quad and radius columns and rows no
 // tile owns are zero. No global float atomics.
 //
-// What bounds it on an H100: per-(ray, candidate) float32 math: two
-// recomputes per candidate (key) or three (window) with one exp, one
-// log1p, one sqrt and three divides each, plus (14 + 3K) x 5 warp
-// shuffles per candidate and warp; window order adds the local-memory list
-// (12 C bytes per thread) and the insertion sort in fired chunks. The float
-// rules are K1's: IEEE float32, no FMA contraction (-fmad=false), true
-// divisions where JAX divides, no tensor cores, no TF32.
+// What bounds it on an H100: per-(ray, candidate) float32 math, not
+// memory (each row is read once per tile): one evaluation of every
+// candidate, a second one of the gated candidates (of every candidate of a
+// warp with one gated lane), with one exp, one log1p, one sqrt and three
+// divides each and at SH 1-3 the colour, plus the reduction (31 shuffles
+// per 32 terms and warp, for the candidates a warp has gated); window order
+// adds its compact lists in local memory (12 bytes per significant
+// candidate) and the insertion sort in fired chunks. Registers and
+// occupancy are in PERF.md. The float rules are K1's: IEEE float32, no FMA
+// contraction (-fmad=false), true divisions where JAX divides, no tensor
+// cores, no TF32.
 
 #pragma once
 
@@ -75,17 +89,39 @@
 
 namespace k3 {
 
-constexpr int kGroup = 32;  // candidates per reduction group
 using k1::kC0;
-// staged floats per candidate: mean 0..2, M 3..11, op 12, radius 13, SH
-// coefficients 14.. (training-row columns 16..27, 0, 28, 29..)
-enum { kMx = 0, kM0 = 3, kOp = 12, kRad = 13, kSh = 14 };
+constexpr int kGroup = 16;    // candidates per reduction group
+constexpr int kMaxWarps = 8;  // R <= 256
+// the staged rows are K1's scalar rows (k1::Layout): op 0, mean kMean,
+// M kMat, radius kRad, SH coefficients from Layout::col
+using k1::kMat;
+using k1::kMean;
+using k1::kRad;
 // training-row columns K3 writes
 enum { kGOp = 0, kGMx = 16, kGM0 = 19, kGSh = 29 };
 
 template <int K>
-__host__ __device__ constexpr int staged() {
+using Staged = k1::Layout<true, K, true>;
+// reduced terms per (ray, candidate): opacity, d_oo, 3 d_od d_g, 9 d_dg d
+// and the colour terms (3 at SH 0, 3K above), in rounds of 32 (one per lane)
+template <int K>
+__host__ __device__ constexpr int terms() {
   return 14 + 3 * K;
+}
+template <int K>
+__host__ __device__ constexpr int rounds() {
+  return (terms<K>() + 31) / 32;
+}
+// Staging buffers: two (chunk j-1's rows copied while chunk j replays)
+// where two blocks of 8 warps still fit on an SM, else one.
+template <int C, int K>
+__host__ __device__ constexpr int stages() {
+  return (2 * C * Staged<K>::w + kMaxWarps * kGroup * 32 * rounds<K>()) * 4 <= 113 * 1024 ? 2
+                                                                                          : 1;
+}
+template <int C, int K>
+__host__ __device__ constexpr int smem_floats(int n_warps) {
+  return stages<C, K>() * C * Staged<K>::w + n_warps * kGroup * 32 * rounds<K>();
 }
 
 struct Params {
@@ -115,19 +151,20 @@ struct Cand {
   const float* sh;  // sh_r[K], sh_g[K], sh_b[K] in shared memory
 };
 
+template <int K>
 __device__ __forceinline__ Cand load_cand(const float* f, const float* eye) {
   Cand c;
-  c.ox = eye[0] - f[kMx];
-  c.oy = eye[1] - f[kMx + 1];
-  c.oz = eye[2] - f[kMx + 2];
-  for (int k = 0; k < 9; ++k) c.m[k] = f[kM0 + k];
+  c.ox = eye[0] - f[kMean];
+  c.oy = eye[1] - f[kMean + 1];
+  c.oz = eye[2] - f[kMean + 2];
+  for (int k = 0; k < 9; ++k) c.m[k] = f[kMat + k];
   c.ogx = c.m[0] * c.ox + c.m[1] * c.oy + c.m[2] * c.oz;
   c.ogy = c.m[3] * c.ox + c.m[4] * c.oy + c.m[5] * c.oz;
   c.ogz = c.m[6] * c.ox + c.m[7] * c.oy + c.m[8] * c.oz;
   c.oo = c.ogx * c.ogx + c.ogy * c.ogy + c.ogz * c.ogz;
-  c.op = f[kOp];
+  c.op = f[0];
   c.rad = f[kRad];
-  c.sh = f + kSh;
+  c.sh = f + Staged<K>::col;
   return c;
 }
 
@@ -144,9 +181,24 @@ __device__ __forceinline__ float raw_color(const Cand& c, int ch, const float* b
   return acc;
 }
 
+template <int K>
+__device__ __forceinline__ uint32_t color_pack(const Cand& c, const float* basis) {
+  return k1::pack_color(fmaxf(raw_color<K>(c, 0, basis), 0.f),
+                        fmaxf(raw_color<K>(c, 1, basis), 0.f),
+                        fmaxf(raw_color<K>(c, 2, basis), 0.f));
+}
+
+__device__ __forceinline__ float packed_dot(const float* dR, uint32_t cp) {
+  return dR[0] * ((float)((cp >> 20) & 1023u) * k1::kInvCol) +
+         dR[1] * ((float)((cp >> 10) & 1023u) * k1::kInvCol) +
+         dR[2] * ((float)(cp & 1023u) * k1::kInvCol);
+}
+
 // Per-(ray, candidate) forward recompute, scalar form (pallas_march.py:1301-1331),
 // with the operations of K1's eval_scalar (csrc/march.cuh), so that the
-// window replay sees K1's event t and alpha bit for bit.
+// window replay sees K1's event t and alpha bit for bit. As there, alpha
+// comes first and a miss (alpha at or below alpha_min, or a dead ray) stops
+// with the gate closed, a = 0 and t_ev 0, which nothing reads.
 struct Eval {
   float dgx, dgy, dgz, od, dd_s, pp, resp, alpha, a, t_ev;
   bool gate;
@@ -165,6 +217,10 @@ __device__ __forceinline__ Eval evaluate(const Params& p, const Cand& c, float d
   e.pp = c.oo + t_star * (2.f * e.od + t_star * dd);
   e.resp = expf(-0.5f * fmaxf(e.pp, 0.f));
   e.alpha = fminf(p.alpha_clamp, e.resp * c.op);
+  e.gate = false;
+  e.a = 0.f;
+  e.t_ev = 0.f;
+  if (!(live && e.alpha > p.alpha_min)) return e;
   const float cq = c.oo - c.rad * c.rad;
   const float disc = e.od * e.od - dd * cq;
   const float sq = sqrtf(fmaxf(disc, 0.f));
@@ -172,25 +228,66 @@ __device__ __forceinline__ Eval evaluate(const Params& p, const Cand& c, float d
   const float t_entry = (-e.od - sq) * inv_dd;
   const float t_exit = (-e.od + sq) * inv_dd;
   e.t_ev = t_entry < p.t_lo ? t_exit : t_entry;
-  e.gate = disc >= 0.f && e.t_ev >= p.t_lo && e.t_ev <= p.t_hi && live &&
-           e.alpha > p.alpha_min;
+  e.gate = disc >= 0.f && e.t_ev >= p.t_lo && e.t_ev <= p.t_hi;
   const float a_eff = p.hm == 1 ? e.alpha : 1.f - ipow(1.f - e.alpha, p.hm);
   e.a = e.gate ? a_eff : 0.f;
   return e;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-  return x;
+// Reduce-scatter across the warp: lane l returns the sum over the 32
+// lanes of v[l]. Each step trades half of the values a lane still holds
+// with the lane H away, 16 + 8 + 4 + 2 + 1 = 31 shuffles for 32 terms;
+// every sum runs in a fixed order (the pairs of a shuffle-down tree).
+// A template per step, so that every index into v is a constant and v
+// stays in registers.
+template <int H>
+__device__ __forceinline__ void transpose_step(float (&v)[32], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = up ? v[k] : v[k + H];
+    const float keep = up ? v[k + H] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+  if constexpr (H > 1) transpose_step<H / 2>(v, lane);
+}
+
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[32]) {
+  transpose_step<16>(v, threadIdx.x & 31);
+  return v[0];
+}
+
+// A chunk's gate mask (bit b of word w: candidate 32 w + b) lives in
+// registers: the loops index it with constants only, shifting word 0 out
+// as they go.
+template <int NW>
+__device__ __forceinline__ void push_word(uint32_t (&mask)[NW], uint32_t bits) {
+#pragma unroll
+  for (int k = 0; k < NW - 1; ++k) mask[k] = mask[k + 1];
+  mask[NW - 1] = bits;
+}
+
+// Start the copy of rows [row0, row0 + m) into sf (K1's scalar staging
+// runs, 16-byte cp.async copies) and commit it as one group.
+template <int K>
+__device__ __forceinline__ void stage_async(float* sf, const Params& p, size_t row0, int m) {
+  using L = Staged<K>;
+  constexpr int G = L::w / 4, GA = L::a / 4;
+  for (int k = threadIdx.x; k < m * G; k += blockDim.x) {
+    const int r = k / G, q = k - r * G;
+    const float* g = p.rows + (row0 + r) * p.stride;
+    k1::cp_async16(sf + r * L::w + 4 * q, g + (q < GA ? 4 * q : L::b + 4 * (q - GA)));
+  }
+  k1::cp_async_commit();
 }
 
 template <int C, int K, bool kWindow>
-__global__ void __launch_bounds__(256) march_bwd_kernel(Params p) {
-  constexpr int kS = staged<K>();  // staged floats per candidate
-  constexpr int kNV = 14 + 3 * K;  // reduced terms per (ray, candidate)
-  extern __shared__ float smem[];
-  float* sf = smem;             // C * kS staged scalar columns
-  float* part = smem + C * kS;  // n_warps * kGroup * kNV per-warp partial sums
+__global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
+  constexpr int kS = Staged<K>::w;  // staged floats per candidate
+  constexpr int NR = rounds<K>(), TP = 32 * NR, NW = C / 32;
+  constexpr int kStages = stages<C, K>();
+  extern __shared__ __align__(16) float smem[];
+  float* part = smem + kStages * C * kS;  // n_warps x kGroup x TP partial sums
   __shared__ float red[32];
 
   const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
@@ -207,77 +304,91 @@ __global__ void __launch_bounds__(256) march_bwd_kernel(Params p) {
   if (K > 1) k1::sh_basis<K>(dx, dy, dz, basis);
   float dT = p.d_tfinal[ray];
   const float* tin = p.tin + (size_t)p.chunk_base[tile] * R + tid;
-  // window replay, per candidate: keys (the listed order), a then d_a, the
-  // colour pack then w (local memory)
-  uint32_t keys[kWindow ? C : 1];
-  float va[kWindow ? C : 1], vw[kWindow ? C : 1];
+  // window replay, per SIGNIFICANT candidate in stream order (compact
+  // index): a then d_a, the colour pack then w, and the listed order
+  // (event t bits, then the sort keys); local memory, touched only by the
+  // significant candidates
+  float ca[kWindow ? C : 1];
+  uint32_t cc[kWindow ? C : 1], keys[kWindow ? C : 1];
 
+  int staged = -1;  // the chunk whose rows are in flight to its buffer
   for (int j = n_chunks - 1; j >= 0; --j) {
     const float t_in = tin[(size_t)j * R];
-    if (k1::block_reduce(t_in, true, red) <= p.min_t) continue;  // skip replay
+    // skip replay (its barrier also ends the previous chunk's reads)
+    if (k1::block_reduce(t_in, true, red) <= p.min_t) {
+      if (staged == j) {  // T never rises, so this does not happen; but never
+        k1::cp_async_wait<0>();  // leave a copy in flight to a buffer in use
+        staged = -1;
+      }
+      continue;
+    }
     const int m = min(C, n - j * C);
     const size_t row0 = (size_t)start + (size_t)j * C;
-    __syncthreads();  // the previous chunk is done with sf / part
-    for (int k = tid; k < m * kS; k += R) {
-      const int c = k % kS;
-      const int col = c < 12 ? 16 + c : c == kOp ? 0 : c == kRad ? 28 : 15 + c;
-      sf[k] = p.rows[(row0 + k / kS) * p.stride + col];
+    float* sf = smem + (kStages == 2 ? (j & 1) * C * kS : 0);
+    if (staged != j) stage_async<K>(sf, p, row0, m);
+    if (kStages == 2 && j > 0) {  // chunk j-1 into the other buffer
+      stage_async<K>(smem + ((j - 1) & 1) * C * kS, p, row0 - C, C);
+      staged = j - 1;
+      k1::cp_async_wait<1>();
+    } else {
+      k1::cp_async_wait<0>();
     }
     __syncthreads();
 
+    // ---- pass A: every candidate once (a miss stops at alpha); the gate
+    // mask (window: a > 0), and in key order the prefix, P, d_P and the
+    // chunk's dT ----
+    uint32_t mask[NW];
     float base = 0.f, D = 0.f;
     if (kWindow) {
-      // ---- pass 1: K1's fire test; a and the colour pack per candidate ----
       bool inv = false;
       float rmax = -INFINITY, lo = INFINITY, hi = -INFINITY;
-      for (int i = 0; i < m; ++i) {
-        const Cand c = load_cand(sf + i * kS, p.eye);
-        const Eval e = evaluate(p, c, dx, dy, dz, live);
-        va[i] = e.a;
-        vw[i] = 0.f;
-        keys[i] = __float_as_uint(e.t_ev);
-        if (e.a > 0.f) {
+      int ns = 0;
+#pragma unroll 1
+      for (int w = 0; w < NW; ++w) {
+        uint32_t bits = 0u;
+        const int i0 = w * 32, e_end = min(32, m - i0);
+        for (int b = 0; b < e_end; ++b) {
+          const Cand c = load_cand<K>(sf + (i0 + b) * kS, p.eye);
+          const Eval e = evaluate(p, c, dx, dy, dz, live);
+          if (!(e.a > 0.f)) continue;
+          bits |= 1u << b;
           inv |= e.t_ev < rmax;
           rmax = fmaxf(rmax, e.t_ev);
           lo = fminf(lo, e.t_ev);
           hi = fmaxf(hi, e.t_ev);
-          vw[i] = __uint_as_float(k1::pack_color(fmaxf(raw_color<K>(c, 0, basis), 0.f),
-                                                 fmaxf(raw_color<K>(c, 1, basis), 0.f),
-                                                 fmaxf(raw_color<K>(c, 2, basis), 0.f)));
+          ca[ns] = e.a;
+          cc[ns] = color_pack<K>(c, basis);
+          keys[ns++] = __float_as_uint(e.t_ev);
         }
+        push_word(mask, bits);
       }
+      // ---- the listed order: K1's fire test; a fired chunk sorts by the
+      // unique key (tq16 << 8) | src, here with the compact index in place
+      // of src (the same order: both ascend with the stream) ----
       const bool fired = __syncthreads_or(inv);
-      // ---- the listed order: significant candidates, sorted if fired ----
-      int ns = 0;
       if (fired) {
         lo = k1::block_reduce(lo, false, red);
         hi = k1::block_reduce(hi, true, red);
         const float scale = 65534.f / fmaxf(hi - lo, 1e-20f);
-        for (int i = 0; i < m; ++i) {
-          if (!(va[i] > 0.f)) continue;
-          const float t_ev = __uint_as_float(keys[i]);  // read before the list grows to i
+        for (int k = 0; k < ns; ++k) {
+          const float t_ev = __uint_as_float(keys[k]);  // read before the list grows to k
           const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - lo) * scale, 0.f), 65534.f);
-          const uint32_t key = (tq << 8) | (uint32_t)i;
-          int pos = ns++;
+          const uint32_t key = (tq << 8) | (uint32_t)k;
+          int pos = k;
           while (pos > 0 && keys[pos - 1] > key) {
             keys[pos] = keys[pos - 1];
             --pos;
           }
           keys[pos] = key;
         }
-      } else {
-        for (int i = 0; i < m; ++i)
-          if (va[i] > 0.f) keys[ns++] = (uint32_t)i;
       }
       // ---- pass A over the list: prefix, P, d_P; the chunk's dT ----
       float S = 0.f, sum_dpe = 0.f;
       for (int k = 0; k < ns; ++k) {
-        const int i = (int)(keys[k] & 255u);
-        const float a = va[i];
-        const uint32_t cp = __float_as_uint(vw[i]);
-        const float d_w = dR[0] * ((float)((cp >> 20) & 1023u) * k1::kInvCol) +
-                          dR[1] * ((float)((cp >> 10) & 1023u) * k1::kInvCol) +
-                          dR[2] * ((float)(cp & 1023u) * k1::kInvCol);
+        const int r = fired ? (int)(keys[k] & 255u) : k;
+        const float a = ca[r];
+        const float d_w = packed_dot(dR, cc[r]);
         const float E = expf(S);
         const float P = t_in * E;
         const float gw = P > p.min_t ? 1.f : 0.f;
@@ -289,60 +400,34 @@ __global__ void __launch_bounds__(256) march_bwd_kernel(Params p) {
       const float prod = expf(S);
       base = dT * t_in * prod;  // d_lp's carry term, from the OLD dT
       dT = dT * prod + sum_dpe;
-      // ---- pass B over the list: d_a and w, scattered to the source slot ----
+      // ---- pass B over the list: d_a and w, back to the compact slot ----
       S = 0.f;
       float incl = 0.f;
       for (int k = 0; k < ns; ++k) {
-        const int i = (int)(keys[k] & 255u);
-        const float a = va[i];
-        const uint32_t cp = __float_as_uint(vw[i]);
-        const float d_w = dR[0] * ((float)((cp >> 20) & 1023u) * k1::kInvCol) +
-                          dR[1] * ((float)((cp >> 10) & 1023u) * k1::kInvCol) +
-                          dR[2] * ((float)(cp & 1023u) * k1::kInvCol);
+        const int r = fired ? (int)(keys[k] & 255u) : k;
+        const float a = ca[r];
+        const float d_w = packed_dot(dR, cc[r]);
         const float E = expf(S);
         const float P = t_in * E;
         const float gw = P > p.min_t ? 1.f : 0.f;
         const float d_P = d_w * a * gw;
         incl += d_P * P;
         const float d_lp = base + (D - incl);  // strict suffix sum of d_P P
-        va[i] = d_w * P * gw - d_lp / (1.f - a);
-        vw[i] = a * P * gw;
+        ca[r] = d_w * P * gw - d_lp / (1.f - a);
+        cc[r] = __float_as_uint(a * P * gw);
         S += log1pf(-a);
       }
     } else {
-      // ---- key order, pass A: prefix, P, d_P; the chunk's dT ----
       float S = 0.f, sum_dpe = 0.f;
-      for (int i = 0; i < m; ++i) {
-        const Cand c = load_cand(sf + i * kS, p.eye);
-        const Eval e = evaluate(p, c, dx, dy, dz, live);
-        const float E = expf(S);
-        const float P = t_in * E;
-        const float gw = P > p.min_t ? 1.f : 0.f;
-        float d_w = 0.f;
-        for (int ch = 0; ch < 3; ++ch) d_w = d_w + dR[ch] * fmaxf(raw_color<K>(c, ch, basis), 0.f);
-        const float d_P = d_w * e.a * gw;
-        sum_dpe += d_P * E;
-        D += d_P * P;
-        S += log1pf(-e.a);
-      }
-      const float prod = expf(S);
-      base = dT * t_in * prod;
-      dT = dT * prod + sum_dpe;
-    }
-
-    // ---- pass B (key) / C (window): the per-candidate sums over the rays ----
-    float S = 0.f, incl = 0.f;
-    for (int g0 = 0; g0 < m; g0 += kGroup) {
-      const int gn = min(kGroup, m - g0);
-      for (int gi = 0; gi < gn; ++gi) {
-        const int i = g0 + gi;
-        const Cand c = load_cand(sf + i * kS, p.eye);
-        const Eval e = evaluate(p, c, dx, dy, dz, live);
-        float d_a, w;
-        if (kWindow) {
-          d_a = va[i];
-          w = vw[i];
-        } else {
+#pragma unroll 1
+      for (int w = 0; w < NW; ++w) {
+        uint32_t bits = 0u;
+        const int i0 = w * 32, e_end = min(32, m - i0);
+        for (int b = 0; b < e_end; ++b) {
+          const Cand c = load_cand<K>(sf + (i0 + b) * kS, p.eye);
+          const Eval e = evaluate(p, c, dx, dy, dz, live);
+          if (!e.gate) continue;  // a = 0: no term of the sums moves
+          bits |= 1u << b;
           const float E = expf(S);
           const float P = t_in * E;
           const float gw = P > p.min_t ? 1.f : 0.f;
@@ -350,58 +435,121 @@ __global__ void __launch_bounds__(256) march_bwd_kernel(Params p) {
           for (int ch = 0; ch < 3; ++ch)
             d_w = d_w + dR[ch] * fmaxf(raw_color<K>(c, ch, basis), 0.f);
           const float d_P = d_w * e.a * gw;
-          incl += d_P * P;
+          sum_dpe += d_P * E;
+          D += d_P * P;
           S += log1pf(-e.a);
-          w = e.a * P * gw;
-          const float d_lp = base + (D - incl);  // strict suffix sum of d_P P
-          d_a = d_w * P * gw - d_lp / (1.f - e.a);
         }
-        float* dst = part + ((size_t)warp * kGroup + gi) * kNV;
-        if (!__any_sync(0xffffffffu, e.gate)) {  // every term of this warp is zero
-          if (lane == 0)
-            for (int v = 0; v < kNV; ++v) dst[v] = 0.f;
+        push_word(mask, bits);
+      }
+      const float prod = expf(S);
+      base = dT * t_in * prod;
+      dT = dT * prod + sum_dpe;
+    }
+
+    // ---- pass B (key) / C (window): the per-candidate sums over the rays,
+    // kGroup candidates at a time; a warp where no lane's bit is set writes
+    // zeros without evaluating ----
+    float S = 0.f, incl = 0.f;
+    int r_next = 0;  // window: compact index of this ray's next significant candidate
+    uint32_t cur = 0u;
+    for (int g0 = 0; g0 < m; g0 += kGroup) {
+      const int gn = min(kGroup, m - g0);
+      for (int gi = 0; gi < gn; ++gi) {
+        const int i = g0 + gi;
+        if ((i & 31) == 0) {
+          cur = mask[0];
+          push_word(mask, 0u);
+        }
+        const bool bit = (cur >> (i & 31)) & 1u;
+        float* dst = part + ((size_t)warp * kGroup + gi) * TP;
+        if (!__any_sync(0xffffffffu, bit)) {  // every term of this warp is zero
+#pragma unroll
+          for (int rr = 0; rr < NR; ++rr) dst[32 * rr + lane] = 0.f;
           continue;
         }
-        float d_alpha = p.hm == 1 ? d_a : d_a * p.hm * ipow(1.f - e.alpha, p.hm - 1);
-        d_alpha = e.gate ? d_alpha : 0.f;
-        const float notclamp = e.resp * c.op < p.alpha_clamp ? 1.f : 0.f;
-        const float d_resp = d_alpha * c.op * notclamp;
-        const float d_pp = -0.5f * e.resp * d_resp * (e.pp > 0.f ? 1.f : 0.f);
-        const float d_od = d_pp * (-2.f * e.od / e.dd_s);
-        const float d_dd = d_pp * (e.od * e.od / (e.dd_s * e.dd_s));
-        const float d_dgx = d_od * c.ogx + 2.f * e.dgx * d_dd;
-        const float d_dgy = d_od * c.ogy + 2.f * e.dgy * d_dd;
-        const float d_dgz = d_od * c.ogz + 2.f * e.dgz * d_dd;
-        const float v[14] = {d_alpha * e.resp * notclamp, d_pp, d_od * e.dgx, d_od * e.dgy,
-                             d_od * e.dgz, d_dgx * dx, d_dgx * dy, d_dgx * dz, d_dgy * dx,
-                             d_dgy * dy, d_dgy * dz, d_dgz * dx, d_dgz * dy, d_dgz * dz};
+        float g[14], dcm[3];
 #pragma unroll
-        for (int k = 0; k < 14; ++k) {
-          const float x = warp_sum(v[k]);
-          if (lane == 0) dst[k] = x;
-        }
-        for (int ch = 0; ch < 3; ++ch) {
-          const float d_col = dR[ch] * w;
-          if (K == 1) {  // the colour mask is per candidate: applied after the sum
-            const float x = warp_sum(d_col);
-            if (lane == 0) dst[14 + ch] = x;
+        for (int k = 0; k < 14; ++k) g[k] = 0.f;
+        dcm[0] = dcm[1] = dcm[2] = 0.f;
+        if (bit) {
+          const Cand c = load_cand<K>(sf + i * kS, p.eye);
+          const Eval e = evaluate(p, c, dx, dy, dz, live);
+          float d_a, w;
+          if (kWindow) {
+            d_a = ca[r_next];
+            w = __uint_as_float(cc[r_next]);
+            ++r_next;
           } else {
-            const float dcm = d_col * (raw_color<K>(c, ch, basis) > 0.f ? 1.f : 0.f);
-            for (int k = 0; k < K; ++k) {
-              const float x = warp_sum(dcm * basis[k]);
-              if (lane == 0) dst[14 + ch * K + k] = x;
-            }
+            const float E = expf(S);
+            const float P = t_in * E;
+            const float gw = P > p.min_t ? 1.f : 0.f;
+            float d_w = 0.f;
+            for (int ch = 0; ch < 3; ++ch)
+              d_w = d_w + dR[ch] * fmaxf(raw_color<K>(c, ch, basis), 0.f);
+            const float d_P = d_w * e.a * gw;
+            incl += d_P * P;
+            S += log1pf(-e.a);
+            w = e.a * P * gw;
+            const float d_lp = base + (D - incl);  // strict suffix sum of d_P P
+            d_a = d_w * P * gw - d_lp / (1.f - e.a);
           }
+          const float d_alpha = p.hm == 1 ? d_a : d_a * p.hm * ipow(1.f - e.alpha, p.hm - 1);
+          const float notclamp = e.resp * c.op < p.alpha_clamp ? 1.f : 0.f;
+          const float d_resp = d_alpha * c.op * notclamp;
+          const float d_pp = -0.5f * e.resp * d_resp * (e.pp > 0.f ? 1.f : 0.f);
+          const float d_od = d_pp * (-2.f * e.od / e.dd_s);
+          const float d_dd = d_pp * (e.od * e.od / (e.dd_s * e.dd_s));
+          const float d_dgx = d_od * c.ogx + 2.f * e.dgx * d_dd;
+          const float d_dgy = d_od * c.ogy + 2.f * e.dgy * d_dd;
+          const float d_dgz = d_od * c.ogz + 2.f * e.dgz * d_dd;
+          g[0] = d_alpha * e.resp * notclamp;
+          g[1] = d_pp;
+          g[2] = d_od * e.dgx;
+          g[3] = d_od * e.dgy;
+          g[4] = d_od * e.dgz;
+          g[5] = d_dgx * dx;
+          g[6] = d_dgx * dy;
+          g[7] = d_dgx * dz;
+          g[8] = d_dgy * dx;
+          g[9] = d_dgy * dy;
+          g[10] = d_dgy * dz;
+          g[11] = d_dgz * dx;
+          g[12] = d_dgz * dy;
+          g[13] = d_dgz * dz;
+          for (int ch = 0; ch < 3; ++ch) {
+            const float d_col = dR[ch] * w;
+            // SH 0: the colour mask is per candidate, applied after the sum
+            dcm[ch] = K == 1 ? d_col
+                             : d_col * (raw_color<K>(c, ch, basis) > 0.f ? 1.f : 0.f);
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < NR; ++rr) {
+          float v[32];
+#pragma unroll
+          for (int t = 0; t < 32; ++t) {
+            const int q = 32 * rr + t;  // a constant once unrolled
+            const int cq = q < 14 ? 0 : q < terms<K>() ? q - 14 : 0;  // colour term
+            v[t] = q < 14            ? g[q < 14 ? q : 0]
+                   : q < terms<K>() ? (K == 1 ? dcm[cq] : dcm[cq / K] * basis[cq % K])
+                                    : 0.f;
+          }
+          dst[32 * rr + lane] = warp_transpose_sum(v);
         }
       }
       __syncthreads();  // every warp's partials of this group are in
 
+      // the warps in order, one (candidate, term) per thread, into warp 0's slot
+      for (int q = tid; q < gn * TP; q += R) {
+        float s = part[q];
+        for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
+        part[q] = s;
+      }
+      __syncthreads();
+
       for (int gi = tid; gi < gn; gi += R) {
-        float r[kNV];
-        for (int k = 0; k < kNV; ++k) r[k] = part[(size_t)gi * kNV + k];
-        for (int w = 1; w < n_warps; ++w)
-          for (int k = 0; k < kNV; ++k) r[k] += part[((size_t)w * kGroup + gi) * kNV + k];
-        const Cand c = load_cand(sf + (g0 + gi) * kS, p.eye);
+        const float* r = part + (size_t)gi * TP;
+        const Cand c = load_cand<K>(sf + (g0 + gi) * kS, p.eye);
         const float d_oo = r[1];
         const float d_ogx = r[2] + 2.f * c.ogx * d_oo;
         const float d_ogy = r[3] + 2.f * c.ogy * d_oo;
@@ -428,31 +576,46 @@ __global__ void __launch_bounds__(256) march_bwd_kernel(Params p) {
           for (int k = 0; k < 3 * K; ++k) out[kGSh + k] = r[14 + k];
         }
       }
-      __syncthreads();  // the group's partials are consumed
+      __syncthreads();  // the group's sums are consumed
     }
   }
+  k1::cp_async_wait<0>();
 }
 
+// One launch, or with `info` non-null the kernel's resident blocks per SM
+// at R rays, dynamic shared memory, registers and local memory per thread.
 template <int C, int K, bool kWindow>
-cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)C * staged<K>() + (size_t)(R / 32) * kGroup * (14 + 3 * K));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        march_bwd_kernel<C, K, kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
+  const int smem = (int)sizeof(float) * smem_floats<C, K>(R / 32);
+  auto kernel = march_bwd_kernel<C, K, kWindow>;
+  // the static red[32] counts against the 48 KB that needs no opt-in
+  if (smem + 1024 > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  march_bwd_kernel<C, K, kWindow><<<n_tiles, R, smem, stream>>>(p);
+  if (info) {
+    cudaFuncAttributes attr{};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, R, smem);
+    info[1] = smem;
+    info[2] = attr.numRegs;
+    info[3] = (int)attr.localSizeBytes;
+    return err;
+  }
+  kernel<<<n_tiles, R, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int K, bool kWindow>
-cudaError_t launch_chunk(const Params& p, int chunk, int n_tiles, int R, cudaStream_t stream) {
+cudaError_t launch_chunk(const Params& p, int chunk, int n_tiles, int R, cudaStream_t stream,
+                         int* info) {
   switch (chunk) {
-    case 32: return launch<32, K, kWindow>(p, n_tiles, R, stream);
-    case 64: return launch<64, K, kWindow>(p, n_tiles, R, stream);
-    case 128: return launch<128, K, kWindow>(p, n_tiles, R, stream);
-    case 256: return launch<256, K, kWindow>(p, n_tiles, R, stream);
+    case 32: return launch<32, K, kWindow>(p, n_tiles, R, stream, info);
+    case 64: return launch<64, K, kWindow>(p, n_tiles, R, stream, info);
+    case 128: return launch<128, K, kWindow>(p, n_tiles, R, stream, info);
+    case 256: return launch<256, K, kWindow>(p, n_tiles, R, stream, info);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -462,9 +625,9 @@ cudaError_t launch_chunk(const Params& p, int chunk, int n_tiles, int R, cudaStr
 // march_bwd_sh3.cu, so that nvcc builds them in parallel.
 template <int K>
 cudaError_t launch_k(const Params& p, bool window, int chunk, int n_tiles, int R,
-                     cudaStream_t stream) {
-  return window ? launch_chunk<K, true>(p, chunk, n_tiles, R, stream)
-                : launch_chunk<K, false>(p, chunk, n_tiles, R, stream);
+                     cudaStream_t stream, int* info) {
+  return window ? launch_chunk<K, true>(p, chunk, n_tiles, R, stream, info)
+                : launch_chunk<K, false>(p, chunk, n_tiles, R, stream, info);
 }
 
 }  // namespace k3

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 
 _lib = None
-build_log = ""  # nvcc/ptxas output of the build this process ran, if any
+build_log = ""  # nvcc/ptxas output of the library's build
 
 
 def _nvcc() -> str:
@@ -46,24 +46,28 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libgrt_kernels_{h.hexdigest()[:16]}.so"
+        h.update((csrc / name).read_bytes())
+    return build_dir / f"libgrt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/ into the shared library unless it is already built."""
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the sources of `csrc` (the package's csrc/ by default) into
+    the shared library unless it is already built. Sets `build_log` (kept
+    beside the library, so that a later process reads the same log)."""
     global build_log
-    out = library_path()
+    out = library_path(csrc, build_dir)
     if out.exists():
+        log_file = out.with_suffix(".log")
+        build_log = log_file.read_text() if log_file.exists() else ""
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    objs = [build_dir / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
     procs = [
-        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(csrc / name)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, obj in zip(SOURCES, objs)
     ]
@@ -86,21 +90,24 @@ def build() -> Path:
     build_log = "".join(logs)
     if failed:
         raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
+    out.with_suffix(".log").write_text(build_log)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
 
 
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C entry points."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
+    """Declare the C entry points of a loaded kernel library (`info`: also
+    the launch queries grt_march_info and grt_march_bwd_info)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, vp]
     lib.grt_march.restype = ci
     lib.grt_march_bwd.argtypes = [vp] * 9 + [ci] * 6 + [cf] * 5 + [ci, vp]
     lib.grt_march_bwd.restype = ci
+    if info:
+        lib.grt_march_info.argtypes = [ci] * 6 + [vp]
+        lib.grt_march_info.restype = ci
+        lib.grt_march_bwd_info.argtypes = [ci] * 4 + [vp]
+        lib.grt_march_bwd_info.restype = ci
     lib.grt_multi_cumsum_i32.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, vp]
     lib.grt_multi_cumsum_i32.restype = ci
     lib.grt_closest_hit.argtypes = [vp] * 10 + [ci, ci, cf, cf, vp]
@@ -110,8 +117,58 @@ def load_library() -> ctypes.CDLL:
     lib.grt_error_string.argtypes = [ci]
     lib.grt_error_string.restype = ctypes.c_char_p
     lib.SCAN_BLOCK = lib.grt_scan_block()
-    _lib = lib
     return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C entry points."""
+    global _lib
+    if _lib is None:
+        _lib = declare(ctypes.CDLL(str(build())))
+    return _lib
+
+
+def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: str = "window",
+                scalar: bool = False, train: bool = False) -> dict:
+    """What a launch of K1 (`kernel` "march": order, per-ray origins
+    `scalar`, saved carries `train`) or K3 ("march_bwd": order window or
+    key) at this chunk, SH degree and rays per tile runs: resident blocks
+    per SM, dynamic shared memory bytes, registers and local memory bytes
+    per thread, from the CUDA runtime."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    k = (sh_degree + 1) ** 2
+    if kernel == "march":
+        err = lib.grt_march_info(chunk, ("window", "key", "merge").index(order), k, int(scalar),
+                                 int(train), rays, out)
+    else:
+        err = lib.grt_march_bwd_info(chunk, int(order == "window"), k, rays, out)
+    check(err, f"{kernel} launch info")
+    return {"blocks_per_sm": out[0], "smem_bytes": out[1], "registers": out[2],
+            "local_bytes": out[3]}
+
+
+def ptxas_table(log: str) -> dict:
+    """{mangled kernel name: (registers, stack frame bytes, spill stores,
+    spill loads)} from an nvcc -Xptxas -v log."""
+    import re
+
+    table, name, stack = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            stack = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name] = (int(m.group(1)), *stack)
+            name, stack = None, (0, 0, 0)
+    return table
 
 
 def check(err: int, what: str) -> None:

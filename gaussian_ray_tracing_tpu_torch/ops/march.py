@@ -558,7 +558,8 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
                  train: bool, pend):
     """March chunk j of tiles `tb` (in place on trans/rgb, and in merge
     order on the pending buffers `pend`). Returns the number of significant
-    (a > 0) (ray, candidate) pairs, whose colour the march evaluates."""
+    (a > 0) (ray, candidate) pairs, whose colour the march evaluates, and
+    (window order) the number of these tiles whose chunk fired."""
     idx, present = _chunk_rows(tb, j, starts, c, feats.shape[0], blocks, block_sub)
     f = feats[idx]  # (B, c, row)
     # per-ray lists and tensors are cut to the batch
@@ -568,6 +569,7 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
     a, t_ev, cols = alpha_fn(f, sub, present, config)
     min_t = config.min_transmittance
     t_carry = trans[tb][:, None]  # (B, 1, R)
+    fired = 0
     if config.order == "key":
         part, t_next = _composite(t_carry, a, cols, min_t)
     elif config.order == "merge":
@@ -576,11 +578,11 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
         for x, y in zip(pend, new):
             x[tb] = y
     else:
-        part, t_next = _window_composite(t_carry, a, t_ev, cols, min_t, train)
+        part, t_next, fired = _window_composite(t_carry, a, t_ev, cols, min_t, train)
     tc = trans[tb]
     trans[tb] = torch.where(tc > min_t, t_next, tc)
     rgb[tb] += part
-    return (a > 0.0).sum()
+    return (a > 0.0).sum(), fired
 
 
 def window_fire(a, t_ev):
@@ -619,7 +621,7 @@ def train_sort_key(a, t_ev):
 def _window_composite(t_carry, a, t_ev, cols, min_t: float, train: bool = False):
     """Window order: stream-order composite of unfired tiles, sorted
     composite of the tiles whose chunk fired (train: the unique training
-    key with exact alphas)."""
+    key with exact alphas). Also returns the number of fired tiles."""
     fired = window_fire(a, t_ev)  # (B,)
 
     B, _, R = a.shape
@@ -644,7 +646,7 @@ def _window_composite(t_carry, a, t_ev, cols, min_t: float, train: bool = False)
         cp = _pack_colors([x[fb] for x in cols]).expand(-1, -1, perm.shape[2])
         cp_s = torch.gather(cp, 1, perm)
         part[fb], t_next[fb] = _composite(t_carry[fb], a_s, _unpack_colors(cp_s), min_t)
-    return part, t_next
+    return part, t_next, fb.numel()
 
 
 def merge_keys(a, t_ev):
@@ -692,8 +694,10 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     in batches of at most _PLAIN_BATCH (tile, candidate, ray) elements, with
     a stable per-ray torch.sort in fired chunks (window order). Records in
     march_plain.candidates the (tile, candidate) slots of the chunks it did
-    not skip and in march_plain.significant the (ray, candidate) pairs that
-    passed the gate."""
+    not skip, in march_plain.chunks those (tile, chunk) pairs, in
+    march_plain.significant the (ray, candidate) pairs that passed the gate
+    and in march_plain.fired the (tile, chunk) pairs whose window-sort fire
+    test (window_fire) fired, in window order (0 in the others)."""
     _check_args(starts, feats, dirs_t, config, chunk, save_tin,
                 dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
                      block_sub=block_sub))
@@ -727,6 +731,7 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     counts = (starts[1:] - starts[:-1]).long()
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
     significant = torch.zeros((), dtype=torch.int64, device=dev)
+    chunks = fired = 0
     for j in range(int(n_chunks.max()) if T else 0):
         if save_tin:  # every chunk's carry-in, skipped chunks included
             has = (n_chunks > j).nonzero().squeeze(1)
@@ -734,8 +739,11 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         active = (n_chunks > j) & (trans.amax(dim=1) > t_skip)
         evaluated += torch.where(active, torch.clamp(counts - j * chunk, max=chunk), 0).sum()
         for tb in active.nonzero().squeeze(1).split(batch):
-            significant += _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, chunk,
+            sig, n_fired = _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, chunk,
                                         blocks, block_sub, save_tin, pend)
+            significant += sig
+            chunks += tb.numel()
+            fired += n_fired
     if pend is not None:  # flush the pending buffers
         min_t = config.min_transmittance
         for tb in torch.arange(T, device=dev).split(batch):
@@ -745,6 +753,7 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
             trans[tb] = torch.where(tc > min_t, t_next, tc)
             rgb[tb] += part
     march_plain.candidates, march_plain.significant = int(evaluated), int(significant)
+    march_plain.chunks, march_plain.fired = chunks, fired
     if save_tin:
         return rgb, trans, tin, chunk_base
     return rgb, trans
@@ -752,3 +761,5 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
 
 march_plain.candidates = 0  # (tile, candidate) slots of the chunks the last call did not skip
 march_plain.significant = 0  # (ray, candidate) pairs of the last call that passed the gate
+march_plain.chunks = 0  # (tile, chunk) pairs the last call did not skip
+march_plain.fired = 0  # of those, the chunks whose window-sort fire test fired (window order)

@@ -149,7 +149,8 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_bas
                      dT, d_rows, config: RenderConfig, c: int):
     """Backward of chunk j of tiles `tb`: writes their rows of d_rows and
     advances dT (in place). Returns the number of (ray, candidate) pairs
-    that pass the gate, whose colour and colour gradients are needed."""
+    that pass the gate, whose colour and colour gradients are needed, and
+    (window order) the number of these tiles whose chunk fired."""
     dev = rows.device
     K = num_coeffs(config.sh_degree)
     base = starts[tb].long() + j * c
@@ -209,13 +210,15 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_bas
     if config.order == "window":
         a_full = a.expand(-1, -1, dx.shape[2])
         src = torch.arange(c, dtype=torch.int32, device=dev)[None, :, None]
-        fired = window_fire(a_full, t_event)[:, None, None]
-        _, perm = torch.sort(torch.where(fired, train_sort_key(a_full, t_event), src), dim=1)
+        fire = window_fire(a_full, t_event)
+        fired = int(fire.sum())
+        _, perm = torch.sort(torch.where(fire[:, None, None], train_sort_key(a_full, t_event),
+                                         src), dim=1)
         a_s = torch.gather(a_full, 1, perm)
         cp = _pack_colors(clamped).expand(-1, -1, dx.shape[2])
         cols_s = _unpack_colors(torch.gather(cp, 1, perm))  # straight-through 10-bit
     else:
-        a_s, cols_s = a, clamped
+        a_s, cols_s, fired = a, clamped, 0
 
     # ---- reverse sweep (pallas_march.py:1397-1446) ----
     min_t = config.min_transmittance
@@ -279,7 +282,7 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_bas
     g[:, :, T_MX + 2 : T_MX + 3] = -(m[2] * d_ogx + m[5] * d_ogy + m[8] * d_ogz)
     # rad only gates hits (discontinuous): zero gradient, as in 3DGRT
     d_rows[idx[present]] = g[present]
-    return (a > 0.0).sum()
+    return (a > 0.0).sum(), fired
 
 
 def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
@@ -289,8 +292,10 @@ def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
     inputs give a witness of the float32 rounding (the reference's
     response algebra cancels: see PERF.md, K3 per column). Records in
     march_bwd_plain.candidates the (tile, candidate) slots of the chunks it
-    replayed and in march_bwd_plain.significant the (ray, candidate) pairs
-    that passed the gate."""
+    replayed, in march_bwd_plain.chunks those (tile, chunk) pairs, in
+    march_bwd_plain.significant the (ray, candidate) pairs that passed the
+    gate and in march_bwd_plain.fired the replayed chunks that fired
+    (window order; 0 in key order)."""
     _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
                 config, chunk, (_F32, torch.float64))
     T, R, _ = dirs_t.shape
@@ -304,21 +309,27 @@ def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
     batch = max(1, _PLAIN_BATCH // (chunk * R))
     min_t = config.min_transmittance
     counts = (starts[1:] - starts[:-1]).long()
-    replayed = significant = 0
+    replayed = significant = chunks = fired = 0
     for j in reversed(range(int(n_chunks.max()) if T else 0)):
         has = (n_chunks > j).nonzero().squeeze(1)
         t_max = tin[chunk_base[has].long() + j].amax(dim=1)
         live_tiles = has[t_max > min_t]
         replayed += torch.clamp(counts[live_tiles] - j * chunk, max=chunk).sum()
         for tb in live_tiles.split(batch):
-            significant += _chunk_bwd_plain(tb, j, starts, rows, dirs_t, live, basis, eye, tin,
+            sig, n_fired = _chunk_bwd_plain(tb, j, starts, rows, dirs_t, live, basis, eye, tin,
                                             chunk_base, d_rgb, dT, d_rows, config, chunk)
+            significant += sig
+            chunks += tb.numel()
+            fired += n_fired
     march_bwd_plain.candidates, march_bwd_plain.significant = int(replayed), int(significant)
+    march_bwd_plain.chunks, march_bwd_plain.fired = chunks, fired
     return d_rows
 
 
 march_bwd_plain.candidates = 0  # (tile, candidate) slots the last call replayed
 march_bwd_plain.significant = 0  # (ray, candidate) pairs of the last call that passed the gate
+march_bwd_plain.chunks = 0  # (tile, chunk) pairs the last call replayed
+march_bwd_plain.fired = 0  # of those, the chunks that fired (window order)
 
 
 # --- autograd ----------------------------------------------------------------

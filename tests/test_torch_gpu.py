@@ -494,3 +494,132 @@ def test_oracle_and_merge_render_match_goldens(name):
     assert tmarch.march.merge_launches == before + 1
     plain = render(scene, cam, cfg, method="plain")["rgb"].cpu().numpy()
     assert psnr(gpu, ref) >= 40.0 and psnr(gpu, plain) >= 60.0
+
+
+# --- the redesigned K1 window order and K3: edge cases of their new paths ---
+
+def _fwd_bwd_check(cfg, starts, rows, dirs_t, eye, chunk):
+    """K1 with saved carries (window: the scalar response from the eye) and
+    K3 against their plain versions at the K1 bars and K3's per-column bars
+    (1e-3, 2e-3 on the 9 M columns, the float64 witness at 1.25x), K3's two
+    launches bit-identical."""
+    kw = {"origins_t": eye.expand(dirs_t.shape).contiguous()} if cfg.order == "window" else {}
+    got = tmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True, **kw)
+    torch.cuda.synchronize()
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, chunk, save_tin=True, **kw)
+    for a, b in zip(got[:2], want[:2]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(dirs_t.shape[:2], generator=g, device="cuda")
+    args = (starts, rows, dirs_t, eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
+    a, b = tbwd.march_bwd(*args), tbwd.march_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = tbwd.march_bwd_plain(*args)
+    witness = tbwd.march_bwd_plain(*(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                                     else x for x in args))
+    diff = tmarch.diff_columns(cfg.sh_degree)
+    for i, c in enumerate(tmarch.train_columns(cfg.sh_degree)):
+        if c not in diff:
+            assert not a[:, i].any(), i
+            continue
+        bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+        assert float((a[:, i] - plain[:, i]).abs().max() / plain[:, i].abs().max()) <= bar, i
+        k64, p64 = ((x[:, i] - witness[:, i]).abs().max() for x in (a, plain))
+        assert float(k64) <= 1.25 * float(p64), i
+
+
+def _render_check(starts, feats, dirs_t, cfg, chunk):
+    got = tmarch.march(starts, feats, dirs_t, cfg, chunk)
+    torch.cuda.synchronize()
+    want = tmarch.march_plain(starts, feats, dirs_t, cfg, chunk)
+    for a, b in zip(got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_ragged_last_chunk(chunk):
+    """Tiles whose last chunk holds m < C candidates (the staging copies m
+    rows, the passes see m) in K1's window render and window training
+    forward and in K3's window and key replay."""
+    for order in ("window", "key"):
+        cfg, starts, rows, dirs_t, eye = _train_stream(chunk, order)
+        counts = (starts[1:] - starts[:-1]).long()
+        assert bool(((counts % chunk) != 0).any() & (counts > chunk).any())
+        _fwd_bwd_check(cfg, starts, rows, dirs_t, eye, chunk)
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256,
+                        height=256, device="cuda")
+    rcfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, chunk_skip_transmittance=1e-3)
+    stream, feats, _ = prepare_pair_stream(scene, cam, rcfg, 1 << 18)
+    _render_check(stream.starts, feats, tile_rays(generate_rays(cam, rcfg)[1], 16, 16), rcfg,
+                  chunk)
+
+
+@pytest.mark.parametrize("order", ["window", "key"])
+def test_warp_without_a_gated_lane(order):
+    """Rays 32..63 of every tile are dead (zero direction), so that warp
+    passes no gate anywhere: K3 skips it without evaluating and writes
+    zero partials, K1's passes see no significant candidate there."""
+    cfg, starts, rows, dirs_t, eye = _train_stream(128, order, 3 if order == "key" else 0)
+    dirs_t = dirs_t.clone()
+    dirs_t[:, 32:64] = 0.0
+    _fwd_bwd_check(cfg, starts, rows, dirs_t, eye, 128)
+    if order == "window":
+        scene = random_scene(5000, seed=3, device="cuda")
+        cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256,
+                            height=256, device="cuda")
+        rcfg = RenderConfig(hit_multiplicity=1, march_chunk=128)
+        stream, feats, _ = prepare_pair_stream(scene, cam, rcfg, 1 << 18)
+        d = tile_rays(generate_rays(cam, rcfg)[1], 16, 16).clone()
+        d[:, 32:64] = 0.0
+        _render_check(stream.starts, feats, d, rcfg, 128)
+
+
+@pytest.mark.parametrize("order", ["window", "key"])
+def test_backward_one_warp_tiles(order):
+    """K3 (and K1's training forward) at R = 32: the first 32 rays of each
+    tile of a 16x16-tiled stream, one warp per block (the cross-warp sum
+    has one term)."""
+    cfg, starts, rows, dirs_t, eye = _train_stream(128, order, 1)
+    _fwd_bwd_check(cfg, starts, rows, dirs_t[:, :32].contiguous(), eye, 128)
+
+
+@pytest.mark.parametrize("degree", [0, 3])
+def test_window_march_1024_ray_tiles(degree):
+    """K1 window order at R = 1024 (its 1024-ray build): each tile takes the
+    rays and the candidate segments of four consecutive 16x16 tiles."""
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256,
+                        height=256, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, sh_degree=degree)
+    stream, feats, _ = prepare_pair_stream(scene, cam, cfg, 1 << 18)
+    dirs_t = tile_rays(generate_rays(cam, cfg)[1], 16, 16)
+    T = dirs_t.shape[0] // 4 * 4
+    big = dirs_t[:T].reshape(T // 4, 1024, 3).contiguous()
+    before = tmarch.march.launches
+    _render_check(stream.starts[: T + 1 : 4].contiguous(), feats, big, cfg, 128)
+    assert tmarch.march.launches == before + 1
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("order", ["window", "key"])
+def test_backward_launches_bit_identical(order, degree):
+    """Two K3 launches on the same inputs give the same bits: every sum of
+    the transposed ray reduction and the cross-warp combine runs in a fixed
+    order."""
+    cfg, starts, rows, dirs_t, eye = _train_stream(128, order, degree)
+    kw = {"origins_t": eye.expand(dirs_t.shape).contiguous()} if order == "window" else {}
+    _, _, tin, base = tmarch.march(starts, rows, dirs_t, cfg, 128, save_tin=True, **kw)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(dirs_t.shape[:2], generator=g, device="cuda")
+    args = (starts, rows, dirs_t, eye, tin, base, d_rgb, d_t, cfg, 128)
+    first = tbwd.march_bwd(*args)
+    for _ in range(2):
+        assert torch.equal(tbwd.march_bwd(*args), first)
+    assert bool(first.any())

@@ -389,3 +389,47 @@ def test_sh_rows_and_what_the_march_refuses(sh_stream_inputs):
         tmarch.march(starts, rows, dirs_t, key3, 128, save_tin=True)
     with pytest.raises(NotImplementedError):  # window training: the scalar response
         tmarch.march(starts, train, dirs_t, sh3, 128, save_tin=True)
+
+
+def test_fire_counter_on_a_crafted_two_tile_stream():
+    """march_plain.fired counts the (tile, chunk) pairs whose window-sort
+    fire test fires: two tiles see the same four gaussians along the view
+    axis, tile 0 listed front to back (no inversion among the significant
+    candidates), tile 1 back to front (inversions). march_bwd_plain counts
+    the same on the training replay; key order never fires."""
+    from gaussian_ray_tracing_tpu_torch.models.tiled import feature_table
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as tbwd
+    from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
+
+    n, R = 4, 32
+    means = np.array([[0.0, 0.0, -1.0 - 0.5 * i] for i in range(n)], np.float32)
+    scene = GaussianScene.from_activated(
+        means, np.full((n, 3), 0.1, np.float32), np.tile([1.0, 0.0, 0.0, 0.0], (n, 1)),
+        np.full(n, 0.5, np.float32), np.zeros((n, 1, 3), np.float32))
+    eye = torch.zeros(3)
+    cfg = RenderConfig(hit_multiplicity=1, order="window", march_chunk=32)
+    table, _, _ = feature_table(scene, cfg, eye=eye)
+    order = torch.tensor([0, 1, 2, 3, 3, 2, 1, 0])
+    starts = torch.tensor([0, n, 2 * n], dtype=torch.int32)
+    rng = np.random.default_rng(0)
+    d = np.concatenate([rng.uniform(-0.01, 0.01, (2, R, 2)), -np.ones((2, R, 1))], -1)
+    dirs_t = torch.tensor(d / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32)
+
+    feats = tmarch.compact_features(table)[order]
+    tmarch.march_plain(starts, feats, dirs_t, cfg, 32)
+    assert (tmarch.march_plain.chunks, tmarch.march_plain.fired) == (2, 1)
+    assert tmarch.march_plain.significant == 2 * n * R  # every pair through the gate
+    tmarch.march_plain(starts, feats, dirs_t, cfg.replace(order="key"), 32)
+    assert (tmarch.march_plain.chunks, tmarch.march_plain.fired) == (2, 0)
+
+    rows = tmarch.train_features(table)[order].contiguous()
+    origins = eye.expand(dirs_t.shape).contiguous()
+    _, _, tin, base = tmarch.march_plain(starts, rows, dirs_t, cfg, 32, save_tin=True,
+                                         origins_t=origins)
+    assert (tmarch.march_plain.chunks, tmarch.march_plain.fired) == (2, 1)
+    g = torch.Generator().manual_seed(0)
+    d_rgb = torch.randn(dirs_t.shape, generator=g)
+    d_t = torch.randn(dirs_t.shape[:2], generator=g)
+    tbwd.march_bwd_plain(starts, rows, dirs_t, eye, tin, base, d_rgb, d_t, cfg, 32)
+    assert (tbwd.march_bwd_plain.chunks, tbwd.march_bwd_plain.fired) == (2, 1)
+    assert tbwd.march_bwd_plain.significant == 2 * n * R
