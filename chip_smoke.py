@@ -38,7 +38,7 @@ K3 rows also carry what explains their time (`design`): the significant
 and fire shares of their stream, the launch's resident blocks per SM and
 shared memory, and the registers, stack frame and spills that ptxas
 reports; the smoke fails if K3 at SH 3 has fewer than two resident blocks
-per SM. Each log line carries the seconds since the start.
+per SM, or K1's merge kernel other than two. Each log line carries the seconds since the start.
 """
 
 from __future__ import annotations
@@ -192,9 +192,11 @@ PTXAS = {}  # mangled kernel name: (registers, stack, spill stores, spill loads)
 def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = False) -> dict:
     """What explains a K1 ("march") or K3 ("march_bwd") row: the (tile,
     candidate) slots of the chunks not skipped, the significant share (pairs
-    through the gate over the (ray, candidate) pairs of those chunks) and
-    the fire share (fired chunks over the chunks not skipped; None outside
-    window order) of the plain version's last call, and the launch's
+    through the gate over the (ray, candidate) pairs of those chunks), the
+    fire share (fired chunks over the chunks not skipped; None outside
+    window order) and the slow share (chunks whose tile-wide fast test
+    failed over the chunks not skipped; None outside merge order) of the
+    plain version's last call, and the launch's
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
     256 rays), dynamic shared memory, registers, stack frame and spills
     (-Xptxas -v of the build)."""
@@ -214,13 +216,14 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     elif order == "key":
         name = f"16march_key_kernelILi{chunk}E{b(scalar)}Li{K}E{b(train)}E"
     else:
-        name = f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{K}E"
+        name = f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{K}ELi256E"  # the 256-ray build
     regs, stack, st, ld = next((v for k, v in PTXAS.items() if name in k), (None,) * 4)
     check(regs == info["registers"], f"{kernel} {name}: ptxas says {regs} registers, the "
                                      f"runtime {info['registers']}")
     out = {"marched_slots": plain.candidates,
            "significant_share": plain.significant / max(1, plain.candidates * R),
            "fire_share": plain.fired / max(1, plain.chunks) if order == "window" else None,
+           "slow_share": plain.slow / max(1, plain.chunks) if order == "merge" else None,
            "blocks_per_sm": info["blocks_per_sm"], "smem_bytes": info["smem_bytes"],
            "registers": regs, "stack_bytes": stack, "spill_store_bytes": st,
            "spill_load_bytes": ld}
@@ -1139,6 +1142,11 @@ def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: f
     log("kernel", f"K1 merge block glass_front bounce 1: {t_block[0]:.3f} ms, plain "
                   f"{t_block[1]:.3f} ms, bound {t_block[2][0]:.4f} ms ({t_block[2][1]}) "
                   f"({card})")
+    # the merge kernel's design rests on two resident 256-ray blocks per SM
+    # (two_blocks_per_sm: four measured slower, its buffers spill out of L1)
+    for what, t in (("100k 720p", t_merge), ("block glass_front bounce 1", t_block)):
+        check(t[3]["blocks_per_sm"] == 2,
+              f"K1 merge {what}: {t[3]['blocks_per_sm']} resident blocks per SM, not 2")
 
     src = f"{PKG}/csrc/march.cuh"
     row = lambda name, launches, err, t: {

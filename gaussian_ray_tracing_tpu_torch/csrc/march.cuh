@@ -733,106 +733,173 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p
   store_ray(p, acc_r, acc_g, acc_b, T);
 }
 
-template <int C, bool kScalar, int K>
-__global__ void __launch_bounds__(1024) march_merge_kernel(Params p) {
+// Shared memory of the merge kernel past its C * W staged floats: C
+// sure-miss thresholds and two significance bitmasks of C bits per ray,
+// word-major ([2][C / 32][R], so that a warp's lanes read their own words
+// without bank conflicts whatever slot each lane is at).
+template <int C, int W>
+__host__ __device__ constexpr int merge_smem_bytes(int R) {
+  return (int)sizeof(float) * (C * W + C) + 2 * (C / 32) * R * (int)sizeof(uint32_t);
+}
+
+// Blocks per SM the 256-ray merge kernel is built for (its register cap,
+// and the occupancy launch_mode asks for: two_blocks_per_sm).
+constexpr int kMergeMinBlocks = 2;
+
+template <int C, bool kScalar, int K, int kMaxR>
+__global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
+    march_merge_kernel(Params p) {
   using L = Layout<kScalar, K, false>;
-  constexpr int W = L::w, kCol = L::col;
-  extern __shared__ __align__(16) float sf[];  // C * W staged floats
+  constexpr int W = L::w, kCol = L::col, kWords = C / 32;
+  extern __shared__ __align__(16) float sf[];  // merge_smem_bytes
+  float* thr = sf + C * W;
+  uint32_t* mask = reinterpret_cast<uint32_t*>(thr + C);
   __shared__ float red[32];
 
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const Ray ray = load_ray(p);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
 
-  // the pending buffer, ascending by key, and the chunk's keys
-  int32_t pk[C], ck[C];
-  float pa[C];
-  uint32_t pc[C];
-  for (int i = 0; i < C; ++i) {
-    pk[i] = INT32_MIN;
-    pa[i] = 0.f;
-    pc[i] = 0u;
-  }
-  // alpha and colour pack of staged candidate i (0 past the segment)
-  auto candidate = [&](int i, int m, float& a, uint32_t& cp) {
-    float t_ev, cr, cg, cb;
-    a = 0.f;
-    cp = 0u;
-    if (i < m) evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
-    if (a > 0.f) {
-      row_color<kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
-      cp = pack_color(cr, cg, cb);
-    }
+  // Two buffers of C slots (local memory): the pending buffer (cur),
+  // ascending by key, and the chunk (cur ^ 1), its keys ascending and its
+  // alphas and colour packs by source index. A slot's significance (a > 0)
+  // is its bit in the buffer's mask; only significant slots hold an alpha
+  // and a colour. A fast chunk becomes the pending buffer by a swap.
+  int32_t key[2][C];
+  float al[2][C];
+  uint32_t cpk[2][C];
+  auto bits = [&](int b, int w) -> uint32_t& { return mask[(b * kWords + w) * R + tid]; };
+  // composite the significant slots of the pending buffer, in slot order
+  auto composite_pending = [&](Composite& comp, int b) {
+    for (int w = 0; w < kWords; ++w)
+      for (uint32_t m = bits(b, w); m; m &= m - 1) {
+        const int s = w * 32 + __ffs(m) - 1;
+        add_packed(comp, al[b][s], cpk[b][s], p.min_t);
+      }
   };
 
+  int cur = 0;
+  bool fresh = true;  // block-uniform: no chunk marched yet, so the pending buffer is C empties
+  int32_t pend_max = INT32_MIN;  // largest key of a significant pending slot
   float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   for (int j = 0; j * C < n; ++j) {
     // tile-wide chunk skip (T never changes once every ray is below it)
     if (block_reduce(T, true, red) <= p.t_skip) break;
     const int m = min(C, n - j * C);
     stage<C, kScalar, K, false>(sf, p, start, j, m);
+    for (int i = tid; i < m; i += R) thr[i] = miss_threshold(sf[i * W], p.alpha_min);
+    __syncthreads();
 
-    int32_t rmax = INT32_MIN, new_min = INT32_MAX;
+    // pass 1: every candidate once (a sure miss stops before the divide and
+    // the exp, any other miss at alpha); its key inserted into the sorted
+    // keys (a chunk without inversions is already sorted: no shift), a
+    // significant one's alpha and colour pack stored by source index
+    const int nx = cur ^ 1;
+    int32_t* ck = key[nx];
+    int32_t rmax = INT32_MIN, new_min = INT32_MAX, sig_max = INT32_MIN, last = INT32_MIN;
     bool inv = false;
+    uint32_t word = 0;
     for (int i = 0; i < C; ++i) {
       float t_ev, a = 0.f;
-      if (i < m) evaluate<kScalar>(p, ray, sf + i * W, false, t_ev, a);
+      if (i < m) evaluate<kScalar, true>(p, ray, sf + i * W, false, t_ev, a, thr[i]);
+      int32_t k;
       if (a > 0.f) {
         const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
         inv |= kb < rmax;
         rmax = max(rmax, kb);
         new_min = min(new_min, kb);
-        ck[i] = kb | i;
+        k = kb | i;
+        sig_max = max(sig_max, k);
+        float cr, cg, cb;
+        row_color<kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
+        al[nx][i] = a;
+        cpk[nx][i] = pack_color(cr, cg, cb);
+        word |= 1u << (i & 31);
       } else {
-        ck[i] = rmax | i;
+        k = rmax | i;
+      }
+      if (k > last) {  // keys are unique within the chunk
+        ck[i] = k;
+        last = k;
+      } else {
+        int pos = i;
+        for (; pos > 0 && ck[pos - 1] > k; --pos) ck[pos] = ck[pos - 1];
+        ck[pos] = k;
+      }
+      if ((i & 31) == 31) {
+        bits(nx, i >> 5) = word;
+        word = 0;
       }
     }
-    int32_t pend_max = INT32_MIN;
-    for (int i = 0; i < C; ++i)
-      if (pa[i] > 0.f) pend_max = max(pend_max, pk[i]);
     const bool fast = __syncthreads_and(!inv && new_min >= pend_max);
 
     Composite comp(T);
-    if (fast) {
-      for (int i = 0; i < C; ++i)
-        if (pa[i] > 0.f) add_packed(comp, pa[i], pc[i], p.min_t);
-      for (int i = 0; i < C; ++i) {
-        pk[i] = ck[i];
-        candidate(i, m, pa[i], pc[i]);
-      }
+    if (fast) {  // the pending buffer composites; the chunk (sorted) replaces it
+      if (!fresh) composite_pending(comp, cur);
+      cur = nx;
+      pend_max = sig_max;
     } else {
-      for (int i = 1; i < C; ++i) {  // keys are unique within the chunk
-        const int32_t key = ck[i];
-        int pos = i;
-        for (; pos > 0 && ck[pos - 1] > key; --pos) ck[pos] = ck[pos - 1];
-        ck[pos] = key;
-      }
-      int ip = 0, ic = 0;
-      for (int k = 0; k < 2 * C; ++k) {
-        int32_t key;
-        float a;
-        uint32_t cp;
-        if (ic == C || (ip < C && pk[ip] <= ck[ic])) {
-          key = pk[ip];
-          a = pa[ip];
-          cp = pc[ip];
-          ++ip;
+      // two pointers over the pending buffer and the sorted chunk (pending
+      // first on equal keys): the C smallest composite, the C largest are
+      // written in place into the pending slots already read (slot k - C <
+      // ip). A fresh buffer's C empties are the C smallest: nothing
+      // composites and the sorted chunk becomes the pending buffer. The
+      // heads' keys and the pending mask's word stay in registers; the new
+      // mask's word is stored when its 32 slots are written, after the
+      // reader has left that word.
+      int ip = fresh ? C : 0, ic = 0;
+      int32_t pkey = fresh ? 0 : key[cur][0], ckey = ck[0];
+      uint32_t pw = fresh ? 0u : bits(cur, 0), nw = 0;
+      int32_t new_max = INT32_MIN;
+      for (int k = fresh ? C : 0; k < 2 * C; ++k) {
+        int32_t kk;
+        bool sig;
+        float a = 0.f;
+        uint32_t cp = 0u;
+        if (ic == C || (ip < C && pkey <= ckey)) {
+          kk = pkey;
+          sig = (pw >> (ip & 31)) & 1u;
+          if (sig) {
+            a = al[cur][ip];
+            cp = cpk[cur][ip];
+          }
+          if (++ip < C) {
+            pkey = key[cur][ip];
+            if ((ip & 31) == 0) pw = bits(cur, ip >> 5);
+          }
         } else {
-          key = ck[ic++];
-          candidate(key & 255, m, a, cp);
+          kk = ckey;
+          const int i = kk & 255;
+          sig = (bits(nx, i >> 5) >> (i & 31)) & 1u;
+          if (sig) {
+            a = al[nx][i];
+            cp = cpk[nx][i];
+          }
+          if (++ic < C) ckey = ck[ic];
         }
         if (k < C) {
-          if (a > 0.f) add_packed(comp, a, cp, p.min_t);
-        } else {  // slot k - C <= ip - 1 was already read
-          pk[k - C] = key;
-          pa[k - C] = a;
-          pc[k - C] = cp;
+          if (sig) add_packed(comp, a, cp, p.min_t);
+        } else {
+          const int s = k - C;
+          key[cur][s] = kk;
+          if (sig) {
+            al[cur][s] = a;
+            cpk[cur][s] = cp;
+            nw |= 1u << (s & 31);
+            new_max = kk;  // the slots ascend
+          }
+          if ((s & 31) == 31) {
+            bits(cur, s >> 5) = nw;
+            nw = 0;
+          }
         }
       }
+      pend_max = new_max;
     }
+    fresh = false;
     const float t_next = comp.t_next();
     T = T > p.min_t ? t_next : T;
     acc_r += comp.r;
@@ -841,16 +908,16 @@ __global__ void __launch_bounds__(1024) march_merge_kernel(Params p) {
   }
 
   Composite comp(T);  // flush the pending buffer
-  for (int i = 0; i < C; ++i)
-    if (pa[i] > 0.f) add_packed(comp, pa[i], pc[i], p.min_t);
+  if (!fresh) composite_pending(comp, cur);
   const float t_next = comp.t_next();
   T = T > p.min_t ? t_next : T;
   store_ray(p, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
 }
 
 // The window kernel keeps each ray's significant candidates of a chunk in
-// local memory (up to 9 C bytes a ray). Two resident 256-ray blocks per SM
-// keep that in L1, where four spill it to L2 (measured faster, PERF.md):
+// local memory (up to 9 C bytes a ray), the merge kernel its two buffers
+// (24 C bytes). Two resident 256-ray blocks per SM keep more of that in
+// L1, where four spill it to L2 (measured faster for both, PERF.md):
 // ask for the smallest shared-memory carveout that holds two blocks
 // (percent of the 228 KB, which the CUDA runtime rounds up to a carveout
 // the SM has) and pad the dynamic shared memory so that a third does not fit.
@@ -870,9 +937,10 @@ cudaError_t two_blocks_per_sm(Kernel kernel, int& smem) {
 
 // One launch of the order's kernel (order 0 window, 1 key, 2 merge); the
 // staged rows take C * W floats of dynamic shared memory (twice that where
-// the window kernel double-buffers), above 48 KB only after opting in. The
-// window kernel of a render has a 256-ray build (the main path's 16x16
-// tiles, __launch_bounds__(256, kWindowMinBlocks)) and a 1024-ray one.
+// the window kernel double-buffers; the merge kernel's masks besides),
+// above 48 KB only after opting in. The window and merge kernels of a
+// render have a 256-ray build (the main path's 16x16 tiles, run two blocks
+// per SM) and a 1024-ray one.
 // Saved carries (the training forward, at most 256 rays per tile) run the
 // key kernel on the quad response and the window kernel on the scalar one
 // (per-ray origins, each the eye), as JAX's training forwards do
@@ -884,12 +952,15 @@ template <int C, bool kScalar, int K>
 cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStream_t stream,
                         int* info) {
   constexpr int W = Layout<kScalar, K, false>::w;
-  void (*kernel)(Params) = order == 2   ? march_merge_kernel<C, kScalar, K>
+  void (*kernel)(Params) = order == 2   ? (R <= 256 ? march_merge_kernel<C, kScalar, K, 256>
+                                                    : march_merge_kernel<C, kScalar, K, 1024>)
                            : order == 1 ? march_key_kernel<C, kScalar, K, false>
                            : R <= 256   ? march_kernel<C, kScalar, K, false, 256>
                                         : march_kernel<C, kScalar, K, false, 1024>;
   // the window kernel: its staged rows and C sure-miss thresholds
-  int smem = (int)sizeof(float) * (order == 0 ? window_stages<C, W>() * C * W + C : C * W);
+  int smem = order == 2   ? merge_smem_bytes<C, W>(R)
+             : order == 1 ? (int)sizeof(float) * C * W
+                          : (int)sizeof(float) * (window_stages<C, W>() * C * W + C);
   if (p.tin) {
     if ((order == 1) == kScalar || order == 2 || R > 256) return cudaErrorInvalidValue;
     if constexpr (kScalar) {
@@ -901,7 +972,7 @@ cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStre
     }
   }
   // the static red[32] counts against the 48 KB that needs no opt-in
-  if (order == 0 && R <= 256) {
+  if (order != 1 && R <= 256) {
     const cudaError_t err = two_blocks_per_sm(kernel, smem);
     if (err != cudaSuccess) return err;
   }

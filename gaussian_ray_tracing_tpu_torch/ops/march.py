@@ -558,8 +558,9 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
                  train: bool, pend):
     """March chunk j of tiles `tb` (in place on trans/rgb, and in merge
     order on the pending buffers `pend`). Returns the number of significant
-    (a > 0) (ray, candidate) pairs, whose colour the march evaluates, and
-    (window order) the number of these tiles whose chunk fired."""
+    (a > 0) (ray, candidate) pairs, whose colour the march evaluates, the
+    number of these tiles whose chunk fired (window order) and the number
+    whose tile-wide fast test failed (merge order)."""
     idx, present = _chunk_rows(tb, j, starts, c, feats.shape[0], blocks, block_sub)
     f = feats[idx]  # (B, c, row)
     # per-ray lists and tensors are cut to the batch
@@ -569,12 +570,12 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
     a, t_ev, cols = alpha_fn(f, sub, present, config)
     min_t = config.min_transmittance
     t_carry = trans[tb][:, None]  # (B, 1, R)
-    fired = 0
+    fired = slow = 0
     if config.order == "key":
         part, t_next = _composite(t_carry, a, cols, min_t)
     elif config.order == "merge":
-        part, t_next, new = _merge_composite(t_carry, a, t_ev, cols, [x[tb] for x in pend],
-                                             min_t)
+        part, t_next, new, slow = _merge_composite(t_carry, a, t_ev, cols,
+                                                   [x[tb] for x in pend], min_t)
         for x, y in zip(pend, new):
             x[tb] = y
     else:
@@ -582,7 +583,7 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
     tc = trans[tb]
     trans[tb] = torch.where(tc > min_t, t_next, tc)
     rgb[tb] += part
-    return (a > 0.0).sum(), fired
+    return (a > 0.0).sum(), fired, slow
 
 
 def window_fire(a, t_ev):
@@ -670,13 +671,14 @@ def _merge_composite(t_carry, a, t_ev, cols, pend, min_t: float):
     tile-wide fast test, then either the pending buffer as it stands or
     the c smallest of the stably sorted union (pending first on equal
     keys) composite. Returns (rgb_part (B, R, 3), t_next (B, R), the new
-    pending buffers)."""
+    pending buffers, the number of tiles whose fast test failed)."""
     B, c, R = a.shape
     pk, pa, pc = pend
     keys, kb, has_inv = merge_keys(a, t_ev)
     new_min = torch.where(a > 0.0, kb, _IMAX).amin(dim=1)  # (B, R)
     pend_max = torch.where(pa > 0.0, pk, _IMIN).amax(dim=1)
     fast = (~has_inv & (new_min >= pend_max).all(dim=1))[:, None, None]
+    n_slow = int((~fast).sum())
     chunk = (keys, a, _pack_colors(cols).expand(B, c, R))
     mk, perm = torch.sort(torch.cat([pk, keys], dim=1), dim=1, stable=True)
     union = (mk, torch.gather(torch.cat([pa, a], 1), 1, perm),
@@ -684,7 +686,7 @@ def _merge_composite(t_carry, a, t_ev, cols, pend, min_t: float):
     ready = [torch.where(fast, p, u[:, :c]) for p, u in zip(pend, union)]
     new = [torch.where(fast, x, u[:, c:]) for x, u in zip(chunk, union)]
     part, t_next = _composite(t_carry, ready[1], _unpack_colors(ready[2]), min_t)
-    return part, t_next, new
+    return part, t_next, new, n_slow
 
 
 def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
@@ -695,9 +697,11 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     a stable per-ray torch.sort in fired chunks (window order). Records in
     march_plain.candidates the (tile, candidate) slots of the chunks it did
     not skip, in march_plain.chunks those (tile, chunk) pairs, in
-    march_plain.significant the (ray, candidate) pairs that passed the gate
-    and in march_plain.fired the (tile, chunk) pairs whose window-sort fire
-    test (window_fire) fired, in window order (0 in the others)."""
+    march_plain.significant the (ray, candidate) pairs that passed the gate,
+    in march_plain.fired the (tile, chunk) pairs whose window-sort fire
+    test (window_fire) fired, in window order (0 in the others), and in
+    march_plain.slow those whose tile-wide fast test failed, in merge order
+    (0 in the others)."""
     _check_args(starts, feats, dirs_t, config, chunk, save_tin,
                 dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
                      block_sub=block_sub))
@@ -731,7 +735,7 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     counts = (starts[1:] - starts[:-1]).long()
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
     significant = torch.zeros((), dtype=torch.int64, device=dev)
-    chunks = fired = 0
+    chunks = fired = slow = 0
     for j in range(int(n_chunks.max()) if T else 0):
         if save_tin:  # every chunk's carry-in, skipped chunks included
             has = (n_chunks > j).nonzero().squeeze(1)
@@ -739,11 +743,12 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         active = (n_chunks > j) & (trans.amax(dim=1) > t_skip)
         evaluated += torch.where(active, torch.clamp(counts - j * chunk, max=chunk), 0).sum()
         for tb in active.nonzero().squeeze(1).split(batch):
-            sig, n_fired = _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, chunk,
-                                        blocks, block_sub, save_tin, pend)
+            sig, n_fired, n_slow = _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config,
+                                                chunk, blocks, block_sub, save_tin, pend)
             significant += sig
             chunks += tb.numel()
             fired += n_fired
+            slow += n_slow
     if pend is not None:  # flush the pending buffers
         min_t = config.min_transmittance
         for tb in torch.arange(T, device=dev).split(batch):
@@ -753,7 +758,7 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
             trans[tb] = torch.where(tc > min_t, t_next, tc)
             rgb[tb] += part
     march_plain.candidates, march_plain.significant = int(evaluated), int(significant)
-    march_plain.chunks, march_plain.fired = chunks, fired
+    march_plain.chunks, march_plain.fired, march_plain.slow = chunks, fired, slow
     if save_tin:
         return rgb, trans, tin, chunk_base
     return rgb, trans
@@ -763,3 +768,4 @@ march_plain.candidates = 0  # (tile, candidate) slots of the chunks the last cal
 march_plain.significant = 0  # (ray, candidate) pairs of the last call that passed the gate
 march_plain.chunks = 0  # (tile, chunk) pairs the last call did not skip
 march_plain.fired = 0  # of those, the chunks whose window-sort fire test fired (window order)
+march_plain.slow = 0  # of those, the chunks whose tile-wide fast test failed (merge order)

@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
-"""The port's K1 (window order, and key order beside it) and K3 against
-the kernels of another copy of gaussian_ray_tracing_tpu_torch/csrc/ (an
-earlier commit's), on one NVIDIA GPU, timed in turns: other, this, this,
-other. K1's outputs (rgb, final transmittance, saved carries) must be
-bit-identical between the two builds; K3 is held against its plain version
-at chip_smoke.py's bars (per written column, the float64 witness, two
-launches bit-identical) and its difference from the other build is
-reported. Beside each row: the bound (chip_smoke.py's march_bound /
-bwd_bound), the plain version's time, this build's resident blocks per SM,
-registers, stack and spills, and the significant and fire shares of the
-stream.
+"""The port's K1 (window, key and merge order) and K3 against the kernels
+of another copy of gaussian_ray_tracing_tpu_torch/csrc/ (an earlier
+commit's), on one NVIDIA GPU, timed in turns: other, this, this, other.
+K1's outputs (rgb, final transmittance, saved carries) must be
+bit-identical between the two builds and within chip_smoke.py's bars of
+the plain version; K3 is held against its plain version at chip_smoke.py's
+bars (per written column, the float64 witness, two launches bit-identical)
+and its difference from the other build is reported. Beside each row: the
+bound (chip_smoke.py's march_bound / bwd_bound), the plain version's time,
+this build's resident blocks per SM, registers, stack and spills, and the
+marched slots and the significant, fire (window order) and slow (merge
+order) shares of the stream.
 
     git archive <commit> gaussian_ray_tracing_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/torch_redesign_ab.py build/parent/gaussian_ray_tracing_tpu_torch/csrc \
-        [out.json]
+        [out.json] [--only render|modes|merge|train] [--this <csrc dir>]
 
-Run from the repository root. Writes the rows and the ptxas table to
-out.json (build/redesign_ab.json by default) and prints one line per case;
-exits non-zero if a check fails or there is no GPU.
+The groups: render (window order on the 720p/100k headline and on
+fitted_20k.ply at SH 3, key order at SH 3), modes (window order on a mesh
+segment, in block mode and on a rolling shutter), merge (merge order on the
+headline, fitted_20k.ply at SH 3, the 256x256 golden stream at c=64 and
+128, a mesh segment, a rolling shutter and block mode) and train (the
+training forwards and K3); all of them without --only. --this takes
+another copy of csrc/ in place of the package's own. Run from the
+repository root. Writes the rows and the ptxas table to out.json
+(build/redesign_ab.json by default) and prints one line per case; exits
+non-zero if a check fails or there is no GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import statistics
@@ -35,16 +44,22 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (its helpers; it imports torch lazily)
 
 REPS = 10  # launches per timed turn
+GROUPS = ("render", "modes", "merge", "train")
 
 
 def main() -> None:
     import numpy as np
     import torch
 
-    if len(sys.argv) not in (2, 3) or not torch.cuda.is_available():
-        cs.fail("usage: torch_redesign_ab.py <other csrc dir> [out.json], on a machine with a GPU")
-    other_csrc = Path(sys.argv[1]).resolve()
-    out_json = Path(sys.argv[2]) if len(sys.argv) == 3 else ROOT / "build" / "redesign_ab.json"
+    ap = argparse.ArgumentParser()
+    ap.add_argument("other_csrc", type=Path)
+    ap.add_argument("out_json", type=Path, nargs="?", default=ROOT / "build" / "redesign_ab.json")
+    ap.add_argument("--only", choices=GROUPS)
+    ap.add_argument("--this", type=Path, dest="this_csrc")
+    opt = ap.parse_args()
+    if not torch.cuda.is_available():
+        cs.fail("torch_redesign_ab.py needs a machine with a GPU")
+    groups = (opt.only,) if opt.only else GROUPS
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
@@ -52,22 +67,28 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import MeshType, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
         prepare_pair_stream, prepare_train_stream,
     )
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
     from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
     from gaussian_ray_tracing_tpu_torch.ops import cuda_build
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
     from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_sphere
     from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
     from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
 
+    if opt.this_csrc:
+        this = cuda_build.build(opt.this_csrc.resolve(), ROOT / "build" / "kernels_this")
+        cuda_build._lib = cuda_build.declare(ctypes.CDLL(str(this)))
     libs = {"this": cuda_build.load_library()}
     ptxas = cuda_build.ptxas_table(cuda_build.build_log)
-    other = cuda_build.build(other_csrc, ROOT / "build" / "kernels_other")
+    other = cuda_build.build(opt.other_csrc.resolve(), ROOT / "build" / "kernels_other")
     libs["other"] = cuda_build.declare(ctypes.CDLL(str(other)), info=False)
-    cs.log("build", f"this and {other_csrc} built")
+    cs.log("build", f"this and {opt.other_csrc} built")
 
     def use(name):
         cuda_build._lib = libs[name]
@@ -91,123 +112,191 @@ def main() -> None:
         b = lambda x: f"Lb{int(x)}E"
         if order == "window":  # the 256-ray build
             return f"12march_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}Li256E"
+        if order == "merge":
+            return f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{k}ELi256E"  # the 256-ray build
         return f"16march_key_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}E"
 
+    def shares(plain, R, order) -> dict:
+        chunks = max(1, plain.chunks)
+        return dict(marched_slots=plain.candidates,
+                    significant_share=plain.significant / max(1, plain.candidates * R),
+                    fire_share=plain.fired / chunks if order == "window" else None,
+                    slow_share=plain.slow / chunks if order == "merge" else None)
+
     rows = []
-    # --- K1 render streams: the 720p/100k headline and fitted_20k.ply SH 3
+
+    def k1_case(what, args, kw=None):
+        """A K1 render call: bit for bit against the other build, against
+        the plain version at the K1 bars, timed in turns."""
+        kw = kw or {}
+        outs = {}
+        for name in ("other", "this"):
+            use(name)
+            outs[name] = kmarch.march(*args, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+        cs.check(same, f"K1 {what}: outputs differ between the builds")
+        cs.k1_check("K1", what, args, kw)
+        t = turns(lambda: kmarch.march(*args, **kw))
+        plain_ms = statistics.median(cs.cuda_ms(lambda: kmarch.march_plain(*args, **kw), 3))
+        b = cs.march_bound(args, kw, kmarch.march_plain)
+        cfg, chunk, R = args[3], args[4], args[2].shape[1]
+        scalar = kw.get("origins_t") is not None
+        info = cuda_build.launch_info("march", chunk, cfg.sh_degree, R, order=cfg.order,
+                                      scalar=scalar)
+        rows.append(dict(
+            case=what, kernel="K1", slots=int(args[0][-1]), chunk=chunk, ms_other=t["other"],
+            ms_this=t["this"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            bit_identical=same, **info,
+            ptxas=ptx(k1_name(chunk, scalar, cfg.sh_degree, False, cfg.order)),
+            **shares(kmarch.march_plain, R, cfg.order)))
+        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+
+    def stream_args(sc, cam, cfg, cap=1 << 21):
+        stream, feats, _ = prepare_pair_stream(sc, cam, cfg, cap)
+        dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], cfg.tile_w, cfg.tile_h)
+        return stream.starts, feats, dirs_t, cfg, kmarch.chunk_for(cfg)
+
+    # the streams: the 720p/100k headline, fitted_20k.ply at 720p, the
+    # 256x256 golden scene, the mesh frames' bounces and a rolling shutter
     radius = float(np.linalg.norm(cs.GOLDEN_EYE))
     pose = cameras.orbit_camera((0.0, 0.0, 0.0), radius, 0, 6.0, width=1280, height=720,
                                 device=dev)
-    cam720 = cameras.Camera.create(eye=cs.GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=1280,
-                                   height=720, device=dev)
+    camera = lambda w, h, eye=cs.GOLDEN_EYE: cameras.Camera.create(
+        eye=eye, lookat=(0.0, 0.0, 0.0), width=w, height=h, device=dev)
+    cam720 = camera(1280, 720)
+    cam720_moved = camera(1280, 720, eye=(cs.GOLDEN_EYE[0] + 0.05, *cs.GOLDEN_EYE[1:]))
     scene = random_scene(100_000, seed=0, device=dev)
     ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
     bench = RenderConfig(**cs.BENCH_KW)
-    render_cases = [("window headline 720p/100k", scene, pose, bench),
-                    ("window sh3 fitted_20k 720p", ply, cam720, bench.replace(sh_degree=3)),
-                    ("key sh3 fitted_20k 720p c=256", ply, cam720,
-                     bench.replace(sh_degree=3, order="key", march_chunk=256))]
-    for what, sc, cam, cfg in render_cases:
-        stream, feats, n_pairs = prepare_pair_stream(sc, cam, cfg, 1 << 21)
-        dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
-        chunk = kmarch.chunk_for(cfg)
-        args = (stream.starts, feats, dirs_t, cfg, chunk)
-        outs = {}
-        for name in ("other", "this"):
-            use(name)
-            outs[name] = kmarch.march(*args)
+
+    def mesh_bounces(cfg, center):
+        """K1's (args, kw) of every bounce of a 1280x720 frame of `scene`
+        with the 180x90 glass sphere at `center` (chip_smoke.py's mesh
+        frames)."""
+        record = []
+        sphere = make_sphere(center, device=dev).with_type(MeshType.GLASS)
+        kmesh.render_with_mesh_fast(scene, sphere, cam720, cfg, record=record)
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-        cs.check(same, f"K1 {what}: outputs differ between the builds")
-        cs.k1_check("K1", what, args)
-        t = turns(lambda: kmarch.march(*args))
-        plain_ms = statistics.median(cs.cuda_ms(lambda: kmarch.march_plain(*args), 3))
-        b = cs.march_bound(args, {}, kmarch.march_plain)
-        info = cuda_build.launch_info("march", chunk, cfg.sh_degree, 256, order=cfg.order)
-        rows.append(dict(
-            case=what, kernel="K1", pairs=n_pairs, chunk=chunk, ms_other=t["other"],
-            ms_this=t["this"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-            bit_identical=same, **info,
-            ptxas=ptx(k1_name(chunk, False, cfg.sh_degree, False, cfg.order)),
-            significant_share=kmarch.march_plain.significant
-            / max(1, kmarch.march_plain.candidates * dirs_t.shape[1]),
-            fire_share=kmarch.march_plain.fired / max(1, kmarch.march_plain.chunks)))
-        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+        return [rec["k1"] for rec in record]
 
-    # --- training streams: K1 with saved carries and K3, 512x512
-    init = random_scene(50_000, seed=1, device=dev)
-    center = ply.center().cpu().numpy()
-    cam512 = cameras.orbit_camera(center, 2.8, 0.0, 15.0, width=512, height=512, device=dev)
-    cam512s = cameras.orbit_camera(random_scene(50_000, seed=0, device=dev).center().cpu().numpy(),
-                                   2.8, 0.0, 15.0, width=512, height=512, device=dev)
-    win = RenderConfig(hit_multiplicity=1, order="window", march_chunk=128)
-    key = RenderConfig(hit_multiplicity=1, order="key", march_chunk=256)
-    train_cases = [("train window sh0 50k", init, cam512s, win),
-                   ("train window sh3 fitted_20k", ply, cam512, win.replace(sh_degree=3)),
-                   ("train key sh0 50k", init, cam512s, key),
-                   ("train key sh3 fitted_20k", ply, cam512, key.replace(sh_degree=3))]
-    for what, sc, cam, cfg in train_cases:
-        with torch.no_grad():
-            stream, trows, n_pairs = prepare_train_stream(sc, cam, cfg)
-        starts, trows = stream.starts, trows.detach().contiguous()
-        dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
-        chunk = kmarch.chunk_for(cfg)
-        window = cfg.order == "window"
-        kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()} if window else {}
-        fwd = lambda: kmarch.march(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
-        outs = {}
-        for name in ("other", "this"):
-            use(name)
-            outs[name] = fwd()
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-        cs.check(same, f"K1 {what}: outputs differ between the builds")
-        got = outs["this"]
-        cs.k1_train_check(what, got, kmarch.march_plain(starts, trows, dirs_t, cfg, chunk,
-                                                        save_tin=True, **kw))
-        t1 = turns(fwd)
-        plain1 = statistics.median(cs.cuda_ms(
-            lambda: kmarch.march_plain(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw), 3))
-        b1 = cs.march_bound((starts, trows, dirs_t, cfg, chunk), kw, kmarch.march_plain,
-                            tin=got[2])
-        sig1 = kmarch.march_plain.significant / max(1, kmarch.march_plain.candidates
-                                                    * dirs_t.shape[1])
-        fire1 = kmarch.march_plain.fired / max(1, kmarch.march_plain.chunks)
-        info1 = cuda_build.launch_info("march", chunk, cfg.sh_degree, 256, order=cfg.order,
-                                       scalar=window, train=True)
-        rows.append(dict(
-            case=what, kernel="K1 save_tin", pairs=n_pairs, chunk=chunk, ms_other=t1["other"],
-            ms_this=t1["this"], plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1],
-            bit_identical=same, **info1,
-            ptxas=ptx(k1_name(chunk, window, cfg.sh_degree, True, cfg.order)),
-            significant_share=sig1, fire_share=fire1))
-        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+    def rolling(cfg):
+        starts, rows_, dirs_t, origins_t, _, _ = prepare_rolling_stream(scene, cam720,
+                                                                        cam720_moved, cfg)
+        return (starts, rows_, dirs_t, cfg, 128), {"origins_t": origins_t}
 
-        gen = torch.Generator(device=dev).manual_seed(0)
-        d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
-        d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
-        bargs = (starts, trows, dirs_t, cam.eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
-        use("other")
-        g_other = kbwd.march_bwd(*bargs)
-        use("this")
-        cs.k3_check(what, bargs)
-        g_this = kbwd.march_bwd(*bargs)
-        rel = float((g_this - g_other).abs().max() / g_other.abs().max())
-        t3 = turns(lambda: kbwd.march_bwd(*bargs))
-        plain3 = statistics.median(cs.cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 3))
-        b3 = cs.bwd_bound(bargs, kbwd.march_bwd_plain)
-        info3 = cuda_build.launch_info("march_bwd", chunk, cfg.sh_degree, 256, order=cfg.order)
-        k = (cfg.sh_degree + 1) ** 2
-        rows.append(dict(
-            case=what, kernel="K3", pairs=n_pairs, chunk=chunk, ms_other=t3["other"],
-            ms_this=t3["this"], plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1],
-            max_rel_vs_other=rel, **info3,
-            ptxas=ptx(f"16march_bwd_kernelILi{chunk}ELi{k}ELb{int(window)}E"),
-            significant_share=kbwd.march_bwd_plain.significant
-            / max(1, kbwd.march_bwd_plain.candidates * dirs_t.shape[1]),
-            fire_share=kbwd.march_bwd_plain.fired / max(1, kbwd.march_bwd_plain.chunks)))
-        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+    if "render" in groups:
+        for what, args in (
+                ("window headline 720p/100k", stream_args(scene, pose, bench)),
+                ("window sh3 fitted_20k 720p",
+                 stream_args(ply, cam720, bench.replace(sh_degree=3))),
+                ("key sh3 fitted_20k 720p c=256", stream_args(
+                    ply, cam720, bench.replace(sh_degree=3, order="key", march_chunk=256)))):
+            k1_case(what, args)
 
+    if "modes" in groups:  # the window kernel's other modes
+        k1_case("window segment glass bounce 0", *mesh_bounces(bench, (0.0, 0.0, 0.5))[0])
+        k1_case("window block glass_front bounce 1", *mesh_bounces(bench, (0.0, 0.0, 1.6))[1])
+        k1_case("window rolling 720p/100k", *rolling(bench))
+
+    if "merge" in groups:
+        merge = bench.replace(order="merge", bounce_order="merge")
+        z = np.load(ROOT / "data" / "golden" / "small_pinhole_256.npz")
+        n, seed, width, height, hm, _ = (int(v) for v in z["meta"])
+        golden = random_scene(n, seed=seed, device=dev)
+        front = mesh_bounces(merge, (0.0, 0.0, 1.6))
+        for what, args, kw in (
+                ("merge headline 720p/100k c=128", stream_args(scene, pose, merge), {}),
+                ("merge sh3 fitted_20k 720p c=128",
+                 stream_args(ply, cam720, merge.replace(sh_degree=3)), {}),
+                ("merge golden small_pinhole_256 c=64",
+                 stream_args(golden, camera(width, height), merge.replace(
+                     hit_multiplicity=hm, march_chunk=64)), {}),
+                ("merge golden small_pinhole_256 c=128",
+                 stream_args(golden, camera(width, height),
+                             merge.replace(hit_multiplicity=hm)), {}),
+                ("merge segment glass_front bounce 0", *front[0]),
+                ("merge rolling 720p/100k", *rolling(merge)),
+                ("merge block glass_front bounce 1", *front[1])):
+            k1_case(what, args, kw)
+
+    if "train" in groups:
+        # --- training streams: K1 with saved carries and K3, 512x512
+        init = random_scene(50_000, seed=1, device=dev)
+        center = ply.center().cpu().numpy()
+        cam512 = cameras.orbit_camera(center, 2.8, 0.0, 15.0, width=512, height=512, device=dev)
+        center0 = random_scene(50_000, seed=0, device=dev).center().cpu().numpy()
+        cam512s = cameras.orbit_camera(center0, 2.8, 0.0, 15.0, width=512, height=512,
+                                       device=dev)
+        win = RenderConfig(hit_multiplicity=1, order="window", march_chunk=128)
+        key = RenderConfig(hit_multiplicity=1, order="key", march_chunk=256)
+        train_cases = [("train window sh0 50k", init, cam512s, win),
+                       ("train window sh3 fitted_20k", ply, cam512, win.replace(sh_degree=3)),
+                       ("train key sh0 50k", init, cam512s, key),
+                       ("train key sh3 fitted_20k", ply, cam512, key.replace(sh_degree=3))]
+        for what, sc, cam, cfg in train_cases:
+            with torch.no_grad():
+                stream, trows, n_pairs = prepare_train_stream(sc, cam, cfg)
+            starts, trows = stream.starts, trows.detach().contiguous()
+            dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
+            chunk = kmarch.chunk_for(cfg)
+            window = cfg.order == "window"
+            kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()} if window else {}
+            fwd = lambda: kmarch.march(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
+            outs = {}
+            for name in ("other", "this"):
+                use(name)
+                outs[name] = fwd()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+            cs.check(same, f"K1 {what}: outputs differ between the builds")
+            got = outs["this"]
+            cs.k1_train_check(what, got, kmarch.march_plain(starts, trows, dirs_t, cfg, chunk,
+                                                            save_tin=True, **kw))
+            t1 = turns(fwd)
+            plain1 = statistics.median(cs.cuda_ms(lambda: kmarch.march_plain(
+                starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw), 3))
+            b1 = cs.march_bound((starts, trows, dirs_t, cfg, chunk), kw, kmarch.march_plain,
+                                tin=got[2])
+            sig1 = kmarch.march_plain.significant / max(1, kmarch.march_plain.candidates
+                                                        * dirs_t.shape[1])
+            fire1 = kmarch.march_plain.fired / max(1, kmarch.march_plain.chunks)
+            info1 = cuda_build.launch_info("march", chunk, cfg.sh_degree, 256, order=cfg.order,
+                                           scalar=window, train=True)
+            rows.append(dict(
+                case=what, kernel="K1 save_tin", pairs=n_pairs, chunk=chunk, ms_other=t1["other"],
+                ms_this=t1["this"], plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1],
+                bit_identical=same, **info1,
+                ptxas=ptx(k1_name(chunk, window, cfg.sh_degree, True, cfg.order)),
+                significant_share=sig1, fire_share=fire1))
+            cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+
+            gen = torch.Generator(device=dev).manual_seed(0)
+            d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+            d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+            bargs = (starts, trows, dirs_t, cam.eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
+            use("other")
+            g_other = kbwd.march_bwd(*bargs)
+            use("this")
+            cs.k3_check(what, bargs)
+            g_this = kbwd.march_bwd(*bargs)
+            rel = float((g_this - g_other).abs().max() / g_other.abs().max())
+            t3 = turns(lambda: kbwd.march_bwd(*bargs))
+            plain3 = statistics.median(cs.cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 3))
+            b3 = cs.bwd_bound(bargs, kbwd.march_bwd_plain)
+            info3 = cuda_build.launch_info("march_bwd", chunk, cfg.sh_degree, 256, order=cfg.order)
+            k = (cfg.sh_degree + 1) ** 2
+            rows.append(dict(
+                case=what, kernel="K3", pairs=n_pairs, chunk=chunk, ms_other=t3["other"],
+                ms_this=t3["this"], plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1],
+                max_rel_vs_other=rel, **info3,
+                ptxas=ptx(f"16march_bwd_kernelILi{chunk}ELi{k}ELb{int(window)}E"),
+                significant_share=kbwd.march_bwd_plain.significant
+                / max(1, kbwd.march_bwd_plain.candidates * dirs_t.shape[1]),
+                fire_share=kbwd.march_bwd_plain.fired / max(1, kbwd.march_bwd_plain.chunks)))
+            cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+
+    out_json = opt.out_json
     out_json.parent.mkdir(parents=True, exist_ok=True)
     out_json.write_text(json.dumps({"card": card, "rows": rows, "ptxas": ptxas}, indent=1))
     print(json.dumps({"ok": True, "card": card}), flush=True)

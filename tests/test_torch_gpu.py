@@ -27,6 +27,7 @@ from gaussian_ray_tracing_tpu_torch.ops import scan as tscan
 from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
 from gaussian_ray_tracing_tpu_torch.train.losses import dssim_l1_loss
 from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+from merge_streams import depth_stream
 
 pytestmark = pytest.mark.gpu
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -469,6 +470,58 @@ def test_merge_mesh_modes_match_plain(bsub):
             args = (*args[:4], args[4] * bsub)
             kw = {**kw, "block_sub": bsub}
         _merge_check(args[:3], kw, args[3], args[4], ("merge_launches", counter))
+
+
+def _merge_stream_check(counts, chunk, **kw):
+    """K1 merge order on a hand-made depth_stream of 256-ray tiles against
+    march_plain at the K1 bars (one launch counted), and two launches
+    bit-identical. Returns the plain version's (chunks, slow chunks)."""
+    starts, feats, dirs_t, _ = depth_stream(counts, rays=256, jitter=0.02, device="cuda", **kw)
+    cfg = RenderConfig(hit_multiplicity=1, order="merge", march_chunk=chunk)
+    _merge_check((starts, feats, dirs_t), {}, cfg, chunk)
+    plain = (tmarch.march_plain.chunks, tmarch.march_plain.slow)
+    a, b = (tmarch.march(starts, feats, dirs_t, cfg, chunk) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    return plain
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_merge_tiles_without_pairs(chunk):
+    """Tiles with no pairs between marched ones: their pending buffer is
+    never written and composites nothing (rgb 0, T 1)."""
+    chunks, _ = _merge_stream_check([0, 2 * chunk, 0, 0, chunk // 2, 0], chunk)
+    assert chunks == 3
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_merge_ragged_last_chunk(chunk):
+    """n not a multiple of C: the last chunk's tail slots (past the
+    segment) take part in the merge as insignificant keys."""
+    counts = [3 * chunk + 5, chunk + 1, 7]
+    chunks, _ = _merge_stream_check(counts, chunk)
+    assert chunks == 4 + 2 + 1
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_merge_chunk_without_significant_candidate(chunk):
+    """A chunk whose every candidate is below alpha_min, after a fast chunk
+    (tile 0) and after a slow one (tile 1): it becomes a pending buffer
+    with no significant slot."""
+    faint = [(0, chunk, 2 * chunk), (1, chunk, 2 * chunk)]
+    chunks, slow = _merge_stream_check([3 * chunk, 3 * chunk], chunk, faint=faint,
+                                       swaps=[(1, 0)])
+    assert chunks == 6 and slow == 1
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_merge_every_chunk_slow(chunk):
+    """An inversion planted at the start of every chunk, close enough (and
+    faint enough) that the rays near the axis see all four: every marched
+    chunk of the tile takes the slow walk."""
+    chunks, slow = _merge_stream_check([4 * chunk], chunk, op=0.011, spacing=0.01,
+                                       swaps=[(0, j * chunk) for j in range(4)])
+    assert chunks == 4 and slow == 4
 
 
 @pytest.mark.parametrize("name", ["small_pinhole_256", "small_hm2_256", "small_fisheye_256"])

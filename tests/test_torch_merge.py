@@ -27,6 +27,7 @@ from gaussian_ray_tracing_tpu_torch.models.renderer import render
 from gaussian_ray_tracing_tpu_torch.ops import march as tmarch
 from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
 from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+from merge_streams import depth_stream
 from test_torch_march import (  # noqa: F401 (module fixtures)
     _assert_march_bars, _jax_march, _segments, _sh_feats, _torch_args, bounce_rays,
     sh_stream_inputs, stream_inputs,
@@ -124,6 +125,41 @@ def test_merge_keys_and_fast_test():
     assert keys[0, :, 0].tolist() == want and bool(inv[0])
     _, _, inv = tmarch.merge_keys(torch.tensor([[[0.5], [0.5]]]), torch.tensor([[[1.0], [1.0]]]))
     assert not bool(inv[0])
+
+
+def test_merge_slow_counter_is_zero_on_a_depth_sorted_stream():
+    """march_plain.slow counts the (tile, chunk) pairs whose tile-wide fast
+    test fails: none where every tile's candidates ascend in depth and
+    chunk j + 1 lies behind chunk j; the count is reset by each call (0
+    outside merge order)."""
+    chunk = 32
+    starts, feats, dirs_t, _ = depth_stream([100, 70], jitter=0.02)
+    tmarch.march_plain(starts, feats, dirs_t, RenderConfig(order="merge", march_chunk=chunk),
+                       chunk)
+    assert (tmarch.march_plain.chunks, tmarch.march_plain.slow) == (7, 0)
+    assert tmarch.march_plain.significant > 0
+    starts, feats, dirs_t, _ = depth_stream([100, 70], swaps=[(0, 40)])
+    tmarch.march_plain(starts, feats, dirs_t, RenderConfig(march_chunk=chunk), chunk)
+    assert tmarch.march_plain.slow == 0 and tmarch.march_plain.fired == 1
+
+
+def test_merge_slow_counter_finds_a_planted_inversion():
+    """Candidates 40 and 41 of tile 0 trade places: merge_keys' inversion
+    test, on the on-axis rays' alphas and entry t, flags tile 0's chunk 1
+    alone, and that is the one slow chunk march_plain counts (the sorted
+    chunk then becomes the pending buffer, so chunk 2 is fast again)."""
+    chunk, counts, op = 32, [100, 70], 0.02
+    starts, feats, dirs_t, t_entry = depth_stream(counts, op=op, swaps=[(0, 40)])
+    tmarch.march_plain(starts, feats, dirs_t, RenderConfig(order="merge", march_chunk=chunk),
+                       chunk)
+    flagged = []
+    for t, n in enumerate(counts):
+        for j in range(0, n, chunk):
+            t_ev = t_entry[int(starts[t]) + j: int(starts[t]) + min(n, j + chunk)][None, :, None]
+            if bool(tmarch.merge_keys(torch.full_like(t_ev, op), t_ev)[2][0]):
+                flagged.append((t, j // chunk))
+    assert flagged == [(0, 1)]
+    assert (tmarch.march_plain.chunks, tmarch.march_plain.slow) == (7, len(flagged))
 
 
 # --- the JAX suite's merge tests on the port (tests/test_pallas.py:93-134) ---
