@@ -77,35 +77,45 @@
 // ray, in the order the backward sums it.
 //
 // Merge order (pallas_march.py:352-363, 677-742, 974-982), the same block
-// layout, staging, response, gate and colour code, but the TPU kernel's
-// bitonic sort and merge networks replaced by per-thread lists. Each ray
-// keeps a pending buffer of C (key, alpha, 3x10-bit colour pack) slots in
-// local memory, ascending by key, empty slots INT32_MIN with alpha 0 (12 C
-// bytes), and a list of the chunk's C keys (4 C bytes; the source index
-// rides in the key's low 8 bits, so alpha and colour are recomputed from
-// the staged rows when needed, as the window kernel's pass 2 does). Per
-// chunk, after the tile-wide skip:
-//   1. keys: kb = bits(max(t_event, 0)) & ~0xFF for a significant (a > 0)
-//      candidate, else the running max of the significant kb before it
-//      (INT32_MIN before the first; tail slots past the segment too), OR
-//      the source index;
+// layout, staging, response, gate, sure-miss test and colour code, but the
+// TPU kernel's bitonic sort and merge networks replaced by per-thread
+// lists. Each ray keeps two buffers of C slots in local memory, swapped by
+// index: the pending buffer, ascending by key, and the chunk's. A slot
+// holds a key and, if significant (a > 0), the exact alpha and the 3x10-bit
+// colour pack (the chunk's by source index, the pending buffer's by slot);
+// which slots are significant is one bitmask per buffer in shared memory,
+// word-major ([2][C / 32][R], so that lanes at different slots never
+// conflict). Before the first marched chunk the pending buffer is C empties
+// (INT32_MIN keys, alpha 0): a block-uniform flag stands for them and
+// nothing is written. Per chunk, after the tile-wide skip:
+//   1. pass 1 evaluates each candidate once (a sure miss stops before the
+//      divide and the exp, any other miss at alpha): kb = bits(max(t_event,
+//      0)) & ~0xFF for a significant candidate, else the running max of the
+//      significant kb before it (INT32_MIN before the first; tail slots past
+//      the segment too), OR the source index, inserted into the chunk's
+//      sorted keys as it comes (a chunk without inversions: no shift); a
+//      significant candidate's alpha and pack are stored and its bit set;
 //   2. the fast test, TILE-WIDE (__syncthreads_and): no ray sees a
 //      significant kb below the running max, and every ray's least
-//      significant kb is at or above the largest key of its pending slots
-//      with a > 0. It decides what composites before the next chunk's skip
-//      test, so a per-ray choice would change skips, not only rounding;
-//   3. fast: composite the pending buffer as it stands; the chunk in stream
-//      order (keys, exact alphas, packed colours) becomes the pending buffer;
-//   4. slow: insertion-sort the chunk's keys (the depth-presorted stream is
-//      nearly ordered, so few shifts) and merge them with the pending
-//      buffer by two pointers (pending first on equal keys): the C smallest
-//      of the union composite, the C largest become the pending buffer
-//      (written in place into slots the merge has consumed).
+//      significant kb is at or above pend_max, the largest key of its
+//      significant pending slots (a scalar: the buffer ascends). It decides
+//      what composites before the next chunk's skip test, so a per-ray
+//      choice would change skips, not only rounding;
+//   3. fast: the pending buffer's significant slots composite (its mask's
+//      set bits, in slot order) and the chunk, whose sorted order is then
+//      its stream order, becomes the pending buffer by the swap;
+//   4. slow: two pointers over the pending buffer and the sorted chunk
+//      (pending first on equal keys): the C smallest of the union composite,
+//      the C largest are written in place into pending slots already read.
+//      Every slot, significant or not, counts toward the C smallest. A
+//      fresh buffer's C empties are the C smallest, so its first slow chunk
+//      only writes the sorted chunk.
 // Every composited colour goes through the pack; alphas are exact. After
-// the last chunk the pending buffer composites (T only moves while T >
-// min_t). The TPU's bitonic merge duplicates one payload on equal keys
-// between pending and chunk (the same kb and source index in two chunks);
-// this kernel and march_plain keep both, pending first.
+// the last chunk the pending buffer's significant slots composite (T only
+// moves while T > min_t). The TPU's bitonic merge duplicates one payload on
+// equal keys between pending and chunk (the same kb and source index in
+// two chunks); this kernel and march_plain keep both, pending first. The
+// 256-ray build runs two blocks per SM (two_blocks_per_sm).
 //
 // Rows (`stride` floats apart). Quad: at SH 0 the 16-float compact rows
 // [op, q00 q11 q22 q01 q02 q12, vx vy vz, cq, oo, r g b, pad] or the
@@ -142,11 +152,13 @@
 // and the local-memory traffic of the stored candidates and of the lists
 // (kept in L1 by running two blocks per SM); at SH 1-3 a 3K-term colour
 // per significant candidate. In key order one evaluation with one exp and
-// one divide, plus the colour; in merge order two evaluations (keys, then
-// the candidates that move into the pending buffer or composite) and 16 C
-// bytes of local memory per ray, which the pending buffer and the
-// per-chunk merge walk in full (its registers, spills and time are in
-// PERF.md). The float math stays IEEE float32 with no FMA contraction (the
+// one divide, plus the colour; in merge order the window kernel's one
+// evaluation, and in a slow chunk (87-97% of the marched chunks on the
+// render streams, 27-45% on the mesh bounces) the walk of 2C steps, each
+// a key read at a slot that differs from lane to lane, and the moves of
+// the significant slots' alphas and packs: 24 C bytes of local memory per
+// ray, more than L1 holds, so the walk's scattered reads decide the time
+// (PERF.md). The float math stays IEEE float32 with no FMA contraction (the
 // wrapper builds with -fmad=false): pp = oo - od^2/dd cancels by orders of
 // magnitude, and matching the plain version's per-operation rounding keeps
 // kernel and reference comparable. No tensor cores and no TF32 anywhere.
