@@ -38,7 +38,13 @@ K3 rows also carry what explains their time (`design`): the significant
 and fire shares of their stream, the launch's resident blocks per SM and
 shared memory, and the registers, stack frame and spills that ptxas
 reports; the smoke fails if K3 at SH 3 has fewer than two resident blocks
-per SM, or K1's merge kernel other than two. Each log line carries the seconds since the start.
+per SM, or K1's merge kernel other than two. The K4 row also carries, on
+glass_front's bounce 1, the shares of (ray, block) pairs and (ray, face)
+tests that its pretests skip (the kernel's own counts, which must equal
+ops/tri.pretest_stats' on every bounce), its resident blocks per SM,
+registers and stack, and the smoke fails if the pretests skip nothing
+there. Each log line carries the seconds
+since the start.
 """
 
 from __future__ import annotations
@@ -68,7 +74,6 @@ TIN_ABS = 1e-4  # saved carries, kernel vs plain
 BWD_REL, BWD_REL_M, WITNESS_RATIO = 1e-3, 2e-3, 1.25
 TRAIN_KW = dict(hit_multiplicity=1, order="key", march_chunk=256)  # cli fit's default
 PSNR_MESH_FRAME = 60.0  # mesh frames, kernel path vs plain path
-K4_REL = 1e-6  # K4 t, u, v vs plain (face ids identical)
 PSNR_FRAME = 60.0  # whole frames, kernel path vs plain path
 # H100 SXM published peaks: HBM3 bandwidth and dense FP32 rate
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
@@ -229,6 +234,48 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
            "spill_load_bytes": ld}
     log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk}" + " scalar" * scalar
         + " save_tin" * train + f": {json.dumps(out)}")
+    return out
+
+
+def tri_design(args, kw) -> dict:
+    """What explains a K4 row, read from the kernel's own counts (its
+    `stats`, which must equal pretest_stats'): the share of listed (tile,
+    block) pairs it did not stage (tile_block_skip), of listed (ray,
+    block) pairs whose block pretest failed (ray_block_skip), of listed
+    (warp, block) pairs that tested no row (warp_block_skip), of listed
+    (ray, face) pairs its warps never tested (row_face_skip) and of those
+    that did not reach the divide (face_test_skip: the face pretest's
+    rejections too); and the launch's resident blocks per SM, registers,
+    stack and spills."""
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch.ops import cuda_build
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+
+    starts, dirs_t = args[0], args[3]
+    T, R = dirs_t.shape[:2]
+    stats = torch.zeros((T, len(ktri.STATS)), dtype=torch.int32, device=dirs_t.device)
+    ktri.closest_hit_blocks(*args, **kw, stats=stats)
+    want = ktri.pretest_stats(*args, kw["origins_t"], kw["bounds"])
+    check(torch.equal(stats, want), "K4: the kernel's counts differ from pretest_stats")
+    staged, needed, warp_blocks, warp_rows, divided = stats.long().sum(0).tolist()
+    listed = int(((starts[1:] - starts[:-1]) // 256).sum())  # (tile, block) pairs
+    pairs = max(1, listed * R)
+    info = cuda_build.launch_info("closest_hit", 0, 0, R)
+    regs, stack, st, ld = next((v for k, v in PTXAS.items() if "tri_kernel" in k), (None,) * 4)
+    check(regs == info["registers"], f"tri_kernel: ptxas says {regs} registers, the runtime "
+                                     f"{info['registers']}")
+    out = {"tile_block_skip": 1.0 - staged / max(1, listed),
+           "ray_block_skip": 1.0 - needed / pairs,
+           "warp_block_skip": 1.0 - warp_blocks * 32 / pairs,
+           "row_face_skip": 1.0 - warp_rows * 32 * 8 / (pairs * 256),
+           "face_test_skip": 1.0 - divided / (pairs * 256),
+           "tile_warp_blocks_max": int(stats[:, 2].max()) if T else 0,
+           "tile_warp_blocks_mean": warp_blocks / max(1, T),
+           "blocks_per_sm": info["blocks_per_sm"], "smem_bytes": info["smem_bytes"],
+           "registers": regs, "stack_bytes": stack, "spill_store_bytes": st,
+           "spill_load_bytes": ld}
+    log("design", f"K4, {listed} listed blocks, the kernel's counts: {json.dumps(out)}")
     return out
 
 
@@ -719,20 +766,25 @@ def main() -> None:
     for name, record in records.items():
         for b, rec in enumerate(record):
             args, kw = rec["k4"]
-            got = ktri.closest_hit_blocks(*args, **kw)
+            stats = torch.zeros((args[3].shape[0], len(ktri.STATS)), dtype=torch.int32,
+                                device=dev)
+            got = ktri.closest_hit_blocks(*args, **kw, stats=stats)
             torch.cuda.synchronize()
             want = ktri.closest_hit_blocks_plain(*args, **kw)
             check(torch.equal(got[1], want[1]), f"K4 {name} bounce {b}: face ids differ")
+            check(all(torch.equal(a, w) for a, w in zip(got, want)),
+                  f"K4 {name} bounce {b}: t, u or v not bit-identical to the plain version")
+            check(torch.equal(stats, ktri.pretest_stats(*args, kw["origins_t"], kw["bounds"])),
+                  f"K4 {name} bounce {b}: the kernel's counts differ from pretest_stats")
             pairs = list(zip(got[0::2] + got[3:], want[0::2] + want[3:]))  # t, u, v
-            rel = max(float(((a - w).abs() / w.abs()).nan_to_num(0.0).max()) for a, w in pairs)
             k4_err = max([k4_err] + [float((a - w).nan_to_num(0.0).abs().max()) for a, w in pairs])
             live = int(((args[3] * args[3]).sum(-1) > 0.01).sum())
             k4_hits[name, b] = int((want[1] >= 0).sum())
             origin = "shared origin" if kw["origins_t"] is None else "per-ray origins"
             log("K4", f"{name} bounce {b} ({origin}): {live} live rays, "
                       f"{int(args[0][-1]) // 256} face blocks listed, {k4_hits[name, b]} hits, "
-                      f"face ids identical, t/u/v max rel {rel:.3g}")
-            check(rel <= K4_REL, f"K4 {name} bounce {b}: t/u/v differ from plain by {rel:.3g}")
+                      f"face ids, t, u and v bit-identical, {int(stats[:, 0].sum())} blocks staged, "
+                      f"the kernel's counts those of pretest_stats")
     check(k4_hits["glass_cli", 1] > 0, "glass_cli bounce 1: K4 found no exit hit")
 
     block_err = seg_err = 0.0
@@ -834,6 +886,11 @@ def main() -> None:
     blk_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*blk_args, **blk_kw), 5))
     blk_bound = march_bound(blk_args, blk_kw, kmarch.march_plain)
     blk_design = design("march", blk_args[3], blk_args[4], scalar=True)
+    # K4's pretests on glass_front's bounce 1: what they skip (the kernel's
+    # own counts), and its launch
+    k4_design = tri_design(k4f, k4f_kw)
+    check(k4_design["ray_block_skip"] > 0 and k4_design["row_face_skip"] > 0,
+          f"glass_front bounce 1: K4's pretests skipped nothing ({k4_design})")
     seg_ms = statistics.median(cuda_ms(lambda: kmarch.march(*seg_args, **seg_kw), 20))
     seg_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*seg_args, **seg_kw), 5))
     seg_bound = march_bound(seg_args, seg_kw, kmarch.march_plain)
@@ -933,7 +990,9 @@ def main() -> None:
         row("march_bwd", "march_bwd.cuh", "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
             train_launches["march_bwd"], bwd_err, k3_ms, k3_plain, k3_bound, more=k3_design),
         row("closest_hit", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
-            mesh_counts["closest_hit"], k4_err, k40_ms, k40_plain, k40_bound),
+            mesh_counts["closest_hit"], k4_err, k40_ms, k40_plain, k40_bound,
+            more={"glass_front_bounce1": {"ms": k4f_ms, "plain_ms": k4f_plain,
+                                          "bound_ms": k4f_bound[0], **k4_design}}),
         row("march_segment", "march.cuh", k1, mesh_counts["march_segment"], seg_err, seg_ms,
             seg_plain, seg_bound, more=seg_design),
         row("march_block", "march.cuh", k1, mesh_counts["march_block"], block_err, blk_ms,

@@ -17,7 +17,9 @@ segments. Per bounce:
   - both then add directLight * (1 - blockingRadiance).
 
 `render_with_mesh_fast`: every bounce culls the Morton face blocks per tile
-and runs the closest-hit kernel K4 (ops/tri.py); bounce 0 marches the
+and runs the closest-hit kernel K4 (ops/tri.py), which also gets the face
+blocks' and rows' bounds (bounding spheres and normal cones) for its
+per-ray pretests; bounce 0 marches the
 screen-space pair stream with K1 in segment mode (per-ray t_hi at the hit,
 carry-in T); later bounces march the Morton-sorted gaussian table with K1
 in block mode (per-ray origins, scalar response). `render_with_mesh_planar_
@@ -58,7 +60,7 @@ from gaussian_ray_tracing_tpu_torch.ops.response import adaptive_radius, dot3
 from gaussian_ray_tracing_tpu_torch.ops.tiles import count_pairs, num_tiles
 from gaussian_ray_tracing_tpu_torch.ops.tri import (
     FACES_PER_BLOCK, closest_hit_blocks, closest_hit_blocks_plain, face_block_index,
-    pack_triangles,
+    face_bounds, pack_triangles,
 )
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 from gaussian_ray_tracing_tpu_torch.scene.mesh import TriangleMesh
@@ -248,6 +250,7 @@ def render_with_mesh_fast(scene: GaussianScene, mesh: TriangleMesh, camera: Came
     glass_ratio = config.glass_ior / config.air_ior
     face_rows, tri_perm = pack_triangles(v0, v1, v2)
     findex = face_block_index(v0, v1, v2, tri_perm)
+    fbounds = face_bounds(findex.centers, findex.radii, face_rows)
     face_capacity = n_tiles * FACES_PER_BLOCK * min(16, findex.centers.shape[0])
     n_faces = faces.shape[0]
     bounce_cfg = config.replace(order=config.bounce_order)
@@ -271,7 +274,8 @@ def render_with_mesh_fast(scene: GaussianScene, mesh: TriangleMesh, camera: Came
                                max_per_tile=max(1, face_capacity // (n_tiles * FACES_PER_BLOCK)))
         # bounce 0: every ray starts at the eye (the shared-origin variant)
         k4_call = ((fstream.starts, fstream.blk, face_rows, d_live, eye, config.mesh_t_min,
-                    config.mesh_t_max), dict(origins_t=None if bounce == 0 else o_t))
+                    config.mesh_t_max),
+                   dict(origins_t=None if bounce == 0 else o_t, bounds=fbounds))
         t_hit, fpk, hu, hv = k4(*k4_call[0], **k4_call[1])
         face = torch.where((fpk >= 0) & (fpk < n_faces),
                            tri_perm[torch.clamp(fpk, 0, n_faces - 1).long()].to(_I32), -1)

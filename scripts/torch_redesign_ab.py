@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The port's K1 (window, key and merge order) and K3 against the kernels
-of another copy of gaussian_ray_tracing_tpu_torch/csrc/ (an earlier
+"""The port's K1 (window, key and merge order), K3 and K4 against the
+kernels of another copy of gaussian_ray_tracing_tpu_torch/csrc/ (an earlier
 commit's), on one NVIDIA GPU, timed in turns: other, this, this, other.
 K1's outputs (rgb, final transmittance, saved carries) must be
 bit-identical between the two builds and within chip_smoke.py's bars of
@@ -14,18 +14,27 @@ order) shares of the stream.
 
     git archive <commit> gaussian_ray_tracing_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/torch_redesign_ab.py build/parent/gaussian_ray_tracing_tpu_torch/csrc \
-        [out.json] [--only render|modes|merge|train] [--this <csrc dir>]
+        [out.json] [--only render|modes|merge|train|mesh] [--this <csrc dir>]
 
 The groups: render (window order on the 720p/100k headline and on
 fitted_20k.ply at SH 3, key order at SH 3), modes (window order on a mesh
 segment, in block mode and on a rolling shutter), merge (merge order on the
 headline, fitted_20k.ply at SH 3, the 256x256 golden stream at c=64 and
-128, a mesh segment, a rolling shutter and block mode) and train (the
-training forwards and K3); all of them without --only. --this takes
-another copy of csrc/ in place of the package's own. Run from the
-repository root. Writes the rows and the ptxas table to out.json
-(build/redesign_ab.json by default) and prints one line per case; exits
-non-zero if a check fails or there is no GPU.
+128, a mesh segment, a rolling shutter and block mode), train (the
+training forwards and K3) and mesh (K4 on the glass and glass_front
+frames' bounce 0, shared origin, and glass_front's bounce 1 and glass_cli's
+bounces 1-3, per-ray origins; K1's block mode on glass_front's bounce 1 in
+window, key and merge order at block_sub 1 and 2; the whole glass_front
+and glass_cli frames); all of them without --only. K4's outputs must be
+bit-identical between the builds and to its plain version; K4 rows also
+carry the share of (ray, block) pairs and of (ray, face) tests that its
+pretests skip (the kernel's own counts) and a modelled load balance. A
+build without K4's pretests (no grt_closest_hit_info) is called without
+the bounds and stats, which it does not take. --this takes another
+copy of csrc/ in place of the package's own. Run from the repository root.
+Writes the rows and the ptxas table to out.json (build/redesign_ab.json by
+default) and prints one line per case; exits non-zero if a check fails or
+there is no GPU.
 """
 
 from __future__ import annotations
@@ -44,7 +53,24 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (its helpers; it imports torch lazily)
 
 REPS = 10  # launches per timed turn
-GROUPS = ("render", "modes", "merge", "train")
+GROUPS = ("render", "modes", "merge", "train", "mesh")
+
+
+class _WithoutPretests:
+    """A build from before K4's pretests, called with this tree's argument
+    list: grt_closest_hit without `bounds` and `stats` (arguments 3 and
+    11)."""
+
+    def __init__(self, lib):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.grt_closest_hit.argtypes = [vp] * 10 + [ci, ci, cf, cf, vp]
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def grt_closest_hit(self, *a):
+        return self._lib.grt_closest_hit(*a[:3], *a[4:11], *a[12:])
 
 
 def main() -> None:
@@ -77,6 +103,8 @@ def main() -> None:
     from gaussian_ray_tracing_tpu_torch.ops import cuda_build
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
     from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
     from gaussian_ray_tracing_tpu_torch.scene.mesh import make_sphere
     from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
     from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
@@ -86,8 +114,11 @@ def main() -> None:
         cuda_build._lib = cuda_build.declare(ctypes.CDLL(str(this)))
     libs = {"this": cuda_build.load_library()}
     ptxas = cuda_build.ptxas_table(cuda_build.build_log)
+    cs.PTXAS.update(ptxas)  # for cs.tri_design
     other = cuda_build.build(opt.other_csrc.resolve(), ROOT / "build" / "kernels_other")
     libs["other"] = cuda_build.declare(ctypes.CDLL(str(other)), info=False)
+    if not hasattr(libs["other"], "grt_closest_hit_info"):
+        libs["other"] = _WithoutPretests(libs["other"])
     cs.log("build", f"this and {opt.other_csrc} built")
 
     def use(name):
@@ -150,6 +181,47 @@ def main() -> None:
             bit_identical=same, **info,
             ptxas=ptx(k1_name(chunk, scalar, cfg.sh_degree, False, cfg.order)),
             **shares(kmarch.march_plain, R, cfg.order)))
+        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+
+    def imbalance(tile_work, slots: int) -> float:
+        """Modelled: the busiest of `slots` processors over the mean when the
+        tiles, in launch order, each go to the least loaded one (a dynamic
+        scheduler once every slot is busy), a tile's cost the (warp, block)
+        pairs the kernel counted for it; 1.0 is an even load."""
+        import heapq
+
+        work = tile_work.tolist()
+        load = [0] * slots
+        heapq.heapify(load)
+        for w in work:
+            heapq.heappush(load, heapq.heappop(load) + w)
+        return max(load) / max(1e-9, sum(work) / slots)
+
+    def k4_case(what, args, kw):
+        """A K4 call: bit for bit against the other build and against the
+        plain version, timed in turns, with the pretests' skip shares."""
+        outs = {}
+        for name in ("other", "this"):
+            use(name)
+            outs[name] = ktri.closest_hit_blocks(*args, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+        cs.check(same, f"K4 {what}: outputs differ between the builds")
+        want = ktri.closest_hit_blocks_plain(*args, **kw)
+        cs.check(all(torch.equal(a, b) for a, b in zip(outs["this"], want)),
+                 f"K4 {what}: outputs differ from the plain version")
+        t = turns(lambda: ktri.closest_hit_blocks(*args, **kw))
+        plain_ms = statistics.median(cs.cuda_ms(
+            lambda: ktri.closest_hit_blocks_plain(*args, **kw), 3))
+        b = cs.tri_bound(args, kw)
+        design = cs.tri_design(args, kw)
+        stats = torch.zeros((args[3].shape[0], len(ktri.STATS)), dtype=torch.int32, device=dev)
+        ktri.closest_hit_blocks(*args, **kw, stats=stats)
+        rows.append(dict(
+            case=what, kernel="K4", listed_blocks=int(args[0][-1]) // 256,
+            hits=int((want[1] >= 0).sum()), ms_other=t["other"], ms_this=t["this"],
+            plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], bit_identical=same, **design,
+            imbalance_per_sm=imbalance(stats[:, 2], 132)))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
     def stream_args(sc, cam, cfg, cap=1 << 21):
@@ -294,6 +366,46 @@ def main() -> None:
                 significant_share=kbwd.march_bwd_plain.significant
                 / max(1, kbwd.march_bwd_plain.candidates * dirs_t.shape[1]),
                 fire_share=kbwd.march_bwd_plain.fired / max(1, kbwd.march_bwd_plain.chunks)))
+            cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+
+    if "mesh" in groups:
+        spheres = {"glass": make_sphere((0.0, 0.0, 0.5), device=dev),
+                   "glass_front": make_sphere((0.0, 0.0, 1.6), device=dev),
+                   "glass_cli": make_sphere((0.0, 0.0, 1.6), tess_u=36, tess_v=18, device=dev)}
+        spheres = {k: v.with_type(MeshType.GLASS) for k, v in spheres.items()}
+        recs = {}
+        for name, sphere in spheres.items():
+            recs[name] = []
+            kmesh.render_with_mesh_fast(scene, sphere, cam720, bench, record=recs[name])
+            torch.cuda.synchronize()
+        for name, b in (("glass", 0), ("glass_front", 0), ("glass_front", 1), ("glass_cli", 1),
+                        ("glass_cli", 2), ("glass_cli", 3)):
+            if b < len(recs[name]):
+                origin = "shared origin" if b == 0 else "per-ray origins"
+                k4_case(f"K4 {name} bounce {b} ({origin})", *recs[name][b]["k4"])
+        blk_args, blk_kw = recs["glass_front"][1]["k1"]
+        for order in ("window", "key", "merge"):
+            for bsub in (1, 2):
+                args = (*blk_args[:3], blk_args[3].replace(order=order), blk_args[4] * bsub)
+                k1_case(f"{order} block glass_front bounce 1 block_sub={bsub}", args,
+                        {**blk_kw, "block_sub": bsub})
+        for name in ("glass_front", "glass_cli"):  # the whole frames, in turns
+            frame = lambda: render(scene, cam720, bench, mesh=spheres[name], method="gpu")
+            outs = {}
+            for build in ("other", "this"):
+                use(build)
+                outs[build] = frame()["rgb"]
+            torch.cuda.synchronize()
+            same = torch.equal(outs["other"], outs["this"])
+            cs.check(same, f"{name} frame differs between the builds")
+            k4n, blkn = ktri.closest_hit_blocks.launches, kmarch.march.block_launches
+            frame()
+            launches = dict(closest_hit=ktri.closest_hit_blocks.launches - k4n,
+                            march_block=kmarch.march.block_launches - blkn)
+            t = turns(frame)
+            rows.append(dict(case=f"{name} frame 1280x720 100k", kernel="frame",
+                             ms_other=t["other"], ms_this=t["this"], bit_identical=same,
+                             launches_per_frame=launches))
             cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
     out_json = opt.out_json

@@ -277,25 +277,76 @@ def _bounce_record(cfg):
 
 def test_closest_hit_kernel_matches_plain():
     """K4 on the glass sphere's bounce-0 (shared origin) and bounce-1 and 2
-    (per-ray origins) streams: identical face ids, t, u, v to 1e-6."""
+    (per-ray origins) streams: face ids, t, u and v bit for bit, and the
+    kernel's counts of what it ran equal to pretest_stats'."""
     from gaussian_ray_tracing_tpu_torch.ops import tri as ttri
 
     hits = []
     for rec in _bounce_record(RenderConfig(hit_multiplicity=1, march_chunk=128))[:3]:
         args, kw = rec["k4"]
         before = ttri.closest_hit_blocks.launches
-        got = ttri.closest_hit_blocks(*args, **kw)
+        stats = torch.zeros((args[3].shape[0], 5), dtype=torch.int32, device="cuda")
+        got = ttri.closest_hit_blocks(*args, **kw, stats=stats)
         torch.cuda.synchronize()
         assert ttri.closest_hit_blocks.launches == before + 1
         want = ttri.closest_hit_blocks_plain(*args, **kw)
-        assert torch.equal(got[1], want[1])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))  # face, t, u, v bit for bit
+        assert torch.equal(stats, ttri.pretest_stats(*args, kw["origins_t"], kw["bounds"]))
         hits.append(int((want[1] >= 0).sum()))
-        for a, b in zip(got[0::2] + got[3:], want[0::2] + want[3:]):
-            torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0)
     assert min(hits[:2]) > 1000  # entering and leaving the sphere
 
 
-@pytest.mark.parametrize("order,bsub", [("window", 1), ("window", 2), ("key", 1)])
+def test_closest_hit_pretest_edge_cases_bit_identical():
+    """K4 and the plain version agree bit for bit, and the kernel's counts
+    equal pretest_stats', on the pretest tests' rays (from outside, from
+    inside, tangent to block spheres, through face edges, grazing faces of
+    the sphere and of a tilted plane at 1e-3 to 1e-7 rad and 0; a
+    zero-padded tail block), listed near to far and far to near, and on
+    tiles whose hits tie at equal t across two listed blocks (the first
+    listed wins)."""
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ttri
+    from test_torch_block_pretest import T_MAX, T_MIN, _faces, _k4_rays, _tilted_plane
+
+    meshes = {"sphere": _faces(), "plane": _tilted_plane()}
+    kinds = [("sphere", k) for k in ("outside", "inside", "tangent", "edges")] + [
+        (m, f"graze_{m}_{a}") for m in meshes for a in ("1e-3", "1e-5", "1e-6", "1e-7", "0")]
+    for mesh, kind in kinds:
+        rows, bounds = meshes[mesh]
+        nb = bounds.shape[0]
+        order = torch.cat([torch.arange(nb), torch.arange(nb - 1, -1, -1)]).to(torch.int32)
+        starts = torch.tensor([0, nb * 256, 2 * nb * 256], dtype=torch.int32, device="cuda")
+        o, d = (x.reshape(2, 256, 3).cuda() for x in _k4_rays(rows, bounds, kind, n=512))
+        args = (starts, order.cuda(), rows.cuda(), d, torch.zeros(3, device="cuda"), T_MIN,
+                T_MAX, o)
+        before = ttri.closest_hit_blocks.launches
+        stats = torch.zeros((2, 5), dtype=torch.int32, device="cuda")
+        got = ttri.closest_hit_blocks(*args, bounds=bounds.cuda(), stats=stats)
+        torch.cuda.synchronize()
+        assert ttri.closest_hit_blocks.launches == before + 1
+        want = ttri.closest_hit_blocks_plain(*args)
+        assert int((want[1] >= 0).sum()) > 0, kind
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), kind
+        assert torch.equal(stats, ttri.pretest_stats(*args, bounds.cuda())), kind
+    # one triangle in block 0 and block 1: every ray hits both at t = 1
+    tri = torch.tensor([-0.5, -0.5, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+    trows = torch.zeros((2 * 256, 9))
+    trows[17], trows[256 + 3] = tri, tri
+    tbounds = ttri.face_bounds(torch.zeros(2, 3), torch.full((2,), 0.75), trows)
+    dirs = torch.zeros((2, 32, 3))
+    dirs[..., 2] = -1.0
+    eye = torch.tensor([-0.25, -0.25, 1.0])
+    tstarts = torch.tensor([0, 512, 1024], dtype=torch.int32)
+    tblocks = torch.tensor([1, 0, 0, 1], dtype=torch.int32)
+    targs = [x.cuda() for x in (tstarts, tblocks, trows, dirs, eye)]
+    got = ttri.closest_hit_blocks(*targs, T_MIN, T_MAX, bounds=tbounds.cuda())
+    want = ttri.closest_hit_blocks_plain(*targs, T_MIN, T_MAX)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[1][:, 0].tolist() == [256 + 3, 17] and bool((got[0] == 1.0).all())
+    with pytest.raises(ValueError):  # the kernel needs the bounds
+        ttri.closest_hit_blocks(*targs, T_MIN, T_MAX)
+
+
+@pytest.mark.parametrize("order,bsub", [("window", 1), ("window", 2), ("key", 1), ("key", 2)])
 def test_mesh_march_modes_match_plain(order, bsub):
     """K1 in segment mode (bounce 0: per-ray t_hi and carry-in on the pair
     stream) and in block mode (bounce 1: per-ray origins over the Morton
