@@ -38,7 +38,9 @@ K3 rows also carry what explains their time (`design`): the significant
 and fire shares of their stream, the launch's resident blocks per SM and
 shared memory, and the registers, stack frame and spills that ptxas
 reports; the smoke fails if K3 at SH 3 has fewer than two resident blocks
-per SM, or K1's merge kernel other than two. The K4 row also carries, on
+per SM, or K1's merge kernel other than two. The K2 row carries its
+tiles, resident blocks per SM, registers and stack (`scan_design`); K2 is
+held exact on seven shapes, each called twice. The K4 row also carries, on
 glass_front's bounce 1, the shares of (ray, block) pairs and (ray, face)
 tests that its pretests skip (the kernel's own counts, which must equal
 ops/tri.pretest_stats' on every bounce), its resident blocks per SM,
@@ -216,12 +218,12 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     b = lambda x: f"Lb{int(x)}E"
     if kernel == "march_bwd":
         name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}"
-    elif order == "window":  # the 256-ray build
+    elif order == "window":  # K1: the 256-ray builds
         name = f"12march_kernelILi{chunk}E{b(scalar)}Li{K}E{b(train)}Li256E"
     elif order == "key":
-        name = f"16march_key_kernelILi{chunk}E{b(scalar)}Li{K}E{b(train)}E"
+        name = f"16march_key_kernelILi{chunk}E{b(scalar)}Li{K}E{b(train)}Li256E"
     else:
-        name = f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{K}ELi256E"  # the 256-ray build
+        name = f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{K}ELi256E"
     regs, stack, st, ld = next((v for k, v in PTXAS.items() if name in k), (None,) * 4)
     check(regs == info["registers"], f"{kernel} {name}: ptxas says {regs} registers, the "
                                      f"runtime {info['registers']}")
@@ -234,6 +236,25 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
            "spill_load_bytes": ld}
     log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk}" + " scalar" * scalar
         + " save_tin" * train + f": {json.dumps(out)}")
+    return out
+
+
+def scan_design(x) -> dict:
+    """What explains the K2 row at x's shape: the tiles (one block each) of
+    the call, and the launch's resident blocks per SM, static shared
+    memory, registers, stack frame and spills."""
+    from gaussian_ray_tracing_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load_library()
+    info = cuda_build.launch_info("scan", 0, 0, 0)
+    regs, stack, st, ld = next((v for k, v in PTXAS.items() if "scan_kernel" in k), (None,) * 4)
+    check(regs == info["registers"], f"scan_kernel: ptxas says {regs} registers, the runtime "
+                                     f"{info['registers']}")
+    out = {"tiles": lib.grt_scan_scratch_bytes(*x.shape) // 8 - 1,
+           "blocks_per_sm": info["blocks_per_sm"], "smem_bytes": info["smem_bytes"],
+           "registers": regs, "stack_bytes": stack, "spill_store_bytes": st,
+           "spill_load_bytes": ld}
+    log("design", f"K2 {tuple(x.shape)}: {json.dumps(out)}")
     return out
 
 
@@ -451,18 +472,24 @@ def main() -> None:
                      f"{ld} B spill loads")
 
     # --- phase 2: K2 scan vs plain (exact) ------------------------------
+    # the headline's capacity, one 8,192-element tile less one and one
+    # tile and one (and half a tile either side), rows that start off
+    # 16-byte alignment (P odd), 16 channels; each shape twice in a row (the
+    # status words of the first call must not leak)
     g = torch.Generator(device=dev).manual_seed(0)
     scan_err = 0
-    for shape in ((2, 1_500_000), (16, 1_000_003)):
+    for shape in ((2, 1_500_000), (2, 2_097_152), (1, 4095), (1, 4097), (1, 8191), (1, 8193),
+                  (16, 1_000_003)):
         x = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=dev,
                           generator=g)
         x[:, ::997] = 2**31 - 1  # partial sums wrap
-        got = kscan.multi_cumsum_i32(x)
         want = kscan.multi_cumsum_i32_plain(x)
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        scan_err = max(scan_err, err)
-        check(torch.equal(got, want), f"K2 scan differs from plain at {shape}")
-        log("K2", f"scan {shape} == plain (exact)")
+        for call in (1, 2):
+            got = kscan.multi_cumsum_i32(x)
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            scan_err = max(scan_err, err)
+            check(torch.equal(got, want), f"K2 scan differs from plain at {shape}, call {call}")
+        log("K2", f"scan {shape} == plain (exact), called twice")
 
     # --- phase 3: K1 march vs plain on identical pair streams -----------
     def golden(name):
@@ -474,32 +501,23 @@ def main() -> None:
         model = CameraModel.FISHEYE if fisheye else CameraModel.PINHOLE
         return z["rgb"].astype(np.float32), scene, cam, hm, model
 
-    march_err = 0.0
-    for name in ("small_pinhole_256", "pinhole_720p"):
-        _, scene, cam, hm, _ = golden(name)
-        for chunk in (128, 256):
-            for skip in (0.02, 1e-3):
-                cfg = RenderConfig(hit_multiplicity=hm, march_chunk=chunk,
-                                   chunk_skip_transmittance=skip)
-                stream, feats, _ = prepare_pair_stream(scene, cam, cfg, 1 << 16)
-                dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
-                march_err = max(march_err, k1_check(
-                    "K1", f"{name} c={chunk} skip={skip}",
-                    (stream.starts, feats, dirs_t, cfg, chunk)))
-
-    # K1 merge order on the same streams (binning does not depend on the order)
-    merge_err = 0.0
-    for name in ("small_pinhole_256", "pinhole_720p"):
-        _, scene, cam, hm, _ = golden(name)
-        for chunk in (64, 128, 256):
-            for skip in (0.02, 1e-3):
-                cfg = RenderConfig(hit_multiplicity=hm, march_chunk=chunk, order="merge",
-                                   chunk_skip_transmittance=skip)
-                stream, feats, _ = prepare_pair_stream(scene, cam, cfg, 1 << 16)
-                dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
-                merge_err = max(merge_err, k1_check(
-                    "K1merge", f"{name} c={chunk} skip={skip}",
-                    (stream.starts, feats, dirs_t, cfg, chunk)))
+    # window, key (SH 0 quad) and merge order on each golden's stream
+    # (binning does not depend on the order)
+    err3 = {"window": 0.0, "key": 0.0, "merge": 0.0}
+    for order, tag, chunks in (("window", "K1", (128, 256)), ("key", "K1key", (128, 256)),
+                               ("merge", "K1merge", (64, 128, 256))):
+        for name in ("small_pinhole_256", "pinhole_720p"):
+            _, scene, cam, hm, _ = golden(name)
+            for chunk in chunks:
+                for skip in (0.02, 1e-3):
+                    cfg = RenderConfig(hit_multiplicity=hm, march_chunk=chunk, order=order,
+                                       chunk_skip_transmittance=skip)
+                    stream, feats, _ = prepare_pair_stream(scene, cam, cfg, 1 << 16)
+                    dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
+                    err3[order] = max(err3[order], k1_check(
+                        tag, f"{name} c={chunk} skip={skip}",
+                        (stream.starts, feats, dirs_t, cfg, chunk)))
+    march_err, key_render_err, merge_err = err3["window"], err3["key"], err3["merge"]
 
     # --- phase 3b: K1 key + saved carries and K3 vs plain ---------------
     def train_stream(scene, cam, cfg):
@@ -628,9 +646,14 @@ def main() -> None:
     k2_plain = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32_plain(x), 50))
     k2_lib = statistics.median(cuda_ms(lambda: torch.cumsum(x, dim=1), 50))
     k2_bound = bound(2 * x.numel() * 4, x.numel())
+    # the device time of a call (the memset and the scan), without the
+    # wrapper's host work that the event times above include
+    k2_design = {"device_ms": profile_frames(lambda: kscan.multi_cumsum_i32(x), 50)["device_ms"],
+                 **scan_design(x)}
     log("kernel", f"K1 march {n_pairs} pairs c={chunk}: {k1_ms:.3f} ms, plain "
                   f"{k1_plain:.3f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 scan "
-                  f"(2, {cap}): {k2_ms:.4f} ms, plain {k2_plain:.4f} ms, torch.cumsum "
+                  f"(2, {cap}): {k2_ms:.4f} ms (device {k2_design['device_ms']:.4f} ms), plain "
+                  f"{k2_plain:.4f} ms, torch.cumsum "
                   f"{k2_lib:.4f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}) ({card})")
 
     # --- phase 6: the training main path at full size --------------------
@@ -984,9 +1007,10 @@ def main() -> None:
         row("march", "march.cuh", k1, launches["march"], march_err, k1_ms, k1_plain, k1_bound,
             more=k1_design),
         row("march_key_save_tin", "march.cuh", k1, train_launches["march_key_save_tin"], key_err,
-            k1key_ms, k1key_plain, k1key_bound, more=k1key_design),
+            k1key_ms, k1key_plain, k1key_bound,
+            more={**k1key_design, "render_sh0_max_abs_err": key_render_err}),
         row("multi_cumsum_i32", "scan.cu", "gaussian_ray_tracing_tpu/ops/scan.py:81",
-            launches["scan"], scan_err, k2_ms, k2_plain, k2_bound, k2_lib),
+            launches["scan"], scan_err, k2_ms, k2_plain, k2_bound, k2_lib, more=k2_design),
         row("march_bwd", "march_bwd.cuh", "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
             train_launches["march_bwd"], bwd_err, k3_ms, k3_plain, k3_bound, more=k3_design),
         row("closest_hit", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
@@ -1202,7 +1226,7 @@ def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: f
                   f"{t_block[1]:.3f} ms, bound {t_block[2][0]:.4f} ms ({t_block[2][1]}) "
                   f"({card})")
     # the merge kernel's design rests on two resident 256-ray blocks per SM
-    # (two_blocks_per_sm: four measured slower, its buffers spill out of L1)
+    # (blocks_per_sm: four measured slower, its buffers spill out of L1)
     for what, t in (("100k 720p", t_merge), ("block glass_front bounce 1", t_block)):
         check(t[3]["blocks_per_sm"] == 2,
               f"K1 merge {what}: {t[3]['blocks_per_sm']} resident blocks per SM, not 2")

@@ -46,7 +46,7 @@
 //      shifts) and composites that list with decoded alphas and each
 //      colour through the 3x10-bit pack, as the TPU kernel's sorted payload
 //      does (pallas_march.py:832).
-//   The 256-ray build runs two blocks per SM (two_blocks_per_sm), so that
+//   The 256-ray build runs two blocks per SM (blocks_per_sm), so that
 //   the stored candidates of their rays stay in L1.
 // Window order with saved carries (the training forward, pallas_march.py:
 // 803-842): the carry-in is saved before the skip test, the skip threshold
@@ -65,11 +65,14 @@
 // coefficients sh_r[K], sh_g[K], sh_b[K]. The TPU kernel's `sh_mxu` bf16
 // hi/lo MXU split of the same sum is TPU layout and not ported.
 //
-// Key order (pallas_march.py:552-569, 963-968). The same block layout and
-// staging; one evaluation per candidate with, on full-range rays, the
-// sqrt-free gate alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0),
-// composited in stream order with float32 colours, no fire test and no
-// sort. With saved carries (`tin` non-null, the training forward)
+// Key order (pallas_march.py:552-569, 963-968). The window kernel's block
+// layout, staging (double-buffered where two buffers fit in 48 KB) and
+// sure-miss test against the per-row thresholds (on the scalar response
+// also a dead ray's exit there), with a 256-ray build beside the 1024-ray
+// one; one evaluation per candidate with, on
+// full-range rays, the sqrt-free gate alpha > alpha_min & (t* >= t_lo |
+// q(t_lo) < 0), composited in stream order with float32 colours, no fire
+// test and no sort. With saved carries (`tin` non-null, the training forward)
 // each chunk's carry-in T is stored BEFORE its skip test at row
 // chunk_base[tile] + j, so skipped chunks are saved too and the backward
 // (csrc/march_bwd.cuh) can replay every chunk; the skip threshold is then
@@ -115,7 +118,7 @@
 // moves while T > min_t). The TPU's bitonic merge duplicates one payload on
 // equal keys between pending and chunk (the same kb and source index in
 // two chunks); this kernel and march_plain keep both, pending first. The
-// 256-ray build runs two blocks per SM (two_blocks_per_sm).
+// 256-ray build runs two blocks per SM (blocks_per_sm).
 //
 // Rows (`stride` floats apart). Quad: at SH 0 the 16-float compact rows
 // [op, q00 q11 q22 q01 q02 q12, vx vy vz, cq, oo, r g b, pad] or the
@@ -151,8 +154,9 @@
 // exp and log1p, in the fired chunks (83-99% of them) the 3x10-bit pack,
 // and the local-memory traffic of the stored candidates and of the lists
 // (kept in L1 by running two blocks per SM); at SH 1-3 a 3K-term colour
-// per significant candidate. In key order one evaluation with one exp and
-// one divide, plus the colour; in merge order the window kernel's one
+// per significant candidate. In key order one evaluation (a sure miss
+// without the divide and the exp, any other candidate with one of each),
+// plus the colour; in merge order the window kernel's one
 // evaluation, and in a slow chunk (87-97% of the marched chunks on the
 // render streams, 27-45% on the mesh bounces) the walk of 2C steps, each
 // a key read at a slot that differs from lane to lane, and the moves of
@@ -377,15 +381,6 @@ __device__ __forceinline__ void stage_async(float* sf, const Params& p, int star
   cp_async_commit();
 }
 
-// Stage the chunk's rows and wait for them (every thread of the block).
-template <int C, bool kScalar, int K, bool kTrain>
-__device__ __forceinline__ void stage(float* sf, const Params& p, int start, int j, int m) {
-  __syncthreads();  // the previous chunk is done with sf
-  stage_async<C, kScalar, K, kTrain>(sf, p, start, j, m);
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
 // A sure miss, before the division and the exp. With D = max(dd, 1e-6),
 // the kernel's pp is oo - od^2 / D to within 6 ulp of |oo| (pp = oo - od^2
 // / dd cancels; the scalar form only for dd >= 1e-6, where its pp is the
@@ -408,11 +403,13 @@ __device__ __forceinline__ float miss_threshold(float op, float alpha_min) {
 // fast_gate: key order on a full-range ray, the sqrt-free gate
 // alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0); else the exact
 // entry/exit event gate t_lo <= t_event <= t_hi. kMiss: first the sure-miss
-// test against the row's threshold thr. Then alpha: a candidate at or
-// below alpha_min (most of them) or a dead ray stops there, with t_ev 0,
-// unread; the others take the sqrt and the second division, the same
-// operations as ever, so every value that is used is unchanged.
-template <bool kMiss>
+// test against the row's threshold thr (kDead: a dead ray too, whose a is 0
+// whatever the row, so that it never holds its warp on the full path).
+// Then alpha: a candidate at or below alpha_min (most of them) or a dead
+// ray stops there, with t_ev 0, unread; the others take the sqrt and the
+// second division, the same operations as ever, so every value that is
+// used is unchanged.
+template <bool kMiss, bool kDead>
 __device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const float* f,
                                           bool fast_gate, float thr, float& t_ev, float& a) {
   const float dd = f[1] * ray.m0 + f[2] * ray.m1 + f[3] * ray.m2 + f[4] * ray.m3 +
@@ -422,7 +419,7 @@ __device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const
   const float D = fmaxf(dd, 1e-6f);
   t_ev = 0.f;
   a = 0.f;
-  if (kMiss && sure_miss(oo, od, D, thr)) return;
+  if (kMiss && ((kDead && !ray.live) || sure_miss(oo, od, D, thr))) return;
   const float rcp6 = 1.f / D;
   const float t_star = -od * rcp6;
   const float pp = oo + od * t_star;
@@ -450,8 +447,9 @@ __device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const
 
 // Scalar response in the canonical frame from a staged scalar row, per ray
 // origin; always the exact event gate, with disc >= 0; the sure-miss test
-// (kMiss, where dd >= 1e-6) and alpha first, as in eval_quad.
-template <bool kMiss>
+// (kMiss, where dd >= 1e-6; kDead as in eval_quad) and alpha first, as in
+// eval_quad.
+template <bool kMiss, bool kDead>
 __device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, const float* f,
                                             float thr, float& t_ev, float& a) {
   const float* m = f + kMat;
@@ -468,7 +466,7 @@ __device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, con
   const float D = fmaxf(dd, 1e-6f);
   t_ev = 0.f;
   a = 0.f;
-  if (kMiss && dd >= 1e-6f && sure_miss(oo, od, D, thr)) return;
+  if (kMiss && ((kDead && !ray.live) || (dd >= 1e-6f && sure_miss(oo, od, D, thr)))) return;
   const float t_star = -od / D;
   const float pp = oo + t_star * (2.f * od + t_star * dd);
   const float resp = expf(-0.5f * fmaxf(pp, 0.f));
@@ -484,14 +482,14 @@ __device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, con
   if (disc >= 0.f && t_ev >= ray.t_lo && t_ev <= ray.t_hi) a = effective_alpha(alpha, p.hm);
 }
 
-template <bool kScalar, bool kMiss = false>
+template <bool kScalar, bool kMiss = false, bool kDead = false>
 __device__ __forceinline__ void evaluate(const Params& p, const Ray& ray, const float* f,
                                          bool fast_gate, float& t_ev, float& a,
                                          float thr = 0.f) {
   if (kScalar)
-    eval_scalar<kMiss>(p, ray, f, thr, t_ev, a);
+    eval_scalar<kMiss, kDead>(p, ray, f, thr, t_ev, a);
   else
-    eval_quad<kMiss>(p, ray, f, fast_gate, thr, t_ev, a);
+    eval_quad<kMiss, kDead>(p, ray, f, fast_gate, thr, t_ev, a);
 }
 
 // Front-to-back composite of one chunk's ordered candidates.
@@ -563,6 +561,47 @@ template <int C, int W>
 __host__ __device__ constexpr int window_stages() {
   return 2 * C * W * 4 <= 48 * 1024 ? 2 : 1;
 }
+// Dynamic shared memory of the window and key kernels: their staging
+// buffers and C sure-miss thresholds.
+template <int C, int W>
+__host__ __device__ constexpr int staged_smem_bytes() {
+  return (int)sizeof(float) * (window_stages<C, W>() * C * W + C);
+}
+// Stage chunk j of a tile of n candidates (every thread of the block, past
+// the tile-wide skip test): its rows ready in sf (one stage), or in buffer
+// j & 1 with chunk j+1's copy started into the other (two stages: the
+// kernel started chunk 0's before its loop), and their sure-miss
+// thresholds in thr. Returns the chunk's rows.
+template <int C, bool kScalar, int K, bool kTrain, int kStages>
+__device__ __forceinline__ const float* stage_chunk(float* sf, float* thr, const Params& p,
+                                                    int start, int j, int n) {
+  constexpr int W = Layout<kScalar, K, kTrain>::w;
+  const int m = min(C, n - j * C);
+  const float* buf = sf + (kStages == 2 ? (j & 1) * C * W : 0);
+  if (kStages == 1) {
+    __syncthreads();  // the previous chunk is done with sf
+    stage_async<C, kScalar, K, kTrain>(sf, p, start, j, m);
+    cp_async_wait<0>();
+    __syncthreads();
+  } else {
+    // chunk j+1 goes to the buffer chunk j-1 used, which every thread left
+    // before block_reduce's barrier; a tile that skips chunk j+1 never
+    // reads it
+    if ((j + 1) * C < n) {
+      stage_async<C, kScalar, K, kTrain>(sf + ((j + 1) & 1) * C * W, p, start, j + 1,
+                                         min(C, n - (j + 1) * C));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < m; i += blockDim.x)
+    thr[i] = miss_threshold(buf[i * W], p.alpha_min);
+  __syncthreads();
+  return buf;
+}
+
 // Blocks per SM the 256-ray window kernel is built for (its register cap).
 constexpr int kWindowMinBlocks = 4;
 
@@ -604,24 +643,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     }
 
     const int m = min(C, n - j * C);
-    const float* buf = sf + (kStages == 2 ? (j & 1) * C * W : 0);
-    if (kStages == 1) {
-      stage<C, kScalar, K, kTrain>(sf, p, start, j, m);
-    } else {
-      // chunk j+1 goes to the buffer chunk j-1 used, which every thread
-      // left before block_reduce's barrier; a tile that skips chunk j+1
-      // never reads it
-      if (j + 1 < n_chunks) {
-        stage_async<C, kScalar, K, kTrain>(sf + ((j + 1) & 1) * C * W, p, start, j + 1,
-                                           min(C, n - (j + 1) * C));
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < m; i += R) thr[i] = miss_threshold(buf[i * W], p.alpha_min);
-    __syncthreads();
+    const float* buf = stage_chunk<C, kScalar, K, kTrain, kStages>(sf, thr, p, start, j, n);
 
     // pass 1: every candidate once (a miss stops at alpha); the significant
     // ones (a > 0) are kept in stream order in local memory: event t (in
@@ -698,11 +720,20 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
   store_ray(p, acc_r, acc_g, acc_b, T);
 }
 
-template <int C, bool kScalar, int K, bool kTrain>
-__global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p) {
+// Blocks per SM the 256-ray key kernel is built for (its register cap). At
+// SH 3 shared memory holds three; a cap for four spills, one for two lets
+// the registers grow past three (PERF.md). kKeyBlocks: at most that many
+// run (blocks_per_sm), where more would fit.
+constexpr int kKeyMinBlocks = 3, kKeyBlocks = 4;
+
+template <int C, bool kScalar, int K, bool kTrain, int kMaxR>
+__global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kKeyMinBlocks : 1)
+    march_key_kernel(Params p) {
   using L = Layout<kScalar, K, kTrain>;
   constexpr int W = L::w, kCol = L::col;
-  extern __shared__ __align__(16) float sf[];  // C * W staged floats
+  constexpr int kStages = window_stages<C, W>();
+  extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
+  float* thr = sf + kStages * C * W;             // C sure-miss thresholds
   __shared__ float red[32];
 
   const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
@@ -716,6 +747,7 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p
   float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
 
   float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  if (kStages == 2 && n_chunks > 0) stage_async<C, kScalar, K, kTrain>(sf, p, start, 0, min(C, n));
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
     if (kTrain) tin[(size_t)j * R] = T;
@@ -725,13 +757,19 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p
       continue;  // the remaining chunks' carries are still saved
     }
     const int m = min(C, n - j * C);
-    stage<C, kScalar, K, kTrain>(sf, p, start, j, m);
+    const float* buf = stage_chunk<C, kScalar, K, kTrain, kStages>(sf, thr, p, start, j, n);
 
+    // one evaluation per candidate: a sure miss stops before the division
+    // and the exp (a = 0, as the full evaluation would give; the fast gate
+    // reads only what the full evaluation computes past that test); on the
+    // scalar response (per-ray origins: bounced rays, of which most are
+    // retired, and the rolling shutter) so does any candidate of a dead
+    // ray, which would otherwise hold its warp on the full path
     Composite comp(T);
     for (int i = 0; i < m; ++i) {
-      const float* f = sf + i * W;
+      const float* f = buf + i * W;
       float t_ev, a, cr, cg, cb;
-      evaluate<kScalar>(p, ray, f, fast_gate, t_ev, a);
+      evaluate<kScalar, true, kScalar>(p, ray, f, fast_gate, t_ev, a, thr[i]);
       if (!(a > 0.f)) continue;
       row_color<kScalar, K>(f + kCol, basis, cr, cg, cb);
       comp.add(a, cr, cg, cb, p.min_t);
@@ -742,6 +780,7 @@ __global__ void __launch_bounds__(kTrain ? 256 : 1024) march_key_kernel(Params p
     acc_g += comp.g;
     acc_b += comp.b;
   }
+  cp_async_wait<0>();  // a skipped tile's prefetch
   store_ray(p, acc_r, acc_g, acc_b, T);
 }
 
@@ -755,7 +794,7 @@ __host__ __device__ constexpr int merge_smem_bytes(int R) {
 }
 
 // Blocks per SM the 256-ray merge kernel is built for (its register cap,
-// and the occupancy launch_mode asks for: two_blocks_per_sm).
+// and the occupancy launch_mode asks for: blocks_per_sm).
 constexpr int kMergeMinBlocks = 2;
 
 template <int C, bool kScalar, int K, int kMaxR>
@@ -801,9 +840,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
     // tile-wide chunk skip (T never changes once every ray is below it)
     if (block_reduce(T, true, red) <= p.t_skip) break;
     const int m = min(C, n - j * C);
-    stage<C, kScalar, K, false>(sf, p, start, j, m);
-    for (int i = tid; i < m; i += R) thr[i] = miss_threshold(sf[i * W], p.alpha_min);
-    __syncthreads();
+    stage_chunk<C, kScalar, K, false, 1>(sf, thr, p, start, j, n);
 
     // pass 1: every candidate once (a sure miss stops before the divide and
     // the exp, any other miss at alpha); its key inserted into the sorted
@@ -926,21 +963,23 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
   store_ray(p, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
 }
 
-// The window kernel keeps each ray's significant candidates of a chunk in
-// local memory (up to 9 C bytes a ray), the merge kernel its two buffers
-// (24 C bytes). Two resident 256-ray blocks per SM keep more of that in
-// L1, where four spill it to L2 (measured faster for both, PERF.md):
-// ask for the smallest shared-memory carveout that holds two blocks
-// (percent of the 228 KB, which the CUDA runtime rounds up to a carveout
-// the SM has) and pad the dynamic shared memory so that a third does not fit.
+// Resident 256-ray blocks per SM: ask for the smallest shared-memory
+// carveout that holds n blocks (percent of the 228 KB, which the CUDA
+// runtime rounds up to a carveout the SM has) and pad the dynamic shared
+// memory so that n + 1 do not fit (where n fit at all). The window kernel
+// keeps each ray's significant candidates of a chunk in local memory (up
+// to 9 C bytes a ray), the merge kernel its two buffers (24 C bytes): two
+// blocks keep more of that in L1, where four spill it to L2. The key
+// kernel keeps nothing there; at SH 0 four blocks measured faster than the
+// five its registers allow (PERF.md).
 template <typename Kernel>
-cudaError_t two_blocks_per_sm(Kernel kernel, int& smem) {
+cudaError_t blocks_per_sm(Kernel kernel, int& smem, int n) {
   static const int kCarveoutsKB[] = {64, 100, 132, 164, 196, 228};  // the SM's
   for (const int kb : kCarveoutsKB) {
     // per block: 1 KB the runtime's, 128 B the static red[32]
-    if (2 * (smem + 1024 + 128) > kb * 1024) continue;
-    const int third = kb * 1024 / 3 - 1024 + 16;  // a third block does not fit
-    smem = smem > third ? smem : third;
+    if (n * (smem + 1024 + 128) > kb * 1024) continue;
+    const int more = kb * 1024 / (n + 1) - 1024 + 16;  // block n + 1 does not fit
+    smem = smem > more ? smem : more;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                 kb * 100 / 228);
   }
@@ -949,10 +988,10 @@ cudaError_t two_blocks_per_sm(Kernel kernel, int& smem) {
 
 // One launch of the order's kernel (order 0 window, 1 key, 2 merge); the
 // staged rows take C * W floats of dynamic shared memory (twice that where
-// the window kernel double-buffers; the merge kernel's masks besides),
-// above 48 KB only after opting in. The window and merge kernels of a
-// render have a 256-ray build (the main path's 16x16 tiles, run two blocks
-// per SM) and a 1024-ray one.
+// the window and key kernels double-buffer; C thresholds besides, and the
+// merge kernel's masks), above 48 KB only after opting in. Each order has a
+// 256-ray build (the main path's 16x16 tiles; the window and merge kernels
+// run two blocks per SM, the key kernel at most four) and a 1024-ray one.
 // Saved carries (the training forward, at most 256 rays per tile) run the
 // key kernel on the quad response and the window kernel on the scalar one
 // (per-ray origins, each the eye), as JAX's training forwards do
@@ -966,26 +1005,23 @@ cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStre
   constexpr int W = Layout<kScalar, K, false>::w;
   void (*kernel)(Params) = order == 2   ? (R <= 256 ? march_merge_kernel<C, kScalar, K, 256>
                                                     : march_merge_kernel<C, kScalar, K, 1024>)
-                           : order == 1 ? march_key_kernel<C, kScalar, K, false>
+                           : order == 1 ? (R <= 256 ? march_key_kernel<C, kScalar, K, false, 256>
+                                                    : march_key_kernel<C, kScalar, K, false, 1024>)
                            : R <= 256   ? march_kernel<C, kScalar, K, false, 256>
                                         : march_kernel<C, kScalar, K, false, 1024>;
-  // the window kernel: its staged rows and C sure-miss thresholds
-  int smem = order == 2   ? merge_smem_bytes<C, W>(R)
-             : order == 1 ? (int)sizeof(float) * C * W
-                          : (int)sizeof(float) * (window_stages<C, W>() * C * W + C);
+  int smem = order == 2 ? merge_smem_bytes<C, W>(R) : staged_smem_bytes<C, W>();
   if (p.tin) {
     if ((order == 1) == kScalar || order == 2 || R > 256) return cudaErrorInvalidValue;
     if constexpr (kScalar) {
       kernel = march_kernel<C, true, K, true, 256>;
-      smem = (int)sizeof(float) * (window_stages<C, W>() * C * W + C);
     } else {
-      kernel = march_key_kernel<C, false, K, true>;
-      smem = (int)sizeof(float) * C * Layout<false, K, true>::w;
+      kernel = march_key_kernel<C, false, K, true, 256>;
+      smem = staged_smem_bytes<C, Layout<false, K, true>::w>();
     }
   }
   // the static red[32] counts against the 48 KB that needs no opt-in
-  if (order != 1 && R <= 256) {
-    const cudaError_t err = two_blocks_per_sm(kernel, smem);
+  if (R <= 256) {
+    const cudaError_t err = blocks_per_sm(kernel, smem, order == 1 ? kKeyBlocks : 2);
     if (err != cudaSuccess) return err;
   }
   if (smem + 1024 > 48 * 1024) {

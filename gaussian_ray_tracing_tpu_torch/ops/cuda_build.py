@@ -97,8 +97,8 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
 
 def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     """Declare the C entry points of a loaded kernel library (`info`: also
-    the launch queries grt_march_info, grt_march_bwd_info and
-    grt_closest_hit_info)."""
+    the launch queries grt_march_info, grt_march_bwd_info,
+    grt_closest_hit_info and grt_scan_info)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, vp]
     lib.grt_march.restype = ci
@@ -111,15 +111,16 @@ def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
         lib.grt_march_bwd_info.restype = ci
         lib.grt_closest_hit_info.argtypes = [ci, vp]
         lib.grt_closest_hit_info.restype = ci
+        lib.grt_scan_info.argtypes = [vp]
+        lib.grt_scan_info.restype = ci
     lib.grt_multi_cumsum_i32.argtypes = [vp, vp, vp, ci, ctypes.c_longlong, vp]
     lib.grt_multi_cumsum_i32.restype = ci
     lib.grt_closest_hit.argtypes = [vp] * 12 + [ci, ci, cf, cf, vp]
     lib.grt_closest_hit.restype = ci
-    lib.grt_scan_block.argtypes = []
-    lib.grt_scan_block.restype = ci
+    lib.grt_scan_scratch_bytes.argtypes = [ci, ctypes.c_longlong]
+    lib.grt_scan_scratch_bytes.restype = ctypes.c_longlong
     lib.grt_error_string.argtypes = [ci]
     lib.grt_error_string.restype = ctypes.c_char_p
-    lib.SCAN_BLOCK = lib.grt_scan_block()
     return lib
 
 
@@ -134,15 +135,18 @@ def load_library() -> ctypes.CDLL:
 def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: str = "window",
                 scalar: bool = False, train: bool = False) -> dict:
     """What a launch of K1 (`kernel` "march": order, per-ray origins
-    `scalar`, saved carries `train`), K3 ("march_bwd": order window or key)
-    or K4 ("closest_hit": chunk and SH degree unused) at this chunk, SH
-    degree and rays per tile runs: resident blocks per SM, shared memory
-    bytes (dynamic; K4's static), registers and local memory bytes per
+    `scalar`, saved carries `train`), K3 ("march_bwd": order window or key),
+    K4 ("closest_hit": chunk and SH degree unused) or K2 ("scan": its own
+    256 threads; chunk, SH degree and rays unused) at this chunk, SH degree
+    and rays per tile runs: resident blocks per SM, shared memory bytes
+    (dynamic; K4's and K2's static), registers and local memory bytes per
     thread, from the CUDA runtime."""
     lib = load_library()
     out = (ctypes.c_int * 4)()
     k = (sh_degree + 1) ** 2
-    if kernel == "closest_hit":
+    if kernel == "scan":
+        err = lib.grt_scan_info(out)
+    elif kernel == "closest_hit":
         err = lib.grt_closest_hit_info(rays, out)
     elif kernel == "march":
         err = lib.grt_march_info(chunk, ("window", "key", "merge").index(order), k, int(scalar),

@@ -47,8 +47,8 @@ def _scan_cuda(x: torch.Tensor) -> torch.Tensor:
     lib = load_library()
     C, P = x.shape
     y = torch.empty_like(x)
-    n_blocks = -(-P // lib.SCAN_BLOCK)
-    scratch = torch.empty((C, max(n_blocks, 1)), dtype=_I32, device=x.device)
+    # status words and the tile counter, zeroed by the library on the stream
+    scratch = torch.empty(lib.grt_scan_scratch_bytes(C, P), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grt_multi_cumsum_i32(x.data_ptr(), y.data_ptr(),

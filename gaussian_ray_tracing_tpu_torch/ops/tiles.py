@@ -564,7 +564,9 @@ def project_footprints_conic(means, scales, quats, radius, bound_radius,
 
 def _tile_rects(fp: Footprint, camera: Camera, config: RenderConfig):
     """Clipped tile-rect origin (x0, y0), width sw and pair count per
-    gaussian."""
+    gaussian. An invisible gaussian counts 0 pairs whatever its px, py,
+    rx, ry: its head-fill deltas share a slot with the next owner's and
+    telescope away, so the pair stream never reads its rect."""
     tw, th = config.tile_w, config.tile_h
     tx_n, ty_n = num_tiles(camera, config)
 

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""The port's K1 (window, key and merge order), K3 and K4 against the
+"""The port's K1 (window, key and merge order), K2, K3 and K4 against the
 kernels of another copy of gaussian_ray_tracing_tpu_torch/csrc/ (an earlier
 commit's), on one NVIDIA GPU, timed in turns: other, this, this, other.
-K1's outputs (rgb, final transmittance, saved carries) must be
+K1's outputs (rgb, final transmittance, saved carries) and K2's must be
 bit-identical between the two builds and within chip_smoke.py's bars of
 the plain version; K3 is held against its plain version at chip_smoke.py's
 bars (per written column, the float64 witness, two launches bit-identical)
-and its difference from the other build is reported. Beside each row: the
+and its difference from the other build is reported. Each build's time
+is the median of CUDA events around each call (the wrapper's host work
+included: the ms columns) and, beside it, the device time of each call's
+device operations from torch.profiler (dev_ms). Beside each row: the
 bound (chip_smoke.py's march_bound / bwd_bound), the plain version's time,
-this build's resident blocks per SM, registers, stack and spills, and the
+this build's resident blocks per SM, registers, stack and spills, the
 marched slots and the significant, fire (window order) and slow (merge
-order) shares of the stream.
+order) shares of the stream, and the render rows' sure-miss shares per
+(ray, slot) and per (warp, slot) and live-ray share (miss_shares).
 
     git archive <commit> gaussian_ray_tracing_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/torch_redesign_ab.py build/parent/gaussian_ray_tracing_tpu_torch/csrc \
-        [out.json] [--only render|modes|merge|train|mesh] [--this <csrc dir>]
+        [out.json] [--only render|modes|merge|train|mesh|key|scan] [--this <csrc dir>]
 
 The groups: render (window order on the 720p/100k headline and on
-fitted_20k.ply at SH 3, key order at SH 3), modes (window order on a mesh
+fitted_20k.ply at SH 3), modes (window order on a mesh
 segment, in block mode and on a rolling shutter), merge (merge order on the
 headline, fitted_20k.ply at SH 3, the 256x256 golden stream at c=64 and
 128, a mesh segment, a rolling shutter and block mode), train (the
@@ -25,12 +29,19 @@ training forwards and K3) and mesh (K4 on the glass and glass_front
 frames' bounce 0, shared origin, and glass_front's bounce 1 and glass_cli's
 bounces 1-3, per-ray origins; K1's block mode on glass_front's bounce 1 in
 window, key and merge order at block_sub 1 and 2; the whole glass_front
-and glass_cli frames); all of them without --only. K4's outputs must be
+and glass_cli frames), key (every mode of the key-order kernel: the
+headline at c=256, fitted_20k.ply at SH 3, a rolling shutter, a mesh
+segment, glass_front's block mode at block_sub 1 and 2, and the two
+training forwards with saved carries) and scan (K2 at (2, 2,097,152), the
+headline's pair capacity, and (16, 1,000,003), exact, with its bound, the
+plain version's and torch.cumsum's times, tiles, blocks per SM,
+registers and stack); all of them without --only. K4's outputs must be
 bit-identical between the builds and to its plain version; K4 rows also
 carry the share of (ray, block) pairs and of (ray, face) tests that its
 pretests skip (the kernel's own counts) and a modelled load balance. A
 build without K4's pretests (no grt_closest_hit_info) is called without
-the bounds and stats, which it does not take. --this takes another
+the bounds and stats, which it does not take; a build from before the
+single-pass K2 with its own scratch size. --this takes another
 copy of csrc/ in place of the package's own. Run from the repository root.
 Writes the rows and the ptxas table to out.json (build/redesign_ab.json by
 default) and prints one line per case; exits non-zero if a check fails or
@@ -53,7 +64,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (its helpers; it imports torch lazily)
 
 REPS = 10  # launches per timed turn
-GROUPS = ("render", "modes", "merge", "train", "mesh")
+GROUPS = ("render", "modes", "merge", "train", "mesh", "key", "scan")
 
 
 class _WithoutPretests:
@@ -71,6 +82,29 @@ class _WithoutPretests:
 
     def grt_closest_hit(self, *a):
         return self._lib.grt_closest_hit(*a[:3], *a[4:11], *a[12:])
+
+
+class _ThreePassScan:
+    """A build from before the single-pass scan (no grt_scan_scratch_bytes):
+    its scratch is one int32 per 1,024-element block (grt_scan_block) and
+    channel, and it has no launch query grt_scan_info (here one that
+    returns cudaErrorInvalidValue)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        block = lib.grt_scan_block()
+        self.grt_scan_scratch_bytes = lambda C, P: 4 * C * max(1, -(-P // block))
+        self.grt_scan_info = lambda out: 1
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def _load(path: Path):
+    """ctypes.CDLL of a kernel library, behind _ThreePassScan where it
+    predates the single-pass scan."""
+    lib = ctypes.CDLL(str(path))
+    return lib if hasattr(lib, "grt_scan_scratch_bytes") else _ThreePassScan(lib)
 
 
 def main() -> None:
@@ -103,6 +137,7 @@ def main() -> None:
     from gaussian_ray_tracing_tpu_torch.ops import cuda_build
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
     from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
     from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
     from gaussian_ray_tracing_tpu_torch.models.renderer import render
     from gaussian_ray_tracing_tpu_torch.scene.mesh import make_sphere
@@ -111,12 +146,12 @@ def main() -> None:
 
     if opt.this_csrc:
         this = cuda_build.build(opt.this_csrc.resolve(), ROOT / "build" / "kernels_this")
-        cuda_build._lib = cuda_build.declare(ctypes.CDLL(str(this)))
+        cuda_build._lib = cuda_build.declare(_load(this))
     libs = {"this": cuda_build.load_library()}
     ptxas = cuda_build.ptxas_table(cuda_build.build_log)
     cs.PTXAS.update(ptxas)  # for cs.tri_design
     other = cuda_build.build(opt.other_csrc.resolve(), ROOT / "build" / "kernels_other")
-    libs["other"] = cuda_build.declare(ctypes.CDLL(str(other)), info=False)
+    libs["other"] = cuda_build.declare(_load(other), info=False)
     if not hasattr(libs["other"], "grt_closest_hit_info"):
         libs["other"] = _WithoutPretests(libs["other"])
     cs.log("build", f"this and {opt.other_csrc} built")
@@ -125,27 +160,35 @@ def main() -> None:
         cuda_build._lib = libs[name]
 
     def turns(fn) -> dict:
-        """Median ms of fn under each build, in turns other, this, this, other."""
-        ms = {"other": [], "this": []}
+        """Median ms of fn under each build, in turns other, this, this,
+        other: "other" and "this" from CUDA events around each call (the
+        wrapper's host work included), "dev_other" and "dev_this" the
+        device time of each call's device operations (torch.profiler)."""
+        ms = {"other": [], "this": [], "dev_other": [], "dev_this": []}
         for name in ("other", "this", "this", "other"):
             use(name)
             fn()  # warm-up
             ms[name] += cs.cuda_ms(fn, REPS)
+            ms["dev_" + name].append(cs.profile_frames(fn, frames=REPS, top=1)["device_ms"])
         use("this")
         return {k: statistics.median(v) for k, v in ms.items()}
+
+    def dev_times(t) -> dict:
+        return dict(dev_ms_other=t["dev_other"], dev_ms_this=t["dev_this"])
 
     def ptx(pattern: str):
         hits = [v for k, v in ptxas.items() if pattern in k]
         return hits[0] if hits else None
 
     def k1_name(chunk, scalar, degree, train, order):
+        """Mangled name of K1's 256-ray build for these template values."""
         k = (degree + 1) ** 2
         b = lambda x: f"Lb{int(x)}E"
-        if order == "window":  # the 256-ray build
+        if order == "window":
             return f"12march_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}Li256E"
         if order == "merge":
-            return f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{k}ELi256E"  # the 256-ray build
-        return f"16march_key_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}E"
+            return f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{k}ELi256E"
+        return f"16march_key_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}Li256E"
 
     def shares(plain, R, order) -> dict:
         chunks = max(1, plain.chunks)
@@ -155,6 +198,58 @@ def main() -> None:
                     slow_share=plain.slow / chunks if order == "merge" else None)
 
     rows = []
+
+    def miss_shares(args, kw) -> dict:
+        """Where sure_miss (csrc/march.cuh) can spare the divide and the exp
+        on a K1 call: over every listed (tile, slot) of the call (skipped
+        chunks too), the share of (live ray, slot) pairs it cuts short and
+        the share of (warp, slot) pairs, of warps with a live lane, where it
+        cuts short every live lane (only then does the warp skip them); and
+        the share of live rays. torch float32, one operation at a time."""
+        starts, feats, dirs_t, cfg, chunk = args[:5]
+        origins, blocks = kw.get("origins_t"), kw.get("blocks")
+        bs = chunk // kw.get("block_sub", 1)
+        T, R = dirs_t.shape[:2]
+        live = (dirs_t * dirs_t).sum(-1) > 0.01
+        counts = (starts[1:] - starts[:-1]).long()
+        tile = torch.repeat_interleave(torch.arange(T, device=dev), counts)
+        slot = torch.arange(int(counts.sum()), device=dev) - \
+            torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+        first = starts[:-1].long()[tile]
+        row = first + slot if blocks is None else \
+            blocks.long()[first // bs + slot // bs] * bs + slot % bs
+        cut = n_live = warps = warp_cut = 0
+        for part in torch.arange(tile.numel(), device=dev).split(1 << 15):
+            f, ti = feats[row[part]], tile[part]
+            d, lv = dirs_t[ti], live[ti]  # (B, R, 3), (B, R)
+            op = f[:, 0:1]
+            if origins is None:
+                m = (d[..., 0] * d[..., 0], d[..., 1] * d[..., 1], d[..., 2] * d[..., 2],
+                     2.0 * d[..., 0] * d[..., 1], 2.0 * d[..., 0] * d[..., 2],
+                     2.0 * d[..., 1] * d[..., 2])
+                dd = sum(f[:, 1 + k:2 + k] * m[k] for k in range(6))
+                od = f[:, 7:8] * d[..., 0] + f[:, 8:9] * d[..., 1] + f[:, 9:10] * d[..., 2]
+                oo = f[:, 11:12].expand_as(dd)
+                ok = torch.ones_like(lv)
+            else:
+                o = origins[ti] - f[:, None, kmarch.T_MX:kmarch.T_MX + 3]
+                M = f[:, kmarch.T_M0:kmarch.T_M0 + 9].reshape(-1, 1, 3, 3)
+                og = (M * o[:, :, None, :]).sum(-1)
+                dg = (M * d[:, :, None, :]).sum(-1)
+                dd, od, oo = (dg * dg).sum(-1), (og * dg).sum(-1), (og * og).sum(-1)
+                ok = dd >= 1e-6
+            D = torch.clamp(dd, min=1e-6)
+            thr = 2.0 * torch.log(op / cfg.alpha_min) + 1e-4
+            short = ok & (oo * D - od * od > (thr + 2e-6 * oo.abs()) * D) & lv
+            cut += int(short.sum())
+            n_live += int(lv.sum())
+            lw, sw = lv.reshape(-1, R // 32, 32), short.reshape(-1, R // 32, 32)
+            has = lw.any(-1)
+            warps += int(has.sum())
+            warp_cut += int((has & (sw == lw).all(-1)).sum())
+        return dict(sure_miss_share=cut / max(1, n_live),
+                    warp_sure_miss_share=warp_cut / max(1, warps),
+                    live_share=float(live.float().mean()))
 
     def k1_case(what, args, kw=None):
         """A K1 render call: bit for bit against the other build, against
@@ -178,9 +273,9 @@ def main() -> None:
         rows.append(dict(
             case=what, kernel="K1", slots=int(args[0][-1]), chunk=chunk, ms_other=t["other"],
             ms_this=t["this"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-            bit_identical=same, **info,
+            bit_identical=same, **dev_times(t), **info,
             ptxas=ptx(k1_name(chunk, scalar, cfg.sh_degree, False, cfg.order)),
-            **shares(kmarch.march_plain, R, cfg.order)))
+            **shares(kmarch.march_plain, R, cfg.order), **miss_shares(args, kw)))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
     def imbalance(tile_work, slots: int) -> float:
@@ -220,7 +315,8 @@ def main() -> None:
         rows.append(dict(
             case=what, kernel="K4", listed_blocks=int(args[0][-1]) // 256,
             hits=int((want[1] >= 0).sum()), ms_other=t["other"], ms_this=t["this"],
-            plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], bit_identical=same, **design,
+            plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], bit_identical=same,
+            **dev_times(t), **design,
             imbalance_per_sm=imbalance(stats[:, 2], 132)))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
@@ -261,9 +357,7 @@ def main() -> None:
         for what, args in (
                 ("window headline 720p/100k", stream_args(scene, pose, bench)),
                 ("window sh3 fitted_20k 720p",
-                 stream_args(ply, cam720, bench.replace(sh_degree=3))),
-                ("key sh3 fitted_20k 720p c=256", stream_args(
-                    ply, cam720, bench.replace(sh_degree=3, order="key", march_chunk=256)))):
+                 stream_args(ply, cam720, bench.replace(sh_degree=3)))):
             k1_case(what, args)
 
     if "modes" in groups:  # the window kernel's other modes
@@ -292,8 +386,75 @@ def main() -> None:
                 ("merge block glass_front bounce 1", *front[1])):
             k1_case(what, args, kw)
 
-    if "train" in groups:
-        # --- training streams: K1 with saved carries and K3, 512x512
+    def train_case(what, sc, cam, cfg, with_k3=True):
+        """The training forward (K1 with saved carries) on one view, bit
+        for bit against the other build and at the bars of the plain
+        version, timed in turns; then (with_k3) K3 on its carries."""
+        with torch.no_grad():
+            stream, trows, n_pairs = prepare_train_stream(sc, cam, cfg)
+        starts, trows = stream.starts, trows.detach().contiguous()
+        dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
+        chunk = kmarch.chunk_for(cfg)
+        window = cfg.order == "window"
+        kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()} if window else {}
+        fwd = lambda: kmarch.march(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
+        outs = {}
+        for name in ("other", "this"):
+            use(name)
+            outs[name] = fwd()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+        cs.check(same, f"K1 {what}: outputs differ between the builds")
+        got = outs["this"]
+        cs.k1_train_check(what, got, kmarch.march_plain(starts, trows, dirs_t, cfg, chunk,
+                                                        save_tin=True, **kw))
+        t1 = turns(fwd)
+        plain1 = statistics.median(cs.cuda_ms(lambda: kmarch.march_plain(
+            starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw), 3))
+        b1 = cs.march_bound((starts, trows, dirs_t, cfg, chunk), kw, kmarch.march_plain,
+                            tin=got[2])
+        sig1 = kmarch.march_plain.significant / max(1, kmarch.march_plain.candidates
+                                                    * dirs_t.shape[1])
+        fire1 = kmarch.march_plain.fired / max(1, kmarch.march_plain.chunks)
+        info1 = cuda_build.launch_info("march", chunk, cfg.sh_degree, 256, order=cfg.order,
+                                       scalar=window, train=True)
+        rows.append(dict(
+            case=what, kernel="K1 save_tin", pairs=n_pairs, chunk=chunk, ms_other=t1["other"],
+            ms_this=t1["this"], plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1],
+            bit_identical=same, **dev_times(t1), **info1,
+            ptxas=ptx(k1_name(chunk, window, cfg.sh_degree, True, cfg.order)),
+            significant_share=sig1, fire_share=fire1 if window else None))
+        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+        if not with_k3:
+            return
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+        d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+        bargs = (starts, trows, dirs_t, cam.eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
+        use("other")
+        g_other = kbwd.march_bwd(*bargs)
+        use("this")
+        cs.k3_check(what, bargs)
+        g_this = kbwd.march_bwd(*bargs)
+        rel = float((g_this - g_other).abs().max() / g_other.abs().max())
+        t3 = turns(lambda: kbwd.march_bwd(*bargs))
+        plain3 = statistics.median(cs.cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 3))
+        b3 = cs.bwd_bound(bargs, kbwd.march_bwd_plain)
+        info3 = cuda_build.launch_info("march_bwd", chunk, cfg.sh_degree, 256, order=cfg.order)
+        k = (cfg.sh_degree + 1) ** 2
+        rows.append(dict(
+            case=what, kernel="K3", pairs=n_pairs, chunk=chunk, ms_other=t3["other"],
+            ms_this=t3["this"], plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1],
+            max_rel_vs_other=rel, **dev_times(t3), **info3,
+            ptxas=ptx(f"16march_bwd_kernelILi{chunk}ELi{k}ELb{int(window)}E"),
+            significant_share=kbwd.march_bwd_plain.significant
+            / max(1, kbwd.march_bwd_plain.candidates * dirs_t.shape[1]),
+            fire_share=kbwd.march_bwd_plain.fired / max(1, kbwd.march_bwd_plain.chunks)))
+        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+
+    if "train" in groups or "key" in groups:
+        # --- training views, 512x512: the JAX bench's row and fitted_20k.ply
         init = random_scene(50_000, seed=1, device=dev)
         center = ply.center().cpu().numpy()
         cam512 = cameras.orbit_camera(center, 2.8, 0.0, 15.0, width=512, height=512, device=dev)
@@ -306,66 +467,52 @@ def main() -> None:
                        ("train window sh3 fitted_20k", ply, cam512, win.replace(sh_degree=3)),
                        ("train key sh0 50k", init, cam512s, key),
                        ("train key sh3 fitted_20k", ply, cam512, key.replace(sh_degree=3))]
-        for what, sc, cam, cfg in train_cases:
-            with torch.no_grad():
-                stream, trows, n_pairs = prepare_train_stream(sc, cam, cfg)
-            starts, trows = stream.starts, trows.detach().contiguous()
-            dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
-            chunk = kmarch.chunk_for(cfg)
-            window = cfg.order == "window"
-            kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()} if window else {}
-            fwd = lambda: kmarch.march(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
+
+    if "train" in groups:
+        for case in train_cases:
+            train_case(*case)
+
+    if "key" in groups:  # every mode of the key-order kernel
+        keyc = bench.replace(order="key", march_chunk=256)
+        as_key = lambda args, kw: ((*args[:3], args[3].replace(order="key"), *args[4:]), kw)
+        seg = as_key(*mesh_bounces(bench, (0.0, 0.0, 0.5))[0])
+        blk_args, blk_kw = as_key(*mesh_bounces(bench, (0.0, 0.0, 1.6))[1])
+        for what, args, kw in (
+                ("key headline 720p/100k c=256", stream_args(scene, pose, keyc), {}),
+                ("key sh3 fitted_20k 720p c=256",
+                 stream_args(ply, cam720, keyc.replace(sh_degree=3)), {}),
+                ("key rolling 720p/100k c=128", *rolling(bench.replace(order="key"))),
+                ("key segment glass bounce 0", *seg),
+                ("key block glass_front bounce 1 block_sub=1", blk_args, blk_kw),
+                ("key block glass_front bounce 1 block_sub=2",
+                 (*blk_args[:4], 2 * blk_args[4]), {**blk_kw, "block_sub": 2})):
+            k1_case(what, args, kw)
+        for case in train_cases:
+            if case[3].order == "key":
+                train_case(*case, with_k3=False)
+
+    if "scan" in groups:  # K2 on the headline's pair capacity, exact
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for shape in ((2, 2_097_152), (16, 1_000_003)):
+            x = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device=dev,
+                              generator=gen)
             outs = {}
             for name in ("other", "this"):
                 use(name)
-                outs[name] = fwd()
+                outs[name] = kscan.multi_cumsum_i32(x)
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
-            cs.check(same, f"K1 {what}: outputs differ between the builds")
-            got = outs["this"]
-            cs.k1_train_check(what, got, kmarch.march_plain(starts, trows, dirs_t, cfg, chunk,
-                                                            save_tin=True, **kw))
-            t1 = turns(fwd)
-            plain1 = statistics.median(cs.cuda_ms(lambda: kmarch.march_plain(
-                starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw), 3))
-            b1 = cs.march_bound((starts, trows, dirs_t, cfg, chunk), kw, kmarch.march_plain,
-                                tin=got[2])
-            sig1 = kmarch.march_plain.significant / max(1, kmarch.march_plain.candidates
-                                                        * dirs_t.shape[1])
-            fire1 = kmarch.march_plain.fired / max(1, kmarch.march_plain.chunks)
-            info1 = cuda_build.launch_info("march", chunk, cfg.sh_degree, 256, order=cfg.order,
-                                           scalar=window, train=True)
-            rows.append(dict(
-                case=what, kernel="K1 save_tin", pairs=n_pairs, chunk=chunk, ms_other=t1["other"],
-                ms_this=t1["this"], plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1],
-                bit_identical=same, **info1,
-                ptxas=ptx(k1_name(chunk, window, cfg.sh_degree, True, cfg.order)),
-                significant_share=sig1, fire_share=fire1))
-            cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
-
-            gen = torch.Generator(device=dev).manual_seed(0)
-            d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
-            d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
-            bargs = (starts, trows, dirs_t, cam.eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
-            use("other")
-            g_other = kbwd.march_bwd(*bargs)
-            use("this")
-            cs.k3_check(what, bargs)
-            g_this = kbwd.march_bwd(*bargs)
-            rel = float((g_this - g_other).abs().max() / g_other.abs().max())
-            t3 = turns(lambda: kbwd.march_bwd(*bargs))
-            plain3 = statistics.median(cs.cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 3))
-            b3 = cs.bwd_bound(bargs, kbwd.march_bwd_plain)
-            info3 = cuda_build.launch_info("march_bwd", chunk, cfg.sh_degree, 256, order=cfg.order)
-            k = (cfg.sh_degree + 1) ** 2
-            rows.append(dict(
-                case=what, kernel="K3", pairs=n_pairs, chunk=chunk, ms_other=t3["other"],
-                ms_this=t3["this"], plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1],
-                max_rel_vs_other=rel, **info3,
-                ptxas=ptx(f"16march_bwd_kernelILi{chunk}ELi{k}ELb{int(window)}E"),
-                significant_share=kbwd.march_bwd_plain.significant
-                / max(1, kbwd.march_bwd_plain.candidates * dirs_t.shape[1]),
-                fire_share=kbwd.march_bwd_plain.fired / max(1, kbwd.march_bwd_plain.chunks)))
+            want = kscan.multi_cumsum_i32_plain(x)
+            same = torch.equal(outs["other"], outs["this"])
+            cs.check(same and torch.equal(outs["this"], want),
+                     f"K2 {shape}: differs between the builds or from the plain version")
+            t = turns(lambda: kscan.multi_cumsum_i32(x))
+            plain_ms = statistics.median(cs.cuda_ms(lambda: kscan.multi_cumsum_i32_plain(x), 10))
+            lib_ms = statistics.median(cs.cuda_ms(lambda: torch.cumsum(x, dim=1), 10))
+            b = cs.bound(2 * x.numel() * 4, x.numel())
+            rows.append(dict(case=f"K2 scan {shape}", kernel="K2", ms_other=t["other"],
+                             ms_this=t["this"], plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b[0], bound_by=b[1], bit_identical=same, **dev_times(t),
+                             **cs.scan_design(x)))
             cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
     if "mesh" in groups:
@@ -405,7 +552,7 @@ def main() -> None:
             t = turns(frame)
             rows.append(dict(case=f"{name} frame 1280x720 100k", kernel="frame",
                              ms_other=t["other"], ms_this=t["this"], bit_identical=same,
-                             launches_per_frame=launches))
+                             **dev_times(t), launches_per_frame=launches))
             cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
     out_json = opt.out_json

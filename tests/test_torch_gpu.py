@@ -537,6 +537,78 @@ def _merge_stream_check(counts, chunk, **kw):
     return plain
 
 
+def _key_stream_check(counts, chunk, rays, **kw):
+    """K1 key order on a hand-made depth_stream against march_plain at the
+    K1 bars (one launch counted), and two launches bit-identical. Returns
+    the plain version's marched chunks."""
+    starts, feats, dirs_t, _ = depth_stream(counts, rays=rays, jitter=0.02, device="cuda", **kw)
+    cfg = RenderConfig(hit_multiplicity=1, order="key", march_chunk=chunk)
+    before = tmarch.march.launches
+    got = tmarch.march(starts, feats, dirs_t, cfg, chunk)
+    torch.cuda.synchronize()
+    assert tmarch.march.launches == before + 1
+    want = tmarch.march_plain(starts, feats, dirs_t, cfg, chunk)
+    for a, b in zip(got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+    chunks = tmarch.march_plain.chunks
+    again = tmarch.march(starts, feats, dirs_t, cfg, chunk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    return chunks
+
+
+@pytest.mark.parametrize("rays", [256, 1024])
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_key_order_sure_misses_and_short_tiles(chunk, rays):
+    """Key order (the 256- and 1024-ray builds) on tiles without pairs,
+    shorter than the chunk, with a ragged last chunk, with a chunk of sure
+    misses (opacity below alpha_min), all sure misses, and every other
+    candidate a sure miss."""
+    counts = [0, chunk // 2, 3 * chunk + 5, 2 * chunk, 2 * chunk]
+    faint = [(2, chunk, 2 * chunk), (3, 0, 2 * chunk)] + [(4, k, k + 1)
+                                                        for k in range(0, 2 * chunk, 2)]
+    chunks = _key_stream_check(counts, chunk, rays, faint=faint, op=0.05)
+    assert chunks == 1 + 4 + 2 + 2
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+def test_key_order_skips_chunks(chunk):
+    """Nearly opaque candidates: every ray's T falls below the skip
+    threshold within the first chunks, and the rest are skipped (with the
+    next chunk's copy already in flight where two buffers fit)."""
+    chunks = _key_stream_check([6 * chunk, 5 * chunk + 3], chunk, 256, op=0.9, spacing=0.01)
+    assert 2 <= chunks < 12
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 4095), (1, 4097), (1, 8191), (1, 8192), (1, 8193),
+                                   (2, 4 * 8192 + 3), (3, 5), (16, 1_000_003), (2, 2_097_152)])
+def test_scan_kernel_tile_edges_called_twice(shape):
+    """K2 at the edges of its 8,192-element tiles (one element, half a tile
+    either side, a tile less one, one tile, a tile and one, several tiles
+    and 3), on rows that start
+    off 16-byte alignment (P odd), at 16 channels and the headline's pair
+    capacity, with wrapping sums; each shape twice in a row (the status
+    words of the first call must not leak into the second), exact."""
+    g = torch.Generator(device="cuda").manual_seed(shape[1])
+    x = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device="cuda", generator=g)
+    x[:, ::97] = 2**31 - 1
+    want = tscan.multi_cumsum_i32_plain(x)
+    for _ in range(2):
+        assert torch.equal(tscan.multi_cumsum_i32(x), want)
+
+
+def test_scan_kernel_on_a_misaligned_view():
+    """A contiguous (2, P) view that starts 4 bytes into its storage: no row
+    is 16-byte aligned, so every group takes 4-byte loads and stores."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    buf = torch.randint(-2**31, 2**31 - 1, (2 * 40_000 + 1,), dtype=torch.int32, device="cuda",
+                        generator=g)
+    x = buf[1:].view(2, 40_000)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert torch.equal(tscan.multi_cumsum_i32(x), tscan.multi_cumsum_i32_plain(x))
+
+
 @pytest.mark.parametrize("chunk", [32, 64, 128, 256])
 def test_merge_tiles_without_pairs(chunk):
     """Tiles with no pairs between marched ones: their pending buffer is

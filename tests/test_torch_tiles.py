@@ -141,14 +141,22 @@ def test_scan_wrapper_rejects_bad_input():
 
 CAMERAS = [("fisheye", ()), ("opencv", (-0.25, 0.05, 0.0, 0.0)),
            ("opencv", (-0.18, 0.03, 1e-3, -5e-4, 0.004))]
-# fisheye rx, ry: the cone caps' float32 Cardano eigen-solve (acos and cos
-# near the ends of their range, then lam0 = q + 2p cos(..) cancelling)
-# leaves both packages ~1e-6..4e-5 rad from a float64 evaluation of the cap
-# half-angle, a different few ulps on each side since XLA and torch
-# approximate acos and cos differently; the reference's 2e-3 rad cap margin
-# absorbs it. A footprint's extent then moves by up to ~2e-4 relative
-# (measured here: ry on 11 of 1,024 gaussians above 1e-5).
-FISHEYE_EXTENT_RTOL, FISHEYE_EXTENT_TAIL = 2e-4, 0.02
+# Fisheye px, py, rx, ry all come from the cone caps' float32 Cardano
+# eigen-solve (the rect's centre too: it is the midpoint of the cap's
+# polar rectangle). Both packages run it in the same operation order; they
+# differ where the host's float32 sqrt, acos and cos round differently
+# (torch's vectorised CPU sqrt is not always correctly rounded; XLA's acos
+# and cos are other approximations than torch's), and the solve amplifies
+# an ulp at ill-conditioned caps: on the 998 visible gaussians of the case
+# below both sit up to 3.4e-4 (px), 4.3e-4 (py), 2.6e-3 (rx) and 2.4e-3
+# (ry) from a float64 evaluation of the same function, a quarter of the
+# extents more than 1e-5 from it, so a bar against the other package
+# depends on the host. The witness bar below does not: the port may be no
+# further from float64 than 1.25x the JAX package, field by field (as K3's
+# bar reads), and at least 98% of the four fields' values stay within rtol
+# 1e-5 of JAX. Invisible slots are left out: the binning never reads
+# their rects (ops/tiles._tile_rects; test_binning_ignores_invisible_rects).
+FISHEYE_WITNESS_RATIO, FISHEYE_SHARE = 1.25, 0.98
 
 
 def _configs(model, dist):
@@ -156,29 +164,70 @@ def _configs(model, dist):
             RenderConfig(camera_model=CameraModel(model), distortion=dist))
 
 
+def _port_footprints(ts, tc, tcfg, dtype=torch.float32):
+    """The port's footprints of scene `ts` from camera `tc`, evaluated in
+    `dtype` (float64: the witness)."""
+    cam = Camera(tc.eye.to(dtype), tc.lookat.to(dtype), tc.up.to(dtype), tc.fov_y_deg,
+                 tc.width, tc.height)
+    means, scales, quats, opacities = (x.to(dtype) for x in
+                                       (ts.means, ts.scales, ts.quats, ts.opacities))
+    r = adaptive_radius(opacities, 0.01)
+    return ttiles.project_footprints_conic(means, scales, quats, r, r * scales.amax(dim=-1),
+                                           cam, tcfg)
+
+
 @pytest.mark.parametrize("model,dist", CAMERAS)
 def test_camera_footprints_match_jax(model, dist):
-    """px, py (and OpenCV's rx, ry) at rtol 1e-5; fisheye rx, ry at rtol
-    1e-5 on all but 2% of the gaussians and 2e-4 on those (see above);
-    visibility and the frame's pair count identical."""
+    """px, py, rx, ry and depth at rtol 1e-5 (fisheye: depth at rtol 1e-5,
+    the rect under the float64 witness bar above); visibility and the
+    frame's pair count identical."""
     js, ts, jc, tc = _setup(1000, 5, 96, 64)
     jcfg, tcfg = _configs(model, dist)
     jr = j_adaptive_radius(js.opacities, 0.01)
     jfp = jtiles.project_footprints_conic(js.means, js.scales, js.quats, jr,
                                          jr * jnp.max(js.scales, axis=-1), jc, jcfg)
-    tr = adaptive_radius(ts.opacities, 0.01)
-    tfp = ttiles.project_footprints_conic(ts.means, ts.scales, ts.quats, tr,
-                                          tr * ts.scales.amax(dim=-1), tc, tcfg)
-    for k in ("px", "py", "rx", "ry", "depth"):
-        got, want = getattr(tfp, k).numpy(), np.asarray(getattr(jfp, k))
-        if model == "fisheye" and k in ("rx", "ry"):
-            rel = np.abs(got - want) / np.abs(want)
-            assert np.mean(rel > 1e-5) <= FISHEYE_EXTENT_TAIL, k
-            assert rel.max() <= FISHEYE_EXTENT_RTOL, k
-        else:
-            np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=k)
-    assert np.array_equal(tfp.visible.numpy(), np.asarray(jfp.visible))
+    tfp = _port_footprints(ts, tc, tcfg)
+    vis = tfp.visible.numpy()
+    assert np.array_equal(vis, np.asarray(jfp.visible))
     assert int(ttiles.count_pairs(ts, tc, tcfg)) == int(jtiles.count_pairs(js, jc, jcfg))
+    rect = ("px", "py", "rx", "ry") if model == "fisheye" else ()
+    for k in ("px", "py", "rx", "ry", "depth"):
+        if k not in rect:
+            np.testing.assert_allclose(getattr(tfp, k).numpy(), np.asarray(getattr(jfp, k)),
+                                       rtol=1e-5, err_msg=k)
+    if not rect:
+        return
+    w64 = _port_footprints(ts, tc, tcfg, torch.float64)
+    assert np.array_equal(w64.visible.numpy(), vis)
+    close = []
+    for k in rect:
+        w = getattr(w64, k).numpy()[vis]
+        got = getattr(tfp, k).numpy()[vis].astype(np.float64)
+        want = np.asarray(getattr(jfp, k))[vis].astype(np.float64)
+        err_port = np.max(np.abs(got - w) / np.abs(w))
+        err_jax = np.max(np.abs(want - w) / np.abs(w))
+        assert err_port <= FISHEYE_WITNESS_RATIO * err_jax, (k, err_port, err_jax)
+        close.append(np.abs(got - want) <= 1e-5 * np.abs(want))
+    assert np.mean(np.concatenate(close)) >= FISHEYE_SHARE
+
+
+def test_binning_ignores_invisible_rects():
+    """An invisible gaussian's px, py, rx, ry never reach the pair stream:
+    _tile_rects gives it no pairs, and its zero-count head-fill deltas
+    telescope away. Scrambling them (NaN, inf, huge) changes nothing."""
+    js, ts, jc, tc = _setup(1000, 5, 96, 64)
+    cfg = _configs("fisheye", ())[1]
+    fp = _port_footprints(ts, tc, cfg)
+    hidden = ~fp.visible
+    assert int(hidden.sum()) > 0
+    rng = np.random.default_rng(3)
+    junk = lambda v: torch.where(hidden, torch.from_numpy(
+        rng.choice(np.float32([np.nan, np.inf, -1e30, 0.0, 7.5]), size=v.shape)), v)
+    scrambled = fp._replace(px=junk(fp.px), py=junk(fp.py), rx=junk(fp.rx), ry=junk(fp.ry))
+    a = ttiles.bin_pairs(fp, tc, cfg, 1 << 16)
+    b = ttiles.bin_pairs(scrambled, tc, cfg, 1 << 16)
+    for k in ("gid", "key", "starts", "order", "n_pairs", "n_dropped"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
 
 
 @pytest.mark.parametrize("model,dist,n,seed,size", [
