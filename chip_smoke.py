@@ -14,7 +14,13 @@ distortion and a rolling shutter at 1280x720), the merge-order path (K1's
 merge mode against its plain version on the golden and camera streams and
 in block mode, the exact torch oracle against the goldens, merge renders
 against all six goldens, a 1280x720 / 100k merge frame, and mirror and
-glass frames with order and bounce_order "merge"), times each against the
+glass frames with order and bounce_order "merge"), mesh bounces under a
+fisheye camera and at SH 3 (fisheye mirror and glass_front frames on 100k,
+an SH 3 glass_front frame on fitted_20k.ply, every bounce's K4 and K1 held
+against their plain versions, 256x256 NORMAL-plane frames against the mesh
+oracle), the viewer (viewer.serve over HTTP: pinhole, fisheye, fisheye
+mirror and SH 3 glass frames at 1280x720) and `cli orbit`, `cli warmup
+--assert` and `cli bench`, times each against the
 plain path, profiles the 720p/100k, fisheye and SH 3 frames and the window
 and key SH 3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
 SH 3, and --order merge) and `cli fit`, and finally writes the
@@ -323,6 +329,37 @@ def k1_check(phase: str, what: str, args, kw=None) -> float:
     return err
 
 
+def k4_check(phase: str, what: str, args, kw) -> tuple[float, int]:
+    """K4 against closest_hit_blocks_plain on one call's inputs: face ids,
+    t, u and v bit-identical, and the kernel's counts (`stats`) those of
+    ops/tri.pretest_stats. Returns (the max abs difference of t, u and v,
+    the hits)."""
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+
+    stats = torch.zeros((args[3].shape[0], len(ktri.STATS)), dtype=torch.int32,
+                        device=args[3].device)
+    got = ktri.closest_hit_blocks(*args, **kw, stats=stats)
+    torch.cuda.synchronize()
+    want = ktri.closest_hit_blocks_plain(*args, **kw)
+    check(torch.equal(got[1], want[1]), f"K4 {what}: face ids differ")
+    check(all(torch.equal(a, w) for a, w in zip(got, want)),
+          f"K4 {what}: t, u or v not bit-identical to the plain version")
+    check(torch.equal(stats, ktri.pretest_stats(*args, kw["origins_t"], kw["bounds"])),
+          f"K4 {what}: the kernel's counts differ from pretest_stats")
+    pairs = list(zip(got[0::2] + got[3:], want[0::2] + want[3:]))  # t, u, v
+    err = max(float((a - w).nan_to_num(0.0).abs().max()) for a, w in pairs)
+    live = int(((args[3] * args[3]).sum(-1) > 0.01).sum())
+    hits = int((want[1] >= 0).sum())
+    origin = "shared origin" if kw["origins_t"] is None else "per-ray origins"
+    log(phase, f"{what} ({origin}): {live} live rays, {int(args[0][-1]) // 256} face blocks "
+               f"listed, {hits} hits, face ids, t, u and v bit-identical, "
+               f"{int(stats[:, 0].sum())} blocks staged, the kernel's counts those of "
+               f"pretest_stats")
+    return err, hits
+
+
 def k1_train_check(what: str, got, want) -> float:
     """K1 with saved carries against march_plain on one stream: rgb and T
     at the quad-path bars, the carries to TIN_ABS, chunk_base equal.
@@ -386,6 +423,25 @@ def k3_check(what: str, args) -> float:
               f"K3 {what} column {i}: {wit[i][0]:.3g} from the float64 witness, plain "
               f"{wit[i][1]:.3g}")
     return float((g1 - gp).abs().max())
+
+
+def run_cli(*argv) -> str:
+    """`python -m gaussian_ray_tracing_tpu_torch.cli *argv` in this process
+    (cli.main: the same entry point without an interpreter's start-up);
+    logs its time and last line and returns its standard output."""
+    import contextlib
+    import io
+
+    from gaussian_ray_tracing_tpu_torch import cli
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(list(argv))
+    out = buf.getvalue().strip()
+    log("cli", f"{' '.join(argv[:1])} in {time.perf_counter() - t:.1f} s: "
+               f"{out.splitlines()[-1] if out else ''}")
+    return out
 
 
 def profile_frames(fn, frames: int = 5, top: int = 5) -> dict:
@@ -788,26 +844,8 @@ def main() -> None:
     k4_err, k4_hits = 0.0, {}
     for name, record in records.items():
         for b, rec in enumerate(record):
-            args, kw = rec["k4"]
-            stats = torch.zeros((args[3].shape[0], len(ktri.STATS)), dtype=torch.int32,
-                                device=dev)
-            got = ktri.closest_hit_blocks(*args, **kw, stats=stats)
-            torch.cuda.synchronize()
-            want = ktri.closest_hit_blocks_plain(*args, **kw)
-            check(torch.equal(got[1], want[1]), f"K4 {name} bounce {b}: face ids differ")
-            check(all(torch.equal(a, w) for a, w in zip(got, want)),
-                  f"K4 {name} bounce {b}: t, u or v not bit-identical to the plain version")
-            check(torch.equal(stats, ktri.pretest_stats(*args, kw["origins_t"], kw["bounds"])),
-                  f"K4 {name} bounce {b}: the kernel's counts differ from pretest_stats")
-            pairs = list(zip(got[0::2] + got[3:], want[0::2] + want[3:]))  # t, u, v
-            k4_err = max([k4_err] + [float((a - w).nan_to_num(0.0).abs().max()) for a, w in pairs])
-            live = int(((args[3] * args[3]).sum(-1) > 0.01).sum())
-            k4_hits[name, b] = int((want[1] >= 0).sum())
-            origin = "shared origin" if kw["origins_t"] is None else "per-ray origins"
-            log("K4", f"{name} bounce {b} ({origin}): {live} live rays, "
-                      f"{int(args[0][-1]) // 256} face blocks listed, {k4_hits[name, b]} hits, "
-                      f"face ids, t, u and v bit-identical, {int(stats[:, 0].sum())} blocks staged, "
-                      f"the kernel's counts those of pretest_stats")
+            err, k4_hits[name, b] = k4_check("K4", f"{name} bounce {b}", *rec["k4"])
+            k4_err = max(k4_err, err)
     check(k4_hits["glass_cli", 1] > 0, "glass_cli bounce 1: K4 found no exit hit")
 
     block_err = seg_err = 0.0
@@ -930,6 +968,12 @@ def main() -> None:
 
     cam_rows = camera_phase(dev, card, scene)
     merge_rows = merge_phase(dev, card, scene, poses[0], mcam, at_probe, front, merge_err)
+    t_phase = time.perf_counter()
+    meshcam_rows = mesh_camera_phase(dev, card, scene, mcam, at_probe, front)
+    log("phase", f"mesh cameras (fisheye, SH 3) in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    serving_phase(dev, card, scene)
+    log("phase", f"viewer and serving CLI in {time.perf_counter() - t_phase:.1f} s")
 
     # --- CLI, one frame through a user's entry point ---------------------
     os.makedirs(ROOT / "build", exist_ok=True)
@@ -946,41 +990,27 @@ def main() -> None:
         check(img.max() > 0, "cli PNG is all black")
         log("cli", f"{res.stdout.strip()} (max pixel {int(img.max())})")
 
-        res = subprocess.run(
-            [sys.executable, "-m", f"{PKG}.cli", "render", "--synthetic", "100000",
-             "--width", "1280", "--height", "720", "--add-sphere", "--mesh-type", "glass",
-             "-o", str(png)],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-        )
-        check(res.returncode == 0, f"cli render --add-sphere failed:\n{res.stderr[-4000:]}")
+        # the other renders through cli.main in this process (the same entry
+        # point; an interpreter's start-up each cost ~10 s)
+        run_cli("render", "--synthetic", "100000", "--width", "1280", "--height", "720",
+                "--add-sphere", "--mesh-type", "glass", "-o", str(png))
         img = _png_pixels(png)
         check(img.max() > 0, "cli glass-sphere PNG is all black")
-        log("cli", f"--add-sphere --mesh-type glass: {res.stdout.strip()} "
-                   f"(max pixel {int(img.max())})")
+        log("cli", f"--add-sphere --mesh-type glass: max pixel {int(img.max())}")
 
-        res = subprocess.run(
-            [sys.executable, "-m", f"{PKG}.cli", "render", "--ply", "data/fitted_20k.ply",
-             "--width", "768", "--height", "768", "--eye", *map(str, GOLDEN_EYE),
-             "--lookat", "0", "0", "0", "--fisheye", "--sh-degree", "3",
-             "--hit-multiplicity", "1", "-o", str(png)],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-        )
-        check(res.returncode == 0, f"cli render --fisheye --sh-degree 3 failed:\n"
-                                   f"{res.stderr[-4000:]}")
+        run_cli("render", "--ply", str(ROOT / "data" / "fitted_20k.ply"), "--width", "768",
+                "--height", "768", "--eye", *map(str, GOLDEN_EYE), "--lookat", "0", "0", "0",
+                "--fisheye", "--sh-degree", "3", "--hit-multiplicity", "1", "-o", str(png))
         img = _png_pixels(png)
         check(img.max() > 0 and not img[0, :3].any(), "cli fisheye PNG: black, or corner not blank")
-        log("cli", f"--fisheye --sh-degree 3: {res.stdout.strip()} (max pixel {int(img.max())})")
+        log("cli", f"--fisheye --sh-degree 3: max pixel {int(img.max())}")
 
-        res = subprocess.run(
-            [sys.executable, "-m", f"{PKG}.cli", "render", "--synthetic", "100000",
-             "--width", "1280", "--height", "720", "--order", "merge", "--march-chunk", "128",
-             "--hit-multiplicity", "1", "-o", str(png)],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-        )
-        check(res.returncode == 0, f"cli render --order merge failed:\n{res.stderr[-4000:]}")
+        run_cli("render", "--synthetic", "100000", "--width", "1280", "--height", "720",
+                "--order", "merge", "--march-chunk", "128", "--hit-multiplicity", "1",
+                "-o", str(png))
         img = _png_pixels(png)
         check(img.max() > 0, "cli merge PNG is all black")
-        log("cli", f"--order merge: {res.stdout.strip()} (max pixel {int(img.max())})")
+        log("cli", f"--order merge: max pixel {int(img.max())}")
 
         fit_ply = Path(tmp) / "fit.ply"
         res = subprocess.run(
@@ -996,6 +1026,7 @@ def main() -> None:
         log("cli", f"fit: {res.stdout.strip().splitlines()[-1]} ({fitted.num_active} read back)")
 
     dataset_phase(dev, card)
+    log("total", f"every phase in {time.perf_counter() - T_START:.1f} s")
 
     src = f"{PKG}/csrc"
     k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
@@ -1024,10 +1055,297 @@ def main() -> None:
         *cam_rows,
         *train_rows,
         *merge_rows,
+        *meshcam_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def mesh_camera_phase(dev, card: str, scene, mcam, at_probe, front) -> list:
+    """Mesh bounces under a fisheye camera and at SH 3, at full width
+    (1280x720, bench config, phase 7's camera and meshes): on `scene`
+    (random_scene(100k, seed 0)) a fisheye frame with phase 7's MIRROR
+    plane at (0, 0, 0.5) (the planar path: two K1 segments of the camera
+    and its mirror image) and a fisheye `glass_front` frame (the 180x90
+    GLASS sphere at (0, 0, 1.6): the fast path, K4 every bounce, K1
+    segments then block mode); on data/fitted_20k.ply an SH 3 `glass_front`
+    frame. The fisheye focal is the config's default, as in the camera
+    phase. The main path: each frame once through GaussianRayTracer (its
+    camera model set as the viewer sets it), the launch counts zeroed just
+    before. Then, on every bounce of each frame's recorded kernel calls,
+    K4 bit-identical to its plain version with its counts those of
+    pretest_stats, and K1 within k1_check's bars (at SH 3 also the segment
+    in key and merge order and block mode in window, key and merge order at
+    block_sub 1 and 2); each frame's kernel path against its plain path
+    (>= 60 dB, drop-free, equal block_dropped); frame times and profiles;
+    and at 256x256 fisheye and SH 3 frames of the small goldens' scene
+    (random_scene(5000, seed 3)) with a NORMAL plane at (0, 0, 1.6), fast
+    path against the port's mesh oracle at the golden bar (a GLASS plane
+    there is logged beside them). Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
+    from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_plane
+    from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
+    bench = RenderConfig(**BENCH_KW)
+    fish = bench.replace(camera_model=CameraModel.FISHEYE)
+    at_front = np.eye(4, dtype=np.float32)
+    at_front[:3, 3] = (0.0, 0.0, 1.6)
+    # name: (scene, config, primitive kind, its transform, the mesh the records render)
+    frames = {
+        "fisheye_mirror": (scene, fish, "plane", "mirror", at_probe,
+                           make_plane((0.0, 0.0, 0.5), device=dev).with_type(MeshType.MIRROR)),
+        "fisheye_glass_front": (scene, fish, "sphere", "glass", at_front, front),
+        "sh3_glass_front": (ply, bench.replace(sh_degree=3), "sphere", "glass", at_front, front),
+    }
+    counters = {"march": (kmarch.march, "launches"),
+                "march_segment": (kmarch.march, "segment_launches"),
+                "march_block": (kmarch.march, "block_launches"),
+                "march_sh": (kmarch.march, "sh_launches"),
+                "scan": (kscan.multi_cumsum_i32, "launches"),
+                "closest_hit": (ktri.closest_hit_blocks, "launches")}
+    count = lambda: {label: getattr(fn, attr) for label, (fn, attr) in counters.items()}
+    tracers = {}
+    for name, (sc, cfg, kind, mtype, xf, _) in frames.items():
+        tr = GaussianRayTracer(scene=sc, config=cfg.replace(camera_model=CameraModel.PINHOLE))
+        tr.set_camera_model(cfg.camera_model.value)
+        tr.set_size(1280, 720)
+        tr.update_camera(mcam)
+        idx = tr.create_plane(mesh_type=mtype) if kind == "plane" else tr.create_sphere(
+            mesh_type=mtype)
+        tr.update_instance_transform(idx, xf)
+        tracers[name] = tr
+
+    # the main path: every frame once, counts zeroed just before
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    launches = {}
+    for name, (_, cfg, _, _, _, _) in frames.items():
+        before = count()
+        rgb = tracers[name].render()["rgb"]
+        torch.cuda.synchronize()
+        launches[name] = {k: v - before[k] for k, v in count().items()}
+        check(tuple(rgb.shape) == (720, 1280, 3) and bool(torch.isfinite(rgb).all()),
+              f"{name}: bad output {tuple(rgb.shape)}")
+        check(float(rgb.max()) > 0.1, f"{name} is black")
+        if cfg.camera_model == CameraModel.FISHEYE:
+            check(not bool(rgb[0, 0].any()) and not bool(rgb[-1, -1].any()),
+                  f"{name}: a corner outside the image circle is not black")
+    m, g, s = (launches[k] for k in frames)
+    check(m["march_segment"] == 2 and m["march_block"] == 0 and m["closest_hit"] == 0,
+          f"fisheye_mirror: the planar path runs two K1 segments, no K4, no block march ({m})")
+    for name, n in (("fisheye_glass_front", g), ("sh3_glass_front", s)):
+        check(n["march_segment"] >= 1 and n["march_block"] >= 1 and n["closest_hit"] >= 2,
+              f"{name}: K4 and K1's segment and block modes must launch ({n})")
+    check(s["march_sh"] == s["march"], f"sh3_glass_front: a K1 launch was not at SH 3 ({s})")
+    check(all(n["scan"] > 0 for n in launches.values()), "a mesh camera frame did not launch K2")
+    log("meshcam", f"fisheye mirror, fisheye glass_front and SH 3 glass_front frames through "
+                   f"GaussianRayTracer, launches {launches}")
+
+    # the kernels on every bounce of each frame's own calls
+    records = {}
+    for name, (sc, cfg, _, _, _, mesh) in frames.items():
+        records[name] = []
+        kmesh.render_with_mesh(sc, mesh, mcam, cfg, record=records[name])
+        torch.cuda.synchronize()
+    check(len(records["fisheye_mirror"]) == 2 and "k4" not in records["fisheye_mirror"][0],
+          "fisheye_mirror: the planar path records two K1 calls")
+    k4_err = seg_err = block_err = 0.0
+    for name, record in records.items():
+        for b, rec in enumerate(record):
+            if "k4" in rec:
+                k4_err = max(k4_err, k4_check("K4cam", f"{name} bounce {b}", *rec["k4"])[0])
+            args, kw = rec["k1"]
+            block = "blocks" in kw
+            modes = [(args[3].order, args)]
+            if name.startswith("sh3") and b <= 1:  # every order (and block_sub 2) at SH 3
+                modes = [(o, (*args[:3], args[3].replace(order=o), args[4]))
+                         for o in ("window", "key", "merge")]
+            for order, a in modes:
+                for bsub in ((1, 2) if block and name.startswith("sh3") and b == 1 else (1,)):
+                    a2, kw2 = (a, kw) if bsub == 1 else ((*a[:4], 2 * a[4]),
+                                                        {**kw, "block_sub": bsub})
+                    what = (f"{name} bounce {b} {'block' if block else 'segment'} {order}"
+                            f"{' block_sub=2' if bsub == 2 else ''} ({int(a[0][-1])} slots)")
+                    err = k1_check("K1cam", what, a2, kw2)
+                    if block:
+                        block_err = max(block_err, err)
+                    else:
+                        seg_err = max(seg_err, err)
+
+    # each frame: kernel path vs plain path, frame times, profiles
+    frame_ms = {}
+    for name, (sc, cfg, _, _, _, mesh) in frames.items():
+        run = lambda meth, aux=False: render(sc, mcam, cfg, mesh=mesh, method=meth,
+                                             return_aux=aux)
+        out, plain = run("gpu", True), {}
+        plain_ms = cuda_ms(lambda: plain.update(run("plain", True)), 1)[0]  # timed and compared
+        p = psnr(out["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy())
+        check(out["aux"]["pair_dropped"] == 0, f"{name}: pairs dropped")
+        check(out["aux"].get("block_dropped") == plain["aux"].get("block_dropped"),
+              f"{name}: block_dropped differs between kernel and plain paths")
+        check(p >= PSNR_MESH_FRAME, f"{name} gpu vs plain frame PSNR {p:.2f} < {PSNR_MESH_FRAME}")
+        run("gpu")  # warm-up
+        frame_ms[name] = statistics.median(cuda_ms(lambda: run("gpu"), 10))
+        prof = profile_frames(lambda: run("gpu"), frames=2)
+        log("frame", f"{name} 1280x720, median of 10/1: gpu {frame_ms[name]:.3f} ms, plain "
+                     f"{plain_ms:.3f} ms; gpu vs plain {p:.2f} dB; aux gpu {out['aux']} plain "
+                     f"{plain['aux']} ({card})")
+        log("profile", f"{name}: device busy {prof['device_ms']:.3f} ms of a "
+                       f"{frame_ms[name]:.3f} ms frame (idle share "
+                       f"{1.0 - prof['device_ms'] / frame_ms[name]:.3f}), "
+                       f"{prof['device_ops']:.0f} device ops per frame, top {prof['top']} ({card})")
+
+    # 256x256 plane frames against the mesh oracle, on the small goldens'
+    # scene: a NORMAL plane (K4, then K1 segments ending on the plane) at
+    # the golden bar; a GLASS plane logged beside it, whose bounced block
+    # march composites the Morton blocks in centre-distance order (the JAX
+    # fast path's own approximation, tests/test_torch_mesh_cameras.py)
+    small = random_scene(5000, seed=3, device=dev)
+    c256 = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                                 device=dev)
+    for mtype in (MeshType.NORMAL, MeshType.GLASS):
+        plane = make_plane((0.0, 0.0, 1.6), device=dev).with_type(mtype)
+        for what, cfg in (("fisheye", fish), ("sh3", bench.replace(sh_degree=3))):
+            fast = render(small, c256, cfg, mesh=plane, method="gpu", return_aux=True)
+            ref = render(small, c256, cfg, mesh=plane, method="oracle")
+            p = psnr(fast["rgb"].cpu().numpy(), ref["rgb"].cpu().numpy())
+            log("meshcam", f"5k 256x256 {what} {mtype.name} plane at (0, 0, 1.6): fast path vs "
+                           f"mesh oracle {p:.2f} dB, aux {fast['aux']}")
+            if mtype == MeshType.NORMAL:
+                check(p >= PSNR_GOLDEN, f"{what} plane frame vs mesh oracle {p:.2f} < "
+                                        f"{PSNR_GOLDEN}")
+
+    # the new modes alone at these frames' shapes
+    def k1_time(args, kw):
+        return (statistics.median(cuda_ms(lambda: kmarch.march(*args, **kw), 20)),
+                statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 3)),
+                march_bound(args, kw, kmarch.march_plain),
+                design("march", args[3], args[4], scalar="origins_t" in kw))
+
+    def k4_time(args, kw):
+        return (statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks(*args, **kw), 20)),
+                statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks_plain(*args, **kw), 3)),
+                tri_bound(args, kw), {})
+
+    times = {"seg_fish": k1_time(*records["fisheye_glass_front"][0]["k1"]),
+             "seg_sh3": k1_time(*records["sh3_glass_front"][0]["k1"]),
+             "block_sh3": k1_time(*records["sh3_glass_front"][1]["k1"]),
+             "k4_fish0": k4_time(*records["fisheye_glass_front"][0]["k4"]),
+             "k4_fish1": k4_time(*records["fisheye_glass_front"][1]["k4"])}
+    for what, (ms, plain_ms, (b_ms, b_by), _) in times.items():
+        log("kernel", f"{what}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                      f"({b_by}) ({card})")
+
+    src = f"{PKG}/csrc"
+    k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    row = lambda name, source, replaces, launches, err, t, more=None: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+        "bound_ms": t[2][0], "bound_by": t[2][1], "library_ms": None, **t[3], **(more or {})}
+    fish_segments = m["march_segment"] + g["march_segment"]
+    k4b0 = times["k4_fish0"]
+    return [
+        row("march_segment_fisheye", "march.cuh", k1, fish_segments, seg_err, times["seg_fish"]),
+        row("march_segment_sh3", "march_sh3.cu", k1, s["march_segment"], seg_err,
+            times["seg_sh3"]),
+        row("march_block_sh3", "march_sh3.cu", k1, s["march_block"], block_err,
+            times["block_sh3"]),
+        row("closest_hit_fisheye", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
+            g["closest_hit"], k4_err, times["k4_fish1"],
+            more={"bounce0": {"ms": k4b0[0], "plain_ms": k4b0[1], "bound_ms": k4b0[2][0],
+                              "bound_by": k4b0[2][1]}}),
+    ]
+
+
+def serving_phase(dev, card: str, scene) -> None:
+    """The viewer and the serving CLI at full width. viewer.serve(port=0,
+    block=False) on `scene` (random_scene(100k, seed 0)) at 1280x720, bench
+    config, and a second server on the same scene at SH 3; over HTTP, with
+    the launch counts zeroed just before: a pinhole and a fisheye frame,
+    then (after /add?kind=plane) a fisheye mirror frame, and from the SH 3
+    server (after /add?kind=sphere) a glass frame; each frame three times,
+    each a 1280x720 PNG, each request's ms logged; K1, K2 and K4 launched.
+    Then `cli orbit` (2 frames), `cli warmup --assert` and `cli bench`
+    at 1280x720 on 100k, through cli.main in this process."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+    from gaussian_ray_tracing_tpu_torch.viewer import serve
+
+    bench = RenderConfig(**BENCH_KW)
+    t0 = time.perf_counter()
+    servers = [serve(GaussianRayTracer(scene=scene, config=cfg), port=0, width=1280, height=720,
+                     block=False) for cfg in (bench, bench.replace(sh_degree=3))]
+    log("viewer", f"two servers up (a warm frame each) in {time.perf_counter() - t0:.1f} s")
+    counters = ((kmarch.march, "launches"), (kscan.multi_cumsum_i32, "launches"),
+                (ktri.closest_hit_blocks, "launches"))
+    view = "/frame?az=0&el=6&r=2.8"
+    requests = [(0, view, "pinhole"), (0, view + "&fisheye=1", "fisheye"),
+                (0, "/add?kind=plane", None),
+                (0, view + "&fisheye=1&type=mirror", "fisheye mirror"),
+                (1, "/add?kind=sphere", None), (1, view + "&type=glass", "SH 3 glass")]
+    frames = {}
+    try:
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        for i, path, what in requests:
+            url = f"http://127.0.0.1:{servers[i].server_address[1]}{path}"
+            ms = []
+            for _ in range(3 if what else 1):
+                t = time.perf_counter()
+                body = urllib.request.urlopen(url, timeout=300).read()
+                ms.append((time.perf_counter() - t) * 1e3)
+            if what:
+                img = _png_pixels(body)
+                check(img.shape == (720, 1280 * 3) and img.max() > 0,
+                      f"viewer {what} frame: not a 1280x720 PNG, or black")
+                frames[what] = img
+                log("viewer", f"{what} frame: {' '.join(f'{x:.1f}' for x in ms)} ms per request "
+                              f"({card})")
+        launches = [getattr(fn, attr) for fn, attr in counters]
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+    check(all(n > 0 for n in launches), f"viewer: K1, K2 and K4 must launch ({launches})")
+    check(not np.array_equal(frames["fisheye mirror"], frames["fisheye"]),
+          "viewer: the mirror does not show")
+    check(not frames["fisheye"][0, :3].any(), "viewer: the fisheye corner is not black")
+    log("viewer", f"launches K1 {launches[0]}, K2 {launches[1]}, K4 {launches[2]}")
+
+    size = ("--synthetic", "100000", "--width", "1280", "--height", "720")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        run_cli("orbit", *size, "--frames", "2", "-o", tmp)
+        for k in range(2):
+            img = _png_pixels(Path(tmp) / f"frame_{k:04d}.png")
+            check(img.shape == (720, 1280 * 3) and img.max() > 0, f"cli orbit frame {k}")
+    warm = [json.loads(x) for x in run_cli("warmup", "--assert").splitlines()]
+    check(len(warm) == 5 and warm[-1]["psnr_vs_golden"] >= PSNR_GOLDEN
+          and warm[-1]["n_dropped"] == 0, f"cli warmup --assert: {warm[-1]}")
+    res = json.loads(run_cli("bench", *size, "--hit-multiplicity", "1", "--order", "window",
+                             "--march-chunk", "128"))
+    check(all(k in res for k in ("metric", "value", "unit", "mean_ms", "backend"))
+          and res["device"] == torch.cuda.get_device_name(0), f"cli bench: {res}")
 
 
 def oracle_goldens(golden, card: str) -> dict:
@@ -1696,14 +2014,15 @@ def dataset_phase(dev, card: str) -> None:
           f"({ev['init']['psnr_mean']} dB)")
 
 
-def _png_pixels(path: Path):
-    """Decode an 8-bit RGB PNG written by utils/image.write_png."""
+def _png_pixels(png):
+    """Decode an 8-bit RGB PNG written by utils/image.encode_png (a path or
+    the bytes) into (H, 3 W) uint8 rows."""
     import struct
     import zlib
 
     import numpy as np
 
-    data = path.read_bytes()
+    data = png.read_bytes() if isinstance(png, Path) else png
     pos, idat, w, h = 8, b"", 0, 0
     while pos < len(data):
         n = struct.unpack(">I", data[pos:pos + 4])[0]

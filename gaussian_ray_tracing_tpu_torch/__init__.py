@@ -5,9 +5,11 @@ held against; module names mirror it so each counterpart is easy to find.
 This package imports torch only, never jax (importing anything under
 `gaussian_ray_tracing_tpu` runs `import jax`).
 
-Ported so far: the primary pinhole render (models/gpu_renderer.py),
-key-order training (train/) and mirror / glass / normal mesh bounces
-(models/mesh_tracer.py), at SH degree 0, carried by four hand-written CUDA
+Ported so far: the primary render at every camera model (pinhole,
+fisheye, OpenCV, rolling shutter; models/gpu_renderer.py), training in
+window and key order (train/), mirror / glass / normal mesh bounces
+(models/mesh_tracer.py), all at SH degree 0-3, the browser viewer
+(viewer.py) and the CLI (cli.py), carried by four hand-written CUDA
 kernels built from csrc/ at first use: the fused march (ops/march.py,
 csrc/march.cu), its backward (ops/march_bwd.py, csrc/march_bwd.cu), the
 multi-channel int32 scan of the binning (ops/scan.py, csrc/scan.cu) and

@@ -142,13 +142,9 @@ def unsupported_train_fields(config: RenderConfig) -> list[str]:
 
 def unsupported_mesh_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported mesh tracer does not implement yet: on
-    top of the render's limits, it traces pinhole frames at SH degree 0;
-    bounced segments march in window, key or merge order."""
+    top of the render's limits (it traces every camera model at SH degree
+    0-3), bounced segments march in window, key or merge order."""
     bad = unsupported_fields(config)
-    if config.camera_model != CameraModel.PINHOLE:
-        bad.append(f"camera_model={config.camera_model.value} (mesh bounces)")
-    if config.sh_degree != 0:
-        bad.append(f"sh_degree={config.sh_degree} (mesh bounces)")
     if config.bounce_order not in ("window", "key", "merge"):
         bad.append(f"bounce_order={config.bounce_order!r}")
     return bad

@@ -88,14 +88,16 @@ def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConf
     """Feature table -> footprints -> sorted pair stream -> per-pair rows.
     Returns (stream, pair_feats (n_pairs, quad_row) rows, n_pairs) and,
     with_table (the mesh tracer's bounced rays), also the whole table as
-    (N, 32) training rows in gaussian order and the per-gaussian bound
-    radius (N,) (radius * max scale) for the Morton block index."""
+    (N, train_row) training rows at the config's SH degree, in gaussian
+    order (K1 block mode reads their scalar columns), and the per-gaussian
+    bound radius (N,) (radius * max scale) for the Morton block index."""
     table, M, radius = feature_table(scene, config, eye=camera.eye)
     stream, ids, n_pairs = bin_frame(scene, M, radius, camera, config, pair_capacity,
                                      use_kernels)
     out = (stream, compact_features(table, config.sh_degree)[ids], n_pairs)
     if with_table:
-        out += (train_features(table), radius * torch.amax(scene.scales, dim=-1))
+        out += (train_features(table, config.sh_degree),
+                radius * torch.amax(scene.scales, dim=-1))
     return out
 
 

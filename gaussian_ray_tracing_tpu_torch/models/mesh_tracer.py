@@ -23,15 +23,21 @@ per-ray pretests; bounce 0 marches the
 screen-space pair stream with K1 in segment mode (per-ray t_hi at the hit,
 carry-in T); later bounces march the Morton-sorted gaussian table with K1
 in block mode (per-ray origins, scalar response). `render_with_mesh_planar_
-mirror`: one planar MIRROR rectangle; bounce 1 is the pinhole frame of the
-reflected camera, so it runs K1 twice in segment mode and no K4.
+mirror`: one planar MIRROR rectangle; bounce 1 is the frame of the
+reflected camera (at the frame's camera model), so it runs K1 twice in
+segment mode and no K4.
 `render_with_mesh_oracle`: the exact reference on flat ray batches
 (`render_rays_with_mesh`), every bounce a brute-force closest hit
 (ops/intersect.closest_hit) and an exact per-ray-sorted gaussian segment
 (models/oracle.render_rays_oracle), plain torch on the scene's device, any
 camera model and SH degree. `render_with_mesh` picks the oracle when told
-to, else the planar-mirror or the fast path. `use_kernels=False` runs the
-plain torch versions of the kernels on any device.
+to, else the planar-mirror or the fast path. The fast and planar paths
+take every camera model and SH degree 0-3 too: bounce 0 marches the
+camera's own rays on the quad SH rows, the bounced block march the scalar
+SH rows, and K1 evaluates the colour from each ray's own (reflected or
+refracted) direction; pixels without a ray (fisheye, outside the image
+circle) have direction 0, are never live, and stay black. `use_kernels=
+False` runs the plain torch versions of the kernels on any device.
 
 The JAX package's `lax.cond(any live)` between bounces is one host-read
 bool per bounce here. Liveness inside a bounce uses max(min_transmittance,
@@ -355,16 +361,21 @@ def planar_mirror_plane(mesh: TriangleMesh, config: RenderConfig):
 
 def render_with_mesh_planar_mirror(scene: GaussianScene, camera: Camera, config: RenderConfig,
                                    plane: dict, pair_capacity: int | None = None,
-                                   chunk: int | None = None, use_kernels: bool = True):
+                                   chunk: int | None = None, use_kernels: bool = True,
+                                   record: list | None = None):
     """Planar-mirror path: all rays reflected off a plane pass through the
-    reflected eye with the same |d| per pixel, so bounce 1 is the pinhole
-    frame of the mirrored camera (built with the mirrored up vector, which
-    lands primary pixel (x, y) at mirror pixel (W-1-x, y)), marched with
+    reflected eye with the same |d| per pixel, so bounce 1 is the frame of
+    the mirrored camera at the config's camera model (built with the
+    mirrored up vector, which lands primary pixel (x, y) at mirror pixel
+    (W-1-x, y): exact for pinhole and fisheye rays, and under OpenCV only
+    while the tangential p2 is 0, as in the JAX package), marched with
     per-ray windows [t_hit + t_min, t_max] and the primary segment's
     transmittance as its carry-in. Gaussians wholly behind the mirror are
     dropped from that frame. A plane-reflected ray cannot hit the plane
     again, so bounce 1 is every hit ray's final pass.
-    Returns {rgb, alpha, aux: {pair_dropped}}."""
+    Returns {rgb, alpha, aux: {pair_dropped}}; a `record` list gets
+    {"k1": (args, kwargs)} of each of its two K1 calls, as in
+    render_with_mesh_fast."""
     check_mesh_supported(config)
     check_devices(scene, camera, use_kernels)
     k1 = march if use_kernels else march_plain
@@ -394,7 +405,8 @@ def render_with_mesh_planar_mirror(scene: GaussianScene, camera: Camera, config:
     stream, feats, _ = prepare_pair_stream(scene, camera, config, capacity(scene, camera),
                                            use_kernels)
     seg_hi = torch.where(hit, t_plane, config.t_max)
-    rgb0_t, t0_t = k1(stream.starts, feats, t3(dirs), config, chunk, t_hi=t2(seg_hi))
+    calls = [((stream.starts, feats, t3(dirs), config, chunk), dict(t_hi=t2(seg_hi)))]
+    rgb0_t, t0_t = k1(*calls[0][0], **calls[0][1])
     rgb0, t_after0 = untile(rgb0_t), untile(t0_t[..., None])[..., 0]
     density0 = 1.0 - t_after0
 
@@ -420,8 +432,11 @@ def render_with_mesh_planar_mirror(scene: GaussianScene, camera: Camera, config:
     # plane hit + t_min, the carry-in is the primary segment's T
     t_lo_m = torch.where(hit_m, flip(t_plane) + config.t_min, float("inf"))
     t0_m = torch.where(hit_m, flip(t_after0), 0.0)
-    rgb1_t, t1_t = k1(stream_m.starts, feats_m, t3(dirs_m), config, chunk, t_lo=t2(t_lo_m),
-                      t0=t2(t0_m))
+    calls.append(((stream_m.starts, feats_m, t3(dirs_m), config, chunk),
+                  dict(t_lo=t2(t_lo_m), t0=t2(t0_m))))
+    rgb1_t, t1_t = k1(*calls[1][0], **calls[1][1])
+    if record is not None:
+        record.extend({"k1": call} for call in calls)
     rgb1 = flip(untile(rgb1_t))
     density1 = 1.0 - flip(untile(t1_t[..., None])[..., 0])  # cumulative (carry t0)
 
@@ -446,7 +461,7 @@ def render_with_mesh(scene: GaussianScene, mesh: TriangleMesh, camera: Camera,
     (kw: loop_bound, ray_chunk; it drops nothing); else the planar-mirror
     path when the mesh is one planar MIRROR rectangle and no loop_bound is
     given, else the fast path (kw: loop_bound, pair_capacity,
-    block_capacity, chunk)."""
+    block_capacity, chunk); both take a `record` list."""
     if oracle:
         out = render_with_mesh_oracle(scene, mesh, camera, config, **kw)
         return {**out, "aux": {"block_dropped": 0, "pair_dropped": 0}}

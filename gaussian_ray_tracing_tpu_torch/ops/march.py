@@ -92,9 +92,10 @@ None on the primary render:
     scalar rows (`scalar_features`, or the training rows with save_tin):
     o_g = M (o - mu), d_g = M d, t* = -od / max(dd, 1e-6) as a true
     division, pp = oo + t* (2 od + t* dd), the gate with disc >= 0, and the
-    colour from the row's SH coefficients. The rolling shutter uses this
-    mode on the pair stream, window-order training with every origin the
-    eye. (The TPU kernel's per-ray-origin QUAD expansion is on no JAX path
+    colour from the row's SH coefficients at the ray's own direction. The
+    rolling shutter uses this mode on the pair stream, window-order
+    training with every origin the eye, the mesh tracer's bounced rays in
+    block mode (below) at SH 0-3. (The TPU kernel's per-ray-origin QUAD expansion is on no JAX path
     and is not ported.)
   - blocks (cap_b,) int32 with block_sub: block mode over the Morton-sorted
     table (ops/blocks.block_stream). With bs = chunk / block_sub, chunk j of

@@ -74,6 +74,16 @@ def _k4_rays(rows, bounds, kind, n=384, seed=0):
         d = _unit(rng.normal(size=(n, 3)))
         side = _unit(np.cross(d, rng.normal(size=(n, 3))))
         o = s[:, :3] + s[:, 3:] * side - rng.uniform(0.2, 2.0, (n, 1)) * d
+    elif kind in ("fisheye", "opencv"):  # a wide camera's rays at the sphere, those it has
+        from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
+        from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
+
+        cfg = (RenderConfig(camera_model=CameraModel.FISHEYE) if kind == "fisheye" else
+               RenderConfig(camera_model=CameraModel.OPENCV, distortion=(-0.25, 0.05, 0.0, 0.0)))
+        side = int(np.sqrt(n))
+        cam = Camera.create(eye=(0.1, 0.3, 2.6), lookat=c, width=side, height=side)
+        o, d, valid = generate_rays(cam, cfg)
+        return o[valid].contiguous(), d[valid].contiguous()
     elif kind.startswith("graze"):  # through a point of a face, at an angle to its plane
         angle = float(kind.split("_")[-1])
         fr = rows.numpy().astype(np.float64)
@@ -113,10 +123,13 @@ GRAZE = [f"graze_{mesh}_{angle}" for mesh in ("sphere", "plane")
          for angle in ("1e-2", "1e-3", "1e-4", "1e-5", "1e-6", "1e-7", "0")]
 
 
-@pytest.mark.parametrize("kind", ["outside", "inside", "tangent", "edges"] + GRAZE)
+@pytest.mark.parametrize("kind", ["outside", "inside", "tangent", "edges", "fisheye", "opencv"]
+                         + GRAZE)
 def test_k4_pretests_keep_every_accepted_hit(kind):
+    """The camera kinds take a 32x32 fisheye (its pixels inside the image
+    circle) or OpenCV camera's rays."""
     rows, bounds = _tilted_plane() if "plane" in kind else _faces()
-    n_rays = 1024 if kind.startswith("graze") else 384
+    n_rays = 1024 if kind.startswith("graze") or kind in ("fisheye", "opencv") else 384
     o, d = _k4_rays(rows, bounds, kind, n=n_rays)
     blk = torch.arange(rows.shape[0]) // ttri.FACES_PER_BLOCK
     row = torch.arange(rows.shape[0]) % ttri.FACES_PER_BLOCK // ttri.SLOTS

@@ -76,15 +76,17 @@ def test_defaults_and_bench_config_are_supported():
     dict(camera_model=tcfg.CameraModel.OPENCV, distortion=(-0.2, 0.0, 0.0, 0.0)),
     dict(sh_degree=1), dict(sh_degree=3),
 ])
-def test_training_and_mesh_refuse_cameras_and_sh(change):
-    """The render and training (K1 with saved carries, K3) take fisheye,
-    OpenCV and SH 1-3 in both orders; the mesh tracer does not yet, and
-    refuses them explicitly."""
+def test_training_and_mesh_take_cameras_and_sh(change):
+    """The render, training (K1 with saved carries, K3) and the mesh tracer
+    take fisheye, OpenCV and SH 1-3 (training in both orders); the mesh
+    tracer still refuses an order it does not implement with them."""
     tcfg.check_supported(tcfg.RenderConfig(**change))
     for order in ("key", "window"):
         tcfg.check_trainable(tcfg.RenderConfig(order=order, **change))
-    with pytest.raises(NotImplementedError):
-        tcfg.check_mesh_supported(tcfg.RenderConfig(**change))
+    tcfg.check_mesh_supported(tcfg.RenderConfig(**change))
+    for bad in (dict(order="oddeven"), dict(bounce_order="oddeven")):
+        with pytest.raises(NotImplementedError):
+            tcfg.check_mesh_supported(tcfg.RenderConfig(**change, **bad))
 
 
 @pytest.mark.parametrize("change,trains", [

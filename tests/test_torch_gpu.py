@@ -799,3 +799,149 @@ def test_backward_launches_bit_identical(order, degree):
     for _ in range(2):
         assert torch.equal(tbwd.march_bwd(*args), first)
     assert bool(first.any())
+
+
+# --- mesh bounces at every camera model and SH degree; the viewer and CLI ---
+
+def _kernel_close(got, want):
+    for a, b in zip(got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert psnr(a, b) >= 70.0 and np.abs(a - b).max() <= 1e-2
+
+
+def _k4_bit_identical(args, kw):
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ttri
+
+    stats = torch.zeros((args[3].shape[0], len(ttri.STATS)), dtype=torch.int32, device="cuda")
+    got = ttri.closest_hit_blocks(*args, **kw, stats=stats)
+    torch.cuda.synchronize()
+    want = ttri.closest_hit_blocks_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))  # t, face, u, v bit for bit
+    assert torch.equal(stats, ttri.pretest_stats(*args, kw["origins_t"], kw["bounds"]))
+
+
+@pytest.mark.parametrize("model,degree", [("fisheye", 0), ("opencv", 0), ("pinhole", 3),
+                                          ("fisheye", 3)])
+def test_mesh_camera_kernels_match_plain(model, degree):
+    """The glass sphere's frame under a fisheye or OpenCV camera and at SH 3:
+    K4 bit-identical to its plain version on every bounce, K1's segment and
+    block modes at the chip_smoke bars, the frame kernel vs plain >= 60 dB
+    with equal aux and (fisheye) the corner black."""
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel
+    from gaussian_ray_tracing_tpu_torch.models.mesh_tracer import render_with_mesh_fast
+
+    scene, cam, mesh = _mesh_case()
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, sh_degree=degree,
+                       camera_model=CameraModel(model),
+                       distortion=(-0.25, 0.05, 0.0, 0.0) if model == "opencv" else ())
+    record = []
+    render_with_mesh_fast(scene, mesh, cam, cfg, record=record)
+    assert len(record) >= 3 and "blocks" in record[1]["k1"][1]
+    for rec in record:
+        _k4_bit_identical(*rec["k4"])
+        args, kw = rec["k1"]
+        if "blocks" in kw:
+            assert args[1].shape[1] == tmarch.scalar_row(degree)
+        _kernel_close(tmarch.march(*args, **kw), tmarch.march_plain(*args, **kw))
+    gpu = render(scene, cam, cfg, mesh=mesh, method="gpu", return_aux=True)
+    plain = render(scene, cam, cfg, mesh=mesh, method="plain", return_aux=True)
+    assert gpu["aux"] == plain["aux"] and gpu["aux"]["pair_dropped"] == 0
+    assert psnr(gpu["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy()) >= 60.0
+    if model == "fisheye":
+        assert not gpu["rgb"][0, 0].any() and float(gpu["alpha"][0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("bsub", [1, 2])
+@pytest.mark.parametrize("order", ["window", "key", "merge"])
+@pytest.mark.parametrize("degree", [1, 2, 3])
+def test_mesh_block_mode_sh_matches_plain(degree, order, bsub):
+    """K1 block mode on the scalar SH 1-3 rows (the bounced rays of the
+    glass sphere's frame), in every order at block_sub 1 and 2, and its
+    segment mode on the quad SH rows of bounce 0."""
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, sh_degree=degree, order=order,
+                       bounce_order=order)
+    record = _bounce_record(cfg)
+    for rec, counter in ((record[0], "segment_launches"), (record[1], "block_launches")):
+        args, kw = rec["k1"]
+        if "blocks" in kw and bsub > 1:
+            args, kw = (*args[:4], args[4] * bsub), {**kw, "block_sub": bsub}
+        before = getattr(tmarch.march, counter)
+        got = tmarch.march(*args, **kw)
+        torch.cuda.synchronize()
+        assert getattr(tmarch.march, counter) == before + 1
+        _kernel_close(got, tmarch.march_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("model", ["fisheye", "opencv"])
+def test_planar_mirror_cameras_match_plain(model):
+    """The planar-mirror path under fisheye and OpenCV: both K1 segments at
+    the chip_smoke bars, the frame kernel vs plain >= 60 dB."""
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType
+    from gaussian_ray_tracing_tpu_torch.models.mesh_tracer import render_with_mesh
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_plane
+
+    scene, cam, _ = _mesh_case()
+    plane = make_plane((0.0, 0.0, 1.6), device="cuda").with_type(MeshType.MIRROR)
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, camera_model=CameraModel(model),
+                       distortion=(-0.25, 0.05, 0.0, 0.0) if model == "opencv" else ())
+    record = []
+    gpu = render_with_mesh(scene, plane, cam, cfg, record=record)
+    assert len(record) == 2 and all(set(rec) == {"k1"} for rec in record)
+    for rec in record:
+        _kernel_close(tmarch.march(*rec["k1"][0], **rec["k1"][1]),
+                      tmarch.march_plain(*rec["k1"][0], **rec["k1"][1]))
+    plain = render_with_mesh(scene, plane, cam, cfg, use_kernels=False)
+    assert gpu["aux"] == plain["aux"] and float(gpu["rgb"].max()) > 0.1
+    assert psnr(gpu["rgb"].cpu().numpy(), plain["rgb"].cpu().numpy()) >= 60.0
+
+
+def test_viewer_serves_kernel_frames():
+    """viewer.serve on the card: a pinhole, a fisheye, a fisheye mirror and
+    an SH 3 glass frame over HTTP, with K1, K2 and K4 launched."""
+    import urllib.request
+
+    from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ttri
+    from gaussian_ray_tracing_tpu_torch.viewer import serve
+
+    scene = random_scene(5000, seed=3, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128)
+    servers = [serve(GaussianRayTracer(scene=scene, config=c), port=0, width=256, height=192,
+                     block=False) for c in (cfg, cfg.replace(sh_degree=3))]
+    counts = lambda: (tmarch.march.launches, tscan.multi_cumsum_i32.launches,
+                      ttri.closest_hit_blocks.launches)
+    try:
+        get = lambda i, path: urllib.request.urlopen(
+            f"http://127.0.0.1:{servers[i].server_address[1]}{path}", timeout=300).read()
+        before = counts()
+        frames = [get(0, "/frame?az=0&el=6&r=2.8"), get(0, "/frame?az=0&el=6&r=2.8&fisheye=1")]
+        get(0, "/add?kind=plane")
+        frames.append(get(0, "/frame?az=0&el=6&r=2.8&fisheye=1&type=mirror"))
+        get(1, "/add?kind=sphere")
+        frames.append(get(1, "/frame?az=0&el=6&r=2.8&type=glass"))
+        after = counts()
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+    assert all(f[:8] == b"\x89PNG\r\n\x1a\n" for f in frames)
+    assert len(set(frames)) == 4
+    assert all(a > b for a, b in zip(after, before))
+
+
+def test_serving_cli_on_card(tmp_path, capsys):
+    """cli orbit, warmup --assert and bench on the card."""
+    import json
+
+    from gaussian_ray_tracing_tpu_torch import cli
+
+    small = ["--synthetic", "5000", "--width", "128", "--height", "96"]
+    cli.main(["orbit", *small, "--frames", "2", "-o", str(tmp_path)])
+    assert sorted(os.listdir(tmp_path)) == ["frame_0000.png", "frame_0001.png"]
+    cli.main(["warmup", *small, "--assert"])
+    cli.main(["bench", *small, "--iters", "3"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert lines[3]["method"] == "gpu" and lines[4]["psnr_vs_golden"] >= 40.0
+    bench = lines[-1]
+    assert bench["backend"] == "cuda" and bench["timer"] == "cuda_events"
+    assert bench["device"] == torch.cuda.get_device_name(0) and bench["mean_ms"] > 0

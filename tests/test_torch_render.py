@@ -18,7 +18,7 @@ from gaussian_ray_tracing_tpu.models.pallas_renderer import render_pallas
 from gaussian_ray_tracing_tpu.models.renderer import render as j_render
 from gaussian_ray_tracing_tpu.scene.synthetic import random_scene as j_random_scene
 from gaussian_ray_tracing_tpu_torch.cameras import Camera
-from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
+from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
 from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
@@ -155,11 +155,11 @@ def test_tracer_loads_ply_on_cuda_unless_told_otherwise():
     assert tracer.render_rgb8(supersample=2).shape == (32, 32, 3)
 
 
-def test_training_and_mesh_refuse_fisheye_and_sh():
+def test_training_and_mesh_take_fisheye_and_sh():
     """Fisheye, OpenCV and SH > 0 train (the differentiable render returns
     the forward render's frame, here at 32x32 to 1e-5, the fisheye corner
-    blank); the mesh tracer still raises NotImplementedError for them
-    instead of rendering something else."""
+    blank) and trace mesh bounces: the frame is finite, differs from the
+    mesh-less frame, and keeps the fisheye corner blank."""
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.renderer import render_diff
     from gaussian_ray_tracing_tpu_torch.scene.mesh import make_plane
@@ -181,8 +181,12 @@ def test_training_and_mesh_refuse_fisheye_and_sh():
             assert model.sh.grad[:, 1:4].any() and not model.sh.grad[:, 4:].any()
         if change.get("camera_model") == CameraModel.FISHEYE:
             assert not out["rgb"][0, 0].any()
-        with pytest.raises(NotImplementedError):
-            render(scene, cam, RenderConfig(**change), mesh=plane)
+        mesh_cfg = RenderConfig(mesh_type=MeshType.NORMAL, **change)
+        framed = render(scene, cam, mesh_cfg, mesh=plane)["rgb"]
+        assert bool(torch.isfinite(framed).all())
+        assert not torch.equal(framed, render(scene, cam, mesh_cfg)["rgb"])
+        if change.get("camera_model") == CameraModel.FISHEYE:
+            assert not framed[0, 0].any()
 
 
 def test_tracer_render_and_capacity_bucket():
