@@ -20,7 +20,11 @@ an SH 3 glass_front frame on fitted_20k.ply, every bounce's K4 and K1 held
 against their plain versions, 256x256 NORMAL-plane frames against the mesh
 oracle), the viewer (viewer.serve over HTTP: pinhole, fisheye, fisheye
 mirror and SH 3 glass frames at 1280x720) and `cli orbit`, `cli warmup
---assert` and `cli bench`, times each against the
+--assert` and `cli bench`, the tiled march (a 1280x720 / 100k frame,
+the 720p golden, three tiled training steps at 512x512 / 50k, K1's
+scalar and quad key modes and K3's gradients held against it, `cli
+grad-check` and `cli info` with the native C++ core built by g++ beside
+the kernels), times each against the
 plain path, profiles the 720p/100k, fisheye and SH 3 frames and the window
 and key SH 3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
 SH 3, and --order merge) and `cli fit`, and finally writes the
@@ -63,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -444,35 +449,38 @@ def run_cli(*argv) -> str:
     return out
 
 
-def profile_frames(fn, frames: int = 5, top: int = 5) -> dict:
+def profile_frames(fn, frames: int = 5, top: int = 5, host: bool = True) -> dict:
     """torch.profiler over `frames` calls of fn() after one warm-up: device
     time per frame, device ops (kernels, copies) per frame, the `top` ops by
-    device time, and the host ops by host time (self CPU time per call of
-    fn: where a host-bound call spends its time)."""
+    device time, and with `host` the host ops by host time (self CPU time
+    per call of fn: where a host-bound call spends its time; without it only
+    the device is traced, which costs far less on calls of ~10^4 ops)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(frames):
             fn()
         torch.cuda.synchronize()
+    events = prof.key_averages()
     # device-side events only (kernels, copies, sets): a CPU op's device
     # time is its kernels', which are listed themselves
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0.0)
-    ops = [(e.key, dev_us(e) / 1e3 / frames, e.count / frames) for e in prof.key_averages()
+    ops = [(e.key, dev_us(e) / 1e3 / frames, e.count / frames) for e in events
            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     ops.sort(key=lambda x: -x[1])
-    host = [(e.key, e.self_cpu_time_total / 1e3 / frames, e.count / frames)
-            for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-    host.sort(key=lambda x: -x[1])
+    hosts = [(e.key, e.self_cpu_time_total / 1e3 / frames, e.count / frames)
+             for e in events if host and e.device_type == DeviceType.CPU]
+    hosts.sort(key=lambda x: -x[1])
     return {"device_ms": sum(o[1] for o in ops), "device_ops": sum(o[2] for o in ops),
             "top": [(k[:48], round(ms, 4)) for k, ms, _ in ops[:top]],
-            "host_ms": sum(h[1] for h in host),
-            "host_top": [(k[:40], round(ms, 3), round(n, 1)) for k, ms, n in host[:top]]}
+            "host_ms": sum(h[1] for h in hosts),
+            "host_top": [(k[:40], round(ms, 3), round(n, 1)) for k, ms, n in hosts[:top]]}
 
 
 def main() -> None:
@@ -515,10 +523,20 @@ def main() -> None:
     from gaussian_ray_tracing_tpu_torch.utils.image import psnr
 
     # --- phase 1: build --------------------------------------------------
+    # the native C++ core (g++) builds beside the kernels (nvcc); without
+    # g++ the smoke fails here instead of falling back to numpy
+    from gaussian_ray_tracing_tpu_torch.native import bindings as native
+
     t0 = time.perf_counter()
+    native_build = threading.Thread(target=native.build)
+    native_build.start()
     lib_path = cuda_build.build()
     cuda_build.load_library()
     log("build", f"{lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    native_build.join()
+    check(native.available(), "the native C++ core (native/grtcore.cpp) did not build")
+    log("build", f"{native.library_path('grtcore', native.CORE_FLAGS).name} by "
+                 f"{time.perf_counter() - t0:.1f} s")
     PTXAS.update(cuda_build.ptxas_table(cuda_build.build_log))
     for line in cuda_build.build_log.splitlines():
         if "error" in line.lower():
@@ -802,6 +820,7 @@ def main() -> None:
     check(abs(dl["cuda"] - dl["cpu"]) <= 1e-4 * abs(dl["cpu"]), "dssim_l1 card vs cpu")
 
     train_rows = training_phase(dev, card, views, init)
+    tiled_rows, k2_tiled = tiled_phase(dev, card, views, init)
 
 
     # --- phase 7: mesh bounces at full size ------------------------------
@@ -1041,7 +1060,8 @@ def main() -> None:
             k1key_ms, k1key_plain, k1key_bound,
             more={**k1key_design, "render_sh0_max_abs_err": key_render_err}),
         row("multi_cumsum_i32", "scan.cu", "gaussian_ray_tracing_tpu/ops/scan.py:81",
-            launches["scan"], scan_err, k2_ms, k2_plain, k2_bound, k2_lib, more=k2_design),
+            launches["scan"], scan_err, k2_ms, k2_plain, k2_bound, k2_lib,
+            more={**k2_design, "tiled_frame_launches": k2_tiled}),
         row("march_bwd", "march_bwd.cuh", "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
             train_launches["march_bwd"], bwd_err, k3_ms, k3_plain, k3_bound, more=k3_design),
         row("closest_hit", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
@@ -1054,6 +1074,7 @@ def main() -> None:
             blk_plain, blk_bound, more=blk_design),
         *cam_rows,
         *train_rows,
+        *tiled_rows,
         *merge_rows,
         *meshcam_rows,
     ]}), flush=True)
@@ -1732,6 +1753,206 @@ def camera_phase(dev, card: str, scene) -> list:
                 times["sh_key"]),
             row("march_origin", "march.cuh", main["origin_launches"], origin_err,
                 times["origin"])]
+
+
+def tiled_phase(dev, card: str, views, init) -> tuple:
+    """The tiled march (models/tiled.py, plain torch and autograd; its
+    binning's scan is K2) at full width, and K1 and K3 held against it.
+    data/golden/pinhole_720p.npz's scene and camera through it at >= 40
+    dB. The main path: render(method="tiled") of random_scene(100k, seed
+    0) at 1280x720 from the golden's eye in the bench config, max_per_tile
+    doubled from 4096 until no pair drops, with K2's count zeroed just
+    before and read just after, >= 40 dB against the kernel path's frame;
+    Trainer(method="tiled") three steps on phase 6's 512x512 views of 50k
+    from `init`. Against it: K1 on the scalar response from the eye
+    (render_gpu(quad=False), key order, chunk_skip 1e-3, the same scene
+    and camera) within 2e-5 on rgb and alpha, K1 on the quad response >=
+    70 dB (tests/test_pallas.py:36-57; its max abs and the rays above
+    1e-2 logged); K3's gradients (render_diff, key order, phase 6's first
+    view and a model of `init`) against the tiled march's autograd per
+    field: the distance in units of the largest entry logged against
+    test_pallas.py:239-273's 1e-3, and K3 held no further from the tiled
+    march in float64 than WITNESS_RATIO times the float32 autograd. Then
+    `cli grad-check` (at the JAX CLI's eps 1e-3, logged, and at eps 1e-4,
+    held at rtol 0.05, atol 1e-4) and `cli info` (native_core true) in the
+    process. Times the tiled frame and step with CUDA events and profiles
+    the frame. Returns the row of K1's scalar key mode and K2's launches on
+    the tiled frame."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import FIELDS, GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        prepare_pair_stream, render_gpu,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render, render_diff
+    from gaussian_ray_tracing_tpu_torch.models.tiled import TILE_CHUNK_CUDA, tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    t_phase = time.perf_counter()
+
+    def drop_free(render_fn, cfg):
+        """render_fn(cfg) -> out with aux, max_per_tile doubled from 4096
+        until no pair drops."""
+        cfg = cfg.replace(max_per_tile=4096)
+        while True:
+            out = render_fn(cfg)
+            if out["aux"]["n_dropped"] == 0:
+                return out, cfg
+            check(cfg.max_per_tile < 65536, f"tiled: pairs still dropped at {cfg.max_per_tile}")
+            cfg = cfg.replace(max_per_tile=2 * cfg.max_per_tile)
+
+    # 1. the 720p golden's scene through the tiled march, >= 40 dB
+    z = np.load(ROOT / "data" / "golden" / "pinhole_720p.npz")
+    n, seed, width, height, hm, _ = (int(v) for v in z["meta"])
+    cam = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=width,
+                                height=height, device=dev)
+    bench = RenderConfig(hit_multiplicity=hm, order="window", march_chunk=128)
+    golden_scene = random_scene(n, seed=seed, device=dev)
+    with torch.no_grad():
+        out, gcfg = drop_free(lambda c: render(golden_scene, cam, c, method="tiled",
+                                               return_aux=True), bench)
+    p = psnr(out["rgb"].cpu().numpy(), z["rgb"].astype(np.float32))
+    log("tiled", f"golden pinhole_720p ({n} gaussians, seed {seed}): {out['aux']['n_pairs']} "
+                 f"pairs, n_dropped 0 at max_per_tile {gcfg.max_per_tile}, PSNR {p:.2f} dB")
+    check(p >= PSNR_GOLDEN, f"tiled golden PSNR {p:.2f} < {PSNR_GOLDEN}")
+
+    # the main path: 1280x720 on random_scene(100k, seed 0), bench config
+    scene = random_scene(100_000, seed=0, device=dev)
+    kscan.multi_cumsum_i32.launches = 0
+    with torch.no_grad():
+        out, bench = drop_free(lambda c: render(scene, cam, c, method="tiled",
+                                                return_aux=True), bench)
+        torch.cuda.synchronize()
+        tiled_launches = kscan.multi_cumsum_i32.launches
+        gpu = render(scene, cam, bench, method="gpu")["rgb"]
+    check(tiled_launches > 0, "the tiled frame did not launch K2")
+    rgb = out["rgb"]
+    check(tuple(rgb.shape) == (height, width, 3) and bool(torch.isfinite(rgb).all()),
+          "tiled frame: bad output")
+    p = psnr(rgb.cpu().numpy(), gpu.cpu().numpy())
+    log("tiled", f"1280x720 100k bench config: {out['aux']['n_pairs']} pairs, n_dropped 0 at "
+                 f"max_per_tile {bench.max_per_tile}, K2 launches {tiled_launches}, tile chunk "
+                 f"{TILE_CHUNK_CUDA}; PSNR {p:.2f} dB against the kernel path's frame")
+    check(p >= PSNR_GOLDEN, f"tiled vs kernel frame PSNR {p:.2f} < {PSNR_GOLDEN}")
+    frame = lambda: render(scene, cam, bench, method="tiled")
+    with torch.no_grad():
+        frame_ms = statistics.median(cuda_ms(frame, 3))
+        prof = profile_frames(frame, frames=1, host=False)
+    log("tiled", f"frame 1280x720 100k, median of 3: {frame_ms:.1f} ms, device busy "
+                 f"{prof['device_ms']:.1f} ms (idle share {1.0 - prof['device_ms'] / frame_ms:.3f}), "
+                 f"{prof['device_ops']:.0f} device ops, top {prof['top']} ({card})")
+
+    # 2. K1 against the tiled march: the same scene and camera, key order
+    key = RenderConfig(hit_multiplicity=hm, order="key", march_chunk=128,
+                       chunk_skip_transmittance=1e-3)
+    with torch.no_grad():
+        tiled, key = drop_free(lambda c: render(scene, cam, c, method="tiled",
+                                                return_aux=True), key)
+        kmarch.march.launches = kmarch.march.origin_launches = 0
+        scalar = render_gpu(scene, cam, key, quad=False)
+        torch.cuda.synchronize()
+        scalar_launches = kmarch.march.origin_launches
+        quad = render_gpu(scene, cam, key)
+    check(scalar_launches == 1, f"render_gpu(quad=False) launched K1's per-ray-origin mode "
+                                f"{scalar_launches} times")
+    err = {k: float((scalar[k] - tiled[k]).abs().max()) for k in ("rgb", "alpha")}
+    a, b = quad["rgb"].cpu().numpy(), tiled["rgb"].cpu().numpy()
+    p_quad, m_quad = psnr(a, b), float(np.abs(a - b).max())
+    flips = int(((quad["rgb"] - tiled["rgb"]).abs().amax(-1) > MAXABS_KERNEL).sum())
+    log("tiled", f"K1 key vs the tiled march: scalar max abs rgb {err['rgb']:.3g} alpha "
+                 f"{err['alpha']:.3g} (bar 2e-5); quad PSNR {p_quad:.2f} dB (bar "
+                 f"{PSNR_KERNEL}), max abs {m_quad:.3g} ({flips} rays above {MAXABS_KERNEL}: "
+                 f"alpha_min gate flips of the quad form, ROADMAP Queue 3)")
+    check(max(err.values()) <= 2e-5, f"K1 scalar key vs the tiled march: {err}")
+    check(p_quad >= PSNR_KERNEL, f"K1 quad vs the tiled march: PSNR {p_quad:.2f}")
+
+    # the scalar key mode alone: against its plain version, times, bound
+    stream, rows, _ = prepare_pair_stream(scene, cam, key, 1 << 16, quad=False)
+    dirs_t = tile_rays(cameras.generate_rays(cam, key)[1], 16, 16)
+    kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()}
+    args = (stream.starts, rows, dirs_t, key, kmarch.chunk_for(key))
+    k1_err = k1_check("tiled", "K1 key scalar from the eye", args, kw)
+    k1_ms = statistics.median(cuda_ms(lambda: kmarch.march(*args, **kw), 20))
+    k1_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 3))
+    k1_bound = march_bound(args, kw, kmarch.march_plain)
+    k1_design = design("march", key, args[4], scalar=True)
+
+    # 3. K3 against the tiled march's autograd (and both against float64)
+    cam0, target = views[0]
+    tkey = RenderConfig(**{**TRAIN_KW, "chunk_skip_transmittance": 1e-3})
+    with torch.no_grad():
+        _, tkey = drop_free(lambda c: render(init, cam0, c, method="tiled",
+                                             return_aux=True), tkey)
+
+    def grads(method, cfg):
+        model = GaussianModel.from_scene(init).requires_grad_(True)
+        out = render_diff(model.activate(), cam0, cfg, method=method)
+        torch.mean((out["rgb"] - target) ** 2).backward()
+        return {f: getattr(model, f).grad.double() for f in FIELDS}
+
+    # K3 and the tiled march's float32 autograd both stand about 1e-3 of the
+    # largest entry from the float64 march at this size (ROADMAP Queue 3):
+    # K3 is held no further from it than WITNESS_RATIO times autograd's own
+    # distance, as against its plain version; the 1e-3 bar is logged
+    g_k3, g_tiled = grads("gpu", tkey), grads("tiled", tkey)
+    g64 = grads("tiled", tkey.replace(compute_dtype="float64"))
+    rel, wit = {}, {}
+    for f in FIELDS:
+        check(bool(torch.isfinite(g_k3[f]).all() and torch.isfinite(g_tiled[f]).all()),
+              f"K3 or tiled gradient of {f} not finite")
+        rel[f] = float((g_k3[f] - g_tiled[f]).abs().max() / g_tiled[f].abs().max())
+        w = g64[f].abs().max()
+        wit[f] = (float((g_k3[f] - g64[f]).abs().max() / w),
+                  float((g_tiled[f] - g64[f]).abs().max() / w))
+        log("tiled", f"K3 vs tiled autograd, 512x512 50k key, {f}: {rel[f]:.3g} of the largest "
+                     f"entry (bar 1e-3{', not met' if rel[f] > 1e-3 else ''}); from float64: "
+                     f"K3 {wit[f][0]:.3g}, tiled {wit[f][1]:.3g}")
+        check(wit[f][0] <= WITNESS_RATIO * wit[f][1],
+              f"K3 {f}: {wit[f][0]:.3g} from the float64 tiled march, its float32 autograd "
+              f"{wit[f][1]:.3g}")
+
+    # 4. the tiled trainer: three steps at 512x512 / 50k
+    trainer = ktrain.Trainer(GaussianModel.from_scene(init), config=tkey, lr=2e-3,
+                             method="tiled")
+    kscan.multi_cumsum_i32.launches = 0
+    losses = trainer.fit(views, steps=3)
+    torch.cuda.synchronize()
+    check(len(losses) == 3 and all(np.isfinite(losses)), f"tiled trainer: bad losses {losses}")
+    check(kscan.multi_cumsum_i32.launches > 0, "the tiled trainer did not launch K2")
+    step = ktrain.make_train_step(tkey, trainer.optimizer, method="tiled",
+                                  pair_capacity=trainer._pair_capacity)
+    step_ms = statistics.median(cuda_ms(lambda: step(trainer.model, *views[0]), 3))
+    prof = profile_frames(lambda: step(trainer.model, *views[0]), frames=1, host=False)
+    log("tiled", f"Trainer(method='tiled') 3 steps 512x512 50k: losses {losses}; step, median "
+                 f"of 3: {step_ms:.1f} ms, device busy {prof['device_ms']:.1f} ms (idle share "
+                 f"{1.0 - prof['device_ms'] / step_ms:.3f}), {prof['device_ops']:.0f} device ops, "
+                 f"top {prof['top']} ({card})")
+
+    # 5. cli grad-check and cli info in the process
+    report = json.loads(run_cli("grad-check"))
+    log("tiled", f"grad-check eps 1e-3 (the JAX CLI's): {json.dumps(report['grads'])}")
+    report = json.loads(run_cli("grad-check", "--eps", "1e-4"))
+    for f, g in report["grads"].items():
+        check(abs(g["finite_diff"] - g["autodiff"]) <= 1e-4 + 0.05 * abs(g["autodiff"]),
+              f"grad-check --eps 1e-4 {f}: {g}")
+    log("tiled", f"grad-check eps 1e-4: {json.dumps(report['grads'])}")
+    info = json.loads(run_cli("info", "--synthetic", "1000").splitlines()[-1])
+    check(info["native_core"] is True and info["num_gaussians"] == 1000, f"cli info: {info}")
+    log("phase", f"tiled march in {time.perf_counter() - t_phase:.1f} s")
+
+    return [{"name": "march_key_scalar", "route": "cuda", "source": f"{PKG}/csrc/march.cuh",
+             "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:195",
+             "launches": scalar_launches, "max_abs_err": k1_err, "ms": k1_ms,
+             "plain_ms": k1_plain, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+             "library_ms": None, "vs_tiled_max_abs": max(err.values()), **k1_design}], \
+        tiled_launches
 
 
 def training_phase(dev, card: str, views, init) -> list:

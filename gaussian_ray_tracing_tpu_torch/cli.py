@@ -1,7 +1,8 @@
 """Command-line interface of the port (the `render`, `bench`, `orbit`,
-`serve`, `warmup`, `fit` and `eval` subcommands of
+`serve`, `warmup`, `fit`, `eval`, `grad-check` and `info` subcommands of
 gaussian_ray_tracing_tpu/cli.py; pinhole, fisheye and OpenCV cameras, SH
-degrees 0-3, window, merge or key order, the exact oracle, supersampling,
+degrees 0-3, window, merge or key order, the tiled march and the exact
+oracle, supersampling,
 mesh bounces at every camera and SH degree; the browser viewer; training
 in window or key order at SH 0-3 on orbit renders or a NeRF-synthetic
 dataset, with density control and resumable checkpoints). Everything runs
@@ -26,6 +27,10 @@ on CUDA unless `--device cpu` is given.
         --steps 300 --checkpoint-dir ck -o fit.ply
     python -m gaussian_ray_tracing_tpu_torch.cli eval --dataset <root> --split test \
         --sh-degree 3 --against fit.ply
+    python -m gaussian_ray_tracing_tpu_torch.cli render --synthetic 100000 --method tiled \
+        --width 1280 --height 720 -o tiled.png
+    python -m gaussian_ray_tracing_tpu_torch.cli grad-check
+    python -m gaussian_ray_tracing_tpu_torch.cli info --synthetic 1000
 """
 
 from __future__ import annotations
@@ -276,18 +281,20 @@ def cmd_fit(args):
     synthetic or PLY scene from n orbit views, or a NeRF-synthetic dataset
     (--dataset); optional density control and resumable checkpoints."""
     from gaussian_ray_tracing_tpu_torch.cameras import orbit_camera
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_trainable
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.renderer import render
     from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
-    from gaussian_ray_tracing_tpu_torch.train.trainer import Trainer, gaussian_optimizer
+    from gaussian_ray_tracing_tpu_torch.train.trainer import (
+        Trainer, check_method_trainable, gaussian_optimizer,
+    )
 
     # training forward ordering: key leaves a ~30 dB tile-seam floor that the
     # gradients bake into the scene; window is the parity-grade order
     cfg = RenderConfig(hit_multiplicity=1, order=args.order,
                        march_chunk=128 if args.order == "window" else 256,
                        sh_degree=args.sh_degree)
-    check_trainable(cfg)
+    check_method_trainable(cfg, args.method)
     device = _device(args)
     checkpoint_dir = None
     if args.dataset:
@@ -361,9 +368,10 @@ def cmd_eval(args):
     from gaussian_ray_tracing_tpu_torch.utils.image import psnr
 
     # parity-grade ordering: key order's ~30 dB ordering noise would cap the
-    # measurable fit quality below the scores being evaluated
+    # measurable fit quality below the scores being evaluated; the tiled
+    # march's per-tile lists take a dense trained scene (the JAX CLI's 8192)
     cfg = RenderConfig(hit_multiplicity=1, order="window", march_chunk=128,
-                       sh_degree=args.sh_degree)
+                       sh_degree=args.sh_degree, max_per_tile=8192)
     device = _device(args)
     b = load_ply(args.against, device=device)
     rgb = lambda scene, cam: render(scene, cam, cfg, method=args.method)["rgb"].cpu().numpy()
@@ -395,6 +403,59 @@ def cmd_eval(args):
         "psnr_mean": round(float(np.mean(scores)), 2),
         "psnr_min": round(float(np.min(scores)), 2), "poses": args.poses,
         "scenes": [args.ply, args.against],
+    }))
+
+
+def cmd_grad_check(args):
+    """Autodiff of the tiled march against central differences (--eps, the
+    JAX CLI's 1e-3 by default) at each of the five fields' largest-gradient
+    entry: random_scene(n) at 32x32 from (0, 0, 3), hit_multiplicity 1,
+    loss mean(rgb^2). The loss is piecewise smooth (gates and the sort
+    order switch), so a difference whose step straddles a switch misses
+    the gradient: at n=64, seed 0 the raw_quats entry's loss jumps by
+    1.35e-4 within 1e-3 of it, as in the JAX package; at --eps 1e-4 every
+    field agrees."""
+    from gaussian_ray_tracing_tpu_torch.cameras import Camera
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import FIELDS, GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.tiled import render_tiled
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+
+    device = _device(args)
+    cfg = RenderConfig(hit_multiplicity=1)
+    model = GaussianModel.from_scene(random_scene(args.n, seed=args.seed, pad_to=None,
+                                                  device=device))
+    cam = Camera.create(eye=(0, 0, 3), lookat=(0, 0, 0), width=32, height=32, device=device)
+
+    def loss(m):
+        return torch.mean(render_tiled(m.activate(), cam, cfg)["rgb"] ** 2)
+
+    model.requires_grad_(True)
+    base = loss(model)
+    base.backward()
+    eps = args.eps
+    report = {}
+    with torch.no_grad():
+        for f in FIELDS:
+            arr = getattr(model, f).detach().cpu().numpy().astype(np.float64)
+            ga = getattr(model, f).grad.cpu().numpy().astype(np.float64)
+            idx = np.unravel_index(int(np.argmax(np.abs(ga))), arr.shape)
+            d = np.zeros_like(arr)
+            d[idx] = eps
+            moved = lambda x: dataclasses.replace(
+                model, **{f: torch.as_tensor(x, dtype=torch.float32, device=device)})
+            fd = (float(loss(moved(arr + d))) - float(loss(moved(arr - d)))) / (2 * eps)
+            report[f] = {"autodiff": float(ga[idx]), "finite_diff": fd}
+    print(json.dumps({"base_loss": float(base.detach()), "grads": report}, indent=2))
+
+
+def cmd_info(args):
+    from gaussian_ray_tracing_tpu_torch.native import bindings
+
+    s = _build(args).scene
+    print(json.dumps({
+        "num_gaussians": s.num_active, "padded": s.num_gaussians, "sh_coeffs": s.sh_coeffs,
+        "center": s.center().cpu().numpy().tolist(), "native_core": bindings.available(),
     }))
 
 
@@ -443,8 +504,10 @@ def _add_render_args(p: argparse.ArgumentParser):
     p.add_argument("--add-sphere", action="store_true",
                    help="insert a 36 x 18 UV sphere of radius 0.3 in front of the camera")
     p.add_argument("--load-obj", type=str, default=None, help="insert an OBJ mesh")
-    p.add_argument("--method", choices=["auto", "gpu", "plain", "oracle"], default="auto",
-                   help="oracle = the exact per-ray-sorted reference (plain torch)")
+    p.add_argument("--method", choices=["auto", "gpu", "plain", "tiled", "oracle"],
+                   default="auto",
+                   help="tiled = the tiled march (plain torch, autograd reference); "
+                        "oracle = the exact per-ray-sorted reference (plain torch)")
     _device_arg(p)
 
 
@@ -527,7 +590,9 @@ def main(argv=None):
     p.add_argument("--checkpoint-dir", type=str, default=None,
                    help="checkpoint dir: restored first when it holds a step, saved "
                         "during a --dataset fit and after fitting (resumable training)")
-    p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
+    p.add_argument("--method", choices=["auto", "gpu", "plain", "tiled"], default="auto",
+                   help="tiled = torch autograd of the tiled march (targets rendered "
+                        "by it too)")
     _device_arg(p)
     p.add_argument("-o", "--output", type=str, default=None)
     p.set_defaults(func=cmd_fit)
@@ -545,9 +610,20 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--height", type=int, default=256)
     p.add_argument("--sh-degree", type=int, default=0)
-    p.add_argument("--method", choices=["auto", "gpu", "plain"], default="auto")
+    p.add_argument("--method", choices=["auto", "gpu", "plain", "tiled"], default="auto")
     _device_arg(p)
     p.set_defaults(func=cmd_eval)
+
+    p = sub.add_parser("grad-check", help="autodiff of the tiled march vs finite differences")
+    p.add_argument("--n", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eps", type=float, default=1e-3, help="central-difference step")
+    _device_arg(p)
+    p.set_defaults(func=cmd_grad_check)
+
+    p = sub.add_parser("info", help="scene statistics and whether the native core built")
+    _add_scene_args(p); _add_camera_args(p); _add_render_args(p)
+    p.set_defaults(func=cmd_info)
     args = ap.parse_args(argv)
     args.func(args)
 

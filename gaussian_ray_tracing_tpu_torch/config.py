@@ -5,8 +5,9 @@ one package means the same render in the other. The field comments there
 carry the history of each default; they are not repeated here.
 `unsupported_fields` lists the values the ported render path does not
 implement yet, so it can refuse them instead of rendering something else;
-`unsupported_train_fields` and `unsupported_mesh_fields` do the same for the
-training path and the mesh tracer.
+`unsupported_train_fields`, `unsupported_mesh_fields` and
+`unsupported_tiled_fields` do the same for the training path, the mesh
+tracer and the tiled march.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+
+import torch
 
 
 class CameraModel(enum.Enum):
@@ -125,6 +128,18 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
     return [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
 
 
+def unsupported_tiled_fields(config: RenderConfig) -> list[str]:
+    """Values of `config` the ported tiled march (models/tiled.py) does not
+    implement yet: the render's, except that it marches in any float
+    compute_dtype (float64 for a witness); merge order composites in
+    stream order (key), as in the JAX tiled march."""
+    bad = unsupported_fields(config.replace(compute_dtype="float32"))
+    dtype = getattr(torch, str(config.compute_dtype), None)
+    if not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
+        bad.append(f"compute_dtype={config.compute_dtype!r}")
+    return bad
+
+
 def train_config(config: RenderConfig) -> RenderConfig:
     """The config the training path runs: every order other than window and
     key (merge among them) trains in key order, as JAX's render_pallas_diff
@@ -159,6 +174,10 @@ def _raise_unsupported(bad: list[str]) -> None:
 
 def check_supported(config: RenderConfig) -> None:
     _raise_unsupported(unsupported_fields(config))
+
+
+def check_tiled_supported(config: RenderConfig) -> None:
+    _raise_unsupported(unsupported_tiled_fields(config))
 
 
 def check_trainable(config: RenderConfig) -> None:

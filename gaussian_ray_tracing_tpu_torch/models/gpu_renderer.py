@@ -25,12 +25,13 @@ from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
 from gaussian_ray_tracing_tpu_torch.config import (
     RenderConfig, check_supported, check_trainable, train_config,
 )
-from gaussian_ray_tracing_tpu_torch.models.tiled import feature_table, tile_rays, untile_image
+from gaussian_ray_tracing_tpu_torch.models.tiled import (
+    depth_key, feature_table, tile_rays, untile_image,
+)
 from gaussian_ray_tracing_tpu_torch.ops.march import (
-    chunk_for, compact_features, march, march_plain, train_features,
+    chunk_for, compact_features, march, march_plain, scalar_features, train_features,
 )
 from gaussian_ray_tracing_tpu_torch.ops.march_bwd import march_stream_diff
-from gaussian_ray_tracing_tpu_torch.ops.response import ray_ellipsoid_span
 from gaussian_ray_tracing_tpu_torch.ops.tiles import bin_pairs, count_pairs, project_footprints_conic
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 
@@ -41,16 +42,6 @@ def snug_pair_capacity(n_pairs: int) -> int:
     """Pair capacity with ~20% slack: n_pairs * 1.2 rounded up to a
     multiple of 65,536 (the bench's drop-free sizing rule)."""
     return max(_CAP_STEP, -(-int(n_pairs * 1.2) // _CAP_STEP) * _CAP_STEP)
-
-
-def depth_key(scene: GaussianScene, M, radius, eye, config: RenderConfig) -> torch.Tensor:
-    """Front-to-back key: the event t (entry, or exit from inside) along the
-    central ray from `eye` through each gaussian, else its distance."""
-    rel = scene.means - eye
-    rho = torch.clamp(torch.sqrt(torch.sum(rel * rel, dim=-1)), min=1e-9)
-    hit, t_in, t_out = ray_ellipsoid_span(scene.means, M, radius, eye, rel / rho[:, None])
-    key = torch.where(t_in >= config.t_min, t_in, t_out)
-    return torch.where(hit, key, rho)
 
 
 def bin_footprints(fp, camera: Camera, config: RenderConfig, pair_capacity: int,
@@ -84,9 +75,11 @@ def bin_frame(scene: GaussianScene, M, radius, camera: Camera, config: RenderCon
 
 
 def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConfig,
-                        pair_capacity: int, use_kernels: bool = True, with_table: bool = False):
+                        pair_capacity: int, use_kernels: bool = True, with_table: bool = False,
+                        quad: bool = True):
     """Feature table -> footprints -> sorted pair stream -> per-pair rows.
-    Returns (stream, pair_feats (n_pairs, quad_row) rows, n_pairs) and,
+    Returns (stream, pair_feats (n_pairs, quad_row) rows, n_pairs) (quad
+    False: (n_pairs, scalar_row) rows, ops/march.scalar_features) and,
     with_table (the mesh tracer's bounced rays), also the whole table as
     (N, train_row) training rows at the config's SH degree, in gaussian
     order (K1 block mode reads their scalar columns), and the per-gaussian
@@ -94,7 +87,8 @@ def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConf
     table, M, radius = feature_table(scene, config, eye=camera.eye)
     stream, ids, n_pairs = bin_frame(scene, M, radius, camera, config, pair_capacity,
                                      use_kernels)
-    out = (stream, compact_features(table, config.sh_degree)[ids], n_pairs)
+    rows = compact_features if quad else scalar_features
+    out = (stream, rows(table, config.sh_degree)[ids], n_pairs)
     if with_table:
         out += (train_features(table, config.sh_degree),
                 radius * torch.amax(scene.scales, dim=-1))
@@ -142,20 +136,26 @@ def frame_image(rgb_t, alpha_t, valid, camera: Camera, config: RenderConfig) -> 
 
 def render_gpu(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderConfig(),
                pair_capacity: int | None = None, return_aux: bool = False,
-               use_kernels: bool = True):
+               use_kernels: bool = True, quad: bool = True):
     """Full-frame primary-ray render. Returns {rgb (H, W, 3) in [0, 1],
-    alpha (H, W)} and, with return_aux, {"aux": {n_pairs, n_dropped}}."""
+    alpha (H, W)} and, with return_aux, {"aux": {n_pairs, n_dropped}}.
+    quad=False (JAX render_pallas(quad=False)) marches the scalar response
+    in the canonical frame from per-ray origins, each the eye (K1's
+    per-ray-origin mode on the scalar rows), as the tiled march computes
+    it; quad=True the quadratic form from the shared eye."""
     check_supported(config)
     check_devices(scene, camera, use_kernels)
     if pair_capacity is None:
         pair_capacity = snug_pair_capacity(int(count_pairs(scene, camera, config)))
     stream, pair_feats, n_pairs = prepare_pair_stream(
-        scene, camera, config, pair_capacity, use_kernels=use_kernels
+        scene, camera, config, pair_capacity, use_kernels=use_kernels, quad=quad
     )
     _, dirs, valid = generate_rays(camera, config)
     dirs_t = tile_rays(dirs, config.tile_w, config.tile_h)
     march_fn = march if use_kernels else march_plain
-    rgb_t, t_final_t = march_fn(stream.starts, pair_feats, dirs_t, config, chunk_for(config))
+    origins = None if quad else camera.eye.to(torch.float32).expand(dirs_t.shape).contiguous()
+    rgb_t, t_final_t = march_fn(stream.starts, pair_feats, dirs_t, config, chunk_for(config),
+                                origins_t=origins)
     out = frame_image(rgb_t, 1.0 - t_final_t, valid, camera, config)
     if return_aux:
         out["aux"] = {"n_pairs": n_pairs, "n_dropped": 0}

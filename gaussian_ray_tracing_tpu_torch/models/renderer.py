@@ -1,8 +1,8 @@
 """Top-level rendering API (counterpart of
 gaussian_ray_tracing_tpu/models/renderer.py).
 
-`render()` picks the kernel path, the plain torch path or the exact
-oracle, and the mesh tracer when a mesh is given, optionally
+`render()` picks the kernel path, the plain torch path, the tiled march
+or the exact oracle, and the mesh tracer when a mesh is given, optionally
 supersampled; `render_diff()` the same for the differentiable training
 render; the stateful `GaussianRayTracer` holds the scene (on CUDA unless
 told otherwise), frame size, camera, camera model and mesh primitives
@@ -18,15 +18,19 @@ import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera
 from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
-from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import render_gpu, render_gpu_diff
+from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+    render_gpu, render_gpu_diff, snug_pair_capacity,
+)
 from gaussian_ray_tracing_tpu_torch.models.mesh_tracer import render_with_mesh
 from gaussian_ray_tracing_tpu_torch.models.oracle import render_oracle
+from gaussian_ray_tracing_tpu_torch.models.tiled import render_tiled
+from gaussian_ray_tracing_tpu_torch.ops.tiles import count_pairs
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 from gaussian_ray_tracing_tpu_torch.scene.mesh import (
     TriangleMesh, load_obj, make_plane, make_sphere, merge_meshes,
 )
 
-METHODS = ("auto", "gpu", "plain", "oracle")
+METHODS = ("auto", "gpu", "plain", "tiled", "oracle")
 
 
 def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderConfig(),
@@ -37,6 +41,11 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
       "plain" -- the plain torch versions of the kernels, on any device;
       "auto"  -- "gpu" if the scene's tensors live on CUDA, else "plain"
                  (tensors are never moved between devices);
+      "tiled" -- the tiled march (models/tiled.render_tiled): plain torch
+                 on the scene's device, differentiable by autograd; its
+                 binning's scan is kernel K2 on CUDA. Without a
+                 pair_capacity the stream holds every pair; its aux counts
+                 the pairs past config.max_per_tile in n_dropped;
       "oracle" -- the exact per-ray-sorted oracle (models/oracle.py), plain
                  torch on the scene's device; it bins no pairs, so its aux
                  is empty.
@@ -60,6 +69,9 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
         out["alpha"] = out["alpha"].reshape(H, s, W, s).mean(dim=(1, 3))
         return out
     if mesh is not None:
+        if method == "tiled":
+            raise ValueError("the mesh tracer takes method auto, gpu, plain or oracle, "
+                             "not tiled")
         if method == "oracle":
             out = render_with_mesh(scene, mesh, camera, config, oracle=True)
         else:
@@ -71,6 +83,8 @@ def render(scene: GaussianScene, camera: Camera, config: RenderConfig = RenderCo
     if method == "oracle":
         out = render_oracle(scene, camera, config)
         return {**out, "aux": {}} if return_aux else out
+    if method == "tiled":
+        return _render_tiled(scene, camera, config, pair_capacity, return_aux)
     return render_gpu(scene, camera, config, pair_capacity=pair_capacity,
                       return_aux=return_aux, use_kernels=_use_kernels(scene, method))
 
@@ -80,9 +94,23 @@ def render_diff(scene: GaussianScene, camera: Camera, config: RenderConfig = Ren
     """Differentiable render (the training path; window or key order, other
     orders train as key, any camera model, SH degree 0-3): gradients reach
     the scene's means, scales, quats, opacities and sh through the
-    hand-written backward K3. `method` as for render()."""
+    hand-written backward K3, or with method="tiled" through torch
+    autograd of the tiled march (JAX's use_pallas=False path). `method`
+    as for render()."""
+    if method == "tiled":
+        return _render_tiled(scene, camera, config, pair_capacity)
     return render_gpu_diff(scene, camera, config, pair_capacity=pair_capacity,
                            use_kernels=_use_kernels(scene, method))
+
+
+def _render_tiled(scene, camera, config, pair_capacity, return_aux=False):
+    """render_tiled on a drop-free pair stream unless a capacity is given
+    (the JAX default, 8 pairs a gaussian, drops pairs on dense frames)."""
+    if pair_capacity is None:
+        with torch.no_grad():
+            pair_capacity = snug_pair_capacity(int(count_pairs(scene, camera, config)))
+    return render_tiled(scene, camera, config, pair_capacity=pair_capacity,
+                        return_aux=return_aux)
 
 
 def _use_kernels(scene: GaussianScene, method: str) -> bool:

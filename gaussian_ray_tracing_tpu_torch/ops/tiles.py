@@ -1,6 +1,7 @@
 """Footprints and tile binning (the default-path parts of
 gaussian_ray_tracing_tpu/ops/tiles.py) for pinhole, OpenCV and fisheye
-cameras.
+cameras, and the fixed-capacity per-tile candidate lists of the tiled
+march (`bin_tiles`).
 
 Every gaussian's exact footprint (the projected conic's bbox; for
 fisheye the polar rectangle of its hit-cone cap) is expanded into (tile,
@@ -46,6 +47,17 @@ class PairStream(NamedTuple):
     n_pairs: torch.Tensor  # () int32 pairs emitted (pre-clip)
     n_dropped: torch.Tensor  # () int32 pairs lost to capacity overflow
     order: torch.Tensor | None = None  # (N,) depth permutation
+
+
+class TileBinning(NamedTuple):
+    """Fixed-capacity per-tile candidate lists of a PairStream (the layout
+    of the tiled march, models/tiled.py)."""
+
+    cand: torch.Tensor  # (T, max_per_tile) int32 depth ranks, -1 = empty
+    counts: torch.Tensor  # (T,) int32 candidates per tile (clipped to max_per_tile)
+    n_pairs: torch.Tensor  # () int32 pairs emitted
+    n_dropped: torch.Tensor  # () pairs lost to the capacity or to a tile's cap
+    order: torch.Tensor | None = None  # see PairStream.order
 
 
 class Footprint(NamedTuple):
@@ -709,3 +721,23 @@ def bin_pairs(fp: Footprint, camera: Camera, config: RenderConfig,
         )
     return _bin_pairs_presorted(fp, camera, config, pair_capacity,
                                 use_kernel=use_kernel)
+
+
+def bin_tiles(fp: Footprint, camera: Camera, config: RenderConfig, pair_capacity: int,
+              use_kernel: bool = True) -> TileBinning:
+    """Fixed-capacity per-tile candidate lists (T, config.max_per_tile) of
+    the pair stream (bin_pairs, whose scan is kernel K2 on CUDA tensors):
+    tile t lists its first max_per_tile pairs front to back, -1 after them.
+    n_dropped adds each tile's overflow to the stream's capacity drops."""
+    stream = bin_pairs(fp, camera, config, pair_capacity, use_kernel=use_kernel)
+    tx_n, ty_n = num_tiles(camera, config)
+    m_cap = config.max_per_tile
+    counts = stream.starts[1:] - stream.starts[:-1]
+    clipped = torch.clamp(counts, max=m_cap)
+    slots = torch.arange(m_cap, dtype=_I32, device=counts.device)
+    pos = torch.clamp(stream.starts[: tx_n * ty_n, None] + slots[None, :], 0, pair_capacity - 1)
+    cand = torch.where(slots[None, :] < clipped[:, None], stream.gid[pos.long()],
+                       torch.full_like(pos, -1))
+    return TileBinning(cand=cand, counts=clipped, n_pairs=stream.n_pairs,
+                       n_dropped=stream.n_dropped + torch.sum(counts - clipped),
+                       order=stream.order)

@@ -5,8 +5,10 @@ Parses the trained-3DGS vertex layout: x/y/z, scale_0..2, rot_0..3 (wxyz),
 opacity, f_dc_0..2 and f_rest_0..44, with the f_rest channel interleave
 sh[k][rgb] = f_rest_{k-1 + n_rest*rgb}. binary_little_endian and ascii.
 The writer stores raw (pre-activation) parameters, so a training run
-checkpoints back to a standard 3DGS PLY. Only the numpy reader is ported;
-the JAX package's C++ fast path is not.
+checkpoints back to a standard 3DGS PLY. The reader takes the native C++
+parser first (native/grtcore.cpp, built at first use) and falls back to
+numpy for what it does not read (ascii, other property types) or when
+the library cannot be built.
 """
 
 from __future__ import annotations
@@ -58,7 +60,14 @@ def _read_header(f) -> Tuple[str, int, list[tuple[str, str]]]:
 
 
 def read_ply_raw(path: str) -> Dict[str, np.ndarray]:
-    """Read the vertex element into a dict of named float32 columns."""
+    """Read the vertex element into a dict of named float32 columns: the
+    native parser for an all-float32 binary_little_endian file, else the
+    numpy reader."""
+    from gaussian_ray_tracing_tpu_torch.native.bindings import ply_read_native
+
+    cols = ply_read_native(path)
+    if cols is not None:
+        return cols
     with open(path, "rb") as f:
         fmt, count, props = _read_header(f)
         names = [n for n, _ in props]

@@ -25,7 +25,9 @@ from typing import Callable, Optional
 
 import torch
 
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_trainable
+from gaussian_ray_tracing_tpu_torch.config import (
+    RenderConfig, check_tiled_supported, check_trainable,
+)
 from gaussian_ray_tracing_tpu_torch.models.gaussian_model import FIELDS, GaussianModel
 from gaussian_ray_tracing_tpu_torch.models.renderer import render_diff
 from gaussian_ray_tracing_tpu_torch.train.density import (
@@ -100,6 +102,12 @@ def reset_opt_moments(optimizer: torch.optim.Optimizer, touched: torch.Tensor) -
                     x[touched] = 0.0
 
 
+def check_method_trainable(config: RenderConfig, method: str) -> None:
+    """The tiled march trains what it renders; the other methods train
+    window or key order (config.train_config)."""
+    (check_tiled_supported if method == "tiled" else check_trainable)(config)
+
+
 def make_train_step(config: RenderConfig, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable = l2_loss, pair_capacity: Optional[int] = None,
                     method: str = "auto"):
@@ -107,12 +115,14 @@ def make_train_step(config: RenderConfig, optimizer: torch.optim.Optimizer,
 
     Renders through the differentiable path (models/renderer render_diff:
     K1 with saved carries forward, the hand-written K3 backward; window or
-    key order), takes the loss and its gradient, and applies one optimizer
+    key order; method="tiled": torch autograd of the tiled march, the JAX
+    trainer's use_pallas=False path), takes the loss and its gradient, and
+    applies one optimizer
     update to the model's tensors in place. Returns {"loss": the loss
     before the update (a 0-d tensor), "mean_grads": d loss / d means (N, 3)
     at the weights before the update, for the density statistics}.
     """
-    check_trainable(config)
+    check_method_trainable(config, method)
 
     def train_step(model: GaussianModel, camera, target: torch.Tensor) -> dict:
         optimizer.zero_grad(set_to_none=True)
@@ -139,7 +149,7 @@ class Trainer:
                  method: str = "auto"):
         if mesh is not None:
             raise NotImplementedError("the sharded trainer is not ported yet")
-        check_trainable(config)
+        check_method_trainable(config, method)
         self.model = params.requires_grad_(True)
         self.optimizer = optimizer if optimizer is not None else default_optimizer(params, lr)
         self.loss_fn = loss_fn if loss_fn is not None else l2_loss

@@ -10,6 +10,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -121,3 +122,66 @@ def test_serving_modules_import_no_jax():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_grad_check_matches_the_jax_cli(capsys):
+    """cli grad-check at its defaults (32x32, random_scene(64), eps 1e-3)
+    prints the JAX CLI's keys and numbers: the autodiff of the tiled march
+    within 1e-4 relative of jax.grad's, the finite differences within 1e-2
+    (float32 losses rounded apart). Both CLIs' eps-1e-3 differences miss
+    raw_quats and raw_opacities, whose steps straddle a switch of the loss."""
+    from gaussian_ray_tracing_tpu import cli as jcli
+
+    cli.main(["grad-check", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out)
+    jcli.main(["grad-check"])
+    want = json.loads(capsys.readouterr().out)
+    assert set(out) == {"base_loss", "grads"} and set(out["grads"]) == set(want["grads"]) == {
+        "means", "log_scales", "raw_quats", "raw_opacities", "sh"}
+    assert out["base_loss"] == pytest.approx(want["base_loss"], rel=1e-5)
+    for field, g in out["grads"].items():
+        w = want["grads"][field]
+        assert g["autodiff"] == pytest.approx(w["autodiff"], rel=1e-4), field
+        assert g["finite_diff"] == pytest.approx(w["finite_diff"], rel=1e-2), field
+
+
+def test_grad_check_autodiff_matches_finite_differences(capsys):
+    """At eps 1e-4 every field's autodiff is within the finite difference
+    at the tests/test_gradients.py bar (rtol 0.05, atol 1e-4)."""
+    cli.main(["grad-check", "--device", "cpu", "--eps", "1e-4"])
+    out = json.loads(capsys.readouterr().out)
+    for field, g in out["grads"].items():
+        assert set(g) == {"autodiff", "finite_diff"} and g["autodiff"] != 0.0, field
+        assert abs(g["finite_diff"] - g["autodiff"]) <= 1e-4 + 0.05 * abs(g["autodiff"]), \
+            (field, g)
+
+
+def test_info_reports_scene_and_native_core(capsys):
+    from gaussian_ray_tracing_tpu_torch.native import bindings
+
+    cli.main(["info", "--synthetic", "1000", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["num_gaussians"] == 1000 and out["padded"] == 1024 and out["sh_coeffs"] == 16
+    assert len(out["center"]) == 3 and out["native_core"] == bindings.available()
+
+
+def test_render_method_tiled_matches_plain(tmp_path):
+    """cli render --method tiled writes the frame the plain kernel path
+    writes, up to 8-bit quantization (window order, 32x24)."""
+    frames = {}
+    for method in ("tiled", "plain"):
+        path = tmp_path / f"{method}.png"
+        cli.main(["render", *SMALL, "--method", method, "--hit-multiplicity", "1",
+                  "-o", str(path)])
+        frames[method] = read_png(str(path)).astype(int)
+    assert frames["tiled"].max() > 0
+    assert np.abs(frames["tiled"] - frames["plain"]).max() <= 2
+
+
+def test_grad_check_and_info_refuse_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        cli.main(["grad-check", "--n", "8"])
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        cli.main(["info", "--synthetic", "100"])
