@@ -24,7 +24,14 @@ mirror and SH 3 glass frames at 1280x720) and `cli orbit`, `cli warmup
 the 720p golden, three tiled training steps at 512x512 / 50k, K1's
 scalar and quad key modes and K3's gradients held against it, `cli
 grad-check` and `cli info` with the native C++ core built by g++ beside
-the kernels), times each against the
+the kernels), two witnesses of ROADMAP Queue 3 (K1's plain quad version
+on the rays where K1 and the tiled march part; K3 against its float64
+backward per column), the multi-device layer on 4 shards of the card
+(parallel/: the ray-sharded forward bit for bit as the single-device
+frame, the sharded gradients and Trainer with ZeRO-1 moments, depth
+slabs on K1 in gather and ring order, the tiled, oracle and
+gaussian-sharded reference renderers, a world of one over NCCL), times
+each against the
 plain path, profiles the 720p/100k, fisheye and SH 3 frames and the window
 and key SH 3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
 SH 3, and --order merge) and `cli fit`, and finally writes the
@@ -821,6 +828,8 @@ def main() -> None:
 
     train_rows = training_phase(dev, card, views, init)
     tiled_rows, k2_tiled = tiled_phase(dev, card, views, init)
+    witness_phase(dev, card, views, init)
+    parallel_rows = parallel_phase(dev, card, scene, poses[0], golden, views, init)
 
 
     # --- phase 7: mesh bounces at full size ------------------------------
@@ -1075,6 +1084,7 @@ def main() -> None:
         *cam_rows,
         *train_rows,
         *tiled_rows,
+        *parallel_rows,
         *merge_rows,
         *meshcam_rows,
     ]}), flush=True)
@@ -1797,17 +1807,6 @@ def tiled_phase(dev, card: str, views, init) -> tuple:
 
     t_phase = time.perf_counter()
 
-    def drop_free(render_fn, cfg):
-        """render_fn(cfg) -> out with aux, max_per_tile doubled from 4096
-        until no pair drops."""
-        cfg = cfg.replace(max_per_tile=4096)
-        while True:
-            out = render_fn(cfg)
-            if out["aux"]["n_dropped"] == 0:
-                return out, cfg
-            check(cfg.max_per_tile < 65536, f"tiled: pairs still dropped at {cfg.max_per_tile}")
-            cfg = cfg.replace(max_per_tile=2 * cfg.max_per_tile)
-
     # 1. the 720p golden's scene through the tiled march, >= 40 dB
     z = np.load(ROOT / "data" / "golden" / "pinhole_720p.npz")
     n, seed, width, height, hm, _ = (int(v) for v in z["meta"])
@@ -2233,6 +2232,474 @@ def dataset_phase(dev, card: str) -> None:
     check(ev["fit"]["psnr_mean"] > ev["init"]["psnr_mean"],
           f"cli eval: the fit ({ev['fit']['psnr_mean']} dB) does not beat the initial scene "
           f"({ev['init']['psnr_mean']} dB)")
+
+
+def drop_free(render_fn, cfg):
+    """render_fn(cfg) -> out with aux, max_per_tile doubled from 4096 until
+    no pair drops. Returns (out, the config)."""
+    cfg = cfg.replace(max_per_tile=4096)
+    while True:
+        out = render_fn(cfg)
+        if out["aux"]["n_dropped"] == 0:
+            return out, cfg
+        check(cfg.max_per_tile < 65536, f"tiled: pairs still dropped at {cfg.max_per_tile}")
+        cfg = cfg.replace(max_per_tile=2 * cfg.max_per_tile)
+
+
+def witness_phase(dev, card: str, views, init) -> None:
+    """ROADMAP Queue 3's two open items, each with a witness. (a) K1's quad
+    response against the tiled march at 1280x720 / 100k (the 720p
+    golden's camera, key order, chunk skip 1e-3): on the rays where K1 and
+    the tiled march differ by more than 1e-2, the distance of K1's plain
+    version (which the CPU tests hold to JAX's interpreted kernel) from the
+    tiled march and from K1. (b) K3 at 512x512 / 50k (phase 6's first
+    view, a model of `init`, key order, skip 1e-3) given the true upstream
+    gradients of the L2 loss: per written column, K3 and its plain version
+    against the plain version in float64 on the same float32 forward
+    carries, which isolates the backward's sums from the forward's."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        frame_image, prepare_train_stream, render_gpu,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+
+    t_phase = time.perf_counter()
+    scene = random_scene(100_000, seed=0, device=dev)
+    cam = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=1280,
+                                height=720, device=dev)
+    key = RenderConfig(hit_multiplicity=1, order="key", march_chunk=128,
+                       chunk_skip_transmittance=1e-3)
+    with torch.no_grad():
+        tiled, key = drop_free(lambda c: render(scene, cam, c, method="tiled",
+                                                return_aux=True), key)
+        quad = render_gpu(scene, cam, key)["rgb"]
+        plain = render_gpu(scene, cam, key, use_kernels=False)["rgb"]
+    tiled = tiled["rgb"]
+    d = lambda a, b: (a - b).abs().amax(-1)
+    bad = d(quad, tiled) > MAXABS_KERNEL
+    n_bad = int(bad.sum())
+    on = lambda x: float(x[bad].max()) if n_bad else 0.0
+    log("witness", f"K1 quad vs the tiled march, 1280x720 100k key: {n_bad} rays above "
+                   f"{MAXABS_KERNEL} (max {float(d(quad, tiled).max()):.3g}); on them the plain "
+                   f"quad version vs the tiled march max {on(d(plain, tiled)):.3g} "
+                   f"({int((d(plain, tiled)[bad] > MAXABS_KERNEL).sum())} above "
+                   f"{MAXABS_KERNEL}), K1 vs plain max {on(d(quad, plain)):.3g}; the whole "
+                   f"frame: plain vs tiled max {float(d(plain, tiled).max()):.3g} "
+                   f"({int((d(plain, tiled) > MAXABS_KERNEL).sum())} rays above), K1 vs plain "
+                   f"max {float(d(quad, plain).max()):.3g}")
+    check(float(d(quad, plain).max()) <= MAXABS_KERNEL, "K1 quad vs its plain version")
+
+    cam0, target = views[0]
+    tkey = RenderConfig(**{**TRAIN_KW, "chunk_skip_transmittance": 1e-3})
+    with torch.no_grad():
+        stream, rows, _ = prepare_train_stream(GaussianModel.from_scene(init).activate(), cam0,
+                                               tkey)
+    rows = rows.contiguous()
+    _, dirs, valid = cameras.generate_rays(cam0, tkey)
+    dirs_t = tile_rays(dirs, 16, 16)
+    fwd = kmarch.march(stream.starts, rows, dirs_t, tkey, 256, save_tin=True)
+    rgb_t, t_t = fwd[0].requires_grad_(True), fwd[1].requires_grad_(True)
+    out = frame_image(rgb_t, 1.0 - t_t, valid, cam0, tkey)
+    d_rgb, d_t = torch.autograd.grad(torch.mean((out["rgb"] - target) ** 2), [rgb_t, t_t],
+                                     allow_unused=True, materialize_grads=True)
+    args = (stream.starts, rows, dirs_t, cam0.eye, fwd[2], fwd[3], d_rgb, d_t, tkey, 256)
+    g1 = kbwd.march_bwd(*args)
+    torch.cuda.synchronize()
+    gp = kbwd.march_bwd_plain(*args)
+    g64 = kbwd.march_bwd_plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                                 else a for a in args))
+    diff = kmarch.diff_columns(0)
+    cols = [i for i, c in enumerate(kmarch.train_columns(0)) if c in diff]
+    per = {}
+    for i in cols:
+        w = float(g64[:, i].abs().max())
+        per[i] = (float((g1[:, i] - g64[:, i]).abs().max()) / w,
+                  float((gp[:, i] - g64[:, i]).abs().max()) / w)
+    worst = max(cols, key=lambda i: per[i][0])
+    log("witness", "K3 512x512 50k key, the loss's upstream gradients, per written column "
+                   "(K3, plain) from the float64 plain backward on the same carries: "
+                   + json.dumps({kmarch.train_columns(0)[i]: [float(f"{a:.3g}"), float(f"{b:.3g}")]
+                                 for i, (a, b) in per.items()})
+                   + f"; worst K3 {per[worst][0]:.3g} (column {kmarch.train_columns(0)[worst]})")
+    for i in cols:
+        check(per[i][0] <= WITNESS_RATIO * per[i][1] or per[i][0] <= 1e-5,
+              f"K3 column {kmarch.train_columns(0)[i]}: {per[i][0]:.3g} from the float64 "
+              f"backward, plain {per[i][1]:.3g}")
+    log("phase", f"Queue 3 witnesses in {time.perf_counter() - t_phase:.1f} s")
+
+
+def parallel_phase(dev, card: str, scene, cam, golden, views, init) -> list:
+    """The multi-device layer (parallel/) on the card: a mesh of 4 shards on
+    `dev` (and, where the machine has more GPUs, one shard per GPU), each
+    sharded path against its single-device counterpart. The main paths,
+    each with its kernels' counts zeroed just before and read just after:
+    render_pallas_sharded at the headline (`scene`, random_scene(100k,
+    seed 0), `cam`, 1280x720, bench config; 45 tile rows in 4 bands, the
+    last one padded) in window and key order, bit-identical to render_gpu
+    with n_dropped 0, and the 720p golden through it at >= 40 dB; the
+    sharded Trainer (ZeRO-1 moments of N/4 rows on their shards) 5 steps
+    at phase 6's 512x512 / 50k row from `init`, its loss within rtol 1e-4
+    of the single-device Trainer at every step. Also: the sharded
+    gradients (render_pallas_sharded_diff, key and window order) against
+    render_gpu_diff per field within rtol 3e-5 plus 5e-5 of the field's
+    largest entry; render_pallas_slabs at the headline, 4 slabs, gather
+    and ring (ring vs gather 2e-5, n_dropped 0, the largest slab's pairs
+    below half the frame's; PSNR against render_gpu and the 720p golden
+    logged); the tiled, oracle and gaussian-sharded reference renderers on
+    the small goldens' 5k scene at 256x256 at the CPU tests' bars; a world
+    of one over NCCL (initialize_distributed) whose process-spanning mesh
+    gives the headline bit for bit as the local mesh, and a train step at
+    the sharded-step bars (loss rtol 1e-4, means atol 1e-4).
+    Frames and steps are timed sharded and single in turns, and one of
+    each profiled. Returns the kernel rows of the sharded paths, timed on
+    the densest band or shard."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models import tiled as mtiled
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import FIELDS, GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        bin_footprints, prepare_train_stream, render_gpu, render_gpu_diff, snug_pair_capacity,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.oracle import render_oracle, render_rays_oracle
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.ops.tiles import (
+        footprint_pair_count, num_tiles, project_footprints_conic,
+    )
+    from gaussian_ray_tracing_tpu_torch.parallel import mesh as pmesh
+    from gaussian_ray_tracing_tpu_torch.parallel import sharded as S
+    from gaussian_ray_tracing_tpu_torch.parallel.distributed import initialize_distributed
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    t_phase = time.perf_counter()
+    n = 4
+    mesh = pmesh.make_mesh(n, devices=[dev] * n)
+    gmesh = pmesh.make_mesh(n, axis=pmesh.GAUSS_AXIS, devices=[dev] * n)
+    meshes = [(f"{n} shards on {dev}", mesh)]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"one shard per GPU ({torch.cuda.device_count()})", pmesh.make_mesh()))
+    counts = lambda: {"march": kmarch.march.launches, "scan": kscan.multi_cumsum_i32.launches,
+                      "march_save_tin": kmarch.march.save_tin_launches
+                      + kmarch.march.window_save_tin_launches,
+                      "march_bwd": kbwd.march_bwd.launches}
+
+    def zero():
+        kmarch.march.launches = kscan.multi_cumsum_i32.launches = 0
+        kmarch.march.save_tin_launches = kmarch.march.window_save_tin_launches = 0
+        kbwd.march_bwd.launches = 0
+
+    # 1. the forward at the headline, bit for bit as render_gpu
+    bench = RenderConfig(**BENCH_KW)
+    fwd_launches = None
+    for order in ("window", "key"):
+        cfg = bench.replace(order=order)
+        single = render_gpu(scene, cam, cfg, return_aux=True)
+        check(single["aux"]["n_dropped"] == 0, "render_gpu dropped pairs")
+        for label, m in meshes:
+            zero()
+            out = S.render_pallas_sharded(scene, cam, cfg, m)
+            torch.cuda.synchronize()
+            c = counts()
+            check(c["march"] == m.size and c["scan"] >= m.size,
+                  f"sharded forward on {label}: launches {c}")
+            check(out["n_dropped"] == 0, f"sharded forward {order} on {label}: pairs dropped")
+            same = torch.equal(out["rgb"], single["rgb"]) and torch.equal(out["alpha"],
+                                                                          single["alpha"])
+            log("parallel", f"render_pallas_sharded 1280x720 100k {order} on {label}: "
+                            f"n_dropped 0, bit-identical to render_gpu: {same}, launches {c}")
+            check(same, f"render_pallas_sharded {order} on {label} differs from render_gpu")
+            if order == "window" and m is mesh:
+                fwd_launches = c
+    ref, gscene, gcam, hm, _ = golden("pinhole_720p")
+    gcfg = RenderConfig(hit_multiplicity=hm, order="window", march_chunk=128)
+    p = psnr(S.render_pallas_sharded(gscene, gcam, gcfg, mesh)["rgb"].cpu().numpy(), ref)
+    log("parallel", f"golden pinhole_720p through render_pallas_sharded: PSNR {p:.2f} dB")
+    check(p >= PSNR_GOLDEN, f"sharded golden PSNR {p:.2f} < {PSNR_GOLDEN}")
+    frame = {"single": lambda: render_gpu(scene, cam, bench),
+             "sharded": lambda: S.render_pallas_sharded(scene, cam, bench, mesh)}
+    ms = {k: [] for k in frame}
+    for _ in range(2):  # single, sharded, single, sharded
+        for k, fn in frame.items():
+            fn()
+            ms[k] += cuda_ms(fn, 6)
+    fmed = {k: statistics.median(v) for k, v in ms.items()}
+    prof = profile_frames(frame["sharded"], frames=3)
+    log("parallel", f"frame 1280x720 100k window, median of 12 in turns: single "
+                    f"{fmed['single']:.3f} ms, {n} shards {fmed['sharded']:.3f} ms (ratio "
+                    f"{fmed['sharded'] / fmed['single']:.2f}); sharded device busy "
+                    f"{prof['device_ms']:.3f} ms (idle share "
+                    f"{1.0 - prof['device_ms'] / fmed['sharded']:.3f}), "
+                    f"{prof['device_ops']:.0f} device ops, top {prof['top']} ({card})")
+
+    # 2. the sharded training gradients at 512x512 / 50k
+    cam0, target = views[0]
+    for order in ("key", "window"):
+        tcfg = RenderConfig(**{**TRAIN_KW, "order": order})
+        grads = {}
+        for label, fn in (("sharded", lambda s: S.render_pallas_sharded_diff(s, cam0, tcfg,
+                                                                             mesh)),
+                          ("single", lambda s: render_gpu_diff(s, cam0, tcfg))):
+            model = GaussianModel.from_scene(init).requires_grad_(True)
+            zero()
+            torch.mean((fn(model.activate())["rgb"] - target) ** 2).backward()
+            torch.cuda.synchronize()
+            if label == "sharded":
+                c = counts()
+                check(c["march_save_tin"] == n and c["march_bwd"] == n,
+                      f"sharded diff {order}: launches {c}")
+            grads[label] = {f: getattr(model, f).grad for f in FIELDS}
+        dist_ = {}
+        for f in FIELDS:
+            a, b = grads["sharded"][f], grads["single"][f]
+            top = float(b.abs().max())
+            dist_[f] = float((a - b).abs().max()) / max(top, 1e-30)
+            excess = float(((a - b).abs() - 3e-5 * b.abs()).max())
+            check(excess <= 5e-5 * top, f"sharded gradient {order} {f}: {dist_[f]:.3g} of the "
+                                        f"largest entry")
+        log("parallel", f"render_pallas_sharded_diff vs render_gpu_diff 512x512 50k {order}, "
+                        f"max|a-b| / max|b| per field: "
+                        + json.dumps({f: float(f"{v:.3g}") for f, v in dist_.items()}))
+
+    # 3. the sharded Trainer: 5 steps against the single-device Trainer
+    tcfg = RenderConfig(**TRAIN_KW)
+    single = ktrain.Trainer(GaussianModel.from_scene(init), config=tcfg, lr=2e-3)
+    sharded = ktrain.Trainer(GaussianModel.from_scene(init), config=tcfg, lr=2e-3, mesh=mesh)
+    l_single = single.fit(views, steps=5)
+    zero()
+    l_sharded = sharded.fit(views, steps=5)
+    torch.cuda.synchronize()
+    train_launches = counts()
+    check(train_launches["march_save_tin"] == 5 * n and train_launches["march_bwd"] == 5 * n
+          and train_launches["scan"] >= 5, f"sharded trainer launches {train_launches}")
+    log("parallel", f"Trainer 5 steps 512x512 50k key: single {l_single}, {n} shards "
+                    f"{l_sharded}, launches {train_launches}")
+    for i, (a, b) in enumerate(zip(l_sharded, l_single)):
+        check(abs(a - b) <= 1e-4 * abs(b), f"sharded step {i + 1}: loss {a} vs {b}")
+    opt = sharded.optimizer
+    N = init.num_gaussians
+    check(isinstance(opt, ktrain.ZeroOptimizer) and len(opt.shards) == n, "not ZeRO-1")
+    for s, shard_opt, _ in opt.shards:
+        moments = [v for st in shard_opt.state.values() for v in st.values() if v.dim() >= 1]
+        check(len(moments) == 2 * len(FIELDS) and all(
+            v.shape[0] == N // n and v.device == mesh.device(s) for v in moments),
+            f"shard {s}: moments {[tuple(v.shape) for v in moments]}")
+    steps = {"single": ktrain.make_train_step(tcfg, single.optimizer,
+                                              pair_capacity=single._pair_capacity),
+             "sharded": ktrain.make_train_step(tcfg, sharded.optimizer, mesh=mesh,
+                                               pair_capacity=sharded._pair_capacity)}
+    models = {"single": single.model, "sharded": sharded.model}
+    step_ms = {k: [] for k in steps}
+    for _ in range(2):
+        for k in steps:
+            for i in range(5):
+                step_ms[k] += cuda_ms(lambda: steps[k](models[k], *views[i % 8]), 1)
+    smed = {k: statistics.median(v) for k, v in step_ms.items()}
+    prof = profile_frames(lambda: steps["sharded"](models["sharded"], *views[0]), frames=3)
+    log("parallel", f"train step 512x512 50k key, median of 10 in turns: single "
+                    f"{smed['single']:.3f} ms, {n} shards {smed['sharded']:.3f} ms (ratio "
+                    f"{smed['sharded'] / smed['single']:.2f}); sharded device busy "
+                    f"{prof['device_ms']:.3f} ms (idle share "
+                    f"{1.0 - prof['device_ms'] / smed['sharded']:.3f}), "
+                    f"{prof['device_ops']:.0f} device ops, top {prof['top']} ({card})")
+
+    # 4. depth slabs on K1 at the headline, gather and ring
+    slabs = {}
+    for comm in ("gather", "ring"):
+        zero()
+        slabs[comm] = S.render_pallas_slabs(scene, cam, bench, gmesh, comm=comm)
+        torch.cuda.synchronize()
+        log("parallel", f"render_pallas_slabs {comm}: n_dropped {slabs[comm]['n_dropped']}, "
+                        f"pairs_max_shard {slabs[comm]['pairs_max_shard']}, n_pairs "
+                        f"{slabs[comm]['n_pairs']}, launches {counts()}")
+    g, r = slabs["gather"], slabs["ring"]
+    err = max(float((r[k] - g[k]).abs().max()) for k in ("rgb", "alpha"))
+    p_single = psnr(r["rgb"].cpu().numpy(), render_gpu(scene, cam, bench)["rgb"].cpu().numpy())
+    p_golden = psnr(S.render_pallas_slabs(gscene, gcam, gcfg, gmesh)["rgb"].cpu().numpy(), ref)
+    log("parallel", f"slabs ring vs gather max abs {err:.3g} (bar 2e-5); ring vs render_gpu "
+                    f"PSNR {p_single:.2f} dB; the 720p golden's scene through the ring "
+                    f"{p_golden:.2f} dB against the golden")
+    check(err <= 2e-5, f"slabs ring vs gather: {err:.3g}")
+    check(g["n_dropped"] == 0 and r["n_dropped"] == 0, "slabs dropped pairs")
+    check(r["pairs_max_shard"] * 2 < r["n_pairs"], f"slab binning does not scale: {r}")
+
+    # 5. the reference renderers at 256x256: on the small goldens' scene,
+    # and the gaussian-sharded ones also on the CPU tests' scenes (the slab
+    # decomposition composites straddlers in slab order, which a dense
+    # scene pays for: tests/test_parallel.py picks a sparse scene for the
+    # 40 dB bar and a dense one for the exact straddlers)
+    ref_s, sscene, scam, hm, _ = golden("small_pinhole_256")
+    scfg = RenderConfig(hit_multiplicity=hm, max_per_tile=4096)
+    with torch.no_grad():
+        a = mtiled.render_tiled(sscene, scam, scfg)
+        b = S.render_tiled_sharded(sscene, scam, scfg, mesh)
+        p = psnr(a["rgb"].cpu().numpy(), b["rgb"].cpu().numpy())
+        m = float((a["rgb"] - b["rgb"]).abs().max())
+        log("parallel", f"render_tiled_sharded vs render_tiled 256x256 5k: {p:.2f} dB, max abs "
+                        f"{m:.3g}")
+        check(p > 55.0 and m <= 2e-2, "render_tiled_sharded vs render_tiled")
+        o, dd, _ = cameras.generate_rays(scam, scfg)
+        o, dd = o.reshape(-1, 3), dd.reshape(-1, 3)
+        a = render_rays_oracle(sscene, o, dd, scfg)
+        b = S.render_rays_sharded_oracle(sscene, o, dd, scfg, mesh)
+        p = psnr(a[0].cpu().numpy(), b[0].cpu().numpy())
+        m = max(float((x - y).abs().max()) for x, y in zip(a[:2], b[:2]))
+        log("parallel", f"render_rays_sharded_oracle vs render_rays_oracle: {p:.2f} dB, max "
+                        f"abs {m:.3g}")
+        check(p > 55.0 and m <= 2e-2, "render_rays_sharded_oracle")
+        sparse = random_scene(600, seed=21, mean_scale=0.03, density_scaling=False, device=dev)
+        for name, sc in (("golden 5k", sscene), ("sparse 600", sparse)):
+            oracle = render_oracle(sc, scam, scfg)["rgb"].cpu().numpy()
+            for label, m2 in (("1-D", gmesh), ("2x2", pmesh.make_mesh_2d(2, 2, devices=[dev] * 4))):
+                p = psnr(oracle, S.render_gaussian_sharded(sc, scam, scfg, m2)["rgb"].cpu().numpy())
+                log("parallel", f"render_gaussian_sharded {label}, {name} vs the oracle: {p:.2f} dB")
+                check(p >= 40.0 or sc is sscene, f"render_gaussian_sharded {label}: {p:.2f} dB")
+        wcfg = scfg.replace(order="window")
+        fast = S.render_gaussian_sharded_fast(sscene, scam, wcfg, gmesh)
+        ring = S.render_gaussian_ring(sscene, scam, wcfg, gmesh)
+        p_fast = psnr(S.render_gaussian_sharded(sscene, scam, wcfg, gmesh)["rgb"].cpu().numpy(),
+                      fast["rgb"].cpu().numpy())
+        e_ring = max(float((ring[k] - fast[k]).abs().max()) for k in ("rgb", "alpha"))
+        log("parallel", f"golden 5k: render_gaussian_sharded_fast vs the slab oracle "
+                        f"{p_fast:.2f} dB; ring vs fold max abs {e_ring:.3g}")
+        check(p_fast > 45.0 and e_ring <= 2e-5, "gaussian-sharded fast or ring")
+        dense = random_scene(800, seed=7, mean_scale=0.12, density_scaling=False, device=dev)
+        dcfg = RenderConfig(hit_multiplicity=1, order="window", max_per_tile=2048,
+                            march_chunk=2048)
+        oracle = render_oracle(dense, scam, dcfg)["rgb"].cpu().numpy()
+        ex = S.render_gaussian_sharded_fast(dense, scam, dcfg, gmesh, straddle="exact",
+                                            overlap_capacity=448)
+        p_ex = psnr(oracle, ex["rgb"].cpu().numpy())
+        p_sl = psnr(oracle, S.render_gaussian_sharded_fast(dense, scam, dcfg,
+                                                           gmesh)["rgb"].cpu().numpy())
+        log("parallel", f"dense 800: straddle exact vs the oracle {p_ex:.2f} dB "
+                        f"(n_straddle_dropped {ex['n_straddle_dropped']}), slab order {p_sl:.2f} dB")
+        check(ex["n_straddle_dropped"] == 0 and p_ex >= 40.0 and p_ex > p_sl, "straddle exact")
+
+    # 6. a world of one over NCCL: the process-spanning mesh equals the local one
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        dmesh = pmesh.make_mesh(n, devices=[dev] * n)
+        check(dmesh.distributed and dist.get_backend() == "nccl", "no NCCL process group")
+        a = S.render_pallas_sharded(scene, cam, bench, mesh)
+        b = S.render_pallas_sharded(scene, cam, bench, dmesh)
+        same = torch.equal(a["rgb"], b["rgb"]) and torch.equal(a["alpha"], b["alpha"])
+        losses = []
+        for m in (mesh, dmesh):
+            tr = ktrain.Trainer(GaussianModel.from_scene(init), config=tcfg, lr=2e-3, mesh=m)
+            losses.append(tr.fit(views[:1], steps=1) + [tr.model.means.detach()])
+        means_err = float((losses[0][1] - losses[1][1]).abs().max())
+        log("parallel", f"NCCL world of one: headline bit-identical to the local mesh: {same}; "
+                        f"a train step (all_reduce of the gradients, ZeRO-1 gather): losses "
+                        f"{losses[0][0]}, {losses[1][0]}, means max abs {means_err:.3g}")
+        check(same, "the NCCL mesh's headline differs from the local mesh's")
+        check(abs(losses[1][0] - losses[0][0]) <= 1e-4 * abs(losses[0][0]) and means_err <= 1e-4,
+              "the NCCL mesh's train step is off the sharded-step bars")
+    finally:
+        dist.destroy_process_group()
+
+    # the kernels alone at the sharded paths' shapes: the densest band, shard
+    table, M, radius = mtiled.feature_table(scene, bench, eye=cam.eye)
+    fp = project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
+                                  radius * torch.amax(scene.scales, dim=-1), cam, bench)
+    fp = fp._replace(depth=mtiled.depth_key(scene, M, radius, cam.eye, bench))
+    tx_n, ty_n = num_tiles(cam, bench)
+    rows_l = -(-ty_n // n)
+    bands = [(i * rows_l, rows_l) for i in range(n)]
+    band_pairs = [int(footprint_pair_count(fp, cam, bench, b)) for b in bands]
+    i = int(np.argmax(band_pairs))
+    stream, ids, _ = bin_footprints(fp, cam, bench, snug_pair_capacity(band_pairs[i]),
+                                    tile_rows=bands[i])
+    dirs_t = S._pad_leading(mtiled.tile_rays(cameras.generate_rays(cam, bench)[1], 16, 16),
+                            n * rows_l * tx_n)
+    chunk = kmarch.chunk_for(bench)
+    args = (stream.starts, kmarch.compact_features(table, 0)[ids],
+            dirs_t[i * rows_l * tx_n:(i + 1) * rows_l * tx_n], bench, chunk)
+    k1_err = k1_check("parallel", f"K1 window band {i} ({band_pairs[i]} of {sum(band_pairs)} "
+                                  "pairs)", args)
+    k1_ms = statistics.median(cuda_ms(lambda: kmarch.march(*args), 20))
+    k1_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*args), 3))
+    k1_bound = march_bound(args, {}, kmarch.march_plain)
+    x = torch.randint(-1000, 1000, (2, snug_pair_capacity(band_pairs[i])), dtype=torch.int32,
+                      device=dev)
+    check(torch.equal(kscan.multi_cumsum_i32(x), kscan.multi_cumsum_i32_plain(x)),
+          "K2 at the band's shape differs from plain")
+    k2_ms = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32(x), 50))
+    k2_plain = statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32_plain(x), 50))
+    k2_lib = statistics.median(cuda_ms(lambda: torch.cumsum(x, dim=1), 50))
+    k2_bound = bound(2 * x.numel() * 4, x.numel())
+
+    with torch.no_grad():
+        tstream, trows, _ = prepare_train_stream(sharded.model.activate(), cam0, tcfg)
+    trows = trows.contiguous()
+    tdirs = mtiled.tile_rays(cameras.generate_rays(cam0, tcfg)[1], 16, 16)
+    T, T_l = tdirs.shape[0], -(-tdirs.shape[0] // n)
+    starts = S._pad_leading(tstream.starts, n * T_l + 1, tstream.starts[T])
+    tdirs = S._pad_leading(tdirs, n * T_l)
+    per = [int(starts[(j + 1) * T_l] - starts[j * T_l]) for j in range(n)]
+    j = int(np.argmax(per))
+    targs = (starts[j * T_l:(j + 1) * T_l + 1].contiguous(), trows,
+             tdirs[j * T_l:(j + 1) * T_l].contiguous(), tcfg, 256)
+    fwd = lambda f: f(*targs, save_tin=True)
+    got = fwd(kmarch.march)
+    torch.cuda.synchronize()
+    key_err = k1_train_check(f"key shard {j} of 512x512 50k ({per[j]} of {sum(per)} rows)",
+                             got, fwd(kmarch.march_plain))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_rgb = torch.randn(targs[2].shape, generator=gen, device=dev)
+    d_t = torch.randn(targs[2].shape[:2], generator=gen, device=dev)
+    bargs = (targs[0], trows, targs[2], cam0.eye, got[2], got[3], d_rgb, d_t, tcfg, 256)
+    bwd_err = k3_check(f"shard {j} of 512x512 50k", bargs)
+    k1k_ms = statistics.median(cuda_ms(lambda: fwd(kmarch.march), 20))
+    k1k_plain = statistics.median(cuda_ms(lambda: fwd(kmarch.march_plain), 3))
+    k1k_bound = march_bound(targs, {}, kmarch.march_plain, tin=got[2])
+    k3_ms = statistics.median(cuda_ms(lambda: kbwd.march_bwd(*bargs), 20))
+    k3_plain = statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 3))
+    k3_bound = bwd_bound(bargs, kbwd.march_bwd_plain)
+    log("kernel", f"sharded paths: K1 window band {k1_ms:.3f} ms (plain {k1_plain:.3f}, bound "
+                  f"{k1_bound[0]:.4f}); K2 (2, {x.shape[1]}) {k2_ms:.4f} ms (plain "
+                  f"{k2_plain:.4f}, torch.cumsum {k2_lib:.4f}, bound {k2_bound[0]:.4f}); K1 key "
+                  f"save_tin shard {k1k_ms:.3f} ms (plain {k1k_plain:.3f}, bound "
+                  f"{k1k_bound[0]:.4f}); K3 shard {k3_ms:.3f} ms (plain {k3_plain:.3f}, bound "
+                  f"{k3_bound[0]:.4f}) ({card})")
+    log("phase", f"parallel in {time.perf_counter() - t_phase:.1f} s")
+
+    src, k1 = f"{PKG}/csrc", "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    row = lambda name, source, replaces, launches, err, ms, plain_ms, b, lib=None: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+    return [
+        row("march_sharded_band", "march.cuh", k1, fwd_launches["march"], k1_err, k1_ms,
+            k1_plain, k1_bound),
+        row("multi_cumsum_i32_sharded_band", "scan.cu", "gaussian_ray_tracing_tpu/ops/scan.py:81",
+            fwd_launches["scan"], 0, k2_ms, k2_plain, k2_bound, k2_lib),
+        row("march_key_save_tin_sharded", "march.cuh", k1, train_launches["march_save_tin"],
+            key_err, k1k_ms, k1k_plain, k1k_bound),
+        row("march_bwd_sharded", "march_bwd.cuh",
+            "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189", train_launches["march_bwd"],
+            bwd_err, k3_ms, k3_plain, k3_bound),
+    ]
 
 
 def _png_pixels(png):

@@ -31,6 +31,8 @@ on CUDA unless `--device cpu` is given.
         --width 1280 --height 720 -o tiled.png
     python -m gaussian_ray_tracing_tpu_torch.cli grad-check
     python -m gaussian_ray_tracing_tpu_torch.cli info --synthetic 1000
+    python -m gaussian_ray_tracing_tpu_torch.cli render --distributed \
+        --coordinator host0:8476 --num-processes 2 --process-id 0 -o out.png
 """
 
 from __future__ import annotations
@@ -484,6 +486,17 @@ def _add_camera_args(p: argparse.ArgumentParser):
                         "(switches to the OPENCV camera model)")
 
 
+def _add_dist_args(p: argparse.ArgumentParser):
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process: join a torch.distributed process group before any "
+                        "CUDA work (parallel/distributed.py; without --coordinator, torch's "
+                        "launcher environment)")
+    p.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT",
+                   help="rank 0's TCP store address for explicit process wiring")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
 def _add_render_args(p: argparse.ArgumentParser):
     p.add_argument("--sh-degree", type=int, default=0, help="SH degree 0-3 of the colour")
     p.add_argument("--supersample", type=int, default=1,
@@ -515,17 +528,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="grt-torch", description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("render", help="render one frame to PNG")
-    _add_scene_args(p); _add_camera_args(p); _add_render_args(p)
+    _add_scene_args(p); _add_camera_args(p); _add_render_args(p); _add_dist_args(p)
     p.add_argument("-o", "--output", type=str, default="render.png")
     p.set_defaults(func=cmd_render)
 
     p = sub.add_parser("bench", help="measure forward Mrays/s")
-    _add_scene_args(p); _add_camera_args(p); _add_render_args(p)
+    _add_scene_args(p); _add_camera_args(p); _add_render_args(p); _add_dist_args(p)
     p.add_argument("--iters", type=int, default=10)
     p.set_defaults(func=cmd_bench)
 
     p = sub.add_parser("orbit", help="turntable render to PNG frames")
-    _add_scene_args(p); _add_camera_args(p); _add_render_args(p)
+    _add_scene_args(p); _add_camera_args(p); _add_render_args(p); _add_dist_args(p)
     p.add_argument("--frames", type=int, default=12)
     p.add_argument("--radius", type=float, default=3.0)
     p.add_argument("--elevation", type=float, default=15.0)
@@ -625,6 +638,10 @@ def main(argv=None):
     _add_scene_args(p); _add_camera_args(p); _add_render_args(p)
     p.set_defaults(func=cmd_info)
     args = ap.parse_args(argv)
+    if getattr(args, "distributed", False):
+        from gaussian_ray_tracing_tpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(args.coordinator, args.num_processes, args.process_id)
     args.func(args)
 
 

@@ -45,18 +45,20 @@ def snug_pair_capacity(n_pairs: int) -> int:
 
 
 def bin_footprints(fp, camera: Camera, config: RenderConfig, pair_capacity: int,
-                   use_kernels: bool = True):
-    """Footprints (depth = the sort key) -> sorted pair stream.
+                   use_kernels: bool = True, tile_rows=None):
+    """Footprints (depth = the sort key) -> sorted pair stream (of the band
+    of tile rows `tile_rows`, ops/tiles.bin_pairs, if given).
 
     pair_capacity is a floor: if the frame emits more pairs, the stream is
     rebuilt at a snug capacity, so no pair is ever dropped.
     Returns (stream, per-pair gaussian ids (n_pairs,), n_pairs).
     """
-    stream = bin_pairs(fp, camera, config, pair_capacity, use_kernel=use_kernels)
+    stream = bin_pairs(fp, camera, config, pair_capacity, use_kernel=use_kernels,
+                       tile_rows=tile_rows)
     n_pairs = int(stream.n_pairs)
     if n_pairs > pair_capacity:
         stream = bin_pairs(fp, camera, config, snug_pair_capacity(n_pairs),
-                           use_kernel=use_kernels)
+                           use_kernel=use_kernels, tile_rows=tile_rows)
     if int(stream.n_dropped) != 0:
         raise RuntimeError(f"pair stream dropped {int(stream.n_dropped)} pairs")
     # gid is in depth-rank space; the valid slots are the first n_pairs

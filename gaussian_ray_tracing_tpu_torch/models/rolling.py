@@ -27,7 +27,7 @@ from gaussian_ray_tracing_tpu_torch.ops.march import (
     chunk_for, march, march_plain, scalar_features,
 )
 from gaussian_ray_tracing_tpu_torch.ops.tiles import (
-    Footprint, _tile_rects, project_footprints_conic,
+    Footprint, footprint_pair_count, project_footprints_conic,
 )
 from gaussian_ray_tracing_tpu_torch.scene.gaussians import GaussianScene
 
@@ -59,8 +59,7 @@ def prepare_rolling_stream(scene: GaussianScene, cam0: Camera, cam1: Camera,
     fp = _union_footprints(scene, radius, bound_radius, (cam0, cam_mid, cam1), config)
     fp = fp._replace(depth=depth_key(scene, M, radius, cam_mid.eye, config))
     if pair_capacity is None:
-        n = int(torch.sum(_tile_rects(fp, cam_mid, config)[3], dtype=torch.int64))
-        pair_capacity = snug_pair_capacity(n)
+        pair_capacity = snug_pair_capacity(int(footprint_pair_count(fp, cam_mid, config)))
     stream, ids, n_pairs = bin_footprints(fp, cam_mid, config, pair_capacity, use_kernels)
     rows = scalar_features(table, config.sh_degree)[ids]
     origins, dirs, valid = generate_rays_rolling(cam0, cam1, config)

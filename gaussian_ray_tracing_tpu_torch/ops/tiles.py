@@ -574,13 +574,21 @@ def project_footprints_conic(means, scales, quats, radius, bound_radius,
     )
 
 
-def _tile_rects(fp: Footprint, camera: Camera, config: RenderConfig):
+def _tile_rects(fp: Footprint, camera: Camera, config: RenderConfig, tile_rows=None):
     """Clipped tile-rect origin (x0, y0), width sw and pair count per
     gaussian. An invisible gaussian counts 0 pairs whatever its px, py,
     rx, ry: its head-fill deltas share a slot with the next owner's and
-    telescope away, so the pair stream never reads its rect."""
+    telescope away, so the pair stream never reads its rect.
+
+    tile_rows: optional (row_lo, n_rows), the band of tile rows [row_lo,
+    row_lo + n_rows) one ray shard bins (parallel/sharded.py); y0 is then
+    band-local. As in the JAX package (ops/tiles.py:971-1000), a band that
+    reaches past the grid keeps the rows of a footprint that reaches past
+    the image's last row (the float clip to ty_n + 1), so its padded rows
+    may hold pairs; the frame never reads them."""
     tw, th = config.tile_w, config.tile_h
     tx_n, ty_n = num_tiles(camera, config)
+    row_lo, row_hi = (0, ty_n) if tile_rows is None else (tile_rows[0], sum(tile_rows))
 
     # float-clip before the int cast: projected centres of near/behind-
     # camera gaussians can be astronomically large
@@ -591,14 +599,21 @@ def _tile_rects(fp: Footprint, camera: Camera, config: RenderConfig):
     fx1 = tile_of(fp.px + fp.rx, tw, tx_n)
     fy0 = tile_of(fp.py - fp.ry, th, ty_n)
     fy1 = tile_of(fp.py + fp.ry, th, ty_n)
-    on = (fx1 >= 0) & (fy1 >= 0) & (fx0 < tx_n) & (fy0 < ty_n) & fp.visible
+    on = (fx1 >= 0) & (fy1 >= row_lo) & (fx0 < tx_n) & (fy0 < row_hi) & fp.visible
     x0 = torch.clamp(fx0, 0, tx_n - 1)
     x1 = torch.clamp(fx1, 0, tx_n - 1)
-    y0 = torch.clamp(fy0, 0, ty_n - 1)
-    y1 = torch.clamp(fy1, 0, ty_n - 1)
+    y0 = torch.clamp(fy0, row_lo, row_hi - 1) - row_lo
+    y1 = torch.clamp(fy1, row_lo, row_hi - 1) - row_lo
     sw = x1 - x0 + 1
     count = torch.where(on, sw * (y1 - y0 + 1), torch.zeros_like(sw))
     return x0, y0, sw, count
+
+
+def footprint_pair_count(fp: Footprint, camera: Camera, config: RenderConfig,
+                         tile_rows=None) -> torch.Tensor:
+    """Exact pair count of footprints over the grid (or a band of tile
+    rows, as in bin_pairs), without expanding the stream."""
+    return torch.sum(_tile_rects(fp, camera, config, tile_rows)[3], dtype=torch.int64)
 
 
 def count_pairs(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
@@ -608,7 +623,7 @@ def count_pairs(scene, camera: Camera, config: RenderConfig) -> torch.Tensor:
     bound_radius = radius * torch.amax(scene.scales, dim=-1)
     fp = project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
                                   bound_radius, camera, config)
-    return torch.sum(_tile_rects(fp, camera, config)[3], dtype=torch.int64)
+    return footprint_pair_count(fp, camera, config)
 
 
 def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -621,16 +636,17 @@ def _cumsum_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _bin_pairs_presorted(fp: Footprint, camera: Camera, config: RenderConfig,
-                         cap: int, use_kernel: bool = True) -> PairStream:
+                         cap: int, use_kernel: bool = True, tile_rows=None) -> PairStream:
     """Gather-free pair expansion over depth-sorted gaussians
     (gaussian_ray_tracing_tpu/ops/tiles.py _bin_pairs_presorted, default
-    branch: no conic cull, row spans or fisheye sectors)."""
+    branch: no conic cull, row spans or fisheye sectors). With tile_rows
+    (see _tile_rects) the tiles, their ids and starts are the band's."""
     tx_n, ty_n = num_tiles(camera, config)
-    n_tiles = tx_n * ty_n
+    n_tiles = tx_n * (ty_n if tile_rows is None else tile_rows[1])
     n = fp.px.shape[0]
     dev = fp.px.device
 
-    x0, y0, sw, count = _tile_rects(fp, camera, config)
+    x0, y0, sw, count = _tile_rects(fp, camera, config, tile_rows)
     bx = max(1, (tx_n - 1).bit_length())
     by = max(1, (ty_n - 1).bit_length())
     bsw = max(1, tx_n.bit_length())  # sw can equal tx_n
@@ -706,12 +722,15 @@ def _bin_pairs_presorted(fp: Footprint, camera: Camera, config: RenderConfig,
 
 
 def bin_pairs(fp: Footprint, camera: Camera, config: RenderConfig,
-              pair_capacity: int, use_kernel: bool = True) -> PairStream:
+              pair_capacity: int, use_kernel: bool = True, tile_rows=None) -> PairStream:
     """Expand footprints into the depth-sorted per-tile pair stream (the
     default pair_keys="gaussian" path without culls or row spans).
 
     use_kernel=False runs the plain torch scan on any device; otherwise the
-    scan picks its CUDA kernel for CUDA tensors.
+    scan picks its CUDA kernel for CUDA tensors. tile_rows=(row_lo,
+    n_rows) bins only that band of tile rows (its tiles row-major, y
+    band-local): each tile's pairs are the full stream's, in the same
+    order.
     """
     if config.pair_keys != "gaussian" or config.conic_cull or config.row_span \
             or config.fisheye_cull:
@@ -720,7 +739,7 @@ def bin_pairs(fp: Footprint, camera: Camera, config: RenderConfig,
             "row_span or fisheye_cull) is ported"
         )
     return _bin_pairs_presorted(fp, camera, config, pair_capacity,
-                                use_kernel=use_kernel)
+                                use_kernel=use_kernel, tile_rows=tile_rows)
 
 
 def bin_tiles(fp: Footprint, camera: Camera, config: RenderConfig, pair_capacity: int,

@@ -14,12 +14,21 @@ schedule, so a trainer that has already taken k steps runs steps - k more.
 After a segment the trainer runs the density round (train/density.py) and,
 with a checkpoint directory, saves. Checkpoints are torch.save files of
 the raw parameters, the optimizer state and the step, one subdirectory per
-step (the orbax format is TPU-side and not reproduced). The sharded
-trainers are not ported yet and raise.
+step (the orbax format is TPU-side and not reproduced).
+
+With a mesh (parallel/mesh.py, a 1-D 'rays' mesh), the render is
+ray-sharded (parallel/sharded.render_pallas_sharded_diff, or
+render_tiled_sharded for method="tiled") and the optimizer is ZeRO-1
+(`ZeroOptimizer`, the JAX shard_opt_state_constraint): the moments of
+every slot-axis parameter are split into one contiguous row block per
+shard, on the shard's device, while the parameters and their gradients
+stay whole. Across processes the gradients are summed over the ranks
+before the update.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 from typing import Callable, Optional
 
@@ -30,6 +39,9 @@ from gaussian_ray_tracing_tpu_torch.config import (
 )
 from gaussian_ray_tracing_tpu_torch.models.gaussian_model import FIELDS, GaussianModel
 from gaussian_ray_tracing_tpu_torch.models.renderer import render_diff
+from gaussian_ray_tracing_tpu_torch.parallel.mesh import (
+    RAY_AXIS, Mesh, all_gather, sum_across_processes,
+)
 from gaussian_ray_tracing_tpu_torch.train.density import (
     DensityConfig, DensityState, alive_count, densify_and_prune, reset_opacities,
 )
@@ -88,11 +100,71 @@ def gaussian_optimizer(model: GaussianModel, scene_extent: float = 1.0,
     return GaussianAdam(model, scene_extent, total_steps, lr_scale)
 
 
-def reset_opt_moments(optimizer: torch.optim.Optimizer, touched: torch.Tensor) -> None:
+class ZeroOptimizer:
+    """ZeRO-1 over a 1-D mesh of n shards: `optimizer`'s state split into
+    n contiguous row blocks of the slot axis, block d on shard d's device
+    (counterpart of the JAX trainer's shard_opt_state_constraint). Each
+    local shard keeps a copy of the optimizer (same class, hyper-parameters
+    and schedule) over its rows of every parameter; a step loads the
+    current rows and their gradients, updates them there, and gathers the
+    updated rows of every shard back into the whole parameters. The
+    parameters' leading dims must split into n equal blocks."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, mesh: Mesh):
+        self.mesh = mesh
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.rows = self.params[0].shape[0] // mesh.size
+        self._base = optimizer
+        self.shards = []  # (global shard, optimizer over its rows, {param: its rows})
+        for s in mesh.local:
+            part = {p: p.detach()[self._rows(s)].to(mesh.device(s), copy=True)
+                    for p in self.params}
+            opt = object.__new__(type(optimizer))
+            opt.__dict__.update(optimizer.__dict__)
+            opt.param_groups = [{**g, "params": [part[p] for p in g["params"]]}
+                                for g in optimizer.param_groups]
+            opt.state = collections.defaultdict(dict)
+            self.shards.append((s, opt, part))
+
+    def _rows(self, shard: int) -> slice:
+        return slice(shard * self.rows, (shard + 1) * self.rows)
+
+    def zero_grad(self, set_to_none: bool = True):
+        self._base.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self):
+        updated = {p: [] for p in self.params}
+        for s, opt, part in self.shards:
+            for p, q in part.items():
+                q.copy_(p[self._rows(s)])
+                q.grad = None if p.grad is None else p.grad[self._rows(s)].to(q.device)
+            opt.step()
+            for p, q in part.items():
+                updated[p].append(q)
+        for p in self.params:
+            whole = all_gather(self.mesh, updated[p], RAY_AXIS)[0]
+            p.copy_(whole.reshape(p.shape))
+
+    def state_dict(self) -> dict:
+        return {"shards": [opt.state_dict() for _, opt, _ in self.shards]}
+
+    def load_state_dict(self, state_dict: dict):
+        for (_, opt, _), sd in zip(self.shards, state_dict["shards"]):
+            opt.load_state_dict(sd)
+
+
+def reset_opt_moments(optimizer, touched: torch.Tensor) -> None:
     """Zero the rows of touched slots in every optimizer state tensor whose
     leading axis is the slot axis (Adam's exp_avg and exp_avg_sq; 3DGS
     re-initializes the moments of created or re-seeded gaussians). The 0-d
-    step counts are left alone, as the JAX version skips int32 leaves."""
+    step counts are left alone, as the JAX version skips int32 leaves. A
+    ZeroOptimizer zeroes each shard's rows on its own device."""
+    if isinstance(optimizer, ZeroOptimizer):
+        for s, opt, part in optimizer.shards:
+            dev = next(iter(part.values())).device
+            reset_opt_moments(opt, touched[optimizer._rows(s)].to(dev))
+        return
     n = touched.shape[0]
     with torch.no_grad():
         for state in optimizer.state.values():
@@ -108,9 +180,38 @@ def check_method_trainable(config: RenderConfig, method: str) -> None:
     (check_tiled_supported if method == "tiled" else check_trainable)(config)
 
 
+def _render_sharded_diff(scene, camera, config: RenderConfig, mesh: Mesh, method: str,
+                         pair_capacity: Optional[int]) -> dict:
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import snug_pair_capacity
+    from gaussian_ray_tracing_tpu_torch.ops.tiles import count_pairs
+    from gaussian_ray_tracing_tpu_torch.parallel.sharded import (
+        render_pallas_sharded_diff, render_tiled_sharded,
+    )
+
+    if method == "tiled":
+        if pair_capacity is None:
+            with torch.no_grad():
+                pair_capacity = snug_pair_capacity(int(count_pairs(scene, camera, config)))
+        return render_tiled_sharded(scene, camera, config, mesh, pair_capacity=pair_capacity)
+    return render_pallas_sharded_diff(scene, camera, config, mesh, pair_capacity=pair_capacity)
+
+
+def _check_mesh(mesh: Mesh, method: str) -> None:
+    """A sharded trainer takes a 1-D 'rays' mesh; it runs the kernels of
+    its shards' devices (their plain versions on CPU shards), so it takes
+    method auto or tiled, or gpu on CUDA shards."""
+    if mesh.axis_names != (RAY_AXIS,):
+        raise ValueError(f"the sharded trainer takes a 1-D '{RAY_AXIS}' mesh, "
+                         f"not {mesh.axis_names}")
+    if method not in ("auto", "gpu", "tiled"):
+        raise ValueError(f"a mesh trains with method auto, gpu or tiled, not {method!r}")
+    if method == "gpu" and any(d.type != "cuda" for d in mesh.devices):
+        raise RuntimeError("method='gpu' needs a mesh of CUDA devices")
+
+
 def make_train_step(config: RenderConfig, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable = l2_loss, pair_capacity: Optional[int] = None,
-                    method: str = "auto"):
+                    method: str = "auto", mesh: Optional[Mesh] = None):
     """Build a train step: (model, camera, target (H, W, 3)) -> metrics.
 
     Renders through the differentiable path (models/renderer render_diff:
@@ -118,18 +219,28 @@ def make_train_step(config: RenderConfig, optimizer: torch.optim.Optimizer,
     key order; method="tiled": torch autograd of the tiled march, the JAX
     trainer's use_pallas=False path), takes the loss and its gradient, and
     applies one optimizer
-    update to the model's tensors in place. Returns {"loss": the loss
+    update to the model's tensors in place. With a mesh the render is
+    ray-sharded (parallel/sharded.py) and, across processes, the gradients
+    are summed over the ranks before the update. Returns {"loss": the loss
     before the update (a 0-d tensor), "mean_grads": d loss / d means (N, 3)
     at the weights before the update, for the density statistics}.
     """
     check_method_trainable(config, method)
+    if mesh is not None:
+        _check_mesh(mesh, method)
 
     def train_step(model: GaussianModel, camera, target: torch.Tensor) -> dict:
         optimizer.zero_grad(set_to_none=True)
-        out = render_diff(model.activate(), camera, config, method=method,
-                          pair_capacity=pair_capacity)
+        if mesh is None:
+            out = render_diff(model.activate(), camera, config, method=method,
+                              pair_capacity=pair_capacity)
+        else:
+            out = _render_sharded_diff(model.activate(), camera, config, mesh, method,
+                                       pair_capacity)
         loss = loss_fn(out["rgb"], target)
         loss.backward()
+        if mesh is not None:
+            sum_across_processes(mesh, [p.grad for p in model.parameters()])
         optimizer.step()
         return {"loss": loss.detach(), "mean_grads": model.means.grad}
 
@@ -140,18 +251,25 @@ class Trainer:
     """Fitting loop over (camera, target) pairs with PLY and training
     checkpoints and optional 3DGS density control (train/density.py) at the
     model's static capacity: pad it above the expected final count
-    (`pad_to=` in the loaders) when enabling densification."""
+    (`pad_to=` in the loaders) when enabling densification. With a mesh
+    (a 1-D 'rays' mesh) the steps are ray-sharded and the optimizer is
+    ZeRO-1 (ZeroOptimizer) when the capacity splits evenly over the shards;
+    otherwise the moments stay whole, as in the JAX trainer."""
 
     def __init__(self, params: GaussianModel, config: RenderConfig = RenderConfig(),
-                 lr: float = 2e-3, mesh=None, loss_fn: Optional[Callable] = None,
+                 lr: float = 2e-3, mesh: Optional[Mesh] = None,
+                 loss_fn: Optional[Callable] = None,
                  optimizer: Optional[torch.optim.Optimizer] = None,
                  density: Optional[DensityConfig] = None, seed: int = 0,
                  method: str = "auto"):
-        if mesh is not None:
-            raise NotImplementedError("the sharded trainer is not ported yet")
         check_method_trainable(config, method)
+        if mesh is not None:
+            _check_mesh(mesh, method)
         self.model = params.requires_grad_(True)
         self.optimizer = optimizer if optimizer is not None else default_optimizer(params, lr)
+        if mesh is not None and params.means.shape[0] % mesh.size == 0:
+            self.optimizer = ZeroOptimizer(self.optimizer, mesh)
+        self.mesh = mesh
         self.loss_fn = loss_fn if loss_fn is not None else l2_loss
         self.config = config
         self.method = method
@@ -170,7 +288,7 @@ class Trainer:
 
     def _build_step(self):
         self.step_fn = make_train_step(self.config, self.optimizer, self.loss_fn,
-                                       self._pair_capacity, self.method)
+                                       self._pair_capacity, self.method, self.mesh)
 
     def _refresh_capacity(self, views):
         """Snug pair-capacity bucket (64k multiples of 1.3x the worst view's
