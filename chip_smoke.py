@@ -26,7 +26,12 @@ scalar and quad key modes and K3's gradients held against it, `cli
 grad-check` and `cli info` with the native C++ core built by g++ beside
 the kernels), two witnesses of ROADMAP Queue 3 (K1's plain quad version
 on the rays where K1 and the tiled march part; K3 against its float64
-backward per column), the multi-device layer on 4 shards of the card
+backward per column), the per-ray-origin differentiable march
+(march_stream_diff through a 512x512 rolling shutter with per-ray
+windows and carry-in, key and window order at SH 0 and on fitted_20k.ply
+at SH 3, key order on the per-ray-origin quad response; the
+per-ray-origin quad response on a 1280x720 / 100k rolling frame), the
+multi-device layer on 4 shards of the card
 (parallel/: the ray-sharded forward bit for bit as the single-device
 frame, the sharded gradients and Trainer with ZeRO-1 moments, depth
 slabs on K1 in gather and ring order, the tiled, oracle and
@@ -101,6 +106,7 @@ HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # versions' arithmetic (response and gate only; no colour, no composite);
 # the SH 1-3 colour (sh_ops) counts only where the gate passes
 OPS_QUAD, OPS_SCALAR, OPS_BWD, OPS_TRI = 30, 60, 100, 40
+OPS_QUAD_ORIGIN = 60  # the per-ray-origin quad response: od and oo cost 36 more than from the eye
 T_START = time.perf_counter()
 
 
@@ -145,10 +151,11 @@ def march_bound(args, kw, plain, tin=None) -> tuple[float, str]:
     on the same inputs, counted `plain.candidates` (tile, candidate) slots in
     the chunks it did not skip and `plain.significant` (ray, candidate)
     pairs through the gate: the columns K1 reads of each pair row (block
-    mode: of each listed block's rows; 12 + 3K quad, 14 + 3K scalar) read
-    once, the per-ray inputs and outputs once, the saved carries written
-    once; OPS_QUAD or OPS_SCALAR per (ray, candidate) pair of those slots
-    and the SH 1-3 colour per pair through the gate."""
+    mode: of each listed block's rows; 12 + 3K quad, 14 + 3K scalar, 11 +
+    3K per-ray-origin quad) read once, the per-ray inputs and outputs once,
+    the saved carries written once; OPS_QUAD, OPS_SCALAR or OPS_QUAD_ORIGIN
+    per (ray, candidate) pair of those slots and the SH 1-3 colour per pair
+    through the gate."""
     import torch
 
     starts, feats, dirs_t, cfg, chunk = args[:5]
@@ -159,16 +166,17 @@ def march_bound(args, kw, plain, tin=None) -> tuple[float, str]:
         rows = int(torch.unique(listed).numel()) * bs
     else:
         rows = int(starts[-1] - starts[0])
-    scalar = kw.get("origins_t") is not None
-    columns = (14 if scalar else 12) + 3 * (cfg.sh_degree + 1) ** 2
+    origin_quad = kw.get("quad", False)
+    scalar = kw.get("origins_t") is not None and not origin_quad
+    columns = (14 if scalar else 11 if origin_quad else 12) + 3 * (cfg.sh_degree + 1) ** 2
     per_ray = 3 + 4  # direction in; rgb, T out
     per_ray += sum({"origins_t": 3}.get(k, 1) for k in ("origins_t", "t_lo", "t_hi", "t0")
                    if kw.get(k) is not None)
     nbytes = 4 * (rows * columns + T * R * per_ray + T + 1)
     if tin is not None:
         nbytes += 4 * (tin.numel() + T + 1)  # the carries and chunk_base
-    ops = plain.candidates * R * (OPS_SCALAR if scalar else OPS_QUAD) \
-        + plain.significant * sh_ops(cfg.sh_degree)
+    per_pair = OPS_SCALAR if scalar else OPS_QUAD_ORIGIN if origin_quad else OPS_QUAD
+    ops = plain.candidates * R * per_pair + plain.significant * sh_ops(cfg.sh_degree)
     return bound(nbytes, ops)
 
 
@@ -178,7 +186,7 @@ def sh_ops(degree: int) -> int:
     return 0 if degree == 0 else 6 * (degree + 1) ** 2
 
 
-def bwd_bound(args, plain) -> tuple[float, str]:
+def bwd_bound(args, plain, kw=None) -> tuple[float, str]:
     """Bound of one K3 call march_bwd(*args) whose plain version, run last on
     the same inputs, counted `plain.candidates` replayed (tile, candidate)
     slots and `plain.significant` (ray, candidate) pairs through the gate:
@@ -186,11 +194,13 @@ def bwd_bound(args, plain) -> tuple[float, str]:
     writes (mean, M, opacity, SH), once; the per-ray inputs (direction,
     d_rgb, d_tfinal), the carries and the eye read once; OPS_BWD per (ray,
     candidate) pair of the replayed slots and twice the SH 1-3 colour (the
-    colour and its gradient) per pair through the gate."""
+    colour and its gradient) per pair through the gate; the per-ray
+    origins and windows of `kw`, once."""
     starts, rows, dirs_t, tin, cfg = args[0], args[1], args[2], args[4], args[8]
     T, R = dirs_t.shape[:2]
     K = (cfg.sh_degree + 1) ** 2
-    nbytes = 4 * (rows.shape[0] * ((14 + 3 * K) + (13 + 3 * K)) + 7 * T * R + tin.numel()
+    per_ray = 7 + sum(v[0, 0].numel() for v in (kw or {}).values() if v is not None)
+    nbytes = 4 * (rows.shape[0] * ((14 + 3 * K) + (13 + 3 * K)) + per_ray * T * R + tin.numel()
                   + 2 * starts.numel() + 3)
     return bound(nbytes, plain.candidates * R * OPS_BWD
                  + plain.significant * 2 * sh_ops(cfg.sh_degree))
@@ -214,14 +224,17 @@ def tri_bound(args, kw) -> tuple[float, str]:
 PTXAS = {}  # mangled kernel name: (registers, stack, spill stores, spill loads), from the build
 
 
-def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = False) -> dict:
+def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = False,
+           quad: bool = False) -> dict:
     """What explains a K1 ("march") or K3 ("march_bwd") row: the (tile,
     candidate) slots of the chunks not skipped, the significant share (pairs
     through the gate over the (ray, candidate) pairs of those chunks), the
     fire share (fired chunks over the chunks not skipped; None outside
     window order) and the slow share (chunks whose tile-wide fast test
     failed over the chunks not skipped; None outside merge order) of the
-    plain version's last call, and the launch's
+    plain version's last call (K1: per-ray origins with the scalar response
+    `scalar` or the quad one `quad`; K3: per-ray origins `scalar`), and the
+    launch's
     resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
     256 rays), dynamic shared memory, registers, stack frame and spills
     (-Xptxas -v of the build)."""
@@ -232,16 +245,17 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     plain = kmarch.march_plain if kernel == "march" else kbwd.march_bwd_plain
     R, K, order = 256, (cfg.sh_degree + 1) ** 2, cfg.order
     info = cuda_build.launch_info(kernel, chunk, cfg.sh_degree, R, order=order, scalar=scalar,
-                                  train=train)
+                                  train=train, quad=quad)
     b = lambda x: f"Lb{int(x)}E"
+    resp = f"Li{2 if quad else int(scalar)}E"  # k1::Resp
     if kernel == "march_bwd":
-        name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}"
+        name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}{b(scalar)}E"
     elif order == "window":  # K1: the 256-ray builds
-        name = f"12march_kernelILi{chunk}E{b(scalar)}Li{K}E{b(train)}Li256E"
+        name = f"12march_kernelILi{chunk}E{resp}Li{K}E{b(train)}Li256E"
     elif order == "key":
-        name = f"16march_key_kernelILi{chunk}E{b(scalar)}Li{K}E{b(train)}Li256E"
+        name = f"16march_key_kernelILi{chunk}E{resp}Li{K}E{b(train)}Li256E"
     else:
-        name = f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{K}ELi256E"
+        name = f"18march_merge_kernelILi{chunk}E{resp}Li{K}ELi256E"
     regs, stack, st, ld = next((v for k, v in PTXAS.items() if name in k), (None,) * 4)
     check(regs == info["registers"], f"{kernel} {name}: ptxas says {regs} registers, the "
                                      f"runtime {info['registers']}")
@@ -253,7 +267,7 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
            "registers": regs, "stack_bytes": stack, "spill_store_bytes": st,
            "spill_load_bytes": ld}
     log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk}" + " scalar" * scalar
-        + " save_tin" * train + f": {json.dumps(out)}")
+        + " origin quad" * quad + " save_tin" * train + f": {json.dumps(out)}")
     return out
 
 
@@ -395,10 +409,10 @@ def k1_train_check(what: str, got, want) -> float:
     return max(err, m)
 
 
-def k3_check(what: str, args) -> float:
+def k3_check(what: str, args, kw=None) -> float:
     """K3 against march_bwd_plain and its float64 witness, per written
     column (mean, M, opacity, SH coefficients); two launches bit-identical.
-    Returns the max abs difference."""
+    kw: per-ray origins and windows. Returns the max abs difference."""
     import torch
 
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
@@ -408,11 +422,12 @@ def k3_check(what: str, args) -> float:
     diff = kmarch.diff_columns(degree)
     written = [i for i, c in enumerate(kmarch.train_columns(degree)) if c in diff]
     m_cols = range(kmarch.T_M0, kmarch.T_M0 + 9)
-    g1, g2 = kbwd.march_bwd(*args), kbwd.march_bwd(*args)
+    kw = kw or {}
+    g1, g2 = kbwd.march_bwd(*args, **kw), kbwd.march_bwd(*args, **kw)
     torch.cuda.synchronize()
-    gp = kbwd.march_bwd_plain(*args)
-    g64 = kbwd.march_bwd_plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point()
-                                 else a for a in args))
+    gp = kbwd.march_bwd_plain(*args, **kw)
+    f64 = lambda a: a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+    g64 = kbwd.march_bwd_plain(*map(f64, args), **{k: f64(v) for k, v in kw.items()})
     check(torch.equal(g1, g2), f"K3 {what} is not deterministic")
     check(not g1[:, [i for i in range(g1.shape[1]) if i not in written]].any(),
           f"K3 {what}: a quad, radius or pad column is not zero")
@@ -829,6 +844,9 @@ def main() -> None:
     train_rows = training_phase(dev, card, views, init)
     tiled_rows, k2_tiled = tiled_phase(dev, card, views, init)
     witness_phase(dev, card, views, init)
+    t_phase = time.perf_counter()
+    origin_rows = per_ray_origin_phase(dev, card, scene, init)
+    log("phase", f"per-ray origins in {time.perf_counter() - t_phase:.1f} s")
     parallel_rows = parallel_phase(dev, card, scene, poses[0], golden, views, init)
 
 
@@ -1085,6 +1103,7 @@ def main() -> None:
         *train_rows,
         *tiled_rows,
         *parallel_rows,
+        *origin_rows,
         *merge_rows,
         *meshcam_rows,
     ]}), flush=True)
@@ -1763,6 +1782,220 @@ def camera_phase(dev, card: str, scene) -> list:
                 times["sh_key"]),
             row("march_origin", "march.cuh", main["origin_launches"], origin_err,
                 times["origin"])]
+
+
+def per_ray_origin_phase(dev, card: str, scene, init) -> list:
+    """JAX's march_stream_diff with per-ray origins, windows and carry-in,
+    and the per-ray-origin quad response, at full width. The main path,
+    with the launch counts zeroed just before and read just after:
+    march_stream_diff (K1 with saved carries, K3) through a rolling shutter
+    (models/rolling.prepare_rolling_stream on the training rows; the eye
+    moves +0.05 in x during readout, as the camera phase's pair) of `init`
+    (random_scene(50k, seed 1), the training scene of phase 6) at 512x512
+    from the bench's eye, with per-ray windows t_lo = 0.05 + 0.05 U, t_hi =
+    3 + U and carry-in 0.6 + 0.4 U from a seeded generator
+    (tests/test_pallas.py:364-368), gradients to the model's parameters:
+    key order on the scalar response and on the per-ray-origin quad one and
+    window order at SH 0, and key and window order on data/fitted_20k.ply
+    at SH 3; then the rolling-shutter 1280x720 frame of `scene`
+    (random_scene(100k, seed 0)) on the per-ray-origin quad response (K1,
+    window order, bench config). Each K1 and K3 launch held against its
+    plain version on the same inputs (K3 also against the float64 witness
+    and across two launches), the quad frame also in key and merge order,
+    and in key order against the scalar response of the same rays (window
+    and merge order logged); the kernels timed against their plain
+    versions. Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_pair_stream
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    cam = lambda w, h, dx=0.0: cameras.Camera.create(
+        eye=(GOLDEN_EYE[0] + dx, GOLDEN_EYE[1], GOLDEN_EYE[2]), lookat=(0.0, 0.0, 0.0),
+        width=w, height=h, device=dev)
+    ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
+    key0 = RenderConfig(**TRAIN_KW)  # key order, chunk 256
+    win0 = RenderConfig(hit_multiplicity=1, order="window", march_chunk=128)
+    # name: (scene, config, quad)
+    runs = {"key_sh0": (init, key0, False), "key_sh0_quad": (init, key0, True),
+            "window_sh0": (init, win0, False),
+            "key_sh3": (ply, key0.replace(sh_degree=3), False),
+            "window_sh3": (ply, win0.replace(sh_degree=3), False)}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    inputs = {}
+    for name, (sc, cfg, quad) in runs.items():
+        model = GaussianModel.from_scene(sc).requires_grad_(True)
+        starts, rows, dirs_t, origins_t, _, n_pairs = prepare_rolling_stream(
+            model.activate(), cam(512, 512), cam(512, 512, 0.05), cfg, train=True)
+        shape = dirs_t.shape[:2]
+        seg = dict(origins_t=origins_t,
+                   t_lo=0.05 + 0.05 * torch.rand(shape, generator=gen, device=dev),
+                   t_hi=3.0 + torch.rand(shape, generator=gen, device=dev),
+                   t0=0.6 + 0.4 * torch.rand(shape, generator=gen, device=dev))
+        w = torch.randn(dirs_t.shape, generator=gen, device=dev)
+        inputs[name] = (model, starts, rows, dirs_t, seg, w, n_pairs)
+    bench = RenderConfig(**BENCH_KW)
+    frame = prepare_rolling_stream(scene, cam(1280, 720), cam(1280, 720, 0.05), bench, train=True)
+
+    # --- the main path, every count zeroed just before ---
+    k1_counts = ("launches", "key_scalar_save_tin_launches", "window_save_tin_launches",
+                 "sh_save_tin_launches", "origin_quad_save_tin_launches", "origin_quad_launches")
+    for attr in k1_counts:
+        setattr(kmarch.march, attr, 0)
+    kbwd.march_bwd.launches = kbwd.march_bwd.origin_launches = 0
+    losses = {}
+    for name, (sc, cfg, quad) in runs.items():
+        model, starts, rows, dirs_t, seg, w, _ = inputs[name]
+        rgb, t_final = kbwd.march_stream_diff(rows, starts, dirs_t, torch.zeros(3, device=dev),
+                                              cfg, cfg.march_chunk, quad=quad, **seg)
+        loss = torch.sum(rgb * w) + torch.sum(t_final)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = [p.grad for p in model.parameters()]
+        check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+              f"per-ray origins {name}: missing or non-finite gradients")
+        check(all(bool(g.any()) for g in grads), f"per-ray origins {name}: a zero gradient")
+        check(float(t_final.detach().min()) < 0.5, f"per-ray origins {name}: nothing composited")
+        losses[name] = float(loss.detach())
+    starts_f, rows_f, dirs_f, origins_f, valid_f, n_pairs_f = frame
+    rgb_f, t_f = kmarch.march(starts_f, rows_f, dirs_f, bench, 128, origins_t=origins_f, quad=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(rgb_f).all()) and float(rgb_f.max()) > 0.1,
+          "per-ray-origin quad frame: black or not finite")
+    main = {attr: getattr(kmarch.march, attr) for attr in k1_counts}
+    main.update(march_bwd=kbwd.march_bwd.launches, march_bwd_origin=kbwd.march_bwd.origin_launches)
+    log("origin", f"march_stream_diff through a 512x512 rolling shutter ({', '.join(runs)}) and "
+                  f"a 1280x720 / 100k per-ray-origin quad frame ({n_pairs_f} pairs); losses "
+                  f"{json.dumps(losses)}; launches {main}")
+    check(all(main[k] > 0 for k in main), f"a per-ray-origin kernel was not launched: {main}")
+
+    # --- each kernel against its plain version on the main path's inputs ---
+    t1_err, t3_err = {}, {}
+    bargs = {}
+    for name, (sc, cfg, quad) in runs.items():
+        _, starts, rows, dirs_t, seg, w, _ = inputs[name]
+        rows = rows.detach()
+        fwd = lambda f: f(starts, rows, dirs_t, cfg, cfg.march_chunk, save_tin=True, quad=quad,
+                          **seg)
+        got = fwd(kmarch.march)
+        torch.cuda.synchronize()
+        t1_err[name] = k1_train_check(f"per-ray origins {name}", got, fwd(kmarch.march_plain))
+        d_t = torch.ones(dirs_t.shape[:2], device=dev)
+        args = (starts, rows, dirs_t, torch.zeros(3, device=dev), got[2], got[3], w, d_t, cfg,
+                cfg.march_chunk)
+        kw = {k: seg[k] for k in ("origins_t", "t_lo", "t_hi")}
+        t3_err[name] = k3_check(f"per-ray origins {name}", args, kw)
+        bargs[name] = (args, kw, got[2])
+    frame_err = {}
+    for order in ("window", "key", "merge"):
+        cfg = bench.replace(order=order)
+        frame_err[order] = k1_check("K1origin", f"rolling 720p 100k per-ray-origin quad {order}",
+                                    (starts_f, rows_f, dirs_f, cfg, 128),
+                                    {"origins_t": origins_f, "quad": True})
+    # against the scalar response of the same rays: the same function,
+    # other rounding. Held in key order, which composites in stream order;
+    # window and merge order sort by quantized event t and may order a
+    # near-tie either way, which the shared-origin quad and scalar
+    # responses of the unmoved camera's frame show as well (logged beside)
+    vs_scalar = {}
+    shared = {}
+    c0 = cam(1280, 720)
+    dirs_0 = tile_rays(cameras.generate_rays(c0, bench)[1], 16, 16)
+    eye_0 = c0.eye.to(torch.float32).expand(dirs_0.shape).contiguous()
+    for order in ("key", "window", "merge"):
+        cfg = bench.replace(order=order)
+        rgb = [kmarch.march(starts_f, rows_f, dirs_f, cfg, 128, origins_t=origins_f, quad=quad)[0]
+               for quad in (True, False)]
+        st_q, f_q, _ = prepare_pair_stream(scene, c0, cfg, 1 << 22)
+        st_s, f_s, _ = prepare_pair_stream(scene, c0, cfg, 1 << 22, quad=False)
+        rgb0 = [kmarch.march(st_q.starts, f_q, dirs_0, cfg, 128)[0],
+                kmarch.march(st_s.starts, f_s, dirs_0, cfg, 128, origins_t=eye_0)[0]]
+        torch.cuda.synchronize()
+        for out, (a, b) in ((vs_scalar, rgb), (shared, rgb0)):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            out[order] = (psnr(a, b), float(np.abs(a - b).max()))
+        log("K1origin", f"rolling 720p 100k {order}: per-ray-origin quad vs scalar PSNR "
+                        f"{vs_scalar[order][0]:.2f} dB max abs {vs_scalar[order][1]:.3g}; the "
+                        f"unmoved camera's shared-origin quad vs scalar {shared[order][0]:.2f} dB "
+                        f"max abs {shared[order][1]:.3g}")
+    check(vs_scalar["key"][0] >= PSNR_KERNEL, "per-ray-origin quad frame vs the scalar response")
+
+    # --- the kernels alone at the main path's shapes: event ms (the
+    # wrapper's host work included) and profiler device ms ---
+    def k1_time(args, kw, tin=None):
+        fn = lambda: kmarch.march(*args, **kw)
+        ms = statistics.median(cuda_ms(fn, 10))
+        plain_ms = statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 2))
+        return (ms, plain_ms, march_bound(args, kw, kmarch.march_plain, tin=tin),
+                profile_frames(fn, 10, host=False)["device_ms"])
+
+    def k3_time(name):
+        args, kw, _ = bargs[name]
+        fn = lambda: kbwd.march_bwd(*args, **kw)
+        ms = statistics.median(cuda_ms(fn, 10))
+        plain_ms = statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*args, **kw), 2))
+        return (ms, plain_ms, bwd_bound(args, kbwd.march_bwd_plain, kw),
+                profile_frames(fn, 10, host=False)["device_ms"])
+
+    def train_kw(name):
+        _, starts, rows, dirs_t, seg, _, _ = inputs[name]
+        cfg, quad = runs[name][1], runs[name][2]
+        return (starts, rows.detach(), dirs_t, cfg, cfg.march_chunk), \
+            {"save_tin": True, "quad": quad, **seg}
+
+    times = {"quad_frame": k1_time((starts_f, rows_f, dirs_f, bench, 128),
+                                   {"origins_t": origins_f, "quad": True})}
+    quad_design = design("march", bench, 128, quad=True)
+    for name in runs:
+        times[name] = k1_time(*train_kw(name), tin=bargs[name][2])
+        times["bwd_" + name] = k3_time(name)
+        k1t, k3t = times[name], times["bwd_" + name]
+        log("kernel", f"per-ray origins {name}: K1 save_tin {k1t[0]:.3f} ms (device "
+                      f"{k1t[3]:.3f}), plain {k1t[1]:.3f} ms, bound {k1t[2][0]:.4f} ms "
+                      f"({k1t[2][1]}); K3 {k3t[0]:.3f} ms (device {k3t[3]:.3f}), plain "
+                      f"{k3t[1]:.3f} ms, bound {k3t[2][0]:.4f} ms ({k3t[2][1]}) ({card})")
+    ms, plain_ms, (b_ms, b_by), dev_ms = times["quad_frame"]
+    log("kernel", f"K1 per-ray-origin quad, rolling 720p 100k window c=128 ({n_pairs_f} pairs): "
+                  f"{ms:.3f} ms (device {dev_ms:.3f}), plain {plain_ms:.3f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}) ({card})")
+    quad_train_design = design("march", key0, 256, train=True, quad=True)
+    scalar_train_design = design("march", key0, 256, train=True, scalar=True)
+    bwd_design = design("march_bwd", key0, 256, scalar=True)
+
+    src = f"{PKG}/csrc"
+    k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    row = lambda name, source, replaces, launches, err, t, more: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+        "bound_ms": t[2][0], "bound_by": t[2][1], "library_ms": None, "device_ms": t[3], **more}
+    extra = lambda names, prefix="": {n: {"ms": times[prefix + n][0], "device_ms": times[prefix + n][3],
+                                          "plain_ms": times[prefix + n][1],
+                                          "bound_ms": times[prefix + n][2][0]} for n in names}
+    return [
+        row("march_origin_quad", "march.cuh", k1, main["origin_quad_launches"],
+            max(frame_err.values()), times["quad_frame"],
+            {**quad_design, "vs_scalar": vs_scalar, "shared_origin_quad_vs_scalar": shared}),
+        row("march_origin_quad_save_tin", "march.cuh", k1, main["origin_quad_save_tin_launches"],
+            t1_err["key_sh0_quad"], times["key_sh0_quad"], quad_train_design),
+        row("march_origin_save_tin", "march.cuh", k1,
+            main["key_scalar_save_tin_launches"] + main["window_save_tin_launches"]
+            + main["sh_save_tin_launches"],
+            max(v for k, v in t1_err.items() if k != "key_sh0_quad"), times["key_sh0"],
+            {**scalar_train_design, **extra(("window_sh0", "key_sh3", "window_sh3"))}),
+        row("march_bwd_origin", "march_bwd.cuh", "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
+            main["march_bwd_origin"], max(t3_err.values()), times["bwd_key_sh0"],
+            {**bwd_design, **extra(("key_sh0_quad", "window_sh0", "key_sh3", "window_sh3"),
+                                   "bwd_")}),
+    ]
 
 
 def tiled_phase(dev, card: str, views, init) -> tuple:

@@ -28,29 +28,33 @@ extern "C" const char* grt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// order 0: window order; 1: key order; 2: merge order. tin and chunk_base
-// non-null: saved carries (the training forward, on the training rows; at
-// most 256 rays per tile, no window, carry-in or block array), in key order
-// on the quad response and in window order on the scalar response from
-// per-ray `origins`; never in merge order. stride: floats per row, at
-// least the staged quad columns, or 29 + 3K with origins or saved carries,
-// whose rows are the scalar (or training) rows. origins, t_lo_arr, t_hi_arr, t0 and blocks may each be
-// null (see Params). full_range: no window, origin or block array is
-// given. sh_k: SH coefficients per channel, K = 1, 4, 9 or 16.
+// order 0: window order; 1: key order; 2: merge order. origins non-null:
+// per-ray origins, with the scalar response, or with quad != 0 the
+// per-ray-origin quad response (on the training rows, the pair stream and
+// at most 256 rays per tile). tin and chunk_base non-null: saved carries
+// (the training forward, on the training rows; at most 256 rays per tile,
+// no block array), in key order on any response and in window order on the
+// scalar response from per-ray `origins`; never in merge order. stride:
+// floats per row, at least the staged quad columns, or 29 + 3K with origins
+// or saved carries, whose rows are the scalar (or training) rows. origins,
+// t_lo_arr, t_hi_arr, t0 and blocks may each be null (see Params).
+// full_range: no window, origin or block array is given. sh_k: SH
+// coefficients per channel, K = 1, 4, 9 or 16.
 extern "C" int grt_march(const void* starts, const void* feats, const void* dirs, void* rgb,
                          void* t_final, void* tin, const void* chunk_base, const void* origins,
                          const void* t_lo_arr, const void* t_hi_arr, const void* t0,
                          const void* blocks, int block_sub, int n_tiles, int rays_per_tile,
                          int chunk, int stride, int order, int full_range, float t_lo,
                          float t_hi, float min_t, float t_skip, float alpha_min,
-                         float alpha_clamp, int hit_multiplicity, int sh_k, void* stream) {
+                         float alpha_clamp, int hit_multiplicity, int sh_k, int quad,
+                         void* stream) {
   using namespace k1;
   const bool sh_ok = sh_k == 1 || sh_k == 4 || sh_k == 9 || sh_k == 16;
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
       !sh_ok || order < 0 || order > 2 || stride < min_stride(origins || tin, sh_k) ||
       (tin != nullptr) != (chunk_base != nullptr) ||
-      (tin && (t_lo_arr || t_hi_arr || t0 || blocks || rays_per_tile > 256 || order == 2 ||
-               (order == 1) == (origins != nullptr))) ||
+      (quad && (!origins || blocks || rays_per_tile > 256)) ||
+      (tin && (blocks || rays_per_tile > 256 || order == 2 || (order == 0 && (!origins || quad)))) ||
       block_sub < 1 || chunk % block_sub != 0 || (block_sub > 1 && !blocks) ||
       (full_range != 0) != !(origins || t_lo_arr || t_hi_arr || blocks) ||
       stride % 4 != 0 || ((uintptr_t)feats & 15) != 0)  // rows are staged in 16-byte copies
@@ -60,7 +64,7 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
            (float*)t_final, (float*)tin, (const int*)chunk_base, (const float*)origins,
            (const float*)t_lo_arr, (const float*)t_hi_arr, (const float*)t0,
            (const int*)blocks, block_sub, stride, full_range, t_lo, t_hi, min_t, t_skip,
-           alpha_min, alpha_clamp, hit_multiplicity};
+           alpha_min, alpha_clamp, hit_multiplicity, quad != 0};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)dispatch(p, sh_k, chunk, order, n_tiles, rays_per_tile, s, nullptr);
 }
@@ -68,14 +72,16 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
 // What a launch of grt_march with these settings would run, without
 // launching: out[0] resident blocks per SM at rays_per_tile rays, out[1]
 // dynamic shared memory bytes, out[2] registers per thread, out[3] local
-// memory bytes per thread (stack frame and spills). scalar: per-ray
-// origins; train: saved carries.
-extern "C" int grt_march_info(int chunk, int order, int sh_k, int scalar, int train,
+// memory bytes per thread (stack frame and spills). resp: 0 the quad
+// response from the eye, 1 the scalar one from per-ray origins, 2 the
+// per-ray-origin quad one; train: saved carries.
+extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int train,
                               int rays_per_tile, int* out) {
   using namespace k1;
   static float dummy[4];
   Params p{};
-  p.origins = scalar ? dummy : nullptr;
+  p.origins = resp ? dummy : nullptr;
+  p.quad = resp == 2;
   p.tin = train ? dummy : nullptr;
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024)
     return (int)cudaErrorInvalidValue;

@@ -3,22 +3,23 @@
 // the SH degree 1-3 instantiations, so that nvcc builds them in parallel).
 //
 // Replaces the Pallas kernel `_march_kernel` (wrapper `pallas_march_stream`)
-// of gaussian_ray_tracing_tpu/ops/pallas_march.py in the modes the primary
-// render, the training forwards, the mesh tracer and the rolling shutter
-// use: SH degree 0 to 3, in window, key or merge order, with either the
-// quad response and a shared ray origin (full [t_min, t_max] rays, or
-// segments with per-ray windows and a carry-in) or the scalar response with
-// per-ray origins (rolling shutter on the pair stream; bounced rays over
-// the Morton-block table; see "Segments" below; window-order training,
-// every ray's origin the eye). The semantics, per-tile decisions included, are
-// those of ops/march.py, whose plain torch version `march_plain` is the
-// reference this kernel is tested against. The three orders are three
-// __global__ functions: `march_kernel` (window), `march_key_kernel` (key)
-// and `march_merge_kernel` (merge, render only; see "Merge order" below),
-// each instantiated per chunk C, response (quad or scalar), SH
+// of gaussian_ray_tracing_tpu/ops/pallas_march.py: SH degree 0 to 3, in
+// window, key or merge order, with one of three responses (Resp): the quad
+// response from a shared ray origin (full [t_min, t_max] rays, or segments
+// with per-ray windows and a carry-in), the scalar response from per-ray
+// origins (rolling shutter on the pair stream; bounced rays over the
+// Morton-block table; see "Segments" below; training, every ray's origin
+// the eye or its own) or the quad response from per-ray origins, expanded
+// around the tile's origin centroid (rolling-shutter renders and training;
+// see "Per-ray-origin quad" below). The semantics, per-tile decisions
+// included, are those of ops/march.py, whose plain torch version
+// `march_plain` is the reference this kernel is tested against. The three
+// orders are three __global__ functions: `march_kernel` (window),
+// `march_key_kernel` (key) and `march_merge_kernel` (merge, render only; see
+// "Merge order" below), each instantiated per chunk C, response, SH
 // coefficient count K = (degree + 1)^2 in {1, 4, 9, 16} and kTrain, the
 // saved carries of the training forward on the training rows (built for
-// the key kernel on the quad response and the window kernel on the scalar
+// the key kernel on every response and the window kernel on the scalar
 // one, at __launch_bounds__(256), the 256 rays of a training tile).
 //
 // Window order. One block per 16x16 tile, one thread per ray (R =
@@ -126,27 +127,44 @@
 // [op, q (6), v (3), cq, oo, sh_r[K], sh_g[K], sh_b[K]] (W = 12 + 3K).
 // Scalar: [op, 15 unused, mean (3), M (9), radius, sh_r[K], sh_g[K],
 // sh_b[K]], staged as [op, 3 unused, mean, M, radius, sh0 or coefficients]
-// (W = 20 at SH 0, 4 + 13 + 3K padded to 4 above; Layout). The training rows, which the saved-carry
-// kernels read (and only they), are the scalar rows with the quad columns
-// in 1..11 (and at SH 0 the colour in 12..14), so the quad training kernel
-// reads the SH 1-3 coefficients from column 29 (kTrainSh).
+// (W = 20 at SH 0, 4 + 13 + 3K padded to 4 above; Layout). The training
+// rows, which the saved-carry kernels and the per-ray-origin quad response
+// read (and only they), are the scalar rows with the quad columns in 1..11
+// (and at SH 0 the colour in 12..14), so the quad kernels on them read the
+// SH 1-3 coefficients from column 29 (kTrainSh), and the per-ray-origin
+// quad response the mean from 16 and the radius from 28.
 //
 // Segments and per-ray origins (the mesh tracer and the rolling shutter,
 // pallas_march.py:236-241, 407-442, 586-633). Optional per-ray arrays,
 // each null for the primary render: a window [t_lo, t_hi] and a carry-in
 // transmittance t0 (T, R), per-ray origins (T, R, 3), and a block list.
-// With per-ray origins the kernel evaluates the scalar (non-quad)
-// response: o_g = M (o - mu), d_g = M d, t* = -od / max(dd, 1e-6) as a
-// true division, pp = oo + t* (2 od + t* dd) and the gate with disc >= 0.
-// Whenever a window, origin or block array is given the ray is not a
-// full-range ray, and key order uses the exact entry/exit event gate
-// instead of the sqrt-free one. Block mode (bounced rays over the
-// Morton-sorted table): with bs = C / block_sub, chunk j of tile t stages
-// rows [blocks[start/bs + j*block_sub + s] * bs, + bs) for s < block_sub,
-// so a chunk reads block_sub whole blocks.
+// With per-ray origins the kernel evaluates the scalar response unless
+// Params::quad asks for the per-ray-origin quad one: o_g = M (o - mu), d_g
+// = M d, t* = -od / max(dd, 1e-6) as a true division, pp = oo + t* (2 od +
+// t* dd) and the gate with disc >= 0. Whenever a window, origin or block
+// array is given the ray is not a full-range ray, and key order uses the
+// exact entry/exit event gate instead of the sqrt-free one. Block mode
+// (bounced rays over the Morton-sorted table): with bs = C / block_sub,
+// chunk j of tile t stages rows [blocks[start/bs + j*block_sub + s] * bs, +
+// bs) for s < block_sub, so a chunk reads block_sub whole blocks.
+//
+// Per-ray-origin quad (pallas_march.py:378-405, 525-548; on the training
+// rows, the pair stream and the 256-ray builds). Q = M^T M is
+// view-independent, so the response expands around the tile's origin
+// centroid o_bar, where every product stays small: each block first sums
+// its R origins as a halving tree in the staging memory and divides by R
+// (origin_centroid, the order of ops/march.origin_centroid); each ray keeps
+// a = o - o_bar, od6(a, d) and oo6(a) in registers (origin_quad_ray); each
+// staged row gets Qb, radius^2 and b^T Q b with b = mu - o_bar, once per
+// chunk, in place of the eye's columns (origin_quad_row); each (ray,
+// candidate) pair then costs the quad form's dd plus two 6-term and two
+// 3-term sums for od and oo, before the same sure-miss test, alpha and
+// exact event gate as the shared-origin quad response.
 //
 // What bounds it on an H100: not memory (each row is read once per tile
-// and reused by 256 rays) but per-(ray, candidate) work. In window order:
+// and reused by 256 rays) but per-(ray, candidate) work (the per-ray-origin
+// quad response: ~20 more operations per pair than the shared-origin one,
+// the scalar response ~30 more). In window order:
 // one evaluation of every candidate (a sure miss costs neither the divide
 // nor the exp, another miss one of each, a candidate past alpha_min a sqrt
 // and a second divide besides); for each significant candidate
@@ -199,6 +217,11 @@ constexpr int kTrainSh = 29;
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 
+// The response a kernel evaluates: the quad form from the shared eye's
+// columns, the scalar form from per-ray origins, or the quad form from
+// per-ray origins, expanded around the tile's origin centroid.
+enum Resp { kQuad = 0, kScalar = 1, kOriginQuad = 2 };
+
 // Staged row layout: each staged row is two runs of a source row's
 // columns, [0, a) and then [b, b + w - a), each a whole number of 16-byte
 // groups, so that a chunk is staged by 16-byte cp.async copies. Quad rows:
@@ -207,17 +230,27 @@ __host__ __device__ constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 // 28 (the coefficients at staged column 13). Scalar (and training) rows:
 // [op, 3 unused, mean (3), M (9), radius, sh0 or coefficients] from columns
 // 0..3 and 16..; at SH 0 the colour max(0.5 + C0 sh0, 0) is taken where it
-// is read (row_color), so the copy moves the raw floats.
-template <bool kScalar, int K, bool kTrain>
+// is read (row_color), so the copy moves the raw floats. Per-ray-origin
+// quad (training rows): columns 0..19 (op, q, the eye's v, cq, oo, the SH 0
+// colour, mean at 16..18) and from 28 the radius (staged column 20) and the
+// coefficients (21); stage_chunk overwrites the unused v, cq, oo with Qb,
+// radius^2 and b^T Q b (origin_quad_row).
+template <int kR, int K, bool kTrain>
 struct Layout {
-  static constexpr int a = kScalar ? 4 : (K == 1 ? 16 : (kTrain ? 12 : pad4(12 + 3 * K)));
-  static constexpr int b = kScalar ? 16 : 28;
-  static constexpr int w = kScalar ? 4 + pad4(13 + 3 * K)
-                                   : (K == 1 || !kTrain ? a : 12 + pad4(1 + 3 * K));
-  static constexpr int col = kScalar ? 17 : (K > 1 && kTrain ? 13 : 12);  // colour column
+  static constexpr int a =
+      kR == kScalar ? 4 : kR == kOriginQuad ? 20 : (K == 1 ? 16 : (kTrain ? 12 : pad4(12 + 3 * K)));
+  static constexpr int b = kR == kScalar ? 16 : 28;
+  static constexpr int w = kR == kScalar       ? 4 + pad4(13 + 3 * K)
+                           : kR == kOriginQuad ? 20 + pad4(1 + 3 * K)
+                                               : (K == 1 || !kTrain ? a : 12 + pad4(1 + 3 * K));
+  static constexpr int col = kR == kScalar ? 17
+                             : kR == kOriginQuad ? (K == 1 ? 12 : 21)
+                                                 : (K > 1 && kTrain ? 13 : 12);  // colour column
 };
 // staged scalar columns: mean, M, radius
 constexpr int kMean = 4, kMat = 7, kRad = 16;
+// staged per-ray-origin quad columns: mean, radius
+constexpr int kOqMean = 16, kOqRad = 20;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -257,6 +290,7 @@ struct Params {
   int full_range;         // no window, origin or block array: key order's fast gate
   float t_lo, t_hi, min_t, t_skip, alpha_min, alpha_clamp;
   int hm;
+  int quad;               // with origins: the per-ray-origin quad response
 };
 
 __device__ __forceinline__ float block_reduce(float v, bool take_max, float* red) {
@@ -322,10 +356,10 @@ __device__ __forceinline__ float sh_channel(const float* c, const float* b) {
 // Colour of the staged row whose colour columns start at f, for the ray
 // whose basis is `basis` (unused at SH 0, where a quad row holds the colour
 // and a scalar row sh0).
-template <bool kScalar, int K>
+template <bool kScalarRow, int K>
 __device__ __forceinline__ void row_color(const float* f, const float* basis, float& r, float& g,
                                           float& b) {
-  if (K == 1 && kScalar) {
+  if (K == 1 && kScalarRow) {
     r = fmaxf(0.5f + kC0 * f[0], 0.f);
     g = fmaxf(0.5f + kC0 * f[1], 0.f);
     b = fmaxf(0.5f + kC0 * f[2], 0.f);
@@ -346,6 +380,8 @@ struct Ray {
   float ox, oy, oz;              // per-ray origin (scalar response)
   float t_lo, t_hi;              // segment window
   bool live;
+  // per-ray-origin quad: a = o - o_bar, od6(a, d) and oo6(a) (origin_quad_ray)
+  float ax, ay, az, od6[6], oo6[6];
 };
 
 __device__ __forceinline__ float effective_alpha(float alpha, int hm) {
@@ -369,9 +405,9 @@ __device__ __forceinline__ size_t row_index(const Params& p, int start, int j, i
 // 16-byte cp.async per group, the row's global index computed per group of
 // 4 floats) and commit it as one group; cp_async_wait and a __syncthreads
 // make it visible.
-template <int C, bool kScalar, int K, bool kTrain>
+template <int C, int kR, int K, bool kTrain>
 __device__ __forceinline__ void stage_async(float* sf, const Params& p, int start, int j, int m) {
-  using L = Layout<kScalar, K, kTrain>;
+  using L = Layout<kR, K, kTrain>;
   constexpr int G = L::w / 4, GA = L::a / 4;  // 16-byte groups per staged row, in run 1
   for (int k = threadIdx.x; k < m * G; k += blockDim.x) {
     const int r = k / G, q = k - r * G;
@@ -409,13 +445,30 @@ __device__ __forceinline__ float miss_threshold(float op, float alpha_min) {
 // ray stops there, with t_ev 0, unread; the others take the sqrt and the
 // second division, the same operations as ever, so every value that is
 // used is unchanged.
-template <bool kMiss, bool kDead>
+//
+// kOrig: the per-ray-origin quad response (pallas_march.py:378-405,
+// 525-548) on a row that origin_quad_row prepared, from the ray's
+// origin_quad_ray terms: od = q . od6(a, d) - (Qb) . d, oo = q . oo6(a) -
+// 2 (Qb) . a + b^T Q b, cq = oo - radius^2, each summed left to right as
+// ops/march._origin_quad sums it. Never on the fast gate (not full range).
+template <bool kMiss, bool kDead, bool kOrig = false>
 __device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const float* f,
                                           bool fast_gate, float thr, float& t_ev, float& a) {
   const float dd = f[1] * ray.m0 + f[2] * ray.m1 + f[3] * ray.m2 + f[4] * ray.m3 +
                    f[5] * ray.m4 + f[6] * ray.m5;
-  const float od = f[7] * ray.dx + f[8] * ray.dy + f[9] * ray.dz;
-  const float cq = f[10], oo = f[11];
+  float od, cq, oo;
+  if (kOrig) {
+    od = f[1] * ray.od6[0] + f[2] * ray.od6[1] + f[3] * ray.od6[2] + f[4] * ray.od6[3] +
+         f[5] * ray.od6[4] + f[6] * ray.od6[5] - (f[7] * ray.dx + f[8] * ray.dy + f[9] * ray.dz);
+    oo = f[1] * ray.oo6[0] + f[2] * ray.oo6[1] + f[3] * ray.oo6[2] + f[4] * ray.oo6[3] +
+         f[5] * ray.oo6[4] + f[6] * ray.oo6[5] -
+         2.f * (f[7] * ray.ax + f[8] * ray.ay + f[9] * ray.az) + f[11];
+    cq = oo - f[10];
+  } else {
+    od = f[7] * ray.dx + f[8] * ray.dy + f[9] * ray.dz;
+    cq = f[10];
+    oo = f[11];
+  }
   const float D = fmaxf(dd, 1e-6f);
   t_ev = 0.f;
   a = 0.f;
@@ -482,14 +535,14 @@ __device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, con
   if (disc >= 0.f && t_ev >= ray.t_lo && t_ev <= ray.t_hi) a = effective_alpha(alpha, p.hm);
 }
 
-template <bool kScalar, bool kMiss = false, bool kDead = false>
+template <int kR, bool kMiss = false, bool kDead = false>
 __device__ __forceinline__ void evaluate(const Params& p, const Ray& ray, const float* f,
                                          bool fast_gate, float& t_ev, float& a,
                                          float thr = 0.f) {
-  if (kScalar)
+  if (kR == kScalar)
     eval_scalar<kMiss, kDead>(p, ray, f, thr, t_ev, a);
   else
-    eval_quad<kMiss, kDead>(p, ray, f, fast_gate, thr, t_ev, a);
+    eval_quad<kMiss, kDead, kR == kOriginQuad>(p, ray, f, fast_gate, thr, t_ev, a);
 }
 
 // Front-to-back composite of one chunk's ordered candidates.
@@ -543,6 +596,83 @@ __device__ __forceinline__ Ray load_ray(const Params& p) {
   return ray;
 }
 
+// The tile's origin centroid o_bar, the mean of its R rays' origins (all
+// of them), into every thread: each coordinate summed as a halving tree in
+// `s` (3R floats of the staging memory, before the first chunk is staged;
+// with n values left and h = ceil(n / 2), value i < n - h takes value i +
+// h), then divided by R, the order of ops/march.origin_centroid.
+__device__ __forceinline__ float3 origin_centroid(float* s, const Ray& ray) {
+  const int R = blockDim.x, tid = threadIdx.x;
+  s[tid] = ray.ox;
+  s[R + tid] = ray.oy;
+  s[2 * R + tid] = ray.oz;
+  __syncthreads();
+  for (int n = R; n > 1;) {
+    const int h = (n + 1) / 2;
+    if (tid < n - h) {
+      s[tid] = s[tid] + s[tid + h];
+      s[R + tid] = s[R + tid] + s[R + tid + h];
+      s[2 * R + tid] = s[2 * R + tid] + s[2 * R + tid + h];
+    }
+    __syncthreads();
+    n = h;
+  }
+  const float3 ob = make_float3(s[0] / (float)R, s[R] / (float)R, s[2 * R] / (float)R);
+  __syncthreads();  // s is staging memory next
+  return ob;
+}
+
+// The per-ray terms of the per-ray-origin quad response: a = o - o_bar,
+// od6(a, d) and oo6(a) (pallas_march.py:397-405).
+__device__ __forceinline__ void origin_quad_ray(Ray& r, float3 ob) {
+  r.ax = r.ox - ob.x;
+  r.ay = r.oy - ob.y;
+  r.az = r.oz - ob.z;
+  r.od6[0] = r.ax * r.dx;
+  r.od6[1] = r.ay * r.dy;
+  r.od6[2] = r.az * r.dz;
+  r.od6[3] = r.ax * r.dy + r.ay * r.dx;
+  r.od6[4] = r.ax * r.dz + r.az * r.dx;
+  r.od6[5] = r.ay * r.dz + r.az * r.dy;
+  r.oo6[0] = r.ax * r.ax;
+  r.oo6[1] = r.ay * r.ay;
+  r.oo6[2] = r.az * r.az;
+  r.oo6[3] = 2.f * r.ax * r.ay;
+  r.oo6[4] = 2.f * r.ax * r.az;
+  r.oo6[5] = 2.f * r.ay * r.az;
+}
+
+// The per-candidate terms of the per-ray-origin quad response, once per
+// staged row and chunk, in place of the eye's unused v, cq and oo: with b =
+// mu - o_bar, Qb (columns 7..9), radius^2 (10) and b^T Q b (11)
+// (pallas_march.py:526-532).
+__device__ __forceinline__ void origin_quad_row(float* f, float3 ob) {
+  const float bx = f[kOqMean] - ob.x, by = f[kOqMean + 1] - ob.y, bz = f[kOqMean + 2] - ob.z;
+  const float vx = f[1] * bx + f[4] * by + f[5] * bz;
+  const float vy = f[4] * bx + f[2] * by + f[6] * bz;
+  const float vz = f[5] * bx + f[6] * by + f[3] * bz;
+  const float mqm = vx * bx + vy * by + vz * bz;
+  const float r2 = f[kOqRad] * f[kOqRad];
+  f[7] = vx;
+  f[8] = vy;
+  f[9] = vz;
+  f[10] = r2;
+  f[11] = mqm;
+}
+
+// The ray of this thread, with the per-ray-origin quad terms where kR asks
+// for them (o_bar from `s`, as origin_centroid says: every thread calls it).
+template <int kR>
+__device__ __forceinline__ Ray load_ray_for(const Params& p, float* s, float3& ob) {
+  Ray ray = load_ray(p);
+  ob = make_float3(0.f, 0.f, 0.f);
+  if constexpr (kR == kOriginQuad) {
+    ob = origin_centroid(s, ray);
+    origin_quad_ray(ray, ob);
+  }
+  return ray;
+}
+
 __device__ __forceinline__ float carry_in(const Params& p) {
   return p.t0 ? p.t0[(size_t)blockIdx.x * blockDim.x + threadIdx.x] : 1.f;
 }
@@ -570,17 +700,18 @@ __host__ __device__ constexpr int staged_smem_bytes() {
 // Stage chunk j of a tile of n candidates (every thread of the block, past
 // the tile-wide skip test): its rows ready in sf (one stage), or in buffer
 // j & 1 with chunk j+1's copy started into the other (two stages: the
-// kernel started chunk 0's before its loop), and their sure-miss
-// thresholds in thr. Returns the chunk's rows.
-template <int C, bool kScalar, int K, bool kTrain, int kStages>
+// kernel started chunk 0's before its loop), their sure-miss thresholds in
+// thr and, for the per-ray-origin quad response, their origin_quad_row
+// terms about the tile's origin centroid ob. Returns the chunk's rows.
+template <int C, int kR, int K, bool kTrain, int kStages>
 __device__ __forceinline__ const float* stage_chunk(float* sf, float* thr, const Params& p,
-                                                    int start, int j, int n) {
-  constexpr int W = Layout<kScalar, K, kTrain>::w;
+                                                    int start, int j, int n, float3 ob) {
+  constexpr int W = Layout<kR, K, kTrain>::w;
   const int m = min(C, n - j * C);
-  const float* buf = sf + (kStages == 2 ? (j & 1) * C * W : 0);
+  float* buf = sf + (kStages == 2 ? (j & 1) * C * W : 0);
   if (kStages == 1) {
     __syncthreads();  // the previous chunk is done with sf
-    stage_async<C, kScalar, K, kTrain>(sf, p, start, j, m);
+    stage_async<C, kR, K, kTrain>(sf, p, start, j, m);
     cp_async_wait<0>();
     __syncthreads();
   } else {
@@ -588,16 +719,18 @@ __device__ __forceinline__ const float* stage_chunk(float* sf, float* thr, const
     // before block_reduce's barrier; a tile that skips chunk j+1 never
     // reads it
     if ((j + 1) * C < n) {
-      stage_async<C, kScalar, K, kTrain>(sf + ((j + 1) & 1) * C * W, p, start, j + 1,
-                                         min(C, n - (j + 1) * C));
+      stage_async<C, kR, K, kTrain>(sf + ((j + 1) & 1) * C * W, p, start, j + 1,
+                                    min(C, n - (j + 1) * C));
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < m; i += blockDim.x)
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
     thr[i] = miss_threshold(buf[i * W], p.alpha_min);
+    if constexpr (kR == kOriginQuad) origin_quad_row(buf + i * W, ob);
+  }
   __syncthreads();
   return buf;
 }
@@ -605,10 +738,10 @@ __device__ __forceinline__ const float* stage_chunk(float* sf, float* thr, const
 // Blocks per SM the 256-ray window kernel is built for (its register cap).
 constexpr int kWindowMinBlocks = 4;
 
-template <int C, bool kScalar, int K, bool kTrain, int kMaxR>
+template <int C, int kR, int K, bool kTrain, int kMaxR>
 __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     march_kernel(Params p) {
-  using L = Layout<kScalar, K, kTrain>;
+  using L = Layout<kR, K, kTrain>;
   constexpr int W = L::w, kCol = L::col;
   constexpr int kStages = window_stages<C, W>();
   extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
@@ -619,7 +752,8 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const int n_chunks = (n + C - 1) / C;
-  const Ray ray = load_ray(p);
+  float3 ob;
+  const Ray ray = load_ray_for<kR>(p, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
   float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
@@ -631,7 +765,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
   float sa[C];
   uint8_t si[C];
 
-  if (kStages == 2 && n_chunks > 0) stage_async<C, kScalar, K, kTrain>(sf, p, start, 0, min(C, n));
+  if (kStages == 2 && n_chunks > 0) stage_async<C, kR, K, kTrain>(sf, p, start, 0, min(C, n));
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
     if (kTrain) tin[(size_t)j * R] = T;
@@ -643,7 +777,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     }
 
     const int m = min(C, n - j * C);
-    const float* buf = stage_chunk<C, kScalar, K, kTrain, kStages>(sf, thr, p, start, j, n);
+    const float* buf = stage_chunk<C, kR, K, kTrain, kStages>(sf, thr, p, start, j, n, ob);
 
     // pass 1: every candidate once (a miss stops at alpha); the significant
     // ones (a > 0) are kept in stream order in local memory: event t (in
@@ -654,7 +788,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     int ns = 0;
     for (int i = 0; i < m; ++i) {
       float t_ev, a;
-      evaluate<kScalar, true>(p, ray, buf + i * W, false, t_ev, a, thr[i]);
+      evaluate<kR, true>(p, ray, buf + i * W, false, t_ev, a, thr[i]);
       if (a > 0.f) {
         inv |= t_ev < rmax;
         rmax = fmaxf(rmax, t_ev);
@@ -673,7 +807,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     float cr, cg, cb;
     if (!fired) {
       for (int k = 0; k < ns; ++k) {
-        row_color<kScalar, K>(buf + si[k] * W + kCol, basis, cr, cg, cb);
+        row_color<kR == kScalar, K>(buf + si[k] * W + kCol, basis, cr, cg, cb);
         comp.add(sa[k], cr, cg, cb, p.min_t);
       }
     } else {
@@ -705,7 +839,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
         const int e = kTrain ? (int)(keys[k] & 255u) : k;
         // training: the exact alpha; render: alpha decoded from the key
         const float a = kTrain ? sa[e] : (float)(keys[k] & 32767u) * kInvA;
-        row_color<kScalar, K>(buf + si[e] * W + kCol, basis, cr, cg, cb);
+        row_color<kR == kScalar, K>(buf + si[e] * W + kCol, basis, cr, cg, cb);
         add_packed(comp, a, pack_color(cr, cg, cb), p.min_t);
       }
     }
@@ -726,10 +860,10 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
 // run (blocks_per_sm), where more would fit.
 constexpr int kKeyMinBlocks = 3, kKeyBlocks = 4;
 
-template <int C, bool kScalar, int K, bool kTrain, int kMaxR>
+template <int C, int kR, int K, bool kTrain, int kMaxR>
 __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kKeyMinBlocks : 1)
     march_key_kernel(Params p) {
-  using L = Layout<kScalar, K, kTrain>;
+  using L = Layout<kR, K, kTrain>;
   constexpr int W = L::w, kCol = L::col;
   constexpr int kStages = window_stages<C, W>();
   extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
@@ -740,14 +874,15 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kKeyMinBlocks : 1)
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const int n_chunks = (n + C - 1) / C;
-  const Ray ray = load_ray(p);
+  float3 ob;
+  const Ray ray = load_ray_for<kR>(p, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
   const bool fast_gate = p.full_range != 0;
   float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
 
   float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  if (kStages == 2 && n_chunks > 0) stage_async<C, kScalar, K, kTrain>(sf, p, start, 0, min(C, n));
+  if (kStages == 2 && n_chunks > 0) stage_async<C, kR, K, kTrain>(sf, p, start, 0, min(C, n));
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
     if (kTrain) tin[(size_t)j * R] = T;
@@ -757,21 +892,21 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kKeyMinBlocks : 1)
       continue;  // the remaining chunks' carries are still saved
     }
     const int m = min(C, n - j * C);
-    const float* buf = stage_chunk<C, kScalar, K, kTrain, kStages>(sf, thr, p, start, j, n);
+    const float* buf = stage_chunk<C, kR, K, kTrain, kStages>(sf, thr, p, start, j, n, ob);
 
     // one evaluation per candidate: a sure miss stops before the division
     // and the exp (a = 0, as the full evaluation would give; the fast gate
-    // reads only what the full evaluation computes past that test); on the
-    // scalar response (per-ray origins: bounced rays, of which most are
-    // retired, and the rolling shutter) so does any candidate of a dead
-    // ray, which would otherwise hold its warp on the full path
+    // reads only what the full evaluation computes past that test); from
+    // per-ray origins (bounced rays, of which most are retired, and the
+    // rolling shutter) so does any candidate of a dead ray, which would
+    // otherwise hold its warp on the full path
     Composite comp(T);
     for (int i = 0; i < m; ++i) {
       const float* f = buf + i * W;
       float t_ev, a, cr, cg, cb;
-      evaluate<kScalar, true, kScalar>(p, ray, f, fast_gate, t_ev, a, thr[i]);
+      evaluate<kR, true, kR != kQuad>(p, ray, f, fast_gate, t_ev, a, thr[i]);
       if (!(a > 0.f)) continue;
-      row_color<kScalar, K>(f + kCol, basis, cr, cg, cb);
+      row_color<kR == kScalar, K>(f + kCol, basis, cr, cg, cb);
       comp.add(a, cr, cg, cb, p.min_t);
     }
     const float t_next = comp.t_next();
@@ -797,10 +932,10 @@ __host__ __device__ constexpr int merge_smem_bytes(int R) {
 // and the occupancy launch_mode asks for: blocks_per_sm).
 constexpr int kMergeMinBlocks = 2;
 
-template <int C, bool kScalar, int K, int kMaxR>
+template <int C, int kR, int K, int kMaxR>
 __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
     march_merge_kernel(Params p) {
-  using L = Layout<kScalar, K, false>;
+  using L = Layout<kR, K, false>;
   constexpr int W = L::w, kCol = L::col, kWords = C / 32;
   extern __shared__ __align__(16) float sf[];  // merge_smem_bytes
   float* thr = sf + C * W;
@@ -810,7 +945,8 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
   const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
-  const Ray ray = load_ray(p);
+  float3 ob;
+  const Ray ray = load_ray_for<kR>(p, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
 
@@ -840,7 +976,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
     // tile-wide chunk skip (T never changes once every ray is below it)
     if (block_reduce(T, true, red) <= p.t_skip) break;
     const int m = min(C, n - j * C);
-    stage_chunk<C, kScalar, K, false, 1>(sf, thr, p, start, j, n);
+    stage_chunk<C, kR, K, false, 1>(sf, thr, p, start, j, n, ob);
 
     // pass 1: every candidate once (a sure miss stops before the divide and
     // the exp, any other miss at alpha); its key inserted into the sorted
@@ -853,7 +989,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
     uint32_t word = 0;
     for (int i = 0; i < C; ++i) {
       float t_ev, a = 0.f;
-      if (i < m) evaluate<kScalar, true>(p, ray, sf + i * W, false, t_ev, a, thr[i]);
+      if (i < m) evaluate<kR, true>(p, ray, sf + i * W, false, t_ev, a, thr[i]);
       int32_t k;
       if (a > 0.f) {
         const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
@@ -863,7 +999,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
         k = kb | i;
         sig_max = max(sig_max, k);
         float cr, cg, cb;
-        row_color<kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
+        row_color<kR == kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
         al[nx][i] = a;
         cpk[nx][i] = pack_color(cr, cg, cb);
         word |= 1u << (i & 31);
@@ -991,32 +1127,42 @@ cudaError_t blocks_per_sm(Kernel kernel, int& smem, int n) {
 // the window and key kernels double-buffer; C thresholds besides, and the
 // merge kernel's masks), above 48 KB only after opting in. Each order has a
 // 256-ray build (the main path's 16x16 tiles; the window and merge kernels
-// run two blocks per SM, the key kernel at most four) and a 1024-ray one.
-// Saved carries (the training forward, at most 256 rays per tile) run the
-// key kernel on the quad response and the window kernel on the scalar one
-// (per-ray origins, each the eye), as JAX's training forwards do
-// (pallas_renderer.py:234-238); no other training variant is built, and
-// merge order never trains. With `info` non-null nothing is launched: info
-// receives the kernel's resident blocks per SM at R rays, its dynamic
-// shared memory, registers per thread and local memory per thread.
-template <int C, bool kScalar, int K>
+// run two blocks per SM, the key kernel at most four) and a 1024-ray one,
+// but the per-ray-origin quad response only the 256-ray build. Saved
+// carries (the training forward, at most 256 rays per tile) run the key
+// kernel on any response and the window kernel on the scalar one (per-ray
+// origins, each the eye on the primary render), as JAX's training
+// forwards do (pallas_march.py:1659-1665); merge order never trains. With
+// `info` non-null nothing is launched: info receives the kernel's resident
+// blocks per SM at R rays, its dynamic shared memory, registers per thread
+// and local memory per thread.
+template <int C, int kR, int K>
 cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStream_t stream,
                         int* info) {
-  constexpr int W = Layout<kScalar, K, false>::w;
-  void (*kernel)(Params) = order == 2   ? (R <= 256 ? march_merge_kernel<C, kScalar, K, 256>
-                                                    : march_merge_kernel<C, kScalar, K, 1024>)
-                           : order == 1 ? (R <= 256 ? march_key_kernel<C, kScalar, K, false, 256>
-                                                    : march_key_kernel<C, kScalar, K, false, 1024>)
-                           : R <= 256   ? march_kernel<C, kScalar, K, false, 256>
-                                        : march_kernel<C, kScalar, K, false, 1024>;
+  constexpr int W = Layout<kR, K, false>::w;
+  void (*kernel)(Params);
+  if constexpr (kR == kOriginQuad) {
+    if (R > 256) return cudaErrorInvalidValue;
+    kernel = order == 2   ? march_merge_kernel<C, kR, K, 256>
+             : order == 1 ? march_key_kernel<C, kR, K, false, 256>
+                          : march_kernel<C, kR, K, false, 256>;
+  } else {
+    kernel = order == 2   ? (R <= 256 ? march_merge_kernel<C, kR, K, 256>
+                                      : march_merge_kernel<C, kR, K, 1024>)
+             : order == 1 ? (R <= 256 ? march_key_kernel<C, kR, K, false, 256>
+                                      : march_key_kernel<C, kR, K, false, 1024>)
+             : R <= 256   ? march_kernel<C, kR, K, false, 256>
+                          : march_kernel<C, kR, K, false, 1024>;
+  }
   int smem = order == 2 ? merge_smem_bytes<C, W>(R) : staged_smem_bytes<C, W>();
   if (p.tin) {
-    if ((order == 1) == kScalar || order == 2 || R > 256) return cudaErrorInvalidValue;
-    if constexpr (kScalar) {
-      kernel = march_kernel<C, true, K, true, 256>;
-    } else {
-      kernel = march_key_kernel<C, false, K, true, 256>;
-      smem = staged_smem_bytes<C, Layout<false, K, true>::w>();
+    if (order == 2 || R > 256 || (order == 0 && kR != kScalar)) return cudaErrorInvalidValue;
+    if constexpr (kR == kScalar) {
+      if (order == 0) kernel = march_kernel<C, kR, K, true, 256>;
+    }
+    if (order == 1) {
+      kernel = march_key_kernel<C, kR, K, true, 256>;
+      smem = staged_smem_bytes<C, Layout<kR, K, true>::w>();
     }
   }
   // the static red[32] counts against the 48 KB that needs no opt-in
@@ -1046,8 +1192,9 @@ cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStre
 template <int C, int K>
 cudaError_t launch(const Params& p, int order, int n_tiles, int R, cudaStream_t stream,
                    int* info) {
-  return p.origins ? launch_mode<C, true, K>(p, order, n_tiles, R, stream, info)
-                   : launch_mode<C, false, K>(p, order, n_tiles, R, stream, info);
+  if (!p.origins) return launch_mode<C, kQuad, K>(p, order, n_tiles, R, stream, info);
+  return p.quad ? launch_mode<C, kOriginQuad, K>(p, order, n_tiles, R, stream, info)
+                : launch_mode<C, kScalar, K>(p, order, n_tiles, R, stream, info);
 }
 
 // Every chunk of SH coefficient count K; explicitly instantiated for K = 1

@@ -3,14 +3,13 @@
 // march_bwd_sh{1,2,3}.cu, the SH degree 1-3 instantiations).
 //
 // Replaces the Pallas kernel `_march_bwd_kernel` (wrapper `pallas_march_bwd`)
-// of gaussian_ray_tracing_tpu/ops/pallas_march.py in the modes training
-// uses: key order (after K1's quad forward) and window order (after K1's
-// scalar forward with the training sort key), a shared ray origin (the
-// camera eye), SH degree 0 to 3, full [t_min, t_max] rays, any
-// hit_multiplicity. The semantics are those of ops/march_bwd.py, whose plain
-// torch version `march_bwd_plain` is the reference this kernel is tested
-// against. (The TPU kernel's per-ray-origin variant is on no training path
-// and is not ported.)
+// of gaussian_ray_tracing_tpu/ops/pallas_march.py: key order (after K1's
+// quad or scalar forward) and window order (after K1's scalar forward with
+// the training sort key), a shared ray origin (the camera eye) or per-ray
+// origins (kOrig), full [t_min, t_max] rays or per-ray windows, SH degree
+// 0 to 3, any hit_multiplicity. The semantics are those of
+// ops/march_bwd.py, whose plain torch version `march_bwd_plain` is the
+// reference this kernel is tested against.
 //
 // Design: one block per tile, one thread per ray (R = blockDim.x <= 256).
 // Each tile's chunks of C candidates run last to first, carrying dT per ray
@@ -47,7 +46,10 @@
 //      permutation, :1419-1425);
 //   4. per-candidate sums over the tile's rays of 14 + 3K terms per (ray,
 //      candidate): opacity, d_oo, 3 d_od d_g, 9 d_dg d and the colour terms
-//      (SH 0: 3 dR w, times C0 and the colour mask after the sum; SH 1-3:
+//      (per-ray origins, where o_g and oo are per (ray, candidate) and d_og
+//      per ray: opacity, an unused slot, the 3 terms M^T d_og of the mean
+//      and the 9 terms d_dg d + d_og (o - mu) of M, pallas_march.py
+//      :1481-1501, and the colour terms). The colour terms: (SH 0: 3 dR w, times C0 and the colour mask after the sum; SH 1-3:
 //      3K dR w [colour > 0] basis_k, the mask from the exact colours,
 //      pallas_march.py:1448-1461), kGroup = 16 candidates at a time. A warp
 //      in which no lane's mask bit is set writes zero partials without
@@ -58,7 +60,8 @@
 //      reduce-scatter butterfly (31 shuffles per 32 terms; lane l ends with
 //      term l), stored by all lanes at once. All threads of the block then
 //      add the warps in order, one (candidate, term) each, and one thread
-//      per candidate finishes the shared-origin d_og / d_m / d_mean algebra.
+//      per candidate finishes the shared-origin d_og / d_m / d_mean algebra
+//      (per-ray origins: writes the sums, the means' negated).
 //      Every sum runs in a fixed order (the butterfly's pairs are a
 //      shuffle-down tree's), so two launches give bit-identical gradients.
 //      The partials take 8 warps x 16 x 64 floats (32 KB at SH 3) beside
@@ -134,6 +137,9 @@ struct Params {
   const float* d_rgb;     // (T, R, 3)
   const float* d_tfinal;  // (T, R)
   float* d_rows;          // (P, stride), zero-filled by the wrapper
+  const float* origins;   // (T, R, 3) per-ray origins, or null: the eye
+  const float* t_lo_arr;  // (T, R) per-ray window start, or null: t_lo
+  const float* t_hi_arr;  // (T, R) per-ray window end, or null: t_hi
   int stride;
   float t_lo, t_hi, min_t, alpha_min, alpha_clamp;
   int hm;
@@ -145,23 +151,29 @@ __device__ __forceinline__ float ipow(float x, int k) {
   return r;
 }
 
-// Candidate-level (per row, not per ray) values.
+// Candidate-level (per row, not per ray) values; with a shared origin
+// also o - mu, o_g and oo.
 struct Cand {
-  float ox, oy, oz, ogx, ogy, ogz, oo, m[9], op, rad;
+  float mx, my, mz, ox, oy, oz, ogx, ogy, ogz, oo, m[9], op, rad;
   const float* sh;  // sh_r[K], sh_g[K], sh_b[K] in shared memory
 };
 
-template <int K>
+template <int K, bool kOrig>
 __device__ __forceinline__ Cand load_cand(const float* f, const float* eye) {
   Cand c;
-  c.ox = eye[0] - f[kMean];
-  c.oy = eye[1] - f[kMean + 1];
-  c.oz = eye[2] - f[kMean + 2];
+  c.mx = f[kMean];
+  c.my = f[kMean + 1];
+  c.mz = f[kMean + 2];
   for (int k = 0; k < 9; ++k) c.m[k] = f[kMat + k];
-  c.ogx = c.m[0] * c.ox + c.m[1] * c.oy + c.m[2] * c.oz;
-  c.ogy = c.m[3] * c.ox + c.m[4] * c.oy + c.m[5] * c.oz;
-  c.ogz = c.m[6] * c.ox + c.m[7] * c.oy + c.m[8] * c.oz;
-  c.oo = c.ogx * c.ogx + c.ogy * c.ogy + c.ogz * c.ogz;
+  if (!kOrig) {
+    c.ox = eye[0] - c.mx;
+    c.oy = eye[1] - c.my;
+    c.oz = eye[2] - c.mz;
+    c.ogx = c.m[0] * c.ox + c.m[1] * c.oy + c.m[2] * c.oz;
+    c.ogy = c.m[3] * c.ox + c.m[4] * c.oy + c.m[5] * c.oz;
+    c.ogz = c.m[6] * c.ox + c.m[7] * c.oy + c.m[8] * c.oz;
+    c.oo = c.ogx * c.ogx + c.ogy * c.ogy + c.ogz * c.ogz;
+  }
   c.op = f[0];
   c.rad = f[kRad];
   c.sh = f + Staged<K>::col;
@@ -194,41 +206,67 @@ __device__ __forceinline__ float packed_dot(const float* dR, uint32_t cp) {
          dR[2] * ((float)(cp & 1023u) * k1::kInvCol);
 }
 
-// Per-(ray, candidate) forward recompute, scalar form (pallas_march.py:1301-1331),
+// The ray of a thread: direction, liveness, window and (kOrig) origin.
+struct RayB {
+  float dx, dy, dz, ox, oy, oz, t_lo, t_hi;
+  bool live;
+};
+
+// Per-(ray, candidate) forward recompute, scalar form (pallas_march.py:1291-1331),
 // with the operations of K1's eval_scalar (csrc/march.cuh), so that the
 // window replay sees K1's event t and alpha bit for bit. As there, alpha
 // comes first and a miss (alpha at or below alpha_min, or a dead ray) stops
-// with the gate closed, a = 0 and t_ev 0, which nothing reads.
+// with the gate closed, a = 0 and t_ev 0, which nothing reads. kOrig: o - mu,
+// o_g and oo from the ray's own origin (per pair), else the candidate's.
 struct Eval {
-  float dgx, dgy, dgz, od, dd_s, pp, resp, alpha, a, t_ev;
+  float ox, oy, oz, ogx, ogy, ogz, dgx, dgy, dgz, od, dd_s, pp, resp, alpha, a, t_ev;
   bool gate;
 };
 
-__device__ __forceinline__ Eval evaluate(const Params& p, const Cand& c, float dx, float dy,
-                                         float dz, bool live) {
+template <bool kOrig>
+__device__ __forceinline__ Eval evaluate(const Params& p, const Cand& c, const RayB& r) {
   Eval e;
+  float oo;
+  if (kOrig) {
+    e.ox = r.ox - c.mx;
+    e.oy = r.oy - c.my;
+    e.oz = r.oz - c.mz;
+    e.ogx = c.m[0] * e.ox + c.m[1] * e.oy + c.m[2] * e.oz;
+    e.ogy = c.m[3] * e.ox + c.m[4] * e.oy + c.m[5] * e.oz;
+    e.ogz = c.m[6] * e.ox + c.m[7] * e.oy + c.m[8] * e.oz;
+    oo = e.ogx * e.ogx + e.ogy * e.ogy + e.ogz * e.ogz;
+  } else {
+    e.ox = c.ox;
+    e.oy = c.oy;
+    e.oz = c.oz;
+    e.ogx = c.ogx;
+    e.ogy = c.ogy;
+    e.ogz = c.ogz;
+    oo = c.oo;
+  }
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
   e.dgx = c.m[0] * dx + c.m[1] * dy + c.m[2] * dz;
   e.dgy = c.m[3] * dx + c.m[4] * dy + c.m[5] * dz;
   e.dgz = c.m[6] * dx + c.m[7] * dy + c.m[8] * dz;
   const float dd = e.dgx * e.dgx + e.dgy * e.dgy + e.dgz * e.dgz;
-  e.od = c.ogx * e.dgx + c.ogy * e.dgy + c.ogz * e.dgz;
+  e.od = e.ogx * e.dgx + e.ogy * e.dgy + e.ogz * e.dgz;
   e.dd_s = fmaxf(dd, 1e-6f);
   const float t_star = -e.od / e.dd_s;
-  e.pp = c.oo + t_star * (2.f * e.od + t_star * dd);
+  e.pp = oo + t_star * (2.f * e.od + t_star * dd);
   e.resp = expf(-0.5f * fmaxf(e.pp, 0.f));
   e.alpha = fminf(p.alpha_clamp, e.resp * c.op);
   e.gate = false;
   e.a = 0.f;
   e.t_ev = 0.f;
-  if (!(live && e.alpha > p.alpha_min)) return e;
-  const float cq = c.oo - c.rad * c.rad;
+  if (!(r.live && e.alpha > p.alpha_min)) return e;
+  const float cq = oo - c.rad * c.rad;
   const float disc = e.od * e.od - dd * cq;
   const float sq = sqrtf(fmaxf(disc, 0.f));
   const float inv_dd = 1.f / fmaxf(dd, 1e-12f);
   const float t_entry = (-e.od - sq) * inv_dd;
   const float t_exit = (-e.od + sq) * inv_dd;
-  e.t_ev = t_entry < p.t_lo ? t_exit : t_entry;
-  e.gate = disc >= 0.f && e.t_ev >= p.t_lo && e.t_ev <= p.t_hi;
+  e.t_ev = t_entry < r.t_lo ? t_exit : t_entry;
+  e.gate = disc >= 0.f && e.t_ev >= r.t_lo && e.t_ev <= r.t_hi;
   const float a_eff = p.hm == 1 ? e.alpha : 1.f - ipow(1.f - e.alpha, p.hm);
   e.a = e.gate ? a_eff : 0.f;
   return e;
@@ -281,7 +319,7 @@ __device__ __forceinline__ void stage_async(float* sf, const Params& p, size_t r
   k1::cp_async_commit();
 }
 
-template <int C, int K, bool kWindow>
+template <int C, int K, bool kWindow, bool kOrig>
 __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
   constexpr int kS = Staged<K>::w;  // staged floats per candidate
   constexpr int NR = rounds<K>(), TP = 32 * NR, NW = C / 32;
@@ -299,6 +337,13 @@ __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
 
   const float dx = p.dirs[ray * 3 + 0], dy = p.dirs[ray * 3 + 1], dz = p.dirs[ray * 3 + 2];
   const bool live = dx * dx + dy * dy + dz * dz > 0.01f;
+  RayB rb{dx, dy, dz, 0.f, 0.f, 0.f, p.t_lo_arr ? p.t_lo_arr[ray] : p.t_lo,
+          p.t_hi_arr ? p.t_hi_arr[ray] : p.t_hi, live};
+  if (kOrig) {
+    rb.ox = p.origins[ray * 3 + 0];
+    rb.oy = p.origins[ray * 3 + 1];
+    rb.oz = p.origins[ray * 3 + 2];
+  }
   const float dR[3] = {p.d_rgb[ray * 3 + 0], p.d_rgb[ray * 3 + 1], p.d_rgb[ray * 3 + 2]};
   float basis[K];
   if (K > 1) k1::sh_basis<K>(dx, dy, dz, basis);
@@ -349,8 +394,8 @@ __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
         uint32_t bits = 0u;
         const int i0 = w * 32, e_end = min(32, m - i0);
         for (int b = 0; b < e_end; ++b) {
-          const Cand c = load_cand<K>(sf + (i0 + b) * kS, p.eye);
-          const Eval e = evaluate(p, c, dx, dy, dz, live);
+          const Cand c = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
+          const Eval e = evaluate<kOrig>(p, c, rb);
           if (!(e.a > 0.f)) continue;
           bits |= 1u << b;
           inv |= e.t_ev < rmax;
@@ -424,8 +469,8 @@ __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
         uint32_t bits = 0u;
         const int i0 = w * 32, e_end = min(32, m - i0);
         for (int b = 0; b < e_end; ++b) {
-          const Cand c = load_cand<K>(sf + (i0 + b) * kS, p.eye);
-          const Eval e = evaluate(p, c, dx, dy, dz, live);
+          const Cand c = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
+          const Eval e = evaluate<kOrig>(p, c, rb);
           if (!e.gate) continue;  // a = 0: no term of the sums moves
           bits |= 1u << b;
           const float E = expf(S);
@@ -472,8 +517,8 @@ __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
         for (int k = 0; k < 14; ++k) g[k] = 0.f;
         dcm[0] = dcm[1] = dcm[2] = 0.f;
         if (bit) {
-          const Cand c = load_cand<K>(sf + i * kS, p.eye);
-          const Eval e = evaluate(p, c, dx, dy, dz, live);
+          const Cand c = load_cand<K, kOrig>(sf + i * kS, p.eye);
+          const Eval e = evaluate<kOrig>(p, c, rb);
           float d_a, w;
           if (kWindow) {
             d_a = ca[r_next];
@@ -499,23 +544,45 @@ __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
           const float d_pp = -0.5f * e.resp * d_resp * (e.pp > 0.f ? 1.f : 0.f);
           const float d_od = d_pp * (-2.f * e.od / e.dd_s);
           const float d_dd = d_pp * (e.od * e.od / (e.dd_s * e.dd_s));
-          const float d_dgx = d_od * c.ogx + 2.f * e.dgx * d_dd;
-          const float d_dgy = d_od * c.ogy + 2.f * e.dgy * d_dd;
-          const float d_dgz = d_od * c.ogz + 2.f * e.dgz * d_dd;
+          const float d_dgx = d_od * e.ogx + 2.f * e.dgx * d_dd;
+          const float d_dgy = d_od * e.ogy + 2.f * e.dgy * d_dd;
+          const float d_dgz = d_od * e.ogz + 2.f * e.dgz * d_dd;
           g[0] = d_alpha * e.resp * notclamp;
-          g[1] = d_pp;
-          g[2] = d_od * e.dgx;
-          g[3] = d_od * e.dgy;
-          g[4] = d_od * e.dgz;
-          g[5] = d_dgx * dx;
-          g[6] = d_dgx * dy;
-          g[7] = d_dgx * dz;
-          g[8] = d_dgy * dx;
-          g[9] = d_dgy * dy;
-          g[10] = d_dgy * dz;
-          g[11] = d_dgz * dx;
-          g[12] = d_dgz * dy;
-          g[13] = d_dgz * dz;
+          if (kOrig) {
+            // o_g and oo are per ray: d_og stays per ray and every term of
+            // the M and mean gradients is summed over the rays
+            // (pallas_march.py:1481-1501); slot 1 is unused
+            const float d_ogx = d_od * e.dgx + 2.f * e.ogx * d_pp;
+            const float d_ogy = d_od * e.dgy + 2.f * e.ogy * d_pp;
+            const float d_ogz = d_od * e.dgz + 2.f * e.ogz * d_pp;
+            g[1] = 0.f;
+            g[2] = c.m[0] * d_ogx + c.m[3] * d_ogy + c.m[6] * d_ogz;
+            g[3] = c.m[1] * d_ogx + c.m[4] * d_ogy + c.m[7] * d_ogz;
+            g[4] = c.m[2] * d_ogx + c.m[5] * d_ogy + c.m[8] * d_ogz;
+            g[5] = d_dgx * dx + d_ogx * e.ox;
+            g[6] = d_dgx * dy + d_ogx * e.oy;
+            g[7] = d_dgx * dz + d_ogx * e.oz;
+            g[8] = d_dgy * dx + d_ogy * e.ox;
+            g[9] = d_dgy * dy + d_ogy * e.oy;
+            g[10] = d_dgy * dz + d_ogy * e.oz;
+            g[11] = d_dgz * dx + d_ogz * e.ox;
+            g[12] = d_dgz * dy + d_ogz * e.oy;
+            g[13] = d_dgz * dz + d_ogz * e.oz;
+          } else {
+            g[1] = d_pp;
+            g[2] = d_od * e.dgx;
+            g[3] = d_od * e.dgy;
+            g[4] = d_od * e.dgz;
+            g[5] = d_dgx * dx;
+            g[6] = d_dgx * dy;
+            g[7] = d_dgx * dz;
+            g[8] = d_dgy * dx;
+            g[9] = d_dgy * dy;
+            g[10] = d_dgy * dz;
+            g[11] = d_dgz * dx;
+            g[12] = d_dgz * dy;
+            g[13] = d_dgz * dz;
+          }
           for (int ch = 0; ch < 3; ++ch) {
             const float d_col = dR[ch] * w;
             // SH 0: the colour mask is per candidate, applied after the sum
@@ -549,26 +616,31 @@ __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
 
       for (int gi = tid; gi < gn; gi += R) {
         const float* r = part + (size_t)gi * TP;
-        const Cand c = load_cand<K>(sf + (g0 + gi) * kS, p.eye);
-        const float d_oo = r[1];
-        const float d_ogx = r[2] + 2.f * c.ogx * d_oo;
-        const float d_ogy = r[3] + 2.f * c.ogy * d_oo;
-        const float d_ogz = r[4] + 2.f * c.ogz * d_oo;
+        const Cand c = load_cand<K, kOrig>(sf + (g0 + gi) * kS, p.eye);
         float* out = p.d_rows + (row0 + g0 + gi) * p.stride;
         out[kGOp] = r[0];
-        out[kGM0 + 0] = r[5] + d_ogx * c.ox;
-        out[kGM0 + 1] = r[6] + d_ogx * c.oy;
-        out[kGM0 + 2] = r[7] + d_ogx * c.oz;
-        out[kGM0 + 3] = r[8] + d_ogy * c.ox;
-        out[kGM0 + 4] = r[9] + d_ogy * c.oy;
-        out[kGM0 + 5] = r[10] + d_ogy * c.oz;
-        out[kGM0 + 6] = r[11] + d_ogz * c.ox;
-        out[kGM0 + 7] = r[12] + d_ogz * c.oy;
-        out[kGM0 + 8] = r[13] + d_ogz * c.oz;
-        // means: ox = eye_x - mx
-        out[kGMx + 0] = -(c.m[0] * d_ogx + c.m[3] * d_ogy + c.m[6] * d_ogz);
-        out[kGMx + 1] = -(c.m[1] * d_ogx + c.m[4] * d_ogy + c.m[7] * d_ogz);
-        out[kGMx + 2] = -(c.m[2] * d_ogx + c.m[5] * d_ogy + c.m[8] * d_ogz);
+        if (kOrig) {  // the sums over the rays are the gradients; means: o - mu
+          for (int k = 0; k < 9; ++k) out[kGM0 + k] = r[5 + k];
+          for (int k = 0; k < 3; ++k) out[kGMx + k] = -r[2 + k];
+        } else {
+          const float d_oo = r[1];
+          const float d_ogx = r[2] + 2.f * c.ogx * d_oo;
+          const float d_ogy = r[3] + 2.f * c.ogy * d_oo;
+          const float d_ogz = r[4] + 2.f * c.ogz * d_oo;
+          out[kGM0 + 0] = r[5] + d_ogx * c.ox;
+          out[kGM0 + 1] = r[6] + d_ogx * c.oy;
+          out[kGM0 + 2] = r[7] + d_ogx * c.oz;
+          out[kGM0 + 3] = r[8] + d_ogy * c.ox;
+          out[kGM0 + 4] = r[9] + d_ogy * c.oy;
+          out[kGM0 + 5] = r[10] + d_ogy * c.oz;
+          out[kGM0 + 6] = r[11] + d_ogz * c.ox;
+          out[kGM0 + 7] = r[12] + d_ogz * c.oy;
+          out[kGM0 + 8] = r[13] + d_ogz * c.oz;
+          // means: ox = eye_x - mx
+          out[kGMx + 0] = -(c.m[0] * d_ogx + c.m[3] * d_ogy + c.m[6] * d_ogz);
+          out[kGMx + 1] = -(c.m[1] * d_ogx + c.m[4] * d_ogy + c.m[7] * d_ogz);
+          out[kGMx + 2] = -(c.m[2] * d_ogx + c.m[5] * d_ogy + c.m[8] * d_ogz);
+        }
         if (K == 1) {
           for (int ch = 0; ch < 3; ++ch)
             out[kGSh + ch] = kC0 * (r[14 + ch] * (raw_color<1>(c, ch, nullptr) > 0.f ? 1.f : 0.f));
@@ -584,10 +656,10 @@ __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
 
 // One launch, or with `info` non-null the kernel's resident blocks per SM
 // at R rays, dynamic shared memory, registers and local memory per thread.
-template <int C, int K, bool kWindow>
+template <int C, int K, bool kWindow, bool kOrig>
 cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
   const int smem = (int)sizeof(float) * smem_floats<C, K>(R / 32);
-  auto kernel = march_bwd_kernel<C, K, kWindow>;
+  auto kernel = march_bwd_kernel<C, K, kWindow, kOrig>;
   // the static red[32] counts against the 48 KB that needs no opt-in
   if (smem + 1024 > 48 * 1024) {
     const cudaError_t err =
@@ -608,26 +680,30 @@ cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream, int
   return cudaGetLastError();
 }
 
-template <int K, bool kWindow>
+template <int K, bool kWindow, bool kOrig>
 cudaError_t launch_chunk(const Params& p, int chunk, int n_tiles, int R, cudaStream_t stream,
                          int* info) {
   switch (chunk) {
-    case 32: return launch<32, K, kWindow>(p, n_tiles, R, stream, info);
-    case 64: return launch<64, K, kWindow>(p, n_tiles, R, stream, info);
-    case 128: return launch<128, K, kWindow>(p, n_tiles, R, stream, info);
-    case 256: return launch<256, K, kWindow>(p, n_tiles, R, stream, info);
+    case 32: return launch<32, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
+    case 64: return launch<64, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
+    case 128: return launch<128, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
+    case 256: return launch<256, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Both orders at SH coefficient count K: explicitly instantiated for K = 1 in
-// march_bwd.cu and for K = 4, 9, 16 in march_bwd_sh1.cu, march_bwd_sh2.cu and
-// march_bwd_sh3.cu, so that nvcc builds them in parallel.
+// Both orders, shared eye or per-ray origins (p.origins), at SH coefficient
+// count K: explicitly instantiated for K = 1 in march_bwd.cu and for K = 4,
+// 9, 16 in march_bwd_sh1.cu, march_bwd_sh2.cu and march_bwd_sh3.cu, so that
+// nvcc builds them in parallel.
 template <int K>
 cudaError_t launch_k(const Params& p, bool window, int chunk, int n_tiles, int R,
                      cudaStream_t stream, int* info) {
-  return window ? launch_chunk<K, true>(p, chunk, n_tiles, R, stream, info)
-                : launch_chunk<K, false>(p, chunk, n_tiles, R, stream, info);
+  if (p.origins)
+    return window ? launch_chunk<K, true, true>(p, chunk, n_tiles, R, stream, info)
+                  : launch_chunk<K, false, true>(p, chunk, n_tiles, R, stream, info);
+  return window ? launch_chunk<K, true, false>(p, chunk, n_tiles, R, stream, info)
+                : launch_chunk<K, false, false>(p, chunk, n_tiles, R, stream, info);
 }
 
 }  // namespace k3

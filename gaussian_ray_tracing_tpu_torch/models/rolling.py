@@ -24,7 +24,7 @@ from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
 from gaussian_ray_tracing_tpu_torch.models.oracle import frame_from_rays, render_rays_oracle
 from gaussian_ray_tracing_tpu_torch.models.tiled import depth_key, feature_table, tile_rays
 from gaussian_ray_tracing_tpu_torch.ops.march import (
-    chunk_for, march, march_plain, scalar_features,
+    chunk_for, march, march_plain, scalar_features, train_features,
 )
 from gaussian_ray_tracing_tpu_torch.ops.tiles import (
     Footprint, footprint_pair_count, project_footprints_conic,
@@ -49,19 +49,26 @@ def _union_footprints(scene: GaussianScene, radius, bound_radius, cams,
 
 def prepare_rolling_stream(scene: GaussianScene, cam0: Camera, cam1: Camera,
                            config: RenderConfig, pair_capacity: int | None = None,
-                           use_kernels: bool = True):
+                           use_kernels: bool = True, train: bool = False):
     """Union footprints and the midpoint depth key -> the pair stream on
-    the midpoint camera -> per-pair scalar rows, and the tiled rays.
-    Returns (starts, rows, dirs_t, origins_t, valid, n_pairs)."""
+    the midpoint camera -> per-pair scalar rows (train: the training rows
+    of ops/march.train_features, whose view-independent Q columns the
+    per-ray-origin quad response reads and whose diff columns keep autograd
+    for march_stream_diff), and the tiled rays. Binning carries no
+    gradient. Returns (starts, rows, dirs_t, origins_t, valid, n_pairs)."""
     cam_mid = lerp_camera(cam0, cam1, 0.5)
-    table, M, radius = feature_table(scene, config)
-    bound_radius = radius * torch.amax(scene.scales, dim=-1)
-    fp = _union_footprints(scene, radius, bound_radius, (cam0, cam_mid, cam1), config)
-    fp = fp._replace(depth=depth_key(scene, M, radius, cam_mid.eye, config))
+    table, M, radius = feature_table(scene, config, eye=cam_mid.eye if train else None)
+    M, radius = M.detach(), radius.detach()
+    fixed = GaussianScene(*(getattr(scene, k).detach()
+                            for k in ("means", "scales", "quats", "opacities", "sh")),
+                          num_active=scene.num_active)
+    bound_radius = radius * torch.amax(fixed.scales, dim=-1)
+    fp = _union_footprints(fixed, radius, bound_radius, (cam0, cam_mid, cam1), config)
+    fp = fp._replace(depth=depth_key(fixed, M, radius, cam_mid.eye, config))
     if pair_capacity is None:
         pair_capacity = snug_pair_capacity(int(footprint_pair_count(fp, cam_mid, config)))
     stream, ids, n_pairs = bin_footprints(fp, cam_mid, config, pair_capacity, use_kernels)
-    rows = scalar_features(table, config.sh_degree)[ids]
+    rows = (train_features if train else scalar_features)(table, config.sh_degree)[ids]
     origins, dirs, valid = generate_rays_rolling(cam0, cam1, config)
     dirs_t = tile_rays(dirs, config.tile_w, config.tile_h)
     origins_t = tile_rays(origins, config.tile_w, config.tile_h)

@@ -95,19 +95,61 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
+class _InterfaceV1:
+    """A library built from sources older than grt_interface_version (an
+    earlier commit's csrc, for A/B runs against it), called with this
+    tree's argument lists: grt_march without `quad` (argument 27),
+    grt_march_bwd without origins, t_lo and t_hi (arguments 9-11) and
+    grt_march_bwd_info without `origins` (argument 3), which the
+    shared-origin calls pass as 0 and null; the per-ray-origin modes raise."""
+
+    def __init__(self, lib, info: bool):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, vp]
+        lib.grt_march_bwd.argtypes = [vp] * 9 + [ci] * 6 + [cf] * 5 + [ci, vp]
+        if info:
+            lib.grt_march_bwd_info.argtypes = [ci] * 4 + [vp]
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def grt_march(self, *a):
+        if a[27]:
+            raise ValueError("this kernel build has no per-ray-origin quad response")
+        return self._lib.grt_march(*a[:27], a[28])
+
+    def grt_march_bwd(self, *a):
+        if any(x is not None for x in a[9:12]):
+            raise ValueError("this kernel build's K3 takes no per-ray origins or windows")
+        return self._lib.grt_march_bwd(*a[:9], *a[12:])
+
+    def grt_march_info(self, chunk, order, sh_k, resp, train, rays, out):
+        if resp == 2:
+            raise ValueError("this kernel build has no per-ray-origin quad response")
+        return self._lib.grt_march_info(chunk, order, sh_k, resp, train, rays, out)
+
+    def grt_march_bwd_info(self, chunk, window, sh_k, origins, rays, out):
+        if origins:
+            raise ValueError("this kernel build's K3 takes no per-ray origins")
+        return self._lib.grt_march_bwd_info(chunk, window, sh_k, rays, out)
+
+
 def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     """Declare the C entry points of a loaded kernel library (`info`: also
     the launch queries grt_march_info, grt_march_bwd_info,
-    grt_closest_hit_info and grt_scan_info)."""
+    grt_closest_hit_info and grt_scan_info). A library built from an
+    earlier commit's sources, without grt_interface_version, comes back
+    behind _InterfaceV1."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, vp]
+    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, ci, vp]
     lib.grt_march.restype = ci
-    lib.grt_march_bwd.argtypes = [vp] * 9 + [ci] * 6 + [cf] * 5 + [ci, vp]
+    lib.grt_march_bwd.argtypes = [vp] * 12 + [ci] * 6 + [cf] * 5 + [ci, vp]
     lib.grt_march_bwd.restype = ci
     if info:
         lib.grt_march_info.argtypes = [ci] * 6 + [vp]
         lib.grt_march_info.restype = ci
-        lib.grt_march_bwd_info.argtypes = [ci] * 4 + [vp]
+        lib.grt_march_bwd_info.argtypes = [ci] * 5 + [vp]
         lib.grt_march_bwd_info.restype = ci
         lib.grt_closest_hit_info.argtypes = [ci, vp]
         lib.grt_closest_hit_info.restype = ci
@@ -121,7 +163,7 @@ def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     lib.grt_scan_scratch_bytes.restype = ctypes.c_longlong
     lib.grt_error_string.argtypes = [ci]
     lib.grt_error_string.restype = ctypes.c_char_p
-    return lib
+    return lib if hasattr(lib, "grt_interface_version") else _InterfaceV1(lib, info)
 
 
 def load_library() -> ctypes.CDLL:
@@ -133,9 +175,10 @@ def load_library() -> ctypes.CDLL:
 
 
 def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: str = "window",
-                scalar: bool = False, train: bool = False) -> dict:
-    """What a launch of K1 (`kernel` "march": order, per-ray origins
-    `scalar`, saved carries `train`), K3 ("march_bwd": order window or key),
+                scalar: bool = False, train: bool = False, quad: bool = False) -> dict:
+    """What a launch of K1 (`kernel` "march": order, per-ray origins with
+    the scalar response `scalar` or the quad one `quad`, saved carries
+    `train`), K3 ("march_bwd": order window or key, per-ray origins `scalar`),
     K4 ("closest_hit": chunk and SH degree unused) or K2 ("scan": its own
     256 threads; chunk, SH degree and rays unused) at this chunk, SH degree
     and rays per tile runs: resident blocks per SM, shared memory bytes
@@ -149,10 +192,10 @@ def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: st
     elif kernel == "closest_hit":
         err = lib.grt_closest_hit_info(rays, out)
     elif kernel == "march":
-        err = lib.grt_march_info(chunk, ("window", "key", "merge").index(order), k, int(scalar),
-                                 int(train), rays, out)
+        err = lib.grt_march_info(chunk, ("window", "key", "merge").index(order), k,
+                                 2 if quad else int(scalar), int(train), rays, out)
     else:
-        err = lib.grt_march_bwd_info(chunk, int(order == "window"), k, rays, out)
+        err = lib.grt_march_bwd_info(chunk, int(order == "window"), k, int(scalar), rays, out)
     check(err, f"{kernel} launch info")
     return {"blocks_per_sm": out[0], "smem_bytes": out[1], "registers": out[2],
             "local_bytes": out[3]}

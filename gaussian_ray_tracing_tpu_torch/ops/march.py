@@ -72,12 +72,17 @@ too, at row chunk_base[t] + j of a (sum of chunks, R) array, chunk_base =
 [0, cumsum(ceil(count_t / c))] (pallas_march.py:461-473, 1075-1081); the
 skip threshold is min_transmittance. The backward (ops/march_bwd.py,
 kernel K3) replays each chunk from it. The training forward reads the
-training rows (`train_features`). Key order runs the quad response;
-window order the scalar response from per-ray origins (`origins_t`, each
-the eye; JAX's quad=False, pallas_renderer.py:234-238) with the training
+training rows (`train_features`). Key order runs the quad response from
+the shared eye, the scalar response from per-ray origins (JAX's
+quad=False; every origin the eye for the shared-origin scalar form) or
+the per-ray-origin quad response (quad=True); window order the scalar
+response from per-ray origins (`origins_t`, each the eye on the primary
+render; JAX's quad=False, pallas_renderer.py:234-238) with the training
 key: a fired chunk sorts its significant candidates by the unique key
 (tq16 << 8) | src and composites them with the EXACT alpha and the
-3x10-bit colours (pallas_march.py:833-842); no span repair.
+3x10-bit colours (pallas_march.py:833-842); no span repair. Either order
+takes per-ray windows t_lo / t_hi and a carry-in t0 (the saved carry of
+chunk 0 is then t0); no block list.
 
 Segments and bounced rays (the mesh tracer; pallas_march.py:236-241,
 407-442, 586-633, 1046-1074, 1121-1124). Optional per-ray arguments, all
@@ -95,8 +100,17 @@ None on the primary render:
     colour from the row's SH coefficients at the ray's own direction. The
     rolling shutter uses this mode on the pair stream, window-order
     training with every origin the eye, the mesh tracer's bounced rays in
-    block mode (below) at SH 0-3. (The TPU kernel's per-ray-origin QUAD expansion is on no JAX path
-    and is not ported.)
+    block mode (below) at SH 0-3.
+  - origins_t with quad=True: the per-ray-origin QUAD response
+    (pallas_march.py:378-405, 525-548) on the training rows, whose Q
+    columns are view-independent. Each tile expands around its origin
+    centroid o_bar, the mean of its R origins (all R rays, padded ones
+    included, as jnp.mean takes it), summed as a fixed halving tree
+    (`origin_centroid`, the kernel's order too) and divided by R. With a =
+    o - o_bar per ray and b = mu - o_bar, Qb and b^T Q b per candidate:
+    od = q . od6(a, d) - (Qb) . d, oo = q . oo6(a) - 2 (Qb) . a + b^T Q b,
+    cq = oo - rad^2, then the quad response and the exact event gate. On the
+    pair stream only (no block list).
   - blocks (cap_b,) int32 with block_sub: block mode over the Morton-sorted
     table (ops/blocks.block_stream). With bs = chunk / block_sub, chunk j of
     tile t reads rows [blocks[starts[t] / bs + j * block_sub + s] * bs, +bs)
@@ -114,14 +128,15 @@ rows (`train_features`, width `train_row`) are the scalar rows with the
 quad columns in front: at SH 0 the 32-float row [compact row (16), mean,
 M, radius, sh0], at SH 1-3 [op, q (6), v (3), cq, oo, 4 pad, mean, M,
 radius, sh_r[K], sh_g[K], sh_b[K]] (80 floats at SH 3), so one gather
-feeds both responses and the backward; saved carries (save_tin) take these
-rows and only these, so the quad response then reads the coefficients
-from column T_SH0. `march` is the wrapper: CUDA tensors go to the kernel
-(csrc/march.cuh, built as csrc/march.cu and, for SH 1-3,
-csrc/march_sh{1,2,3}.cu), CPU tensors to the plain torch version
-`march_plain`, anything else raises. The TPU's packed16 int16 layout,
-128-column padding, 8-row ray panels and bf16 hi/lo MXU splits are TPU
-layout work and are not ported.
+feeds both responses and the backward; saved carries (save_tin) and the
+per-ray-origin quad response take these rows and only these, so the quad
+response then reads the coefficients from column T_SH0 (and, with per-ray
+origins, the mean from T_MX and the radius from T_RAD). `march` is the
+wrapper: CUDA tensors go to the kernel (csrc/march.cuh, built as
+csrc/march.cu and, for SH 1-3, csrc/march_sh{1,2,3}.cu), CPU tensors to
+the plain torch version `march_plain`, anything else raises. The TPU's
+packed16 int16 layout, 128-column padding, 8-row ray panels and bf16
+hi/lo MXU splits are TPU layout work and are not ported.
 """
 
 from __future__ import annotations
@@ -267,6 +282,7 @@ def march_stream(starts, pair_feats, dirs_t, config: RenderConfig, chunk: int,
 
 def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, seg=None):
     seg = seg or {}
+    origins, quad = seg.get("origins_t"), seg.get("quad", False)
     if chunk not in CHUNKS:
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
     if config.order not in ORDERS:
@@ -278,15 +294,20 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
         raise ValueError("starts must be (T+1,) int32")
     if not 0 <= config.sh_degree <= 3:
         raise NotImplementedError(f"sh_degree {config.sh_degree} not in 0..3")
-    origins = seg.get("origins_t")
-    if save_tin and (config.order == "key") != (origins is None):
-        raise NotImplementedError("saved carries run key order on the quad response and "
-                                  "window order on the scalar response from per-ray origins")
-    if save_tin and any(seg.get(k) is not None for k in ("t_lo", "t_hi", "t0", "blocks")):
-        raise NotImplementedError("save_tin (training) takes no per-ray window, carry-in or "
-                                  "blocks")
+    if quad and origins is None:
+        raise ValueError("quad=True is the per-ray-origin quad response and needs origins_t "
+                         "(without origins the quad rows run the quad response)")
+    if quad and seg.get("blocks") is not None:
+        raise NotImplementedError("the per-ray-origin quad response runs on the pair stream, "
+                                  "not in block mode")
+    if save_tin and config.order == "window" and (origins is None or quad):
+        raise NotImplementedError("window-order saved carries run the scalar response from "
+                                  "per-ray origins (quad training needs key order, "
+                                  "pallas_march.py:1664-1665)")
+    if save_tin and seg.get("blocks") is not None:
+        raise NotImplementedError("save_tin (training) takes no block list")
     deg = config.sh_degree
-    width, rows = ((train_row(deg), "training") if save_tin
+    width, rows = ((train_row(deg), "training") if save_tin or quad
                    else (scalar_row(deg), "scalar") if origins is not None
                    else (quad_row(deg), "quad"))
     if feats.dtype != _F32 or feats.dim() != 2 or feats.shape[1] != width:
@@ -317,16 +338,18 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
 
 
 def march(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool = False, *,
-          origins_t=None, t_lo=None, t_hi=None, t0=None, blocks=None, block_sub: int = 1):
-    """Kernel K1 wrapper on quad, scalar or (save_tin) training rows (see
-    module docstring).
+          origins_t=None, t_lo=None, t_hi=None, t0=None, blocks=None, block_sub: int = 1,
+          quad: bool = False):
+    """Kernel K1 wrapper on quad, scalar or (save_tin, or the per-ray-origin
+    quad response: origins_t with quad=True) training rows (see module
+    docstring).
 
     CUDA tensors launch csrc/march.cu; CPU tensors run march_plain.
     Returns (rgb (T, R, 3), t_final (T, R)) and, with save_tin, also (tin
     (sum of chunks, R), chunk_base (T+1,) int32).
     """
     seg = dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
-               block_sub=block_sub)
+               block_sub=block_sub, quad=quad)
     _check_args(starts, feats, dirs_t, config, chunk, save_tin, seg)
     if dirs_t.device.type == "cpu":
         return march_plain(starts, feats, dirs_t, config, chunk, save_tin, **seg)
@@ -344,13 +367,15 @@ def _full_range(origins_t, t_lo, t_hi, blocks) -> bool:
 
 
 def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool,
-                origins_t, t_lo, t_hi, t0, blocks, block_sub):
+                origins_t, t_lo, t_hi, t0, blocks, block_sub, quad):
     from gaussian_ray_tracing_tpu_torch.ops.cuda_build import check, load_library
 
     lib = load_library()
     T, R, _ = dirs_t.shape
     if R % 32 or not 32 <= R <= 1024:
         raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
+    if quad and R > 256:
+        raise ValueError(f"the per-ray-origin quad kernel takes at most 256 rays per tile, not {R}")
     dev = dirs_t.device
     rgb = torch.empty((T, R, 3), dtype=_F32, device=dev)
     t_final = torch.empty((T, R), dtype=_F32, device=dev)
@@ -370,7 +395,7 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
                 int(_full_range(origins_t, t_lo, t_hi, blocks)),
                 config.t_min, config.t_max, config.min_transmittance,
                 _skip_threshold(config, save_tin), config.alpha_min, config.alpha_clamp,
-                config.hit_multiplicity, num_coeffs(config.sh_degree), stream,
+                config.hit_multiplicity, num_coeffs(config.sh_degree), int(quad), stream,
             )
         check(err, "grt_march")
         march.launches += 1
@@ -379,11 +404,17 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
             march.merge_launches += 1
             if blocks is not None:
                 march.merge_block_launches += 1
-        if save_tin:
+        if save_tin and quad:
+            march.origin_quad_save_tin_launches += 1
+        elif save_tin and key and origins_t is not None:
+            march.key_scalar_save_tin_launches += 1
+        elif save_tin:
             attr = {(True, False): "save_tin_launches", (False, False): "window_save_tin_launches",
                     (True, True): "sh_key_save_tin_launches",
                     (False, True): "sh_save_tin_launches"}[key, sh]
             setattr(march, attr, getattr(march, attr) + 1)
+        elif quad:
+            march.origin_quad_launches += 1
         elif blocks is not None:
             march.block_launches += 1
         elif t_lo is not None or t_hi is not None or t0 is not None:
@@ -401,9 +432,12 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
 march.launches = 0  # every K1 launch
 # saved carries (training forwards), by order and SH degree
 march.save_tin_launches = 0  # key order, SH 0
-march.window_save_tin_launches = 0  # window order (scalar response from the eye), SH 0
+march.window_save_tin_launches = 0  # window order (scalar response from per-ray origins), SH 0
 march.sh_key_save_tin_launches = 0  # key order, SH 1-3
 march.sh_save_tin_launches = 0  # window order, SH 1-3
+march.key_scalar_save_tin_launches = 0  # key order on the scalar response (per-ray origins)
+march.origin_quad_save_tin_launches = 0  # key order on the per-ray-origin quad response
+march.origin_quad_launches = 0  # the per-ray-origin quad response (no saved carries)
 march.segment_launches = 0  # windowed or chained segments on the pair stream
 march.block_launches = 0  # block mode (bounced rays over the Morton table)
 march.origin_launches = 0  # per-ray origins on the pair stream (rolling shutter)
@@ -461,18 +495,58 @@ def _effective(alpha, gate, config: RenderConfig):
     return torch.where(gate, a_eff, 0.0)
 
 
+def origin_centroid(x: torch.Tensor) -> torch.Tensor:
+    """(T, R) -> (T, 1): each tile's mean of its R values, summed as a
+    halving tree (with n values left and h = ceil(n / 2), value i < n - h
+    takes value i + h), then divided by R: the order K1 sums it in."""
+    R = x.shape[1]
+    n = R
+    while n > 1:
+        h = (n + 1) // 2
+        x = torch.cat([x[:, : n - h] + x[:, h:n], x[:, n - h : h]], dim=1)
+        n = h
+    return x[:, :1] / R
+
+
+def _origin_quad(q, f, rays, dx, dy, dz):
+    """od, oo and cq of the per-ray-origin quad response (pallas_march.py
+    :378-405, 525-548): the expansion around the tile's origin centroid,
+    from the Q columns, the mean and the radius of the training rows."""
+    col = lambda k: f[:, :, k : k + 1]
+    ob = rays["obar"]  # 3 x (B, 1, 1)
+    ax, ay, az = (o - c for o, c in zip(rays["o"], ob))  # (B, 1, R)
+    od6 = (ax * dx, ay * dy, az * dz, ax * dy + ay * dx, ax * dz + az * dx, ay * dz + az * dy)
+    oo6 = (ax * ax, ay * ay, az * az, 2.0 * ax * ay, 2.0 * ax * az, 2.0 * ay * az)
+    bx, by, bz = (col(T_MX + k) - ob[k] for k in range(3))  # (B, c, 1) b = mu - o_bar
+    vx = q[0] * bx + q[3] * by + q[4] * bz  # Q b
+    vy = q[3] * bx + q[1] * by + q[5] * bz
+    vz = q[4] * bx + q[5] * by + q[2] * bz
+    mqm = vx * bx + vy * by + vz * bz  # b^T Q b
+    od = q[0] * od6[0] + q[1] * od6[1] + q[2] * od6[2] + q[3] * od6[3] + q[4] * od6[4] \
+        + q[5] * od6[5] - (vx * dx + vy * dy + vz * dz)
+    oo = q[0] * oo6[0] + q[1] * oo6[1] + q[2] * oo6[2] + q[3] * oo6[3] + q[4] * oo6[4] \
+        + q[5] * oo6[5] - 2.0 * (vx * ax + vy * ay + vz * az) + mqm
+    rad = col(T_RAD)
+    return od, oo, oo - rad * rad
+
+
 def _quad_alpha(f, rays, present, config: RenderConfig):
     """Quad-form response of a (B, c, ROW+) candidate block against the
-    rays of `rays` (each (B, 1, R)): the gated effective alpha (B, c, R),
-    the event t (None under the full-range key gate) and the colours."""
+    rays of `rays` (each (B, 1, R)), from the shared eye's columns or, with
+    per-ray origins, the expansion around the tile's origin centroid: the
+    gated effective alpha (B, c, R), the event t (None under the full-range
+    key gate) and the colours."""
     col = lambda k: f[:, :, k : k + 1]  # (B, c, 1)
     dx, dy, dz = rays["d"]
     m2 = (dx * dx, dy * dy, dz * dz, 2.0 * dx * dy, 2.0 * dx * dz, 2.0 * dy * dz)
     q = [col(_Q0 + k) for k in range(6)]
     dd = q[0] * m2[0] + q[1] * m2[1] + q[2] * m2[2] + q[3] * m2[3] \
         + q[4] * m2[4] + q[5] * m2[5]  # (B, c, R)
-    od = col(_V0) * dx + col(_V0 + 1) * dy + col(_V0 + 2) * dz
-    cq, oo = col(_CQ), col(_OO)
+    if rays["o"] is None:
+        od = col(_V0) * dx + col(_V0 + 1) * dy + col(_V0 + 2) * dz
+        cq, oo = col(_CQ), col(_OO)
+    else:
+        od, oo, cq = _origin_quad(q, f, rays, dx, dy, dz)
     rcp6 = 1.0 / torch.clamp(dd, min=1e-6)
     t_star = -od * rcp6
     pp = oo + od * t_star  # oo - od^2/dd
@@ -567,7 +641,7 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
     # per-ray lists and tensors are cut to the batch
     sub = {k: ([x[tb][:, None] for x in v] if isinstance(v, list)
                else v[tb][:, None] if torch.is_tensor(v) else v) for k, v in rays.items()}
-    alpha_fn = _quad_alpha if rays["o"] is None else _scalar_alpha
+    alpha_fn = _quad_alpha if rays["quad"] else _scalar_alpha
     a, t_ev, cols = alpha_fn(f, sub, present, config)
     min_t = config.min_transmittance
     t_carry = trans[tb][:, None]  # (B, 1, R)
@@ -692,7 +766,7 @@ def _merge_composite(t_carry, a, t_ev, cols, pend, min_t: float):
 
 def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
                 save_tin: bool = False, *, origins_t=None, t_lo=None, t_hi=None, t0=None,
-                blocks=None, block_sub: int = 1):
+                blocks=None, block_sub: int = 1, quad: bool = False):
     """Plain torch march on any device: all tiles advance chunk by chunk,
     in batches of at most _PLAIN_BATCH (tile, candidate, ray) elements, with
     a stable per-ray torch.sort in fired chunks (window order). Records in
@@ -705,15 +779,17 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     (0 in the others)."""
     _check_args(starts, feats, dirs_t, config, chunk, save_tin,
                 dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
-                     block_sub=block_sub))
+                     block_sub=block_sub, quad=quad))
     T, R, _ = dirs_t.shape
     dev = dirs_t.device
     dirs = dirs_t.to(_F32)
     dx, dy, dz = dirs.unbind(-1)
+    origins = None if origins_t is None else list(origins_t.unbind(-1))
     rays = dict(
-        d=[dx, dy, dz], o=None if origins_t is None else list(origins_t.unbind(-1)),
+        d=[dx, dy, dz], o=origins, quad=origins is None or quad,
+        obar=[origin_centroid(o) for o in origins] if quad else None,  # (T, 1) each
         basis=sh_basis_list(dx, dy, dz, config.sh_degree) if config.sh_degree > 0 else None,
-        sh_col=T_SH0 if save_tin else _SH0,  # the training rows' coefficients
+        sh_col=T_SH0 if save_tin or quad else _SH0,  # the training rows' coefficients
         live=dx * dx + dy * dy + dz * dz > 0.01,  # |dir| > 0.1
         t_lo=config.t_min if t_lo is None else t_lo,
         t_hi=config.t_max if t_hi is None else t_hi,

@@ -3,10 +3,10 @@ autograd Function that pairs it with the forward K1.
 
 Counterpart of `_march_bwd_kernel` / `pallas_march_bwd` and of the
 `march_stream_diff` custom_vjp in gaussian_ray_tracing_tpu/ops/pallas_march.py
-(:1189-1709), in the modes training uses: key order and window order, a
-shared ray origin (the camera eye), SH degree 0 to 3, full [t_min, t_max]
-rays, any hit_multiplicity. (The per-ray-origin variant, :1481-1501, is on
-no training path and is not ported.)
+(:1189-1709): key order and window order, a shared ray origin (the camera
+eye) or per-ray origins (rolling-shutter renders and bounced segments),
+full [t_min, t_max] rays or per-ray windows [t_lo, t_hi], SH degree 0 to
+3, any hit_multiplicity.
 
 Each tile's chunks are replayed in REVERSE from the carry-in transmittance
 the forward saved (ops/march.py, save_tin), carrying dT per ray from
@@ -16,11 +16,13 @@ d(t_final). Per chunk (pallas_march.py:1265-1535):
      chunk's gradient rows are zero and dT passes through unchanged;
   2. recompute, from the SCALAR columns of the training rows (mean, M =
      S^-1 R^T, opacity, iso radius, SH coefficients), the scalar-form
-     response and the exact gate disc >= 0 & t_event in [t_lo, t_hi] &
-     live & alpha > alpha_min. In key order the forward ran the quad form
-     with the fast gate; this asymmetry is the reference's own
-     (pallas_renderer.py:234-238, pallas_march.py:1647-1653) and is kept.
-     Window order's forward ran this very scalar form;
+     response from the eye or each ray's origin and the exact gate disc >=
+     0 & t_event in [t_lo, t_hi] & live & alpha > alpha_min, with the
+     forward's per-ray windows. In key order the forward may have run the
+     quad form (with the fast gate on full-range rays from the eye); this
+     asymmetry is the reference's own (pallas_renderer.py:234-238,
+     pallas_march.py:1647-1653) and is kept. Otherwise the forward ran
+     this very scalar form;
   3. window order only (pallas_march.py:1343-1425): replay the forward's
      tile-wide fire test on the same event t and alphas; in a fired chunk
      order the candidates by the unique training key (tq16 << 8) | src
@@ -38,8 +40,11 @@ d(t_final). Per chunk (pallas_march.py:1265-1535):
      (SH 0: sh0 = C0 sum(dR w) [colour > 0]; SH 1-3: sh_k = sum(dR w
      [colour > 0] basis_k), the mask from the exact colours), opacity, the
      9 M columns through the shared-origin d_og / d_dg algebra, and the
-     means as -d_o. The radius column and every quad column get exactly
-     zero.
+     means as -d_o. With per-ray origins o_g and oo are per (ray,
+     candidate): d_og stays per ray and the nine d(M) terms and d(mean) =
+     -d(o) are summed over the rays (pallas_march.py:1481-1501), d_oo is
+     not reduced first. The radius column and every quad column get
+     exactly zero.
 
 Early termination is a non-differentiable cutoff, as in the reference.
 Each row of the pair stream belongs to exactly one (tile, chunk), so rows
@@ -65,7 +70,7 @@ _PLAIN_BATCH = 1 << 23  # (tile, candidate, ray) elements per plain batch
 
 
 def _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
-                config: RenderConfig, chunk: int, dtypes=(_F32,)):
+                config: RenderConfig, chunk: int, dtypes=(_F32,), seg=None):
     if chunk not in CHUNKS:
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
     if config.order not in ("window", "key") or not 0 <= config.sh_degree <= 3:
@@ -82,33 +87,41 @@ def _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
         raise ValueError("tin must be (sum of chunks, R) and eye (3,)")
     if d_rgb.shape != (T, R, 3) or d_tfinal.shape != (T, R):
         raise ValueError("d_rgb must be (T, R, 3) and d_tfinal (T, R)")
-    tensors = (starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal)
+    seg = {k: v for k, v in (seg or {}).items() if v is not None}
+    for name, x in seg.items():
+        if tuple(x.shape) != ((T, R, 3) if name == "origins_t" else (T, R)):
+            raise ValueError("origins_t must be (T, R, 3), t_lo and t_hi (T, R)")
+    tensors = (starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal, *seg.values())
     if len({t.device for t in tensors}) != 1:
         raise ValueError("march_bwd's tensors must share one device")
-    if any(t.dtype != rows.dtype for t in (dirs_t, eye, tin, d_rgb, d_tfinal)):
-        raise ValueError("dirs_t, eye, tin, d_rgb and d_tfinal must have the rows' dtype")
+    if any(t.dtype != rows.dtype for t in (dirs_t, eye, tin, d_rgb, d_tfinal, *seg.values())):
+        raise ValueError("dirs_t, eye, tin, d_rgb, d_tfinal, origins_t, t_lo and t_hi must "
+                         "have the rows' dtype")
 
 
 def march_bwd(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
-              config: RenderConfig, chunk: int):
+              config: RenderConfig, chunk: int, *, origins_t=None, t_lo=None, t_hi=None):
     """Kernel K3 wrapper: d(rows) (P, train_row) of the training march.
 
     starts (T+1,) int32, rows (P, train_row) training rows, dirs_t (T, R, 3),
     eye (3,), tin / chunk_base as the forward saved them, d_rgb (T, R, 3),
-    d_tfinal (T, R). CUDA tensors launch csrc/march_bwd.cu; CPU tensors
-    run march_bwd_plain.
+    d_tfinal (T, R); optional per-ray origins_t (T, R, 3) (the eye is then
+    unused) and windows t_lo, t_hi (T, R), as the forward took them. CUDA
+    tensors launch csrc/march_bwd.cu; CPU tensors run march_bwd_plain.
     """
     args = (starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal)
-    _check_args(*args, config, chunk)
+    seg = dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi)
+    _check_args(*args, config, chunk, seg=seg)
     if dirs_t.device.type == "cpu":
-        return march_bwd_plain(*args, config, chunk)
+        return march_bwd_plain(*args, config, chunk, **seg)
     if dirs_t.device.type != "cuda":
         raise ValueError(f"no march_bwd for device {dirs_t.device}")
-    return _march_bwd_cuda(*(t.contiguous() for t in args), config, chunk)
+    seg = {k: None if v is None else v.contiguous() for k, v in seg.items()}
+    return _march_bwd_cuda(*(t.contiguous() for t in args), config, chunk, **seg)
 
 
 def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
-                    config: RenderConfig, chunk: int):
+                    config: RenderConfig, chunk: int, origins_t, t_lo, t_hi):
     from gaussian_ray_tracing_tpu_torch.ops.cuda_build import check, load_library
 
     lib = load_library()
@@ -118,14 +131,16 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
     d_rows = torch.zeros_like(rows)  # rows no tile owns, and skipped chunks, stay 0
     if T == 0:
         return d_rows
+    ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dirs_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grt_march_bwd(
             starts.data_ptr(), chunk_base.data_ptr(), rows.data_ptr(), dirs_t.data_ptr(),
             eye.data_ptr(), tin.data_ptr(), d_rgb.data_ptr(), d_tfinal.data_ptr(),
-            d_rows.data_ptr(), T, R, chunk, rows.shape[1], int(config.order == "window"),
-            num_coeffs(config.sh_degree), config.t_min, config.t_max, config.min_transmittance,
-            config.alpha_min, config.alpha_clamp, config.hit_multiplicity, stream,
+            d_rows.data_ptr(), ptr(origins_t), ptr(t_lo), ptr(t_hi), T, R, chunk, rows.shape[1],
+            int(config.order == "window"), num_coeffs(config.sh_degree), config.t_min,
+            config.t_max, config.min_transmittance, config.alpha_min, config.alpha_clamp,
+            config.hit_multiplicity, stream,
         )
     check(err, "grt_march_bwd")
     march_bwd.launches += 1
@@ -133,6 +148,8 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
             (False, True): "sh_key_launches",
             (True, True): "sh_launches"}[config.order == "window", config.sh_degree > 0]
     setattr(march_bwd, attr, getattr(march_bwd, attr) + 1)
+    if origins_t is not None:
+        march_bwd.origin_launches += 1
     return d_rows
 
 
@@ -141,11 +158,12 @@ march_bwd.key_launches = 0  # key order, SH 0
 march_bwd.window_launches = 0  # window order (the sort replay), SH 0
 march_bwd.sh_key_launches = 0  # key order, SH 1-3
 march_bwd.sh_launches = 0  # window order, SH 1-3
+march_bwd.origin_launches = 0  # per-ray origins, either order and any SH degree
 
 
 # --- plain torch version ---------------------------------------------------
 
-def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_base, d_rgb,
+def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, seg, tin, chunk_base, d_rgb,
                      dT, d_rows, config: RenderConfig, c: int):
     """Backward of chunk j of tiles `tb`: writes their rows of d_rows and
     advances dT (in place). Returns the number of (ray, candidate) pairs
@@ -164,11 +182,16 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_bas
     dR = [d_rgb[tb][:, None, :, ch] for ch in range(3)]  # (B, 1, R)
     dT_c = dT[tb][:, None]  # (B, 1, R)
 
-    # ---- forward recompute, scalar form (pallas_march.py:1301-1331) ----
+    # ---- forward recompute, scalar form (pallas_march.py:1291-1331) ----
     m = [col(T_M0 + k) for k in range(9)]
     op, rad = col(_OP), col(T_RAD)
-    ox, oy, oz = eye[0] - col(T_MX), eye[1] - col(T_MX + 1), eye[2] - col(T_MX + 2)
-    ogx = m[0] * ox + m[1] * oy + m[2] * oz  # (B, c, 1)
+    origins = seg["origins_t"]
+    if origins is None:  # (B, c, 1): rays share the eye
+        ox, oy, oz = eye[0] - col(T_MX), eye[1] - col(T_MX + 1), eye[2] - col(T_MX + 2)
+    else:  # (B, c, R): per-ray origins
+        o = origins[tb][:, None]  # (B, 1, R, 3)
+        ox, oy, oz = o[..., 0] - col(T_MX), o[..., 1] - col(T_MX + 1), o[..., 2] - col(T_MX + 2)
+    ogx = m[0] * ox + m[1] * oy + m[2] * oz  # (B, c, 1) or (B, c, R)
     ogy = m[3] * ox + m[4] * oy + m[5] * oz
     ogz = m[6] * ox + m[7] * oy + m[8] * oz
     dgx = m[0] * dx + m[1] * dy + m[2] * dz  # (B, c, R)
@@ -176,7 +199,7 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_bas
     dgz = m[6] * dx + m[7] * dy + m[8] * dz
     dd = dgx * dgx + dgy * dgy + dgz * dgz
     od = ogx * dgx + ogy * dgy + ogz * dgz
-    oo = ogx * ogx + ogy * ogy + ogz * ogz  # (B, c, 1)
+    oo = ogx * ogx + ogy * ogy + ogz * ogz  # (B, c, 1) or (B, c, R)
     dd_s = torch.clamp(dd, min=1e-6)
     t_star = -od / dd_s
     pp = oo + t_star * (2.0 * od + t_star * dd)
@@ -188,9 +211,10 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_bas
     inv_dd = 1.0 / torch.clamp(dd, min=1e-12)
     t_entry = (-od - sq) * inv_dd
     t_exit = (-od + sq) * inv_dd
-    t_lo = config.t_min
+    t_lo = config.t_min if seg["t_lo"] is None else seg["t_lo"][tb][:, None]
+    t_hi = config.t_max if seg["t_hi"] is None else seg["t_hi"][tb][:, None]
     t_event = torch.where(t_entry < t_lo, t_exit, t_entry)
-    in_window = (t_event >= t_lo) & (t_event <= config.t_max)
+    in_window = (t_event >= t_lo) & (t_event <= t_hi)
     gate = present[..., None] & (disc >= 0.0) & in_window & live[tb][:, None] \
         & (alpha > config.alpha_min)
     hm = config.hit_multiplicity
@@ -263,30 +287,42 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, tin, chunk_bas
     d_dgx = d_od * ogx + 2.0 * dgx * d_dd
     d_dgy = d_od * ogy + 2.0 * dgy * d_dd
     d_dgz = d_od * ogz + 2.0 * dgz * d_dd
-    d_oo = red(d_pp)  # (B, c, 1)
-    d_ogx = red(d_od * dgx) + 2.0 * ogx * d_oo
-    d_ogy = red(d_od * dgy) + 2.0 * ogy * d_oo
-    d_ogz = red(d_od * dgz) + 2.0 * ogz * d_oo
-    d_m = [
-        red(d_dgx * dx) + d_ogx * ox, red(d_dgx * dy) + d_ogx * oy,
-        red(d_dgx * dz) + d_ogx * oz, red(d_dgy * dx) + d_ogy * ox,
-        red(d_dgy * dy) + d_ogy * oy, red(d_dgy * dz) + d_ogy * oz,
-        red(d_dgz * dx) + d_ogz * ox, red(d_dgz * dy) + d_ogz * oy,
-        red(d_dgz * dz) + d_ogz * oz,
-    ]
+    if origins is None:  # d_oo and d_og per candidate, then the M algebra
+        d_oo = red(d_pp)  # (B, c, 1)
+        d_ogx = red(d_od * dgx) + 2.0 * ogx * d_oo
+        d_ogy = red(d_od * dgy) + 2.0 * ogy * d_oo
+        d_ogz = red(d_od * dgz) + 2.0 * ogz * d_oo
+        d_m = [
+            red(d_dgx * dx) + d_ogx * ox, red(d_dgx * dy) + d_ogx * oy,
+            red(d_dgx * dz) + d_ogx * oz, red(d_dgy * dx) + d_ogy * ox,
+            red(d_dgy * dy) + d_ogy * oy, red(d_dgy * dz) + d_ogy * oz,
+            red(d_dgz * dx) + d_ogz * ox, red(d_dgz * dy) + d_ogz * oy,
+            red(d_dgz * dz) + d_ogz * oz,
+        ]
+        d_o = [m[k] * d_ogx + m[k + 3] * d_ogy + m[k + 6] * d_ogz for k in range(3)]
+    else:  # o_g and oo are (B, c, R): d_og stays per ray, the sums come last
+        d_ogx = d_od * dgx + 2.0 * ogx * d_pp
+        d_ogy = d_od * dgy + 2.0 * ogy * d_pp
+        d_ogz = d_od * dgz + 2.0 * ogz * d_pp
+        d_m = [
+            red(d_dgx * dx + d_ogx * ox), red(d_dgx * dy + d_ogx * oy),
+            red(d_dgx * dz + d_ogx * oz), red(d_dgy * dx + d_ogy * ox),
+            red(d_dgy * dy + d_ogy * oy), red(d_dgy * dz + d_ogy * oz),
+            red(d_dgz * dx + d_ogz * ox), red(d_dgz * dy + d_ogz * oy),
+            red(d_dgz * dz + d_ogz * oz),
+        ]
+        d_o = [red(m[k] * d_ogx + m[k + 3] * d_ogy + m[k + 6] * d_ogz) for k in range(3)]
     for k in range(9):
         g[:, :, T_M0 + k : T_M0 + k + 1] = d_m[k]
-    # means: ox = eye_x - mx
-    g[:, :, T_MX : T_MX + 1] = -(m[0] * d_ogx + m[3] * d_ogy + m[6] * d_ogz)
-    g[:, :, T_MX + 1 : T_MX + 2] = -(m[1] * d_ogx + m[4] * d_ogy + m[7] * d_ogz)
-    g[:, :, T_MX + 2 : T_MX + 3] = -(m[2] * d_ogx + m[5] * d_ogy + m[8] * d_ogz)
+    for k in range(3):  # means: o - mu
+        g[:, :, T_MX + k : T_MX + k + 1] = -d_o[k]
     # rad only gates hits (discontinuous): zero gradient, as in 3DGRT
     d_rows[idx[present]] = g[present]
     return (a > 0.0).sum(), fired
 
 
 def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
-                    config: RenderConfig, chunk: int):
+                    config: RenderConfig, chunk: int, *, origins_t=None, t_lo=None, t_hi=None):
     """Plain torch backward on any device, batched over tiles like
     march_plain; chunks run last to first. Float32, as the kernel; float64
     inputs give a witness of the float32 rounding (the reference's
@@ -296,8 +332,9 @@ def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
     march_bwd_plain.significant the (ray, candidate) pairs that passed the
     gate and in march_bwd_plain.fired the replayed chunks that fired
     (window order; 0 in key order)."""
+    seg = dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi)
     _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
-                config, chunk, (_F32, torch.float64))
+                config, chunk, (_F32, torch.float64), seg)
     T, R, _ = dirs_t.shape
     dev = dirs_t.device
     dx, dy, dz = dirs_t[..., 0], dirs_t[..., 1], dirs_t[..., 2]
@@ -316,8 +353,8 @@ def march_bwd_plain(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
         live_tiles = has[t_max > min_t]
         replayed += torch.clamp(counts[live_tiles] - j * chunk, max=chunk).sum()
         for tb in live_tiles.split(batch):
-            sig, n_fired = _chunk_bwd_plain(tb, j, starts, rows, dirs_t, live, basis, eye, tin,
-                                            chunk_base, d_rgb, dT, d_rows, config, chunk)
+            sig, n_fired = _chunk_bwd_plain(tb, j, starts, rows, dirs_t, live, basis, eye, seg,
+                                            tin, chunk_base, d_rgb, dT, d_rows, config, chunk)
             significant += sig
             chunks += tb.numel()
             fired += n_fired
@@ -336,37 +373,56 @@ march_bwd_plain.fired = 0  # of those, the chunks that fired (window order)
 
 class MarchStreamDiff(torch.autograd.Function):
     """Differentiable training march: the forward is K1 with saved carries
-    (march_plain for use_kernels=False), in key order on the quad response
-    and in window order on the scalar response from per-ray origins, each
-    the eye, as the reference's training forwards run
-    (pallas_renderer.py:234-238); the
-    backward is K3 (march_bwd_plain). Gradients flow to the training rows
-    only; starts, directions and the eye get none, as in the reference
+    (march_plain for use_kernels=False), the backward is K3
+    (march_bwd_plain). quad (key order only): the forward runs the quad
+    response, from the shared eye or, with origins_t, the per-ray-origin
+    expansion; otherwise the scalar response from origins_t, or from the
+    eye as per-ray origins. Either way the backward recomputes the scalar
+    form, as the reference's does (pallas_march.py:1647-1653). Gradients
+    flow to the training rows only; starts, directions, the eye, origins,
+    windows and the carry-in get none, as in the reference
     (pallas_march.py:1703-1706)."""
 
     @staticmethod
     def forward(ctx, rows, starts, dirs_t, eye, config: RenderConfig, chunk: int,
-                use_kernels: bool):
+                use_kernels: bool, quad: bool, origins_t, t_lo, t_hi, t0):
+        if config.order == "merge":
+            raise ValueError("order='merge' is a forward-render ordering; train with window or "
+                             "key order (pallas_march.py:1659-1663)")
+        if quad and config.order != "key":
+            raise ValueError("quad training requires order='key' (pallas_march.py:1664-1665)")
         fwd = march if use_kernels else march_plain
-        origins_t = eye.expand(dirs_t.shape).contiguous() if config.order == "window" else None
-        rgb, t_final, tin, chunk_base = fwd(starts, rows, dirs_t, config, chunk, save_tin=True,
-                                            origins_t=origins_t)
-        ctx.save_for_backward(rows, starts, dirs_t, eye, tin, chunk_base)
+        fwd_origins = origins_t
+        if origins_t is None and not quad:  # the scalar response from the eye
+            fwd_origins = eye.expand(dirs_t.shape).contiguous()
+        rgb, t_final, tin, chunk_base = fwd(
+            starts, rows, dirs_t, config, chunk, save_tin=True, origins_t=fwd_origins,
+            t_lo=t_lo, t_hi=t_hi, t0=t0, quad=quad and origins_t is not None)
+        ctx.save_for_backward(rows, starts, dirs_t, eye, tin, chunk_base, origins_t, t_lo, t_hi)
         ctx.config, ctx.chunk, ctx.use_kernels = config, chunk, use_kernels
         return rgb, t_final
 
     @staticmethod
     def backward(ctx, d_rgb, d_tfinal):
-        rows, starts, dirs_t, eye, tin, chunk_base = ctx.saved_tensors
+        rows, starts, dirs_t, eye, tin, chunk_base, origins_t, t_lo, t_hi = ctx.saved_tensors
         bwd = march_bwd if ctx.use_kernels else march_bwd_plain
         d_rows = bwd(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb.contiguous(),
-                     d_tfinal.contiguous(), ctx.config, ctx.chunk)
-        return d_rows, None, None, None, None, None, None
+                     d_tfinal.contiguous(), ctx.config, ctx.chunk, origins_t=origins_t,
+                     t_lo=t_lo, t_hi=t_hi)
+        return (d_rows,) + (None,) * 11
 
 
 def march_stream_diff(rows, starts, dirs_t, eye, config: RenderConfig, chunk: int,
-                      use_kernels: bool = True):
+                      use_kernels: bool = True, *, quad: bool | None = None, origins_t=None,
+                      t_lo=None, t_hi=None, t0=None):
     """(rgb (T, R, 3), t_final (T, R)) of the training march (window or key
     order), differentiable with respect to the (P, train_row) training
-    rows."""
-    return MarchStreamDiff.apply(rows, starts, dirs_t, eye, config, chunk, use_kernels)
+    rows; the counterpart of JAX's march_stream_diff (pallas_march.py
+    :1632-1709). quad None takes the render's choice, quad in key order and
+    scalar in window order (pallas_renderer.py:224-238); origins_t (T, R,
+    3), t_lo, t_hi and t0 (T, R) are per-ray origins, windows and carry-in
+    (each None: the eye, [t_min, t_max] and 1)."""
+    if quad is None:
+        quad = config.order == "key"
+    return MarchStreamDiff.apply(rows, starts, dirs_t, eye, config, chunk, use_kernels, quad,
+                                 origins_t, t_lo, t_hi, t0)

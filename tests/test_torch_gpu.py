@@ -997,3 +997,170 @@ def test_k3_matches_tiled_autograd(sh):
         a, b = grads["gpu"][f], grads["tiled"][f]
         assert np.isfinite(a).all() and np.isfinite(b).all(), f
         assert np.abs(a - b).max() / (np.abs(b).max() + 1e-12) < 1e-3, f
+
+
+# --- per-ray origins: K1's per-ray-origin quad response, training with
+# origins, windows and carry-in, K3's per-ray-origin backward --------------
+
+def _rolling_train_stream(chunk, order="key", degree=0, seed=4):
+    """A rolling-shutter stream of a 5k scene at 256^2 (the eye moves 0.05
+    in x during readout) on the training rows, with per-ray windows and a
+    carry-in drawn as tests/test_pallas.py:364-368 draws them."""
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam1 = Camera.create(eye=(0.05, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                         device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order, sh_degree=degree)
+    starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(scene, _camera(), cam1, cfg,
+                                                                   train=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = dirs_t.shape[:2]
+    seg = dict(origins_t=origins_t,
+               t_lo=0.05 + 0.05 * torch.rand(shape, generator=g, device="cuda"),
+               t_hi=3.0 + torch.rand(shape, generator=g, device="cuda"),
+               t0=0.6 + 0.4 * torch.rand(shape, generator=g, device="cuda"))
+    return cfg, starts, rows.detach().contiguous(), dirs_t, seg
+
+
+@pytest.mark.parametrize("degree", [0, 3])
+@pytest.mark.parametrize("order", ["window", "key", "merge"])
+def test_origin_quad_march_matches_plain(order, degree):
+    """K1's per-ray-origin quad response on a rolling-shutter stream against
+    march_plain, and against the scalar response of the same rays."""
+    cfg, starts, rows, dirs_t, seg = _rolling_train_stream(128, order, degree)
+    o = seg["origins_t"]
+    before = tmarch.march.origin_quad_launches
+    got = tmarch.march(starts, rows, dirs_t, cfg, 128, origins_t=o, quad=True)
+    torch.cuda.synchronize()
+    assert tmarch.march.origin_quad_launches == before + 1
+    _kernel_close(got, tmarch.march_plain(starts, rows, dirs_t, cfg, 128, origins_t=o, quad=True))
+    if order == "key":  # the scalar response of the same rays: other rounding, the same
+        # order (window and merge order sort near-ties by quantized event t
+        # either way, as the shared-origin quad and scalar responses do)
+        _kernel_close(got, tmarch.march(starts, rows, dirs_t, cfg, 128, origins_t=o))
+    assert float(got[1].min()) < 0.5
+
+
+TRAIN_ORIGIN_MODES = [("key", 0, False), ("key", 0, True), ("window", 0, False),
+                      ("key", 3, False), ("window", 3, False), ("key", 3, True)]
+
+
+@pytest.mark.parametrize("order,degree,quad", TRAIN_ORIGIN_MODES)
+def test_origin_training_march_matches_plain(order, degree, quad):
+    """K1 with saved carries from per-ray origins, windows and a carry-in
+    (the scalar or the per-ray-origin quad response) against march_plain:
+    rgb and T at the quad-path bars, the carries to 1e-4."""
+    cfg, starts, rows, dirs_t, seg = _rolling_train_stream(256 if order == "key" else 128,
+                                                           order, degree)
+    chunk = cfg.march_chunk
+    counter = "origin_quad_save_tin_launches" if quad else (
+        "key_scalar_save_tin_launches" if order == "key"
+        else "sh_save_tin_launches" if degree else "window_save_tin_launches")
+    before = getattr(tmarch.march, counter)
+    got = tmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True, quad=quad, **seg)
+    torch.cuda.synchronize()
+    assert getattr(tmarch.march, counter) == before + 1
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, chunk, save_tin=True, quad=quad, **seg)
+    _kernel_close(got[:2], want[:2])
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("order,degree", [("key", 0), ("window", 0), ("key", 3), ("window", 3)])
+def test_origin_backward_matches_plain_and_is_deterministic(order, degree):
+    """K3 from per-ray origins and windows against march_bwd_plain, per
+    written column at 1e-3 (2e-3 on the 9 M columns), as close to the
+    float64 witness as the plain version (1.25x), and bit-identical across
+    two launches."""
+    cfg, starts, rows, dirs_t, seg = _rolling_train_stream(128, order, degree)
+    _, _, tin, base = tmarch.march(starts, rows, dirs_t, cfg, 128, save_tin=True, **seg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(dirs_t.shape[:2], generator=g, device="cuda")
+    eye = torch.zeros(3, device="cuda")  # unused with per-ray origins
+    args = (starts, rows, dirs_t, eye, tin, base, d_rgb, d_t, cfg, 128)
+    kw = {k: seg[k] for k in ("origins_t", "t_lo", "t_hi")}
+    before = tbwd.march_bwd.origin_launches
+    a, b = tbwd.march_bwd(*args, **kw), tbwd.march_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert tbwd.march_bwd.origin_launches == before + 2
+    assert torch.equal(a, b)
+    want = tbwd.march_bwd_plain(*args, **kw)
+    f64 = lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+    witness = tbwd.march_bwd_plain(*map(f64, args), **{k: f64(v) for k, v in kw.items()})
+    diff = tmarch.diff_columns(degree)
+    for i, c in enumerate(tmarch.train_columns(degree)):
+        if c not in diff:
+            assert not a[:, i].any(), i
+            continue
+        bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+        assert float((a[:, i] - want[:, i]).abs().max() / want[:, i].abs().max()) <= bar, i
+        k64, p64 = ((x[:, i] - witness[:, i]).abs().max() for x in (a, want))
+        assert float(k64) <= 1.25 * float(p64), i
+
+
+def test_march_stream_diff_with_origins_on_card():
+    """march_stream_diff with quad, origins, windows and a carry-in: the
+    kernels' gradient of the training rows against the plain versions'."""
+    cfg, starts, rows, dirs_t, seg = _rolling_train_stream(256)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    grads = []
+    for use_kernels in (True, False):
+        r = rows.clone().requires_grad_(True)
+        rgb, _ = tbwd.march_stream_diff(r, starts, dirs_t, torch.zeros(3, device="cuda"), cfg,
+                                        256, use_kernels, quad=True, **seg)
+        torch.sum(rgb * w).backward()
+        grads.append(r.grad)
+    diff = tmarch.diff_columns(0)
+    for i, c in enumerate(tmarch.TRAIN_COLUMNS):
+        if c in diff:
+            bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+            a, b = grads[0][:, i], grads[1][:, i]
+            assert float((a - b).abs().max() / b.abs().max()) <= bar, i
+
+
+# SHA-256 of (tin, chunk_base, d_rows) of K1's saved carries and K3 from
+# the shared eye (key order; window order from per-ray origins each the
+# eye), chunk 128, on _train_stream(128, order, degree): the kernels of
+# commit 27fee07, before per-ray origins were added, measured on an NVIDIA
+# H100 80GB HBM3 (700.00 W) by _shared_origin_digests with that commit's
+# csrc loaded, cuda_build._lib = cuda_build.declare(ctypes.CDLL(str(
+# cuda_build.build(<its csrc>, <a build dir>))), info=False)
+DIGESTS_BEFORE = {
+    "key sh0": "01c282a72695a67e5d4a3148f516c871b4c049f2a4de311e1eeea4a4db74dc92",
+    "key sh1": "3a8f6f625232a4dcbd93fab991db66d3665d7cbd4b1785b4d505f3503bd79e92",
+    "key sh2": "a8d50c45601e0e14e0bc9247d3df8568eb6a88c0c0fdbf339681e7bedf84a036",
+    "key sh3": "0c5bcb35859eebacd8ee5d7abdbca0b804f1c85b30b373f714048e56b89cfe53",
+    "window sh0": "ea7df86c3500457cc118a9ec55c0b3f96c970e3ce58919af30d5fb583a38c44e",
+    "window sh1": "e853651b611be551b69f3d2c590a3a0b598f3bc592445189ab66f12f13411870",
+    "window sh2": "6e3f3af53f8c4df48d1d82161728fa6690e71b03859f468e362e3c94f6d6a97b",
+    "window sh3": "b3d08365b1fd8e61ebb3bc5a3e822bf2b364170dc4500cd6c51a28a113cff48e",
+}
+
+
+def _shared_origin_digests() -> dict:
+    import hashlib
+
+    out = {}
+    for order in ("key", "window"):
+        for degree in range(4):
+            cfg, starts, rows, dirs_t, eye = _train_stream(128, order, degree)
+            kw = {"origins_t": eye.expand(dirs_t.shape).contiguous()} if order == "window" else {}
+            _, _, tin, base = tmarch.march(starts, rows, dirs_t, cfg, 128, save_tin=True, **kw)
+            g = torch.Generator(device="cuda").manual_seed(2)
+            d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+            d_t = torch.randn(dirs_t.shape[:2], generator=g, device="cuda")
+            d_rows = tbwd.march_bwd(starts, rows, dirs_t, eye, tin, base, d_rgb, d_t, cfg, 128)
+            h = hashlib.sha256()
+            for x in (tin, base, d_rows):
+                h.update(x.contiguous().cpu().numpy().tobytes())
+            out[f"{order} sh{degree}"] = h.hexdigest()
+    return out
+
+
+def test_shared_origin_backward_unchanged():
+    """K1's saved carries and K3 from the shared eye give the bits they
+    gave before per-ray origins were added (DIGESTS_BEFORE)."""
+    assert _shared_origin_digests() == DIGESTS_BEFORE

@@ -295,9 +295,14 @@ def test_block_mode_rejects_what_it_does_not_take(stream_inputs, bounce_rays):
         tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, origins_t=o)
     with pytest.raises(ValueError):  # block_sub without blocks
         tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, block_sub=2)
-    with pytest.raises(NotImplementedError):  # saved carries take no segments
+    with pytest.raises(NotImplementedError):  # saved carries take no block list
         tmarch.march(starts, compact, dirs_t, RenderConfig(order="key"), 128, save_tin=True,
-                     t0=torch.ones(dirs_t.shape[:2]))
+                     blocks=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError):  # the quad response trains in key order only
+        tmarch.march(starts, compact, dirs_t, RenderConfig(order="window"), 128, save_tin=True,
+                     origins_t=o, quad=True)
+    with pytest.raises(ValueError):  # the per-ray-origin quad response needs origins
+        tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, quad=True)
 
 
 # --- SH degrees 1-3 -----------------------------------------------------------
