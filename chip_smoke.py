@@ -35,8 +35,16 @@ multi-device layer on 4 shards of the card
 (parallel/: the ray-sharded forward bit for bit as the single-device
 frame, the sharded gradients and Trainer with ZeRO-1 moments, depth
 slabs on K1 in gather and ring order, the tiled, oracle and
-gaussian-sharded reference renderers, a world of one over NCCL), times
-each against the
+gaussian-sharded reference renderers, a world of one over NCCL), training
+on tiles of 1024 and 512 rays (Trainer.fit in key and window order at SH
+0 and 3, march_stream_diff from per-ray origins and the rolling 720p
+frame on the per-ray-origin quad response at 1024 rays a tile, every
+launch of the 1024-ray builds of K1 and K3 held against its plain
+version) and the binning's pair culls (conic_cull, row_span and both on
+the 720p / 100k headline, fisheye_cull on fisheye_768 and on the fisheye
+glass_front frame: drop-free subsets of the uncut streams, key order
+within 5e-4 of the uncut image, window order on the goldens; K2 at their
+channel counts), times each against the
 plain path, profiles the 720p/100k, fisheye and SH 3 frames and the window
 and key SH 3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
 SH 3, and --order merge) and `cli fit`, and finally writes the
@@ -225,7 +233,7 @@ PTXAS = {}  # mangled kernel name: (registers, stack, spill stores, spill loads)
 
 
 def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = False,
-           quad: bool = False) -> dict:
+           quad: bool = False, rays: int = 256) -> dict:
     """What explains a K1 ("march") or K3 ("march_bwd") row: the (tile,
     candidate) slots of the chunks not skipped, the significant share (pairs
     through the gate over the (ray, candidate) pairs of those chunks), the
@@ -234,28 +242,29 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     failed over the chunks not skipped; None outside merge order) of the
     plain version's last call (K1: per-ray origins with the scalar response
     `scalar` or the quad one `quad`; K3: per-ray origins `scalar`), and the
-    launch's
-    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
-    256 rays), dynamic shared memory, registers, stack frame and spills
-    (-Xptxas -v of the build)."""
+    launch's resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at `rays` rays a tile), dynamic shared memory, registers, stack frame and
+    spills (-Xptxas -v of the build: the 256-ray build up to 256 rays, else
+    the 1024-ray one)."""
     from gaussian_ray_tracing_tpu_torch.ops import cuda_build
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
     from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
 
     plain = kmarch.march_plain if kernel == "march" else kbwd.march_bwd_plain
-    R, K, order = 256, (cfg.sh_degree + 1) ** 2, cfg.order
+    R, K, order = rays, (cfg.sh_degree + 1) ** 2, cfg.order
     info = cuda_build.launch_info(kernel, chunk, cfg.sh_degree, R, order=order, scalar=scalar,
                                   train=train, quad=quad)
     b = lambda x: f"Lb{int(x)}E"
     resp = f"Li{2 if quad else int(scalar)}E"  # k1::Resp
+    build = f"Li{256 if R <= 256 else 1024}E"  # kMaxR
     if kernel == "march_bwd":
-        name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}{b(scalar)}E"
-    elif order == "window":  # K1: the 256-ray builds
-        name = f"12march_kernelILi{chunk}E{resp}Li{K}E{b(train)}Li256E"
+        name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}{b(scalar)}{build}"
+    elif order == "window":
+        name = f"12march_kernelILi{chunk}E{resp}Li{K}E{b(train)}{build}"
     elif order == "key":
-        name = f"16march_key_kernelILi{chunk}E{resp}Li{K}E{b(train)}Li256E"
+        name = f"16march_key_kernelILi{chunk}E{resp}Li{K}E{b(train)}{build}"
     else:
-        name = f"18march_merge_kernelILi{chunk}E{resp}Li{K}ELi256E"
+        name = f"18march_merge_kernelILi{chunk}E{resp}Li{K}E{build}"
     regs, stack, st, ld = next((v for k, v in PTXAS.items() if name in k), (None,) * 4)
     check(regs == info["registers"], f"{kernel} {name}: ptxas says {regs} registers, the "
                                      f"runtime {info['registers']}")
@@ -847,6 +856,7 @@ def main() -> None:
     t_phase = time.perf_counter()
     origin_rows = per_ray_origin_phase(dev, card, scene, init)
     log("phase", f"per-ray origins in {time.perf_counter() - t_phase:.1f} s")
+    wide_rows = wide_tile_phase(dev, card, scene, poses[0], views, init)
     parallel_rows = parallel_phase(dev, card, scene, poses[0], golden, views, init)
 
 
@@ -1104,6 +1114,7 @@ def main() -> None:
         *tiled_rows,
         *parallel_rows,
         *origin_rows,
+        *wide_rows,
         *merge_rows,
         *meshcam_rows,
     ]}), flush=True)
@@ -2465,6 +2476,405 @@ def dataset_phase(dev, card: str) -> None:
     check(ev["fit"]["psnr_mean"] > ev["init"]["psnr_mean"],
           f"cli eval: the fit ({ev['fit']['psnr_mean']} dB) does not beat the initial scene "
           f"({ev['init']['psnr_mean']} dB)")
+
+
+def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
+    """Training at every tile size JAX trains, and the binning's three pair
+    culls, at full width. The main path, with the launch counts zeroed just
+    before and read just after: Trainer(method="gpu").fit on the training
+    row's view 0 (512x512, `init` = random_scene(50k, seed 1)) on 32x32
+    tiles (R = 1024; 5 steps in key order, whose loss must fall, 3 in
+    window order) and on 32x16 tiles (R = 512; 2 steps each order); 2 steps
+    each in key and window order at R = 1024 on data/fitted_20k.ply at SH 3
+    (its bands 1-3 zeroed) against its own SH 3 render; march_stream_diff
+    with per-ray origins, windows and carry-in through a 512x512 rolling
+    shutter of `init` at R = 1024 (the per-ray-origin quad response, key
+    order); the 1280x720 rolling frame of `scene` (random_scene(100k, seed
+    0)) on the per-ray-origin quad response at R = 1024 (window order,
+    bench config); and the culled frames through GaussianRayTracer: the
+    720p / 100k headline (`pose`) with conic_cull, with row_span and with
+    both, fisheye_768 / 100k with fisheye_cull, and the fisheye glass_front
+    mesh frame with fisheye_cull. Then every new K1 and K3 launch held
+    against its plain version (k1_train_check, k3_check, k1_check), timed
+    against it with its bound and build (`design` at its R); each culled
+    stream drop-free and a subset of the uncut one, its key-order image
+    within 5e-4 of the uncut one (JAX tests/test_conic_cull.py:131-154,
+    tests/test_footprints.py:87-105), its window-order image on the
+    goldens >= 40 dB and >= the uncut one's - 1 dB
+    (tests/test_conic_cull.py:156-174); K2 at each culled binning's channel
+    count against torch.cumsum; K1's marched slots, significant share and
+    device ms on and off. Returns the kernel rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        prepare_pair_stream, prepare_train_stream,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.ops import tiles as ktiles
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_sphere
+    from gaussian_ray_tracing_tpu_torch.scene.ply import load_ply
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    t_phase = time.perf_counter()
+    cam = lambda w, h, dx=0.0: cameras.Camera.create(
+        eye=(GOLDEN_EYE[0] + dx, GOLDEN_EYE[1], GOLDEN_EYE[2]), lookat=(0.0, 0.0, 0.0),
+        width=w, height=h, device=dev)
+    tiles = lambda cfg, h: cfg.replace(tile_w=32, tile_h=h)
+    key0 = RenderConfig(**TRAIN_KW)  # key order, chunk 256
+    win0 = RenderConfig(hit_multiplicity=1, order="window", march_chunk=128)
+    bench = RenderConfig(**BENCH_KW)
+    ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
+    flat = dataclasses.replace(ply, sh=torch.cat([ply.sh[:, :1], 0.0 * ply.sh[:, 1:]], 1))
+    ply_cam = cameras.orbit_camera(ply.center().cpu().numpy(), 2.8, 0.0, 15.0, width=512,
+                                   height=512, device=dev)
+    with torch.no_grad():
+        ply_target = render(ply, ply_cam, win0.replace(sh_degree=3), method="gpu")["rgb"]
+    cam0, target0 = views[0]
+    # name: (config, R, scene, view) of the training runs and kernel checks
+    runs = {"key_sh0_1024": (tiles(key0, 32), init, (cam0, target0)),
+            "window_sh0_1024": (tiles(win0, 32), init, (cam0, target0)),
+            "key_sh0_512": (tiles(key0, 16), init, (cam0, target0)),
+            "window_sh0_512": (tiles(win0, 16), init, (cam0, target0)),
+            "key_sh3_1024": (tiles(key0, 32).replace(sh_degree=3), flat, (ply_cam, ply_target)),
+            "window_sh3_1024": (tiles(win0, 32).replace(sh_degree=3), flat,
+                                (ply_cam, ply_target))}
+    steps = {"key_sh0_1024": 5, "window_sh0_1024": 3}
+
+    # per-ray origins at R = 1024: the rolling 512x512 training stream and
+    # the rolling 720p frame
+    key_w = tiles(key0, 32)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    omodel = GaussianModel.from_scene(init).requires_grad_(True)
+    ostarts, orows, odirs, oorigins, _, _ = prepare_rolling_stream(
+        omodel.activate(), cam(512, 512), cam(512, 512, 0.05), key_w, train=True)
+    oshape = odirs.shape[:2]
+    check(odirs.shape[1] == 1024, f"rolling stream: {odirs.shape[1]} rays a tile, not 1024")
+    oseg = dict(origins_t=oorigins,
+                t_lo=0.05 + 0.05 * torch.rand(oshape, generator=gen, device=dev),
+                t_hi=3.0 + torch.rand(oshape, generator=gen, device=dev),
+                t0=0.6 + 0.4 * torch.rand(oshape, generator=gen, device=dev))
+    ow = torch.randn(odirs.shape, generator=gen, device=dev)
+    bench_w = tiles(bench, 32)
+    frame = prepare_rolling_stream(scene, cam(1280, 720), cam(1280, 720, 0.05), bench_w, train=True)
+
+    # the culled frames: name -> (scene, camera, config with the cull, mesh)
+    fish = bench.replace(camera_model=CameraModel.FISHEYE)
+    front = make_sphere((0.0, 0.0, 1.6), device=dev).with_type(MeshType.GLASS)
+    at_front = np.eye(4, dtype=np.float32)
+    at_front[:3, 3] = (0.0, 0.0, 1.6)
+    culls = {"conic_720p": (scene, pose, bench.replace(conic_cull=True), None),
+             "row_span_720p": (scene, pose, bench.replace(row_span=True), None),
+             "both_720p": (scene, pose, bench.replace(conic_cull=True, row_span=True), None),
+             "fisheye_768": (scene, cam(768, 768), fish.replace(fisheye_cull=True), None),
+             "fisheye_glass_front": (scene, cam(1280, 720), fish.replace(fisheye_cull=True),
+                                     front)}
+    tracers = {}
+    for name, (sc, c, cfg, mesh) in culls.items():
+        tr = GaussianRayTracer(scene=sc, config=cfg.replace(camera_model=CameraModel.PINHOLE))
+        tr.set_camera_model(cfg.camera_model.value)
+        tr.set_size(c.width, c.height)
+        tr.update_camera(c)
+        if mesh is not None:
+            tr.update_instance_transform(tr.create_sphere(mesh_type="glass"), at_front)
+        tracers[name] = tr
+    # the head fill's channel counts of the culled binnings
+    channels = {}
+    head_fill = ktiles.multi_head_fill
+
+    def counted_fill(first, values, cap, use_kernel=True):
+        channels.setdefault(len(values), cap)
+        return head_fill(first, values, cap, use_kernel=use_kernel)
+
+    # --- the main path, every count zeroed just before ---
+    k1_counts = ("launches", "save_tin_launches", "window_save_tin_launches",
+                 "sh_key_save_tin_launches", "sh_save_tin_launches",
+                 "origin_quad_save_tin_launches", "origin_quad_launches", "segment_launches")
+    for attr in k1_counts:
+        setattr(kmarch.march, attr, 0)
+    kbwd.march_bwd.launches = kbwd.march_bwd.origin_launches = 0
+    kscan.multi_cumsum_i32.launches = 0
+    train_losses = {}
+    for name, (cfg, sc, view) in runs.items():
+        trainer = ktrain.Trainer(GaussianModel.from_scene(sc), config=cfg, lr=2e-3, method="gpu")
+        losses = trainer.fit([view], steps=steps.get(name, 2))
+        check(all(np.isfinite(losses)), f"wide tiles {name}: bad losses {losses}")
+        train_losses[name] = losses
+    check(train_losses["key_sh0_1024"][-1] < train_losses["key_sh0_1024"][0],
+          f"1024-ray key training: the loss did not fall {train_losses['key_sh0_1024']}")
+    rgb, t_final = kbwd.march_stream_diff(orows, ostarts, odirs, torch.zeros(3, device=dev),
+                                          key_w, 256, quad=True, **oseg)
+    (torch.sum(rgb * ow) + torch.sum(t_final)).backward()
+    torch.cuda.synchronize()
+    ograds = [p.grad for p in omodel.parameters()]
+    check(all(g is not None and bool(torch.isfinite(g).all()) and bool(g.any()) for g in ograds),
+          "1024-ray march_stream_diff: a missing, zero or non-finite gradient")
+    starts_f, rows_f, dirs_f, origins_f, _, n_pairs_f = frame
+    rgb_f, _ = kmarch.march(starts_f, rows_f, dirs_f, bench_w, 128, origins_t=origins_f, quad=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(rgb_f).all()) and float(rgb_f.max()) > 0.1,
+          "1024-ray per-ray-origin quad frame: black or not finite")
+    k2_culls = kscan.multi_cumsum_i32.launches
+    ktiles.multi_head_fill = counted_fill
+    try:
+        for name, tr in tracers.items():
+            out = tr.render()["rgb"]
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()) and float(out.max()) > 0.1,
+                  f"culled frame {name}: black or not finite")
+    finally:
+        ktiles.multi_head_fill = head_fill
+    k2_culls = kscan.multi_cumsum_i32.launches - k2_culls
+    main = {attr: getattr(kmarch.march, attr) for attr in k1_counts}
+    main.update(march_bwd=kbwd.march_bwd.launches, march_bwd_origin=kbwd.march_bwd.origin_launches,
+                scan=kscan.multi_cumsum_i32.launches, scan_culled_frames=k2_culls)
+    log("wide", f"training at R = 1024 and 512 ({', '.join(runs)}), losses "
+                f"{json.dumps({k: [round(x, 6) for x in v] for k, v in train_losses.items()})}; "
+                f"march_stream_diff at R = 1024; the rolling 720p quad frame at R = 1024 "
+                f"({n_pairs_f} pairs); culled frames {', '.join(culls)}; head-fill channels "
+                f"{sorted(channels)}; launches {main}")
+    for attr in ("save_tin_launches", "window_save_tin_launches", "sh_key_save_tin_launches",
+                 "sh_save_tin_launches", "origin_quad_save_tin_launches", "origin_quad_launches",
+                 "march_bwd", "march_bwd_origin", "scan_culled_frames"):
+        check(main[attr] > 0, f"wide tiles: {attr} was not launched on the main path: {main}")
+
+    # --- each new K1 and K3 build against its plain version, timed ---
+    def k1_time(args, kw, tin=None):
+        fn = lambda: kmarch.march(*args, **kw)
+        return (statistics.median(cuda_ms(fn, 10)),
+                statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 2)),
+                march_bound(args, kw, kmarch.march_plain, tin=tin),
+                profile_frames(fn, 5)["device_ms"])
+
+    def k3_time(args, kw):
+        fn = lambda: kbwd.march_bwd(*args, **kw)
+        return (statistics.median(cuda_ms(fn, 10)),
+                statistics.median(cuda_ms(lambda: kbwd.march_bwd_plain(*args, **kw), 2)),
+                bwd_bound(args, kbwd.march_bwd_plain, kw),
+                profile_frames(fn, 5)["device_ms"])
+
+    errs, times = {}, {}
+    for name, (cfg, sc, (c0, _)) in runs.items():
+        with torch.no_grad():
+            stream, trows, n_pairs = prepare_train_stream(sc, c0, cfg)
+        starts, trows = stream.starts, trows.detach().contiguous()
+        R = cfg.rays_per_tile
+        dirs_t = tile_rays(cameras.generate_rays(c0, cfg)[1], 32, cfg.tile_h)
+        check(dirs_t.shape[1] == R, f"{name}: {dirs_t.shape[1]} rays a tile")
+        chunk = kmarch.chunk_for(cfg)
+        kw = ({"origins_t": c0.eye.expand(dirs_t.shape).contiguous()}
+              if cfg.order == "window" else {})
+        fwd = lambda f: f(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
+        got = fwd(kmarch.march)
+        torch.cuda.synchronize()
+        e1 = k1_train_check(f"{name} 512x512 c={chunk} ({n_pairs} pairs)", got,
+                            fwd(kmarch.march_plain))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+        d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+        bargs = (starts, trows, dirs_t, c0.eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
+        e3 = k3_check(f"{name} 512x512 c={chunk}", bargs)
+        errs[name] = (e1, e3)
+        k1t = k1_time((starts, trows, dirs_t, cfg, chunk), {"save_tin": True, **kw}, tin=got[2])
+        k1d = design("march", cfg, chunk, scalar=bool(kw), train=True, rays=R)
+        k3t = k3_time(bargs, {})
+        k3d = design("march_bwd", cfg, chunk, rays=R)
+        times[name] = (k1t, k1d, k3t, k3d)
+        log("kernel", f"wide {name} {n_pairs} pairs c={chunk}: K1 save_tin {k1t[0]:.3f} ms "
+                      f"(device {k1t[3]:.3f}), plain {k1t[1]:.3f} ms, bound {k1t[2][0]:.4f} ms "
+                      f"({k1t[2][1]}); K3 {k3t[0]:.3f} ms (device {k3t[3]:.3f}), plain "
+                      f"{k3t[1]:.3f} ms, bound {k3t[2][0]:.4f} ms ({k3t[2][1]}) ({card})")
+
+    # per-ray origins at R = 1024
+    orows = orows.detach()
+    ofwd = lambda f: f(ostarts, orows, odirs, key_w, 256, save_tin=True, quad=True, **oseg)
+    got = ofwd(kmarch.march)
+    torch.cuda.synchronize()
+    oe1 = k1_train_check("rolling 512x512 R=1024 per-ray-origin quad key", got,
+                         ofwd(kmarch.march_plain))
+    obargs = (ostarts, orows, odirs, torch.zeros(3, device=dev), got[2], got[3], ow,
+              torch.ones(oshape, device=dev), key_w, 256)
+    okw = {k: oseg[k] for k in ("origins_t", "t_lo", "t_hi")}
+    oe3 = k3_check("rolling 512x512 R=1024 per-ray origins key", obargs, okw)
+    times["origin_quad_save_tin"] = (
+        k1_time((ostarts, orows, odirs, key_w, 256), {"save_tin": True, "quad": True, **oseg},
+                tin=got[2]),
+        design("march", key_w, 256, train=True, quad=True, rays=1024))
+    times["bwd_origin"] = (k3_time(obargs, okw),
+                           design("march_bwd", key_w, 256, scalar=True, rays=1024))
+    frame_err = {}
+    for order in ("window", "key", "merge"):
+        frame_err[order] = k1_check("K1wide", f"rolling 720p 100k R=1024 per-ray-origin quad "
+                                    f"{order}", (starts_f, rows_f, dirs_f,
+                                                 bench_w.replace(order=order), 128),
+                                    {"origins_t": origins_f, "quad": True})
+    times["origin_quad"] = (k1_time((starts_f, rows_f, dirs_f, bench_w, 128),
+                                    {"origins_t": origins_f, "quad": True}),
+                            design("march", bench_w, 128, quad=True, rays=1024))
+    for name in ("origin_quad_save_tin", "bwd_origin", "origin_quad"):
+        t = times[name][0]
+        log("kernel", f"wide {name} R=1024: {t[0]:.3f} ms (device {t[3]:.3f}), plain "
+                      f"{t[1]:.3f} ms, bound {t[2][0]:.4f} ms ({t[2][1]}) ({card})")
+
+    # --- the culls: drop-free subsets of the uncut streams, the images,
+    # K1 on and off, K2 at each channel count ---
+    def pair_keys(stream, n_gauss):
+        kept = int(stream.starts[-1])
+        return stream.key[:kept].long() * n_gauss + stream.order[stream.gid[:kept].long()].long()
+
+    cull_stats, cull_err = {}, 0.0
+    for name, (sc, c, cfg, mesh) in culls.items():
+        off_cfg = cfg.replace(conic_cull=False, row_span=False, fisheye_cull=False)
+        if mesh is None:
+            st = {}
+            for tag, cf in (("on", cfg), ("off", off_cfg)):
+                stream, feats, n_pairs = prepare_pair_stream(sc, c, cf, 1 << 22)
+                check(int(stream.n_dropped) == 0, f"{name} {tag}: pairs dropped")
+                st[tag] = (stream, feats, n_pairs)
+            on_keys, off_keys = (pair_keys(st[t][0], sc.num_gaussians) for t in ("on", "off"))
+            check(bool(torch.isin(on_keys, off_keys).all()),
+                  f"{name}: the culled pairs are not a subset of the uncut ones")
+            dirs_t = tile_rays(cameras.generate_rays(c, cfg)[1], 16, 16)
+            k1 = {}
+            for tag in ("on", "off"):
+                args = (st[tag][0].starts, st[tag][1], dirs_t, cfg, 128)
+                cull_err = max(cull_err, k1_check("K1cull", f"{name} {tag}", args))
+                k1[tag] = {"n_pairs": st[tag][2], "kept_pairs": int(st[tag][0].starts[-1]),
+                           "marched_slots": kmarch.march_plain.candidates,
+                           "significant_share": kmarch.march_plain.significant
+                           / max(1, kmarch.march_plain.candidates * dirs_t.shape[1]),
+                           "device_ms": profile_frames(lambda a=args: kmarch.march(*a),
+                                                       5)["device_ms"]}
+            if name == "both_720p":  # the culled headline's K1, timed
+                args = (st["on"][0].starts, st["on"][1], dirs_t, cfg, 128)
+                times["culled"] = (k1_time(args, {}), design("march", cfg, 128))
+            key = lambda cf: render(sc, c, cf.replace(order="key", chunk_skip_transmittance=1e-3),
+                                    method="gpu")["rgb"]
+            win = lambda cf: render(sc, c, cf, method="gpu")["rgb"]
+        else:
+            k1 = {}
+            for tag, cf in (("on", cfg), ("off", off_cfg)):
+                rec = []
+                kmesh.render_with_mesh_fast(sc, mesh, c, cf, record=rec)
+                args, kw = rec[0]["k1"]
+                cull_err = max(cull_err, k1_check("K1cull", f"{name} {tag} segment", args, kw))
+                k1[tag] = {"kept_pairs": int(args[0][-1]),
+                           "segment_slots": kmarch.march_plain.candidates,
+                           "significant_share": kmarch.march_plain.significant
+                           / max(1, kmarch.march_plain.candidates * args[2].shape[1]),
+                           "device_ms": profile_frames(lambda a=args, k=kw: kmarch.march(*a, **k),
+                                                       5)["device_ms"]}
+            check(k1["on"]["kept_pairs"] <= k1["off"]["kept_pairs"],
+                  f"{name}: the cull added pairs")
+            key = lambda cf: render(sc, c, cf.replace(order="key", bounce_order="key",
+                                                      chunk_skip_transmittance=1e-3),
+                                    mesh=mesh, method="gpu")["rgb"]
+            win = lambda cf: render(sc, c, cf, mesh=mesh, method="gpu")["rgb"]
+        key_diff = float((key(cfg) - key(off_cfg)).abs().max())
+        win_psnr = psnr(win(cfg).cpu().numpy(), win(off_cfg).cpu().numpy())
+        log("cull", f"{name}: {json.dumps(k1)}; key order max abs on vs off {key_diff:.3g}, "
+                    f"window order on vs off {win_psnr:.2f} dB ({card})")
+        check(key_diff <= 5e-4, f"{name}: key-order image moved {key_diff:.3g} under the cull")
+        cull_stats[name] = {**k1, "key_max_abs": key_diff, "window_psnr_on_vs_off": win_psnr}
+    # window order on the goldens with the culls, against the exact oracle
+    golden_psnr = {}
+    for gname, cull_kw in (("pinhole_720p", dict(conic_cull=True)),
+                           ("pinhole_720p", dict(row_span=True)),
+                           ("pinhole_720p", dict(conic_cull=True, row_span=True)),
+                           ("fisheye_720", dict(fisheye_cull=True))):
+        z = np.load(ROOT / "data" / "golden" / f"{gname}.npz")
+        n, seed, width, height, hm, fisheye = (int(v) for v in z["meta"])
+        gcfg = RenderConfig(hit_multiplicity=hm, order="window", march_chunk=128,
+                            camera_model=CameraModel.FISHEYE if fisheye else CameraModel.PINHOLE)
+        gsc = random_scene(n, seed=seed, device=dev)
+        gcam = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=width,
+                                     height=height, device=dev)
+        on, off = (psnr(render(gsc, gcam, cf, method="gpu")["rgb"].cpu().numpy(),
+                        z["rgb"].astype(np.float32)) for cf in (gcfg.replace(**cull_kw), gcfg))
+        tag = f"{gname} " + "+".join(cull_kw)
+        golden_psnr[tag] = (on, off)
+        log("cull", f"{tag} window order vs exact oracle: {on:.2f} dB on, {off:.2f} dB off")
+        check(on >= PSNR_GOLDEN and on >= off - 1.0, f"{tag}: culled window PSNR {on:.2f}")
+
+    # K2 at each culled binning's channel count, at its capacity
+    g = torch.Generator(device=dev).manual_seed(2)
+    k2 = {}
+    scan_err = 0
+    for C, cap in sorted(channels.items()):
+        x = torch.randint(-2**31, 2**31 - 1, (C, cap), dtype=torch.int32, device=dev,
+                          generator=g)
+        got = kscan.multi_cumsum_i32(x)
+        want = torch.cumsum(x, dim=1).to(torch.int32)
+        check(torch.equal(got, want), f"K2 at {C} channels differs from torch.cumsum")
+        k2[C] = {"cap": cap,
+                 "ms": statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32(x), 20)),
+                 "device_ms": profile_frames(lambda: kscan.multi_cumsum_i32(x), 20)["device_ms"],
+                 "plain_ms": statistics.median(cuda_ms(
+                     lambda: kscan.multi_cumsum_i32_plain(x), 20)),
+                 "library_ms": statistics.median(cuda_ms(lambda: torch.cumsum(x, dim=1), 20)),
+                 **dict(zip(("bound_ms", "bound_by"), bound(2 * x.numel() * 4, x.numel()))),
+                 **scan_design(x)}
+        log("K2", f"{C} channels x {cap}: exact; {json.dumps(k2[C])} ({card})")
+    log("phase", f"wide tiles and culls in {time.perf_counter() - t_phase:.1f} s")
+
+    src = f"{PKG}/csrc"
+    k1_src = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    k3_src = "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189"
+    sub = lambda t, d: {"ms": t[0], "device_ms": t[3], "plain_ms": t[1], "bound_ms": t[2][0],
+                        "bound_by": t[2][1], "blocks_per_sm": d["blocks_per_sm"],
+                        "registers": d["registers"], "spill_store_bytes": d["spill_store_bytes"],
+                        "spill_load_bytes": d["spill_load_bytes"]}
+    row = lambda name, source, replaces, launches, err, t, d, more=None: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+        "bound_ms": t[2][0], "bound_by": t[2][1], "library_ms": None, "device_ms": t[3],
+        **d, **(more or {})}
+    k1_sub = lambda names: {n: sub(times[n][0], times[n][1]) for n in names}
+    k3_sub = lambda names: {n: sub(times[n][2], times[n][3]) for n in names}
+    k2_first = k2[min(k2)]
+    return [
+        row("march_wide_save_tin", "march.cuh", k1_src,
+            main["save_tin_launches"] + main["sh_key_save_tin_launches"],
+            max(errs[n][0] for n in runs if n.startswith("key")), times["key_sh0_1024"][0],
+            times["key_sh0_1024"][1], {"rays": 1024, **k1_sub(("key_sh0_512", "key_sh3_1024"))}),
+        row("march_wide_window_save_tin", "march.cuh", k1_src,
+            main["window_save_tin_launches"] + main["sh_save_tin_launches"],
+            max(errs[n][0] for n in runs if n.startswith("window")), times["window_sh0_1024"][0],
+            times["window_sh0_1024"][1],
+            {"rays": 1024, **k1_sub(("window_sh0_512", "window_sh3_1024"))}),
+        row("march_bwd_wide", "march_bwd.cuh", k3_src, main["march_bwd"],
+            max(max(e[1] for e in errs.values()), oe3), times["key_sh0_1024"][2],
+            times["key_sh0_1024"][3],
+            {"rays": 1024, **k3_sub(("window_sh0_1024", "key_sh3_1024", "window_sh3_1024",
+                                     "key_sh0_512", "window_sh0_512")),
+             "origins_1024": sub(*times["bwd_origin"])}),
+        row("march_wide_origin_quad", "march.cuh", k1_src, main["origin_quad_launches"],
+            max(frame_err.values()), *times["origin_quad"], {"rays": 1024}),
+        row("march_wide_origin_quad_save_tin", "march.cuh", k1_src,
+            main["origin_quad_save_tin_launches"], oe1, *times["origin_quad_save_tin"],
+            {"rays": 1024}),
+        row("march_culled", "march.cuh", k1_src, main["launches"], cull_err, *times["culled"],
+            {"culls": cull_stats, "goldens_window_psnr_on_off": golden_psnr}),
+        {"name": "multi_cumsum_i32_culled", "route": "cuda", "source": f"{src}/scan.cu",
+         "replaces": "gaussian_ray_tracing_tpu/ops/scan.py:81",
+         "launches": main["scan_culled_frames"], "max_abs_err": scan_err, "ms": k2_first["ms"],
+         "plain_ms": k2_first["plain_ms"], "bound_ms": k2_first["bound_ms"],
+         "bound_by": k2_first["bound_by"], "library_ms": k2_first["library_ms"],
+         "channels": k2},
+    ]
 
 
 def drop_free(render_fn, cfg):

@@ -107,25 +107,30 @@ class RenderConfig:
 DEFAULT_CONFIG = RenderConfig()
 
 
+MAX_RAYS_PER_TILE = 1024  # one thread per ray: a CUDA block's limit
+
+
 def unsupported_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported primary render does not implement yet
     (it renders pinhole, fisheye and OpenCV cameras, window or merge order
-    on the event key or key order, SH degrees 0-3)."""
+    on the event key or key order, SH degrees 0-3, on tiles of a multiple
+    of 32 rays up to 1024: the kernels run one thread per ray, where a TPU
+    takes any multiple of 128, 2048 among them)."""
+    rays = config.rays_per_tile
+    bad = [] if rays % 32 == 0 and 32 <= rays <= MAX_RAYS_PER_TILE else \
+        [f"tile_w*tile_h={config.tile_w}*{config.tile_h}"]
     checks = {
         "order": config.order in ("window", "key", "merge"),
         "window_key": config.window_key == "event",
         "pair_keys": config.pair_keys == "gaussian",
         "sh_degree": 0 <= config.sh_degree <= 3,
-        "conic_cull": not config.conic_cull,
-        "row_span": not config.row_span,
-        "fisheye_cull": not config.fisheye_cull,
         "sort_lane_groups": not config.sort_lane_groups,
         "composite_scan": not config.composite_scan,
         "sort_alpha_min": config.sort_alpha_min <= 0.0,
         "compute_dtype": config.compute_dtype == "float32",
         "hit_multiplicity": config.hit_multiplicity >= 1,
     }
-    return [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
+    return bad + [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
 
 
 def unsupported_tiled_fields(config: RenderConfig) -> list[str]:

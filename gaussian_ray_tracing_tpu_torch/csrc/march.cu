@@ -30,10 +30,9 @@ extern "C" const char* grt_error_string(int err) {
 
 // order 0: window order; 1: key order; 2: merge order. origins non-null:
 // per-ray origins, with the scalar response, or with quad != 0 the
-// per-ray-origin quad response (on the training rows, the pair stream and
-// at most 256 rays per tile). tin and chunk_base non-null: saved carries
-// (the training forward, on the training rows; at most 256 rays per tile,
-// no block array), in key order on any response and in window order on the
+// per-ray-origin quad response (on the training rows and the pair stream).
+// tin and chunk_base non-null: saved carries (the training forward, on the
+// training rows, no block array), in key order on any response and in window order on the
 // scalar response from per-ray `origins`; never in merge order. stride:
 // floats per row, at least the staged quad columns, or 29 + 3K with origins
 // or saved carries, whose rows are the scalar (or training) rows. origins,
@@ -53,8 +52,8 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
       !sh_ok || order < 0 || order > 2 || stride < min_stride(origins || tin, sh_k) ||
       (tin != nullptr) != (chunk_base != nullptr) ||
-      (quad && (!origins || blocks || rays_per_tile > 256)) ||
-      (tin && (blocks || rays_per_tile > 256 || order == 2 || (order == 0 && (!origins || quad)))) ||
+      (quad && (!origins || blocks)) ||
+      (tin && (blocks || order == 2 || (order == 0 && (!origins || quad)))) ||
       block_sub < 1 || chunk % block_sub != 0 || (block_sub > 1 && !blocks) ||
       (full_range != 0) != !(origins || t_lo_arr || t_hi_arr || blocks) ||
       stride % 4 != 0 || ((uintptr_t)feats & 15) != 0)  // rows are staged in 16-byte copies

@@ -20,7 +20,7 @@
 // coefficient count K = (degree + 1)^2 in {1, 4, 9, 16} and kTrain, the
 // saved carries of the training forward on the training rows (built for
 // the key kernel on every response and the window kernel on the scalar
-// one, at __launch_bounds__(256), the 256 rays of a training tile).
+// one), each in a 256-ray and a 1024-ray build (kMaxR).
 //
 // Window order. One block per 16x16 tile, one thread per ray (R =
 // blockDim.x; a 256-ray build, __launch_bounds__(256, 4), for the main
@@ -149,7 +149,7 @@
 // bs) for s < block_sub, so a chunk reads block_sub whole blocks.
 //
 // Per-ray-origin quad (pallas_march.py:378-405, 525-548; on the training
-// rows, the pair stream and the 256-ray builds). Q = M^T M is
+// rows and the pair stream, 256- and 1024-ray builds). Q = M^T M is
 // view-independent, so the response expands around the tile's origin
 // centroid o_bar, where every product stays small: each block first sums
 // its R origins as a halving tree in the staging memory and divides by R
@@ -598,7 +598,8 @@ __device__ __forceinline__ Ray load_ray(const Params& p) {
 
 // The tile's origin centroid o_bar, the mean of its R rays' origins (all
 // of them), into every thread: each coordinate summed as a halving tree in
-// `s` (3R floats of the staging memory, before the first chunk is staged;
+// `s` (3R floats of the staging memory, which launch_mode sizes to hold
+// them, before the first chunk is staged;
 // with n values left and h = ceil(n / 2), value i < n - h takes value i +
 // h), then divided by R, the order of ops/march.origin_centroid.
 __device__ __forceinline__ float3 origin_centroid(float* s, const Ray& ray) {
@@ -1125,46 +1126,43 @@ cudaError_t blocks_per_sm(Kernel kernel, int& smem, int n) {
 // One launch of the order's kernel (order 0 window, 1 key, 2 merge); the
 // staged rows take C * W floats of dynamic shared memory (twice that where
 // the window and key kernels double-buffer; C thresholds besides, and the
-// merge kernel's masks), above 48 KB only after opting in. Each order has a
-// 256-ray build (the main path's 16x16 tiles; the window and merge kernels
-// run two blocks per SM, the key kernel at most four) and a 1024-ray one,
-// but the per-ray-origin quad response only the 256-ray build. Saved
-// carries (the training forward, at most 256 rays per tile) run the key
-// kernel on any response and the window kernel on the scalar one (per-ray
-// origins, each the eye on the primary render), as JAX's training
-// forwards do (pallas_march.py:1659-1665); merge order never trains. With
-// `info` non-null nothing is launched: info receives the kernel's resident
-// blocks per SM at R rays, its dynamic shared memory, registers per thread
-// and local memory per thread.
+// merge kernel's masks), above 48 KB only after opting in. Each order and
+// response has a 256-ray build (the main path's 16x16 tiles; the window and
+// merge kernels run two blocks per SM, the key kernel at most four) and a
+// 1024-ray one (one block per SM, at most 64 registers a thread) for tiles
+// of 288 to 1024 rays. Saved carries (the training forward, either build)
+// run the key kernel on any response and the window kernel on the scalar
+// one (per-ray origins, each the eye on the primary render), as JAX's
+// training forwards do (pallas_march.py:1659-1665); merge order never
+// trains. With `info` non-null nothing is launched: info receives the
+// kernel's resident blocks per SM at R rays, its dynamic shared memory,
+// registers per thread and local memory per thread.
 template <int C, int kR, int K>
 cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStream_t stream,
                         int* info) {
   constexpr int W = Layout<kR, K, false>::w;
-  void (*kernel)(Params);
-  if constexpr (kR == kOriginQuad) {
-    if (R > 256) return cudaErrorInvalidValue;
-    kernel = order == 2   ? march_merge_kernel<C, kR, K, 256>
-             : order == 1 ? march_key_kernel<C, kR, K, false, 256>
-                          : march_kernel<C, kR, K, false, 256>;
-  } else {
-    kernel = order == 2   ? (R <= 256 ? march_merge_kernel<C, kR, K, 256>
-                                      : march_merge_kernel<C, kR, K, 1024>)
-             : order == 1 ? (R <= 256 ? march_key_kernel<C, kR, K, false, 256>
-                                      : march_key_kernel<C, kR, K, false, 1024>)
-             : R <= 256   ? march_kernel<C, kR, K, false, 256>
-                          : march_kernel<C, kR, K, false, 1024>;
-  }
+  const bool wide = R > 256;  // the 1024-ray builds
+  void (*kernel)(Params) =
+      order == 2   ? (wide ? march_merge_kernel<C, kR, K, 1024> : march_merge_kernel<C, kR, K, 256>)
+      : order == 1 ? (wide ? march_key_kernel<C, kR, K, false, 1024>
+                           : march_key_kernel<C, kR, K, false, 256>)
+      : wide       ? march_kernel<C, kR, K, false, 1024>
+                   : march_kernel<C, kR, K, false, 256>;
   int smem = order == 2 ? merge_smem_bytes<C, W>(R) : staged_smem_bytes<C, W>();
   if (p.tin) {
-    if (order == 2 || R > 256 || (order == 0 && kR != kScalar)) return cudaErrorInvalidValue;
+    if (order == 2 || (order == 0 && kR != kScalar)) return cudaErrorInvalidValue;
     if constexpr (kR == kScalar) {
-      if (order == 0) kernel = march_kernel<C, kR, K, true, 256>;
+      if (order == 0)
+        kernel = wide ? march_kernel<C, kR, K, true, 1024> : march_kernel<C, kR, K, true, 256>;
     }
     if (order == 1) {
-      kernel = march_key_kernel<C, kR, K, true, 256>;
+      kernel = wide ? march_key_kernel<C, kR, K, true, 1024> : march_key_kernel<C, kR, K, true, 256>;
       smem = staged_smem_bytes<C, Layout<kR, K, true>::w>();
     }
   }
+  // the origin centroid's halving tree takes 3R floats of the same memory
+  // (more than the staging of a small chunk holds at 1024 rays)
+  if (kR == kOriginQuad && smem < 3 * R * (int)sizeof(float)) smem = 3 * R * (int)sizeof(float);
   // the static red[32] counts against the 48 KB that needs no opt-in
   if (R <= 256) {
     const cudaError_t err = blocks_per_sm(kernel, smem, order == 1 ? kKeyBlocks : 2);

@@ -35,7 +35,7 @@ extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const v
                              int n_tiles, int rays_per_tile, int chunk, int stride, int window,
                              int sh_k, float t_lo, float t_hi, float min_t, float alpha_min,
                              float alpha_clamp, int hit_multiplicity, void* stream) {
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 256 || n_tiles < 0 ||
+  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
       stride < (sh_k == 1 ? 32 : 29 + 3 * sh_k) || hit_multiplicity < 1 ||
       stride % 4 != 0 || ((uintptr_t)rows & 15) != 0)  // rows are staged in 16-byte copies
     return (int)cudaErrorInvalidValue;
@@ -57,7 +57,7 @@ extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const v
 // origins: per-ray origins.
 extern "C" int grt_march_bwd_info(int chunk, int window, int sh_k, int origins,
                                   int rays_per_tile, int* out) {
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 256)
+  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024)
     return (int)cudaErrorInvalidValue;
   static float dummy[4];
   k3::Params p{};

@@ -11,7 +11,9 @@
 // ops/march_bwd.py, whose plain torch version `march_bwd_plain` is the
 // reference this kernel is tested against.
 //
-// Design: one block per tile, one thread per ray (R = blockDim.x <= 256).
+// Design: one block per tile, one thread per ray (R = blockDim.x: a 256-ray
+// build, two blocks per SM, and a 1024-ray one, one block per SM at most 64
+// registers a thread, for tiles of 288 to 1024 rays; kMaxR).
 // Each tile's chunks of C candidates run last to first, carrying dT per ray
 // (initially d t_final). Per chunk:
 //   1. skip replay: the block max of the saved carry-in t_in; at or below
@@ -19,8 +21,9 @@
 //   2. the chunk's rows are staged in shared memory as K1's scalar rows
 //      (k1::Layout: op, mean, M, radius, the 3K SH coefficients), by
 //      16-byte cp.async copies; where two buffers still leave room for two
-//      blocks per SM (stages()), chunk j-1's rows are copied while chunk j
-//      replays (the skips are known from the saved carries);
+//      blocks per SM (the 1024-ray build: for its one block; stages()),
+//      chunk j-1's rows are copied while chunk j replays (the skips are
+//      known from the saved carries);
 //   3. key order, pass A: each ray evaluates every candidate once with the
 //      operations of K1's eval_scalar; a miss (alpha at or below alpha_min)
 //      stops at alpha. Its gate sets a bit of a register mask (C / 32
@@ -66,7 +69,10 @@
 //      shuffle-down tree's), so two launches give bit-identical gradients.
 //      The partials take 8 warps x 16 x 64 floats (32 KB at SH 3) beside
 //      the staged rows: at SH 3 key order (c = 256) takes 100 KB and window
-//      order (c = 128, two buffers) 100 KB, two blocks per SM.
+//      order (c = 128, two buffers) 100 KB, two blocks per SM. The 1024-ray
+//      build keeps the same sums in the same order over 32 warps: 128 KB
+//      of partials at SH 3, with one staging buffer at c = 256 (196 KB of
+//      the 227 KB a block may take).
 // Each stream row belongs to one (tile, chunk): a block writes only rows
 // [starts[t], starts[t+1]) of its own tile (the TPU kernel's write-then-
 // overwrite of a tail chunk's overshoot rows relies on sequential grid
@@ -94,7 +100,7 @@ namespace k3 {
 
 using k1::kC0;
 constexpr int kGroup = 16;    // candidates per reduction group
-constexpr int kMaxWarps = 8;  // R <= 256
+constexpr int kBwdMaxSmem = 227 * 1024 - 128;  // a block's, less the static red[32]
 // the staged rows are K1's scalar rows (k1::Layout): op 0, mean kMean,
 // M kMat, radius kRad, SH coefficients from Layout::col
 using k1::kMat;
@@ -116,15 +122,18 @@ __host__ __device__ constexpr int rounds() {
   return (terms<K>() + 31) / 32;
 }
 // Staging buffers: two (chunk j-1's rows copied while chunk j replays)
-// where two blocks of 8 warps still fit on an SM, else one.
-template <int C, int K>
+// where two blocks of 8 warps still fit on an SM (the 256-ray build) or
+// one block of 32 warps fits (the 1024-ray build), else one.
+template <int C, int K, int kMaxR>
 __host__ __device__ constexpr int stages() {
-  return (2 * C * Staged<K>::w + kMaxWarps * kGroup * 32 * rounds<K>()) * 4 <= 113 * 1024 ? 2
-                                                                                          : 1;
+  return (2 * C * Staged<K>::w + kMaxR / 32 * kGroup * 32 * rounds<K>()) * 4 <=
+                 (kMaxR == 256 ? 113 * 1024 : kBwdMaxSmem)
+             ? 2
+             : 1;
 }
-template <int C, int K>
+template <int C, int K, int kMaxR>
 __host__ __device__ constexpr int smem_floats(int n_warps) {
-  return stages<C, K>() * C * Staged<K>::w + n_warps * kGroup * 32 * rounds<K>();
+  return stages<C, K, kMaxR>() * C * Staged<K>::w + n_warps * kGroup * 32 * rounds<K>();
 }
 
 struct Params {
@@ -319,11 +328,11 @@ __device__ __forceinline__ void stage_async(float* sf, const Params& p, size_t r
   k1::cp_async_commit();
 }
 
-template <int C, int K, bool kWindow, bool kOrig>
-__global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
+template <int C, int K, bool kWindow, bool kOrig, int kMaxR>
+__global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? 2 : 1) march_bwd_kernel(Params p) {
   constexpr int kS = Staged<K>::w;  // staged floats per candidate
   constexpr int NR = rounds<K>(), TP = 32 * NR, NW = C / 32;
-  constexpr int kStages = stages<C, K>();
+  constexpr int kStages = stages<C, K, kMaxR>();
   extern __shared__ __align__(16) float smem[];
   float* part = smem + kStages * C * kS;  // n_warps x kGroup x TP partial sums
   __shared__ float red[32];
@@ -654,12 +663,13 @@ __global__ void __launch_bounds__(256, 2) march_bwd_kernel(Params p) {
   k1::cp_async_wait<0>();
 }
 
-// One launch, or with `info` non-null the kernel's resident blocks per SM
-// at R rays, dynamic shared memory, registers and local memory per thread.
-template <int C, int K, bool kWindow, bool kOrig>
-cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
-  const int smem = (int)sizeof(float) * smem_floats<C, K>(R / 32);
-  auto kernel = march_bwd_kernel<C, K, kWindow, kOrig>;
+// One launch of the 256-ray build (R <= 256) or the 1024-ray one, or with
+// `info` non-null the kernel's resident blocks per SM at R rays, dynamic
+// shared memory, registers and local memory per thread.
+template <int C, int K, bool kWindow, bool kOrig, int kMaxR>
+cudaError_t launch_r(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
+  const int smem = (int)sizeof(float) * smem_floats<C, K, kMaxR>(R / 32);
+  auto kernel = march_bwd_kernel<C, K, kWindow, kOrig, kMaxR>;
   // the static red[32] counts against the 48 KB that needs no opt-in
   if (smem + 1024 > 48 * 1024) {
     const cudaError_t err =
@@ -678,6 +688,12 @@ cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream, int
   }
   kernel<<<n_tiles, R, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int C, int K, bool kWindow, bool kOrig>
+cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
+  return R <= 256 ? launch_r<C, K, kWindow, kOrig, 256>(p, n_tiles, R, stream, info)
+                  : launch_r<C, K, kWindow, kOrig, 1024>(p, n_tiles, R, stream, info);
 }
 
 template <int K, bool kWindow, bool kOrig>

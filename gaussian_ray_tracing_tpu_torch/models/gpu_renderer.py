@@ -45,35 +45,41 @@ def snug_pair_capacity(n_pairs: int) -> int:
 
 
 def bin_footprints(fp, camera: Camera, config: RenderConfig, pair_capacity: int,
-                   use_kernels: bool = True, tile_rows=None):
+                   use_kernels: bool = True, tile_rows=None, geom=None):
     """Footprints (depth = the sort key) -> sorted pair stream (of the band
-    of tile rows `tile_rows`, ops/tiles.bin_pairs, if given).
+    of tile rows `tile_rows`, ops/tiles.bin_pairs, if given; geom = (means,
+    M9, radius) for the pinhole culls).
 
     pair_capacity is a floor: if the frame emits more pairs, the stream is
     rebuilt at a snug capacity, so no pair is ever dropped.
-    Returns (stream, per-pair gaussian ids (n_pairs,), n_pairs).
+    Returns (stream, per-pair gaussian ids of the kept pairs, n_pairs
+    emitted: a conic or sector cull keeps fewer, starts[-1]).
     """
     stream = bin_pairs(fp, camera, config, pair_capacity, use_kernel=use_kernels,
-                       tile_rows=tile_rows)
+                       tile_rows=tile_rows, geom=geom)
     n_pairs = int(stream.n_pairs)
     if n_pairs > pair_capacity:
         stream = bin_pairs(fp, camera, config, snug_pair_capacity(n_pairs),
-                           use_kernel=use_kernels, tile_rows=tile_rows)
+                           use_kernel=use_kernels, tile_rows=tile_rows, geom=geom)
     if int(stream.n_dropped) != 0:
         raise RuntimeError(f"pair stream dropped {int(stream.n_dropped)} pairs")
-    # gid is in depth-rank space; the valid slots are the first n_pairs
-    return stream, stream.order[stream.gid[:n_pairs].long()], n_pairs
+    # gid is in depth-rank space; the kept slots are the first starts[-1]
+    kept = int(stream.starts[-1]) if config.conic_cull or config.fisheye_cull else n_pairs
+    return stream, stream.order[stream.gid[:kept].long()], n_pairs
 
 
 def bin_frame(scene: GaussianScene, M, radius, camera: Camera, config: RenderConfig,
               pair_capacity: int, use_kernels: bool = True):
     """Footprints and the central-ray depth key -> sorted pair stream
-    (bin_footprints). Returns (stream, per-pair gaussian ids, n_pairs)."""
+    (bin_footprints, with the scene's geometry for the pinhole culls, as
+    JAX's pallas_renderer.py:75-76 bins). Returns (stream, per-pair
+    gaussian ids, n_pairs)."""
     bound_radius = radius * torch.amax(scene.scales, dim=-1)
     fp = project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
                                   bound_radius, camera, config)
     fp = fp._replace(depth=depth_key(scene, M, radius, camera.eye, config))
-    return bin_footprints(fp, camera, config, pair_capacity, use_kernels)
+    return bin_footprints(fp, camera, config, pair_capacity, use_kernels,
+                          geom=(scene.means, M.reshape(-1, 9), radius))
 
 
 def prepare_pair_stream(scene: GaussianScene, camera: Camera, config: RenderConfig,

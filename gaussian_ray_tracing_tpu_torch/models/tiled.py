@@ -347,7 +347,8 @@ def prepare_frame(scene: GaussianScene, camera: Camera, config: RenderConfig,
         fp = project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
                                       bound_radius, camera, config)
         fp = fp._replace(depth=depth_key(scene, M, radius, camera.eye, config))
-        binning: TileBinning = bin_tiles(fp, camera, config, pair_capacity)
+        binning: TileBinning = bin_tiles(fp, camera, config, pair_capacity,
+                                         geom=(scene.means, M.reshape(-1, 9), radius))
     if binning.order is not None:
         table = table[binning.order]  # its backward routes rows back to the gaussians
     _, dirs, valid = generate_rays(camera, config)

@@ -66,7 +66,7 @@ while T > minT. All of it in float32: the response
 dd = q . m2(d), od = v . d, pp = oo - od^2/dd cancels by orders of
 magnitude and must not see TF32 or bf16 inputs.
 
-save_tin (the training forward, at most 256 rays per tile): every chunk's
+save_tin (the training forward, as the render up to 1024 rays per tile): every chunk's
 carry-in T is stored BEFORE its skip test, so skipped chunks are saved
 too, at row chunk_base[t] + j of a (sum of chunks, R) array, chunk_base =
 [0, cumsum(ceil(count_t / c))] (pallas_march.py:461-473, 1075-1081); the
@@ -317,8 +317,6 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
     if starts.shape[0] != dirs_t.shape[0] + 1:
         raise ValueError("starts must have one entry more than dirs_t has tiles")
     T, R = dirs_t.shape[:2]
-    if save_tin and R > 256:
-        raise ValueError(f"saved carries take at most 256 rays per tile, not {R}")
     for name in ("t_lo", "t_hi", "t0"):
         x = seg.get(name)
         if x is not None and (x.dtype != _F32 or tuple(x.shape) != (T, R)):
@@ -374,8 +372,6 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
     T, R, _ = dirs_t.shape
     if R % 32 or not 32 <= R <= 1024:
         raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
-    if quad and R > 256:
-        raise ValueError(f"the per-ray-origin quad kernel takes at most 256 rays per tile, not {R}")
     dev = dirs_t.device
     rgb = torch.empty((T, R, 3), dtype=_F32, device=dev)
     t_final = torch.empty((T, R), dtype=_F32, device=dev)

@@ -126,8 +126,8 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
 
     lib = load_library()
     T, R, _ = dirs_t.shape
-    if R % 32 or not 32 <= R <= 256:
-        raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 256]")
+    if R % 32 or not 32 <= R <= 1024:
+        raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
     d_rows = torch.zeros_like(rows)  # rows no tile owns, and skipped chunks, stay 0
     if T == 0:
         return d_rows

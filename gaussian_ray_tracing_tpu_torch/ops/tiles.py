@@ -1,7 +1,7 @@
-"""Footprints and tile binning (the default-path parts of
-gaussian_ray_tracing_tpu/ops/tiles.py) for pinhole, OpenCV and fisheye
-cameras, and the fixed-capacity per-tile candidate lists of the tiled
-march (`bin_tiles`).
+"""Footprints and tile binning (gaussian_ray_tracing_tpu/ops/tiles.py's
+pair_keys="gaussian" path, with its three pair culls) for pinhole, OpenCV
+and fisheye cameras, and the fixed-capacity per-tile candidate lists of
+the tiled march (`bin_tiles`).
 
 Every gaussian's exact footprint (the projected conic's bbox; for
 fisheye the polar rectangle of its hit-cone cap) is expanded into (tile,
@@ -67,6 +67,15 @@ class Footprint(NamedTuple):
     ry: torch.Tensor  # (N,) conservative pixel half-extent y
     depth: torch.Tensor  # (N,) front-to-back sort key
     visible: torch.Tensor  # (N,) bool
+    # fisheye only: the annular sector the rect is the bbox of, in NDC
+    # around the optical centre, (cphi, sphi, cos_dphi, r_lo, r_hi) each
+    # (N,); cos_dphi = -1 marks all azimuths. The pair expansion culls the
+    # rect's tiles provably outside it (config.fisheye_cull)
+    sector: tuple | None = None
+
+    def to(self, device) -> "Footprint":
+        sector = None if self.sector is None else tuple(x.to(device) for x in self.sector)
+        return Footprint(*(x.to(device) for x in self[:6]), sector=sector)
 
 
 def num_tiles(camera: Camera, config: RenderConfig) -> tuple[int, int]:
@@ -319,7 +328,7 @@ def _fisheye_rect(a, b, c, rho, bound_radius, camera: Camera, config: RenderConf
     azimuth maps monotonically (exactly when |U| = |V|), and the polar angle
     warps as tan(theta') = k(p) tan(theta), k(p) = |W| |(cos p/|U|,
     sin p/|V|)|, bounded by its values at the azimuth interval's extremes.
-    Returns (px, py, rx, ry, visible)."""
+    Returns (px, py, rx, ry, visible, sector) (Footprint.sector)."""
     U, V, W = camera.uvw_frame()
     ulen, vlen, wlen = _len(U), _len(V), _len(W)
     u_hat, v_hat, w_hat = U / ulen, V / vlen, W / wlen
@@ -456,7 +465,11 @@ def _fisheye_rect(a, b, c, rho, bound_radius, camera: Camera, config: RenderConf
     ry = 0.5 * (y_max - y_min) * 0.5 * Hpx
     # visible hemisphere: theta' <= pi/2 (+ slack); inside-gaussians always
     visible = (theta_lo <= (0.5 * math.pi + 0.05)) | inside
-    return px, py, rx, ry, visible
+    # the annular sector the bbox came from; inside-gaussians (full cover)
+    # keep all azimuths and the full radial range
+    sector = (cphi, sphi, torch.where(inside, -1.0, cos_dphi), torch.where(inside, 0.0, r_lo),
+              torch.where(inside, big, r_hi))
+    return px, py, rx, ry, visible, sector
 
 
 def project_footprints(means, bound_radius, camera: Camera, config: RenderConfig,
@@ -486,18 +499,19 @@ def project_footprints(means, bound_radius, camera: Camera, config: RenderConfig
         ry = rv / z_near * (wlen / vlen) * 0.5 * Hpx
         visible = (c + rw) > _EPS
         depth = c
+        sector = None
         if config.camera_model == CameraModel.OPENCV:
             px, py, rx, ry = _distort_rect_px(ndc_x, ndc_y, rx / (0.5 * Wpx), ry / (0.5 * Hpx),
                                               camera, config)
     elif config.camera_model == CameraModel.FISHEYE:
         rho = torch.sqrt(torch.sum(rel * rel, dim=-1))
-        px, py, rx, ry, visible = _fisheye_rect(a, b, c, rho, bound_radius, camera, config,
-                                                cone_caps)
+        px, py, rx, ry, visible, sector = _fisheye_rect(a, b, c, rho, bound_radius, camera,
+                                                        config, cone_caps)
         depth = rho
     else:
         raise ValueError(config.camera_model)
     return Footprint(px=px, py=py, rx=rx * _MARGIN + 1.0, ry=ry * _MARGIN + 1.0, depth=depth,
-                     visible=visible & (bound_radius > 0.0))
+                     visible=visible & (bound_radius > 0.0), sector=sector)
 
 
 def project_footprints_conic(means, scales, quats, radius, bound_radius,
@@ -574,6 +588,181 @@ def project_footprints_conic(means, scales, quats, radius, bound_radius,
     )
 
 
+def projection_conics(geom: tuple, camera: Camera) -> tuple:
+    """Per-gaussian homogeneous quadratic G of the exact hit conic in NDC
+    (JAX ops/tiles.py projection_conics). With the unit-sphere canonical
+    map Mt = M / radius, a primary ray of NDC coords k = (kx, ky) has
+    direction d(k) = kx (-U) + ky (-V) + W, and its line meets the iso
+    ellipsoid iff q(k) = (o.d~)^2 - (|o|^2 - 1) |d~|^2 >= 0 with d~ = Mt
+    d(k), o = Mt (eye - mu): a quadratic form khat^T G khat in khat = (kx,
+    ky, 1), the march's disc >= 0 gate. G holds for every gaussian (an eye
+    inside the ellipsoid makes q > 0 everywhere: nothing is culled).
+
+    geom: (means (N, 3), M9 (N, 9) rows of S^-1 R^T, radius (N,)). Returns
+    six (N,) float32 columns (g00, g01, g11, g02, g12, g22), normalized
+    per gaussian to unit max-abs for float32 headroom."""
+    means, M9, radius = geom
+    eye = camera.eye
+    U, V, W = camera.uvw_frame()
+    Mt = M9 * (1.0 / torch.clamp(radius, min=1e-12))[:, None]
+
+    def mdot(v):
+        return tuple(dot3([Mt[:, 3 * i + k] for k in range(3)], [v[k] for k in range(3)])
+                     for i in range(3))
+
+    o = mdot([eye[k] - means[:, k] for k in range(3)])
+    au, av, aw = mdot(-U), mdot(-V), mdot(W)
+    lam = dot3(o, o) - 1.0
+    s_u, s_v, s_w = dot3(au, o), dot3(av, o), dot3(aw, o)
+    g = (s_u * s_u - lam * dot3(au, au), s_u * s_v - lam * dot3(au, av),
+         s_v * s_v - lam * dot3(av, av), s_u * s_w - lam * dot3(au, aw),
+         s_v * s_w - lam * dot3(av, aw), s_w * s_w - lam * dot3(aw, aw))
+    gmax = torch.stack([x.abs() for x in g]).amax(dim=0)
+    sc = 1.0 / torch.clamp(gmax, min=1e-30)
+    return tuple(x * sc for x in g)
+
+
+def _conic_rect_cull(gc, kx0, kx1, ky0, ky1):
+    """True where the pair is provably dead: the max of q over the NDC
+    rect [kx0, kx1] x [ky0, ky1] is < 0 (no ray through the tile clears
+    alpha_min). The max of a 2D quadratic over a box is at a corner, an
+    edge critical point or the interior critical point; every candidate is
+    clamped into the rect, so the running max never exceeds the true max
+    (sound) and the candidates hold every possible argmax (complete). NaNs
+    keep the pair."""
+    g00, g01, g11, g02, g12, g22 = gc
+
+    def q(x, y):
+        return (g00 * x + 2.0 * g01 * y + 2.0 * g02) * x + (g11 * y + 2.0 * g12) * y + g22
+
+    m = torch.maximum(torch.maximum(q(kx0, ky0), q(kx0, ky1)),
+                      torch.maximum(q(kx1, ky0), q(kx1, ky1)))
+    # edge criticals (the denominator forced negative: a convex edge lands
+    # on an endpoint after the clamp, which the corners cover)
+    den_y = torch.clamp(g11, max=-1e-30)
+    for x in (kx0, kx1):
+        m = torch.maximum(m, q(x, torch.clamp(-(g01 * x + g12) / den_y, ky0, ky1)))
+    den_x = torch.clamp(g00, max=-1e-30)
+    for y in (ky0, ky1):
+        m = torch.maximum(m, q(torch.clamp(-(g01 * y + g02) / den_x, kx0, kx1), y))
+    det = g00 * g11 - g01 * g01
+    det_s = torch.where(det.abs() < 1e-30, 1e-30, det)
+    xi = torch.clamp((g01 * g12 - g11 * g02) / det_s, kx0, kx1)
+    yi = torch.clamp((g01 * g02 - g00 * g12) / det_s, ky0, ky1)
+    m = torch.maximum(m, q(xi, yi))
+    return m < -1e-5  # the margin absorbs float32 rounding of the normalized form
+
+
+def _conic_row_span(gc, ky0, ky1):
+    """Conservative NDC x-interval of the live region {q >= 0} over the NDC
+    y-slab [ky0, ky1]. For an ellipse (g00 < 0, g11 < 0, det > 0) the live
+    region is convex, so the slab's x-extent lies at a slab boundary (the
+    roots of the fixed-ky quadratic) or at the region's global x-extreme
+    (the y-eliminated quadratic) when its critical ky is inside the slab.
+    Returns (xmin, xmax, ok): ok False means not provably boundable (the
+    caller keeps the full rect row); xmin > xmax with ok means a dead row."""
+    g00, g01, g11, g02, g12, g22 = gc
+    ok = (g00 < -1e-12) & (g11 < -1e-12) & (g00 * g11 - g01 * g01 > 0.0)
+    inf = float("inf")
+
+    def fold(lo, hi, r1, r2, has):
+        lo = torch.minimum(lo, torch.where(has, torch.minimum(r1, r2), inf))
+        hi = torch.maximum(hi, torch.where(has, torch.maximum(r1, r2), -inf))
+        return lo, hi
+
+    lo, hi = torch.full_like(g00, inf), torch.full_like(g00, -inf)
+    inv = 1.0 / torch.clamp(g00, max=-1e-30)
+    for ky in (ky0, ky1):
+        b = g01 * ky + g02
+        cc = (g11 * ky + 2.0 * g12) * ky + g22
+        disc = b * b - g00 * cc
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        lo, hi = fold(lo, hi, (-b - sq) * inv, (-b + sq) * inv, disc >= 0.0)
+    # global x-extremes: eliminate ky (critical ky(x) = -(g01 x + g12) / g11)
+    inv11 = 1.0 / torch.clamp(g11, max=-1e-30)
+    a_t = g00 - g01 * g01 * inv11
+    b_t = g02 - g01 * g12 * inv11
+    c_t = g22 - g12 * g12 * inv11
+    disc_t = b_t * b_t - a_t * c_t
+    s_t = torch.sqrt(torch.clamp(disc_t, min=0.0))
+    inv_t = 1.0 / torch.clamp(a_t, max=-1e-30)
+    for sgn in (-1.0, 1.0):
+        x_e = (-b_t + sgn * s_t) * inv_t
+        ky_e = -(g01 * x_e + g12) * inv11
+        lo, hi = fold(lo, hi, x_e, x_e, (disc_t >= 0.0) & (ky_e > ky0) & (ky_e < ky1))
+    margin = 1e-4  # NDC; |g| <= 1 keeps root rounding well below this
+    return lo - margin, hi + margin, ok
+
+
+def _edge_row_spans(conics, x0, y0, sw, sh, camera: Camera, config: RenderConfig,
+                    row_lo: int = 0):
+    """Exact conic x-spans of each gaussian's top and bottom tile rows;
+    middle rows keep the rect's full width, so the expansion's slot
+    arithmetic stays invertible with per-gaussian constants. A single row
+    gets its exact span (w1 = 0); a dead edge row gets w = 0. Returns (d0,
+    w0, d1, w1) (N,) int32: offsets from x0 and widths, conservative
+    (rows that cannot be bounded keep the full width)."""
+    th, tw = config.tile_h, config.tile_w
+    Hpx, Wpx = camera.height, camera.width
+
+    def span_for(ty_local):
+        fy = (ty_local + row_lo).to(torch.float32)
+        ky0 = 2.0 * (fy * th) / Hpx - 1.0
+        ky1 = 2.0 * (fy * th + th) / Hpx - 1.0
+        xmin, xmax, ok = _conic_row_span(conics, ky0, ky1)
+        sx0 = torch.floor((xmin + 1.0) * (0.5 * Wpx / tw)).to(_I32)
+        sx1 = torch.floor((xmax + 1.0) * (0.5 * Wpx / tw)).to(_I32)
+        x1 = x0 + sw - 1
+        empty = ok & ((sx1 < x0) | (sx0 > x1) | (xmin > xmax))
+        a = torch.where(ok, torch.clamp(sx0, x0, x1), x0)
+        b = torch.where(ok, torch.clamp(sx1, x0, x1), x1)
+        return torch.where(empty, 0, a - x0), torch.where(empty, 0, b - a + 1)
+
+    d0, w0 = span_for(y0)
+    d1, w1 = span_for(y0 + sh - 1)
+    one_row = sh <= 1
+    return d0, w0, torch.where(one_row, 0, d1), torch.where(one_row, 0, w1)
+
+
+def _tile_ndc(tx, ty, camera: Camera, config: RenderConfig):
+    """NDC rect (kx0, kx1, ky0, ky1) of tiles (tx, ty) (the pixel_ndc
+    convention k = 2 px / W - 1, covering every pixel centre of the tile)."""
+    tw, th = config.tile_w, config.tile_h
+    fx, fy = tx.to(torch.float32), ty.to(torch.float32)
+    return (2.0 * (fx * tw) / camera.width - 1.0, 2.0 * (fx * tw + tw) / camera.width - 1.0,
+            2.0 * (fy * th) / camera.height - 1.0, 2.0 * (fy * th + th) / camera.height - 1.0)
+
+
+def _sector_cull(sector, kx0, kx1, ky0, ky1, camera: Camera):
+    """True where a fisheye pair's tile rect lies provably outside its
+    gaussian's annular sector (cphi, sphi, cos_dphi, r_lo, r_hi): entirely
+    beyond r_hi or inside the r_lo hole, or (cos_dphi >= 0, the sector
+    within its centre-azimuth cone) entirely beyond either boundary line of
+    the wedge, a linear functional whose minimum over the rect is the sum of
+    per-axis minima. pad covers the rect's own margin and pixel-centre
+    slack."""
+    cph, sph, cdp, rlo, rhi = sector
+    nx = torch.clamp(torch.zeros_like(kx0), kx0, kx1)  # the rect's point nearest the centre
+    ny = torch.clamp(torch.zeros_like(ky0), ky0, ky1)
+    mind2 = nx * nx + ny * ny
+    ax_m = torch.maximum(kx0.abs(), kx1.abs())
+    ay_m = torch.maximum(ky0.abs(), ky1.abs())
+    maxd2 = ax_m * ax_m + ay_m * ay_m
+    pad = 0.002 + 6.0 / camera.width  # eigensolve margin + ~3 px slack (NDC)
+    rhi_p = rhi + pad
+    rlo_p = torch.clamp(rlo - pad, min=0.0)
+    dead_r = (mind2 > rhi_p * rhi_p) | (maxd2 < rlo_p * rlo_p)
+    # with m = (cph, sph): L(p) = cross(m, p) cdp - dot(m, p) sdp and R(p) =
+    # -cross(m, p) cdp - dot(m, p) sdp, each > 0 beyond its boundary line
+    sdp = torch.sqrt(torch.clamp(1.0 - cdp * cdp, min=0.0))
+    ax_l, ay_l = -sph * cdp - cph * sdp, cph * cdp - sph * sdp
+    ax_r, ay_r = sph * cdp - cph * sdp, -cph * cdp - sph * sdp
+    min_l = torch.minimum(kx0 * ax_l, kx1 * ax_l) + torch.minimum(ky0 * ay_l, ky1 * ay_l)
+    min_r = torch.minimum(kx0 * ax_r, kx1 * ax_r) + torch.minimum(ky0 * ay_r, ky1 * ay_r)
+    dead_az = (cdp >= 0.0) & ((min_l > pad) | (min_r > pad))
+    return dead_r | dead_az
+
+
 def _tile_rects(fp: Footprint, camera: Camera, config: RenderConfig, tile_rows=None):
     """Clipped tile-rect origin (x0, y0), width sw and pair count per
     gaussian. An invisible gaussian counts 0 pairs whatever its px, py,
@@ -636,15 +825,28 @@ def _cumsum_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _bin_pairs_presorted(fp: Footprint, camera: Camera, config: RenderConfig,
-                         cap: int, use_kernel: bool = True, tile_rows=None) -> PairStream:
+                         cap: int, use_kernel: bool = True, tile_rows=None, conics=None,
+                         spans=None, sector=None) -> PairStream:
     """Gather-free pair expansion over depth-sorted gaussians
-    (gaussian_ray_tracing_tpu/ops/tiles.py _bin_pairs_presorted, default
-    branch: no conic cull, row spans or fisheye sectors). With tile_rows
-    (see _tile_rects) the tiles, their ids and starts are the band's."""
+    (gaussian_ray_tracing_tpu/ops/tiles.py _bin_pairs_presorted). With
+    tile_rows (see _tile_rects) the tiles, their ids and starts are the
+    band's.
+
+    Optional culls, each lossless: spans (_edge_row_spans: each gaussian's
+    top and bottom rows emit only their conic x-span, so the count shrinks
+    and every stage downstream with it); conics (projection_conics: a pair
+    whose tile rect lies outside its conic is dropped before the tile
+    sort); sector (Footprint.sector: a fisheye pair whose tile rect lies
+    outside its annular sector is dropped). Their per-gaussian columns ride
+    the same fused head fill as the integer context, the float ones as
+    their int32 bits (delta and prefix sum are exact integer arithmetic, so
+    the bits round-trip). n_pairs counts the emitted pairs, the culled
+    ones among them; starts[-1] the pairs kept."""
     tx_n, ty_n = num_tiles(camera, config)
     n_tiles = tx_n * (ty_n if tile_rows is None else tile_rows[1])
     n = fp.px.shape[0]
     dev = fp.px.device
+    row_lo = 0 if tile_rows is None else tile_rows[0]
 
     x0, y0, sw, count = _tile_rects(fp, camera, config, tile_rows)
     bx = max(1, (tx_n - 1).bit_length())
@@ -653,11 +855,24 @@ def _bin_pairs_presorted(fp: Footprint, camera: Camera, config: RenderConfig,
     if bx + by + bsw > 31:
         raise ValueError(f"tile grid too large to pack: {tx_n}x{ty_n}")
 
+    bsh = max(1, ty_n.bit_length())  # sh can equal ty_n
+    span_chans = None
+    if spans is not None and 2 * bsw + bsh <= 31:
+        # 3-zone expansion: row 0 emits [d0, d0 + w0), middle rows the full
+        # width, the last row [d1, d1 + w1)
+        d0, w0, d1, w1 = spans
+        sw1 = torch.clamp(sw, min=1)
+        sh = torch.floor(count.to(torch.float32) / sw1.to(torch.float32)).to(_I32)
+        count = torch.where(count > 0, w0 + torch.clamp(sh - 2, min=0) * sw1
+                            + torch.where(sh >= 2, w1, 0), 0).to(_I32)
+        span_chans = ((d0 << bsw) | w0, (d1 << (bsw + bsh)) | (w1 << bsh) | sh)
+
     # depth pre-sort (N): float bits of a positive key sort like the key
     d = torch.clamp(fp.depth, 1e-30, 1e30)
     order = torch.sort(d.view(_I32), stable=True).indices
     x0, y0, count = x0[order], y0[order], count[order]
     sw = torch.clamp(sw[order], min=1)
+    bits = lambda v: v[order].contiguous().view(_I32)  # float columns as int32 bits
 
     offsets = _cumsum_i32(count) - count  # exclusive
     total = (offsets[-1] + count[-1]) if n else torch.zeros((), dtype=_I32, device=dev)
@@ -676,14 +891,23 @@ def _bin_pairs_presorted(fp: Footprint, camera: Camera, config: RenderConfig,
         fill_vals = [((ranks + 1) << b_off) | (offsets & off_mask), packedv]
     else:
         fill_vals = [ranks + 1, offsets, packedv]
+    base = len(fill_vals)
+    if span_chans is not None:
+        fill_vals += [ch[order] for ch in span_chans]
+    base_conics = len(fill_vals)
+    if conics is not None:
+        fill_vals += [bits(g) for g in conics]
+    base_sector = len(fill_vals)
+    if sector is not None:
+        fill_vals += [bits(v) for v in sector]
     filled = multi_head_fill(first, fill_vals, cap, use_kernel=use_kernel)
     slot = torch.arange(cap, dtype=_I32, device=dev)
     if pack_off:
-        ch0, packed = filled
+        ch0, packed = filled[:2]
         rank_f = _srl(ch0, b_off)
         r = (slot - (ch0 & off_mask)) & off_mask
     else:
-        rank_f, off_pair, packed = filled
+        rank_f, off_pair, packed = filled[:3]
         r = slot - off_pair
     gsrc = rank_f - 1
     valid = (slot < torch.clamp(total, max=cap)) & (gsrc >= 0)
@@ -692,8 +916,36 @@ def _bin_pairs_presorted(fp: Footprint, camera: Camera, config: RenderConfig,
     y0_p = _srl(packed, bsw) & ((1 << by) - 1)
     x0_p = _srl(packed, by + bsw)
     # float reciprocal division is exact here (r, sw < 2^24)
-    q = torch.floor(r.to(torch.float32) / sw_p.to(torch.float32)).to(_I32)
-    tile = (y0_p + q) * tx_n + x0_p + (r - q * sw_p)
+    swf = sw_p.to(torch.float32)
+    if span_chans is not None:
+        # 3-zone decode (sh == 1: row 0 only; w == 0 rows emit nothing)
+        chb, chc = filled[base], filled[base + 1]
+        mask_sw = (1 << bsw) - 1
+        w0p, d0p = chb & mask_sw, _srl(chb, bsw)
+        sh_p = chc & ((1 << bsh) - 1)
+        w1p = _srl(chc, bsh) & mask_sw
+        d1p = _srl(chc, bsh + bsw)
+        in0 = r < w0p
+        rm = r - w0p
+        nmid = sh_p - 2
+        qm = torch.floor(rm.to(torch.float32) / swf).to(_I32)
+        in_last = ~in0 & (qm >= nmid)
+        q = torch.where(in0, 0, torch.where(in_last, sh_p - 1, 1 + qm))
+        col = torch.where(in0, d0p + r, torch.where(in_last, d1p + (rm - nmid * sw_p),
+                                                    rm - qm * sw_p))
+    else:
+        q = torch.floor(r.to(torch.float32) / swf).to(_I32)
+        col = r - q * sw_p
+    tile = (y0_p + q) * tx_n + x0_p + col
+    if conics is not None or sector is not None:
+        rect = _tile_ndc(x0_p + col, y0_p + q + row_lo, camera, config)
+        as_f32 = lambda chans: tuple(x.view(torch.float32) for x in chans)
+        if conics is not None:
+            valid = valid & ~_conic_rect_cull(as_f32(filled[base_conics : base_conics + 6]),
+                                              *rect)
+        if sector is not None:
+            valid = valid & ~_sector_cull(as_f32(filled[base_sector : base_sector + 5]), *rect,
+                                          camera)
 
     # tile sort: with tile and rank bits fitting 31, one packed key array
     # (tile << rank_bits | rank) is globally unique, so an unstable
@@ -722,33 +974,46 @@ def _bin_pairs_presorted(fp: Footprint, camera: Camera, config: RenderConfig,
 
 
 def bin_pairs(fp: Footprint, camera: Camera, config: RenderConfig,
-              pair_capacity: int, use_kernel: bool = True, tile_rows=None) -> PairStream:
+              pair_capacity: int, use_kernel: bool = True, tile_rows=None,
+              geom: tuple | None = None) -> PairStream:
     """Expand footprints into the depth-sorted per-tile pair stream (the
-    default pair_keys="gaussian" path without culls or row spans).
+    pair_keys="gaussian" path, with the config's culls).
 
     use_kernel=False runs the plain torch scan on any device; otherwise the
     scan picks its CUDA kernel for CUDA tensors. tile_rows=(row_lo,
     n_rows) bins only that band of tile rows (its tiles row-major, y
     band-local): each tile's pairs are the full stream's, in the same
-    order.
+    order. geom = (means (N, 3), M9 (N, 9) rows of S^-1 R^T, radius (N,)):
+    with it a pinhole frame takes conic_cull and row_span (both need the
+    conics); fisheye_cull takes the footprint's sector wherever it has one,
+    with or without geom (JAX ops/tiles.py:1630-1660).
     """
-    if config.pair_keys != "gaussian" or config.conic_cull or config.row_span \
-            or config.fisheye_cull:
-        raise NotImplementedError(
-            "only the default binning (pair_keys='gaussian', no conic_cull, "
-            "row_span or fisheye_cull) is ported"
-        )
-    return _bin_pairs_presorted(fp, camera, config, pair_capacity,
-                                use_kernel=use_kernel, tile_rows=tile_rows)
+    if config.pair_keys != "gaussian":
+        raise NotImplementedError(f"pair_keys={config.pair_keys!r} is not ported")
+    conics = spans = None
+    if geom is not None and config.camera_model == CameraModel.PINHOLE \
+            and (config.conic_cull or config.row_span):
+        conics = projection_conics(geom, camera)
+        if config.row_span:
+            x0, y0, sw, count = _tile_rects(fp, camera, config, tile_rows)
+            sw1 = torch.clamp(sw, min=1)
+            sh = torch.floor(count.to(torch.float32) / sw1.to(torch.float32)).to(_I32)
+            spans = _edge_row_spans(conics, x0, y0, sw1, sh, camera, config,
+                                    row_lo=0 if tile_rows is None else tile_rows[0])
+            if not config.conic_cull:
+                conics = None
+    sector = fp.sector if config.fisheye_cull and fp.sector is not None else None
+    return _bin_pairs_presorted(fp, camera, config, pair_capacity, use_kernel=use_kernel,
+                                tile_rows=tile_rows, conics=conics, spans=spans, sector=sector)
 
 
 def bin_tiles(fp: Footprint, camera: Camera, config: RenderConfig, pair_capacity: int,
-              use_kernel: bool = True) -> TileBinning:
+              use_kernel: bool = True, geom: tuple | None = None) -> TileBinning:
     """Fixed-capacity per-tile candidate lists (T, config.max_per_tile) of
     the pair stream (bin_pairs, whose scan is kernel K2 on CUDA tensors):
     tile t lists its first max_per_tile pairs front to back, -1 after them.
     n_dropped adds each tile's overflow to the stream's capacity drops."""
-    stream = bin_pairs(fp, camera, config, pair_capacity, use_kernel=use_kernel)
+    stream = bin_pairs(fp, camera, config, pair_capacity, use_kernel=use_kernel, geom=geom)
     tx_n, ty_n = num_tiles(camera, config)
     m_cap = config.max_per_tile
     counts = stream.starts[1:] - stream.starts[:-1]

@@ -51,7 +51,7 @@ from gaussian_ray_tracing_tpu_torch.ops.march import chunk_for, compact_features
 from gaussian_ray_tracing_tpu_torch.ops.march_bwd import march_stream_diff
 from gaussian_ray_tracing_tpu_torch.ops.response import adaptive_radius
 from gaussian_ray_tracing_tpu_torch.ops.tiles import (
-    Footprint, footprint_pair_count, num_tiles, project_footprints_conic,
+    footprint_pair_count, num_tiles, project_footprints_conic,
 )
 from gaussian_ray_tracing_tpu_torch.parallel.mesh import (
     GAUSS_AXIS, RAY_AXIS, Mesh, all_gather, pmax, ppermute, psum,
@@ -238,7 +238,7 @@ def render_pallas_sharded(scene: GaussianScene, camera: Camera, config: RenderCo
     rgb_l, t_l, dropped = [], [], []
     for _, i, dev in _local_rays(mesh):
         band = (i * rows_local, rows_local)
-        fp_l = Footprint(*(x.to(dev) for x in fp))
+        fp_l = fp.to(dev)
         cap = (-(-pair_capacity // n) if pair_capacity is not None else
                snug_pair_capacity(int(footprint_pair_count(fp_l, camera, config, band))))
         stream, ids, _ = bin_footprints(fp_l, camera, config, cap, tile_rows=band)

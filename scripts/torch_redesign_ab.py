@@ -177,7 +177,9 @@ def main() -> None:
         return dict(dev_ms_other=t["dev_other"], dev_ms_this=t["dev_this"])
 
     def ptx(pattern: str):
-        hits = [v for k, v in ptxas.items() if pattern in k]
+        # the 256-ray builds first (a 1024-ray one shares their prefix)
+        hits = [v for k, v in sorted(ptxas.items(), key=lambda kv: "Li1024E" in kv[0])
+                if pattern in k]
         return hits[0] if hits else None
 
     def k1_name(chunk, scalar, degree, train, order):

@@ -41,14 +41,14 @@ def test_config_is_frozen_and_hashable():
 
 
 @pytest.mark.parametrize("change", [
-    dict(camera_model=tcfg.CameraModel.FISHEYE, fisheye_cull=True),
+    dict(tile_w=64, tile_h=32),  # 2048 rays a tile: a TPU's, more than a CUDA block's threads
     dict(order="oddeven"),
     dict(compute_dtype="bfloat16"),
     dict(order="merge", window_key="peak"),
     dict(sh_degree=4),
-    dict(conic_cull=True),
-    dict(row_span=True),
-    dict(fisheye_cull=True),
+    dict(tile_w=12, tile_h=12),  # 144 rays: not a multiple of 32
+    dict(tile_w=4, tile_h=4),
+    dict(tile_w=32, tile_h=40),
     dict(sort_lane_groups=True),
     dict(composite_scan=True),
     dict(sort_alpha_min=0.05),
@@ -62,6 +62,11 @@ def test_unimplemented_values_raise(change):
 
 def test_defaults_and_bench_config_are_supported():
     tcfg.check_supported(tcfg.RenderConfig())
+    for culls in (dict(conic_cull=True, row_span=True),
+                  dict(camera_model=tcfg.CameraModel.FISHEYE, fisheye_cull=True)):
+        tcfg.check_supported(tcfg.RenderConfig(**culls))
+    for tile_w, tile_h in ((32, 16), (32, 32), (8, 4)):
+        tcfg.check_trainable(tcfg.RenderConfig(tile_w=tile_w, tile_h=tile_h))
     tcfg.check_supported(tcfg.RenderConfig(hit_multiplicity=1, march_chunk=128))
     tcfg.check_supported(tcfg.RenderConfig(order="key"))
     tcfg.check_supported(tcfg.RenderConfig(order="merge", march_chunk=64))

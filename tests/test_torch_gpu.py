@@ -1164,3 +1164,103 @@ def test_shared_origin_backward_unchanged():
     """K1's saved carries and K3 from the shared eye give the bits they
     gave before per-ray origins were added (DIGESTS_BEFORE)."""
     assert _shared_origin_digests() == DIGESTS_BEFORE
+
+
+# --- tiles of 512 and 1024 rays: K1's saved carries and K3 --------------------
+
+def _wide_train_stream(chunk, order, degree, tile_h):
+    """The 5k scene's training stream at 256^2 on 32 x tile_h tiles."""
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = _camera()
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order, sh_degree=degree,
+                       tile_w=32, tile_h=tile_h)
+    stream, rows, _ = prepare_train_stream(scene, cam, cfg)
+    dirs_t = tile_rays(generate_rays(cam, cfg)[1], 32, tile_h)
+    assert dirs_t.shape[1] == 32 * tile_h
+    return cfg, stream.starts, rows.detach().contiguous(), dirs_t, cam.eye
+
+
+@pytest.mark.parametrize("order,degree,chunk,tile_h", [
+    ("key", 0, 256, 32), ("window", 0, 128, 32), ("key", 3, 128, 32), ("window", 3, 64, 32),
+    ("key", 0, 256, 16), ("window", 0, 128, 16)])
+def test_wide_tile_training_kernels_match_plain(order, degree, chunk, tile_h):
+    """K1 with saved carries and K3 on 1024- and 512-ray tiles (their
+    1024-ray builds) against the plain versions at the K1 and K3 bars, two
+    K3 launches bit-identical."""
+    cfg, starts, rows, dirs_t, eye = _wide_train_stream(chunk, order, degree, tile_h)
+    before = (tmarch.march.launches, tbwd.march_bwd.launches)
+    _fwd_bwd_check(cfg, starts, rows, dirs_t, eye, chunk)
+    assert (tmarch.march.launches, tbwd.march_bwd.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("order", ["window", "key", "merge"])
+def test_wide_tile_origin_quad_render_matches_plain(order):
+    """K1's per-ray-origin quad response on 1024-ray tiles of a rolling
+    stream (the centroid's halving tree over 1024 origins) against
+    march_plain."""
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=32, order=order, tile_w=32, tile_h=32)
+    cam1 = Camera.create(eye=(0.05, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                         device="cuda")
+    starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(
+        random_scene(5000, seed=3, device="cuda"), _camera(), cam1, cfg, train=True)
+    rows = rows.detach().contiguous()
+    before = tmarch.march.origin_quad_launches
+    got = tmarch.march(starts, rows, dirs_t, cfg, 32, origins_t=origins_t, quad=True)
+    torch.cuda.synchronize()
+    assert tmarch.march.origin_quad_launches == before + 1
+    _kernel_close(got, tmarch.march_plain(starts, rows, dirs_t, cfg, 32, origins_t=origins_t,
+                                          quad=True))
+    assert float(got[1].min()) < 0.5
+
+
+@pytest.mark.parametrize("quad", [False, True])
+def test_wide_tile_origin_training_matches_plain(quad):
+    """K1's saved carries from per-ray origins, windows and carry-in (key
+    order, scalar or per-ray-origin quad response) and K3 from per-ray
+    origins on 1024-ray tiles against the plain versions; two K3 launches
+    bit-identical."""
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=256, order="key", tile_w=32, tile_h=32)
+    cam1 = Camera.create(eye=(0.05, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                         device="cuda")
+    starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(
+        random_scene(5000, seed=3, device="cuda"), _camera(), cam1, cfg, train=True)
+    rows = rows.detach().contiguous()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shape = dirs_t.shape[:2]
+    seg = dict(origins_t=origins_t,
+               t_lo=0.05 + 0.05 * torch.rand(shape, generator=g, device="cuda"),
+               t_hi=3.0 + torch.rand(shape, generator=g, device="cuda"),
+               t0=0.6 + 0.4 * torch.rand(shape, generator=g, device="cuda"))
+    got = tmarch.march(starts, rows, dirs_t, cfg, 256, save_tin=True, quad=quad, **seg)
+    torch.cuda.synchronize()
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, 256, save_tin=True, quad=quad, **seg)
+    _kernel_close(got[:2], want[:2])
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(shape, generator=g, device="cuda")
+    args = (starts, rows, dirs_t, torch.zeros(3, device="cuda"), got[2], got[3], d_rgb, d_t,
+            cfg, 256)
+    kw = {k: seg[k] for k in ("origins_t", "t_lo", "t_hi")}
+    a, b = tbwd.march_bwd(*args, **kw), tbwd.march_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = tbwd.march_bwd_plain(*args, **kw)
+    for i, c in enumerate(tmarch.train_columns(0)):
+        if c in tmarch.diff_columns(0):
+            bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+            assert float((a[:, i] - plain[:, i]).abs().max() / plain[:, i].abs().max()) <= bar, i
+
+
+def test_scan_kernel_at_the_culled_binnings_channel_counts():
+    """K2 at the head fill's channel counts with the pair culls (2-3
+    context channels, + 6 conic and 2 span channels on pinhole, + 5 sector
+    channels on fisheye) equals torch.cumsum."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for shape in ((7, 1_300_001), (8, 1_300_001), (10, 1_300_001), (11, 1_300_001)):
+        x = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device="cuda",
+                          generator=g)
+        assert torch.equal(tscan.multi_cumsum_i32(x), torch.cumsum(x, dim=1).to(torch.int32))

@@ -131,7 +131,7 @@ def _jax_footprints(js, cam_kw):
     r = j_adaptive_radius(js.opacities, 0.01)
     jfp = jtiles.project_footprints_conic(js.means, js.scales, js.quats, r,
                                          r * jnp.max(js.scales, axis=-1), jc, JConfig())
-    tfp = ttiles.Footprint(*(T(getattr(jfp, k)) for k in ttiles.Footprint._fields))
+    tfp = ttiles.Footprint(*(T(getattr(jfp, k)) for k in ttiles.Footprint._fields[:6]))
     return jfp, jc, tfp, Camera.create(**cam_kw)
 
 

@@ -78,7 +78,7 @@ def test_bin_tiles_matches_jax(scene3000):
     jr = j_adaptive_radius(js.opacities, 0.01)
     jfp = jtiles.project_footprints_conic(js.means, js.scales, js.quats, jr,
                                          jr * jnp.max(js.scales, axis=-1), jc, JConfig())
-    tfp = ttiles.Footprint(*(T(getattr(jfp, k)) for k in ttiles.Footprint._fields))
+    tfp = ttiles.Footprint(*(T(getattr(jfp, k)) for k in ttiles.Footprint._fields[:6]))
     cap = 8192
     want = jtiles.bin_tiles(jfp, jc, JConfig(max_per_tile=64), cap)
     got = ttiles.bin_tiles(tfp, tc, RenderConfig(max_per_tile=64), cap)
