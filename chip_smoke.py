@@ -857,6 +857,7 @@ def main() -> None:
     origin_rows = per_ray_origin_phase(dev, card, scene, init)
     log("phase", f"per-ray origins in {time.perf_counter() - t_phase:.1f} s")
     wide_rows = wide_tile_phase(dev, card, scene, poses[0], views, init)
+    option_rows = window_options_phase(dev, card, scene, poses[0], golden, views, init)
     parallel_rows = parallel_phase(dev, card, scene, poses[0], golden, views, init)
 
 
@@ -1115,6 +1116,7 @@ def main() -> None:
         *parallel_rows,
         *origin_rows,
         *wide_rows,
+        *option_rows,
         *merge_rows,
         *meshcam_rows,
     ]}), flush=True)
@@ -2875,6 +2877,231 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
          "bound_by": k2_first["bound_by"], "library_ms": k2_first["library_ms"],
          "channels": k2},
     ]
+
+
+def window_options_phase(dev, card: str, scene, pose, golden, views, init) -> list:
+    """K1's window-order render options and the peak key, and K3's peak-key
+    replay, at full width. The main path, each case's launch count zeroed
+    just before and read just after: one 1280x720 frame of `scene`
+    (random_scene(100k, seed 0)) at `pose` through render(method="gpu") in
+    the bench config with composite_scan (window, key and merge order),
+    sort_lane_groups (16x16 and 32x32 tiles), sort_alpha_min = 0.05 (with
+    sort_repair 64, with 0, and with sort_lane_groups) and window_key
+    "peak" (window and merge order); then Trainer(method="gpu").fit, 3
+    steps in window order under the peak key, on the training row's view 0
+    (512x512, `init` = random_scene(50k, seed 1)). Then every case's K1
+    against march_plain on the frame's stream (the K1 bars, and its per-tile
+    fired and repaired chunk counts equal to the plain version's), timed in
+    turns with the default config's K1 on its own stream (default, option,
+    option, default: event ms and profiler device ms), with its bound and
+    plain ms, and the 720p golden read through render(method="gpu") in each
+    option (for composite_scan and sort_lane_groups, which only change
+    rounding and colour packing, >= PSNR_GOLDEN, or in key order, which
+    reads ~30 dB without them, within 0.5 dB of the default; logged for the
+    others); K1's
+    saved carries and K3 under the peak key against their plain versions
+    (k1_train_check, k3_check) and timed in turns with the event key's.
+    Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        prepare_pair_stream, prepare_train_stream,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    t_phase = time.perf_counter()
+    bench = RenderConfig(**BENCH_KW)
+    wide = dict(tile_w=32, tile_h=32)
+    # name: (config, the launch count that shows it, must it hold the golden)
+    cases = {
+        "scan_window": (bench.replace(composite_scan=True), "scan_launches", True),
+        "scan_key": (bench.replace(order="key", composite_scan=True), "scan_launches", True),
+        "scan_merge": (bench.replace(order="merge", composite_scan=True), "scan_launches", True),
+        "groups_16x16": (bench.replace(sort_lane_groups=True), "group_launches", True),
+        "groups_32x32": (bench.replace(sort_lane_groups=True, **wide), "group_launches", True),
+        "alpha_repair64": (bench.replace(sort_alpha_min=0.05), "fire_alpha_launches", False),
+        "alpha_repair0": (bench.replace(sort_alpha_min=0.05, sort_repair=0),
+                          "fire_alpha_launches", False),
+        "alpha_groups": (bench.replace(sort_alpha_min=0.05, sort_lane_groups=True),
+                         "fire_alpha_launches", False),
+        "peak_window": (bench.replace(window_key="peak"), "peak_launches", False),
+        "peak_merge": (bench.replace(order="merge", window_key="peak"), "peak_launches", False),
+    }
+    # the same frame without the options (order and tiles kept)
+    plain_cfg = lambda cfg: RenderConfig(**{**BENCH_KW, "order": cfg.order,
+                                            "tile_w": cfg.tile_w, "tile_h": cfg.tile_h})
+
+    # --- the main path, each count zeroed just before ---
+    launches = {}
+    for name, (cfg, attr, _) in cases.items():
+        setattr(kmarch.march, attr, 0)
+        out = render(scene, pose, cfg, method="gpu", return_aux=True)
+        torch.cuda.synchronize()
+        launches[name] = getattr(kmarch.march, attr)
+        rgb = out["rgb"]
+        check(launches[name] >= 1, f"options {name}: K1 ({attr}) was not launched")
+        check(tuple(rgb.shape) == (720, 1280, 3) and bool(torch.isfinite(rgb).all())
+              and float(rgb.max()) > 0.1, f"options {name}: bad frame")
+        check(out["aux"]["n_dropped"] == 0, f"options {name}: pairs dropped")
+    win_peak = RenderConfig(hit_multiplicity=1, order="window", march_chunk=128,
+                            window_key="peak")
+    kmarch.march.peak_launches = kbwd.march_bwd.peak_launches = 0
+    trainer = ktrain.Trainer(GaussianModel.from_scene(init), config=win_peak, lr=2e-3,
+                             method="gpu")
+    losses = trainer.fit([views[0]], steps=3)
+    torch.cuda.synchronize()
+    train_launches = {"march": kmarch.march.peak_launches,
+                      "march_bwd": kbwd.march_bwd.peak_launches}
+    check(train_launches["march"] == 3 and train_launches["march_bwd"] == 3,
+          f"peak training: K1 save_tin or K3 did not launch once a step {train_launches}")
+    check(all(np.isfinite(losses)), f"peak training: bad losses {losses}")
+    log("options", f"main path: {len(cases)} frames 1280x720 100k, launches {launches}; peak "
+                   f"training 3 steps 512x512 50k, loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+                   f"launches {train_launches}")
+
+    # --- each case's K1 against its plain version, timed beside the default ---
+    ref, gscene, gcam, ghm, _ = golden("pinhole_720p")
+    streams, rows, golden_db = {}, [], {}
+    k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+
+    def stream_for(cfg):
+        key = (cfg.tile_w, cfg.tile_h)
+        if key not in streams:
+            stream, feats, n_pairs = prepare_pair_stream(scene, pose, cfg, 1 << 22)
+            dirs_t = tile_rays(cameras.generate_rays(pose, cfg)[1], cfg.tile_w, cfg.tile_h)
+            streams[key] = (stream.starts, feats, dirs_t, n_pairs)
+        return streams[key]
+
+    def turns(fns: dict, reps: int = 10) -> dict:
+        """Median event ms of each fn in turns a, b, b, a, and the profiler's
+        device ms of one call of each."""
+        ms = {k: [] for k in fns}
+        names = list(fns)
+        for name in names + names[::-1]:
+            fns[name]()
+            ms[name] += cuda_ms(fns[name], reps)
+        dev_ms = {k: profile_frames(f, frames=5, top=1, host=False)["device_ms"]
+                  for k, f in fns.items()}
+        return {k: (statistics.median(v), dev_ms[k]) for k, v in ms.items()}
+
+    for name, (cfg, attr, bar) in cases.items():
+        starts, feats, dirs_t, n_pairs = stream_for(cfg)
+        chunk = kmarch.chunk_for(cfg)
+        args = (starts, feats, dirs_t, cfg, chunk)
+        base = plain_cfg(cfg)
+        got = kmarch.march(*args, stats=True)
+        base_stats = kmarch.march(starts, feats, dirs_t, base, chunk, stats=True)[2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = kmarch.march_plain(*args, stats=True)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        b = march_bound(args, {}, kmarch.march_plain)
+        err = 0.0
+        for part, x, y in (("rgb", got[0], want[0]), ("T_final", got[1], want[1])):
+            x, y = x.cpu().numpy(), y.cpu().numpy()
+            p, m = psnr(x, y), float(np.abs(x - y).max())
+            err = max(err, m)
+            check(p >= PSNR_KERNEL and m <= MAXABS_KERNEL,
+                  f"K1 {name} vs plain {part}: PSNR {p:.2f} max abs {m:.3g}")
+        check(all(torch.equal(x, y) for x, y in zip(got[2], want[2])),
+              f"K1 {name}: the kernel's fired or repaired counts differ from the plain version's")
+        counts = [int(x.sum()) for x in got[2]]
+        base_counts = [int(x.sum()) for x in base_stats]
+        t = turns({"default": lambda: kmarch.march(starts, feats, dirs_t, base, chunk),
+                   "option": lambda: kmarch.march(*args)})
+        with torch.no_grad():
+            golden_db[name] = psnr(render(gscene, gcam, cfg.replace(hit_multiplicity=ghm),
+                                          method="gpu")["rgb"].cpu().numpy(), ref)
+            base_db = psnr(render(gscene, gcam, base.replace(hit_multiplicity=ghm),
+                                  method="gpu")["rgb"].cpu().numpy(), ref)
+        if bar:  # key order reads ~30 dB on the golden without any option: its own bar
+            need = min(PSNR_GOLDEN, base_db - 0.5)
+            check(golden_db[name] >= need,
+                  f"{name}: PSNR {golden_db[name]:.2f} vs the 720p golden < {need:.2f}")
+        more = design("march", cfg, chunk, rays=cfg.rays_per_tile)
+        log("options", f"{name} ({n_pairs} pairs, R = {cfg.rays_per_tile}): K1 vs plain max abs "
+                       f"{err:.3g}, fired / repaired chunks {counts} (kernel = plain; default "
+                       f"{base_counts}); {t['option'][0]:.3f} ms event, {t['option'][1]:.3f} "
+                       f"device (default {t['default'][0]:.3f} / {t['default'][1]:.3f}), "
+                       f"bound {b[0]:.4f} ({b[1]}), plain {plain_ms:.1f} ms; 720p golden "
+                       f"{golden_db[name]:.2f} dB (default {base_db:.2f}) ({card})")
+        rows.append({"name": f"march_{name}", "route": "cuda",
+                     "source": f"{PKG}/csrc/march.cuh", "replaces": k1,
+                     "launches": launches[name], "max_abs_err": err, "ms": t["option"][0],
+                     "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                     "library_ms": None, "device_ms": t["option"][1],
+                     "default_ms": t["default"][0], "default_device_ms": t["default"][1],
+                     "fired_repaired": counts, "default_fired_repaired": base_counts,
+                     "golden_psnr": golden_db[name], "default_golden_psnr": base_db, **more})
+
+    # --- K1's saved carries and K3 under the peak key, beside the event key ---
+    cam0 = views[0][0]
+    win_event = win_peak.replace(window_key="event")
+    with torch.no_grad():
+        stream, trows, n_pairs_t = prepare_train_stream(trainer.model.activate(), cam0, win_peak)
+    starts, trows = stream.starts, trows.detach().contiguous()
+    dirs_t = tile_rays(cameras.generate_rays(cam0, win_peak)[1], 16, 16)
+    kw = {"origins_t": cam0.eye.expand(dirs_t.shape).contiguous()}
+    fwd = lambda f, cfg: f(starts, trows, dirs_t, cfg, 128, save_tin=True, **kw)
+    got = fwd(kmarch.march, win_peak)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fwd(kmarch.march_plain, win_peak)
+    k1t_plain = (time.perf_counter() - t0) * 1e3
+    k1t_err = k1_train_check(f"peak window save_tin 512x512 c=128 ({n_pairs_t} pairs)", got,
+                             want)
+    k1t_bound = march_bound((starts, trows, dirs_t, win_peak, 128), kw, kmarch.march_plain,
+                            tin=got[2])
+    k1t_design = design("march", win_peak, 128, scalar=True, train=True)
+    event = fwd(kmarch.march, win_event)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+    d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+    bargs = (starts, trows, dirs_t, cam0.eye, got[2], got[3], d_rgb, d_t, win_peak, 128)
+    eargs = (starts, trows, dirs_t, cam0.eye, event[2], event[3], d_rgb, d_t, win_event, 128)
+    k3_err = k3_check("peak window replay 512x512 c=128", bargs)
+    t0 = time.perf_counter()
+    kbwd.march_bwd_plain(*bargs)
+    k3_plain = (time.perf_counter() - t0) * 1e3
+    k3_bound = bwd_bound(bargs, kbwd.march_bwd_plain)
+    k3_design = design("march_bwd", win_peak, 128)
+    check(not torch.equal(got[2], event[2]), "the peak key changed no saved carry")
+    t1 = turns({"event": lambda: fwd(kmarch.march, win_event),
+                "peak": lambda: fwd(kmarch.march, win_peak)})
+    t3 = turns({"event": lambda: kbwd.march_bwd(*eargs), "peak": lambda: kbwd.march_bwd(*bargs)})
+    log("options", f"peak training 512x512 ({n_pairs_t} pairs): K1 save_tin {t1['peak'][0]:.3f} "
+                   f"ms event, {t1['peak'][1]:.3f} device (event key {t1['event'][0]:.3f} / "
+                   f"{t1['event'][1]:.3f}), bound {k1t_bound[0]:.4f} ({k1t_bound[1]}), plain "
+                   f"{k1t_plain:.1f}; K3 {t3['peak'][0]:.3f} / {t3['peak'][1]:.3f} (event key "
+                   f"{t3['event'][0]:.3f} / {t3['event'][1]:.3f}), bound {k3_bound[0]:.4f} "
+                   f"({k3_bound[1]}), plain {k3_plain:.1f} ({card})")
+    rows.append({"name": "march_peak_window_save_tin", "route": "cuda",
+                 "source": f"{PKG}/csrc/march.cuh", "replaces": k1,
+                 "launches": train_launches["march"], "max_abs_err": k1t_err,
+                 "ms": t1["peak"][0], "plain_ms": k1t_plain, "bound_ms": k1t_bound[0],
+                 "bound_by": k1t_bound[1], "library_ms": None, "device_ms": t1["peak"][1],
+                 "default_ms": t1["event"][0], "default_device_ms": t1["event"][1],
+                 **k1t_design})
+    rows.append({"name": "march_bwd_peak_window", "route": "cuda",
+                 "source": f"{PKG}/csrc/march_bwd.cuh",
+                 "replaces": "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189",
+                 "launches": train_launches["march_bwd"], "max_abs_err": k3_err,
+                 "ms": t3["peak"][0], "plain_ms": k3_plain, "bound_ms": k3_bound[0],
+                 "bound_by": k3_bound[1], "library_ms": None, "device_ms": t3["peak"][1],
+                 "default_ms": t3["event"][0], "default_device_ms": t3["event"][1],
+                 **k3_design})
+    log("phase", f"window-order options and the peak key in "
+                 f"{time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def drop_free(render_fn, cfg):

@@ -87,9 +87,11 @@ class RenderConfig:
     sort_lane_groups: bool = False
     composite_scan: bool = False
     # sort_repair sorts only the index band of a fired chunk that holds its
-    # inversions; that reproduces the full sort's significant order
-    # (gaussian_ray_tracing_tpu/ops/pallas_march.py:781-796), so the port
-    # accepts it and always sorts the whole chunk.
+    # inversions (gaussian_ray_tracing_tpu/ops/pallas_march.py:781-796,
+    # 858-893). With sort_alpha_min = 0 that reproduces the full sort's
+    # significant order, so the port then sorts the whole chunk; with
+    # sort_alpha_min > 0 the band's right end only sees the inversions the
+    # fire test counts, and the port sorts the band as JAX does.
     sort_repair: int = 64
     sort_alpha_min: float = 0.0
     chunk_skip_transmittance: float = 0.02
@@ -112,21 +114,20 @@ MAX_RAYS_PER_TILE = 1024  # one thread per ray: a CUDA block's limit
 
 def unsupported_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported primary render does not implement yet
-    (it renders pinhole, fisheye and OpenCV cameras, window or merge order
-    on the event key or key order, SH degrees 0-3, on tiles of a multiple
-    of 32 rays up to 1024: the kernels run one thread per ray, where a TPU
-    takes any multiple of 128, 2048 among them)."""
+    (it renders pinhole, fisheye and OpenCV cameras, window, key or merge
+    order on the event or the peak key, with the window-order options
+    sort_lane_groups, sort_alpha_min and sort_repair and the composite_scan
+    product, SH degrees 0-3, on tiles of a multiple of 32 rays up to 1024:
+    the kernels run one thread per ray, where a TPU takes any multiple of
+    128, 2048 among them)."""
     rays = config.rays_per_tile
     bad = [] if rays % 32 == 0 and 32 <= rays <= MAX_RAYS_PER_TILE else \
         [f"tile_w*tile_h={config.tile_w}*{config.tile_h}"]
     checks = {
         "order": config.order in ("window", "key", "merge"),
-        "window_key": config.window_key == "event",
+        "window_key": config.window_key in ("event", "peak"),
         "pair_keys": config.pair_keys == "gaussian",
         "sh_degree": 0 <= config.sh_degree <= 3,
-        "sort_lane_groups": not config.sort_lane_groups,
-        "composite_scan": not config.composite_scan,
-        "sort_alpha_min": config.sort_alpha_min <= 0.0,
         "compute_dtype": config.compute_dtype == "float32",
         "hit_multiplicity": config.hit_multiplicity >= 1,
     }

@@ -38,19 +38,32 @@ extern "C" const char* grt_error_string(int err) {
 // or saved carries, whose rows are the scalar (or training) rows. origins,
 // t_lo_arr, t_hi_arr, t0 and blocks may each be null (see Params).
 // full_range: no window, origin or block array is given. sh_k: SH
-// coefficients per channel, K = 1, 4, 9 or 16.
+// coefficients per channel, K = 1, 4, 9 or 16. peak: window_key "peak"
+// (window and merge order). The render options (ops/march.window_options;
+// with saved carries scan 0, group rays_per_tile, a_fire 0, repair 0 and
+// stats null): scan, composite_scan (every order); group, the rays of a
+// fire group, a multiple of 32 dividing rays_per_tile; a_fire,
+// sort_alpha_min; repair, the band width (0, or below chunk); stats (T, 2)
+// int32, each tile's most fired and repaired chunks of a fire group, or null
+// (window order).
 extern "C" int grt_march(const void* starts, const void* feats, const void* dirs, void* rgb,
                          void* t_final, void* tin, const void* chunk_base, const void* origins,
                          const void* t_lo_arr, const void* t_hi_arr, const void* t0,
                          const void* blocks, int block_sub, int n_tiles, int rays_per_tile,
                          int chunk, int stride, int order, int full_range, float t_lo,
                          float t_hi, float min_t, float t_skip, float alpha_min,
-                         float alpha_clamp, int hit_multiplicity, int sh_k, int quad,
+                         float alpha_clamp, int hit_multiplicity, int sh_k, int quad, int peak,
+                         int scan, int group, float a_fire, int repair, void* stats,
                          void* stream) {
   using namespace k1;
   const bool sh_ok = sh_k == 1 || sh_k == 4 || sh_k == 9 || sh_k == 16;
+  const bool options_ok = group >= 32 && group % 32 == 0 && rays_per_tile % group == 0 &&
+                          a_fire >= 0.f && repair >= 0 && repair < chunk &&
+                          (!tin || (!scan && group == rays_per_tile && a_fire == 0.f &&
+                                    repair == 0 && !stats));
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
-      !sh_ok || order < 0 || order > 2 || stride < min_stride(origins || tin, sh_k) ||
+      !sh_ok || !options_ok || order < 0 || order > 2 ||
+      stride < min_stride(origins || tin, sh_k) ||
       (tin != nullptr) != (chunk_base != nullptr) ||
       (quad && (!origins || blocks)) ||
       (tin && (blocks || order == 2 || (order == 0 && (!origins || quad)))) ||
@@ -63,7 +76,8 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
            (float*)t_final, (float*)tin, (const int*)chunk_base, (const float*)origins,
            (const float*)t_lo_arr, (const float*)t_hi_arr, (const float*)t0,
            (const int*)blocks, block_sub, stride, full_range, t_lo, t_hi, min_t, t_skip,
-           alpha_min, alpha_clamp, hit_multiplicity, quad != 0};
+           alpha_min, alpha_clamp, hit_multiplicity, quad != 0, peak != 0, scan != 0, group,
+           a_fire, repair, (int*)stats};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)dispatch(p, sh_k, chunk, order, n_tiles, rays_per_tile, s, nullptr);
 }
@@ -79,6 +93,7 @@ extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int trai
   using namespace k1;
   static float dummy[4];
   Params p{};
+  p.group = rays_per_tile;
   p.origins = resp ? dummy : nullptr;
   p.quad = resp == 2;
   p.tin = train ? dummy : nullptr;

@@ -35,18 +35,38 @@
 //      (sure_miss, against a per-row threshold computed once per chunk)
 //      stops before the division and the exp, any other miss at alpha,
 //      before the sqrt and the second division of the event t. It keeps the
-//      significant (a > 0) ones, in stream order, in local memory: event t,
-//      alpha, source index (9 bytes each, none for a miss), and records
-//      whether it sees an inversion among them, plus its significant
-//      event-t range; __syncthreads_or decides the window-sort fire for the
-//      whole tile, block min/max the t range;
+//      significant (a > 0) ones, in stream order, in local memory: order
+//      key (the event t, or t* under the peak key), alpha, source index (9
+//      bytes each, none for a miss), and records whether it sees an
+//      inversion among them, plus its significant key range;
+//      __syncthreads_or decides the window-sort fire for the whole tile,
+//      block min/max the key range;
 //   3. pass 2 reads the significant candidates only: an unfired chunk
 //      composites them in stream order with float32 colours; a fired chunk
 //      insertion-sorts (key tq16 << 15 | a15, source index) in place of the
-//      event times (the depth-presorted stream is nearly ordered, so few
+//      order keys (the depth-presorted stream is nearly ordered, so few
 //      shifts) and composites that list with decoded alphas and each
 //      colour through the 3x10-bit pack, as the TPU kernel's sorted payload
 //      does (pallas_march.py:832).
+//   The render options (Params; pallas_march.py:775-796, 858-937):
+//   sort_lane_groups makes the fire vote (group_or: a warp vote, then the
+//   group's warps in shared memory) and the key range (group_reduce) per
+//   group of 128 rays, 4 warps, where the TPU's lane groups are its
+//   128-lane vregs; the chunk skip stays tile-wide. sort_alpha_min counts
+//   only candidates with a > a_fire in the inversion test and its running
+//   max. Its span repair: pass 1 also keeps i1, the last significant
+//   candidate below that running max; a reverse walk of the list gives i0,
+//   the first above the least key after it; both are reduced over the
+//   group, and where i1 - i0 < w a fired chunk insertion-sorts only the run
+//   of the list whose sources lie in [min(i0, C - w), + w), the rest in
+//   stream order. With a_fire 0 the band covers every out-of-place
+//   candidate, so the whole list is sorted (the same order) and the band is
+//   only computed for `stats`: per tile, the most fired and repaired chunks
+//   of any group, JAX's stats=True. All threads reach every barrier: the
+//   group reductions run when any group of the block fired. The peak key
+//   orders by t*, and on full-range rays of the quad response takes key
+//   order's sqrt-free gate (window and merge order); composite_scan
+//   (Composite) multiplies the running product in sequence, in every order.
 //   The 256-ray build runs two blocks per SM (blocks_per_sm), so that
 //   the stored candidates of their rays stay in L1.
 // Window order with saved carries (the training forward, pallas_march.py:
@@ -54,7 +74,9 @@
 // is min_transmittance, and a fired chunk lists its significant candidates
 // by the unique key (tq16 << 8) | src (with the compact index for src: the
 // same order), with each candidate's EXACT alpha and the 10-bit colour
-// pack; no span repair. The backward
+// pack; the render options are off (one fire group, every significant
+// candidate in the test, no span repair, the log form), the peak key not.
+// The backward
 // (csrc/march_bwd.cuh) replays the same order from the same arithmetic.
 //
 // Colour (pallas_march.py:640-669). SH degree 0 reads the colour
@@ -291,22 +313,56 @@ struct Params {
   float t_lo, t_hi, min_t, t_skip, alpha_min, alpha_clamp;
   int hm;
   int quad;               // with origins: the per-ray-origin quad response
+  // window_key "peak": window and merge order key on t*, and on full-range
+  // rays of the quad response take the sqrt-free gate (saved carries too)
+  int peak;
+  int scan;               // composite_scan: the product-form composite (render only)
+  int group;              // rays per fire group, window order: R, or 128 (sort_lane_groups)
+  float a_fire;           // sort_alpha_min: the fire test's candidates have a > a_fire
+  int repair;             // sort_repair's band width w, 0 < w < C (render), else 0
+  int* stats;             // (T, 2) fired and repaired chunks per tile, or null (render)
 };
 
-__device__ __forceinline__ float block_reduce(float v, bool take_max, float* red) {
-  // All threads of the block must call this; returns the reduction to all.
+// The reduction of v over this thread's fire group, the gw warps from warp
+// w0 = warp - warp % gw, in warp order (gw = blockDim.x / 32: the block,
+// block_reduce). All threads of the block must call this.
+__device__ __forceinline__ float group_reduce(float v, bool take_max, float* red, int gw) {
   for (int o = 16; o > 0; o >>= 1) {
     float u = __shfl_xor_sync(0xffffffffu, v, o);
     v = take_max ? fmaxf(v, u) : fminf(v, u);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
   __syncthreads();  // red[] may still be read by a previous reduction
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  v = red[0];
-  for (int w = 1; w < n_warps; ++w) v = take_max ? fmaxf(v, red[w]) : fminf(v, red[w]);
+  const int w0 = warp - warp % gw;
+  v = red[w0];
+  for (int w = w0 + 1; w < w0 + gw; ++w) v = take_max ? fmaxf(v, red[w]) : fminf(v, red[w]);
   return v;
+}
+
+// All threads of the block must call this; returns the reduction to all.
+__device__ __forceinline__ float block_reduce(float v, bool take_max, float* red) {
+  return group_reduce(v, take_max, red, blockDim.x >> 5);
+}
+
+// The fire vote of fire groups of gw warps: whether any thread of this
+// thread's group has `inv` (group), and, returned, whether any thread of
+// the block has. All threads of the block must call this.
+__device__ __forceinline__ bool group_or(bool inv, float* red, int gw, bool& group) {
+  const bool warp_any = __any_sync(0xffffffffu, inv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[warp] = warp_any ? 1.f : 0.f;
+  __syncthreads();
+  const int w0 = warp - warp % gw;
+  bool any = false;
+  group = false;
+  for (int w = 0; w < n_warps; ++w) {
+    any |= red[w] != 0.f;
+    if (w >= w0 && w < w0 + gw) group |= red[w] != 0.f;
+  }
+  return any;
 }
 
 __device__ __forceinline__ uint32_t pack_color(float r, float g, float b) {
@@ -435,10 +491,12 @@ __device__ __forceinline__ float miss_threshold(float op, float alpha_min) {
   return 2.f * logf(op / alpha_min) + 1e-4f;
 }
 
-// Quad response (shared origin): event t and gated effective alpha.
-// fast_gate: key order on a full-range ray, the sqrt-free gate
-// alpha > alpha_min & (t* >= t_lo | q(t_lo) < 0); else the exact
-// entry/exit event gate t_lo <= t_event <= t_hi. kMiss: first the sure-miss
+// Quad response (shared origin): order key and gated effective alpha.
+// fast_gate: key order, or window and merge order under the peak key, on a
+// full-range ray: the sqrt-free gate alpha > alpha_min & (t* >= t_lo |
+// q(t_lo) < 0), key t* (pallas_march.py:561-569); else the exact entry/exit
+// event gate t_lo <= t_event <= t_hi, key t_event, or t* with `peak`
+// (pallas_march.py:672-675). kMiss: first the sure-miss
 // test against the row's threshold thr (kDead: a dead ray too, whose a is 0
 // whatever the row, so that it never holds its warp on the full path).
 // Then alpha: a candidate at or below alpha_min (most of them) or a dead
@@ -453,7 +511,8 @@ __device__ __forceinline__ float miss_threshold(float op, float alpha_min) {
 // ops/march._origin_quad sums it. Never on the fast gate (not full range).
 template <bool kMiss, bool kDead, bool kOrig = false>
 __device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const float* f,
-                                          bool fast_gate, float thr, float& t_ev, float& a) {
+                                          bool fast_gate, bool peak, float thr, float& t_ev,
+                                          float& a) {
   const float dd = f[1] * ray.m0 + f[2] * ray.m1 + f[3] * ray.m2 + f[4] * ray.m3 +
                    f[5] * ray.m4 + f[6] * ray.m5;
   float od, cq, oo;
@@ -494,17 +553,19 @@ __device__ __forceinline__ void eval_quad(const Params& p, const Ray& ray, const
     // disc >= 0 is implied by alpha > alpha_min (the radius is the
     // alpha_min iso-surface), so this gate drops it, as on the TPU
     gate = t_ev >= ray.t_lo && t_ev <= ray.t_hi;
+    if (peak) t_ev = t_star;
   }
   if (gate) a = effective_alpha(alpha, p.hm);
 }
 
 // Scalar response in the canonical frame from a staged scalar row, per ray
-// origin; always the exact event gate, with disc >= 0; the sure-miss test
-// (kMiss, where dd >= 1e-6; kDead as in eval_quad) and alpha first, as in
-// eval_quad.
+// origin; always the exact event gate, with disc >= 0, on full-range rays
+// too (pallas_march.py:586-633 has no fast gate); the order key t_event, or
+// t* with `peak`; the sure-miss test (kMiss, where dd >= 1e-6; kDead as in
+// eval_quad) and alpha first, as in eval_quad.
 template <bool kMiss, bool kDead>
 __device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, const float* f,
-                                            float thr, float& t_ev, float& a) {
+                                            bool peak, float thr, float& t_ev, float& a) {
   const float* m = f + kMat;
   const float ox = ray.ox - f[kMean], oy = ray.oy - f[kMean + 1], oz = ray.oz - f[kMean + 2];
   const float ogx = m[0] * ox + m[1] * oy + m[2] * oz;
@@ -533,26 +594,33 @@ __device__ __forceinline__ void eval_scalar(const Params& p, const Ray& ray, con
   const float t_exit = (-od + sq) * inv_dd;
   t_ev = t_entry < ray.t_lo ? t_exit : t_entry;
   if (disc >= 0.f && t_ev >= ray.t_lo && t_ev <= ray.t_hi) a = effective_alpha(alpha, p.hm);
+  if (peak) t_ev = t_star;
 }
 
 template <int kR, bool kMiss = false, bool kDead = false>
 __device__ __forceinline__ void evaluate(const Params& p, const Ray& ray, const float* f,
-                                         bool fast_gate, float& t_ev, float& a,
+                                         bool fast_gate, bool peak, float& t_ev, float& a,
                                          float thr = 0.f) {
   if (kR == kScalar)
-    eval_scalar<kMiss, kDead>(p, ray, f, thr, t_ev, a);
+    eval_scalar<kMiss, kDead>(p, ray, f, peak, thr, t_ev, a);
   else
-    eval_quad<kMiss, kDead, kR == kOriginQuad>(p, ray, f, fast_gate, thr, t_ev, a);
+    eval_quad<kMiss, kDead, kR == kOriginQuad>(p, ray, f, fast_gate, peak, thr, t_ev, a);
 }
 
-// Front-to-back composite of one chunk's ordered candidates.
+// Front-to-back composite of one chunk's ordered candidates: p_excl = t0
+// exp(s), s the running sum of log1p(-a), or with `scan` (composite_scan,
+// render only; pallas_march.py:276-290) p_excl = t0 s, s the running
+// product of (1 - a). The TPU takes that product as a log2(c) doubling tree
+// over the chunk (_prefix_prod_excl); here one thread per ray multiplies in
+// sequence, so the two round differently by a few ulps.
 struct Composite {
   float t0, s, frozen, r, g, b;
-  bool below;
-  __device__ explicit Composite(float t_carry)
-      : t0(t_carry), s(0.f), frozen(0.f), r(0.f), g(0.f), b(0.f), below(false) {}
+  bool below, scan;
+  __device__ explicit Composite(float t_carry, bool product = false)
+      : t0(t_carry), s(product ? 1.f : 0.f), frozen(0.f), r(0.f), g(0.f), b(0.f),
+        below(false), scan(product) {}
   __device__ __forceinline__ void add(float a, float cr, float cg, float cb, float min_t) {
-    const float p_excl = t0 * expf(s);
+    const float p_excl = scan ? t0 * s : t0 * expf(s);
     const float w = p_excl > min_t ? a * p_excl : 0.f;
     r += w * cr;
     g += w * cg;
@@ -562,9 +630,14 @@ struct Composite {
       frozen = below ? fmaxf(frozen, p_incl) : p_incl;
       below = true;
     }
-    s += log1pf(-a);
+    if (scan)
+      s = s * (1.f - a);
+    else
+      s += log1pf(-a);
   }
-  __device__ __forceinline__ float t_next() const { return below ? frozen : t0 * expf(s); }
+  __device__ __forceinline__ float t_next() const {
+    return below ? frozen : scan ? t0 * s : t0 * expf(s);
+  }
 };
 
 // Composite one candidate whose colour rides the 3x10-bit pack.
@@ -765,6 +838,16 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
   uint32_t keys[C];
   float sa[C];
   uint8_t si[C];
+  // the render options (window_options; neutral with saved carries): fire
+  // groups of gw warps, the fire test's alpha, the repair band's width and
+  // whether it is computed (its sorted window taken only with a_fire > 0,
+  // where it differs from the whole list; its count with stats)
+  const int gw = (kTrain ? R : p.group) >> 5;
+  const float a_fire = kTrain ? 0.f : p.a_fire;
+  const int rw = kTrain ? 0 : p.repair;
+  const bool band = rw > 0 && (a_fire > 0.f || p.stats);
+  const bool peak = p.peak != 0, fast_gate = peak && p.full_range != 0;
+  int n_fired = 0, n_repaired = 0;  // this thread's fire group's chunks (stats)
 
   if (kStages == 2 && n_chunks > 0) stage_async<C, kR, K, kTrain>(sf, p, start, 0, min(C, n));
   bool skipped = false;  // block-uniform; T never changes once skipped
@@ -781,18 +864,23 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     const float* buf = stage_chunk<C, kR, K, kTrain, kStages>(sf, thr, p, start, j, n, ob);
 
     // pass 1: every candidate once (a miss stops at alpha); the significant
-    // ones (a > 0) are kept in stream order in local memory: event t (in
+    // ones (a > 0) are kept in stream order in local memory: order key (in
     // keys[], which the sorted list later overwrites from the front), alpha
-    // and source index; the inversion test and the significant t range
+    // and source index; the inversion test over the candidates with a >
+    // a_fire (every significant one at a_fire 0), the last significant
+    // candidate below their running max (i1, the band's right end) and the
+    // significant key range
     bool inv = false;
     float rmax = -INFINITY, lo = INFINITY, hi = -INFINITY;
-    int ns = 0;
+    int ns = 0, i1 = -1;
     for (int i = 0; i < m; ++i) {
       float t_ev, a;
-      evaluate<kR, true>(p, ray, buf + i * W, false, t_ev, a, thr[i]);
+      evaluate<kR, true>(p, ray, buf + i * W, fast_gate, peak, t_ev, a, thr[i]);
       if (a > 0.f) {
-        inv |= t_ev < rmax;
-        rmax = fmaxf(rmax, t_ev);
+        const bool below = t_ev < rmax;
+        inv |= below && a > a_fire;
+        if (below) i1 = i;
+        if (a > a_fire) rmax = fmaxf(rmax, t_ev);
         lo = fminf(lo, t_ev);
         hi = fmaxf(hi, t_ev);
         keys[ns] = __float_as_uint(t_ev);
@@ -800,11 +888,41 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
         si[ns++] = (uint8_t)i;
       }
     }
-    const bool fired = __syncthreads_or(inv);
+    // the fire decision of this thread's group, and whether any group fired
+    // (block-uniform: it decides who takes the group reductions below)
+    bool fired, any;
+    if (gw == (R >> 5)) {
+      fired = any = __syncthreads_or(inv);
+    } else {
+      any = group_or(inv, red, gw, fired);
+    }
+    bool fit = false;  // the repair band fits: i1 - i0 < w over the group
+    int ws = 0;        // the band's window [ws, ws + w)
+    if (any) {
+      lo = group_reduce(lo, false, red, gw);
+      hi = group_reduce(hi, true, red, gw);
+      if (band) {
+        // i0: the first significant candidate whose key lies above the
+        // least key after it (pallas_march.py:866-871)
+        int i0 = C;
+        float smin = INFINITY;
+        for (int k = ns - 1; k >= 0; --k) {
+          const float t = __uint_as_float(keys[k]);
+          if (t > smin) i0 = si[k];
+          smin = fminf(smin, t);
+        }
+        const int g0 = (int)group_reduce((float)i0, false, red, gw);
+        const int g1 = (int)group_reduce((float)i1, true, red, gw);
+        fit = g1 - g0 < rw;
+        ws = min(g0, C - rw);
+      }
+    }
+    n_fired += fired;
+    n_repaired += fired && fit;
 
     // pass 2, over the significant candidates only: composited in stream
     // order with float32 colours (no fire), or listed in sorted order
-    Composite comp(T);
+    Composite comp(T, !kTrain && p.scan);
     float cr, cg, cb;
     if (!fired) {
       for (int k = 0; k < ns; ++k) {
@@ -812,11 +930,18 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
         comp.add(sa[k], cr, cg, cb, p.min_t);
       }
     } else {
-      lo = block_reduce(lo, false, red);
-      hi = block_reduce(hi, true, red);
       const float scale = 65534.f / fmaxf(hi - lo, 1e-20f);
+      // the sorted run [k0, k1) of the list: all of it, or with a_fire > 0
+      // and a fitting band the candidates of the window [ws, ws + w), a
+      // contiguous run of the list (pallas_march.py:876-893); the others
+      // keep their stream places, keys and packs
+      int k0 = 0, k1 = ns;
+      if (a_fire > 0.f && fit) {
+        while (k0 < ns && si[k0] < ws) ++k0;
+        for (k1 = k0; k1 < ns && si[k1] < ws + rw;) ++k1;
+      }
       for (int k = 0; k < ns; ++k) {
-        // entry k's event t, read before the list grows to k entries
+        // entry k's order key, read before the list grows to k entries
         const float t_ev = __uint_as_float(keys[k]);
         const uint8_t i = si[k];
         const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - lo) * scale, 0.f), 65534.f);
@@ -828,11 +953,12 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
             kTrain ? (tq << 8) | (uint32_t)k
                    : (tq << 15) | (uint32_t)fminf(fmaxf(sa[k] * 32767.f, 0.f), 32767.f);
         int pos = k;
-        while (pos > 0 && keys[pos - 1] > key) {  // stable: ties keep stream order
-          keys[pos] = keys[pos - 1];
-          if (!kTrain) si[pos] = si[pos - 1];
-          --pos;
-        }
+        if (k < k1)
+          while (pos > k0 && keys[pos - 1] > key) {  // stable: ties keep stream order
+            keys[pos] = keys[pos - 1];
+            if (!kTrain) si[pos] = si[pos - 1];
+            --pos;
+          }
         keys[pos] = key;
         if (!kTrain) si[pos] = i;
       }
@@ -851,6 +977,14 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     acc_b += comp.b;
   }
   cp_async_wait<0>();  // a skipped tile's prefetch
+  if (!kTrain && p.stats) {  // per tile, the most chunks any fire group sorted (JAX's max)
+    const float f = block_reduce((float)n_fired, true, red);
+    const float r = block_reduce((float)n_repaired, true, red);
+    if (tid == 0) {
+      p.stats[2 * tile] = (int)f;
+      p.stats[2 * tile + 1] = (int)r;
+    }
+  }
 
   store_ray(p, acc_r, acc_g, acc_b, T);
 }
@@ -901,11 +1035,11 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kKeyMinBlocks : 1)
     // per-ray origins (bounced rays, of which most are retired, and the
     // rolling shutter) so does any candidate of a dead ray, which would
     // otherwise hold its warp on the full path
-    Composite comp(T);
+    Composite comp(T, !kTrain && p.scan);
     for (int i = 0; i < m; ++i) {
       const float* f = buf + i * W;
       float t_ev, a, cr, cg, cb;
-      evaluate<kR, true, kR != kQuad>(p, ray, f, fast_gate, t_ev, a, thr[i]);
+      evaluate<kR, true, kR != kQuad>(p, ray, f, fast_gate, false, t_ev, a, thr[i]);
       if (!(a > 0.f)) continue;
       row_color<kR == kScalar, K>(f + kCol, basis, cr, cg, cb);
       comp.add(a, cr, cg, cb, p.min_t);
@@ -972,6 +1106,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
   int cur = 0;
   bool fresh = true;  // block-uniform: no chunk marched yet, so the pending buffer is C empties
   int32_t pend_max = INT32_MIN;  // largest key of a significant pending slot
+  const bool peak = p.peak != 0, fast_gate = peak && p.full_range != 0;
   float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   for (int j = 0; j * C < n; ++j) {
     // tile-wide chunk skip (T never changes once every ray is below it)
@@ -990,7 +1125,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
     uint32_t word = 0;
     for (int i = 0; i < C; ++i) {
       float t_ev, a = 0.f;
-      if (i < m) evaluate<kR, true>(p, ray, sf + i * W, false, t_ev, a, thr[i]);
+      if (i < m) evaluate<kR, true>(p, ray, sf + i * W, fast_gate, peak, t_ev, a, thr[i]);
       int32_t k;
       if (a > 0.f) {
         const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
@@ -1022,7 +1157,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
     }
     const bool fast = __syncthreads_and(!inv && new_min >= pend_max);
 
-    Composite comp(T);
+    Composite comp(T, p.scan);
     if (fast) {  // the pending buffer composites; the chunk (sorted) replaces it
       if (!fresh) composite_pending(comp, cur);
       cur = nx;
@@ -1093,7 +1228,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
     acc_b += comp.b;
   }
 
-  Composite comp(T);  // flush the pending buffer
+  Composite comp(T, p.scan);  // flush the pending buffer
   if (!fresh) composite_pending(comp, cur);
   const float t_next = comp.t_next();
   T = T > p.min_t ? t_next : T;

@@ -27,14 +27,16 @@ static cudaError_t dispatch(const k3::Params& p, int sh_k, bool window, int chun
 // window: 0 key order, 1 window order (the training sort replay). sh_k:
 // SH coefficients per channel, K = 1, 4, 9 or 16. stride: floats per
 // training row, at least 29 + 3K (32 at SH 0). origins (T, R, 3), t_lo_arr
-// and t_hi_arr (T, R) may each be null: the eye, t_lo and t_hi.
+// and t_hi_arr (T, R) may each be null: the eye, t_lo and t_hi. peak:
+// window_key "peak", the window replay's order key t*.
 extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const void* rows,
                              const void* dirs, const void* eye, const void* tin,
                              const void* d_rgb, const void* d_tfinal, void* d_rows,
                              const void* origins, const void* t_lo_arr, const void* t_hi_arr,
                              int n_tiles, int rays_per_tile, int chunk, int stride, int window,
                              int sh_k, float t_lo, float t_hi, float min_t, float alpha_min,
-                             float alpha_clamp, int hit_multiplicity, void* stream) {
+                             float alpha_clamp, int hit_multiplicity, int peak,
+                             void* stream) {
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
       stride < (sh_k == 1 ? 32 : 29 + 3 * sh_k) || hit_multiplicity < 1 ||
       stride % 4 != 0 || ((uintptr_t)rows & 15) != 0)  // rows are staged in 16-byte copies
@@ -45,7 +47,7 @@ extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const v
            (const float*)eye, (const float*)tin, (const float*)d_rgb, (const float*)d_tfinal,
            (float*)d_rows, (const float*)origins, (const float*)t_lo_arr,
            (const float*)t_hi_arr, stride, t_lo, t_hi, min_t, alpha_min, alpha_clamp,
-           hit_multiplicity};
+           hit_multiplicity, peak != 0};
   cudaStream_t s = (cudaStream_t)stream;
   const bool w = window != 0;
   return (int)dispatch(p, sh_k, w, chunk, n_tiles, rays_per_tile, s, nullptr);
@@ -65,7 +67,9 @@ extern "C" int grt_march_bwd_info(int chunk, int window, int sh_k, int origins,
   return (int)dispatch(p, sh_k, window != 0, chunk, 0, rays_per_tile, nullptr, out);
 }
 
-// Version of the C interface: 2 since grt_march takes `quad` (the
-// per-ray-origin quad response) and grt_march_bwd per-ray origins and
-// windows; a library without this function is version 1.
-extern "C" int grt_interface_version() { return 2; }
+// Version of the C interface: 3 since grt_march takes the peak key, the
+// window-order render options and stats, and grt_march_bwd the peak key; 2
+// since grt_march took `quad` (the per-ray-origin quad response) and
+// grt_march_bwd per-ray origins and windows; a library without this
+// function is version 1.
+extern "C" int grt_interface_version() { return 3; }

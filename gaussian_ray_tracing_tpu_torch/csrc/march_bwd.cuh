@@ -34,7 +34,8 @@
 //   3'. window order (the replay, pallas_march.py:1343-1425): pass A
 //      evaluates every candidate once, with the operations K1 used (event
 //      t, alpha, gate), sets the mask bit of a significant (a > 0) one and
-//      keeps its a, colour pack and event t in compact local lists, in
+//      keeps its a, colour pack and order key (the event t, or t* under
+//      window_key "peak", :1343-1360) in compact local lists, in
 //      stream order (12 bytes per significant candidate, none for a miss),
 //      and repeats K1's tile-wide fire test; a fired chunk sorts its
 //      significant candidates by the unique key (tq16 << 8) | k, the compact
@@ -152,6 +153,7 @@ struct Params {
   int stride;
   float t_lo, t_hi, min_t, alpha_min, alpha_clamp;
   int hm;
+  int peak;               // window_key "peak": the window replay's order key is t*
 };
 
 __device__ __forceinline__ float ipow(float x, int k) {
@@ -223,12 +225,14 @@ struct RayB {
 
 // Per-(ray, candidate) forward recompute, scalar form (pallas_march.py:1291-1331),
 // with the operations of K1's eval_scalar (csrc/march.cuh), so that the
-// window replay sees K1's event t and alpha bit for bit. As there, alpha
+// window replay sees K1's event t, t* and alpha bit for bit. As there, alpha
 // comes first and a miss (alpha at or below alpha_min, or a dead ray) stops
-// with the gate closed, a = 0 and t_ev 0, which nothing reads. kOrig: o - mu,
-// o_g and oo from the ray's own origin (per pair), else the candidate's.
+// with the gate closed, a = 0 and t_ev 0, which nothing reads. The gate is
+// the event gate under either order key (JAX's backward has no fast gate,
+// pallas_march.py:1290-1340). kOrig: o - mu, o_g and oo from the ray's own
+// origin (per pair), else the candidate's.
 struct Eval {
-  float ox, oy, oz, ogx, ogy, ogz, dgx, dgy, dgz, od, dd_s, pp, resp, alpha, a, t_ev;
+  float ox, oy, oz, ogx, ogy, ogz, dgx, dgy, dgz, od, dd_s, pp, resp, alpha, a, t_ev, t_star;
   bool gate;
 };
 
@@ -261,6 +265,7 @@ __device__ __forceinline__ Eval evaluate(const Params& p, const Cand& c, const R
   e.od = e.ogx * e.dgx + e.ogy * e.dgy + e.ogz * e.dgz;
   e.dd_s = fmaxf(dd, 1e-6f);
   const float t_star = -e.od / e.dd_s;
+  e.t_star = t_star;
   e.pp = oo + t_star * (2.f * e.od + t_star * dd);
   e.resp = expf(-0.5f * fmaxf(e.pp, 0.f));
   e.alpha = fminf(p.alpha_clamp, e.resp * c.op);
@@ -406,14 +411,15 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? 2 : 1) march_bwd_kernel(
           const Cand c = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
           const Eval e = evaluate<kOrig>(p, c, rb);
           if (!(e.a > 0.f)) continue;
+          const float t_key = p.peak ? e.t_star : e.t_ev;  // the forward's order key
           bits |= 1u << b;
-          inv |= e.t_ev < rmax;
-          rmax = fmaxf(rmax, e.t_ev);
-          lo = fminf(lo, e.t_ev);
-          hi = fmaxf(hi, e.t_ev);
+          inv |= t_key < rmax;
+          rmax = fmaxf(rmax, t_key);
+          lo = fminf(lo, t_key);
+          hi = fmaxf(hi, t_key);
           ca[ns] = e.a;
           cc[ns] = color_pack<K>(c, basis);
-          keys[ns++] = __float_as_uint(e.t_ev);
+          keys[ns++] = __float_as_uint(t_key);
         }
         push_word(mask, bits);
       }

@@ -29,7 +29,9 @@ march loops where JAX scans and maps; it gathers a tile chunk's rows
 when it marches the chunk (not the whole frame's up front); and a tile
 chunk marches only up to its fullest tile's last candidate (the empty
 chunks after it change neither colour nor transmittance).
-`order="oddeven"` and `window_key="peak"` are refused (config.py).
+Under `window_key="peak"` window order sorts by t* in place of the event
+t, with the event gate, as the JAX tiled march does (its tiled.py:199).
+`order="oddeven"` is refused (config.py).
 """
 
 from __future__ import annotations
@@ -253,7 +255,8 @@ def _march_step(t_carry, racc, gacc, bacc, ids, gf: dict, rays: dict, eye, confi
     if config.order == "window":
         # per-ray stable sort of the chunk by exact event t; weights are
         # computed in sorted order and scattered back to candidate order
-        perm = torch.argsort(torch.where(valid, t_event, math.inf), dim=-1, stable=True)
+        order_t = t_star.detach() if config.window_key == "peak" else t_event
+        perm = torch.argsort(torch.where(valid, order_t, math.inf), dim=-1, stable=True)
         a_s = torch.gather(a, -1, perm)
         p_incl = torch.cumprod(1.0 - a_s, dim=-1) * t0
         p_excl = torch.cat([t0, p_incl[..., :-1]], dim=-1)

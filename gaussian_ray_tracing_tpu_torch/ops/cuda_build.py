@@ -95,13 +95,50 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
-class _InterfaceV1:
-    """A library built from sources older than grt_interface_version (an
-    earlier commit's csrc, for A/B runs against it), called with this
-    tree's argument lists: grt_march without `quad` (argument 27),
-    grt_march_bwd without origins, t_lo and t_hi (arguments 9-11) and
-    grt_march_bwd_info without `origins` (argument 3), which the
-    shared-origin calls pass as 0 and null; the per-ray-origin modes raise."""
+class _InterfaceV2:
+    """A library of C interface version 2 (an earlier commit's csrc, for A/B
+    runs against it), called with this tree's argument lists: grt_march
+    without peak, scan, group, a_fire, repair and stats (arguments 28-33)
+    and grt_march_bwd without peak (argument 24). The default options pass
+    0, rays_per_tile, 0.0, sort_repair and null there, which that build
+    runs as they are (it sorts a fired chunk whole, which sort_repair's band
+    reproduces at a_fire 0); any other option raises."""
+
+    def __init__(self, lib, info: bool):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, ci, vp]
+        lib.grt_march_bwd.argtypes = [vp] * 12 + [ci] * 6 + [cf] * 5 + [ci, vp]
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def grt_march(self, *a):
+        peak, scan, group, a_fire, _, stats = a[28:34]
+        if peak or scan or group != a[14] or a_fire or stats is not None:
+            raise ValueError("this kernel build has no peak key, window-order render options "
+                             "or stats")
+        return self._march(*a[:28], a[34])
+
+    def grt_march_bwd(self, *a):
+        if a[24]:
+            raise ValueError("this kernel build's K3 has no peak key")
+        return self._march_bwd(*a[:24], a[25])
+
+    def _march(self, *a):  # version 2's argument list
+        return self._lib.grt_march(*a)
+
+    def _march_bwd(self, *a):
+        return self._lib.grt_march_bwd(*a)
+
+
+class _InterfaceV1(_InterfaceV2):
+    """A library built from sources older than grt_interface_version, called
+    as _InterfaceV2 calls a version 2 one, and besides without `quad`
+    (grt_march's argument 27), grt_march_bwd's origins, t_lo and t_hi
+    (arguments 9-11) and grt_march_bwd_info's `origins` (argument 3), which
+    the shared-origin calls pass as 0 and null; the per-ray-origin modes
+    raise."""
 
     def __init__(self, lib, info: bool):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -111,15 +148,12 @@ class _InterfaceV1:
             lib.grt_march_bwd_info.argtypes = [ci] * 4 + [vp]
         self._lib = lib
 
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-    def grt_march(self, *a):
+    def _march(self, *a):
         if a[27]:
             raise ValueError("this kernel build has no per-ray-origin quad response")
         return self._lib.grt_march(*a[:27], a[28])
 
-    def grt_march_bwd(self, *a):
+    def _march_bwd(self, *a):
         if any(x is not None for x in a[9:12]):
             raise ValueError("this kernel build's K3 takes no per-ray origins or windows")
         return self._lib.grt_march_bwd(*a[:9], *a[12:])
@@ -139,12 +173,12 @@ def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     """Declare the C entry points of a loaded kernel library (`info`: also
     the launch queries grt_march_info, grt_march_bwd_info,
     grt_closest_hit_info and grt_scan_info). A library built from an
-    earlier commit's sources, without grt_interface_version, comes back
-    behind _InterfaceV1."""
+    earlier commit's sources comes back behind _InterfaceV2 (interface
+    version 2) or _InterfaceV1 (no grt_interface_version)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci, ci, ci, vp]
+    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci] * 6 + [cf, ci, vp, vp]
     lib.grt_march.restype = ci
-    lib.grt_march_bwd.argtypes = [vp] * 12 + [ci] * 6 + [cf] * 5 + [ci, vp]
+    lib.grt_march_bwd.argtypes = [vp] * 12 + [ci] * 6 + [cf] * 5 + [ci, ci, vp]
     lib.grt_march_bwd.restype = ci
     if info:
         lib.grt_march_info.argtypes = [ci] * 6 + [vp]
@@ -163,7 +197,10 @@ def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     lib.grt_scan_scratch_bytes.restype = ctypes.c_longlong
     lib.grt_error_string.argtypes = [ci]
     lib.grt_error_string.restype = ctypes.c_char_p
-    return lib if hasattr(lib, "grt_interface_version") else _InterfaceV1(lib, info)
+    version = lib.grt_interface_version() if hasattr(lib, "grt_interface_version") else 1
+    if version >= 3:
+        return lib
+    return (_InterfaceV2 if version == 2 else _InterfaceV1)(lib, info)
 
 
 def load_library() -> ctypes.CDLL:

@@ -26,14 +26,27 @@ candidates, with these per-tile (not per-ray) decisions, as on the TPU:
     min_transmittance) for a render and min_transmittance for the training
     forward (padded rays of a partial tile keep T = 1, so such tiles never
     skip);
-  - window-sort fire (window order): if ANY ray of the tile sees a
-    significant (a > 0) candidate whose event t is below the running max
-    of the significant ones before it, every ray of the tile composites
-    that chunk in sorted order of the key tq16 << 15 | a15, where tq16
-    quantizes t over the tile-wide [min, max] of significant event t,
-    a15 = a*32767, alpha is decoded from the key and colours ride as
-    3x10-bit packs over [0, 4), one per (ray, candidate); otherwise the
-    chunk composites in stream order with exact values;
+  - window-sort fire (window order): if ANY ray of the fire group sees a
+    significant (a > 0) candidate whose order key is below the running
+    max of the keys of the significant ones before it, every ray of the
+    group composites that chunk in sorted order of the key tq16 << 15 |
+    a15, where tq16 quantizes the key over the group's [min, max] of
+    significant keys, a15 = a*32767, alpha is decoded from the key and
+    colours ride as 3x10-bit packs over [0, 4), one per (ray, candidate);
+    otherwise the chunk composites in stream order with exact values. The
+    fire group is the tile, or under config.sort_lane_groups each 128
+    rays of a tile of more than 128 (pallas_march.py:775-779, 909-965);
+    the chunk skip stays tile-wide. With config.sort_alpha_min > 0 the
+    fire test, its running max included, only counts candidates with a >
+    sort_alpha_min (:925-937), and where 0 < sort_repair = w < chunk and
+    the group's band fits (i1 - i0 < w: i1 the last significant candidate
+    below that running max, i0 the first above the least significant key
+    after it, both over the group) only the candidates of the window
+    [min(i0, chunk - w), + w) are sorted; the others keep their stream
+    places, every candidate still through the pack (:858-893). At
+    sort_alpha_min 0 the band covers every out-of-place candidate, so the
+    whole list is sorted, the same order (the band is still counted for
+    the stats);
   - merge step (merge order, pallas_march.py:352-363, 677-742, 974-982):
     each tile keeps a pending buffer of c (key, alpha, colour pack) slots
     per ray, empty slots INT32_MIN with alpha 0. A candidate's key is kb =
@@ -58,7 +71,16 @@ turn onto 0.5 (K = (deg+1)^2), with the basis of ops/sh.sh_basis_list at
 the ray's direction. The TPU kernel's default `sh_mxu` path (bf16 hi/lo
 MXU splits of the same sum, ~4e-6 relative) is TPU layout and not ported.
 
+Order key (config.window_key, pallas_march.py:552-575, 672-675): the
+event t, or under "peak" t* = -od/dd, the peak response's t, in window
+and merge order (key order reads neither). On full-range rays of the quad
+response the peak key takes key order's sqrt-free gate; every other march
+(segments, per-ray origins, block mode, the scalar response) keeps the
+event gate and only orders by t*.
+
 Compositing per chunk: p_excl = T * exp(exclusive prefix of log1p(-a)),
+or under config.composite_scan (render only, every order) T * the
+exclusive running product of (1 - a), multiplied in sequence;
 w = a * p_excl * (p_excl > minT); the next T is the max of the
 {p_incl <= minT} set when it is non-empty (the first candidate to cross
 the threshold freezes it), else the whole-chunk product; T only advances
@@ -80,7 +102,9 @@ response from per-ray origins (`origins_t`, each the eye on the primary
 render; JAX's quad=False, pallas_renderer.py:234-238) with the training
 key: a fired chunk sorts its significant candidates by the unique key
 (tq16 << 8) | src and composites them with the EXACT alpha and the
-3x10-bit colours (pallas_march.py:833-842); no span repair. Either order
+3x10-bit colours (pallas_march.py:833-842). The render-only options
+(composite_scan, sort_lane_groups, sort_alpha_min, sort_repair) are
+ignored there, as on the TPU; the peak key is not. Either order
 takes per-ray windows t_lo / t_hi and a carry-in t0 (the saved carry of
 chunk 0 is then t0); no block list.
 
@@ -280,8 +304,14 @@ def march_stream(starts, pair_feats, dirs_t, config: RenderConfig, chunk: int,
     return march(starts, rows, dirs_t, config, chunk, save_tin=save_tin)
 
 
-def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, seg=None):
+def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, seg=None,
+                stats=False):
     seg = seg or {}
+    if stats and save_tin:
+        raise ValueError("stats are the render's window-order telemetry; save_tin returns "
+                         "the carries instead (pallas_march.py:1168-1185)")
+    if config.window_key not in ("event", "peak"):
+        raise NotImplementedError(f"window_key {config.window_key!r} is not ported")
     origins, quad = seg.get("origins_t"), seg.get("quad", False)
     if chunk not in CHUNKS:
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
@@ -337,25 +367,29 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
 
 def march(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool = False, *,
           origins_t=None, t_lo=None, t_hi=None, t0=None, blocks=None, block_sub: int = 1,
-          quad: bool = False):
+          quad: bool = False, stats: bool = False):
     """Kernel K1 wrapper on quad, scalar or (save_tin, or the per-ray-origin
     quad response: origins_t with quad=True) training rows (see module
     docstring).
 
     CUDA tensors launch csrc/march.cu; CPU tensors run march_plain.
     Returns (rgb (T, R, 3), t_final (T, R)) and, with save_tin, also (tin
-    (sum of chunks, R), chunk_base (T+1,) int32).
+    (sum of chunks, R), chunk_base (T+1,) int32), or with stats (render
+    only) also (fired (T,), repaired (T,)) int32: per tile, the most
+    chunks any of its fire groups sorted, and sorted by the span repair's
+    band (window order; zeros in the others), JAX's stats=True telemetry
+    (pallas_march.py:1174-1185).
     """
     seg = dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
                block_sub=block_sub, quad=quad)
-    _check_args(starts, feats, dirs_t, config, chunk, save_tin, seg)
+    _check_args(starts, feats, dirs_t, config, chunk, save_tin, seg, stats)
     if dirs_t.device.type == "cpu":
-        return march_plain(starts, feats, dirs_t, config, chunk, save_tin, **seg)
+        return march_plain(starts, feats, dirs_t, config, chunk, save_tin, **seg, stats=stats)
     if dirs_t.device.type != "cuda":
         raise ValueError(f"no march for device {dirs_t.device}")
     seg = {k: v.contiguous() if torch.is_tensor(v) else v for k, v in seg.items()}
     return _march_cuda(starts.contiguous(), feats.contiguous(), dirs_t.contiguous(), config,
-                       chunk, save_tin, **seg)
+                       chunk, save_tin, **seg, stats=stats)
 
 
 def _full_range(origins_t, t_lo, t_hi, blocks) -> bool:
@@ -365,7 +399,7 @@ def _full_range(origins_t, t_lo, t_hi, blocks) -> bool:
 
 
 def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: bool,
-                origins_t, t_lo, t_hi, t0, blocks, block_sub, quad):
+                origins_t, t_lo, t_hi, t0, blocks, block_sub, quad, stats):
     from gaussian_ray_tracing_tpu_torch.ops.cuda_build import check, load_library
 
     lib = load_library()
@@ -375,10 +409,13 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
     dev = dirs_t.device
     rgb = torch.empty((T, R, 3), dtype=_F32, device=dev)
     t_final = torch.empty((T, R), dtype=_F32, device=dev)
-    tin = chunk_base = None
+    tin = chunk_base = counts = None
     if save_tin:
         chunk_base = chunk_bases(starts, chunk)
         tin = torch.empty((int(chunk_base[-1]), R), dtype=_F32, device=dev)
+    if stats:
+        counts = torch.zeros((T, 2), dtype=torch.int32, device=dev)
+    opts = window_options(config, R, chunk, save_tin)
     ptr = lambda x: None if x is None else x.data_ptr()
     if T > 0:
         with torch.cuda.device(dev):
@@ -391,7 +428,9 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
                 int(_full_range(origins_t, t_lo, t_hi, blocks)),
                 config.t_min, config.t_max, config.min_transmittance,
                 _skip_threshold(config, save_tin), config.alpha_min, config.alpha_clamp,
-                config.hit_multiplicity, num_coeffs(config.sh_degree), int(quad), stream,
+                config.hit_multiplicity, num_coeffs(config.sh_degree), int(quad),
+                int(config.window_key == "peak"), int(opts["scan"]), opts["group"],
+                opts["a_fire"], opts["repair"], ptr(counts), stream,
             )
         check(err, "grt_march")
         march.launches += 1
@@ -422,7 +461,17 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
                 march.sh_key_launches += 1
             elif config.order == "window":
                 march.sh_launches += 1
-    return (rgb, t_final, tin, chunk_base) if save_tin else (rgb, t_final)
+        for attr, on in (("peak_launches", config.window_key == "peak" and not key),
+                         ("scan_launches", opts["scan"]),
+                         ("group_launches", config.order == "window" and opts["group"] < R),
+                         ("fire_alpha_launches", config.order == "window" and opts["a_fire"] > 0)):
+            if on:
+                setattr(march, attr, getattr(march, attr) + 1)
+    if save_tin:
+        return rgb, t_final, tin, chunk_base
+    if stats:
+        return rgb, t_final, tuple(counts.unbind(-1))
+    return rgb, t_final
 
 
 march.launches = 0  # every K1 launch
@@ -441,6 +490,11 @@ march.sh_launches = 0  # SH degree 1-3, window order (no saved carries)
 march.sh_key_launches = 0  # SH degree 1-3, key order (no saved carries)
 march.merge_launches = 0  # merge order, every mode and SH degree
 march.merge_block_launches = 0  # merge order in block mode (bounced rays)
+# the window-order render options (window_options) and the peak key
+march.peak_launches = 0  # window_key "peak" in window or merge order (saved carries too)
+march.scan_launches = 0  # composite_scan's product form (render, any order)
+march.group_launches = 0  # sort_lane_groups: fire groups of 128 rays (window order)
+march.fire_alpha_launches = 0  # sort_alpha_min > 0 (window order)
 
 
 # --- plain torch version ---------------------------------------------------
@@ -456,18 +510,30 @@ def _unpack_colors(cp):
     return [unq((cp >> 20) & 1023), unq((cp >> 10) & 1023), unq(cp & 1023)]
 
 
-def _composite(t_carry, a, cols, min_t: float):
+def _composite(t_carry, a, cols, min_t: float, scan: bool = False):
     """Front-to-back composite of ordered (B, c, R) alphas from carry-in
-    t_carry (B, 1, R). Returns (rgb_part (B, R, 3), t_next (B, R))."""
-    logp = torch.log1p(-a)
-    s_incl = torch.cumsum(logp, dim=1)
-    s_excl = torch.cat([torch.zeros_like(s_incl[:, :1]), s_incl[:, :-1]], dim=1)
-    p_excl = t_carry * torch.exp(s_excl)
-    p_incl = p_excl * (1.0 - a)
+    t_carry (B, 1, R). Returns (rgb_part (B, R, 3), t_next (B, R)).
+    scan (config.composite_scan, render only): the product form
+    (pallas_march.py:276-290), p_excl = t_carry * P with P the running
+    product of (1 - a) over the earlier candidates and the last P for the
+    whole chunk, multiplied in sequence (torch.cumprod), as K1 does; else
+    exp of the running sum of log1p(-a)."""
+    if scan:
+        one_m = 1.0 - a
+        prod = torch.cumprod(one_m, dim=1)
+        p_excl = t_carry * torch.cat([torch.ones_like(prod[:, :1]), prod[:, :-1]], dim=1)
+        p_incl = p_excl * one_m
+        p_last = t_carry[:, 0] * prod[:, -1]
+    else:
+        logp = torch.log1p(-a)
+        s_incl = torch.cumsum(logp, dim=1)
+        s_excl = torch.cat([torch.zeros_like(s_incl[:, :1]), s_incl[:, :-1]], dim=1)
+        p_excl = t_carry * torch.exp(s_excl)
+        p_incl = p_excl * (1.0 - a)
+        p_last = t_carry[:, 0] * torch.exp(logp.sum(dim=1))
     w = a * p_excl * (p_excl > min_t)
     below = p_incl <= min_t
     frozen = torch.where(below, p_incl, float("-inf")).amax(dim=1)
-    p_last = t_carry[:, 0] * torch.exp(logp.sum(dim=1))
     t_next = torch.where(below.any(dim=1), frozen, p_last)
     rgb_part = torch.stack([(w * col).sum(dim=1) for col in cols], dim=-1)
     return rgb_part, t_next
@@ -549,18 +615,22 @@ def _quad_alpha(f, rays, present, config: RenderConfig):
     resp = torch.exp(-0.5 * torch.clamp(pp, min=0.0))
     alpha = torch.clamp(resp * col(_OP), max=config.alpha_clamp)
     t_lo, live = rays["t_lo"], rays["live"]
-    if config.order == "key" and rays["full_range"]:
+    peak = config.window_key == "peak"
+    if rays["full_range"] and (config.order == "key" or peak):
         # sqrt-free full-range gate: the convex q(t) = |o_g + t d_g|^2 -
-        # rad^2 is negative somewhere in [t_lo, inf)
+        # rad^2 is negative somewhere in [t_lo, inf); its order key is t*
+        # (pallas_march.py:561-569)
         q_lo = cq + t_lo * (2.0 * od + t_lo * dd)
         gate = present & live & (alpha > config.alpha_min) \
             & ((t_star >= t_lo) | (q_lo < 0.0))
-        t_ev = None
+        t_ev = t_star
     else:
         t_ev, in_window, _ = _event_gate(od, dd, cq, t_lo, rays["t_hi"])
         # disc >= 0 is implied by alpha > alpha_min (the adaptive radius is
         # the alpha_min iso-surface), so the gate drops it, as on the TPU
         gate = present & in_window & live & (alpha > config.alpha_min)
+        if peak:  # the event gate, the order key t* (pallas_march.py:672-675)
+            t_ev = t_star
     if rays["basis"] is None:
         cols = [col(_RGB0 + ch) for ch in range(3)]
     else:
@@ -587,6 +657,10 @@ def _scalar_alpha(f, rays, present, config: RenderConfig):
     rad = col(T_RAD)
     t_ev, in_window, disc = _event_gate(od, dd, oo - rad * rad, rays["t_lo"], rays["t_hi"])
     gate = present & (disc >= 0.0) & in_window & rays["live"] & (alpha > config.alpha_min)
+    if config.window_key == "peak":
+        # the order key t*; the scalar response keeps the event gate on every
+        # march, full-range or not (pallas_march.py:586-633 has no fast gate)
+        t_ev = t_star
     if rays["basis"] is None:
         cols = [torch.clamp(0.5 + SH_C0 * col(T_SH0 + ch), min=0.0) for ch in range(3)]
     else:
@@ -626,12 +700,14 @@ def _chunk_rows(tb, j, starts, c, n_rows, blocks, block_sub):
 
 
 def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, block_sub,
-                 train: bool, pend):
+                 train: bool, pend, opts: dict, groups):
     """March chunk j of tiles `tb` (in place on trans/rgb, and in merge
-    order on the pending buffers `pend`). Returns the number of significant
-    (a > 0) (ray, candidate) pairs, whose colour the march evaluates, the
-    number of these tiles whose chunk fired (window order) and the number
-    whose tile-wide fast test failed (merge order)."""
+    order on the pending buffers `pend`; in window order adds each fire
+    group's fired and repaired chunk to groups (T, G, 2)). Returns the
+    number of significant (a > 0) (ray, candidate) pairs, whose colour the
+    march evaluates, the number of these tiles whose chunk fired in some
+    fire group (window order) and the number whose tile-wide fast test
+    failed (merge order)."""
     idx, present = _chunk_rows(tb, j, starts, c, feats.shape[0], blocks, block_sub)
     f = feats[idx]  # (B, c, row)
     # per-ray lists and tensors are cut to the batch
@@ -639,37 +715,57 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
                else v[tb][:, None] if torch.is_tensor(v) else v) for k, v in rays.items()}
     alpha_fn = _quad_alpha if rays["quad"] else _scalar_alpha
     a, t_ev, cols = alpha_fn(f, sub, present, config)
-    min_t = config.min_transmittance
+    min_t, scan = config.min_transmittance, opts["scan"]
     t_carry = trans[tb][:, None]  # (B, 1, R)
     fired = slow = 0
     if config.order == "key":
-        part, t_next = _composite(t_carry, a, cols, min_t)
+        part, t_next = _composite(t_carry, a, cols, min_t, scan)
     elif config.order == "merge":
         part, t_next, new, slow = _merge_composite(t_carry, a, t_ev, cols,
-                                                   [x[tb] for x in pend], min_t)
+                                                   [x[tb] for x in pend], min_t, scan)
         for x, y in zip(pend, new):
             x[tb] = y
     else:
-        part, t_next, fired = _window_composite(t_carry, a, t_ev, cols, min_t, train)
+        part, t_next, g_fired, g_rep = _window_composite(t_carry, a, t_ev, cols, min_t, train,
+                                                         opts)
+        groups[tb] += torch.stack([g_fired, g_rep], dim=-1).to(groups.dtype)
+        fired = int(g_fired.any(dim=1).sum())
     tc = trans[tb]
     trans[tb] = torch.where(tc > min_t, t_next, tc)
     rgb[tb] += part
     return (a > 0.0).sum(), fired, slow
 
 
-def window_fire(a, t_ev):
-    """(B,) bool: the tile-wide window-sort fire test of (B, c, R) alphas
-    and event t: a significant candidate below the exclusive running max of
-    the significant event t before it."""
-    sig = a > 0.0
+def window_options(config: RenderConfig, rays: int, chunk: int, save_tin: bool) -> dict:
+    """The window-order options of a K1 call, at their neutral values under
+    saved carries, where JAX ignores them (pallas_march.py:775-796, 925-930):
+    group, the rays of a fire group (128 under sort_lane_groups where the
+    tile holds more than one whole group, else the tile); a_fire, the alpha
+    the fire test's candidates must exceed (sort_alpha_min); repair, the
+    span-repair width (sort_repair where 0 < sort_repair < chunk, else 0);
+    scan, composite_scan's product form (every order)."""
+    lanes = config.sort_lane_groups and not save_tin and rays % 128 == 0 and rays > 128
+    return dict(
+        group=128 if lanes else rays,
+        a_fire=float(config.sort_alpha_min) if config.sort_alpha_min > 0 and not save_tin
+        else 0.0,
+        repair=config.sort_repair if not save_tin and 0 < config.sort_repair < chunk else 0,
+        scan=bool(config.composite_scan) and not save_tin)
+
+
+def window_fire(a, t_ev, a_fire: float = 0.0):
+    """(B,) bool: the window-sort fire test of (B, c, R) alphas and order
+    keys over each fire group's rays: a candidate with a > a_fire below the
+    exclusive running max of the order keys of those before it."""
+    sig = a > a_fire
     run = torch.cummax(torch.where(sig, t_ev, float("-inf")), dim=1).values
     rmax = torch.cat([torch.full_like(run[:, :1], float("-inf")), run[:, :-1]], 1)
     return (sig & (t_ev < rmax)).flatten(1).any(dim=1)
 
 
 def window_tq(a, t_ev):
-    """(B, c, R) int32 tq16: event t quantized over each tile's [min, max]
-    of significant event t (B, 1, 1)."""
+    """(B, c, R) int32 tq16: the order key quantized over each fire group's
+    [min, max] of significant keys (B, 1, 1)."""
     sig = a > 0.0
     inf = float("inf")
     t_lo = torch.where(sig, t_ev, inf).amin(dim=(1, 2), keepdim=True)
@@ -682,6 +778,25 @@ def window_tq(a, t_ev):
     return torch.clamp((t_ev - t_lo) * scale, 0.0, 65534.0).to(torch.int32)
 
 
+def repair_band(a, t_ev, a_fire: float, w: int):
+    """The span repair's band of (B, c, R) fire groups (pallas_march.py
+    :858-874): i1, the last candidate index where a significant key lies
+    below the running max of the keys with a > a_fire before it; i0, the
+    first where a significant key lies above the least significant key
+    after it; both over the group's rays. Returns ((B,) bool: the band fits,
+    i1 - i0 < w; (B,) the window start min(i0, c - w))."""
+    B, c, _ = a.shape
+    sig = a > 0.0
+    idx = torch.arange(c, device=a.device)[None, :, None]
+    run = torch.cummax(torch.where(a > a_fire, t_ev, float("-inf")), dim=1).values
+    rmax = torch.cat([torch.full_like(run[:, :1], float("-inf")), run[:, :-1]], 1)
+    i1 = torch.where(sig & (t_ev < rmax), idx, -1).flatten(1).amax(dim=1)
+    suffix = torch.cummin(torch.where(sig, t_ev, float("inf")).flip(1), dim=1).values.flip(1)
+    smin = torch.cat([suffix[:, 1:], torch.full_like(suffix[:, :1], float("inf"))], 1)
+    i0 = torch.where(sig & (t_ev > smin), idx, c).flatten(1).amin(dim=1)
+    return i1 - i0 < w, torch.clamp(i0, max=c - w)
+
+
 def train_sort_key(a, t_ev):
     """(B, c, R) int32 training sort key: (tq16 << 8) | src for significant
     candidates, (65535 << 8) | src for the rest, unique per ray
@@ -690,18 +805,35 @@ def train_sort_key(a, t_ev):
     return torch.where(a > 0.0, window_tq(a, t_ev) << 8, 65535 << 8) | src
 
 
-def _window_composite(t_carry, a, t_ev, cols, min_t: float, train: bool = False):
-    """Window order: stream-order composite of unfired tiles, sorted
-    composite of the tiles whose chunk fired (train: the unique training
-    key with exact alphas). Also returns the number of fired tiles."""
-    fired = window_fire(a, t_ev)  # (B,)
+def _split_groups(x, G: int):
+    """(B, c, R) -> (B G, c, R / G): each fire group as a tile of its own
+    ((B, c, 1) columns repeat)."""
+    B, c, r = x.shape
+    if r == 1:
+        return x.repeat_interleave(G, dim=0)
+    return x.reshape(B, c, G, r // G).transpose(1, 2).reshape(B * G, c, r // G)
 
-    B, _, R = a.shape
-    part = a.new_empty((B, R, 3))
-    t_next = a.new_empty((B, R))
+
+def _window_composite(t_carry, a, t_ev, cols, min_t: float, train: bool, opts: dict):
+    """Window order, per fire group (opts: window_options): stream-order
+    composite of the unfired groups, sorted composite of those whose chunk
+    fired (train: the unique training key with exact alphas; render: the
+    key tq16 << 15 | a15, the whole chunk, or with a_fire > 0 only the
+    repair band's window of candidates where the band fits). Returns
+    (rgb_part (B, R, 3), t_next (B, R), (B, G) fired and repaired)."""
+    B, c, R = a.shape
+    G = R // opts["group"]
+    scan = opts["scan"]
+    if G > 1:  # each group a tile of its own
+        t_carry, a, t_ev = (_split_groups(x, G) for x in (t_carry, a, t_ev))
+        cols = [_split_groups(x, G) for x in cols]
+    fired = window_fire(a, t_ev, opts["a_fire"])  # (B G,)
+    repaired = torch.zeros_like(fired)
+    part = a.new_empty((a.shape[0], a.shape[2], 3))
+    t_next = a.new_empty(a.shape[::2])
     nf = (~fired).nonzero().squeeze(1)
     if nf.numel():
-        part[nf], t_next[nf] = _composite(t_carry[nf], a[nf], [x[nf] for x in cols], min_t)
+        part[nf], t_next[nf] = _composite(t_carry[nf], a[nf], [x[nf] for x in cols], min_t, scan)
     fb = fired.nonzero().squeeze(1)
     if fb.numel():
         a_f, t_f = a[fb], t_ev[fb]
@@ -712,13 +844,29 @@ def _window_composite(t_carry, a, t_ev, cols, min_t: float, train: bool = False)
         else:
             aq = torch.clamp(a_f * 32767.0, 0.0, 32767.0).to(torch.int32)
             key = torch.where(a_f > 0.0, (window_tq(a_f, t_f) << 15) | aq, _ZBASE)
-            key_s, perm = torch.sort(key, dim=1, stable=True)
+            order = key
+            w = opts["repair"]
+            if w:
+                ok, ws = repair_band(a_f, t_f, opts["a_fire"], w)
+                repaired[fb] = ok
+                if opts["a_fire"] > 0.0:
+                    # sort the window [ws, ws + w) alone; the candidates
+                    # before and after it keep their stream places
+                    idx = torch.arange(c, device=a.device)[None, :, None]
+                    lo = ws[:, None, None]
+                    inwin = (idx >= lo) & (idx < lo + w)
+                    part_of = torch.where(idx < lo, 0, torch.where(inwin, 1, 2)).long()
+                    band = (part_of << 40) | torch.where(inwin, key, idx).long()
+                    order = torch.where(ok[:, None, None], band, key.long())
+            _, perm = torch.sort(order, dim=1, stable=True)
+            key_s = torch.gather(key, 1, perm)
             a_s = torch.where(key_s >= _ZBASE, 0.0,
                               (key_s & 32767).to(_F32) * (1.0 / 32767.0))
         cp = _pack_colors([x[fb] for x in cols]).expand(-1, -1, perm.shape[2])
         cp_s = torch.gather(cp, 1, perm)
-        part[fb], t_next[fb] = _composite(t_carry[fb], a_s, _unpack_colors(cp_s), min_t)
-    return part, t_next, fb.numel()
+        part[fb], t_next[fb] = _composite(t_carry[fb], a_s, _unpack_colors(cp_s), min_t, scan)
+    return part.reshape(B, R, 3), t_next.reshape(B, R), fired.reshape(B, G), \
+        repaired.reshape(B, G)
 
 
 def merge_keys(a, t_ev):
@@ -736,7 +884,7 @@ def merge_keys(a, t_ev):
     return keys, kb, (sig & (kb < rmax)).flatten(1).any(dim=1)
 
 
-def _merge_composite(t_carry, a, t_ev, cols, pend, min_t: float):
+def _merge_composite(t_carry, a, t_ev, cols, pend, min_t: float, scan: bool = False):
     """Merge order, one chunk of (B, c, R) candidates against the tiles'
     pending buffers pend = [keys, alphas, colour packs] (B, c, R): the
     tile-wide fast test, then either the pending buffer as it stands or
@@ -756,13 +904,13 @@ def _merge_composite(t_carry, a, t_ev, cols, pend, min_t: float):
              torch.gather(torch.cat([pc, chunk[2]], 1), 1, perm))
     ready = [torch.where(fast, p, u[:, :c]) for p, u in zip(pend, union)]
     new = [torch.where(fast, x, u[:, c:]) for x, u in zip(chunk, union)]
-    part, t_next = _composite(t_carry, ready[1], _unpack_colors(ready[2]), min_t)
+    part, t_next = _composite(t_carry, ready[1], _unpack_colors(ready[2]), min_t, scan)
     return part, t_next, new, n_slow
 
 
 def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
                 save_tin: bool = False, *, origins_t=None, t_lo=None, t_hi=None, t0=None,
-                blocks=None, block_sub: int = 1, quad: bool = False):
+                blocks=None, block_sub: int = 1, quad: bool = False, stats: bool = False):
     """Plain torch march on any device: all tiles advance chunk by chunk,
     in batches of at most _PLAIN_BATCH (tile, candidate, ray) elements, with
     a stable per-ray torch.sort in fired chunks (window order). Records in
@@ -770,12 +918,12 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     not skip, in march_plain.chunks those (tile, chunk) pairs, in
     march_plain.significant the (ray, candidate) pairs that passed the gate,
     in march_plain.fired the (tile, chunk) pairs whose window-sort fire
-    test (window_fire) fired, in window order (0 in the others), and in
-    march_plain.slow those whose tile-wide fast test failed, in merge order
-    (0 in the others)."""
+    test (window_fire) fired in some fire group, in window order (0 in the
+    others), and in march_plain.slow those whose tile-wide fast test
+    failed, in merge order (0 in the others). stats: as march."""
     _check_args(starts, feats, dirs_t, config, chunk, save_tin,
                 dict(origins_t=origins_t, t_lo=t_lo, t_hi=t_hi, t0=t0, blocks=blocks,
-                     block_sub=block_sub, quad=quad))
+                     block_sub=block_sub, quad=quad), stats)
     T, R, _ = dirs_t.shape
     dev = dirs_t.device
     dirs = dirs_t.to(_F32)
@@ -799,6 +947,9 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         chunk_base = chunk_bases(starts, chunk)
         tin = torch.empty((int(chunk_base[-1]), R), dtype=_F32, device=dev)
     batch = max(1, _PLAIN_BATCH // (chunk * R))
+    opts = window_options(config, R, chunk, save_tin)
+    # fired and repaired chunks of each tile's fire groups (window order)
+    groups = torch.zeros((T, R // opts["group"], 2), dtype=torch.int32, device=dev)
     pend = None
     if config.order == "merge":  # empty slots: INT32_MIN keys, alpha 0
         shape = (T, chunk, R)
@@ -817,7 +968,8 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         evaluated += torch.where(active, torch.clamp(counts - j * chunk, max=chunk), 0).sum()
         for tb in active.nonzero().squeeze(1).split(batch):
             sig, n_fired, n_slow = _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config,
-                                                chunk, blocks, block_sub, save_tin, pend)
+                                                chunk, blocks, block_sub, save_tin, pend, opts,
+                                                groups)
             significant += sig
             chunks += tb.numel()
             fired += n_fired
@@ -826,7 +978,7 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
         min_t = config.min_transmittance
         for tb in torch.arange(T, device=dev).split(batch):
             part, t_next = _composite(trans[tb][:, None], pend[1][tb],
-                                      _unpack_colors(pend[2][tb]), min_t)
+                                      _unpack_colors(pend[2][tb]), min_t, opts["scan"])
             tc = trans[tb]
             trans[tb] = torch.where(tc > min_t, t_next, tc)
             rgb[tb] += part
@@ -834,6 +986,8 @@ def march_plain(starts, feats, dirs_t, config: RenderConfig, chunk: int,
     march_plain.chunks, march_plain.fired, march_plain.slow = chunks, fired, slow
     if save_tin:
         return rgb, trans, tin, chunk_base
+    if stats:
+        return rgb, trans, tuple(groups.amax(dim=1).unbind(-1))
     return rgb, trans
 
 

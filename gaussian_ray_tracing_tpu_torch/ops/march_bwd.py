@@ -24,7 +24,8 @@ d(t_final). Per chunk (pallas_march.py:1265-1535):
      pallas_march.py:1647-1653) and is kept. Otherwise the forward ran
      this very scalar form;
   3. window order only (pallas_march.py:1343-1425): replay the forward's
-     tile-wide fire test on the same event t and alphas; in a fired chunk
+     tile-wide fire test on the same order key (the event t, or t* under
+     window_key "peak") and alphas; in a fired chunk
      order the candidates by the unique training key (tq16 << 8) | src
      (ops/march.train_sort_key), else keep stream order. The sweep below
      runs in that order with the 3x10-bit colours in d_w (straight-through,
@@ -140,7 +141,7 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
             d_rows.data_ptr(), ptr(origins_t), ptr(t_lo), ptr(t_hi), T, R, chunk, rows.shape[1],
             int(config.order == "window"), num_coeffs(config.sh_degree), config.t_min,
             config.t_max, config.min_transmittance, config.alpha_min, config.alpha_clamp,
-            config.hit_multiplicity, stream,
+            config.hit_multiplicity, int(config.window_key == "peak"), stream,
         )
     check(err, "grt_march_bwd")
     march_bwd.launches += 1
@@ -150,6 +151,8 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
     setattr(march_bwd, attr, getattr(march_bwd, attr) + 1)
     if origins_t is not None:
         march_bwd.origin_launches += 1
+    if config.order == "window" and config.window_key == "peak":
+        march_bwd.peak_launches += 1
     return d_rows
 
 
@@ -159,6 +162,7 @@ march_bwd.window_launches = 0  # window order (the sort replay), SH 0
 march_bwd.sh_key_launches = 0  # key order, SH 1-3
 march_bwd.sh_launches = 0  # window order, SH 1-3
 march_bwd.origin_launches = 0  # per-ray origins, either order and any SH degree
+march_bwd.peak_launches = 0  # window order replayed on the peak key (window_key "peak")
 
 
 # --- plain torch version ---------------------------------------------------
@@ -232,11 +236,14 @@ def _chunk_bwd_plain(tb, j, starts, rows, dirs, live, basis, eye, seg, tin, chun
 
     # ---- the sweep's order: stream order, or the replayed training sort ----
     if config.order == "window":
+        # the forward's order key: t* under window_key "peak" (K3's own gate
+        # stays the event gate, pallas_march.py:1343-1360)
+        t_key = t_star if config.window_key == "peak" else t_event
         a_full = a.expand(-1, -1, dx.shape[2])
         src = torch.arange(c, dtype=torch.int32, device=dev)[None, :, None]
-        fire = window_fire(a_full, t_event)
+        fire = window_fire(a_full, t_key)
         fired = int(fire.sum())
-        _, perm = torch.sort(torch.where(fire[:, None, None], train_sort_key(a_full, t_event),
+        _, perm = torch.sort(torch.where(fire[:, None, None], train_sort_key(a_full, t_key),
                                          src), dim=1)
         a_s = torch.gather(a_full, 1, perm)
         cp = _pack_colors(clamped).expand(-1, -1, dx.shape[2])

@@ -44,20 +44,38 @@ def test_config_is_frozen_and_hashable():
     dict(tile_w=64, tile_h=32),  # 2048 rays a tile: a TPU's, more than a CUDA block's threads
     dict(order="oddeven"),
     dict(compute_dtype="bfloat16"),
-    dict(order="merge", window_key="peak"),
+    dict(pair_keys="affine"),
     dict(sh_degree=4),
     dict(tile_w=12, tile_h=12),  # 144 rays: not a multiple of 32
     dict(tile_w=4, tile_h=4),
     dict(tile_w=32, tile_h=40),
-    dict(sort_lane_groups=True),
-    dict(composite_scan=True),
-    dict(sort_alpha_min=0.05),
-    dict(window_key="peak"),
+    dict(pair_keys="tile_peak"),
+    dict(compute_dtype="float16"),
+    dict(window_key="oracle"),
+    dict(order="sorted"),
     dict(pair_keys="tile"),
 ])
 def test_unimplemented_values_raise(change):
     with pytest.raises(NotImplementedError):
         tcfg.check_supported(tcfg.RenderConfig(**change))
+
+
+@pytest.mark.parametrize("change", [
+    dict(order="merge", window_key="peak"),
+    dict(sort_lane_groups=True),
+    dict(composite_scan=True),
+    dict(sort_alpha_min=0.05),
+    dict(window_key="peak"),
+])
+def test_window_order_options_are_supported(change):
+    """K1's window-order render options and the peak key: the render, the
+    mesh tracer and the tiled march take them, and training too (the
+    render-only options are ignored there, as in JAX; merge trains as key)."""
+    cfg = tcfg.RenderConfig(**change)
+    tcfg.check_supported(cfg)
+    tcfg.check_trainable(cfg)
+    tcfg.check_mesh_supported(cfg.replace(bounce_order=cfg.order))
+    tcfg.check_tiled_supported(cfg)
 
 
 def test_defaults_and_bench_config_are_supported():

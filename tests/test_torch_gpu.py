@@ -1264,3 +1264,85 @@ def test_scan_kernel_at_the_culled_binnings_channel_counts():
         x = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device="cuda",
                           generator=g)
         assert torch.equal(tscan.multi_cumsum_i32(x), torch.cumsum(x, dim=1).to(torch.int32))
+
+
+# --- K1's window-order render options and the peak key; K3's peak replay ---
+
+OPTIONS = [
+    ("window", dict(composite_scan=True), 16), ("key", dict(composite_scan=True), 16),
+    ("merge", dict(composite_scan=True), 16), ("window", dict(sort_lane_groups=True), 16),
+    ("window", dict(sort_lane_groups=True), 32), ("window", dict(sort_alpha_min=0.05), 16),
+    ("window", dict(sort_alpha_min=0.4), 16),
+    ("window", dict(sort_alpha_min=0.05, sort_repair=0), 16),
+    ("window", dict(sort_alpha_min=0.05, sort_lane_groups=True), 32),
+    ("window", dict(window_key="peak"), 16), ("merge", dict(window_key="peak"), 16),
+    ("window", dict(window_key="peak"), 32),
+]
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("order,kw,tile", OPTIONS)
+def test_window_options_kernel_matches_plain(order, kw, tile, chunk):
+    """K1 in each option against march_plain at the K1 bars, its per-tile
+    fired and repaired chunk counts equal to the plain version's, and the
+    option's launch counter moved."""
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                        device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order, tile_w=tile,
+                       tile_h=tile, **kw)
+    stream, feats, _ = prepare_pair_stream(scene, cam, cfg, 1 << 18)
+    dirs_t = tile_rays(generate_rays(cam, cfg)[1], tile, tile)
+    counters = ("launches", "scan_launches", "group_launches", "fire_alpha_launches",
+                "peak_launches")
+    before = {c: getattr(tmarch.march, c) for c in counters}
+    got = tmarch.march(stream.starts, feats, dirs_t, cfg, chunk, stats=True)
+    torch.cuda.synchronize()
+    moved = {c for c in counters if getattr(tmarch.march, c) != before[c]}
+    assert "launches" in moved and len(moved) >= 2, moved
+    want = tmarch.march_plain(stream.starts, feats, dirs_t, cfg, chunk, stats=True)
+    _kernel_close(got[:2], want[:2])
+    for a, b in zip(got[2], want[2]):
+        assert torch.equal(a, b)
+    if order == "window":
+        assert int(got[2][0].sum()) > 0
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("degree", [0, 3])
+def test_peak_training_kernels_match_plain(degree, chunk):
+    """Under window_key "peak": K1's window saved carries and K3's replay
+    against their plain versions (carries 1e-4; per written column 1e-3, M
+    2e-3, within 1.25x of the plain version's distance from float64), K3
+    bit-identical over two launches, and the carries other than the event
+    key's."""
+    cfg, starts, rows, dirs_t, eye = _train_stream(chunk, "window", degree)
+    cfg = cfg.replace(window_key="peak")
+    kw = {"origins_t": eye.expand(dirs_t.shape).contiguous()}
+    got = tmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True, **kw)
+    event = tmarch.march(starts, rows, dirs_t, cfg.replace(window_key="event"), chunk,
+                         save_tin=True, **kw)
+    torch.cuda.synchronize()
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, chunk, save_tin=True, **kw)
+    _kernel_close(got[:2], want[:2])
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+    assert not torch.equal(got[2], event[2])
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(dirs_t.shape[:2], generator=g, device="cuda")
+    args = (starts, rows, dirs_t, eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
+    before = tbwd.march_bwd.peak_launches
+    a, b = tbwd.march_bwd(*args), tbwd.march_bwd(*args)
+    torch.cuda.synchronize()
+    assert tbwd.march_bwd.peak_launches == before + 2 and torch.equal(a, b)
+    want = tbwd.march_bwd_plain(*args)
+    witness = tbwd.march_bwd_plain(*(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                                     else x for x in args))
+    for i, c in enumerate(tmarch.train_columns(degree)):
+        if c not in tmarch.diff_columns(degree):
+            assert not a[:, i].any(), i
+            continue
+        bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+        assert float((a[:, i] - want[:, i]).abs().max() / want[:, i].abs().max()) <= bar, i
+        k64, p64 = ((x[:, i] - witness[:, i]).abs().max() for x in (a, want))
+        assert float(k64) <= 1.25 * float(p64), i
