@@ -44,7 +44,13 @@ version) and the binning's pair culls (conic_cull, row_span and both on
 the 720p / 100k headline, fisheye_cull on fisheye_768 and on the fisheye
 glass_front frame: drop-free subsets of the uncut streams, key order
 within 5e-4 of the uncut image, window order on the goldens; K2 at their
-channel counts), times each against the
+channel counts), K1's window-order options and the peak key, the
+per-pair sort keys, oddeven and bfloat16 (the headline under pair_keys
+"tile", "tile_peak" and "affine" in window, key and merge order and
+under order="oddeven", each key's stream holding the default's pairs,
+K1 against its plain version on each, the affine fills' K2 launch bit
+for bit, tile-key training's K1 saved carries and K3; the tiled march
+under oddeven and bfloat16), times each against the
 plain path, profiles the 720p/100k, fisheye and SH 3 frames and the window
 and key SH 3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
 SH 3, and --order merge) and `cli fit`, and finally writes the
@@ -252,6 +258,7 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
 
     plain = kmarch.march_plain if kernel == "march" else kbwd.march_bwd_plain
     R, K, order = rays, (cfg.sh_degree + 1) ** 2, cfg.order
+    kname = "key" if order == "oddeven" else order  # oddeven runs the key kernel
     info = cuda_build.launch_info(kernel, chunk, cfg.sh_degree, R, order=order, scalar=scalar,
                                   train=train, quad=quad)
     b = lambda x: f"Lb{int(x)}E"
@@ -259,9 +266,9 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     build = f"Li{256 if R <= 256 else 1024}E"  # kMaxR
     if kernel == "march_bwd":
         name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}{b(scalar)}{build}"
-    elif order == "window":
+    elif kname == "window":
         name = f"12march_kernelILi{chunk}E{resp}Li{K}E{b(train)}{build}"
-    elif order == "key":
+    elif kname == "key":
         name = f"16march_key_kernelILi{chunk}E{resp}Li{K}E{b(train)}{build}"
     else:
         name = f"18march_merge_kernelILi{chunk}E{resp}Li{K}E{build}"
@@ -339,6 +346,20 @@ def tri_design(args, kw) -> dict:
            "spill_load_bytes": ld}
     log("design", f"K4, {listed} listed blocks, the kernel's counts: {json.dumps(out)}")
     return out
+
+
+def turns(fns: dict, reps: int = 10, device: bool = True) -> dict:
+    """{name: (median event ms, device ms)} of each fn, called in turns a,
+    b, b, a, reps times each; the device ms (with `device`) the profiler's
+    for one call of each, else None."""
+    ms = {k: [] for k in fns}
+    names = list(fns)
+    for name in names + names[::-1]:
+        fns[name]()
+        ms[name] += cuda_ms(fns[name], reps)
+    dev_ms = {k: profile_frames(f, frames=5, top=1, host=False)["device_ms"]
+              for k, f in fns.items()} if device else {}
+    return {k: (statistics.median(v), dev_ms.get(k)) for k, v in ms.items()}
 
 
 def k1_check(phase: str, what: str, args, kw=None) -> float:
@@ -858,6 +879,7 @@ def main() -> None:
     log("phase", f"per-ray origins in {time.perf_counter() - t_phase:.1f} s")
     wide_rows = wide_tile_phase(dev, card, scene, poses[0], views, init)
     option_rows = window_options_phase(dev, card, scene, poses[0], golden, views, init)
+    pair_rows = pair_keys_phase(dev, card, scene, poses[0], golden, views, init)
     parallel_rows = parallel_phase(dev, card, scene, poses[0], golden, views, init)
 
 
@@ -1117,6 +1139,7 @@ def main() -> None:
         *origin_rows,
         *wide_rows,
         *option_rows,
+        *pair_rows,
         *merge_rows,
         *meshcam_rows,
     ]}), flush=True)
@@ -2981,18 +3004,6 @@ def window_options_phase(dev, card: str, scene, pose, golden, views, init) -> li
             streams[key] = (stream.starts, feats, dirs_t, n_pairs)
         return streams[key]
 
-    def turns(fns: dict, reps: int = 10) -> dict:
-        """Median event ms of each fn in turns a, b, b, a, and the profiler's
-        device ms of one call of each."""
-        ms = {k: [] for k in fns}
-        names = list(fns)
-        for name in names + names[::-1]:
-            fns[name]()
-            ms[name] += cuda_ms(fns[name], reps)
-        dev_ms = {k: profile_frames(f, frames=5, top=1, host=False)["device_ms"]
-                  for k, f in fns.items()}
-        return {k: (statistics.median(v), dev_ms[k]) for k, v in ms.items()}
-
     for name, (cfg, attr, bar) in cases.items():
         starts, feats, dirs_t, n_pairs = stream_for(cfg)
         chunk = kmarch.chunk_for(cfg)
@@ -3101,6 +3112,297 @@ def window_options_phase(dev, card: str, scene, pose, golden, views, init) -> li
                  **k3_design})
     log("phase", f"window-order options and the peak key in "
                  f"{time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def pair_keys_phase(dev, card: str, scene, pose, golden, views, init) -> list:
+    """The per-pair sort keys, order="oddeven" and compute_dtype="bfloat16"
+    at full width. The main path, each count zeroed just before and read
+    just after: the 1280x720 headline (`scene` = random_scene(100k, seed 0)
+    at `pose`, bench config) through render(method="gpu") under pair_keys
+    "tile", "tile_peak" and "affine", each in window, key and merge order
+    (K1; the affine binning's head fills are one K2 launch a frame), and
+    under order="oddeven" (K1's key kernel on the exact event gate); then
+    Trainer(method="gpu").fit, 3 steps at 512x512 on `init` (random_scene
+    (50k, seed 1)) under pair_keys="tile" in window and key order (K1 saved
+    carries, K3); the tiled march at 256x256 under oddeven and bfloat16.
+    Then each key's stream against the default's (the same n_pairs and
+    starts, no drop, each tile's set of gaussian ids equal: the footprints
+    are the same and nothing is culled, only the order differs), K1 against
+    march_plain on each key's stream in each order and on the oddeven
+    headline (the K1 bars; the rays where oddeven's frame differs from key
+    order's counted), the affine fills' K2 launch bit for bit against the
+    plain scan on its own input, K1 event and device ms and the binning's
+    host ms in turns with the default's, the 720p golden under each key,
+    and the tile-key training's K1 saved carries and K3 against their plain
+    versions. Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        prepare_pair_stream, prepare_train_stream, snug_pair_capacity,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.ops import scan as kscan
+    from gaussian_ray_tracing_tpu_torch.ops.tiles import count_pairs
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    t_phase = time.perf_counter()
+    bench = RenderConfig(**BENCH_KW)
+    keys, orders = ("tile", "tile_peak", "affine"), ("window", "key", "merge")
+
+    # --- the main path, each count zeroed just before ---
+    launches, frames = {}, {}
+    for key in keys:
+        for order in orders:
+            cfg = bench.replace(pair_keys=key, order=order)
+            kmarch.march.launches = kscan.multi_cumsum_i32.launches = 0
+            out = render(scene, pose, cfg, method="gpu", return_aux=True)
+            torch.cuda.synchronize()
+            launches[key, order] = (kmarch.march.launches, kscan.multi_cumsum_i32.launches)
+            check(launches[key, order][0] == 1, f"pair keys {key} {order}: K1 launches "
+                                                f"{launches[key, order][0]}")
+            check(launches[key, order][1] == (key == "affine"),
+                  f"pair keys {key} {order}: K2 launches {launches[key, order][1]}")
+            rgb = out["rgb"]
+            check(tuple(rgb.shape) == (720, 1280, 3) and bool(torch.isfinite(rgb).all())
+                  and float(rgb.max()) > 0.1, f"pair keys {key} {order}: bad frame")
+            check(out["aux"]["n_dropped"] == 0, f"pair keys {key} {order}: pairs dropped")
+            frames[key, order] = rgb
+    odd_cfg = bench.replace(order="oddeven")
+    kmarch.march.oddeven_launches = 0
+    odd_frame = render(scene, pose, odd_cfg, method="gpu")["rgb"]
+    torch.cuda.synchronize()
+    odd_launches = kmarch.march.oddeven_launches
+    check(odd_launches == 1 and bool(torch.isfinite(odd_frame).all()),
+          f"oddeven: K1 launches {odd_launches}")
+    train_launches, train_losses, trainers = {}, {}, {}
+    for order, attr in (("window", "window_save_tin_launches"), ("key", "save_tin_launches")):
+        cfg = RenderConfig(hit_multiplicity=1, order=order, pair_keys="tile",
+                           march_chunk=128 if order == "window" else 256)
+        setattr(kmarch.march, attr, 0)
+        kbwd.march_bwd.launches = 0
+        trainers[order] = ktrain.Trainer(GaussianModel.from_scene(init), config=cfg, lr=2e-3,
+                                         method="gpu")
+        train_losses[order] = trainers[order].fit([views[0]], steps=3)
+        torch.cuda.synchronize()
+        train_launches[order] = (getattr(kmarch.march, attr), kbwd.march_bwd.launches)
+        check(train_launches[order] == (3, 3),
+              f"tile-key training {order}: K1 save_tin / K3 launches {train_launches[order]}")
+        check(all(np.isfinite(train_losses[order])), f"tile-key training {order}: bad losses")
+    cam256 = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=256,
+                                   height=256, device=dev)
+    tiled = {name: render(scene, cam256, bench.replace(**kw), method="tiled")["rgb"]
+             for name, kw in (("window", {}), ("oddeven", dict(order="oddeven")),
+                              ("bfloat16", dict(compute_dtype="bfloat16")))}
+    for name, rgb in tiled.items():
+        check(tuple(rgb.shape) == (256, 256, 3) and bool(torch.isfinite(rgb).all()),
+              f"tiled {name}: bad frame")
+    tiled_db = {n: psnr(tiled[n].cpu().numpy(), tiled["window"].cpu().numpy())
+                for n in ("oddeven", "bfloat16")}
+    log("pairkeys", f"main path: 9 pair-key frames and an oddeven frame 1280x720 100k, "
+                    f"launches (K1, K2) {json.dumps({f'{k} {o}': v for (k, o), v in launches.items()})}, "
+                    f"oddeven K1 {odd_launches}; tile-key training 3 steps 512x512 50k "
+                    f"{json.dumps({o: [l[0], l[-1]] for o, l in train_losses.items()})} launches "
+                    f"{train_launches}; tiled 256x256 vs window: oddeven {tiled_db['oddeven']:.2f} "
+                    f"dB, bfloat16 {tiled_db['bfloat16']:.2f} dB")
+
+    # --- each key's stream against the default's; K1 against plain ---
+    dirs_t = tile_rays(cameras.generate_rays(pose, bench)[1], 16, 16)
+    N = scene.num_gaussians
+
+    def pairs_of(stream, n_pairs):
+        """Sorted (tile, gaussian id) codes of the stream's pairs."""
+        slot = torch.arange(n_pairs, device=dev)
+        tile = torch.searchsorted(stream.starts, slot.to(torch.int32), right=True) - 1
+        gid = stream.gid[:n_pairs].long()
+        ids = gid if stream.order is None else stream.order[gid].long()
+        return torch.sort(tile.long() * N + ids).values
+
+    cap = snug_pair_capacity(int(count_pairs(scene, pose, bench)))  # the main path's
+
+    def binning(cfg):
+        return prepare_pair_stream(scene, pose, cfg, cap)
+
+    base_stream, base_feats, base_pairs = binning(bench)
+    base_codes = pairs_of(base_stream, base_pairs)
+    streams, k1_err, k1_args = {}, {}, {}
+    for key in keys:
+        stream, feats, n_pairs = binning(bench.replace(pair_keys=key))
+        check(n_pairs == base_pairs and int(stream.n_dropped) == 0,
+              f"{key}: {n_pairs} pairs ({int(stream.n_dropped)} dropped), the default "
+              f"{base_pairs}")
+        check(torch.equal(stream.starts, base_stream.starts), f"{key}: starts differ")
+        check(torch.equal(pairs_of(stream, n_pairs), base_codes),
+              f"{key}: a tile's set of gaussians differs from the default's")
+        streams[key] = (stream, feats)
+        for order in orders:
+            cfg = bench.replace(pair_keys=key, order=order)
+            k1_args[key, order] = (stream.starts, feats, dirs_t, cfg, kmarch.chunk_for(cfg))
+            k1_err[key, order] = k1_check("K1pairkeys", f"{key} {order} 720p", k1_args[key, order])
+    odd_args = (base_stream.starts, base_feats, dirs_t, odd_cfg, 128)
+    odd_err = k1_check("K1pairkeys", "oddeven 720p", odd_args)
+    odd_out = kmarch.march(*odd_args)
+    key_out = kmarch.march(base_stream.starts, base_feats, dirs_t, bench.replace(order="key"), 128)
+    moved = ((odd_out[0] - key_out[0]).abs().amax(-1) > 0) | (odd_out[1] != key_out[1])
+    odd_moved = int(moved.sum())
+    log("pairkeys", f"streams: each key's {base_pairs} pairs, starts and per-tile gaussian "
+                    f"sets equal the default's; oddeven differs from key order on {odd_moved} "
+                    f"of {moved.numel()} rays (the exact event gate against the sqrt-free one)")
+
+    # --- the affine fills' K2 launch on its own input ---
+    recorded = []
+    scan_cuda = kscan._scan_cuda  # the wrapper's launch, which it looks up at each call
+
+    def recorder(x):
+        recorded.append(x.clone())
+        return scan_cuda(x)
+
+    kscan._scan_cuda = recorder
+    try:
+        binning(bench.replace(pair_keys="affine"))
+    finally:
+        kscan._scan_cuda = scan_cuda
+    check(len(recorded) == 1 and recorded[0].shape[0] == 4,
+          f"affine binning: {len(recorded)} scans, expected one of 4 channels")
+    x = recorded[0]
+    k2_got = [kscan.multi_cumsum_i32(x) for _ in range(2)]
+    check(all(torch.equal(g, kscan.multi_cumsum_i32_plain(x)) for g in k2_got),
+          "K2 on the affine fills differs from the plain scan")
+    k2 = {"shape": list(x.shape),
+          "ms": statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32(x), 20)),
+          "device_ms": profile_frames(lambda: kscan.multi_cumsum_i32(x), 20)["device_ms"],
+          "plain_ms": statistics.median(cuda_ms(lambda: kscan.multi_cumsum_i32_plain(x), 20)),
+          "library_ms": statistics.median(cuda_ms(lambda: torch.cumsum(x, dim=1), 20)),
+          **dict(zip(("bound_ms", "bound_by"), bound(2 * x.numel() * 4, x.numel()))),
+          **scan_design(x)}
+    log("K2", f"affine fills {tuple(x.shape)}: bit for bit the plain scan, twice; "
+              f"{json.dumps(k2)} ({card})")
+
+    # --- timings in turns against the default, the golden under each key ---
+    ref, gscene, gcam, ghm, _ = golden("pinhole_720p")
+    with torch.no_grad():
+        gold = lambda cfg: psnr(render(gscene, gcam, cfg.replace(hit_multiplicity=ghm),
+                                       method="gpu")["rgb"].cpu().numpy(), ref)
+        golden_db = {"gaussian": gold(bench), **{k: gold(bench.replace(pair_keys=k))
+                                                 for k in keys}}
+    base_args = (base_stream.starts, base_feats, dirs_t, bench, 128)
+    subs = {}
+    for key in keys:
+        args = k1_args[key, "window"]
+        t = turns({"default": lambda: kmarch.march(*base_args),
+                   "key": lambda a=args: kmarch.march(*a)})
+        tb = turns({"default": lambda: binning(bench),
+                    "key": lambda k=key: binning(bench.replace(pair_keys=k))}, reps=3,
+                   device=False)
+        t0 = time.perf_counter()
+        kmarch.march_plain(*args)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        b = march_bound(args, {}, kmarch.march_plain)
+        subs[key] = {"ms": t["key"][0], "device_ms": t["key"][1], "default_ms": t["default"][0],
+                     "default_device_ms": t["default"][1], "plain_ms": plain_ms,
+                     "bound_ms": b[0], "bound_by": b[1], "binning_ms": tb["key"][0],
+                     "default_binning_ms": tb["default"][0],
+                     "golden_psnr": golden_db[key], "default_golden_psnr": golden_db["gaussian"],
+                     "max_abs_err": {o: k1_err[key, o] for o in orders},
+                     **design("march", args[3], 128)}
+        log("pairkeys", f"{key} window: K1 {t['key'][0]:.3f} ms event, {t['key'][1]:.3f} device "
+                        f"(default {t['default'][0]:.3f} / {t['default'][1]:.3f}), bound "
+                        f"{b[0]:.4f} ({b[1]}), plain {plain_ms:.1f}; binning {tb['key'][0]:.2f} "
+                        f"ms (default {tb['default'][0]:.2f}); 720p golden {golden_db[key]:.2f} "
+                        f"dB (default {golden_db['gaussian']:.2f}) ({card})")
+    t_odd = turns({"key": lambda: kmarch.march(base_stream.starts, base_feats, dirs_t,
+                                               bench.replace(order="key"), 128),
+                   "oddeven": lambda: kmarch.march(*odd_args)})
+    t0 = time.perf_counter()
+    kmarch.march_plain(*odd_args)
+    odd_plain = (time.perf_counter() - t0) * 1e3
+    odd_bound = march_bound(odd_args, {}, kmarch.march_plain)
+    odd_design = design("march", odd_cfg, 128)
+    log("pairkeys", f"oddeven: K1 {t_odd['oddeven'][0]:.3f} ms event, {t_odd['oddeven'][1]:.3f} "
+                    f"device (key order {t_odd['key'][0]:.3f} / {t_odd['key'][1]:.3f}), bound "
+                    f"{odd_bound[0]:.4f} ({odd_bound[1]}), plain {odd_plain:.1f} ({card})")
+
+    # --- the tile-key training's K1 saved carries and K3 ---
+    cam0 = views[0][0]
+    dirs0 = tile_rays(cameras.generate_rays(cam0, bench)[1], 16, 16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_rgb = torch.randn(dirs0.shape, generator=gen, device=dev)
+    d_t = torch.randn(dirs0.shape[:2], generator=gen, device=dev)
+    train = {}
+    for order in ("window", "key"):
+        cfg = trainers[order].config
+        with torch.no_grad():
+            stream, trows, n_t = prepare_train_stream(trainers[order].model.activate(), cam0, cfg)
+        starts, trows, c = stream.starts, trows.detach().contiguous(), kmarch.chunk_for(cfg)
+        kw = {"origins_t": cam0.eye.expand(dirs0.shape).contiguous()} if order == "window" \
+            else {}
+        fwd = lambda f: f(starts, trows, dirs0, cfg, c, save_tin=True, **kw)
+        got = fwd(kmarch.march)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fwd(kmarch.march_plain)
+        k1_plain = (time.perf_counter() - t0) * 1e3
+        e1 = k1_train_check(f"tile key {order} save_tin 512x512 ({n_t} pairs)", got, want)
+        b1 = march_bound((starts, trows, dirs0, cfg, c), kw, kmarch.march_plain, tin=got[2])
+        d1 = design("march", cfg, c, scalar=order == "window", train=True)
+        bargs = (starts, trows, dirs0, cam0.eye, got[2], got[3], d_rgb, d_t, cfg, c)
+        e3 = k3_check(f"tile key {order} 512x512", bargs)
+        t0 = time.perf_counter()
+        kbwd.march_bwd_plain(*bargs)
+        k3_plain = (time.perf_counter() - t0) * 1e3
+        b3 = bwd_bound(bargs, kbwd.march_bwd_plain)
+        d3 = design("march_bwd", cfg, c)
+        t1 = turns({"k1": lambda: fwd(kmarch.march)})["k1"]
+        t3 = turns({"k3": lambda: kbwd.march_bwd(*bargs)})["k3"]
+        train[order] = (e1, t1, k1_plain, b1, d1, e3, t3, k3_plain, b3, d3)
+        log("pairkeys", f"tile key {order} training 512x512 ({n_t} pairs): K1 save_tin "
+                        f"{t1[0]:.3f} ms event, {t1[1]:.3f} device, bound {b1[0]:.4f} ({b1[1]}), "
+                        f"plain {k1_plain:.1f}; K3 {t3[0]:.3f} / {t3[1]:.3f}, bound {b3[0]:.4f} "
+                        f"({b3[1]}), plain {k3_plain:.1f} ({card})")
+    log("phase", f"pair keys, oddeven and bfloat16 in {time.perf_counter() - t_phase:.1f} s")
+
+    src = f"{PKG}/csrc"
+    k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    k3 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189"
+    tile = subs["tile"]
+    row = lambda name, source, replaces, launches, err, ms, plain_ms, b, more: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": None, **more}
+    rows = [
+        row("march_pair_keys", "march.cuh", k1, sum(v[0] for v in launches.values()),
+            max(k1_err.values()), tile["ms"], tile["plain_ms"],
+            (tile["bound_ms"], tile["bound_by"]),
+            {"device_ms": tile["device_ms"], "default_ms": tile["default_ms"],
+             "default_device_ms": tile["default_device_ms"], "keys": subs,
+             "n_pairs": base_pairs}),
+        row("march_oddeven", "march.cuh", k1, odd_launches, odd_err, t_odd["oddeven"][0],
+            odd_plain, odd_bound,
+            {"device_ms": t_odd["oddeven"][1], "key_ms": t_odd["key"][0],
+             "key_device_ms": t_odd["key"][1], "rays_unlike_key_order": odd_moved,
+             "tiled_256_psnr_vs_window": tiled_db, **odd_design}),
+        {"name": "multi_cumsum_i32_affine", "route": "cuda", "source": f"{src}/scan.cu",
+         "replaces": "gaussian_ray_tracing_tpu/ops/scan.py:81",
+         "launches": sum(v[1] for v in launches.values()), "max_abs_err": 0,
+         **{k: k2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **{k: v for k, v in k2.items() if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")}},
+    ]
+    for order in ("window", "key"):
+        e1, t1, p1, b1, d1, e3, t3, p3, b3, d3 = train[order]
+        rows.append(row(f"march_tile_key_{order}_save_tin", "march.cuh", k1,
+                        train_launches[order][0], e1, t1[0], p1, b1,
+                        {"device_ms": t1[1], **d1}))
+        rows.append(row(f"march_bwd_tile_key_{order}", "march_bwd.cuh", k3,
+                        train_launches[order][1], e3, t3[0], p3, b3, {"device_ms": t3[1], **d3}))
     return rows
 
 

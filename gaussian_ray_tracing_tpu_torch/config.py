@@ -4,7 +4,7 @@ Same fields and defaults as the JAX `RenderConfig`, so a config built for
 one package means the same render in the other. The field comments there
 carry the history of each default; they are not repeated here.
 `unsupported_fields` lists the values the ported render path does not
-implement yet, so it can refuse them instead of rendering something else;
+implement, so it can refuse them instead of rendering something else;
 `unsupported_train_fields`, `unsupported_mesh_fields` and
 `unsupported_tiled_fields` do the same for the training path, the mesh
 tracer and the tiled march.
@@ -112,23 +112,32 @@ DEFAULT_CONFIG = RenderConfig()
 MAX_RAYS_PER_TILE = 1024  # one thread per ray: a CUDA block's limit
 
 
+ORDERS = ("window", "key", "merge", "oddeven")
+PAIR_KEYS = ("gaussian", "tile", "tile_peak", "affine")
+
+
+def _float_dtype(name) -> bool:
+    dtype = getattr(torch, str(name), None)
+    return isinstance(dtype, torch.dtype) and dtype.is_floating_point
+
+
 def unsupported_fields(config: RenderConfig) -> list[str]:
-    """Values of `config` the ported primary render does not implement yet
-    (it renders pinhole, fisheye and OpenCV cameras, window, key or merge
-    order on the event or the peak key, with the window-order options
-    sort_lane_groups, sort_alpha_min and sort_repair and the composite_scan
-    product, SH degrees 0-3, on tiles of a multiple of 32 rays up to 1024:
-    the kernels run one thread per ray, where a TPU takes any multiple of
-    128, 2048 among them)."""
+    """Values of `config` the ported primary render does not implement:
+    tiles of other than a multiple of 32 rays up to 1024 (the kernels run
+    one thread per ray, where a TPU takes any multiple of 128, 2048 among
+    them), SH degrees outside 0-3, hit multiplicities below 1, and orders,
+    order keys, pair keys and compute dtypes the JAX package does not have
+    either. compute_dtype is read by the tiled march alone (any float
+    dtype); the kernel paths ignore it, as JAX's Pallas paths do."""
     rays = config.rays_per_tile
     bad = [] if rays % 32 == 0 and 32 <= rays <= MAX_RAYS_PER_TILE else \
         [f"tile_w*tile_h={config.tile_w}*{config.tile_h}"]
     checks = {
-        "order": config.order in ("window", "key", "merge"),
+        "order": config.order in ORDERS,
         "window_key": config.window_key in ("event", "peak"),
-        "pair_keys": config.pair_keys == "gaussian",
+        "pair_keys": config.pair_keys in PAIR_KEYS,
         "sh_degree": 0 <= config.sh_degree <= 3,
-        "compute_dtype": config.compute_dtype == "float32",
+        "compute_dtype": _float_dtype(config.compute_dtype),
         "hit_multiplicity": config.hit_multiplicity >= 1,
     }
     return bad + [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
@@ -136,14 +145,11 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
 
 def unsupported_tiled_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported tiled march (models/tiled.py) does not
-    implement yet: the render's, except that it marches in any float
-    compute_dtype (float64 for a witness); merge order composites in
-    stream order (key), as in the JAX tiled march."""
-    bad = unsupported_fields(config.replace(compute_dtype="float32"))
-    dtype = getattr(torch, str(config.compute_dtype), None)
-    if not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
-        bad.append(f"compute_dtype={config.compute_dtype!r}")
-    return bad
+    implement: the render's. It marches in config.compute_dtype (float64
+    for a witness, bfloat16 as JAX's does); merge order composites in
+    stream order (key) and oddeven runs window_passes odd-even passes in
+    place of the per-ray sort, as in the JAX tiled march."""
+    return unsupported_fields(config)
 
 
 def train_config(config: RenderConfig) -> RenderConfig:
@@ -162,11 +168,12 @@ def unsupported_train_fields(config: RenderConfig) -> list[str]:
 
 
 def unsupported_mesh_fields(config: RenderConfig) -> list[str]:
-    """Values of `config` the ported mesh tracer does not implement yet: on
-    top of the render's limits (it traces every camera model at SH degree
-    0-3), bounced segments march in window, key or merge order."""
+    """Values of `config` the ported mesh tracer does not implement: on top
+    of the render's limits (it traces every camera model at SH degree 0-3),
+    bounced segments march in window, key, merge or oddeven order (stream
+    order with the exact event gate, as K1 runs oddeven)."""
     bad = unsupported_fields(config)
-    if config.bounce_order not in ("window", "key", "merge"):
+    if config.bounce_order not in ORDERS:
         bad.append(f"bounce_order={config.bounce_order!r}")
     return bad
 

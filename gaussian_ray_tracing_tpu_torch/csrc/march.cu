@@ -28,7 +28,11 @@ extern "C" const char* grt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// order 0: window order; 1: key order; 2: merge order. origins non-null:
+// order 0: window order; 1: key order; 2: merge order; 3: oddeven, which
+// the key kernel runs (stream order) with the exact event gate unless
+// `peak` (JAX's kernel has no odd-even network and takes the sqrt-free gate
+// only in key order or under the peak key, pallas_march.py:560-562, 966).
+// origins non-null:
 // per-ray origins, with the scalar response, or with quad != 0 the
 // per-ray-origin quad response (on the training rows and the pair stream).
 // tin and chunk_base non-null: saved carries (the training forward, on the
@@ -37,7 +41,8 @@ extern "C" const char* grt_error_string(int err) {
 // floats per row, at least the staged quad columns, or 29 + 3K with origins
 // or saved carries, whose rows are the scalar (or training) rows. origins,
 // t_lo_arr, t_hi_arr, t0 and blocks may each be null (see Params).
-// full_range: no window, origin or block array is given. sh_k: SH
+// full_range: no window, origin or block array is given (with order 1, or
+// order 3 and peak, the sqrt-free gate). sh_k: SH
 // coefficients per channel, K = 1, 4, 9 or 16. peak: window_key "peak"
 // (window and merge order). The render options (ops/march.window_options;
 // with saved carries scan 0, group rays_per_tile, a_fire 0, repair 0 and
@@ -62,7 +67,7 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
                           (!tin || (!scan && group == rays_per_tile && a_fire == 0.f &&
                                     repair == 0 && !stats));
   if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
-      !sh_ok || !options_ok || order < 0 || order > 2 ||
+      !sh_ok || !options_ok || order < 0 || order > 3 ||
       stride < min_stride(origins || tin, sh_k) ||
       (tin != nullptr) != (chunk_base != nullptr) ||
       (quad && (!origins || blocks)) ||
@@ -75,11 +80,12 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
   Params p{(const int*)starts, (const float*)feats, (const float*)dirs, (float*)rgb,
            (float*)t_final, (float*)tin, (const int*)chunk_base, (const float*)origins,
            (const float*)t_lo_arr, (const float*)t_hi_arr, (const float*)t0,
-           (const int*)blocks, block_sub, stride, full_range, t_lo, t_hi, min_t, t_skip,
-           alpha_min, alpha_clamp, hit_multiplicity, quad != 0, peak != 0, scan != 0, group,
-           a_fire, repair, (int*)stats};
+           (const int*)blocks, block_sub, stride, full_range && (order != 3 || peak), t_lo,
+           t_hi, min_t, t_skip, alpha_min, alpha_clamp, hit_multiplicity, quad != 0, peak != 0,
+           scan != 0, group, a_fire, repair, (int*)stats};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)dispatch(p, sh_k, chunk, order, n_tiles, rays_per_tile, s, nullptr);
+  return (int)dispatch(p, sh_k, chunk, order == 3 ? 1 : order, n_tiles, rays_per_tile, s,
+                       nullptr);
 }
 
 // What a launch of grt_march with these settings would run, without
@@ -97,7 +103,8 @@ extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int trai
   p.origins = resp ? dummy : nullptr;
   p.quad = resp == 2;
   p.tin = train ? dummy : nullptr;
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024)
+  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || order < 0 ||
+      order > 3)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch(p, sh_k, chunk, order, 0, rays_per_tile, nullptr, out);
+  return (int)dispatch(p, sh_k, chunk, order == 3 ? 1 : order, 0, rays_per_tile, nullptr, out);
 }

@@ -67,9 +67,12 @@ extern "C" int grt_march_bwd_info(int chunk, int window, int sh_k, int origins,
   return (int)dispatch(p, sh_k, window != 0, chunk, 0, rays_per_tile, nullptr, out);
 }
 
-// Version of the C interface: 3 since grt_march takes the peak key, the
+// Version of the C interface: 4 since grt_march takes order 3 (oddeven: key
+// order with the exact event gate; a version 3 library refuses it with
+// cudaErrorInvalidValue and runs everything else alike); 3 since grt_march
+// takes the peak key, the
 // window-order render options and stats, and grt_march_bwd the peak key; 2
 // since grt_march took `quad` (the per-ray-origin quad response) and
 // grt_march_bwd per-ray origins and windows; a library without this
 // function is version 1.
-extern "C" int grt_interface_version() { return 3; }
+extern "C" int grt_interface_version() { return 4; }

@@ -48,7 +48,7 @@ def bin_footprints(fp, camera: Camera, config: RenderConfig, pair_capacity: int,
                    use_kernels: bool = True, tile_rows=None, geom=None):
     """Footprints (depth = the sort key) -> sorted pair stream (of the band
     of tile rows `tile_rows`, ops/tiles.bin_pairs, if given; geom = (means,
-    M9, radius) for the pinhole culls).
+    M9, radius) for the pinhole culls and the per-pair keys).
 
     pair_capacity is a floor: if the frame emits more pairs, the stream is
     rebuilt at a snug capacity, so no pair is ever dropped.
@@ -63,17 +63,19 @@ def bin_footprints(fp, camera: Camera, config: RenderConfig, pair_capacity: int,
                            use_kernel=use_kernels, tile_rows=tile_rows, geom=geom)
     if int(stream.n_dropped) != 0:
         raise RuntimeError(f"pair stream dropped {int(stream.n_dropped)} pairs")
-    # gid is in depth-rank space; the kept slots are the first starts[-1]
+    # the kept slots are the first starts[-1]; gid is in depth-rank space,
+    # or holds gaussian ids under a per-pair key (order None)
     kept = int(stream.starts[-1]) if config.conic_cull or config.fisheye_cull else n_pairs
-    return stream, stream.order[stream.gid[:kept].long()], n_pairs
+    gid = stream.gid[:kept].long()
+    return stream, gid if stream.order is None else stream.order[gid], n_pairs
 
 
 def bin_frame(scene: GaussianScene, M, radius, camera: Camera, config: RenderConfig,
               pair_capacity: int, use_kernels: bool = True):
     """Footprints and the central-ray depth key -> sorted pair stream
-    (bin_footprints, with the scene's geometry for the pinhole culls, as
-    JAX's pallas_renderer.py:75-76 bins). Returns (stream, per-pair
-    gaussian ids, n_pairs)."""
+    (bin_footprints, with the scene's geometry for the pinhole culls and
+    config.pair_keys, as JAX's pallas_renderer.py:75-76 bins). Returns
+    (stream, per-pair gaussian ids, n_pairs)."""
     bound_radius = radius * torch.amax(scene.scales, dim=-1)
     fp = project_footprints_conic(scene.means, scene.scales, scene.quats, radius,
                                   bound_radius, camera, config)

@@ -55,7 +55,9 @@ def prepare_rolling_stream(scene: GaussianScene, cam0: Camera, cam1: Camera,
     of ops/march.train_features, whose view-independent Q columns the
     per-ray-origin quad response reads and whose diff columns keep autograd
     for march_stream_diff), and the tiled rays. Binning carries no
-    gradient. Returns (starts, rows, dirs_t, origins_t, valid, n_pairs)."""
+    gradient, and bins without the scene's geometry, as JAX's rolling
+    shutter does (models/rolling.py:115): config.pair_keys is not applied.
+    Returns (starts, rows, dirs_t, origins_t, valid, n_pairs)."""
     cam_mid = lerp_camera(cam0, cam1, 0.5)
     table, M, radius = feature_table(scene, config, eye=cam_mid.eye if train else None)
     M, radius = M.detach(), radius.detach()

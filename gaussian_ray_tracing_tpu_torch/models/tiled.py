@@ -12,8 +12,9 @@ torch.utils.checkpoint), independent of the hand-written kernels K1 and
 K3, and runs in float64 with `compute_dtype="float64"`.
 
 The march is the JAX tiled march's: window order re-sorts each chunk per
-ray by exact event t (stable), every other order composites in stream
-order (key); the frozen-transmittance early stop, hit multiplicity, the
+ray by exact event t (stable), oddeven by `window_passes` odd-even
+transposition passes (`oddeven_perm`), every other order composites in
+stream order (key); the frozen-transmittance early stop, hit multiplicity, the
 [t_min, t_max] event gate and an optional view-depth gate (`depth_gate`).
 
 Rounding. The float32 response pp = |o_g|^2 + t* (2 od + t* dd) cancels
@@ -31,7 +32,8 @@ chunk marches only up to its fullest tile's last candidate (the empty
 chunks after it change neither colour nor transmittance).
 Under `window_key="peak"` window order sorts by t* in place of the event
 t, with the event gate, as the JAX tiled march does (its tiled.py:199).
-`order="oddeven"` is refused (config.py).
+Under a per-pair key (config.pair_keys) the candidate lists hold gaussian
+ids (the binning's order is None) and the table stays in gaussian order.
 """
 
 from __future__ import annotations
@@ -198,6 +200,24 @@ def _sum3(a, b, xla: bool) -> torch.Tensor:
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
+def oddeven_perm(key: torch.Tensor, passes: int) -> torch.Tensor:
+    """Permutation (int64) from `passes` odd-even transposition passes over
+    the last axis, ascending (JAX models/tiled.py:63-83): pass p
+    compare-exchanges (i, i + 1) for every i of parity p, i < m - 1, where
+    key[i] > key[i + 1]. Exact when no element is displaced more than
+    `passes` from its sorted place; equal keys never swap."""
+    m = key.shape[-1]
+    idx = torch.arange(m, device=key.device).expand(key.shape)
+    pos = torch.arange(m, device=key.device)
+    for p in range(passes):
+        k_next, i_next = torch.roll(key, -1, -1), torch.roll(idx, -1, -1)
+        swap_hi = (pos % 2 == p % 2) & (pos < m - 1) & (key > k_next)
+        swap_lo = torch.roll(swap_hi, 1, -1)  # position 0 never: swap_hi[m - 1] is False
+        key = torch.where(swap_hi, k_next, torch.where(swap_lo, torch.roll(key, 1, -1), key))
+        idx = torch.where(swap_hi, i_next, torch.where(swap_lo, torch.roll(idx, 1, -1), idx))
+    return idx
+
+
 def _march_step(t_carry, racc, gacc, bacc, ids, gf: dict, rays: dict, eye, config: RenderConfig):
     """One march chunk of a tile chunk: (Tc, R) carries, ids (Tc, mc) and
     per-slot features (Tc, mc) -> the next carries. Gradients flow through
@@ -252,11 +272,14 @@ def _march_step(t_carry, racc, gacc, bacc, ids, gf: dict, rays: dict, eye, confi
 
     t0 = t_carry[..., None]
     min_t = config.min_transmittance
-    if config.order == "window":
-        # per-ray stable sort of the chunk by exact event t; weights are
+    if config.order in ("window", "oddeven"):
+        # per-ray stable sort of the chunk by exact event t (oddeven:
+        # window_passes odd-even transposition passes); weights are
         # computed in sorted order and scattered back to candidate order
         order_t = t_star.detach() if config.window_key == "peak" else t_event
-        perm = torch.argsort(torch.where(valid, order_t, math.inf), dim=-1, stable=True)
+        sort_key = torch.where(valid, order_t, math.inf)
+        perm = oddeven_perm(sort_key, config.window_passes) if config.order == "oddeven" \
+            else torch.argsort(sort_key, dim=-1, stable=True)
         a_s = torch.gather(a, -1, perm)
         p_incl = torch.cumprod(1.0 - a_s, dim=-1) * t0
         p_excl = torch.cat([t0, p_incl[..., :-1]], dim=-1)
@@ -343,7 +366,8 @@ def prepare_frame(scene: GaussianScene, camera: Camera, config: RenderConfig,
     the tile binning (on detached values; its scan is kernel K2 on CUDA)
     and the per-tile ray directions. Returns (table, binning, dirs_t (T,
     R, 3), valid (H, W)); with a presorted binning the table's rows are in
-    depth-rank order, as the candidate ids are."""
+    depth-rank order, as the candidate ids are (under a per-pair key both
+    stay in gaussian order)."""
     table, M, radius = feature_table(scene, config)
     with torch.no_grad():
         bound_radius = radius * torch.amax(scene.scales, dim=-1)

@@ -174,7 +174,9 @@ def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     the launch queries grt_march_info, grt_march_bwd_info,
     grt_closest_hit_info and grt_scan_info). A library built from an
     earlier commit's sources comes back behind _InterfaceV2 (interface
-    version 2) or _InterfaceV1 (no grt_interface_version)."""
+    version 2) or _InterfaceV1 (no grt_interface_version); one of version
+    3 takes this tree's argument lists as they are and refuses only order
+    3 (oddeven), with cudaErrorInvalidValue."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci] * 6 + [cf, ci, vp, vp]
     lib.grt_march.restype = ci
@@ -229,7 +231,7 @@ def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: st
     elif kernel == "closest_hit":
         err = lib.grt_closest_hit_info(rays, out)
     elif kernel == "march":
-        err = lib.grt_march_info(chunk, ("window", "key", "merge").index(order), k,
+        err = lib.grt_march_info(chunk, ("window", "key", "merge", "oddeven").index(order), k,
                                  2 if quad else int(scalar), int(train), rays, out)
     else:
         err = lib.grt_march_bwd_info(chunk, int(order == "window"), k, int(scalar), rays, out)

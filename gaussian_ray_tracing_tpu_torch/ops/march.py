@@ -15,7 +15,11 @@ either
     q(t_lo) = cq + t_lo (2 od + t_lo dd), and a plain stream-order
     composite (pallas_march.py:552-569, 963-968); or
   - merge order (config.order == "merge", render only): the exact event-t
-    gate and the cross-chunk streaming merge described below.
+    gate and the cross-chunk streaming merge described below; or
+  - oddeven (config.order == "oddeven"): JAX's kernel has no odd-even
+    network, so it composites in stream order as key order does, with the
+    exact event-t gate (the sqrt-free one only under the peak key,
+    pallas_march.py:560-562, 966); it trains as key order does.
 
 Each tile (R = tile_w * tile_h rays) owns the contiguous pair segment
 [starts[t], starts[t+1]) and marches it front to back in chunks of c
@@ -185,7 +189,7 @@ TRAIN_ROW = 32
 T_MX, T_M0, T_RAD, T_SH0 = 16, 19, 28, 29
 _SH0 = 12  # first SH column of the quad SH rows (the JAX table's 14)
 CHUNKS = (32, 64, 128, 256)
-ORDERS = ("window", "key", "merge")  # grt_march's order codes 0, 1, 2
+ORDERS = ("window", "key", "merge", "oddeven")  # grt_march's order codes 0, 1, 2, 3
 _IMIN, _IMAX = -(2**31), 2**31 - 1
 _ZBASE = 65535 << 15  # sort key of non-significant candidates (sorts last)
 _F32 = torch.float32
@@ -434,7 +438,9 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
             )
         check(err, "grt_march")
         march.launches += 1
-        key, sh = config.order == "key", config.sh_degree > 0
+        key, sh = config.order in ("key", "oddeven"), config.sh_degree > 0
+        if config.order == "oddeven":
+            march.oddeven_launches += 1
         if config.order == "merge":
             march.merge_launches += 1
             if blocks is not None:
@@ -490,6 +496,7 @@ march.sh_launches = 0  # SH degree 1-3, window order (no saved carries)
 march.sh_key_launches = 0  # SH degree 1-3, key order (no saved carries)
 march.merge_launches = 0  # merge order, every mode and SH degree
 march.merge_block_launches = 0  # merge order in block mode (bounced rays)
+march.oddeven_launches = 0  # oddeven: key order's kernel on the exact event gate, every mode
 # the window-order render options (window_options) and the peak key
 march.peak_launches = 0  # window_key "peak" in window or merge order (saved carries too)
 march.scan_launches = 0  # composite_scan's product form (render, any order)
@@ -718,7 +725,7 @@ def _chunk_plain(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, bloc
     min_t, scan = config.min_transmittance, opts["scan"]
     t_carry = trans[tb][:, None]  # (B, 1, R)
     fired = slow = 0
-    if config.order == "key":
+    if config.order in ("key", "oddeven"):  # stream order
         part, t_next = _composite(t_carry, a, cols, min_t, scan)
     elif config.order == "merge":
         part, t_next, new, slow = _merge_composite(t_carry, a, t_ev, cols,

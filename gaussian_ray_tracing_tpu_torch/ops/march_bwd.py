@@ -3,7 +3,9 @@ autograd Function that pairs it with the forward K1.
 
 Counterpart of `_march_bwd_kernel` / `pallas_march_bwd` and of the
 `march_stream_diff` custom_vjp in gaussian_ray_tracing_tpu/ops/pallas_march.py
-(:1189-1709): key order and window order, a shared ray origin (the camera
+(:1189-1709): key order and window order (oddeven replays as key order,
+as JAX's backward does: its forward composites in stream order), a shared
+ray origin (the camera
 eye) or per-ray origins (rolling-shutter renders and bounced segments),
 full [t_min, t_max] rays or per-ray windows [t_lo, t_hi], SH degree 0 to
 3, any hit_multiplicity.
@@ -74,8 +76,9 @@ def _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
                 config: RenderConfig, chunk: int, dtypes=(_F32,), seg=None):
     if chunk not in CHUNKS:
         raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
-    if config.order not in ("window", "key") or not 0 <= config.sh_degree <= 3:
-        raise NotImplementedError("the backward is ported for window and key order at SH 0-3")
+    if config.order not in ("window", "key", "oddeven") or not 0 <= config.sh_degree <= 3:
+        raise NotImplementedError("the backward is ported for window, key and oddeven order "
+                                  "(key order's replay) at SH 0-3")
     if starts.dtype != torch.int32 or chunk_base.dtype != torch.int32:
         raise ValueError("starts and chunk_base must be int32")
     width = train_row(config.sh_degree)
@@ -422,11 +425,14 @@ class MarchStreamDiff(torch.autograd.Function):
 def march_stream_diff(rows, starts, dirs_t, eye, config: RenderConfig, chunk: int,
                       use_kernels: bool = True, *, quad: bool | None = None, origins_t=None,
                       t_lo=None, t_hi=None, t0=None):
-    """(rgb (T, R, 3), t_final (T, R)) of the training march (window or key
-    order), differentiable with respect to the (P, train_row) training
-    rows; the counterpart of JAX's march_stream_diff (pallas_march.py
-    :1632-1709). quad None takes the render's choice, quad in key order and
-    scalar in window order (pallas_renderer.py:224-238); origins_t (T, R,
+    """(rgb (T, R, 3), t_final (T, R)) of the training march (window, key
+    or oddeven order), differentiable with respect to the (P, train_row)
+    training rows; the counterpart of JAX's march_stream_diff
+    (pallas_march.py:1632-1709). quad None takes the render's choice, quad
+    in key order and scalar in the others (pallas_renderer.py:224-238);
+    oddeven composites in stream order with the exact event gate and
+    replays as key order, and quad=True needs key order, as in JAX
+    (pallas_march.py:1664-1665); origins_t (T, R,
     3), t_lo, t_hi and t0 (T, R) are per-ray origins, windows and carry-in
     (each None: the eye, [t_min, t_max] and 1)."""
     if quad is None:

@@ -1,7 +1,8 @@
-"""Footprints and tile binning (gaussian_ray_tracing_tpu/ops/tiles.py's
-pair_keys="gaussian" path, with its three pair culls) for pinhole, OpenCV
-and fisheye cameras, and the fixed-capacity per-tile candidate lists of
-the tiled march (`bin_tiles`).
+"""Footprints and tile binning (gaussian_ray_tracing_tpu/ops/tiles.py: the
+pair_keys="gaussian" path with its three pair culls, and the per-pair key
+paths "tile", "tile_peak" and "affine") for pinhole, OpenCV and fisheye
+cameras, and the fixed-capacity per-tile candidate lists of the tiled march
+(`bin_tiles`).
 
 Every gaussian's exact footprint (the projected conic's bbox; for
 fisheye the polar rectangle of its hit-cone cap) is expanded into (tile,
@@ -14,6 +15,14 @@ prefix sum (ops/scan.multi_head_fill, kernel K2 on the GPU). Sorts,
 scatters, searchsorted and gathers stay torch ops, as the JAX package left
 them to XLA. Integer results are bit-identical to the JAX package given the
 same footprints.
+
+The per-pair key paths (bin_pairs with geom and config.pair_keys other
+than "gaussian") sort each pair by its own tile's depth key instead:
+"tile" and "tile_peak" gather the gaussian's context per pair and take the
+event t, or the peak t, along the tile's central ray; "affine" carries a
+per-gaussian log-t model (affine_tile_keys) onto the stream through four
+head fills (K2) and evaluates it per pair. Their gid holds original
+gaussian ids (order None), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,22 +47,26 @@ class PairStream(NamedTuple):
     """Sorted (tile, depth, gaussian) pair stream.
 
     Tile t owns the contiguous slots [starts[t], starts[t+1]), front to
-    back. gid holds depth RANKS: index per-gaussian tables as table[order].
+    back. With `order` (the pair_keys="gaussian" path) gid holds depth
+    RANKS: index per-gaussian tables as table[order]. With order None (the
+    per-pair key paths) gid holds original gaussian ids.
     """
 
-    gid: torch.Tensor  # (P,) int32 ranks, -1 in empty slots
-    key: torch.Tensor  # (P,) int32 sorted tile ids
+    gid: torch.Tensor  # (P,) int32 ranks or ids, -1 in empty slots
+    # (P,) int32 sorted keys: tile ids (n_tiles in empty slots), or under a
+    # per-pair key JAX's packed tile << depth_bits | depth_q (INT32_MAX empty)
+    key: torch.Tensor
     starts: torch.Tensor  # (n_tiles+1,) int32 segment starts
     n_pairs: torch.Tensor  # () int32 pairs emitted (pre-clip)
     n_dropped: torch.Tensor  # () int32 pairs lost to capacity overflow
-    order: torch.Tensor | None = None  # (N,) depth permutation
+    order: torch.Tensor | None = None  # (N,) depth permutation, or None (ids)
 
 
 class TileBinning(NamedTuple):
     """Fixed-capacity per-tile candidate lists of a PairStream (the layout
     of the tiled march, models/tiled.py)."""
 
-    cand: torch.Tensor  # (T, max_per_tile) int32 depth ranks, -1 = empty
+    cand: torch.Tensor  # (T, max_per_tile) int32 depth ranks (ids if order is None), -1 = empty
     counts: torch.Tensor  # (T,) int32 candidates per tile (clipped to max_per_tile)
     n_pairs: torch.Tensor  # () int32 pairs emitted
     n_dropped: torch.Tensor  # () pairs lost to the capacity or to a tile's cap
@@ -973,23 +986,293 @@ def _bin_pairs_presorted(fp: Footprint, camera: Camera, config: RenderConfig,
                       n_dropped=n_dropped, order=order)
 
 
+_INT32_MAX = 2**31 - 1
+_LOGT_RANGE = (math.log(1e-4), math.log(1e6))
+_QBITS = 16  # value-quantization bits of the affine key model
+_SLOPE_MAX = 4095
+_SLOPE_OFF = 4096
+
+
+def _depth_bits(n_tiles: int) -> tuple[int, int]:
+    """(tile_bits, depth_bits) splitting a non-negative int32 sort key."""
+    tile_bits = max(1, math.ceil(math.log2(n_tiles + 2)))
+    if tile_bits > 24:
+        raise ValueError(f"too many tiles for packed binning: {n_tiles}")
+    return tile_bits, 31 - tile_bits
+
+
+def _quantize_depth(depth: torch.Tensor, depth_bits: int) -> torch.Tensor:
+    """Monotone quantization of positive float depth: the top depth_bits of
+    its float32 bits (a positive float's bits sort like the float)."""
+    d = torch.clamp(depth, 1e-30, 1e30).contiguous()
+    return _srl(d.view(_I32), 31 - depth_bits)
+
+
+def _owners(count: torch.Tensor, cap: int):
+    """Exclusive offsets, the total and each slot's owning gaussian of the
+    pair expansion (JAX's scatter-max at each head slot, then a running
+    max: offsets never decrease, so the largest id marked at or before a
+    slot owns it; zero-count gaussians share their successor's slot and
+    lose the max). Returns (offsets, total, first, gsrc (cap,), valid)."""
+    n, dev = count.shape[0], count.device
+    offsets = _cumsum_i32(count) - count
+    total = (offsets[-1] + count[-1]) if n else torch.zeros((), dtype=_I32, device=dev)
+    first = torch.clamp(offsets, max=cap)
+    buf = torch.zeros(cap + 1, dtype=_I32, device=dev).scatter_reduce_(
+        0, first.long(), torch.arange(1, n + 1, dtype=_I32, device=dev), reduce="amax")
+    gsrc = torch.cummax(buf[:cap], dim=0).values - 1
+    slot = torch.arange(cap, dtype=_I32, device=dev)
+    valid = (slot < torch.clamp(total, max=cap)) & (gsrc >= 0)
+    return offsets, total, first, gsrc, valid
+
+
+def _sorted_stream(key, gsrc, valid, n_tiles: int, depth_bits: int, total, cap: int) -> PairStream:
+    """Sort the packed per-pair keys (tile << depth_bits | depth_q) with
+    the owners as payload. JAX sorts with jax.lax.sort_key_val, which
+    promises no stability but on XLA's CPU backend returns equal keys in
+    slot order; the stable sort here does so everywhere, so equal keys keep
+    ascending gaussian id."""
+    key = torch.where(valid, key, torch.full_like(key, _INT32_MAX))
+    payload = torch.where(valid, gsrc, torch.full_like(gsrc, -1))
+    key_s, perm = torch.sort(key, stable=True)
+    bounds = torch.arange(n_tiles + 1, dtype=_I32, device=key.device) << depth_bits
+    starts = torch.searchsorted(key_s, bounds, out_int32=True)
+    return PairStream(gid=payload[perm], key=key_s, starts=starts, n_pairs=total,
+                      n_dropped=torch.clamp(total - cap, min=0))
+
+
+def _pinhole_dir(ndc_x, ndc_y, U, V, W) -> list:
+    """The unnormalized pinhole direction ndc_x (-U) + ndc_y (-V) + W per
+    component, rounded as XLA's CPU backend evaluates it."""
+    return [torch.addcmul(ndc_x * -U[k], ndc_y, -V[k]) + W[k] for k in range(3)]
+
+
+def _tile_center_dirs(tx, ty, camera: Camera, config: RenderConfig):
+    """Unnormalized central-ray direction of tile (tx, ty) per pair (JAX
+    ops/tiles.py:1768-1796): the camera's ray at the tile-centre pixel;
+    OpenCV takes the undistorted direction (an ordering key, not a ray);
+    a fisheye tile centre outside the image circle gets the zero
+    direction."""
+    U, V, W = camera.uvw_frame()
+    px = (tx.to(torch.float32) + 0.5) * config.tile_w
+    py = (ty.to(torch.float32) + 0.5) * config.tile_h
+    ndc_x = 2.0 * px / camera.width - 1.0
+    ndc_y = 2.0 * py / camera.height - 1.0
+    if config.camera_model != CameraModel.FISHEYE:
+        return _pinhole_dir(ndc_x, ndc_y, U, V, W)
+    rr = torch.sqrt(torch.addcmul(ndc_x * ndc_x, ndc_y, ndc_y))
+    f = config.fisheye_focal
+    theta = 2.0 * torch.asin(torch.clamp(rr / (2.0 * f), -1.0, 1.0))
+    phi = torch.atan2(ndc_y, ndc_x)
+    st, ct = torch.sin(theta), torch.cos(theta)
+    loc = [st * torch.cos(phi), st * torch.sin(phi), ct]
+    live = (rr <= 1.0).to(torch.float32)
+    return tuple(dot3(loc, [-U[k], -V[k], W[k]]) * live for k in range(3))
+
+
+def _bin_pairs_tile_keys(fp: Footprint, camera: Camera, config: RenderConfig, cap: int,
+                         geom: tuple) -> PairStream:
+    """Pair expansion with per-pair keys along each pair's tile central ray
+    (JAX ops/tiles.py:1661-1765, pair_keys "tile" or "tile_peak"): per pair
+    ONE gather of its gaussian's context row (the four int32 columns ride
+    as float32 bits), then the iso-ellipsoid event t ("tile": entry, or
+    exit from inside; a miss keeps the gaussian's own key fp.depth) or the
+    peak-response t ("tile_peak") along the tile's central ray, in world
+    units; a tile with no ray (the fisheye blank) keeps fp.depth.
+
+    Rounding: the per-pair sums round each float32 operation on its own
+    (the tile ray as _pinhole_dir rounds it). XLA's CPU backend
+    fuses this per-pair math and contracts some products into FMAs, so a
+    small share of the quantized keys differs from the JAX package's, by
+    one step under "tile_peak" and by a few where "tile"'s entry takes the
+    square root of a cancelling discriminant (tests/test_torch_pair_keys.py
+    states the measured shares); tile ids, starts and each tile's set of
+    gaussians are exact."""
+    means, M9, radius = geom
+    tx_n, ty_n = num_tiles(camera, config)
+    n_tiles = tx_n * ty_n
+    _, depth_bits = _depth_bits(n_tiles)
+    x0, y0, sw, count = _tile_rects(fp, camera, config)
+    offsets, total, _, gsrc, valid = _owners(count, cap)
+    info_i = torch.stack([offsets, x0, y0, torch.clamp(sw, min=1)], dim=1)
+    info = torch.cat([info_i.view(torch.float32), means, M9, radius[:, None],
+                      fp.depth[:, None]], dim=1)  # (N, 18)
+    rows_f = info[torch.clamp(gsrc, min=0).long()]
+    rows = rows_f[:, :4].contiguous().view(_I32)
+    slot = torch.arange(cap, dtype=_I32, device=count.device)
+    r = slot - rows[:, 0]
+    # float reciprocal division is exact here (r, sw < 2^24)
+    q = torch.floor(r.to(torch.float32) / rows[:, 3].to(torch.float32)).to(_I32)
+    tx = rows[:, 1] + (r - q * rows[:, 3])
+    ty = rows[:, 2] + q
+    tile = ty * tx_n + tx
+
+    dc = _tile_center_dirs(tx, ty, camera, config)
+    m = [rows_f[:, 7 + k] for k in range(9)]
+    o = [camera.eye[k] - rows_f[:, 4 + k] for k in range(3)]
+    sum3 = lambda a, b: a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+    og = [sum3(m[3 * i:3 * i + 3], o) for i in range(3)]
+    dg = [sum3(m[3 * i:3 * i + 3], dc) for i in range(3)]
+    dd = torch.clamp(sum3(dg, dg), min=1e-12)
+    od = sum3(og, dg)
+    dn = torch.sqrt(sum3(dc, dc))
+    gkey = rows_f[:, 17]
+    if config.pair_keys == "tile_peak":
+        depth_pair = (-od / dd) * dn
+    else:  # "tile": the iso-ellipsoid entry (exit from inside) along the tile ray
+        rad = rows_f[:, 16]
+        disc = od * od - dd * (sum3(og, og) - rad * rad)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t_entry = (-od - sq) / dd
+        t_exit = (-od + sq) / dd
+        t_event = torch.where(t_entry > 0.0, t_entry, t_exit) * dn
+        depth_pair = torch.where(disc >= 0.0, t_event, gkey)
+    depth_pair = torch.where(dn > 1e-6, depth_pair, gkey)
+    key = (tile << depth_bits) | _quantize_depth(depth_pair, depth_bits)
+    return _sorted_stream(key, gsrc, valid, n_tiles, depth_bits, total, cap)
+
+
+def affine_tile_keys(means: torch.Tensor, M9: torch.Tensor, fp: Footprint, camera: Camera,
+                     config: RenderConfig, depth_bits: int):
+    """Per-gaussian affine model of the per-tile depth key, quantized for
+    gather-free binning (pair_keys="affine"; JAX ops/tiles.py:831-962).
+
+    The peak-response t along the ray through pixel p, t*(p) = -<o_g,
+    M d(p)> / |M d(p)|^2, is smooth in p, so within one footprint log t*
+    is well approximated by its first-order expansion around the
+    footprint-centre pixel, in world units t* |d|. Quantized at qbits =
+    min(depth_bits, 16) over log t in [log 1e-4, log 1e6]: a_q the value at
+    the centre of the footprint's clipped corner tile, b and c the slopes
+    per tile step in x and y, clipped to 13 signed bits. Gaussians where
+    the model is invalid (t* <= 1e-6, dd <= 1e-12, a non-finite slope), and
+    every gaussian of a non-pinhole camera, take the constant fp.depth key
+    with zero slopes. Returns (a_q, bc_q) int32 (N,), bc_q = (b + 4096) <<
+    13 | (c + 4096)."""
+    lmin, lmax = _LOGT_RANGE
+    qbits = min(depth_bits, _QBITS)
+    scale = ((1 << qbits) - 2) / (lmax - lmin)
+    top = float((1 << qbits) - 2)
+    l_const = torch.log(torch.clamp(fp.depth, 1e-30, 1e30))
+    a_const = torch.clamp((l_const - lmin) * scale, 0.0, top).to(_I32)
+    zero_slopes = _SLOPE_OFF << 13 | _SLOPE_OFF
+    if config.camera_model != CameraModel.PINHOLE:
+        return a_const, torch.full_like(a_const, zero_slopes)
+
+    U, V, W = camera.uvw_frame()
+    Wpx, Hpx = camera.width, camera.height
+    eye = camera.eye.to(torch.float32)
+    px = torch.clamp(fp.px, 0.0, Wpx)
+    py = torch.clamp(fp.py, 0.0, Hpx)
+    ndc_x = 2.0 * px / Wpx - 1.0
+    ndc_y = 2.0 * py / Hpx - 1.0
+    m = [M9[:, k] for k in range(9)]
+    rel = [eye[k] - means[:, k] for k in range(3)]
+    og = [dot3(m[3 * i:3 * i + 3], rel) for i in range(3)]
+    mdot = lambda v: [dot3(m[3 * i:3 * i + 3], v) for i in range(3)]
+    d = _pinhole_dir(ndc_x, ndc_y, U, V, W)
+    dg = mdot(d)
+    dd = dot3(dg, dg)
+    od = dot3(og, dg)
+    dd_s = torch.clamp(dd, min=1e-12)
+    t_star = -od / dd_s
+    dw_s = torch.clamp(dot3(d, d), min=1e-12)
+    t_world = t_star * torch.sqrt(dw_s)
+
+    def dlog_dt(dvec):  # per-pixel slope of log(t* |d|) along the constant dvec
+        gv = mdot(dvec)
+        od_p = dot3(og, gv)
+        dd_p = 2.0 * dot3(dg, gv)
+        t_p = -(od_p * dd - od * dd_p) / (dd_s * dd_s)
+        return t_p / torch.clamp(t_star, min=1e-12) + dot3(d, dvec) / dw_s
+
+    gpx = dlog_dt([(2.0 / Wpx) * -U[k] for k in range(3)]) * config.tile_w
+    gpy = dlog_dt([(2.0 / Hpx) * -V[k] for k in range(3)]) * config.tile_h
+    valid = (t_star > 1e-6) & (dd > 1e-12) & torch.isfinite(gpx) & torch.isfinite(gpy)
+
+    l0 = torch.log(torch.clamp(t_world, 1e-30, 1e30))
+    x0t, y0t = px / config.tile_w, py / config.tile_h  # footprint centre in tiles
+    b = torch.clamp(torch.round(gpx * scale), -_SLOPE_MAX, _SLOPE_MAX)
+    c = torch.clamp(torch.round(gpy * scale), -_SLOPE_MAX, _SLOPE_MAX)
+    # the value at the centre of the clipped corner tile _tile_rects emits
+    tx_n, ty_n = num_tiles(camera, config)
+    fx0 = torch.floor(torch.clamp((fp.px - fp.rx) / config.tile_w, -2.0, tx_n + 1.0))
+    fy0 = torch.floor(torch.clamp((fp.py - fp.ry) / config.tile_h, -2.0, ty_n + 1.0))
+    x0 = torch.clamp(fx0, 0.0, tx_n - 1.0)
+    y0 = torch.clamp(fy0, 0.0, ty_n - 1.0)
+    a = torch.addcmul(torch.addcmul((l0 - lmin) * scale, b, x0 + 0.5 - x0t), c, y0 + 0.5 - y0t)
+    a_q = torch.clamp(torch.round(a), -(1 << 29), 1 << 29).to(_I32)
+    bc_q = ((b.to(_I32) + _SLOPE_OFF) << 13) | (c.to(_I32) + _SLOPE_OFF)
+    return (torch.where(valid, a_q, a_const),
+            torch.where(valid, bc_q, torch.full_like(bc_q, zero_slopes)))
+
+
+def _bin_pairs_affine(fp: Footprint, camera: Camera, config: RenderConfig, cap: int,
+                      akey: tuple, use_kernel: bool = True) -> PairStream:
+    """Gather-free pair expansion with per-pair affine depth keys (JAX
+    ops/tiles.py:1514-1598): the owners as in _bin_pairs_tile_keys, then
+    ONE multi-channel head fill (K2 on CUDA) carries each gaussian's
+    offset, packed rect (x0, y0, sw), a_q and bc_q onto the stream, and
+    each pair evaluates its tile's key a_q + b dtx + c q, clipped to
+    [0, 2^qbits - 2], with two integer multiply-adds. akey = (a_q, bc_q)
+    of affine_tile_keys."""
+    tx_n, ty_n = num_tiles(camera, config)
+    n_tiles = tx_n * ty_n
+    _, depth_bits = _depth_bits(n_tiles)
+    a_q, bc_q = akey
+    x0, y0, sw, count = _tile_rects(fp, camera, config)
+    offsets, total, first, gsrc, valid = _owners(count, cap)
+    by = max(1, (ty_n - 1).bit_length())
+    bsw = max(1, tx_n.bit_length())
+    if max(1, (tx_n - 1).bit_length()) + by + bsw > 31:
+        raise ValueError(f"tile grid too large to pack: {tx_n}x{ty_n}")
+    packedv = (x0 << (by + bsw)) | (y0 << bsw) | torch.clamp(sw, min=1)
+    off_p, packed, a_p, bc_p = multi_head_fill(first, [offsets, packedv, a_q, bc_q], cap,
+                                               use_kernel=use_kernel)
+    sw_p = packed & ((1 << bsw) - 1)
+    y0_p = _srl(packed, bsw) & ((1 << by) - 1)
+    x0_p = _srl(packed, by + bsw)
+    b_p = _srl(bc_p, 13) - _SLOPE_OFF
+    c_p = (bc_p & 8191) - _SLOPE_OFF
+    r = torch.arange(cap, dtype=_I32, device=count.device) - off_p
+    q = torch.floor(r.to(torch.float32) / sw_p.to(torch.float32)).to(_I32)
+    dtx = r - q * sw_p
+    tile = (y0_p + q) * tx_n + x0_p + dtx
+    qbits = min(depth_bits, _QBITS)
+    dq = torch.clamp(a_p + b_p * dtx + c_p * q, 0, (1 << qbits) - 2)
+    key = (tile << depth_bits) | (dq << (depth_bits - qbits))
+    return _sorted_stream(key, gsrc, valid, n_tiles, depth_bits, total, cap)
+
+
 def bin_pairs(fp: Footprint, camera: Camera, config: RenderConfig,
               pair_capacity: int, use_kernel: bool = True, tile_rows=None,
               geom: tuple | None = None) -> PairStream:
-    """Expand footprints into the depth-sorted per-tile pair stream (the
-    pair_keys="gaussian" path, with the config's culls).
+    """Expand footprints into the depth-sorted per-tile pair stream.
 
     use_kernel=False runs the plain torch scan on any device; otherwise the
     scan picks its CUDA kernel for CUDA tensors. tile_rows=(row_lo,
     n_rows) bins only that band of tile rows (its tiles row-major, y
     band-local): each tile's pairs are the full stream's, in the same
-    order. geom = (means (N, 3), M9 (N, 9) rows of S^-1 R^T, radius (N,)):
-    with it a pinhole frame takes conic_cull and row_span (both need the
-    conics); fisheye_cull takes the footprint's sector wherever it has one,
-    with or without geom (JAX ops/tiles.py:1630-1660).
+    order. geom = (means (N, 3), M9 (N, 9) rows of S^-1 R^T, radius (N,)).
+
+    The branches are JAX's (ops/tiles.py:1622-1660). With geom and
+    config.pair_keys "tile" or "tile_peak" (_bin_pairs_tile_keys) or
+    "affine" (affine_tile_keys, _bin_pairs_affine) each pair sorts by its
+    own tile's key and the culls are ignored; a pair key with geom and
+    tile_rows raises ValueError. Otherwise (pair_keys "gaussian", or no
+    geom whatever pair_keys says) the depth-presorted expansion runs, where
+    a pinhole frame with geom takes conic_cull and row_span (both need the
+    conics) and fisheye_cull takes the footprint's sector wherever it has
+    one, with or without geom.
     """
-    if config.pair_keys != "gaussian":
-        raise NotImplementedError(f"pair_keys={config.pair_keys!r} is not ported")
+    pair_key = geom is not None and config.pair_keys != "gaussian"
+    if pair_key and tile_rows is not None:
+        raise ValueError("per-shard binning supports the default pair_keys only")
+    if pair_key and config.pair_keys == "affine":
+        _, depth_bits = _depth_bits(math.prod(num_tiles(camera, config)))
+        akey = affine_tile_keys(geom[0], geom[1], fp, camera, config, depth_bits)
+        return _bin_pairs_affine(fp, camera, config, pair_capacity, akey, use_kernel)
+    if pair_key and config.pair_keys in ("tile", "tile_peak"):
+        return _bin_pairs_tile_keys(fp, camera, config, pair_capacity, geom)
     conics = spans = None
     if geom is not None and config.camera_model == CameraModel.PINHOLE \
             and (config.conic_cull or config.row_span):
@@ -1011,8 +1294,10 @@ def bin_tiles(fp: Footprint, camera: Camera, config: RenderConfig, pair_capacity
               use_kernel: bool = True, geom: tuple | None = None) -> TileBinning:
     """Fixed-capacity per-tile candidate lists (T, config.max_per_tile) of
     the pair stream (bin_pairs, whose scan is kernel K2 on CUDA tensors):
-    tile t lists its first max_per_tile pairs front to back, -1 after them.
-    n_dropped adds each tile's overflow to the stream's capacity drops."""
+    tile t lists its first max_per_tile pairs front to back, -1 after them,
+    as depth ranks (order) or, under a per-pair key, gaussian ids (order
+    None). n_dropped adds each tile's overflow to the stream's capacity
+    drops."""
     stream = bin_pairs(fp, camera, config, pair_capacity, use_kernel=use_kernel, geom=geom)
     tx_n, ty_n = num_tiles(camera, config)
     m_cap = config.max_per_tile

@@ -214,7 +214,10 @@ def render_pallas_sharded(scene: GaussianScene, camera: Camera, config: RenderCo
     rows and marches them (K1), so the pair expansion, the tile sort, the
     row gather and the march all scale 1/n. A band's stream is the full
     stream's rows of its tiles in the same stable depth order, so the
-    frame equals render_gpu's bit for bit. pair_capacity is a floor for
+    frame equals render_gpu's bit for bit. The bands bin without the
+    scene's geometry, as JAX's do (its sharded.py:307-310), so a per-pair
+    config.pair_keys is not applied here: the frame is render_gpu's under
+    pair_keys="gaussian". pair_capacity is a floor for
     the whole frame: each band gets ceil(pair_capacity / n), or without it
     its own snug capacity, and a band that emits more is rebuilt (never
     dropped). Returns {rgb, alpha, n_dropped} (n_dropped summed over the

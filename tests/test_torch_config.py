@@ -42,22 +42,46 @@ def test_config_is_frozen_and_hashable():
 
 @pytest.mark.parametrize("change", [
     dict(tile_w=64, tile_h=32),  # 2048 rays a tile: a TPU's, more than a CUDA block's threads
-    dict(order="oddeven"),
-    dict(compute_dtype="bfloat16"),
-    dict(pair_keys="affine"),
     dict(sh_degree=4),
     dict(tile_w=12, tile_h=12),  # 144 rays: not a multiple of 32
     dict(tile_w=4, tile_h=4),
     dict(tile_w=32, tile_h=40),
-    dict(pair_keys="tile_peak"),
-    dict(compute_dtype="float16"),
     dict(window_key="oracle"),
     dict(order="sorted"),
-    dict(pair_keys="tile"),
 ])
 def test_unimplemented_values_raise(change):
     with pytest.raises(NotImplementedError):
         tcfg.check_supported(tcfg.RenderConfig(**change))
+
+
+@pytest.mark.parametrize("change", [
+    dict(order="oddeven"),
+    dict(compute_dtype="bfloat16"),
+    dict(pair_keys="affine"),
+    dict(pair_keys="tile_peak"),
+    dict(compute_dtype="float16"),
+    dict(pair_keys="tile"),
+])
+def test_ported_values_run(change):
+    """The values JAX has that the port once refused: every check passes,
+    and a tiny frame renders finite on the plain kernel path, the tiled
+    march and the training render (tests/test_torch_pair_keys.py and
+    tests/test_torch_oddeven.py hold them against JAX)."""
+    from gaussian_ray_tracing_tpu_torch.cameras import Camera
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render, render_diff
+    from gaussian_ray_tracing_tpu_torch.scene.synthetic import random_scene
+
+    cfg = tcfg.RenderConfig(hit_multiplicity=1, **change)
+    tcfg.check_supported(cfg)
+    tcfg.check_trainable(cfg)
+    tcfg.check_tiled_supported(cfg)
+    tcfg.check_mesh_supported(cfg.replace(bounce_order=cfg.order))
+    scene = random_scene(200, seed=2)
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=32, height=32)
+    for out in (render(scene, cam, cfg, method="plain"), render(scene, cam, cfg, method="tiled"),
+                render_diff(scene, cam, cfg, method="plain")):
+        assert out["rgb"].shape == (32, 32, 3) and bool(torch.isfinite(out["rgb"]).all())
+        assert float(out["alpha"].max()) > 0.5
 
 
 @pytest.mark.parametrize("change", [
@@ -102,14 +126,17 @@ def test_defaults_and_bench_config_are_supported():
 def test_training_and_mesh_take_cameras_and_sh(change):
     """The render, training (K1 with saved carries, K3) and the mesh tracer
     take fisheye, OpenCV and SH 1-3 (training in both orders); the mesh
-    tracer still refuses an order it does not implement with them."""
+    tracer takes oddeven with them on bounce 0 and the bounced segments, as
+    JAX's does (stream order, tests/test_torch_oddeven.py), and still
+    refuses an order JAX does not have."""
     tcfg.check_supported(tcfg.RenderConfig(**change))
     for order in ("key", "window"):
         tcfg.check_trainable(tcfg.RenderConfig(order=order, **change))
     tcfg.check_mesh_supported(tcfg.RenderConfig(**change))
-    for bad in (dict(order="oddeven"), dict(bounce_order="oddeven")):
-        with pytest.raises(NotImplementedError):
-            tcfg.check_mesh_supported(tcfg.RenderConfig(**change, **bad))
+    for ported in (dict(order="oddeven"), dict(bounce_order="oddeven")):
+        tcfg.check_mesh_supported(tcfg.RenderConfig(**change, **ported))
+    with pytest.raises(NotImplementedError):
+        tcfg.check_mesh_supported(tcfg.RenderConfig(**change, bounce_order="sorted"))
 
 
 @pytest.mark.parametrize("change,trains", [

@@ -1346,3 +1346,65 @@ def test_peak_training_kernels_match_plain(degree, chunk):
         assert float((a[:, i] - want[:, i]).abs().max() / want[:, i].abs().max()) <= bar, i
         k64, p64 = ((x[:, i] - witness[:, i]).abs().max() for x in (a, want))
         assert float(k64) <= 1.25 * float(p64), i
+
+
+@pytest.mark.parametrize("order", ["window", "key", "merge"])
+@pytest.mark.parametrize("keys", ["tile", "tile_peak", "affine"])
+def test_pair_key_march_matches_plain(keys, order):
+    """K1 on a per-pair-key stream against march_plain at the K1 bars; the
+    stream holds the default's pairs (the same starts and per-tile gaussian
+    sets) in its own order; the affine binning's head fills are one K2
+    launch, bit for bit the plain scan's binning."""
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                        device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, order=order, pair_keys=keys)
+    before = tscan.multi_cumsum_i32.launches
+    stream, feats, n_pairs = prepare_pair_stream(scene, cam, cfg, 1 << 18)
+    assert tscan.multi_cumsum_i32.launches == before + (keys == "affine")
+    plain_bin = prepare_pair_stream(scene, cam, cfg, 1 << 18, use_kernels=False)[0]
+    assert all(torch.equal(a, b) for a, b in zip(stream[:5], plain_bin[:5]))
+    base, _, base_pairs = prepare_pair_stream(scene, cam, cfg.replace(pair_keys="gaussian"),
+                                              1 << 18)
+    assert stream.order is None and n_pairs == base_pairs and torch.equal(stream.starts,
+                                                                          base.starts)
+    tile = torch.repeat_interleave(torch.arange(base.starts.numel() - 1, device="cuda"),
+                                   (base.starts[1:] - base.starts[:-1]).long())
+    codes = lambda ids: torch.sort(tile * scene.num_gaussians + ids.long()).values
+    assert torch.equal(codes(stream.gid[:n_pairs]), codes(base.order[base.gid[:n_pairs].long()]))
+    dirs_t = tile_rays(generate_rays(cam, cfg)[1], 16, 16)
+    before = tmarch.march.launches
+    got = tmarch.march(stream.starts, feats, dirs_t, cfg, 128)
+    torch.cuda.synchronize()
+    assert tmarch.march.launches == before + 1
+    _kernel_close(got, tmarch.march_plain(stream.starts, feats, dirs_t, cfg, 128))
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_oddeven_march_matches_plain(chunk):
+    """order="oddeven": K1's key kernel on the exact event gate against
+    march_plain, equal to key order over [t_min, t_max] windows bit for
+    bit (key order's exact gate), and the saved carries (the training
+    forward on the scalar response) against the plain version."""
+    scene = random_scene(5000, seed=3, device="cuda")
+    cam = Camera.create(eye=(0.0, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                        device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order="oddeven")
+    stream, feats, _ = prepare_pair_stream(scene, cam, cfg, 1 << 18)
+    dirs_t = tile_rays(generate_rays(cam, cfg)[1], 16, 16)
+    before = tmarch.march.oddeven_launches
+    got = tmarch.march(stream.starts, feats, dirs_t, cfg, chunk)
+    torch.cuda.synchronize()
+    assert tmarch.march.oddeven_launches == before + 1
+    _kernel_close(got, tmarch.march_plain(stream.starts, feats, dirs_t, cfg, chunk))
+    lo, hi = (torch.full(dirs_t.shape[:2], v, device="cuda") for v in (cfg.t_min, cfg.t_max))
+    key = tmarch.march(stream.starts, feats, dirs_t, cfg.replace(order="key"), chunk, t_lo=lo,
+                       t_hi=hi)
+    assert torch.equal(got[0], key[0]) and torch.equal(got[1], key[1])
+    tcfg, starts, rows, tdirs, eye = _train_stream(chunk, "key", 0)
+    tcfg = tcfg.replace(order="oddeven")
+    kw = {"origins_t": eye.expand(tdirs.shape).contiguous()}
+    got = tmarch.march(starts, rows, tdirs, tcfg, chunk, save_tin=True, **kw)
+    want = tmarch.march_plain(starts, rows, tdirs, tcfg, chunk, save_tin=True, **kw)
+    _kernel_close(got[:2], want[:2])
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4

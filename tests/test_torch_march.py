@@ -201,8 +201,14 @@ def test_march_rejects_unsupported_arguments(stream_inputs):
         tmarch.march(starts, compact, dirs_t, RenderConfig(), 128, save_tin=True)
     with pytest.raises(ValueError):  # saved carries take the training rows only
         tmarch.march(starts, compact, dirs_t, RenderConfig(order="key"), 128, save_tin=True)
-    with pytest.raises(NotImplementedError):
-        tmarch.march(starts, compact, dirs_t, RenderConfig(order="oddeven"), 128)
+    # oddeven runs as JAX's kernel runs it: key order's stream-order
+    # composite with the exact event gate, which key order itself takes on
+    # rays with a window, so it equals key order over [t_min, t_max] windows
+    odd = tmarch.march(starts, compact, dirs_t, RenderConfig(order="oddeven"), 128)
+    cfg = RenderConfig(order="key")
+    lo, hi = (torch.full(dirs_t.shape[:2], v) for v in (cfg.t_min, cfg.t_max))
+    want = tmarch.march(starts, compact, dirs_t, cfg, 128, t_lo=lo, t_hi=hi)
+    assert torch.equal(odd[0], want[0]) and torch.equal(odd[1], want[1])
     # merge order is ported (tests/test_torch_merge.py); it never trains
     rgb, t_final = tmarch.march(starts, compact, dirs_t, RenderConfig(order="merge"), 128)
     assert rgb.shape == dirs_t.shape and float(t_final.min()) < 0.5

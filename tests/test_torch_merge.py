@@ -209,11 +209,14 @@ def test_merge_refusals_and_config():
     assert tcfg.train_config(merge).order == "key"
     assert tcfg.unsupported_fields(merge) == []
     assert tcfg.unsupported_mesh_fields(RenderConfig(bounce_order="merge")) == []
-    assert tcfg.unsupported_mesh_fields(RenderConfig(bounce_order="oddeven")) == \
-        ["bounce_order='oddeven'"]
-    with pytest.raises(NotImplementedError):
-        tmarch.march(starts, torch.zeros((1, tmarch.ROW)), dirs_t, RenderConfig(order="oddeven"),
-                     128)
+    # oddeven is ported as JAX runs it (stream order, the exact event gate;
+    # tests/test_torch_oddeven.py); an order JAX does not have is refused
+    assert tcfg.unsupported_mesh_fields(RenderConfig(bounce_order="oddeven")) == []
+    assert tcfg.unsupported_mesh_fields(RenderConfig(bounce_order="sorted")) == \
+        ["bounce_order='sorted'"]
+    rgb, t_final = tmarch.march(starts, torch.zeros((1, tmarch.ROW)), dirs_t,
+                                RenderConfig(order="oddeven"), 128)
+    assert not rgb.any() and bool((t_final == 1.0).all())  # an empty tile
 
 
 def test_cli_render_order_merge_on_cpu(tmp_path, capsys):

@@ -296,14 +296,21 @@ def test_tracer_mesh_frames_fisheye_sh3_supersampled(scenes):
 
 
 def test_render_takes_every_camera_and_sh_but_oddeven(scenes):
-    """render(mesh=...) runs fisheye, OpenCV and SH 1-3 frames and still
-    refuses the orders it does not implement."""
+    """render(mesh=...) runs fisheye, OpenCV and SH 1-3 frames, and oddeven
+    with them as JAX runs it: bounce 0 and the bounced segments march
+    windowed rays, where oddeven and key order are both key order's stream
+    order on the exact event gate, so the frames are key order's bit for
+    bit; an order JAX does not have is still refused."""
     _, ts = scenes
     cam = Camera.create(**CAM)
     mesh = _carry(_jmesh("plane"))
     for extra in (FISHEYE, OPENCV, dict(sh_degree=2)):
         out = render(ts, cam, tcfg("GLASS", extra), mesh=mesh)
         assert out["rgb"].shape == (32, 48, 3) and bool(torch.isfinite(out["rgb"]).all())
-    for bad in (dict(order="oddeven"), dict(bounce_order="oddeven")):
-        with pytest.raises(NotImplementedError):
-            render(ts, cam, tcfg("GLASS", {**FISHEYE, **bad}), mesh=mesh)
+    for ported, key in ((dict(order="oddeven"), dict(order="key")),
+                        (dict(bounce_order="oddeven"), dict(bounce_order="key"))):
+        odd = render(ts, cam, tcfg("GLASS", {**FISHEYE, **ported}), mesh=mesh)
+        want = render(ts, cam, tcfg("GLASS", {**FISHEYE, **key}), mesh=mesh)
+        assert torch.equal(odd["rgb"], want["rgb"]) and torch.equal(odd["alpha"], want["alpha"])
+    with pytest.raises(NotImplementedError):
+        render(ts, cam, tcfg("GLASS", {**FISHEYE, "bounce_order": "sorted"}), mesh=mesh)

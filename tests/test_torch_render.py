@@ -130,8 +130,10 @@ def test_gpu_method_never_falls_back_to_cpu():
         render(scene, cam, RenderConfig(), method="pallas")
     with pytest.raises(RuntimeError):  # merge order needs the card for its kernel too
         render(scene, cam, RenderConfig(order="merge"), method="gpu")
-    with pytest.raises(NotImplementedError):
-        render(scene, cam, RenderConfig(order="oddeven"), method="plain")
+    with pytest.raises(RuntimeError):  # oddeven runs K1 on the card too
+        render(scene, cam, RenderConfig(order="oddeven"), method="gpu")
+    odd = render(scene, cam, RenderConfig(order="oddeven"), method="plain")["rgb"]
+    assert odd.shape == (32, 32, 3) and bool(torch.isfinite(odd).all())
     merge = render(scene, cam, RenderConfig(order="merge"), method="plain")["rgb"]
     assert merge.shape == (32, 32, 3) and bool(torch.isfinite(merge).all())
 

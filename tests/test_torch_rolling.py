@@ -72,7 +72,12 @@ def test_rolling_needs_cuda_tensors_for_the_kernels():
         render_rolling(scene, cam, cam, RenderConfig())
     with pytest.raises(RuntimeError):  # merge order needs CUDA tensors for K1 too
         render_rolling(scene, cam, cam, RenderConfig(order="merge"))
-    with pytest.raises(NotImplementedError):
-        render_rolling(scene, cam, cam, RenderConfig(order="oddeven"), use_kernels=False)
+    with pytest.raises(RuntimeError):  # oddeven too
+        render_rolling(scene, cam, cam, RenderConfig(order="oddeven"))
+    # per-ray origins never take the sqrt-free gate, so oddeven (stream
+    # order on the exact event gate) is key order's frame bit for bit
+    odd = render_rolling(scene, cam, cam, RenderConfig(order="oddeven"), use_kernels=False)
+    key = render_rolling(scene, cam, cam, RenderConfig(order="key"), use_kernels=False)
+    assert torch.equal(odd["rgb"], key["rgb"])
     merge = render_rolling(scene, cam, cam, RenderConfig(order="merge"), use_kernels=False)
     assert bool(torch.isfinite(merge["rgb"]).all())

@@ -213,9 +213,11 @@ def test_tiled_matches_oracle(model, hm):
 def test_tiled_config_checks():
     scene = random_scene(300, seed=1)
     cam = Camera.create(**dict(CAM, width=16, height=16))
-    for bad in (dict(order="oddeven"), dict(compute_dtype="int32")):
-        with pytest.raises(NotImplementedError):
-            ttiled.render_tiled(scene, cam, RenderConfig(**bad))
+    with pytest.raises(NotImplementedError):
+        ttiled.render_tiled(scene, cam, RenderConfig(compute_dtype="int32"))
+    # oddeven runs window_passes odd-even passes (tests/test_torch_oddeven.py)
+    odd = ttiled.render_tiled(scene, cam, RenderConfig(order="oddeven"))
+    assert odd["rgb"].shape == (16, 16, 3) and bool(torch.isfinite(odd["rgb"]).all())
     # window order sorts by t* under the peak key (tests/test_torch_peak_key.py)
     peak = ttiled.render_tiled(scene, cam, RenderConfig(window_key="peak"))
     assert peak["rgb"].shape == (16, 16, 3) and bool(torch.isfinite(peak["rgb"]).all())
