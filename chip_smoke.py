@@ -44,7 +44,13 @@ version) and the binning's pair culls (conic_cull, row_span and both on
 the 720p / 100k headline, fisheye_cull on fisheye_768 and on the fisheye
 glass_front frame: drop-free subsets of the uncut streams, key order
 within 5e-4 of the uncut image, window order on the goldens; K2 at their
-channel counts), K1's window-order options and the peak key, the
+channel counts), tiles of more than 1024 rays (the 720p / 100k headline
+on 64x32 and 64x64 tiles in window, key and merge order, Trainer.fit on
+64x32 tiles in key and window order, render_rolling and the
+per-ray-origin quad rolling frame and the fisheye glass_front mesh frame
+at R = 2048: every launch of K1's and K3's cluster builds and of K4 split
+over blocks held against its plain version), K1's window-order options
+and the peak key, the
 per-pair sort keys, oddeven and bfloat16 (the headline under pair_keys
 "tile", "tile_peak" and "affine" in window, key and merge order and
 under order="oddeven", each key's stream holding the default's pairs,
@@ -250,8 +256,10 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     `scalar` or the quad one `quad`; K3: per-ray origins `scalar`), and the
     launch's resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
     at `rays` rays a tile), dynamic shared memory, registers, stack frame and
-    spills (-Xptxas -v of the build: the 256-ray build up to 256 rays, else
-    the 1024-ray one)."""
+    spills (-Xptxas -v of the build: the 256-ray build up to 256 rays, the
+    1024-ray one up to 1024, else the cluster build), and the blocks of a
+    tile's cluster and the clusters resident at once
+    (cudaOccupancyMaxActiveClusters; None up to 1024 rays)."""
     from gaussian_ray_tracing_tpu_torch.ops import cuda_build
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
     from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
@@ -263,7 +271,7 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
                                   train=train, quad=quad)
     b = lambda x: f"Lb{int(x)}E"
     resp = f"Li{2 if quad else int(scalar)}E"  # k1::Resp
-    build = f"Li{256 if R <= 256 else 1024}E"  # kMaxR
+    build = f"Li{256 if R <= 256 else 1024 if R <= 1024 else 8192}E"  # kMaxR
     if kernel == "march_bwd":
         name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}{b(scalar)}{build}"
     elif kname == "window":
@@ -281,8 +289,9 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
            "slow_share": plain.slow / max(1, plain.chunks) if order == "merge" else None,
            "blocks_per_sm": info["blocks_per_sm"], "smem_bytes": info["smem_bytes"],
            "registers": regs, "stack_bytes": stack, "spill_store_bytes": st,
-           "spill_load_bytes": ld}
-    log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk}" + " scalar" * scalar
+           "spill_load_bytes": ld, "cluster_blocks": info["cluster_blocks"],
+           "resident_clusters": info["resident_clusters"]}
+    log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk} R={R}" + " scalar" * scalar
         + " origin quad" * quad + " save_tin" * train + f": {json.dumps(out)}")
     return out
 
@@ -2870,7 +2879,7 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
     k1_sub = lambda names: {n: sub(times[n][0], times[n][1]) for n in names}
     k3_sub = lambda names: {n: sub(times[n][2], times[n][3]) for n in names}
     k2_first = k2[min(k2)]
-    return [
+    rows = [
         row("march_wide_save_tin", "march.cuh", k1_src,
             main["save_tin_launches"] + main["sh_key_save_tin_launches"],
             max(errs[n][0] for n in runs if n.startswith("key")), times["key_sh0_1024"][0],
@@ -2899,6 +2908,275 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
          "plain_ms": k2_first["plain_ms"], "bound_ms": k2_first["bound_ms"],
          "bound_by": k2_first["bound_by"], "library_ms": k2_first["library_ms"],
          "channels": k2},
+    ]
+    return rows + wider_tile_phase(dev, card, scene, pose, views, init)
+
+
+def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
+    """Tiles of more than 1024 rays (a multiple of 128 up to 8192): K1 and K3
+    as thread-block clusters, K4 split over blocks. The main path, every
+    count zeroed just before and read just after: the 1280x720 headline of
+    `scene` (random_scene(100k, seed 0), bench config) through
+    GaussianRayTracer on 64x32 and 64x64 tiles in window, key and merge
+    order; Trainer(method="gpu").fit on the training row's view 0 (512x512,
+    `init` = random_scene(50k, seed 1)) on 64x32 tiles (5 steps in key
+    order, whose loss must fall, 3 in window order); render_rolling's
+    1280x720 frame on 64x32 tiles (per-ray origins, the scalar response);
+    the rolling 720p frame on the per-ray-origin quad response at R = 2048
+    (window order, the centroid's tree across the cluster); and the fisheye
+    glass_front mesh frame on 64x32 tiles through GaussianRayTracer (K4 split
+    in two blocks a tile, K1's segments and block mode as clusters). Then
+    each launch of the new builds held against its plain version (K1 at the
+    K1 bars, K3 at the K3 bars with two launches bit-identical, K4 bit for
+    bit with its counts those of pretest_stats), timed against it with its
+    bound and `design` at its R (cluster size, registers, spills, resident
+    clusters), the training streams and the glass_front bounces at R = 4096
+    too; the frames against the plain path's. Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        prepare_pair_stream, prepare_train_stream,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
+    from gaussian_ray_tracing_tpu_torch.models.rolling import (
+        prepare_rolling_stream, render_rolling,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_sphere
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    t_phase = time.perf_counter()
+    cam = lambda w, h, dx=0.0: cameras.Camera.create(
+        eye=(GOLDEN_EYE[0] + dx, GOLDEN_EYE[1], GOLDEN_EYE[2]), lookat=(0.0, 0.0, 0.0),
+        width=w, height=h, device=dev)
+    tiles = {2048: (64, 32), 4096: (64, 64)}
+    sized = lambda cfg, R: cfg.replace(tile_w=tiles[R][0], tile_h=tiles[R][1])
+    bench = RenderConfig(**BENCH_KW)
+    heads = {(order, R): sized(bench, R).replace(order=order)
+             for R in tiles for order in ("window", "key", "merge")}
+    cam0, target0 = views[0]
+    runs = {"key": sized(RenderConfig(**TRAIN_KW), 2048),
+            "window": sized(RenderConfig(hit_multiplicity=1, order="window", march_chunk=128),
+                            2048)}
+    steps = {"key": 5, "window": 3}
+    roll_cfg = sized(bench, 2048)
+    cam_a, cam_b = cam(1280, 720), cam(1280, 720, 0.05)
+    fish = roll_cfg.replace(camera_model=CameraModel.FISHEYE)
+    front = make_sphere((0.0, 0.0, 1.6), device=dev).with_type(MeshType.GLASS)
+    at_front = np.eye(4, dtype=np.float32)
+    at_front[:3, 3] = (0.0, 0.0, 1.6)
+
+    def tracer(cfg, c, mesh=False):
+        tr = GaussianRayTracer(scene=scene, config=cfg.replace(camera_model=CameraModel.PINHOLE))
+        tr.set_camera_model(cfg.camera_model.value)
+        tr.set_size(c.width, c.height)
+        tr.update_camera(c)
+        if mesh:
+            tr.update_instance_transform(tr.create_sphere(mesh_type="glass"), at_front)
+        return tr
+
+    head_tr = {k: tracer(cfg, pose) for k, cfg in heads.items()}
+    fish_tr = tracer(fish, cam(1280, 720), mesh=True)
+
+    # --- the main path, every count zeroed just before ---
+    counts = {"march": ("launches", "cluster_launches", "merge_launches", "save_tin_launches",
+                        "window_save_tin_launches", "origin_launches", "origin_quad_launches",
+                        "segment_launches", "block_launches"),
+              "march_bwd": ("launches", "cluster_launches"),
+              "closest_hit": ("launches", "split_launches")}
+    fns = {"march": kmarch.march, "march_bwd": kbwd.march_bwd,
+           "closest_hit": ktri.closest_hit_blocks}
+
+    def read():
+        return {f"{k}.{a}": getattr(fns[k], a) for k, attrs in counts.items() for a in attrs}
+
+    for k, attrs in counts.items():
+        for a in attrs:
+            setattr(fns[k], a, 0)
+    main, frames = {}, {}
+    for key, tr in head_tr.items():
+        before = kmarch.march.cluster_launches
+        frames[key] = tr.render()["rgb"]
+        torch.cuda.synchronize()
+        main[key] = kmarch.march.cluster_launches - before
+    losses = {}
+    for name, cfg in runs.items():
+        trainer = ktrain.Trainer(GaussianModel.from_scene(init), config=cfg, lr=2e-3, method="gpu")
+        losses[name] = trainer.fit([views[0]], steps=steps[name])
+        check(all(np.isfinite(losses[name])), f"wider tiles {name}: bad losses {losses[name]}")
+    check(losses["key"][-1] < losses["key"][0],
+          f"2048-ray key training: the loss did not fall {losses['key']}")
+    rolled = render_rolling(scene, cam_a, cam_b, roll_cfg)["rgb"]
+    frame = prepare_rolling_stream(scene, cam_a, cam_b, roll_cfg, train=True)
+    starts_f, rows_f, dirs_f, origins_f, _, n_pairs_f = frame
+    rgb_f, _ = kmarch.march(starts_f, rows_f, dirs_f, roll_cfg, 128, origins_t=origins_f,
+                            quad=True)
+    glass = fish_tr.render()["rgb"]
+    torch.cuda.synchronize()
+    counted = read()
+    log("wider", f"headline frames {sorted(main.items())}, training losses "
+                 f"{json.dumps({k: [round(x, 6) for x in v] for k, v in losses.items()})}, "
+                 f"rolling frames, fisheye glass_front; launches {counted}")
+    for k in ("march.cluster_launches", "march.merge_launches", "march.save_tin_launches",
+              "march.window_save_tin_launches", "march.origin_launches",
+              "march.origin_quad_launches", "march.segment_launches", "march.block_launches",
+              "march_bwd.cluster_launches", "closest_hit.split_launches"):
+        check(counted[k] > 0, f"wider tiles: {k} was not launched on the main path: {counted}")
+    check(all(v > 0 for v in main.values()), f"a headline frame ran no cluster build: {main}")
+    for name, img in (("rolling", rolled), ("origin quad rolling", rgb_f),
+                      ("fisheye glass_front", glass), *((f"headline {k}", v)
+                                                        for k, v in frames.items())):
+        check(bool(torch.isfinite(img).all()) and float(img.max()) > 0.1,
+              f"wider tiles {name}: black or not finite")
+
+    # --- frames against the plain path, and each launch against its plain
+    # version, timed ---
+    def timed(fn, plain, bound_of):
+        return (statistics.median(cuda_ms(fn, 10)), statistics.median(cuda_ms(plain, 2)),
+                bound_of(), profile_frames(fn, 5)["device_ms"])
+
+    frame_psnr = {}
+    for (order, R), cfg in heads.items():
+        frame_psnr[f"{order}_{R}"] = psnr(frames[order, R].cpu().numpy(),
+                                          render(scene, pose, cfg, method="plain")["rgb"]
+                                          .cpu().numpy())
+    frame_psnr["rolling_2048"] = psnr(
+        rolled.cpu().numpy(), render_rolling(scene, cam_a, cam_b, roll_cfg,
+                                             use_kernels=False)["rgb"].cpu().numpy())
+    log("wider", f"frames vs the plain path (dB): {json.dumps(frame_psnr)}")
+    for name, p in frame_psnr.items():
+        check(p >= PSNR_FRAME, f"wider tiles: frame {name} {p:.2f} dB against the plain path")
+
+    times, errs = {}, {}
+    for (order, R), cfg in heads.items():
+        stream, feats, n_pairs = prepare_pair_stream(scene, pose, cfg, 1 << 22)
+        check(int(stream.n_dropped) == 0, f"headline {order} R={R}: pairs dropped")
+        dirs_t = tile_rays(cameras.generate_rays(pose, cfg)[1], *tiles[R])
+        args = (stream.starts, feats, dirs_t, cfg, 128)
+        name = f"{order}_{R}"
+        errs[name] = k1_check("K1cluster", f"headline 720p 100k {name} ({n_pairs} pairs)", args)
+        a = kmarch.march(*args)
+        check(all(torch.equal(x, y) for x, y in zip(a, kmarch.march(*args))),
+              f"K1 {name}: two launches differ")
+        times[name] = (timed(lambda: kmarch.march(*args), lambda: kmarch.march_plain(*args),
+                             lambda: march_bound(args, {}, kmarch.march_plain)),
+                       design("march", cfg, 128, rays=R))
+    # the training streams of the main path's runs, and at R = 4096
+    for name, R in ((n, R) for R in tiles for n in runs):
+        cfg = sized(runs[name], R)
+        with torch.no_grad():
+            stream, trows, n_pairs = prepare_train_stream(init, cam0, cfg)
+        starts, trows = stream.starts, trows.detach().contiguous()
+        dirs_t = tile_rays(cameras.generate_rays(cam0, cfg)[1], *tiles[R])
+        chunk = kmarch.chunk_for(cfg)
+        kw = {"origins_t": cam0.eye.expand(dirs_t.shape).contiguous()} if name == "window" else {}
+        fwd = lambda f: f(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
+        got = fwd(kmarch.march)
+        torch.cuda.synchronize()
+        e1 = k1_train_check(f"{name} 512x512 R={R} c={chunk} ({n_pairs} pairs)", got,
+                            fwd(kmarch.march_plain))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+        d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+        bargs = (starts, trows, dirs_t, cam0.eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
+        e3 = k3_check(f"{name} 512x512 R={R} c={chunk}", bargs)
+        errs[f"train_{name}_{R}"] = e1
+        errs[f"bwd_{name}_{R}"] = e3
+        times[f"train_{name}_{R}"] = (
+            timed(lambda: fwd(kmarch.march), lambda: fwd(kmarch.march_plain),
+                  lambda: march_bound((starts, trows, dirs_t, cfg, chunk),
+                                      {"save_tin": True, **kw}, kmarch.march_plain,
+                                      tin=got[2])),
+            design("march", cfg, chunk, scalar=bool(kw), train=True, rays=R))
+        times[f"bwd_{name}_{R}"] = (
+            timed(lambda: kbwd.march_bwd(*bargs), lambda: kbwd.march_bwd_plain(*bargs),
+                  lambda: bwd_bound(bargs, kbwd.march_bwd_plain)),
+            design("march_bwd", cfg, chunk, rays=R))
+    for order in ("window", "key", "merge"):
+        args = (starts_f, rows_f, dirs_f, roll_cfg.replace(order=order), 128)
+        kw = {"origins_t": origins_f, "quad": True}
+        errs[f"origin_quad_{order}"] = k1_check(
+            "K1cluster", f"rolling 720p 100k R=2048 per-ray-origin quad {order} ({n_pairs_f} "
+                         f"pairs)", args, kw)
+        if order == "window":
+            times["origin_quad"] = (
+                timed(lambda: kmarch.march(*args, **kw), lambda: kmarch.march_plain(*args, **kw),
+                      lambda: march_bound(args, kw, kmarch.march_plain)),
+                design("march", roll_cfg, 128, quad=True, rays=2048))
+    # every bounce of the fisheye glass_front frame (the main path's at R =
+    # 2048, and at R = 4096); K4 timed on bounce 1 (per-ray origins)
+    k4_err, k1_mesh = 0.0, 0.0
+    for R in tiles:
+        rec = []
+        kmesh.render_with_mesh_fast(scene, front, cam(1280, 720), sized(fish, R), record=rec)
+        for b, r in enumerate(rec):
+            args, kw = r["k4"]
+            check(args[3].shape[1] == R, f"glass_front bounce {b}: {args[3].shape[1]} rays")
+            k4_err = max(k4_err, k4_check("K4split", f"fisheye glass_front R={R} bounce {b}",
+                                          args, kw)[0])
+            a1, kw1 = r["k1"]
+            k1_mesh = max(k1_mesh, k1_check("K1cluster", f"fisheye glass_front R={R} bounce "
+                                                         f"{b}", a1, kw1))
+        k4_args, k4_kw = rec[1]["k4"] if len(rec) > 1 else rec[0]["k4"]
+        times[f"k4_{R}"] = (timed(lambda: ktri.closest_hit_blocks(*k4_args, **k4_kw),
+                                  lambda: ktri.closest_hit_blocks_plain(*k4_args, **k4_kw),
+                                  lambda: tri_bound(k4_args, k4_kw)),
+                            tri_design(k4_args, k4_kw))
+    for name, (t, d) in times.items():
+        log("kernel", f"wider {name}: {t[0]:.3f} ms (device {t[3]:.3f}), plain {t[1]:.3f} ms, "
+                      f"bound {t[2][0]:.4f} ms ({t[2][1]}); cluster {d.get('cluster_blocks')} "
+                      f"blocks, {d.get('resident_clusters')} resident, {d['registers']} "
+                      f"registers, spills {d['spill_store_bytes']} B ({card})")
+    log("phase", f"wider tiles in {time.perf_counter() - t_phase:.1f} s")
+
+    src = f"{PKG}/csrc"
+    k1_src = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    k3_src = "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189"
+    sub = lambda t, d: {"ms": t[0], "device_ms": t[3], "plain_ms": t[1], "bound_ms": t[2][0],
+                        "bound_by": t[2][1], **d}
+    row = lambda name, source, replaces, launches, err, key, more=None: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": times[key][0][0],
+        "plain_ms": times[key][0][1], "bound_ms": times[key][0][2][0],
+        "bound_by": times[key][0][2][1], "library_ms": None, "device_ms": times[key][0][3],
+        **times[key][1], **(more or {})}
+    return [
+        row(f"march_cluster_{order}", "march.cuh", k1_src,
+            main[order, 2048] + main[order, 4096],
+            max(errs[f"{order}_2048"], errs[f"{order}_4096"]),
+            f"{order}_2048", {"rays": 2048, "rays_4096": sub(*times[f"{order}_4096"]),
+                              "frame_psnr_vs_plain": {R: frame_psnr[f"{order}_{R}"]
+                                                      for R in tiles}})
+        for order in ("window", "key", "merge")
+    ] + [
+        row("march_cluster_save_tin", "march.cuh", k1_src, counted["march.save_tin_launches"],
+            max(errs["train_key_2048"], errs["train_key_4096"]), "train_key_2048",
+            {"rays": 2048, "rays_4096": sub(*times["train_key_4096"])}),
+        row("march_cluster_window_save_tin", "march.cuh", k1_src,
+            counted["march.window_save_tin_launches"],
+            max(errs["train_window_2048"], errs["train_window_4096"]), "train_window_2048",
+            {"rays": 2048, "rays_4096": sub(*times["train_window_4096"])}),
+        row("march_bwd_cluster", "march_bwd.cuh", k3_src, counted["march_bwd.cluster_launches"],
+            max(v for k, v in errs.items() if k.startswith("bwd_")), "bwd_key_2048",
+            {"rays": 2048, "key_4096": sub(*times["bwd_key_4096"]),
+             "window_2048": sub(*times["bwd_window_2048"]),
+             "window_4096": sub(*times["bwd_window_4096"])}),
+        row("march_cluster_origin_quad", "march.cuh", k1_src,
+            counted["march.origin_quad_launches"],
+            max(errs[f"origin_quad_{o}"] for o in ("window", "key", "merge")), "origin_quad",
+            {"rays": 2048, "mesh_segments_blocks_max_abs_err": k1_mesh}),
+        row("closest_hit_split", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
+            counted["closest_hit.split_launches"], k4_err, "k4_2048",
+            {"rays": 2048, "rays_4096": sub(*times["k4_4096"])}),
     ]
 
 

@@ -109,7 +109,21 @@ class RenderConfig:
 DEFAULT_CONFIG = RenderConfig()
 
 
-MAX_RAYS_PER_TILE = 1024  # one thread per ray: a CUDA block's limit
+MAX_RAYS_PER_BLOCK = 1024  # one thread per ray: a CUDA block's limit
+# above it a tile is a thread-block cluster of up to 8 blocks (the portable
+# cluster size) of K1 and K3, and up to 8 blocks of K4
+MAX_RAYS_PER_TILE = 8192
+
+
+def tile_rays_supported(rays: int) -> bool:
+    """Rays per tile the kernels take: a multiple of 32 up to 1024 (one
+    CUDA block, one thread per ray), or a multiple of 128 from 1152 up to
+    8192 (a cluster of up to 8 blocks). A TPU takes any multiple of 128
+    (pallas_march.py:1036-1040); above 8192 a cluster would need more than
+    the portable 8 blocks of 1024 threads."""
+    if rays <= MAX_RAYS_PER_BLOCK:
+        return rays >= 32 and rays % 32 == 0
+    return rays <= MAX_RAYS_PER_TILE and rays % 128 == 0
 
 
 ORDERS = ("window", "key", "merge", "oddeven")
@@ -123,15 +137,18 @@ def _float_dtype(name) -> bool:
 
 def unsupported_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported primary render does not implement:
-    tiles of other than a multiple of 32 rays up to 1024 (the kernels run
-    one thread per ray, where a TPU takes any multiple of 128, 2048 among
-    them), SH degrees outside 0-3, hit multiplicities below 1, and orders,
-    order keys, pair keys and compute dtypes the JAX package does not have
-    either. compute_dtype is read by the tiled march alone (any float
-    dtype); the kernel paths ignore it, as JAX's Pallas paths do."""
+    tiles of other than a multiple of 32 rays up to 1024 or a multiple of
+    128 up to 8192 (tile_rays_supported: the kernels run one thread per
+    ray, a tile of more than 1024 as a thread-block cluster of at most 8
+    blocks, where a TPU takes any multiple of 128), SH degrees outside 0-3,
+    hit multiplicities below 1, and orders, order keys, pair keys and
+    compute dtypes the JAX package does not have either. compute_dtype is
+    read by the tiled march alone (any float dtype); the kernel paths
+    ignore it, as JAX's Pallas paths do."""
     rays = config.rays_per_tile
-    bad = [] if rays % 32 == 0 and 32 <= rays <= MAX_RAYS_PER_TILE else \
-        [f"tile_w*tile_h={config.tile_w}*{config.tile_h}"]
+    bad = [] if tile_rays_supported(rays) else \
+        [f"tile_w*tile_h={config.tile_w}*{config.tile_h} (rays per tile: a multiple of 32 up "
+         f"to {MAX_RAYS_PER_BLOCK} or of 128 up to {MAX_RAYS_PER_TILE})"]
     checks = {
         "order": config.order in ORDERS,
         "window_key": config.window_key in ("event", "peak"),
@@ -145,10 +162,11 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
 
 def unsupported_tiled_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported tiled march (models/tiled.py) does not
-    implement: the render's. It marches in config.compute_dtype (float64
-    for a witness, bfloat16 as JAX's does); merge order composites in
-    stream order (key) and oddeven runs window_passes odd-even passes in
-    place of the per-ray sort, as in the JAX tiled march."""
+    implement: the render's (tiles of more than 8192 rays among them). It
+    marches in config.compute_dtype (float64 for a witness, bfloat16 as
+    JAX's does); merge order composites in stream order (key) and oddeven
+    runs window_passes odd-even passes in place of the per-ray sort, as in
+    the JAX tiled march."""
     return unsupported_fields(config)
 
 

@@ -28,6 +28,12 @@ extern "C" const char* grt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// Rays per tile the kernels take: a multiple of 32 up to 1024 (one block),
+// or a multiple of 128 up to 8192 (a cluster of up to 8 blocks).
+static bool rays_ok(int R) {
+  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R <= 8192 && R % 128 == 0);
+}
+
 // order 0: window order; 1: key order; 2: merge order; 3: oddeven, which
 // the key kernel runs (stream order) with the exact event gate unless
 // `peak` (JAX's kernel has no odd-even network and takes the sqrt-free gate
@@ -62,12 +68,15 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
                          void* stream) {
   using namespace k1;
   const bool sh_ok = sh_k == 1 || sh_k == 4 || sh_k == 9 || sh_k == 16;
+  // a cluster's fire groups smaller than the tile lie in one block each
+  const bool groups_ok = rays_per_tile <= 1024 || group == rays_per_tile ||
+                         cluster_width(rays_per_tile) % group == 0;
   const bool options_ok = group >= 32 && group % 32 == 0 && rays_per_tile % group == 0 &&
+                          groups_ok &&
                           a_fire >= 0.f && repair >= 0 && repair < chunk &&
                           (!tin || (!scan && group == rays_per_tile && a_fire == 0.f &&
                                     repair == 0 && !stats));
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
-      !sh_ok || !options_ok || order < 0 || order > 3 ||
+  if (!rays_ok(rays_per_tile) || n_tiles < 0 || !sh_ok || !options_ok || order < 0 || order > 3 ||
       stride < min_stride(origins || tin, sh_k) ||
       (tin != nullptr) != (chunk_base != nullptr) ||
       (quad && (!origins || blocks)) ||
@@ -82,7 +91,7 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
            (const float*)t_lo_arr, (const float*)t_hi_arr, (const float*)t0,
            (const int*)blocks, block_sub, stride, full_range && (order != 3 || peak), t_lo,
            t_hi, min_t, t_skip, alpha_min, alpha_clamp, hit_multiplicity, quad != 0, peak != 0,
-           scan != 0, group, a_fire, repair, (int*)stats};
+           scan != 0, group, a_fire, repair, (int*)stats, rays_per_tile};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)dispatch(p, sh_k, chunk, order == 3 ? 1 : order, n_tiles, rays_per_tile, s,
                        nullptr);
@@ -91,7 +100,9 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
 // What a launch of grt_march with these settings would run, without
 // launching: out[0] resident blocks per SM at rays_per_tile rays, out[1]
 // dynamic shared memory bytes, out[2] registers per thread, out[3] local
-// memory bytes per thread (stack frame and spills). resp: 0 the quad
+// memory bytes per thread (stack frame and spills); above 1024 rays also
+// out[4] the blocks of a tile's cluster and out[5] the clusters that can be
+// resident at once (an error where none can). resp: 0 the quad
 // response from the eye, 1 the scalar one from per-ray origins, 2 the
 // per-ray-origin quad one; train: saved carries.
 extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int train,
@@ -103,8 +114,8 @@ extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int trai
   p.origins = resp ? dummy : nullptr;
   p.quad = resp == 2;
   p.tin = train ? dummy : nullptr;
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || order < 0 ||
-      order > 3)
+  p.R = rays_per_tile;
+  if (!rays_ok(rays_per_tile) || order < 0 || order > 3)
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(p, sh_k, chunk, order == 3 ? 1 : order, 0, rays_per_tile, nullptr, out);
 }

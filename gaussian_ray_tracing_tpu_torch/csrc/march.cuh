@@ -20,7 +20,25 @@
 // coefficient count K = (degree + 1)^2 in {1, 4, 9, 16} and kTrain, the
 // saved carries of the training forward on the training rows (built for
 // the key kernel on every response and the window kernel on the scalar
-// one), each in a 256-ray and a 1024-ray build (kMaxR).
+// one), each in a 256-ray, a 1024-ray and a cluster build (kMaxR).
+//
+// Tiles of more than 1024 rays (a multiple of 128, up to 8192; the cluster
+// builds, kMaxR = kClusterR). One thread per ray stays, with the 1024-ray
+// build's registers and local lists: the tile is a thread-block cluster of
+// cluster_blocks(R) <= 8 blocks (the portable cluster size), each over a
+// slice of cluster_width(R) rays (a multiple of 128, so that a 128-ray fire
+// group of sort_lane_groups lies in one block; the last block's lanes past
+// R are idle, dead rays with no output). Each block stages the chunk's rows
+// in its own shared memory. Every decision that spans the tile is made
+// tile-wide through distributed shared memory (tile_reduce: the block's
+// value, then the blocks' in rank order, exact as a min or max): the chunk
+// skip, the window fire vote and key range and the band's ends where the
+// fire group is the tile, the stats maxima, merge order's fast test. The
+// per-ray-origin centroid sums the plain version's halving tree over all R
+// origins in every block (origin_centroid_tile), so o_bar is the plain
+// version's bit for bit though the tree's first level crosses blocks. A
+// cluster that the card cannot schedule fails at launch (and in the info
+// query), never on a smaller build.
 //
 // Window order. One block per 16x16 tile, one thread per ray (R =
 // blockDim.x; a 256-ray build, __launch_bounds__(256, 4), for the main
@@ -209,11 +227,14 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace k1 {
+
+namespace cg = cooperative_groups;
 
 constexpr float kInvA = (float)(1.0 / 32767.0);
 constexpr float kInvCol = (float)(1.0 / 255.75);
@@ -321,7 +342,45 @@ struct Params {
   float a_fire;           // sort_alpha_min: the fire test's candidates have a > a_fire
   int repair;             // sort_repair's band width w, 0 < w < C (render), else 0
   int* stats;             // (T, 2) fired and repaired chunks per tile, or null (render)
+  int R;                  // rays per tile (the cluster builds' tile; blockDim.x up to 1024)
 };
+
+// A tile of more than 1024 rays (a multiple of 128, up to 8192) is a
+// thread-block cluster of cluster_blocks(R) blocks of cluster_width(R)
+// threads: block `rank` of the cluster holds rays [rank * width, + width)
+// of the tile, a multiple of 128 rays each, so that sort_lane_groups' groups
+// of 128 rays lie in one block; the last block's lanes past R are idle (a
+// ray of zero direction, which no candidate reaches, and no output).
+__host__ __device__ constexpr int cluster_blocks(int R) { return (R + 1023) / 1024; }
+__host__ __device__ constexpr int cluster_width(int R) {
+  return (R + 128 * cluster_blocks(R) - 1) / (128 * cluster_blocks(R)) * 128;
+}
+// The cluster builds are the kMaxR = kClusterR instantiations.
+constexpr int kClusterR = 8192;
+// Floats of a cluster build's static red[]: four reductions of 32 warps, then
+// the 2 x 4 exchange slots of tile_reduce.
+constexpr int kClusterRed = 4 * 32 + 8;
+
+// The tile of this block, its rays and this thread's ray in it: one block
+// per tile up to 1024 rays; a cluster above (kCl, p.R rays a tile). K1's
+// and K3's Params alike.
+struct TileIdx {
+  int tile, R, ray;
+  bool valid;  // a ray of the tile (false on a cluster's idle lanes)
+  __device__ size_t idx() const { return (size_t)tile * R + ray; }
+};
+
+template <bool kCl, typename P>
+__device__ __forceinline__ TileIdx tile_index(const P& p) {
+  if constexpr (kCl) {
+    const cg::cluster_group cl = cg::this_cluster();
+    const int n = (int)cl.num_blocks();
+    const int ray = (int)cl.block_rank() * blockDim.x + threadIdx.x;
+    return {(int)blockIdx.x / n, p.R, ray, ray < p.R};
+  } else {
+    return {(int)blockIdx.x, (int)blockDim.x, (int)threadIdx.x, true};
+  }
+}
 
 // The reduction of v over this thread's fire group, the gw warps from warp
 // w0 = warp - warp % gw, in warp order (gw = blockDim.x / 32: the block,
@@ -363,6 +422,77 @@ __device__ __forceinline__ bool group_or(bool inv, float* red, int gw, bool& gro
     if (w >= w0 && w < w0 + gw) group |= red[w] != 0.f;
   }
   return any;
+}
+
+// The tile-wide reduction of N <= 4 values, each a max (take_max[k]) or a
+// min, into every thread of the tile. One block: block_reduce of each. A
+// cluster: each block's warps in warp order (red[32 k + warp]), then the
+// blocks' in rank order, read through distributed shared memory from each
+// block's exchange slots (red + 128: two sets of 4, alternating with
+// `par`, so that one cluster barrier per exchange keeps a slot from being
+// rewritten while another block still reads it: the next write to a slot
+// comes after the next exchange's barrier). Every thread of every block of
+// the tile must call it; the kernel ends with a cluster barrier, so that no
+// block leaves while another reads its slots. A min or max is exact in any
+// order, so each block of a cluster holds the value one block would.
+template <bool kCl, int N>
+__device__ __forceinline__ void tile_reduce(float (&v)[N], const bool (&take_max)[N], float* red,
+                                            int& par) {
+  if constexpr (!kCl) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = block_reduce(v[k], take_max[k], red);
+  } else {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      for (int o = 16; o > 0; o >>= 1) {
+        const float u = __shfl_xor_sync(0xffffffffu, v[k], o);
+        v[k] = take_max[k] ? fmaxf(v[k], u) : fminf(v[k], u);
+      }
+    float* xch = red + 4 * 32 + 4 * par;
+    __syncthreads();  // red[] may still be read by a previous reduction
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < N; ++k) red[32 * k + warp] = v[k];
+    __syncthreads();
+    if (threadIdx.x == 0)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        float s = red[32 * k];
+        for (int w = 1; w < n_warps; ++w)
+          s = take_max[k] ? fmaxf(s, red[32 * k + w]) : fminf(s, red[32 * k + w]);
+        xch[k] = s;
+      }
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    const int n = (int)cl.num_blocks();
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float s = cl.map_shared_rank(xch, 0)[k];
+      for (int r = 1; r < n; ++r) {
+        const float u = cl.map_shared_rank(xch, r)[k];
+        s = take_max[k] ? fmaxf(s, u) : fminf(s, u);
+      }
+      v[k] = s;
+    }
+    par ^= 1;
+  }
+}
+
+// tile_reduce of one value.
+template <bool kCl>
+__device__ __forceinline__ float tile_reduce1(float v, bool take_max, float* red, int& par) {
+  float x[1] = {v};
+  const bool m[1] = {take_max};
+  tile_reduce<kCl>(x, m, red, par);
+  return x[0];
+}
+
+// The end of a cluster build: no block leaves while another may still read
+// its exchange slots.
+template <bool kCl>
+__device__ __forceinline__ void tile_end() {
+  if constexpr (kCl) cg::this_cluster().sync();
 }
 
 __device__ __forceinline__ uint32_t pack_color(float r, float g, float b) {
@@ -646,13 +776,15 @@ __device__ __forceinline__ void add_packed(Composite& comp, float a, uint32_t cp
            (float)(cp & 1023u) * kInvCol, min_t);
 }
 
-__device__ __forceinline__ Ray load_ray(const Params& p) {
+// The ray of thread `ti`; an idle lane of a cluster gets a zero direction
+// (a dead ray, whose a is 0 on every candidate) and reads nothing.
+__device__ __forceinline__ Ray load_ray(const Params& p, const TileIdx& ti) {
   Ray ray;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t idx = ti.idx();
   const float* d = p.dirs + idx * 3;
-  ray.dx = d[0];
-  ray.dy = d[1];
-  ray.dz = d[2];
+  ray.dx = ti.valid ? d[0] : 0.f;
+  ray.dy = ti.valid ? d[1] : 0.f;
+  ray.dz = ti.valid ? d[2] : 0.f;
   ray.live = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz > 0.01f;
   ray.m0 = ray.dx * ray.dx;
   ray.m1 = ray.dy * ray.dy;
@@ -660,12 +792,12 @@ __device__ __forceinline__ Ray load_ray(const Params& p) {
   ray.m3 = 2.f * ray.dx * ray.dy;
   ray.m4 = 2.f * ray.dx * ray.dz;
   ray.m5 = 2.f * ray.dy * ray.dz;
-  const float* o = p.origins ? p.origins + idx * 3 : nullptr;
+  const float* o = p.origins && ti.valid ? p.origins + idx * 3 : nullptr;
   ray.ox = o ? o[0] : 0.f;
   ray.oy = o ? o[1] : 0.f;
   ray.oz = o ? o[2] : 0.f;
-  ray.t_lo = p.t_lo_arr ? p.t_lo_arr[idx] : p.t_lo;
-  ray.t_hi = p.t_hi_arr ? p.t_hi_arr[idx] : p.t_hi;
+  ray.t_lo = p.t_lo_arr && ti.valid ? p.t_lo_arr[idx] : p.t_lo;
+  ray.t_hi = p.t_hi_arr && ti.valid ? p.t_hi_arr[idx] : p.t_hi;
   return ray;
 }
 
@@ -692,6 +824,31 @@ __device__ __forceinline__ float3 origin_centroid(float* s, const Ray& ray) {
     n = h;
   }
   const float3 ob = make_float3(s[0] / (float)R, s[R] / (float)R, s[2 * R] / (float)R);
+  __syncthreads();  // s is staging memory next
+  return ob;
+}
+
+// origin_centroid of a cluster's tile: every block sums the same tree over
+// the tile's R origins, read from device memory (the first level as they
+// are read, value i + h of the tile into value i, across the blocks' ray
+// slices), the later levels in its own `s` (3 ceil(R / 2) floats), so that
+// each block holds the plain version's o_bar bit for bit.
+__device__ __forceinline__ float3 origin_centroid_tile(float* s, const Params& p,
+                                                       const TileIdx& ti) {
+  const int R = ti.R, h0 = (R + 1) / 2;
+  const float* o = p.origins + (size_t)ti.tile * R * 3;
+  for (int i = threadIdx.x; i < h0; i += blockDim.x)
+    for (int c = 0; c < 3; ++c)
+      s[c * h0 + i] = i < R - h0 ? o[3 * i + c] + o[3 * (i + h0) + c] : o[3 * i + c];
+  __syncthreads();
+  for (int n = h0; n > 1;) {
+    const int h = (n + 1) / 2;
+    for (int i = threadIdx.x; i < n - h; i += blockDim.x)
+      for (int c = 0; c < 3; ++c) s[c * h0 + i] = s[c * h0 + i] + s[c * h0 + i + h];
+    __syncthreads();
+    n = h;
+  }
+  const float3 ob = make_float3(s[0] / (float)R, s[h0] / (float)R, s[2 * h0] / (float)R);
   __syncthreads();  // s is staging memory next
   return ob;
 }
@@ -736,23 +893,28 @@ __device__ __forceinline__ void origin_quad_row(float* f, float3 ob) {
 
 // The ray of this thread, with the per-ray-origin quad terms where kR asks
 // for them (o_bar from `s`, as origin_centroid says: every thread calls it).
-template <int kR>
-__device__ __forceinline__ Ray load_ray_for(const Params& p, float* s, float3& ob) {
-  Ray ray = load_ray(p);
+template <int kR, bool kCl>
+__device__ __forceinline__ Ray load_ray_for(const Params& p, const TileIdx& ti, float* s,
+                                            float3& ob) {
+  Ray ray = load_ray(p, ti);
   ob = make_float3(0.f, 0.f, 0.f);
   if constexpr (kR == kOriginQuad) {
-    ob = origin_centroid(s, ray);
+    ob = kCl ? origin_centroid_tile(s, p, ti) : origin_centroid(s, ray);
     origin_quad_ray(ray, ob);
   }
   return ray;
 }
 
-__device__ __forceinline__ float carry_in(const Params& p) {
-  return p.t0 ? p.t0[(size_t)blockIdx.x * blockDim.x + threadIdx.x] : 1.f;
+// The carry-in T of the ray (0 on an idle lane: it never holds a chunk skip).
+__device__ __forceinline__ float carry_in(const Params& p, const TileIdx& ti) {
+  if (!ti.valid) return 0.f;
+  return p.t0 ? p.t0[ti.idx()] : 1.f;
 }
 
-__device__ __forceinline__ void store_ray(const Params& p, float r, float g, float b, float T) {
-  const size_t ray_idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void store_ray(const Params& p, const TileIdx& ti, float r, float g,
+                                          float b, float T) {
+  if (!ti.valid) return;
+  const size_t ray_idx = ti.idx();
   p.rgb[ray_idx * 3 + 0] = r;
   p.rgb[ray_idx * 3 + 1] = g;
   p.rgb[ray_idx * 3 + 2] = b;
@@ -813,26 +975,29 @@ __device__ __forceinline__ const float* stage_chunk(float* sf, float* thr, const
 constexpr int kWindowMinBlocks = 4;
 
 template <int C, int kR, int K, bool kTrain, int kMaxR>
-__global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
+__global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWindowMinBlocks : 1)
     march_kernel(Params p) {
   using L = Layout<kR, K, kTrain>;
   constexpr int W = L::w, kCol = L::col;
   constexpr int kStages = window_stages<C, W>();
+  constexpr bool kCl = kMaxR == kClusterR;
   extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
   float* thr = sf + kStages * C * W;             // C sure-miss thresholds
-  __shared__ float red[32];
+  __shared__ float red[kCl ? kClusterRed : 32];
 
-  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
+  const TileIdx ti = tile_index<kCl>(p);
+  const int tile = ti.tile, R = ti.R;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const int n_chunks = (n + C - 1) / C;
   float3 ob;
-  const Ray ray = load_ray_for<kR>(p, sf, ob);
+  const Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
-  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
+  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + ti.ray : nullptr;
+  int par = 0;  // tile_reduce's exchange slots (cluster builds)
 
-  float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   // the chunk's significant candidates in stream order, and a fired
   // chunk's sorted list (local memory, 9 C bytes)
   uint32_t keys[C];
@@ -852,9 +1017,9 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
   if (kStages == 2 && n_chunks > 0) stage_async<C, kR, K, kTrain>(sf, p, start, 0, min(C, n));
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
-    if (kTrain) tin[(size_t)j * R] = T;
+    if (kTrain && ti.valid) tin[(size_t)j * R] = T;
     // tile-wide chunk skip (T never changes once every ray is below it)
-    if (!skipped) skipped = block_reduce(T, true, red) <= p.t_skip;
+    if (!skipped) skipped = tile_reduce1<kCl>(T, true, red, par) <= p.t_skip;
     if (skipped) {
       if (!kTrain) break;
       continue;  // the remaining chunks' carries are still saved
@@ -890,8 +1055,19 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     }
     // the fire decision of this thread's group, and whether any group fired
     // (block-uniform: it decides who takes the group reductions below)
+    // (a cluster's tile-wide group: the vote and the key range in one
+    // exchange; its groups of 128 rays lie in one block, and `any` need
+    // only be block-uniform there)
     bool fired, any;
-    if (gw == (R >> 5)) {
+    const bool whole = gw == (R >> 5);
+    if (kCl && whole) {
+      float v[3] = {inv ? 1.f : 0.f, lo, hi};
+      const bool mx[3] = {true, false, true};
+      tile_reduce<kCl>(v, mx, red, par);
+      fired = any = v[0] != 0.f;
+      lo = v[1];
+      hi = v[2];
+    } else if (whole) {
       fired = any = __syncthreads_or(inv);
     } else {
       any = group_or(inv, red, gw, fired);
@@ -899,8 +1075,10 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
     bool fit = false;  // the repair band fits: i1 - i0 < w over the group
     int ws = 0;        // the band's window [ws, ws + w)
     if (any) {
-      lo = group_reduce(lo, false, red, gw);
-      hi = group_reduce(hi, true, red, gw);
+      if (!(kCl && whole)) {
+        lo = group_reduce(lo, false, red, gw);
+        hi = group_reduce(hi, true, red, gw);
+      }
       if (band) {
         // i0: the first significant candidate whose key lies above the
         // least key after it (pallas_march.py:866-871)
@@ -911,8 +1089,17 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
           if (t > smin) i0 = si[k];
           smin = fminf(smin, t);
         }
-        const int g0 = (int)group_reduce((float)i0, false, red, gw);
-        const int g1 = (int)group_reduce((float)i1, true, red, gw);
+        int g0, g1;
+        if (kCl && whole) {
+          float v[2] = {(float)i0, (float)i1};
+          const bool mx[2] = {false, true};
+          tile_reduce<kCl>(v, mx, red, par);
+          g0 = (int)v[0];
+          g1 = (int)v[1];
+        } else {
+          g0 = (int)group_reduce((float)i0, false, red, gw);
+          g1 = (int)group_reduce((float)i1, true, red, gw);
+        }
         fit = g1 - g0 < rw;
         ws = min(g0, C - rw);
       }
@@ -978,15 +1165,17 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
   }
   cp_async_wait<0>();  // a skipped tile's prefetch
   if (!kTrain && p.stats) {  // per tile, the most chunks any fire group sorted (JAX's max)
-    const float f = block_reduce((float)n_fired, true, red);
-    const float r = block_reduce((float)n_repaired, true, red);
-    if (tid == 0) {
-      p.stats[2 * tile] = (int)f;
-      p.stats[2 * tile + 1] = (int)r;
+    float v[2] = {(float)n_fired, (float)n_repaired};
+    const bool mx[2] = {true, true};
+    tile_reduce<kCl>(v, mx, red, par);
+    if (ti.ray == 0) {
+      p.stats[2 * tile] = (int)v[0];
+      p.stats[2 * tile + 1] = (int)v[1];
     }
   }
 
-  store_ray(p, acc_r, acc_g, acc_b, T);
+  store_ray(p, ti, acc_r, acc_g, acc_b, T);
+  tile_end<kCl>();
 }
 
 // Blocks per SM the 256-ray key kernel is built for (its register cap). At
@@ -996,32 +1185,35 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kWindowMinBlocks : 1)
 constexpr int kKeyMinBlocks = 3, kKeyBlocks = 4;
 
 template <int C, int kR, int K, bool kTrain, int kMaxR>
-__global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kKeyMinBlocks : 1)
+__global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kKeyMinBlocks : 1)
     march_key_kernel(Params p) {
   using L = Layout<kR, K, kTrain>;
   constexpr int W = L::w, kCol = L::col;
   constexpr int kStages = window_stages<C, W>();
+  constexpr bool kCl = kMaxR == kClusterR;
   extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
   float* thr = sf + kStages * C * W;             // C sure-miss thresholds
-  __shared__ float red[32];
+  __shared__ float red[kCl ? kClusterRed : 32];
 
-  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
+  const TileIdx ti = tile_index<kCl>(p);
+  const int tile = ti.tile, R = ti.R;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const int n_chunks = (n + C - 1) / C;
   float3 ob;
-  const Ray ray = load_ray_for<kR>(p, sf, ob);
+  const Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
   const bool fast_gate = p.full_range != 0;
-  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + tid : nullptr;
+  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + ti.ray : nullptr;
+  int par = 0;  // tile_reduce's exchange slots (cluster builds)
 
-  float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   if (kStages == 2 && n_chunks > 0) stage_async<C, kR, K, kTrain>(sf, p, start, 0, min(C, n));
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
-    if (kTrain) tin[(size_t)j * R] = T;
-    if (!skipped) skipped = block_reduce(T, true, red) <= p.t_skip;
+    if (kTrain && ti.valid) tin[(size_t)j * R] = T;
+    if (!skipped) skipped = tile_reduce1<kCl>(T, true, red, par) <= p.t_skip;
     if (skipped) {
       if (!kTrain) break;
       continue;  // the remaining chunks' carries are still saved
@@ -1051,7 +1243,8 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kKeyMinBlocks : 1)
     acc_b += comp.b;
   }
   cp_async_wait<0>();  // a skipped tile's prefetch
-  store_ray(p, acc_r, acc_g, acc_b, T);
+  store_ray(p, ti, acc_r, acc_g, acc_b, T);
+  tile_end<kCl>();
 }
 
 // Shared memory of the merge kernel past its C * W staged floats: C
@@ -1068,20 +1261,22 @@ __host__ __device__ constexpr int merge_smem_bytes(int R) {
 constexpr int kMergeMinBlocks = 2;
 
 template <int C, int kR, int K, int kMaxR>
-__global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
+__global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kMergeMinBlocks : 1)
     march_merge_kernel(Params p) {
   using L = Layout<kR, K, false>;
   constexpr int W = L::w, kCol = L::col, kWords = C / 32;
+  constexpr bool kCl = kMaxR == kClusterR;
   extern __shared__ __align__(16) float sf[];  // merge_smem_bytes
   float* thr = sf + C * W;
   uint32_t* mask = reinterpret_cast<uint32_t*>(thr + C);
-  __shared__ float red[32];
+  __shared__ float red[kCl ? kClusterRed : 32];
 
-  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
+  const TileIdx ti = tile_index<kCl>(p);
+  const int tile = ti.tile, R = blockDim.x, tid = threadIdx.x;  // R: the block's rays (masks)
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   float3 ob;
-  const Ray ray = load_ray_for<kR>(p, sf, ob);
+  const Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
 
@@ -1107,10 +1302,11 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
   bool fresh = true;  // block-uniform: no chunk marched yet, so the pending buffer is C empties
   int32_t pend_max = INT32_MIN;  // largest key of a significant pending slot
   const bool peak = p.peak != 0, fast_gate = peak && p.full_range != 0;
-  float T = carry_in(p), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  int par = 0;  // tile_reduce's exchange slots (cluster builds)
+  float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   for (int j = 0; j * C < n; ++j) {
     // tile-wide chunk skip (T never changes once every ray is below it)
-    if (block_reduce(T, true, red) <= p.t_skip) break;
+    if (tile_reduce1<kCl>(T, true, red, par) <= p.t_skip) break;
     const int m = min(C, n - j * C);
     stage_chunk<C, kR, K, false, 1>(sf, thr, p, start, j, n, ob);
 
@@ -1155,7 +1351,12 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
         word = 0;
       }
     }
-    const bool fast = __syncthreads_and(!inv && new_min >= pend_max);
+    const bool ok = !inv && new_min >= pend_max;
+    bool fast;
+    if constexpr (kCl)
+      fast = tile_reduce1<kCl>(ok ? 1.f : 0.f, false, red, par) != 0.f;
+    else
+      fast = __syncthreads_and(ok);
 
     Composite comp(T, p.scan);
     if (fast) {  // the pending buffer composites; the chunk (sorted) replaces it
@@ -1232,7 +1433,8 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? kMergeMinBlocks : 1)
   if (!fresh) composite_pending(comp, cur);
   const float t_next = comp.t_next();
   T = T > p.min_t ? t_next : T;
-  store_ray(p, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
+  store_ray(p, ti, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
+  tile_end<kCl>();
 }
 
 // Resident 256-ray blocks per SM: ask for the smallest shared-memory
@@ -1263,41 +1465,100 @@ cudaError_t blocks_per_sm(Kernel kernel, int& smem, int n) {
 // the window and key kernels double-buffer; C thresholds besides, and the
 // merge kernel's masks), above 48 KB only after opting in. Each order and
 // response has a 256-ray build (the main path's 16x16 tiles; the window and
-// merge kernels run two blocks per SM, the key kernel at most four) and a
+// merge kernels run two blocks per SM, the key kernel at most four), a
 // 1024-ray one (one block per SM, at most 64 registers a thread) for tiles
-// of 288 to 1024 rays. Saved carries (the training forward, either build)
+// of 288 to 1024 rays and a cluster build (cluster_launch) for 1152 to 8192. Saved carries (the training forward, either build)
 // run the key kernel on any response and the window kernel on the scalar
 // one (per-ray origins, each the eye on the primary render), as JAX's
 // training forwards do (pallas_march.py:1659-1665); merge order never
 // trains. With `info` non-null nothing is launched: info receives the
 // kernel's resident blocks per SM at R rays, its dynamic shared memory,
 // registers per thread and local memory per thread.
+// One launch of a cluster build (kMaxR = kClusterR): n_tiles clusters of
+// cluster_blocks(R) blocks of cluster_width(R) threads, by
+// cudaLaunchKernelEx with a cluster-dimension attribute. With `info`
+// non-null nothing is launched: info as launch_mode's, and info[4] the
+// blocks of a cluster, info[5] the clusters that can be resident at once
+// (cudaOccupancyMaxActiveClusters); none resident is an error, so that a
+// cluster the card cannot schedule fails loudly, never on a smaller build.
+template <typename P>
+cudaError_t cluster_launch(void (*kernel)(P), const P& p, int n_tiles, int R, int smem,
+                           cudaStream_t stream, int* info) {
+  if (smem + 1024 > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int n = cluster_blocks(R), width = cluster_width(R);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((n_tiles > 0 ? n_tiles : 1) * n));
+  cfg.blockDim = dim3((unsigned)width);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (info) {
+    cudaFuncAttributes fa{};
+    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, width, smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&info[5], kernel, &cfg);
+    info[1] = smem;
+    info[2] = fa.numRegs;
+    info[3] = (int)fa.localSizeBytes;
+    info[4] = n;
+    if (err == cudaSuccess && info[5] < 1) err = cudaErrorLaunchOutOfResources;
+    return err;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <int C, int kR, int K>
 cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStream_t stream,
                         int* info) {
   constexpr int W = Layout<kR, K, false>::w;
+  const bool cl = R > 1024;   // the cluster builds
   const bool wide = R > 256;  // the 1024-ray builds
+  constexpr int kCR = kClusterR;
   void (*kernel)(Params) =
-      order == 2   ? (wide ? march_merge_kernel<C, kR, K, 1024> : march_merge_kernel<C, kR, K, 256>)
-      : order == 1 ? (wide ? march_key_kernel<C, kR, K, false, 1024>
-                           : march_key_kernel<C, kR, K, false, 256>)
+      order == 2   ? (cl     ? march_merge_kernel<C, kR, K, kCR>
+                      : wide ? march_merge_kernel<C, kR, K, 1024>
+                             : march_merge_kernel<C, kR, K, 256>)
+      : order == 1 ? (cl     ? march_key_kernel<C, kR, K, false, kCR>
+                      : wide ? march_key_kernel<C, kR, K, false, 1024>
+                             : march_key_kernel<C, kR, K, false, 256>)
+      : cl         ? march_kernel<C, kR, K, false, kCR>
       : wide       ? march_kernel<C, kR, K, false, 1024>
                    : march_kernel<C, kR, K, false, 256>;
-  int smem = order == 2 ? merge_smem_bytes<C, W>(R) : staged_smem_bytes<C, W>();
+  const int width = cl ? cluster_width(R) : R;  // threads a block
+  int smem = order == 2 ? merge_smem_bytes<C, W>(width) : staged_smem_bytes<C, W>();
   if (p.tin) {
     if (order == 2 || (order == 0 && kR != kScalar)) return cudaErrorInvalidValue;
     if constexpr (kR == kScalar) {
       if (order == 0)
-        kernel = wide ? march_kernel<C, kR, K, true, 1024> : march_kernel<C, kR, K, true, 256>;
+        kernel = cl     ? march_kernel<C, kR, K, true, kCR>
+                 : wide ? march_kernel<C, kR, K, true, 1024>
+                        : march_kernel<C, kR, K, true, 256>;
     }
     if (order == 1) {
-      kernel = wide ? march_key_kernel<C, kR, K, true, 1024> : march_key_kernel<C, kR, K, true, 256>;
+      kernel = cl     ? march_key_kernel<C, kR, K, true, kCR>
+               : wide ? march_key_kernel<C, kR, K, true, 1024>
+                      : march_key_kernel<C, kR, K, true, 256>;
       smem = staged_smem_bytes<C, Layout<kR, K, true>::w>();
     }
   }
   // the origin centroid's halving tree takes 3R floats of the same memory
-  // (more than the staging of a small chunk holds at 1024 rays)
-  if (kR == kOriginQuad && smem < 3 * R * (int)sizeof(float)) smem = 3 * R * (int)sizeof(float);
+  // (more than the staging of a small chunk holds at 1024 rays; a cluster
+  // build's, 3 ceil(R / 2): origin_centroid_tile)
+  const int tree = (int)sizeof(float) * 3 * (cl ? (R + 1) / 2 : R);
+  if (kR == kOriginQuad && smem < tree) smem = tree;
+  if (cl) return cluster_launch(kernel, p, n_tiles, R, smem, stream, info);
   // the static red[32] counts against the 48 KB that needs no opt-in
   if (R <= 256) {
     const cudaError_t err = blocks_per_sm(kernel, smem, order == 1 ? kKeyBlocks : 2);

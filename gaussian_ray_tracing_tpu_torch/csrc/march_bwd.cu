@@ -24,6 +24,12 @@ static cudaError_t dispatch(const k3::Params& p, int sh_k, bool window, int chun
   }
 }
 
+// Rays per tile the kernels take: a multiple of 32 up to 1024 (one block),
+// or a multiple of 128 up to 8192 (a cluster of up to 8 blocks).
+static bool rays_ok(int R) {
+  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R <= 8192 && R % 128 == 0);
+}
+
 // window: 0 key order, 1 window order (the training sort replay). sh_k:
 // SH coefficients per channel, K = 1, 4, 9 or 16. stride: floats per
 // training row, at least 29 + 3K (32 at SH 0). origins (T, R, 3), t_lo_arr
@@ -37,8 +43,8 @@ extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const v
                              int sh_k, float t_lo, float t_hi, float min_t, float alpha_min,
                              float alpha_clamp, int hit_multiplicity, int peak,
                              void* stream) {
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
-      stride < (sh_k == 1 ? 32 : 29 + 3 * sh_k) || hit_multiplicity < 1 ||
+  if (!rays_ok(rays_per_tile) || n_tiles < 0 || stride < (sh_k == 1 ? 32 : 29 + 3 * sh_k) ||
+      hit_multiplicity < 1 ||
       stride % 4 != 0 || ((uintptr_t)rows & 15) != 0)  // rows are staged in 16-byte copies
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
@@ -47,7 +53,7 @@ extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const v
            (const float*)eye, (const float*)tin, (const float*)d_rgb, (const float*)d_tfinal,
            (float*)d_rows, (const float*)origins, (const float*)t_lo_arr,
            (const float*)t_hi_arr, stride, t_lo, t_hi, min_t, alpha_min, alpha_clamp,
-           hit_multiplicity, peak != 0};
+           hit_multiplicity, peak != 0, rays_per_tile};
   cudaStream_t s = (cudaStream_t)stream;
   const bool w = window != 0;
   return (int)dispatch(p, sh_k, w, chunk, n_tiles, rays_per_tile, s, nullptr);
@@ -55,15 +61,15 @@ extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const v
 
 // What grt_march_bwd would launch, without launching: out[0] resident
 // blocks per SM at rays_per_tile rays, out[1] dynamic shared memory bytes,
-// out[2] registers per thread, out[3] local memory bytes per thread.
-// origins: per-ray origins.
+// out[2] registers per thread, out[3] local memory bytes per thread; above
+// 1024 rays out[4] and out[5] as grt_march_info's. origins: per-ray origins.
 extern "C" int grt_march_bwd_info(int chunk, int window, int sh_k, int origins,
                                   int rays_per_tile, int* out) {
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024)
-    return (int)cudaErrorInvalidValue;
+  if (!rays_ok(rays_per_tile)) return (int)cudaErrorInvalidValue;
   static float dummy[4];
   k3::Params p{};
   p.origins = origins ? dummy : nullptr;
+  p.R = rays_per_tile;
   return (int)dispatch(p, sh_k, window != 0, chunk, 0, rays_per_tile, nullptr, out);
 }
 

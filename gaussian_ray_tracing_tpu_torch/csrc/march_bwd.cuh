@@ -73,7 +73,15 @@
 //      order (c = 128, two buffers) 100 KB, two blocks per SM. The 1024-ray
 //      build keeps the same sums in the same order over 32 warps: 128 KB
 //      of partials at SH 3, with one staging buffer at c = 256 (196 KB of
-//      the 227 KB a block may take).
+//      the 227 KB a block may take). A tile of more than 1024 rays (a
+//      multiple of 128, up to 8192) is a thread-block cluster of blocks of
+//      up to 1024 rays (k1::cluster_blocks, k1::cluster_width; the cluster
+//      build): each block sums its warps in warp order, in double, into one
+//      of two exchange slots (16 KB at SH 3), and after one cluster barrier
+//      the block that writes candidate gi (gi % n) adds the n blocks'
+//      slots in rank order through distributed shared memory, in double,
+//      and rounds once to float; no atomics, so launches stay bit-identical. The skip replay and the window fire
+//      test and key range are tile-wide (k1::tile_reduce).
 // Each stream row belongs to one (tile, chunk): a block writes only rows
 // [starts[t], starts[t+1]) of its own tile (the TPU kernel's write-then-
 // overwrite of a tail chunk's overshoot rows relies on sequential grid
@@ -125,16 +133,25 @@ __host__ __device__ constexpr int rounds() {
 // Staging buffers: two (chunk j-1's rows copied while chunk j replays)
 // where two blocks of 8 warps still fit on an SM (the 256-ray build) or
 // one block of 32 warps fits (the 1024-ray build), else one.
+// A cluster build (kMaxR = k1::kClusterR, blocks of up to 1024 rays)
+// stages as the 1024-ray build, beside its two exchange slots of a group's
+// sums in double (xs_floats: floats of room).
+template <int K, int kMaxR>
+__host__ __device__ constexpr int xs_floats() {
+  return kMaxR == k1::kClusterR ? 2 * 2 * kGroup * 32 * rounds<K>() : 0;
+}
 template <int C, int K, int kMaxR>
 __host__ __device__ constexpr int stages() {
-  return (2 * C * Staged<K>::w + kMaxR / 32 * kGroup * 32 * rounds<K>()) * 4 <=
+  return (2 * C * Staged<K>::w + (kMaxR < 1024 ? kMaxR : 1024) / 32 * kGroup * 32 * rounds<K>() +
+          xs_floats<K, kMaxR>()) * 4 <=
                  (kMaxR == 256 ? 113 * 1024 : kBwdMaxSmem)
              ? 2
              : 1;
 }
 template <int C, int K, int kMaxR>
 __host__ __device__ constexpr int smem_floats(int n_warps) {
-  return stages<C, K, kMaxR>() * C * Staged<K>::w + n_warps * kGroup * 32 * rounds<K>();
+  return stages<C, K, kMaxR>() * C * Staged<K>::w + n_warps * kGroup * 32 * rounds<K>() +
+         xs_floats<K, kMaxR>();
 }
 
 struct Params {
@@ -154,7 +171,9 @@ struct Params {
   float t_lo, t_hi, min_t, alpha_min, alpha_clamp;
   int hm;
   int peak;               // window_key "peak": the window replay's order key is t*
+  int R;                  // rays per tile (the cluster builds' tile; blockDim.x up to 1024)
 };
+
 
 __device__ __forceinline__ float ipow(float x, int k) {
   float r = x;
@@ -334,35 +353,46 @@ __device__ __forceinline__ void stage_async(float* sf, const Params& p, size_t r
 }
 
 template <int C, int K, bool kWindow, bool kOrig, int kMaxR>
-__global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? 2 : 1) march_bwd_kernel(Params p) {
+__global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 1)
+    march_bwd_kernel(Params p) {
   constexpr int kS = Staged<K>::w;  // staged floats per candidate
   constexpr int NR = rounds<K>(), TP = 32 * NR, NW = C / 32;
   constexpr int kStages = stages<C, K, kMaxR>();
+  constexpr bool kCl = kMaxR == k1::kClusterR;
   extern __shared__ __align__(16) float smem[];
   float* part = smem + kStages * C * kS;  // n_warps x kGroup x TP partial sums
-  __shared__ float red[32];
+  __shared__ float red[kCl ? k1::kClusterRed : 32];
 
-  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = R >> 5;
+  const k1::TileIdx ti = k1::tile_index<kCl>(p);
+  const int tile = ti.tile, R = ti.R, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  // a cluster's two exchange slots of a group's sums (double), after the
+  // partials (an offset of whole groups of 512 floats: 8-byte aligned)
+  double* xs = reinterpret_cast<double*>(part + (size_t)n_warps * kGroup * TP);
+  int par = 0, xpar = 0;  // the cluster builds' exchange slots (red's, xs's)
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const int n_chunks = (n + C - 1) / C;
-  const size_t ray = (size_t)tile * R + tid;
+  const size_t ray = ti.idx();
 
-  const float dx = p.dirs[ray * 3 + 0], dy = p.dirs[ray * 3 + 1], dz = p.dirs[ray * 3 + 2];
+  // an idle lane of a cluster: a dead ray with no gradient and no carry
+  const bool ok = ti.valid;
+  const float dx = ok ? p.dirs[ray * 3 + 0] : 0.f, dy = ok ? p.dirs[ray * 3 + 1] : 0.f,
+              dz = ok ? p.dirs[ray * 3 + 2] : 0.f;
   const bool live = dx * dx + dy * dy + dz * dz > 0.01f;
-  RayB rb{dx, dy, dz, 0.f, 0.f, 0.f, p.t_lo_arr ? p.t_lo_arr[ray] : p.t_lo,
-          p.t_hi_arr ? p.t_hi_arr[ray] : p.t_hi, live};
-  if (kOrig) {
+  RayB rb{dx, dy, dz, 0.f, 0.f, 0.f, p.t_lo_arr && ok ? p.t_lo_arr[ray] : p.t_lo,
+          p.t_hi_arr && ok ? p.t_hi_arr[ray] : p.t_hi, live};
+  if (kOrig && ok) {
     rb.ox = p.origins[ray * 3 + 0];
     rb.oy = p.origins[ray * 3 + 1];
     rb.oz = p.origins[ray * 3 + 2];
   }
-  const float dR[3] = {p.d_rgb[ray * 3 + 0], p.d_rgb[ray * 3 + 1], p.d_rgb[ray * 3 + 2]};
+  const float dR[3] = {ok ? p.d_rgb[ray * 3 + 0] : 0.f, ok ? p.d_rgb[ray * 3 + 1] : 0.f,
+                       ok ? p.d_rgb[ray * 3 + 2] : 0.f};
   float basis[K];
   if (K > 1) k1::sh_basis<K>(dx, dy, dz, basis);
-  float dT = p.d_tfinal[ray];
-  const float* tin = p.tin + (size_t)p.chunk_base[tile] * R + tid;
+  float dT = ok ? p.d_tfinal[ray] : 0.f;
+  const float* tin = p.tin + (size_t)p.chunk_base[tile] * R + ti.ray;
   // window replay, per SIGNIFICANT candidate in stream order (compact
   // index): a then d_a, the colour pack then w, and the listed order
   // (event t bits, then the sort keys); local memory, touched only by the
@@ -372,9 +402,9 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? 2 : 1) march_bwd_kernel(
 
   int staged = -1;  // the chunk whose rows are in flight to its buffer
   for (int j = n_chunks - 1; j >= 0; --j) {
-    const float t_in = tin[(size_t)j * R];
+    const float t_in = ok ? tin[(size_t)j * R] : 0.f;
     // skip replay (its barrier also ends the previous chunk's reads)
-    if (k1::block_reduce(t_in, true, red) <= p.min_t) {
+    if (k1::tile_reduce1<kCl>(t_in, true, red, par) <= p.min_t) {
       if (staged == j) {  // T never rises, so this does not happen; but never
         k1::cp_async_wait<0>();  // leave a copy in flight to a buffer in use
         staged = -1;
@@ -426,10 +456,22 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? 2 : 1) march_bwd_kernel(
       // ---- the listed order: K1's fire test; a fired chunk sorts by the
       // unique key (tq16 << 8) | src, here with the compact index in place
       // of src (the same order: both ascend with the stream) ----
-      const bool fired = __syncthreads_or(inv);
+      bool fired;
+      if constexpr (kCl) {  // the vote and the key range in one exchange
+        float v[3] = {inv ? 1.f : 0.f, lo, hi};
+        const bool mx[3] = {true, false, true};
+        k1::tile_reduce<kCl>(v, mx, red, par);
+        fired = v[0] != 0.f;
+        lo = v[1];
+        hi = v[2];
+      } else {
+        fired = __syncthreads_or(inv);
+      }
       if (fired) {
-        lo = k1::block_reduce(lo, false, red);
-        hi = k1::block_reduce(hi, true, red);
+        if constexpr (!kCl) {
+          lo = k1::block_reduce(lo, false, red);
+          hi = k1::block_reduce(hi, true, red);
+        }
         const float scale = 65534.f / fmaxf(hi - lo, 1e-20f);
         for (int k = 0; k < ns; ++k) {
           const float t_ev = __uint_as_float(keys[k]);  // read before the list grows to k
@@ -621,15 +663,42 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? 2 : 1) march_bwd_kernel(
       }
       __syncthreads();  // every warp's partials of this group are in
 
-      // the warps in order, one (candidate, term) per thread, into warp 0's slot
-      for (int q = tid; q < gn * TP; q += R) {
-        float s = part[q];
-        for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
-        part[q] = s;
+      // the warps in order, one (candidate, term) per thread, into warp 0's
+      // slot; a cluster: in double, into this block's exchange slot, then
+      // the blocks' sums in rank order into warp 0's slot of the block that
+      // finishes the candidate (candidate gi: block gi % n), no atomics. The
+      // double sums keep the 64-256 warps' partials of a tile from rounding
+      // at every add, where the M columns cancel (the 1024-ray build adds its
+      // 32 in float32, as it did)
+      int g_first = 0, g_step = 1;  // the candidates this block finishes
+      if constexpr (kCl) {
+        double* x = xs + (size_t)xpar * kGroup * TP;
+        for (int q = tid; q < gn * TP; q += blockDim.x) {
+          double s = part[q];
+          for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
+          x[q] = s;
+        }
+        k1::cg::cluster_group cl = k1::cg::this_cluster();
+        cl.sync();
+        g_first = (int)cl.block_rank();
+        g_step = (int)cl.num_blocks();
+        for (int q = tid; q < gn * TP; q += blockDim.x) {
+          if ((q / TP) % g_step != g_first) continue;
+          double s = cl.map_shared_rank(x, 0)[q];
+          for (int r = 1; r < g_step; ++r) s += cl.map_shared_rank(x, r)[q];
+          part[q] = (float)s;
+        }
+        xpar ^= 1;
+      } else {
+        for (int q = tid; q < gn * TP; q += R) {
+          float s = part[q];
+          for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
+          part[q] = s;
+        }
       }
       __syncthreads();
 
-      for (int gi = tid; gi < gn; gi += R) {
+      for (int gi = g_first + g_step * tid; gi < gn; gi += g_step * (int)blockDim.x) {
         const float* r = part + (size_t)gi * TP;
         const Cand c = load_cand<K, kOrig>(sf + (g0 + gi) * kS, p.eye);
         float* out = p.d_rows + (row0 + g0 + gi) * p.stride;
@@ -667,6 +736,7 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? 2 : 1) march_bwd_kernel(
     }
   }
   k1::cp_async_wait<0>();
+  k1::tile_end<kCl>();
 }
 
 // One launch of the 256-ray build (R <= 256) or the 1024-ray one, or with
@@ -674,8 +744,11 @@ __global__ void __launch_bounds__(kMaxR, kMaxR == 256 ? 2 : 1) march_bwd_kernel(
 // shared memory, registers and local memory per thread.
 template <int C, int K, bool kWindow, bool kOrig, int kMaxR>
 cudaError_t launch_r(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
-  const int smem = (int)sizeof(float) * smem_floats<C, K, kMaxR>(R / 32);
-  auto kernel = march_bwd_kernel<C, K, kWindow, kOrig, kMaxR>;
+  constexpr bool kCl = kMaxR == k1::kClusterR;
+  const int width = kCl ? k1::cluster_width(R) : R;  // threads a block
+  const int smem = (int)sizeof(float) * smem_floats<C, K, kMaxR>(width / 32);
+  void (*kernel)(Params) = march_bwd_kernel<C, K, kWindow, kOrig, kMaxR>;
+  if (kCl) return k1::cluster_launch(kernel, p, n_tiles, R, smem, stream, info);
   // the static red[32] counts against the 48 KB that needs no opt-in
   if (smem + 1024 > 48 * 1024) {
     const cudaError_t err =
@@ -698,8 +771,9 @@ cudaError_t launch_r(const Params& p, int n_tiles, int R, cudaStream_t stream, i
 
 template <int C, int K, bool kWindow, bool kOrig>
 cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
-  return R <= 256 ? launch_r<C, K, kWindow, kOrig, 256>(p, n_tiles, R, stream, info)
-                  : launch_r<C, K, kWindow, kOrig, 1024>(p, n_tiles, R, stream, info);
+  return R <= 256    ? launch_r<C, K, kWindow, kOrig, 256>(p, n_tiles, R, stream, info)
+         : R <= 1024 ? launch_r<C, K, kWindow, kOrig, 1024>(p, n_tiles, R, stream, info)
+                     : launch_r<C, K, kWindow, kOrig, k1::kClusterR>(p, n_tiles, R, stream, info);
 }
 
 template <int K, bool kWindow, bool kOrig>

@@ -5,7 +5,18 @@
 // ops/tri.py, whose plain torch version `closest_hit_blocks_plain` is the
 // reference this kernel is tested against.
 //
-// One block per tile, one thread per ray (R = blockDim.x). The tile's
+// One block per tile, one thread per ray (R = blockDim.x), up to 1024
+// rays a tile; a tile of more (a multiple of 128, up to 8192) is split into
+// S = ceil(R / 1024) blocks, each over a slice of its rays (a multiple of 32
+// wide; the last slice's lanes past R are idle: a zero direction, no output),
+// each walking the tile's whole block list on its own. Nothing in this
+// kernel spans the tile: a ray's hit depends on its own tests alone, and
+// every pretest below only skips work that no ray of the block needs (a
+// block that no ray of the slice may hit holds no face that any ray of the
+// slice accepts before its best hit), so each slice skips a subset of what
+// it may and its rays' outputs are the whole tile's bit for bit. Only the
+// counts (Params::stats) are per slice: a block that two slices stage
+// counts twice. The tile's
 // listed 256-face blocks hold 256 rows of 9 floats [v0, e1, e2] (9 KB);
 // every ray of the tile tests the faces of the blocks it may hit:
 // double-sided Moller-Trumbore, determinant guard 1e-12, barycentric
@@ -79,8 +90,10 @@ struct Params {
   // (T, kStats) what each tile ran: blocks staged, (ray, block) pairs that
   // passed the block pretest, (warp, block) pairs that tested a row,
   // (warp, row) pairs tested, (ray, face) pairs that reached the divide
-  int* stats;
+  int* stats;             // (T * splits, kStats): each slice's counts
   float t_min, t_max;
+  int R;       // rays per tile
+  int splits;  // blocks per tile, S = ceil(R / 1024)
 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -215,14 +228,17 @@ __global__ void __launch_bounds__(1024) tri_kernel(Params p) {
   __shared__ float4 rs[2][kGroup * kRows];  // the staged blocks' row bounds
   __shared__ int counts[kStats - 1];
 
-  const int tile = blockIdx.x, R = blockDim.x, tid = threadIdx.x;
+  const int tile = blockIdx.x / p.splits, tid = threadIdx.x;
+  const int r_in = (blockIdx.x % p.splits) * blockDim.x + tid;  // the ray in its tile
+  const bool valid = r_in < p.R;  // an idle lane: a dead ray, no output
   if (tid < kStats - 1) counts[tid] = 0;
-  const size_t ray = (size_t)tile * R + tid;
+  const size_t ray = (size_t)tile * p.R + r_in;
   const int start = p.starts[tile];
   const int* listed = p.blocks + start / kFaces;
   const int n_chunks = (p.starts[tile + 1] - start + kFaces - 1) / kFaces;
-  const float dx = p.dirs[ray * 3 + 0], dy = p.dirs[ray * 3 + 1], dz = p.dirs[ray * 3 + 2];
-  const float* o = p.origins ? p.origins + ray * 3 : p.eye;
+  const float dx = valid ? p.dirs[ray * 3 + 0] : 0.f, dy = valid ? p.dirs[ray * 3 + 1] : 0.f,
+              dz = valid ? p.dirs[ray * 3 + 2] : 0.f;
+  const float* o = p.origins && valid ? p.origins + ray * 3 : p.eye;
   const float ox = o[0], oy = o[1], oz = o[2];
   const float dl2 = dx * dx + dy * dy + dz * dz, dlen = sqrtf(dl2);
   const Ray r{ox, oy, oz, dx, dy, dz, dl2, dlen, dlen <= kMaxDir ? dlen : INFINITY};
@@ -320,10 +336,12 @@ __global__ void __launch_bounds__(1024) tri_kernel(Params p) {
     j = jn;
     buf ^= 1;
   }
-  p.t_out[ray] = best_t >= kMiss ? INFINITY : best_t;
-  p.face_out[ray] = best_f;
-  p.u_out[ray] = best_u;
-  p.v_out[ray] = best_v;
+  if (valid) {
+    p.t_out[ray] = best_t >= kMiss ? INFINITY : best_t;
+    p.face_out[ray] = best_f;
+    p.u_out[ray] = best_u;
+    p.v_out[ray] = best_v;
+  }
 
   __syncthreads();  // counts[] zeroed
   needed = __reduce_add_sync(0xffffffffu, needed);
@@ -335,25 +353,42 @@ __global__ void __launch_bounds__(1024) tri_kernel(Params p) {
     atomicAdd(&counts[3], divided);
   }
   __syncthreads();
-  if (tid < kStats) p.stats[(size_t)tile * kStats + tid] = tid == 0 ? staged : counts[tid - 1];
+  if (tid < kStats) p.stats[(size_t)blockIdx.x * kStats + tid] = tid == 0 ? staged : counts[tid - 1];
 }
 
 }  // namespace
 
-// origins may be null (every ray starts at eye). Returns a cudaError_t.
+// Rays per tile the kernel takes: a multiple of 32 up to 1024 (one block),
+// or a multiple of 128 up to 8192 (split into blocks of up to 1024).
+static bool rays_ok(int R) {
+  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R <= 8192 && R % 128 == 0);
+}
+// Blocks a tile of R rays is split into, and the rays of each (a multiple
+// of 32, so that every warp of a slice lies in it).
+static int tile_splits(int R) { return (R + 1023) / 1024; }
+static int split_width(int R) {
+  const int s = tile_splits(R);
+  return (R + 32 * s - 1) / (32 * s) * 32;
+}
+
+// origins may be null (every ray starts at eye). stats: (n_tiles *
+// ceil(rays_per_tile / 1024), 5) int32, each slice's counts, slice s of
+// tile t at row t * ceil(rays_per_tile / 1024) + s. Returns a cudaError_t.
 extern "C" int grt_closest_hit(const void* starts, const void* blocks, const void* faces,
                                const void* bounds, const void* dirs, const void* origins,
                                const void* eye, void* t_out, void* face_out, void* u_out,
                                void* v_out, void* stats, int n_tiles, int rays_per_tile,
                                float t_min, float t_max, void* stream) {
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024 || n_tiles < 0 ||
-      ((size_t)faces & 15) != 0 || ((size_t)bounds & 15) != 0 || !bounds || !stats)
+  if (!rays_ok(rays_per_tile) || n_tiles < 0 || ((size_t)faces & 15) != 0 ||
+      ((size_t)bounds & 15) != 0 || !bounds || !stats)
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
+  const int splits = tile_splits(rays_per_tile);
   Params p{(const int*)starts, (const int*)blocks, (const float*)faces, (const float4*)bounds,
            (const float*)dirs, (const float*)origins, (const float*)eye, (float*)t_out,
-           (int*)face_out, (float*)u_out, (float*)v_out, (int*)stats, t_min, t_max};
-  tri_kernel<<<n_tiles, rays_per_tile, 0, (cudaStream_t)stream>>>(p);
+           (int*)face_out, (float*)u_out, (float*)v_out, (int*)stats, t_min, t_max,
+           rays_per_tile, splits};
+  tri_kernel<<<n_tiles * splits, split_width(rays_per_tile), 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -361,12 +396,12 @@ extern "C" int grt_closest_hit(const void* starts, const void* blocks, const voi
 // launching: out[0] resident blocks per SM, out[1] static shared memory
 // bytes, out[2] registers per thread, out[3] local memory bytes per thread.
 extern "C" int grt_closest_hit_info(int rays_per_tile, int* out) {
-  if (rays_per_tile % 32 != 0 || rays_per_tile < 32 || rays_per_tile > 1024)
-    return (int)cudaErrorInvalidValue;
+  if (!rays_ok(rays_per_tile)) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr{};
   cudaError_t err = cudaFuncGetAttributes(&attr, tri_kernel);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], tri_kernel, rays_per_tile, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], tri_kernel,
+                                                        split_width(rays_per_tile), 0);
   out[1] = (int)attr.sharedSizeBytes;
   out[2] = attr.numRegs;
   out[3] = (int)attr.localSizeBytes;

@@ -149,8 +149,12 @@ def default_pair_capacity(n: int) -> int:
     return max(8 * n, 1 << 16)
 
 
-def default_tile_chunk(device) -> int:
-    return TILE_CHUNK_CUDA if torch.device(device).type == "cuda" else TILE_CHUNK_CPU
+def default_tile_chunk(device, rays: int = 256) -> int:
+    """Tiles marched together on `device`; on CUDA, tiles of more than 1024
+    rays in fewer, so that a work array stays the size 1024-ray tiles give."""
+    if torch.device(device).type != "cuda":
+        return TILE_CHUNK_CPU
+    return TILE_CHUNK_CUDA if rays <= 1024 else max(1, TILE_CHUNK_CUDA * 1024 // rays)
 
 
 def compute_dtype(config: RenderConfig) -> torch.dtype:
@@ -430,7 +434,7 @@ def render_tiled(scene: GaussianScene, camera: Camera, config: RenderConfig = Re
     if pair_capacity is None:
         pair_capacity = default_pair_capacity(scene.num_gaussians)
     if tile_chunk is None:
-        tile_chunk = default_tile_chunk(scene.device)
+        tile_chunk = default_tile_chunk(scene.device, config.rays_per_tile)
     table, binning, dirs_t, valid = prepare_frame(scene, camera, config, pair_capacity)
     rgb_t, alpha_t = march_frame(binning.cand, dirs_t, camera.eye, table, config, tile_chunk,
                                  xla_rounding=xla_rounding)

@@ -222,9 +222,12 @@ def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: st
     256 threads; chunk, SH degree and rays unused) at this chunk, SH degree
     and rays per tile runs: resident blocks per SM, shared memory bytes
     (dynamic; K4's and K2's static), registers and local memory bytes per
-    thread, from the CUDA runtime."""
+    thread, from the CUDA runtime; for K1 and K3 also the blocks of a
+    tile's thread-block cluster (1 up to 1024 rays) and, above 1024 rays,
+    the clusters that can be resident at once (cudaOccupancyMaxActiveClusters;
+    the query raises where none can)."""
     lib = load_library()
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     k = (sh_degree + 1) ** 2
     if kernel == "scan":
         err = lib.grt_scan_info(out)
@@ -236,8 +239,12 @@ def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: st
     else:
         err = lib.grt_march_bwd_info(chunk, int(order == "window"), k, int(scalar), rays, out)
     check(err, f"{kernel} launch info")
-    return {"blocks_per_sm": out[0], "smem_bytes": out[1], "registers": out[2],
+    info = {"blocks_per_sm": out[0], "smem_bytes": out[1], "registers": out[2],
             "local_bytes": out[3]}
+    if kernel in ("march", "march_bwd"):
+        info["cluster_blocks"] = out[4] if rays > 1024 else 1
+        info["resident_clusters"] = out[5] if rays > 1024 else None
+    return info
 
 
 def ptxas_table(log: str) -> dict:

@@ -171,7 +171,7 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+from gaussian_ray_tracing_tpu_torch.config import RenderConfig, tile_rays_supported
 from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0, num_coeffs, sh_basis_list
 
 # JAX feature-table columns read by the quad/sh0 march: op 12, q 64..69,
@@ -408,8 +408,9 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
 
     lib = load_library()
     T, R, _ = dirs_t.shape
-    if R % 32 or not 32 <= R <= 1024:
-        raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
+    if not tile_rays_supported(R):
+        raise ValueError(f"rays per tile {R}: the kernel takes a multiple of 32 up to 1024 or "
+                         f"of 128 up to 8192")
     dev = dirs_t.device
     rgb = torch.empty((T, R, 3), dtype=_F32, device=dev)
     t_final = torch.empty((T, R), dtype=_F32, device=dev)
@@ -438,6 +439,8 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
             )
         check(err, "grt_march")
         march.launches += 1
+        if R > 1024:
+            march.cluster_launches += 1
         key, sh = config.order in ("key", "oddeven"), config.sh_degree > 0
         if config.order == "oddeven":
             march.oddeven_launches += 1
@@ -481,6 +484,7 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
 
 
 march.launches = 0  # every K1 launch
+march.cluster_launches = 0  # of those, the cluster builds' (tiles of more than 1024 rays)
 # saved carries (training forwards), by order and SH degree
 march.save_tin_launches = 0  # key order, SH 0
 march.window_save_tin_launches = 0  # window order (scalar response from per-ray origins), SH 0

@@ -61,7 +61,7 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+from gaussian_ray_tracing_tpu_torch.config import RenderConfig, tile_rays_supported
 from gaussian_ray_tracing_tpu_torch.ops.march import (
     CHUNKS, T_M0, T_MX, T_RAD, T_SH0, _OP, _pack_colors, _unpack_colors, march, march_plain,
     train_row, train_sort_key, window_fire,
@@ -130,8 +130,9 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
 
     lib = load_library()
     T, R, _ = dirs_t.shape
-    if R % 32 or not 32 <= R <= 1024:
-        raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
+    if not tile_rays_supported(R):
+        raise ValueError(f"rays per tile {R}: the kernel takes a multiple of 32 up to 1024 or "
+                         f"of 128 up to 8192")
     d_rows = torch.zeros_like(rows)  # rows no tile owns, and skipped chunks, stay 0
     if T == 0:
         return d_rows
@@ -156,6 +157,8 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
         march_bwd.origin_launches += 1
     if config.order == "window" and config.window_key == "peak":
         march_bwd.peak_launches += 1
+    if R > 1024:
+        march_bwd.cluster_launches += 1
     return d_rows
 
 
@@ -166,6 +169,7 @@ march_bwd.sh_key_launches = 0  # key order, SH 1-3
 march_bwd.sh_launches = 0  # window order, SH 1-3
 march_bwd.origin_launches = 0  # per-ray origins, either order and any SH degree
 march_bwd.peak_launches = 0  # window order replayed on the peak key (window_key "peak")
+march_bwd.cluster_launches = 0  # the cluster builds (tiles of more than 1024 rays), any mode
 
 
 # --- plain torch version ---------------------------------------------------

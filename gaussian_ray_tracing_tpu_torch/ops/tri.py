@@ -26,7 +26,11 @@ min(t_max, best_t)) cannot hit, and every face that `face_may_hit` proves
 missed; they are the kernel's rules operation for operation (their proof is in
 csrc/tri.cu). The result never depends on the bounds: the plain version
 takes and ignores them. The kernel counts per tile what it ran (`stats`);
-`pretest_stats` computes the same counts from these rules.
+`pretest_stats` computes the same counts from these rules. A tile of more
+than 1024 rays (a multiple of 128, up to 8192) runs as `tile_splits(R)`
+blocks over slices of `split_width(R)` rays, each walking the tile's
+block list and skipping what no ray of its slice needs (no pretest spans
+the tile); its counts are the sums of its slices'.
 
 `closest_hit_blocks` is the wrapper: CUDA tensors launch csrc/tri.cu, CPU
 tensors run `closest_hit_blocks_plain`, anything else raises.
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from gaussian_ray_tracing_tpu_torch.config import tile_rays_supported
 from gaussian_ray_tracing_tpu_torch.ops.blocks import BlockIndex, _pad_rows, morton_order
 from gaussian_ray_tracing_tpu_torch.ops.intersect import moller_trumbore
 
@@ -57,6 +62,18 @@ GRAZE_ANGLE = 1e-3
 MAX_DIR = 1e4
 WARP = 32
 STATS = ("staged_blocks", "needed_pairs", "warp_blocks", "warp_rows", "divided_pairs")
+
+
+def tile_splits(rays: int) -> int:
+    """Blocks the kernel splits a tile of `rays` rays into (csrc/tri.cu)."""
+    return -(-rays // 1024)
+
+
+def split_width(rays: int) -> int:
+    """Rays of each block of a split tile: a multiple of 32 (whole warps);
+    the last block's lanes past the tile are idle."""
+    s = tile_splits(rays)
+    return -(-rays // (32 * s)) * 32
 
 
 def pack_triangles(v0, v1, v2):
@@ -295,8 +312,9 @@ def _closest_hit_cuda(starts, blocks, face_rows, dirs_t, eye, t_min, t_max, orig
 
     lib = load_library()
     T, R, _ = dirs_t.shape
-    if R % 32 or not 32 <= R <= 1024:
-        raise ValueError(f"rays per tile {R} must be a multiple of 32 in [32, 1024]")
+    if not tile_rays_supported(R):
+        raise ValueError(f"rays per tile {R}: the kernel takes a multiple of 32 up to 1024 or "
+                         f"of 128 up to 8192")
     if face_rows.data_ptr() % 16 or bounds.data_ptr() % 16 or not stats.is_contiguous():
         raise ValueError("face_rows and bounds must be 16-byte aligned (cp.async, float4), "
                          "stats contiguous")
@@ -305,20 +323,27 @@ def _closest_hit_cuda(starts, blocks, face_rows, dirs_t, eye, t_min, t_max, orig
     face = torch.empty((T, R), dtype=torch.int32, device=dev)
     u = torch.empty((T, R), dtype=_F32, device=dev)
     v = torch.empty((T, R), dtype=_F32, device=dev)
+    S = tile_splits(R)  # a split tile's slices count apart, then add up
+    slices = stats if S == 1 else torch.empty((T * S, len(STATS)), dtype=torch.int32,
+                                              device=dev)
     if T > 0:
         with torch.cuda.device(dev):
             err = lib.grt_closest_hit(
                 starts.data_ptr(), blocks.data_ptr(), face_rows.data_ptr(), bounds.data_ptr(),
                 dirs_t.data_ptr(), None if origins_t is None else origins_t.data_ptr(),
                 eye.data_ptr(), t.data_ptr(), face.data_ptr(), u.data_ptr(), v.data_ptr(),
-                stats.data_ptr(), T, R, t_min, t_max, torch.cuda.current_stream().cuda_stream,
+                slices.data_ptr(), T, R, t_min, t_max, torch.cuda.current_stream().cuda_stream,
             )
         check(err, "grt_closest_hit")
         closest_hit_blocks.launches += 1
+        if S > 1:
+            closest_hit_blocks.split_launches += 1
+            stats.copy_(slices.reshape(T, S, len(STATS)).sum(1))
     return t, face, u, v
 
 
 closest_hit_blocks.launches = 0
+closest_hit_blocks.split_launches = 0  # of those, on tiles split over blocks (above 1024 rays)
 
 
 def _det_and_nu(o, d, f):
@@ -390,9 +415,28 @@ def pretest_stats(starts, blocks, face_rows, dirs_t, eye, t_min: float, t_max: f
     last block it staged (it judges one block ahead); at a staged block,
     each ray finds the rows it needs (row_mask), the warp tests the rows
     some lane needs, and every lane of it computes face_may_hit on their
-    faces. A block it does not stage no ray needs later either."""
+    faces. A block it does not stage no ray needs later either. A tile of
+    more than 1024 rays counts as the sum of its slices (tile_splits), each
+    a tile of split_width rays of its own over the same block list, the
+    last padded with dead rays (zero direction), as the kernel's idle lanes
+    are."""
     _check_args(starts, blocks, face_rows, dirs_t, eye, origins_t, bounds)
     T, R, _ = dirs_t.shape
+    S = tile_splits(R)
+    if S > 1:
+        W = split_width(R)
+        pad = lambda x: torch.cat([x, x.new_zeros((T, S * W - R, 3))], 1).reshape(T * S, W, 3)
+        nb = (starts[1:] - starts[:-1]).long().repeat_interleave(S) // FACES_PER_BLOCK
+        first = (starts[:-1].long() // FACES_PER_BLOCK).repeat_interleave(S)
+        # each slice's copy of its tile's listed blocks
+        ends = torch.cumsum(nb, 0)
+        k = torch.arange(int(ends[-1]) if T else 0, device=starts.device)
+        owner = torch.repeat_interleave(torch.arange(T * S, device=starts.device), nb)
+        slot = first[owner] + k - (ends - nb)[owner]
+        s_starts = torch.cat([ends.new_zeros(1), ends]).to(torch.int32) * FACES_PER_BLOCK
+        per = pretest_stats(s_starts, blocks[slot], face_rows, pad(dirs_t), eye, t_min, t_max,
+                            None if origins_t is None else pad(origins_t), bounds)
+        return per.reshape(T, S, len(STATS)).sum(1, dtype=torch.int32)
     dev = dirs_t.device
     orig = eye.to(_F32).reshape(1, 1, 3).expand(T, R, 3) if origins_t is None else origins_t
     best_t = torch.full((T, R), _MISS, dtype=_F32, device=dev)

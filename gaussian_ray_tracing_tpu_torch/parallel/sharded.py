@@ -128,7 +128,8 @@ def render_tiled_sharded(scene: GaussianScene, camera: Camera, config: RenderCon
     parts = []
     for _, i, dev in _local_rays(mesh):
         sl = slice(i * T_local, (i + 1) * T_local)
-        chunk = tiled.default_tile_chunk(dev) if tile_chunk is None else tile_chunk
+        chunk = (tiled.default_tile_chunk(dev, config.rays_per_tile) if tile_chunk is None
+                 else tile_chunk)
         parts.append(tiled.march_frame(cand[sl].to(dev), dirs_t[sl].to(dev), camera.eye.to(dev),
                                        table.to(dev), config, chunk, xla_rounding=xla_rounding))
     rgb_t = _gather_rays(mesh, [p[0] for p in parts])[:T]
@@ -383,7 +384,8 @@ def render_gaussian_sharded_fast(scene: GaussianScene, camera: Camera, config: R
         table, binning, dirs_t, valid = tiled.prepare_frame(slab_scene(k, dev),
                                                             _camera_on(camera, dev), config,
                                                             pair_capacity)
-        chunk = tiled.default_tile_chunk(dev) if tile_chunk is None else tile_chunk
+        chunk = (tiled.default_tile_chunk(dev, config.rays_per_tile) if tile_chunk is None
+                 else tile_chunk)
         rgb_t, alpha_t = tiled.march_frame(binning.cand, dirs_t, camera.eye.to(dev), table,
                                            config, chunk, depth_gate=gate(k, dev))
         rgb_l.append(rgb_t)
@@ -463,7 +465,8 @@ def render_gaussian_ring(scene: GaussianScene, camera: Camera, config: RenderCon
 
     def march_block(s, b, blk):
         table, cand, dev = frames[s]
-        chunk = tiled.default_tile_chunk(dev) if tile_chunk is None else tile_chunk
+        chunk = (tiled.default_tile_chunk(dev, config.rays_per_tile) if tile_chunk is None
+                 else tile_chunk)
         rgb, alpha = tiled.march_frame(cand[b * T_local:(b + 1) * T_local], blk,
                                        camera.eye.to(dev), table, config, chunk)
         return rgb.to(torch.float32), 1.0 - alpha.to(torch.float32)

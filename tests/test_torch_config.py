@@ -41,11 +41,11 @@ def test_config_is_frozen_and_hashable():
 
 
 @pytest.mark.parametrize("change", [
-    dict(tile_w=64, tile_h=32),  # 2048 rays a tile: a TPU's, more than a CUDA block's threads
+    dict(tile_w=130, tile_h=64),  # 8320 rays a tile: more than a cluster of 8 blocks of 1024
     dict(sh_degree=4),
     dict(tile_w=12, tile_h=12),  # 144 rays: not a multiple of 32
     dict(tile_w=4, tile_h=4),
-    dict(tile_w=32, tile_h=40),
+    dict(tile_w=32, tile_h=33),  # 1056 rays: above 1024, not a multiple of 128
     dict(window_key="oracle"),
     dict(order="sorted"),
 ])

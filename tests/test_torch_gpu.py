@@ -1408,3 +1408,177 @@ def test_oddeven_march_matches_plain(chunk):
     want = tmarch.march_plain(starts, rows, tdirs, tcfg, chunk, save_tin=True, **kw)
     _kernel_close(got[:2], want[:2])
     assert float((got[2] - want[2]).abs().max()) <= 1e-4
+
+
+# --- tiles of 1152 to 8192 rays: K1 and K3 as clusters, K4 split ------------
+
+WIDER = {1152: (48, 24), 2048: (64, 32), 4096: (64, 64), 8192: (128, 64)}
+
+
+def _wider_stream(rays, order, chunk, degree=0, **kw):
+    """The 5k scene's render stream at 256^2 on tiles of `rays` rays."""
+    tw, th = WIDER[rays]
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order, sh_degree=degree,
+                       tile_w=tw, tile_h=th, **kw)
+    scene = random_scene(5000, seed=3, device="cuda")
+    stream, feats, _ = prepare_pair_stream(scene, _camera(), cfg, 1 << 19)
+    dirs_t = tile_rays(generate_rays(_camera(), cfg)[1], tw, th)
+    assert dirs_t.shape[1] == rays and int(stream.n_dropped) == 0
+    return cfg, stream.starts, feats, dirs_t
+
+
+@pytest.mark.parametrize("order,rays,chunk,degree", [
+    ("window", 2048, 128, 0), ("window", 1152, 64, 0), ("window", 4096, 256, 3),
+    ("window", 8192, 128, 0), ("key", 2048, 256, 0), ("key", 4096, 128, 3),
+    ("merge", 2048, 128, 0), ("merge", 1152, 32, 0), ("oddeven", 4096, 64, 0)])
+def test_cluster_march_matches_plain(order, rays, chunk, degree):
+    """K1's cluster builds on tiles of 1152 to 8192 rays against march_plain
+    at the K1 bars (window order: the per-tile fired chunks equal too), and
+    two launches bit-identical."""
+    cfg, starts, feats, dirs_t = _wider_stream(rays, order, chunk, degree)
+    stats = order == "window"
+    before = tmarch.march.launches
+    got = tmarch.march(starts, feats, dirs_t, cfg, chunk, stats=stats)
+    again = tmarch.march(starts, feats, dirs_t, cfg, chunk, stats=stats)
+    torch.cuda.synchronize()
+    assert tmarch.march.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], again[:2]))
+    want = tmarch.march_plain(starts, feats, dirs_t, cfg, chunk, stats=stats)
+    _kernel_close(got[:2], want[:2])
+    assert float(got[1].min()) < 0.5
+    if stats:
+        for a, b in zip(got[2], want[2]):
+            assert torch.equal(a, b)
+        assert int(got[2][0].sum()) > 0
+
+
+@pytest.mark.parametrize("rays", [1152, 2048])
+@pytest.mark.parametrize("kw", [dict(sort_lane_groups=True),
+                                dict(sort_alpha_min=0.05, sort_lane_groups=True),
+                                dict(sort_alpha_min=0.05), dict(composite_scan=True)])
+def test_cluster_window_options_match_plain(kw, rays):
+    """The window-order options on cluster tiles: lane groups of 128 rays
+    inside each block of the cluster (640 + 512 rays at R = 1152), the
+    band's reduction across the cluster, and their counts equal to
+    plain's."""
+    cfg, starts, feats, dirs_t = _wider_stream(rays, "window", 128, **kw)
+    before = tmarch.march.launches
+    got = tmarch.march(starts, feats, dirs_t, cfg, 128, stats=True)
+    torch.cuda.synchronize()
+    assert tmarch.march.launches == before + 1
+    want = tmarch.march_plain(starts, feats, dirs_t, cfg, 128, stats=True)
+    _kernel_close(got[:2], want[:2])
+    for a, b in zip(got[2], want[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("order,degree,chunk,rays", [
+    ("key", 0, 256, 2048), ("window", 0, 128, 2048), ("key", 3, 128, 4096),
+    ("window", 3, 64, 4096), ("key", 0, 64, 1152), ("window", 0, 32, 1152),
+    ("key", 0, 256, 8192)])
+def test_cluster_training_kernels_match_plain(order, degree, chunk, rays):
+    """K1's saved carries and K3 as clusters against their plain versions
+    at the K1 and K3 bars (the float64 witness at 1.25x), K3's two launches
+    bit-identical (its sums over the tile's rays in a fixed rank order)."""
+    tw, th = WIDER[rays]
+    scene = random_scene(5000, seed=3, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order, sh_degree=degree,
+                       tile_w=tw, tile_h=th)
+    stream, rows, _ = prepare_train_stream(scene, _camera(), cfg)
+    dirs_t = tile_rays(generate_rays(_camera(), cfg)[1], tw, th)
+    before = (tmarch.march.launches, tbwd.march_bwd.launches)
+    _fwd_bwd_check(cfg, stream.starts, rows.detach().contiguous(), dirs_t, _camera().eye, chunk)
+    assert (tmarch.march.launches, tbwd.march_bwd.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("order", ["window", "key", "merge"])
+def test_cluster_origin_quad_render_matches_plain(order):
+    """K1's per-ray-origin quad response on 2048-ray tiles of a rolling
+    stream (the centroid's halving tree over the tile's 2048 origins, its
+    first level across the cluster's two blocks) against march_plain."""
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=64, order=order, tile_w=64, tile_h=32)
+    cam1 = Camera.create(eye=(0.05, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                         device="cuda")
+    starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(
+        random_scene(5000, seed=3, device="cuda"), _camera(), cam1, cfg, train=True)
+    rows = rows.detach().contiguous()
+    before = tmarch.march.origin_quad_launches
+    got = tmarch.march(starts, rows, dirs_t, cfg, 64, origins_t=origins_t, quad=True)
+    torch.cuda.synchronize()
+    assert tmarch.march.origin_quad_launches == before + 1
+    _kernel_close(got, tmarch.march_plain(starts, rows, dirs_t, cfg, 64, origins_t=origins_t,
+                                          quad=True))
+
+
+@pytest.mark.parametrize("quad", [False, True])
+def test_cluster_origin_training_matches_plain(quad):
+    """K1's saved carries from per-ray origins, windows and carry-in and K3
+    from per-ray origins on 2048-ray tiles against the plain versions; two
+    K3 launches bit-identical."""
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=256, order="key", tile_w=64, tile_h=32)
+    cam1 = Camera.create(eye=(0.05, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                         device="cuda")
+    starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(
+        random_scene(5000, seed=3, device="cuda"), _camera(), cam1, cfg, train=True)
+    rows = rows.detach().contiguous()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shape = dirs_t.shape[:2]
+    seg = dict(origins_t=origins_t,
+               t_lo=0.05 + 0.05 * torch.rand(shape, generator=g, device="cuda"),
+               t_hi=3.0 + torch.rand(shape, generator=g, device="cuda"),
+               t0=0.6 + 0.4 * torch.rand(shape, generator=g, device="cuda"))
+    got = tmarch.march(starts, rows, dirs_t, cfg, 256, save_tin=True, quad=quad, **seg)
+    torch.cuda.synchronize()
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, 256, save_tin=True, quad=quad, **seg)
+    _kernel_close(got[:2], want[:2])
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(shape, generator=g, device="cuda")
+    args = (starts, rows, dirs_t, torch.zeros(3, device="cuda"), got[2], got[3], d_rgb, d_t,
+            cfg, 256)
+    kw = {k: seg[k] for k in ("origins_t", "t_lo", "t_hi")}
+    a, b = tbwd.march_bwd(*args, **kw), tbwd.march_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = tbwd.march_bwd_plain(*args, **kw)
+    for i, c in enumerate(tmarch.train_columns(0)):
+        if c in tmarch.diff_columns(0):
+            bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+            assert float((a[:, i] - plain[:, i]).abs().max() / plain[:, i].abs().max()) <= bar, i
+
+
+@pytest.mark.parametrize("order", ["window", "key", "merge"])
+@pytest.mark.parametrize("rays", [2048, 1152])
+def test_split_tile_mesh_kernels_match_plain(rays, order):
+    """K4 split over the blocks of 1152- and 2048-ray tiles (bit for bit,
+    its counts those of pretest_stats' slices) and K1's segment and block
+    modes as clusters (the K1 bars), on every bounce of the glass-sphere
+    frame."""
+    tw, th = WIDER[rays]
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, order=order, bounce_order=order,
+                       tile_w=tw, tile_h=th)
+    record = _bounce_record(cfg)
+    for rec in record:
+        assert rec["k4"][0][3].shape[1] == rays
+        _k4_bit_identical(*rec["k4"])
+        args, kw = rec["k1"]
+        _kernel_close(tmarch.march(*args, **kw), tmarch.march_plain(*args, **kw))
+
+
+def test_cluster_launch_info():
+    """What the cluster builds run: a cluster of ceil(R / 1024) blocks, at
+    most 64 registers a thread, and at least one cluster resident."""
+    from gaussian_ray_tracing_tpu_torch.ops import cuda_build
+
+    for rays, n in ((1152, 2), (2048, 2), (4096, 4), (8192, 8)):
+        for kernel, kw in (("march", dict(order="window")), ("march", dict(order="merge")),
+                           ("march", dict(order="key", train=True)),
+                           ("march_bwd", dict(order="window")), ("march_bwd", dict(order="key"))):
+            info = cuda_build.launch_info(kernel, 256 if kernel == "march" else 128, 3, rays,
+                                          **kw)
+            assert info["cluster_blocks"] == n and info["resident_clusters"] >= 1, (rays, info)
+            assert info["registers"] <= 64
