@@ -56,7 +56,12 @@ per-pair sort keys, oddeven and bfloat16 (the headline under pair_keys
 under order="oddeven", each key's stream holding the default's pairs,
 K1 against its plain version on each, the affine fills' K2 launch bit
 for bit, tile-key training's K1 saved carries and K3; the tiled march
-under oddeven and bfloat16), times each against the
+under oddeven and bfloat16), key order and oddeven at march chunks that
+are not a power of two (the headline in key order at chunk 96 and oddeven
+at 100, three key training steps at chunk 96, the glass_front frame
+under bounce_order "key" at 256 x 2 = 512 block rows: every launch of
+K1's key kernel and K3's key replay at a runtime chunk held against its
+plain version and timed in turns with chunk 128), times each against the
 plain path, profiles the 720p/100k, fisheye and SH 3 frames and the window
 and key SH 3 train steps, runs `cli render` (plain, with a glass sphere, fisheye at
 SH 3, and --order merge) and `cli fit`, and finally writes the
@@ -93,6 +98,7 @@ since the start.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -269,17 +275,18 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     kname = "key" if order == "oddeven" else order  # oddeven runs the key kernel
     info = cuda_build.launch_info(kernel, chunk, cfg.sh_degree, R, order=order, scalar=scalar,
                                   train=train, quad=quad)
+    C = info["build_chunk"]  # the staging capacity of this chunk's build
     b = lambda x: f"Lb{int(x)}E"
     resp = f"Li{2 if quad else int(scalar)}E"  # k1::Resp
     build = f"Li{256 if R <= 256 else 1024 if R <= 1024 else 8192}E"  # kMaxR
     if kernel == "march_bwd":
-        name = f"16march_bwd_kernelILi{chunk}ELi{K}E{b(order == 'window')}{b(scalar)}{build}"
+        name = f"16march_bwd_kernelILi{C}ELi{K}E{b(order == 'window')}{b(scalar)}{build}"
     elif kname == "window":
-        name = f"12march_kernelILi{chunk}E{resp}Li{K}E{b(train)}{build}"
+        name = f"12march_kernelILi{C}E{resp}Li{K}E{b(train)}{build}"
     elif kname == "key":
-        name = f"16march_key_kernelILi{chunk}E{resp}Li{K}E{b(train)}{build}"
+        name = f"16march_key_kernelILi{C}E{resp}Li{K}E{b(train)}{build}"
     else:
-        name = f"18march_merge_kernelILi{chunk}E{resp}Li{K}E{build}"
+        name = f"18march_merge_kernelILi{C}E{resp}Li{K}E{build}"
     regs, stack, st, ld = next((v for k, v in PTXAS.items() if name in k), (None,) * 4)
     check(regs == info["registers"], f"{kernel} {name}: ptxas says {regs} registers, the "
                                      f"runtime {info['registers']}")
@@ -290,8 +297,9 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
            "blocks_per_sm": info["blocks_per_sm"], "smem_bytes": info["smem_bytes"],
            "registers": regs, "stack_bytes": stack, "spill_store_bytes": st,
            "spill_load_bytes": ld, "cluster_blocks": info["cluster_blocks"],
-           "resident_clusters": info["resident_clusters"]}
-    log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk} R={R}" + " scalar" * scalar
+           "resident_clusters": info["resident_clusters"], "build_chunk": C}
+    log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk} (build C={C}) R={R}"
+        + " scalar" * scalar
         + " origin quad" * quad + " save_tin" * train + f": {json.dumps(out)}")
     return out
 
@@ -357,18 +365,46 @@ def tri_design(args, kw) -> dict:
     return out
 
 
+def device_reading(fn, event_ms: float, what: str) -> float | None:
+    """The profiler's device ms of one call of fn, or None where no two
+    traces agree. A trace can lose kernel events (late in a long smoke run
+    the first traces of a call read 0 ms, or 0.11 ms for a 0.22 ms K1
+    launch), which lowers its reading and its device ops a call: a first
+    trace is thrown away, and a reading counts once two traces see the
+    same device ops a call and device ms within 10% of each other, in (0,
+    event_ms] (event_ms the call's own event time); the larger one is
+    kept. A third trace is taken before the reading is given up."""
+    profile_frames(fn, frames=5, top=1, host=False)
+    reads = []
+    for _ in range(3):
+        prof = profile_frames(fn, frames=5, top=1, host=False)
+        reads.append((prof["device_ops"], prof["device_ms"]))
+        for (ops_a, ms_a), (ops_b, ms_b) in itertools.combinations(reads, 2):
+            lo, hi = min(ms_a, ms_b), max(ms_a, ms_b)
+            if ops_a == ops_b and 0.0 < lo and hi <= min(event_ms, 1.1 * lo):
+                return hi
+    log("profile", f"{what}: device ms not measured (traces of {event_ms:.4f} ms event calls "
+                   f"read (ops, ms) {[(round(o, 2), round(m, 4)) for o, m in reads]})")
+    return None
+
+
+def fms(x: float | None) -> str:
+    """A device reading for a log line."""
+    return "not measured" if x is None else f"{x:.3f}"
+
+
 def turns(fns: dict, reps: int = 10, device: bool = True) -> dict:
     """{name: (median event ms, device ms)} of each fn, called in turns a,
-    b, b, a, reps times each; the device ms (with `device`) the profiler's
+    b, b, a, reps times each; the device ms (with `device`) device_reading's
     for one call of each, else None."""
     ms = {k: [] for k in fns}
     names = list(fns)
     for name in names + names[::-1]:
         fns[name]()
         ms[name] += cuda_ms(fns[name], reps)
-    dev_ms = {k: profile_frames(f, frames=5, top=1, host=False)["device_ms"]
-              for k, f in fns.items()} if device else {}
-    return {k: (statistics.median(v), dev_ms.get(k)) for k, v in ms.items()}
+    ev = {k: statistics.median(v) for k, v in ms.items()}
+    dev = {k: device_reading(f, ev[k], k) for k, f in fns.items()} if device else {}
+    return {k: (ev[k], dev.get(k)) for k in fns}
 
 
 def k1_check(phase: str, what: str, args, kw=None) -> float:
@@ -566,7 +602,7 @@ def main() -> None:
                f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
         prepare_pair_stream, prepare_train_stream,
@@ -769,7 +805,7 @@ def main() -> None:
     # kernels alone at the main path's shapes (100k, 720p, first pose)
     stream, feats, n_pairs = prepare_pair_stream(scene, poses[0], cfg, cap)
     dirs_t = tile_rays(cameras.generate_rays(poses[0], cfg)[1], 16, 16)
-    chunk = kmarch.chunk_for(cfg)
+    chunk = chunk_for(cfg)
     k1_ms = statistics.median(cuda_ms(
         lambda: kmarch.march(stream.starts, feats, dirs_t, cfg, chunk), 20))
     k1_plain = statistics.median(cuda_ms(
@@ -1056,6 +1092,7 @@ def main() -> None:
 
     cam_rows = camera_phase(dev, card, scene)
     merge_rows = merge_phase(dev, card, scene, poses[0], mcam, at_probe, front, merge_err)
+    chunk_rows = any_chunk_phase(dev, card, scene, poses[0], views, init, mcam, front)
     t_phase = time.perf_counter()
     meshcam_rows = mesh_camera_phase(dev, card, scene, mcam, at_probe, front)
     log("phase", f"mesh cameras (fisheye, SH 3) in {time.perf_counter() - t_phase:.1f} s")
@@ -1150,6 +1187,7 @@ def main() -> None:
         *option_rows,
         *pair_rows,
         *merge_rows,
+        *chunk_rows,
         *meshcam_rows,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1501,7 +1539,7 @@ def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: f
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_pair_stream
     from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
@@ -1515,7 +1553,7 @@ def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: f
     def stream_args(sc, cam, cfg, cap=1 << 16):
         stream, feats, n_pairs = prepare_pair_stream(sc, cam, cfg, cap)
         dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], cfg.tile_w, cfg.tile_h)
-        return (stream.starts, feats, dirs_t, cfg, kmarch.chunk_for(cfg)), n_pairs
+        return (stream.starts, feats, dirs_t, cfg, chunk_for(cfg)), n_pairs
 
     ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
     cam720 = cameras.Camera.create(eye=GOLDEN_EYE, lookat=(0.0, 0.0, 0.0), width=1280,
@@ -1654,6 +1692,211 @@ def merge_phase(dev, card: str, scene, pose, mcam, at_probe, front, merge_err: f
             row("march_merge_block", mesh_counts["march_merge_block"], block_err, t_block)]
 
 
+def any_chunk_phase(dev, card: str, scene, pose, views, init, mcam, front) -> list:
+    """Key and oddeven order at march chunks other than 32, 64, 128 and 256,
+    at full width. The main path, each count zeroed just before and read
+    just after: the 1280x720 headline (`scene` = random_scene(100k, seed 0)
+    at `pose`, hm 1) through render(method="gpu") in key order at chunk 96
+    and in oddeven at chunk 100 (K1's key kernel on its 128-candidate
+    build); Trainer(method="gpu").fit, 3 key-order steps at 512x512 on
+    `init` (random_scene(50k, seed 1)) at chunk 96 (K1 saved carries, K3's
+    key replay); the glass_front mesh frame (`front` before `mcam`) under
+    order and bounce_order "key" at chunk 256 x bounce_blocks_per_chunk 2
+    (K1's block mode over 512 rows, staged in two pieces). Then every
+    launch of those kernels on the main path's own inputs against its plain
+    version (the K1 and K3 bars, no caught failure, no fallback), and each
+    timed in turns with the same call at chunk 128 (block mode: glass_front
+    at 128 x 1). Returns the kernel rows."""
+    import math
+
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        prepare_pair_stream, prepare_train_stream, snug_pair_capacity,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.renderer import render
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+    from gaussian_ray_tracing_tpu_torch.ops.tiles import count_pairs
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    t_phase = time.perf_counter()
+    base = RenderConfig(hit_multiplicity=1, order="key")
+    key96, odd100 = base.replace(march_chunk=96), base.replace(order="oddeven", march_chunk=100)
+    train96 = RenderConfig(**{**TRAIN_KW, "march_chunk": 96})
+    mesh_cfg = base.replace(bounce_order="key", march_chunk=256, bounce_blocks_per_chunk=2)
+
+    # --- the main path, each count zeroed just before ---
+    frames, launches = {}, {}
+    for name, cfg, attr in (("key 96", key96, "launches"), ("oddeven 100", odd100,
+                                                             "oddeven_launches")):
+        kmarch.march.launches = kmarch.march.oddeven_launches = 0
+        out = render(scene, pose, cfg, method="gpu", return_aux=True)
+        torch.cuda.synchronize()
+        launches[name] = getattr(kmarch.march, attr)
+        check(launches[name] == 1 and kmarch.march.launches == 1,
+              f"{name}: K1 launches {kmarch.march.launches}")
+        rgb = out["rgb"]
+        check(tuple(rgb.shape) == (720, 1280, 3) and bool(torch.isfinite(rgb).all())
+              and float(rgb.max()) > 0.1, f"{name}: bad frame")
+        check(out["aux"]["n_dropped"] == 0, f"{name}: pairs dropped")
+        frames[name] = rgb
+    kmarch.march.save_tin_launches = kbwd.march_bwd.key_launches = 0
+    trainer = ktrain.Trainer(GaussianModel.from_scene(init), config=train96, lr=2e-3,
+                             method="gpu")
+    losses = trainer.fit([views[0]], steps=3)
+    torch.cuda.synchronize()
+    launches["train 96"] = (kmarch.march.save_tin_launches, kbwd.march_bwd.key_launches)
+    check(launches["train 96"] == (3, 3), f"training at chunk 96: K1 save_tin / K3 launches "
+                                          f"{launches['train 96']}")
+    check(all(math.isfinite(x) for x in losses), f"training at chunk 96: losses {losses}")
+    kmarch.march.block_launches = ktri.closest_hit_blocks.launches = 0
+    mesh_out = render(scene, mcam, mesh_cfg, mesh=front, method="gpu", return_aux=True)
+    torch.cuda.synchronize()
+    launches["block 256x2"] = (kmarch.march.block_launches, ktri.closest_hit_blocks.launches)
+    check(launches["block 256x2"][0] >= 1 and launches["block 256x2"][1] >= 2,
+          f"glass_front at 256 x 2: K1 block / K4 launches {launches['block 256x2']}")
+    check(bool(torch.isfinite(mesh_out["rgb"]).all()) and float(mesh_out["rgb"].max()) > 0.1,
+          "glass_front at 256 x 2: bad frame")
+    ref128 = render(scene, pose, base.replace(march_chunk=128), method="gpu")["rgb"]
+    db = {k: psnr(v.cpu().numpy(), ref128.cpu().numpy()) for k, v in frames.items()}
+    log("anychunk", f"main path: 1280x720 100k frames key c=96 and oddeven c=100 ({db} dB "
+                    f"against key c=128), 3 key training steps 512x512 50k c=96 losses "
+                    f"{[losses[0], losses[-1]]}, glass_front key 256 x 2; launches "
+                    f"{json.dumps({k: v for k, v in launches.items()})}")
+
+    # --- every launch against its plain version, timed in turns with c=128 ---
+    dirs_t = tile_rays(cameras.generate_rays(pose, base)[1], 16, 16)
+    cap = snug_pair_capacity(int(count_pairs(scene, pose, base)))
+
+    def args_at(cfg, chunk):
+        stream, feats, _ = prepare_pair_stream(scene, pose, cfg, cap)
+        return stream.starts, feats, dirs_t, cfg, chunk
+
+    rows_out = {}
+    for name, cfg, c in (("key", key96, 96), ("oddeven", odd100, 100)):
+        args = args_at(cfg, c)
+        ref = args_at(cfg.replace(march_chunk=128), 128)
+        err = k1_check("K1anychunk", f"{name} 720p c={c}", args)
+        again = kmarch.march(*args), kmarch.march(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*again)), f"K1 {name} c={c}: two launches "
+                                                              f"differ")
+        t = turns({f"c{c}": lambda a=args: kmarch.march(*a),
+                   "c128": lambda a=ref: kmarch.march(*a)})
+        t0 = time.perf_counter()
+        kmarch.march_plain(*args)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        b = march_bound(args, {}, kmarch.march_plain)
+        d = design("march", cfg, c)
+        rows_out[name] = (err, t[f"c{c}"], t["c128"], plain_ms, b, d)
+        log("anychunk", f"K1 {name} 720p c={c}: {t[f'c{c}'][0]:.3f} ms event, "
+                        f"{fms(t[f'c{c}'][1])} device (c=128 {t['c128'][0]:.3f} / "
+                        f"{fms(t['c128'][1])}), bound {b[0]:.4f} ({b[1]}), plain {plain_ms:.1f} "
+                        f"({card})")
+
+    cam0 = views[0][0]
+    dirs0 = tile_rays(cameras.generate_rays(cam0, train96)[1], 16, 16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_rgb = torch.randn(dirs0.shape, generator=gen, device=dev)
+    d_t = torch.randn(dirs0.shape[:2], generator=gen, device=dev)
+    train = {}
+    for c in (96, 128):
+        cfg = train96.replace(march_chunk=c)
+        with torch.no_grad():
+            stream, trows, n_t = prepare_train_stream(trainer.model.activate(), cam0, cfg)
+        train[c] = (stream.starts, trows.detach().contiguous(), n_t, cfg)
+    starts, trows, n_t, cfg = train[96]
+    fwd = lambda f, c=96: f(train[c][0], train[c][1], dirs0, train[c][3], c, save_tin=True)
+    got = fwd(kmarch.march)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fwd(kmarch.march_plain)
+    k1_plain = (time.perf_counter() - t0) * 1e3
+    e1 = k1_train_check(f"key save_tin 512x512 c=96 ({n_t} pairs)", got, want)
+    b1 = march_bound((starts, trows, dirs0, cfg, 96), {}, kmarch.march_plain, tin=got[2])
+    d1 = design("march", cfg, 96, train=True)
+    bargs = (starts, trows, dirs0, cam0.eye, got[2], got[3], d_rgb, d_t, cfg, 96)
+    e3 = k3_check("key 512x512 c=96", bargs)
+    t0 = time.perf_counter()
+    kbwd.march_bwd_plain(*bargs)
+    k3_plain = (time.perf_counter() - t0) * 1e3
+    b3 = bwd_bound(bargs, kbwd.march_bwd_plain)
+    d3 = design("march_bwd", cfg, 96)
+    got128 = fwd(kmarch.march, 128)
+    bargs128 = (*train[128][:2], dirs0, cam0.eye, got128[2], got128[3], d_rgb, d_t,
+                train[128][3], 128)
+    t1 = turns({"c96": lambda: fwd(kmarch.march), "c128": lambda: fwd(kmarch.march, 128)})
+    t3 = turns({"c96": lambda: kbwd.march_bwd(*bargs), "c128": lambda: kbwd.march_bwd(*bargs128)})
+    log("anychunk", f"key training 512x512 c=96 ({n_t} pairs): K1 save_tin {t1['c96'][0]:.3f} ms "
+                    f"event, {fms(t1['c96'][1])} device (c=128 {t1['c128'][0]:.3f} / "
+                    f"{fms(t1['c128'][1])}), bound {b1[0]:.4f} ({b1[1]}), plain {k1_plain:.1f}; "
+                    f"K3 {t3['c96'][0]:.3f} / {fms(t3['c96'][1])} (c=128 {t3['c128'][0]:.3f} / "
+                    f"{fms(t3['c128'][1])}), bound {b3[0]:.4f} ({b3[1]}), plain {k3_plain:.1f} "
+                    f"({card})")
+
+    records = {}
+    for name, cfg in (("256x2", mesh_cfg), ("128x1", mesh_cfg.replace(
+            march_chunk=128, bounce_blocks_per_chunk=1))):
+        records[name] = []
+        kmesh.render_with_mesh_fast(scene, front, mcam, cfg, record=records[name])
+        torch.cuda.synchronize()
+        check(len(records[name]) >= 2, f"glass_front key {name} ran {len(records[name])} bounces")
+    block_err, blk = 0.0, None
+    for b_i, rec in enumerate(records["256x2"]):
+        a, kw = rec["k1"]
+        if kw.get("blocks") is None:
+            continue
+        check(a[4] == 512 and kw["block_sub"] == 2, f"glass_front bounce {b_i}: block chunk "
+                                                    f"{a[4]} / {kw['block_sub']}")
+        block_err = max(block_err, k1_check("K1anychunk", f"glass_front key block 256 x 2 "
+                                                          f"bounce {b_i} ({int(a[0][-1])} slots)",
+                                            a, kw))
+        blk = blk or (a, kw)
+    check(blk is not None, "glass_front at 256 x 2: no block-mode launch recorded")
+    blk128 = records["128x1"][1]["k1"]
+    tb = turns({"c512": lambda: kmarch.march(*blk[0], **blk[1]),
+                "c128": lambda: kmarch.march(*blk128[0], **blk128[1])})
+    t0 = time.perf_counter()
+    kmarch.march_plain(*blk[0], **blk[1])
+    blk_plain = (time.perf_counter() - t0) * 1e3
+    bb = march_bound(blk[0], blk[1], kmarch.march_plain)
+    db_ = design("march", blk[0][3], 512, scalar=True)
+    log("anychunk", f"K1 key block glass_front bounce 1, 256 x 2 = 512 rows: {tb['c512'][0]:.3f} "
+                    f"ms event, {fms(tb['c512'][1])} device (128 x 1 {tb['c128'][0]:.3f} / "
+                    f"{fms(tb['c128'][1])}), bound {bb[0]:.4f} ({bb[1]}), plain {blk_plain:.1f} "
+                    f"({card})")
+    log("phase", f"any chunk in {time.perf_counter() - t_phase:.1f} s")
+
+    src = f"{PKG}/csrc"
+    k1 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    k3 = "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189"
+    row = lambda name, source, replaces, n, err, t, t128, plain_ms, b, more: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": n, "max_abs_err": err, "ms": t[0], "plain_ms": plain_ms, "bound_ms": b[0],
+        "bound_by": b[1], "library_ms": None, "device_ms": t[1], "c128_ms": t128[0],
+        "c128_device_ms": t128[1], **more}
+    out = []
+    for name, n in (("key", launches["key 96"]), ("oddeven", launches["oddeven 100"])):
+        err, t, t128, plain_ms, b, d = rows_out[name]
+        out.append(row(f"march_{name}_c{96 if name == 'key' else 100}", "march.cuh", k1, n, err,
+                       t, t128, plain_ms, b, d))
+    out.append(row("march_key_save_tin_c96", "march.cuh", k1, launches["train 96"][0], e1,
+                   t1["c96"], t1["c128"], k1_plain, b1, d1))
+    out.append(row("march_bwd_key_c96", "march_bwd.cuh", k3, launches["train 96"][1], e3,
+                   t3["c96"], t3["c128"], k3_plain, b3, d3))
+    out.append(row("march_key_block_c512", "march.cuh", k1, launches["block 256x2"][0],
+                   block_err, tb["c512"], tb["c128"], blk_plain, bb, db_))
+    return out
+
+
 def camera_phase(dev, card: str, scene) -> list:
     """The camera slice at full size (bench.py:178-245): fisheye 768x768 on
     `scene` (random_scene(100k, seed 0)); data/fitted_20k.ply at 1280x720 at
@@ -1669,7 +1912,7 @@ def camera_phase(dev, card: str, scene) -> list:
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_pair_stream
     from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
     from gaussian_ray_tracing_tpu_torch.models.rolling import (
@@ -1762,7 +2005,7 @@ def camera_phase(dev, card: str, scene) -> list:
     def stream_args(sc, c0, cfg):
         stream, feats, _ = prepare_pair_stream(sc, c0, cfg, 1 << 16)
         dirs_t = tile_rays(cameras.generate_rays(c0, cfg)[1], cfg.tile_w, cfg.tile_h)
-        return stream.starts, feats, dirs_t, cfg, kmarch.chunk_for(cfg)
+        return stream.starts, feats, dirs_t, cfg, chunk_for(cfg)
 
     sh_err = {"window": 0.0, "key": 0.0}
     for degree in (1, 2, 3):
@@ -2070,7 +2313,7 @@ def tiled_phase(dev, card: str, views, init) -> tuple:
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import FIELDS, GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
         prepare_pair_stream, render_gpu,
@@ -2154,7 +2397,7 @@ def tiled_phase(dev, card: str, views, init) -> tuple:
     stream, rows, _ = prepare_pair_stream(scene, cam, key, 1 << 16, quad=False)
     dirs_t = tile_rays(cameras.generate_rays(cam, key)[1], 16, 16)
     kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()}
-    args = (stream.starts, rows, dirs_t, key, kmarch.chunk_for(key))
+    args = (stream.starts, rows, dirs_t, key, chunk_for(key))
     k1_err = k1_check("tiled", "K1 key scalar from the eye", args, kw)
     k1_ms = statistics.median(cuda_ms(lambda: kmarch.march(*args, **kw), 20))
     k1_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 3))
@@ -2251,7 +2494,7 @@ def training_phase(dev, card: str, views, init) -> list:
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_train_stream
     from gaussian_ray_tracing_tpu_torch.models.renderer import render
@@ -2349,7 +2592,7 @@ def training_phase(dev, card: str, views, init) -> list:
             stream, trows, n_pairs = prepare_train_stream(scene, cam0, cfg)
         starts, trows = stream.starts, trows.detach().contiguous()
         dirs_t = tile_rays(cameras.generate_rays(cam0, cfg)[1], 16, 16)
-        chunk = kmarch.chunk_for(cfg)
+        chunk = chunk_for(cfg)
         # window order: the scalar response from per-ray origins, each the eye
         kw = ({"origins_t": cam0.eye.expand(dirs_t.shape).contiguous()}
               if cfg.order == "window" else {})
@@ -2544,7 +2787,7 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
@@ -2708,7 +2951,7 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
         R = cfg.rays_per_tile
         dirs_t = tile_rays(cameras.generate_rays(c0, cfg)[1], 32, cfg.tile_h)
         check(dirs_t.shape[1] == R, f"{name}: {dirs_t.shape[1]} rays a tile")
-        chunk = kmarch.chunk_for(cfg)
+        chunk = chunk_for(cfg)
         kw = ({"origins_t": c0.eye.expand(dirs_t.shape).contiguous()}
               if cfg.order == "window" else {})
         fwd = lambda f: f(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
@@ -2936,7 +3179,7 @@ def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
@@ -3077,7 +3320,7 @@ def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
             stream, trows, n_pairs = prepare_train_stream(init, cam0, cfg)
         starts, trows = stream.starts, trows.detach().contiguous()
         dirs_t = tile_rays(cameras.generate_rays(cam0, cfg)[1], *tiles[R])
-        chunk = kmarch.chunk_for(cfg)
+        chunk = chunk_for(cfg)
         kw = {"origins_t": cam0.eye.expand(dirs_t.shape).contiguous()} if name == "window" else {}
         fwd = lambda f: f(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
         got = fwd(kmarch.march)
@@ -3207,7 +3450,7 @@ def window_options_phase(dev, card: str, scene, pose, golden, views, init) -> li
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
         prepare_pair_stream, prepare_train_stream,
@@ -3284,7 +3527,7 @@ def window_options_phase(dev, card: str, scene, pose, golden, views, init) -> li
 
     for name, (cfg, attr, bar) in cases.items():
         starts, feats, dirs_t, n_pairs = stream_for(cfg)
-        chunk = kmarch.chunk_for(cfg)
+        chunk = chunk_for(cfg)
         args = (starts, feats, dirs_t, cfg, chunk)
         base = plain_cfg(cfg)
         got = kmarch.march(*args, stats=True)
@@ -3319,8 +3562,8 @@ def window_options_phase(dev, card: str, scene, pose, golden, views, init) -> li
         more = design("march", cfg, chunk, rays=cfg.rays_per_tile)
         log("options", f"{name} ({n_pairs} pairs, R = {cfg.rays_per_tile}): K1 vs plain max abs "
                        f"{err:.3g}, fired / repaired chunks {counts} (kernel = plain; default "
-                       f"{base_counts}); {t['option'][0]:.3f} ms event, {t['option'][1]:.3f} "
-                       f"device (default {t['default'][0]:.3f} / {t['default'][1]:.3f}), "
+                       f"{base_counts}); {t['option'][0]:.3f} ms event, {fms(t['option'][1])} "
+                       f"device (default {t['default'][0]:.3f} / {fms(t['default'][1])}), "
                        f"bound {b[0]:.4f} ({b[1]}), plain {plain_ms:.1f} ms; 720p golden "
                        f"{golden_db[name]:.2f} dB (default {base_db:.2f}) ({card})")
         rows.append({"name": f"march_{name}", "route": "cuda",
@@ -3368,10 +3611,10 @@ def window_options_phase(dev, card: str, scene, pose, golden, views, init) -> li
                 "peak": lambda: fwd(kmarch.march, win_peak)})
     t3 = turns({"event": lambda: kbwd.march_bwd(*eargs), "peak": lambda: kbwd.march_bwd(*bargs)})
     log("options", f"peak training 512x512 ({n_pairs_t} pairs): K1 save_tin {t1['peak'][0]:.3f} "
-                   f"ms event, {t1['peak'][1]:.3f} device (event key {t1['event'][0]:.3f} / "
-                   f"{t1['event'][1]:.3f}), bound {k1t_bound[0]:.4f} ({k1t_bound[1]}), plain "
-                   f"{k1t_plain:.1f}; K3 {t3['peak'][0]:.3f} / {t3['peak'][1]:.3f} (event key "
-                   f"{t3['event'][0]:.3f} / {t3['event'][1]:.3f}), bound {k3_bound[0]:.4f} "
+                   f"ms event, {fms(t1['peak'][1])} device (event key {t1['event'][0]:.3f} / "
+                   f"{fms(t1['event'][1])}), bound {k1t_bound[0]:.4f} ({k1t_bound[1]}), plain "
+                   f"{k1t_plain:.1f}; K3 {t3['peak'][0]:.3f} / {fms(t3['peak'][1])} (event key "
+                   f"{t3['event'][0]:.3f} / {fms(t3['event'][1])}), bound {k3_bound[0]:.4f} "
                    f"({k3_bound[1]}), plain {k3_plain:.1f} ({card})")
     rows.append({"name": "march_peak_window_save_tin", "route": "cuda",
                  "source": f"{PKG}/csrc/march.cuh", "replaces": k1,
@@ -3418,7 +3661,7 @@ def pair_keys_phase(dev, card: str, scene, pose, golden, views, init) -> list:
     import torch
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
         prepare_pair_stream, prepare_train_stream, snug_pair_capacity,
@@ -3523,7 +3766,7 @@ def pair_keys_phase(dev, card: str, scene, pose, golden, views, init) -> list:
         streams[key] = (stream, feats)
         for order in orders:
             cfg = bench.replace(pair_keys=key, order=order)
-            k1_args[key, order] = (stream.starts, feats, dirs_t, cfg, kmarch.chunk_for(cfg))
+            k1_args[key, order] = (stream.starts, feats, dirs_t, cfg, chunk_for(cfg))
             k1_err[key, order] = k1_check("K1pairkeys", f"{key} {order} 720p", k1_args[key, order])
     odd_args = (base_stream.starts, base_feats, dirs_t, odd_cfg, 128)
     odd_err = k1_check("K1pairkeys", "oddeven 720p", odd_args)
@@ -3591,8 +3834,8 @@ def pair_keys_phase(dev, card: str, scene, pose, golden, views, init) -> list:
                      "golden_psnr": golden_db[key], "default_golden_psnr": golden_db["gaussian"],
                      "max_abs_err": {o: k1_err[key, o] for o in orders},
                      **design("march", args[3], 128)}
-        log("pairkeys", f"{key} window: K1 {t['key'][0]:.3f} ms event, {t['key'][1]:.3f} device "
-                        f"(default {t['default'][0]:.3f} / {t['default'][1]:.3f}), bound "
+        log("pairkeys", f"{key} window: K1 {t['key'][0]:.3f} ms event, {fms(t['key'][1])} device "
+                        f"(default {t['default'][0]:.3f} / {fms(t['default'][1])}), bound "
                         f"{b[0]:.4f} ({b[1]}), plain {plain_ms:.1f}; binning {tb['key'][0]:.2f} "
                         f"ms (default {tb['default'][0]:.2f}); 720p golden {golden_db[key]:.2f} "
                         f"dB (default {golden_db['gaussian']:.2f}) ({card})")
@@ -3604,8 +3847,8 @@ def pair_keys_phase(dev, card: str, scene, pose, golden, views, init) -> list:
     odd_plain = (time.perf_counter() - t0) * 1e3
     odd_bound = march_bound(odd_args, {}, kmarch.march_plain)
     odd_design = design("march", odd_cfg, 128)
-    log("pairkeys", f"oddeven: K1 {t_odd['oddeven'][0]:.3f} ms event, {t_odd['oddeven'][1]:.3f} "
-                    f"device (key order {t_odd['key'][0]:.3f} / {t_odd['key'][1]:.3f}), bound "
+    log("pairkeys", f"oddeven: K1 {t_odd['oddeven'][0]:.3f} ms event, {fms(t_odd['oddeven'][1])} "
+                    f"device (key order {t_odd['key'][0]:.3f} / {fms(t_odd['key'][1])}), bound "
                     f"{odd_bound[0]:.4f} ({odd_bound[1]}), plain {odd_plain:.1f} ({card})")
 
     # --- the tile-key training's K1 saved carries and K3 ---
@@ -3619,7 +3862,7 @@ def pair_keys_phase(dev, card: str, scene, pose, golden, views, init) -> list:
         cfg = trainers[order].config
         with torch.no_grad():
             stream, trows, n_t = prepare_train_stream(trainers[order].model.activate(), cam0, cfg)
-        starts, trows, c = stream.starts, trows.detach().contiguous(), kmarch.chunk_for(cfg)
+        starts, trows, c = stream.starts, trows.detach().contiguous(), chunk_for(cfg)
         kw = {"origins_t": cam0.eye.expand(dirs0.shape).contiguous()} if order == "window" \
             else {}
         fwd = lambda f: f(starts, trows, dirs0, cfg, c, save_tin=True, **kw)
@@ -3642,8 +3885,8 @@ def pair_keys_phase(dev, card: str, scene, pose, golden, views, init) -> list:
         t3 = turns({"k3": lambda: kbwd.march_bwd(*bargs)})["k3"]
         train[order] = (e1, t1, k1_plain, b1, d1, e3, t3, k3_plain, b3, d3)
         log("pairkeys", f"tile key {order} training 512x512 ({n_t} pairs): K1 save_tin "
-                        f"{t1[0]:.3f} ms event, {t1[1]:.3f} device, bound {b1[0]:.4f} ({b1[1]}), "
-                        f"plain {k1_plain:.1f}; K3 {t3[0]:.3f} / {t3[1]:.3f}, bound {b3[0]:.4f} "
+                        f"{t1[0]:.3f} ms event, {fms(t1[1])} device, bound {b1[0]:.4f} ({b1[1]}), "
+                        f"plain {k1_plain:.1f}; K3 {t3[0]:.3f} / {fms(t3[1])}, bound {b3[0]:.4f} "
                         f"({b3[1]}), plain {k3_plain:.1f} ({card})")
     log("phase", f"pair keys, oddeven and bfloat16 in {time.perf_counter() - t_phase:.1f} s")
 
@@ -3819,7 +4062,7 @@ def parallel_phase(dev, card: str, scene, cam, golden, views, init) -> list:
     import torch.distributed as dist
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models import tiled as mtiled
     from gaussian_ray_tracing_tpu_torch.models.gaussian_model import FIELDS, GaussianModel
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
@@ -4082,7 +4325,7 @@ def parallel_phase(dev, card: str, scene, cam, golden, views, init) -> list:
                                     tile_rows=bands[i])
     dirs_t = S._pad_leading(mtiled.tile_rays(cameras.generate_rays(cam, bench)[1], 16, 16),
                             n * rows_l * tx_n)
-    chunk = kmarch.chunk_for(bench)
+    chunk = chunk_for(bench)
     args = (stream.starts, kmarch.compact_features(table, 0)[ids],
             dirs_t[i * rows_l * tx_n:(i + 1) * rows_l * tx_n], bench, chunk)
     k1_err = k1_check("parallel", f"K1 window band {i} ({band_pairs[i]} of {sum(band_pairs)} "

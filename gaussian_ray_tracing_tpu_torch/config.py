@@ -128,6 +128,31 @@ def tile_rays_supported(rays: int) -> bool:
 
 ORDERS = ("window", "key", "merge", "oddeven")
 PAIR_KEYS = ("gaussian", "tile", "tile_peak", "affine")
+# The chunks window and merge order march: JAX's bitonic sort and merge
+# networks (ops/pallas_march.py:132-183) sort only a power of two, and the
+# source index has 8 bits (:1106-1110). Key order and oddeven (stream order)
+# take any chunk, block mode's chunk * bounce_blocks_per_chunk too; the
+# tiled march's per-ray argsort takes any chunk in every order.
+SORT_CHUNKS = (32, 64, 128, 256)
+
+
+def chunk_for(config: RenderConfig) -> int:
+    """March chunk of the primary render and of training: max(32,
+    min(march_chunk, 256)), as JAX takes it (models/pallas_renderer.py:139,
+    215; models/mesh_tracer.py:325, 653)."""
+    return max(32, min(config.march_chunk, 256))
+
+
+def sort_chunk_refusal(name: str, order: str, chunk: int, what: str) -> list[str]:
+    """The refusal of window or merge order `order` (the field `name`) at a
+    march chunk they do not sort (SORT_CHUNKS), naming the value (`what`,
+    the chunk as the path computes it) and why."""
+    if order not in ("window", "merge") or chunk in SORT_CHUNKS:
+        return []
+    return [f"{name}={order!r} at {what} (window and merge order take chunks of 32, 64, "
+            f"128 or 256: JAX's bitonic network sorts only a power of two, "
+            f"ops/pallas_march.py:132-183, and its 8-bit source index caps them at 256, "
+            f":1106-1110; key and oddeven order take any chunk)"]
 
 
 def _float_dtype(name) -> bool:
@@ -141,10 +166,19 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
     128 up to 8192 (tile_rays_supported: the kernels run one thread per
     ray, a tile of more than 1024 as a thread-block cluster of at most 8
     blocks, where a TPU takes any multiple of 128), SH degrees outside 0-3,
-    hit multiplicities below 1, and orders, order keys, pair keys and
-    compute dtypes the JAX package does not have either. compute_dtype is
-    read by the tiled march alone (any float dtype); the kernel paths
-    ignore it, as JAX's Pallas paths do."""
+    hit multiplicities below 1, orders, order keys, pair keys and compute
+    dtypes the JAX package does not have either, and window or merge order
+    at a chunk_for other than 32, 64, 128 or 256 (SORT_CHUNKS: JAX runs
+    them there, but its sort does not sort). compute_dtype is read by the
+    tiled march alone (any float dtype); the kernel paths ignore it, as
+    JAX's Pallas paths do."""
+    chunk = chunk_for(config)
+    return _unsupported_values(config) + sort_chunk_refusal("order", config.order, chunk,
+                                                            f"march chunk {chunk}")
+
+
+def _unsupported_values(config: RenderConfig) -> list[str]:
+    """unsupported_fields but for the chunk: what the tiled march refuses."""
     rays = config.rays_per_tile
     bad = [] if tile_rays_supported(rays) else \
         [f"tile_w*tile_h={config.tile_w}*{config.tile_h} (rays per tile: a multiple of 32 up "
@@ -162,12 +196,13 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
 
 def unsupported_tiled_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported tiled march (models/tiled.py) does not
-    implement: the render's (tiles of more than 8192 rays among them). It
-    marches in config.compute_dtype (float64 for a witness, bfloat16 as
+    implement: the render's (tiles of more than 8192 rays among them) but
+    for the chunk, since its per-ray argsort sorts any chunk in window order.
+    It marches in config.compute_dtype (float64 for a witness, bfloat16 as
     JAX's does); merge order composites in stream order (key) and oddeven
     runs window_passes odd-even passes in place of the per-ray sort, as in
     the JAX tiled march."""
-    return unsupported_fields(config)
+    return _unsupported_values(config)
 
 
 def train_config(config: RenderConfig) -> RenderConfig:
@@ -189,11 +224,19 @@ def unsupported_mesh_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported mesh tracer does not implement: on top
     of the render's limits (it traces every camera model at SH degree 0-3),
     bounced segments march in window, key, merge or oddeven order (stream
-    order with the exact event gate, as K1 runs oddeven)."""
+    order with the exact event gate, as K1 runs oddeven) in block mode's
+    chunks of chunk_for * bounce_blocks_per_chunk rows (models/mesh_tracer.py
+    :447-453): any number in key and oddeven order, 32, 64, 128 or 256 in
+    window and merge order (JAX raises above 256)."""
     bad = unsupported_fields(config)
     if config.bounce_order not in ORDERS:
         bad.append(f"bounce_order={config.bounce_order!r}")
-    return bad
+    bsub = max(1, config.bounce_blocks_per_chunk)
+    block_chunk = chunk_for(config) * bsub
+    return bad + sort_chunk_refusal(
+        "bounce_order", config.bounce_order, block_chunk,
+        f"block-mode chunk {block_chunk} (march chunk {chunk_for(config)} * "
+        f"bounce_blocks_per_chunk {bsub})")
 
 
 def _raise_unsupported(bad: list[str]) -> None:

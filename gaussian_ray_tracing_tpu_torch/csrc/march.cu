@@ -6,20 +6,20 @@
 #include "march.cuh"
 
 namespace k1 {
-template cudaError_t launch_k<1>(const Params&, int, int, int, int, cudaStream_t, int*);
-extern template cudaError_t launch_k<4>(const Params&, int, int, int, int, cudaStream_t, int*);
-extern template cudaError_t launch_k<9>(const Params&, int, int, int, int, cudaStream_t, int*);
-extern template cudaError_t launch_k<16>(const Params&, int, int, int, int, cudaStream_t, int*);
+template cudaError_t launch_k<1>(const Params&, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<4>(const Params&, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<9>(const Params&, int, int, int, cudaStream_t, int*);
+extern template cudaError_t launch_k<16>(const Params&, int, int, int, cudaStream_t, int*);
 }  // namespace k1
 
-static cudaError_t dispatch(const k1::Params& p, int sh_k, int chunk, int order, int n_tiles,
-                            int R, cudaStream_t s, int* info) {
+static cudaError_t dispatch(const k1::Params& p, int sh_k, int order, int n_tiles, int R,
+                            cudaStream_t s, int* info) {
   using namespace k1;
   switch (sh_k) {
-    case 1: return launch_k<1>(p, chunk, order, n_tiles, R, s, info);
-    case 4: return launch_k<4>(p, chunk, order, n_tiles, R, s, info);
-    case 9: return launch_k<9>(p, chunk, order, n_tiles, R, s, info);
-    case 16: return launch_k<16>(p, chunk, order, n_tiles, R, s, info);
+    case 1: return launch_k<1>(p, order, n_tiles, R, s, info);
+    case 4: return launch_k<4>(p, order, n_tiles, R, s, info);
+    case 9: return launch_k<9>(p, order, n_tiles, R, s, info);
+    case 16: return launch_k<16>(p, order, n_tiles, R, s, info);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -34,7 +34,18 @@ static bool rays_ok(int R) {
   return R >= 32 && (R <= 1024 ? R % 32 == 0 : R <= 8192 && R % 128 == 0);
 }
 
-// order 0: window order; 1: key order; 2: merge order; 3: oddeven, which
+// Chunks an order takes: key order (1) and oddeven (3) any c >= 1 (the
+// key kernel stages a chunk above 256 in pieces); window (0) and merge (2)
+// order 32, 64, 128 or 256, where their sorts and 8-bit source indices
+// hold (JAX's bitonic network sorts only a power of two,
+// pallas_march.py:132-183, and caps them at 256, :1106-1110).
+static bool chunk_ok(int chunk, int order) {
+  if (order == 1 || order == 3) return chunk >= 1;
+  return chunk == 32 || chunk == 64 || chunk == 128 || chunk == 256;
+}
+
+// chunk: candidates a chunk (chunk_ok). order 0: window order; 1: key
+// order; 2: merge order; 3: oddeven, which
 // the key kernel runs (stream order) with the exact event gate unless
 // `peak` (JAX's kernel has no odd-even network and takes the sqrt-free gate
 // only in key order or under the peak key, pallas_march.py:560-562, 966).
@@ -77,7 +88,7 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
                           (!tin || (!scan && group == rays_per_tile && a_fire == 0.f &&
                                     repair == 0 && !stats));
   if (!rays_ok(rays_per_tile) || n_tiles < 0 || !sh_ok || !options_ok || order < 0 || order > 3 ||
-      stride < min_stride(origins || tin, sh_k) ||
+      !chunk_ok(chunk, order) || stride < min_stride(origins || tin, sh_k) ||
       (tin != nullptr) != (chunk_base != nullptr) ||
       (quad && (!origins || blocks)) ||
       (tin && (blocks || order == 2 || (order == 0 && (!origins || quad)))) ||
@@ -91,10 +102,9 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
            (const float*)t_lo_arr, (const float*)t_hi_arr, (const float*)t0,
            (const int*)blocks, block_sub, stride, full_range && (order != 3 || peak), t_lo,
            t_hi, min_t, t_skip, alpha_min, alpha_clamp, hit_multiplicity, quad != 0, peak != 0,
-           scan != 0, group, a_fire, repair, (int*)stats, rays_per_tile};
+           scan != 0, group, a_fire, repair, (int*)stats, rays_per_tile, chunk};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)dispatch(p, sh_k, chunk, order == 3 ? 1 : order, n_tiles, rays_per_tile, s,
-                       nullptr);
+  return (int)dispatch(p, sh_k, order == 3 ? 1 : order, n_tiles, rays_per_tile, s, nullptr);
 }
 
 // What a launch of grt_march with these settings would run, without
@@ -102,7 +112,8 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
 // dynamic shared memory bytes, out[2] registers per thread, out[3] local
 // memory bytes per thread (stack frame and spills); above 1024 rays also
 // out[4] the blocks of a tile's cluster and out[5] the clusters that can be
-// resident at once (an error where none can). resp: 0 the quad
+// resident at once (an error where none can); out[6] the build's staging
+// capacity C (staging_chunk: the chunk's build). resp: 0 the quad
 // response from the eye, 1 the scalar one from per-ray origins, 2 the
 // per-ray-origin quad one; train: saved carries.
 extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int train,
@@ -115,7 +126,9 @@ extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int trai
   p.quad = resp == 2;
   p.tin = train ? dummy : nullptr;
   p.R = rays_per_tile;
-  if (!rays_ok(rays_per_tile) || order < 0 || order > 3)
+  p.chunk = chunk;
+  if (!rays_ok(rays_per_tile) || order < 0 || order > 3 || !chunk_ok(chunk, order))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch(p, sh_k, chunk, order == 3 ? 1 : order, 0, rays_per_tile, nullptr, out);
+  out[6] = staging_chunk(chunk);
+  return (int)dispatch(p, sh_k, order == 3 ? 1 : order, 0, rays_per_tile, nullptr, out);
 }

@@ -16,7 +16,9 @@
 // `march_plain` is the reference this kernel is tested against. The three
 // orders are three __global__ functions: `march_kernel` (window),
 // `march_key_kernel` (key) and `march_merge_kernel` (merge, render only; see
-// "Merge order" below), each instantiated per chunk C, response, SH
+// "Merge order" below), each instantiated per staging capacity C in {32,
+// 64, 128, 256} (window and merge order march chunks of C; key order any
+// chunk c, on the smallest C >= c: staging_chunk), response, SH
 // coefficient count K = (degree + 1)^2 in {1, 4, 9, 16} and kTrain, the
 // saved carries of the training forward on the training rows (built for
 // the key kernel on every response and the window kernel on the scalar
@@ -113,12 +115,17 @@
 // one; one evaluation per candidate with, on
 // full-range rays, the sqrt-free gate alpha > alpha_min & (t* >= t_lo |
 // q(t_lo) < 0), composited in stream order with float32 colours, no fire
-// test and no sort. With saved carries (`tin` non-null, the training forward)
-// each chunk's carry-in T is stored BEFORE its skip test at row
-// chunk_base[tile] + j, so skipped chunks are saved too and the backward
-// (csrc/march_bwd.cuh) can replay every chunk; the skip threshold is then
-// min_transmittance. The prefix of log1p(-a) is summed sequentially per
-// ray, in the order the backward sums it.
+// test and no sort. The chunk c is a runtime value (Params::chunk; JAX takes
+// any max(32, min(march_chunk, 256)), and in block mode chunk *
+// bounce_blocks_per_chunk, e.g. 512): a chunk of more than C candidates is
+// staged in pieces of at most C rows (stage_piece), one Composite over the
+// whole chunk, so the chunk skip, the saved carry and the composite's
+// restart follow c, never the staging size. With saved carries (`tin`
+// non-null, the training forward) each chunk's carry-in T is stored BEFORE
+// its skip test at row chunk_base[tile] + j, so skipped chunks are saved
+// too and the backward (csrc/march_bwd.cuh) can replay every chunk; the
+// skip threshold is then min_transmittance. The prefix of log1p(-a) is
+// summed sequentially per ray, in the order the backward sums it.
 //
 // Merge order (pallas_march.py:352-363, 677-742, 974-982), the same block
 // layout, staging, response, gate, sure-miss test and colour code, but the
@@ -343,6 +350,7 @@ struct Params {
   int repair;             // sort_repair's band width w, 0 < w < C (render), else 0
   int* stats;             // (T, 2) fired and repaired chunks per tile, or null (render)
   int R;                  // rays per tile (the cluster builds' tile; blockDim.x up to 1024)
+  int chunk;              // candidates a chunk: the key kernel's c; C in window and merge order
 };
 
 // A tile of more than 1024 rays (a multiple of 128, up to 8192) is a
@@ -578,26 +586,27 @@ __device__ __forceinline__ float effective_alpha(float alpha, int hm) {
   return 1.f - pw;
 }
 
-// Global row of candidate r of chunk j of the tile whose segment starts at
-// `start`: the stream slot, or in block mode the row of the listed block.
-template <int C>
-__device__ __forceinline__ size_t row_index(const Params& p, int start, int j, int r) {
-  if (!p.blocks) return (size_t)start + (size_t)j * C + r;
-  const int bs = C / p.block_sub;
-  return (size_t)p.blocks[start / bs + j * p.block_sub + r / bs] * bs + r % bs;
+// Global row of candidate k of the tile whose segment starts at `start`,
+// marched in chunks of c: the stream slot, or in block mode (bs = c /
+// block_sub rows a block) row k % bs of the tile's listed block k / bs.
+__device__ __forceinline__ size_t row_index(const Params& p, int start, int k, int c) {
+  if (!p.blocks) return (size_t)start + k;
+  const int bs = c / p.block_sub;
+  return (size_t)p.blocks[start / bs + k / bs] * bs + k % bs;
 }
 
-// Start the copy of the chunk's rows [0, m) into sf (Layout's runs, one
-// 16-byte cp.async per group, the row's global index computed per group of
-// 4 floats) and commit it as one group; cp_async_wait and a __syncthreads
-// make it visible.
-template <int C, int kR, int K, bool kTrain>
-__device__ __forceinline__ void stage_async(float* sf, const Params& p, int start, int j, int m) {
+// Start the copy of the tile's candidates [k0, k0 + m) (chunks of c) into
+// sf (Layout's runs, one 16-byte cp.async per group, the row's global index
+// computed per group of 4 floats) and commit it as one group; cp_async_wait
+// and a __syncthreads make it visible.
+template <int kR, int K, bool kTrain>
+__device__ __forceinline__ void stage_async(float* sf, const Params& p, int start, int k0, int c,
+                                            int m) {
   using L = Layout<kR, K, kTrain>;
   constexpr int G = L::w / 4, GA = L::a / 4;  // 16-byte groups per staged row, in run 1
   for (int k = threadIdx.x; k < m * G; k += blockDim.x) {
     const int r = k / G, q = k - r * G;
-    const float* g = p.feats + row_index<C>(p, start, j, r) * p.stride;
+    const float* g = p.feats + row_index(p, start, k0 + r, c) * p.stride;
     cp_async16(sf + r * L::w + 4 * q, g + (q < GA ? 4 * q : L::b + 4 * (q - GA)));
   }
   cp_async_commit();
@@ -933,42 +942,61 @@ template <int C, int W>
 __host__ __device__ constexpr int staged_smem_bytes() {
   return (int)sizeof(float) * (window_stages<C, W>() * C * W + C);
 }
-// Stage chunk j of a tile of n candidates (every thread of the block, past
-// the tile-wide skip test): its rows ready in sf (one stage), or in buffer
-// j & 1 with chunk j+1's copy started into the other (two stages: the
-// kernel started chunk 0's before its loop), their sure-miss thresholds in
-// thr and, for the per-ray-origin quad response, their origin_quad_row
-// terms about the tile's origin centroid ob. Returns the chunk's rows.
+// A piece: the run [k0, k0 + m) of a tile's candidates staged at once
+// (at most C, the build's staging capacity). The window and merge kernels
+// stage one piece a chunk (stage_chunk); the key kernel stages chunk j of
+// c in ceil(c / C) pieces.
+struct Piece {
+  int k0, m;
+};
+
+// Stage piece u of a tile (every thread of the block, past the tile-wide
+// skip test): the candidates pc of a tile of n in chunks of c, its rows
+// ready in sf (one stage), or in buffer u & 1 with piece nx's copy started
+// into the other (two stages: the kernel started piece 0's before its
+// loop; nx.k0 >= n: no next piece), their sure-miss thresholds in thr and,
+// for the per-ray-origin quad response, their origin_quad_row terms about
+// the tile's origin centroid ob. `first`: the piece starts a chunk. Returns
+// the piece's rows.
 template <int C, int kR, int K, bool kTrain, int kStages>
-__device__ __forceinline__ const float* stage_chunk(float* sf, float* thr, const Params& p,
-                                                    int start, int j, int n, float3 ob) {
+__device__ __forceinline__ const float* stage_piece(float* sf, float* thr, const Params& p,
+                                                    int start, int u, int n, float3 ob, int c,
+                                                    Piece pc, Piece nx, bool first) {
   constexpr int W = Layout<kR, K, kTrain>::w;
-  const int m = min(C, n - j * C);
-  float* buf = sf + (kStages == 2 ? (j & 1) * C * W : 0);
+  float* buf = sf + (kStages == 2 ? (u & 1) * C * W : 0);
   if (kStages == 1) {
-    __syncthreads();  // the previous chunk is done with sf
-    stage_async<C, kR, K, kTrain>(sf, p, start, j, m);
+    __syncthreads();  // the previous piece is done with sf
+    stage_async<kR, K, kTrain>(sf, p, start, pc.k0, c, pc.m);
     cp_async_wait<0>();
     __syncthreads();
   } else {
-    // chunk j+1 goes to the buffer chunk j-1 used, which every thread left
-    // before block_reduce's barrier; a tile that skips chunk j+1 never
+    // piece u+1 goes to the buffer piece u-1 used, which every thread left
+    // before block_reduce's barrier (a chunk's first piece) or this one (a
+    // later piece of the same chunk); a tile that skips chunk j+1 never
     // reads it
-    if ((j + 1) * C < n) {
-      stage_async<C, kR, K, kTrain>(sf + ((j + 1) & 1) * C * W, p, start, j + 1,
-                                    min(C, n - (j + 1) * C));
+    if (!first) __syncthreads();
+    if (nx.k0 < n) {
+      stage_async<kR, K, kTrain>(sf + ((u + 1) & 1) * C * W, p, start, nx.k0, c, nx.m);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+  for (int i = threadIdx.x; i < pc.m; i += blockDim.x) {
     thr[i] = miss_threshold(buf[i * W], p.alpha_min);
     if constexpr (kR == kOriginQuad) origin_quad_row(buf + i * W, ob);
   }
   __syncthreads();
   return buf;
+}
+
+// stage_piece of chunk j of C candidates, one piece a chunk (piece j).
+template <int C, int kR, int K, bool kTrain, int kStages>
+__device__ __forceinline__ const float* stage_chunk(float* sf, float* thr, const Params& p,
+                                                    int start, int j, int n, float3 ob) {
+  const Piece pc{j * C, min(C, n - j * C)}, nx{(j + 1) * C, min(C, n - (j + 1) * C)};
+  return stage_piece<C, kR, K, kTrain, kStages>(sf, thr, p, start, j, n, ob, C, pc, nx, true);
 }
 
 // Blocks per SM the 256-ray window kernel is built for (its register cap).
@@ -1014,7 +1042,7 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
   const bool peak = p.peak != 0, fast_gate = peak && p.full_range != 0;
   int n_fired = 0, n_repaired = 0;  // this thread's fire group's chunks (stats)
 
-  if (kStages == 2 && n_chunks > 0) stage_async<C, kR, K, kTrain>(sf, p, start, 0, min(C, n));
+  if (kStages == 2 && n_chunks > 0) stage_async<kR, K, kTrain>(sf, p, start, 0, C, min(C, n));
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
     if (kTrain && ti.valid) tin[(size_t)j * R] = T;
@@ -1184,22 +1212,31 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
 // run (blocks_per_sm), where more would fit.
 constexpr int kKeyMinBlocks = 3, kKeyBlocks = 4;
 
+// The key kernel, one tile a block (a cluster above 1024 rays). C is the
+// build's staging capacity; the chunk is p.chunk = c, any c >= 1 (launch_k
+// takes the smallest build with C >= c, up to 256). Chunk j is staged in
+// ceil(c / C) pieces of at most C rows (stage_piece): one at c <= C,
+// several for a chunk above 256 (block mode's c = chunk * block_sub). The
+// skip test, the saved carry and the composite span the whole chunk: one
+// Composite over its c candidates, in stream order across its pieces.
 template <int C, int kR, int K, bool kTrain, int kMaxR>
 __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kKeyMinBlocks : 1)
     march_key_kernel(Params p) {
+  extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats, C thresholds
+  __shared__ float red[kMaxR == kClusterR ? kClusterRed : 32];
   using L = Layout<kR, K, kTrain>;
   constexpr int W = L::w, kCol = L::col;
   constexpr int kStages = window_stages<C, W>();
   constexpr bool kCl = kMaxR == kClusterR;
-  extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
-  float* thr = sf + kStages * C * W;             // C sure-miss thresholds
-  __shared__ float red[kCl ? kClusterRed : 32];
+  float* thr = sf + kStages * C * W;  // C sure-miss thresholds
 
   const TileIdx ti = tile_index<kCl>(p);
   const int tile = ti.tile, R = ti.R;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
-  const int n_chunks = (n + C - 1) / C;
+  const int c = p.chunk;  // the chunk
+  const int n_chunks = (n + c - 1) / c;
+  int u = 0;  // pieces staged: u & 1 the next one's buffer
   float3 ob;
   const Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
   float basis[K];
@@ -1209,7 +1246,8 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kKey
   int par = 0;  // tile_reduce's exchange slots (cluster builds)
 
   float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  if (kStages == 2 && n_chunks > 0) stage_async<C, kR, K, kTrain>(sf, p, start, 0, min(C, n));
+  if (kStages == 2 && n_chunks > 0)
+    stage_async<kR, K, kTrain>(sf, p, start, 0, c, min(C, min(c, n)));
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
     if (kTrain && ti.valid) tin[(size_t)j * R] = T;
@@ -1218,9 +1256,6 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kKey
       if (!kTrain) break;
       continue;  // the remaining chunks' carries are still saved
     }
-    const int m = min(C, n - j * C);
-    const float* buf = stage_chunk<C, kR, K, kTrain, kStages>(sf, thr, p, start, j, n, ob);
-
     // one evaluation per candidate: a sure miss stops before the division
     // and the exp (a = 0, as the full evaluation would give; the fast gate
     // reads only what the full evaluation computes past that test); from
@@ -1228,13 +1263,23 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kKey
     // rolling shutter) so does any candidate of a dead ray, which would
     // otherwise hold its warp on the full path
     Composite comp(T, !kTrain && p.scan);
-    for (int i = 0; i < m; ++i) {
-      const float* f = buf + i * W;
-      float t_ev, a, cr, cg, cb;
-      evaluate<kR, true, kR != kQuad>(p, ray, f, fast_gate, false, t_ev, a, thr[i]);
-      if (!(a > 0.f)) continue;
-      row_color<kR == kScalar, K>(f + kCol, basis, cr, cg, cb);
-      comp.add(a, cr, cg, cb, p.min_t);
+    // pieces [k0, k0 + C) of [j c, end); the next piece the chunk's next,
+    // or the next chunk's first
+    const int j0 = j * c, end = min(n, j0 + c);
+    for (int k0 = j0; k0 < end; k0 += C, ++u) {
+      const Piece pc{k0, min(C, end - k0)};
+      const Piece nx = k0 + C < end ? Piece{k0 + C, min(C, end - k0 - C)}
+                                    : Piece{j0 + c, min(C, min(c, n - j0 - c))};
+      const float* buf = stage_piece<C, kR, K, kTrain, kStages>(sf, thr, p, start, u, n, ob, c,
+                                                                pc, nx, k0 == j0);
+      for (int i = 0; i < pc.m; ++i) {
+        const float* f = buf + i * W;
+        float t_ev, a, cr, cg, cb;
+        evaluate<kR, true, kR != kQuad>(p, ray, f, fast_gate, false, t_ev, a, thr[i]);
+        if (!(a > 0.f)) continue;
+        row_color<kR == kScalar, K>(f + kCol, basis, cr, cg, cb);
+        comp.add(a, cr, cg, cb, p.min_t);
+      }
     }
     const float t_next = comp.t_next();
     T = T > p.min_t ? t_next : T;
@@ -1591,18 +1636,25 @@ cudaError_t launch(const Params& p, int order, int n_tiles, int R, cudaStream_t 
                 : launch_mode<C, kScalar, K>(p, order, n_tiles, R, stream, info);
 }
 
-// Every chunk of SH coefficient count K; explicitly instantiated for K = 1
-// in march.cu and for K = 4, 9, 16 in march_sh1.cu, march_sh2.cu and
-// march_sh3.cu.
+// The build (its staging capacity C) that marches chunks of c: the
+// smallest of 32, 64, 128 and 256 that holds c, and 256 above (key order's
+// chunks of more than 256 are staged in pieces). Window and merge order
+// march only c = C.
+__host__ __device__ constexpr int staging_chunk(int c) {
+  return c <= 32 ? 32 : c <= 64 ? 64 : c <= 128 ? 128 : 256;
+}
+
+// Every chunk of SH coefficient count K (p.chunk; window and merge order
+// one of the four builds'); explicitly instantiated for K = 1 in march.cu
+// and for K = 4, 9, 16 in march_sh1.cu, march_sh2.cu and march_sh3.cu.
 template <int K>
-cudaError_t launch_k(const Params& p, int chunk, int order, int n_tiles, int R,
-                     cudaStream_t stream, int* info) {
-  switch (chunk) {
+cudaError_t launch_k(const Params& p, int order, int n_tiles, int R, cudaStream_t stream,
+                     int* info) {
+  switch (staging_chunk(p.chunk)) {
     case 32: return launch<32, K>(p, order, n_tiles, R, stream, info);
     case 64: return launch<64, K>(p, order, n_tiles, R, stream, info);
     case 128: return launch<128, K>(p, order, n_tiles, R, stream, info);
-    case 256: return launch<256, K>(p, order, n_tiles, R, stream, info);
-    default: return cudaErrorInvalidValue;
+    default: return launch<256, K>(p, order, n_tiles, R, stream, info);
   }
 }
 

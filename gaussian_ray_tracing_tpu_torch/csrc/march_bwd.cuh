@@ -14,7 +14,9 @@
 // Design: one block per tile, one thread per ray (R = blockDim.x: a 256-ray
 // build, two blocks per SM, and a 1024-ray one, one block per SM at most 64
 // registers a thread, for tiles of 288 to 1024 rays; kMaxR).
-// Each tile's chunks of C candidates run last to first, carrying dT per ray
+// Each tile's chunks of c candidates run last to first (c the forward's
+// chunk, at most the build's capacity C: key order any c up to 256 on the
+// smallest build that holds it, window order c = C), carrying dT per ray
 // (initially d t_final). Per chunk:
 //   1. skip replay: the block max of the saved carry-in t_in; at or below
 //      min_transmittance the chunk's rows stay zero and dT is unchanged;
@@ -27,7 +29,8 @@
 //   3. key order, pass A: each ray evaluates every candidate once with the
 //      operations of K1's eval_scalar; a miss (alpha at or below alpha_min)
 //      stops at alpha. Its gate sets a bit of a register mask (C / 32
-//      words); for a gated candidate the exclusive prefix of log1p(-a)
+//      words, ceil(c / 32) of them used; a tail group of kGroup past c is
+//      cut to the chunk); for a gated candidate the exclusive prefix of log1p(-a)
 //      (summed sequentially, in the order the forward K1 summed it), P =
 //      t_in exp(prefix), d_w, d_P, sum(d_P E) and the total D = sum(d_P P)
 //      advance; the chunk's new dT follows;
@@ -172,6 +175,7 @@ struct Params {
   int hm;
   int peak;               // window_key "peak": the window replay's order key is t*
   int R;                  // rays per tile (the cluster builds' tile; blockDim.x up to 1024)
+  int chunk;              // candidates a chunk, c <= C (window order: C)
 };
 
 
@@ -352,6 +356,9 @@ __device__ __forceinline__ void stage_async(float* sf, const Params& p, size_t r
   k1::cp_async_commit();
 }
 
+// C is the build's chunk capacity: the chunk is p.chunk = c <= C (key
+// order: any c up to 256, on the smallest build with C >= c; window order
+// c = C), so a chunk's mask fits in C / 32 words and its rows in a buffer.
 template <int C, int K, bool kWindow, bool kOrig, int kMaxR>
 __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 1)
     march_bwd_kernel(Params p) {
@@ -372,7 +379,8 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
   int par = 0, xpar = 0;  // the cluster builds' exchange slots (red's, xs's)
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
-  const int n_chunks = (n + C - 1) / C;
+  const int c = p.chunk;
+  const int n_chunks = (n + c - 1) / c;
   const size_t ray = ti.idx();
 
   // an idle lane of a cluster: a dead ray with no gradient and no carry
@@ -411,12 +419,12 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
       }
       continue;
     }
-    const int m = min(C, n - j * C);
-    const size_t row0 = (size_t)start + (size_t)j * C;
+    const int m = min(c, n - j * c);
+    const size_t row0 = (size_t)start + (size_t)j * c;
     float* sf = smem + (kStages == 2 ? (j & 1) * C * kS : 0);
     if (staged != j) stage_async<K>(sf, p, row0, m);
     if (kStages == 2 && j > 0) {  // chunk j-1 into the other buffer
-      stage_async<K>(smem + ((j - 1) & 1) * C * kS, p, row0 - C, C);
+      stage_async<K>(smem + ((j - 1) & 1) * C * kS, p, row0 - c, c);
       staged = j - 1;
       k1::cp_async_wait<1>();
     } else {
@@ -776,15 +784,15 @@ cudaError_t launch(const Params& p, int n_tiles, int R, cudaStream_t stream, int
                      : launch_r<C, K, kWindow, kOrig, k1::kClusterR>(p, n_tiles, R, stream, info);
 }
 
+// The build of p.chunk: the smallest capacity C in 32, 64, 128, 256 that
+// holds it (k1::staging_chunk; window order only at c = C).
 template <int K, bool kWindow, bool kOrig>
-cudaError_t launch_chunk(const Params& p, int chunk, int n_tiles, int R, cudaStream_t stream,
-                         int* info) {
-  switch (chunk) {
+cudaError_t launch_chunk(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
+  switch (k1::staging_chunk(p.chunk)) {
     case 32: return launch<32, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
     case 64: return launch<64, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
     case 128: return launch<128, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
-    case 256: return launch<256, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
-    default: return cudaErrorInvalidValue;
+    default: return launch<256, K, kWindow, kOrig>(p, n_tiles, R, stream, info);
   }
 }
 
@@ -793,13 +801,13 @@ cudaError_t launch_chunk(const Params& p, int chunk, int n_tiles, int R, cudaStr
 // 9, 16 in march_bwd_sh1.cu, march_bwd_sh2.cu and march_bwd_sh3.cu, so that
 // nvcc builds them in parallel.
 template <int K>
-cudaError_t launch_k(const Params& p, bool window, int chunk, int n_tiles, int R,
-                     cudaStream_t stream, int* info) {
+cudaError_t launch_k(const Params& p, bool window, int n_tiles, int R, cudaStream_t stream,
+                     int* info) {
   if (p.origins)
-    return window ? launch_chunk<K, true, true>(p, chunk, n_tiles, R, stream, info)
-                  : launch_chunk<K, false, true>(p, chunk, n_tiles, R, stream, info);
-  return window ? launch_chunk<K, true, false>(p, chunk, n_tiles, R, stream, info)
-                : launch_chunk<K, false, false>(p, chunk, n_tiles, R, stream, info);
+    return window ? launch_chunk<K, true, true>(p, n_tiles, R, stream, info)
+                  : launch_chunk<K, false, true>(p, n_tiles, R, stream, info);
+  return window ? launch_chunk<K, true, false>(p, n_tiles, R, stream, info)
+                : launch_chunk<K, false, false>(p, n_tiles, R, stream, info);
 }
 
 }  // namespace k3

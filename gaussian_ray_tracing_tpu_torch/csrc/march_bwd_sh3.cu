@@ -4,5 +4,5 @@
 #include "march_bwd.cuh"
 
 namespace k3 {
-template cudaError_t launch_k<16>(const Params&, bool, int, int, int, cudaStream_t, int*);
+template cudaError_t launch_k<16>(const Params&, bool, int, int, cudaStream_t, int*);
 }  // namespace k3

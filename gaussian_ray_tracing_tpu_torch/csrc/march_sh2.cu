@@ -4,5 +4,5 @@
 #include "march.cuh"
 
 namespace k1 {
-template cudaError_t launch_k<9>(const Params&, int, int, int, int, cudaStream_t, int*);
+template cudaError_t launch_k<9>(const Params&, int, int, int, cudaStream_t, int*);
 }  // namespace k1

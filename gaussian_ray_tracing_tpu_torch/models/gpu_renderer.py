@@ -23,13 +23,13 @@ import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
 from gaussian_ray_tracing_tpu_torch.config import (
-    RenderConfig, check_supported, check_trainable, train_config,
+    RenderConfig, check_supported, check_trainable, chunk_for, train_config,
 )
 from gaussian_ray_tracing_tpu_torch.models.tiled import (
     depth_key, feature_table, tile_rays, untile_image,
 )
 from gaussian_ray_tracing_tpu_torch.ops.march import (
-    chunk_for, compact_features, march, march_plain, scalar_features, train_features,
+    compact_features, march, march_plain, scalar_features, train_features,
 )
 from gaussian_ray_tracing_tpu_torch.ops.march_bwd import march_stream_diff
 from gaussian_ray_tracing_tpu_torch.ops.tiles import bin_pairs, count_pairs, project_footprints_conic

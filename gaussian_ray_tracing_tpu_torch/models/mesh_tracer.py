@@ -51,7 +51,9 @@ import numpy as np
 import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
-from gaussian_ray_tracing_tpu_torch.config import MeshType, RenderConfig, check_mesh_supported
+from gaussian_ray_tracing_tpu_torch.config import (
+    MeshType, RenderConfig, check_mesh_supported, chunk_for,
+)
 from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
     check_devices, frame_image, prepare_pair_stream, snug_pair_capacity,
 )
@@ -61,7 +63,7 @@ from gaussian_ray_tracing_tpu_torch.ops.blocks import (
 )
 from gaussian_ray_tracing_tpu_torch.models.oracle import frame_from_rays, render_rays_oracle
 from gaussian_ray_tracing_tpu_torch.ops.intersect import closest_hit, reflect, refract_or_tir
-from gaussian_ray_tracing_tpu_torch.ops.march import chunk_for, march, march_plain
+from gaussian_ray_tracing_tpu_torch.ops.march import march, march_plain
 from gaussian_ray_tracing_tpu_torch.ops.response import adaptive_radius, dot3
 from gaussian_ray_tracing_tpu_torch.ops.tiles import count_pairs, num_tiles
 from gaussian_ray_tracing_tpu_torch.ops.tri import (

@@ -17,14 +17,14 @@ from __future__ import annotations
 import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays_rolling, lerp_camera
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_supported
+from gaussian_ray_tracing_tpu_torch.config import RenderConfig, check_supported, chunk_for
 from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
     bin_footprints, check_devices, frame_image, snug_pair_capacity,
 )
 from gaussian_ray_tracing_tpu_torch.models.oracle import frame_from_rays, render_rays_oracle
 from gaussian_ray_tracing_tpu_torch.models.tiled import depth_key, feature_table, tile_rays
 from gaussian_ray_tracing_tpu_torch.ops.march import (
-    chunk_for, march, march_plain, scalar_features, train_features,
+    march, march_plain, scalar_features, train_features,
 )
 from gaussian_ray_tracing_tpu_torch.ops.tiles import (
     Footprint, footprint_pair_count, project_footprints_conic,

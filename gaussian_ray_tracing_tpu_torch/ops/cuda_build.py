@@ -175,8 +175,9 @@ def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     grt_closest_hit_info and grt_scan_info). A library built from an
     earlier commit's sources comes back behind _InterfaceV2 (interface
     version 2) or _InterfaceV1 (no grt_interface_version); one of version
-    3 takes this tree's argument lists as they are and refuses only order
-    3 (oddeven), with cudaErrorInvalidValue."""
+    3 or 4 takes this tree's argument lists as they are and refuses, with
+    cudaErrorInvalidValue, what it lacks: a chunk other than 32, 64, 128
+    and 256 (both), and order 3, oddeven (version 3)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci] * 6 + [cf, ci, vp, vp]
     lib.grt_march.restype = ci
@@ -223,11 +224,12 @@ def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: st
     and rays per tile runs: resident blocks per SM, shared memory bytes
     (dynamic; K4's and K2's static), registers and local memory bytes per
     thread, from the CUDA runtime; for K1 and K3 also the blocks of a
-    tile's thread-block cluster (1 up to 1024 rays) and, above 1024 rays,
-    the clusters that can be resident at once (cudaOccupancyMaxActiveClusters;
-    the query raises where none can)."""
+    tile's thread-block cluster (1 up to 1024 rays), above 1024 rays the
+    clusters that can be resident at once (cudaOccupancyMaxActiveClusters;
+    the query raises where none can), and the staging capacity C of the
+    build that marches this chunk (`build_chunk`: 32, 64, 128 or 256)."""
     lib = load_library()
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     k = (sh_degree + 1) ** 2
     if kernel == "scan":
         err = lib.grt_scan_info(out)
@@ -244,6 +246,7 @@ def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: st
     if kernel in ("march", "march_bwd"):
         info["cluster_blocks"] = out[4] if rays > 1024 else 1
         info["resident_clusters"] = out[5] if rays > 1024 else None
+        info["build_chunk"] = out[6]
     return info
 
 

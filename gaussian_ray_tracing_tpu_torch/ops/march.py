@@ -23,7 +23,10 @@ either
 
 Each tile (R = tile_w * tile_h rays) owns the contiguous pair segment
 [starts[t], starts[t+1]) and marches it front to back in chunks of c
-candidates, with these per-tile (not per-ray) decisions, as on the TPU:
+candidates (key order and oddeven: any c, e.g. chunk_for's 96 or block
+mode's chunk * block_sub = 512, which K1 stages in pieces of its build's
+capacity; window and merge order: c in config.SORT_CHUNKS, where their sorts
+sort), with these per-tile (not per-ray) decisions, as on the TPU:
 
   - chunk skip: the chunk is skipped once the max transmittance over ALL R
     rays of the tile is <= the skip threshold, max(chunk_skip_transmittance,
@@ -171,7 +174,9 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig, tile_rays_supported
+from gaussian_ray_tracing_tpu_torch.config import (
+    RenderConfig, sort_chunk_refusal, tile_rays_supported,
+)
 from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0, num_coeffs, sh_basis_list
 
 # JAX feature-table columns read by the quad/sh0 march: op 12, q 64..69,
@@ -188,17 +193,12 @@ TRAIN_COLUMNS = COMPACT_COLUMNS + (None,) + tuple(range(12)) + (13, 14, 15, 16)
 TRAIN_ROW = 32
 T_MX, T_M0, T_RAD, T_SH0 = 16, 19, 28, 29
 _SH0 = 12  # first SH column of the quad SH rows (the JAX table's 14)
-CHUNKS = (32, 64, 128, 256)
+MAX_TRAIN_CHUNK = 256  # K3's largest chunk: training marches chunk_for's chunks
 ORDERS = ("window", "key", "merge", "oddeven")  # grt_march's order codes 0, 1, 2, 3
 _IMIN, _IMAX = -(2**31), 2**31 - 1
 _ZBASE = 65535 << 15  # sort key of non-significant candidates (sorts last)
 _F32 = torch.float32
 _PLAIN_BATCH = 1 << 24  # (tile, candidate, ray) elements per plain-march batch
-
-
-def chunk_for(config: RenderConfig) -> int:
-    """March chunk of the primary render: max(32, min(march_chunk, 256))."""
-    return max(32, min(config.march_chunk, 256))
 
 
 def _gather_columns(feats: torch.Tensor, columns, width: int) -> torch.Tensor:
@@ -317,10 +317,16 @@ def _check_args(starts, feats, dirs_t, config: RenderConfig, chunk, save_tin, se
     if config.window_key not in ("event", "peak"):
         raise NotImplementedError(f"window_key {config.window_key!r} is not ported")
     origins, quad = seg.get("origins_t"), seg.get("quad", False)
-    if chunk not in CHUNKS:
-        raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
     if config.order not in ORDERS:
         raise NotImplementedError(f"march order {config.order!r} is not ported")
+    if chunk < 1:
+        raise ValueError(f"march chunk {chunk}: a chunk holds at least one candidate")
+    for bad in sort_chunk_refusal("order", config.order, chunk, f"march chunk {chunk}"):
+        raise NotImplementedError(bad)
+    if save_tin and chunk > MAX_TRAIN_CHUNK:
+        raise NotImplementedError(f"saved carries at march chunk {chunk}: training marches "
+                                  f"chunks of at most {MAX_TRAIN_CHUNK} (chunk_for's), which "
+                                  f"the backward K3 replays")
     if save_tin and config.order == "merge":
         raise ValueError("order='merge' is a forward-render ordering; training runs window "
                          "or key order (pallas_march.py:1659-1663)")

@@ -61,10 +61,12 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_ray_tracing_tpu_torch.config import RenderConfig, tile_rays_supported
+from gaussian_ray_tracing_tpu_torch.config import (
+    RenderConfig, sort_chunk_refusal, tile_rays_supported,
+)
 from gaussian_ray_tracing_tpu_torch.ops.march import (
-    CHUNKS, T_M0, T_MX, T_RAD, T_SH0, _OP, _pack_colors, _unpack_colors, march, march_plain,
-    train_row, train_sort_key, window_fire,
+    MAX_TRAIN_CHUNK, T_M0, T_MX, T_RAD, T_SH0, _OP, _pack_colors, _unpack_colors,
+    march, march_plain, train_row, train_sort_key, window_fire,
 )
 from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0, num_coeffs, sh_basis_list
 
@@ -74,11 +76,14 @@ _PLAIN_BATCH = 1 << 23  # (tile, candidate, ray) elements per plain batch
 
 def _check_args(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
                 config: RenderConfig, chunk: int, dtypes=(_F32,), seg=None):
-    if chunk not in CHUNKS:
-        raise NotImplementedError(f"march chunk {chunk} not in {CHUNKS}")
     if config.order not in ("window", "key", "oddeven") or not 0 <= config.sh_degree <= 3:
         raise NotImplementedError("the backward is ported for window, key and oddeven order "
                                   "(key order's replay) at SH 0-3")
+    for bad in sort_chunk_refusal("order", config.order, chunk, f"march chunk {chunk}"):
+        raise NotImplementedError(bad)
+    if not 1 <= chunk <= MAX_TRAIN_CHUNK:
+        raise NotImplementedError(f"march chunk {chunk}: the backward replays chunks of 1 to "
+                                  f"{MAX_TRAIN_CHUNK} (chunk_for's, the training forward's)")
     if starts.dtype != torch.int32 or chunk_base.dtype != torch.int32:
         raise ValueError("starts and chunk_base must be int32")
     width = train_row(config.sh_degree)

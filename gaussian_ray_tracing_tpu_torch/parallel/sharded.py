@@ -39,7 +39,8 @@ import torch
 
 from gaussian_ray_tracing_tpu_torch.cameras import Camera, generate_rays
 from gaussian_ray_tracing_tpu_torch.config import (
-    RenderConfig, check_supported, check_tiled_supported, check_trainable, train_config,
+    RenderConfig, check_supported, check_tiled_supported, check_trainable, chunk_for,
+    train_config,
 )
 from gaussian_ray_tracing_tpu_torch.models import tiled
 from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
@@ -47,7 +48,7 @@ from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
     snug_pair_capacity,
 )
 from gaussian_ray_tracing_tpu_torch.models.oracle import frame_from_rays, render_rays_oracle
-from gaussian_ray_tracing_tpu_torch.ops.march import chunk_for, compact_features, march
+from gaussian_ray_tracing_tpu_torch.ops.march import compact_features, march
 from gaussian_ray_tracing_tpu_torch.ops.march_bwd import march_stream_diff
 from gaussian_ray_tracing_tpu_torch.ops.response import adaptive_radius
 from gaussian_ray_tracing_tpu_torch.ops.tiles import (

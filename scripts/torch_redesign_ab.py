@@ -18,7 +18,8 @@ order) shares of the stream, and the render rows' sure-miss shares per
 
     git archive <commit> gaussian_ray_tracing_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/torch_redesign_ab.py build/parent/gaussian_ray_tracing_tpu_torch/csrc \
-        [out.json] [--only render|modes|merge|train|mesh|key|scan] [--this <csrc dir>]
+        [out.json] [--only render|modes|merge|train|mesh|key|scan] [--this <csrc dir>] \
+        [--pairs N]
 
 The groups: render (window order on the 720p/100k headline and on
 fitted_20k.ply at SH 3), modes (window order on a mesh
@@ -31,8 +32,9 @@ bounces 1-3, per-ray origins; K1's block mode on glass_front's bounce 1 in
 window, key and merge order at block_sub 1 and 2; the whole glass_front
 and glass_cli frames), key (every mode of the key-order kernel: the
 headline at c=256, fitted_20k.ply at SH 3, a rolling shutter, a mesh
-segment, glass_front's block mode at block_sub 1 and 2, and the two
-training forwards with saved carries) and scan (K2 at (2, 2,097,152), the
+segment, glass_front's block mode at block_sub 1 and 2, the headline on
+32x32 and 64x32 tiles (the 1024-ray and cluster builds) at c=128, and the
+two training forwards with saved carries) and scan (K2 at (2, 2,097,152), the
 headline's pair capacity, and (16, 1,000,003), exact, with its bound, the
 plain version's and torch.cumsum's times, tiles, blocks per SM,
 registers and stack); all of them without --only. K4's outputs must be
@@ -42,7 +44,10 @@ pretests skip (the kernel's own counts) and a modelled load balance. A
 build without K4's pretests (no grt_closest_hit_info) is called without
 the bounds and stats, which it does not take; a build from before the
 single-pass K2 with its own scratch size. --this takes another
-copy of csrc/ in place of the package's own. Run from the repository root.
+copy of csrc/ in place of the package's own. --pairs N times each case in
+N rounds of those turns (default 1) and adds, per case, each round's
+device time of this build over the other's (dev_ratios), their median and
+the rounds this build was the faster in (this_faster_rounds). Run from the repository root.
 Writes the rows and the ptxas table to out.json (build/redesign_ab.json by
 default) and prints one line per case; exits non-zero if a check fails or
 there is no GPU.
@@ -116,6 +121,7 @@ def main() -> None:
     ap.add_argument("out_json", type=Path, nargs="?", default=ROOT / "build" / "redesign_ab.json")
     ap.add_argument("--only", choices=GROUPS)
     ap.add_argument("--this", type=Path, dest="this_csrc")
+    ap.add_argument("--pairs", type=int, default=1)
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch_redesign_ab.py needs a machine with a GPU")
@@ -127,7 +133,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import MeshType, RenderConfig
+    from gaussian_ray_tracing_tpu_torch.config import MeshType, RenderConfig, chunk_for
     from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
         prepare_pair_stream, prepare_train_stream,
@@ -160,21 +166,34 @@ def main() -> None:
         cuda_build._lib = libs[name]
 
     def turns(fn) -> dict:
-        """Median ms of fn under each build, in turns other, this, this,
-        other: "other" and "this" from CUDA events around each call (the
-        wrapper's host work included), "dev_other" and "dev_this" the
-        device time of each call's device operations (torch.profiler)."""
+        """Median ms of fn under each build, in opt.pairs rounds of turns
+        other, this, this, other: "other" and "this" from CUDA events around
+        each call (the wrapper's host work included), "dev_other" and
+        "dev_this" the device time of each call's device operations
+        (torch.profiler); "ratios" each round's device time of this build
+        over the other's (None where a trace read 0)."""
         ms = {"other": [], "this": [], "dev_other": [], "dev_this": []}
-        for name in ("other", "this", "this", "other"):
-            use(name)
-            fn()  # warm-up
-            ms[name] += cs.cuda_ms(fn, REPS)
-            ms["dev_" + name].append(cs.profile_frames(fn, frames=REPS, top=1)["device_ms"])
+        ratios = []
+        for _ in range(opt.pairs):
+            dev = {"other": [], "this": []}
+            for name in ("other", "this", "this", "other"):
+                use(name)
+                fn()  # warm-up
+                ms[name] += cs.cuda_ms(fn, REPS)
+                dev[name].append(cs.profile_frames(fn, frames=REPS, top=1)["device_ms"])
+                ms["dev_" + name].append(dev[name][-1])
+            ok = min(dev["other"] + dev["this"]) > 0
+            ratios.append(sum(dev["this"]) / sum(dev["other"]) if ok else None)
         use("this")
-        return {k: statistics.median(v) for k, v in ms.items()}
+        return {**{k: statistics.median(v) for k, v in ms.items()}, "ratios": ratios}
 
     def dev_times(t) -> dict:
-        return dict(dev_ms_other=t["dev_other"], dev_ms_this=t["dev_this"])
+        out = dict(dev_ms_other=t["dev_other"], dev_ms_this=t["dev_this"])
+        r = [x for x in t["ratios"] if x is not None]
+        if opt.pairs > 1 and r:
+            out.update(dev_ratios=t["ratios"], dev_ratio_median=statistics.median(r),
+                       this_faster_rounds=sum(x < 1.0 for x in r))
+        return out
 
     def ptx(pattern: str):
         # the 256-ray builds first (a 1024-ray one shares their prefix)
@@ -182,15 +201,18 @@ def main() -> None:
                 if pattern in k]
         return hits[0] if hits else None
 
-    def k1_name(chunk, scalar, degree, train, order):
-        """Mangled name of K1's 256-ray build for these template values."""
+    def k1_name(chunk, scalar, degree, train, order, rays=256):
+        """Mangled name of K1's build of `rays` rays a tile (256-ray,
+        1024-ray or cluster) for these template values (chunk: the build's
+        staging capacity C)."""
         k = (degree + 1) ** 2
         b = lambda x: f"Lb{int(x)}E"
+        build = f"Li{256 if rays <= 256 else 1024 if rays <= 1024 else 8192}E"
         if order == "window":
-            return f"12march_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}Li256E"
+            return f"12march_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}{build}"
         if order == "merge":
-            return f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{k}ELi256E"
-        return f"16march_key_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}Li256E"
+            return f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{k}E{build}"
+        return f"16march_key_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}{build}"
 
     def shares(plain, R, order) -> dict:
         chunks = max(1, plain.chunks)
@@ -276,7 +298,7 @@ def main() -> None:
             case=what, kernel="K1", slots=int(args[0][-1]), chunk=chunk, ms_other=t["other"],
             ms_this=t["this"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
             bit_identical=same, **dev_times(t), **info,
-            ptxas=ptx(k1_name(chunk, scalar, cfg.sh_degree, False, cfg.order)),
+            ptxas=ptx(k1_name(info["build_chunk"], scalar, cfg.sh_degree, False, cfg.order, R)),
             **shares(kmarch.march_plain, R, cfg.order), **miss_shares(args, kw)))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
@@ -325,7 +347,7 @@ def main() -> None:
     def stream_args(sc, cam, cfg, cap=1 << 21):
         stream, feats, _ = prepare_pair_stream(sc, cam, cfg, cap)
         dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], cfg.tile_w, cfg.tile_h)
-        return stream.starts, feats, dirs_t, cfg, kmarch.chunk_for(cfg)
+        return stream.starts, feats, dirs_t, cfg, chunk_for(cfg)
 
     # the streams: the 720p/100k headline, fitted_20k.ply at 720p, the
     # 256x256 golden scene, the mesh frames' bounces and a rolling shutter
@@ -396,7 +418,7 @@ def main() -> None:
             stream, trows, n_pairs = prepare_train_stream(sc, cam, cfg)
         starts, trows = stream.starts, trows.detach().contiguous()
         dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
-        chunk = kmarch.chunk_for(cfg)
+        chunk = chunk_for(cfg)
         window = cfg.order == "window"
         kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()} if window else {}
         fwd = lambda: kmarch.march(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
@@ -485,6 +507,10 @@ def main() -> None:
                  stream_args(ply, cam720, keyc.replace(sh_degree=3)), {}),
                 ("key rolling 720p/100k c=128", *rolling(bench.replace(order="key"))),
                 ("key segment glass bounce 0", *seg),
+                ("key headline 720p/100k 32x32 tiles c=128",
+                 stream_args(scene, pose, bench.replace(order="key", tile_w=32, tile_h=32)), {}),
+                ("key headline 720p/100k 64x32 tiles c=128",
+                 stream_args(scene, pose, bench.replace(order="key", tile_w=64, tile_h=32)), {}),
                 ("key block glass_front bounce 1 block_sub=1", blk_args, blk_kw),
                 ("key block glass_front bounce 1 block_sub=2",
                  (*blk_args[:4], 2 * blk_args[4]), {**blk_kw, "block_sub": 2})):

@@ -1582,3 +1582,139 @@ def test_cluster_launch_info():
                                           **kw)
             assert info["cluster_blocks"] == n and info["resident_clusters"] >= 1, (rays, info)
             assert info["registers"] <= 64
+
+
+# --- key and oddeven order at any chunk: K1's key kernel and K3's key
+# replay at a runtime chunk, staged on the smallest build that holds it
+# (above 256, block mode's chunk * block_sub, in pieces) ------------------
+
+@pytest.mark.parametrize("order,chunk", [("key", 96), ("key", 100), ("oddeven", 96),
+                                         ("oddeven", 100), ("key", 40)])
+def test_any_chunk_key_march_matches_plain(order, chunk):
+    """K1's key kernel at a chunk that is not a power of two (on the 128- or
+    64-candidate build) against march_plain at the K1 bars, two launches
+    bit-identical, and the frame unlike chunk 128's (the chunk's skip and
+    composite restart follow it)."""
+    scene = random_scene(5000, seed=3, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order)
+    stream, feats, _ = prepare_pair_stream(scene, _camera(), cfg, 1 << 18)
+    dirs_t = tile_rays(generate_rays(_camera(), cfg)[1], 16, 16)
+    counts = (stream.starts[1:] - stream.starts[:-1]).long()
+    assert bool(((counts % chunk) != 0).any() & (counts > 2 * chunk).any())
+    before = tmarch.march.launches
+    got = tmarch.march(stream.starts, feats, dirs_t, cfg, chunk)
+    again = tmarch.march(stream.starts, feats, dirs_t, cfg, chunk)
+    torch.cuda.synchronize()
+    assert tmarch.march.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _kernel_close(got, tmarch.march_plain(stream.starts, feats, dirs_t, cfg, chunk))
+    at_128 = tmarch.march(stream.starts, feats, dirs_t, cfg, 128)
+    assert float((at_128[0] - got[0]).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("rays", [256, 1024])
+@pytest.mark.parametrize("chunk", [96, 100])
+def test_any_chunk_key_order_sure_misses_and_short_tiles(chunk, rays):
+    """test_key_order_sure_misses_and_short_tiles' hand-made tiles at a
+    chunk that is not a power of two (a tile shorter than the chunk, a
+    ragged last chunk, runs of sure misses), and nearly opaque tiles whose
+    later chunks are skipped."""
+    counts = [0, chunk // 2, 3 * chunk + 5, 2 * chunk, 2 * chunk]
+    faint = [(2, chunk, 2 * chunk), (3, 0, 2 * chunk)] + [(4, k, k + 1)
+                                                        for k in range(0, 2 * chunk, 2)]
+    assert _key_stream_check(counts, chunk, rays, faint=faint, op=0.05) == 1 + 4 + 2 + 2
+    chunks = _key_stream_check([6 * chunk, 5 * chunk + 3], chunk, 256, op=0.9, spacing=0.01)
+    assert 2 <= chunks < 12
+
+
+@pytest.mark.parametrize("chunk,degree", [(96, 0), (100, 0), (96, 3)])
+def test_any_chunk_training_kernels_match_plain(chunk, degree):
+    """K1's saved carries (chunk_base and one carry row per chunk of
+    `chunk`) and K3's key replay (its mask of ceil(chunk / 32) words, the
+    tail group of 16 cut to the chunk) against their plain versions at the
+    K1 and K3 bars, K3's two launches bit-identical; oddeven at chunk 96
+    trains the same kernels."""
+    cfg, starts, rows, dirs_t, eye = _train_stream(chunk, "key", degree)
+    counts = (starts[1:] - starts[:-1]).long()
+    assert bool(((counts % chunk) != 0).any() & (counts > 2 * chunk).any())
+    before = (tmarch.march.launches, tbwd.march_bwd.launches)
+    _fwd_bwd_check(cfg, starts, rows, dirs_t, eye, chunk)
+    assert (tmarch.march.launches, tbwd.march_bwd.launches) == (before[0] + 1, before[1] + 2)
+    _, _, _, base = tmarch.march(starts, rows, dirs_t, cfg, chunk, save_tin=True)
+    assert torch.equal(base[1:].long(), torch.cumsum((counts + chunk - 1) // chunk, 0))
+
+
+@pytest.mark.parametrize("quad", [False, True])
+def test_any_chunk_origin_training_matches_plain(quad):
+    """Training from per-ray origins with windows and carry-in at chunk 96:
+    K1's saved carries (scalar or per-ray-origin quad response) and K3's
+    per-ray-origin key replay against their plain versions."""
+    cfg, starts, rows, dirs_t, seg = _rolling_train_stream(96, "key", 0)
+    got = tmarch.march(starts, rows, dirs_t, cfg, 96, save_tin=True, quad=quad, **seg)
+    torch.cuda.synchronize()
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, 96, save_tin=True, quad=quad, **seg)
+    _kernel_close(got[:2], want[:2])
+    assert float((got[2] - want[2]).abs().max()) <= 1e-4
+    assert torch.equal(got[3], want[3])
+    g = torch.Generator(device="cuda").manual_seed(1)
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(dirs_t.shape[:2], generator=g, device="cuda")
+    args = (starts, rows, dirs_t, torch.zeros(3, device="cuda"), got[2], got[3], d_rgb, d_t,
+            cfg, 96)
+    kw = {k: seg[k] for k in ("origins_t", "t_lo", "t_hi")}
+    a, b = tbwd.march_bwd(*args, **kw), tbwd.march_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = tbwd.march_bwd_plain(*args, **kw)
+    for i, c in enumerate(tmarch.train_columns(0)):
+        if c not in tmarch.diff_columns(0):
+            assert not a[:, i].any(), i
+            continue
+        bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+        assert float((a[:, i] - plain[:, i]).abs().max() / plain[:, i].abs().max()) <= bar, i
+
+
+@pytest.mark.parametrize("chunk,bsub,bounce_order", [
+    pytest.param(256, 2, "key", id="256-2"), pytest.param(96, 3, "key", id="96-3"),
+    pytest.param(128, 3, "key", id="128-3"), pytest.param(256, 2, "oddeven", id="256-2-oddeven")])
+def test_any_chunk_key_block_mode_matches_plain(chunk, bsub, bounce_order):
+    """K1's key-order block mode over chunk * bsub rows (512, 288 and 384:
+    above 256, staged in pieces of 256 rows, one composite over the whole
+    chunk) on the glass sphere's bounced rays, against march_plain, two
+    launches bit-identical; under bounce_order "oddeven" too (the key
+    kernel on the exact event gate, 512 rows)."""
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order="key",
+                       bounce_order=bounce_order, bounce_blocks_per_chunk=bsub)
+    record = _bounce_record(cfg)
+    for rec in record[1:3]:
+        args, kw = rec["k1"]
+        assert args[4] == chunk * bsub and kw["block_sub"] == bsub
+        assert args[3].order == bounce_order
+        before = tmarch.march.block_launches, tmarch.march.oddeven_launches
+        got = tmarch.march(*args, **kw)
+        again = tmarch.march(*args, **kw)
+        torch.cuda.synchronize()
+        assert tmarch.march.block_launches == before[0] + 2
+        assert tmarch.march.oddeven_launches == before[1] + 2 * (bounce_order == "oddeven")
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _kernel_close(got, tmarch.march_plain(*args, **kw))
+
+
+def test_any_chunk_cluster_key_march_matches_plain():
+    """K1's key kernel as a cluster (64x32 tiles, 2048 rays) at chunk 96,
+    in key order and oddeven, against march_plain; its launch info at chunk
+    96 is the 128-candidate build's."""
+    from gaussian_ray_tracing_tpu_torch.ops import cuda_build
+
+    for order in ("key", "oddeven"):
+        cfg, starts, feats, dirs_t = _wider_stream(2048, order, 96)
+        before = tmarch.march.cluster_launches
+        got = tmarch.march(starts, feats, dirs_t, cfg, 96)
+        torch.cuda.synchronize()
+        assert tmarch.march.cluster_launches == before + 1
+        _kernel_close(got, tmarch.march_plain(starts, feats, dirs_t, cfg, 96))
+        assert float(got[1].min()) < 0.5
+    info = {c: cuda_build.launch_info("march", c, 0, 2048, order="key") for c in (96, 128)}
+    assert info[96] == info[128] and info[96]["build_chunk"] == 128
+    with pytest.raises(RuntimeError):  # window order takes only its four builds' chunks
+        cuda_build.launch_info("march", 96, 0, 256, order="window")
