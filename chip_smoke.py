@@ -49,7 +49,16 @@ on 64x32 and 64x64 tiles in window, key and merge order, Trainer.fit on
 64x32 tiles in key and window order, render_rolling and the
 per-ray-origin quad rolling frame and the fisheye glass_front mesh frame
 at R = 2048: every launch of K1's and K3's cluster builds and of K4 split
-over blocks held against its plain version), K1's window-order options
+over blocks held against its plain version), tiles of more than 8192 rays
+(the headline on 128x128 tiles in window, key, merge and oddeven order and
+on 130x64, 192x128 and 256x256 tiles, Trainer.fit on 128x128 tiles in key
+and window order, render_rolling and the per-ray-origin quad rolling
+frames at 128x128 and 256x256, the fisheye glass_front mesh frame and a
+4-shard sharded frame on 128x128 tiles, and one key-order render of the
+512x512 view as a single tile of 262,144 rays: every launch of K1 and K3
+marching several rays a thread and of K4 over 16 blocks a tile held
+against its plain version and timed in turns with 64x64 and 16x16 tiles),
+K1's window-order options
 and the peak key, the
 per-pair sort keys, oddeven and bfloat16 (the headline under pair_keys
 "tile", "tile_peak" and "affine" in window, key and merge order and
@@ -250,6 +259,28 @@ def tri_bound(args, kw) -> tuple[float, str]:
 PTXAS = {}  # mangled kernel name: (registers, stack, spill stores, spill loads), from the build
 
 
+def kernel_name(kernel: str, order: str, C: int, degree: int, R: int, *, scalar: bool = False,
+                quad: bool = False, train: bool = False) -> str:
+    """The mangled name, as -Xptxas -v prints it (past the namespace), of the
+    K1 ("march") or K3 ("march_bwd") instantiation a launch runs: staging
+    capacity C, SH degree, order (oddeven runs the key kernel), per-ray
+    origins with the scalar response `scalar` or the quad one `quad` (K3:
+    per-ray origins `scalar`), saved carries `train`, and kMaxR from R rays a
+    tile: the 256-ray build up to 256 rays, the 1024-ray one up to 1024, else
+    the cluster build (kClusterR, 8192: one ray a thread up to 8192 rays,
+    several above)."""
+    K, b = (degree + 1) ** 2, lambda x: f"Lb{int(x)}E"
+    build = f"Li{256 if R <= 256 else 1024 if R <= 1024 else 8192}E"  # kMaxR
+    if kernel == "march_bwd":
+        return f"16march_bwd_kernelILi{C}ELi{K}E{b(order == 'window')}{b(scalar)}{build}"
+    resp = f"Li{2 if quad else int(scalar)}E"  # k1::Resp
+    if order == "window":
+        return f"12march_kernelILi{C}E{resp}Li{K}E{b(train)}{build}"
+    if order == "merge":
+        return f"18march_merge_kernelILi{C}E{resp}Li{K}E{build}"
+    return f"16march_key_kernelILi{C}E{resp}Li{K}E{b(train)}{build}"
+
+
 def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = False,
            quad: bool = False, rays: int = 256) -> dict:
     """What explains a K1 ("march") or K3 ("march_bwd") row: the (tile,
@@ -271,22 +302,11 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
 
     plain = kmarch.march_plain if kernel == "march" else kbwd.march_bwd_plain
-    R, K, order = rays, (cfg.sh_degree + 1) ** 2, cfg.order
-    kname = "key" if order == "oddeven" else order  # oddeven runs the key kernel
+    R, order = rays, cfg.order
     info = cuda_build.launch_info(kernel, chunk, cfg.sh_degree, R, order=order, scalar=scalar,
                                   train=train, quad=quad)
     C = info["build_chunk"]  # the staging capacity of this chunk's build
-    b = lambda x: f"Lb{int(x)}E"
-    resp = f"Li{2 if quad else int(scalar)}E"  # k1::Resp
-    build = f"Li{256 if R <= 256 else 1024 if R <= 1024 else 8192}E"  # kMaxR
-    if kernel == "march_bwd":
-        name = f"16march_bwd_kernelILi{C}ELi{K}E{b(order == 'window')}{b(scalar)}{build}"
-    elif kname == "window":
-        name = f"12march_kernelILi{C}E{resp}Li{K}E{b(train)}{build}"
-    elif kname == "key":
-        name = f"16march_key_kernelILi{C}E{resp}Li{K}E{b(train)}{build}"
-    else:
-        name = f"18march_merge_kernelILi{C}E{resp}Li{K}E{build}"
+    name = kernel_name(kernel, order, C, cfg.sh_degree, R, scalar=scalar, quad=quad, train=train)
     regs, stack, st, ld = next((v for k, v in PTXAS.items() if name in k), (None,) * 4)
     check(regs == info["registers"], f"{kernel} {name}: ptxas says {regs} registers, the "
                                      f"runtime {info['registers']}")
@@ -923,6 +943,7 @@ def main() -> None:
     origin_rows = per_ray_origin_phase(dev, card, scene, init)
     log("phase", f"per-ray origins in {time.perf_counter() - t_phase:.1f} s")
     wide_rows = wide_tile_phase(dev, card, scene, poses[0], views, init)
+    huge_rows = huge_tile_phase(dev, card, scene, poses[0], views, init)
     option_rows = window_options_phase(dev, card, scene, poses[0], golden, views, init)
     pair_rows = pair_keys_phase(dev, card, scene, poses[0], golden, views, init)
     parallel_rows = parallel_phase(dev, card, scene, poses[0], golden, views, init)
@@ -1184,6 +1205,7 @@ def main() -> None:
         *parallel_rows,
         *origin_rows,
         *wide_rows,
+        *huge_rows,
         *option_rows,
         *pair_rows,
         *merge_rows,
@@ -3156,7 +3178,7 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
 
 
 def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
-    """Tiles of more than 1024 rays (a multiple of 128 up to 8192): K1 and K3
+    """Tiles of 1152 to 8192 rays (a multiple of 128, one ray a thread): K1 and K3
     as thread-block clusters, K4 split over blocks. The main path, every
     count zeroed just before and read just after: the 1280x720 headline of
     `scene` (random_scene(100k, seed 0), bench config) through
@@ -3420,6 +3442,331 @@ def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
         row("closest_hit_split", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
             counted["closest_hit.split_launches"], k4_err, "k4_2048",
             {"rays": 2048, "rays_4096": sub(*times["k4_4096"])}),
+    ]
+
+
+def huge_tile_phase(dev, card: str, scene, pose, views, init) -> list:
+    """Tiles of more than 8192 rays (any multiple of 128): K1 and K3 march
+    ceil(R / 8192) rays a thread in a cluster of 8 blocks of 1024 threads,
+    K4 splits a tile over ceil(R / 1024) blocks. The main path, every count
+    zeroed just before and read just after: the 1280x720 headline of
+    `scene` (random_scene(100k, seed 0), bench config) through
+    GaussianRayTracer on 128x128 tiles (R = 16,384) in window, key, merge
+    and oddeven order, on 130x64 (8320: one slot of 128 rays past a
+    cluster's 8192), 192x128 (24,576) and 256x256 (65,536: the centroid's
+    tree past a block's shared memory) in window order;
+    Trainer(method="gpu").fit on the training row's view 0 (512x512, `init`
+    = random_scene(50k, seed 1)) on 128x128 tiles (5 key steps, whose loss
+    must fall, 3 window steps); render_rolling's 1280x720 frame on 128x128
+    tiles (per-ray origins, the scalar response) and the rolling 720p frame
+    on the per-ray-origin quad response at 128x128 and 256x256; the fisheye
+    glass_front mesh frame on 128x128 tiles through GaussianRayTracer (K4
+    over 16 blocks a tile, K1's segments and block mode); one sharded
+    frame (render_pallas_sharded, 4 shards of the card) on 128x128 tiles;
+    and one key-order render of the 512x512 view as a single tile (R =
+    262,144, 32 rays a thread). Then each launch held against its plain
+    version (K1 at the K1 bars, K3 at the K3 bars with two launches
+    bit-identical, K4 bit for bit with its counts those of pretest_stats),
+    timed against it with its bound and `design`, and beside the same frame
+    at 64x64 tiles (R = 4096) and 16x16 in turns. Returns the kernel rows."""
+    import numpy as np
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import CameraModel, MeshType, RenderConfig, chunk_for
+    from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
+    from gaussian_ray_tracing_tpu_torch.models.gaussian_model import GaussianModel
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
+        prepare_pair_stream, prepare_train_stream, render_gpu,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.renderer import GaussianRayTracer, render
+    from gaussian_ray_tracing_tpu_torch.models.rolling import (
+        prepare_rolling_stream, render_rolling,
+    )
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+    from gaussian_ray_tracing_tpu_torch.ops import tri as ktri
+    from gaussian_ray_tracing_tpu_torch.parallel import mesh as pmesh
+    from gaussian_ray_tracing_tpu_torch.parallel import sharded as S
+    from gaussian_ray_tracing_tpu_torch.scene.mesh import make_sphere
+    from gaussian_ray_tracing_tpu_torch.train import trainer as ktrain
+    from gaussian_ray_tracing_tpu_torch.utils.image import psnr
+
+    t_phase = time.perf_counter()
+    cam = lambda w, h, dx=0.0: cameras.Camera.create(
+        eye=(GOLDEN_EYE[0] + dx, GOLDEN_EYE[1], GOLDEN_EYE[2]), lookat=(0.0, 0.0, 0.0),
+        width=w, height=h, device=dev)
+    tiles = {8320: (130, 64), 16384: (128, 128), 24576: (192, 128), 65536: (256, 256),
+             4096: (64, 64), 256: (16, 16)}
+    sized = lambda cfg, R: cfg.replace(tile_w=tiles[R][0], tile_h=tiles[R][1])
+    bench = RenderConfig(**BENCH_KW)
+    heads = {(order, 16384): sized(bench, 16384).replace(order=order)
+             for order in ("window", "key", "merge", "oddeven")}
+    heads.update({("window", R): sized(bench, R) for R in (8320, 24576, 65536)})
+    cam0, target0 = views[0]
+    runs = {"key": sized(RenderConfig(**TRAIN_KW), 16384),
+            "window": sized(RenderConfig(hit_multiplicity=1, order="window", march_chunk=128),
+                            16384)}
+    steps = {"key": 5, "window": 3}
+    roll_cfg = sized(bench, 16384)
+    cam_a, cam_b = cam(1280, 720), cam(1280, 720, 0.05)
+    fish = roll_cfg.replace(camera_model=CameraModel.FISHEYE)
+    at_front = np.eye(4, dtype=np.float32)
+    at_front[:3, 3] = (0.0, 0.0, 1.6)
+    front = make_sphere((0.0, 0.0, 1.6), device=dev).with_type(MeshType.GLASS)
+    single = RenderConfig(**TRAIN_KW).replace(tile_w=512, tile_h=512, march_chunk=128)
+    shard_mesh = pmesh.make_mesh(4, devices=[dev] * 4)
+
+    def tracer(cfg, c, mesh=False):
+        tr = GaussianRayTracer(scene=scene, config=cfg.replace(camera_model=CameraModel.PINHOLE))
+        tr.set_camera_model(cfg.camera_model.value)
+        tr.set_size(c.width, c.height)
+        tr.update_camera(c)
+        if mesh:
+            tr.update_instance_transform(tr.create_sphere(mesh_type="glass"), at_front)
+        return tr
+
+    head_tr = {k: tracer(cfg, pose) for k, cfg in heads.items()}
+    fish_tr = tracer(fish, cam(1280, 720), mesh=True)
+
+    # --- the main path, every count zeroed just before ---
+    counts = {"march": ("launches", "slot_launches", "merge_launches", "oddeven_launches",
+                        "save_tin_launches", "window_save_tin_launches", "origin_launches",
+                        "origin_quad_launches", "segment_launches", "block_launches"),
+              "march_bwd": ("launches", "slot_launches"),
+              "closest_hit": ("launches", "split_launches")}
+    fns = {"march": kmarch.march, "march_bwd": kbwd.march_bwd,
+           "closest_hit": ktri.closest_hit_blocks}
+
+    def read():
+        return {f"{k}.{a}": getattr(fns[k], a) for k, attrs in counts.items() for a in attrs}
+
+    for k, attrs in counts.items():
+        for a in attrs:
+            setattr(fns[k], a, 0)
+    main, frames = {}, {}
+    for key, tr in head_tr.items():
+        before = kmarch.march.slot_launches
+        frames[key] = tr.render()["rgb"]
+        torch.cuda.synchronize()
+        main[key] = kmarch.march.slot_launches - before
+    losses = {}
+    for name, cfg in runs.items():
+        trainer = ktrain.Trainer(GaussianModel.from_scene(init), config=cfg, lr=2e-3, method="gpu")
+        losses[name] = trainer.fit([views[0]], steps=steps[name])
+        check(all(np.isfinite(losses[name])), f"huge tiles {name}: bad losses {losses[name]}")
+    check(losses["key"][-1] < losses["key"][0],
+          f"16,384-ray key training: the loss did not fall {losses['key']}")
+    rolled = render_rolling(scene, cam_a, cam_b, roll_cfg)["rgb"]
+    quad_frames = {}
+    for R in (16384, 65536):
+        frame = prepare_rolling_stream(scene, cam_a, cam_b, sized(bench, R), train=True)
+        quad_frames[R] = frame
+        starts_f, rows_f, dirs_f, origins_f, _, _ = frame
+        rgb_q, _ = kmarch.march(starts_f, rows_f, dirs_f, sized(bench, R), 128,
+                                origins_t=origins_f, quad=True)
+        check(bool(torch.isfinite(rgb_q).all()) and float(rgb_q.max()) > 0.1,
+              f"huge tiles: the per-ray-origin quad frame at R={R} is black or not finite")
+    glass = fish_tr.render()["rgb"]
+    sharded = S.render_pallas_sharded(scene, pose, heads["window", 16384], shard_mesh)
+    before = kmarch.march.slot_launches
+    one_tile = render(init, cam0, single, method="gpu")["rgb"]
+    torch.cuda.synchronize()
+    single_launches = kmarch.march.slot_launches - before
+    counted = read()
+    log("huge", f"headline frames {sorted(main.items())}, training losses "
+                f"{json.dumps({k: [round(x, 6) for x in v] for k, v in losses.items()})}, "
+                f"rolling frames, fisheye glass_front, sharded frame, one 512x512 tile; "
+                f"launches {counted}")
+    for k in ("march.slot_launches", "march.merge_launches", "march.oddeven_launches",
+              "march.save_tin_launches", "march.window_save_tin_launches",
+              "march.origin_launches", "march.origin_quad_launches", "march.segment_launches",
+              "march.block_launches", "march_bwd.slot_launches", "closest_hit.split_launches"):
+        check(counted[k] > 0, f"huge tiles: {k} was not launched on the main path: {counted}")
+    check(all(v > 0 for v in main.values()), f"a headline frame ran no slot launch: {main}")
+    check(sharded["n_dropped"] == 0 and torch.equal(sharded["rgb"], frames["window", 16384]),
+          "huge tiles: the sharded frame is not the GaussianRayTracer frame bit for bit")
+    for name, img in (("rolling", rolled), ("fisheye glass_front", glass),
+                      ("one 512x512 tile", one_tile),
+                      *((f"headline {k}", v) for k, v in frames.items())):
+        check(bool(torch.isfinite(img).all()) and float(img.max()) > 0.1,
+              f"huge tiles {name}: black or not finite")
+
+    # --- frames against the plain path, and each launch against its plain
+    # version, timed ---
+    def timed(fn, plain, bound_of, what):
+        ev = statistics.median(cuda_ms(fn, 10))
+        return (ev, statistics.median(cuda_ms(plain, 2)), bound_of(),
+                device_reading(fn, ev, what))
+
+    frame_psnr = {}
+    for (order, R), cfg in heads.items():
+        frame_psnr[f"{order}_{R}"] = psnr(frames[order, R].cpu().numpy(),
+                                          render(scene, pose, cfg, method="plain")["rgb"]
+                                          .cpu().numpy())
+    frame_psnr["rolling_16384"] = psnr(
+        rolled.cpu().numpy(), render_rolling(scene, cam_a, cam_b, roll_cfg,
+                                             use_kernels=False)["rgb"].cpu().numpy())
+    frame_psnr["single_tile_262144"] = psnr(one_tile.cpu().numpy(),
+                                            render(init, cam0, single, method="plain")["rgb"]
+                                            .cpu().numpy())
+    log("huge", f"frames vs the plain path (dB): {json.dumps(frame_psnr)}")
+    for name, p in frame_psnr.items():
+        check(p >= PSNR_FRAME, f"huge tiles: frame {name} {p:.2f} dB against the plain path")
+
+    times, errs, beside = {}, {}, {}
+
+    def head_args(sc, cfg, c):
+        stream, feats, n_pairs = prepare_pair_stream(sc, c, cfg, 1 << 22)
+        check(int(stream.n_dropped) == 0, f"{cfg.order} {cfg.tile_w}x{cfg.tile_h}: pairs dropped")
+        dirs_t = tile_rays(cameras.generate_rays(c, cfg)[1], cfg.tile_w, cfg.tile_h)
+        return (stream.starts, feats, dirs_t, cfg, chunk_for(cfg)), n_pairs
+
+    for (order, R), cfg in heads.items():
+        args, n_pairs = head_args(scene, cfg, pose)
+        name = f"{order}_{R}"
+        errs[name] = k1_check("K1huge", f"headline 720p 100k {name} ({n_pairs} pairs)", args)
+        a = kmarch.march(*args)
+        check(all(torch.equal(x, y) for x, y in zip(a, kmarch.march(*args))),
+              f"K1 {name}: two launches differ")
+        times[name] = (timed(lambda: kmarch.march(*args), lambda: kmarch.march_plain(*args),
+                             lambda: march_bound(args, {}, kmarch.march_plain), name),
+                       design("march", cfg, 128, rays=R))
+        if R == 16384:  # beside the same frame at R = 4096 and 256, in turns
+            other = {r: head_args(scene, sized(cfg, r), pose)[0] for r in (4096, 256)}
+            fns_t = {"16384": lambda: kmarch.march(*args),
+                     **{str(r): (lambda x=x: kmarch.march(*x)) for r, x in other.items()}}
+            beside[name] = turns(fns_t, reps=10, device=False)
+    # the single 512x512 tile, key order
+    args, n_pairs = head_args(init, single, cam0)
+    errs["single"] = k1_check("K1huge", f"512x512 50k one tile R=262144 ({n_pairs} pairs)", args)
+    times["single"] = (timed(lambda: kmarch.march(*args), lambda: kmarch.march_plain(*args),
+                             lambda: march_bound(args, {}, kmarch.march_plain), "single"),
+                       design("march", single, 128, rays=262144))
+    other = {r: head_args(init, sized(single, r), cam0)[0] for r in (16384, 4096, 256)}
+    beside["single"] = turns({"262144": lambda: kmarch.march(*args),
+                              **{str(r): (lambda x=x: kmarch.march(*x)) for r, x in other.items()}},
+                             reps=5, device=False)
+    # the training streams of the main path's runs
+    for name, cfg in runs.items():
+        R = 16384
+        with torch.no_grad():
+            stream, trows, n_pairs = prepare_train_stream(init, cam0, cfg)
+        starts, trows = stream.starts, trows.detach().contiguous()
+        dirs_t = tile_rays(cameras.generate_rays(cam0, cfg)[1], *tiles[R])
+        chunk = chunk_for(cfg)
+        kw = {"origins_t": cam0.eye.expand(dirs_t.shape).contiguous()} if name == "window" else {}
+        fwd = lambda f: f(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
+        got = fwd(kmarch.march)
+        torch.cuda.synchronize()
+        e1 = k1_train_check(f"{name} 512x512 R={R} c={chunk} ({n_pairs} pairs)", got,
+                            fwd(kmarch.march_plain))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+        d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dev)
+        bargs = (starts, trows, dirs_t, cam0.eye, got[2], got[3], d_rgb, d_t, cfg, chunk)
+        e3 = k3_check(f"{name} 512x512 R={R} c={chunk}", bargs)
+        errs[f"train_{name}"] = e1
+        errs[f"bwd_{name}"] = e3
+        times[f"train_{name}"] = (
+            timed(lambda: fwd(kmarch.march), lambda: fwd(kmarch.march_plain),
+                  lambda: march_bound((starts, trows, dirs_t, cfg, chunk),
+                                      {"save_tin": True, **kw}, kmarch.march_plain,
+                                      tin=got[2]), f"train_{name}"),
+            design("march", cfg, chunk, scalar=bool(kw), train=True, rays=R))
+        times[f"bwd_{name}"] = (
+            timed(lambda: kbwd.march_bwd(*bargs), lambda: kbwd.march_bwd_plain(*bargs),
+                  lambda: bwd_bound(bargs, kbwd.march_bwd_plain), f"bwd_{name}"),
+            design("march_bwd", cfg, chunk, rays=R))
+    # the per-ray-origin quad response (every order at 16,384; window at 65,536)
+    for R, frame in quad_frames.items():
+        starts_f, rows_f, dirs_f, origins_f, _, n_pairs_f = frame
+        for order in ("window", "key", "merge") if R == 16384 else ("window",):
+            cfg = sized(bench, R).replace(order=order)
+            args = (starts_f, rows_f, dirs_f, cfg, 128)
+            kw = {"origins_t": origins_f, "quad": True}
+            errs[f"origin_quad_{order}_{R}"] = k1_check(
+                "K1huge", f"rolling 720p 100k R={R} per-ray-origin quad {order} ({n_pairs_f} "
+                          f"pairs)", args, kw)
+            if order == "window":
+                times[f"origin_quad_{R}"] = (
+                    timed(lambda: kmarch.march(*args, **kw),
+                          lambda: kmarch.march_plain(*args, **kw),
+                          lambda: march_bound(args, kw, kmarch.march_plain),
+                          f"origin_quad_{R}"),
+                    design("march", cfg, 128, quad=True, rays=R))
+    # every bounce of the fisheye glass_front frame on 128x128 tiles; K4
+    # timed on bounce 1 (per-ray origins)
+    rec = []
+    kmesh.render_with_mesh_fast(scene, front, cam(1280, 720), fish, record=rec)
+    k4_err, k1_mesh = 0.0, 0.0
+    for b, r in enumerate(rec):
+        args, kw = r["k4"]
+        check(args[3].shape[1] == 16384, f"glass_front bounce {b}: {args[3].shape[1]} rays")
+        k4_err = max(k4_err, k4_check("K4huge", f"fisheye glass_front R=16384 bounce {b}",
+                                      args, kw)[0])
+        a1, kw1 = r["k1"]
+        k1_mesh = max(k1_mesh, k1_check("K1huge", f"fisheye glass_front R=16384 bounce {b}",
+                                        a1, kw1))
+    k4_args, k4_kw = rec[1]["k4"] if len(rec) > 1 else rec[0]["k4"]
+    times["k4"] = (timed(lambda: ktri.closest_hit_blocks(*k4_args, **k4_kw),
+                         lambda: ktri.closest_hit_blocks_plain(*k4_args, **k4_kw),
+                         lambda: tri_bound(k4_args, k4_kw), "k4"),
+                   tri_design(k4_args, k4_kw))
+    for name, (t, d) in times.items():
+        log("kernel", f"huge {name}: {t[0]:.3f} ms (device {fms(t[3])}), plain {t[1]:.3f} ms, "
+                      f"bound {t[2][0]:.4f} ms ({t[2][1]}); cluster {d.get('cluster_blocks')} "
+                      f"blocks, {d.get('resident_clusters')} resident, {d['registers']} "
+                      f"registers, spills {d['spill_store_bytes']} B, local "
+                      f"{d.get('stack_bytes')} B ({card})")
+    for name, t in beside.items():
+        log("kernel", f"huge {name} in turns (median event ms): "
+                      + ", ".join(f"R={k} {v[0]:.3f}" for k, v in t.items()) + f" ({card})")
+    log("phase", f"huge tiles in {time.perf_counter() - t_phase:.1f} s")
+
+    src = f"{PKG}/csrc"
+    k1_src = "gaussian_ray_tracing_tpu/ops/pallas_march.py:195"
+    k3_src = "gaussian_ray_tracing_tpu/ops/pallas_march.py:1189"
+    sub = lambda t, d: {"ms": t[0], "device_ms": t[3], "plain_ms": t[1], "bound_ms": t[2][0],
+                        "bound_by": t[2][1], **d}
+    row = lambda name, source, replaces, launches, err, key, more=None: {
+        "name": name, "route": "cuda", "source": f"{src}/{source}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": times[key][0][0],
+        "plain_ms": times[key][0][1], "bound_ms": times[key][0][2][0],
+        "bound_by": times[key][0][2][1], "library_ms": None, "device_ms": times[key][0][3],
+        **times[key][1], **(more or {})}
+    turns_of = lambda name: {R: v[0] for R, v in beside[name].items()}
+    return [
+        row(f"march_huge_{order}", "march.cuh", k1_src, main[order, 16384],
+            errs[f"{order}_16384"], f"{order}_16384",
+            {"rays": 16384, "turns_ms": turns_of(f"{order}_16384"),
+             "frame_psnr_vs_plain": frame_psnr[f"{order}_16384"],
+             **({f"rays_{R}": {**sub(*times[f"window_{R}"]),
+                               "max_abs_err": errs[f"window_{R}"], "launches": main["window", R],
+                               "frame_psnr_vs_plain": frame_psnr[f"window_{R}"]}
+                 for R in (8320, 24576, 65536)} if order == "window" else {})})
+        for order in ("window", "key", "merge", "oddeven")
+    ] + [
+        row("march_huge_single_tile_key", "march.cuh", k1_src, single_launches, errs["single"],
+            "single",
+            {"rays": 262144, "turns_ms": turns_of("single"),
+             "frame_psnr_vs_plain": frame_psnr["single_tile_262144"]}),
+        row("march_huge_save_tin", "march.cuh", k1_src, counted["march.save_tin_launches"],
+            errs["train_key"], "train_key", {"rays": 16384}),
+        row("march_huge_window_save_tin", "march.cuh", k1_src,
+            counted["march.window_save_tin_launches"], errs["train_window"], "train_window",
+            {"rays": 16384}),
+        row("march_bwd_huge", "march_bwd.cuh", k3_src, counted["march_bwd.slot_launches"],
+            max(errs["bwd_key"], errs["bwd_window"]), "bwd_key",
+            {"rays": 16384, "window": sub(*times["bwd_window"])}),
+        row("march_huge_origin_quad", "march.cuh", k1_src,
+            counted["march.origin_quad_launches"],
+            max(v for k, v in errs.items() if k.startswith("origin_quad")), "origin_quad_16384",
+            {"rays": 16384, "rays_65536": sub(*times["origin_quad_65536"]),
+             "mesh_segments_blocks_max_abs_err": k1_mesh}),
+        row("closest_hit_huge", "tri.cu", "gaussian_ray_tracing_tpu/ops/pallas_tri.py:77",
+            counted["closest_hit.split_launches"], k4_err, "k4", {"rays": 16384}),
     ]
 
 

@@ -110,20 +110,18 @@ DEFAULT_CONFIG = RenderConfig()
 
 
 MAX_RAYS_PER_BLOCK = 1024  # one thread per ray: a CUDA block's limit
-# above it a tile is a thread-block cluster of up to 8 blocks (the portable
-# cluster size) of K1 and K3, and up to 8 blocks of K4
-MAX_RAYS_PER_TILE = 8192
 
 
 def tile_rays_supported(rays: int) -> bool:
     """Rays per tile the kernels take: a multiple of 32 up to 1024 (one
-    CUDA block, one thread per ray), or a multiple of 128 from 1152 up to
-    8192 (a cluster of up to 8 blocks). A TPU takes any multiple of 128
-    (pallas_march.py:1036-1040); above 8192 a cluster would need more than
-    the portable 8 blocks of 1024 threads."""
+    CUDA block, one thread per ray), or any multiple of 128 above (K1 and
+    K3 a thread-block cluster of up to 8 blocks of up to 1024 threads, each
+    thread marching ceil(rays / 8192) rays in turn; K4 ceil(rays / 1024)
+    blocks). A TPU takes any multiple of 128 (pallas_march.py:1036-1040),
+    with no upper limit."""
     if rays <= MAX_RAYS_PER_BLOCK:
         return rays >= 32 and rays % 32 == 0
-    return rays <= MAX_RAYS_PER_TILE and rays % 128 == 0
+    return rays % 128 == 0
 
 
 ORDERS = ("window", "key", "merge", "oddeven")
@@ -163,9 +161,8 @@ def _float_dtype(name) -> bool:
 def unsupported_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported primary render does not implement:
     tiles of other than a multiple of 32 rays up to 1024 or a multiple of
-    128 up to 8192 (tile_rays_supported: the kernels run one thread per
-    ray, a tile of more than 1024 as a thread-block cluster of at most 8
-    blocks, where a TPU takes any multiple of 128), SH degrees outside 0-3,
+    128 above (tile_rays_supported: the kernels' blocks and clusters, as a
+    TPU takes a multiple of 128), SH degrees outside 0-3,
     hit multiplicities below 1, orders, order keys, pair keys and compute
     dtypes the JAX package does not have either, and window or merge order
     at a chunk_for other than 32, 64, 128 or 256 (SORT_CHUNKS: JAX runs
@@ -173,16 +170,17 @@ def unsupported_fields(config: RenderConfig) -> list[str]:
     tiled march alone (any float dtype); the kernel paths ignore it, as
     JAX's Pallas paths do."""
     chunk = chunk_for(config)
-    return _unsupported_values(config) + sort_chunk_refusal("order", config.order, chunk,
-                                                            f"march chunk {chunk}")
-
-
-def _unsupported_values(config: RenderConfig) -> list[str]:
-    """unsupported_fields but for the chunk: what the tiled march refuses."""
     rays = config.rays_per_tile
     bad = [] if tile_rays_supported(rays) else \
         [f"tile_w*tile_h={config.tile_w}*{config.tile_h} (rays per tile: a multiple of 32 up "
-         f"to {MAX_RAYS_PER_BLOCK} or of 128 up to {MAX_RAYS_PER_TILE})"]
+         f"to {MAX_RAYS_PER_BLOCK} or of 128 above)"]
+    return bad + _unsupported_values(config) + sort_chunk_refusal(
+        "order", config.order, chunk, f"march chunk {chunk}")
+
+
+def _unsupported_values(config: RenderConfig) -> list[str]:
+    """unsupported_fields but for the tile and the chunk: what the tiled
+    march refuses."""
     checks = {
         "order": config.order in ORDERS,
         "window_key": config.window_key in ("event", "peak"),
@@ -191,13 +189,14 @@ def _unsupported_values(config: RenderConfig) -> list[str]:
         "compute_dtype": _float_dtype(config.compute_dtype),
         "hit_multiplicity": config.hit_multiplicity >= 1,
     }
-    return bad + [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
+    return [f"{k}={getattr(config, k)!r}" for k, ok in checks.items() if not ok]
 
 
 def unsupported_tiled_fields(config: RenderConfig) -> list[str]:
     """Values of `config` the ported tiled march (models/tiled.py) does not
-    implement: the render's (tiles of more than 8192 rays among them) but
-    for the chunk, since its per-ray argsort sorts any chunk in window order.
+    implement: the render's but for the tile and the chunk, since it pads
+    any tile_w and tile_h, as JAX's tiled march does (models/tiled.py:42-59),
+    and its per-ray argsort sorts any chunk in window order.
     It marches in config.compute_dtype (float64 for a witness, bfloat16 as
     JAX's does); merge order composites in stream order (key) and oddeven
     runs window_passes odd-even passes in place of the per-ray sort, as in

@@ -29,9 +29,10 @@ extern "C" const char* grt_error_string(int err) {
 }
 
 // Rays per tile the kernels take: a multiple of 32 up to 1024 (one block),
-// or a multiple of 128 up to 8192 (a cluster of up to 8 blocks).
+// or any multiple of 128 above (a cluster of up to 8 blocks, each thread
+// marching ceil(R / 8192) rays).
 static bool rays_ok(int R) {
-  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R <= 8192 && R % 128 == 0);
+  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R % 128 == 0);
 }
 
 // Chunks an order takes: key order (1) and oddeven (3) any c >= 1 (the
@@ -67,7 +68,11 @@ static bool chunk_ok(int chunk, int order) {
 // fire group, a multiple of 32 dividing rays_per_tile; a_fire,
 // sort_alpha_min; repair, the band width (0, or below chunk); stats (T, 2)
 // int32, each tile's most fired and repaired chunks of a fire group, or null
-// (window order).
+// (window order). carry: grt_march_carry_floats(chunk, order,
+// rays_per_tile) * carry_tiles * rays_per_tile floats of scratch, each
+// ray's state between its turns where a thread marches several (above 8192
+// rays a tile), else null; carry_tiles >= 1 the tiles it holds (fewer than
+// n_tiles: the tiles run as launches of that many).
 extern "C" int grt_march(const void* starts, const void* feats, const void* dirs, void* rgb,
                          void* t_final, void* tin, const void* chunk_base, const void* origins,
                          const void* t_lo_arr, const void* t_hi_arr, const void* t0,
@@ -76,7 +81,7 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
                          float t_hi, float min_t, float t_skip, float alpha_min,
                          float alpha_clamp, int hit_multiplicity, int sh_k, int quad, int peak,
                          int scan, int group, float a_fire, int repair, void* stats,
-                         void* stream) {
+                         void* carry, int carry_tiles, void* stream) {
   using namespace k1;
   const bool sh_ok = sh_k == 1 || sh_k == 4 || sh_k == 9 || sh_k == 16;
   // a cluster's fire groups smaller than the tile lie in one block each
@@ -94,7 +99,9 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
       (tin && (blocks || order == 2 || (order == 0 && (!origins || quad)))) ||
       block_sub < 1 || chunk % block_sub != 0 || (block_sub > 1 && !blocks) ||
       (full_range != 0) != !(origins || t_lo_arr || t_hi_arr || blocks) ||
-      stride % 4 != 0 || ((uintptr_t)feats & 15) != 0)  // rows are staged in 16-byte copies
+      stride % 4 != 0 || ((uintptr_t)feats & 15) != 0 ||  // rows are staged in 16-byte copies
+      (!carry && carry_fields(order % 2 == 1 ? 1 : order, staging_chunk(chunk), rays_per_tile)) ||
+      (carry && carry_tiles < 1))
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
   Params p{(const int*)starts, (const float*)feats, (const float*)dirs, (float*)rgb,
@@ -102,7 +109,8 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
            (const float*)t_lo_arr, (const float*)t_hi_arr, (const float*)t0,
            (const int*)blocks, block_sub, stride, full_range && (order != 3 || peak), t_lo,
            t_hi, min_t, t_skip, alpha_min, alpha_clamp, hit_multiplicity, quad != 0, peak != 0,
-           scan != 0, group, a_fire, repair, (int*)stats, rays_per_tile, chunk};
+           scan != 0, group, a_fire, repair, (int*)stats, rays_per_tile, chunk, (float*)carry,
+           carry ? carry_tiles : 0, 0};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)dispatch(p, sh_k, order == 3 ? 1 : order, n_tiles, rays_per_tile, s, nullptr);
 }
@@ -113,7 +121,8 @@ extern "C" int grt_march(const void* starts, const void* feats, const void* dirs
 // memory bytes per thread (stack frame and spills); above 1024 rays also
 // out[4] the blocks of a tile's cluster and out[5] the clusters that can be
 // resident at once (an error where none can); out[6] the build's staging
-// capacity C (staging_chunk: the chunk's build). resp: 0 the quad
+// capacity C (staging_chunk: the chunk's build); out[7] the rays each
+// thread marches (cluster_slots). resp: 0 the quad
 // response from the eye, 1 the scalar one from per-ray origins, 2 the
 // per-ray-origin quad one; train: saved carries.
 extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int train,
@@ -130,5 +139,15 @@ extern "C" int grt_march_info(int chunk, int order, int sh_k, int resp, int trai
   if (!rays_ok(rays_per_tile) || order < 0 || order > 3 || !chunk_ok(chunk, order))
     return (int)cudaErrorInvalidValue;
   out[6] = staging_chunk(chunk);
+  out[7] = cluster_slots(rays_per_tile);
   return (int)dispatch(p, sh_k, order == 3 ? 1 : order, 0, rays_per_tile, nullptr, out);
+}
+
+// Floats of grt_march's `carry` a ray needs at this chunk, order and tile
+// (k1::carry_fields; 0 where each thread marches one ray), or -1 for a
+// chunk, order or tile grt_march refuses.
+extern "C" int grt_march_carry_floats(int chunk, int order, int rays_per_tile) {
+  using namespace k1;
+  if (!rays_ok(rays_per_tile) || order < 0 || order > 3 || !chunk_ok(chunk, order)) return -1;
+  return carry_fields(order % 2 == 1 ? 1 : order, staging_chunk(chunk), rays_per_tile);
 }

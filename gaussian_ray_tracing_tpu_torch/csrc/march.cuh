@@ -24,23 +24,36 @@
 // the key kernel on every response and the window kernel on the scalar
 // one), each in a 256-ray, a 1024-ray and a cluster build (kMaxR).
 //
-// Tiles of more than 1024 rays (a multiple of 128, up to 8192; the cluster
-// builds, kMaxR = kClusterR). One thread per ray stays, with the 1024-ray
+// Tiles of more than 1024 rays (any multiple of 128), with the 1024-ray
 // build's registers and local lists: the tile is a thread-block cluster of
-// cluster_blocks(R) <= 8 blocks (the portable cluster size), each over a
-// slice of cluster_width(R) rays (a multiple of 128, so that a 128-ray fire
-// group of sort_lane_groups lies in one block; the last block's lanes past
-// R are idle, dead rays with no output). Each block stages the chunk's rows
-// in its own shared memory. Every decision that spans the tile is made
-// tile-wide through distributed shared memory (tile_reduce: the block's
-// value, then the blocks' in rank order, exact as a min or max): the chunk
-// skip, the window fire vote and key range and the band's ends where the
-// fire group is the tile, the stats maxima, merge order's fast test. The
+// cluster_blocks(R) <= 8 blocks (the portable cluster size), each over a slice
+// of cluster_width(R) rays (a multiple of 128, so that a 128-ray fire group of
+// sort_lane_groups lies in one block; lanes past R are idle, dead rays with no
+// output; the cluster builds, kMaxR = kClusterR). Up to 8192 rays one thread
+// marches one ray. Above, each thread marches cluster_slots(R) = ceil(R /
+// 8192) rays in turn (slot s: ray s * 8192 + rank * 1024 + thread; `multi`,
+// a runtime value of the same builds), one ray's lists in local memory at a time:
+// its T, colour and counts (merge order: its pending buffer too) wait in
+// device memory between its turns (Params::carry, (scratch_tiles, fields, R), sized by
+// carry_fields), where local memory would be reserved for every resident
+// thread of the card times the slots. Each block stages the chunk's rows in
+// its own shared memory, once for all its slots. Every decision that spans the
+// tile is made tile-wide through distributed shared memory (tile_reduce: the
+// block's value, then the blocks' in rank order, exact as a min or max), each
+// thread's slots folded first: the chunk skip, the window fire vote and key
+// range and the band's ends where the fire group is the tile, the stats
+// maxima, merge order's fast test. Where a vote must come before a ray's list
+// is used (window order's fire test over the tile, merge order's fast test), a
+// thread of several slots evaluates each slot's candidates once for the vote
+// and once more past it (pass 1 again), rather than hold several lists;
+// 128-ray fire groups vote within their block and slot as the slot comes. The
 // per-ray-origin centroid sums the plain version's halving tree over all R
-// origins in every block (origin_centroid_tile), so o_bar is the plain
-// version's bit for bit though the tree's first level crosses blocks. A
-// cluster that the card cannot schedule fails at launch (and in the info
-// query), never on a smaller build.
+// origins in every block (origin_centroid_tile: its first levels as the
+// origins are read, the rest in shared memory), so o_bar is the plain
+// version's tree bit for bit though the tree's first levels cross blocks and
+// slots (torch on the card divides the sum by R as a product with 1 / R, an
+// ulp apart for some R). A cluster that the card cannot schedule fails at
+// launch (and in the info query), never on a smaller build.
 //
 // Window order. One block per 16x16 tile, one thread per ray (R =
 // blockDim.x; a 256-ray build, __launch_bounds__(256, 4), for the main
@@ -351,31 +364,55 @@ struct Params {
   int* stats;             // (T, 2) fired and repaired chunks per tile, or null (render)
   int R;                  // rays per tile (the cluster builds' tile; blockDim.x up to 1024)
   int chunk;              // candidates a chunk: the key kernel's c; C in window and merge order
+  // (scratch_tiles, fields, R) floats: each ray's carried state between its
+  // turns where a thread marches several rays (cluster_slots(R) > 1;
+  // carry_fields), else null
+  float* carry;
+  // tiles the scratch holds (carry; K3's acc and carry too): cluster_launch
+  // runs more tiles as launches of at most this many, tile0 the first tile
+  // of each (the scratch's tile 0)
+  int scratch_tiles, tile0;
 };
 
-// A tile of more than 1024 rays (a multiple of 128, up to 8192) is a
-// thread-block cluster of cluster_blocks(R) blocks of cluster_width(R)
-// threads: block `rank` of the cluster holds rays [rank * width, + width)
-// of the tile, a multiple of 128 rays each, so that sort_lane_groups' groups
-// of 128 rays lie in one block; the last block's lanes past R are idle (a
-// ray of zero direction, which no candidate reaches, and no output).
-__host__ __device__ constexpr int cluster_blocks(int R) { return (R + 1023) / 1024; }
-__host__ __device__ constexpr int cluster_width(int R) {
-  return (R + 128 * cluster_blocks(R) - 1) / (128 * cluster_blocks(R)) * 128;
-}
-// The cluster builds are the kMaxR = kClusterR instantiations.
+// A tile of more than 1024 rays (any multiple of 128) is a thread-block
+// cluster of cluster_blocks(R) <= 8 blocks (the portable cluster size) of
+// cluster_width(R) threads, each thread marching cluster_slots(R) rays in
+// turn: slot s of the tile is its rays [s * span, + span), span = blocks *
+// width, and block `rank` holds rays [s * span + rank * width, + width) of
+// it, a multiple of 128 rays, so that sort_lane_groups' groups of 128 rays
+// lie in one block and one slot. Up to kClusterR = 8192 rays one slot (one
+// ray a thread); above, 8 blocks of 1024 threads and ceil(R / 8192) slots,
+// the last one uneven. Lanes past R are idle (a ray of zero direction,
+// which no candidate reaches, and no output).
 constexpr int kClusterR = 8192;
+__host__ __device__ constexpr int cluster_blocks(int R) {
+  return R > kClusterR ? 8 : (R + 1023) / 1024;
+}
+__host__ __device__ constexpr int cluster_width(int R) {
+  return R > kClusterR ? 1024
+                       : (R + 128 * cluster_blocks(R) - 1) / (128 * cluster_blocks(R)) * 128;
+}
+__host__ __device__ constexpr int cluster_slots(int R) { return (R + kClusterR - 1) / kClusterR; }
 // Floats of a cluster build's static red[]: four reductions of 32 warps, then
 // the 2 x 4 exchange slots of tile_reduce.
 constexpr int kClusterRed = 4 * 32 + 8;
 
-// The tile of this block, its rays and this thread's ray in it: one block
-// per tile up to 1024 rays; a cluster above (kCl, p.R rays a tile). K1's
-// and K3's Params alike.
+// The tile of this block, its rays and this thread's ray in it (its slot
+// 0): one block per tile up to 1024 rays; a cluster above (kCl, p.R rays a
+// tile), whose threads march `slots` rays each, `span` rays apart. K1's and
+// K3's Params alike.
 struct TileIdx {
   int tile, R, ray;
   bool valid;  // a ray of the tile (false on a cluster's idle lanes)
+  int span, slots;
   __device__ size_t idx() const { return (size_t)tile * R + ray; }
+  // this thread's ray of slot s
+  __device__ TileIdx slot(int s) const {
+    TileIdx t = *this;
+    t.ray = ray + s * span;
+    t.valid = t.ray < R;
+    return t;
+  }
 };
 
 template <bool kCl, typename P>
@@ -384,10 +421,20 @@ __device__ __forceinline__ TileIdx tile_index(const P& p) {
     const cg::cluster_group cl = cg::this_cluster();
     const int n = (int)cl.num_blocks();
     const int ray = (int)cl.block_rank() * blockDim.x + threadIdx.x;
-    return {(int)blockIdx.x / n, p.R, ray, ray < p.R};
+    const int span = n * (int)blockDim.x;
+    return {p.tile0 + (int)blockIdx.x / n, p.R, ray, ray < p.R, span, (p.R + span - 1) / span};
   } else {
-    return {(int)blockIdx.x, (int)blockDim.x, (int)threadIdx.x, true};
+    return {(int)blockIdx.x, (int)blockDim.x, (int)threadIdx.x, true, (int)blockDim.x, 1};
   }
+}
+
+// Field f of ray t's carried state between its turns, where a thread
+// marches several rays (Params::carry, (scratch_tiles, fields, R) from the
+// launch's first tile: field-major, so that a warp's rays are adjacent).
+// Only valid rays have one.
+template <typename P>
+__device__ __forceinline__ float& carried(const P& p, const TileIdx& t, int fields, int f) {
+  return p.carry[((size_t)(t.tile - p.tile0) * fields + f) * t.R + t.ray];
 }
 
 // The reduction of v over this thread's fire group, the gw warps from warp
@@ -837,18 +884,71 @@ __device__ __forceinline__ float3 origin_centroid(float* s, const Ray& ray) {
   return ob;
 }
 
+// The halving tree of origin_centroid_tile: its values left after the
+// levels it sums as it reads the origins from device memory (at least one
+// level; more until at most kTreeValues are left, so that 3 of them a value
+// fit in shared memory whatever R: 48 KB).
+constexpr int kTreeValues = 4096;
+__host__ __device__ constexpr int tree_values(int R) {
+  int n = (R + 1) / 2;
+  while (n > kTreeValues) n = (n + 1) / 2;
+  return n;
+}
+
+// Value i of level L of the halving tree over v[0], v[3], ... (n[q]: the
+// values left after q levels, n[0] = R; node (l, x) = node (l - 1, x) +
+// node (l - 1, x + n[l]) where x < n[l - 1] - n[l], else node (l - 1, x)):
+// the same additions, in the same order, as the levels summed one after
+// the other. A walk of the node's tree, left child first, with a stack of
+// one entry a level (no recursion: a kernel's stack is sized without it).
+__device__ __forceinline__ float halving_value(const float* v, const int* n, int L, int i) {
+  int xs[32];      // per level: the node being summed
+  float left[32];  // per level: its left child's value, once its right one is being summed
+  bool right[32];  // per level: whether its right child is being summed
+  int l = L, x = i;
+  for (;;) {
+    for (; l > 0; --l) {  // down the left children to a value of v
+      xs[l] = x;
+      right[l] = false;
+    }
+    float val = v[3 * (size_t)x];
+    for (;;) {  // up, adding each finished right child to its left sibling
+      if (++l > L) return val;
+      if (right[l]) {
+        val = left[l] + val;
+      } else if (xs[l] < n[l - 1] - n[l]) {
+        left[l] = val;
+        right[l] = true;
+        x = xs[l] + n[l];
+        --l;
+        break;
+      }
+    }
+  }
+}
+
 // origin_centroid of a cluster's tile: every block sums the same tree over
-// the tile's R origins, read from device memory (the first level as they
-// are read, value i + h of the tile into value i, across the blocks' ray
-// slices), the later levels in its own `s` (3 ceil(R / 2) floats), so that
-// each block holds the plain version's o_bar bit for bit.
+// the tile's R origins, its first levels as they are read from device
+// memory (value i + h into value i across the blocks' ray slices and the
+// slots: halving_value, down to tree_values(R) values), the later levels in
+// its own `s` (3 tree_values(R) floats), so that each block holds the
+// plain version's o_bar bit for bit.
 __device__ __forceinline__ float3 origin_centroid_tile(float* s, const Params& p,
                                                        const TileIdx& ti) {
-  const int R = ti.R, h0 = (R + 1) / 2;
+  const int R = ti.R;
+  int lv[32] = {R};
+  int levels = 0;
+  do {
+    lv[levels + 1] = (lv[levels] + 1) / 2;
+    ++levels;
+  } while (lv[levels] > kTreeValues);
+  const int h0 = lv[levels];
   const float* o = p.origins + (size_t)ti.tile * R * 3;
   for (int i = threadIdx.x; i < h0; i += blockDim.x)
     for (int c = 0; c < 3; ++c)
-      s[c * h0 + i] = i < R - h0 ? o[3 * i + c] + o[3 * (i + h0) + c] : o[3 * i + c];
+      s[c * h0 + i] = levels > 1       ? halving_value(o + c, lv, levels, i)
+                      : i < R - h0 ? o[3 * i + c] + o[3 * (i + h0) + c]
+                                   : o[3 * i + c];
   __syncthreads();
   for (int n = h0; n > 1;) {
     const int h = (n + 1) / 2;
@@ -1002,32 +1102,40 @@ __device__ __forceinline__ const float* stage_chunk(float* sf, float* thr, const
 // Blocks per SM the 256-ray window kernel is built for (its register cap).
 constexpr int kWindowMinBlocks = 4;
 
+// Fields of a ray's carried state in the window kernel (Params::carry):
+// T, the colour, and its fire group's fired and repaired chunks (stats).
+constexpr int kWinFields = 6;
+
 template <int C, int kR, int K, bool kTrain, int kMaxR>
 __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWindowMinBlocks : 1)
     march_kernel(Params p) {
   using L = Layout<kR, K, kTrain>;
   constexpr int W = L::w, kCol = L::col;
   constexpr int kStages = window_stages<C, W>();
-  constexpr bool kCl = kMaxR == kClusterR;
+  constexpr bool kCl = kMaxR >= kClusterR;
   extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
   float* thr = sf + kStages * C * W;             // C sure-miss thresholds
   __shared__ float red[kCl ? kClusterRed : 32];
 
   const TileIdx ti = tile_index<kCl>(p);
   const int tile = ti.tile, R = ti.R;
+  // several rays a thread (more than kClusterR rays a tile, cluster
+  // builds): each slot's ray in turn, its state in p.carry between its turns
+  const bool multi = kCl && ti.slots > 1;
+  const int slots = multi ? ti.slots : 1;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const int n_chunks = (n + C - 1) / C;
   float3 ob;
-  const Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
+  Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
-  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + ti.ray : nullptr;
+  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R : nullptr;  // + j R + ray
   int par = 0;  // tile_reduce's exchange slots (cluster builds)
 
   float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   // the chunk's significant candidates in stream order, and a fired
-  // chunk's sorted list (local memory, 9 C bytes)
+  // chunk's sorted list (local memory, 9 C bytes; one ray's at a time)
   uint32_t keys[C];
   float sa[C];
   uint8_t si[C];
@@ -1040,32 +1148,62 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
   const int rw = kTrain ? 0 : p.repair;
   const bool band = rw > 0 && (a_fire > 0.f || p.stats);
   const bool peak = p.peak != 0, fast_gate = peak && p.full_range != 0;
+  const bool whole = gw == (R >> 5);  // the fire group is the tile
   int n_fired = 0, n_repaired = 0;  // this thread's fire group's chunks (stats)
 
-  if (kStages == 2 && n_chunks > 0) stage_async<kR, K, kTrain>(sf, p, start, 0, C, min(C, n));
-  bool skipped = false;  // block-uniform; T never changes once skipped
-  for (int j = 0; j < n_chunks; ++j) {
-    if (kTrain && ti.valid) tin[(size_t)j * R] = T;
-    // tile-wide chunk skip (T never changes once every ray is below it)
-    if (!skipped) skipped = tile_reduce1<kCl>(T, true, red, par) <= p.t_skip;
-    if (skipped) {
-      if (!kTrain) break;
-      continue;  // the remaining chunks' carries are still saved
+  // the current slot (its ray, T, colour and counts) when a thread marches
+  // several: take() makes slot s current, keep() stores it back
+  TileIdx cur = ti;
+  auto take = [&](int s, bool state) {
+    cur = ti.slot(s);
+    ray = load_ray(p, cur);
+    if constexpr (kR == kOriginQuad) origin_quad_ray(ray, ob);
+    if (!state) return;
+    if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+    T = 0.f;
+    acc_r = acc_g = acc_b = 0.f;
+    n_fired = n_repaired = 0;
+    if (!cur.valid) return;
+    T = carried(p, cur, kWinFields, 0);
+    acc_r = carried(p, cur, kWinFields, 1);
+    acc_g = carried(p, cur, kWinFields, 2);
+    acc_b = carried(p, cur, kWinFields, 3);
+    n_fired = (int)carried(p, cur, kWinFields, 4);
+    n_repaired = (int)carried(p, cur, kWinFields, 5);
+  };
+  auto keep = [&]() {
+    if (!cur.valid) return;
+    carried(p, cur, kWinFields, 0) = T;
+    carried(p, cur, kWinFields, 1) = acc_r;
+    carried(p, cur, kWinFields, 2) = acc_g;
+    carried(p, cur, kWinFields, 3) = acc_b;
+    carried(p, cur, kWinFields, 4) = (float)n_fired;
+    carried(p, cur, kWinFields, 5) = (float)n_repaired;
+  };
+  if (multi)
+    for (int s = 0; s < slots; ++s) {
+      cur = ti.slot(s);
+      T = carry_in(p, cur);
+      keep();
     }
 
-    const int m = min(C, n - j * C);
-    const float* buf = stage_chunk<C, kR, K, kTrain, kStages>(sf, thr, p, start, j, n, ob);
-
-    // pass 1: every candidate once (a miss stops at alpha); the significant
-    // ones (a > 0) are kept in stream order in local memory: order key (in
-    // keys[], which the sorted list later overwrites from the front), alpha
-    // and source index; the inversion test over the candidates with a >
-    // a_fire (every significant one at a_fire 0), the last significant
-    // candidate below their running max (i1, the band's right end) and the
-    // significant key range
-    bool inv = false;
-    float rmax = -INFINITY, lo = INFINITY, hi = -INFINITY;
-    int ns = 0, i1 = -1;
+  // pass 1 of the current ray over the staged chunk: every candidate once
+  // (a miss stops at alpha); the significant ones (a > 0) are kept in
+  // stream order in local memory: order key (in keys[], which the sorted
+  // list later overwrites from the front), alpha and source index; the
+  // inversion test over the candidates with a > a_fire (every significant
+  // one at a_fire 0), the last significant candidate below their running
+  // max (i1, the band's right end) and the significant key range
+  int ns = 0, i1 = -1;
+  bool inv = false;
+  float lo = INFINITY, hi = -INFINITY;
+  auto pass1 = [&](const float* buf, int m) {
+    inv = false;
+    float rmax = -INFINITY;
+    lo = INFINITY;
+    hi = -INFINITY;
+    ns = 0;
+    i1 = -1;
     for (int i = 0; i < m; ++i) {
       float t_ev, a;
       evaluate<kR, true>(p, ray, buf + i * W, fast_gate, peak, t_ev, a, thr[i]);
@@ -1081,119 +1219,190 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
         si[ns++] = (uint8_t)i;
       }
     }
-    // the fire decision of this thread's group, and whether any group fired
-    // (block-uniform: it decides who takes the group reductions below)
-    // (a cluster's tile-wide group: the vote and the key range in one
-    // exchange; its groups of 128 rays lie in one block, and `any` need
-    // only be block-uniform there)
-    bool fired, any;
-    const bool whole = gw == (R >> 5);
-    if (kCl && whole) {
-      float v[3] = {inv ? 1.f : 0.f, lo, hi};
-      const bool mx[3] = {true, false, true};
-      tile_reduce<kCl>(v, mx, red, par);
-      fired = any = v[0] != 0.f;
-      lo = v[1];
-      hi = v[2];
-    } else if (whole) {
-      fired = any = __syncthreads_or(inv);
-    } else {
-      any = group_or(inv, red, gw, fired);
+  };
+  // i0: the first significant candidate whose key lies above the least
+  // key after it (pallas_march.py:866-871)
+  auto first_above = [&]() {
+    int i0 = C;
+    float smin = INFINITY;
+    for (int k = ns - 1; k >= 0; --k) {
+      const float t = __uint_as_float(keys[k]);
+      if (t > smin) i0 = si[k];
+      smin = fminf(smin, t);
     }
-    bool fit = false;  // the repair band fits: i1 - i0 < w over the group
-    int ws = 0;        // the band's window [ws, ws + w)
-    if (any) {
-      if (!(kCl && whole)) {
-        lo = group_reduce(lo, false, red, gw);
-        hi = group_reduce(hi, true, red, gw);
-      }
-      if (band) {
-        // i0: the first significant candidate whose key lies above the
-        // least key after it (pallas_march.py:866-871)
-        int i0 = C;
-        float smin = INFINITY;
-        for (int k = ns - 1; k >= 0; --k) {
-          const float t = __uint_as_float(keys[k]);
-          if (t > smin) i0 = si[k];
-          smin = fminf(smin, t);
-        }
-        int g0, g1;
-        if (kCl && whole) {
-          float v[2] = {(float)i0, (float)i1};
-          const bool mx[2] = {false, true};
-          tile_reduce<kCl>(v, mx, red, par);
-          g0 = (int)v[0];
-          g1 = (int)v[1];
-        } else {
-          g0 = (int)group_reduce((float)i0, false, red, gw);
-          g1 = (int)group_reduce((float)i1, true, red, gw);
-        }
-        fit = g1 - g0 < rw;
-        ws = min(g0, C - rw);
-      }
-    }
-    n_fired += fired;
-    n_repaired += fired && fit;
+    return i0;
+  };
 
-    // pass 2, over the significant candidates only: composited in stream
-    // order with float32 colours (no fire), or listed in sorted order
-    Composite comp(T, !kTrain && p.scan);
-    float cr, cg, cb;
-    if (!fired) {
-      for (int k = 0; k < ns; ++k) {
-        row_color<kR == kScalar, K>(buf + si[k] * W + kCol, basis, cr, cg, cb);
-        comp.add(sa[k], cr, cg, cb, p.min_t);
-      }
+  if (kStages == 2 && n_chunks > 0) stage_async<kR, K, kTrain>(sf, p, start, 0, C, min(C, n));
+  bool skipped = false;  // block-uniform; T never changes once skipped
+  for (int j = 0; j < n_chunks; ++j) {
+    // the carry-in saved, and the tile-wide chunk skip (T never changes
+    // once every ray is below it)
+    float t_max = T;
+    if (!multi) {
+      if (kTrain && ti.valid) tin[(size_t)j * R + ti.ray] = T;
     } else {
-      const float scale = 65534.f / fmaxf(hi - lo, 1e-20f);
-      // the sorted run [k0, k1) of the list: all of it, or with a_fire > 0
-      // and a fitting band the candidates of the window [ws, ws + w), a
-      // contiguous run of the list (pallas_march.py:876-893); the others
-      // keep their stream places, keys and packs
-      int k0 = 0, k1 = ns;
-      if (a_fire > 0.f && fit) {
-        while (k0 < ns && si[k0] < ws) ++k0;
-        for (k1 = k0; k1 < ns && si[k1] < ws + rw;) ++k1;
-      }
-      for (int k = 0; k < ns; ++k) {
-        // entry k's order key, read before the list grows to k entries
-        const float t_ev = __uint_as_float(keys[k]);
-        const uint8_t i = si[k];
-        const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - lo) * scale, 0.f), 65534.f);
-        // training: the unique key tq16 << 8 | src (pallas_march.py:833-842),
-        // here with the compact index k for src (the same order: both ascend
-        // with the stream; alpha and source stay at k); render: tq16 << 15
-        // | a15, alpha decoded from the key, the source moving with the key
-        const uint32_t key =
-            kTrain ? (tq << 8) | (uint32_t)k
-                   : (tq << 15) | (uint32_t)fminf(fmaxf(sa[k] * 32767.f, 0.f), 32767.f);
-        int pos = k;
-        if (k < k1)
-          while (pos > k0 && keys[pos - 1] > key) {  // stable: ties keep stream order
-            keys[pos] = keys[pos - 1];
-            if (!kTrain) si[pos] = si[pos - 1];
-            --pos;
-          }
-        keys[pos] = key;
-        if (!kTrain) si[pos] = i;
-      }
-      for (int k = 0; k < ns; ++k) {
-        const int e = kTrain ? (int)(keys[k] & 255u) : k;
-        // training: the exact alpha; render: alpha decoded from the key
-        const float a = kTrain ? sa[e] : (float)(keys[k] & 32767u) * kInvA;
-        row_color<kR == kScalar, K>(buf + si[e] * W + kCol, basis, cr, cg, cb);
-        add_packed(comp, a, pack_color(cr, cg, cb), p.min_t);
+      t_max = 0.f;
+      for (int s = 0; s < slots; ++s) {
+        const TileIdx t = ti.slot(s);
+        if (!t.valid) continue;
+        const float Ts = carried(p, t, kWinFields, 0);
+        if (kTrain) tin[(size_t)j * R + t.ray] = Ts;
+        t_max = fmaxf(t_max, Ts);
       }
     }
-    const float t_next = comp.t_next();
-    T = T > p.min_t ? t_next : T;
-    acc_r += comp.r;
-    acc_g += comp.g;
-    acc_b += comp.b;
+    if (!skipped) skipped = tile_reduce1<kCl>(t_max, true, red, par) <= p.t_skip;
+    if (skipped) {
+      if (!kTrain) break;
+      continue;  // the remaining chunks' carries are still saved
+    }
+
+    const int m = min(C, n - j * C);
+    const float* buf = stage_chunk<C, kR, K, kTrain, kStages>(sf, thr, p, start, j, n, ob);
+
+    // the fire decision of this thread's group, whether any group fired
+    // (block-uniform: it decides who takes the group reductions below), the
+    // group's key range, and whether the repair band fits (i1 - i0 < w over
+    // the group) and its window [ws, ws + w)
+    bool fired = false, any = false, fit = false;
+    float glo = INFINITY, ghi = -INFINITY;
+    int ws = 0;
+    if (whole) {
+      // one fire group, the tile: every slot's pass 1 folded, then one
+      // vote (a cluster's vote and key range in one exchange)
+      bool t_inv = false;
+      int t_i0 = C, t_i1 = -1;
+      for (int s = 0; s < slots; ++s) {
+        if (multi) take(s, false);
+        pass1(buf, m);
+        t_inv |= inv;
+        glo = fminf(glo, lo);
+        ghi = fmaxf(ghi, hi);
+        if (multi && band) {
+          t_i0 = min(t_i0, first_above());
+          t_i1 = max(t_i1, i1);
+        }
+      }
+      if constexpr (kCl) {
+        float v[3] = {t_inv ? 1.f : 0.f, glo, ghi};
+        const bool mx[3] = {true, false, true};
+        tile_reduce<kCl>(v, mx, red, par);
+        fired = any = v[0] != 0.f;
+        glo = v[1];
+        ghi = v[2];
+      } else {
+        fired = any = __syncthreads_or(t_inv);
+        if (any) {
+          glo = block_reduce(glo, false, red);
+          ghi = block_reduce(ghi, true, red);
+        }
+      }
+      if (any && band) {
+        if (!multi) {
+          t_i0 = first_above();
+          t_i1 = i1;
+        }
+        float v[2] = {(float)t_i0, (float)t_i1};
+        const bool mx[2] = {false, true};
+        tile_reduce<kCl>(v, mx, red, par);
+        fit = (int)v[1] - (int)v[0] < rw;
+        ws = min((int)v[0], C - rw);
+      }
+    }
+
+    for (int s = 0; s < slots; ++s) {
+      if (multi) {
+        take(s, true);
+        if (whole) pass1(buf, m);  // the list again, past the tile's vote
+      }
+      if (!whole) {
+        // fire groups of 128 rays, each in one block and one slot: the
+        // group's vote and reductions
+        pass1(buf, m);
+        any = group_or(inv, red, gw, fired);
+        fit = false;
+        ws = 0;
+        if (any) {
+          glo = group_reduce(lo, false, red, gw);
+          ghi = group_reduce(hi, true, red, gw);
+          if (band) {
+            const int g0 = (int)group_reduce((float)first_above(), false, red, gw);
+            const int g1 = (int)group_reduce((float)i1, true, red, gw);
+            fit = g1 - g0 < rw;
+            ws = min(g0, C - rw);
+          }
+        }
+      }
+      n_fired += fired;
+      n_repaired += fired && fit;
+
+      // pass 2, over the significant candidates only: composited in stream
+      // order with float32 colours (no fire), or listed in sorted order
+      Composite comp(T, !kTrain && p.scan);
+      float cr, cg, cb;
+      if (!fired) {
+        for (int k = 0; k < ns; ++k) {
+          row_color<kR == kScalar, K>(buf + si[k] * W + kCol, basis, cr, cg, cb);
+          comp.add(sa[k], cr, cg, cb, p.min_t);
+        }
+      } else {
+        const float scale = 65534.f / fmaxf(ghi - glo, 1e-20f);
+        // the sorted run [k0, k1) of the list: all of it, or with a_fire > 0
+        // and a fitting band the candidates of the window [ws, ws + w), a
+        // contiguous run of the list (pallas_march.py:876-893); the others
+        // keep their stream places, keys and packs
+        int k0 = 0, k1 = ns;
+        if (a_fire > 0.f && fit) {
+          while (k0 < ns && si[k0] < ws) ++k0;
+          for (k1 = k0; k1 < ns && si[k1] < ws + rw;) ++k1;
+        }
+        for (int k = 0; k < ns; ++k) {
+          // entry k's order key, read before the list grows to k entries
+          const float t_ev = __uint_as_float(keys[k]);
+          const uint8_t i = si[k];
+          const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - glo) * scale, 0.f), 65534.f);
+          // training: the unique key tq16 << 8 | src (pallas_march.py:833-842),
+          // here with the compact index k for src (the same order: both ascend
+          // with the stream; alpha and source stay at k); render: tq16 << 15
+          // | a15, alpha decoded from the key, the source moving with the key
+          const uint32_t key =
+              kTrain ? (tq << 8) | (uint32_t)k
+                     : (tq << 15) | (uint32_t)fminf(fmaxf(sa[k] * 32767.f, 0.f), 32767.f);
+          int pos = k;
+          if (k < k1)
+            while (pos > k0 && keys[pos - 1] > key) {  // stable: ties keep stream order
+              keys[pos] = keys[pos - 1];
+              if (!kTrain) si[pos] = si[pos - 1];
+              --pos;
+            }
+          keys[pos] = key;
+          if (!kTrain) si[pos] = i;
+        }
+        for (int k = 0; k < ns; ++k) {
+          const int e = kTrain ? (int)(keys[k] & 255u) : k;
+          // training: the exact alpha; render: alpha decoded from the key
+          const float a = kTrain ? sa[e] : (float)(keys[k] & 32767u) * kInvA;
+          row_color<kR == kScalar, K>(buf + si[e] * W + kCol, basis, cr, cg, cb);
+          add_packed(comp, a, pack_color(cr, cg, cb), p.min_t);
+        }
+      }
+      const float t_next = comp.t_next();
+      T = T > p.min_t ? t_next : T;
+      acc_r += comp.r;
+      acc_g += comp.g;
+      acc_b += comp.b;
+      if (multi) keep();
+    }
   }
   cp_async_wait<0>();  // a skipped tile's prefetch
   if (!kTrain && p.stats) {  // per tile, the most chunks any fire group sorted (JAX's max)
     float v[2] = {(float)n_fired, (float)n_repaired};
+    if (multi)
+      for (int s = 0; s < slots; ++s) {
+        take(s, true);
+        v[0] = fmaxf(v[0], (float)n_fired);
+        v[1] = fmaxf(v[1], (float)n_repaired);
+      }
     const bool mx[2] = {true, true};
     tile_reduce<kCl>(v, mx, red, par);
     if (ti.ray == 0) {
@@ -1202,7 +1411,13 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
     }
   }
 
-  store_ray(p, ti, acc_r, acc_g, acc_b, T);
+  if (!multi)
+    store_ray(p, ti, acc_r, acc_g, acc_b, T);
+  else
+    for (int s = 0; s < slots; ++s) {
+      take(s, true);
+      store_ray(p, cur, acc_r, acc_g, acc_b, T);
+    }
   tile_end<kCl>();
 }
 
@@ -1211,6 +1426,11 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
 // the registers grow past three (PERF.md). kKeyBlocks: at most that many
 // run (blocks_per_sm), where more would fit.
 constexpr int kKeyMinBlocks = 3, kKeyBlocks = 4;
+
+// Fields of a ray's carried state in the key kernel (Params::carry): T and
+// the colour, then the chunk's Composite between the pieces of a chunk of
+// more than C candidates (s, frozen, r, g, b, below).
+constexpr int kKeyFields = 10;
 
 // The key kernel, one tile a block (a cluster above 1024 rays). C is the
 // build's staging capacity; the chunk is p.chunk = c, any c >= 1 (launch_k
@@ -1223,35 +1443,58 @@ template <int C, int kR, int K, bool kTrain, int kMaxR>
 __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kKeyMinBlocks : 1)
     march_key_kernel(Params p) {
   extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats, C thresholds
-  __shared__ float red[kMaxR == kClusterR ? kClusterRed : 32];
+  __shared__ float red[kMaxR >= kClusterR ? kClusterRed : 32];
   using L = Layout<kR, K, kTrain>;
   constexpr int W = L::w, kCol = L::col;
   constexpr int kStages = window_stages<C, W>();
-  constexpr bool kCl = kMaxR == kClusterR;
+  constexpr bool kCl = kMaxR >= kClusterR;
   float* thr = sf + kStages * C * W;  // C sure-miss thresholds
 
   const TileIdx ti = tile_index<kCl>(p);
   const int tile = ti.tile, R = ti.R;
+  // several rays a thread (more than kClusterR rays a tile, cluster
+  // builds): each slot's ray in turn, its state in p.carry between its turns
+  const bool multi = kCl && ti.slots > 1;
+  const int slots = multi ? ti.slots : 1;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   const int c = p.chunk;  // the chunk
   const int n_chunks = (n + c - 1) / c;
   int u = 0;  // pieces staged: u & 1 the next one's buffer
   float3 ob;
-  const Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
+  Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
   const bool fast_gate = p.full_range != 0;
-  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R + ti.ray : nullptr;
+  float* tin = kTrain ? p.tin + (size_t)p.chunk_base[tile] * R : nullptr;  // + j R + ray
   int par = 0;  // tile_reduce's exchange slots (cluster builds)
 
   float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  if (multi)
+    for (int s = 0; s < slots; ++s) {
+      const TileIdx t = ti.slot(s);
+      if (!t.valid) continue;
+      carried(p, t, kKeyFields, 0) = carry_in(p, t);
+      for (int f = 1; f < 4; ++f) carried(p, t, kKeyFields, f) = 0.f;
+    }
   if (kStages == 2 && n_chunks > 0)
     stage_async<kR, K, kTrain>(sf, p, start, 0, c, min(C, min(c, n)));
   bool skipped = false;  // block-uniform; T never changes once skipped
   for (int j = 0; j < n_chunks; ++j) {
-    if (kTrain && ti.valid) tin[(size_t)j * R] = T;
-    if (!skipped) skipped = tile_reduce1<kCl>(T, true, red, par) <= p.t_skip;
+    float t_max = T;
+    if (!multi) {
+      if (kTrain && ti.valid) tin[(size_t)j * R + ti.ray] = T;
+    } else {
+      t_max = 0.f;
+      for (int s = 0; s < slots; ++s) {
+        const TileIdx t = ti.slot(s);
+        if (!t.valid) continue;
+        const float Ts = carried(p, t, kKeyFields, 0);
+        if (kTrain) tin[(size_t)j * R + t.ray] = Ts;
+        t_max = fmaxf(t_max, Ts);
+      }
+    }
+    if (!skipped) skipped = tile_reduce1<kCl>(t_max, true, red, par) <= p.t_skip;
     if (skipped) {
       if (!kTrain) break;
       continue;  // the remaining chunks' carries are still saved
@@ -1272,15 +1515,59 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kKey
                                     : Piece{j0 + c, min(C, min(c, n - j0 - c))};
       const float* buf = stage_piece<C, kR, K, kTrain, kStages>(sf, thr, p, start, u, n, ob, c,
                                                                 pc, nx, k0 == j0);
-      for (int i = 0; i < pc.m; ++i) {
-        const float* f = buf + i * W;
-        float t_ev, a, cr, cg, cb;
-        evaluate<kR, true, kR != kQuad>(p, ray, f, fast_gate, false, t_ev, a, thr[i]);
-        if (!(a > 0.f)) continue;
-        row_color<kR == kScalar, K>(f + kCol, basis, cr, cg, cb);
-        comp.add(a, cr, cg, cb, p.min_t);
+      // the piece over the current ray (ray, basis, comp); one ray a thread
+      // calls it outside the slot loop, whose loop-carried ray and
+      // Composite cost that path 2.4-2.9% in the same build
+      auto march_piece = [&]() {
+        for (int i = 0; i < pc.m; ++i) {
+          const float* f = buf + i * W;
+          float t_ev, a, cr, cg, cb;
+          evaluate<kR, true, kR != kQuad>(p, ray, f, fast_gate, false, t_ev, a, thr[i]);
+          if (!(a > 0.f)) continue;
+          row_color<kR == kScalar, K>(f + kCol, basis, cr, cg, cb);
+          comp.add(a, cr, cg, cb, p.min_t);
+        }
+      };
+      if (!multi) {
+        march_piece();
+        continue;
+      }
+      for (int s = 0; s < slots; ++s) {
+        // several rays a thread: slot s's ray, and its Composite of the
+        // chunk (fresh at the chunk's first piece, else carried)
+        const TileIdx t = ti.slot(s);
+        ray = load_ray(p, t);
+        if constexpr (kR == kOriginQuad) origin_quad_ray(ray, ob);
+        if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+        T = t.valid ? carried(p, t, kKeyFields, 0) : 0.f;
+        comp = Composite(T, !kTrain && p.scan);
+        if (k0 != j0 && t.valid) {
+          comp.s = carried(p, t, kKeyFields, 4);
+          comp.frozen = carried(p, t, kKeyFields, 5);
+          comp.r = carried(p, t, kKeyFields, 6);
+          comp.g = carried(p, t, kKeyFields, 7);
+          comp.b = carried(p, t, kKeyFields, 8);
+          comp.below = carried(p, t, kKeyFields, 9) != 0.f;
+        }
+        march_piece();
+        if (!t.valid) continue;
+        if (k0 + C < end) {  // the chunk goes on in the next piece
+          carried(p, t, kKeyFields, 4) = comp.s;
+          carried(p, t, kKeyFields, 5) = comp.frozen;
+          carried(p, t, kKeyFields, 6) = comp.r;
+          carried(p, t, kKeyFields, 7) = comp.g;
+          carried(p, t, kKeyFields, 8) = comp.b;
+          carried(p, t, kKeyFields, 9) = comp.below ? 1.f : 0.f;
+        } else {
+          const float t_next = comp.t_next();
+          carried(p, t, kKeyFields, 0) = T > p.min_t ? t_next : T;
+          carried(p, t, kKeyFields, 1) += comp.r;
+          carried(p, t, kKeyFields, 2) += comp.g;
+          carried(p, t, kKeyFields, 3) += comp.b;
+        }
       }
     }
+    if (multi) continue;
     const float t_next = comp.t_next();
     T = T > p.min_t ? t_next : T;
     acc_r += comp.r;
@@ -1288,7 +1575,15 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kKey
     acc_b += comp.b;
   }
   cp_async_wait<0>();  // a skipped tile's prefetch
-  store_ray(p, ti, acc_r, acc_g, acc_b, T);
+  if (!multi)
+    store_ray(p, ti, acc_r, acc_g, acc_b, T);
+  else
+    for (int s = 0; s < slots; ++s) {
+      const TileIdx t = ti.slot(s);
+      if (t.valid)
+        store_ray(p, t, carried(p, t, kKeyFields, 1), carried(p, t, kKeyFields, 2),
+                  carried(p, t, kKeyFields, 3), carried(p, t, kKeyFields, 0));
+    }
   tile_end<kCl>();
 }
 
@@ -1305,12 +1600,19 @@ __host__ __device__ constexpr int merge_smem_bytes(int R) {
 // and the occupancy launch_mode asks for: blocks_per_sm).
 constexpr int kMergeMinBlocks = 2;
 
+// Fields of a ray's carried state in the merge kernel (Params::carry): T,
+// the colour, pend_max, then the pending buffer (C keys, C alphas, C colour
+// packs, C / 32 mask words), bits as floats.
+__host__ __device__ constexpr int merge_fields(int C) {
+  return 5 + 3 * C + C / 32;
+}
+
 template <int C, int kR, int K, int kMaxR>
 __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kMergeMinBlocks : 1)
     march_merge_kernel(Params p) {
   using L = Layout<kR, K, false>;
-  constexpr int W = L::w, kCol = L::col, kWords = C / 32;
-  constexpr bool kCl = kMaxR == kClusterR;
+  constexpr int W = L::w, kCol = L::col, kWords = C / 32, kF = merge_fields(C);
+  constexpr bool kCl = kMaxR >= kClusterR;
   extern __shared__ __align__(16) float sf[];  // merge_smem_bytes
   float* thr = sf + C * W;
   uint32_t* mask = reinterpret_cast<uint32_t*>(thr + C);
@@ -1318,10 +1620,15 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kMer
 
   const TileIdx ti = tile_index<kCl>(p);
   const int tile = ti.tile, R = blockDim.x, tid = threadIdx.x;  // R: the block's rays (masks)
+  // several rays a thread (more than kClusterR rays a tile, cluster
+  // builds): each slot's ray in turn, its state and pending buffer in p.carry
+  // between its turns
+  const bool multi = kCl && ti.slots > 1;
+  const int slots = multi ? ti.slots : 1;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   float3 ob;
-  const Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
+  Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
 
@@ -1349,136 +1656,246 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kMer
   const bool peak = p.peak != 0, fast_gate = peak && p.full_range != 0;
   int par = 0;  // tile_reduce's exchange slots (cluster builds)
   float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+
+  // the current slot (several rays a thread): take() makes slot s current
+  // (its ray; with `state` T, the colour, pend_max and, unless `fresh`, its
+  // pending buffer into buffer 0), keep() stores it back. Their copies of
+  // the buffer are not unrolled: unrolled at C = 32 and 64 they spill the
+  // registers of the whole build (2874 B at C = 64), one ray a thread too.
+  TileIdx at = ti;
+  auto take = [&](int s, bool state) {
+    at = ti.slot(s);
+    ray = load_ray(p, at);
+    if constexpr (kR == kOriginQuad) origin_quad_ray(ray, ob);
+    if (K > 1 && state) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+    T = acc_r = acc_g = acc_b = 0.f;
+    pend_max = INT32_MIN;
+    if (!at.valid) {
+      if (state && !fresh)  // an idle lane's pending buffer: nothing significant
+        for (int w = 0; w < kWords; ++w) bits(0, w) = 0u;
+      cur = 0;
+      return;
+    }
+    pend_max = __float_as_int(carried(p, at, kF, 4));
+    if (!state) return;
+    T = carried(p, at, kF, 0);
+    acc_r = carried(p, at, kF, 1);
+    acc_g = carried(p, at, kF, 2);
+    acc_b = carried(p, at, kF, 3);
+    cur = 0;
+    if (fresh) return;
+#pragma unroll 1
+    for (int k = 0; k < C; ++k) {
+      key[0][k] = __float_as_int(carried(p, at, kF, 5 + k));
+      al[0][k] = carried(p, at, kF, 5 + C + k);
+      cpk[0][k] = __float_as_uint(carried(p, at, kF, 5 + 2 * C + k));
+    }
+#pragma unroll 1
+    for (int w = 0; w < kWords; ++w) bits(0, w) = __float_as_uint(carried(p, at, kF, 5 + 3 * C + w));
+  };
+  auto keep = [&]() {
+    if (!at.valid) return;
+    carried(p, at, kF, 0) = T;
+    carried(p, at, kF, 1) = acc_r;
+    carried(p, at, kF, 2) = acc_g;
+    carried(p, at, kF, 3) = acc_b;
+    carried(p, at, kF, 4) = __int_as_float(pend_max);
+    if (fresh) return;
+#pragma unroll 1
+    for (int k = 0; k < C; ++k) {
+      carried(p, at, kF, 5 + k) = __int_as_float(key[cur][k]);
+      carried(p, at, kF, 5 + C + k) = al[cur][k];
+      carried(p, at, kF, 5 + 2 * C + k) = __uint_as_float(cpk[cur][k]);
+    }
+#pragma unroll 1
+    for (int w = 0; w < kWords; ++w) carried(p, at, kF, 5 + 3 * C + w) = __uint_as_float(bits(cur, w));
+  };
+  if (multi)
+    for (int s = 0; s < slots; ++s) {
+      at = ti.slot(s);
+      T = carry_in(p, at);
+      keep();
+    }
+
   for (int j = 0; j * C < n; ++j) {
     // tile-wide chunk skip (T never changes once every ray is below it)
-    if (tile_reduce1<kCl>(T, true, red, par) <= p.t_skip) break;
+    float t_max = T;
+    if (multi) {
+      t_max = 0.f;
+      for (int s = 0; s < slots; ++s) {
+        const TileIdx t = ti.slot(s);
+        if (t.valid) t_max = fmaxf(t_max, carried(p, t, kF, 0));
+      }
+    }
+    if (tile_reduce1<kCl>(t_max, true, red, par) <= p.t_skip) break;
     const int m = min(C, n - j * C);
     stage_chunk<C, kR, K, false, 1>(sf, thr, p, start, j, n, ob);
 
-    // pass 1: every candidate once (a sure miss stops before the divide and
-    // the exp, any other miss at alpha); its key inserted into the sorted
-    // keys (a chunk without inversions is already sorted: no shift), a
-    // significant one's alpha and colour pack stored by source index
-    const int nx = cur ^ 1;
-    int32_t* ck = key[nx];
-    int32_t rmax = INT32_MIN, new_min = INT32_MAX, sig_max = INT32_MIN, last = INT32_MIN;
-    bool inv = false;
-    uint32_t word = 0;
-    for (int i = 0; i < C; ++i) {
-      float t_ev, a = 0.f;
-      if (i < m) evaluate<kR, true>(p, ray, sf + i * W, fast_gate, peak, t_ev, a, thr[i]);
-      int32_t k;
-      if (a > 0.f) {
-        const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
-        inv |= kb < rmax;
-        rmax = max(rmax, kb);
-        new_min = min(new_min, kb);
-        k = kb | i;
-        sig_max = max(sig_max, k);
-        float cr, cg, cb;
-        row_color<kR == kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
-        al[nx][i] = a;
-        cpk[nx][i] = pack_color(cr, cg, cb);
-        word |= 1u << (i & 31);
-      } else {
-        k = rmax | i;
+    // several rays a thread: the fast test's inputs of every slot first
+    // (each candidate's key, no lists), past it each slot's full pass 1
+    bool ok_all = true;
+    if (multi)
+      for (int s = 0; s < slots; ++s) {
+        take(s, false);
+        int32_t rmax = INT32_MIN, new_min = INT32_MAX;
+        bool inv = false;
+        for (int i = 0; i < m; ++i) {
+          float t_ev, a;
+          evaluate<kR, true>(p, ray, sf + i * W, fast_gate, peak, t_ev, a, thr[i]);
+          if (!(a > 0.f)) continue;
+          const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
+          inv |= kb < rmax;
+          rmax = max(rmax, kb);
+          new_min = min(new_min, kb);
+        }
+        ok_all &= !inv && new_min >= pend_max;
       }
-      if (k > last) {  // keys are unique within the chunk
-        ck[i] = k;
-        last = k;
-      } else {
-        int pos = i;
-        for (; pos > 0 && ck[pos - 1] > k; --pos) ck[pos] = ck[pos - 1];
-        ck[pos] = k;
-      }
-      if ((i & 31) == 31) {
-        bits(nx, i >> 5) = word;
-        word = 0;
-      }
-    }
-    const bool ok = !inv && new_min >= pend_max;
-    bool fast;
-    if constexpr (kCl)
-      fast = tile_reduce1<kCl>(ok ? 1.f : 0.f, false, red, par) != 0.f;
-    else
-      fast = __syncthreads_and(ok);
 
-    Composite comp(T, p.scan);
-    if (fast) {  // the pending buffer composites; the chunk (sorted) replaces it
-      if (!fresh) composite_pending(comp, cur);
-      cur = nx;
-      pend_max = sig_max;
-    } else {
-      // two pointers over the pending buffer and the sorted chunk (pending
-      // first on equal keys): the C smallest composite, the C largest are
-      // written in place into the pending slots already read (slot k - C <
-      // ip). A fresh buffer's C empties are the C smallest: nothing
-      // composites and the sorted chunk becomes the pending buffer. The
-      // heads' keys and the pending mask's word stay in registers; the new
-      // mask's word is stored when its 32 slots are written, after the
-      // reader has left that word.
-      int ip = fresh ? C : 0, ic = 0;
-      int32_t pkey = fresh ? 0 : key[cur][0], ckey = ck[0];
-      uint32_t pw = fresh ? 0u : bits(cur, 0), nw = 0;
-      int32_t new_max = INT32_MIN;
-      for (int k = fresh ? C : 0; k < 2 * C; ++k) {
-        int32_t kk;
-        bool sig;
-        float a = 0.f;
-        uint32_t cp = 0u;
-        if (ic == C || (ip < C && pkey <= ckey)) {
-          kk = pkey;
-          sig = (pw >> (ip & 31)) & 1u;
-          if (sig) {
-            a = al[cur][ip];
-            cp = cpk[cur][ip];
-          }
-          if (++ip < C) {
-            pkey = key[cur][ip];
-            if ((ip & 31) == 0) pw = bits(cur, ip >> 5);
-          }
+    for (int sl = 0; sl < slots; ++sl) {
+      if (multi) take(sl, true);
+      // pass 1: every candidate once (a sure miss stops before the divide
+      // and the exp, any other miss at alpha); its key inserted into the
+      // sorted keys (a chunk without inversions is already sorted: no
+      // shift), a significant one's alpha and colour pack stored by source
+      // index
+      const int nx = cur ^ 1;
+      int32_t* ck = key[nx];
+      int32_t rmax = INT32_MIN, new_min = INT32_MAX, sig_max = INT32_MIN, last = INT32_MIN;
+      bool inv = false;
+      uint32_t word = 0;
+      for (int i = 0; i < C; ++i) {
+        float t_ev, a = 0.f;
+        if (i < m) evaluate<kR, true>(p, ray, sf + i * W, fast_gate, peak, t_ev, a, thr[i]);
+        int32_t k;
+        if (a > 0.f) {
+          const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
+          inv |= kb < rmax;
+          rmax = max(rmax, kb);
+          new_min = min(new_min, kb);
+          k = kb | i;
+          sig_max = max(sig_max, k);
+          float cr, cg, cb;
+          row_color<kR == kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
+          al[nx][i] = a;
+          cpk[nx][i] = pack_color(cr, cg, cb);
+          word |= 1u << (i & 31);
         } else {
-          kk = ckey;
-          const int i = kk & 255;
-          sig = (bits(nx, i >> 5) >> (i & 31)) & 1u;
-          if (sig) {
-            a = al[nx][i];
-            cp = cpk[nx][i];
-          }
-          if (++ic < C) ckey = ck[ic];
+          k = rmax | i;
         }
-        if (k < C) {
-          if (sig) add_packed(comp, a, cp, p.min_t);
+        if (k > last) {  // keys are unique within the chunk
+          ck[i] = k;
+          last = k;
         } else {
-          const int s = k - C;
-          key[cur][s] = kk;
-          if (sig) {
-            al[cur][s] = a;
-            cpk[cur][s] = cp;
-            nw |= 1u << (s & 31);
-            new_max = kk;  // the slots ascend
-          }
-          if ((s & 31) == 31) {
-            bits(cur, s >> 5) = nw;
-            nw = 0;
-          }
+          int pos = i;
+          for (; pos > 0 && ck[pos - 1] > k; --pos) ck[pos] = ck[pos - 1];
+          ck[pos] = k;
+        }
+        if ((i & 31) == 31) {
+          bits(nx, i >> 5) = word;
+          word = 0;
         }
       }
-      pend_max = new_max;
+      // the fast test, tile-wide: no ray sees an inversion, and every ray's
+      // least significant key is at or above its pending buffer's largest
+      bool fast;
+      if (multi) {
+        if (sl == 0) ok_all = tile_reduce1<kCl>(ok_all ? 1.f : 0.f, false, red, par) != 0.f;
+        fast = ok_all;
+      } else {
+        const bool ok = !inv && new_min >= pend_max;
+        if constexpr (kCl)
+          fast = tile_reduce1<kCl>(ok ? 1.f : 0.f, false, red, par) != 0.f;
+        else
+          fast = __syncthreads_and(ok);
+      }
+
+      Composite comp(T, p.scan);
+      if (fast) {  // the pending buffer composites; the chunk (sorted) replaces it
+        if (!fresh) composite_pending(comp, cur);
+        cur = nx;
+        pend_max = sig_max;
+      } else {
+        // two pointers over the pending buffer and the sorted chunk (pending
+        // first on equal keys): the C smallest composite, the C largest are
+        // written in place into the pending slots already read (slot k - C <
+        // ip). A fresh buffer's C empties are the C smallest: nothing
+        // composites and the sorted chunk becomes the pending buffer. The
+        // heads' keys and the pending mask's word stay in registers; the new
+        // mask's word is stored when its 32 slots are written, after the
+        // reader has left that word.
+        int ip = fresh ? C : 0, ic = 0;
+        int32_t pkey = fresh ? 0 : key[cur][0], ckey = ck[0];
+        uint32_t pw = fresh ? 0u : bits(cur, 0), nw = 0;
+        int32_t new_max = INT32_MIN;
+        for (int k = fresh ? C : 0; k < 2 * C; ++k) {
+          int32_t kk;
+          bool sig;
+          float a = 0.f;
+          uint32_t cp = 0u;
+          if (ic == C || (ip < C && pkey <= ckey)) {
+            kk = pkey;
+            sig = (pw >> (ip & 31)) & 1u;
+            if (sig) {
+              a = al[cur][ip];
+              cp = cpk[cur][ip];
+            }
+            if (++ip < C) {
+              pkey = key[cur][ip];
+              if ((ip & 31) == 0) pw = bits(cur, ip >> 5);
+            }
+          } else {
+            kk = ckey;
+            const int i = kk & 255;
+            sig = (bits(nx, i >> 5) >> (i & 31)) & 1u;
+            if (sig) {
+              a = al[nx][i];
+              cp = cpk[nx][i];
+            }
+            if (++ic < C) ckey = ck[ic];
+          }
+          if (k < C) {
+            if (sig) add_packed(comp, a, cp, p.min_t);
+          } else {
+            const int s = k - C;
+            key[cur][s] = kk;
+            if (sig) {
+              al[cur][s] = a;
+              cpk[cur][s] = cp;
+              nw |= 1u << (s & 31);
+              new_max = kk;  // the slots ascend
+            }
+            if ((s & 31) == 31) {
+              bits(cur, s >> 5) = nw;
+              nw = 0;
+            }
+          }
+        }
+        pend_max = new_max;
+      }
+      const float t_next = comp.t_next();
+      T = T > p.min_t ? t_next : T;
+      acc_r += comp.r;
+      acc_g += comp.g;
+      acc_b += comp.b;
+      if (multi) {
+        const bool was_fresh = fresh;
+        fresh = false;  // the pending buffer now holds this chunk
+        keep();
+        fresh = was_fresh;
+      }
     }
     fresh = false;
-    const float t_next = comp.t_next();
-    T = T > p.min_t ? t_next : T;
-    acc_r += comp.r;
-    acc_g += comp.g;
-    acc_b += comp.b;
   }
 
-  Composite comp(T, p.scan);  // flush the pending buffer
-  if (!fresh) composite_pending(comp, cur);
-  const float t_next = comp.t_next();
-  T = T > p.min_t ? t_next : T;
-  store_ray(p, ti, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
+  // flush the pending buffer
+  for (int s = 0; s < slots; ++s) {
+    if (multi) take(s, true);
+    Composite comp(T, p.scan);
+    if (!fresh) composite_pending(comp, cur);
+    const float t_next = comp.t_next();
+    T = T > p.min_t ? t_next : T;
+    store_ray(p, multi ? at : ti, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
+  }
   tile_end<kCl>();
 }
 
@@ -1512,8 +1929,9 @@ cudaError_t blocks_per_sm(Kernel kernel, int& smem, int n) {
 // response has a 256-ray build (the main path's 16x16 tiles; the window and
 // merge kernels run two blocks per SM, the key kernel at most four), a
 // 1024-ray one (one block per SM, at most 64 registers a thread) for tiles
-// of 288 to 1024 rays and a cluster build (cluster_launch) for 1152 to 8192. Saved carries (the training forward, either build)
-// run the key kernel on any response and the window kernel on the scalar
+// of 288 to 1024 rays and a cluster build (cluster_launch) above, one ray
+// a thread up to 8192 rays and several above. Saved carries (the training
+// forward, any build) run the key kernel on any response and the window kernel on the scalar
 // one (per-ray origins, each the eye on the primary render), as JAX's
 // training forwards do (pallas_march.py:1659-1665); merge order never
 // trains. With `info` non-null nothing is launched: info receives the
@@ -1526,6 +1944,9 @@ cudaError_t blocks_per_sm(Kernel kernel, int& smem, int n) {
 // blocks of a cluster, info[5] the clusters that can be resident at once
 // (cudaOccupancyMaxActiveClusters); none resident is an error, so that a
 // cluster the card cannot schedule fails loudly, never on a smaller build.
+// Where the scratch holds fewer tiles than n_tiles (p.scratch_tiles), the
+// tiles run as launches of at most that many in stream order, each reusing
+// the scratch from its first tile (p.tile0).
 template <typename P>
 cudaError_t cluster_launch(void (*kernel)(P), const P& p, int n_tiles, int R, int smem,
                            cudaStream_t stream, int* info) {
@@ -1560,8 +1981,16 @@ cudaError_t cluster_launch(void (*kernel)(P), const P& p, int n_tiles, int R, in
     if (err == cudaSuccess && info[5] < 1) err = cudaErrorLaunchOutOfResources;
     return err;
   }
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  const int batch = p.scratch_tiles > 0 && p.scratch_tiles < n_tiles ? p.scratch_tiles : n_tiles;
+  for (int t0 = 0; t0 < n_tiles; t0 += batch) {
+    P q = p;
+    q.tile0 = t0;
+    cfg.gridDim = dim3((unsigned)((n_tiles - t0 < batch ? n_tiles - t0 : batch) * n));
+    cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, q);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <int C, int kR, int K>
@@ -1600,8 +2029,8 @@ cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStre
   }
   // the origin centroid's halving tree takes 3R floats of the same memory
   // (more than the staging of a small chunk holds at 1024 rays; a cluster
-  // build's, 3 ceil(R / 2): origin_centroid_tile)
-  const int tree = (int)sizeof(float) * 3 * (cl ? (R + 1) / 2 : R);
+  // build's, 3 tree_values(R): origin_centroid_tile)
+  const int tree = (int)sizeof(float) * 3 * (cl ? tree_values(R) : R);
   if (kR == kOriginQuad && smem < tree) smem = tree;
   if (cl) return cluster_launch(kernel, p, n_tiles, R, smem, stream, info);
   // the static red[32] counts against the 48 KB that needs no opt-in
@@ -1656,6 +2085,14 @@ cudaError_t launch_k(const Params& p, int order, int n_tiles, int R, cudaStream_
     case 128: return launch<128, K>(p, order, n_tiles, R, stream, info);
     default: return launch<256, K>(p, order, n_tiles, R, stream, info);
   }
+}
+
+// Floats of carried state (Params::carry) a ray of a tile of R rays needs
+// in order `order` (0 window, 1 key, 2 merge) at staging capacity C: none
+// where each thread marches one ray.
+inline int carry_fields(int order, int C, int R) {
+  if (cluster_slots(R) < 2) return 0;
+  return order == 2 ? merge_fields(C) : order == 1 ? kKeyFields : kWinFields;
 }
 
 }  // namespace k1

@@ -25,9 +25,20 @@ static cudaError_t dispatch(const k3::Params& p, int sh_k, bool window, int n_ti
 }
 
 // Rays per tile the kernels take: a multiple of 32 up to 1024 (one block),
-// or a multiple of 128 up to 8192 (a cluster of up to 8 blocks).
+// or any multiple of 128 above (a cluster of up to 8 blocks, each thread
+// replaying ceil(R / 8192) rays).
 static bool rays_ok(int R) {
-  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R <= 8192 && R % 128 == 0);
+  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R % 128 == 0);
+}
+
+static size_t scratch_of(int chunk, int sh_k, int R, int n_tiles) {
+  const int C = k1::staging_chunk(chunk);
+  switch (sh_k) {
+    case 1: return k3::scratch_bytes<1>(C, R, n_tiles);
+    case 4: return k3::scratch_bytes<4>(C, R, n_tiles);
+    case 9: return k3::scratch_bytes<9>(C, R, n_tiles);
+    default: return k3::scratch_bytes<16>(C, R, n_tiles);
+  }
 }
 
 // Chunks the replay takes: key order any c in [1, 256] (the training
@@ -43,26 +54,36 @@ static bool chunk_ok(int chunk, int window) {
 // SH coefficients per channel, K = 1, 4, 9 or 16. stride: floats per
 // training row, at least 29 + 3K (32 at SH 0). origins (T, R, 3), t_lo_arr
 // and t_hi_arr (T, R) may each be null: the eye, t_lo and t_hi. peak:
-// window_key "peak", the window replay's order key t*.
+// window_key "peak", the window replay's order key t*. scratch:
+// grt_march_bwd_scratch_bytes(chunk, window, sh_k, rays_per_tile,
+// scratch_tiles) bytes, 8-byte aligned, where each thread replays several
+// rays (above 8192 rays a tile), else null; scratch_tiles >= 1 the tiles it
+// holds (fewer than n_tiles: the tiles run as launches of that many).
 extern "C" int grt_march_bwd(const void* starts, const void* chunk_base, const void* rows,
                              const void* dirs, const void* eye, const void* tin,
                              const void* d_rgb, const void* d_tfinal, void* d_rows,
                              const void* origins, const void* t_lo_arr, const void* t_hi_arr,
                              int n_tiles, int rays_per_tile, int chunk, int stride, int window,
                              int sh_k, float t_lo, float t_hi, float min_t, float alpha_min,
-                             float alpha_clamp, int hit_multiplicity, int peak,
-                             void* stream) {
+                             float alpha_clamp, int hit_multiplicity, int peak, void* scratch,
+                             int scratch_tiles, void* stream) {
   if (!rays_ok(rays_per_tile) || n_tiles < 0 || stride < (sh_k == 1 ? 32 : 29 + 3 * sh_k) ||
       hit_multiplicity < 1 || !chunk_ok(chunk, window) ||
-      stride % 4 != 0 || ((uintptr_t)rows & 15) != 0)  // rows are staged in 16-byte copies
+      stride % 4 != 0 || ((uintptr_t)rows & 15) != 0 ||  // rows are staged in 16-byte copies
+      (!scratch && scratch_of(chunk, sh_k, rays_per_tile, 1)) || ((uintptr_t)scratch & 7) != 0 ||
+      (scratch && scratch_tiles < 1))
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
   using namespace k3;
+  const int held = scratch ? scratch_tiles : 0;
+  const size_t acc_bytes = scratch_of(chunk, sh_k, rays_per_tile, held) -
+                           (size_t)held * rays_per_tile * sizeof(float);
   Params p{(const int*)starts, (const int*)chunk_base, (const float*)rows, (const float*)dirs,
            (const float*)eye, (const float*)tin, (const float*)d_rgb, (const float*)d_tfinal,
            (float*)d_rows, (const float*)origins, (const float*)t_lo_arr,
            (const float*)t_hi_arr, stride, t_lo, t_hi, min_t, alpha_min, alpha_clamp,
-           hit_multiplicity, peak != 0, rays_per_tile, chunk};
+           hit_multiplicity, peak != 0, rays_per_tile, chunk, (double*)scratch,
+           scratch ? (float*)((char*)scratch + acc_bytes) : nullptr, held, 0};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)dispatch(p, sh_k, window != 0, n_tiles, rays_per_tile, s, nullptr);
 }
@@ -81,10 +102,27 @@ extern "C" int grt_march_bwd_info(int chunk, int window, int sh_k, int origins,
   p.R = rays_per_tile;
   p.chunk = chunk;
   out[6] = k1::staging_chunk(chunk);
+  out[7] = k1::cluster_slots(rays_per_tile);
   return (int)dispatch(p, sh_k, window != 0, 0, rays_per_tile, nullptr, out);
 }
 
-// Version of the C interface: 5 since grt_march takes any chunk c >= 1 in
+// Bytes of grt_march_bwd's scratch at this chunk, SH coefficient count,
+// tile and tile count (0 where each thread replays one ray), or -1 for
+// values grt_march_bwd refuses.
+extern "C" long long grt_march_bwd_scratch_bytes(int chunk, int window, int sh_k,
+                                                 int rays_per_tile, int n_tiles) {
+  if (!rays_ok(rays_per_tile) || !chunk_ok(chunk, window) || n_tiles < 0 ||
+      !(sh_k == 1 || sh_k == 4 || sh_k == 9 || sh_k == 16))
+    return -1;
+  return (long long)scratch_of(chunk, sh_k, rays_per_tile, n_tiles);
+}
+
+// Version of the C interface: 6 since grt_march takes `carry` and
+// `carry_tiles`, and grt_march_bwd `scratch` and `scratch_tiles` (each
+// before the stream), and both any multiple of
+// 128 rays above 1024 (a version 5 library takes neither argument and
+// refuses tiles above 8192 rays with cudaErrorInvalidValue; its info
+// queries write out[0..6] only); 5 since grt_march takes any chunk c >= 1 in
 // key order and oddeven and grt_march_bwd any c in [1, 256] in key order
 // (a version 4 library refuses a chunk other than 32, 64, 128 and 256 with
 // cudaErrorInvalidValue and runs everything else alike, with the same
@@ -96,4 +134,4 @@ extern "C" int grt_march_bwd_info(int chunk, int window, int sh_k, int origins,
 // since grt_march took `quad` (the per-ray-origin quad response) and
 // grt_march_bwd per-ray origins and windows; a library without this
 // function is version 1.
-extern "C" int grt_interface_version() { return 5; }
+extern "C" int grt_interface_version() { return 6; }

@@ -77,14 +77,23 @@
 //      build keeps the same sums in the same order over 32 warps: 128 KB
 //      of partials at SH 3, with one staging buffer at c = 256 (196 KB of
 //      the 227 KB a block may take). A tile of more than 1024 rays (a
-//      multiple of 128, up to 8192) is a thread-block cluster of blocks of
+//      multiple of 128) is a thread-block cluster of blocks of
 //      up to 1024 rays (k1::cluster_blocks, k1::cluster_width; the cluster
 //      build): each block sums its warps in warp order, in double, into one
 //      of two exchange slots (16 KB at SH 3), and after one cluster barrier
 //      the block that writes candidate gi (gi % n) adds the n blocks'
 //      slots in rank order through distributed shared memory, in double,
 //      and rounds once to float; no atomics, so launches stay bit-identical. The skip replay and the window fire
-//      test and key range are tile-wide (k1::tile_reduce).
+//      test and key range are tile-wide (k1::tile_reduce). Above 8192 rays
+//      (the same cluster build, `multi` at run time) each thread replays
+//      k1::cluster_slots(R) rays in turn, one ray's
+//      lists at a time (window order: each slot's list built once for the
+//      tile's fire test and once more past it), its dT in device memory
+//      between its turns (Params::carry): each block sums its warps of each
+//      slot in double and adds them in slot order to its sums in device
+//      memory (Params::acc), and once every slot is in, after one cluster
+//      barrier, the block that writes candidate i (i % n) adds the n
+//      blocks' sums in rank order, in double, and rounds once to float.
 // Each stream row belongs to one (tile, chunk): a block writes only rows
 // [starts[t], starts[t+1]) of its own tile (the TPU kernel's write-then-
 // overwrite of a tail chunk's overshoot rows relies on sequential grid
@@ -141,7 +150,7 @@ __host__ __device__ constexpr int rounds() {
 // sums in double (xs_floats: floats of room).
 template <int K, int kMaxR>
 __host__ __device__ constexpr int xs_floats() {
-  return kMaxR == k1::kClusterR ? 2 * 2 * kGroup * 32 * rounds<K>() : 0;
+  return kMaxR >= k1::kClusterR ? 2 * 2 * kGroup * 32 * rounds<K>() : 0;
 }
 template <int C, int K, int kMaxR>
 __host__ __device__ constexpr int stages() {
@@ -176,7 +185,24 @@ struct Params {
   int peak;               // window_key "peak": the window replay's order key is t*
   int R;                  // rays per tile (the cluster builds' tile; blockDim.x up to 1024)
   int chunk;              // candidates a chunk, c <= C (window order: C)
+  // several rays a thread (k1::cluster_slots(R) > 1), else null: each
+  // block's sums over its slots' rays, (scratch_tiles, blocks, C, TP)
+  // doubles, and each ray's dT between its turns, (scratch_tiles, 1, R)
+  // floats (scratch_bytes), from the launch's first tile
+  double* acc;
+  float* carry;
+  int scratch_tiles, tile0;  // as k1::Params'
 };
+
+// Bytes of grt_march_bwd's scratch (Params::acc, then Params::carry) at
+// capacity C and SH coefficient count K for n_tiles tiles of R rays: none
+// where each thread replays one ray.
+template <int K>
+inline size_t scratch_bytes(int C, int R, int n_tiles) {
+  if (k1::cluster_slots(R) < 2) return 0;
+  return (size_t)n_tiles * (k1::cluster_blocks(R) * (size_t)C * 32 * rounds<K>() * sizeof(double) +
+                            (size_t)R * sizeof(float));
+}
 
 
 __device__ __forceinline__ float ipow(float x, int k) {
@@ -359,13 +385,53 @@ __device__ __forceinline__ void stage_async(float* sf, const Params& p, size_t r
 // C is the build's chunk capacity: the chunk is p.chunk = c <= C (key
 // order: any c up to 256, on the smallest build with C >= c; window order
 // c = C), so a chunk's mask fits in C / 32 words and its rows in a buffer.
+// The gradient row of candidate f (its staged row) from its sums over the
+// tile's rays r[terms]: opacity, the M columns through the shared-origin
+// d_og / d_m / d_mean algebra (per-ray origins: the sums, the means'
+// negated) and the SH coefficients, into d_rows' row `row`.
+template <int K, bool kOrig>
+__device__ __forceinline__ void finish(const Params& p, const float* f, const float* r,
+                                       size_t row) {
+  const Cand c = load_cand<K, kOrig>(f, p.eye);
+  float* out = p.d_rows + row * p.stride;
+  out[kGOp] = r[0];
+  if (kOrig) {  // the sums over the rays are the gradients; means: o - mu
+    for (int k = 0; k < 9; ++k) out[kGM0 + k] = r[5 + k];
+    for (int k = 0; k < 3; ++k) out[kGMx + k] = -r[2 + k];
+  } else {
+    const float d_oo = r[1];
+    const float d_ogx = r[2] + 2.f * c.ogx * d_oo;
+    const float d_ogy = r[3] + 2.f * c.ogy * d_oo;
+    const float d_ogz = r[4] + 2.f * c.ogz * d_oo;
+    out[kGM0 + 0] = r[5] + d_ogx * c.ox;
+    out[kGM0 + 1] = r[6] + d_ogx * c.oy;
+    out[kGM0 + 2] = r[7] + d_ogx * c.oz;
+    out[kGM0 + 3] = r[8] + d_ogy * c.ox;
+    out[kGM0 + 4] = r[9] + d_ogy * c.oy;
+    out[kGM0 + 5] = r[10] + d_ogy * c.oz;
+    out[kGM0 + 6] = r[11] + d_ogz * c.ox;
+    out[kGM0 + 7] = r[12] + d_ogz * c.oy;
+    out[kGM0 + 8] = r[13] + d_ogz * c.oz;
+    // means: ox = eye_x - mx
+    out[kGMx + 0] = -(c.m[0] * d_ogx + c.m[3] * d_ogy + c.m[6] * d_ogz);
+    out[kGMx + 1] = -(c.m[1] * d_ogx + c.m[4] * d_ogy + c.m[7] * d_ogz);
+    out[kGMx + 2] = -(c.m[2] * d_ogx + c.m[5] * d_ogy + c.m[8] * d_ogz);
+  }
+  if (K == 1) {
+    for (int ch = 0; ch < 3; ++ch)
+      out[kGSh + ch] = kC0 * (r[14 + ch] * (raw_color<1>(c, ch, nullptr) > 0.f ? 1.f : 0.f));
+  } else {
+    for (int k = 0; k < 3 * K; ++k) out[kGSh + k] = r[14 + k];
+  }
+}
+
 template <int C, int K, bool kWindow, bool kOrig, int kMaxR>
 __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 1)
     march_bwd_kernel(Params p) {
   constexpr int kS = Staged<K>::w;  // staged floats per candidate
   constexpr int NR = rounds<K>(), TP = 32 * NR, NW = C / 32;
   constexpr int kStages = stages<C, K, kMaxR>();
-  constexpr bool kCl = kMaxR == k1::kClusterR;
+  constexpr bool kCl = kMaxR >= k1::kClusterR;
   extern __shared__ __align__(16) float smem[];
   float* part = smem + kStages * C * kS;  // n_warps x kGroup x TP partial sums
   __shared__ float red[kCl ? k1::kClusterRed : 32];
@@ -373,6 +439,12 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
   const k1::TileIdx ti = k1::tile_index<kCl>(p);
   const int tile = ti.tile, R = ti.R, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  // several rays a thread (more than 8192 rays a tile, cluster builds):
+  // each slot's ray in turn, its dT in p.carry between its turns; the
+  // block's sums over its slots' rays in double in p.acc (this block's C x
+  // TP of its tile)
+  const bool multi = kCl && ti.slots > 1;
+  const int slots = multi ? ti.slots : 1;
   // a cluster's two exchange slots of a group's sums (double), after the
   // partials (an offset of whole groups of 512 floats: 8-byte aligned)
   double* xs = reinterpret_cast<double*>(part + (size_t)n_warps * kGroup * TP);
@@ -381,38 +453,73 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
   const int n = p.starts[tile + 1] - start;
   const int c = p.chunk;
   const int n_chunks = (n + c - 1) / c;
-  const size_t ray = ti.idx();
 
-  // an idle lane of a cluster: a dead ray with no gradient and no carry
-  const bool ok = ti.valid;
-  const float dx = ok ? p.dirs[ray * 3 + 0] : 0.f, dy = ok ? p.dirs[ray * 3 + 1] : 0.f,
-              dz = ok ? p.dirs[ray * 3 + 2] : 0.f;
-  const bool live = dx * dx + dy * dy + dz * dz > 0.01f;
-  RayB rb{dx, dy, dz, 0.f, 0.f, 0.f, p.t_lo_arr && ok ? p.t_lo_arr[ray] : p.t_lo,
-          p.t_hi_arr && ok ? p.t_hi_arr[ray] : p.t_hi, live};
-  if (kOrig && ok) {
-    rb.ox = p.origins[ray * 3 + 0];
-    rb.oy = p.origins[ray * 3 + 1];
-    rb.oz = p.origins[ray * 3 + 2];
-  }
-  const float dR[3] = {ok ? p.d_rgb[ray * 3 + 0] : 0.f, ok ? p.d_rgb[ray * 3 + 1] : 0.f,
-                       ok ? p.d_rgb[ray * 3 + 2] : 0.f};
+  // the current ray (an idle lane of a cluster: a dead ray with no gradient
+  // and no carry): direction, window, origin, d_rgb, SH basis and, carried
+  // between chunks, dT; take() makes slot s's ray current
+  k1::TileIdx at = ti;
+  bool ok;
+  float dx, dy, dz, dR[3], dT;
+  RayB rb;
   float basis[K];
-  if (K > 1) k1::sh_basis<K>(dx, dy, dz, basis);
-  float dT = ok ? p.d_tfinal[ray] : 0.f;
-  const float* tin = p.tin + (size_t)p.chunk_base[tile] * R + ti.ray;
+  auto take = [&](int s, bool grad) {
+    at = ti.slot(s);
+    ok = at.valid;
+    const size_t ray = at.idx();
+    dx = ok ? p.dirs[ray * 3 + 0] : 0.f;
+    dy = ok ? p.dirs[ray * 3 + 1] : 0.f;
+    dz = ok ? p.dirs[ray * 3 + 2] : 0.f;
+    const bool live = dx * dx + dy * dy + dz * dz > 0.01f;
+    rb = RayB{dx, dy, dz, 0.f, 0.f, 0.f, p.t_lo_arr && ok ? p.t_lo_arr[ray] : p.t_lo,
+              p.t_hi_arr && ok ? p.t_hi_arr[ray] : p.t_hi, live};
+    if (kOrig && ok) {
+      rb.ox = p.origins[ray * 3 + 0];
+      rb.oy = p.origins[ray * 3 + 1];
+      rb.oz = p.origins[ray * 3 + 2];
+    }
+    if (K > 1) k1::sh_basis<K>(dx, dy, dz, basis);
+    if (!grad) return;
+    for (int ch = 0; ch < 3; ++ch) dR[ch] = ok ? p.d_rgb[ray * 3 + ch] : 0.f;
+    dT = ok ? (multi ? k1::carried(p, at, 1, 0) : p.d_tfinal[ray]) : 0.f;
+  };
+  if (multi)
+    for (int s = 0; s < slots; ++s) {
+      const k1::TileIdx t = ti.slot(s);
+      if (t.valid) k1::carried(p, t, 1, 0) = p.d_tfinal[t.idx()];
+    }
+  take(0, true);
+  const float* tin = p.tin + (size_t)p.chunk_base[tile] * R;  // + j R + ray
+  // several slots: this block's C x TP sums of its tile in p.acc
+  // ((scratch_tiles, blocks, C, TP) doubles from the launch's first tile)
+  double* acc = nullptr;
+  if constexpr (kCl)
+    if (multi) {
+      const k1::cg::cluster_group cl = k1::cg::this_cluster();
+      acc = p.acc + ((size_t)(tile - p.tile0) * cl.num_blocks() + cl.block_rank()) * C * TP;
+    }
   // window replay, per SIGNIFICANT candidate in stream order (compact
   // index): a then d_a, the colour pack then w, and the listed order
   // (event t bits, then the sort keys); local memory, touched only by the
-  // significant candidates
+  // significant candidates (one ray's at a time)
   float ca[kWindow ? C : 1];
   uint32_t cc[kWindow ? C : 1], keys[kWindow ? C : 1];
+  int ns = 0;
+  bool inv = false;
+  float lo = INFINITY, hi = -INFINITY;
+  uint32_t mask[NW];
 
   int staged = -1;  // the chunk whose rows are in flight to its buffer
   for (int j = n_chunks - 1; j >= 0; --j) {
-    const float t_in = ok ? tin[(size_t)j * R] : 0.f;
+    float t_in = ok ? tin[(size_t)j * R + at.ray] : 0.f, t_max = t_in;
+    if (multi) {
+      t_max = 0.f;
+      for (int s = 0; s < slots; ++s) {
+        const k1::TileIdx t = ti.slot(s);
+        if (t.valid) t_max = fmaxf(t_max, tin[(size_t)j * R + t.ray]);
+      }
+    }
     // skip replay (its barrier also ends the previous chunk's reads)
-    if (k1::tile_reduce1<kCl>(t_in, true, red, par) <= p.min_t) {
+    if (k1::tile_reduce1<kCl>(t_max, true, red, par) <= p.min_t) {
       if (staged == j) {  // T never rises, so this does not happen; but never
         k1::cp_async_wait<0>();  // leave a copy in flight to a buffer in use
         staged = -1;
@@ -432,22 +539,22 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
     }
     __syncthreads();
 
-    // ---- pass A: every candidate once (a miss stops at alpha); the gate
-    // mask (window: a > 0), and in key order the prefix, P, d_P and the
-    // chunk's dT ----
-    uint32_t mask[NW];
-    float base = 0.f, D = 0.f;
-    if (kWindow) {
-      bool inv = false;
-      float rmax = -INFINITY, lo = INFINITY, hi = -INFINITY;
-      int ns = 0;
+    // window order: the current ray's significant candidates of the chunk
+    // in its compact lists, its inversion test and key range, and its gate
+    // mask (a > 0)
+    auto listing = [&]() {
+      inv = false;
+      float rmax = -INFINITY;
+      lo = INFINITY;
+      hi = -INFINITY;
+      ns = 0;
 #pragma unroll 1
       for (int w = 0; w < NW; ++w) {
         uint32_t bits = 0u;
         const int i0 = w * 32, e_end = min(32, m - i0);
         for (int b = 0; b < e_end; ++b) {
-          const Cand c = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
-          const Eval e = evaluate<kOrig>(p, c, rb);
+          const Cand cd = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
+          const Eval e = evaluate<kOrig>(p, cd, rb);
           if (!(e.a > 0.f)) continue;
           const float t_key = p.peak ? e.t_star : e.t_ev;  // the forward's order key
           bits |= 1u << b;
@@ -456,290 +563,323 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
           lo = fminf(lo, t_key);
           hi = fmaxf(hi, t_key);
           ca[ns] = e.a;
-          cc[ns] = color_pack<K>(c, basis);
+          cc[ns] = color_pack<K>(cd, basis);
           keys[ns++] = __float_as_uint(t_key);
         }
         push_word(mask, bits);
       }
-      // ---- the listed order: K1's fire test; a fired chunk sorts by the
-      // unique key (tq16 << 8) | src, here with the compact index in place
-      // of src (the same order: both ascend with the stream) ----
-      bool fired;
+    };
+    // ---- window order: K1's fire test over the tile, every slot's list
+    // folded (several slots: the lists built again past the vote) ----
+    bool fired = false;
+    float glo = INFINITY, ghi = -INFINITY;
+    if (kWindow) {
+      bool t_inv = false;
+      for (int s = 0; s < slots; ++s) {
+        if (multi) take(s, false);
+        listing();
+        t_inv |= inv;
+        glo = fminf(glo, lo);
+        ghi = fmaxf(ghi, hi);
+      }
       if constexpr (kCl) {  // the vote and the key range in one exchange
-        float v[3] = {inv ? 1.f : 0.f, lo, hi};
+        float v[3] = {t_inv ? 1.f : 0.f, glo, ghi};
         const bool mx[3] = {true, false, true};
         k1::tile_reduce<kCl>(v, mx, red, par);
         fired = v[0] != 0.f;
-        lo = v[1];
-        hi = v[2];
+        glo = v[1];
+        ghi = v[2];
       } else {
-        fired = __syncthreads_or(inv);
-      }
-      if (fired) {
-        if constexpr (!kCl) {
-          lo = k1::block_reduce(lo, false, red);
-          hi = k1::block_reduce(hi, true, red);
+        fired = __syncthreads_or(t_inv);
+        if (fired) {
+          glo = k1::block_reduce(glo, false, red);
+          ghi = k1::block_reduce(ghi, true, red);
         }
-        const float scale = 65534.f / fmaxf(hi - lo, 1e-20f);
-        for (int k = 0; k < ns; ++k) {
-          const float t_ev = __uint_as_float(keys[k]);  // read before the list grows to k
-          const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - lo) * scale, 0.f), 65534.f);
-          const uint32_t key = (tq << 8) | (uint32_t)k;
-          int pos = k;
-          while (pos > 0 && keys[pos - 1] > key) {
-            keys[pos] = keys[pos - 1];
-            --pos;
+      }
+    }
+
+    for (int sl = 0; sl < slots; ++sl) {
+      if (multi) {
+        take(sl, true);
+        t_in = ok ? tin[(size_t)j * R + at.ray] : 0.f;
+        if (kWindow) listing();
+      }
+      // ---- pass A: every candidate once (a miss stops at alpha); the gate
+      // mask (window: a > 0), and in key order the prefix, P, d_P and the
+      // chunk's dT ----
+      float base = 0.f, D = 0.f;
+      if (kWindow) {
+        // ---- the listed order: a fired chunk sorts by the unique key
+        // (tq16 << 8) | src, here with the compact index in place of src
+        // (the same order: both ascend with the stream) ----
+        if (fired) {
+          const float scale = 65534.f / fmaxf(ghi - glo, 1e-20f);
+          for (int k = 0; k < ns; ++k) {
+            const float t_ev = __uint_as_float(keys[k]);  // read before the list grows to k
+            const uint32_t tq = (uint32_t)fminf(fmaxf((t_ev - glo) * scale, 0.f), 65534.f);
+            const uint32_t key = (tq << 8) | (uint32_t)k;
+            int pos = k;
+            while (pos > 0 && keys[pos - 1] > key) {
+              keys[pos] = keys[pos - 1];
+              --pos;
+            }
+            keys[pos] = key;
           }
-          keys[pos] = key;
         }
-      }
-      // ---- pass A over the list: prefix, P, d_P; the chunk's dT ----
-      float S = 0.f, sum_dpe = 0.f;
-      for (int k = 0; k < ns; ++k) {
-        const int r = fired ? (int)(keys[k] & 255u) : k;
-        const float a = ca[r];
-        const float d_w = packed_dot(dR, cc[r]);
-        const float E = expf(S);
-        const float P = t_in * E;
-        const float gw = P > p.min_t ? 1.f : 0.f;
-        const float d_P = d_w * a * gw;
-        sum_dpe += d_P * E;
-        D += d_P * P;
-        S += log1pf(-a);
-      }
-      const float prod = expf(S);
-      base = dT * t_in * prod;  // d_lp's carry term, from the OLD dT
-      dT = dT * prod + sum_dpe;
-      // ---- pass B over the list: d_a and w, back to the compact slot ----
-      S = 0.f;
-      float incl = 0.f;
-      for (int k = 0; k < ns; ++k) {
-        const int r = fired ? (int)(keys[k] & 255u) : k;
-        const float a = ca[r];
-        const float d_w = packed_dot(dR, cc[r]);
-        const float E = expf(S);
-        const float P = t_in * E;
-        const float gw = P > p.min_t ? 1.f : 0.f;
-        const float d_P = d_w * a * gw;
-        incl += d_P * P;
-        const float d_lp = base + (D - incl);  // strict suffix sum of d_P P
-        ca[r] = d_w * P * gw - d_lp / (1.f - a);
-        cc[r] = __float_as_uint(a * P * gw);
-        S += log1pf(-a);
-      }
-    } else {
-      float S = 0.f, sum_dpe = 0.f;
-#pragma unroll 1
-      for (int w = 0; w < NW; ++w) {
-        uint32_t bits = 0u;
-        const int i0 = w * 32, e_end = min(32, m - i0);
-        for (int b = 0; b < e_end; ++b) {
-          const Cand c = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
-          const Eval e = evaluate<kOrig>(p, c, rb);
-          if (!e.gate) continue;  // a = 0: no term of the sums moves
-          bits |= 1u << b;
+        // ---- pass A over the list: prefix, P, d_P; the chunk's dT ----
+        float S = 0.f, sum_dpe = 0.f;
+        for (int k = 0; k < ns; ++k) {
+          const int r = fired ? (int)(keys[k] & 255u) : k;
+          const float a = ca[r];
+          const float d_w = packed_dot(dR, cc[r]);
           const float E = expf(S);
           const float P = t_in * E;
           const float gw = P > p.min_t ? 1.f : 0.f;
-          float d_w = 0.f;
-          for (int ch = 0; ch < 3; ++ch)
-            d_w = d_w + dR[ch] * fmaxf(raw_color<K>(c, ch, basis), 0.f);
-          const float d_P = d_w * e.a * gw;
+          const float d_P = d_w * a * gw;
           sum_dpe += d_P * E;
           D += d_P * P;
-          S += log1pf(-e.a);
+          S += log1pf(-a);
         }
-        push_word(mask, bits);
-      }
-      const float prod = expf(S);
-      base = dT * t_in * prod;
-      dT = dT * prod + sum_dpe;
-    }
-
-    // ---- pass B (key) / C (window): the per-candidate sums over the rays,
-    // kGroup candidates at a time; a warp where no lane's bit is set writes
-    // zeros without evaluating ----
-    float S = 0.f, incl = 0.f;
-    int r_next = 0;  // window: compact index of this ray's next significant candidate
-    uint32_t cur = 0u;
-    for (int g0 = 0; g0 < m; g0 += kGroup) {
-      const int gn = min(kGroup, m - g0);
-      for (int gi = 0; gi < gn; ++gi) {
-        const int i = g0 + gi;
-        if ((i & 31) == 0) {
-          cur = mask[0];
-          push_word(mask, 0u);
+        const float prod = expf(S);
+        base = dT * t_in * prod;  // d_lp's carry term, from the OLD dT
+        dT = dT * prod + sum_dpe;
+        // ---- pass B over the list: d_a and w, back to the compact slot ----
+        S = 0.f;
+        float incl = 0.f;
+        for (int k = 0; k < ns; ++k) {
+          const int r = fired ? (int)(keys[k] & 255u) : k;
+          const float a = ca[r];
+          const float d_w = packed_dot(dR, cc[r]);
+          const float E = expf(S);
+          const float P = t_in * E;
+          const float gw = P > p.min_t ? 1.f : 0.f;
+          const float d_P = d_w * a * gw;
+          incl += d_P * P;
+          const float d_lp = base + (D - incl);  // strict suffix sum of d_P P
+          ca[r] = d_w * P * gw - d_lp / (1.f - a);
+          cc[r] = __float_as_uint(a * P * gw);
+          S += log1pf(-a);
         }
-        const bool bit = (cur >> (i & 31)) & 1u;
-        float* dst = part + ((size_t)warp * kGroup + gi) * TP;
-        if (!__any_sync(0xffffffffu, bit)) {  // every term of this warp is zero
-#pragma unroll
-          for (int rr = 0; rr < NR; ++rr) dst[32 * rr + lane] = 0.f;
-          continue;
-        }
-        float g[14], dcm[3];
-#pragma unroll
-        for (int k = 0; k < 14; ++k) g[k] = 0.f;
-        dcm[0] = dcm[1] = dcm[2] = 0.f;
-        if (bit) {
-          const Cand c = load_cand<K, kOrig>(sf + i * kS, p.eye);
-          const Eval e = evaluate<kOrig>(p, c, rb);
-          float d_a, w;
-          if (kWindow) {
-            d_a = ca[r_next];
-            w = __uint_as_float(cc[r_next]);
-            ++r_next;
-          } else {
+      } else {
+        float S = 0.f, sum_dpe = 0.f;
+#pragma unroll 1
+        for (int w = 0; w < NW; ++w) {
+          uint32_t bits = 0u;
+          const int i0 = w * 32, e_end = min(32, m - i0);
+          for (int b = 0; b < e_end; ++b) {
+            const Cand cd = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
+            const Eval e = evaluate<kOrig>(p, cd, rb);
+            if (!e.gate) continue;  // a = 0: no term of the sums moves
+            bits |= 1u << b;
             const float E = expf(S);
             const float P = t_in * E;
             const float gw = P > p.min_t ? 1.f : 0.f;
             float d_w = 0.f;
             for (int ch = 0; ch < 3; ++ch)
-              d_w = d_w + dR[ch] * fmaxf(raw_color<K>(c, ch, basis), 0.f);
+              d_w = d_w + dR[ch] * fmaxf(raw_color<K>(cd, ch, basis), 0.f);
             const float d_P = d_w * e.a * gw;
-            incl += d_P * P;
+            sum_dpe += d_P * E;
+            D += d_P * P;
             S += log1pf(-e.a);
-            w = e.a * P * gw;
-            const float d_lp = base + (D - incl);  // strict suffix sum of d_P P
-            d_a = d_w * P * gw - d_lp / (1.f - e.a);
           }
-          const float d_alpha = p.hm == 1 ? d_a : d_a * p.hm * ipow(1.f - e.alpha, p.hm - 1);
-          const float notclamp = e.resp * c.op < p.alpha_clamp ? 1.f : 0.f;
-          const float d_resp = d_alpha * c.op * notclamp;
-          const float d_pp = -0.5f * e.resp * d_resp * (e.pp > 0.f ? 1.f : 0.f);
-          const float d_od = d_pp * (-2.f * e.od / e.dd_s);
-          const float d_dd = d_pp * (e.od * e.od / (e.dd_s * e.dd_s));
-          const float d_dgx = d_od * e.ogx + 2.f * e.dgx * d_dd;
-          const float d_dgy = d_od * e.ogy + 2.f * e.dgy * d_dd;
-          const float d_dgz = d_od * e.ogz + 2.f * e.dgz * d_dd;
-          g[0] = d_alpha * e.resp * notclamp;
-          if (kOrig) {
-            // o_g and oo are per ray: d_og stays per ray and every term of
-            // the M and mean gradients is summed over the rays
-            // (pallas_march.py:1481-1501); slot 1 is unused
-            const float d_ogx = d_od * e.dgx + 2.f * e.ogx * d_pp;
-            const float d_ogy = d_od * e.dgy + 2.f * e.ogy * d_pp;
-            const float d_ogz = d_od * e.dgz + 2.f * e.ogz * d_pp;
-            g[1] = 0.f;
-            g[2] = c.m[0] * d_ogx + c.m[3] * d_ogy + c.m[6] * d_ogz;
-            g[3] = c.m[1] * d_ogx + c.m[4] * d_ogy + c.m[7] * d_ogz;
-            g[4] = c.m[2] * d_ogx + c.m[5] * d_ogy + c.m[8] * d_ogz;
-            g[5] = d_dgx * dx + d_ogx * e.ox;
-            g[6] = d_dgx * dy + d_ogx * e.oy;
-            g[7] = d_dgx * dz + d_ogx * e.oz;
-            g[8] = d_dgy * dx + d_ogy * e.ox;
-            g[9] = d_dgy * dy + d_ogy * e.oy;
-            g[10] = d_dgy * dz + d_ogy * e.oz;
-            g[11] = d_dgz * dx + d_ogz * e.ox;
-            g[12] = d_dgz * dy + d_ogz * e.oy;
-            g[13] = d_dgz * dz + d_ogz * e.oz;
-          } else {
-            g[1] = d_pp;
-            g[2] = d_od * e.dgx;
-            g[3] = d_od * e.dgy;
-            g[4] = d_od * e.dgz;
-            g[5] = d_dgx * dx;
-            g[6] = d_dgx * dy;
-            g[7] = d_dgx * dz;
-            g[8] = d_dgy * dx;
-            g[9] = d_dgy * dy;
-            g[10] = d_dgy * dz;
-            g[11] = d_dgz * dx;
-            g[12] = d_dgz * dy;
-            g[13] = d_dgz * dz;
-          }
-          for (int ch = 0; ch < 3; ++ch) {
-            const float d_col = dR[ch] * w;
-            // SH 0: the colour mask is per candidate, applied after the sum
-            dcm[ch] = K == 1 ? d_col
-                             : d_col * (raw_color<K>(c, ch, basis) > 0.f ? 1.f : 0.f);
-          }
+          push_word(mask, bits);
         }
-#pragma unroll
-        for (int rr = 0; rr < NR; ++rr) {
-          float v[32];
-#pragma unroll
-          for (int t = 0; t < 32; ++t) {
-            const int q = 32 * rr + t;  // a constant once unrolled
-            const int cq = q < 14 ? 0 : q < terms<K>() ? q - 14 : 0;  // colour term
-            v[t] = q < 14            ? g[q < 14 ? q : 0]
-                   : q < terms<K>() ? (K == 1 ? dcm[cq] : dcm[cq / K] * basis[cq % K])
-                                    : 0.f;
-          }
-          dst[32 * rr + lane] = warp_transpose_sum(v);
-        }
+        const float prod = expf(S);
+        base = dT * t_in * prod;
+        dT = dT * prod + sum_dpe;
       }
-      __syncthreads();  // every warp's partials of this group are in
+      if (multi && ok) k1::carried(p, at, 1, 0) = dT;
 
-      // the warps in order, one (candidate, term) per thread, into warp 0's
-      // slot; a cluster: in double, into this block's exchange slot, then
-      // the blocks' sums in rank order into warp 0's slot of the block that
-      // finishes the candidate (candidate gi: block gi % n), no atomics. The
-      // double sums keep the 64-256 warps' partials of a tile from rounding
-      // at every add, where the M columns cancel (the 1024-ray build adds its
-      // 32 in float32, as it did)
-      int g_first = 0, g_step = 1;  // the candidates this block finishes
-      if constexpr (kCl) {
-        double* x = xs + (size_t)xpar * kGroup * TP;
-        for (int q = tid; q < gn * TP; q += blockDim.x) {
-          double s = part[q];
-          for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
-          x[q] = s;
+      // ---- pass B (key) / C (window): the per-candidate sums over the
+      // rays, kGroup candidates at a time; a warp where no lane's bit is set
+      // writes zeros without evaluating ----
+      float S = 0.f, incl = 0.f;
+      int r_next = 0;  // window: compact index of this ray's next significant candidate
+      uint32_t cur = 0u;
+      for (int g0 = 0; g0 < m; g0 += kGroup) {
+        const int gn = min(kGroup, m - g0);
+        for (int gi = 0; gi < gn; ++gi) {
+          const int i = g0 + gi;
+          if ((i & 31) == 0) {
+            cur = mask[0];
+            push_word(mask, 0u);
+          }
+          const bool bit = (cur >> (i & 31)) & 1u;
+          float* dst = part + ((size_t)warp * kGroup + gi) * TP;
+          if (!__any_sync(0xffffffffu, bit)) {  // every term of this warp is zero
+#pragma unroll
+            for (int rr = 0; rr < NR; ++rr) dst[32 * rr + lane] = 0.f;
+            continue;
+          }
+          float g[14], dcm[3];
+#pragma unroll
+          for (int k = 0; k < 14; ++k) g[k] = 0.f;
+          dcm[0] = dcm[1] = dcm[2] = 0.f;
+          if (bit) {
+            const Cand cd = load_cand<K, kOrig>(sf + i * kS, p.eye);
+            const Eval e = evaluate<kOrig>(p, cd, rb);
+            float d_a, w;
+            if (kWindow) {
+              d_a = ca[r_next];
+              w = __uint_as_float(cc[r_next]);
+              ++r_next;
+            } else {
+              const float E = expf(S);
+              const float P = t_in * E;
+              const float gw = P > p.min_t ? 1.f : 0.f;
+              float d_w = 0.f;
+              for (int ch = 0; ch < 3; ++ch)
+                d_w = d_w + dR[ch] * fmaxf(raw_color<K>(cd, ch, basis), 0.f);
+              const float d_P = d_w * e.a * gw;
+              incl += d_P * P;
+              S += log1pf(-e.a);
+              w = e.a * P * gw;
+              const float d_lp = base + (D - incl);  // strict suffix sum of d_P P
+              d_a = d_w * P * gw - d_lp / (1.f - e.a);
+            }
+            const float d_alpha = p.hm == 1 ? d_a : d_a * p.hm * ipow(1.f - e.alpha, p.hm - 1);
+            const float notclamp = e.resp * cd.op < p.alpha_clamp ? 1.f : 0.f;
+            const float d_resp = d_alpha * cd.op * notclamp;
+            const float d_pp = -0.5f * e.resp * d_resp * (e.pp > 0.f ? 1.f : 0.f);
+            const float d_od = d_pp * (-2.f * e.od / e.dd_s);
+            const float d_dd = d_pp * (e.od * e.od / (e.dd_s * e.dd_s));
+            const float d_dgx = d_od * e.ogx + 2.f * e.dgx * d_dd;
+            const float d_dgy = d_od * e.ogy + 2.f * e.dgy * d_dd;
+            const float d_dgz = d_od * e.ogz + 2.f * e.dgz * d_dd;
+            g[0] = d_alpha * e.resp * notclamp;
+            if (kOrig) {
+              // o_g and oo are per ray: d_og stays per ray and every term of
+              // the M and mean gradients is summed over the rays
+              // (pallas_march.py:1481-1501); slot 1 is unused
+              const float d_ogx = d_od * e.dgx + 2.f * e.ogx * d_pp;
+              const float d_ogy = d_od * e.dgy + 2.f * e.ogy * d_pp;
+              const float d_ogz = d_od * e.dgz + 2.f * e.ogz * d_pp;
+              g[1] = 0.f;
+              g[2] = cd.m[0] * d_ogx + cd.m[3] * d_ogy + cd.m[6] * d_ogz;
+              g[3] = cd.m[1] * d_ogx + cd.m[4] * d_ogy + cd.m[7] * d_ogz;
+              g[4] = cd.m[2] * d_ogx + cd.m[5] * d_ogy + cd.m[8] * d_ogz;
+              g[5] = d_dgx * dx + d_ogx * e.ox;
+              g[6] = d_dgx * dy + d_ogx * e.oy;
+              g[7] = d_dgx * dz + d_ogx * e.oz;
+              g[8] = d_dgy * dx + d_ogy * e.ox;
+              g[9] = d_dgy * dy + d_ogy * e.oy;
+              g[10] = d_dgy * dz + d_ogy * e.oz;
+              g[11] = d_dgz * dx + d_ogz * e.ox;
+              g[12] = d_dgz * dy + d_ogz * e.oy;
+              g[13] = d_dgz * dz + d_ogz * e.oz;
+            } else {
+              g[1] = d_pp;
+              g[2] = d_od * e.dgx;
+              g[3] = d_od * e.dgy;
+              g[4] = d_od * e.dgz;
+              g[5] = d_dgx * dx;
+              g[6] = d_dgx * dy;
+              g[7] = d_dgx * dz;
+              g[8] = d_dgy * dx;
+              g[9] = d_dgy * dy;
+              g[10] = d_dgy * dz;
+              g[11] = d_dgz * dx;
+              g[12] = d_dgz * dy;
+              g[13] = d_dgz * dz;
+            }
+            for (int ch = 0; ch < 3; ++ch) {
+              const float d_col = dR[ch] * w;
+              // SH 0: the colour mask is per candidate, applied after the sum
+              dcm[ch] = K == 1 ? d_col
+                               : d_col * (raw_color<K>(cd, ch, basis) > 0.f ? 1.f : 0.f);
+            }
+          }
+#pragma unroll
+          for (int rr = 0; rr < NR; ++rr) {
+            float v[32];
+#pragma unroll
+            for (int t = 0; t < 32; ++t) {
+              const int q = 32 * rr + t;  // a constant once unrolled
+              const int cq = q < 14 ? 0 : q < terms<K>() ? q - 14 : 0;  // colour term
+              v[t] = q < 14            ? g[q < 14 ? q : 0]
+                     : q < terms<K>() ? (K == 1 ? dcm[cq] : dcm[cq / K] * basis[cq % K])
+                                      : 0.f;
+            }
+            dst[32 * rr + lane] = warp_transpose_sum(v);
+          }
         }
-        k1::cg::cluster_group cl = k1::cg::this_cluster();
-        cl.sync();
-        g_first = (int)cl.block_rank();
-        g_step = (int)cl.num_blocks();
-        for (int q = tid; q < gn * TP; q += blockDim.x) {
-          if ((q / TP) % g_step != g_first) continue;
-          double s = cl.map_shared_rank(x, 0)[q];
-          for (int r = 1; r < g_step; ++r) s += cl.map_shared_rank(x, r)[q];
-          part[q] = (float)s;
+        __syncthreads();  // every warp's partials of this group are in
+
+        if (multi) {
+          // several slots: the block's warps in order, in double, added to
+          // its sum of the slots before (slot order) in p.acc; the blocks'
+          // sums are added once every slot is in (below)
+          double* x = acc + (size_t)g0 * TP;
+          for (int q = tid; q < gn * TP; q += blockDim.x) {
+            double s = part[q];
+            for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
+            x[q] = sl == 0 ? s : x[q] + s;
+          }
+          __syncthreads();  // the partials are consumed
+          continue;
         }
-        xpar ^= 1;
-      } else {
-        for (int q = tid; q < gn * TP; q += R) {
-          float s = part[q];
-          for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
-          part[q] = s;
+        // the warps in order, one (candidate, term) per thread, into warp 0's
+        // slot; a cluster: in double, into this block's exchange slot, then
+        // the blocks' sums in rank order into warp 0's slot of the block that
+        // finishes the candidate (candidate gi: block gi % n), no atomics. The
+        // double sums keep the 64-256 warps' partials of a tile from rounding
+        // at every add, where the M columns cancel (the 1024-ray build adds its
+        // 32 in float32, as it did)
+        int g_first = 0, g_step = 1;  // the candidates this block finishes
+        if constexpr (kCl) {
+          double* x = xs + (size_t)xpar * kGroup * TP;
+          for (int q = tid; q < gn * TP; q += blockDim.x) {
+            double s = part[q];
+            for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
+            x[q] = s;
+          }
+          k1::cg::cluster_group cl = k1::cg::this_cluster();
+          cl.sync();
+          g_first = (int)cl.block_rank();
+          g_step = (int)cl.num_blocks();
+          for (int q = tid; q < gn * TP; q += blockDim.x) {
+            if ((q / TP) % g_step != g_first) continue;
+            double s = cl.map_shared_rank(x, 0)[q];
+            for (int r = 1; r < g_step; ++r) s += cl.map_shared_rank(x, r)[q];
+            part[q] = (float)s;
+          }
+          xpar ^= 1;
+        } else {
+          for (int q = tid; q < gn * TP; q += R) {
+            float s = part[q];
+            for (int w = 1; w < n_warps; ++w) s += part[(size_t)w * kGroup * TP + q];
+            part[q] = s;
+          }
         }
+        __syncthreads();
+        for (int gi = g_first + g_step * tid; gi < gn; gi += g_step * (int)blockDim.x)
+          finish<K, kOrig>(p, sf + (g0 + gi) * kS, part + (size_t)gi * TP, row0 + g0 + gi);
+        __syncthreads();  // the group's sums are consumed
+      }
+    }
+    if (!kCl || !multi) continue;
+    // several slots: every block's sums in, the blocks' added in rank order
+    // (double, through device memory) by the block that finishes each
+    // candidate (candidate i: block i % n), in groups of kGroup through the
+    // partials' memory. The next write to p.acc comes after the next
+    // chunk's skip replay, a cluster barrier, when every block has read it.
+    __threadfence();
+    k1::cg::cluster_group cl = k1::cg::this_cluster();
+    cl.sync();
+    const int rank = (int)cl.block_rank(), nb = (int)cl.num_blocks();
+    const double* acc0 = acc - (size_t)rank * C * TP;  // block 0's sums of this tile
+    for (int g0 = 0; g0 < m; g0 += kGroup) {
+      const int gn = min(kGroup, m - g0);
+      for (int q = tid; q < gn * TP; q += blockDim.x) {
+        if ((g0 + q / TP) % nb != rank) continue;
+        double s = acc0[(size_t)g0 * TP + q];
+        for (int r = 1; r < nb; ++r) s += acc0[(size_t)r * C * TP + (size_t)g0 * TP + q];
+        part[q] = (float)s;
       }
       __syncthreads();
-
-      for (int gi = g_first + g_step * tid; gi < gn; gi += g_step * (int)blockDim.x) {
-        const float* r = part + (size_t)gi * TP;
-        const Cand c = load_cand<K, kOrig>(sf + (g0 + gi) * kS, p.eye);
-        float* out = p.d_rows + (row0 + g0 + gi) * p.stride;
-        out[kGOp] = r[0];
-        if (kOrig) {  // the sums over the rays are the gradients; means: o - mu
-          for (int k = 0; k < 9; ++k) out[kGM0 + k] = r[5 + k];
-          for (int k = 0; k < 3; ++k) out[kGMx + k] = -r[2 + k];
-        } else {
-          const float d_oo = r[1];
-          const float d_ogx = r[2] + 2.f * c.ogx * d_oo;
-          const float d_ogy = r[3] + 2.f * c.ogy * d_oo;
-          const float d_ogz = r[4] + 2.f * c.ogz * d_oo;
-          out[kGM0 + 0] = r[5] + d_ogx * c.ox;
-          out[kGM0 + 1] = r[6] + d_ogx * c.oy;
-          out[kGM0 + 2] = r[7] + d_ogx * c.oz;
-          out[kGM0 + 3] = r[8] + d_ogy * c.ox;
-          out[kGM0 + 4] = r[9] + d_ogy * c.oy;
-          out[kGM0 + 5] = r[10] + d_ogy * c.oz;
-          out[kGM0 + 6] = r[11] + d_ogz * c.ox;
-          out[kGM0 + 7] = r[12] + d_ogz * c.oy;
-          out[kGM0 + 8] = r[13] + d_ogz * c.oz;
-          // means: ox = eye_x - mx
-          out[kGMx + 0] = -(c.m[0] * d_ogx + c.m[3] * d_ogy + c.m[6] * d_ogz);
-          out[kGMx + 1] = -(c.m[1] * d_ogx + c.m[4] * d_ogy + c.m[7] * d_ogz);
-          out[kGMx + 2] = -(c.m[2] * d_ogx + c.m[5] * d_ogy + c.m[8] * d_ogz);
-        }
-        if (K == 1) {
-          for (int ch = 0; ch < 3; ++ch)
-            out[kGSh + ch] = kC0 * (r[14 + ch] * (raw_color<1>(c, ch, nullptr) > 0.f ? 1.f : 0.f));
-        } else {
-          for (int k = 0; k < 3 * K; ++k) out[kGSh + k] = r[14 + k];
-        }
-      }
+      for (int gi = tid; gi < gn; gi += blockDim.x)
+        if ((g0 + gi) % nb == rank)
+          finish<K, kOrig>(p, sf + (g0 + gi) * kS, part + (size_t)gi * TP, row0 + g0 + gi);
       __syncthreads();  // the group's sums are consumed
     }
   }
@@ -752,7 +892,7 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
 // shared memory, registers and local memory per thread.
 template <int C, int K, bool kWindow, bool kOrig, int kMaxR>
 cudaError_t launch_r(const Params& p, int n_tiles, int R, cudaStream_t stream, int* info) {
-  constexpr bool kCl = kMaxR == k1::kClusterR;
+  constexpr bool kCl = kMaxR >= k1::kClusterR;
   const int width = kCl ? k1::cluster_width(R) : R;  // threads a block
   const int smem = (int)sizeof(float) * smem_floats<C, K, kMaxR>(width / 32);
   void (*kernel)(Params) = march_bwd_kernel<C, K, kWindow, kOrig, kMaxR>;

@@ -6,7 +6,7 @@
 // reference this kernel is tested against.
 //
 // One block per tile, one thread per ray (R = blockDim.x), up to 1024
-// rays a tile; a tile of more (a multiple of 128, up to 8192) is split into
+// rays a tile; a tile of more (any multiple of 128) is split into
 // S = ceil(R / 1024) blocks, each over a slice of its rays (a multiple of 32
 // wide; the last slice's lanes past R are idle: a zero direction, no output),
 // each walking the tile's whole block list on its own. Nothing in this
@@ -359,9 +359,9 @@ __global__ void __launch_bounds__(1024) tri_kernel(Params p) {
 }  // namespace
 
 // Rays per tile the kernel takes: a multiple of 32 up to 1024 (one block),
-// or a multiple of 128 up to 8192 (split into blocks of up to 1024).
+// or any multiple of 128 above (split into blocks of up to 1024).
 static bool rays_ok(int R) {
-  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R <= 8192 && R % 128 == 0);
+  return R >= 32 && (R <= 1024 ? R % 32 == 0 : R % 128 == 0);
 }
 // Blocks a tile of R rays is split into, and the rays of each (a multiple
 // of 32, so that every warp of a slice lies in it).

@@ -95,14 +95,54 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
-class _InterfaceV2:
-    """A library of C interface version 2 (an earlier commit's csrc, for A/B
-    runs against it), called with this tree's argument lists: grt_march
-    without peak, scan, group, a_fire, repair and stats (arguments 28-33)
-    and grt_march_bwd without peak (argument 24). The default options pass
-    0, rays_per_tile, 0.0, sort_repair and null there, which that build
-    runs as they are (it sorts a fired chunk whole, which sort_repair's band
-    reproduces at a_fire 0); any other option raises."""
+class _InterfaceV5:
+    """A library of C interface version 3, 4 or 5 (an earlier commit's csrc,
+    for A/B runs against it), called with this tree's argument lists:
+    grt_march without `carry` and `carry_tiles` (arguments 34-35) and
+    grt_march_bwd without `scratch` and `scratch_tiles` (arguments 25-26),
+    which it never needs (it refuses tiles of more than 8192 rays), and no
+    carry or scratch to size."""
+
+    def __init__(self, lib, info: bool):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci] * 6 + [cf, ci, vp, vp]
+        lib.grt_march_bwd.argtypes = [vp] * 12 + [ci] * 6 + [cf] * 5 + [ci, ci, vp]
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def grt_march_carry_floats(self, chunk, order, rays):
+        return 0
+
+    def grt_march_bwd_scratch_bytes(self, chunk, window, sh_k, rays, n_tiles):
+        return 0
+
+    def grt_march(self, *a):
+        if a[34] is not None:
+            raise ValueError("this kernel build takes no carry (tiles of more than 8192 rays)")
+        return self.march5(*a[:34], a[36])
+
+    def grt_march_bwd(self, *a):
+        if a[25] is not None:
+            raise ValueError("this kernel build takes no scratch (tiles of more than 8192 rays)")
+        return self.march_bwd5(*a[:25], a[27])
+
+    def march5(self, *a):  # version 5's argument list
+        return self._lib.grt_march(*a)
+
+    def march_bwd5(self, *a):
+        return self._lib.grt_march_bwd(*a)
+
+
+class _InterfaceV2(_InterfaceV5):
+    """A library of C interface version 2, called as _InterfaceV5 calls a
+    version 5 one, and besides without peak, scan, group, a_fire, repair
+    and stats (grt_march's arguments 28-33) and peak (grt_march_bwd's
+    argument 24). The default options pass 0, rays_per_tile, 0.0,
+    sort_repair and null there, which that build runs as they are (it sorts
+    a fired chunk whole, which sort_repair's band reproduces at a_fire 0);
+    any other option raises."""
 
     def __init__(self, lib, info: bool):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -110,17 +150,14 @@ class _InterfaceV2:
         lib.grt_march_bwd.argtypes = [vp] * 12 + [ci] * 6 + [cf] * 5 + [ci, vp]
         self._lib = lib
 
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-    def grt_march(self, *a):
+    def march5(self, *a):
         peak, scan, group, a_fire, _, stats = a[28:34]
         if peak or scan or group != a[14] or a_fire or stats is not None:
             raise ValueError("this kernel build has no peak key, window-order render options "
                              "or stats")
         return self._march(*a[:28], a[34])
 
-    def grt_march_bwd(self, *a):
+    def march_bwd5(self, *a):
         if a[24]:
             raise ValueError("this kernel build's K3 has no peak key")
         return self._march_bwd(*a[:24], a[25])
@@ -173,15 +210,16 @@ def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     """Declare the C entry points of a loaded kernel library (`info`: also
     the launch queries grt_march_info, grt_march_bwd_info,
     grt_closest_hit_info and grt_scan_info). A library built from an
-    earlier commit's sources comes back behind _InterfaceV2 (interface
-    version 2) or _InterfaceV1 (no grt_interface_version); one of version
-    3 or 4 takes this tree's argument lists as they are and refuses, with
-    cudaErrorInvalidValue, what it lacks: a chunk other than 32, 64, 128
-    and 256 (both), and order 3, oddeven (version 3)."""
+    earlier commit's sources comes back behind _InterfaceV5 (interface
+    version 3-5: it refuses, with cudaErrorInvalidValue, what it lacks: a
+    tile of more than 8192 rays, a chunk other than 32, 64, 128 and 256
+    (versions 3-4), and order 3, oddeven (version 3)), _InterfaceV2
+    (version 2) or _InterfaceV1 (no grt_interface_version)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci] * 6 + [cf, ci, vp, vp]
+    lib.grt_march.argtypes = [vp] * 12 + [ci] * 7 + [cf] * 6 + [ci] * 6 + [cf, ci, vp, vp, ci,
+                                                                            vp]
     lib.grt_march.restype = ci
-    lib.grt_march_bwd.argtypes = [vp] * 12 + [ci] * 6 + [cf] * 5 + [ci, ci, vp]
+    lib.grt_march_bwd.argtypes = [vp] * 12 + [ci] * 6 + [cf] * 5 + [ci, ci, vp, ci, vp]
     lib.grt_march_bwd.restype = ci
     if info:
         lib.grt_march_info.argtypes = [ci] * 6 + [vp]
@@ -201,9 +239,14 @@ def declare(lib: ctypes.CDLL, info: bool = True) -> ctypes.CDLL:
     lib.grt_error_string.argtypes = [ci]
     lib.grt_error_string.restype = ctypes.c_char_p
     version = lib.grt_interface_version() if hasattr(lib, "grt_interface_version") else 1
-    if version >= 3:
+    if version >= 6:
+        lib.grt_march_carry_floats.argtypes = [ci] * 3
+        lib.grt_march_carry_floats.restype = ci
+        lib.grt_march_bwd_scratch_bytes.argtypes = [ci] * 5
+        lib.grt_march_bwd_scratch_bytes.restype = ctypes.c_longlong
         return lib
-    return (_InterfaceV2 if version == 2 else _InterfaceV1)(lib, info)
+    cls = _InterfaceV5 if version >= 3 else _InterfaceV2 if version == 2 else _InterfaceV1
+    return cls(lib, info)
 
 
 def load_library() -> ctypes.CDLL:
@@ -226,10 +269,12 @@ def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: st
     thread, from the CUDA runtime; for K1 and K3 also the blocks of a
     tile's thread-block cluster (1 up to 1024 rays), above 1024 rays the
     clusters that can be resident at once (cudaOccupancyMaxActiveClusters;
-    the query raises where none can), and the staging capacity C of the
-    build that marches this chunk (`build_chunk`: 32, 64, 128 or 256)."""
+    the query raises where none can), the staging capacity C of the
+    build that marches this chunk (`build_chunk`: 32, 64, 128 or 256) and
+    the rays each thread marches (`rays_per_thread`: ceil(R / 8192) above
+    8192, else 1)."""
     lib = load_library()
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 8)()
     k = (sh_degree + 1) ** 2
     if kernel == "scan":
         err = lib.grt_scan_info(out)
@@ -247,6 +292,7 @@ def launch_info(kernel: str, chunk: int, sh_degree: int, rays: int, *, order: st
         info["cluster_blocks"] = out[4] if rays > 1024 else 1
         info["resident_clusters"] = out[5] if rays > 1024 else None
         info["build_chunk"] = out[6]
+        info["rays_per_thread"] = max(1, out[7])
     return info
 
 

@@ -199,6 +199,10 @@ _IMIN, _IMAX = -(2**31), 2**31 - 1
 _ZBASE = 65535 << 15  # sort key of non-significant candidates (sorts last)
 _F32 = torch.float32
 _PLAIN_BATCH = 1 << 24  # (tile, candidate, ray) elements per plain-march batch
+# Most bytes of scratch (K1's carry, K3's sums and dT) a launch of several
+# rays a thread holds: a frame whose tiles need more runs as launches of
+# the tiles that fit, at least one (scratch_tiles).
+SCRATCH_BYTES = 4 << 30
 
 
 def _gather_columns(feats: torch.Tensor, columns, width: int) -> torch.Tensor:
@@ -402,6 +406,13 @@ def march(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_tin: boo
                        chunk, save_tin, **seg, stats=stats)
 
 
+def scratch_tiles(tile_bytes: int, n_tiles: int) -> int:
+    """Tiles of `tile_bytes` bytes of scratch each that one launch holds:
+    all n_tiles where they fit in SCRATCH_BYTES, else as many as fit, at
+    least one."""
+    return max(1, min(n_tiles, SCRATCH_BYTES // max(1, tile_bytes)))
+
+
 def _full_range(origins_t, t_lo, t_hi, blocks) -> bool:
     """Whole-ray march: no window, per-ray origin or block list
     (pallas_march.py:1121-1124); key order may then use the sqrt-free gate."""
@@ -416,7 +427,7 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
     T, R, _ = dirs_t.shape
     if not tile_rays_supported(R):
         raise ValueError(f"rays per tile {R}: the kernel takes a multiple of 32 up to 1024 or "
-                         f"of 128 up to 8192")
+                         f"of 128 above")
     dev = dirs_t.device
     rgb = torch.empty((T, R, 3), dtype=_F32, device=dev)
     t_final = torch.empty((T, R), dtype=_F32, device=dev)
@@ -428,6 +439,11 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
         counts = torch.zeros((T, 2), dtype=torch.int32, device=dev)
     opts = window_options(config, R, chunk, save_tin)
     ptr = lambda x: None if x is None else x.data_ptr()
+    # each ray's state between its turns where a thread marches several,
+    # for the tiles of one launch
+    fields = lib.grt_march_carry_floats(chunk, ORDERS.index(config.order), R)
+    held = scratch_tiles(4 * fields * R, T)
+    carry = torch.empty((held, fields, R), dtype=_F32, device=dev) if fields and T else None
     if T > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
@@ -441,12 +457,14 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
                 _skip_threshold(config, save_tin), config.alpha_min, config.alpha_clamp,
                 config.hit_multiplicity, num_coeffs(config.sh_degree), int(quad),
                 int(config.window_key == "peak"), int(opts["scan"]), opts["group"],
-                opts["a_fire"], opts["repair"], ptr(counts), stream,
+                opts["a_fire"], opts["repair"], ptr(counts), ptr(carry), held, stream,
             )
         check(err, "grt_march")
         march.launches += 1
         if R > 1024:
             march.cluster_launches += 1
+        if carry is not None:
+            march.slot_launches += 1
         key, sh = config.order in ("key", "oddeven"), config.sh_degree > 0
         if config.order == "oddeven":
             march.oddeven_launches += 1
@@ -491,6 +509,7 @@ def _march_cuda(starts, feats, dirs_t, config: RenderConfig, chunk: int, save_ti
 
 march.launches = 0  # every K1 launch
 march.cluster_launches = 0  # of those, the cluster builds' (tiles of more than 1024 rays)
+march.slot_launches = 0  # of those, several rays a thread (tiles of more than 8192 rays)
 # saved carries (training forwards), by order and SH degree
 march.save_tin_launches = 0  # key order, SH 0
 march.window_save_tin_launches = 0  # window order (scalar response from per-ray origins), SH 0

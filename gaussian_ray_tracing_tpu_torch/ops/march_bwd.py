@@ -66,7 +66,7 @@ from gaussian_ray_tracing_tpu_torch.config import (
 )
 from gaussian_ray_tracing_tpu_torch.ops.march import (
     MAX_TRAIN_CHUNK, T_M0, T_MX, T_RAD, T_SH0, _OP, _pack_colors, _unpack_colors,
-    march, march_plain, train_row, train_sort_key, window_fire,
+    march, march_plain, scratch_tiles, train_row, train_sort_key, window_fire,
 )
 from gaussian_ray_tracing_tpu_torch.ops.sh import SH_C0, num_coeffs, sh_basis_list
 
@@ -137,20 +137,27 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
     T, R, _ = dirs_t.shape
     if not tile_rays_supported(R):
         raise ValueError(f"rays per tile {R}: the kernel takes a multiple of 32 up to 1024 or "
-                         f"of 128 up to 8192")
+                         f"of 128 above")
     d_rows = torch.zeros_like(rows)  # rows no tile owns, and skipped chunks, stay 0
     if T == 0:
         return d_rows
     ptr = lambda x: None if x is None else x.data_ptr()
+    window, sh_k = int(config.order == "window"), num_coeffs(config.sh_degree)
+    # the block sums and each ray's dT where a thread replays several rays,
+    # for the tiles of one launch
+    held = scratch_tiles(lib.grt_march_bwd_scratch_bytes(chunk, window, sh_k, R, 1), T)
+    nbytes = lib.grt_march_bwd_scratch_bytes(chunk, window, sh_k, R, held)
+    scratch = torch.empty(nbytes // 8, dtype=torch.float64, device=dirs_t.device) if nbytes \
+        else None
     with torch.cuda.device(dirs_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grt_march_bwd(
             starts.data_ptr(), chunk_base.data_ptr(), rows.data_ptr(), dirs_t.data_ptr(),
             eye.data_ptr(), tin.data_ptr(), d_rgb.data_ptr(), d_tfinal.data_ptr(),
             d_rows.data_ptr(), ptr(origins_t), ptr(t_lo), ptr(t_hi), T, R, chunk, rows.shape[1],
-            int(config.order == "window"), num_coeffs(config.sh_degree), config.t_min,
-            config.t_max, config.min_transmittance, config.alpha_min, config.alpha_clamp,
-            config.hit_multiplicity, int(config.window_key == "peak"), stream,
+            window, sh_k, config.t_min, config.t_max, config.min_transmittance,
+            config.alpha_min, config.alpha_clamp, config.hit_multiplicity,
+            int(config.window_key == "peak"), ptr(scratch), held, stream,
         )
     check(err, "grt_march_bwd")
     march_bwd.launches += 1
@@ -164,6 +171,8 @@ def _march_bwd_cuda(starts, rows, dirs_t, eye, tin, chunk_base, d_rgb, d_tfinal,
         march_bwd.peak_launches += 1
     if R > 1024:
         march_bwd.cluster_launches += 1
+    if scratch is not None:
+        march_bwd.slot_launches += 1
     return d_rows
 
 
@@ -175,6 +184,7 @@ march_bwd.sh_launches = 0  # window order, SH 1-3
 march_bwd.origin_launches = 0  # per-ray origins, either order and any SH degree
 march_bwd.peak_launches = 0  # window order replayed on the peak key (window_key "peak")
 march_bwd.cluster_launches = 0  # the cluster builds (tiles of more than 1024 rays), any mode
+march_bwd.slot_launches = 0  # of those, several rays a thread (tiles of more than 8192 rays)
 
 
 # --- plain torch version ---------------------------------------------------

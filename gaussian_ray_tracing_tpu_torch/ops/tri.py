@@ -27,7 +27,7 @@ missed; they are the kernel's rules operation for operation (their proof is in
 csrc/tri.cu). The result never depends on the bounds: the plain version
 takes and ignores them. The kernel counts per tile what it ran (`stats`);
 `pretest_stats` computes the same counts from these rules. A tile of more
-than 1024 rays (a multiple of 128, up to 8192) runs as `tile_splits(R)`
+than 1024 rays (any multiple of 128) runs as `tile_splits(R)`
 blocks over slices of `split_width(R)` rays, each walking the tile's
 block list and skipping what no ray of its slice needs (no pretest spans
 the tile); its counts are the sums of its slices'.
@@ -314,7 +314,7 @@ def _closest_hit_cuda(starts, blocks, face_rows, dirs_t, eye, t_min, t_max, orig
     T, R, _ = dirs_t.shape
     if not tile_rays_supported(R):
         raise ValueError(f"rays per tile {R}: the kernel takes a multiple of 32 up to 1024 or "
-                         f"of 128 up to 8192")
+                         f"of 128 above")
     if face_rows.data_ptr() % 16 or bounds.data_ptr() % 16 or not stats.is_contiguous():
         raise ValueError("face_rows and bounds must be 16-byte aligned (cp.async, float4), "
                          "stats contiguous")

@@ -18,7 +18,8 @@ order) shares of the stream, and the render rows' sure-miss shares per
 
     git archive <commit> gaussian_ray_tracing_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/torch_redesign_ab.py build/parent/gaussian_ray_tracing_tpu_torch/csrc \
-        [out.json] [--only render|modes|merge|train|mesh|key|scan] [--this <csrc dir>] \
+        [out.json] [--only render|modes|merge|train|mesh|key|scan|cluster] \
+        [--this <csrc dir>] \
         [--pairs N]
 
 The groups: render (window order on the 720p/100k headline and on
@@ -34,7 +35,11 @@ and glass_cli frames), key (every mode of the key-order kernel: the
 headline at c=256, fitted_20k.ply at SH 3, a rolling shutter, a mesh
 segment, glass_front's block mode at block_sub 1 and 2, the headline on
 32x32 and 64x32 tiles (the 1024-ray and cluster builds) at c=128, and the
-two training forwards with saved carries) and scan (K2 at (2, 2,097,152), the
+two training forwards with saved carries), cluster (the cluster builds at one
+ray a thread: the headline on 64x32, 64x64 and 128x64 tiles, R = 2048, 4096
+and 8192, at c=128, and on 64x64 at c=64 and 32, in window, key and merge
+order, and the key and window training forwards and K3 on 64x64 tiles) and
+scan (K2 at (2, 2,097,152), the
 headline's pair capacity, and (16, 1,000,003), exact, with its bound, the
 plain version's and torch.cumsum's times, tiles, blocks per SM,
 registers and stack); all of them without --only. K4's outputs must be
@@ -69,7 +74,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (its helpers; it imports torch lazily)
 
 REPS = 10  # launches per timed turn
-GROUPS = ("render", "modes", "merge", "train", "mesh", "key", "scan")
+GROUPS = ("render", "modes", "merge", "train", "mesh", "key", "scan", "cluster")
 
 
 class _WithoutPretests:
@@ -195,24 +200,8 @@ def main() -> None:
                        this_faster_rounds=sum(x < 1.0 for x in r))
         return out
 
-    def ptx(pattern: str):
-        # the 256-ray builds first (a 1024-ray one shares their prefix)
-        hits = [v for k, v in sorted(ptxas.items(), key=lambda kv: "Li1024E" in kv[0])
-                if pattern in k]
-        return hits[0] if hits else None
-
-    def k1_name(chunk, scalar, degree, train, order, rays=256):
-        """Mangled name of K1's build of `rays` rays a tile (256-ray,
-        1024-ray or cluster) for these template values (chunk: the build's
-        staging capacity C)."""
-        k = (degree + 1) ** 2
-        b = lambda x: f"Lb{int(x)}E"
-        build = f"Li{256 if rays <= 256 else 1024 if rays <= 1024 else 8192}E"
-        if order == "window":
-            return f"12march_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}{build}"
-        if order == "merge":
-            return f"18march_merge_kernelILi{chunk}E{b(scalar)}Li{k}E{build}"
-        return f"16march_key_kernelILi{chunk}E{b(scalar)}Li{k}E{b(train)}{build}"
+    def ptx(name: str):
+        return next((v for k, v in ptxas.items() if name in k), None)
 
     def shares(plain, R, order) -> dict:
         chunks = max(1, plain.chunks)
@@ -298,7 +287,8 @@ def main() -> None:
             case=what, kernel="K1", slots=int(args[0][-1]), chunk=chunk, ms_other=t["other"],
             ms_this=t["this"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
             bit_identical=same, **dev_times(t), **info,
-            ptxas=ptx(k1_name(info["build_chunk"], scalar, cfg.sh_degree, False, cfg.order, R)),
+            ptxas=ptx(cs.kernel_name("march", cfg.order, info["build_chunk"], cfg.sh_degree, R,
+                                     scalar=scalar)),
             **shares(kmarch.march_plain, R, cfg.order), **miss_shares(args, kw)))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
@@ -417,8 +407,8 @@ def main() -> None:
         with torch.no_grad():
             stream, trows, n_pairs = prepare_train_stream(sc, cam, cfg)
         starts, trows = stream.starts, trows.detach().contiguous()
-        dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], 16, 16)
-        chunk = chunk_for(cfg)
+        dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], cfg.tile_w, cfg.tile_h)
+        chunk, R = chunk_for(cfg), dirs_t.shape[1]
         window = cfg.order == "window"
         kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()} if window else {}
         fwd = lambda: kmarch.march(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
@@ -440,13 +430,14 @@ def main() -> None:
         sig1 = kmarch.march_plain.significant / max(1, kmarch.march_plain.candidates
                                                     * dirs_t.shape[1])
         fire1 = kmarch.march_plain.fired / max(1, kmarch.march_plain.chunks)
-        info1 = cuda_build.launch_info("march", chunk, cfg.sh_degree, 256, order=cfg.order,
+        info1 = cuda_build.launch_info("march", chunk, cfg.sh_degree, R, order=cfg.order,
                                        scalar=window, train=True)
         rows.append(dict(
             case=what, kernel="K1 save_tin", pairs=n_pairs, chunk=chunk, ms_other=t1["other"],
             ms_this=t1["this"], plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1],
             bit_identical=same, **dev_times(t1), **info1,
-            ptxas=ptx(k1_name(chunk, window, cfg.sh_degree, True, cfg.order)),
+            ptxas=ptx(cs.kernel_name("march", cfg.order, info1["build_chunk"], cfg.sh_degree,
+                                     R, scalar=window, train=True)),
             significant_share=sig1, fire_share=fire1 if window else None))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
         if not with_k3:
@@ -465,19 +456,19 @@ def main() -> None:
         t3 = turns(lambda: kbwd.march_bwd(*bargs))
         plain3 = statistics.median(cs.cuda_ms(lambda: kbwd.march_bwd_plain(*bargs), 3))
         b3 = cs.bwd_bound(bargs, kbwd.march_bwd_plain)
-        info3 = cuda_build.launch_info("march_bwd", chunk, cfg.sh_degree, 256, order=cfg.order)
-        k = (cfg.sh_degree + 1) ** 2
+        info3 = cuda_build.launch_info("march_bwd", chunk, cfg.sh_degree, R, order=cfg.order)
         rows.append(dict(
             case=what, kernel="K3", pairs=n_pairs, chunk=chunk, ms_other=t3["other"],
             ms_this=t3["this"], plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1],
             max_rel_vs_other=rel, **dev_times(t3), **info3,
-            ptxas=ptx(f"16march_bwd_kernelILi{chunk}ELi{k}ELb{int(window)}E"),
+            ptxas=ptx(cs.kernel_name("march_bwd", cfg.order, info3["build_chunk"],
+                                     cfg.sh_degree, R)),
             significant_share=kbwd.march_bwd_plain.significant
             / max(1, kbwd.march_bwd_plain.candidates * dirs_t.shape[1]),
             fire_share=kbwd.march_bwd_plain.fired / max(1, kbwd.march_bwd_plain.chunks)))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
-    if "train" in groups or "key" in groups:
+    if any(g in groups for g in ("train", "key", "cluster")):
         # --- training views, 512x512: the JAX bench's row and fitted_20k.ply
         init = random_scene(50_000, seed=1, device=dev)
         center = ply.center().cpu().numpy()
@@ -518,6 +509,18 @@ def main() -> None:
         for case in train_cases:
             if case[3].order == "key":
                 train_case(*case, with_k3=False)
+
+    if "cluster" in groups:  # the cluster builds at one ray a thread
+        for (tw, th, c) in ((64, 32, 128), (64, 64, 128), (128, 64, 128), (64, 64, 64),
+                           (64, 64, 32)):
+            for order in ("window", "key", "merge"):
+                cfg = bench.replace(order=order, tile_w=tw, tile_h=th, march_chunk=c)
+                k1_case(f"{order} headline 720p/100k {tw}x{th} tiles c={c}",
+                        stream_args(scene, pose, cfg), {})
+        for case in train_cases:
+            if case[1] is init:
+                train_case(f"{case[0]} 64x64 tiles", *case[1:3],
+                           case[3].replace(tile_w=64, tile_h=64))
 
     if "scan" in groups:  # K2 on the headline's pair capacity, exact
         gen = torch.Generator(device=dev).manual_seed(0)

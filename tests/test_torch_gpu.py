@@ -1718,3 +1718,243 @@ def test_any_chunk_cluster_key_march_matches_plain():
     assert info[96] == info[128] and info[96]["build_chunk"] == 128
     with pytest.raises(RuntimeError):  # window order takes only its four builds' chunks
         cuda_build.launch_info("march", 96, 0, 256, order="window")
+
+
+# --- tiles of more than 8192 rays: K1 and K3 march several rays a thread in
+# one cluster of 8 blocks, K4 splits over any number of blocks --------------
+
+HUGE = {8320: (130, 64), 16384: (128, 128), 24576: (192, 128), 65536: (256, 256)}
+
+
+def _huge_stream(rays, order, chunk, degree=0, size=256, **kw):
+    """The 5k scene's render stream at size^2 on tiles of `rays` rays."""
+    tw, th = HUGE[rays]
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order, sh_degree=degree,
+                       tile_w=tw, tile_h=th, **kw)
+    scene = random_scene(5000, seed=3, device="cuda")
+    stream, feats, _ = prepare_pair_stream(scene, _camera(size), cfg, 1 << 20)
+    dirs_t = tile_rays(generate_rays(_camera(size), cfg)[1], tw, th)
+    assert dirs_t.shape[1] == rays and int(stream.n_dropped) == 0
+    return cfg, stream.starts, feats, dirs_t
+
+
+@pytest.mark.parametrize("order,rays,chunk,degree", [
+    ("window", 8320, 128, 0), ("window", 16384, 128, 0), ("window", 24576, 64, 3),
+    ("window", 65536, 128, 0), ("key", 8320, 256, 0), ("key", 16384, 128, 0),
+    ("key", 24576, 128, 3), ("key", 65536, 64, 0), ("merge", 8320, 128, 0),
+    ("merge", 16384, 64, 0), ("merge", 65536, 32, 0), ("oddeven", 16384, 96, 0),
+    ("oddeven", 24576, 128, 0)])
+def test_huge_tile_march_matches_plain(order, rays, chunk, degree):
+    """K1 with several rays a thread (ceil(R / 8192) slots) on tiles of 8320
+    to 65,536 rays against march_plain at the K1 bars (window order: the
+    per-tile fired chunks equal too), two launches bit-identical."""
+    cfg, starts, feats, dirs_t = _huge_stream(rays, order, chunk, degree)
+    stats = order == "window"
+    before = (tmarch.march.launches, tmarch.march.slot_launches)
+    got = tmarch.march(starts, feats, dirs_t, cfg, chunk, stats=stats)
+    again = tmarch.march(starts, feats, dirs_t, cfg, chunk, stats=stats)
+    torch.cuda.synchronize()
+    assert (tmarch.march.launches, tmarch.march.slot_launches) == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], again[:2]))
+    want = tmarch.march_plain(starts, feats, dirs_t, cfg, chunk, stats=stats)
+    _kernel_close(got[:2], want[:2])
+    assert float(got[1].min()) < 0.5
+    if stats:
+        for a, b in zip(got[2], want[2]):
+            assert torch.equal(a, b)
+        assert int(got[2][0].sum()) > 0
+
+
+@pytest.mark.parametrize("kw", [dict(sort_lane_groups=True),
+                                dict(sort_alpha_min=0.05, sort_lane_groups=True),
+                                dict(sort_alpha_min=0.05), dict(composite_scan=True)])
+def test_huge_tile_window_options_match_plain(kw):
+    """The window-order options at 16,384 rays: 128-ray fire groups in each
+    block and slot, the band's reduction over the slots and the cluster,
+    and their counts equal to plain's."""
+    cfg, starts, feats, dirs_t = _huge_stream(16384, "window", 128, **kw)
+    got = tmarch.march(starts, feats, dirs_t, cfg, 128, stats=True)
+    torch.cuda.synchronize()
+    want = tmarch.march_plain(starts, feats, dirs_t, cfg, 128, stats=True)
+    _kernel_close(got[:2], want[:2])
+    for a, b in zip(got[2], want[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("order,degree,chunk,rays", [
+    ("key", 0, 256, 8320), ("window", 0, 128, 8320), ("key", 0, 128, 16384),
+    ("window", 0, 64, 16384), ("key", 3, 128, 24576), ("window", 3, 64, 24576),
+    ("key", 0, 256, 65536), ("window", 0, 128, 65536)])
+def test_huge_tile_training_kernels_match_plain(order, degree, chunk, rays):
+    """K1's saved carries and K3 with several rays a thread against their
+    plain versions at the K1 and K3 bars (the float64 witness at 1.25x),
+    K3's two launches bit-identical (each block's slots in slot order, the
+    blocks in rank order, in double)."""
+    tw, th = HUGE[rays]
+    scene = random_scene(5000, seed=3, device="cuda")
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=chunk, order=order, sh_degree=degree,
+                       tile_w=tw, tile_h=th)
+    stream, rows, _ = prepare_train_stream(scene, _camera(), cfg)
+    dirs_t = tile_rays(generate_rays(_camera(), cfg)[1], tw, th)
+    before = (tmarch.march.slot_launches, tbwd.march_bwd.slot_launches)
+    _fwd_bwd_check(cfg, stream.starts, rows.detach().contiguous(), dirs_t, _camera().eye, chunk)
+    assert (tmarch.march.slot_launches, tbwd.march_bwd.slot_launches) == (before[0] + 1,
+                                                                         before[1] + 2)
+
+
+@pytest.mark.parametrize("rays", [16384, 65536])
+def test_huge_tile_origin_quad_matches_plain(rays):
+    """The per-ray-origin quad response on a rolling stream at 16,384 and
+    65,536 rays a tile (the centroid's halving tree summed as the origins
+    are read down to 4096 values a coordinate, across the blocks and the
+    slots): K1 in window, key and merge order, and K1's saved carries and
+    K3 from per-ray origins, windows and carry-in, against the plain
+    versions; two K3 launches bit-identical."""
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+
+    tw, th = HUGE[rays]
+    cam1 = Camera.create(eye=(0.05, 0.3, 2.8), lookat=(0.0, 0.0, 0.0), width=256, height=256,
+                         device="cuda")
+    scene = random_scene(5000, seed=3, device="cuda")
+    for order in ("window", "key", "merge"):
+        cfg = RenderConfig(hit_multiplicity=1, march_chunk=64, order=order, tile_w=tw,
+                           tile_h=th)
+        starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(scene, _camera(), cam1,
+                                                                       cfg, train=True)
+        rows = rows.detach().contiguous()
+        got = tmarch.march(starts, rows, dirs_t, cfg, 64, origins_t=origins_t, quad=True)
+        torch.cuda.synchronize()
+        _kernel_close(got, tmarch.march_plain(starts, rows, dirs_t, cfg, 64,
+                                              origins_t=origins_t, quad=True))
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=256, order="key", tile_w=tw, tile_h=th)
+    starts, rows, dirs_t, origins_t, _, _ = prepare_rolling_stream(scene, _camera(), cam1, cfg,
+                                                                   train=True)
+    rows = rows.detach().contiguous()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shape = dirs_t.shape[:2]
+    seg = dict(origins_t=origins_t,
+               t_lo=0.05 + 0.05 * torch.rand(shape, generator=g, device="cuda"),
+               t_hi=3.0 + torch.rand(shape, generator=g, device="cuda"),
+               t0=0.6 + 0.4 * torch.rand(shape, generator=g, device="cuda"))
+    got = tmarch.march(starts, rows, dirs_t, cfg, 256, save_tin=True, quad=True, **seg)
+    torch.cuda.synchronize()
+    want = tmarch.march_plain(starts, rows, dirs_t, cfg, 256, save_tin=True, quad=True, **seg)
+    _kernel_close(got[:2], want[:2])
+    # A ray whose carry lands within a few ulps of min_transmittance at a
+    # crossing freezes a candidate apart in the two versions (the plain one
+    # sums log1p(-a) by torch.cumsum's scan, K1 in sequence, so they part by
+    # ulps) and its later carries differ: at 65,536 rays one ray of this
+    # stream (plain 9.999996e-4 against 1e-3). Its column is held apart, and
+    # there is at most one.
+    tie = ((want[2] - cfg.min_transmittance).abs() <= 1e-9).any(0)
+    assert int(tie.sum()) <= 1
+    assert float((got[2] - want[2])[:, ~tie].abs().max()) <= 1e-4
+    d_rgb = torch.randn(dirs_t.shape, generator=g, device="cuda")
+    d_t = torch.randn(shape, generator=g, device="cuda")
+    args = (starts, rows, dirs_t, torch.zeros(3, device="cuda"), got[2], got[3], d_rgb, d_t,
+            cfg, 256)
+    kw = {k: seg[k] for k in ("origins_t", "t_lo", "t_hi")}
+    a, b = tbwd.march_bwd(*args, **kw), tbwd.march_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    plain = tbwd.march_bwd_plain(*args, **kw)
+    for i, c in enumerate(tmarch.train_columns(0)):
+        if c in tmarch.diff_columns(0):
+            bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+            assert float((a[:, i] - plain[:, i]).abs().max() / plain[:, i].abs().max()) <= bar, i
+
+
+@pytest.mark.parametrize("order", ["window", "key", "merge"])
+@pytest.mark.parametrize("rays", [16384, 8320])
+def test_huge_tile_mesh_kernels_match_plain(rays, order):
+    """K4 split over 9 or 16 blocks a tile (bit for bit, its counts those of
+    pretest_stats' slices) and K1's segment and block modes with several
+    rays a thread (the K1 bars), on every bounce of the glass-sphere
+    frame."""
+    tw, th = HUGE[rays]
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, order=order, bounce_order=order,
+                       tile_w=tw, tile_h=th)
+    record = _bounce_record(cfg)
+    for rec in record:
+        assert rec["k4"][0][3].shape[1] == rays
+        _k4_bit_identical(*rec["k4"])
+        args, kw = rec["k1"]
+        _kernel_close(tmarch.march(*args, **kw), tmarch.march_plain(*args, **kw))
+
+
+def test_single_tile_key_render_matches_plain():
+    """One 512x512 tile (R = 262,144: 32 rays a thread) in key order, and
+    its training forward and K3, against the plain versions."""
+    cfg = RenderConfig(hit_multiplicity=1, march_chunk=128, order="key", tile_w=512,
+                       tile_h=512)
+    scene = random_scene(5000, seed=3, device="cuda")
+    stream, feats, _ = prepare_pair_stream(scene, _camera(512), cfg, 1 << 18)
+    dirs_t = tile_rays(generate_rays(_camera(512), cfg)[1], 512, 512)
+    assert dirs_t.shape == (1, 262144, 3)
+    got = tmarch.march(stream.starts, feats, dirs_t, cfg, 128)
+    torch.cuda.synchronize()
+    _kernel_close(got, tmarch.march_plain(stream.starts, feats, dirs_t, cfg, 128))
+    assert float(got[1].min()) < 0.5
+    stream, rows, _ = prepare_train_stream(scene, _camera(512), cfg)
+    _fwd_bwd_check(cfg, stream.starts, rows.detach().contiguous(), dirs_t, _camera(512).eye, 128)
+
+
+def test_huge_tile_launch_info():
+    """What the cluster builds run above 8192 rays: 8 blocks of 1024
+    threads, ceil(R / 8192) rays a thread, at most 64 registers, at least
+    one cluster resident; the carry and scratch each ray needs."""
+    from gaussian_ray_tracing_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load_library()
+    for rays, k in ((8320, 2), (16384, 2), (24576, 3), (65536, 8), (262144, 32)):
+        for kernel, kw in (("march", dict(order="window")), ("march", dict(order="merge")),
+                           ("march", dict(order="key", train=True)),
+                           ("march", dict(order="key", quad=True)),
+                           ("march_bwd", dict(order="window")), ("march_bwd", dict(order="key"))):
+            info = cuda_build.launch_info(kernel, 128, 0, rays, **kw)
+            assert info["cluster_blocks"] == 8 and info["rays_per_thread"] == k, (rays, info)
+            assert info["resident_clusters"] >= 1 and info["registers"] <= 64
+        assert lib.grt_march_carry_floats(128, 2, rays) == 5 + 3 * 128 + 4
+        assert lib.grt_march_bwd_scratch_bytes(128, 0, 1, rays, 3) == 3 * (8 * 128 * 32 * 8
+                                                                          + rays * 4)
+    assert cuda_build.launch_info("march", 128, 0, 8192, order="key")["rays_per_thread"] == 1
+    assert lib.grt_march_carry_floats(128, 0, 8192) == 0
+    assert lib.grt_march_bwd_scratch_bytes(128, 0, 1, 8192, 3) == 0
+
+
+def test_huge_frame_scratch_runs_in_launches_that_fit():
+    """A frame whose tiles' scratch, all at once, would not fit on the card:
+    570 tiles of 65,536 rays in merge order at chunk 256 (781 carried floats
+    a ray) run as launches of the tiles SCRATCH_BYTES holds, each reusing
+    the scratch from its first tile. Every tile of rows gives the one-tile
+    launch's output bit for bit, wherever it falls in its launch, every
+    empty tile the empty tile's, and the one tile holds to march_plain at
+    the K1 bars."""
+    from gaussian_ray_tracing_tpu_torch.ops import cuda_build
+
+    cfg, starts, feats, dirs_t = _huge_stream(65536, "merge", 256)
+    T, R = 570, dirs_t.shape[1]
+    fields = cuda_build.load_library().grt_march_carry_floats(256, 2, R)
+    assert fields == 781 and dirs_t.shape[0] == 1
+    assert T * fields * R * 4 > torch.cuda.get_device_properties(0).total_memory
+    held = tmarch.scratch_tiles(4 * fields * R, T)
+    assert 1 < held < T and T % held != 0
+    lo, hi = int(starts[0]), int(starts[1])
+    full = torch.arange(T, device="cuda") % 9 == 0  # tiles of rows, in every launch
+    n = (full.int() * (hi - lo)).cumsum(0).int()
+    big_starts = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"), n])
+    big_feats = torch.cat([feats[lo:hi].repeat(int(full.sum()), 1),
+                           torch.zeros((256, feats.shape[1]), device="cuda")])
+    before = tmarch.march.slot_launches
+    got = tmarch.march(big_starts, big_feats, dirs_t.expand(T, R, 3).contiguous(), cfg, 256)
+    one = tmarch.march(starts, feats, dirs_t, cfg, 256)
+    empty_starts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    empty = tmarch.march(empty_starts, feats, dirs_t.expand(2, R, 3).contiguous(), cfg, 256)
+    torch.cuda.synchronize()
+    assert tmarch.march.slot_launches == before + 3
+    for a, b, e in zip(got, one, empty):
+        assert torch.equal(a[full], b.expand_as(a[full]))
+        assert torch.equal(a[~full], e[:1].expand_as(a[~full]))
+    _kernel_close(one, tmarch.march_plain(starts, feats, dirs_t, cfg, 256))
+    _kernel_close(empty, tmarch.march_plain(empty_starts, feats,
+                                            dirs_t.expand(2, R, 3).contiguous(), cfg, 256))

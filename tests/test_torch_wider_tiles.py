@@ -10,8 +10,8 @@ mesh bounce frame (K4's plain version and block mode,
 `render_with_mesh_fast`), the rolling shutter (`render_rolling_pallas`)
 and the tiled march (`render_tiled`); the ray-band and shard-slice
 renderers of parallel/sharded.py against the port's single-device ones;
-and the config's new limit: every multiple of 128 up to 8192 rays, none
-above.
+and the config's limit: every multiple of 128 above 1024 rays, with no
+upper limit (tests/test_torch_huge_tiles.py holds the tiles above 8192).
 
 Bars, those of tests/test_torch_wide_tiles.py and the files it cites:
   - frames in window and merge order against render_pallas: >= 60 dB and
@@ -100,20 +100,25 @@ def scene2000():
 
 
 def test_config_takes_tiles_up_to_8192_rays():
-    """Every multiple of 128 rays from 1152 to 8192 renders, trains and
-    traces meshes; 8320 rays (130x64), and 1056 (not a multiple of 128),
-    are refused with the reason."""
-    for rays in range(1152, 8193, 128):
+    """Every multiple of 128 rays above 1024 renders, trains and traces
+    meshes (from 1152 to 8192 one ray a thread, above several; no upper
+    limit, as on a TPU); 1056 rays (32x33, not a multiple of 128) and 144
+    (12x12) are refused on the kernel paths with the reason, and the tiled
+    march, which pads any tile, takes both."""
+    for rays in [*range(1152, 8193, 128), 8320, 16384, 24576, 65536, 262144]:
         cfg = RenderConfig(tile_w=rays // 32, tile_h=32)
         assert tcfg.unsupported_fields(cfg) == [], rays
         assert tcfg.unsupported_train_fields(cfg) == []
         assert tcfg.unsupported_mesh_fields(cfg) == []
         assert tcfg.unsupported_tiled_fields(cfg) == []
-    for tw, th in ((130, 64), (32, 33)):
-        bad = tcfg.unsupported_fields(RenderConfig(tile_w=tw, tile_h=th))
-        assert len(bad) == 1 and "8192" in bad[0]
-        with pytest.raises(NotImplementedError, match="of 128 up to 8192"):
-            tcfg.check_supported(RenderConfig(tile_w=tw, tile_h=th))
+    for tw, th in ((32, 33), (12, 12)):
+        cfg = RenderConfig(tile_w=tw, tile_h=th)
+        for bad in (tcfg.unsupported_fields(cfg), tcfg.unsupported_train_fields(cfg),
+                    tcfg.unsupported_mesh_fields(cfg)):
+            assert len(bad) == 1 and "a multiple of 32 up to 1024 or of 128 above" in bad[0]
+        with pytest.raises(NotImplementedError, match="of 128 above"):
+            tcfg.check_supported(cfg)
+        assert tcfg.unsupported_tiled_fields(cfg) == []
 
 
 @pytest.mark.parametrize("order,rays", [("window", 1152), ("key", 4096), ("merge", 4096),
