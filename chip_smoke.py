@@ -282,7 +282,7 @@ def kernel_name(kernel: str, order: str, C: int, degree: int, R: int, *, scalar:
 
 
 def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = False,
-           quad: bool = False, rays: int = 256) -> dict:
+           quad: bool = False, rays: int = 256, call=None) -> dict:
     """What explains a K1 ("march") or K3 ("march_bwd") row: the (tile,
     candidate) slots of the chunks not skipped, the significant share (pairs
     through the gate over the (ray, candidate) pairs of those chunks), the
@@ -296,7 +296,9 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     spills (-Xptxas -v of the build: the 256-ray build up to 256 rays, the
     1024-ray one up to 1024, else the cluster build), and the blocks of a
     tile's cluster and the clusters resident at once
-    (cudaOccupancyMaxActiveClusters; None up to 1024 rays)."""
+    (cudaOccupancyMaxActiveClusters; None up to 1024 rays). call: the K1
+    call's (args, kw), whose k1_stops shares join the line (the plain
+    version's counters are then that call's)."""
     from gaussian_ray_tracing_tpu_torch.ops import cuda_build
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
     from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
@@ -310,6 +312,7 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
     regs, stack, st, ld = next((v for k, v in PTXAS.items() if name in k), (None,) * 4)
     check(regs == info["registers"], f"{kernel} {name}: ptxas says {regs} registers, the "
                                      f"runtime {info['registers']}")
+    stops = k1_stops(*call) if call is not None else {}
     out = {"marched_slots": plain.candidates,
            "significant_share": plain.significant / max(1, plain.candidates * R),
            "fire_share": plain.fired / max(1, plain.chunks) if order == "window" else None,
@@ -317,10 +320,186 @@ def design(kernel: str, cfg, chunk: int, *, scalar: bool = False, train: bool = 
            "blocks_per_sm": info["blocks_per_sm"], "smem_bytes": info["smem_bytes"],
            "registers": regs, "stack_bytes": stack, "spill_store_bytes": st,
            "spill_load_bytes": ld, "cluster_blocks": info["cluster_blocks"],
-           "resident_clusters": info["resident_clusters"], "build_chunk": C}
+           "resident_clusters": info["resident_clusters"], "build_chunk": C, **stops}
     log("design", f"{kernel} {order} sh{cfg.sh_degree} c={chunk} (build C={C}) R={R}"
         + " scalar" * scalar
         + " origin quad" * quad + " save_tin" * train + f": {json.dumps(out)}")
+    return out
+
+
+def _hist_stats(h) -> tuple[float, int]:
+    """Mean and 99th percentile of the values whose counts are h (h[v]: how
+    many times v occurs)."""
+    import torch
+
+    n = int(h.sum())
+    if n == 0:
+        return 0.0, 0
+    v = torch.arange(h.numel(), dtype=torch.float64, device=h.device)
+    p99 = int(torch.searchsorted(torch.cumsum(h, 0), torch.tensor(
+        [0.99 * n], dtype=h.dtype, device=h.device))[0])
+    return float((h.double() * v).sum()) / n, p99
+
+
+def k1_stops(args, kw=None) -> dict:
+    """Where K1's pass 1 stops on each (ray, candidate) of a call and what
+    window order's pass 2 sorts, counted in torch over march_plain's own
+    chunks (those its tile-wide skip did not skip; tail slots left out):
+    the tiles with a marched chunk, and the most chunks one of them marched
+    (its chunks run one after the other: the launch's critical path).
+    Each pair stops at the first of: a dead ray (dead), the sure-miss test
+    (sure_miss; the scalar form only where dd >= 1e-6), alpha <= alpha_min
+    (alpha), a failed gate with the event t past t_hi (past_t_hi) or
+    another failed gate (gate); the rest are significant. Per (warp, slot)
+    of warps with a live lane: every live lane a sure miss
+    (warp_sure_miss_share); warp_dead the share of (warp, slot) pairs
+    without a live lane. Window order: the fire share of the (tile, chunk)
+    pairs, and per live ray of a fired fire group ns (its significant candidates) and the inversions of its list
+    under the sort key (pass 2's insertion-sort shifts), mean and 99th
+    percentile, and per warp of those the mean of its lanes' largest
+    (warp_ns_mean, warp_inv_mean: a warp's loop runs as long as its longest
+    lane's)."""
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+
+    kw = kw or {}
+    if kw.get("quad"):
+        return {}  # the per-ray-origin quad response: not counted here
+    dirs_t, cfg = args[2], args[3]
+    dev = dirs_t.device
+    scalar = kw.get("origins_t") is not None
+    names = ("dead", "sure_miss", "alpha", "past_t_hi", "gate", "significant")
+    acc = {k: 0 for k in (*names, "live", "pairs", "warps", "warp_sm", "warp_slots",
+                          "warp_dead", "fire_chunks", "fired", "warp_ns", "warp_inv",
+                          "fired_warps")}
+    h_ns = torch.zeros(257, dtype=torch.int64, device=dev)
+    h_inv = torch.zeros(256 * 255 // 2 + 1, dtype=torch.int64, device=dev)
+
+    def sure_miss(oo, od, D, op):  # csrc/march.cuh sure_miss and miss_threshold
+        thr = 2.0 * torch.log(op / cfg.alpha_min) + 1e-4
+        return oo * D - od * od > (thr + 2e-6 * oo.abs()) * D
+
+    orig_chunk, orig_window = kmarch._chunk_plain, kmarch._window_composite
+    state = {}  # the live rays of the batch whose chunk window_hook composites
+    tile_chunks = torch.zeros(dirs_t.shape[0], dtype=torch.int64, device=dev)  # marched
+
+    def chunk_hook(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, block_sub, *rest):
+        idx, present = kmarch._chunk_rows(tb, j, starts, c, feats.shape[0], blocks, block_sub)
+        f = feats[idx]
+        col = lambda k: f[:, :, k:k + 1]
+        sub = {k: ([x[tb][:, None] for x in v] if isinstance(v, list)
+                   else v[tb][:, None] if torch.is_tensor(v) else v) for k, v in rays.items()}
+        dx, dy, dz = sub["d"]
+        live = sub["live"]
+        op = col(0)
+        if not scalar:  # the quad response from the eye (eval_quad)
+            m2 = (dx * dx, dy * dy, dz * dz, 2.0 * dx * dy, 2.0 * dx * dz, 2.0 * dy * dz)
+            dd = col(1) * m2[0] + col(2) * m2[1] + col(3) * m2[2] + col(4) * m2[3] \
+                + col(5) * m2[4] + col(6) * m2[5]
+            od = col(7) * dx + col(8) * dy + col(9) * dz
+            cq, oo = col(10).expand_as(dd), col(11).expand_as(dd)
+            D = torch.clamp(dd, min=1e-6)
+            sm = sure_miss(oo, od, D, op)
+            t_star = -od * (1.0 / D)
+            pp = oo + od * t_star
+        else:  # the scalar response from per-ray origins (eval_scalar)
+            ox, oy, oz = (o - col(kmarch.T_MX + k) for k, o in enumerate(sub["o"]))
+            m = [col(kmarch.T_M0 + k) for k in range(9)]
+            og = [m[3 * i] * ox + m[3 * i + 1] * oy + m[3 * i + 2] * oz for i in range(3)]
+            dg = [m[3 * i] * dx + m[3 * i + 1] * dy + m[3 * i + 2] * dz for i in range(3)]
+            dd = dg[0] * dg[0] + dg[1] * dg[1] + dg[2] * dg[2]
+            od = og[0] * dg[0] + og[1] * dg[1] + og[2] * dg[2]
+            oo = og[0] * og[0] + og[1] * og[1] + og[2] * og[2]
+            D = torch.clamp(dd, min=1e-6)
+            sm = (dd >= 1e-6) & sure_miss(oo, od, D, op)
+            t_star = -od / D
+            pp = oo + t_star * (2.0 * od + t_star * dd)
+            cq = oo - col(kmarch.T_RAD) * col(kmarch.T_RAD)
+        alpha = torch.clamp(torch.exp(-0.5 * torch.clamp(pp, min=0.0)) * op, max=cfg.alpha_clamp)
+        t_ev, _, _ = kmarch._event_gate(od, dd, cq, sub["t_lo"], sub["t_hi"])
+        a = (kmarch._quad_alpha if rays["quad"] else kmarch._scalar_alpha)(f, sub, present,
+                                                                           config)[0]
+        pres = present.expand_as(dd)
+        lv = live.expand_as(dd) & pres
+        sm = lv & sm
+        low = lv & ~sm & ~(alpha > cfg.alpha_min)
+        sig = a > 0.0
+        fail = lv & ~sm & ~low & ~sig
+        past = fail & (t_ev > sub["t_hi"])
+        stop = dict(dead=pres & ~lv, sure_miss=sm, alpha=low, past_t_hi=past, gate=fail & ~past,
+                    significant=sig)
+        for k, v in stop.items():
+            acc[k] += int(v.sum())
+        acc["pairs"] += int(pres.sum())
+        acc["live"] += int(lv.sum())
+        B, cc, R = dd.shape
+        w = lambda x: x.reshape(B, cc, R // 32, 32)
+        has = w(lv).any(-1)
+        acc["warp_slots"] += int(w(pres).any(-1).sum())
+        acc["warp_dead"] += int((w(pres).any(-1) & ~has).sum())
+        acc["warps"] += int(has.sum())
+        acc["warp_sm"] += int((has & (w(sm) == w(lv)).all(-1)).sum())
+        tile_chunks.index_add_(0, tb, torch.ones_like(tb))
+        state["live"] = live
+        return orig_chunk(tb, j, starts, feats, rays, trans, rgb, config, c, blocks, block_sub,
+                          *rest)
+
+    def window_hook(t_carry, a, t_ev, cols, min_t, train, opts):
+        B, c, R = a.shape
+        G = R // opts["group"]
+        ag, tg = (kmarch._split_groups(x, G) if G > 1 else x for x in (a, t_ev))
+        fired = kmarch.window_fire(ag, tg, opts["a_fire"])
+        acc["fire_chunks"] += ag.shape[0]
+        acc["fired"] += int(fired.sum())
+        fb = fired.nonzero().squeeze(1)
+        if fb.numel():
+            a_f, t_f = ag[fb], tg[fb]
+            sig = a_f > 0.0
+            if train:
+                key = kmarch.train_sort_key(a_f.expand(-1, -1, t_f.shape[2]), t_f).long()
+            else:
+                aq = torch.clamp(a_f * 32767.0, 0.0, 32767.0).to(torch.int32)
+                key = torch.where(sig, (kmarch.window_tq(a_f, t_f) << 15) | aq,
+                                  kmarch._ZBASE).long()
+            ns = sig.sum(1)  # (Bf, r)
+            r = ns.shape[1]
+            step = max(1, (1 << 24) // (c * c * r))
+            inv = torch.cat([
+                ((key[s:s + step, :, None] > key[s:s + step, None])  # (i, k) with i < k
+                 & sig[s:s + step, :, None] & sig[s:s + step, None]
+                 & torch.ones(c, c, dtype=torch.bool, device=a.device).triu(1)[None, :, :, None]
+                 ).sum((1, 2)) for s in range(0, key.shape[0], step)])
+            lv = state["live"]  # the batch's live rays (chunk_hook), (B, 1, R)
+            dl = (kmarch._split_groups(lv, G) if G > 1 else lv)[fb][:, 0]
+            h_ns.index_add_(0, ns[dl], torch.ones_like(ns[dl]))
+            h_inv.index_add_(0, inv[dl], torch.ones_like(inv[dl]))
+            wl = dl.reshape(-1, r // 32, 32).any(-1)
+            acc["fired_warps"] += int(wl.sum())
+            acc["warp_ns"] += int(ns.reshape(-1, r // 32, 32).amax(-1)[wl].sum())
+            acc["warp_inv"] += int(inv.reshape(-1, r // 32, 32).amax(-1)[wl].sum())
+        return orig_window(t_carry, a, t_ev, cols, min_t, train, opts)
+
+    kmarch._chunk_plain, kmarch._window_composite = chunk_hook, window_hook
+    try:
+        kmarch.march_plain(*args, **kw)
+    finally:
+        kmarch._chunk_plain, kmarch._window_composite = orig_chunk, orig_window
+    n, nl = max(1, acc["pairs"]), max(1, acc["live"])
+    out = {f"stop_{k}": acc[k] / n for k in names}
+    out.update(sure_miss_share=acc["sure_miss"] / nl,
+               warp_sure_miss_share=acc["warp_sm"] / max(1, acc["warps"]),
+               warp_dead=acc["warp_dead"] / max(1, acc["warp_slots"]),
+               live_share=float(((dirs_t * dirs_t).sum(-1) > 0.01).float().mean()),
+               tiles_marched=int((tile_chunks > 0).sum()),
+               tile_chunks_max=int(tile_chunks.max()) if tile_chunks.numel() else 0)
+    if cfg.order == "window":
+        ns_mean, ns_p99 = _hist_stats(h_ns)
+        inv_mean, inv_p99 = _hist_stats(h_inv)
+        fw = max(1, acc["fired_warps"])
+        out.update(fire_share=acc["fired"] / max(1, acc["fire_chunks"]), ns_mean=ns_mean,
+                   ns_p99=ns_p99, inv_mean=inv_mean, inv_p99=inv_p99,
+                   warp_ns_mean=acc["warp_ns"] / fw, warp_inv_mean=acc["warp_inv"] / fw)
     return out
 
 
@@ -1091,7 +1270,7 @@ def main() -> None:
     blk_ms = statistics.median(cuda_ms(lambda: kmarch.march(*blk_args, **blk_kw), 20))
     blk_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*blk_args, **blk_kw), 5))
     blk_bound = march_bound(blk_args, blk_kw, kmarch.march_plain)
-    blk_design = design("march", blk_args[3], blk_args[4], scalar=True)
+    blk_design = design("march", blk_args[3], blk_args[4], scalar=True, call=(blk_args, blk_kw))
     # K4's pretests on glass_front's bounce 1: what they skip (the kernel's
     # own counts), and its launch
     k4_design = tri_design(k4f, k4f_kw)
@@ -1100,7 +1279,7 @@ def main() -> None:
     seg_ms = statistics.median(cuda_ms(lambda: kmarch.march(*seg_args, **seg_kw), 20))
     seg_plain = statistics.median(cuda_ms(lambda: kmarch.march_plain(*seg_args, **seg_kw), 5))
     seg_bound = march_bound(seg_args, seg_kw, kmarch.march_plain)
-    seg_design = design("march", seg_args[3], seg_args[4])
+    seg_design = design("march", seg_args[3], seg_args[4], call=(seg_args, seg_kw))
     log("kernel", f"K4 glass_cli bounce 1 (per-ray origins): {k4_ms:.3f} ms, plain "
                   f"{k4_plain:.3f} ms; K4 glass_front bounce 1 (per-ray origins): {k4f_ms:.3f} "
                   f"ms, plain {k4f_plain:.3f} ms; K4 glass bounce 0 (shared origin): {k40_ms:.3f} ms, plain "
@@ -1388,7 +1567,7 @@ def mesh_camera_phase(dev, card: str, scene, mcam, at_probe, front) -> list:
         return (statistics.median(cuda_ms(lambda: kmarch.march(*args, **kw), 20)),
                 statistics.median(cuda_ms(lambda: kmarch.march_plain(*args, **kw), 3)),
                 march_bound(args, kw, kmarch.march_plain),
-                design("march", args[3], args[4], scalar="origins_t" in kw))
+                design("march", args[3], args[4], scalar="origins_t" in kw, call=(args, kw)))
 
     def k4_time(args, kw):
         return (statistics.median(cuda_ms(lambda: ktri.closest_hit_blocks(*args, **kw), 20)),

@@ -67,7 +67,11 @@
 //   2. pass 1: each ray evaluates its C candidates once: a sure miss
 //      (sure_miss, against a per-row threshold computed once per chunk)
 //      stops before the division and the exp, any other miss at alpha,
-//      before the sqrt and the second division of the event t. It keeps the
+//      before the sqrt and the second division of the event t. A dead ray
+//      (zero direction), whose a is 0 on every candidate, lists nothing and
+//      skips the pass, so a warp of dead rays skips the chunk (in block
+//      mode, where dd = 0 keeps a dead ray from the sure-miss test, a dead
+//      lane used to hold its warp on the divide and the exp). It keeps the
 //      significant (a > 0) ones, in stream order, in local memory: order
 //      key (the event t, or t* under the peak key), alpha, source index (9
 //      bytes each, none for a miss), and records whether it sees an
@@ -78,7 +82,10 @@
 //      composites them in stream order with float32 colours; a fired chunk
 //      insertion-sorts (key tq16 << 15 | a15, source index) in place of the
 //      order keys (the depth-presorted stream is nearly ordered, so few
-//      shifts) and composites that list with decoded alphas and each
+//      shifts), or in block mode, whose lists come in Morton order and so
+//      in no depth order (about ns^2 / 4 inversions a ray), computes every
+//      key and merge-sorts them (block_sort: a cost set by ns, not by the
+//      order), and composites that list with decoded alphas and each
 //      colour through the 3x10-bit pack, as the TPU kernel's sorted payload
 //      does (pallas_march.py:832).
 //   The render options (Params; pallas_march.py:775-796, 858-937):
@@ -225,14 +232,17 @@
 // and reused by 256 rays) but per-(ray, candidate) work (the per-ray-origin
 // quad response: ~20 more operations per pair than the shared-origin one,
 // the scalar response ~30 more). In window order:
-// one evaluation of every candidate (a sure miss costs neither the divide
-// nor the exp, another miss one of each, a candidate past alpha_min a sqrt
-// and a second divide besides); for each significant candidate
-// (30-47% of the pairs on the main path's streams, PERF.md) the composite's
-// exp and log1p, in the fired chunks (83-99% of them) the 3x10-bit pack,
-// and the local-memory traffic of the stored candidates and of the lists
-// (kept in L1 by running two blocks per SM); at SH 1-3 a 3K-term colour
-// per significant candidate. In key order one evaluation (a sure miss
+// one evaluation of every candidate of a live ray (a sure miss costs
+// neither the divide nor the exp, another miss one of each, a candidate
+// past alpha_min a sqrt and a second divide besides); for each significant
+// candidate (30-47% of the pairs on the main path's streams, 2-16% on the
+// mesh bounces, PERF.md) the composite's exp and log1p, in the fired
+// chunks (83-99% of them; 26-57% in block mode) the 3x10-bit pack and the
+// sort, and the local-memory traffic of the stored candidates and of the
+// lists (kept in L1 by running two blocks per SM); at SH 1-3 a 3K-term
+// colour per significant candidate. On the mesh bounces a few tiles march
+// up to 16-51 chunks, one after the other: their chain sets much of a
+// launch's time (PERF.md). In key order one evaluation (a sure miss
 // without the divide and the exp, any other candidate with one of each),
 // plus the colour; in merge order the window kernel's one
 // evaluation, and in a slow chunk (87-97% of the marched chunks on the
@@ -1113,6 +1123,8 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
   constexpr int W = L::w, kCol = L::col;
   constexpr int kStages = window_stages<C, W>();
   constexpr bool kCl = kMaxR >= kClusterR;
+  // block mode (the scalar response, render) merge-sorts a fired chunk's list
+  constexpr bool kBlockSort = kR == kScalar && !kTrain;
   extern __shared__ __align__(16) float sf[];  // kStages * C * W staged floats
   float* thr = sf + kStages * C * W;             // C sure-miss thresholds
   __shared__ float red[kCl ? kClusterRed : 32];
@@ -1135,10 +1147,15 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
 
   float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   // the chunk's significant candidates in stream order, and a fired
-  // chunk's sorted list (local memory, 9 C bytes; one ray's at a time)
-  uint32_t keys[C];
-  float sa[C];
-  uint8_t si[C];
+  // chunk's sorted list (local memory, 9 C bytes; one ray's at a time):
+  // lk[0] their order keys, then the sort keys; lk[1] their alphas' bits;
+  // ls[0] their source indices. Block mode's merge sort (block_sort) takes
+  // lk[1] (free once the sort keys hold the alphas) and ls[1], which only
+  // its instantiations have, as its second buffer.
+  uint32_t lk[2][C];
+  uint8_t ls[kBlockSort ? 2 : 1][C];
+  uint32_t(&keys)[C] = lk[0];
+  uint8_t(&si)[C] = ls[0];
   // the render options (window_options; neutral with saved carries): fire
   // groups of gw warps, the fire test's alpha, the repair band's width and
   // whether it is computed (its sorted window taken only with a_fire > 0,
@@ -1204,6 +1221,11 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
     hi = -INFINITY;
     ns = 0;
     i1 = -1;
+    // a dead ray (zero direction: a retired bounced ray, a pixel outside a
+    // fisheye's image circle, a cluster's idle lane) has a = 0 on every
+    // candidate, so it lists none: it skips the chunk, and so does a warp
+    // of dead rays
+    if (!ray.live) return;
     for (int i = 0; i < m; ++i) {
       float t_ev, a;
       evaluate<kR, true>(p, ray, buf + i * W, fast_gate, peak, t_ev, a, thr[i]);
@@ -1215,7 +1237,7 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
         lo = fminf(lo, t_ev);
         hi = fmaxf(hi, t_ev);
         keys[ns] = __float_as_uint(t_ev);
-        sa[ns] = a;
+        lk[1][ns] = __float_as_uint(a);
         si[ns++] = (uint8_t)i;
       }
     }
@@ -1231,6 +1253,46 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
       smin = fminf(smin, t);
     }
     return i0;
+  };
+  // Block mode's sort of the run [k0, k1) of a fired chunk's sort keys
+  // (render; bounced rays over the Morton blocks, whose lists come in no
+  // depth order, so that pass 2's insertion would shift up to n (n - 1) / 2
+  // times): runs of 4 put in order by insertion (at most 6 shifts each),
+  // then bottom-up merge passes between lk[0], ls[0] and lk[1], ls[1], the
+  // left run first on equal keys (stable: stream order). Its cost is set
+  // by n = k1 - k0, not by the order. Returns the buffer holding the run.
+  auto block_sort = [&](int k0, int k1) {
+    for (int r = k0; r < k1; r += 4)
+      for (int k = r + 1; k < min(r + 4, k1); ++k) {
+        const uint32_t key = keys[k];
+        const uint8_t i = si[k];
+        int pos = k;
+        for (; pos > r && keys[pos - 1] > key; --pos) {
+          keys[pos] = keys[pos - 1];
+          si[pos] = si[pos - 1];
+        }
+        keys[pos] = key;
+        si[pos] = i;
+      }
+    int b = 0;
+    for (int w = 4; w < k1 - k0; w *= 2, b ^= 1)
+      for (int r = k0; r < k1; r += 2 * w) {  // runs [r, mid) and [mid, end) into [r, end)
+        const int mid = min(r + w, k1), end = min(r + 2 * w, k1);
+        int i = r, j = mid;
+        uint32_t ki = lk[b][i], kj = j < end ? lk[b][j] : 0u;
+        for (int o = r; o < end; ++o) {
+          if (j < end && (i >= mid || kj < ki)) {
+            lk[b ^ 1][o] = kj;
+            ls[b ^ 1][o] = ls[b][j];
+            if (++j < end) kj = lk[b][j];
+          } else {
+            lk[b ^ 1][o] = ki;
+            ls[b ^ 1][o] = ls[b][i];
+            if (++i < mid) ki = lk[b][i];
+          }
+        }
+      }
+    return b;
   };
 
   if (kStages == 2 && n_chunks > 0) stage_async<kR, K, kTrain>(sf, p, start, 0, C, min(C, n));
@@ -1343,7 +1405,7 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
       if (!fired) {
         for (int k = 0; k < ns; ++k) {
           row_color<kR == kScalar, K>(buf + si[k] * W + kCol, basis, cr, cg, cb);
-          comp.add(sa[k], cr, cg, cb, p.min_t);
+          comp.add(__uint_as_float(lk[1][k]), cr, cg, cb, p.min_t);
         }
       } else {
         const float scale = 65534.f / fmaxf(ghi - glo, 1e-20f);
@@ -1356,6 +1418,10 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
           while (k0 < ns && si[k0] < ws) ++k0;
           for (k1 = k0; k1 < ns && si[k1] < ws + rw;) ++k1;
         }
+        // block mode (render): every key first, then the run [k0, k1)
+        // merge-sorted (block_sort); the sorted run ends in buffer fb
+        const bool msort = kBlockSort && p.blocks;
+        int fb = 0;
         for (int k = 0; k < ns; ++k) {
           // entry k's order key, read before the list grows to k entries
           const float t_ev = __uint_as_float(keys[k]);
@@ -1367,9 +1433,11 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
           // | a15, alpha decoded from the key, the source moving with the key
           const uint32_t key =
               kTrain ? (tq << 8) | (uint32_t)k
-                     : (tq << 15) | (uint32_t)fminf(fmaxf(sa[k] * 32767.f, 0.f), 32767.f);
+                     : (tq << 15) |
+                           (uint32_t)fminf(fmaxf(__uint_as_float(lk[1][k]) * 32767.f, 0.f),
+                                           32767.f);
           int pos = k;
-          if (k < k1)
+          if (k < k1 && !msort)
             while (pos > k0 && keys[pos - 1] > key) {  // stable: ties keep stream order
               keys[pos] = keys[pos - 1];
               if (!kTrain) si[pos] = si[pos - 1];
@@ -1378,11 +1446,14 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kWin
           keys[pos] = key;
           if (!kTrain) si[pos] = i;
         }
+        if constexpr (kBlockSort)
+          if (msort) fb = block_sort(k0, k1);
         for (int k = 0; k < ns; ++k) {
           const int e = kTrain ? (int)(keys[k] & 255u) : k;
+          const int b = k >= k0 && k < k1 ? fb : 0;  // the buffer entry k lies in
           // training: the exact alpha; render: alpha decoded from the key
-          const float a = kTrain ? sa[e] : (float)(keys[k] & 32767u) * kInvA;
-          row_color<kR == kScalar, K>(buf + si[e] * W + kCol, basis, cr, cg, cb);
+          const float a = kTrain ? __uint_as_float(lk[1][e]) : (float)(lk[b][k] & 32767u) * kInvA;
+          row_color<kR == kScalar, K>(buf + ls[b][e] * W + kCol, basis, cr, cg, cb);
           add_packed(comp, a, pack_color(cr, cg, cb), p.min_t);
         }
       }

@@ -13,8 +13,12 @@ device operations from torch.profiler (dev_ms). Beside each row: the
 bound (chip_smoke.py's march_bound / bwd_bound), the plain version's time,
 this build's resident blocks per SM, registers, stack and spills, the
 marched slots and the significant, fire (window order) and slow (merge
-order) shares of the stream, and the render rows' sure-miss shares per
-(ray, slot) and per (warp, slot) and live-ray share (miss_shares).
+order) shares of the stream, and, on every K1 row, where pass 1 stops and
+what window order's pass 2 sorts (chip_smoke.k1_stops: the shares of
+(ray, slot) pairs of dead rays, sure misses, alpha <= alpha_min, past
+t_hi, other gate misses and significant ones, per-warp shares, the
+live-ray share, the tiles marched and the most chunks one marched, and
+ns and the insertion sort's inversions per ray of a fired chunk).
 
     git archive <commit> gaussian_ray_tracing_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/torch_redesign_ab.py build/parent/gaussian_ray_tracing_tpu_torch/csrc \
@@ -23,8 +27,10 @@ order) shares of the stream, and the render rows' sure-miss shares per
         [--pairs N]
 
 The groups: render (window order on the 720p/100k headline and on
-fitted_20k.ply at SH 3), modes (window order on a mesh
-segment, in block mode and on a rolling shutter), merge (merge order on the
+fitted_20k.ply at SH 3), modes (window order on the glass
+frame's bounce 0, every bounce of the glass_front and glass_cli frames
+(segments, then block mode), bounces 0 and 1 of glass_front under a
+fisheye camera and at SH 3 on fitted_20k.ply, and a rolling shutter), merge (merge order on the
 headline, fitted_20k.ply at SH 3, the 256x256 golden stream at c=64 and
 128, a mesh segment, a rolling shutter and block mode), train (the
 training forwards and K3) and mesh (K4 on the glass and glass_front
@@ -138,7 +144,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     from gaussian_ray_tracing_tpu_torch import cameras
-    from gaussian_ray_tracing_tpu_torch.config import MeshType, RenderConfig, chunk_for
+    from gaussian_ray_tracing_tpu_torch.config import (
+        CameraModel, MeshType, RenderConfig, chunk_for,
+    )
     from gaussian_ray_tracing_tpu_torch.models import mesh_tracer as kmesh
     from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import (
         prepare_pair_stream, prepare_train_stream,
@@ -212,58 +220,6 @@ def main() -> None:
 
     rows = []
 
-    def miss_shares(args, kw) -> dict:
-        """Where sure_miss (csrc/march.cuh) can spare the divide and the exp
-        on a K1 call: over every listed (tile, slot) of the call (skipped
-        chunks too), the share of (live ray, slot) pairs it cuts short and
-        the share of (warp, slot) pairs, of warps with a live lane, where it
-        cuts short every live lane (only then does the warp skip them); and
-        the share of live rays. torch float32, one operation at a time."""
-        starts, feats, dirs_t, cfg, chunk = args[:5]
-        origins, blocks = kw.get("origins_t"), kw.get("blocks")
-        bs = chunk // kw.get("block_sub", 1)
-        T, R = dirs_t.shape[:2]
-        live = (dirs_t * dirs_t).sum(-1) > 0.01
-        counts = (starts[1:] - starts[:-1]).long()
-        tile = torch.repeat_interleave(torch.arange(T, device=dev), counts)
-        slot = torch.arange(int(counts.sum()), device=dev) - \
-            torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
-        first = starts[:-1].long()[tile]
-        row = first + slot if blocks is None else \
-            blocks.long()[first // bs + slot // bs] * bs + slot % bs
-        cut = n_live = warps = warp_cut = 0
-        for part in torch.arange(tile.numel(), device=dev).split(1 << 15):
-            f, ti = feats[row[part]], tile[part]
-            d, lv = dirs_t[ti], live[ti]  # (B, R, 3), (B, R)
-            op = f[:, 0:1]
-            if origins is None:
-                m = (d[..., 0] * d[..., 0], d[..., 1] * d[..., 1], d[..., 2] * d[..., 2],
-                     2.0 * d[..., 0] * d[..., 1], 2.0 * d[..., 0] * d[..., 2],
-                     2.0 * d[..., 1] * d[..., 2])
-                dd = sum(f[:, 1 + k:2 + k] * m[k] for k in range(6))
-                od = f[:, 7:8] * d[..., 0] + f[:, 8:9] * d[..., 1] + f[:, 9:10] * d[..., 2]
-                oo = f[:, 11:12].expand_as(dd)
-                ok = torch.ones_like(lv)
-            else:
-                o = origins[ti] - f[:, None, kmarch.T_MX:kmarch.T_MX + 3]
-                M = f[:, kmarch.T_M0:kmarch.T_M0 + 9].reshape(-1, 1, 3, 3)
-                og = (M * o[:, :, None, :]).sum(-1)
-                dg = (M * d[:, :, None, :]).sum(-1)
-                dd, od, oo = (dg * dg).sum(-1), (og * dg).sum(-1), (og * og).sum(-1)
-                ok = dd >= 1e-6
-            D = torch.clamp(dd, min=1e-6)
-            thr = 2.0 * torch.log(op / cfg.alpha_min) + 1e-4
-            short = ok & (oo * D - od * od > (thr + 2e-6 * oo.abs()) * D) & lv
-            cut += int(short.sum())
-            n_live += int(lv.sum())
-            lw, sw = lv.reshape(-1, R // 32, 32), short.reshape(-1, R // 32, 32)
-            has = lw.any(-1)
-            warps += int(has.sum())
-            warp_cut += int((has & (sw == lw).all(-1)).sum())
-        return dict(sure_miss_share=cut / max(1, n_live),
-                    warp_sure_miss_share=warp_cut / max(1, warps),
-                    live_share=float(live.float().mean()))
-
     def k1_case(what, args, kw=None):
         """A K1 render call: bit for bit against the other build, against
         the plain version at the K1 bars, timed in turns."""
@@ -289,7 +245,7 @@ def main() -> None:
             bit_identical=same, **dev_times(t), **info,
             ptxas=ptx(cs.kernel_name("march", cfg.order, info["build_chunk"], cfg.sh_degree, R,
                                      scalar=scalar)),
-            **shares(kmarch.march_plain, R, cfg.order), **miss_shares(args, kw)))
+            **{**shares(kmarch.march_plain, R, cfg.order), **cs.k1_stops(args, kw)}))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
     def imbalance(tile_work, slots: int) -> float:
@@ -352,13 +308,16 @@ def main() -> None:
     ply = load_ply(str(ROOT / "data" / "fitted_20k.ply"), device=dev)
     bench = RenderConfig(**cs.BENCH_KW)
 
-    def mesh_bounces(cfg, center):
-        """K1's (args, kw) of every bounce of a 1280x720 frame of `scene`
-        with the 180x90 glass sphere at `center` (chip_smoke.py's mesh
-        frames)."""
+    def mesh_bounces(cfg, center, sc=None, tess=(180, 90)):
+        """K1's (args, kw) of every bounce of a 1280x720 frame of `sc`
+        (`scene` by default) with a glass sphere of tess_u x tess_v faces at
+        `center` (chip_smoke.py's mesh frames: glass, glass_front and, at
+        36x18, glass_cli)."""
         record = []
-        sphere = make_sphere(center, device=dev).with_type(MeshType.GLASS)
-        kmesh.render_with_mesh_fast(scene, sphere, cam720, cfg, record=record)
+        sphere = make_sphere(center, tess_u=tess[0], tess_v=tess[1],
+                             device=dev).with_type(MeshType.GLASS)
+        kmesh.render_with_mesh_fast(scene if sc is None else sc, sphere, cam720, cfg,
+                                    record=record)
         torch.cuda.synchronize()
         return [rec["k1"] for rec in record]
 
@@ -376,7 +335,20 @@ def main() -> None:
 
     if "modes" in groups:  # the window kernel's other modes
         k1_case("window segment glass bounce 0", *mesh_bounces(bench, (0.0, 0.0, 0.5))[0])
-        k1_case("window block glass_front bounce 1", *mesh_bounces(bench, (0.0, 0.0, 1.6))[1])
+        # every bounce of the glass_front and glass_cli frames, and of
+        # glass_front under a fisheye camera and at SH 3 (fitted_20k.ply)
+        fish = bench.replace(camera_model=CameraModel.FISHEYE)
+        for name, frame in (
+                ("glass_front", mesh_bounces(bench, (0.0, 0.0, 1.6))),
+                ("glass_cli", mesh_bounces(bench, (0.0, 0.0, 1.6), tess=(36, 18))),
+                ("fisheye_glass_front", mesh_bounces(fish, (0.0, 0.0, 1.6))),
+                ("sh3_glass_front", mesh_bounces(bench.replace(sh_degree=3), (0.0, 0.0, 1.6),
+                                                 sc=ply))):
+            for b, (args, kw) in enumerate(frame):
+                if name == "glass_cli" and b == 0 or name.startswith(("fish", "sh3")) and b > 1:
+                    continue
+                mode = "block" if "blocks" in kw else "segment"
+                k1_case(f"window {mode} {name} bounce {b}", args, kw)
         k1_case("window rolling 720p/100k", *rolling(bench))
 
     if "merge" in groups:

@@ -1958,3 +1958,110 @@ def test_huge_frame_scratch_runs_in_launches_that_fit():
     _kernel_close(one, tmarch.march_plain(starts, feats, dirs_t, cfg, 256))
     _kernel_close(empty, tmarch.march_plain(empty_starts, feats,
                                             dirs_t.expand(2, R, 3).contiguous(), cfg, 256))
+
+
+# --- K1 window order on the mesh path's modes: crafted block-mode and
+# segment streams (tests/mesh_streams.py) --------------------------------------
+
+# (mode, rays, SH degree, block_sub, window options): the 256-ray, 1024-ray
+# and cluster builds (one ray a thread at 2048 rays, two at 16,384), with the
+# span repair's band where the options ask for it
+WINDOW_MESH_CASES = [
+    ("block", 256, 0, 1, ""), ("block", 256, 3, 2, ""), ("block", 1024, 0, 2, ""),
+    ("block", 1024, 3, 1, ""), ("block", 2048, 0, 1, ""), ("block", 2048, 3, 2, ""),
+    ("block", 16384, 0, 2, ""), ("block", 16384, 3, 1, ""), ("block", 256, 0, 1, "band"),
+    ("block", 2048, 3, 2, "band"), ("segment", 256, 0, 1, ""), ("segment", 1024, 3, 1, ""),
+    ("segment", 2048, 0, 1, ""), ("segment", 16384, 3, 1, ""), ("segment", 256, 3, 1, "band")]
+BAND = dict(sort_alpha_min=0.02, sort_repair=32)
+
+# SHA-256 of K1's (rgb, t_final, fired, repaired) on each crafted call, from
+# the kernels of commit 9d9cbcd (before the window kernel's block-mode sort
+# and its dead-lane and segment-end exits), measured on an NVIDIA H100 80GB
+# HBM3 (700.00 W) by _window_mesh_digests
+WINDOW_MESH_DIGESTS = {
+    "block R256 sh0 bsub1":
+        "aea7f6eb5aff1f0adf8753a9cc7a59b46402a3b3172bd0f2461f456cbbcff2b4",
+    "block R256 sh3 bsub2":
+        "61f7497d8603ab89cd39da6b3a87ebaec771bd72139bea2a58de9e22fbf338c3",
+    "block R1024 sh0 bsub2":
+        "78558fb16756a87894a06d1ecfa56494949058907f93fef130fd720bf3618b31",
+    "block R1024 sh3 bsub1":
+        "d72b2809d57ea973594b333087b289699c50c247e00c59f8de5eac96b36d81a5",
+    "block R2048 sh0 bsub1":
+        "c0a05b6dd7e30f07534492e8b3a9f91ea7e054cfbe30d39b37c6a4bb6fb6eb1f",
+    "block R2048 sh3 bsub2":
+        "78ed9770d81a0aaa80531b3fd02624ab092628cc06dd098a04961c31d12655e4",
+    "block R16384 sh0 bsub2":
+        "1d4c77ff1d1540b592f7c74f9e532907766909956099399bfe6251eeadd26055",
+    "block R16384 sh3 bsub1":
+        "5023753a0353ab191fb00351921d62730b62190a96afe4b20fe14c78b526a18d",
+    "block R256 sh0 bsub1 band":
+        "aea7f6eb5aff1f0adf8753a9cc7a59b46402a3b3172bd0f2461f456cbbcff2b4",
+    "block R2048 sh3 bsub2 band":
+        "78ed9770d81a0aaa80531b3fd02624ab092628cc06dd098a04961c31d12655e4",
+    "segment R256 sh0 bsub1":
+        "6ee630efbbe2c4e0fa3c6a6eb124b4195426e7aa9f56b9b086033e075aea08fc",
+    "segment R1024 sh3 bsub1":
+        "0ec11c3b5443720f4ac0999e1673c35d325a82b2bd555076046dbac815d88556",
+    "segment R2048 sh0 bsub1":
+        "8401d4e53d5cde2781693ecf9e215a9b42daa57f686c97f6691353794af1e1da",
+    "segment R16384 sh3 bsub1":
+        "8c90567da025d295da65fc2c8b23bb41fff6af29cdcec36cc1b0c28705e5a915",
+    "segment R256 sh3 bsub1 band":
+        "5cb9e1423a7a14ec6b1bda46b5432d5220f252d0858a2300037dae2138116ea4",
+}
+
+
+def _window_mesh_call(case):
+    from mesh_streams import crafted_call
+
+    mode, rays, degree, bsub, opts = case
+    return crafted_call(mode, rays, degree, block_sub=bsub, device="cuda",
+                        **(BAND if opts == "band" else {}))
+
+
+def _case_name(case) -> str:
+    mode, rays, degree, bsub, opts = case
+    return f"{mode} R{rays} sh{degree} bsub{bsub}" + (f" {opts}" if opts else "")
+
+
+def _window_mesh_digest(case) -> str:
+    import hashlib
+
+    args, kw = _window_mesh_call(case)
+    rgb, t_final, (fired, repaired) = tmarch.march(*args, **kw, stats=True)
+    h = hashlib.sha256()
+    for x in (rgb, t_final, fired, repaired):
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _window_mesh_digests() -> dict:
+    return {_case_name(case): _window_mesh_digest(case) for case in WINDOW_MESH_CASES}
+
+
+@pytest.mark.parametrize("case", WINDOW_MESH_CASES, ids=_case_name)
+def test_window_mesh_crafted_matches_plain_and_parent(case):
+    """K1 window order on crafted block-mode and segment calls (reversed
+    lists, equal keys, ns = C, ns of 0 to 2, dead lanes, dead warps, an all
+    dead tile above the skip threshold, t_hi within two ulps of an entry;
+    the span repair's band): at the K1 bars of the plain version, the
+    per-tile fired and repaired chunks equal, two launches bit-identical,
+    and the bits the kernels of commit 9d9cbcd gave (WINDOW_MESH_DIGESTS)."""
+    args, kw = _window_mesh_call(case)
+    counter = "block_launches" if case[0] == "block" else "segment_launches"
+    before = getattr(tmarch.march, counter)
+    got = tmarch.march(*args, **kw, stats=True)
+    again = tmarch.march(*args, **kw, stats=True)
+    torch.cuda.synchronize()
+    assert getattr(tmarch.march, counter) == before + 2
+    assert all(torch.equal(a, b) for a, b in zip((*got[:2], *got[2]), (*again[:2], *again[2])))
+    want = tmarch.march_plain(*args, **kw, stats=True)
+    _kernel_close(got[:2], want[:2])
+    for a, b in zip(got[2], want[2]):
+        assert torch.equal(a, b)
+    assert int(got[2][0].sum()) > 0 and float(got[1].min()) < 0.5
+    if case[4] == "band":
+        assert int(got[2][1].sum()) > 0  # the band's window sort ran
+    assert _window_mesh_digest(case) == WINDOW_MESH_DIGESTS[_case_name(case)]
+
