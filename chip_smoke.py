@@ -268,7 +268,7 @@ def kernel_name(kernel: str, order: str, C: int, degree: int, R: int, *, scalar:
     per-ray origins `scalar`), saved carries `train`, and kMaxR from R rays a
     tile: the 256-ray build up to 256 rays, the 1024-ray one up to 1024, else
     the cluster build (kClusterR, 8192: one ray a thread up to 8192 rays,
-    several above)."""
+    several above; merge order's is march_merge_cluster_kernel)."""
     K, b = (degree + 1) ** 2, lambda x: f"Lb{int(x)}E"
     build = f"Li{256 if R <= 256 else 1024 if R <= 1024 else 8192}E"  # kMaxR
     if kernel == "march_bwd":
@@ -276,8 +276,9 @@ def kernel_name(kernel: str, order: str, C: int, degree: int, R: int, *, scalar:
     resp = f"Li{2 if quad else int(scalar)}E"  # k1::Resp
     if order == "window":
         return f"12march_kernelILi{C}E{resp}Li{K}E{b(train)}{build}"
-    if order == "merge":
-        return f"18march_merge_kernelILi{C}E{resp}Li{K}E{build}"
+    if order == "merge":  # above 1024 rays its own cluster kernel
+        return (f"26march_merge_cluster_kernelILi{C}E{resp}Li{K}E{b(R > 8192)}E" if R > 1024
+                else f"18march_merge_kernelILi{C}E{resp}Li{K}E{build}")
     return f"16march_key_kernelILi{C}E{resp}Li{K}E{b(train)}{build}"
 
 
@@ -358,7 +359,18 @@ def k1_stops(args, kw=None) -> dict:
     under the sort key (pass 2's insertion-sort shifts), mean and 99th
     percentile, and per warp of those the mean of its lanes' largest
     (warp_ns_mean, warp_inv_mean: a warp's loop runs as long as its longest
-    lane's)."""
+    lane's). Merge order, the work of the merge kernel's design at commit
+    309918a (PERF.md's step 0 of its redesign; the cluster build since lists
+    only the significant candidates and copies no pending buffer), summed over the
+    rays (merge_counts): the marched and slow (tile, chunk) pairs and the
+    slow ones on a fresh pending buffer; pass 1's evaluations and, above
+    8192 rays, the first pass's; the insertion's shifts (the inversions of
+    each ray's C keys); the walk's steps (2C a slow chunk, C on a fresh
+    buffer), the significant slots it moves into the pending buffer and
+    those that composite (fast chunks: the pending buffer's); above 8192
+    rays the bytes a ray's pending buffer moved in and out of device memory
+    (every marched chunk); and the cluster barriers a tile (skip test and
+    fast test a chunk, the last skip test, the end)."""
     import torch
 
     from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
@@ -381,6 +393,9 @@ def k1_stops(args, kw=None) -> dict:
         return oo * D - od * od > (thr + 2e-6 * oo.abs()) * D
 
     orig_chunk, orig_window = kmarch._chunk_plain, kmarch._window_composite
+    orig_merge = kmarch._merge_composite
+    mc = {k: 0 for k in ("chunks", "slow", "fresh_slow", "shifts", "walk_steps", "sig_moves",
+                         "sig_composited")}
     state = {}  # the live rays of the batch whose chunk window_hook composites
     tile_chunks = torch.zeros(dirs_t.shape[0], dtype=torch.int64, device=dev)  # marched
 
@@ -480,11 +495,33 @@ def k1_stops(args, kw=None) -> dict:
             acc["warp_inv"] += int(inv.reshape(-1, r // 32, 32).amax(-1)[wl].sum())
         return orig_window(t_carry, a, t_ev, cols, min_t, train, opts)
 
+    def merge_hook(t_carry, a, t_ev, cols, pend, min_t, scan=False):
+        B, c, R = a.shape
+        pk, pa, _ = pend
+        keys, kb, has_inv = kmarch.merge_keys(a, t_ev)
+        new_min = torch.where(a > 0.0, kb, kmarch._IMAX).amin(dim=1)
+        pend_max = torch.where(pa > 0.0, pk, kmarch._IMIN).amax(dim=1)
+        slow = ~(~has_inv & (new_min >= pend_max).all(dim=1))
+        fresh = (pk == kmarch._IMIN).flatten(1).all(dim=1)
+        mc["chunks"] += B
+        mc["slow"] += int(slow.sum())
+        mc["fresh_slow"] += int((slow & fresh).sum())
+        mc["walk_steps"] += int(torch.where(fresh, c, 2 * c)[slow].sum()) * R
+        for i in range(1, c):  # the shifts that insert key i after keys 0..i-1
+            mc["shifts"] += int((keys[slow, :i] > keys[slow, i:i + 1]).sum())
+        union = torch.sort(torch.cat([pk, keys], dim=1), dim=1, stable=True)[1]
+        u_sig = torch.gather(torch.cat([pa, a], 1) > 0.0, 1, union)
+        mc["sig_moves"] += int(u_sig[slow, c:].sum())
+        mc["sig_composited"] += int(u_sig[slow, :c].sum()) + int((pa[~slow] > 0.0).sum())
+        return orig_merge(t_carry, a, t_ev, cols, pend, min_t, scan)
+
     kmarch._chunk_plain, kmarch._window_composite = chunk_hook, window_hook
+    kmarch._merge_composite = merge_hook
     try:
         kmarch.march_plain(*args, **kw)
     finally:
         kmarch._chunk_plain, kmarch._window_composite = orig_chunk, orig_window
+        kmarch._merge_composite = orig_merge
     n, nl = max(1, acc["pairs"]), max(1, acc["live"])
     out = {f"stop_{k}": acc[k] / n for k in names}
     out.update(sure_miss_share=acc["sure_miss"] / nl,
@@ -500,6 +537,24 @@ def k1_stops(args, kw=None) -> dict:
         out.update(fire_share=acc["fired"] / max(1, acc["fire_chunks"]), ns_mean=ns_mean,
                    ns_p99=ns_p99, inv_mean=inv_mean, inv_p99=inv_p99,
                    warp_ns_mean=acc["warp_ns"] / fw, warp_inv_mean=acc["warp_inv"] / fw)
+    if cfg.order == "merge":  # merge_counts
+        T, R, C = dirs_t.shape[0], dirs_t.shape[1], args[4]
+        multi = R > 8192
+        marched = mc["chunks"] * R  # (ray, chunk) pairs
+        starts = args[0]
+        n_chunks = (starts[1:] - starts[:-1] + C - 1).div(C, rounding_mode="floor")
+        stopped = int((tile_chunks < n_chunks).sum())  # a skip test that ended the tile
+        fields = 5 + 3 * C + C // 32  # csrc/march.cuh merge_fields
+        out["merge_counts"] = dict(
+            chunks=mc["chunks"], slow=mc["slow"], fresh_slow=mc["fresh_slow"],
+            slow_share=mc["slow"] / max(1, mc["chunks"]),
+            evals=acc["pairs"], evals_first=acc["pairs"] if multi else 0,
+            shifts=mc["shifts"], walk_steps=mc["walk_steps"], sig_moves=mc["sig_moves"],
+            sig_composited=mc["sig_composited"],
+            copy_bytes=2 * 4 * fields * marched if multi else 0,
+            barriers_per_tile=(2 * mc["chunks"] + stopped + T) / max(1, T),
+            per_ray_chunk={k: mc[k] / max(1, marched) for k in ("shifts", "walk_steps",
+                                                                 "sig_moves")})
     return out
 
 
@@ -658,6 +713,35 @@ def k4_check(phase: str, what: str, args, kw) -> tuple[float, int]:
                f"{int(stats[:, 0].sum())} blocks staged, the kernel's counts those of "
                f"pretest_stats")
     return err, hits
+
+
+def merge_cluster_crafted(phase: str, rays: tuple) -> dict:
+    """K1 merge order's cluster build on the crafted calls of
+    tests/test_torch_gpu.py's MERGE_CLUSTER_CASES at these tile widths
+    (tests/merge_cluster_streams.py): each launch's (rgb, t_final) bit for
+    bit as MERGE_CLUSTER_DIGESTS (the kernels of commit 309918a) and at the
+    K1 bars of march_plain. Returns {case: max abs difference}."""
+    import hashlib
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_gpu as gpu_tests
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+
+    errs = {}
+    for case in gpu_tests.MERGE_CLUSTER_CASES:
+        if case[1] not in rays:
+            continue
+        name = gpu_tests._merge_case_name(case)
+        args, kw = gpu_tests._merge_cluster_call(case)
+        h = hashlib.sha256()
+        for x in kmarch.march(*args, **kw):
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        check(h.hexdigest() == gpu_tests.MERGE_CLUSTER_DIGESTS[name],
+              f"K1 merge crafted {name}: not the bits of commit 309918a")
+        errs[name] = k1_check(phase, f"merge crafted {name}", args, kw)
+    log(phase, f"merge order's crafted cluster calls at R in {rays}: {len(errs)} bit for bit "
+               f"as commit 309918a's")
+    return errs
 
 
 def k1_train_check(what: str, got, want) -> float:
@@ -3575,6 +3659,7 @@ def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
                                   lambda: ktri.closest_hit_blocks_plain(*k4_args, **k4_kw),
                                   lambda: tri_bound(k4_args, k4_kw)),
                             tri_design(k4_args, k4_kw))
+    crafted = merge_cluster_crafted("K1cluster", (2048, 8192))
     for name, (t, d) in times.items():
         log("kernel", f"wider {name}: {t[0]:.3f} ms (device {t[3]:.3f}), plain {t[1]:.3f} ms, "
                       f"bound {t[2][0]:.4f} ms ({t[2][1]}); cluster {d.get('cluster_blocks')} "
@@ -3599,7 +3684,8 @@ def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
             max(errs[f"{order}_2048"], errs[f"{order}_4096"]),
             f"{order}_2048", {"rays": 2048, "rays_4096": sub(*times[f"{order}_4096"]),
                               "frame_psnr_vs_plain": {R: frame_psnr[f"{order}_{R}"]
-                                                      for R in tiles}})
+                                                      for R in tiles},
+                              **({"crafted_max_abs_err": crafted} if order == "merge" else {})})
         for order in ("window", "key", "merge")
     ] + [
         row("march_cluster_save_tin", "march.cuh", k1_src, counted["march.save_tin_launches"],
@@ -3893,6 +3979,7 @@ def huge_tile_phase(dev, card: str, scene, pose, views, init) -> list:
                          lambda: ktri.closest_hit_blocks_plain(*k4_args, **k4_kw),
                          lambda: tri_bound(k4_args, k4_kw), "k4"),
                    tri_design(k4_args, k4_kw))
+    crafted = merge_cluster_crafted("K1huge", (8320, 16384))
     for name, (t, d) in times.items():
         log("kernel", f"huge {name}: {t[0]:.3f} ms (device {fms(t[3])}), plain {t[1]:.3f} ms, "
                       f"bound {t[2][0]:.4f} ms ({t[2][1]}); cluster {d.get('cluster_blocks')} "
@@ -3924,7 +4011,8 @@ def huge_tile_phase(dev, card: str, scene, pose, views, init) -> list:
              **({f"rays_{R}": {**sub(*times[f"window_{R}"]),
                                "max_abs_err": errs[f"window_{R}"], "launches": main["window", R],
                                "frame_psnr_vs_plain": frame_psnr[f"window_{R}"]}
-                 for R in (8320, 24576, 65536)} if order == "window" else {})})
+                 for R in (8320, 24576, 65536)} if order == "window" else {}),
+             **({"crafted_max_abs_err": crafted} if order == "merge" else {})})
         for order in ("window", "key", "merge", "oddeven")
     ] + [
         row("march_huge_single_tile_key", "march.cuh", k1_src, single_launches, errs["single"],

@@ -33,10 +33,12 @@
 // marches one ray. Above, each thread marches cluster_slots(R) = ceil(R /
 // 8192) rays in turn (slot s: ray s * 8192 + rank * 1024 + thread; `multi`,
 // a runtime value of the same builds), one ray's lists in local memory at a time:
-// its T, colour and counts (merge order: its pending buffer too) wait in
-// device memory between its turns (Params::carry, (scratch_tiles, fields, R), sized by
-// carry_fields), where local memory would be reserved for every resident
-// thread of the card times the slots. Each block stages the chunk's rows in
+// its T, colour and counts wait in device memory between its turns
+// (Params::carry, (scratch_tiles, fields, R), sized by carry_fields), where
+// local memory would be reserved for every resident thread of the card
+// times the slots. Merge order's cluster build is a kernel of its own
+// (march_merge_cluster_kernel), whose pending buffers stay in that scratch
+// through the launch. Each block stages the chunk's rows in
 // its own shared memory, once for all its slots. Every decision that spans the
 // tile is made tile-wide through distributed shared memory (tile_reduce: the
 // block's value, then the blocks' in rank order, exact as a min or max), each
@@ -186,7 +188,11 @@
 // moves while T > min_t). The TPU's bitonic merge duplicates one payload on
 // equal keys between pending and chunk (the same kb and source index in
 // two chunks); this kernel and march_plain keep both, pending first. The
-// 256-ray build runs two blocks per SM (blocks_per_sm).
+// 256-ray build runs two blocks per SM (blocks_per_sm). Above 1024 rays
+// march_merge_cluster_kernel gives the same results from other lists: only
+// the chunk's significant candidates listed (sorted among themselves), its
+// insignificant keys generated in the walk, and above 8192 rays each
+// slot's pending buffer in Params::carry (see there).
 //
 // Rows (`stride` floats apart). Quad: at SH 0 the 16-float compact rows
 // [op, q00 q11 q22 q01 q02 q12, vx vy vz, cq, oo, r g b, pad] or the
@@ -250,7 +256,11 @@
 // a key read at a slot that differs from lane to lane, and the moves of
 // the significant slots' alphas and packs: 24 C bytes of local memory per
 // ray, more than L1 holds, so the walk's scattered reads decide the time
-// (PERF.md). The float math stays IEEE float32 with no FMA contraction (the
+// (PERF.md). On wide tiles 85-96% of a ray's candidates are insignificant
+// and the insertion shifted each out-of-order significant key past them
+// (122-361 shifts a ray and chunk at c = 128): the cluster build lists the
+// significant ones alone (PERF.md). The float math stays IEEE float32 with
+// no FMA contraction (the
 // wrapper builds with -fmad=false): pp = oo - od^2/dd cancels by orders of
 // magnitude, and matching the plain version's per-operation rounding keeps
 // kernel and reference comparable. No tensor cores and no TF32 anywhere.
@@ -1671,9 +1681,10 @@ __host__ __device__ constexpr int merge_smem_bytes(int R) {
 // and the occupancy launch_mode asks for: blocks_per_sm).
 constexpr int kMergeMinBlocks = 2;
 
-// Fields of a ray's carried state in the merge kernel (Params::carry): T,
-// the colour, pend_max, then the pending buffer (C keys, C alphas, C colour
-// packs, C / 32 mask words), bits as floats.
+// Fields of a ray's carried state in the cluster merge kernel, several
+// rays a thread (Params::carry): T, the colour, pend_max, then the pending
+// buffer (C keys, C alphas, C colour packs, C / 32 mask words), bits as
+// floats.
 __host__ __device__ constexpr int merge_fields(int C) {
   return 5 + 3 * C + C / 32;
 }
@@ -1682,24 +1693,18 @@ template <int C, int kR, int K, int kMaxR>
 __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kMergeMinBlocks : 1)
     march_merge_kernel(Params p) {
   using L = Layout<kR, K, false>;
-  constexpr int W = L::w, kCol = L::col, kWords = C / 32, kF = merge_fields(C);
-  constexpr bool kCl = kMaxR >= kClusterR;
+  constexpr int W = L::w, kCol = L::col, kWords = C / 32;
   extern __shared__ __align__(16) float sf[];  // merge_smem_bytes
   float* thr = sf + C * W;
   uint32_t* mask = reinterpret_cast<uint32_t*>(thr + C);
-  __shared__ float red[kCl ? kClusterRed : 32];
+  __shared__ float red[32];
 
-  const TileIdx ti = tile_index<kCl>(p);
+  const TileIdx ti = tile_index<false>(p);
   const int tile = ti.tile, R = blockDim.x, tid = threadIdx.x;  // R: the block's rays (masks)
-  // several rays a thread (more than kClusterR rays a tile, cluster
-  // builds): each slot's ray in turn, its state and pending buffer in p.carry
-  // between its turns
-  const bool multi = kCl && ti.slots > 1;
-  const int slots = multi ? ti.slots : 1;
   const int start = p.starts[tile];
   const int n = p.starts[tile + 1] - start;
   float3 ob;
-  Ray ray = load_ray_for<kR, kCl>(p, ti, sf, ob);
+  Ray ray = load_ray_for<kR, false>(p, ti, sf, ob);
   float basis[K];
   if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
 
@@ -1725,249 +1730,551 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? kMer
   bool fresh = true;  // block-uniform: no chunk marched yet, so the pending buffer is C empties
   int32_t pend_max = INT32_MIN;  // largest key of a significant pending slot
   const bool peak = p.peak != 0, fast_gate = peak && p.full_range != 0;
-  int par = 0;  // tile_reduce's exchange slots (cluster builds)
+  int par = 0;
   float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
 
-  // the current slot (several rays a thread): take() makes slot s current
-  // (its ray; with `state` T, the colour, pend_max and, unless `fresh`, its
-  // pending buffer into buffer 0), keep() stores it back. Their copies of
-  // the buffer are not unrolled: unrolled at C = 32 and 64 they spill the
-  // registers of the whole build (2874 B at C = 64), one ray a thread too.
+  for (int j = 0; j * C < n; ++j) {
+    // tile-wide chunk skip (T never changes once every ray is below it)
+    if (tile_reduce1<false>(T, true, red, par) <= p.t_skip) break;
+    const int m = min(C, n - j * C);
+    stage_chunk<C, kR, K, false, 1>(sf, thr, p, start, j, n, ob);
+
+    // pass 1: every candidate once (a sure miss stops before the divide
+    // and the exp, any other miss at alpha); its key inserted into the
+    // sorted keys (a chunk without inversions is already sorted: no
+    // shift), a significant one's alpha and colour pack stored by source
+    // index
+    const int nx = cur ^ 1;
+    int32_t* ck = key[nx];
+    int32_t rmax = INT32_MIN, new_min = INT32_MAX, sig_max = INT32_MIN, last = INT32_MIN;
+    bool inv = false;
+    uint32_t word = 0;
+    for (int i = 0; i < C; ++i) {
+      float t_ev, a = 0.f;
+      if (i < m) evaluate<kR, true>(p, ray, sf + i * W, fast_gate, peak, t_ev, a, thr[i]);
+      int32_t k;
+      if (a > 0.f) {
+        const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
+        inv |= kb < rmax;
+        rmax = max(rmax, kb);
+        new_min = min(new_min, kb);
+        k = kb | i;
+        sig_max = max(sig_max, k);
+        float cr, cg, cb;
+        row_color<kR == kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
+        al[nx][i] = a;
+        cpk[nx][i] = pack_color(cr, cg, cb);
+        word |= 1u << (i & 31);
+      } else {
+        k = rmax | i;
+      }
+      if (k > last) {  // keys are unique within the chunk
+        ck[i] = k;
+        last = k;
+      } else {
+        int pos = i;
+        for (; pos > 0 && ck[pos - 1] > k; --pos) ck[pos] = ck[pos - 1];
+        ck[pos] = k;
+      }
+      if ((i & 31) == 31) {
+        bits(nx, i >> 5) = word;
+        word = 0;
+      }
+    }
+    // the fast test, tile-wide: no ray sees an inversion, and every ray's
+    // least significant key is at or above its pending buffer's largest
+    const bool fast = __syncthreads_and(!inv && new_min >= pend_max);
+
+    Composite comp(T, p.scan);
+    if (fast) {  // the pending buffer composites; the chunk (sorted) replaces it
+      if (!fresh) composite_pending(comp, cur);
+      cur = nx;
+      pend_max = sig_max;
+    } else {
+      // two pointers over the pending buffer and the sorted chunk (pending
+      // first on equal keys): the C smallest composite, the C largest are
+      // written in place into the pending slots already read (slot k - C <
+      // ip). A fresh buffer's C empties are the C smallest: nothing
+      // composites and the sorted chunk becomes the pending buffer. The
+      // heads' keys and the pending mask's word stay in registers; the new
+      // mask's word is stored when its 32 slots are written, after the
+      // reader has left that word.
+      int ip = fresh ? C : 0, ic = 0;
+      int32_t pkey = fresh ? 0 : key[cur][0], ckey = ck[0];
+      uint32_t pw = fresh ? 0u : bits(cur, 0), nw = 0;
+      int32_t new_max = INT32_MIN;
+      for (int k = fresh ? C : 0; k < 2 * C; ++k) {
+        int32_t kk;
+        bool sig;
+        float a = 0.f;
+        uint32_t cp = 0u;
+        if (ic == C || (ip < C && pkey <= ckey)) {
+          kk = pkey;
+          sig = (pw >> (ip & 31)) & 1u;
+          if (sig) {
+            a = al[cur][ip];
+            cp = cpk[cur][ip];
+          }
+          if (++ip < C) {
+            pkey = key[cur][ip];
+            if ((ip & 31) == 0) pw = bits(cur, ip >> 5);
+          }
+        } else {
+          kk = ckey;
+          const int i = kk & 255;
+          sig = (bits(nx, i >> 5) >> (i & 31)) & 1u;
+          if (sig) {
+            a = al[nx][i];
+            cp = cpk[nx][i];
+          }
+          if (++ic < C) ckey = ck[ic];
+        }
+        if (k < C) {
+          if (sig) add_packed(comp, a, cp, p.min_t);
+        } else {
+          const int s = k - C;
+          key[cur][s] = kk;
+          if (sig) {
+            al[cur][s] = a;
+            cpk[cur][s] = cp;
+            nw |= 1u << (s & 31);
+            new_max = kk;  // the slots ascend
+          }
+          if ((s & 31) == 31) {
+            bits(cur, s >> 5) = nw;
+            nw = 0;
+          }
+        }
+      }
+      pend_max = new_max;
+    }
+    const float t_next = comp.t_next();
+    T = T > p.min_t ? t_next : T;
+    acc_r += comp.r;
+    acc_g += comp.g;
+    acc_b += comp.b;
+    fresh = false;
+  }
+
+  // flush the pending buffer
+  Composite comp(T, p.scan);
+  if (!fresh) composite_pending(comp, cur);
+  const float t_next = comp.t_next();
+  T = T > p.min_t ? t_next : T;
+  store_ray(p, ti, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
+}
+
+// Merge order's cluster build (tiles of more than 1024 rays, launch_mode's
+// kMaxR = kClusterR), the semantics of march_merge_kernel with lists laid
+// out for 1024 threads on an SM. Pass 1 keeps only the chunk's significant
+// candidates, in local memory: their keys in stream order, and the same
+// keys with their alphas and packs sorted by insertion among themselves (3-
+// 16 a ray and chunk on the headline's wide tiles, PERF.md), and the
+// chunk's mask in shared memory ([C / 32][blockDim.x]). The chunk's
+// insignificant keys are not stored: in stream order they ascend (each is
+// the running max of the significant kb before it OR its source index), so
+// the walk generates them from the mask and the stream-order keys. The walk
+// merges three ascending sequences: the pending buffer, the generated
+// insignificant keys and the sorted significant ones (pending first on
+// equal keys; keys are unique within a chunk): the C smallest composite,
+// the C largest are written in place into pending slots already read. A
+// fast chunk composites the pending buffer and then writes the chunk, in
+// its sorted order, into the buffer (the walk without the pending buffer),
+// as a fresh buffer's first chunk does. Dead rays (zero direction: idle
+// lanes past R, dead pixels), whose a is 0 on every candidate, skip pass 1
+// and the walk: they list and composite nothing. One ray a thread (up to
+// 8192 rays, kMulti false) keeps its pending buffer (C keys, alphas and
+// colour packs) in local memory and its mask in shared memory, as
+// march_merge_kernel does. Several (kMulti) keep each slot's pending buffer
+// and mask words in the scratch Params::carry (merge_fields(C) floats a
+// ray, field-major: a warp's rays adjacent), where it stays between a
+// thread's turns: no copy in or out; their T, colour and pend_max wait in
+// carry fields 0-4, and a thread evaluates each slot's candidates once for
+// the tile-wide fast test's inputs and once in pass 1 (PERF.md: 3-4% of
+// the launch).
+template <int C, int kR, int K, bool kMulti>
+__global__ void __launch_bounds__(1024, 1) march_merge_cluster_kernel(Params p) {
+  using L = Layout<kR, K, false>;
+  constexpr int W = L::w, kCol = L::col, kWords = C / 32, kF = merge_fields(C);
+  // the pending buffer's fields in the carry (kMulti): keys, alphas, packs,
+  // mask words
+  constexpr int kPK = 5, kPA = 5 + C, kPC = 5 + 2 * C, kPM = 5 + 3 * C;
+  extern __shared__ __align__(16) float sf[];  // merge_smem_bytes
+  float* thr = sf + C * W;
+  // the chunk's mask, then (one ray a thread) the pending buffer's, each
+  // [C / 32][blockDim.x]
+  uint32_t* qmask = reinterpret_cast<uint32_t*>(thr + C);
+  __shared__ float red[kClusterRed];
+
+  const TileIdx ti = tile_index<true>(p);
+  const int tile = ti.tile, R = ti.R, tid = threadIdx.x, nt = blockDim.x;
+  const int slots = kMulti ? ti.slots : 1;
+  const int start = p.starts[tile];
+  const int n = p.starts[tile + 1] - start;
+  float3 ob;
+  Ray ray = load_ray_for<kR, true>(p, ti, sf, ob);
+  float basis[K];
+  if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+
+  // the chunk's significant candidates: keys in stream order (qkey), and
+  // sorted (skey) with their alphas and packs
+  int32_t qkey[C], skey[C];
+  float sal[C];
+  uint32_t spk[C];
+  int ns = 0;
+  // one ray a thread: the pending buffer
+  int32_t lkey[kMulti ? 1 : C];
+  float lal[kMulti ? 1 : C];
+  uint32_t lpk[kMulti ? 1 : C];
+
+  bool fresh = true;  // block-uniform: no chunk marched yet, the pending buffer is C empties
+  int32_t pend_max = INT32_MIN;  // largest key of a significant pending slot
+  const bool peak = p.peak != 0, fast_gate = peak && p.full_range != 0;
+  int par = 0;  // tile_reduce's exchange slots
+  float T = carry_in(p, ti), acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+
+  // the current slot, its ray, and (kMulti) its field 0 in the carry:
+  // take() makes slot s current, with T, the colour and pend_max; keep()
+  // stores those back
   TileIdx at = ti;
+  float* pb = nullptr;
+  auto P = [&](int f) -> float& { return pb[(size_t)f * R]; };
+  // slot k of the pending buffer: key, alpha, pack; word w of its mask
+  auto pkey_at = [&](int k) -> int32_t& {
+    if constexpr (kMulti) return reinterpret_cast<int32_t&>(P(kPK + k));
+    else return lkey[k];
+  };
+  auto pal_at = [&](int k) -> float& {
+    if constexpr (kMulti) return P(kPA + k);
+    else return lal[k];
+  };
+  auto ppk_at = [&](int k) -> uint32_t& {
+    if constexpr (kMulti) return reinterpret_cast<uint32_t&>(P(kPC + k));
+    else return lpk[k];
+  };
+  auto pmask_at = [&](int w) -> uint32_t& {
+    if constexpr (kMulti) return reinterpret_cast<uint32_t&>(P(kPM + w));
+    else return qmask[(kWords + w) * nt + tid];
+  };
   auto take = [&](int s, bool state) {
     at = ti.slot(s);
     ray = load_ray(p, at);
     if constexpr (kR == kOriginQuad) origin_quad_ray(ray, ob);
-    if (K > 1 && state) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+    pb = at.valid ? &carried(p, at, kF, 0) : nullptr;
     T = acc_r = acc_g = acc_b = 0.f;
     pend_max = INT32_MIN;
-    if (!at.valid) {
-      if (state && !fresh)  // an idle lane's pending buffer: nothing significant
-        for (int w = 0; w < kWords; ++w) bits(0, w) = 0u;
-      cur = 0;
-      return;
-    }
-    pend_max = __float_as_int(carried(p, at, kF, 4));
+    if (!at.valid) return;
+    pend_max = __float_as_int(P(4));
     if (!state) return;
-    T = carried(p, at, kF, 0);
-    acc_r = carried(p, at, kF, 1);
-    acc_g = carried(p, at, kF, 2);
-    acc_b = carried(p, at, kF, 3);
-    cur = 0;
-    if (fresh) return;
-#pragma unroll 1
-    for (int k = 0; k < C; ++k) {
-      key[0][k] = __float_as_int(carried(p, at, kF, 5 + k));
-      al[0][k] = carried(p, at, kF, 5 + C + k);
-      cpk[0][k] = __float_as_uint(carried(p, at, kF, 5 + 2 * C + k));
-    }
-#pragma unroll 1
-    for (int w = 0; w < kWords; ++w) bits(0, w) = __float_as_uint(carried(p, at, kF, 5 + 3 * C + w));
+    if (K > 1) sh_basis<K>(ray.dx, ray.dy, ray.dz, basis);
+    T = P(0);
+    acc_r = P(1);
+    acc_g = P(2);
+    acc_b = P(3);
   };
   auto keep = [&]() {
     if (!at.valid) return;
-    carried(p, at, kF, 0) = T;
-    carried(p, at, kF, 1) = acc_r;
-    carried(p, at, kF, 2) = acc_g;
-    carried(p, at, kF, 3) = acc_b;
-    carried(p, at, kF, 4) = __int_as_float(pend_max);
-    if (fresh) return;
-#pragma unroll 1
-    for (int k = 0; k < C; ++k) {
-      carried(p, at, kF, 5 + k) = __int_as_float(key[cur][k]);
-      carried(p, at, kF, 5 + C + k) = al[cur][k];
-      carried(p, at, kF, 5 + 2 * C + k) = __uint_as_float(cpk[cur][k]);
-    }
-#pragma unroll 1
-    for (int w = 0; w < kWords; ++w) carried(p, at, kF, 5 + 3 * C + w) = __uint_as_float(bits(cur, w));
+    P(0) = T;
+    P(1) = acc_r;
+    P(2) = acc_g;
+    P(3) = acc_b;
+    P(4) = __int_as_float(pend_max);
   };
-  if (multi)
+  if constexpr (kMulti)
     for (int s = 0; s < slots; ++s) {
       at = ti.slot(s);
+      pb = at.valid ? &carried(p, at, kF, 0) : nullptr;
       T = carry_in(p, at);
       keep();
     }
 
+  // composite the pending buffer's significant slots, in slot order
+  auto composite_pending = [&](Composite& comp) {
+    for (int w = 0; w < kWords; ++w)
+      for (uint32_t m = pmask_at(w); m; m &= m - 1) {
+        const int s = w * 32 + __ffs(m) - 1;
+        add_packed(comp, pal_at(s), ppk_at(s), p.min_t);
+      }
+  };
+
+  // pass 1 of the current ray over the staged chunk of m candidates (a live
+  // ray; a sure miss stops before the divide and the exp, any other miss at
+  // alpha): the significant ones listed, the mask written, and the fast
+  // test's inputs
+  bool inv = false;
+  int32_t new_min = INT32_MAX;
+  auto pass1 = [&](int m) {
+    int32_t rmax = INT32_MIN;
+    uint32_t word = 0;
+    for (int i = 0; i < C; ++i) {
+      float t_ev, a = 0.f;
+      if (i < m) evaluate<kR, true>(p, ray, sf + i * W, fast_gate, peak, t_ev, a, thr[i]);
+      if (a > 0.f) {
+        const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
+        inv |= kb < rmax;
+        rmax = max(rmax, kb);
+        new_min = min(new_min, kb);
+        const int32_t k = kb | i;
+        float cr, cg, cb;
+        row_color<kR == kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
+        const uint32_t cp = pack_color(cr, cg, cb);
+        qkey[ns] = k;
+        int pos = ns++;
+        for (; pos > 0 && skey[pos - 1] > k; --pos) {
+          skey[pos] = skey[pos - 1];
+          sal[pos] = sal[pos - 1];
+          spk[pos] = spk[pos - 1];
+        }
+        skey[pos] = k;
+        sal[pos] = a;
+        spk[pos] = cp;
+        word |= 1u << (i & 31);
+      }
+      if ((i & 31) == 31) {
+        qmask[(i >> 5) * nt + tid] = word;
+        word = 0;
+      }
+    }
+  };
+
+  // The walk: a three-way merge of the pending buffer (from_p; else the
+  // buffer takes no part: it is C empties or has composited), the chunk's
+  // insignificant keys, generated in ascending order from the mask (the
+  // running max of the significant kb before each, OR its index), and its
+  // sorted significant keys. Pending first on equal keys. The C smallest
+  // composite (several rays a thread: found by bisection and merged over
+  // their significant slots alone); the C largest go in place into pending
+  // slots already read, the mask 32 slots at a time once they are written.
+  auto walk = [&](Composite& comp, bool from_p) {
+    // the heads: the pending buffer's key at ip, the next insignificant
+    // key and the next sorted significant one, INT32_MAX once a sequence
+    // is used up (no key reaches it: kb | i <= 0x7F8000FF)
+    int ip = from_p ? 0 : C;
+    int32_t pkey = from_p ? pkey_at(0) : INT32_MAX;
+    uint32_t pw = from_p ? pmask_at(0) : 0u;
+    // the insignificant keys: ipos the next one's index, ikey its key,
+    // gbits the insignificant bits of word gw left after it, gr the
+    // significant candidates in stream order before it, grmax their
+    // largest kb
+    int gw = 0, gr = 0, ipos = 0, nsig = ns > 0 ? (qkey[0] & 255) : C;
+    uint32_t gbits = ~qmask[tid];
+    int32_t grmax = INT32_MIN, ikey = INT32_MAX;
+    auto next_insig = [&]() {
+      while (gbits == 0u && gw < kWords - 1) gbits = ~qmask[++gw * nt + tid];
+      if (gbits == 0u) {
+        ikey = INT32_MAX;
+        return;
+      }
+      ipos = gw * 32 + __ffs(gbits) - 1;
+      gbits &= gbits - 1u;
+      while (nsig < ipos) {  // nsig: the next significant index, C past the last
+        grmax = max(grmax, qkey[gr] & ~0xFF);
+        nsig = ++gr < ns ? (qkey[gr] & 255) : C;
+      }
+      ikey = grmax | ipos;
+    };
+    // several rays a thread: the generator on the chunk's t-th
+    // insignificant key (from 0)
+    auto seek_insig = [&](int t) {
+      gbits = ~qmask[tid];
+      while (gw < kWords - 1 && __popc(gbits) <= t) {
+        t -= __popc(gbits);
+        gbits = ~qmask[++gw * nt + tid];
+      }
+      for (; t > 0 && gbits != 0u; --t) gbits &= gbits - 1u;
+      next_insig();
+    };
+    // the chunk's insignificant keys below x: in each run of indices
+    // between two significant candidates the keys are M | i = M + i, M the
+    // running max before the run (nondecreasing), so those with i < x - M
+    auto insig_below = [&](int32_t x) -> int {
+      int cnt = 0, prev = -1;
+      int32_t M = INT32_MIN;
+      for (int r = 0; r <= ns && M < x; ++r) {
+        const int pr = r < ns ? (qkey[r] & 255) : C;
+        const long long end = min((long long)pr, (long long)x - (long long)M);
+        if (end > prev + 1) cnt += (int)end - (prev + 1);
+        if (r < ns) {
+          M = max(M, qkey[r] & ~0xFF);
+          prev = pr;
+        }
+      }
+      return cnt;
+    };
+    if (!(kMulti && from_p)) next_insig();
+    int js = 0;
+    int32_t skk = ns > 0 ? skey[0] : INT32_MAX;
+    // the next slot of the union: its key, and with its significance its
+    // alpha and pack
+    float a = 0.f;
+    uint32_t cp = 0u;
+    auto step = [&](int32_t& kk) -> bool {
+      if (pkey <= min(skk, ikey)) {  // pending first on equal keys
+        kk = pkey;
+        const bool sig = (pw >> (ip & 31)) & 1u;
+        if (sig) {
+          a = pal_at(ip);
+          cp = ppk_at(ip);
+        }
+        if (++ip < C) {
+          pkey = pkey_at(ip);
+          if ((ip & 31) == 0) pw = pmask_at(ip >> 5);
+        } else {
+          pkey = INT32_MAX;
+        }
+        return sig;
+      }
+      if (skk < ikey) {
+        kk = skk;
+        a = sal[js];
+        cp = spk[js];
+        skk = ++js < ns ? skey[js] : INT32_MAX;
+        return true;
+      }
+      kk = ikey;
+      next_insig();
+      return false;
+    };
+    int32_t kk;
+    if (kMulti && from_p) {
+      // the C smallest composite: the pending buffer's first a_end slots
+      // and the chunk's first C - a_end keys. a_end is the first pending
+      // slot whose place in the union (its index plus the chunk's keys
+      // below it) is C or more, found by bisection; the significant slots
+      // of both parts then composite, merged by key (pending first on
+      // equal keys), and the heads move past them. (One ray a thread
+      // walks them: the bisection's reads cost more than it spares there.)
+      int lo = 0, hi = C;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const int32_t x = pkey_at(mid);
+        int below = 0;
+        while (below < ns && skey[below] < x) ++below;
+        if (mid + below + insig_below(x) >= C)
+          hi = mid;
+        else
+          lo = mid + 1;
+      }
+      const int a_end = lo, b_end = C - lo;
+      int jb = 0;  // the chunk's significant keys among its first b_end
+      while (jb < ns && jb + insig_below(skey[jb]) < b_end) ++jb;
+      for (int w = 0; w * 32 < a_end; ++w) {
+        uint32_t m = pmask_at(w);
+        if (a_end - w * 32 < 32) m &= (1u << (a_end - w * 32)) - 1u;
+        for (; m; m &= m - 1) {
+          const int s = w * 32 + __ffs(m) - 1;
+          const int32_t ks = pkey_at(s);
+          for (; js < jb && skey[js] < ks; ++js) add_packed(comp, sal[js], spk[js], p.min_t);
+          add_packed(comp, pal_at(s), ppk_at(s), p.min_t);
+        }
+      }
+      for (; js < jb; ++js) add_packed(comp, sal[js], spk[js], p.min_t);
+      ip = a_end;
+      pkey = ip < C ? pkey_at(ip) : INT32_MAX;
+      pw = ip < C ? pmask_at(ip >> 5) : 0u;
+      skk = js < ns ? skey[js] : INT32_MAX;
+      seek_insig(b_end - jb);
+    } else if (from_p) {  // the C smallest composite
+      for (int k = 0; k < C; ++k)
+        if (step(kk)) add_packed(comp, a, cp, p.min_t);
+    }
+    // the C largest, in place into pending slots already read (slot s < ip)
+    uint32_t nw = 0;
+    int32_t new_max = INT32_MIN;
+    for (int s = 0; s < C; ++s) {
+      const bool sig = step(kk);
+      pkey_at(s) = kk;
+      if (sig) {
+        pal_at(s) = a;
+        ppk_at(s) = cp;
+        nw |= 1u << (s & 31);
+        new_max = kk;  // the slots ascend
+      }
+      if ((s & 31) == 31) {
+        pmask_at(s >> 5) = nw;
+        nw = 0;
+      }
+    }
+    pend_max = new_max;
+  };
+
   for (int j = 0; j * C < n; ++j) {
     // tile-wide chunk skip (T never changes once every ray is below it)
     float t_max = T;
-    if (multi) {
+    if constexpr (kMulti) {
       t_max = 0.f;
       for (int s = 0; s < slots; ++s) {
         const TileIdx t = ti.slot(s);
         if (t.valid) t_max = fmaxf(t_max, carried(p, t, kF, 0));
       }
     }
-    if (tile_reduce1<kCl>(t_max, true, red, par) <= p.t_skip) break;
+    if (tile_reduce1<true>(t_max, true, red, par) <= p.t_skip) break;
     const int m = min(C, n - j * C);
     stage_chunk<C, kR, K, false, 1>(sf, thr, p, start, j, n, ob);
 
     // several rays a thread: the fast test's inputs of every slot first
-    // (each candidate's key, no lists), past it each slot's full pass 1
+    // (each candidate's key, no lists), past it each slot's pass 1
     bool ok_all = true;
-    if (multi)
+    if constexpr (kMulti)
       for (int s = 0; s < slots; ++s) {
         take(s, false);
-        int32_t rmax = INT32_MIN, new_min = INT32_MAX;
-        bool inv = false;
+        if (!ray.live) continue;
+        int32_t rmax = INT32_MIN, nmin = INT32_MAX;
+        bool qinv = false;
         for (int i = 0; i < m; ++i) {
           float t_ev, a;
           evaluate<kR, true>(p, ray, sf + i * W, fast_gate, peak, t_ev, a, thr[i]);
           if (!(a > 0.f)) continue;
           const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
-          inv |= kb < rmax;
+          qinv |= kb < rmax;
           rmax = max(rmax, kb);
-          new_min = min(new_min, kb);
+          nmin = min(nmin, kb);
         }
-        ok_all &= !inv && new_min >= pend_max;
+        ok_all &= !qinv && nmin >= pend_max;
       }
 
     for (int sl = 0; sl < slots; ++sl) {
-      if (multi) take(sl, true);
-      // pass 1: every candidate once (a sure miss stops before the divide
-      // and the exp, any other miss at alpha); its key inserted into the
-      // sorted keys (a chunk without inversions is already sorted: no
-      // shift), a significant one's alpha and colour pack stored by source
-      // index
-      const int nx = cur ^ 1;
-      int32_t* ck = key[nx];
-      int32_t rmax = INT32_MIN, new_min = INT32_MAX, sig_max = INT32_MIN, last = INT32_MIN;
-      bool inv = false;
-      uint32_t word = 0;
-      for (int i = 0; i < C; ++i) {
-        float t_ev, a = 0.f;
-        if (i < m) evaluate<kR, true>(p, ray, sf + i * W, fast_gate, peak, t_ev, a, thr[i]);
-        int32_t k;
-        if (a > 0.f) {
-          const int32_t kb = __float_as_int(fmaxf(t_ev, 0.f)) & ~0xFF;
-          inv |= kb < rmax;
-          rmax = max(rmax, kb);
-          new_min = min(new_min, kb);
-          k = kb | i;
-          sig_max = max(sig_max, k);
-          float cr, cg, cb;
-          row_color<kR == kScalar, K>(sf + i * W + kCol, basis, cr, cg, cb);
-          al[nx][i] = a;
-          cpk[nx][i] = pack_color(cr, cg, cb);
-          word |= 1u << (i & 31);
-        } else {
-          k = rmax | i;
-        }
-        if (k > last) {  // keys are unique within the chunk
-          ck[i] = k;
-          last = k;
-        } else {
-          int pos = i;
-          for (; pos > 0 && ck[pos - 1] > k; --pos) ck[pos] = ck[pos - 1];
-          ck[pos] = k;
-        }
-        if ((i & 31) == 31) {
-          bits(nx, i >> 5) = word;
-          word = 0;
-        }
-      }
+      if constexpr (kMulti) take(sl, true);
+      // a dead ray (zero direction) lists nothing and composites nothing
+      const bool live = at.valid && ray.live;
+      ns = 0;
+      inv = false;
+      new_min = INT32_MAX;
+      if (live) pass1(m);
       // the fast test, tile-wide: no ray sees an inversion, and every ray's
       // least significant key is at or above its pending buffer's largest
       bool fast;
-      if (multi) {
-        if (sl == 0) ok_all = tile_reduce1<kCl>(ok_all ? 1.f : 0.f, false, red, par) != 0.f;
+      if constexpr (kMulti) {
+        if (sl == 0) ok_all = tile_reduce1<true>(ok_all ? 1.f : 0.f, false, red, par) != 0.f;
         fast = ok_all;
       } else {
         const bool ok = !inv && new_min >= pend_max;
-        if constexpr (kCl)
-          fast = tile_reduce1<kCl>(ok ? 1.f : 0.f, false, red, par) != 0.f;
-        else
-          fast = __syncthreads_and(ok);
+        fast = tile_reduce1<true>(ok ? 1.f : 0.f, false, red, par) != 0.f;
       }
-
+      if (!live) continue;
       Composite comp(T, p.scan);
-      if (fast) {  // the pending buffer composites; the chunk (sorted) replaces it
-        if (!fresh) composite_pending(comp, cur);
-        cur = nx;
-        pend_max = sig_max;
-      } else {
-        // two pointers over the pending buffer and the sorted chunk (pending
-        // first on equal keys): the C smallest composite, the C largest are
-        // written in place into the pending slots already read (slot k - C <
-        // ip). A fresh buffer's C empties are the C smallest: nothing
-        // composites and the sorted chunk becomes the pending buffer. The
-        // heads' keys and the pending mask's word stay in registers; the new
-        // mask's word is stored when its 32 slots are written, after the
-        // reader has left that word.
-        int ip = fresh ? C : 0, ic = 0;
-        int32_t pkey = fresh ? 0 : key[cur][0], ckey = ck[0];
-        uint32_t pw = fresh ? 0u : bits(cur, 0), nw = 0;
-        int32_t new_max = INT32_MIN;
-        for (int k = fresh ? C : 0; k < 2 * C; ++k) {
-          int32_t kk;
-          bool sig;
-          float a = 0.f;
-          uint32_t cp = 0u;
-          if (ic == C || (ip < C && pkey <= ckey)) {
-            kk = pkey;
-            sig = (pw >> (ip & 31)) & 1u;
-            if (sig) {
-              a = al[cur][ip];
-              cp = cpk[cur][ip];
-            }
-            if (++ip < C) {
-              pkey = key[cur][ip];
-              if ((ip & 31) == 0) pw = bits(cur, ip >> 5);
-            }
-          } else {
-            kk = ckey;
-            const int i = kk & 255;
-            sig = (bits(nx, i >> 5) >> (i & 31)) & 1u;
-            if (sig) {
-              a = al[nx][i];
-              cp = cpk[nx][i];
-            }
-            if (++ic < C) ckey = ck[ic];
-          }
-          if (k < C) {
-            if (sig) add_packed(comp, a, cp, p.min_t);
-          } else {
-            const int s = k - C;
-            key[cur][s] = kk;
-            if (sig) {
-              al[cur][s] = a;
-              cpk[cur][s] = cp;
-              nw |= 1u << (s & 31);
-              new_max = kk;  // the slots ascend
-            }
-            if ((s & 31) == 31) {
-              bits(cur, s >> 5) = nw;
-              nw = 0;
-            }
-          }
-        }
-        pend_max = new_max;
-      }
+      if (fast && !fresh) composite_pending(comp);
+      walk(comp, !(fast || fresh));
       const float t_next = comp.t_next();
       T = T > p.min_t ? t_next : T;
       acc_r += comp.r;
       acc_g += comp.g;
       acc_b += comp.b;
-      if (multi) {
-        const bool was_fresh = fresh;
-        fresh = false;  // the pending buffer now holds this chunk
-        keep();
-        fresh = was_fresh;
-      }
+      if constexpr (kMulti) keep();
     }
     fresh = false;
   }
 
   // flush the pending buffer
   for (int s = 0; s < slots; ++s) {
-    if (multi) take(s, true);
+    if constexpr (kMulti) take(s, true);
     Composite comp(T, p.scan);
-    if (!fresh) composite_pending(comp, cur);
+    if (!fresh && at.valid && ray.live) composite_pending(comp);
     const float t_next = comp.t_next();
     T = T > p.min_t ? t_next : T;
-    store_ray(p, multi ? at : ti, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
+    store_ray(p, at, acc_r + comp.r, acc_g + comp.g, acc_b + comp.b, T);
   }
-  tile_end<kCl>();
+  tile_end<true>();
 }
 
 // Resident 256-ray blocks per SM: ask for the smallest shared-memory
@@ -2072,7 +2379,8 @@ cudaError_t launch_mode(const Params& p, int order, int n_tiles, int R, cudaStre
   const bool wide = R > 256;  // the 1024-ray builds
   constexpr int kCR = kClusterR;
   void (*kernel)(Params) =
-      order == 2   ? (cl     ? march_merge_kernel<C, kR, K, kCR>
+      order == 2   ? (cl     ? (cluster_slots(R) > 1 ? march_merge_cluster_kernel<C, kR, K, true>
+                                                    : march_merge_cluster_kernel<C, kR, K, false>)
                       : wide ? march_merge_kernel<C, kR, K, 1024>
                              : march_merge_kernel<C, kR, K, 256>)
       : order == 1 ? (cl     ? march_key_kernel<C, kR, K, false, kCR>

@@ -18,7 +18,11 @@ what window order's pass 2 sorts (chip_smoke.k1_stops: the shares of
 (ray, slot) pairs of dead rays, sure misses, alpha <= alpha_min, past
 t_hi, other gate misses and significant ones, per-warp shares, the
 live-ray share, the tiles marched and the most chunks one marched, and
-ns and the insertion sort's inversions per ray of a fired chunk).
+ns and the insertion sort's inversions per ray of a fired chunk; on merge
+rows merge_counts, the work of the merge design of commit 309918a: the
+slow and fresh-slow chunks, evaluations, the insertion's shifts, the
+walk's steps and significant moves, the carried state's bytes and the
+cluster barriers).
 
     git archive <commit> gaussian_ray_tracing_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/torch_redesign_ab.py build/parent/gaussian_ray_tracing_tpu_torch/csrc \
@@ -44,7 +48,9 @@ segment, glass_front's block mode at block_sub 1 and 2, the headline on
 two training forwards with saved carries), cluster (the cluster builds at one
 ray a thread: the headline on 64x32, 64x64 and 128x64 tiles, R = 2048, 4096
 and 8192, at c=128, and on 64x64 at c=64 and 32, in window, key and merge
-order, and the key and window training forwards and K3 on 64x64 tiles) and
+order; at two rays a thread, merge order on 130x64 and 128x128 tiles, R =
+8320 (the second slot 128 rays) and 16,384; and the key and window
+training forwards and K3 on 64x64 tiles) and
 scan (K2 at (2, 2,097,152), the
 headline's pair capacity, and (16, 1,000,003), exact, with its bound, the
 plain version's and torch.cumsum's times, tiles, blocks per SM,
@@ -489,6 +495,10 @@ def main() -> None:
                 cfg = bench.replace(order=order, tile_w=tw, tile_h=th, march_chunk=c)
                 k1_case(f"{order} headline 720p/100k {tw}x{th} tiles c={c}",
                         stream_args(scene, pose, cfg), {})
+        for (tw, th) in ((130, 64), (128, 128)):  # two rays a thread (8320: the second 128)
+            cfg = bench.replace(order="merge", tile_w=tw, tile_h=th)
+            k1_case(f"merge headline 720p/100k {tw}x{th} tiles c=128",
+                    stream_args(scene, pose, cfg), {})
         for case in train_cases:
             if case[1] is init:
                 train_case(f"{case[0]} 64x64 tiles", *case[1:3],

@@ -2065,3 +2065,111 @@ def test_window_mesh_crafted_matches_plain_and_parent(case):
         assert int(got[2][1].sum()) > 0  # the band's window sort ran
     assert _window_mesh_digest(case) == WINDOW_MESH_DIGESTS[_case_name(case)]
 
+
+
+# --- K1 merge order's cluster build: crafted calls on tiles of 2048 to
+# 16,384 rays (tests/merge_cluster_streams.py) ---------------------------------
+
+# (mode, rays, SH degree, chunk, block_sub): one ray a thread at 2048 and 8192
+# rays, two at 8320 (the second slot 128 rays, its other lanes idle) and
+# 16,384; the quad response from the eye, the scalar and the quad response
+# from per-ray origins, and block mode
+MERGE_CLUSTER_CASES = [
+    ("quad", 2048, 0, 128, 1), ("quad", 2048, 3, 64, 1), ("quad", 8192, 0, 32, 1),
+    ("quad", 8320, 3, 128, 1), ("quad", 16384, 0, 64, 1), ("quad", 16384, 0, 128, 1),
+    ("origin", 2048, 3, 128, 1), ("origin", 8320, 0, 64, 1), ("origin", 16384, 0, 128, 1),
+    ("origin_quad", 2048, 0, 128, 1), ("origin_quad", 8192, 3, 64, 1),
+    ("origin_quad", 16384, 0, 32, 1), ("block", 2048, 0, 128, 1), ("block", 8192, 3, 64, 2),
+    ("block", 8320, 0, 128, 2), ("block", 16384, 3, 128, 1)]
+
+# SHA-256 of K1's (rgb, t_final) on each crafted call, from the kernels of
+# commit 309918a (before the merge kernel's cluster build was redesigned),
+# measured on an NVIDIA H100 80GB HBM3 (700.00 W) by _merge_cluster_digests
+MERGE_CLUSTER_DIGESTS = {
+    "quad R2048 sh0 c128":
+        "f3caf2eac97ef73bc6b228e5b5121e06e9c0a8921e6bc89cc0afc24cc2152361",
+    "quad R2048 sh3 c64":
+        "49b516f74e8cd8f3e7fbaa88f82875617eb3b9e50f49a157bd885f8fe9d2b943",
+    "quad R8192 sh0 c32":
+        "6229012257b95282338647740b67b57015a8f03632ba71079ea36484a83056b6",
+    "quad R8320 sh3 c128":
+        "fb210bea5bcad0353c6381e34c2759e484e4d3f877a084a2e78c40d23bd8200a",
+    "quad R16384 sh0 c64":
+        "c85e3cbd3b6f8ce4a574d1c2b54da4242470c5cdb8841125eb2819b9e2438068",
+    "quad R16384 sh0 c128":
+        "577ec613f806048016faebfeb325eb45f55756c335a04b127e0788e6ca6cd0e9",
+    "origin R2048 sh3 c128":
+        "0fcaf2ab6f649fa1bd93429ed40ceb51b9c76298117aa0e4287bb68790c085b5",
+    "origin R8320 sh0 c64":
+        "9258fb43390baab0a4aef02da3dfeaf4cbcbf2829886c710a8901918884bb9dc",
+    "origin R16384 sh0 c128":
+        "9d775b580667d2c9a0f24e97d827eb0c61edf34fd8907d306686fb8161ed1482",
+    "origin_quad R2048 sh0 c128":
+        "ffeb7511cd1d99d475cd4ceceae3a90db9ed83f3a13dca8cfe8c8da1e01e8dd6",
+    "origin_quad R8192 sh3 c64":
+        "80050feff47b3209740ce6bc506b4bd70617ed796e4320423b152a9ead696632",
+    "origin_quad R16384 sh0 c32":
+        "31dd583432b595b7807a73e104be918bf3dd94bf8463cf44dd59aa4ea086f591",
+    "block R2048 sh0 c128":
+        "6ab0a523ba702ba4e61049c8204a6e441ccf415d3ec196a73701b41e9da5f372",
+    "block R8192 sh3 c64 bsub2":
+        "4a61b057950ee60bfc6bc379779546645b5471358f7661b61ac6beb8cc992215",
+    "block R8320 sh0 c128 bsub2":
+        "daad255613b2c924ccce88d30587f8425b575705cee24ed6f9a3c4fa8b0b4cbd",
+    "block R16384 sh3 c128":
+        "09d317091d1b717b66c905338f6ee0cf27673d4fbbf6722ba8d425a61e5a8533",
+}
+
+
+def _merge_cluster_call(case):
+    from merge_cluster_streams import crafted_merge_call
+
+    mode, rays, degree, chunk, bsub = case
+    return crafted_merge_call(mode, rays, degree, chunk, block_sub=bsub, device="cuda")
+
+
+def _merge_case_name(case) -> str:
+    mode, rays, degree, chunk, bsub = case
+    return f"{mode} R{rays} sh{degree} c{chunk}" + (f" bsub{bsub}" if bsub > 1 else "")
+
+
+def _merge_cluster_digest(case) -> str:
+    import hashlib
+
+    args, kw = _merge_cluster_call(case)
+    h = hashlib.sha256()
+    for x in tmarch.march(*args, **kw):
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _merge_cluster_digests() -> dict:
+    return {_merge_case_name(case): _merge_cluster_digest(case) for case in MERGE_CLUSTER_CASES}
+
+
+@pytest.mark.parametrize("case", MERGE_CLUSTER_CASES, ids=_merge_case_name)
+def test_merge_cluster_crafted_matches_plain_and_parent(case):
+    """K1 merge order's cluster build on crafted calls (a tile whose every
+    chunk passes the fast test, reversed chunks, a fresh buffer's first
+    slow chunk, keys equal across the pending buffer and the chunk, chunks
+    without a significant candidate, a tile the skip cuts off, random
+    chunks with dead lanes; idle lanes past R at 8320): at the K1 bars of
+    the plain version, two launches bit-identical, and the bits the kernels
+    of commit 309918a gave (MERGE_CLUSTER_DIGESTS)."""
+    args, kw = _merge_cluster_call(case)
+    rays = case[1]
+    counters = ("merge_launches", "cluster_launches", "slot_launches",
+                "merge_block_launches")
+    before = {c: getattr(tmarch.march, c) for c in counters}
+    got = tmarch.march(*args, **kw)
+    again = tmarch.march(*args, **kw)
+    torch.cuda.synchronize()
+    want = {"merge_launches": 2, "cluster_launches": 2, "slot_launches": 2 * (rays > 8192),
+            "merge_block_launches": 2 * (case[0] == "block")}
+    assert {c: getattr(tmarch.march, c) - before[c] for c in counters} == want
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = tmarch.march_plain(*args, **kw)
+    _kernel_close(got, plain)
+    assert 0 < tmarch.march_plain.slow < tmarch.march_plain.chunks
+    assert float(got[1].min()) < 0.02 and float(got[1].max()) > 0.1
+    assert _merge_cluster_digest(case) == MERGE_CLUSTER_DIGESTS[_merge_case_name(case)]
