@@ -744,6 +744,32 @@ def merge_cluster_crafted(phase: str, rays: tuple) -> dict:
     return errs
 
 
+def k3_wide_crafted(rays: tuple) -> dict:
+    """K3's 1024-ray and cluster builds on the crafted calls of
+    tests/test_torch_gpu.py's K3_WIDE_CASES at these tile widths
+    (tests/bwd_wide_streams.py): each launch's d_rows bit for bit as
+    K3_WIDE_DIGESTS (the kernels of commit 1d2f322) and at the K3 bars of
+    march_bwd_plain (k3_check). Returns {case: max abs difference}."""
+    import hashlib
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_gpu as gpu_tests
+    from gaussian_ray_tracing_tpu_torch.ops import march_bwd as kbwd
+
+    errs = {}
+    for case in gpu_tests.K3_WIDE_CASES:
+        if case[2] not in rays:
+            continue
+        name = gpu_tests._k3_case_name(case)
+        args, kw = gpu_tests._k3_wide_call(case)
+        got = kbwd.march_bwd(*args, **kw).contiguous().cpu().numpy()
+        check(hashlib.sha256(got.tobytes()).hexdigest() == gpu_tests.K3_WIDE_DIGESTS[name],
+              f"K3 crafted {name}: not the bits of commit 1d2f322")
+        errs[name] = k3_check(f"crafted {name}", args, kw)
+    log("K3", f"crafted calls at R in {rays}: {len(errs)} bit for bit as commit 1d2f322's")
+    return errs
+
+
 def k1_train_check(what: str, got, want) -> float:
     """K1 with saved carries against march_plain on one stream: rgb and T
     at the quad-path bars, the carries to TIN_ABS, chunk_base equal.
@@ -3057,7 +3083,8 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
     720p / 100k headline (`pose`) with conic_cull, with row_span and with
     both, fisheye_768 / 100k with fisheye_cull, and the fisheye glass_front
     mesh frame with fisheye_cull. Then every new K1 and K3 launch held
-    against its plain version (k1_train_check, k3_check, k1_check), timed
+    against its plain version (k1_train_check, k3_check, k1_check; K3's
+    crafted calls at R = 1024 also to commit 1d2f322's bits, k3_wide_crafted), timed
     against it with its bound and build (`design` at its R); each culled
     stream drop-free and a subset of the uncut one, its key-order image
     within 5e-4 of the uncut one (JAX tests/test_conic_cull.py:131-154,
@@ -3390,6 +3417,7 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
                  **dict(zip(("bound_ms", "bound_by"), bound(2 * x.numel() * 4, x.numel()))),
                  **scan_design(x)}
         log("K2", f"{C} channels x {cap}: exact; {json.dumps(k2[C])} ({card})")
+    k3_crafted = k3_wide_crafted((1024,))
     log("phase", f"wide tiles and culls in {time.perf_counter() - t_phase:.1f} s")
 
     src = f"{PKG}/csrc"
@@ -3422,7 +3450,7 @@ def wide_tile_phase(dev, card: str, scene, pose, views, init) -> list:
             times["key_sh0_1024"][3],
             {"rays": 1024, **k3_sub(("window_sh0_1024", "key_sh3_1024", "window_sh3_1024",
                                      "key_sh0_512", "window_sh0_512")),
-             "origins_1024": sub(*times["bwd_origin"])}),
+             "origins_1024": sub(*times["bwd_origin"]), "crafted_max_abs_err": k3_crafted}),
         row("march_wide_origin_quad", "march.cuh", k1_src, main["origin_quad_launches"],
             max(frame_err.values()), *times["origin_quad"], {"rays": 1024}),
         row("march_wide_origin_quad_save_tin", "march.cuh", k1_src,
@@ -3459,7 +3487,10 @@ def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
     bit with its counts those of pretest_stats), timed against it with its
     bound and `design` at its R (cluster size, registers, spills, resident
     clusters), the training streams and the glass_front bounces at R = 4096
-    too; the frames against the plain path's. Returns the kernel rows."""
+    too; the frames against the plain path's; the crafted calls of K1 merge
+    order and of K3 at R = 2048 and 8192 bit for bit as their parent
+    commits' (merge_cluster_crafted, k3_wide_crafted). Returns the kernel
+    rows."""
     import numpy as np
     import torch
 
@@ -3660,6 +3691,7 @@ def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
                                   lambda: tri_bound(k4_args, k4_kw)),
                             tri_design(k4_args, k4_kw))
     crafted = merge_cluster_crafted("K1cluster", (2048, 8192))
+    k3_crafted = k3_wide_crafted((2048, 8192))
     for name, (t, d) in times.items():
         log("kernel", f"wider {name}: {t[0]:.3f} ms (device {t[3]:.3f}), plain {t[1]:.3f} ms, "
                       f"bound {t[2][0]:.4f} ms ({t[2][1]}); cluster {d.get('cluster_blocks')} "
@@ -3699,7 +3731,7 @@ def wider_tile_phase(dev, card: str, scene, pose, views, init) -> list:
             max(v for k, v in errs.items() if k.startswith("bwd_")), "bwd_key_2048",
             {"rays": 2048, "key_4096": sub(*times["bwd_key_4096"]),
              "window_2048": sub(*times["bwd_window_2048"]),
-             "window_4096": sub(*times["bwd_window_4096"])}),
+             "window_4096": sub(*times["bwd_window_4096"]), "crafted_max_abs_err": k3_crafted}),
         row("march_cluster_origin_quad", "march.cuh", k1_src,
             counted["march.origin_quad_launches"],
             max(errs[f"origin_quad_{o}"] for o in ("window", "key", "merge")), "origin_quad",
@@ -3733,7 +3765,10 @@ def huge_tile_phase(dev, card: str, scene, pose, views, init) -> list:
     version (K1 at the K1 bars, K3 at the K3 bars with two launches
     bit-identical, K4 bit for bit with its counts those of pretest_stats),
     timed against it with its bound and `design`, and beside the same frame
-    at 64x64 tiles (R = 4096) and 16x16 in turns. Returns the kernel rows."""
+    at 64x64 tiles (R = 4096) and 16x16 in turns; the crafted calls of K1
+    merge order and of K3 at R = 8320 and 16,384 bit for bit as their
+    parent commits' (merge_cluster_crafted, k3_wide_crafted). Returns the
+    kernel rows."""
     import numpy as np
     import torch
 
@@ -3980,6 +4015,7 @@ def huge_tile_phase(dev, card: str, scene, pose, views, init) -> list:
                          lambda: tri_bound(k4_args, k4_kw), "k4"),
                    tri_design(k4_args, k4_kw))
     crafted = merge_cluster_crafted("K1huge", (8320, 16384))
+    k3_crafted = k3_wide_crafted((8320, 16384))
     for name, (t, d) in times.items():
         log("kernel", f"huge {name}: {t[0]:.3f} ms (device {fms(t[3])}), plain {t[1]:.3f} ms, "
                       f"bound {t[2][0]:.4f} ms ({t[2][1]}); cluster {d.get('cluster_blocks')} "
@@ -4026,7 +4062,8 @@ def huge_tile_phase(dev, card: str, scene, pose, views, init) -> list:
             {"rays": 16384}),
         row("march_bwd_huge", "march_bwd.cuh", k3_src, counted["march_bwd.slot_launches"],
             max(errs["bwd_key"], errs["bwd_window"]), "bwd_key",
-            {"rays": 16384, "window": sub(*times["bwd_window"])}),
+            {"rays": 16384, "window": sub(*times["bwd_window"]),
+             "crafted_max_abs_err": k3_crafted}),
         row("march_huge_origin_quad", "march.cuh", k1_src,
             counted["march.origin_quad_launches"],
             max(v for k, v in errs.items() if k.startswith("origin_quad")), "origin_quad_16384",

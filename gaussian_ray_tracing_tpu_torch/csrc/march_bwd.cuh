@@ -28,7 +28,8 @@
 //      known from the saved carries);
 //   3. key order, pass A: each ray evaluates every candidate once with the
 //      operations of K1's eval_scalar; a miss (alpha at or below alpha_min)
-//      stops at alpha. Its gate sets a bit of a register mask (C / 32
+//      stops at alpha, and a dead ray (an idle lane of a cluster too)
+//      evaluates nothing. Its gate sets a bit of a register mask (C / 32
 //      words, ceil(c / 32) of them used; a tail group of kGroup past c is
 //      cut to the chunk); for a gated candidate the exclusive prefix of log1p(-a)
 //      (summed sequentially, in the order the forward K1 summed it), P =
@@ -36,10 +37,11 @@
 //      advance; the chunk's new dT follows;
 //   3'. window order (the replay, pallas_march.py:1343-1425): pass A
 //      evaluates every candidate once, with the operations K1 used (event
-//      t, alpha, gate), sets the mask bit of a significant (a > 0) one and
-//      keeps its a, colour pack and order key (the event t, or t* under
-//      window_key "peak", :1343-1360) in compact local lists, in
-//      stream order (12 bytes per significant candidate, none for a miss),
+//      t, alpha, gate; a dead ray none), sets the mask bit of a
+//      significant (a > 0) one and keeps its a, colour pack and order key
+//      (the event t, or t* under window_key "peak", :1343-1360) in compact
+//      local lists, in stream order (12 bytes per significant candidate,
+//      none for a miss),
 //      and repeats K1's tile-wide fire test; a fired chunk sorts its
 //      significant candidates by the unique key (tq16 << 8) | k, the compact
 //      index k in place of src (the same order: both ascend with the
@@ -541,13 +543,19 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
 
     // window order: the current ray's significant candidates of the chunk
     // in its compact lists, its inversion test and key range, and its gate
-    // mask (a > 0)
+    // mask (a > 0); a dead ray (an idle lane) has none, so it evaluates
+    // nothing (its evaluations would stop at alpha)
     auto listing = [&]() {
       inv = false;
       float rmax = -INFINITY;
       lo = INFINITY;
       hi = -INFINITY;
       ns = 0;
+      if (!rb.live) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w) mask[w] = 0u;
+        return;
+      }
 #pragma unroll 1
       for (int w = 0; w < NW; ++w) {
         uint32_t bits = 0u;
@@ -604,9 +612,9 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
         t_in = ok ? tin[(size_t)j * R + at.ray] : 0.f;
         if (kWindow) listing();
       }
-      // ---- pass A: every candidate once (a miss stops at alpha); the gate
-      // mask (window: a > 0), and in key order the prefix, P, d_P and the
-      // chunk's dT ----
+      // ---- pass A: every candidate once (a miss stops at alpha; a dead
+      // ray or an idle lane evaluates none); the gate mask (window: a > 0),
+      // and in key order the prefix, P, d_P and the chunk's dT ----
       float base = 0.f, D = 0.f;
       if (kWindow) {
         // ---- the listed order: a fired chunk sorts by the unique key
@@ -662,27 +670,32 @@ __global__ void __launch_bounds__(kMaxR == 256 ? 256 : 1024, kMaxR == 256 ? 2 : 
         }
       } else {
         float S = 0.f, sum_dpe = 0.f;
+        if (rb.live) {
 #pragma unroll 1
-        for (int w = 0; w < NW; ++w) {
-          uint32_t bits = 0u;
-          const int i0 = w * 32, e_end = min(32, m - i0);
-          for (int b = 0; b < e_end; ++b) {
-            const Cand cd = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
-            const Eval e = evaluate<kOrig>(p, cd, rb);
-            if (!e.gate) continue;  // a = 0: no term of the sums moves
-            bits |= 1u << b;
-            const float E = expf(S);
-            const float P = t_in * E;
-            const float gw = P > p.min_t ? 1.f : 0.f;
-            float d_w = 0.f;
-            for (int ch = 0; ch < 3; ++ch)
-              d_w = d_w + dR[ch] * fmaxf(raw_color<K>(cd, ch, basis), 0.f);
-            const float d_P = d_w * e.a * gw;
-            sum_dpe += d_P * E;
-            D += d_P * P;
-            S += log1pf(-e.a);
+          for (int w = 0; w < NW; ++w) {
+            uint32_t bits = 0u;
+            const int i0 = w * 32, e_end = min(32, m - i0);
+            for (int b = 0; b < e_end; ++b) {
+              const Cand cd = load_cand<K, kOrig>(sf + (i0 + b) * kS, p.eye);
+              const Eval e = evaluate<kOrig>(p, cd, rb);
+              if (!e.gate) continue;  // a = 0: no term of the sums moves
+              bits |= 1u << b;
+              const float E = expf(S);
+              const float P = t_in * E;
+              const float gw = P > p.min_t ? 1.f : 0.f;
+              float d_w = 0.f;
+              for (int ch = 0; ch < 3; ++ch)
+                d_w = d_w + dR[ch] * fmaxf(raw_color<K>(cd, ch, basis), 0.f);
+              const float d_P = d_w * e.a * gw;
+              sum_dpe += d_P * E;
+              D += d_P * P;
+              S += log1pf(-e.a);
+            }
+            push_word(mask, bits);
           }
-          push_word(mask, bits);
+        } else {
+#pragma unroll
+          for (int w = 0; w < NW; ++w) mask[w] = 0u;
         }
         const float prod = expf(S);
         base = dT * t_in * prod;

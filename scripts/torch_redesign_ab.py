@@ -26,7 +26,7 @@ cluster barriers).
 
     git archive <commit> gaussian_ray_tracing_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/torch_redesign_ab.py build/parent/gaussian_ray_tracing_tpu_torch/csrc \
-        [out.json] [--only render|modes|merge|train|mesh|key|scan|cluster] \
+        [out.json] [--only render|modes|merge|train|mesh|key|scan|cluster|bwd] \
         [--this <csrc dir>] \
         [--pairs N]
 
@@ -50,7 +50,18 @@ ray a thread: the headline on 64x32, 64x64 and 128x64 tiles, R = 2048, 4096
 and 8192, at c=128, and on 64x64 at c=64 and 32, in window, key and merge
 order; at two rays a thread, merge order on 130x64 and 128x128 tiles, R =
 8320 (the second slot 128 rays) and 16,384; and the key and window
-training forwards and K3 on 64x64 tiles) and
+training forwards and K3 on 64x64 tiles), bwd (K3 alone, bit for bit
+against the other build: first the crafted calls of
+tests/test_torch_gpu.py's K3_WIDE_CASES, each build's SHA-256 digest and
+whether it holds chip_smoke's K3 bars, taken apart, so that no failure
+hides the rest; then the 512x512 training views: 50k gaussians at
+SH 0 and fitted_20k.ply at SH 3 in key and window order on tiles of 256,
+512, 1024, 2048, 4096, 8192, 8320 and 16,384 rays, and from per-ray
+origins with windows, a rolling shutter, at 1024 and 2048 rays; each row
+with k3_shares, modelled in torch on the same rows: idle, dead,
+sure-miss and gated shares of the (lane, candidate) pairs, the empty warp
+slots and block and tile groups; a failed check is reported after the
+group) and
 scan (K2 at (2, 2,097,152), the
 headline's pair capacity, and (16, 1,000,003), exact, with its bound, the
 plain version's and torch.cumsum's times, tiles, blocks per SM,
@@ -60,19 +71,22 @@ carry the share of (ray, block) pairs and of (ray, face) tests that its
 pretests skip (the kernel's own counts) and a modelled load balance. A
 build without K4's pretests (no grt_closest_hit_info) is called without
 the bounds and stats, which it does not take; a build from before the
-single-pass K2 with its own scratch size. --this takes another
+single-pass K2 with its own scratch size. K3 rows check torch.equal
+against the other build (bwd) or report it (bit_identical) with their
+difference from it (max_rel_vs_other: train, key, cluster). --this takes another
 copy of csrc/ in place of the package's own. --pairs N times each case in
 N rounds of those turns (default 1) and adds, per case, each round's
 device time of this build over the other's (dev_ratios), their median and
 the rounds this build was the faster in (this_faster_rounds). Run from the repository root.
 Writes the rows and the ptxas table to out.json (build/redesign_ab.json by
-default) and prints one line per case; exits non-zero if a check fails or
-there is no GPU.
+default; the rows so far where a check fails) and prints one line per case;
+exits non-zero if a check fails or there is no GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
 import json
 import statistics
@@ -86,7 +100,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (its helpers; it imports torch lazily)
 
 REPS = 10  # launches per timed turn
-GROUPS = ("render", "modes", "merge", "train", "mesh", "key", "scan", "cluster")
+GROUPS = ("render", "modes", "merge", "train", "mesh", "key", "scan", "cluster", "bwd")
 
 
 class _WithoutPretests:
@@ -120,6 +134,173 @@ class _ThreePassScan:
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
+
+
+def k3_shares(args, kw=None) -> dict:
+    """Modelled in torch (float32, K3's `evaluate` in its operations' order)
+    over the chunks K3 replays (those its skip replay keeps): what the
+    replay's lanes evaluate and what its group sums add. Per (lane,
+    candidate) pair, a lane of each slot of each block of the tile's launch
+    (idle lanes past R included): the shares of idle lanes, dead rays,
+    pairs K1's sure-miss test stops (sure_miss and miss_threshold, where dd
+    >= 1e-6), pairs with dd below 1e-6 and pairs through the gate; per
+    (slot, warp, candidate) slot the share with no lane through the gate
+    (empty_warp_slot_share); per (slot, block, group of 16 candidates) the
+    share no warp of the block gated (empty_block_group_share); per (tile,
+    chunk, group) the share no lane of any slot or block gated
+    (empty_tile_group_share); and the replayed (tile, chunk) pairs."""
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+
+    kw = kw or {}
+    starts, rows, dirs_t, eye, tin, chunk_base, _, _, cfg, c = args
+    T, R = dirs_t.shape[:2]
+    dev = dirs_t.device
+    blocks = 1 if R <= 1024 else -(-R // 1024) if R <= 8192 else 8
+    width = R if R <= 1024 else 1024 if R > 8192 else -(-R // (128 * blocks)) * 128
+    span = blocks * width
+    slots = -(-R // span)
+    lanes = slots * span
+    origins, t_lo_a, t_hi_a = kw.get("origins_t"), kw.get("t_lo"), kw.get("t_hi")
+    dx, dy, dz = dirs_t[..., 0], dirs_t[..., 1], dirs_t[..., 2]
+    live = dx * dx + dy * dy + dz * dz > 0.01
+    counts = (starts[1:] - starts[:-1]).long()
+    n_chunks = -(-counts // c)
+    acc = {k: 0 for k in ("pairs", "idle", "dead", "sure_miss", "small_dd", "gated", "wslots",
+                          "wslots_empty", "bgroups", "bgroups_empty", "tgroups",
+                          "tgroups_empty", "chunks")}
+    batch = max(1, (1 << 23) // (c * R))
+    for j in range(int(n_chunks.max()) if T else 0):
+        has = (n_chunks > j).nonzero().squeeze(1)
+        t_max = tin[chunk_base[has].long() + j].amax(dim=1)
+        for tb in has[t_max > cfg.min_transmittance].split(batch):
+            B = tb.numel()
+            acc["chunks"] += B
+            idx = starts[tb].long()[:, None] + j * c + torch.arange(c, device=dev)[None, :]
+            present = idx < starts[tb + 1].long()[:, None]  # (B, c)
+            f = rows[torch.clamp(idx, max=rows.shape[0] - 1)]
+            col = lambda k: f[:, :, k:k + 1]
+            m = [col(kmarch.T_M0 + k) for k in range(9)]
+            if origins is None:
+                ox, oy, oz = (eye[k] - col(kmarch.T_MX + k) for k in range(3))
+            else:
+                o = origins[tb][:, None]
+                ox, oy, oz = (o[..., k] - col(kmarch.T_MX + k) for k in range(3))
+            d = [x[tb][:, None] for x in (dx, dy, dz)]
+            ogx, ogy, ogz = (m[3 * i] * ox + m[3 * i + 1] * oy + m[3 * i + 2] * oz
+                             for i in range(3))
+            dgx, dgy, dgz = (m[3 * i] * d[0] + m[3 * i + 1] * d[1] + m[3 * i + 2] * d[2]
+                             for i in range(3))
+            dd = dgx * dgx + dgy * dgy + dgz * dgz
+            od = ogx * dgx + ogy * dgy + ogz * dgz
+            oo = ogx * ogx + ogy * ogy + ogz * ogz
+            dd_s = torch.clamp(dd, min=1e-6)
+            t_star = -od / dd_s
+            pp = oo + t_star * (2.0 * od + t_star * dd)
+            op = col(0)
+            alpha = torch.clamp(torch.exp(-0.5 * torch.clamp(pp, min=0.0)) * op,
+                                max=cfg.alpha_clamp)
+            cq = oo - col(kmarch.T_RAD) * col(kmarch.T_RAD)
+            disc = od * od - dd * cq
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            inv_dd = 1.0 / torch.clamp(dd, min=1e-12)
+            t_entry, t_exit = (-od - sq) * inv_dd, (-od + sq) * inv_dd
+            lo = cfg.t_min if t_lo_a is None else t_lo_a[tb][:, None]
+            hi = cfg.t_max if t_hi_a is None else t_hi_a[tb][:, None]
+            t_ev = torch.where(t_entry < lo, t_exit, t_entry)
+            lv = live[tb][:, None] & present[..., None]
+            gate = lv & (alpha > cfg.alpha_min) & (disc >= 0.0) & (t_ev >= lo) & (t_ev <= hi)
+            thr = 2.0 * torch.log(op / cfg.alpha_min) + 1e-4
+            sm = lv & (dd >= 1e-6) & (oo * dd_s - od * od > (thr + 2e-6 * oo.abs()) * dd_s)
+            pres = present[..., None].expand(-1, -1, R)
+            acc["pairs"] += int(present.sum()) * lanes
+            acc["idle"] += int(present.sum()) * (lanes - R)
+            acc["dead"] += int((pres & ~live[tb][:, None]).sum())
+            acc["sure_miss"] += int(sm.sum())
+            acc["small_dd"] += int((lv & (dd < 1e-6)).sum())
+            acc["gated"] += int(gate.sum())
+            g = torch.zeros((B, c, lanes), dtype=torch.bool, device=dev)
+            g[..., :R] = gate
+            g = g.view(B, c, slots, blocks, width // 32, 32).any(-1)  # (B, c, s, b, warps)
+            pw = present[:, :, None, None, None].expand_as(g)
+            acc["wslots"] += int(pw.sum())
+            acc["wslots_empty"] += int((pw & ~g).sum())
+            ng = -(-c // 16)
+            gp = torch.zeros((B, ng * 16, slots, blocks), dtype=torch.bool, device=dev)
+            gp[:, :c] = g.any(-1)
+            gp = gp.view(B, ng, 16, slots, blocks).any(2)  # (B, groups, s, b)
+            has_g = torch.zeros((B, ng * 16), dtype=torch.bool, device=dev)
+            has_g[:, :c] = present
+            has_g = has_g.view(B, ng, 16).any(-1)  # (B, groups)
+            acc["bgroups"] += int(has_g.sum()) * slots * blocks
+            acc["bgroups_empty"] += int((has_g[..., None, None] & ~gp).sum())
+            acc["tgroups"] += int(has_g.sum())
+            acc["tgroups_empty"] += int((has_g & ~gp.any(-1).any(-1)).sum())
+    pairs = max(1, acc["pairs"])
+    return {"replayed_chunks": acc["chunks"], "lane_pairs": acc["pairs"],
+            **{f"{k}_share": acc[k] / pairs for k in ("idle", "dead", "sure_miss", "small_dd",
+                                                       "gated")},
+            "empty_warp_slot_share": acc["wslots_empty"] / max(1, acc["wslots"]),
+            "empty_block_group_share": acc["bgroups_empty"] / max(1, acc["bgroups"]),
+            "empty_tile_group_share": acc["tgroups_empty"] / max(1, acc["tgroups"]),
+            "counts": acc}
+
+
+def k3_train_args(sc, cam, cfg, gen):
+    """(args, kw) of K3 on a training view: the training rows of `sc` seen by
+    `cam` under `cfg`, K1's saved carries from the package's kernels (the
+    scalar response from the eye as per-ray origins in window order, the
+    quad response in key order) and d_rgb, d_tfinal drawn from `gen`."""
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import chunk_for
+    from gaussian_ray_tracing_tpu_torch.models.gpu_renderer import prepare_train_stream
+    from gaussian_ray_tracing_tpu_torch.models.tiled import tile_rays
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+
+    with torch.no_grad():
+        stream, trows, _ = prepare_train_stream(sc, cam, cfg)
+    starts, trows = stream.starts, trows.detach().contiguous()
+    dirs_t = tile_rays(cameras.generate_rays(cam, cfg)[1], cfg.tile_w, cfg.tile_h)
+    chunk = chunk_for(cfg)
+    kw = {"origins_t": cam.eye.expand(dirs_t.shape).contiguous()} if cfg.order == "window" else {}
+    got = kmarch.march(starts, trows, dirs_t, cfg, chunk, save_tin=True, **kw)
+    d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dirs_t.device)
+    d_t = torch.randn(dirs_t.shape[:2], generator=gen, device=dirs_t.device)
+    return (starts, trows, dirs_t, cam.eye, got[2], got[3], d_rgb, d_t, cfg, chunk), {}
+
+
+def k3_origin_args(sc, cfg, gen):
+    """(args, kw) of K3 from per-ray origins and windows: a 512x512 rolling
+    shutter of `sc` (the eye moving 0.05 along x), K1's saved carries from
+    the package's kernels (the per-ray-origin quad response in key order,
+    the scalar one in window order), d_rgb from `gen`, d_tfinal 1."""
+    import torch
+
+    from gaussian_ray_tracing_tpu_torch import cameras
+    from gaussian_ray_tracing_tpu_torch.config import chunk_for
+    from gaussian_ray_tracing_tpu_torch.models.rolling import prepare_rolling_stream
+    from gaussian_ray_tracing_tpu_torch.ops import march as kmarch
+
+    dev = gen.device
+    cam = lambda dx: cameras.Camera.create(eye=(cs.GOLDEN_EYE[0] + dx, *cs.GOLDEN_EYE[1:]),
+                                           lookat=(0.0, 0.0, 0.0), width=512, height=512,
+                                           device=dev)
+    starts, trows, dirs_t, origins_t, _, _ = prepare_rolling_stream(sc, cam(0.0), cam(0.05), cfg,
+                                                                     train=True)
+    trows = trows.detach().contiguous()
+    shape = dirs_t.shape[:2]
+    seg = dict(origins_t=origins_t,
+               t_lo=0.05 + 0.05 * torch.rand(shape, generator=gen, device=dev),
+               t_hi=3.0 + torch.rand(shape, generator=gen, device=dev))
+    chunk = chunk_for(cfg)
+    got = kmarch.march(starts, trows, dirs_t, cfg, chunk, save_tin=True,
+                       quad=cfg.order == "key", **seg)
+    d_rgb = torch.randn(dirs_t.shape, generator=gen, device=dev)
+    return (starts, trows, dirs_t, torch.zeros(3, device=dev), got[2], got[3], d_rgb,
+            torch.ones(shape, device=dev), cfg, chunk), seg
 
 
 def _load(path: Path):
@@ -179,6 +360,7 @@ def main() -> None:
     libs["other"] = cuda_build.declare(_load(other), info=False)
     if not hasattr(libs["other"], "grt_closest_hit_info"):
         libs["other"] = _WithoutPretests(libs["other"])
+    ptxas_other = cuda_build.ptxas_table(cuda_build.build_log)
     cs.log("build", f"this and {opt.other_csrc} built")
 
     def use(name):
@@ -225,6 +407,12 @@ def main() -> None:
                     slow_share=plain.slow / chunks if order == "merge" else None)
 
     rows = []
+
+    def write_rows():  # at exit: where a check fails (cs.fail exits) too
+        opt.out_json.parent.mkdir(parents=True, exist_ok=True)
+        opt.out_json.write_text(json.dumps({"card": card, "rows": rows, "ptxas": ptxas}, indent=1))
+
+    atexit.register(write_rows)
 
     def k1_case(what, args, kw=None):
         """A K1 render call: bit for bit against the other build, against
@@ -438,7 +626,8 @@ def main() -> None:
         rows.append(dict(
             case=what, kernel="K3", pairs=n_pairs, chunk=chunk, ms_other=t3["other"],
             ms_this=t3["this"], plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1],
-            max_rel_vs_other=rel, **dev_times(t3), **info3,
+            max_rel_vs_other=rel, bit_identical=torch.equal(g_this, g_other), **dev_times(t3),
+            **info3,
             ptxas=ptx(cs.kernel_name("march_bwd", cfg.order, info3["build_chunk"],
                                      cfg.sh_degree, R)),
             significant_share=kbwd.march_bwd_plain.significant
@@ -446,7 +635,7 @@ def main() -> None:
             fire_share=kbwd.march_bwd_plain.fired / max(1, kbwd.march_bwd_plain.chunks)))
         cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
-    if any(g in groups for g in ("train", "key", "cluster")):
+    if any(g in groups for g in ("train", "key", "cluster", "bwd")):
         # --- training views, 512x512: the JAX bench's row and fitted_20k.ply
         init = random_scene(50_000, seed=1, device=dev)
         center = ply.center().cpu().numpy()
@@ -503,6 +692,85 @@ def main() -> None:
             if case[1] is init:
                 train_case(f"{case[0]} 64x64 tiles", *case[1:3],
                            case[3].replace(tile_w=64, tile_h=64))
+
+    k3_failed = []  # the bwd group's failed checks, reported after it
+
+    def k3_bars(what, args, kw) -> bool:
+        """Whether K3 under the current build holds chip_smoke's K3 bars
+        (cs.k3_check, which prints why where it does not)."""
+        try:
+            cs.k3_check(what, args, kw)
+        except SystemExit:
+            return False
+        return True
+
+    def bwd_case(what, args, kw):
+        """K3 alone: bit for bit against the other build, at chip_smoke's K3
+        bars of the plain version, timed in turns, with the shares of
+        k3_shares (modelled in torch on the same rows)."""
+        outs = {}
+        for name in ("other", "this"):
+            use(name)
+            outs[name] = kbwd.march_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(outs["other"], outs["this"])
+        bars = k3_bars(what, args, kw)
+        if not (same and bars):
+            k3_failed.append(f"{what}: bit_identical {same}, bars {bars}")
+        t = turns(lambda: kbwd.march_bwd(*args, **kw))
+        plain_ms = cs.cuda_ms(lambda: kbwd.march_bwd_plain(*args, **kw), 1)[0]
+        b = cs.bwd_bound(args, kbwd.march_bwd_plain, kw)
+        cfg, chunk, R = args[8], args[9], args[2].shape[1]
+        info = cuda_build.launch_info("march_bwd", chunk, cfg.sh_degree, R, order=cfg.order,
+                                      scalar=bool(kw))
+        name = cs.kernel_name("march_bwd", cfg.order, info["build_chunk"], cfg.sh_degree, R,
+                              scalar=bool(kw))
+        rows.append(dict(
+            case=what, kernel="K3", rays=R, chunk=chunk, ms_other=t["other"],
+            ms_this=t["this"], plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            bit_identical=same, bars=bars, **dev_times(t), **info, ptxas=ptx(name),
+            ptxas_other=next((v for k, v in ptxas_other.items() if name in k), None),
+            modelled=k3_shares(args, kw)))
+        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+
+    if "bwd" in groups:  # K3 alone on every build: crafted calls, training views, origins
+        # the crafted calls (tests/bwd_wide_streams.py): each build's digest
+        # and its bars apart, and the digests K3_WIDE_DIGESTS records
+        sys.path.insert(0, str(ROOT / "tests"))
+        import hashlib
+
+        import test_torch_gpu as gpu_tests
+
+        crafted = {}
+        for case in gpu_tests.K3_WIDE_CASES:
+            name = gpu_tests._k3_case_name(case)
+            args, kw = gpu_tests._k3_wide_call(case)
+            res = {}
+            for build in ("other", "this"):
+                use(build)
+                out = kbwd.march_bwd(*args, **kw).contiguous().cpu().numpy()
+                res[f"{build}_digest"] = hashlib.sha256(out.tobytes()).hexdigest()
+                res[f"{build}_bars"] = k3_bars(f"crafted {name} ({build})", args, kw)
+            use("this")
+            res["bit_identical"] = res["other_digest"] == res["this_digest"]
+            res["recorded"] = gpu_tests.K3_WIDE_DIGESTS.get(name)
+            crafted[name] = res
+            if not (res["bit_identical"] and res["this_bars"]
+                    and res["recorded"] in (None, res["this_digest"])):
+                k3_failed.append(f"crafted {name}: {json.dumps(res)}")
+        rows.append({"case": "K3 crafted calls", "kernel": "K3", "calls": crafted})
+        cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for tw, th in ((16, 16), (32, 16), (32, 32), (64, 32), (64, 64), (128, 64), (130, 64),
+                       (128, 128)):
+            for what, sc, cam, cfg in train_cases:
+                bwd_case(f"K3 {what[6:]} {tw}x{th} tiles",
+                         *k3_train_args(sc, cam, cfg.replace(tile_w=tw, tile_h=th), gen))
+        for tw, th in ((32, 32), (64, 32)):
+            for cfg in (key, win):
+                bwd_case(f"K3 {cfg.order} per-ray origins 50k sh0 {tw}x{th} tiles",
+                         *k3_origin_args(init, cfg.replace(tile_w=tw, tile_h=th), gen))
+        cs.check(not k3_failed, "K3 checks failed: " + "; ".join(k3_failed))
 
     if "scan" in groups:  # K2 on the headline's pair capacity, exact
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -568,9 +836,6 @@ def main() -> None:
                              **dev_times(t), launches_per_frame=launches))
             cs.log("ab", json.dumps(rows[-1]) + f" ({card})")
 
-    out_json = opt.out_json
-    out_json.parent.mkdir(parents=True, exist_ok=True)
-    out_json.write_text(json.dumps({"card": card, "rows": rows, "ptxas": ptxas}, indent=1))
     print(json.dumps({"ok": True, "card": card}), flush=True)
 
 

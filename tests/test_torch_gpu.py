@@ -2173,3 +2173,127 @@ def test_merge_cluster_crafted_matches_plain_and_parent(case):
     assert 0 < tmarch.march_plain.slow < tmarch.march_plain.chunks
     assert float(got[1].min()) < 0.02 and float(got[1].max()) > 0.1
     assert _merge_cluster_digest(case) == MERGE_CLUSTER_DIGESTS[_merge_case_name(case)]
+
+
+# --- K3 at 1024 rays and on the cluster builds: crafted calls on tiles of
+# 1024 to 16,384 rays (tests/bwd_wide_streams.py) ----------------------------
+
+# (order, origin, rays, SH degree, chunk, seed): the 1024-ray build; the
+# cluster build at one ray a thread (2048, 8192) and at two (8320: the second
+# slot 128 rays, its other lanes idle; 16,384); from the eye and from per-ray
+# origins with windows; key order at any chunk, window order at 32-256. The
+# seed of the data: the first of 0-3 on which the kernels of commit 1d2f322
+# hold these bars (seed 0 of the key calls from the eye at 1024 and 2048
+# rays puts them 1.41-1.44x as far from the float64 witness as the plain
+# version, on one column)
+K3_WIDE_CASES = [
+    ("key", "eye", 1024, 0, 256, 1),
+    ("window", "eye", 1024, 3, 128, 0),
+    ("key", "origins", 1024, 3, 96, 0),
+    ("window", "origins", 1024, 0, 64, 0),
+    ("key", "eye", 2048, 0, 128, 1),
+    ("window", "eye", 2048, 0, 128, 0),
+    ("key", "origins", 2048, 0, 64, 0),
+    ("window", "origins", 2048, 3, 128, 0),
+    ("key", "eye", 8192, 3, 64, 0),
+    ("window", "eye", 8192, 0, 32, 0),
+    ("key", "eye", 8320, 0, 128, 0),
+    ("window", "origins", 8320, 0, 64, 0),
+    ("window", "eye", 8320, 3, 128, 0),
+    ("key", "origins", 16384, 0, 128, 0),
+    ("window", "eye", 16384, 0, 128, 0),
+    ("key", "eye", 16384, 3, 256, 0),
+]
+
+# SHA-256 of K3's d_rows on each crafted call, from the kernels of commit
+# 1d2f322 (before K3's 1024-ray and cluster builds were redesigned), taken on
+# the card by `scripts/torch_redesign_ab.py --only bwd` (its "K3 crafted
+# calls" row)
+K3_WIDE_DIGESTS = {
+    "key eye R1024 sh0 c256 s1":
+        "7cbfacee26c8953fa50981542f516cb84bed4d8a5193f98a5118003032eb8771",
+    "window eye R1024 sh3 c128 s0":
+        "c9d1267752e92b1638377e3429e5615f853a10c4aa4aebd11bc6e06df6631c4e",
+    "key origins R1024 sh3 c96 s0":
+        "de33c0a01a73b3c2231d0669f22fa972e158f1c848c81c27b7b96582b8101a2b",
+    "window origins R1024 sh0 c64 s0":
+        "785dcbeb464f5335a3e29ba1644b4341c9854a377f517ac245be14b7d04f040c",
+    "key eye R2048 sh0 c128 s1":
+        "5f70419adf9f18d98090e54ac431deaa6e626326ce993b2c870abf29422e7ade",
+    "window eye R2048 sh0 c128 s0":
+        "044b16342eb1c30276e07fe1ec6051d5bf38db746560ab019c26cadc1ce0294c",
+    "key origins R2048 sh0 c64 s0":
+        "5560b68236a9d1004fc08f922fa4951e6c754b58a26cd46c7eb131d780c02508",
+    "window origins R2048 sh3 c128 s0":
+        "b2b04f820a915eda08282a8803a66b45eac962c1130e56a8ec07c01d3e720b30",
+    "key eye R8192 sh3 c64 s0":
+        "37ac86dfc7bed4dcff48968044f1ec69e65c6722793ab4657de61c308d77ee95",
+    "window eye R8192 sh0 c32 s0":
+        "2602772d16096b0790168f725ce299f287d422f84255d8ea26fe11e230006412",
+    "key eye R8320 sh0 c128 s0":
+        "11ea0f4ec9011abd3b23d241721ec8ebb95ea2eae887c84a6bb6ef4a70d64480",
+    "window origins R8320 sh0 c64 s0":
+        "2c461020b273e9a0ae39f9747cc97a49e5398e9f1921f398820109a6dfab8e90",
+    "window eye R8320 sh3 c128 s0":
+        "e9685586894c02b5d736ff1e3ec8c441063d2bfe2bf2aa149f9453c05c029dcc",
+    "key origins R16384 sh0 c128 s0":
+        "101d987e8811c913e67b15951b67a6a96486ff0b83b14ed9b27e4ef01b83048e",
+    "window eye R16384 sh0 c128 s0":
+        "600977c0c0b0e9ca835fb8aa14c06871f148ceac2ded58fd43dfb31d4ab96e5b",
+    "key eye R16384 sh3 c256 s0":
+        "29956e163961ad91ddf2cf1f96800ba7596df224819d43a971221a6fb61a6d6d",
+}
+
+
+def _k3_wide_call(case):
+    from bwd_wide_streams import crafted_bwd_call
+
+    order, origin, rays, degree, chunk, seed = case
+    return crafted_bwd_call(order, origin, rays, degree, chunk, seed=seed, device="cuda")
+
+
+def _k3_case_name(case) -> str:
+    order, origin, rays, degree, chunk, seed = case
+    return f"{order} {origin} R{rays} sh{degree} c{chunk} s{seed}"
+
+
+def _k3_wide_digest(case) -> str:
+    import hashlib
+
+    args, kw = _k3_wide_call(case)
+    return hashlib.sha256(tbwd.march_bwd(*args, **kw).contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("case", K3_WIDE_CASES, ids=_k3_case_name)
+def test_k3_wide_crafted_matches_plain_and_parent(case):
+    """K3's 1024-ray and cluster builds on crafted calls (sure misses, every
+    other candidate one, dd below 1e-6, a run of dead rays, candidates one
+    ray alone gates, skipped and empty chunks, idle lanes at 8320): per
+    written column at 1e-3 of march_bwd_plain (2e-3 on the 9 M columns), as
+    close to the float64 witness as the plain version (1.25x), two launches
+    bit-identical, and the bits the kernels of commit 1d2f322 gave
+    (K3_WIDE_DIGESTS)."""
+    args, kw = _k3_wide_call(case)
+    rays, degree = case[2], case[3]
+    counters = ("launches", "cluster_launches", "slot_launches", "origin_launches")
+    before = {c: getattr(tbwd.march_bwd, c) for c in counters}
+    a, b = tbwd.march_bwd(*args, **kw), tbwd.march_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = {"launches": 2, "cluster_launches": 2 * (rays > 1024),
+            "slot_launches": 2 * (rays > 8192), "origin_launches": 2 * (case[1] == "origins")}
+    assert {c: getattr(tbwd.march_bwd, c) - before[c] for c in counters} == want
+    assert torch.equal(a, b)
+    plain = tbwd.march_bwd_plain(*args, **kw)
+    f64 = lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+    witness = tbwd.march_bwd_plain(*map(f64, args), **{k: f64(v) for k, v in kw.items()})
+    diff = tmarch.diff_columns(degree)
+    for i, c in enumerate(tmarch.train_columns(degree)):
+        if c not in diff:
+            assert not a[:, i].any(), i
+            continue
+        bar = 2e-3 if tmarch.T_M0 <= i < tmarch.T_M0 + 9 else 1e-3
+        assert float((a[:, i] - plain[:, i]).abs().max() / plain[:, i].abs().max()) <= bar, i
+        k64, p64 = ((x[:, i] - witness[:, i]).abs().max() for x in (a, plain))
+        assert float(k64) <= 1.25 * float(p64), i
+    assert _k3_wide_digest(case) == K3_WIDE_DIGESTS[_k3_case_name(case)]
